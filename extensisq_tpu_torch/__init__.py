@@ -1,0 +1,32 @@
+"""extensisq_tpu_torch: the PyTorch/CUDA port of extensisq_tpu.
+
+This first slice carries the explicit Runge-Kutta ensemble path:
+
+* :func:`solve` / :func:`solve_ensemble` — the batched on-device solver
+  (final state, counters and status per member), in the dtype of ``y0``;
+* :func:`ops.solve_fused_erk` — the whole adaptive integration in one
+  CUDA kernel launch (float32, optionally compensated);
+* the explicit RK methods as tableau data, and
+  :func:`tableau_from_arrays` for custom tableaux.
+
+Right-hand sides are row-stacked: ``fun(t, y)`` takes ``y`` of shape
+``(n, B)`` with members on the last axis and ``t`` of shape ``(B,)``.
+Public arrays keep the JAX package's ``(B, n)`` layout.  The package
+imports torch and numpy, never jax.
+"""
+from . import ops  # noqa: F401
+from .methods import (  # noqa: F401
+    BS5, Ts5, CK5, CKdisc, Me4, Pr7, Pr8, Pr9, CFMR7osc,
+    EXPLICIT_METHODS, METHODS_BY_NAME)
+from .ops import FusedRHS, solve_fused_erk  # noqa: F401
+from .solve import solve, solve_ensemble, Solution  # noqa: F401
+from .types import ERKTableau, Method, tableau_from_arrays  # noqa: F401
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "solve", "solve_ensemble", "Solution", "ops", "FusedRHS",
+    "solve_fused_erk", "ERKTableau", "Method", "tableau_from_arrays",
+    "BS5", "Ts5", "CK5", "CKdisc", "Me4", "Pr7", "Pr8", "Pr9", "CFMR7osc",
+    "EXPLICIT_METHODS", "METHODS_BY_NAME",
+]

@@ -1,0 +1,14 @@
+"""Fused kernels of the port: whole adaptive integrations in one CUDA
+kernel launch, each with its plain PyTorch version beside it.
+
+* :func:`solve_fused_erk` — explicit RK ensembles, plain float32 and the
+  compensated mixed-precision mode (``csrc/fused_erk.cu``)
+* :class:`FusedRHS` — a right-hand side as a rows-first torch function
+  plus the CUDA source the kernel compiles in
+
+The other fused families of ``extensisq_tpu.ops`` are queued in
+ROADMAP.md (queue B).
+"""
+from .fused_erk import FusedRHS, fused_erk_reference, solve_fused_erk
+
+__all__ = ["FusedRHS", "fused_erk_reference", "solve_fused_erk"]
