@@ -25,16 +25,18 @@
 // right-hand side come from the generated header fused_erk_config.cuh:
 //   namespace tab { N, S, FSAL, A, B, C, E, controller constants, ... }
 //   __device__ void rhs(float t, const float* y, float* dy);
-// Weights are read through constexpr accessors at compile time, so zero
-// weights drop out of the unrolled sums as they do at the JAX trace.
+// (or the template form rhs<T> of the implicit kernels, instantiated as
+// rhs<float>).  Weights are read through constexpr accessors at compile
+// time, so zero weights drop out of the unrolled sums as they do at the JAX
+// trace.  The sums, the double-single helpers and the starting step are
+// shared with the implicit kernel (rk_common.cuh, hstart.cuh).
 //
 // Numerics, each handled where it appears:
 //  * FMA contraction.  nvcc contracts a*b + c into one fma by default.  That
-//    is harmless in the plain sums, but it breaks the compensated mode: in
-//    _comp_wsum the captured error term assumes the product w*r was rounded
-//    on its own.  two_sum, comp_wsum and df_add therefore use __fadd_rn,
-//    __fsub_rn and __fmul_rn, which are never contracted; the rest of the
-//    kernel keeps the default contraction.
+//    is harmless in the plain sums, but it breaks the compensated mode, so
+//    two_sum, comp_wsum and df_add (rk_common.cuh) use __fadd_rn, __fsub_rn
+//    and __fmul_rn, which are never contracted; the rest of the kernel keeps
+//    the default contraction.
 //  * No fast math: powf, log10f and sqrtf feed the controller and the
 //    starting step; the build passes no -use_fast_math.
 //  * Float literals: every literal carries an f suffix, so nothing is
@@ -51,6 +53,8 @@
 #include <math.h>
 
 #include "fused_erk_config.cuh"
+#include "hstart.cuh"
+#include "rk_common.cuh"
 
 namespace {
 
@@ -76,96 +80,13 @@ __host__ __device__ constexpr float weight(int row, int j) {
                                  : (row == kRowE ? tab::E[j] : tab::C[j]));
 }
 
-__host__ __device__ constexpr int first_nonzero(int row, int len) {
-  for (int j = 0; j < len; ++j) {
-    if (weight(row, j) != 0.0f) return j;
-  }
-  return len;
-}
+// Weight row ROW as the shared sums read it.
+template <int ROW>
+struct Row {
+  __host__ __device__ static constexpr float w(int j) { return weight(ROW, j); }
+};
 
 using Stages = float[S + 1][N];
-
-// acc += w_j * K[j] for j in [J, LEN), zero weights dropped.
-template <int ROW, int LEN, int J>
-__device__ __forceinline__ void wsum_tail(float (&acc)[N], const Stages& K) {
-  if constexpr (J < LEN) {
-    constexpr float w = weight(ROW, J);
-    if constexpr (w != 0.0f) {
-#pragma unroll
-      for (int k = 0; k < N; ++k) acc[k] = acc[k] + w * K[J][k];
-    }
-    wsum_tail<ROW, LEN, J + 1>(acc, K);
-  }
-}
-
-// acc = sum_{j < LEN} w_j * K[j], summed in the order of the JAX _wsum.
-template <int ROW, int LEN>
-__device__ __forceinline__ void wsum(float (&acc)[N], const Stages& K) {
-  constexpr int F = first_nonzero(ROW, LEN);
-  if constexpr (F == LEN) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) acc[k] = 0.0f;
-  } else {
-    constexpr float w = weight(ROW, F);
-#pragma unroll
-    for (int k = 0; k < N; ++k) acc[k] = w * K[F][k];
-    wsum_tail<ROW, LEN, F + 1>(acc, K);
-  }
-}
-
-// Knuth's two-sum.  The _rn intrinsics keep nvcc from contracting or
-// reassociating: the error term e is exact only for IEEE-rounded adds.
-__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
-  const float ss = __fadd_rn(a, b);
-  const float bb = __fsub_rn(ss, a);
-  e = __fadd_rn(__fsub_rn(a, __fsub_rn(ss, bb)), __fsub_rn(b, bb));
-  s = ss;
-}
-
-// (hi, lo) + x, double-single accumulate.
-__device__ __forceinline__ void df_add(float hi, float lo, float x,
-                                       float& out_hi, float& out_lo) {
-  float s, e;
-  two_sum(hi, x, s, e);
-  two_sum(s, __fadd_rn(lo, e), out_hi, out_lo);
-}
-
-// Neumaier-compensated tail: products rounded on their own (__fmul_rn), so
-// a contracted fma cannot make the captured error term wrong.
-template <int ROW, int LEN, int J>
-__device__ __forceinline__ void comp_tail(float (&acc)[N], float (&comp)[N],
-                                          const Stages& K) {
-  if constexpr (J < LEN) {
-    constexpr float w = weight(ROW, J);
-    if constexpr (w != 0.0f) {
-#pragma unroll
-      for (int k = 0; k < N; ++k) {
-        float e;
-        two_sum(acc[k], __fmul_rn(w, K[J][k]), acc[k], e);
-        comp[k] = __fadd_rn(comp[k], e);
-      }
-    }
-    comp_tail<ROW, LEN, J + 1>(acc, comp, K);
-  }
-}
-
-// (sum, compensation) of sum_{j < LEN} w_j * K[j], as the JAX _comp_wsum.
-template <int ROW, int LEN>
-__device__ __forceinline__ void comp_wsum(float (&acc)[N], float (&comp)[N],
-                                          const Stages& K) {
-  constexpr int F = first_nonzero(ROW, LEN);
-#pragma unroll
-  for (int k = 0; k < N; ++k) comp[k] = 0.0f;
-  if constexpr (F == LEN) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) acc[k] = 0.0f;
-  } else {
-    constexpr float w = weight(ROW, F);
-#pragma unroll
-    for (int k = 0; k < N; ++k) acc[k] = __fmul_rn(w, K[F][k]);
-    comp_tail<ROW, LEN, F + 1>(acc, comp, K);
-  }
-}
 
 // Stages I..S-1 of one attempt; K[0] holds f(t, y).
 template <bool COMP, int I>
@@ -173,7 +94,7 @@ __device__ __forceinline__ void stages(float t, float h, const float (&y)[N],
                                        const float (&y_lo)[N], Stages& K) {
   if constexpr (I < S) {
     float acc[N], arg[N];
-    wsum<I, I>(acc, K);
+    rk::wsum<Row<I>, I>(acc, K);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const float dy = h * acc[k];
@@ -183,122 +104,6 @@ __device__ __forceinline__ void stages(float t, float h, const float (&y)[N],
     rhs(t + c * h, arg, K[I]);
     stages<COMP, I + 1>(t, h, y, y_lo, K);
   }
-}
-
-// RMS over the state, one member.
-__device__ __forceinline__ float rms(const float (&x)[N]) {
-  float sq = 0.0f;
-#pragma unroll
-  for (int k = 0; k < N; ++k) sq = sq + x[k] * x[k];
-  return sqrtf(sq / static_cast<float>(N));
-}
-
-// Watts' starting step for one member, unsigned: the scalar form of
-// ops/_hstart_tile.py:hstart_tile.  Costs 1 + min(N + 1, 3) RHS calls.
-__device__ float hstart(float a, float b, const float (&y)[N],
-                        const float (&f)[N], float rtol, float atol) {
-  constexpr float kBig = tab::HS_BIG;
-  constexpr float kRelper = tab::HS_RELPER;
-  float etol[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) etol[k] = atol + rtol * fabsf(y[k]);
-
-  const float dx = b - a;
-  const float absdx = fabsf(dx);
-  const float sdx = dx >= 0.0f ? 1.0f : -1.0f;
-
-  // bound on d f / d t
-  float da = sdx * fmaxf(fminf(kRelper * fabsf(a), absdx),
-                         tab::HS_T_FLOOR * fabsf(a));
-  if (da == 0.0f) da = kRelper * dx;
-  float sf[N], yp[N], pv[N], spy[N];
-  rhs(a + da, y, sf);
-#pragma unroll
-  for (int k = 0; k < N; ++k) yp[k] = sf[k] - f[k];
-  float delf = rms(yp);
-  const float dfdxb = delf < kBig * fabsf(da) ? delf / fabsf(da) : kBig;
-  float fbnd = rms(sf);
-
-  // local Lipschitz constant from min(N + 1, 3) probes
-  float dely = kRelper * rms(y);
-  if (dely == 0.0f) dely = kRelper;
-  dely = dely * sdx;
-  delf = rms(f);
-  fbnd = fmaxf(fbnd, delf);
-
-  const bool have_slope = delf != 0.0f;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    spy[k] = have_slope ? f[k] : 0.0f;
-    yp[k] = have_slope ? f[k] : 1.0f;
-  }
-  if (!have_slope) delf = 1.0f;  // rms of a vector of ones
-
-  float dfdub = 0.0f;
-  bool done = false;
-  constexpr int kProbes = N + 1 < 3 ? N + 1 : 3;
-#pragma unroll
-  for (int p = 1; p <= kProbes; ++p) {
-    const float step = dely / (delf == 0.0f ? 1.0f : delf);
-#pragma unroll
-    for (int k = 0; k < N; ++k) pv[k] = y[k] + step * yp[k];
-    if (p == 2) {
-      rhs(a + da, pv, yp);
-#pragma unroll
-      for (int k = 0; k < N; ++k) pv[k] = yp[k] - sf[k];
-    } else {
-      rhs(a, pv, yp);
-#pragma unroll
-      for (int k = 0; k < N; ++k) pv[k] = yp[k] - f[k];
-    }
-    if (!done) fbnd = fmaxf(fbnd, rms(yp));
-    delf = rms(pv);
-    const bool overflow = delf >= kBig * fabsf(dely);
-    if (!done) dfdub = overflow ? kBig : fmaxf(dfdub, delf / fabsf(dely));
-    done = done || overflow;
-    if (p == kProbes) break;
-
-    // next perturbation vector, signs matched to local slopes
-    if (delf == 0.0f) delf = 1.0f;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float dy = p == 2 ? (y[k] != 0.0f ? y[k] : dely / kRelper)
-                              : (pv[k] != 0.0f ? pv[k] : delf);
-      if (spy[k] == 0.0f) spy[k] = yp[k];
-      yp[k] = spy[k] != 0.0f ? fabsf(dy) * (spy[k] >= 0.0f ? 1.0f : -1.0f)
-                             : dy;
-    }
-    delf = rms(yp);
-  }
-
-  // second-derivative bound and tolerance midpoint
-  const float ydpb = dfdxb + dfdub * fbnd;
-  float tolsum = 0.0f;
-  float tolmin = 0.0f;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const float te = log10f(etol[k]);
-    tolsum = tolsum + te;
-    tolmin = k == 0 ? te : fminf(tolmin, te);
-  }
-  tolmin = fminf(tolmin, kBig);
-  const float tolp = powf(
-      10.0f, 0.5f * (tolsum / static_cast<float>(N) + tolmin) /
-                 static_cast<float>(tab::MORDER + 1));
-
-  float h = absdx;
-  const float srydpb = sqrtf(0.5f * fmaxf(ydpb, 0.0f));
-  if (ydpb == 0.0f && fbnd == 0.0f) {
-    if (tolp < 1.0f) h = absdx * tolp;
-  } else if (ydpb == 0.0f) {
-    if (tolp < fbnd * absdx) h = tolp / fbnd;
-  } else if (tolp < srydpb * absdx) {
-    h = tolp / srydpb;
-  }
-  if (dfdub != 0.0f) h = fminf(h, 1.0f / dfdub);
-  h = fmaxf(h, tab::HS_T_FLOOR * fabsf(a));
-  if (h == 0.0f) h = tab::HS_SMALL * fabsf(b);
-  return h;
 }
 
 template <bool COMP>
@@ -330,7 +135,7 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
   if (use_hstart) {
     // max_step is +inf when the caller gave none
     const float bq = t + dir * fminf(fabsf(tf - t), max_step);
-    h_abs = fabsf(hstart(t, bq, y, f, rtol, atol));
+    h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, f, rtol, atol));
     nfev = 2 + (N + 1 < 3 ? N + 1 : 3);
   }
 
@@ -367,17 +172,17 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
     float y_new[N], y_lo_new[N], err[N];
     if constexpr (COMP) {
       float inc_s[N], inc_c[N];
-      comp_wsum<kRowB, S>(inc_s, inc_c, K);
+      rk::comp_wsum<Row<kRowB>, S>(inc_s, inc_c, K);
 #pragma unroll
       for (int k = 0; k < N; ++k) {
         float hi, lo1;
-        df_add(y[k], y_lo[k], __fmul_rn(h, inc_s[k]), hi, lo1);
-        two_sum(hi, __fadd_rn(lo1, __fmul_rn(h, inc_c[k])), y_new[k],
+        rk::df_add(y[k], y_lo[k], __fmul_rn(h, inc_s[k]), hi, lo1);
+        rk::two_sum(hi, __fadd_rn(lo1, __fmul_rn(h, inc_c[k])), y_new[k],
                 y_lo_new[k]);
       }
     } else {
       float inc[N];
-      wsum<kRowB, S>(inc, K);
+      rk::wsum<Row<kRowB>, S>(inc, K);
 #pragma unroll
       for (int k = 0; k < N; ++k) {
         y_new[k] = y[k] + h * inc[k];
@@ -387,12 +192,12 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
     if constexpr (tab::FSAL) rhs(t + h, y_new, K[S]);
     if constexpr (COMP) {
       float e_s[N], e_c[N];
-      comp_wsum<kRowE, M>(e_s, e_c, K);
+      rk::comp_wsum<Row<kRowE>, M>(e_s, e_c, K);
 #pragma unroll
       for (int k = 0; k < N; ++k) err[k] = h * (e_s[k] + e_c[k]);
     } else {
       float e[N];
-      wsum<kRowE, M>(e, K);
+      rk::wsum<Row<kRowE>, M>(e, K);
 #pragma unroll
       for (int k = 0; k < N; ++k) err[k] = h * e[k];
     }
@@ -440,7 +245,7 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
     float t_new, t_lo_new;
     if constexpr (COMP) {
       float t_adv, t_lo_adv;
-      df_add(t, t_lo, h, t_adv, t_lo_adv);
+      rk::df_add(t, t_lo, h, t_adv, t_lo_adv);
       t_new = is_last ? tf : t_adv;
       t_lo_new = is_last ? 0.0f : t_lo_adv;
     } else {

@@ -1,19 +1,21 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C entry point and loaded with ``ctypes``.  The fused ERK
-kernel is specialised per (tableau, right-hand side): a generated header,
-``fused_erk_config.cuh``, holds the method's tableau rounded to float32
-exactly as the JAX kernel rounds it, as ``constexpr`` arrays, and the
-user's CUDA RHS.  The build key hashes the kernel source, that header and
-the flags; the library lands in ``extensisq_tpu_torch/_build/<key>/`` at
-first use and is reused after.  Nothing is built when this module is
-imported.
+Each kernel ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C entry point ``<name>_launch`` and loaded
+with ``ctypes``.  A kernel is specialised per (method, right-hand side,
+mass matrix): a generated header, ``<name>_config.cuh``, holds the
+method's data rounded to float32 exactly as the JAX kernel rounds it, as
+``constexpr`` data, and the user's CUDA RHS.  The build key hashes the
+kernel source, every ``csrc/*.cuh`` it includes (directly or through
+another shared header), the generated header and the flags; the library
+lands in ``extensisq_tpu_torch/_build/<name>_<key>/`` at first use and is
+reused after.  Nothing is built when this module is imported.
 """
 import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,7 +25,7 @@ from pathlib import Path
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
-FUSED_ERK_SOURCE = _PKG / "csrc" / "fused_erk.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # where the CUDA toolkit installs nvcc when it is not on PATH
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
@@ -100,6 +102,95 @@ constexpr float HS_T_FLOOR = {_f32(hs['t_floor'])};
 """
 
 
+def _accessor(name, values, ret="float"):
+    """A ``constexpr`` accessor ``name(i)`` or ``name(i, j)`` returning the
+    float32 literals of ``values`` (zeros by default).  Unlike an array, a
+    function can be called with loop indices in device code; after
+    unrolling every call folds to its literal."""
+    values = np.asarray(values)
+    if values.ndim == 1:
+        args, idx = "int i", [(f"i == {i}", v) for i, v in enumerate(values)]
+    else:
+        args = "int i, int j"
+        idx = [(f"i == {i} && j == {j}", values[i, j])
+               for i in range(values.shape[0])
+               for j in range(values.shape[1])]
+    if ret == "bool":
+        conds = [c for c, v in idx if v]
+        body = " || ".join(f"({c})" for c in conds) or "false"
+    else:
+        body = "".join(f"{c} ? {_f32(v)} : "
+                       for c, v in idx if np.float32(v) != 0.0) + "0.0f"
+    return (f"__host__ __device__ constexpr {ret} {name}({args}) {{\n"
+            f"  return {body};\n}}")
+
+
+def fused_esdirk_header(k, m_diag, rot, n, rhs_src):
+    """Text of ``fused_esdirk_config.cuh`` for the constants ``k`` of
+    ``ops.fused_esdirk._esdirk_consts``, the mass-matrix setup ``(m_diag,
+    rot)`` of ``ops.fused_esdirk._mass_setup``, state size ``n`` and the
+    CUDA RHS source (the template form ``rhs<T>``)."""
+    from .._config import (NEWTON_MAXITER, MAX_RATE, MAX_FACTOR_NRF,
+                           MAX_FACTOR, MAX_FACTOR0)
+    s, cc, hs = k["s"], k["cc"], k["hstart"]
+    mass = np.ones(n) if m_diag is None else np.asarray(m_diag, float)
+    inv_mass = np.array([1.0 / m if m else 0.0 for m in mass])
+    if rot is None:
+        vh = v = uts = np.eye(n)
+    else:
+        vh, uts = rot
+        v = vh.T
+
+    def flag(b):
+        return "true" if b else "false"
+
+    accessors = "\n".join([
+        _accessor("A", k["A"]), _accessor("AZ", k["Az"]),
+        _accessor("C", k["C"]), _accessor("E", k["E"]),
+        _accessor("MASS", mass), _accessor("INV_MASS", inv_mass),
+        _accessor("ALG", mass == 0.0, "bool"),
+        _accessor("VH", vh), _accessor("V", v), _accessor("UTS", uts)])
+    return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
+// ESDIRK method {k['name']} rounded to float32, the mass-matrix setup and
+// the user's right-hand side.
+#pragma once
+
+namespace tab {{
+constexpr int N = {n};
+constexpr int S = {s};
+constexpr int MORDER = {k['morder']};
+constexpr int NEWTON_MAXITER = {NEWTON_MAXITER};
+constexpr bool FILTER_ERROR = {flag(k['filter_error'])};
+constexpr bool HAS_M = {flag(m_diag is not None)};
+constexpr bool ROT = {flag(rot is not None)};
+constexpr float D = {_f32(k['d'])};
+constexpr float INV_D = {_f32(k['inv_d'])};
+constexpr float KAPPA = {_f32(k['kappa'])};
+constexpr float SAFETY = {_f32(cc.safety)};
+constexpr float SAFETY_SC = {_f32(cc.safety_sc)};
+constexpr float MINBETA1 = {_f32(cc.minbeta1)};
+constexpr float MINBETA2 = {_f32(cc.minbeta2)};
+constexpr float MINALPHA = {_f32(cc.minalpha)};
+constexpr float ERROR_EXPONENT = {_f32(cc.error_exponent)};
+constexpr float MIN_FACTOR = {_f32(cc.min_factor)};
+constexpr float MAX_FACTOR = {_f32(MAX_FACTOR)};
+constexpr float MAX_FACTOR0 = {_f32(MAX_FACTOR0)};
+constexpr float MAX_RATE = {_f32(MAX_RATE)};
+constexpr float MAX_FACTOR_NRF = {_f32(MAX_FACTOR_NRF)};
+constexpr float H_MIN_A = {_f32(k['h_min_a'])};
+constexpr float H_MIN_B = {_f32(k['h_min_b'])};
+constexpr float LAND_TOL = {_f32(k['land_tol'])};
+constexpr float HS_BIG = {_f32(hs['big'])};
+constexpr float HS_SMALL = {_f32(hs['small'])};
+constexpr float HS_RELPER = {_f32(hs['relper'])};
+constexpr float HS_T_FLOOR = {_f32(hs['t_floor'])};
+{accessors}
+}}  // namespace tab
+
+{rhs_src}
+"""
+
+
 def _nvcc():
     found = shutil.which("nvcc")
     if found:
@@ -110,15 +201,16 @@ def _nvcc():
                        "the CUDA toolkit is installed")
 
 
-def _compile(source, header, out_dir):
-    """nvcc ``source`` (with ``header`` beside it) into out_dir/lib.so;
-    returns (seconds, compiler output)."""
+def _compile(name, header, out_dir):
+    """nvcc ``csrc/<name>.cu`` (with its generated ``header`` in out_dir)
+    into out_dir/lib.so; returns (seconds, compiler output)."""
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "fused_erk_config.cuh").write_text(header)
+    (out_dir / f"{name}_config.cuh").write_text(header)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(out_dir), "-o", tmp, str(source)]
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(out_dir), "-I", str(CSRC), "-o",
+           tmp, str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -131,29 +223,74 @@ def _compile(source, header, out_dir):
     return seconds, log
 
 
-def load_fused_erk(consts, n, rhs_src):
-    """Build (at first use) and load the fused ERK kernel for one tableau
-    and RHS; returns :class:`Built` with ``lib.fused_erk_launch`` bound."""
-    header = fused_erk_header(consts, n, rhs_src)
-    source = FUSED_ERK_SOURCE.read_text()
-    key = hashlib.sha256("\0".join(
-        [source, header, " ".join(NVCC_FLAGS)]).encode()).hexdigest()[:16]
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def shared_headers(name):
+    """The ``csrc/*.cuh`` files that ``csrc/<name>.cu`` includes, directly
+    or through another of them, in include order (the generated config
+    header lives in the build directory and is not among them)."""
+    found = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0).read_text()):
+            path = CSRC / inc
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
+def build_key(name, header):
+    """Hash of everything the build of ``name`` reads: its source, the
+    shared headers it includes, the generated header and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_text()]
+    parts += [f"{p.name}\0{p.read_text()}" for p in shared_headers(name)]
+    parts += [header, " ".join(NVCC_FLAGS)]
+    return hashlib.sha256("\0".join(parts).encode()).hexdigest()[:16]
+
+
+def load_kernel(name, header, argtypes):
+    """Build (at first use) and load ``csrc/<name>.cu`` with its generated
+    ``header``; returns :class:`Built` with ``lib.<name>_launch`` bound to
+    ``argtypes`` (returning the CUDA error code as an int)."""
+    key = build_key(name, header)
     if key in _LOADED:
         return _LOADED[key]
-    out_dir = BUILD_DIR / f"fused_erk_{key}"
+    out_dir = BUILD_DIR / f"{name}_{key}"
     so = out_dir / "lib.so"
     seconds, log = 0.0, ""
     if so.exists():
         log_file = out_dir / "build.log"
         log = log_file.read_text() if log_file.exists() else ""
     else:
-        seconds, log = _compile(FUSED_ERK_SOURCE, header, out_dir)
+        seconds, log = _compile(name, header, out_dir)
     lib = ctypes.CDLL(str(so))
-    fn = lib.fused_erk_launch
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp, vp, vp, vp, vp, ci, cf, cf, cf, cf, cf, ci, cf, ci,
-                   ci, ci, vp]
-    fn.restype = ci
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
     built = Built(lib=lib, key=key, seconds=seconds, log=log)
     _LOADED[key] = built
     return built
+
+
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def load_fused_erk(consts, n, rhs_src):
+    """Build (at first use) and load the fused ERK kernel for one tableau
+    and RHS; returns :class:`Built` with ``lib.fused_erk_launch`` bound."""
+    return load_kernel(
+        "fused_erk", fused_erk_header(consts, n, rhs_src),
+        [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI, _CF,
+         _CI, _CI, _CI, _VP])
+
+
+def load_fused_esdirk(consts, m_diag, rot, n, rhs_src):
+    """Build (at first use) and load the fused ESDIRK kernel for one
+    method, mass-matrix setup and RHS; returns :class:`Built` with
+    ``lib.fused_esdirk_launch`` bound."""
+    return load_kernel(
+        "fused_esdirk", fused_esdirk_header(consts, m_diag, rot, n, rhs_src),
+        [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI,
+         _CI, _CF, _CI, _CF, _CI, _CI, _VP])

@@ -57,9 +57,19 @@ class _Carry(NamedTuple):
 
 def select(mask, a, b):
     """Field-wise ``torch.where(mask, a, b)`` over two NamedTuples (or
-    tuples) of tensors; ``mask`` is per member, ``(B,)``."""
-    vals = [torch.where(mask, x, y) for x, y in zip(a, b)]
-    return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
+    tuples) of tensors; ``mask`` is per member, ``(B,)``.  Fields have the
+    member axis last, except those a NamedTuple type names in its
+    ``members_first`` (batched matrices ``(B, n, n)``), where the mask
+    goes on the first axis."""
+    first = getattr(type(a), "members_first", ())
+    names = getattr(a, "_fields", ())
+    vals = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        m = mask
+        if names and names[i] in first:
+            m = mask.reshape(mask.shape + (1,) * (x.ndim - 1))
+        vals.append(torch.where(m, x, y))
+    return type(a)(*vals) if names else tuple(vals)
 
 
 def weighted_sum(K_rows, weights):

@@ -73,6 +73,42 @@ class ERKTableau:
         return max(cdiff, 1e-3)
 
 
+@dataclasses.dataclass(frozen=True)
+class ESDIRKTableau:
+    """Explicit-first-stage singly-diagonal implicit RK tableau.
+
+    ``d`` is the diagonal entry, ``Az`` the stage-increment predictor
+    weights and ``kappa`` the Newton tolerance factor.  ``filter_error``
+    selects the filtered error estimate (TR-BDF2 and TRX2), and
+    ``piecewise_cubic_dense`` their three-point dense output.
+    """
+    name: str
+    order: int
+    order_secondary: int
+    d: float
+    kappa: float
+    A: np.ndarray
+    B: np.ndarray
+    C: np.ndarray
+    E: np.ndarray
+    Az: np.ndarray
+    P: Optional[np.ndarray] = None            # default interpolant
+    interpolants: Any = None                  # {'C0': P0, 'C1': P1}
+    filter_error: bool = False
+    piecewise_cubic_dense: bool = False
+    sc_params: str = "G"
+
+    def __post_init__(self):
+        for f in ("A", "B", "C", "E", "Az", "P"):
+            object.__setattr__(self, f, _freeze(getattr(self, f)))
+
+    @property
+    def n_stages(self):
+        return self.B.shape[0]
+
+    c_spacing = ERKTableau.c_spacing
+
+
 def tableau_from_arrays(A, B, C, E, order, order_secondary, **extras):
     """Build an :class:`ERKTableau` from numpy arrays.
 
