@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths once each:
+Drives the port's three paths once each:
 
 * explicit: 4096 Van der Pol members (mu = 3, t in [0, 10]) integrated
   with BS5, first through the f64 batched solver ``solve_ensemble`` and
@@ -9,7 +9,12 @@ Drives the port's two paths once each:
 * implicit: 4096 index-1 pendulum DAE members (M = diag(1, 1, 1, 1, 0),
   t in [0, 10], Kv3I, rtol 1e-4 / atol 1e-6), consistent starts from the
   f64 stepper's projection, through ``ops.solve_fused_esdirk`` and through
-  the f64 ``solve_ensemble``.
+  the f64 ``solve_ensemble``;
+* multistep: the SWAG bench line, 256 Van der Pol members (mu = 1000,
+  t in [0, 20], rtol 1e-6 / atol 1e-9, k_max = 12, compensated), through
+  ``ops.solve_fused_adams``, held against scipy's Radau at rtol 1e-12 on
+  sampled members, and on a cut span against the plain version and the
+  f64 ``solve_ensemble`` with SWAG.
 
 Before that, it builds every kernel from the sources in this checkout
 (one nvcc per variant, all started together) and holds each against its
@@ -212,6 +217,41 @@ def event_ms(fn):
     return statistics.median(times)
 
 
+def hold_against_plain(tag, label, kernel, plain, y_gate, step_gate):
+    """Run ``kernel()`` and ``plain()`` (each returning ``(y, status,
+    nsteps, nfev)`` for the same members), print how far apart they are and
+    fail past the gates: identical status, max |dy| over the members the
+    plain version finished, relative difference of mean nsteps.  Returns
+    (kernel result, plain result, max |dy|, plain version's seconds)."""
+    t0 = time.perf_counter()
+    k = kernel()
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = plain()
+    torch.cuda.synchronize()
+    r_s = time.perf_counter() - t0
+    ok = r[1] == 1
+    ydiff = (k[0][ok] - r[0][ok]).abs().max().item() if ok.any() else 0.0
+    step_rel = abs(k[2].double().mean().item()
+                   / r[2].double().mean().item() - 1.0)
+    print(f"{tag} kernel vs plain [{label}, {k[0].shape[0]}]: status equal "
+          f"{torch.equal(k[1], r[1])}, max |dy| {ydiff:.3e} (gate "
+          f"{y_gate:.0e}), mean nsteps {k[2].double().mean():.4f} vs "
+          f"{r[2].double().mean():.4f} (rel {step_rel:.2e}, gate "
+          f"{step_gate:.0e}), max |dnsteps| "
+          f"{(k[2] - r[2]).abs().max().item()}, mean nfev "
+          f"{k[3].double().mean():.3f} vs {r[3].double().mean():.3f}, "
+          f"members with other counts "
+          f"{int(((k[2] != r[2]) | (k[3] != r[3])).sum())}; {k_s:.3f} s vs "
+          f"{r_s:.3f} s")
+    check(torch.equal(k[1], r[1]), f"{label}: status differs")
+    check(bool(torch.isfinite(k[0][ok]).all()), f"{label}: non-finite")
+    check(ydiff <= y_gate, f"{label}: |dy| {ydiff} > {y_gate}")
+    check(step_rel <= step_gate, f"{label}: mean nsteps differ by {step_rel}")
+    return k, r, ydiff, r_s
+
+
 def esdirk_builds():
     """(kernel, label, FusedRHS, (method, M)) of every implicit variant."""
     from extensisq_tpu_torch import Kv3I, TRBDF2
@@ -225,11 +265,84 @@ def esdirk_builds():
              FusedRHS(kaps_hidden, KAPS_HIDDEN_CUDA, 2), (TRBDF2, M_HIDDEN))]
 
 
+# -- the multistep path -----------------------------------------------------
+SWAG_MU = 1000.0
+SWAG_N = 256
+SWAG_N_LARGE = 32_768
+SWAG_SPAN = (0.0, 20.0)
+SWAG_TOL = dict(rtol=1e-6, atol=1e-9, k_max=12, max_steps=400_000)
+# the span on which the plain version and the f64 driver, both host-bound
+# (one attempt of every member per loop iteration), follow the kernel
+SWAG_T_CUT = 0.5
+SWAG_RADAU_MEMBERS = 8
+# kernel against its plain version, 1024 members (256 on the cut span):
+# (max |dy| over finished members, relative difference of mean nsteps).
+# Measured on an H100: vdp 5.1e-5 / 1.3e-4, osc_comp 4.1e-6 / 6.1e-5,
+# decay 6.0e-8 / 0, grow and cubic 0 / 0, bench_cut 1.2e-8 / 4.9e-3 (the
+# stiff line: every member takes other steps, FMA against separate
+# roundings); the gates keep a margin of 2-10x
+ADAMS_GATES = {"vdp": (2e-4, 1e-3), "osc_comp": (2e-5, 5e-4),
+               "decay": (1e-6, 1e-4), "grow": (1e-6, 1e-4),
+               "cubic": (1e-6, 1e-4), "bench_cut": (1e-7, 1e-2)}
+# the bench line against Radau (rtol 1e-12 / atol 1e-14) at t = 20: the
+# starting gate 1e-5, measured 1.0e-7 on an H100; and the kernel against
+# the f64 driver on the cut span, measured 1.2e-7
+SWAG_RADAU_GATE = 1e-6
+SWAG_F64_GATE = 1e-6
+# the f64 driver on the card against the same 64 members on the CPU
+# (max |dy|, relative difference of mean nsteps): measured on an H100
+# 8.5e-9 and 1.4e-3, with 18 members taking other step counts
+SWAG_CPU_GATE = 1e-7
+SWAG_CPU_STEP_GATE = 1e-2
+
+
+def _vdp_cuda(mu):
+    return ("__device__ void rhs(float t, const float* y, float* dy) {\n"
+            "  dy[0] = y[1];\n"
+            f"  dy[1] = {_lit(mu)} * (1.0f - y[0] * y[0]) * y[1] - y[0];\n}}")
+
+
+def vdp_mu(mu):
+    return lambda t, y: torch.stack([y[1], mu * (1 - y[0] ** 2) * y[1]
+                                     - y[0]])
+
+
+DECAY_CUDA = """
+template <class T>
+__device__ void rhs(T t, const T* y, T* dy) { dy[0] = -y[0]; }
+"""
+GROW_CUDA = """
+__device__ void rhs(float t, const float* y, float* dy) { dy[0] = y[0]; }
+"""
+
+
+def adams_rhs():
+    """The FusedRHS of every SWAG variant, by label."""
+    from extensisq_tpu_torch.ops import FusedRHS
+    return {"vdp": FusedRHS(vdp_mu(5.0), _vdp_cuda(5.0), 2),
+            "osc": FusedRHS(oscillator, HO_CUDA, 2),
+            "decay": FusedRHS(lambda t, y: -y, DECAY_CUDA, 1),
+            "grow": FusedRHS(lambda t, y: 1.0 * y, GROW_CUDA, 1),
+            "cubic": FusedRHS(cubic, CUBIC_CUDA, 2),
+            "bench": FusedRHS(vdp_mu(SWAG_MU), _vdp_cuda(SWAG_MU), 2)}
+
+
+ADAMS_KMAX = {"vdp": 6, "osc": 8, "decay": 6, "grow": 6, "cubic": 6,
+              "bench": 12}
+
+
+def adams_builds(rhs):
+    """(kernel, label, FusedRHS, k_max) of every SWAG variant."""
+    return [("fused_adams", f"{label} k_max={km}", rhs[label], km)
+            for label, km in ADAMS_KMAX.items()]
+
+
 def build_all(jobs):
     """Build every (kernel, label, rhs, options) variant with one nvcc
     each, all started together; print seconds, registers and spills."""
     from extensisq_tpu_torch import BS5
     from extensisq_tpu_torch.ops import _build
+    from extensisq_tpu_torch.ops.fused_adams import _adams_consts
     from extensisq_tpu_torch.ops.fused_erk import _fused_consts
     from extensisq_tpu_torch.ops.fused_esdirk import (_esdirk_consts,
                                                       _mass_setup)
@@ -239,6 +352,9 @@ def build_all(jobs):
         if kernel == "fused_erk":
             return _build.load_fused_erk(_fused_consts(BS5), rhs.n,
                                          rhs.cuda_src)
+        if kernel == "fused_adams":
+            return _build.load_fused_adams(_adams_consts(opt, rhs.n),
+                                           rhs.cuda_src)
         method, M = opt
         return _build.load_fused_esdirk(_esdirk_consts(method),
                                         *_mass_setup(M, rhs.n), rhs.n,
@@ -284,28 +400,10 @@ def esdirk_path():
     KAPS = FusedRHS(kaps_hidden, KAPS_HIDDEN_CUDA, 2)
 
     def compare(label, rhs, span, y0, **kw):
-        y_gate, step_gate = ESDIRK_GATES[label]
-        k = solve_fused_esdirk(rhs, span, y0, **kw)
-        r = fused_esdirk_reference(rhs, span, y0, **kw)
-        torch.cuda.synchronize()
-        ok = r[1] == 1
-        ydiff = (k[0][ok] - r[0][ok]).abs().max().item() if ok.any() \
-            else 0.0
-        step_rel = abs(k[2].double().mean().item()
-                       / r[2].double().mean().item() - 1.0)
-        print(f"esdirk kernel vs plain [{label}, {y0.shape[0]}]: status "
-              f"equal {torch.equal(k[1], r[1])}, max |dy| {ydiff:.3e} (gate "
-              f"{y_gate:.0e}), mean nsteps {k[2].double().mean():.4f} vs "
-              f"{r[2].double().mean():.4f} (rel {step_rel:.2e}, gate "
-              f"{step_gate:.0e}), mean nfev {k[3].double().mean():.3f} vs "
-              f"{r[3].double().mean():.3f}, members with other counts "
-              f"{int(((k[2] != r[2]) | (k[3] != r[3])).sum())}")
-        check(torch.equal(k[1], r[1]), f"{label}: status differs")
-        check(bool(torch.isfinite(k[0][ok]).all()), f"{label}: non-finite")
-        check(ydiff <= y_gate, f"{label}: |dy| {ydiff} > {y_gate}")
-        check(step_rel <= step_gate,
-              f"{label}: mean nsteps differ by {step_rel}")
-        return k, r, ydiff
+        return hold_against_plain(
+            "esdirk", label, lambda: solve_fused_esdirk(rhs, span, y0, **kw),
+            lambda: fused_esdirk_reference(rhs, span, y0, **kw),
+            *ESDIRK_GATES[label])[:3]
 
     # (a) every variant against its plain version, 1024 members
     rob0 = torch.zeros(1024, 3, device="cuda")
@@ -438,6 +536,189 @@ def esdirk_path():
             "ms_per_step": k_ms / max_steps, "f64_ms": f64_ms}
 
 
+def radau_reference(y0, t_end):
+    """VdP mu = SWAG_MU from each row of y0 (f64 numpy) to t_end with
+    scipy's Radau at rtol 1e-12 / atol 1e-14, on the host (a reference of
+    this script only, never a dependency of the port)."""
+    from scipy.integrate import solve_ivp
+    mu = SWAG_MU
+
+    def f(t, y):
+        return [y[1], mu * (1 - y[0] ** 2) * y[1] - y[0]]
+
+    def jac(t, y):
+        return [[0.0, 1.0], [-2.0 * mu * y[0] * y[1] - 1.0,
+                             mu * (1 - y[0] ** 2)]]
+
+    out = []
+    for row in y0:
+        sol = solve_ivp(f, (0.0, t_end), row, method="Radau", rtol=1e-12,
+                        atol=1e-14, jac=jac)
+        check(sol.success, "Radau reference failed")
+        out.append(sol.y[:, -1])
+    return np.array(out)
+
+
+def adams_path():
+    """Hold the SWAG kernel against its plain version on the card, drive
+    the bench line, time it; returns its ``kernels`` entry."""
+    from extensisq_tpu_torch import SWAG, solve_ensemble
+    from extensisq_tpu_torch.ops import (fused_adams_reference,
+                                         solve_fused_adams, solve_fused_erk,
+                                         solve_fused_esdirk)
+    R = adams_rhs()
+
+    def compare(label, rhs, span, y0, **kw):
+        return hold_against_plain(
+            "adams", label, lambda: solve_fused_adams(R[rhs], span, y0, **kw),
+            lambda: fused_adams_reference(R[rhs], span, y0, **kw),
+            *ADAMS_GATES[label])
+
+    # (a) the kernel against its plain version, 1024 members
+    x0 = torch.tensor(np.stack([np.linspace(1.9, 2.1, 1024),
+                                np.zeros(1024)], 1), dtype=torch.float32,
+                      device="cuda")
+    compare("vdp", "vdp", (0.0, 2.0), x0, rtol=1e-4, atol=1e-6, k_max=6)
+    ho0 = torch.tensor([[1.0, 0.0]], device="cuda") \
+        * torch.linspace(0.9, 1.1, 1024, device="cuda")[:, None]
+    compare("osc_comp", "osc", (0.0, 6.0), ho0, rtol=1e-6, atol=1e-9,
+            k_max=8, compensated=True)
+    one = torch.ones(1024, 1, device="cuda")
+    k, _, _, _ = compare("decay", "decay", (1e6, 1e6 + 1.0), one, rtol=1e-4,
+                         atol=1e-7, k_max=6, max_steps=3000)
+    err = (k[0] - np.exp(-1.0)).abs().max().item()
+    print(f"decay on (1e6, 1e6 + 1): kernel error {err:.3e} (gate 1e-3)")
+    check(err < 1e-3, "decay at t0 = 1e6: error")
+    k, _, _, _ = compare("grow", "grow", (1.0, 0.0), one, rtol=1e-5,
+                         atol=1e-8, k_max=6, max_steps=3000)
+    err = (k[0] - np.exp(-1.0)).abs().max().item()
+    print(f"growth backward on (1, 0): kernel error {err:.3e} (gate 1e-4)")
+    check(err < 1e-4, "backward growth: error")
+    xc = np.full(1024, 0.1, np.float32)
+    xc[7] = 1e18                      # this member overflows in f32
+    cub0 = torch.tensor(np.stack([xc, np.zeros_like(xc)], 1), device="cuda")
+    k, _, _, _ = compare("cubic", "cubic", (0.0, 1.0), cub0, rtol=1e-4,
+                         atol=1e-6, k_max=6, max_steps=2000)
+    check(int(k[1][7]) == 3 and int((k[1] == 1).sum()) == 1023,
+          "overflow isolation: member 7 must end with status 3 alone")
+
+    # (b) the bench line: 256 members, the whole span, compensated
+    y0 = torch.tensor(np.stack([np.linspace(1.9, 2.1, SWAG_N),
+                                np.zeros(SWAG_N)], 1), dtype=torch.float32,
+                      device="cuda")
+    solve_fused_erk.launches = 0
+    solve_fused_esdirk.launches = 0
+    solve_fused_adams.launches = 0
+    t0 = time.perf_counter()
+    comp = solve_fused_adams(R["bench"], SWAG_SPAN, y0, block_members=128,
+                             compensated=True, **SWAG_TOL)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = solve_fused_adams.launches
+    print(f"multistep path: {path_s:.3f} s, fused_adams launches {launches}")
+    check(launches == 1, f"fused_adams launched {launches} times, expected 1")
+    check(solve_fused_erk.launches == 0 and solve_fused_esdirk.launches == 0,
+          "the multistep path launched another kernel")
+    check(bool((comp[1] == 1).all()), "SWAG bench line: not all finished")
+    check(comp[0].shape == (SWAG_N, 2) and bool(torch.isfinite(comp[0]).all()),
+          "SWAG bench line: bad output")
+    plain = solve_fused_adams(R["bench"], SWAG_SPAN, y0, block_members=128,
+                              **SWAG_TOL)
+    torch.cuda.synchronize()
+    idx = torch.linspace(0, SWAG_N - 1, SWAG_RADAU_MEMBERS).long()
+    t0 = time.perf_counter()
+    ref = radau_reference(y0[idx].double().cpu().numpy(), SWAG_SPAN[1])
+    radau_s = time.perf_counter() - t0
+    err_comp = np.abs(comp[0][idx].double().cpu().numpy() - ref).max()
+    err_plain = np.abs(plain[0][idx].double().cpu().numpy() - ref).max()
+    print(f"SWAG bench line vs Radau (rtol 1e-12, {SWAG_RADAU_MEMBERS} "
+          f"members, {radau_s:.1f} s): compensated {err_comp:.3e} (gate "
+          f"{SWAG_RADAU_GATE:.0e}), plain f32 {err_plain:.3e} (status "
+          f"{torch.unique(plain[1]).tolist()}, not gated); mean nsteps "
+          f"{comp[2].double().mean():.1f} compensated, "
+          f"{plain[2].double().mean():.1f} plain, max {int(comp[2].max())}")
+    check(err_comp <= SWAG_RADAU_GATE, "SWAG bench line: error vs Radau")
+
+    # (c) on the cut span: the kernel against its plain version and the
+    # f64 driver; 64 members of the f64 run again on the CPU
+    cut = (SWAG_SPAN[0], SWAG_T_CUT)
+    k, _, err_k, plain_s = compare("bench_cut", "bench", cut, y0,
+                                   compensated=True, **SWAG_TOL)
+    y64 = y0.double()
+    t0 = time.perf_counter()
+    ens = solve_ensemble(vdp_mu(SWAG_MU), cut, y64, method=SWAG,
+                         rtol=SWAG_TOL["rtol"], atol=SWAG_TOL["atol"],
+                         k_max=SWAG_TOL["k_max"], max_steps=100_000)
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    check(bool((ens.status == 1).all()), "f64 SWAG: not all finished")
+    d64 = (k[0].double() - ens.y).abs().max().item()
+    print(f"cut span t in [0, {SWAG_T_CUT}]: kernel {int(k[2].max())} steps "
+          f"(max), f64 driver {int(ens.nsteps.max())} (mean "
+          f"{ens.nsteps.double().mean():.1f}, {f64_s:.1f} s), kernel vs f64 "
+          f"max |dy| {d64:.3e} (gate {SWAG_F64_GATE:.0e})")
+    check(d64 <= SWAG_F64_GATE, "SWAG cut span: kernel and f64 disagree")
+    sel = torch.linspace(0, SWAG_N - 1, 64).long()
+    cpu = solve_ensemble(vdp_mu(SWAG_MU), cut, y64[sel].cpu(), method=SWAG,
+                         rtol=SWAG_TOL["rtol"], atol=SWAG_TOL["atol"],
+                         k_max=SWAG_TOL["k_max"], max_steps=100_000)
+    # the card's and the CPU's log10, pow and sqrt differ in the last bit
+    # (the starting step of 3 of 8 members here), and this stiff line's
+    # order and step selection carries that on, so the counts part
+    check(torch.equal(ens.status[sel].cpu(), cpu.status),
+          "f64 SWAG: status differs between the card and the CPU")
+    dns = (ens.nsteps[sel].cpu() - cpu.nsteps).abs()
+    step_rel = abs(ens.nsteps[sel].double().mean().item()
+                   / cpu.nsteps.double().mean().item() - 1.0)
+    dcpu = (ens.y[sel].cpu() - cpu.y).abs().max().item()
+    print(f"f64 SWAG: card vs CPU on 64 members: status equal, members with "
+          f"other nsteps {int((dns != 0).sum())}, max |dnsteps| "
+          f"{int(dns.max())}, mean nsteps rel {step_rel:.2e} (gate "
+          f"{SWAG_CPU_STEP_GATE:.0e}), max |dy| {dcpu:.3e} (gate "
+          f"{SWAG_CPU_GATE:.0e})")
+    check(dcpu <= SWAG_CPU_GATE, "f64 SWAG: card and CPU disagree")
+    check(step_rel <= SWAG_CPU_STEP_GATE,
+          "f64 SWAG: card and CPU step counts disagree")
+
+    # (d) times: warm medians of the kernel on the whole span
+    def run_kernel(y=y0):
+        return solve_fused_adams(R["bench"], SWAG_SPAN, y, block_members=128,
+                                 compensated=True, **SWAG_TOL)
+
+    k_ms = wall_ms(run_kernel)
+    k_dev = event_ms(run_kernel)
+    max_steps = int(comp[2].max())
+    steps = int(comp[2].sum())
+    fev = int(comp[3].sum())
+    print(f"time [fused_adams kernel] {SWAG_N} members, t in "
+          f"[0, {SWAG_SPAN[1]:g}]: "
+          f"{k_ms:.3f} ms wall, {k_dev:.3f} ms device (CUDA events), "
+          f"{k_ms / max_steps:.5f} ms per step (wall / max nsteps "
+          f"{max_steps}), {steps / k_ms * 1e3:.4g} accepted steps/s, "
+          f"{fev / k_ms * 1e3:.4g} RHS evals/s")
+    print(f"time [plain version] {SWAG_N} members, t in [0, {SWAG_T_CUT}] "
+          f"(cut span): {plain_s * 1e3:.1f} ms wall, one run; "
+          f"[f64 solve_ensemble] same span: {f64_s * 1e3:.1f} ms wall")
+    yl = torch.tensor(np.stack([np.linspace(1.9, 2.1, SWAG_N_LARGE),
+                                np.zeros(SWAG_N_LARGE)], 1),
+                      dtype=torch.float32, device="cuda")
+    out = run_kernel(yl)
+    large_ms = event_ms(lambda: run_kernel(yl))
+    check(bool((out[1] == 1).all()), "SWAG 32,768: not all finished")
+    print(f"fused_adams kernel {SWAG_N_LARGE} members "
+          f"({SWAG_N_LARGE // 128} blocks of 128): {large_ms:.3f} ms, max "
+          f"nsteps {int(out[2].max())}, "
+          f"{int(out[2].sum()) / large_ms * 1e3:.4g} accepted steps/s")
+    return {"name": "fused_adams", "route": "cuda",
+            "source": "extensisq_tpu_torch/csrc/fused_adams.cu",
+            "replaces": "extensisq_tpu/ops/fused_adams.py:876",
+            "launches": launches, "max_abs_err": err_k, "ms": k_ms,
+            "plain_ms": plain_s * 1e3, "plain_span": [0.0, SWAG_T_CUT],
+            "device_ms": k_dev, "ms_per_step": k_ms / max_steps,
+            "f64_ms_cut_span": f64_s * 1e3, "err_vs_radau": float(err_comp),
+            "ms_32768": large_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -463,34 +744,20 @@ def main():
     # 2. build every kernel variant used below, all nvcc runs at once
     build_all([("fused_erk", "vdp", VDP, None), ("fused_erk", "oscillator",
                                                  HO, None),
-               ("fused_erk", "cubic", CUBIC, None)] + esdirk_builds())
+               ("fused_erk", "cubic", CUBIC, None)] + esdirk_builds()
+              + adams_builds(adams_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
-        k = solve_fused_erk(rhs, span, y0, method=BS5, **kw)
-        r = fused_erk_reference(rhs, span, y0, method=BS5, **kw)
-        torch.cuda.synchronize()
-        ok = r[1] == 1
-        ydiff = (k[0][ok] - r[0][ok]).abs().max().item() if ok.any() \
-            else 0.0
-        step_rel = abs(k[2].double().mean().item()
-                       / r[2].double().mean().item() - 1.0)
-        print(f"kernel vs plain [{label}]: status equal "
-              f"{torch.equal(k[1], r[1])}, max |dy| {ydiff:.3e} "
-              f"(gate {y_gate:.0e}), mean nsteps {k[2].double().mean():.4f}"
-              f" vs {r[2].double().mean():.4f} (rel {step_rel:.2e}, gate "
-              f"{STEP_GATE:.0e}), max |dnsteps| "
-              f"{(k[2] - r[2]).abs().max().item()}")
-        check(torch.equal(k[1], r[1]), f"{label}: status differs")
-        check(bool(torch.isfinite(k[0][ok]).all()), f"{label}: non-finite")
-        check(ydiff <= y_gate, f"{label}: |dy| {ydiff} > {y_gate}")
-        check(step_rel <= STEP_GATE,
-              f"{label}: mean nsteps differ by {step_rel}")
-        return k, r
+        return hold_against_plain(
+            "erk", label,
+            lambda: solve_fused_erk(rhs, span, y0, method=BS5, **kw),
+            lambda: fused_erk_reference(rhs, span, y0, method=BS5, **kw),
+            y_gate, STEP_GATE)[:2]
 
     y1024 = vdp_y0(1024, torch.float32)
-    compare("vdp plain, 1024", VDP, T_SPAN, y1024, PLAIN_GATE, **PLAIN_TOL)
-    compare("vdp compensated, 1024", VDP, T_SPAN, y1024, COMP_GATE,
+    compare("vdp plain", VDP, T_SPAN, y1024, PLAIN_GATE, **PLAIN_TOL)
+    compare("vdp compensated", VDP, T_SPAN, y1024, COMP_GATE,
             **COMP_TOL)
     # 50 oscillator periods: the global error is ~2e-5, and kernel and
     # plain version land on different sides of it, so the gate is 1e-4;
@@ -634,6 +901,9 @@ def main():
     # 5. the implicit path: kernel checks, the bench line, times
     esdirk = esdirk_path()
 
+    # 6. the multistep path: kernel checks, the bench line, times
+    adams = adams_path()
+
     print(json.dumps({"kernels": [{
         "name": "fused_erk",
         "route": "cuda",
@@ -645,7 +915,7 @@ def main():
         "plain_ms": times["plain version, plain f32"],
         "ms_compensated": times["kernel compensated"],
         "plain_ms_compensated": times["plain version, compensated"],
-    }, esdirk]}))
+    }, esdirk, adams]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -191,6 +191,34 @@ constexpr float HS_T_FLOOR = {_f32(hs['t_floor'])};
 """
 
 
+def fused_adams_header(k, rhs_src):
+    """Text of ``fused_adams_config.cuh`` for the constants ``k`` of
+    ``ops.fused_adams._adams_consts`` (order bound ``KM``, state size
+    ``N``, the Adams error constants ``gstr``, ``iqq`` and the ``2^(q+1)``
+    doubling table, rounded to float32 as the JAX kernel rounds them) and
+    the CUDA RHS source (``rhs(float t, ...)`` or the template
+    ``rhs<T>``)."""
+    accessors = "\n".join([_accessor("GSTR", k["gstr"]),
+                           _accessor("IQQ", k["iqq"]),
+                           _accessor("TWO", k["two"])])
+    return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
+// SWAG with k_max = {k['km']} for N = {k['n']}, its constants rounded to
+// float32, and the user's right-hand side.
+#pragma once
+
+namespace tab {{
+constexpr int KM = {k['km']};
+constexpr int N = {k['n']};
+constexpr float INV_N = {_f32(k['inv_n'])};
+constexpr float FOURU_T = {_f32(k['fouru_t'])};
+constexpr float LAND_TOL = {_f32(k['land_tol'])};
+{accessors}
+}}  // namespace tab
+
+{rhs_src}
+"""
+
+
 def _nvcc():
     found = shutil.which("nvcc")
     if found:
@@ -294,3 +322,13 @@ def load_fused_esdirk(consts, m_diag, rot, n, rhs_src):
         "fused_esdirk", fused_esdirk_header(consts, m_diag, rot, n, rhs_src),
         [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI,
          _CI, _CF, _CI, _CF, _CI, _CI, _VP])
+
+
+def load_fused_adams(consts, rhs_src):
+    """Build (at first use) and load the fused SWAG kernel for one
+    ``k_max``, state size and RHS; returns :class:`Built` with
+    ``lib.fused_adams_launch`` bound."""
+    return load_kernel(
+        "fused_adams", fused_adams_header(consts, rhs_src),
+        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF,
+         _CF, _CF, _CI, _CI, _CI, _VP])

@@ -12,7 +12,7 @@ the last axis and ``t`` shape ``(B,)``, e.g.
 ``torch.stack([y[1], mu * (1 - y[0]**2) * y[1] - y[0]])``.  The same
 code is the RHS of the fused kernel's plain version.  ``solve`` calls it
 with ``B = 1``.  ESDIRK methods take the stepper options ``jac``, ``M``
-and ``jac_each_step`` as keyword arguments (see
+and ``jac_each_step`` as keyword arguments, SWAG takes ``k_max`` (see
 ``steppers.build_stepper``).
 """
 from typing import Any, NamedTuple

@@ -1,13 +1,13 @@
 """Stepper construction: dispatch a Method handle to its implementation.
 
-The explicit Runge-Kutta and the ESDIRK families are ported; every other
-family of the JAX package names the ROADMAP item that brings it.
+The explicit Runge-Kutta, ESDIRK and SWAG (``adams``) families are
+ported; every other family of the JAX package names the ROADMAP item
+that brings it.
 """
 
 _NOT_PORTED = {
     "ckdisc": "A14",
     "rkn": "A11",
-    "adams": "A9",
     "rkc": "A13",
 }
 
@@ -20,7 +20,7 @@ def build_stepper(method, fun, n, dtype, **options):
     mass matrix, ``(n,)`` diagonal or ``(n, n)``) and ``jac_each_step``.
     The JAX package's dense-output options (``interpolant``,
     ``carry_stages``) have no use before dense output is ported and are
-    ignored."""
+    ignored.  SWAG takes ``k_max`` (1 to 12)."""
     family = method.family
     merged = dict(method.options or {})
     merged.update(options)
@@ -40,6 +40,10 @@ def build_stepper(method, fun, n, dtype, **options):
                              jac=merged.get("jac"), M=merged.get("M"),
                              jac_each_step=merged.get("jac_each_step",
                                                       False))
+    if family == "adams":
+        from .adams import AdamsStepper
+        return AdamsStepper(fun, n, dtype,
+                            options={"k_max": merged.get("k_max", 12)})
     if family in _NOT_PORTED:
         raise NotImplementedError(
             f"the {family!r} family is not ported yet: ROADMAP item "

@@ -12,8 +12,9 @@ builds each kernel with the generated header the wrapper would use, with
 CPU operations.  So the kernel's logic, not only its plain version, is
 checked on every CPU run: its first attempts are bit-identical to the
 plain version's, and what remains is the libraries' ``powf``/``log10f``
-and the dual numbers' derivative round-off.  Skipped where no g++ is
-installed.
+and the dual numbers' derivative round-off.  The SWAG kernel starts from
+the float32 stepper's ``init``, as its wrapper starts it.  Skipped where
+no g++ is installed.
 """
 import ctypes
 import shutil
@@ -27,10 +28,12 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+import test_torch_fused_adams as TA  # noqa: E402
 import test_torch_fused_esdirk as T  # noqa: E402
 import test_torch_fused_erk as TK  # noqa: E402
 
 from extensisq_tpu_torch.ops import _build  # noqa: E402
+from extensisq_tpu_torch.ops import fused_adams as FA  # noqa: E402
 from extensisq_tpu_torch.ops import fused_erk as FK  # noqa: E402
 from extensisq_tpu_torch.ops import fused_esdirk as FE  # noqa: E402
 
@@ -51,6 +54,8 @@ __attribute__((noinline)) static float __fsub_rn(float a, float b) {
 __attribute__((noinline)) static float __fmul_rn(float a, float b) {
   volatile float r = a * b; return r; }
 using std::isfinite;
+using std::max;
+using std::min;
 """
 
 ESDIRK_LAUNCH = """
@@ -91,6 +96,35 @@ extern "C" int fused_erk_launch(
   return 0;
 }
 """
+
+ADAMS_LAUNCH = """
+extern "C" int fused_adams_launch(
+    const void* y0, const void* yp0, const void* h0, const void* nfev0,
+    void* y_out, void* status, void* nstep, void* nfev, int B, float t0,
+    float tf, float dir, float rtol, float atol, float max_step,
+    int max_steps, int compensated, int threads, void* stream) {
+  blockDim.x = 1;
+  for (int b = 0; b < B; ++b) {
+    blockIdx.x = b;
+    threadIdx.x = 0;
+    auto k = compensated ? fused_adams_kernel<true>
+                         : fused_adams_kernel<false>;
+    k((const float*)y0, (const float*)yp0, (const float*)h0,
+      (const int*)nfev0, (float*)y_out, (int*)status, (int*)nstep,
+      (int*)nfev, B, t0, tf, dir, rtol, atol, max_step, max_steps);
+  }
+  return 0;
+}
+"""
+
+# label -> (problem, k_max) of each SWAG build; the cases of
+# test_torch_fused_adams.py, and the bench line's k_max = 12
+ADAMS_VARIANTS = {"vdp": ("vdp5", 6), "osc_comp": ("osc", 4),
+                  "decay_1e6": ("decay", 6), "bench": ("vdp1e3", 4),
+                  "bench12": ("vdp1e3", 12)}
+ADAMS_CASES = dict(TA.CASES, bench12=(
+    "vdp1e3", (0.0, 0.05), TA.X0,
+    dict(rtol=1e-6, atol=1e-9, k_max=12, compensated=True)))
 
 ESDIRK_VARIANTS = {           # label -> (problem, method, M)
     "rob_kv3i": ("rob", "Kv3I", None),
@@ -144,6 +178,12 @@ def libs(tmp_path_factory):
         header = _build.fused_erk_header(FK._fused_consts(TK.BS5), rhs.n,
                                          rhs.cuda_src)
         jobs[label] = ("fused_erk", header, ERK_LAUNCH)
+    for label, (prob, km) in ADAMS_VARIANTS.items():
+        rhs = TA.PROBLEMS[prob]
+        jobs["adams_" + label] = (
+            "fused_adams",
+            _build.fused_adams_header(FA._adams_consts(km, rhs.n),
+                                      rhs.cuda_src), ADAMS_LAUNCH)
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(_compile, *v, d / k)
                    for k, v in jobs.items()}
@@ -241,3 +281,76 @@ def test_erk_kernel_matches_plain_version(libs, label, case):
     assert np.max(np.abs(y - ry)) <= 3e-6
     np.testing.assert_array_equal(ns, rns)
     assert np.max(np.abs(nf - rnf)) <= 14
+
+
+def _adams_host(lib, case, **over):
+    """The host-built SWAG kernel on ``case``, started from the float32
+    stepper's init as the wrapper starts it."""
+    prob, span, y0, kw = ADAMS_CASES[case]
+    kw = dict(kw, **over)
+    rhs = TA.PROBLEMS[prob]
+    y0 = np.ascontiguousarray(y0, np.float32)
+    nb = y0.shape[0]
+    _, s0, direction = FA._host_init(
+        rhs.torch_fn, span, torch.tensor(y0).T, kw["rtol"], kw["atol"],
+        kw.get("first_step"), kw["k_max"], None)
+    yp0 = np.ascontiguousarray(s0.yp.T.numpy())
+    h0 = np.ascontiguousarray(s0.h.numpy())
+    nfev0 = np.ascontiguousarray(s0.nfev.numpy())
+    out = np.empty_like(y0)
+    st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
+    fn = lib.fused_adams_launch
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [vp] * 8 + [ci, cf, cf, cf, cf, cf, cf, ci, ci, ci, vp]
+    fn(y0.ctypes.data, yp0.ctypes.data, h0.ctypes.data, nfev0.ctypes.data,
+       out.ctypes.data, st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb,
+       FA._f32(span[0]), FA._f32(span[1]), direction, FA._f32(kw["rtol"]),
+       FA._f32(kw["atol"]), np.inf, kw.get("max_steps", 200_000),
+       int(kw.get("compensated", False)), 128, None)
+    return out, st, ns, nf
+
+
+def _adams_plain(case, **over):
+    prob, span, y0, kw = ADAMS_CASES[case]
+    return tuple(r.numpy() for r in FA.fused_adams_reference(
+        TA.PROBLEMS[prob], span, torch.tensor(y0), **dict(kw, **over)))
+
+
+@pytest.mark.parametrize("case,attempts", [("vdp", 2), ("bench", 4),
+                                           ("osc_comp", 200_000),
+                                           ("decay_1e6", 200_000),
+                                           ("bench12", 200_000)])
+def test_adams_kernel_first_attempts_bit_identical(libs, case, attempts):
+    """The kernel's attempts (the coefficient update, predictor, error
+    estimates, corrector, order selection and the double-single carries,
+    plain and compensated) repeat the plain version's arithmetic bit for
+    bit until a step ratio taken by powf rounds differently from
+    torch.pow: after 2 attempts on vdp and 4 on bench; never in the whole
+    runs of osc_comp, decay_1e6 and bench12 (k_max = 12, 134 steps)."""
+    y, st, ns, nf = _adams_host(libs["adams_" + case], case,
+                                max_steps=attempts)
+    ry, rst, rns, rnf = _adams_plain(case, max_steps=attempts)
+    np.testing.assert_array_equal(y, ry)
+    np.testing.assert_array_equal(st, rst)
+    np.testing.assert_array_equal(ns, rns)
+    np.testing.assert_array_equal(nf, rnf)
+
+
+# (case, max |dy|, max |dnsteps|, members with other counts), measured:
+# vdp 1.5e-5, 1, 2; bench 7.6e-10, 0, 1; the rest 0, 0, 0.  Gates about
+# 2x, with a floor of 1e-7 on |dy|.
+GATES_ADAMS = [("vdp", 3e-5, 2, 4), ("osc_comp", 1e-7, 1, 2),
+               ("decay_1e6", 1e-7, 1, 2), ("bench", 2e-9, 1, 2),
+               ("bench12", 1e-7, 1, 2)]
+
+
+@pytest.mark.parametrize("case,y_gate,dsteps,nmembers", GATES_ADAMS)
+def test_adams_kernel_matches_plain_version(libs, case, y_gate, dsteps,
+                                            nmembers):
+    y, st, ns, nf = _adams_host(libs["adams_" + case], case)
+    ry, rst, rns, rnf = _adams_plain(case)
+    np.testing.assert_array_equal(st, rst)
+    assert np.all(st == 1)
+    assert np.max(np.abs(y - ry)) <= y_gate
+    assert np.max(np.abs(ns - rns)) <= dsteps
+    assert np.sum((ns != rns) | (nf != rnf)) <= nmembers
