@@ -14,7 +14,13 @@ Drives the port's three paths once each:
   t in [0, 20], rtol 1e-6 / atol 1e-9, k_max = 12, compensated), through
   ``ops.solve_fused_adams``, held against scipy's Radau at rtol 1e-12 on
   sampled members, and on a cut span against the plain version and the
-  f64 ``solve_ensemble`` with SWAG.
+  f64 ``solve_ensemble`` with SWAG;
+* stabilized (SSV2stab, BASELINE config 5): the 2-D Brusselator on one
+  2x256x256 grid (t in [0, 1], rtol 1e-4 / atol 1e-7) through the f64
+  ``solve`` and through ``ops.solve_fused_rkc`` (the whole card on one
+  grid), and 64 members of 2x64x128 with B per member (t in [0, 4])
+  through ``ops.solve_fused_rkc_ensemble`` with a rho bound and with the
+  in-kernel power iteration, held against the f64 ``solve_ensemble``.
 
 Before that, it builds every kernel from the sources in this checkout
 (one nvcc per variant, all started together) and holds each against its
@@ -25,7 +31,9 @@ plain PyTorch version on the card.  Any mismatch raises; the script exits
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line
 before it lists each kernel with its launch count on its path, its
-largest difference from the plain version and both times in ms.
+largest difference from the plain version, its time, the plain version's
+and its bound in ms (the least time the card could take: the larger of
+its bytes over the memory rate and its operations over the float32 peak).
 """
 import json
 import statistics
@@ -177,6 +185,33 @@ def oscillator(t, y):
 
 def cubic(t, y):
     return torch.stack([y[1], y[0] ** 3])
+
+
+# the bound of a kernel: NVIDIA's data-sheet peaks of one H100 SXM (at its
+# 700 W limit): HBM bytes/s and float32 operations/s outside the tensor
+# cores (every kernel here is float32 scalar arithmetic)
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# float32 operations per RHS evaluation of each kernel's line, counted from
+# the kernel source: the RHS plus the share of the stage sums, the error
+# norm and the controller that one evaluation carries (BS5 on Van der Pol,
+# Kv3I on the pendulum DAE with its dual-number Jacobian, LU and Newton
+# solves, SWAG at k_max = 12), and for the RKC kernels per grid element
+# (the Brusselator stencil, ~14, and the stage recurrence, ~9)
+OPS_PER_EVAL = {"fused_erk": 35, "fused_esdirk": 100, "fused_adams": 1000}
+OPS_PER_ELEMENT_EVAL = {"fused_rkc": 23}
+
+
+def bound_entry(bytes_moved, ops):
+    """The ``kernels`` keys of a kernel's bound: the least time the card
+    could take to read and write ``bytes_moved`` once and do ``ops``
+    float32 operations, what bounds it, and the library call (none: no
+    single PyTorch call computes a whole adaptive integration)."""
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_OPS_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": by,
+            "library_ms": None}
 
 
 def check(cond, what):
@@ -355,6 +390,11 @@ def build_all(jobs):
         if kernel == "fused_adams":
             return _build.load_fused_adams(_adams_consts(opt, rhs.n),
                                            rhs.cuda_src)
+        if kernel == "fused_rkc":
+            n_par, rho = opt
+            return _build.load_fused_rkc(rhs.shape, n_par, rhs.cuda_src,
+                                         None if rho is None
+                                         else rho.cuda_src)
         method, M = opt
         return _build.load_fused_esdirk(_esdirk_consts(method),
                                         *_mass_setup(M, rhs.n), rhs.n,
@@ -528,12 +568,15 @@ def esdirk_path():
     print(f"fused_esdirk kernel {N_LARGE} members ({N_LARGE // 128} blocks "
           f"of 128): {large_ms:.3f} ms, max nsteps {int(out[2].max())}, "
           f"{int(out[2].sum()) / large_ms * 1e3:.4g} accepted steps/s")
-    return {"name": "fused_esdirk", "route": "cuda",
-            "source": "extensisq_tpu_torch/csrc/fused_esdirk.cu",
-            "replaces": "extensisq_tpu/ops/fused_esdirk.py:1001",
-            "launches": launches, "max_abs_err": err_k, "ms": k_ms,
-            "plain_ms": plain_ms, "device_ms": k_dev,
-            "ms_per_step": k_ms / max_steps, "f64_ms": f64_ms}
+    return dict({"name": "fused_esdirk", "route": "cuda",
+                 "source": "extensisq_tpu_torch/csrc/fused_esdirk.cu",
+                 "replaces": "extensisq_tpu/ops/fused_esdirk.py:1001",
+                 "launches": launches, "max_abs_err": err_k, "ms": k_ms,
+                 "plain_ms": plain_ms, "device_ms": k_dev,
+                 "ms_per_step": k_ms / max_steps, "f64_ms": f64_ms},
+                **bound_entry(PEND_N * 5 * 4 * 3 + PEND_N * 4 * 3,
+                              int(fused[3].sum()) * OPS_PER_EVAL[
+                                  "fused_esdirk"]))
 
 
 def radau_reference(y0, t_end):
@@ -709,14 +752,336 @@ def adams_path():
           f"({SWAG_N_LARGE // 128} blocks of 128): {large_ms:.3f} ms, max "
           f"nsteps {int(out[2].max())}, "
           f"{int(out[2].sum()) / large_ms * 1e3:.4g} accepted steps/s")
-    return {"name": "fused_adams", "route": "cuda",
-            "source": "extensisq_tpu_torch/csrc/fused_adams.cu",
-            "replaces": "extensisq_tpu/ops/fused_adams.py:876",
-            "launches": launches, "max_abs_err": err_k, "ms": k_ms,
-            "plain_ms": plain_s * 1e3, "plain_span": [0.0, SWAG_T_CUT],
-            "device_ms": k_dev, "ms_per_step": k_ms / max_steps,
-            "f64_ms_cut_span": f64_s * 1e3, "err_vs_radau": float(err_comp),
-            "ms_32768": large_ms}
+    return dict({"name": "fused_adams", "route": "cuda",
+                 "source": "extensisq_tpu_torch/csrc/fused_adams.cu",
+                 "replaces": "extensisq_tpu/ops/fused_adams.py:876",
+                 "launches": launches, "max_abs_err": err_k, "ms": k_ms,
+                 "plain_ms": plain_s * 1e3, "plain_span": [0.0, SWAG_T_CUT],
+                 "device_ms": k_dev, "ms_per_step": k_ms / max_steps,
+                 "f64_ms_cut_span": f64_s * 1e3,
+                 "err_vs_radau": float(err_comp), "ms_32768": large_ms},
+                **bound_entry(SWAG_N * (2 * 4 * 3 + 4 * 5),
+                              fev * OPS_PER_EVAL["fused_adams"]))
+
+
+# -- the RKC path --------------------------------------------------------------
+# validation/benchmarks.py:511-668 (config 5): 5a/5c on one 2x256x256
+# Brusselator grid, 5d/5e on 64 members of 2x64x128 with B per member
+RKC_TOL = dict(rtol=1e-4, atol=1e-7)
+BRUS_N = 256
+BRUS_RHO = 8.0 * 0.02 * BRUS_N**2 + 5.0
+ENS_NY, ENS_NX, ENS_M, ENS_TF = 64, 128, 64, 4.0
+ENS_RHO = 8.0 * 0.02 * ENS_NX**2 + 5.5
+# the JAX benchmark's gates (validation/benchmarks.py:636-637, :657-659,
+# tests/test_fused_pallas.py:215), set on a TPU; re-measured here, section 6
+# of PERF.md
+RKC_F64_GATE = 1e-3
+ENS_STEP_GATE, ENS_Y_GATE = 6, 2e-3
+POWER_STEP_GATE = 8
+# kernel against its plain version on the card, on the small checks (B9 on
+# 2x128x128, B10 on 8 members of 2x32x128, one of which overflows) and at
+# the path's shapes: max |dy| over finished members and max |dnsteps|;
+# PERF.md section 6 holds the measured values.  On the path's 5e line (4
+# time units of the limit cycle, the power iteration re-run every 25 steps
+# and after rejections) the card's FMA contraction parts the f32 step
+# sequences of kernel and plain version further: one member took 45 steps
+# against 51, |dy| 4.5e-4; that line keeps the JAX 5e step gate, 8
+RKC_KERNEL_GATES = {"b9": (5e-4, 3), "b10": (5e-4, 3),
+                    "b10_power_path": (1e-3, 8)}
+# the f64 driver on the card against the CPU on a 2x16x16 grid
+RKC_CPU_GATE = 1e-10
+
+
+def rkc_rhs():
+    """The FusedGridRHS and FusedRho of every RKC variant, by label."""
+    from extensisq_tpu_torch import parallel
+    from extensisq_tpu_torch.ops import FusedRho
+    # a bound of the small grids' spectral radius (8 alpha / dx^2 + 5.5
+    # at nx = 128), growing with t
+    rho_fn = FusedRho(
+        lambda t, y, p=None: 2627.0 * (1.0 + 0.1 * t),
+        "__device__ float rho(float t, const float* y, const float* p) {\n"
+        "  return 2627.0f * (1.0f + 0.1f * t);\n}")
+    return {"b9": parallel.brusselator_2d_grid((BRUS_N, BRUS_N)),
+            "b10": parallel.brusselator_2d_grid((ENS_NY, ENS_NX), B=None),
+            "b9_small": parallel.brusselator_2d_grid((128, 128)),
+            "b10_small": parallel.brusselator_2d_grid((32, 128), B=None),
+            "rho_fn": rho_fn}
+
+
+def rkc_builds(rhs):
+    """(kernel, label, FusedGridRHS, (n_par, rho)) of every RKC variant."""
+    return [("fused_rkc", "brusselator 2x256x256", rhs["b9"], (0, None)),
+            ("fused_rkc", "brusselator 2x64x128, B per member", rhs["b10"],
+             (1, None)),
+            ("fused_rkc", "brusselator 2x128x128", rhs["b9_small"],
+             (0, None)),
+            ("fused_rkc", "brusselator 2x128x128, rho callback",
+             rhs["b9_small"], (0, rhs["rho_fn"])),
+            ("fused_rkc", "brusselator 2x32x128, B per member",
+             rhs["b10_small"], (1, None)),
+            ("fused_rkc", "brusselator 2x32x128, rho callback",
+             rhs["b10_small"], (1, rhs["rho_fn"]))]
+
+
+def brus131k_y0():
+    """The 5a/5c initial grid (validation/benchmarks.py:518-522)."""
+    n = BRUS_N
+    xg, yg = np.meshgrid(np.linspace(0, 1, n, endpoint=False),
+                         np.linspace(0, 1, n, endpoint=False))
+    return np.stack([1.0 + 0.5 * np.sin(2 * np.pi * xg)
+                     * np.sin(2 * np.pi * yg),
+                     3.0 + 0.1 * np.cos(2 * np.pi * xg)])
+
+
+def ens_y0(members, ny, nx):
+    """The 5d/5e members: u0 = 1 + 0.3 sin(2 pi x), v0 = 3."""
+    x = np.linspace(0, 1, nx, endpoint=False)
+    y0 = np.zeros((members, 2, ny, nx), np.float32)
+    y0[:, 0] = 1.0 + 0.3 * np.sin(2 * np.pi * x)[None, :]
+    y0[:, 1] = 3.0
+    return y0
+
+
+def hold_rkc(label, what, k, r, gate_key, extra=""):
+    """Hold an RKC kernel's result ``k`` against its plain version's ``r``
+    (member axis first): identical status, and max |dy| over the finished
+    members and max |dnsteps| within ``RKC_KERNEL_GATES[gate_key]``.
+    Returns max |dy|."""
+    ok = (r[1] == 1).reshape(-1)
+    dy = (k[0] - r[0]).reshape(ok.shape[0], -1)[ok].abs().max().item()
+    dn = (k[2] - r[2]).abs().max().item()
+    y_gate, n_gate = RKC_KERNEL_GATES[gate_key]
+    print(f"rkc kernel vs plain [{label}, {what}]: status "
+          f"{k[1].reshape(-1).tolist()} vs {r[1].reshape(-1).tolist()}, "
+          f"nsteps {k[2].reshape(-1).tolist()} vs {r[2].reshape(-1).tolist()}"
+          + (f", nfesig {k[4].reshape(-1).tolist()} vs "
+             f"{r[4].reshape(-1).tolist()}" if len(k) == 5 else "")
+          + f", max |dy| {dy:.3e} (gate {y_gate:.0e}), max |dnsteps| {dn} "
+          f"(gate {n_gate}){extra}")
+    check(torch.equal(k[1], r[1]), f"rkc {label} {what}: status")
+    check(dy <= y_gate and dn <= n_gate,
+          f"rkc {label} {what}: kernel and plain version disagree")
+    return dy
+
+
+def rkc_kernel_checks(R):
+    """Each RKC kernel against its plain version on the card, in the three
+    rho modes; B10 with a member that overflows.  Returns the largest |dy|
+    of B9 and of B10."""
+    from extensisq_tpu_torch.ops import (fused_rkc_reference,
+                                         solve_fused_rkc,
+                                         solve_fused_rkc_ensemble)
+    rhos = {"float": 8.0 * 0.02 * 128**2 + 5.5, "callback": R["rho_fn"],
+            "power": None}
+    worst = {"b9": 0.0, "b10": 0.0}
+    y9 = torch.tensor(ens_y0(1, 128, 128)[0], device="cuda")
+    y10 = torch.tensor(ens_y0(8, 32, 128), device="cuda")
+    y10[:, 0] += torch.linspace(0.0, 0.2, 8, device="cuda")[:, None, None]
+    y10[5] *= 1e30                      # this member overflows
+    p10 = torch.linspace(2.8, 3.5, 8, device="cuda")[:, None]
+    for mode, rho in rhos.items():
+        for label, run, plain in (
+                ("b9", lambda: solve_fused_rkc(
+                    R["b9_small"], (0.0, 1.0), y9, rho, **RKC_TOL),
+                 lambda: tuple(x[0] for x in fused_rkc_reference(
+                     R["b9_small"], (0.0, 1.0), y9[None], rho, **RKC_TOL))),
+                ("b10", lambda: solve_fused_rkc_ensemble(
+                    R["b10_small"], (0.0, 1.0), y10, rho, params=p10,
+                    **RKC_TOL),
+                 lambda: fused_rkc_reference(
+                     R["b10_small"], (0.0, 1.0), y10, rho, params=p10,
+                     **RKC_TOL))):
+            t0 = time.perf_counter()
+            k = run()
+            torch.cuda.synchronize()
+            k_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            r = plain()
+            torch.cuda.synchronize()
+            r_s = time.perf_counter() - t0
+            dy = hold_rkc(label, f"rho {mode}", k, r, label,
+                          f"; {k_s:.3f} s vs {r_s:.3f} s")
+            worst[label] = max(worst[label], dy)
+            if label == "b10":
+                bad = 6 if rho is None else 3
+                check(int(k[1][5]) == bad and int((k[1] == 1).sum()) == 7,
+                      "rkc overflow isolation: member 5 must fail alone")
+    return worst
+
+
+def rkc_path():
+    """The SSV2stab path at BASELINE config 5's sizes: the f64 driver on
+    one 131,072-state grid (5a), B9 on the same grid (5c), B10 on the
+    64-member ensemble with a rho bound (5d) and with the power iteration
+    (5e), the f64 ensemble; returns the ``kernels`` entries of B9 and
+    B10."""
+    from extensisq_tpu_torch import (SSV2stab, parallel, solve,
+                                     solve_ensemble)
+    from extensisq_tpu_torch.ops import (fused_rkc, fused_rkc_reference,
+                                         solve_fused_adams, solve_fused_erk,
+                                         solve_fused_esdirk, solve_fused_rkc,
+                                         solve_fused_rkc_ensemble)
+    R = rkc_rhs()
+
+    # (a) the kernels against their plain versions, three rho modes
+    worst = rkc_kernel_checks(R)
+
+    # (b) the path: every count set to 0 just before, read just after
+    y131 = brus131k_y0()
+    Y9 = torch.tensor(y131, dtype=torch.float32, device="cuda")
+    Y10 = torch.tensor(ens_y0(ENS_M, ENS_NY, ENS_NX), device="cuda")
+    P10 = torch.tensor(np.linspace(2.8, 3.5, ENS_M), dtype=torch.float32,
+                       device="cuda")[:, None]
+    flat = parallel.brusselator_2d_rhs((BRUS_N, BRUS_N), alpha=0.02)
+    rho_bound = parallel.brusselator_rho_bound((BRUS_N, BRUS_N), alpha=0.02)
+
+    def flat_ens(t, y, b):
+        return R["b10"].torch_fn(t, y.reshape(2, ENS_NY, ENS_NX, -1),
+                                 b[None]).reshape(2 * ENS_NY * ENS_NX, -1)
+
+    for fn in (solve_fused_erk, solve_fused_esdirk, solve_fused_adams,
+               solve_fused_rkc, solve_fused_rkc_ensemble):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    f64 = solve(flat, (0.0, 1.0), torch.tensor(y131.reshape(-1),
+                                               device="cuda"),
+                method=SSV2stab, rho_jac=rho_bound, **RKC_TOL)
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    b9 = solve_fused_rkc(R["b9"], (0.0, 1.0), Y9, BRUS_RHO, **RKC_TOL)
+    b10 = solve_fused_rkc_ensemble(R["b10"], (0.0, ENS_TF), Y10, ENS_RHO,
+                                   params=P10, **RKC_TOL)
+    b10p = solve_fused_rkc_ensemble(R["b10"], (0.0, ENS_TF), Y10, None,
+                                    params=P10, **RKC_TOL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens = solve_ensemble(flat_ens, (0.0, ENS_TF),
+                         Y10.reshape(ENS_M, -1).double(),
+                         params_batch=P10[:, 0].double(), method=SSV2stab,
+                         rho_jac=lambda t, y: ENS_RHO, **RKC_TOL)
+    torch.cuda.synchronize()
+    ens_s = time.perf_counter() - t0
+    launches = (solve_fused_rkc.launches, solve_fused_rkc_ensemble.launches)
+    others = (solve_fused_erk.launches, solve_fused_esdirk.launches,
+              solve_fused_adams.launches)
+    print(f"rkc path: fused_rkc launches {launches[0]}, "
+          f"fused_rkc_ensemble launches {launches[1]}, others {others}")
+    check(launches == (1, 2) and others == (0, 0, 0),
+          f"rkc path launched {launches}, {others}; expected (1, 2)")
+
+    # (c) the gates of config 5
+    print(f"brus131k-f64: status {int(f64.status)}, nsteps "
+          f"{int(f64.nsteps)}, nfev {int(f64.nfev)}, maxm {int(f64.maxm)}, "
+          f"{f64_s * 1e3:.1f} ms wall (one run)")
+    check(int(f64.status) == 1, "brus131k-f64: not finished")
+    d9 = (b9[0].double().reshape(-1) - f64.y).abs().max().item()
+    print(f"brus131k-fused (B9): status {int(b9[1])}, nsteps {int(b9[2])}, "
+          f"nfev {int(b9[3])}, a block of {fused_rkc.GRID_THREADS} per SM; "
+          f"vs f64 max |dy| {d9:.3e} (gate {RKC_F64_GATE:.0e})")
+    check(int(b9[1]) == 1 and b9[0].shape == Y9.shape
+          and bool(torch.isfinite(b9[0]).all()), "brus131k-fused: bad run")
+    check(d9 < RKC_F64_GATE, "brus131k-fused: fused and f64 disagree")
+    check(bool((ens.status == 1).all()), "f64 ensemble: not all finished")
+    for label, out, step_gate in (("5d, rho bound", b10, ENS_STEP_GATE),
+                                  ("5e, power iteration", b10p,
+                                   POWER_STEP_GATE)):
+        dstep = (out[2] - ens.nsteps).abs().max().item()
+        dy = (out[0].reshape(ENS_M, -1).double() - ens.y).abs().max().item()
+        print(f"brus64x2x64x128-ens (B10, {label}): status "
+              f"{torch.unique(out[1]).tolist()}, nsteps {int(out[2].min())}-"
+              f"{int(out[2].max())} (f64 {int(ens.nsteps.min())}-"
+              f"{int(ens.nsteps.max())}), step max |d| {dstep} (gate "
+              f"{step_gate}), endpoint max |d| {dy:.3e} (gate "
+              f"{ENS_Y_GATE:.0e})"
+              + (f", max nfesig {int(out[4].max())}" if len(out) == 5
+                 else ""))
+        check(bool((out[1] == 1).all()) and bool(torch.isfinite(out[0]).all()),
+              f"B10 {label}: not all finished")
+        check(dstep <= step_gate and dy < ENS_Y_GATE,
+              f"B10 {label}: fused and f64 ensemble disagree")
+
+    # (d) the f64 driver on the card against the CPU, 4 members of 2x16x16
+    small = parallel.brusselator_2d_rhs((16, 16), alpha=0.02)
+    ys = torch.tensor(ens_y0(4, 16, 16).reshape(4, -1), dtype=torch.float64)
+    ys[:, :256] *= torch.linspace(0.9, 1.1, 4, dtype=torch.float64)[:, None]
+    card = solve_ensemble(small, (0.0, 1.0), ys.cuda(), method=SSV2stab,
+                          **RKC_TOL)
+    cpu = solve_ensemble(small, (0.0, 1.0), ys, method=SSV2stab, **RKC_TOL)
+    same = all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+               for f in ("status", "nsteps", "nfev", "nfailed", "nfesig",
+                         "maxm"))
+    dcpu = (card.y.cpu() - cpu.y).abs().max().item()
+    print(f"f64 SSV2stab, card vs CPU (4 members of 2x16x16, power "
+          f"iteration): counts equal {same}, max |dy| {dcpu:.3e} (gate "
+          f"{RKC_CPU_GATE:.0e})")
+    check(torch.equal(card.status.cpu(), cpu.status),
+          "f64 SSV2stab: status differs between the card and the CPU")
+    check(dcpu <= RKC_CPU_GATE, "f64 SSV2stab: card and CPU disagree")
+
+    # (e) times: warm medians; the plain versions and the f64 ensemble once
+    def run9():
+        return solve_fused_rkc(R["b9"], (0.0, 1.0), Y9, BRUS_RHO, **RKC_TOL)
+
+    def run10(rho=ENS_RHO):
+        return solve_fused_rkc_ensemble(R["b10"], (0.0, ENS_TF), Y10, rho,
+                                        params=P10, **RKC_TOL)
+
+    b9_ms, b9_dev = wall_ms(run9), event_ms(run9)
+    b10_ms, b10_dev = wall_ms(run10), event_ms(run10)
+    b10p_dev = event_ms(lambda: run10(None))
+
+    # (f) the path's kernel runs against their plain versions, same inputs
+    t0 = time.perf_counter()
+    r9 = fused_rkc_reference(R["b9"], (0.0, 1.0), Y9[None], BRUS_RHO,
+                             **RKC_TOL)
+    torch.cuda.synchronize()
+    plain9_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    r10 = fused_rkc_reference(R["b10"], (0.0, ENS_TF), Y10, ENS_RHO,
+                              params=P10, **RKC_TOL)
+    torch.cuda.synchronize()
+    plain10_ms = (time.perf_counter() - t0) * 1e3
+    r10p = fused_rkc_reference(R["b10"], (0.0, ENS_TF), Y10, None,
+                               params=P10, **RKC_TOL)
+    err9 = hold_rkc("b9", "the path, 2x256x256", tuple(x[None] for x in b9),
+                    r9, "b9")
+    err10 = max(hold_rkc("b10", "the path, 5d bound", b10, r10, "b10"),
+                hold_rkc("b10", "the path, 5e power", b10p, r10p,
+                         "b10_power_path"))
+    stages9 = int(b9[3]) - 1
+    stages10 = int(b10[3].max()) - 1
+    print(f"time [fused_rkc B9] 2x{BRUS_N}x{BRUS_N}: {b9_ms:.3f} ms wall, "
+          f"{b9_dev:.3f} ms device (CUDA events), "
+          f"{b9_dev / stages9 * 1e3:.2f} us per RHS evaluation "
+          f"({stages9} after the first)")
+    print(f"time [fused_rkc_ensemble B10] {ENS_M} x 2x{ENS_NY}x{ENS_NX}: "
+          f"{b10_ms:.3f} ms wall, {b10_dev:.3f} ms device, "
+          f"{b10_dev / stages10 * 1e3:.2f} us per RHS evaluation of the "
+          f"slowest member; power iteration {b10p_dev:.3f} ms device")
+    print(f"time [plain versions] B9 {plain9_ms:.1f} ms, B10 "
+          f"{plain10_ms:.1f} ms (one run each); [f64 solve] 5a "
+          f"{f64_s * 1e3:.1f} ms, [f64 solve_ensemble] 5d {ens_s * 1e3:.1f}"
+          f" ms (one run each)")
+
+    ntot9 = 2 * BRUS_N * BRUS_N
+    ntot10 = 2 * ENS_NY * ENS_NX
+    per_eval = OPS_PER_ELEMENT_EVAL["fused_rkc"]
+    source = "extensisq_tpu_torch/csrc/fused_rkc.cu"
+    return [dict(name="fused_rkc", route="cuda", source=source,
+                 replaces="extensisq_tpu/ops/fused_rkc.py:804",
+                 launches=launches[0], max_abs_err=max(worst["b9"], err9),
+                 ms=b9_ms, plain_ms=plain9_ms, device_ms=b9_dev,
+                 f64_ms=f64_s * 1e3,
+                 **bound_entry(2 * 4 * ntot9,
+                               per_eval * ntot9 * int(b9[3]))),
+            dict(name="fused_rkc_ensemble", route="cuda", source=source,
+                 replaces="extensisq_tpu/ops/fused_rkc.py:1036",
+                 launches=launches[1], max_abs_err=max(worst["b10"], err10),
+                 ms=b10_ms, plain_ms=plain10_ms, device_ms=b10_dev,
+                 device_ms_power=b10p_dev, f64_ms=ens_s * 1e3,
+                 **bound_entry(2 * 4 * ntot10 * ENS_M + 4 * 4 * ENS_M,
+                               per_eval * ntot10 * int(b10[3].sum())))]
 
 
 def main():
@@ -745,7 +1110,7 @@ def main():
     build_all([("fused_erk", "vdp", VDP, None), ("fused_erk", "oscillator",
                                                  HO, None),
                ("fused_erk", "cubic", CUBIC, None)] + esdirk_builds()
-              + adams_builds(adams_rhs()))
+              + adams_builds(adams_rhs()) + rkc_builds(rkc_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
@@ -904,7 +1269,10 @@ def main():
     # 6. the multistep path: kernel checks, the bench line, times
     adams = adams_path()
 
-    print(json.dumps({"kernels": [{
+    # 7. the stabilized path: kernel checks, config 5's lines, times
+    rkc = rkc_path()
+
+    print(json.dumps({"kernels": [dict({
         "name": "fused_erk",
         "route": "cuda",
         "source": "extensisq_tpu_torch/csrc/fused_erk.cu",
@@ -915,7 +1283,9 @@ def main():
         "plain_ms": times["plain version, plain f32"],
         "ms_compensated": times["kernel compensated"],
         "plain_ms_compensated": times["plain version, compensated"],
-    }, esdirk, adams]}))
+    }, **bound_entry(N_MEMBERS * (2 * 4 * 2 + 4 * 3),
+                     int(plain[3].sum()) * OPS_PER_EVAL["fused_erk"])),
+        esdirk, adams] + rkc}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,616 @@
+// Fused RKC solver for Hopper (sm_90a): a whole adaptive SSV2stab
+// integration of a semi-discretized PDE grid in one launch.
+//
+// Replaces the two Pallas kernels of extensisq_tpu/ops/fused_rkc.py, which
+// share one body, `_integrate`: solve_fused_rkc (B9, one grid) and
+// solve_fused_rkc_ensemble (B10, one member grid per program instance).
+// Here too one device template, integrate<G>, runs both; G is the group of
+// threads that works on one member:
+//   * B10: a thread block, one CTA per member (blockIdx.x = member);
+//   * B9:  the whole grid of a cooperative launch, so every SM works on the
+//          one member; every block is resident (the host sizes the grid from
+//          the occupancy), and grid.sync() is the barrier.
+// Its plain PyTorch version is extensisq_tpu_torch/ops/fused_rkc.py:
+// fused_rkc_reference; the two take the same steps up to round-off.
+//
+// Design.  Thousands of threads share one member, so every per-member scalar
+// (t, h, m, accept/reject, status, the power iteration's exit, the Chebyshev
+// coefficients) is computed by every thread from identical inputs, and every
+// thread takes the same branch: no broadcast, and no thread can miss a
+// barrier.  Element i of the member's grid belongs to the thread of rank
+// i mod (group size); the arrays live in global memory, in a workspace the
+// wrapper allocates: y_hi, y_lo, f, f_new, two deviation buffers e (the
+// stage recurrence updates e_{j-2} in place with e_j), two stage-argument
+// buffers a (double-buffered, so one group barrier per stage suffices), and
+// V, the power iteration's warm start (its iterate and f(v) reuse the a
+// buffers).  At the B9 size (2x256x256) each array is 512 KB: the nine fit
+// in the H100's 50 MB L2.  A norm is a group sum: a warp butterfly (all
+// lanes end with the same value), the warps' sums in shared memory added in
+// order by every thread, and on the grid the blocks' sums in a global slot
+// each, added lane-strided and butterflied by every warp.  The order is fixed
+// by the launch shape, so every thread holds the identical total.
+//
+// What bounds it on the H100: per stage each element costs one RHS (a 5-point
+// stencil: ~20 flops, five loads that hit L1/L2) and ~10 flops of the
+// recurrence, so a stage is ~30 flops and ~20 bytes of L2 traffic per
+// element, while the barrier after it costs a few microseconds on the whole
+// grid (B9) or a __syncthreads (B10).  B9 at 131,072 elements is therefore
+// bound by the grid barrier and L2 latency, not by the card's flop rate;
+// B10 runs one member per SM, 64 members on 64 of the 132 SMs.
+//
+// The grid shape, the parameter count, the float32 constants and the user's
+// right-hand side come from the generated header fused_rkc_config.cuh:
+//   namespace tab { G = grid::Grid<...>, NTOT, NPAR, SQRTMIN, SQRTU,
+//                   ONE_P_SQRTU, RHO_UROUND, HMIN_C }
+//   __device__ float rhs(float t, const float* y, int i, const float* p);
+//   __device__ float rho(float t, const float* y, const float* p);
+//
+// Numerics (by line of the Pallas body, extensisq_tpu/ops/fused_rkc.py):
+//  * the deviation-form stage recurrence (:257-336) with the Chebyshev
+//    coefficients in double-single (ds.cuh), the stage arrays in float32 and
+//    the y carry in double-single; t in double-single;
+//  * the coefficient scalars round every operation on its own (__f*_rn), as
+//    the plain version and the JAX kernel do; sinhf/coshf where the JAX
+//    kernel takes exp (:289-295), powf where it takes exp(log x / 3)
+//    (:396-409), selects where it blends (_sblend, :62);
+//  * a non-finite absh is clamped before m is cast to int (:368);
+//  * a non-finite error norm ends the member with status 3 (B10: the other
+//    members run on); a power iteration that does not converge in 50
+//    iterations gives status 6 (:522); max_steps counts attempts (:523).
+// Elsewhere nvcc may contract a*b + c into one fma.
+
+#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+#include <math.h>
+
+#include "ds.cuh"
+#include "grid_common.cuh"
+#include "fused_rkc_config.cuh"
+
+namespace {
+
+constexpr int kRunning = 0;
+constexpr int kFinished = 1;
+constexpr int kTooSmall = 2;
+constexpr int kOverflow = 3;
+constexpr int kRhoFail = 6;
+constexpr int kItMax = 50;       // power-iteration bound
+constexpr int NTOT = tab::NTOT;
+constexpr int kArrays = 9;       // per-member arrays in the workspace
+// B9's block size bound: a grid kernel of at most 512 threads per block may
+// use 128 registers a thread (B10's blocks of up to 1024 get 64)
+constexpr int kGridThreads = 512;
+
+// how the spectral radius is found
+constexpr int kRhoConst = 0;     // a float bound
+constexpr int kRhoFn = 1;        // the user's rho(t, y, p)
+constexpr int kRhoPower = 2;     // the nonlinear power iteration
+
+struct Solve {  // the launch's scalars, the same for every member
+  float t0, tf, dir, rtol, atol, h0, rho_const, max_step;
+  int mmax, max_steps, const_jac;
+};
+
+struct Out {
+  float* y;
+  int* status;
+  int* nsteps;
+  int* nfev;
+  int* nfesig;
+};
+
+// The Chebyshev recurrence's scalars (sommeijer.py:273-329 in the JAX
+// kernel's double-single form), advanced stage by stage by every thread.
+struct Cheb {
+  ds::DS two_w0, zjm2, zjm1, dzjm2, dzjm1, d2zjm2, d2zjm1, bjm2, bjm1;
+  float w0c, w1, mus0, thjm2, thjm1;
+
+  __device__ __forceinline__ void start(int m) {
+    const float mf = static_cast<float>(m);
+    const ds::DS w0 = ds::add_f(
+        ds::div(ds::lift(2.0f), ds::lift(__fmul_rn(__fmul_rn(13.0f, mf), mf))),
+        1.0f);
+    two_w0 = ds::mul_f(w0, 2.0f);
+    w0c = ds::collapse(w0);
+    const float temp1 = __fsub_rn(__fmul_rn(w0c, w0c), 1.0f);
+    const float temp2 = sqrtf(temp1);
+    const float arg = __fmul_rn(mf, logf(__fadd_rn(w0c, temp2)));
+    const float sinh_a = sinhf(arg);
+    const float cosh_a = coshf(arg);
+    w1 = __fdiv_rn(__fmul_rn(sinh_a, temp1),
+                   __fsub_rn(__fmul_rn(__fmul_rn(cosh_a, mf), temp2),
+                             __fmul_rn(w0c, sinh_a)));
+    const ds::DS bj0 = ds::div(ds::lift(1.0f), ds::mul(two_w0, two_w0));
+    mus0 = __fmul_rn(w1, ds::collapse(bj0));
+    thjm2 = 0.0f;
+    thjm1 = mus0;
+    zjm2 = ds::lift(1.0f);
+    zjm1 = w0;
+    dzjm2 = ds::lift(0.0f);
+    dzjm1 = ds::lift(1.0f);
+    d2zjm2 = ds::lift(0.0f);
+    d2zjm1 = ds::lift(0.0f);
+    bjm2 = bj0;
+    bjm1 = bj0;
+  }
+
+  // The coefficients of the next stage: e_j = muc e_{j-1} + nuc e_{j-2} +
+  // (h mus) (f_j - ajc f), f_j taken at t + h th.
+  __device__ __forceinline__ void next(float& muc, float& nuc, float& ajc,
+                                       float& mus, float& th) {
+    const ds::DS zj = ds::add(ds::mul(two_w0, zjm1), ds::neg(zjm2));
+    const ds::DS dzj = ds::add(ds::add(ds::mul(two_w0, dzjm1), ds::neg(dzjm2)),
+                               ds::mul_f(zjm1, 2.0f));
+    const ds::DS d2zj =
+        ds::add(ds::add(ds::mul(two_w0, d2zjm1), ds::neg(d2zjm2)),
+                ds::mul_f(dzjm1, 4.0f));
+    const ds::DS bj = ds::div(d2zj, ds::mul(dzj, dzj));
+    const ds::DS ajm1 = ds::add_f(ds::neg(ds::mul(zjm1, bjm1)), 1.0f);
+    const ds::DS mu = ds::div(ds::mul(two_w0, bj), bjm1);
+    const ds::DS nu = ds::neg(ds::div(bj, bjm2));
+    muc = ds::collapse(mu);
+    nuc = ds::collapse(nu);
+    ajc = ds::collapse(ajm1);
+    mus = __fdiv_rn(__fmul_rn(muc, w1), w0c);
+    th = thjm1;
+    const float thj =
+        __fadd_rn(__fadd_rn(__fmul_rn(muc, thjm1), __fmul_rn(nuc, thjm2)),
+                  __fmul_rn(mus, __fsub_rn(1.0f, ajc)));
+    thjm2 = thjm1;
+    thjm1 = thj;
+    zjm2 = zjm1;
+    zjm1 = zj;
+    dzjm2 = dzjm1;
+    dzjm1 = dzj;
+    d2zjm2 = d2zjm1;
+    d2zjm1 = d2zj;
+    bjm2 = bjm1;
+    bjm1 = bj;
+  }
+};
+
+__device__ __forceinline__ float cube_root(float x) {
+  return powf(x, 1.0f / 3.0f);
+}
+
+// The whole integration of one member by the group g (rank(), size(),
+// sync(), and sum(x): the group's sum of x, identical in every thread).
+// y0 and p are the member's initial grid and parameters; w its nine arrays,
+// NTOT floats each.
+template <int RHO, class Group>
+__device__ void integrate(Group& g, const float* __restrict__ y0,
+                          const float* __restrict__ p, float* w,
+                          const Solve& s, int member, const Out& out) {
+  const int rank = g.rank();
+  const int nthr = g.size();
+  float* y_hi = w;
+  float* y_lo = w + NTOT;
+  float* f = w + 2 * NTOT;
+  float* f_new = w + 3 * NTOT;
+  float* e_a = w + 4 * NTOT;
+  float* e_b = w + 5 * NTOT;
+  float* arg[2] = {w + 6 * NTOT, w + 7 * NTOT};
+  float* V = w + 8 * NTOT;
+  const float nf = static_cast<float>(NTOT);  // jnp.mean divides by n
+
+  for (int i = rank; i < NTOT; i += nthr) {
+    y_hi[i] = y0[i];
+    y_lo[i] = 0.0f;
+  }
+  g.sync();
+  for (int i = rank; i < NTOT; i += nthr) {
+    f[i] = rhs(s.t0, y_hi, i, p);
+    if constexpr (RHO == kRhoPower) V[i] = f[i];
+  }
+  // steppers/rkc.py:141-143: hmax from the span and max_step
+  const float mse = fminf(fabsf(s.tf - s.t0), s.max_step);
+  const float small = 1.0f / mse;
+
+  float t = s.t0;
+  float t_lo = 0.0f;
+  float h_abs = s.h0;
+  float h_prev = 0.0f;
+  float err_old = 1.0f;
+  float sprad = 0.0f;
+  int status = kRunning;
+  int nstep = 0;
+  int nfev = 1;
+  int nfesig = 0;
+  bool newspc = true;
+  bool jacatt = false;
+  int nstsig = 0;
+  int it = 0;
+
+  while (status == kRunning) {
+    g.sync();  // the last attempt's writes (y, f) are visible to all
+
+    // spectral radius: a bound, the user's callback, or the power
+    // iteration with the stepper's refresh policy
+    bool rho_ok = true;
+    bool jacatt_att = jacatt;
+    if constexpr (RHO == kRhoConst) {
+      sprad = s.rho_const;
+      rho_ok = sprad == sprad;
+    } else if constexpr (RHO == kRhoFn) {
+      sprad = rho(t, y_hi, p);
+      rho_ok = sprad == sprad;
+    } else {
+      if (newspc) {
+        float yy = 0.0f, vv = 0.0f;
+        for (int i = rank; i < NTOT; i += nthr) {
+          yy += y_hi[i] * y_hi[i];
+          vv += V[i] * V[i];
+        }
+        const float ynrm = sqrtf(g.sum(yy));
+        const float vnrm = sqrtf(g.sum(vv));
+        const bool both = ynrm != 0.0f && vnrm != 0.0f;
+        const bool only_y = ynrm != 0.0f && vnrm == 0.0f;
+        const bool only_v = ynrm == 0.0f && vnrm != 0.0f;
+        const float dynrm = (both || only_y) ? ynrm * tab::SQRTU
+                                             : tab::RHO_UROUND;
+        const float vs = dynrm / (vnrm == 0.0f ? 1.0f : vnrm);
+        float* v = arg[0];
+        float* fv = arg[1];
+        for (int i = rank; i < NTOT; i += nthr) {
+          v[i] = both     ? y_hi[i] + V[i] * vs
+                 : only_y ? V[i] * tab::ONE_P_SQRTU
+                 : only_v ? V[i] * vs
+                          : dynrm;
+        }
+        g.sync();
+        float sigma = 0.0f;
+        bool done = false;
+        int nev = 0;
+        sprad = 0.0f;
+        for (int k = 0; k < kItMax && !done; ++k) {
+          float dd = 0.0f;
+          for (int i = rank; i < NTOT; i += nthr) {
+            const float fvi = rhs(t, v, i, p);
+            fv[i] = fvi;
+            const float df = fvi - f[i];
+            dd += df * df;
+          }
+          const float dfnrm = sqrtf(g.sum(dd));
+          nev += 1;
+          const float sigma_new = dfnrm / dynrm;
+          if (k > 0 && fabsf(sigma_new - sigma) <=
+                           fmaxf(sigma_new, small) * 0.01f) {
+            sprad = 1.2f * sigma_new;
+            done = true;
+          } else {
+            if (dfnrm != 0.0f) {
+              const float scale = dynrm / dfnrm;
+              for (int i = rank; i < NTOT; i += nthr) {
+                v[i] = y_hi[i] + (fv[i] - f[i]) * scale;
+              }
+            } else if (k % NTOT % nthr == rank) {
+              // degenerate case: flip the sign of component k mod n
+              v[k % NTOT] = -v[k % NTOT];
+            }
+            g.sync();
+          }
+          sigma = sigma_new;
+        }
+        rho_ok = done;
+        if (done) {
+          for (int i = rank; i < NTOT; i += nthr) V[i] = v[i] - y_hi[i];
+        }
+        nfesig += nev;
+        jacatt_att = true;
+      }
+    }
+
+    // the starting step on the first attempt (sommeijer.py:206-216)
+    float absh = h_abs;
+    if (h_abs < 0.0f) {
+      float absh0 = sprad * mse > 1.0f ? 1.0f / sprad : mse;
+      absh0 = fmaxf(absh0, tab::SQRTMIN);
+      float* a = arg[0];
+      for (int i = rank; i < NTOT; i += nthr) a[i] = y_hi[i] + absh0 * f[i];
+      g.sync();
+      float acc = 0.0f;
+      for (int i = rank; i < NTOT; i += nthr) {
+        const float q = (rhs(t + absh0, a, i, p) - f[i]) /
+                        (s.atol + s.rtol * fabsf(y_hi[i]));
+        acc += q * q;
+      }
+      const float est = absh0 * sqrtf(g.sum(acc) / nf);
+      absh = 0.1f * absh0 < mse * sqrtf(est)
+                 ? fmaxf(0.1f * absh0 / sqrtf(est), tab::SQRTMIN)
+                 : mse;
+      nfev += 1;
+    }
+
+    // stage count and the m cap; a non-finite absh is clamped first
+    const float d = fabsf(s.tf - t);
+    if (1.1f * absh >= d) absh = d;
+    if (!isfinite(absh)) absh = mse;
+    const float q = sqrtf(1.54f * absh * sprad + 1.0f);
+    const bool hit_cap = q >= static_cast<float>(s.mmax);
+    int m = hit_cap ? s.mmax : 1 + (q == q ? static_cast<int>(q) : 0);
+    m = min(max(m, 2), s.mmax);
+    const float mf = static_cast<float>(m);
+    if (hit_cap) absh = (mf * mf - 1.0f) / (1.54f * sprad);
+    const float h = s.dir * absh;
+    const float hmin = fmaxf(
+        tab::SQRTMIN, tab::HMIN_C * (fabsf(t) + absh) * (mf * mf - 1.0f));
+
+    // the stages in deviation form: e_j = y_j - y_n
+    Cheb c;
+    c.start(m);
+    float* em2 = e_a;
+    float* em1 = e_b;
+    int ab = 0;
+    const float hmus0 = h * c.mus0;
+    for (int i = rank; i < NTOT; i += nthr) {
+      const float e1 = hmus0 * f[i];
+      em2[i] = 0.0f;
+      em1[i] = e1;
+      arg[0][i] = y_hi[i] + (y_lo[i] + e1);
+    }
+    g.sync();
+    for (int j = 2; j <= m; ++j) {
+      float muc, nuc, ajc, mus, th;
+      c.next(muc, nuc, ajc, mus, th);
+      const float tj = t + h * th;
+      const float hmus = h * mus;
+      const float* a = arg[ab];
+      float* a_next = arg[ab ^ 1];
+      for (int i = rank; i < NTOT; i += nthr) {
+        const float fj = rhs(tj, a, i, p);
+        const float ej =
+            muc * em1[i] + nuc * em2[i] + hmus * (fj - ajc * f[i]);
+        em2[i] = ej;
+        a_next[i] = y_hi[i] + (y_lo[i] + ej);
+      }
+      float* tmp = em2;
+      em2 = em1;
+      em1 = tmp;
+      ab ^= 1;
+      g.sync();
+    }
+    // arg[ab] now holds y_k = y_n + e_m
+
+    // f(t + h, y_k) and the embedded error estimate
+    const float* yk = arg[ab];
+    const float h4 = 0.4f * h;
+    float acc = 0.0f;
+    for (int i = rank; i < NTOT; i += nthr) {
+      const float fk = rhs(t + h, yk, i, p);
+      f_new[i] = fk;
+      const float wt = s.atol + s.rtol * fmaxf(fabsf(y_hi[i]), fabsf(yk[i]));
+      const float est = -0.8f * em1[i] + h4 * (f[i] + fk);
+      const float r = est / wt;
+      acc += r * r;
+    }
+    float err = sqrtf(g.sum(acc) / nf);
+    nfev += m;
+    const bool bad = !isfinite(err);
+    if (bad) err = 10.0f;
+    const bool accepted = err < 1.0f && !bad;
+
+    const float cbrt_e = cube_root(fmaxf(err, 1e-30f));
+    const float absh_rej = 0.8f * absh / cbrt_e;
+    const bool too_small = !accepted && absh_rej < hmin;
+
+    // H220 dead-beat controller (sommeijer.py:253-266)
+    float fac;
+    if (h_prev == 0.0f) {
+      fac = 0.8f < 10.0f * cbrt_e ? 0.8f / cbrt_e : 10.0f;
+    } else {
+      const float temp1 = 0.8f * absh * cube_root(fmaxf(err_old, 1e-30f));
+      const float temp2 =
+          fabsf(h_prev) * powf(fmaxf(err, 1e-30f), 2.0f / 3.0f);
+      fac = temp1 < 10.0f * temp2 ? temp1 / fmaxf(temp2, 1e-30f) : 10.0f;
+    }
+    const float absh_acc =
+        fmaxf(hmin, fminf(mse, fmaxf(0.1f, fac) * absh));
+    const bool is_last = accepted && absh >= d;
+
+    int st = bad ? kOverflow
+                 : (too_small ? kTooSmall : (is_last ? kFinished : status));
+    if (!rho_ok) st = kRhoFail;
+    it += 1;
+    if (it >= s.max_steps && st == kRunning) st = kOverflow;
+    status = st;
+
+    if (RHO == kRhoPower) {
+      // refresh policy after the attempt (steppers/rkc.py:513-517)
+      if (accepted) {
+        nstsig = (nstsig + 1) % 25;
+        newspc = nstsig == 0 && !s.const_jac;
+        jacatt = s.const_jac;
+      } else {
+        newspc = !jacatt_att;
+        jacatt = jacatt_att;
+      }
+    }
+
+    if (accepted) {
+      const ds::DS tn = ds::add_f(ds::DS{t, t_lo}, h);
+      t = is_last ? s.tf : tn.hi;
+      t_lo = is_last ? 0.0f : tn.lo;
+      // the double-single y carry advances by the step's deviation
+      for (int i = rank; i < NTOT; i += nthr) {
+        const ds::DS yn = ds::add_f(ds::DS{y_hi[i], y_lo[i]}, em1[i]);
+        y_hi[i] = yn.hi;
+        y_lo[i] = yn.lo;
+      }
+      float* tmp = f;
+      f = f_new;
+      f_new = tmp;
+      h_abs = absh_acc;
+      h_prev = h;
+      err_old = err;
+      nstep += 1;
+    } else {
+      h_abs = absh_rej;
+    }
+  }
+
+  g.sync();
+  for (int i = rank; i < NTOT; i += nthr) {
+    out.y[static_cast<size_t>(member) * NTOT + i] = y_hi[i];
+  }
+  if (rank == 0) {
+    out.status[member] = status;
+    out.nsteps[member] = nstep;
+    out.nfev[member] = nfev;
+    out.nfesig[member] = nfesig;
+  }
+}
+
+}  // namespace
+
+// ---- CUDA groups, kernels and launch ----
+namespace {
+
+namespace cg = cooperative_groups;
+
+// Sum over a block, the same value in every thread: a warp butterfly, then
+// the warps' sums from shared memory in warp order.  `red` holds two
+// 32-float buffers used in turn, so that one barrier per sum suffices.
+__device__ __forceinline__ float block_sum(float v, float* red, int& turn) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  float* buf = red + 32 * turn;
+  turn ^= 1;
+  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = v;
+  __syncthreads();
+  const int nwarps = (blockDim.x + 31) >> 5;
+  float s = 0.0f;
+  for (int k = 0; k < nwarps; ++k) s += buf[k];
+  return s;
+}
+
+// B10: one thread block per member.
+struct BlockGroup {
+  float* red;
+  int turn = 0;
+  __device__ int rank() const { return threadIdx.x; }
+  __device__ int size() const { return blockDim.x; }
+  __device__ void sync() const { __syncthreads(); }
+  __device__ float sum(float v) { return block_sum(v, red, turn); }
+};
+
+// B9: the whole cooperative grid on one member.  Each block's sum goes to
+// its slot of `partials` (two sets of gridDim.x slots, used in turn); after
+// grid.sync() every warp adds the slots lane-strided and butterflies them.
+struct GridGroup {
+  cg::grid_group grid;
+  float* red;
+  float* partials;
+  int turn = 0;
+  int pturn = 0;
+  __device__ int rank() const {
+    return blockIdx.x * blockDim.x + threadIdx.x;
+  }
+  __device__ int size() const { return gridDim.x * blockDim.x; }
+  __device__ void sync() { grid.sync(); }
+  __device__ float sum(float v) {
+    const float b = block_sum(v, red, turn);
+    float* slots = partials + gridDim.x * pturn;
+    pturn ^= 1;
+    if (threadIdx.x == 0) slots[blockIdx.x] = b;
+    grid.sync();
+    float s = 0.0f;
+    for (unsigned k = threadIdx.x & 31; k < gridDim.x; k += 32) s += slots[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    return s;
+  }
+};
+
+template <int RHO>
+__global__ void __launch_bounds__(1024)
+    fused_rkc_block_kernel(const float* __restrict__ y0,
+                           const float* __restrict__ params, float* work,
+                           Solve s, Out out) {
+  __shared__ float red[64];
+  BlockGroup g{red};
+  const int member = blockIdx.x;
+  integrate<RHO>(g, y0 + static_cast<size_t>(member) * NTOT,
+                 tab::NPAR ? params + member * tab::NPAR : nullptr,
+                 work + static_cast<size_t>(member) * kArrays * NTOT, s,
+                 member, out);
+}
+
+template <int RHO>
+__global__ void __launch_bounds__(kGridThreads)
+    fused_rkc_grid_kernel(const float* __restrict__ y0,
+                          const float* __restrict__ params, float* work,
+                          float* partials, Solve s, Out out) {
+  __shared__ float red[64];
+  GridGroup g{cg::this_grid(), red, partials};
+  integrate<RHO>(g, y0, tab::NPAR ? params : nullptr, work, s, 0, out);
+}
+
+const void* grid_kernel(int rho_mode) {
+  if (rho_mode == kRhoConst) {
+    return reinterpret_cast<const void*>(&fused_rkc_grid_kernel<kRhoConst>);
+  }
+  if (rho_mode == kRhoFn) {
+    return reinterpret_cast<const void*>(&fused_rkc_grid_kernel<kRhoFn>);
+  }
+  return reinterpret_cast<const void*>(&fused_rkc_grid_kernel<kRhoPower>);
+}
+
+}  // namespace
+
+// The largest grid whose blocks of `threads` threads are all resident at
+// once (the blocks one SM holds times the SM count), written to *blocks;
+// returns the CUDA error code.
+extern "C" int fused_rkc_grid_capacity(int rho_mode, int threads,
+                                       int* blocks) {
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_kernel(rho_mode),
+                                                threads, 0);
+  *blocks = per_sm * sms;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches B9 (grid = 1: one member on a cooperative grid of `blocks`
+// blocks) or B10 (grid = 0: one block per member) on the caller's stream and
+// returns the CUDA error code; the wrapper raises on anything but 0, and a
+// refused cooperative launch is such an error.  `work` holds kArrays * NTOT
+// floats per member, `partials` 2 * blocks floats (B9 only).
+extern "C" int fused_rkc_launch(int grid, int rho_mode, const void* y0,
+                                const void* params, void* y_out, void* status,
+                                void* nsteps, void* nfev, void* nfesig,
+                                void* work, void* partials, int members,
+                                float t0, float tf, float dir, float rtol,
+                                float atol, float h0, float rho_const,
+                                float max_step, int mmax, int max_steps,
+                                int const_jac, int threads, int blocks,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Solve s{t0, tf, dir, rtol, atol, h0, rho_const, max_step,
+          mmax, max_steps, const_jac};
+  Out out{static_cast<float*>(y_out), static_cast<int*>(status),
+          static_cast<int*>(nsteps), static_cast<int*>(nfev),
+          static_cast<int*>(nfesig)};
+  const float* y0f = static_cast<const float*>(y0);
+  const float* pf = static_cast<const float*>(params);
+  float* wf = static_cast<float*>(work);
+  if (grid) {
+    float* part = static_cast<float*>(partials);
+    void* args[] = {&y0f, &pf, &wf, &part, &s, &out};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        grid_kernel(rho_mode), dim3(blocks), dim3(threads), args, 0, st));
+  }
+  if (rho_mode == kRhoConst) {
+    fused_rkc_block_kernel<kRhoConst><<<members, threads, 0, st>>>(
+        y0f, pf, wf, s, out);
+  } else if (rho_mode == kRhoFn) {
+    fused_rkc_block_kernel<kRhoFn><<<members, threads, 0, st>>>(y0f, pf, wf,
+                                                                s, out);
+  } else {
+    fused_rkc_block_kernel<kRhoPower><<<members, threads, 0, st>>>(
+        y0f, pf, wf, s, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,5 +1,6 @@
 """Method registry of the port: the explicit Runge-Kutta methods, the
-implicit ESDIRK methods and SWAG, the variable-order Adams method.
+implicit ESDIRK methods, SWAG, the variable-order Adams method, and
+SSV2stab, the stabilized Runge-Kutta-Chebyshev method.
 
 CKdisc's tableau comes along as data; its ``ckdisc`` family is not
 ported yet (ROADMAP A14).
@@ -10,17 +11,19 @@ from .esdirk import TRBDF2, TRX2, HS2I, HS2Ia, KC3I, KC4I, KC4Ia, Kv3I
 from ..types import Method
 
 SWAG = Method(name="SWAG", family="adams", options={"k_max": 12})
+SSV2stab = Method(name="SSV2stab", family="rkc")
 
 EXPLICIT_METHODS = [BS5, Ts5, CK5, Me4, Pr7, Pr8, Pr9, CFMR7osc]
 ESDIRK_METHODS = [TRBDF2, TRX2, KC3I, KC4I, KC4Ia, Kv3I]
 
 METHODS_BY_NAME = {m.name: m for m in EXPLICIT_METHODS + [CKdisc]
-                   + ESDIRK_METHODS + [SWAG]}
+                   + ESDIRK_METHODS + [SWAG, SSV2stab]}
 METHODS_BY_NAME["HS2I"] = HS2I
 METHODS_BY_NAME["HS2Ia"] = HS2Ia
 
 __all__ = [
     "BS5", "Ts5", "CK5", "CKdisc", "Me4", "Pr7", "Pr8", "Pr9", "CFMR7osc",
     "TRBDF2", "TRX2", "HS2I", "HS2Ia", "KC3I", "KC4I", "KC4Ia", "Kv3I",
-    "SWAG", "EXPLICIT_METHODS", "ESDIRK_METHODS", "METHODS_BY_NAME",
+    "SWAG", "SSV2stab", "EXPLICIT_METHODS", "ESDIRK_METHODS",
+    "METHODS_BY_NAME",
 ]

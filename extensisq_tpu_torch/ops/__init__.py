@@ -8,8 +8,13 @@ kernel launch, each with its plain PyTorch version beside it.
   compensated (``csrc/fused_esdirk.cu``)
 * :func:`solve_fused_adams` — SWAG (variable-order Adams PECE)
   ensembles, plain and compensated (``csrc/fused_adams.cu``)
+* :func:`solve_fused_rkc` and :func:`solve_fused_rkc_ensemble` — SSV2stab
+  (Runge-Kutta-Chebyshev) on one PDE grid across the whole card, or on an
+  ensemble of grids with one thread block per member
+  (``csrc/fused_rkc.cu``)
 * :class:`FusedRHS` — a right-hand side as a rows-first torch function
-  plus the CUDA source the kernel compiles in
+  plus the CUDA source the kernel compiles in; :class:`FusedGridRHS` and
+  :class:`FusedRho` are the grid kernels' counterparts
 
 The other fused families of ``extensisq_tpu.ops`` are queued in
 ROADMAP.md (queue B).
@@ -17,7 +22,11 @@ ROADMAP.md (queue B).
 from .fused_adams import fused_adams_reference, solve_fused_adams
 from .fused_erk import FusedRHS, fused_erk_reference, solve_fused_erk
 from .fused_esdirk import fused_esdirk_reference, solve_fused_esdirk
+from .fused_rkc import (FusedGridRHS, FusedRho, fused_rkc_reference,
+                        solve_fused_rkc, solve_fused_rkc_ensemble)
 
 __all__ = ["FusedRHS", "fused_erk_reference", "solve_fused_erk",
            "fused_esdirk_reference", "solve_fused_esdirk",
-           "fused_adams_reference", "solve_fused_adams"]
+           "fused_adams_reference", "solve_fused_adams",
+           "FusedGridRHS", "FusedRho", "fused_rkc_reference",
+           "solve_fused_rkc", "solve_fused_rkc_ensemble"]

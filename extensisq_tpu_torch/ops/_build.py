@@ -3,9 +3,11 @@
 Each kernel ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C entry point ``<name>_launch`` and loaded
 with ``ctypes``.  A kernel is specialised per (method, right-hand side,
-mass matrix): a generated header, ``<name>_config.cuh``, holds the
-method's data rounded to float32 exactly as the JAX kernel rounds it, as
-``constexpr`` data, and the user's CUDA RHS.  The build key hashes the
+mass matrix), or for the RKC kernels per (grid shape, parameter count,
+right-hand side, rho callback): a generated header,
+``<name>_config.cuh``, holds the method's data rounded to float32 exactly
+as the JAX kernel rounds it, as ``constexpr`` data, and the user's CUDA
+RHS.  The build key hashes the
 kernel source, every ``csrc/*.cuh`` it includes (directly or through
 another shared header), the generated header and the flags; the library
 lands in ``extensisq_tpu_torch/_build/<name>_<key>/`` at first use and is
@@ -219,6 +221,40 @@ constexpr float LAND_TOL = {_f32(k['land_tol'])};
 """
 
 
+def fused_rkc_header(shape, n_par, rhs_src, rho_src=None):
+    """Text of ``fused_rkc_config.cuh`` for a member grid of extents
+    ``shape``, ``n_par`` per-member parameters, the CUDA right-hand side
+    ``rhs(float t, const float* y, int i, const float* p)`` and, where
+    given, the spectral-radius callback ``rho(float t, const float* y,
+    const float* p)`` (a stub that is never called otherwise)."""
+    from .fused_rkc import _rkc_consts
+    k = _rkc_consts()
+    ntot = int(np.prod(shape))
+    dims = ", ".join(str(int(d)) for d in shape)
+    if rho_src is None:
+        rho_src = ("__device__ float rho(float t, const float* y, "
+                   "const float* p) { return 0.0f; }")
+    return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
+// The fused RKC kernel's grid, float32 constants and the user's functions.
+#pragma once
+
+namespace tab {{
+using G = grid::Grid<{dims}>;
+constexpr int NTOT = {ntot};
+constexpr int NPAR = {int(n_par)};
+constexpr float SQRTMIN = {_f32(k['sqrtmin'])};
+constexpr float SQRTU = {_f32(k['sqrtu'])};
+constexpr float ONE_P_SQRTU = {_f32(k['one_p_sqrtu'])};
+constexpr float RHO_UROUND = {_f32(k['rho_uround'])};
+constexpr float HMIN_C = {_f32(k['hmin_c'])};
+}}  // namespace tab
+
+{rhs_src}
+
+{rho_src}
+"""
+
+
 def _nvcc():
     found = shutil.which("nvcc")
     if found:
@@ -332,3 +368,18 @@ def load_fused_adams(consts, rhs_src):
         "fused_adams", fused_adams_header(consts, rhs_src),
         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF,
          _CF, _CF, _CI, _CI, _CI, _VP])
+
+
+def load_fused_rkc(shape, n_par, rhs_src, rho_src=None):
+    """Build (at first use) and load the fused RKC kernels (B9 and B10) for
+    one grid shape, parameter count and right-hand side; returns
+    :class:`Built` with ``lib.fused_rkc_launch`` and
+    ``lib.fused_rkc_grid_capacity`` bound."""
+    built = load_kernel(
+        "fused_rkc", fused_rkc_header(shape, n_par, rhs_src, rho_src),
+        [_CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF,
+         _CF, _CF, _CF, _CF, _CF, _CF, _CF, _CI, _CI, _CI, _CI, _CI, _VP])
+    cap = built.lib.fused_rkc_grid_capacity
+    cap.argtypes = [_CI, _CI, ctypes.POINTER(ctypes.c_int)]
+    cap.restype = ctypes.c_int
+    return built

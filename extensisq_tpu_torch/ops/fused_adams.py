@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW
+from .._device import as_input
 from ..steppers.adams import AdamsStepper, _GSTR, _put, _rows, _take
 from ..types import IVPParams
 from .fused_erk import FusedRHS, _df_add, _two_sum
@@ -392,6 +393,8 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     loop iterations, accepted plus rejected).  ``k_max`` (1 to 12) caps
     the order; ``max_step`` caps |h|.  Backward spans work.
 
+    A ``y0_batch`` that is not a tensor goes to the card as float32 (and
+    raises where there is none); a tensor keeps its device.
     On a CUDA tensor ``fun`` must be a :class:`FusedRHS` (its ``cuda_src``
     defines ``rhs(float t, const float* y, float* dy)`` or the template
     ``rhs<T>``); the members' starting state is computed by torch
@@ -408,7 +411,7 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
             raise NotImplementedError(
                 f"solve_fused_adams({name}=...) is not ported yet: ROADMAP "
                 "queue B, item B3 (remaining options)")
-    y0 = torch.as_tensor(y0_batch)
+    y0 = as_input(y0_batch, torch.float32)
     if y0.ndim != 2 or y0.shape[1] > 8:
         raise ValueError("fused SWAG takes y0_batch of shape (B, n) with "
                          "n <= 8; use solve_ensemble for larger states")

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW
+from .._device import as_input
 from ..core.controller import resolve_controller
 from ..core.numerics import norm
 from ..steppers.erk import weighted_sum
@@ -318,6 +319,8 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
     underflow, 3 = overflow or step cap (``max_steps`` counts loop
     iterations, accepted plus rejected).
 
+    A ``y0_batch`` that is not a tensor goes to the card as float32 (and
+    raises where there is none); a tensor keeps its device.
     On a CUDA tensor ``fun`` must be a :class:`FusedRHS`, and the call
     launches ``csrc/fused_erk.cu`` (built at first use) with
     ``block_members`` threads per block, or raises.  On a CPU tensor it
@@ -332,7 +335,7 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
             raise NotImplementedError(
                 f"solve_fused_erk({name}=...) is not ported yet: ROADMAP "
                 "queue B, item B1 (remaining options)")
-    y0 = torch.as_tensor(y0_batch)
+    y0 = as_input(y0_batch, torch.float32)
     if y0.device.type != "cuda":
         return fused_erk_reference(
             fun, t_span, y0, method=method, rtol=rtol, atol=atol,

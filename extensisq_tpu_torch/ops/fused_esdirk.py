@@ -37,6 +37,7 @@ import torch
 from .._config import (RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW,
                        NEWTON_MAXITER, MAX_RATE, MAX_FACTOR_NRF, MIN_FACTOR,
                        MAX_FACTOR, MAX_FACTOR0)
+from .._device import as_input
 from ..core.controller import resolve_controller
 from ..core.numerics import norm
 from ..steppers.erk import weighted_sum
@@ -547,6 +548,8 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
     (B,))`` with status 1 = finished, 2 = step size underflow, 3 = step
     cap (``max_steps`` counts loop iterations, accepted plus rejected).
 
+    A ``y0_batch`` that is not a tensor goes to the card as float32 (and
+    raises where there is none); a tensor keeps its device.
     On a CUDA tensor ``fun`` must be a :class:`FusedRHS` whose
     ``cuda_src`` defines the template ``rhs<T>`` (see ``csrc/dual.cuh``),
     and the call launches ``csrc/fused_esdirk.cu`` (built at first use)
@@ -564,7 +567,7 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
             raise NotImplementedError(
                 f"solve_fused_esdirk({name}=...) is not ported yet: ROADMAP "
                 "queue B, item B2 (remaining options)")
-    y0 = torch.as_tensor(y0_batch)
+    y0 = as_input(y0_batch, torch.float32)
     if y0.ndim != 2 or y0.shape[1] > 8:
         raise ValueError("fused ESDIRK takes y0_batch of shape (B, n) with "
                          "n <= 8; use solve_ensemble for larger states")
@@ -583,7 +586,8 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
         raise ValueError(f"y0_batch must be (B, {fun.n}), got "
                          f"{tuple(y0.shape)}")
     y0 = y0.contiguous()
-    yp0 = None if yp0_batch is None else torch.as_tensor(yp0_batch)
+    yp0 = None if yp0_batch is None else torch.as_tensor(
+        yp0_batch, device=y0.device)
     if yp0 is not None:
         if yp0.shape != y0.shape:
             raise ValueError("yp0_batch must have the shape of y0_batch")

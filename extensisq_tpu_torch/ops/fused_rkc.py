@@ -1,0 +1,645 @@
+"""Fused RKC solver: a whole stabilized SSV2stab integration of a PDE grid
+in one CUDA kernel launch.
+
+Counterpart of ``extensisq_tpu/ops/fused_rkc.py``.  Two kernels from one
+CUDA body (``csrc/fused_rkc.cu``, ``integrate<Group>``):
+
+* :func:`solve_fused_rkc` (B9): one grid, run by the whole card in a
+  cooperative launch;
+* :func:`solve_fused_rkc_ensemble` (B10): many member grids, one thread
+  block each, with per-member parameters.
+
+Both run the JAX kernel's algorithm in float32: the Chebyshev stage
+recurrence in deviation form with double-single coefficients (``ops/ds.py``,
+``csrc/ds.cuh``), a double-single carry of y and t, the stage cap
+``sqrt(rtol / 10 u)`` with u ~ eps32^2 (hard-capped at 200), the H220
+controller and the spectral radius from a float bound, a callback, or the
+in-kernel nonlinear power iteration with the stepper's 25-step refresh
+policy and its ``nfesig`` counter.  Their plain PyTorch version,
+:func:`fused_rkc_reference`, runs the same loop on a batch of members; the
+wrappers take it only for tensors on the CPU.
+
+Right-hand sides for these kernels are :class:`FusedGridRHS` objects; a
+spectral-radius callback that must run on the card is a :class:`FusedRho`.
+"""
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW, RHO_FAIL
+from .._device import as_input
+from . import ds as D
+from .fused_erk import _df_add
+
+_EPS32 = float(np.finfo(np.float32).eps)
+ITMAX = 50               # power-iteration bound
+N_ARRAYS = 9             # per-member float32 arrays of the kernel's workspace
+# Launch shapes.  B9: one block of 512 per SM (within the resident grid);
+# on an H100 that ran the 2x256x256 Brusselator faster than the whole
+# resident grid of blocks of 256.  B10: one block of 1024 per member, which
+# beat 256 and 512 on 64 members of 2x64x128 (PERF.md, section 6).
+GRID_THREADS = 512
+BLOCK_THREADS = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedGridRHS:
+    """A grid right-hand side the fused RKC kernels can compile in.
+
+    ``shape`` is one member's state grid, e.g. ``(2, ny, nx)``.
+
+    ``torch_fn(t, y)``, or ``torch_fn(t, y, p)`` with per-member parameters,
+    is the function for the plain version: ``y`` has shape ``(*shape, B)``
+    with the members last, ``t`` shape ``(B,)`` and ``p`` shape ``(k, B)``,
+    so ``p[0]`` is one parameter across members.  Periodic shifts are
+    ``torch.roll(y, shift, axis)`` with ``jnp.roll``'s sign.
+
+    ``cuda_src`` defines the same function for one element of one member::
+
+        __device__ float rhs(float t, const float* y, int i, const float* p);
+
+    returning dy at flat (row-major) index ``i`` from the member's grid ``y``
+    in global memory and its ``k`` parameters ``p``.  Neighbours come from
+    ``tab::G::rolled<AXIS>(y, i, shift)``, the value at ``i`` of
+    ``torch.roll(y, shift, AXIS)`` (``csrc/grid_common.cuh``; the extents
+    are compile-time constants of the generated header).
+    """
+    torch_fn: Callable
+    cuda_src: str
+    shape: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedRho:
+    """A spectral-radius callback for the fused RKC kernels: ``torch_fn(t,
+    y[, p])`` returns one value per member (``(B,)``, or a float) from the
+    plain version's ``(*shape, B)`` grid, and ``cuda_src`` defines::
+
+        __device__ float rho(float t, const float* y, const float* p);
+
+    which every thread of a member's group calls with the same arguments
+    (so it must not depend on the thread)."""
+    torch_fn: Callable
+    cuda_src: str
+
+
+def _f32(x):
+    return float(np.float32(x))
+
+
+def _rkc_consts():
+    """The float32 constants of the kernel, as the JAX kernel rounds them."""
+    uround = _EPS32 * _EPS32
+    sqrtu = float(np.sqrt(_EPS32))
+    return {"sqrtmin": _f32(np.sqrt(np.finfo(np.float32).tiny)),
+            "sqrtu": _f32(sqrtu), "one_p_sqrtu": _f32(1.0 + sqrtu),
+            "rho_uround": _f32(_EPS32), "hmin_c": _f32(13.3 * uround)}
+
+
+def _mmax_for(rtol, m_max):
+    """The stage cap: sqrt(rtol / 10 u) with u ~ eps32^2, since the stage
+    recurrence runs in double-single (the f64 stepper's cap), at most 200;
+    ``m_max`` overrides it.  Returns (mmax, u)."""
+    uround = _EPS32 * _EPS32
+    mmax = int(max(np.round(np.sqrt(rtol / (10.0 * uround))), 2.0))
+    mmax = min(mmax, 200)
+    return (int(m_max) if m_max is not None else mmax), uround
+
+
+# m -> (m + 1, 5) float32 table: row 0 holds mus0, row j (2 <= j <= m) the
+# coefficients of stage j (muc, nuc, ajc, mus, th)
+_TABLES = {}
+
+
+def _stage_table(m):
+    """The Chebyshev coefficients of a step of m stages, in float32 with the
+    double-single recurrences of the JAX kernel (``fused_rkc.py:280-321``),
+    computed once per m on the host.  Every thread of the CUDA kernel runs
+    the same arithmetic (``csrc/fused_rkc.cu``, ``Cheb``)."""
+    hit = _TABLES.get(m)
+    if hit is not None:
+        return hit
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32)
+
+    mf = f32(float(m))
+    w0 = D.ds_add_f(D.ds_div(D.ds(f32(2.0)), D.ds(13.0 * mf * mf)),
+                    f32(1.0))
+    two_w0 = D.ds_mul_f(w0, f32(2.0))
+    w0c = D.ds_collapse(w0)
+    temp1 = w0c * w0c - 1.0
+    temp2 = torch.sqrt(temp1)
+    arg = mf * torch.log(w0c + temp2)
+    sinh_a, cosh_a = torch.sinh(arg), torch.cosh(arg)
+    w1 = sinh_a * temp1 / (cosh_a * mf * temp2 - w0c * sinh_a)
+    bj0 = D.ds_div(D.ds(f32(1.0)), D.ds_mul(two_w0, two_w0))
+    mus0 = w1 * D.ds_collapse(bj0)
+
+    table = torch.zeros(m + 1, 5, dtype=torch.float32)
+    table[0, 0] = mus0
+    thjm2, thjm1 = f32(0.0), mus0
+    zjm2, zjm1 = D.ds(f32(1.0)), w0
+    dzjm2, dzjm1 = D.ds(f32(0.0)), D.ds(f32(1.0))
+    d2zjm2, d2zjm1 = D.ds(f32(0.0)), D.ds(f32(0.0))
+    bjm2, bjm1 = bj0, bj0
+    for j in range(2, m + 1):
+        zj = D.ds_add(D.ds_mul(two_w0, zjm1), D.ds_neg(zjm2))
+        dzj = D.ds_add(D.ds_add(D.ds_mul(two_w0, dzjm1), D.ds_neg(dzjm2)),
+                       D.ds_mul_f(zjm1, f32(2.0)))
+        d2zj = D.ds_add(D.ds_add(D.ds_mul(two_w0, d2zjm1),
+                                 D.ds_neg(d2zjm2)),
+                        D.ds_mul_f(dzjm1, f32(4.0)))
+        bj = D.ds_div(d2zj, D.ds_mul(dzj, dzj))
+        ajm1 = D.ds_add_f(D.ds_neg(D.ds_mul(zjm1, bjm1)), f32(1.0))
+        mu = D.ds_div(D.ds_mul(two_w0, bj), bjm1)
+        nu = D.ds_neg(D.ds_div(bj, bjm2))
+        muc, nuc = D.ds_collapse(mu), D.ds_collapse(nu)
+        ajc = D.ds_collapse(ajm1)
+        mus = muc * w1 / w0c
+        table[j] = torch.stack([muc, nuc, ajc, mus, thjm1])
+        thj = muc * thjm1 + nuc * thjm2 + mus * (1.0 - ajc)
+        thjm2, thjm1 = thjm1, thj
+        zjm2, zjm1 = zjm1, zj
+        dzjm2, dzjm1 = dzjm1, dzj
+        d2zjm2, d2zjm1 = d2zjm1, d2zj
+        bjm2, bjm1 = bjm1, bj
+    _TABLES[m] = table
+    return table
+
+
+def _rho_mode(rho):
+    """0: a float bound, 1: a callback, 2: the power iteration."""
+    if rho is None:
+        return 2
+    return 1 if (callable(rho) or isinstance(rho, FusedRho)) else 0
+
+
+def fused_rkc_reference(fun, t_span, y0, rho=None, params=None, rtol=1e-4,
+                        atol=1e-6, first_step=None, max_steps=100_000,
+                        m_max=None, const_jac=False, max_step=None):
+    """The plain PyTorch version of the fused RKC kernels, on the device of
+    ``y0``.
+
+    ``y0`` is ``(B, *shape)``: B members integrated at once, each with its
+    own step size, stage count, spectral-radius estimate and status; one
+    member is B9's single grid.  Each loop iteration is one attempt of every
+    running member, the stage loop runs to the largest m of the running
+    members (a member keeps its carry past its own m), and the power
+    iteration to the last running member's convergence.  The Chebyshev
+    coefficients of each m come from :func:`_stage_table`.  ``fun`` is a
+    :class:`FusedGridRHS` or its ``torch_fn``; ``rho`` a float, a callable
+    or :class:`FusedRho` (``rho(t, y[, p])``), or None for the power
+    iteration; ``params`` ``(B, k)``.
+
+    Returns ``(y (B, *shape), status (B,), nsteps (B,), nfev (B,))``, with
+    ``nfesig (B,)`` appended when ``rho is None``.
+    """
+    f = fun.torch_fn if isinstance(fun, FusedGridRHS) else fun
+    f32 = torch.float32
+    y0 = torch.as_tensor(y0).to(f32)
+    nb = y0.shape[0]
+    shape = tuple(y0.shape[1:])
+    ntot = int(np.prod(shape))
+    dev = y0.device
+    mode = _rho_mode(rho)
+    power = mode == 2
+    p = None
+    if params is not None:
+        p = torch.as_tensor(params, device=dev).to(f32).reshape(nb, -1).T
+    rho_fn = rho.torch_fn if isinstance(rho, FusedRho) else rho
+
+    def fn(t, y):
+        return f(t, y) if p is None else f(t, y, p)
+
+    def gsum(x):
+        return x.reshape(ntot, nb).sum(0)
+
+    def full(v):
+        return torch.full((nb,), v, dtype=f32, device=dev)
+
+    k = _rkc_consts()
+    sqrtmin, sqrtu = k["sqrtmin"], k["sqrtu"]
+    mmax, _ = _mmax_for(rtol, m_max)
+    t0s, tfs = full(_f32(t_span[0])), full(_f32(t_span[1]))
+    dir_s = torch.sign(tfs - t0s)
+    rtol_s, atol_s = _f32(rtol), _f32(atol)
+    mse = torch.abs(tfs - t0s)
+    if max_step is not None:
+        mse = torch.clamp(mse, max=_f32(max_step))
+    small = 1.0 / mse
+
+    y = y0.movedim(0, -1).contiguous()          # (*shape, B)
+    y_lo = torch.zeros_like(y)
+    f0 = fn(t0s, y)
+    fv_cur = f0
+    V = f0 * 1.0
+    t, t_lo = t0s, torch.zeros_like(t0s)
+    h_abs = full(-1.0 if first_step is None else _f32(first_step))
+    h_prev, err_old, sprad = full(0.0), full(1.0), full(0.0)
+    i32 = dict(dtype=torch.int32, device=dev)
+    status = torch.full((nb,), RUNNING, **i32)
+    nstep = torch.zeros(nb, **i32)
+    nfev = torch.ones(nb, **i32)
+    nfesig = torch.zeros(nb, **i32)
+    newspc = torch.ones(nb, dtype=torch.bool, device=dev)
+    jacatt = torch.zeros_like(newspc)
+    nstsig = torch.zeros(nb, **i32)
+    it = 0
+    while True:
+        running = status == RUNNING
+        if not bool(running.any()):
+            break
+        fcur = fv_cur
+
+        # spectral radius
+        rho_ok = torch.ones_like(running)
+        jacatt_att = jacatt
+        if power:
+            active = newspc & running
+            if bool(active.any()):
+                sp, V_new, nev, ok = _rho_power(fn, t, y, fcur, V, active,
+                                                small, sqrtu, k, gsum, ntot)
+                sprad = torch.where(active, sp, sprad)
+                V = V_new
+                rho_ok = ok
+                nfesig = nfesig + nev
+                jacatt_att = jacatt | active
+        elif mode == 0:
+            sprad = full(_f32(rho))
+            rho_ok = sprad == sprad
+        else:
+            r = rho_fn(t, y) if p is None else rho_fn(t, y, p)
+            sprad = torch.as_tensor(r, device=dev).to(f32).expand(nb)
+            rho_ok = sprad == sprad
+
+        # the starting step on the first attempt
+        need = (h_abs < 0.0) & running
+        absh = h_abs
+        if bool(need.any()):
+            absh0 = torch.where(sprad * mse > 1.0, 1.0 / sprad, mse)
+            absh0 = torch.clamp(absh0, min=sqrtmin)
+            vtemp2 = fn(t + absh0, y + absh0 * fcur)
+            wt = atol_s + rtol_s * torch.abs(y)
+            est = absh0 * torch.sqrt(gsum(((vtemp2 - fcur) / wt) ** 2)
+                                     / ntot)
+            absh1 = torch.where(
+                0.1 * absh0 < mse * torch.sqrt(est),
+                torch.clamp(0.1 * absh0 / torch.sqrt(est), min=sqrtmin), mse)
+            absh = torch.where(need, absh1, absh)
+        nfev = nfev + need.to(torch.int32)
+
+        # stage count and the m cap; a non-finite absh is clamped first
+        d = torch.abs(tfs - t)
+        absh = torch.where(1.1 * absh >= d, d, absh)
+        absh = torch.where(torch.isfinite(absh), absh, mse)
+        q = torch.sqrt(1.54 * absh * sprad + 1.0)
+        hit_cap = q >= mmax
+        qi = torch.where(q == q, torch.clamp(q, max=mmax), 0.0)
+        m = torch.where(hit_cap, mmax, 1 + qi.to(torch.int32))
+        m = torch.clamp(m, 2, mmax).to(torch.int32)
+        mf = m.to(f32)
+        absh = torch.where(hit_cap, (mf * mf - 1.0) / (1.54 * sprad), absh)
+        h = dir_s * absh
+        hmin = torch.clamp(k["hmin_c"] * (torch.abs(t) + absh)
+                           * (mf * mf - 1.0), min=sqrtmin)
+
+        # the stages in deviation form
+        e_m = _stages(fn, t, y, y_lo, fcur, h, m, running)
+        yk = y + (y_lo + e_m)
+        f_new = fn(t + h, yk)
+        nfev = nfev + torch.where(running, m, 0).to(torch.int32)
+
+        wt = atol_s + rtol_s * torch.maximum(torch.abs(y), torch.abs(yk))
+        est = -0.8 * e_m + 0.4 * h * (fcur + f_new)
+        err = torch.sqrt(gsum((est / wt) ** 2) / ntot)
+        bad = ~torch.isfinite(err)
+        err = torch.where(bad, 10.0, err)
+        accepted = (err < 1.0) & ~bad & running
+
+        cbrt_e = torch.pow(torch.clamp(err, min=1e-30), 1.0 / 3.0)
+        absh_rej = 0.8 * absh / cbrt_e
+        too_small = ~accepted & (absh_rej < hmin)
+
+        # H220 dead-beat controller (sommeijer.py:253-266)
+        fac_first = torch.where(0.8 < 10.0 * cbrt_e, 0.8 / cbrt_e, 10.0)
+        temp1 = 0.8 * absh * torch.pow(torch.clamp(err_old, min=1e-30),
+                                       1.0 / 3.0)
+        temp2 = torch.abs(h_prev) * torch.pow(torch.clamp(err, min=1e-30),
+                                              2.0 / 3.0)
+        fac_next = torch.where(temp1 < 10.0 * temp2,
+                               temp1 / torch.clamp(temp2, min=1e-30), 10.0)
+        fac = torch.where(h_prev == 0.0, fac_first, fac_next)
+        absh_acc = torch.clamp(fac, min=0.1) * absh
+        absh_acc = torch.maximum(hmin, torch.minimum(mse, absh_acc))
+
+        is_last = accepted & (absh >= d)
+        t_adv, t_lo_adv = _df_add(t, t_lo, h)
+        y_hi_new, y_lo_new = D.ds_add_f((y, y_lo), e_m)
+
+        st = torch.where(bad, OVERFLOW,
+                         torch.where(too_small, TOO_SMALL_STEP,
+                                     torch.where(is_last, FINISHED, status)))
+        st = torch.where(rho_ok, st, RHO_FAIL)
+        it += 1
+        st = torch.where((st == RUNNING) & (it >= max_steps), OVERFLOW, st)
+        status = torch.where(running, st, status).to(torch.int32)
+
+        if power:
+            # refresh policy after the attempt (steppers/rkc.py:513-517)
+            nstsig = torch.where(accepted, torch.remainder(nstsig + 1, 25),
+                                 nstsig).to(torch.int32)
+            newspc = torch.where(
+                running, torch.where(accepted, (nstsig == 0) & (not const_jac),
+                                     ~jacatt_att), newspc)
+            jacatt = torch.where(running, torch.where(accepted, const_jac,
+                                                      jacatt_att), jacatt)
+
+        t = torch.where(accepted, torch.where(is_last, tfs, t_adv), t)
+        t_lo = torch.where(accepted, torch.where(is_last, 0.0, t_lo_adv),
+                           t_lo)
+        y = torch.where(accepted, y_hi_new, y)
+        y_lo = torch.where(accepted, y_lo_new, y_lo)
+        fv_cur = torch.where(accepted, f_new, fcur)
+        h_abs = torch.where(running, torch.where(accepted, absh_acc,
+                                                 absh_rej), h_abs)
+        h_prev = torch.where(accepted, h, h_prev)
+        err_old = torch.where(accepted, err, err_old)
+        nstep = nstep + accepted.to(torch.int32)
+
+    out = (y.movedim(-1, 0).contiguous(), status, nstep, nfev)
+    return out + (nfesig,) if power else out
+
+
+def _rho_power(fn, t, yn, fn0, V, active, small, sqrtu, k, gsum, ntot):
+    """The nonlinear power iteration (sommeijer.py:331-398, the JAX
+    kernel's ``_rho_power``) for the members in ``active``, each with its
+    own convergence and its own sign flip of component ``i mod n`` in the
+    degenerate case.  Returns (sprad, V_new, n_evals, ok); a member that
+    does not converge in 50 iterations has sprad 0 and ok False, and an
+    inactive one keeps V and ok True."""
+    ynrm = torch.sqrt(gsum(yn * yn))
+    vnrm = torch.sqrt(gsum(V * V))
+    both = (ynrm != 0.0) & (vnrm != 0.0)
+    only_y = (ynrm != 0.0) & (vnrm == 0.0)
+    only_v = (ynrm == 0.0) & (vnrm != 0.0)
+    dynrm = torch.where(both | only_y, ynrm * sqrtu,
+                        torch.full_like(ynrm, k["rho_uround"]))
+    vs = dynrm / torch.where(vnrm == 0.0, 1.0, vnrm)
+    v = torch.where(both, yn + V * vs,
+                    torch.where(only_y, V * k["one_p_sqrtu"],
+                                torch.where(only_v, V * vs,
+                                            dynrm.expand_as(V))))
+    sigma = torch.zeros_like(ynrm)
+    sprad = torch.zeros_like(ynrm)
+    done = ~active
+    nev = torch.zeros(ynrm.shape, dtype=torch.int32, device=yn.device)
+    flat_shape = (ntot, ynrm.shape[0])
+    for i in range(ITMAX):
+        if bool(done.all()):
+            break
+        live = ~done
+        fv = fn(t, v)
+        nev = nev + live.to(torch.int32)
+        df = fv - fn0
+        dfnrm = torch.sqrt(gsum(df * df))
+        sigma_new = dfnrm / dynrm
+        conv = (i > 0) & (torch.abs(sigma_new - sigma)
+                          <= torch.maximum(sigma_new, small) * 0.01)
+        v_pow = yn + df * (dynrm / torch.where(dfnrm == 0.0, 1.0, dfnrm))
+        v_deg = v.reshape(flat_shape).clone()
+        v_deg[i % ntot] = -v_deg[i % ntot]
+        v_next = torch.where(dfnrm != 0.0, v_pow, v_deg.reshape(v.shape))
+        v = torch.where(live & ~conv, v_next, v)
+        sigma = torch.where(live, sigma_new, sigma)
+        sprad = torch.where(live & conv, 1.2 * sigma_new, sprad)
+        done = done | (live & conv)
+    return (sprad, torch.where(active & done, v - yn, V), nev,
+            done | ~active)
+
+
+def _stages(fn, t, y, y_lo, f, h, m, running):
+    """The Chebyshev stages in deviation form (the JAX kernel's
+    ``stages``, ``fused_rkc.py:257-336``) for every member at its own m;
+    returns e_m = y_m - y_n, shape ``(*shape, B)``."""
+    nb = m.shape[0]
+    ms = m.tolist()
+    m_top = max(mi for mi, r in zip(ms, running.tolist()) if r)
+    table = torch.zeros(nb, m_top + 1, 5, dtype=torch.float32)
+    for b, mi in enumerate(ms):
+        rows = _stage_table(mi)[:m_top + 1]
+        table[b, :rows.shape[0]] = rows
+    table = table.to(f.device)
+    ejm2 = torch.zeros_like(f)
+    ejm1 = (h * table[:, 0, 0]) * f
+    for j in range(2, m_top + 1):
+        act = (j <= m) & running
+        muc, nuc, ajc, mus, th = table[:, j].unbind(1)
+        fj = fn(t + h * th, y + (y_lo + ejm1))
+        ej = muc * ejm1 + nuc * ejm2 + (h * mus) * (fj - ajc * f)
+        ejm2, ejm1 = torch.where(act, ejm1, ejm2), torch.where(act, ej, ejm1)
+    return ejm1
+
+
+# -- the wrappers and the kernels --------------------------------------------
+
+# (id(fun), id(rho callback) or None, n_par) -> (fun, rho callback, built
+# kernel); holding the objects keeps their ids from being reused while the
+# entry lives.  A float rho or None is a launch argument, not a build.
+_KERNELS = {}
+# (build key, rho mode, device index) -> B9's grid
+_GRIDS = {}
+
+
+def _kernel(fun, rho, n_par):
+    cb = rho if isinstance(rho, FusedRho) else None
+    key = (id(fun), id(cb), n_par)
+    hit = _KERNELS.get(key)
+    if hit is None:
+        from . import _build
+        hit = (fun, cb, _build.load_fused_rkc(
+            fun.shape, n_par, fun.cuda_src,
+            None if cb is None else cb.cuda_src))
+        _KERNELS[key] = hit
+    return hit[2]
+
+
+def _check_options(name, item, t_eval, events):
+    for opt, value in (("t_eval", t_eval), ("events", events)):
+        if value is not None:
+            raise NotImplementedError(
+                f"{name}({opt}=...) is not ported yet: ROADMAP queue B, "
+                f"item {item} (remaining options)")
+
+
+def _check_card_inputs(name, fun, rho, y0, lead):
+    """``y0`` must be float32 of shape ``lead + fun.shape``."""
+    if not isinstance(fun, FusedGridRHS):
+        raise TypeError(f"{name} on a CUDA tensor needs a FusedGridRHS (a "
+                        "CUDA source of the right-hand side); got "
+                        f"{type(fun).__name__}")
+    if callable(rho) and not isinstance(rho, FusedRho):
+        raise TypeError(f"{name} on a CUDA tensor takes a callable rho as a "
+                        "FusedRho (with its CUDA source)")
+    if y0.dtype != torch.float32:
+        raise TypeError(f"y0 must be float32, got {y0.dtype}")
+    shape = tuple(lead) + tuple(fun.shape)
+    if tuple(y0.shape) != shape:
+        raise ValueError(f"y0 must have shape {shape}, got "
+                         f"{tuple(y0.shape)}")
+
+
+def _launch(built, grid, rho, y0, params, n_members, t_span, rtol, atol,
+            first_step, max_steps, m_max, const_jac, max_step, threads,
+            blocks):
+    """Allocate the outputs and the workspace and launch B9 (``grid``) or
+    B10 on the current stream; returns (y, status, nsteps, nfev, nfesig)
+    with the member axis first."""
+    dev = y0.device
+    ntot = int(np.prod(y0.shape[1:]))
+    mode = _rho_mode(rho)
+    mmax, _ = _mmax_for(rtol, m_max)
+    t0, tf = _f32(t_span[0]), _f32(t_span[1])
+    y_out = torch.empty_like(y0)
+    ints = [torch.empty(n_members, dtype=torch.int32, device=dev)
+            for _ in range(4)]
+    work = torch.empty(n_members * N_ARRAYS * ntot, dtype=torch.float32,
+                       device=dev)
+    partials = torch.empty(2 * max(blocks, 1), dtype=torch.float32,
+                           device=dev)
+    if n_members == 0:
+        return (y_out, *ints)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = built.lib.fused_rkc_launch(
+            int(grid), mode, y0.data_ptr(),
+            None if params is None else params.data_ptr(), y_out.data_ptr(),
+            *[x.data_ptr() for x in ints], work.data_ptr(),
+            partials.data_ptr(), n_members, t0, tf,
+            float(np.sign(tf - t0)), _f32(rtol), _f32(atol),
+            -1.0 if first_step is None else _f32(first_step),
+            _f32(rho) if mode == 0 else 0.0,
+            np.inf if max_step is None else _f32(max_step), mmax,
+            int(max_steps), int(bool(const_jac)), int(threads), int(blocks),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_rkc kernel launch failed: CUDA error {rc}")
+    return (y_out, *ints)
+
+
+def _grid_blocks(built, fun, rho, device):
+    """B9's grid for ``fun`` on ``device``: one block of
+    :data:`GRID_THREADS` per SM, at most one thread per grid element, and
+    no more blocks than are resident at once (the occupancy times the SM
+    count), or the launch would be refused."""
+    import ctypes
+    with torch.cuda.device(device):
+        dev = torch.cuda.current_device()
+        key = (built.key, _rho_mode(rho), dev)
+        blocks = _GRIDS.get(key)
+        if blocks is None:
+            cap = ctypes.c_int(0)
+            rc = built.lib.fused_rkc_grid_capacity(
+                _rho_mode(rho), GRID_THREADS, ctypes.byref(cap))
+            if rc != 0 or cap.value < 1:
+                raise RuntimeError(f"fused_rkc: no resident grid of blocks "
+                                   f"of {GRID_THREADS} (CUDA error {rc})")
+            need = -(-int(np.prod(fun.shape)) // GRID_THREADS)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            blocks = _GRIDS[key] = min(cap.value, sms, need)
+    return blocks
+
+
+def solve_fused_rkc(fun, t_span, y0, rho=None, rtol=1e-4, atol=1e-6,
+                    first_step=None, max_steps=100_000, m_max=None,
+                    t_eval=None, events=None, const_jac=False, max_step=None):
+    """Integrate one stiff semi-discretized system in one kernel launch (B9).
+
+    ``y0``: float32 grid of ``fun.shape`` (e.g. ``(2, ny, nx)``), not
+    flattened.  ``rho``: a float bound of the Jacobian's spectral radius, a
+    callback (a :class:`FusedRho` on the card), or ``None`` for the
+    nonlinear power iteration (re-estimated on the first step, after
+    rejections and every 25 accepted steps; ``const_jac=True`` keeps the
+    first estimate).  ``m_max`` overrides the stage cap, ``max_step`` caps
+    |h|, ``max_steps`` caps attempts (status 3).
+
+    Returns ``(y_final, status, nsteps, nfev)``, with ``nfesig`` (the power
+    iteration's RHS evaluations) appended when ``rho is None``; status 1 =
+    finished, 2 = step size underflow, 3 = overflow or step cap, 6 = the
+    power iteration did not converge.
+
+    A ``y0`` that is not a tensor goes to the card as float32 (and raises
+    where there is none).  On a CUDA tensor ``fun`` must be a
+    :class:`FusedGridRHS`, and the call launches ``csrc/fused_rkc.cu``'s
+    grid kernel cooperatively (one block of 512 threads per SM), or raises;
+    a refused cooperative launch raises too.  On a CPU tensor it runs
+    :func:`fused_rkc_reference`.
+
+    ``t_eval`` and ``events`` are not ported yet.
+    """
+    _check_options("solve_fused_rkc", "B9", t_eval, events)
+    y0 = as_input(y0, torch.float32)
+    kw = dict(rtol=rtol, atol=atol, first_step=first_step,
+              max_steps=max_steps, m_max=m_max, const_jac=const_jac,
+              max_step=max_step)
+    if y0.device.type != "cuda":
+        out = fused_rkc_reference(fun, t_span, y0[None], rho=rho, **kw)
+        return tuple(x[0] for x in out)
+    _check_card_inputs("solve_fused_rkc", fun, rho, y0, ())
+    built = _kernel(fun, rho, 0)
+    out = _launch(built, True, rho, y0.contiguous()[None], None, 1, t_span,
+                  threads=GRID_THREADS,
+                  blocks=_grid_blocks(built, fun, rho, y0.device), **kw)
+    solve_fused_rkc.launches += 1
+    out = tuple(x[0] for x in out)
+    return out if rho is None else out[:4]
+
+
+def solve_fused_rkc_ensemble(fun, t_span, y0, rho=None, params=None,
+                             rtol=1e-4, atol=1e-6, first_step=None,
+                             max_steps=100_000, m_max=None, t_eval=None,
+                             events=None, const_jac=False, max_step=None):
+    """Integrate an ensemble of stiff PDE grids in one kernel launch (B10).
+
+    ``y0``: ``(n_members, *fun.shape)`` float32, each member with its own
+    adaptive step-size control, stage counts, spectral-radius estimate and
+    status; ``params``: optional ``(n_members, k)`` per-member parameters,
+    reaching ``fun`` (and a ``rho`` callback) as ``p``.  ``rho`` as in
+    :func:`solve_fused_rkc`, the power iteration per member.  Each member
+    takes the steps :func:`solve_fused_rkc` takes on it alone.
+
+    Returns ``(y_final, status, nsteps, nfev[, nfesig])``, per-member
+    arrays.  On a CUDA tensor the call launches one block of 1024 threads
+    per member, or raises; on a CPU tensor it runs
+    :func:`fused_rkc_reference`.  ``t_eval`` and ``events`` are not ported
+    yet.
+    """
+    _check_options("solve_fused_rkc_ensemble", "B10", t_eval, events)
+    y0 = as_input(y0, torch.float32)
+    kw = dict(rtol=rtol, atol=atol, first_step=first_step,
+              max_steps=max_steps, m_max=m_max, const_jac=const_jac,
+              max_step=max_step)
+    if params is not None:
+        params = torch.as_tensor(params, device=y0.device).to(torch.float32)
+        if params.ndim != 2 or params.shape[0] != y0.shape[0]:
+            raise ValueError("params must be (n_members, k)")
+    if y0.device.type != "cuda":
+        return fused_rkc_reference(fun, t_span, y0, rho=rho, params=params,
+                                   **kw)
+    _check_card_inputs("solve_fused_rkc_ensemble", fun, rho, y0,
+                       y0.shape[:1])
+    n_par = 0 if params is None else params.shape[1]
+    built = _kernel(fun, rho, n_par)
+    out = _launch(built, False, rho, y0.contiguous(),
+                  None if params is None else params.contiguous(),
+                  y0.shape[0], t_span, threads=BLOCK_THREADS, blocks=0, **kw)
+    solve_fused_rkc_ensemble.launches += 1
+    return out if rho is None else out[:4]
+
+
+# kernel launches since the count was last set to 0 (the plain version on
+# CPU tensors does not count)
+solve_fused_rkc.launches = 0
+solve_fused_rkc_ensemble.launches = 0

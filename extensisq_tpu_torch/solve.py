@@ -5,15 +5,16 @@ JAX ``solve_ensemble`` vmaps ``solve``, whose body is one flat
 ``lax.while_loop`` over step attempts.  Here the member batch is
 explicit: each loop iteration runs one attempt for every member (masked
 where a member has stopped), and the loop ends once no member has status
-RUNNING.  Everything runs on the device of ``y0``.
+RUNNING.  Everything runs on the device of ``y0`` when it is a tensor (a
+CPU tensor asks for the CPU); a numpy array or a list goes to the card.
 
 ``fun(t, y)`` is row-stacked: ``y`` has shape ``(n, B)`` with members on
 the last axis and ``t`` shape ``(B,)``, e.g.
 ``torch.stack([y[1], mu * (1 - y[0]**2) * y[1] - y[0]])``.  The same
 code is the RHS of the fused kernel's plain version.  ``solve`` calls it
 with ``B = 1``.  ESDIRK methods take the stepper options ``jac``, ``M``
-and ``jac_each_step`` as keyword arguments, SWAG takes ``k_max`` (see
-``steppers.build_stepper``).
+and ``jac_each_step`` as keyword arguments, SWAG takes ``k_max``, SSV2stab
+``rho_jac`` and ``const_jac`` (see ``steppers.build_stepper``).
 """
 from typing import Any, NamedTuple
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ._config import RUNNING, MAX_STEPS_REACHED, TERMINAL_EVENT
+from ._device import as_input
 from .steppers import build_stepper
 from .steppers.erk import select
 from .types import IVPParams, Method
@@ -30,7 +32,9 @@ class Solution(NamedTuple):
     """Result of a solve: final time, state, status and work counters.
 
     For ``solve_ensemble`` every field has the member axis first:
-    ``y`` is ``(B, n)``, the rest ``(B,)``.
+    ``y`` is ``(B, n)``, the rest ``(B,)``.  ``nfesig`` (RHS evaluations
+    of the spectral-radius power iteration) and ``maxm`` (the largest stage
+    count of any attempt) are SSV2stab's and ``None`` for other methods.
     """
     t: Any                 # final time reached
     y: Any                 # final state
@@ -38,6 +42,8 @@ class Solution(NamedTuple):
     nfev: Any
     nsteps: Any
     nfailed: Any
+    nfesig: Any = None
+    maxm: Any = None
 
     @property
     def success(self):
@@ -101,12 +107,13 @@ def _check_options(t_eval, save_steps, events, pause_at, resume_state,
             "solver returns the final state only")
 
 
-def _as_float_tensor(y0):
-    y0 = torch.as_tensor(y0)
-    if y0.is_complex():
+def _as_float_tensor(y0, method):
+    y0 = as_input(y0)
+    if y0.is_complex() and method.family != "rkc":
+        # SSV2stab refuses complex states itself, as in the JAX package
         raise NotImplementedError("complex states are not ported yet: "
                                   "ROADMAP A3")
-    if not y0.is_floating_point():
+    if not (y0.is_floating_point() or y0.is_complex()):
         y0 = y0.to(torch.float64)
     return y0
 
@@ -115,7 +122,8 @@ def solve(fun, t_span, y0, method=None, rtol=1e-3, atol=1e-6,
           max_step=np.inf, first_step=None, max_steps=10_000,
           t_eval=None, save_steps=False, args=None, events=None,
           pause_at=None, resume_state=None, **options):
-    """Integrate one IVP on the device of ``y0`` (shape ``(n,)``).
+    """Integrate one IVP (``y0`` of shape ``(n,)``) on the device of ``y0``
+    when it is a tensor, else on the card.
 
     ``fun(t, y[, *args])`` is called with ``y`` of shape ``(n, 1)`` and
     ``t`` of shape ``(1,)``.  Returns a :class:`Solution` with ``y`` of
@@ -125,15 +133,25 @@ def solve(fun, t_span, y0, method=None, rtol=1e-3, atol=1e-6,
     _check_options(t_eval, save_steps, events, pause_at, resume_state,
                    options)
     method = _resolve_method(method)
-    y0 = _as_float_tensor(y0).reshape(-1)
+    y0 = _as_float_tensor(y0, method).reshape(-1)
     if args is not None:
         base = fun
         fun = lambda t, y: base(t, y, *args)                 # noqa: E731
     st = _integrate(fun, t_span, y0[:, None], method, rtol, atol,
                     max_step, first_step, max_steps, options)
-    return Solution(t=st.t[0], y=st.y[:, 0], status=st.status[0],
-                    nfev=st.nfev[0], nsteps=st.nsteps[0],
-                    nfailed=st.nfailed[0])
+    return _solution(st, lambda x: x[..., 0])
+
+
+def _solution(st, member):
+    """The :class:`Solution` of the final state ``st``, each field passed
+    through ``member`` (one member's view, or the whole batch)."""
+    def opt(name):
+        x = getattr(st, name, None)
+        return None if x is None else member(x)
+    return Solution(t=member(st.t), y=member(st.y), status=member(st.status),
+                    nfev=member(st.nfev), nsteps=member(st.nsteps),
+                    nfailed=member(st.nfailed), nfesig=opt("nfesig"),
+                    maxm=opt("maxm"))
 
 
 def _members_last(p):
@@ -153,7 +171,8 @@ def solve_ensemble(fun, t_span, y0_batch, params_batch=None, method=None,
                    pause_at=None, resume_state=None, rtol=1e-3, atol=1e-6,
                    max_step=np.inf, first_step=None, max_steps=10_000,
                    **options):
-    """Integrate a batch of initial states ``y0_batch`` (B, n) at once.
+    """Integrate a batch of initial states ``y0_batch`` (B, n) at once, on
+    the device of ``y0_batch`` when it is a tensor, else on the card.
 
     ``fun(t, y)``, or ``fun(t, y, p)`` with per-member ``params_batch``
     (a tensor, or a dict/tuple of tensors, each with the member axis
@@ -165,7 +184,7 @@ def solve_ensemble(fun, t_span, y0_batch, params_batch=None, method=None,
     _check_options(t_eval, save_steps, events, pause_at, resume_state,
                    options)
     method = _resolve_method(method)
-    y0_batch = _as_float_tensor(y0_batch)
+    y0_batch = _as_float_tensor(y0_batch, method)
     if y0_batch.ndim != 2:
         raise ValueError("y0_batch must be (B, n)")
     extra = tuple(args or ())
@@ -176,5 +195,5 @@ def solve_ensemble(fun, t_span, y0_batch, params_batch=None, method=None,
         fun = lambda t, y: base(t, y, *extra)                 # noqa: E731
     st = _integrate(fun, t_span, y0_batch.T.contiguous(), method, rtol,
                     atol, max_step, first_step, max_steps, options)
-    return Solution(t=st.t, y=st.y.T.contiguous(), status=st.status,
-                    nfev=st.nfev, nsteps=st.nsteps, nfailed=st.nfailed)
+    sol = _solution(st, lambda x: x)
+    return sol._replace(y=sol.y.T.contiguous())

@@ -1,14 +1,13 @@
 """Stepper construction: dispatch a Method handle to its implementation.
 
-The explicit Runge-Kutta, ESDIRK and SWAG (``adams``) families are
-ported; every other family of the JAX package names the ROADMAP item
-that brings it.
+The explicit Runge-Kutta, ESDIRK, SWAG (``adams``) and SSV2stab
+(``rkc``) families are ported; every other family of the JAX package
+names the ROADMAP item that brings it.
 """
 
 _NOT_PORTED = {
     "ckdisc": "A14",
     "rkn": "A11",
-    "rkc": "A13",
 }
 
 
@@ -20,7 +19,8 @@ def build_stepper(method, fun, n, dtype, **options):
     mass matrix, ``(n,)`` diagonal or ``(n, n)``) and ``jac_each_step``.
     The JAX package's dense-output options (``interpolant``,
     ``carry_stages``) have no use before dense output is ported and are
-    ignored.  SWAG takes ``k_max`` (1 to 12)."""
+    ignored.  SWAG takes ``k_max`` (1 to 12); SSV2stab takes ``rho_jac``
+    (a spectral-radius bound ``rho_jac(t, y)``) and ``const_jac``."""
     family = method.family
     merged = dict(method.options or {})
     merged.update(options)
@@ -44,6 +44,11 @@ def build_stepper(method, fun, n, dtype, **options):
         from .adams import AdamsStepper
         return AdamsStepper(fun, n, dtype,
                             options={"k_max": merged.get("k_max", 12)})
+    if family == "rkc":
+        from .rkc import RKCStepper
+        return RKCStepper(fun, n, dtype, options={
+            "rho_jac": merged.get("rho_jac"),
+            "const_jac": merged.get("const_jac", False)})
     if family in _NOT_PORTED:
         raise NotImplementedError(
             f"the {family!r} family is not ported yet: ROADMAP item "

@@ -31,11 +31,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import test_torch_fused_adams as TA  # noqa: E402
 import test_torch_fused_esdirk as T  # noqa: E402
 import test_torch_fused_erk as TK  # noqa: E402
+import test_torch_fused_rkc as TR  # noqa: E402
 
 from extensisq_tpu_torch.ops import _build  # noqa: E402
 from extensisq_tpu_torch.ops import fused_adams as FA  # noqa: E402
 from extensisq_tpu_torch.ops import fused_erk as FK  # noqa: E402
 from extensisq_tpu_torch.ops import fused_esdirk as FE  # noqa: E402
+from extensisq_tpu_torch.ops import fused_rkc as FR  # noqa: E402
+from extensisq_tpu_torch.parallel import pde  # noqa: E402
 
 SHIM = """
 #include <cmath>
@@ -53,6 +56,8 @@ __attribute__((noinline)) static float __fsub_rn(float a, float b) {
   volatile float r = a - b; return r; }
 __attribute__((noinline)) static float __fmul_rn(float a, float b) {
   volatile float r = a * b; return r; }
+__attribute__((noinline)) static float __fdiv_rn(float a, float b) {
+  volatile float r = a / b; return r; }
 using std::isfinite;
 using std::max;
 using std::min;
@@ -117,6 +122,41 @@ extern "C" int fused_adams_launch(
 }
 """
 
+# The RKC body integrate<RHO, Group> run by a one-thread group whose sync()
+# does nothing, one member after another; the CUDA groups and kernels after
+# the marker are left out.
+RKC_MARKER = "// ---- CUDA groups, kernels and launch ----"
+RKC_LAUNCH = """
+struct HostGroup {
+  int rank() const { return 0; }
+  int size() const { return 1; }
+  void sync() const {}
+  float sum(float v) const { return v; }
+};
+
+extern "C" int fused_rkc_host(
+    int rho_mode, const float* y0, const float* params, float* y_out,
+    int* status, int* nsteps, int* nfev, int* nfesig, float* work,
+    int members, float t0, float tf, float dir, float rtol, float atol,
+    float h0, float rho_const, float max_step, int mmax, int max_steps,
+    int const_jac) {
+  Solve s{t0, tf, dir, rtol, atol, h0, rho_const, max_step,
+          mmax, max_steps, const_jac};
+  Out out{y_out, status, nsteps, nfev, nfesig};
+  for (int m = 0; m < members; ++m) {
+    HostGroup g;
+    const float* p = tab::NPAR ? params + m * tab::NPAR : nullptr;
+    const float* y = y0 + m * NTOT;
+    float* w = work + static_cast<size_t>(m) * kArrays * NTOT;
+    if (rho_mode == kRhoConst) integrate<kRhoConst>(g, y, p, w, s, m, out);
+    if (rho_mode == kRhoFn) integrate<kRhoFn>(g, y, p, w, s, m, out);
+    if (rho_mode == kRhoPower) integrate<kRhoPower>(g, y, p, w, s, m, out);
+  }
+  return 0;
+}
+"""
+RKC_SHAPE = (8, 8)
+
 # label -> (problem, k_max) of each SWAG build; the cases of
 # test_torch_fused_adams.py, and the bench line's k_max = 12
 ADAMS_VARIANTS = {"vdp": ("vdp5", 6), "osc_comp": ("osc", 4),
@@ -142,10 +182,12 @@ VDP_TEMPLATE = FK.FusedRHS(
     "  dy[1] = 3.0f * (1.0f - y[0] * y[0]) * y[1] - y[0];\n}", 2)
 
 
-def _compile(name, header, launch, out_dir):
+def _compile(name, header, launch, out_dir, cut='extern "C"'):
     src = (_build.CSRC / f"{name}.cu").read_text()
-    src = src.replace("#include <cuda_runtime.h>", "")
-    src = src[:src.index('extern "C"')] + launch
+    for inc in ("#include <cuda_runtime.h>",
+                "#include <cooperative_groups.h>"):
+        src = src.replace(inc, "")
+    src = src[:src.index(cut)] + launch
     out_dir.mkdir(parents=True)
     (out_dir / "shim.h").write_text(SHIM)
     (out_dir / f"{name}_config.cuh").write_text(header)
@@ -184,8 +226,12 @@ def libs(tmp_path_factory):
             "fused_adams",
             _build.fused_adams_header(FA._adams_consts(km, rhs.n),
                                       rhs.cuda_src), ADAMS_LAUNCH)
+    rkc_p = pde.brusselator_2d_grid(RKC_SHAPE, B=None)
+    jobs["rkc"] = ("fused_rkc", _build.fused_rkc_header(
+        rkc_p.shape, 1, rkc_p.cuda_src, TR.RHO_FN.cuda_src), RKC_LAUNCH,
+        RKC_MARKER)
     with ThreadPoolExecutor(len(jobs)) as pool:
-        futures = {k: pool.submit(_compile, *v, d / k)
+        futures = {k: pool.submit(_compile, *v[:3], d / k, *v[3:])
                    for k, v in jobs.items()}
         return {k: f.result() for k, f in futures.items()}
 
@@ -354,3 +400,68 @@ def test_adams_kernel_matches_plain_version(libs, case, y_gate, dsteps,
     assert np.max(np.abs(y - ry)) <= y_gate
     assert np.max(np.abs(ns - rns)) <= dsteps
     assert np.sum((ns != rns) | (nf != rnf)) <= nmembers
+
+
+def _rkc_inputs():
+    x = np.linspace(0, 1, RKC_SHAPE[1], endpoint=False)
+    y0 = np.zeros((3, 2) + RKC_SHAPE, np.float32)
+    for i, a in enumerate((0.2, 0.35, 0.5)):
+        y0[i, 0] = 1.0 + a * np.sin(2 * np.pi * x)[None, :]
+        y0[i, 1] = 3.0
+    y0[2] *= 1e30                      # this member overflows
+    return y0, np.array([[2.9], [3.2], [3.4]], np.float32)
+
+
+def _rkc_host(lib, rho_mode, rho, **kw):
+    y0, params = _rkc_inputs()
+    nb = y0.shape[0]
+    ntot = int(np.prod(y0.shape[1:]))
+    out = np.empty_like(y0)
+    ints = [np.empty(nb, np.int32) for _ in range(4)]
+    work = np.empty(nb * FR.N_ARRAYS * ntot, np.float32)
+    fn = lib.fused_rkc_host
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [ci] + [vp] * 8 + [ci] + [cf] * 8 + [ci] * 3
+    fn(rho_mode, y0.ctypes.data, params.ctypes.data, out.ctypes.data,
+       *[a.ctypes.data for a in ints], work.ctypes.data, nb, 0.0, 1.0, 1.0,
+       1e-4, 1e-7, FR._f32(kw.get("first_step", -1.0)),
+       FR._f32(rho) if rho_mode == 0 else 0.0, np.inf,
+       FR._mmax_for(1e-4, kw.get("m_max"))[0], 100_000,
+       int(kw.get("const_jac", False)))
+    return (out, *ints)
+
+
+RHO_8 = 8 * 0.02 * RKC_SHAPE[1] ** 2 + 5.5
+
+
+# (rho mode, options): the three ways to the spectral radius, const_jac
+# and a forced stage cap
+RKC_CASES = {"float": (0, {}), "callable": (1, {}), "power": (2, {}),
+             "power_const_jac": (2, {"const_jac": True}),
+             "m_max": (0, {"m_max": 2})}
+
+
+@pytest.mark.parametrize("case", list(RKC_CASES))
+def test_rkc_kernel_matches_plain_version(libs, case):
+    """The RKC body (B9 and B10 share it) run on the host by a one-thread
+    group against fused_rkc_reference on three 2x8x8 Brusselator members
+    with their own B, one of which overflows.  Measured: identical status,
+    nsteps, nfev and nfesig, |dy| <= 1.4e-6 over the finished members (the
+    libraries' logf/sinhf/coshf/powf and the order of the grid sums, which
+    the host kernel takes sequentially); the gate is 5e-6."""
+    mode, kw = RKC_CASES[case]
+    rho = {0: RHO_8, 1: TR.RHO_FN, 2: None}[mode]
+    y, st, ns, nf, nsig = _rkc_host(libs["rkc"], mode, RHO_8, **kw)
+    y0, params = _rkc_inputs()
+    ref = FR.fused_rkc_reference(
+        pde.brusselator_2d_grid(RKC_SHAPE, B=None), (0.0, 1.0),
+        torch.tensor(y0), rho, params=torch.tensor(params), rtol=1e-4,
+        atol=1e-7, **kw)
+    ref = [r.numpy() for r in ref]
+    np.testing.assert_array_equal(st, ref[1])
+    assert list(st) == [1, 1, 3 if mode != 2 else 6]
+    np.testing.assert_array_equal(ns, ref[2])
+    np.testing.assert_array_equal(nf, ref[3])
+    if mode == 2:
+        np.testing.assert_array_equal(nsig, ref[4])
+    assert np.max(np.abs(y[:2] - ref[0][:2])) <= 5e-6
