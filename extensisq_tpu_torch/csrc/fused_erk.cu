@@ -29,7 +29,8 @@
 // rhs<float>).  Weights are read through constexpr accessors at compile
 // time, so zero weights drop out of the unrolled sums as they do at the JAX
 // trace.  The sums, the double-single helpers and the starting step are
-// shared with the implicit kernel (rk_common.cuh, hstart.cuh).
+// shared with the implicit kernel (rk_common.cuh, hstart.cuh), the step
+// control with the RKN and mid-size kernels (rk_control.cuh).
 //
 // Numerics, each handled where it appears:
 //  * FMA contraction.  nvcc contracts a*b + c into one fma by default.  That
@@ -55,6 +56,7 @@
 #include "fused_erk_config.cuh"
 #include "hstart.cuh"
 #include "rk_common.cuh"
+#include "rk_control.cuh"
 
 namespace {
 
@@ -130,40 +132,24 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
   float t = t0;
   float t_lo = 0.0f;
   rhs(t, y, f);
-  float h_abs = h0;
+  rk::StepControl ctl{h0};
   int nfev = 1;
   if (use_hstart) {
     // max_step is +inf when the caller gave none
     const float bq = t + dir * fminf(fabsf(tf - t), max_step);
-    h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, f, rtol, atol));
+    ctl.h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, f, rtol, atol));
     nfev = 2 + (N + 1 < 3 ? N + 1 : 3);
   }
 
   int status = kRunning;
   int nstep = 0;
   int it = 0;
-  bool std_sc = true;
-  bool fresh = true;
-  bool rejected = false;
-  float err_old = 1.0f;
-  float h_prev = 0.0f;
-  float max_fac = 10.0f;
-  float min_step = 0.0f;
 
   while (status == kRunning) {
-    // per-step preparation on fresh steps: step limits and the
-    // end-of-interval look-ahead split
-    const float ms = fmaxf(tab::H_MIN_A * (fabsf(t) + h_abs), tab::TINY_ERR);
-    const float h_pre = fminf(fmaxf(h_abs, ms), max_step);
-    const float d = fabsf(tf - t);
-    const bool split = (d < 2.0f * h_pre) && (d > h_pre);
-    if (fresh) {
-      h_abs = split ? fmaxf(0.5f * d, ms) : (d <= h_pre ? d : h_pre);
-      min_step = ms;
-    }
-    const bool std_b = std_sc || (fresh && split);
-    const bool too_small = h_abs < min_step;
-    const float h = h_abs * dir;
+    float d;
+    bool too_small;
+    ctl.prepare(t, tf, max_step, d, too_small);
+    const float h = ctl.h_abs * dir;
 
     // stages, solution and error estimate
 #pragma unroll
@@ -216,23 +202,6 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
     const bool bad = !(finite && isfinite(err_norm));
     const bool accepted = err_norm < 1.0f && !too_small && !bad;
 
-    // controller (core/controller.py:erk_accept_update, float32)
-    const float err_c = fmaxf(err_norm, 1e-30f);
-    const float f_std = tab::SAFETY * powf(err_c, tab::ERROR_EXPONENT);
-    const float hr = h / (h_prev == 0.0f ? h : h_prev);
-    const float f_2nd = fminf(
-        fmaxf(tab::SAFETY_SC * powf(err_c, tab::MINBETA1) *
-                  powf(fmaxf(err_old, 1e-30f), tab::MINBETA2) *
-                  powf(hr, tab::MINALPHA),
-              tab::MIN_FACTOR),
-        max_fac);
-    const bool is_tiny = err_norm < tab::TINY_ERR;
-    float fac_acc = is_tiny ? max_fac : (std_b ? f_std : f_2nd);
-    if (rejected) fac_acc = fminf(1.0f, fac_acc);
-    const float max_fac_new = fac_acc < 4.0f ? 4.0f : max_fac;
-    const float fac_rej = fmaxf(tab::MIN_FACTOR, f_std);
-    const float h_abs_next = h_abs * (accepted ? fac_acc : fac_rej);
-
     if (too_small) {
       status = kTooSmall;
     } else if (bad) {
@@ -241,7 +210,8 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
 
     // exact landing: the look-ahead clamps h_abs <= d, with equality only
     // on the last step, which then lands on tf exactly
-    const bool is_last = accepted && h_abs >= d;
+    const bool is_last = accepted && ctl.h_abs >= d;
+    ctl.update(err_norm, h, accepted);
     float t_new, t_lo_new;
     if constexpr (COMP) {
       float t_adv, t_lo_adv;
@@ -270,19 +240,13 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
       }
       t = t_new;
       t_lo = t_lo_new;
-      std_sc = is_tiny;
-      err_old = err_norm;
-      h_prev = h;
-      max_fac = max_fac_new;
       nstep += 1;
     }
-    h_abs = h_abs_next;
 
     // step cap: loop iterations, accepted plus rejected
     it += 1;
     if (it >= max_steps && status == kRunning) status = kOverflow;
-    fresh = accepted || status != kRunning;
-    rejected = !accepted;
+    ctl.end(accepted, status == kRunning);
   }
 
 #pragma unroll

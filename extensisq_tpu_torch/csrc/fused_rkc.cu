@@ -463,35 +463,12 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
 }  // namespace
 
 // ---- CUDA groups, kernels and launch ----
+// B10's group, one thread block per member, is block_group.cuh's BlockGroup.
+#include "block_group.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
-
-// Sum over a block, the same value in every thread: a warp butterfly, then
-// the warps' sums from shared memory in warp order.  `red` holds two
-// 32-float buffers used in turn, so that one barrier per sum suffices.
-__device__ __forceinline__ float block_sum(float v, float* red, int& turn) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  float* buf = red + 32 * turn;
-  turn ^= 1;
-  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = v;
-  __syncthreads();
-  const int nwarps = (blockDim.x + 31) >> 5;
-  float s = 0.0f;
-  for (int k = 0; k < nwarps; ++k) s += buf[k];
-  return s;
-}
-
-// B10: one thread block per member.
-struct BlockGroup {
-  float* red;
-  int turn = 0;
-  __device__ int rank() const { return threadIdx.x; }
-  __device__ int size() const { return blockDim.x; }
-  __device__ void sync() const { __syncthreads(); }
-  __device__ float sum(float v) { return block_sum(v, red, turn); }
-};
 
 // B9: the whole cooperative grid on one member.  Each block's sum goes to
 // its slot of `partials` (two sets of gridDim.x slots, used in turn); after

@@ -127,6 +127,94 @@ def _accessor(name, values, ret="float"):
             f"  return {body};\n}}")
 
 
+def _rk_constants(k):
+    """The controller and starting-step constants of the fused explicit
+    kernels' generated headers, from the constants ``k`` of
+    ``ops.fused_erk._fused_consts`` or ``ops.fused_rkn.rkn_consts``."""
+    cc, hs = k["cc"], k["hstart"]
+    return "\n".join(
+        f"constexpr float {name} = {_f32(value)};" for name, value in (
+            ("SAFETY", cc.safety), ("SAFETY_SC", cc.safety_sc),
+            ("MINBETA1", cc.minbeta1), ("MINBETA2", cc.minbeta2),
+            ("MINALPHA", cc.minalpha), ("ERROR_EXPONENT", cc.error_exponent),
+            ("MIN_FACTOR", cc.min_factor), ("H_MIN_A", k["h_min_a"]),
+            ("TINY_ERR", k["tiny_err"]), ("HS_BIG", hs["big"]),
+            ("HS_SMALL", hs["small"]), ("HS_RELPER", hs["relper"]),
+            ("HS_T_FLOOR", hs["t_floor"])))
+
+
+def _rk_accessors(k):
+    """``constexpr`` accessors of an explicit tableau: A, AP, B, BP, C, E,
+    EP (the velocity weights are zero for a first-order ERK tableau)."""
+    A = k["A"]
+    zeros = np.zeros(A.shape[0])
+    return "\n".join([
+        _accessor("A", A), _accessor("AP", k.get("Ap", np.zeros_like(A))),
+        _accessor("B", k["B"]), _accessor("BP", k.get("Bp", zeros)),
+        _accessor("C", k["C"]), _accessor("E", k["E"]),
+        _accessor("EP", k.get("Ep", np.zeros(A.shape[0] + 1)))])
+
+
+def _flag(b):
+    return "true" if b else "false"
+
+
+def fused_rkn_header(k, m, acc_src):
+    """Text of ``fused_rkn_config.cuh`` for the constants ``k`` of
+    ``ops.fused_rkn.rkn_consts``, ``m`` positions and the CUDA source of
+    the acceleration ``acc``."""
+    return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
+// RKN tableau {k['name']} rounded to float32, and the user's acceleration.
+#pragma once
+
+namespace tab {{
+constexpr int M = {int(m)};
+constexpr int S = {k['s']};
+constexpr bool FSAL = {_flag(k['fsal'])};
+constexpr int MORDER = {k['morder']};
+{_rk_accessors(k)}
+{_rk_constants(k)}
+}}  // namespace tab
+
+{acc_src}
+"""
+
+
+GRID_RHS_STUB = ("__device__ float rhs(float t, const float* y, int i, "
+                 "const float* p) { return 0.0f; }")
+GRID_ACC_STUB = ("__device__ float acc(float t, const float* u, "
+                 "const float* v, int i, const float* p) { return 0.0f; }")
+
+
+def fused_rk_grid_header(k, rkn, shape, src):
+    """Text of ``fused_rk_grid_config.cuh`` for the constants ``k`` of an
+    ERK (``rkn`` False) or RKN method, a member grid of extents ``shape``
+    (one stage row: the states of an ERK system, the positions of an RKN
+    one) and the CUDA source of the right-hand side ``rhs`` or the
+    acceleration ``acc``; the other of the two is a stub never called."""
+    dims = ", ".join(str(int(d)) for d in shape)
+    return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
+// {'RKN' if rkn else 'ERK'} tableau {k['name']} rounded to float32, the
+// member grid and the user's {'acceleration' if rkn else 'right-hand side'}.
+#pragma once
+
+namespace tab {{
+using G = grid::Grid<{dims}>;
+constexpr int N = {int(np.prod(shape))};
+constexpr bool RKN = {_flag(rkn)};
+constexpr int S = {k['s']};
+constexpr bool FSAL = {_flag(k['fsal'])};
+constexpr int MORDER = {k['morder']};
+{_rk_accessors(k)}
+{_rk_constants(k)}
+}}  // namespace tab
+
+{src}
+
+{GRID_RHS_STUB if rkn else GRID_ACC_STUB}
+"""
+
+
 def fused_esdirk_header(k, m_diag, rot, n, rhs_src):
     """Text of ``fused_esdirk_config.cuh`` for the constants ``k`` of
     ``ops.fused_esdirk._esdirk_consts``, the mass-matrix setup ``(m_diag,
@@ -338,6 +426,23 @@ def load_kernel(name, header, argtypes):
     return built
 
 
+# (wrapper, ids of its objects, extra key) -> (objects, built kernel)
+_CACHE = {}
+
+
+def cached(kind, objects, build, extra=()):
+    """The kernel ``build()`` returns for the wrapper ``kind`` and its
+    ``objects`` (method, right-hand side, callbacks; ``None`` allowed)
+    with the hashable ``extra``: built at first use, then looked up by the
+    objects' ids without touching the source or the disk.  The entry holds
+    the objects, so their ids are not reused while it lives."""
+    key = (kind, tuple(id(o) for o in objects), extra)
+    hit = _CACHE.get(key)
+    if hit is None:
+        hit = _CACHE[key] = (tuple(objects), build())
+    return hit[1]
+
+
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -348,6 +453,31 @@ def load_fused_erk(consts, n, rhs_src):
         "fused_erk", fused_erk_header(consts, n, rhs_src),
         [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI, _CF,
          _CI, _CI, _CI, _VP])
+
+
+def load_fused_rkn(consts, m, acc_src):
+    """Build (at first use) and load the fused RKN kernel (B5) for one
+    tableau and acceleration; returns :class:`Built` with
+    ``lib.fused_rkn_launch`` bound."""
+    return load_kernel(
+        "fused_rkn", fused_rkn_header(consts, m, acc_src),
+        [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI, _CF,
+         _CI, _CI, _VP])
+
+
+def load_fused_rk_grid(consts, rkn, shape, src):
+    """Build (at first use) and load the block-per-member kernel (B4 for
+    an ERK tableau, B6 for an RKN one) for one member grid and right-hand
+    side; returns :class:`Built` with ``lib.fused_rk_grid_launch`` and
+    ``lib.fused_rk_grid_smem`` bound."""
+    built = load_kernel(
+        "fused_rk_grid", fused_rk_grid_header(consts, rkn, shape, src),
+        [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CF, _CI,
+         _CF, _CI, _CI, _CI, _VP])
+    smem = built.lib.fused_rk_grid_smem
+    smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    smem.restype = ctypes.c_int
+    return built
 
 
 def load_fused_esdirk(consts, m_diag, rot, n, rhs_src):

@@ -362,22 +362,12 @@ def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     return y.T.contiguous(), status, nsteps, nfev
 
 
-# (id(fun), k_max) -> (fun, built kernel); holding fun keeps its id from
-# being reused while the entry lives
-_KERNELS = {}
-
-
 def _kernel(fun, km):
-    """The kernel built for one FusedRHS and k_max (built at first use,
-    then looked up without touching the disk)."""
-    key = (id(fun), km)
-    hit = _KERNELS.get(key)
-    if hit is None:
-        from . import _build
-        hit = (fun, _build.load_fused_adams(_adams_consts(km, fun.n),
-                                            fun.cuda_src))
-        _KERNELS[key] = hit
-    return hit[1]
+    """The kernel built for one FusedRHS and k_max."""
+    from . import _build
+    return _build.cached("fused_adams", (fun,),
+                         lambda: _build.load_fused_adams(
+                             _adams_consts(km, fun.n), fun.cuda_src), km)
 
 
 def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,

@@ -115,6 +115,44 @@ def _df_add(hi, lo, x):
     return _two_sum(s, lo + e)
 
 
+def fresh_step(k, max_step, t, tf, h_abs, fresh, min_step, std_sc):
+    """The per-step preparation of the fused loops (step limits and the
+    end-of-interval look-ahead split), applied on fresh steps only.
+    Returns ``(h_abs, min_step, std_b, d)`` with ``d = |tf - t|``."""
+    ms = torch.clamp(k["h_min_a"] * (torch.abs(t) + h_abs),
+                     min=k["tiny_err"])
+    h_pre = torch.maximum(h_abs, ms)
+    if max_step is not None:
+        h_pre = torch.clamp(h_pre, max=float(max_step))
+    d = torch.abs(tf - t)
+    split = (d < 2.0 * h_pre) & (d > h_pre)
+    h_f = torch.where(split, torch.maximum(0.5 * d, ms),
+                      torch.where(d <= h_pre, d, h_pre))
+    return (torch.where(fresh, h_f, h_abs), torch.where(fresh, ms, min_step),
+            std_sc | (fresh & split), d)
+
+
+def controller(k, err_norm, err_old, h, h_prev, std_b, rejected, max_fac):
+    """The fused loops' accept/reject controller in float32
+    (``core.controller.erk_accept_update``).  Returns ``(factor if
+    accepted, factor if rejected, is_tiny, max_factor after an accepted
+    step)``."""
+    cc = k["cc"]
+    err_c = torch.clamp(err_norm, min=1e-30)
+    f_std = cc.safety * err_c ** cc.error_exponent
+    hr = h / torch.where(h_prev == 0.0, h, h_prev)
+    f_2nd = torch.minimum(torch.clamp(
+        cc.safety_sc * err_c ** cc.minbeta1
+        * torch.clamp(err_old, min=1e-30) ** cc.minbeta2
+        * hr ** cc.minalpha, min=cc.min_factor), max_fac)
+    is_tiny = err_norm < k["tiny_err"]
+    fac_acc = torch.where(is_tiny, max_fac, torch.where(std_b, f_std, f_2nd))
+    fac_acc = torch.where(rejected, torch.clamp(fac_acc, max=1.0), fac_acc)
+    max_fac_new = torch.where(fac_acc < 4.0, 4.0, max_fac)
+    fac_rej = torch.clamp(f_std, min=cc.min_factor)
+    return fac_acc, fac_rej, is_tiny, max_fac_new
+
+
 def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                         atol=1e-6, first_step=None, max_steps=100_000,
                         compensated=False, max_step=None):
@@ -131,8 +169,7 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
         fun = fun.torch_fn
     k = _fused_consts(method)
     A, B_w, C, E = k["A"], k["B"], k["C"], k["E"]
-    s, fsal, cc = k["s"], k["fsal"], k["cc"]
-    h_min_a, tiny_err = k["h_min_a"], k["tiny_err"]
+    s, fsal = k["s"], k["fsal"]
 
     f32 = torch.float32
     y = torch.as_tensor(y0_batch).to(f32).T.contiguous()
@@ -177,19 +214,8 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
         if not bool(running.any()):
             break
 
-        # per-step preparation, applied on fresh steps only
-        ms = torch.clamp(h_min_a * (torch.abs(t) + h_abs), min=tiny_err)
-        h_pre = torch.maximum(h_abs, ms)
-        if max_step is not None:
-            h_pre = torch.clamp(h_pre, max=float(max_step))
-        d = torch.abs(tf - t)
-        split = (d < 2.0 * h_pre) & (d > h_pre)
-        h_f = torch.where(split, torch.maximum(0.5 * d, ms),
-                          torch.where(d <= h_pre, d, h_pre))
-        h_abs = torch.where(fresh, h_f, h_abs)
-        min_step = torch.where(fresh, ms, min_step)
-        std_b = std_sc | (fresh & split)
-
+        h_abs, min_step, std_b, d = fresh_step(k, max_step, t, tf, h_abs,
+                                               fresh, min_step, std_sc)
         too_small = h_abs < min_step
         h = h_abs * direction
 
@@ -228,21 +254,8 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
 
         accepted = (err_norm < 1.0) & ~too_small & running & finite
 
-        # controller (core.controller.erk_accept_update, in float32)
-        err_c = torch.clamp(err_norm, min=1e-30)
-        f_std = cc.safety * err_c ** cc.error_exponent
-        hr = h / torch.where(h_prev == 0.0, h, h_prev)
-        f_2nd = torch.minimum(torch.clamp(
-            cc.safety_sc * err_c ** cc.minbeta1
-            * torch.clamp(err_old, min=1e-30) ** cc.minbeta2
-            * hr ** cc.minalpha, min=cc.min_factor), max_fac)
-        is_tiny = err_norm < tiny_err
-        fac_acc = torch.where(is_tiny, max_fac,
-                              torch.where(std_b, f_std, f_2nd))
-        fac_acc = torch.where(rejected, torch.clamp(fac_acc, max=1.0),
-                              fac_acc)
-        max_fac_new = torch.where(fac_acc < 4.0, 4.0, max_fac)
-        fac_rej = torch.clamp(f_std, min=cc.min_factor)
+        fac_acc, fac_rej, is_tiny, max_fac_new = controller(
+            k, err_norm, err_old, h, h_prev, std_b, rejected, max_fac)
         h_abs_next = h_abs * torch.where(accepted, fac_acc, fac_rej)
 
         status = torch.where(running & too_small, TOO_SMALL_STEP,
@@ -288,24 +301,35 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
     return y.T.contiguous(), status, nstep, nfev
 
 
-# (id(method), id(fun)) -> (method, fun, built kernel); holding both
-# objects keeps their ids from being reused while the entry lives
-_KERNELS = {}
+def check_options(name, item, **options):
+    """Raise for the options of the JAX fused kernels not ported yet."""
+    for opt, value in options.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{name}({opt}=...) is not ported yet: ROADMAP queue B, "
+                f"item {item} (remaining options)")
+
+
+def launch_args(t_span, rtol, atol, first_step, max_steps, compensated,
+                max_step):
+    """The launch scalars the fused explicit kernels share: t0, tf, rtol,
+    atol, h0, use_hstart, max_step, max_steps, compensated."""
+    return (float(np.float32(t_span[0])), float(np.float32(t_span[1])),
+            float(rtol), float(atol),
+            0.0 if first_step is None else float(first_step),
+            int(first_step is None),
+            np.inf if max_step is None else float(max_step),
+            int(max_steps), int(bool(compensated)))
 
 
 def _kernel(method, fun):
-    """The kernel built for one method and FusedRHS (built at first use,
-    then looked up without touching the source or the disk)."""
+    """The kernel built for one method and FusedRHS."""
     if method is None:
         from ..methods import BS5 as method
-    key = (id(method), id(fun))
-    hit = _KERNELS.get(key)
-    if hit is None:
-        from . import _build
-        hit = (method, fun, _build.load_fused_erk(_fused_consts(method),
-                                                  fun.n, fun.cuda_src))
-        _KERNELS[key] = hit
-    return hit[2]
+    from . import _build
+    return _build.cached("fused_erk", (method, fun),
+                         lambda: _build.load_fused_erk(
+                             _fused_consts(method), fun.n, fun.cuda_src))
 
 
 def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
@@ -329,12 +353,8 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
 
     ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet.
     """
-    for name, value in (("t_eval", t_eval), ("events", events),
-                        ("params", params), ("dense", dense)):
-        if value is not None:
-            raise NotImplementedError(
-                f"solve_fused_erk({name}=...) is not ported yet: ROADMAP "
-                "queue B, item B1 (remaining options)")
+    check_options("solve_fused_erk", "B1", t_eval=t_eval, events=events,
+                  params=params, dense=dense)
     y0 = as_input(y0_batch, torch.float32)
     if y0.device.type != "cuda":
         return fused_erk_reference(
@@ -357,25 +377,20 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
         raise ValueError("block_members must be in [1, 1024]")
 
     built = _kernel(method, fun)
-    nb, n = y0.shape
+    nb = y0.shape[0]
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     if nb == 0:
         return y_out, status, nsteps, nfev
-    t0 = float(np.float32(t_span[0]))
-    tf = float(np.float32(t_span[1]))
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
         rc = built.lib.fused_erk_launch(
             y0.data_ptr(), y_out.data_ptr(), status.data_ptr(),
-            nsteps.data_ptr(), nfev.data_ptr(), nb, t0, tf, float(rtol),
-            float(atol), 0.0 if first_step is None else float(first_step),
-            int(first_step is None),
-            np.inf if max_step is None else float(max_step),
-            int(max_steps), int(bool(compensated)), int(block_members),
-            stream)
+            nsteps.data_ptr(), nfev.data_ptr(), nb,
+            *launch_args(t_span, rtol, atol, first_step, max_steps,
+                         compensated, max_step), int(block_members), stream)
     if rc != 0:
         raise RuntimeError(f"fused_erk kernel launch failed: CUDA error {rc}")
     solve_fused_erk.launches += 1

@@ -507,26 +507,16 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
 
 
 
-# (id(method), id(fun), mass-matrix bytes) -> (method, fun, built kernel);
-# holding both objects keeps their ids from being reused while the entry
-# lives
-_KERNELS = {}
-
-
 def _kernel(method, fun, M, m_diag, rot, n):
-    """The kernel built for one method, FusedRHS and mass-matrix setup
-    (built at first use, then looked up without touching the disk)."""
+    """The kernel built for one method, FusedRHS and mass-matrix setup."""
     if method is None:
         from ..methods import Kv3I as method
-    key = (id(method), id(fun),
-           None if M is None else np.asarray(M, np.float64).tobytes())
-    hit = _KERNELS.get(key)
-    if hit is None:
-        from . import _build
-        hit = (method, fun, _build.load_fused_esdirk(
-            _esdirk_consts(method), m_diag, rot, n, fun.cuda_src))
-        _KERNELS[key] = hit
-    return hit[2]
+    from . import _build
+    return _build.cached(
+        "fused_esdirk", (method, fun),
+        lambda: _build.load_fused_esdirk(_esdirk_consts(method), m_diag, rot,
+                                         n, fun.cuda_src),
+        None if M is None else np.asarray(M, np.float64).tobytes())
 
 
 def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,

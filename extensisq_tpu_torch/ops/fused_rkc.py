@@ -31,7 +31,7 @@ import torch
 from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW, RHO_FAIL
 from .._device import as_input
 from . import ds as D
-from .fused_erk import _df_add
+from .fused_erk import _df_add, check_options
 
 _EPS32 = float(np.finfo(np.float32).eps)
 ITMAX = 50               # power-iteration bound
@@ -445,33 +445,20 @@ def _stages(fn, t, y, y_lo, f, h, m, running):
 
 # -- the wrappers and the kernels --------------------------------------------
 
-# (id(fun), id(rho callback) or None, n_par) -> (fun, rho callback, built
-# kernel); holding the objects keeps their ids from being reused while the
-# entry lives.  A float rho or None is a launch argument, not a build.
-_KERNELS = {}
 # (build key, rho mode, device index) -> B9's grid
 _GRIDS = {}
 
 
 def _kernel(fun, rho, n_par):
+    """The kernel built for one FusedGridRHS, rho callback and parameter
+    count.  A float rho or None is a launch argument, not a build."""
     cb = rho if isinstance(rho, FusedRho) else None
-    key = (id(fun), id(cb), n_par)
-    hit = _KERNELS.get(key)
-    if hit is None:
-        from . import _build
-        hit = (fun, cb, _build.load_fused_rkc(
-            fun.shape, n_par, fun.cuda_src,
-            None if cb is None else cb.cuda_src))
-        _KERNELS[key] = hit
-    return hit[2]
-
-
-def _check_options(name, item, t_eval, events):
-    for opt, value in (("t_eval", t_eval), ("events", events)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}({opt}=...) is not ported yet: ROADMAP queue B, "
-                f"item {item} (remaining options)")
+    from . import _build
+    return _build.cached(
+        "fused_rkc", (fun, cb),
+        lambda: _build.load_fused_rkc(fun.shape, n_par, fun.cuda_src,
+                                      None if cb is None else cb.cuda_src),
+        n_par)
 
 
 def _check_card_inputs(name, fun, rho, y0, lead):
@@ -579,7 +566,7 @@ def solve_fused_rkc(fun, t_span, y0, rho=None, rtol=1e-4, atol=1e-6,
 
     ``t_eval`` and ``events`` are not ported yet.
     """
-    _check_options("solve_fused_rkc", "B9", t_eval, events)
+    check_options("solve_fused_rkc", "B9", t_eval=t_eval, events=events)
     y0 = as_input(y0, torch.float32)
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, m_max=m_max, const_jac=const_jac,
@@ -616,7 +603,8 @@ def solve_fused_rkc_ensemble(fun, t_span, y0, rho=None, params=None,
     :func:`fused_rkc_reference`.  ``t_eval`` and ``events`` are not ported
     yet.
     """
-    _check_options("solve_fused_rkc_ensemble", "B10", t_eval, events)
+    check_options("solve_fused_rkc_ensemble", "B10", t_eval=t_eval,
+                  events=events)
     y0 = as_input(y0, torch.float32)
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, m_max=m_max, const_jac=const_jac,

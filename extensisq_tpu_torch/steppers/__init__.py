@@ -1,13 +1,12 @@
 """Stepper construction: dispatch a Method handle to its implementation.
 
-The explicit Runge-Kutta, ESDIRK, SWAG (``adams``) and SSV2stab
-(``rkc``) families are ported; every other family of the JAX package
-names the ROADMAP item that brings it.
+The explicit Runge-Kutta, Runge-Kutta-Nystrom (``rkn``), ESDIRK, SWAG
+(``adams``) and SSV2stab (``rkc``) families are ported; every other family
+of the JAX package names the ROADMAP item that brings it.
 """
 
 _NOT_PORTED = {
     "ckdisc": "A14",
-    "rkn": "A11",
 }
 
 
@@ -19,8 +18,10 @@ def build_stepper(method, fun, n, dtype, **options):
     mass matrix, ``(n,)`` diagonal or ``(n, n)``) and ``jac_each_step``.
     The JAX package's dense-output options (``interpolant``,
     ``carry_stages``) have no use before dense output is ported and are
-    ignored.  SWAG takes ``k_max`` (1 to 12); SSV2stab takes ``rho_jac``
-    (a spectral-radius bound ``rho_jac(t, y)``) and ``const_jac``."""
+    ignored.  RKN methods take ``scale_embedded`` (Mu5Nmb's default damps
+    the embedded estimate by 0.75).  SWAG takes ``k_max`` (1 to 12);
+    SSV2stab takes ``rho_jac`` (a spectral-radius bound ``rho_jac(t, y)``)
+    and ``const_jac``."""
     family = method.family
     merged = dict(method.options or {})
     merged.update(options)
@@ -28,6 +29,11 @@ def build_stepper(method, fun, n, dtype, **options):
         from .erk import ERKStepper
         return ERKStepper(fun, method.tableau, n, dtype,
                           sc_params=merged.get("sc_params"))
+    if family == "rkn":
+        from .rkn import RKNStepper
+        return RKNStepper(fun, method.tableau, n, dtype,
+                          sc_params=merged.get("sc_params"),
+                          scale_embedded=bool(merged.get("scale_embedded")))
     if family == "esdirk":
         for name in ("bands", "jac_sparsity"):
             if merged.get(name) is not None:

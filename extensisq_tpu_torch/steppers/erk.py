@@ -186,7 +186,7 @@ class ERKStepper:
         zero_y = torch.zeros_like(f)
         nfev = c.nfev
 
-        if self.tab.E_pre is not None:
+        if getattr(self.tab, "E_pre", None) is not None:
             npre = self.tab.n_pre
             K_rows = [f]
             nfev = nfev + self._run_stages(t, y, h, 1, npre, K_rows)

@@ -74,6 +74,52 @@ class ERKTableau:
 
 
 @dataclasses.dataclass(frozen=True)
+class RKNTableau:
+    """Explicit Runge-Kutta-Nystrom pair for u'' = a(t, u[, u']).
+
+    Displacement weights ``A``/``B``/``E`` act with h^2, velocity weights
+    ``Ap``/``Bp``/``Ep`` with h.  ``Ap`` is None for velocity-independent
+    (strict RKN) methods; ``Ep[-1] != 0`` iff the pair is FSAL.  ``P``/``Pp``
+    and ``interpolants`` are the dense-output data.
+    """
+    name: str
+    order: int
+    order_secondary: int
+    A: np.ndarray
+    B: np.ndarray
+    C: np.ndarray
+    E: np.ndarray
+    Ap: Optional[np.ndarray]
+    Bp: np.ndarray
+    Ep: np.ndarray
+    P: Optional[np.ndarray] = None
+    Pp: Optional[np.ndarray] = None
+    interpolants: Any = None
+    stbre: Optional[float] = None
+    stbim: Optional[float] = None
+    tanang: Optional[float] = None
+    sc_params: str = "G"
+
+    def __post_init__(self):
+        for f in ("A", "B", "C", "E", "Ap", "Bp", "Ep", "P", "Pp"):
+            object.__setattr__(self, f, _freeze(getattr(self, f)))
+
+    @property
+    def n_stages(self):
+        return self.B.shape[0]
+
+    @property
+    def fsal(self):
+        return bool(self.Ep[self.n_stages] != 0.0)
+
+    @property
+    def velocity_independent(self):
+        return self.Ap is None
+
+    c_spacing = ERKTableau.c_spacing
+
+
+@dataclasses.dataclass(frozen=True)
 class ESDIRKTableau:
     """Explicit-first-stage singly-diagonal implicit RK tableau.
 

@@ -31,13 +31,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import test_torch_fused_adams as TA  # noqa: E402
 import test_torch_fused_esdirk as T  # noqa: E402
 import test_torch_fused_erk as TK  # noqa: E402
+import test_torch_fused_erk_grid as TG  # noqa: E402
 import test_torch_fused_rkc as TR  # noqa: E402
+import test_torch_fused_rkn as TN  # noqa: E402
 
 from extensisq_tpu_torch.ops import _build  # noqa: E402
 from extensisq_tpu_torch.ops import fused_adams as FA  # noqa: E402
 from extensisq_tpu_torch.ops import fused_erk as FK  # noqa: E402
 from extensisq_tpu_torch.ops import fused_esdirk as FE  # noqa: E402
 from extensisq_tpu_torch.ops import fused_rkc as FR  # noqa: E402
+from extensisq_tpu_torch.ops import fused_rkn as FN  # noqa: E402
 from extensisq_tpu_torch.parallel import pde  # noqa: E402
 
 SHIM = """
@@ -48,6 +51,7 @@ SHIM = """
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
+#define __launch_bounds__(x)
 struct HostDim3 { int x; };
 static HostDim3 blockIdx, blockDim, threadIdx;
 __attribute__((noinline)) static float __fadd_rn(float a, float b) {
@@ -157,6 +161,58 @@ extern "C" int fused_rkc_host(
 """
 RKC_SHAPE = (8, 8)
 
+RKN_LAUNCH = """
+extern "C" int fused_rkn_launch(
+    const void* y0, void* y_out, void* status, void* nstep, void* nfev,
+    int B, float t0, float tf, float rtol, float atol, float h0,
+    int use_hstart, float max_step, int max_steps, int compensated,
+    void* stream) {
+  blockDim.x = 1;
+  for (int b = 0; b < B; ++b) {
+    blockIdx.x = b;
+    threadIdx.x = 0;
+    auto k = compensated ? fused_rkn_kernel<true> : fused_rkn_kernel<false>;
+    k((const float*)y0, (float*)y_out, (int*)status, (int*)nstep,
+      (int*)nfev, B, t0, tf, rtol, atol, h0, use_hstart, max_step,
+      max_steps);
+  }
+  return 0;
+}
+"""
+
+# The grid body integrate<COMP, Group> (B4 and B6) run by a one-thread group
+# on a host buffer in place of shared memory, one member after another.
+GRID_LAUNCH = """
+struct HostGroup {
+  int rank() const { return 0; }
+  int size() const { return 1; }
+  void sync() const {}
+  float sum(float v) const { return v; }
+  float min(float v) const { return v; }
+};
+
+extern "C" int fused_rk_grid_host(
+    const float* y0, float* y_out, int* status, int* nsteps, int* nfev,
+    int members, float t0, float tf, float dir, float rtol, float atol,
+    float h0, int use_hstart, float max_step, int max_steps,
+    int compensated) {
+  const Launch L{t0, tf, dir, rtol, atol, h0, use_hstart, max_step,
+                 max_steps};
+  const Out out{y_out, status, nsteps, nfev};
+  float* sm = new float[kFloats];
+  for (int m = 0; m < members; ++m) {
+    HostGroup g;
+    if (compensated) {
+      integrate<true>(g, sm, y0 + m * NF, L, m, out);
+    } else {
+      integrate<false>(g, sm, y0 + m * NF, L, m, out);
+    }
+  }
+  delete[] sm;
+  return 0;
+}
+"""
+
 # label -> (problem, k_max) of each SWAG build; the cases of
 # test_torch_fused_adams.py, and the bench line's k_max = 12
 ADAMS_VARIANTS = {"vdp": ("vdp5", 6), "osc_comp": ("osc", 4),
@@ -230,6 +286,14 @@ def libs(tmp_path_factory):
     jobs["rkc"] = ("fused_rkc", _build.fused_rkc_header(
         rkc_p.shape, 1, rkc_p.cuda_src, TR.RHO_FN.cuda_src), RKC_LAUNCH,
         RKC_MARKER)
+    jobs["rkn_kepler"] = ("fused_rkn", _build.fused_rkn_header(
+        FN.rkn_consts(TN.Fi5N), 2, TN.KEPLER.cuda_src), RKN_LAUNCH)
+    jobs["grid_wave"] = ("fused_rk_grid", _build.fused_rk_grid_header(
+        FN.rkn_consts(TN.Fi5N), True, (TN.N_GRID,), TN.WAVE_CUDA),
+        GRID_LAUNCH, RKC_MARKER)
+    jobs["grid_fisher"] = ("fused_rk_grid", _build.fused_rk_grid_header(
+        FK._fused_consts(TK.BS5), False, (TG.N,), TG.RHS["fisher"].cuda_src),
+        GRID_LAUNCH, RKC_MARKER)
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(_compile, *v[:3], d / k, *v[3:])
                    for k, v in jobs.items()}
@@ -465,3 +529,132 @@ def test_rkc_kernel_matches_plain_version(libs, case):
     if mode == 2:
         np.testing.assert_array_equal(nsig, ref[4])
     assert np.max(np.abs(y[:2] - ref[0][:2])) <= 5e-6
+
+
+def _rkn_host(lib, span, y0, **kw):
+    y0 = np.ascontiguousarray(y0, np.float32)
+    nb = y0.shape[0]
+    out = np.empty_like(y0)
+    st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
+    fn = lib.fused_rkn_launch
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [vp] * 5 + [ci, cf, cf, cf, cf, cf, ci, cf, ci, ci, vp]
+    fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
+       nf.ctypes.data, nb,
+       *FK.launch_args(span, kw["rtol"], kw["atol"], kw.get("first_step"),
+                       kw.get("max_steps", 100_000),
+                       kw.get("compensated", False), None), None)
+    return out, st, ns, nf
+
+
+def _grid_host(lib, span, y0, **kw):
+    y0 = np.ascontiguousarray(y0, np.float32)
+    nb = y0.shape[0]
+    out = np.empty_like(y0)
+    st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
+    fn = lib.fused_rk_grid_host
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [vp] * 5 + [ci] + [cf] * 6 + [ci, cf, ci, ci]
+    t0, tf, rt, at, h0, use_h, mstep, msteps, comp = FK.launch_args(
+        span, kw["rtol"], kw["atol"], kw.get("first_step"),
+        kw.get("max_steps", 100_000), kw.get("compensated", False), None)
+    fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
+       nf.ctypes.data, nb, t0, tf, float(np.sign(tf - t0)), rt, at, h0,
+       use_h, mstep, msteps, comp)
+    return out, st, ns, nf
+
+
+
+def _new_case(label):
+    """(host runner, library, plain version, right-hand side, span, y0,
+    options) of a case of the RKN and grid kernels."""
+    case = {"kepler": (_rkn_host, "rkn_kepler", FN.fused_rkn_reference,
+                       TN.KEPLER, TN.CASES),
+            "wave": (_grid_host, "grid_wave", TN.fused_rkn_grid_reference,
+                     TN.WAVE, TN.CASES),
+            "fisher": (_grid_host, "grid_fisher",
+                       TG.fused_erk_grid_reference, TG.RHS["fisher"],
+                       TG.CASES)}[label.split("_")[0]]
+    host, lib, plain, fun, cases = case
+    c = cases[label]
+    return host, lib, plain, fun, c[-3], c[-2], dict(c[-1])
+
+
+# (case, max |dy|, max |dnsteps|, members with other counts), measured:
+# kepler_plain 9.6e-5, 1, 7; kepler_comp 2.8e-5, 1, 71 (B5, Fi5N, the
+# f32 error estimate of a nearly circular orbit is round-off, so last bits
+# move h); wave_h0 1.1e-4, 0, 0; wave_comp 1.3e-5, 1, 1 (B6, n = 100);
+# fisher_plain 1.8e-4, 5, 3; fisher_comp 5.3e-6, 3, 5; fisher_h0 8.3e-7,
+# 0, 0 (B4, n = 100).  Gates about 2x.
+NEW_GATES = [("kepler_plain", 2e-4, 2, 16), ("kepler_comp", 6e-5, 2, 100),
+             ("wave_h0", 2e-4, 0, 0), ("wave_comp", 3e-5, 2, 2),
+             ("fisher_plain", 4e-4, 8, 6), ("fisher_comp", 1.2e-5, 6, 8),
+             ("fisher_h0", 2e-6, 0, 0)]
+
+
+@pytest.mark.parametrize("case,y_gate,dsteps,nmembers", NEW_GATES)
+def test_rkn_and_grid_kernels_match_plain_versions(libs, case, y_gate,
+                                                    dsteps, nmembers):
+    """B5 (``fused_rkn.cu``, one member per thread) and the block body of
+    B4 and B6 (``fused_rk_grid.cu``, run by a one-thread group) against
+    their plain versions: status identical, counts within the gates (the
+    libraries' powf/log10f part last bits of h), identical where
+    ``first_step`` is given."""
+    host, lib, plain, fun, span, y0, kw = _new_case(case)
+    y, st, ns, nf = host(libs[lib], span, y0, **kw)
+    ry, rst, rns, rnf = (r.numpy() for r in plain(fun, span,
+                                                  torch.tensor(y0), **kw))
+    np.testing.assert_array_equal(st, rst)
+    assert np.all(st == 1)
+    assert np.max(np.abs(y - ry)) <= y_gate
+    assert np.max(np.abs(ns - rns)) <= dsteps
+    assert np.sum((ns != rns) | (nf != rnf)) <= nmembers
+
+
+@pytest.mark.parametrize("case,attempts", [("wave_comp", 5), ("wave_h0", 1),
+                                           ("fisher_h0", 1),
+                                           ("fisher_comp", 1)])
+def test_grid_body_first_attempts_bit_identical(libs, case, attempts):
+    """With ``first_step`` given, the grid body's first attempts (stage
+    sums, the compensated carries, the norm, the controller) repeat the
+    plain version's arithmetic bit for bit: five attempts of the
+    compensated wave, until powf and torch.pow round a step ratio apart."""
+    host, lib, plain, fun, span, y0, kw = _new_case(case)
+    kw.update(first_step=0.01, max_steps=attempts)
+    y, st, ns, nf = host(libs[lib], span, y0, **kw)
+    ry, rst, rns, rnf = (r.numpy() for r in plain(fun, span,
+                                                  torch.tensor(y0), **kw))
+    np.testing.assert_array_equal(y, ry)
+    np.testing.assert_array_equal(st, rst)
+    np.testing.assert_array_equal(ns, rns)
+    np.testing.assert_array_equal(nf, rnf)
+
+
+@pytest.mark.parametrize("case", ["overflow", "wave_overflow"])
+def test_rkn_kernels_isolate_an_overflowing_member(libs, tmp_path, case):
+    """A member whose state overflows ends with status 3 alone, in the
+    thread-per-member kernel (cubic acceleration) and in the block body
+    (the wave plus a cubic term); the others keep the plain version's
+    counts within a step (measured: identical, and one wave member one
+    step apart from the starting step's last bits)."""
+    kind, prob, meth, span, y0, kw = TN.CASES[case]
+    fun = TN.CARD_PROBLEMS[prob]
+    if kind == "flat":
+        header = _build.fused_rkn_header(FN.rkn_consts(TN.Fi5N), fun.m,
+                                         fun.cuda_src)
+        lib = _compile("fused_rkn", header, RKN_LAUNCH, tmp_path / case)
+        out = _rkn_host(lib, span, y0, **kw)
+        plain = FN.fused_rkn_reference
+    else:
+        header = _build.fused_rk_grid_header(FN.rkn_consts(TN.Fi5N), True,
+                                             (fun.n,), fun.cuda_src)
+        lib = _compile("fused_rk_grid", header, GRID_LAUNCH,
+                       tmp_path / case, RKC_MARKER)
+        out = _grid_host(lib, span, y0, **kw)
+        plain = TN.fused_rkn_grid_reference
+    ref = [r.numpy() for r in plain(fun, span, torch.tensor(y0), **kw)]
+    bad = 7 if kind == "flat" else 3
+    assert out[1][bad] == 3 and np.sum(out[1] == 1) == len(y0) - 1
+    np.testing.assert_array_equal(out[1], ref[1])
+    ok = out[1] == 1
+    assert np.max(np.abs(out[2][ok] - ref[2][ok])) <= 1

@@ -492,7 +492,7 @@ def test_build_key_hashes_shared_headers(monkeypatch, tmp_path):
     assert [p.name for p in _build.shared_headers("fused_esdirk")] == [
         "dual.cuh", "hstart.cuh", "rk_common.cuh"]
     assert [p.name for p in _build.shared_headers("fused_erk")] == [
-        "hstart.cuh", "rk_common.cuh"]
+        "hstart.cuh", "rk_common.cuh", "rk_control.cuh"]
     before = {k: _build.build_key(k, "header") for k in ("fused_erk",
                                                          "fused_esdirk")}
     common = csrc / "rk_common.cuh"

@@ -325,17 +325,18 @@ def test_generated_header():
 
 
 def test_build_key_hashes_rkc_headers(monkeypatch, tmp_path):
-    """The kernel's build key covers ds.cuh and grid_common.cuh, which it
-    includes, and no other shared header."""
+    """The kernel's build key covers ds.cuh, grid_common.cuh and
+    block_group.cuh (B10's thread-block group, shared with the mid-size RK
+    kernels), which it includes, and no other shared header."""
     import shutil
     from extensisq_tpu_torch.ops import _build
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.shared_headers("fused_rkc")] == [
-        "ds.cuh", "grid_common.cuh"]
+        "ds.cuh", "grid_common.cuh", "block_group.cuh"]
     before = _build.build_key("fused_rkc", "header")
-    for name in ("ds.cuh", "grid_common.cuh"):
+    for name in ("ds.cuh", "grid_common.cuh", "block_group.cuh"):
         f = csrc / name
         f.write_text(f.read_text() + "\n// edited\n")
         after = _build.build_key("fused_rkc", "header")
