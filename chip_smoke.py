@@ -28,7 +28,12 @@ Drives the port's three paths once each:
   64 members of a 256-state fisher MoL with BS5 through
   ``ops.solve_fused_erk_grid``, and 64 members of a 256-position wave with
   Fi5N through ``ops.solve_fused_rkn_grid`` (plain and compensated), each
-  held against the f64 driver.
+  held against the f64 driver;
+* non-smooth (CKdisc, BASELINE config 1c): 1024 members of a
+  sign-switching decay (t in [0, 5], rtol 1e-4 / atol 1e-7) through
+  ``ops.solve_fused_ckdisc`` and the f64 ``solve_ensemble``, and 64 members
+  of a 256-state advection-reaction MoL with a switching forcing (t in
+  [0, 1.2]) through ``ops.solve_fused_ckdisc_grid`` and the f64 driver.
 
 Before that, it builds every kernel from the sources in this checkout
 (one nvcc per variant, all started together) and holds each against its
@@ -217,7 +222,7 @@ OPS_PER_ELEMENT_EVAL = {"fused_rkc": 23}
 # scaled square 8 per state; a member's attempt adds ~30 for the step
 # control and the norm.  A transcendental function counts as one
 # operation, so the count is a lower bound.  RHS operations per element:
-RHS_OPS = {"kepler": 7, "fisher": 5, "wave": 4}
+RHS_OPS = {"kepler": 7, "fisher": 5, "wave": 4, "swdec": 6, "ckmol": 11}
 CONTROL_OPS = 30
 
 
@@ -428,6 +433,7 @@ def build_all(jobs):
     from extensisq_tpu_torch import BS5
     from extensisq_tpu_torch.ops import _build
     from extensisq_tpu_torch.ops.fused_adams import _adams_consts
+    from extensisq_tpu_torch.ops.fused_ckdisc import ck_consts
     from extensisq_tpu_torch.ops.fused_erk import _fused_consts
     from extensisq_tpu_torch.ops.fused_esdirk import (_esdirk_consts,
                                                       _mass_setup)
@@ -444,6 +450,11 @@ def build_all(jobs):
         if kernel == "fused_rkn_grid":
             return _build.load_fused_rk_grid(rkn_consts(opt), True,
                                              (rhs.n,), rhs.cuda_src)
+        if kernel == "fused_ckdisc":
+            return _build.load_fused_ckdisc(ck_consts(), rhs.n, rhs.cuda_src)
+        if kernel == "fused_ckdisc_grid":
+            return _build.load_fused_rk_grid(ck_consts(), False, rhs.shape,
+                                             rhs.cuda_src)
         if kernel == "fused_erk":
             return _build.load_fused_erk(_fused_consts(BS5), rhs.n,
                                          rhs.cuda_src)
@@ -1671,6 +1682,344 @@ def rkn_grid_path():
              ms_compensated=times["wave256x64 B6 compensated"][0])]
 
 
+# -- the CKdisc path -------------------------------------------------------
+# validation/benchmarks.py:105-142 (config 1c, not cut): 1024 members of the
+# sign-switching decay through B11 against the f64 driver; the non-smooth
+# advection-reaction MoL of tests/test_fused_pallas.py:2010-2024 at config
+# 1b's widths (256 states, 64 members) through B12, and 1024 members of it
+# for timing only
+CK_N, CK_SPAN = 1024, (0.0, 5.0)
+CK_TOL = dict(rtol=1e-4, atol=1e-7)
+CKMOL_N, CKMOL_M, CKMOL_M_LARGE, CKMOL_SPAN = 256, 64, 1024, (0.0, 1.2)
+CKMOL_TOL = dict(rtol=1e-4, atol=1e-6)
+# the JAX gates: config 1c's endpoint 5e-3 (validation/benchmarks.py:139,
+# measured with a margin over the f32 bifurcation of
+# validation/ckdisc_drift.py), the MoL's endpoint 2e-3 and mean nsteps
+# within 20% (tests/test_fused_pallas.py:2034-2042)
+CK_F64_GATE = 5e-3
+CKMOL_F64_GATE = 2e-3
+CKMOL_STEP_GATE = 0.2
+# kernel against its plain version on the card: (max |dy| over finished
+# members, relative difference of mean nsteps, max |dnsteps|).  Measured on
+# an H100 (nvcc contracts into fma, the plain version rounds each
+# operation): on the small checks that do not bifurcate, linear 1.9e-7 /
+# 6.0e-4 / 1 (10 of 1024 members one step apart), rational 6.0e-8 / 0 / 0,
+# fisher 1.6e-5 / 1.8e-3 / 1 (the upwind MoL without the switch, 8
+# members), diffusion 7.2e-7 / 0 / 0, and from a first step cubic_overflow
+# 0 / 0 / 0 and mol_overflow 2.8e-5 / 0 / 0 (from Watts' start, NaN for
+# the overflowing member, its plain version runs to the step cap, ~10 s
+# here, and the others part by 1.6e-4: tests/test_torch_fused_ckdisc.py
+# holds that case); on the sign-switching lines, where independent
+# float32 implementations part by ~3e-3 (validation/ckdisc_drift.py:13-36),
+# mol
+# 3.0e-4 / 3.1e-2 / 6 (8 members), swdec (the path) 2.9e-3 / 7.8e-3 / 10,
+# ckmol (the path) 5.7e-4 / 2.5e-3 / 9.  The gates keep a margin of 2-5x
+CK_KERNEL_GATES = {"linear": (1e-6, 2e-3, 2), "rational": (1e-6, 1e-3, 1),
+                   "cubic_overflow": (1e-6, 1e-3, 1),
+                   "fisher": (5e-5, 5e-3, 2), "diffusion": (3e-6, 1e-3, 1),
+                   "mol_overflow": (1e-4, 1e-3, 1),
+                   "mol": (1e-3, 8e-2, 12), "swdec": (6e-3, 2e-2, 20),
+                   "ckmol": (2e-3, 1e-2, 20)}
+# the f64 line rerun on the CPU: counters identical, |dy| relative to
+# max(1, |y|) within the gate; the sampled members also run inside the whole
+# batch on the CPU, the witness of what the batch's shape alone moves
+# (PyTorch's vectorised pow rounds by it, and a step that lands a few ulps
+# elsewhere near a switch takes a fallback of the tolerance's accuracy):
+# 1.527e-12 on a CPU; the card vs the CPU measured 6.120e-12 on an H100
+CK_CPU_GATE = 1e-11
+# RHS_OPS of the CKdisc lines: the switch (sinf, a product, a comparison, a
+# select) and the sign-switching decay's 2 per element; the MoL's stencil,
+# logistic term and forcing 7 per element
+
+
+def _sw_cuda(freq):
+    return f"const float sw = sinf({_lit(freq)} * t) >= 0.0f ? 1.0f : -1.0f;"
+
+
+def swdec_rows(t, y):
+    """Config 1c's RHS (validation/benchmarks.py:110-113), rows-first."""
+    sw = torch.where(torch.sin(3.0 * t) >= 0.0, 1.0, -1.0)
+    return torch.stack([(-sw - 0.5) * y[0], (sw - 0.5) * y[1]])
+
+
+def ck_mol(n):
+    def fun(t, y):
+        sw = torch.where(torch.sin(4.0 * t) >= 0.0, 1.0, -1.0)
+        return -(y - torch.roll(y, 1, 0)) * float(n) + y * (1 - y) + 0.3 * sw
+    return fun
+
+
+def _ck_mol_cuda(n):
+    return ("__device__ float rhs(float t, const float* y, int i, "
+            "const float* p) {\n  " + _sw_cuda(4.0) + "\n"
+            f"  return -(y[i] - tab::G::rolled<0>(y, i, 1)) * {_lit(n)}\n"
+            "         + y[i] * (1.0f - y[i]) + 0.3f * sw;\n}")
+
+
+def linear2(t, y):
+    return torch.stack([-y[0], -0.5 * y[1] + y[0]])
+
+
+def rational(t, y):
+    return torch.stack([y[1] / t,
+                        y[1] * (y[0] + 2 * y[1] - 1) / (t * (y[0] - 1))])
+
+
+def diffusion200(t, y):
+    z = torch.zeros_like(y[:1])
+    return (20.0 * (torch.cat([z, y[:-1]]) - 2.0 * y + torch.cat([y[1:], z]))
+            + torch.abs(y - 0.4))
+
+
+def ckdisc_rhs():
+    """The FusedRHS/FusedGridRHS of every CKdisc variant, by label."""
+    from extensisq_tpu_torch.ops import FusedGridRHS, FusedRHS
+    flat = "__device__ void rhs(float t, const float* y, float* dy) {\n"
+    return {
+        "swdec": FusedRHS(swdec_rows, flat + "  " + _sw_cuda(3.0) + "\n"
+                          "  dy[0] = (-sw - 0.5f) * y[0];\n"
+                          "  dy[1] = (sw - 0.5f) * y[1];\n}", 2),
+        "linear": FusedRHS(linear2, flat + "  dy[0] = -y[0];\n"
+                           "  dy[1] = -0.5f * y[1] + y[0];\n}", 2),
+        "rational": FusedRHS(rational, flat + "  dy[0] = y[1] / t;\n"
+                             "  dy[1] = y[1] * (y[0] + 2.0f * y[1] - 1.0f)"
+                             " / (t * (y[0] - 1.0f));\n}", 2),
+        "cubic": FusedRHS(cubic, CUBIC_CUDA, 2),
+        "ckmol": FusedGridRHS(ck_mol(CKMOL_N), _ck_mol_cuda(CKMOL_N),
+                              (CKMOL_N,)),
+        "ckmol128": FusedGridRHS(ck_mol(128), _ck_mol_cuda(128), (128,)),
+        "fisher128": FusedGridRHS(fisher_mol(128), _fisher_cuda(128), (128,)),
+        "diffusion": FusedGridRHS(
+            diffusion200, "__device__ float rhs(float t, const float* y, "
+            "int i, const float* p) {\n"
+            "  const float left = i > 0 ? y[i - 1] : 0.0f;\n"
+            "  const float right = i < 199 ? y[i + 1] : 0.0f;\n"
+            "  return 20.0f * (left - 2.0f * y[i] + right)"
+            " + fabsf(y[i] - 0.4f);\n}", (200,))}
+
+
+def ckdisc_builds(rhs):
+    """(kernel, label, rhs, None) of every B11/B12 variant."""
+    return ([("fused_ckdisc", k, rhs[k], None)
+             for k in ("swdec", "linear", "rational", "cubic")]
+            + [("fused_ckdisc_grid", k, rhs[k], None)
+               for k in ("ckmol", "ckmol128", "fisher128", "diffusion")])
+
+
+def swdec_y0(dtype):
+    """Config 1c's members (validation/benchmarks.py:116-117)."""
+    y0 = (1.0 + 0.5 * np.random.RandomState(1).rand(CK_N, 2))
+    return torch.tensor(y0.astype(np.float32), dtype=dtype, device="cuda")
+
+
+def ck_ops(n_row, rhs_ops, nfev_sum, members, start_evals):
+    """float32 operations of a B11 or B12 run (stage rows of ``n_row``
+    elements) whose members made ``nfev_sum`` RHS evaluations (their real
+    ones: the kernels skip vetoed stages), ``start_evals`` each for the
+    start.  Counted from csrc/fused_ckdisc.cu and ck_control.cuh with the
+    weights' nonzeros: per element, the five stage arguments (a sum and 2)
+    over the five stage evaluations of a full attempt, and the E1, E2 and
+    E4 assessments (the solution's and the error's sums, 3, and the scaled
+    square, 8) over the evaluations that reach them; per member and
+    attempt ~40 for the roots, the cascade and the step control."""
+    from extensisq_tpu_torch.ops.fused_ckdisc import ck_consts
+    k = ck_consts()
+    stage = sum(_wsum_ops(k["A"][i, :i]) + 2 for i in range(1, 6))
+    assess = sum(_wsum_ops(b[:m]) + _wsum_ops(e[:m]) + 11 for b, e, m in (
+        (k["B_as"][0], k["E_as"][0], 2), (k["B_as"][1], k["E_as"][1], 4),
+        (k["B"], k["E"], 6)))
+    per_eval = n_row * ((stage + assess) / 5 + rhs_ops) + 40 / 5
+    start = members * start_evals
+    return (nfev_sum - start) * per_eval + start * n_row * rhs_ops
+
+
+def ckdisc_path():
+    """The CKdisc paths: B11 and B12 against their plain versions (small
+    checks and the paths' shapes), config 1c through B11 and the MoL
+    through B12, each held against the f64 driver; returns the ``kernels``
+    entries of B11 and B12."""
+    from extensisq_tpu_torch import CKdisc, solve_ensemble
+    from extensisq_tpu_torch import ops
+    R = ckdisc_rhs()
+    kinds = {"fused_ckdisc": (ops.solve_fused_ckdisc,
+                              ops.fused_ckdisc_reference),
+             "fused_ckdisc_grid": (ops.solve_fused_ckdisc_grid,
+                                   ops.fused_ckdisc_grid_reference)}
+
+    def compare(kind, label, rhs, span, y0, **kw):
+        run, plain = kinds[kind]
+        return hold_against_plain(
+            kind, label, lambda: run(rhs, span, y0, **kw),
+            lambda: plain(rhs, span, y0, **kw), *CK_KERNEL_GATES[label])
+
+    # (a) each kernel against its plain version on problems that do not
+    # bifurcate, and an overflowing member of each
+    n = 1024
+    lin = torch.tensor(np.stack([np.linspace(0.5, 2.0, n), np.zeros(n)], 1),
+                       dtype=torch.float32, device="cuda")
+    compare("fused_ckdisc", "linear", R["linear"], (0.0, 5.0), lin,
+            rtol=1e-5, atol=1e-8)
+    rat = torch.tensor(np.array([[1 / 3, 2 / 9]])
+                       * np.linspace(1.0, 1.2, n)[:, None],
+                       dtype=torch.float32, device="cuda")
+    compare("fused_ckdisc", "rational", R["rational"], (5.0, 9.0), rat,
+            rtol=1e-5, atol=1e-8)
+    cub0 = torch.zeros(n, 2, device="cuda")
+    cub0[:, 0] = 0.1
+    cub0[7, 0] = 1e18                    # this member overflows in f32
+    k, _, _, _ = compare("fused_ckdisc", "cubic_overflow", R["cubic"],
+                         (0.0, 1.0), cub0, rtol=1e-4, atol=1e-6,
+                         first_step=0.01, max_steps=2000)
+    check(int(k[1][7]) != 1 and int((k[1] == 1).sum()) == n - 1,
+          "B11 overflow isolation: member 7 must fail alone")
+    f128 = fisher_y0(8, 128)
+    compare("fused_ckdisc_grid", "fisher", R["fisher128"], (0.0, 1.0), f128,
+            rtol=1e-5, atol=1e-7)
+    xd = np.linspace(0, 1, 200)
+    d200 = torch.tensor(np.tile(np.exp(-30 * (xd - 0.5) ** 2), (8, 1)),
+                        dtype=torch.float32, device="cuda")
+    compare("fused_ckdisc_grid", "diffusion", R["diffusion"], (0.0, 0.5),
+            d200, rtol=1e-4, atol=1e-6)
+    m128 = fisher_y0(8, 128)
+    compare("fused_ckdisc_grid", "mol", R["ckmol128"], CKMOL_SPAN, m128,
+            **CKMOL_TOL)
+    m128[3] *= 1e20                      # this member overflows in f32
+    k, _, _, _ = compare("fused_ckdisc_grid", "mol_overflow", R["ckmol128"],
+                         (0.0, 0.5), m128, first_step=0.001, max_steps=2000,
+                         **CKMOL_TOL)
+    check(int(k[1][3]) != 1 and int((k[1] == 1).sum()) == 7,
+          "B12 overflow isolation: member 3 must fail alone")
+
+    # (b) the paths: every count set to 0 just before, read just after
+    S32, S64 = swdec_y0(torch.float32), swdec_y0(torch.float64)
+    M32 = fisher_y0(CKMOL_M, CKMOL_N)
+    counted = (ops.solve_fused_ckdisc, ops.solve_fused_ckdisc_grid)
+    others = (ops.solve_fused_erk, ops.solve_fused_esdirk,
+              ops.solve_fused_adams, ops.solve_fused_rkc,
+              ops.solve_fused_rkc_ensemble, ops.solve_fused_rkn,
+              ops.solve_fused_erk_grid, ops.solve_fused_rkn_grid)
+    for fn in counted + others:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sw64 = solve_ensemble(swdec_rows, CK_SPAN, S64, method=CKdisc, **CK_TOL)
+    torch.cuda.synchronize()
+    sw64_s = time.perf_counter() - t0
+    sw = ops.solve_fused_ckdisc(R["swdec"], CK_SPAN, S32, block_members=128,
+                                **CK_TOL)
+    mol = ops.solve_fused_ckdisc_grid(R["ckmol"], CKMOL_SPAN, M32,
+                                      **CKMOL_TOL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mol64 = solve_ensemble(ck_mol(CKMOL_N), CKMOL_SPAN, M32.double(),
+                           method=CKdisc, **CKMOL_TOL)
+    torch.cuda.synchronize()
+    mol64_s = time.perf_counter() - t0
+    launches = tuple(fn.launches for fn in counted)
+    print(f"CKdisc paths: fused_ckdisc, fused_ckdisc_grid launches "
+          f"{launches}, others {tuple(fn.launches for fn in others)}")
+    check(launches == (1, 1),
+          f"launches {launches}, expected one per fused call: (1, 1)")
+    check(all(fn.launches == 0 for fn in others),
+          "the CKdisc paths launched another kernel")
+
+    # (c) the gates against the f64 driver
+    check(bool((sw64.status == 1).all()), "swdec f64: not all finished")
+    check(bool((sw[1] == 1).all()) and sw[0].shape == (CK_N, 2)
+          and bool(torch.isfinite(sw[0]).all()), "swdec B11: bad run")
+    dsw = (sw[0].double() - sw64.y).abs().max().item()
+    dstep = (sw[2] - sw64.nsteps).abs().max().item()
+    print(f"swdec1024-ckdisc: B11 status {torch.unique(sw[1]).tolist()}, "
+          f"endpoint vs f64 max |d| {dsw:.3e} (gate {CK_F64_GATE:.0e}), step "
+          f"max |d| {dstep}, mean nsteps {sw[2].double().mean():.3f} vs "
+          f"{sw64.nsteps.double().mean():.3f}, mean nfev "
+          f"{sw[3].double().mean():.2f} vs {sw64.nfev.double().mean():.2f}, "
+          f"members with other nsteps {int((sw[2] != sw64.nsteps).sum())}")
+    check(dsw < CK_F64_GATE, "swdec: B11 and f64 disagree")
+    f64_against_cpu("swdec1024", swdec_rows, CK_SPAN, S64, CKdisc,
+                    torch.linspace(0, CK_N - 1, 8).long(), CK_TOL,
+                    gate=CK_CPU_GATE, batch_witness=True)
+    check(bool((mol[1] == 1).all()) and bool((mol64.status == 1).all()),
+          "ckmol: not all finished")
+    dmol = (mol[0].double() - mol64.y).abs().max().item()
+    mean, mean64 = (mol[2].double().mean().item(),
+                    mol64.nsteps.double().mean().item())
+    print(f"ckmol256x64-ckdisc: B12 status {torch.unique(mol[1]).tolist()}, "
+          f"endpoint vs f64 {dmol:.3e} (gate {CKMOL_F64_GATE:.0e}), mean "
+          f"nsteps {mean:.3f} vs {mean64:.3f} (gate "
+          f"{CKMOL_STEP_GATE:.0%}), nsteps {int(mol[2].min())}-"
+          f"{int(mol[2].max())} (f64 {int(mol64.nsteps.min())}-"
+          f"{int(mol64.nsteps.max())})")
+    check(dmol < CKMOL_F64_GATE, "ckmol: B12 and f64 endpoints")
+    check(abs(mean - mean64) < CKMOL_STEP_GATE * mean64,
+          "ckmol: B12 and f64 step counts")
+
+    # (d) each kernel against its plain version at the paths' shapes
+    errs, plain_ms = {}, {}
+    for kind, label, rhs, span, y0, tol, out in (
+            ("fused_ckdisc", "swdec", R["swdec"], CK_SPAN, S32, CK_TOL, sw),
+            ("fused_ckdisc_grid", "ckmol", R["ckmol"], CKMOL_SPAN, M32,
+             CKMOL_TOL, mol)):
+        _, _, errs[kind], r_s = hold_against_plain(
+            kind, f"{label}, the path", lambda o=out: o,
+            lambda: kinds[kind][1](rhs, span, y0, **tol),
+            *CK_KERNEL_GATES[label])
+        plain_ms[kind] = r_s * 1e3
+
+    # (e) times: warm medians; the timing-only line fills the card
+    def run_sw():
+        return ops.solve_fused_ckdisc(R["swdec"], CK_SPAN, S32,
+                                      block_members=128, **CK_TOL)
+
+    def run_mol(y=M32):
+        return lambda: ops.solve_fused_ckdisc_grid(R["ckmol"], CKMOL_SPAN, y,
+                                                   **CKMOL_TOL)
+
+    times = {}
+    for label, fn, out in (("swdec1024 B11", run_sw, sw),
+                           ("ckmol256x64 B12", run_mol(), mol)):
+        ms, dev = wall_ms(fn), event_ms(fn)
+        times[label] = (ms, dev)
+        print(f"time [{label}]: {ms:.3f} ms wall, {dev:.4f} ms device (CUDA "
+              f"events), {int(out[2].sum()) / ms * 1e3:.4g} accepted "
+              f"steps/s, {int(out[3].sum()) / ms * 1e3:.4g} RHS evals/s")
+    print(f"time [plain versions] (one run each): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items())
+          + f"; [f64 solve_ensemble] (one run each): swdec1024 "
+          f"{sw64_s * 1e3:.1f} ms, ckmol256x64 {mol64_s * 1e3:.1f} ms")
+    m_large = fisher_y0(CKMOL_M_LARGE, CKMOL_N)
+    out = run_mol(m_large)()
+    check(bool((out[1] == 1).all()), "ckmol1024: not all finished")
+    ms = event_ms(run_mol(m_large))
+    print(f"fused_ckdisc_grid kernel ckmol1024 ({CKMOL_M_LARGE} blocks of "
+          f"{ops.fused_erk_grid.grid_threads(CKMOL_N)}): {ms:.3f} ms, "
+          f"{int(out[2].sum()) / ms * 1e3:.4g} accepted steps/s")
+
+    csrc = "extensisq_tpu_torch/csrc/"
+    return [
+        dict({"name": "fused_ckdisc", "route": "cuda",
+              "source": csrc + "fused_ckdisc.cu",
+              "replaces": "extensisq_tpu/ops/fused_ckdisc.py:557",
+              "launches": launches[0], "max_abs_err": errs["fused_ckdisc"],
+              "ms": times["swdec1024 B11"][0],
+              "device_ms": times["swdec1024 B11"][1],
+              "plain_ms": plain_ms["fused_ckdisc"], "f64_ms": sw64_s * 1e3},
+             **bound_entry(CK_N * (2 * 4 * 2 + 4 * 3),
+                           ck_ops(2, RHS_OPS["swdec"], int(sw[3].sum()),
+                                  CK_N, 5))),
+        dict({"name": "fused_ckdisc_grid", "route": "cuda",
+              "source": csrc + "fused_rk_grid.cu",
+              "replaces": "extensisq_tpu/ops/fused_ckdisc_grid.py:240",
+              "launches": launches[1],
+              "max_abs_err": errs["fused_ckdisc_grid"],
+              "ms": times["ckmol256x64 B12"][0],
+              "device_ms": times["ckmol256x64 B12"][1],
+              "plain_ms": plain_ms["fused_ckdisc_grid"],
+              "f64_ms": mol64_s * 1e3},
+             **bound_entry(CKMOL_M * (CKMOL_N * 4 * 2 + 4 * 3),
+                           ck_ops(CKMOL_N, RHS_OPS["ckmol"],
+                                  int(mol[3].sum()), CKMOL_M, 5)))]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1698,7 +2047,8 @@ def main():
                                                  HO, None),
                ("fused_erk", "cubic", CUBIC, None)] + esdirk_builds()
               + adams_builds(adams_rhs()) + rkc_builds(rkc_rhs())
-              + rkn_grid_builds(rkn_grid_rhs()))
+              + rkn_grid_builds(rkn_grid_rhs())
+              + ckdisc_builds(ckdisc_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
@@ -1864,6 +2214,9 @@ def main():
     # config 3's and 1b's lines and the wave, times
     rkn = rkn_grid_path()
 
+    # 9. the CKdisc paths: kernel checks, config 1c and the MoL, times
+    ck = ckdisc_path()
+
     print(json.dumps({"kernels": [dict({
         "name": "fused_erk",
         "route": "cuda",
@@ -1877,7 +2230,7 @@ def main():
         "plain_ms_compensated": times["plain version, compensated"],
     }, **bound_entry(N_MEMBERS * (2 * 4 * 2 + 4 * 3),
                      int(plain[3].sum()) * OPS_PER_EVAL["fused_erk"])),
-        esdirk, adams] + rkc + rkn}))
+        esdirk, adams] + rkc + rkn + ck}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,9 @@
 """extensisq_tpu_torch: the PyTorch/CUDA port of extensisq_tpu.
 
 The port carries the explicit Runge-Kutta, the Runge-Kutta-Nystrom
-(second-order systems), the implicit ESDIRK, the SWAG (variable-order
-Adams) ensemble paths and SSV2stab (Runge-Kutta-Chebyshev) for
-semi-discretized PDEs:
+(second-order systems), the CKdisc (variable-order, non-smooth), the
+implicit ESDIRK, the SWAG (variable-order Adams) ensemble paths and
+SSV2stab (Runge-Kutta-Chebyshev) for semi-discretized PDEs:
 
 * :func:`solve` / :func:`solve_ensemble` — the batched on-device solver
   (final state, counters and status per member), in the dtype of ``y0``;
@@ -15,12 +15,15 @@ semi-discretized PDEs:
   CUDA kernel launch (float32, optionally compensated);
   :func:`ops.solve_fused_rkn` — the same for Nystrom pairs on
   second-order systems (accelerations as :class:`ops.FusedAcc`);
-  :func:`ops.solve_fused_erk_grid` and :func:`ops.solve_fused_rkn_grid`
+  :func:`ops.solve_fused_ckdisc` — CKdisc's cascade for non-smooth
+  problems; :func:`ops.solve_fused_erk_grid`,
+  :func:`ops.solve_fused_rkn_grid` and :func:`ops.solve_fused_ckdisc_grid`
   — mid-size systems of any n, one thread block per member;
   :func:`ops.solve_fused_rkc` and :func:`ops.solve_fused_rkc_ensemble` —
   the same for SSV2stab on PDE grids (right-hand sides as
   :class:`ops.FusedGridRHS`, e.g. from :mod:`parallel`);
-* the explicit RK, RKN and ESDIRK methods as tableau data, SWAG, and
+* the explicit RK (CKdisc among them), RKN and ESDIRK methods as tableau
+  data, SWAG, and
   :func:`tableau_from_arrays` for custom explicit tableaux.
 
 Right-hand sides are row-stacked: ``fun(t, y)`` takes ``y`` of shape
@@ -37,7 +40,8 @@ from .methods import (  # noqa: F401
     TRBDF2, TRX2, HS2I, HS2Ia, KC3I, KC4I, KC4Ia, Kv3I, SWAG, SSV2stab,
     EXPLICIT_METHODS, RKN_METHODS, ESDIRK_METHODS, METHODS_BY_NAME)
 from .ops import (FusedAcc, FusedGridAcc, FusedGridRHS,  # noqa: F401
-                  FusedRHS, FusedRho, solve_fused_adams, solve_fused_erk,
+                  FusedRHS, FusedRho, solve_fused_adams, solve_fused_ckdisc,
+                  solve_fused_ckdisc_grid, solve_fused_erk,
                   solve_fused_erk_grid, solve_fused_esdirk, solve_fused_rkc,
                   solve_fused_rkc_ensemble, solve_fused_rkn,
                   solve_fused_rkn_grid)
@@ -52,8 +56,8 @@ __all__ = [
     "FusedGridRHS", "FusedRho", "FusedAcc", "FusedGridAcc",
     "solve_fused_erk", "solve_fused_esdirk", "solve_fused_adams",
     "solve_fused_rkc", "solve_fused_rkc_ensemble", "solve_fused_rkn",
-    "solve_fused_erk_grid", "solve_fused_rkn_grid",
-    "ERKTableau", "ESDIRKTableau", "RKNTableau",
+    "solve_fused_erk_grid", "solve_fused_rkn_grid", "solve_fused_ckdisc",
+    "solve_fused_ckdisc_grid", "ERKTableau", "ESDIRKTableau", "RKNTableau",
     "Method", "tableau_from_arrays",
     "BS5", "Ts5", "CK5", "CKdisc", "Me4", "Pr7", "Pr8", "Pr9", "CFMR7osc",
     "Fi4N", "Fi5N", "Mu5Nmb", "MR6NN", "RKN_METHODS",

@@ -17,6 +17,12 @@ def norm(x):
     return torch.sqrt((x * x).sum(0) / x.shape[0])
 
 
+def over(c, x):
+    """``c / x`` for a number ``c``, rounded as one division (PyTorch
+    computes ``c / x`` as ``c * (1 / x)``, rounded twice)."""
+    return x.new_tensor(c) / x
+
+
 def calculate_scale(atol, rtol, y, y_new, _mean=False):
     """Error-scale array ``atol + rtol * max(|y|, |y_new|)``.
 

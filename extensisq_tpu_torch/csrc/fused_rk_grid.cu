@@ -1,16 +1,22 @@
-// Fused adaptive explicit Runge-Kutta and Runge-Kutta-Nystrom ensembles of
-// mid-size systems for Hopper (sm_90a): one thread block per member.
+// Fused adaptive explicit Runge-Kutta, Runge-Kutta-Nystrom and CKdisc
+// ensembles of mid-size systems for Hopper (sm_90a): one thread block per
+// member.
 //
-// Replaces the two Pallas kernels of the JAX package's mid-size layout,
+// Replaces the three Pallas kernels of the JAX package's mid-size layout,
 // which run the loops of the small-system kernels with the state across
 // lanes: extensisq_tpu/ops/fused_erk_grid.py:solve_fused_erk_grid (B4, the
-// loop of B1) and extensisq_tpu/ops/fused_rkn_grid.py:solve_fused_rkn_grid
-// (B6, the loop of B5).  One device body, integrate<COMP, Group>, runs both;
-// the family (ERK stages, or RKN h^2 A / h Ap stages on accelerations) comes
-// from the generated header.  Its plain PyTorch versions are
-// ops/fused_erk_grid.py:fused_erk_grid_reference and
-// ops/fused_rkn_grid.py:fused_rkn_grid_reference, which run the loops of B1
-// and B5 on the same members; the two take the same steps up to round-off.
+// loop of B1), extensisq_tpu/ops/fused_rkn_grid.py:solve_fused_rkn_grid
+// (B6, the loop of B5) and extensisq_tpu/ops/fused_ckdisc_grid.py:
+// solve_fused_ckdisc_grid (B12, the cascade of B11).  One device body,
+// integrate<COMP, Group>, runs B4 and B6, the family (ERK stages, or RKN
+// h^2 A / h Ap stages on accelerations) coming from the generated header;
+// integrate_ck<Group> runs B12 on the same layout, stages and starting
+// step.  Their plain PyTorch versions are
+// ops/fused_erk_grid.py:fused_erk_grid_reference,
+// ops/fused_rkn_grid.py:fused_rkn_grid_reference and
+// ops/fused_ckdisc_grid.py:fused_ckdisc_grid_reference, which run the loops
+// of B1, B5 and B11 on the same members; each pair takes the same steps up
+// to round-off.
 //
 // Design.  A member's state ([u | v] for RKN), its lo carry, the stage rows
 // K[0..S] (K[0] = f), two stage-argument buffers and the attempt's lo carry
@@ -31,6 +37,13 @@
 // No lane padding: norms divide by the true NF and any N that fits in
 // shared memory is taken (the wrapper raises before launch otherwise).
 //
+// The CKdisc cascade (ck_control.cuh) has up to five norms per attempt: E1,
+// E2, E4 and the two fallbacks' error tests.  Every thread holds the same
+// reductions, so the whole block takes the same branch, and stages that E1
+// or E2 vetoes are skipped with their barriers.  The candidate solution of
+// an attempt goes into the free stage row K[6]; the reduction of its norm
+// is the barrier after which the endpoint's RHS may read its neighbours.
+//
 // What bounds it on the H100: per stage an element costs one RHS (a stencil
 // of a few flops, loads from shared memory) and ~2 S flops of stage sums,
 // and the stage costs one __syncthreads; an attempt adds the error norm's
@@ -41,9 +54,10 @@
 // keep several blocks on every SM.
 //
 // The generated header fused_rk_grid_config.cuh provides
-//   namespace tab { G = grid::Grid<...>, N, RKN, S, FSAL, MORDER, the weight
-//                   accessors A, AP, B, BP, C, E, EP, controller and start
-//                   constants }
+//   namespace tab { G = grid::Grid<...>, N, RKN, CK, S, FSAL, MORDER, the
+//                   weight accessors A, AP, B, BP, C, E, EP and the cascade's
+//                   BAS, EAS, BFB, EFB, CFB (zeros for ERK and RKN),
+//                   controller and start constants }
 //   __device__ float rhs(float t, const float* y, int i, const float* p);
 //   __device__ float acc(float t, const float* u, const float* v, int i,
 //                        const float* p);
@@ -51,7 +65,7 @@
 //
 // Numerics as in fused_erk.cu and fused_rkn.cu: the compensated helpers
 // round every operation on its own (__f*_rn), elsewhere nvcc may contract;
-// no fast math; max_steps counts attempts.
+// no fast math; max_steps counts attempts.  B12 is plain float32 only.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,6 +75,7 @@
 #include "rk_common.cuh"
 #include "rk_control.cuh"
 #include "rk_rows.cuh"
+#include "ck_control.cuh"
 
 namespace {
 
@@ -156,7 +171,8 @@ __device__ __forceinline__ float deriv(float t, const float* Y, int j) {
 }
 
 // Watts' starting step for one member, unsigned: hstart.cuh's algorithm on
-// the group, with its norms and minimum as group reductions.  y is the
+// the group, with its norms and minimum as group reductions (the minimum
+// over the elements drops a NaN of a non-finite y0).  y is the
 // state (NF, in shared memory), w six scratch rows of NF whose first holds
 // f(a, y).  Costs 1 + min(NF + 1, 3) evaluations of the RHS.
 template <class Group>
@@ -199,7 +215,7 @@ __device__ float hstart(Group& g, float a, float b, const float* y, float* w,
   if (dely == 0.0f) dely = kRelper;
   dely = dely * sdx;
   delf = rms(F);
-  fbnd = fmaxf(fbnd, delf);
+  fbnd = rk::nan_max(fbnd, delf);
 
   const bool have_slope = delf != 0.0f;
   for (int j = r; j < NF; j += nt) {
@@ -222,10 +238,12 @@ __device__ float hstart(Group& g, float a, float b, const float* y, float* w,
       DF[j] = YP[j] - base[j];
     }
     const float nyp = rms(YP);
-    if (!done) fbnd = fmaxf(fbnd, nyp);
+    if (!done) fbnd = rk::nan_max(fbnd, nyp);
     delf = rms(DF);
     const bool overflow = delf >= kBig * fabsf(dely);
-    if (!done) dfdub = overflow ? kBig : fmaxf(dfdub, delf / fabsf(dely));
+    if (!done) {
+      dfdub = overflow ? kBig : rk::nan_max(dfdub, delf / fabsf(dely));
+    }
     done = done || overflow;
     if (p == kProbes) break;
 
@@ -251,13 +269,13 @@ __device__ float hstart(Group& g, float a, float b, const float* y, float* w,
     tmin = fminf(tmin, te);
   }
   const float tolsum = g.sum(tsum);
-  const float tolmin = fminf(g.min(tmin), kBig);
+  const float tolmin = rk::nan_min(g.min(tmin), kBig);
   const float tolp = powf(
       10.0f, 0.5f * (tolsum / static_cast<float>(NF) + tolmin) /
                  static_cast<float>(tab::MORDER + 1));
 
   float h = absdx;
-  const float srydpb = sqrtf(0.5f * fmaxf(ydpb, 0.0f));
+  const float srydpb = sqrtf(0.5f * rk::nan_max(ydpb, 0.0f));
   if (ydpb == 0.0f && fbnd == 0.0f) {
     if (tolp < 1.0f) h = absdx * tolp;
   } else if (ydpb == 0.0f) {
@@ -265,20 +283,20 @@ __device__ float hstart(Group& g, float a, float b, const float* y, float* w,
   } else if (tolp < srydpb * absdx) {
     h = tolp / srydpb;
   }
-  if (dfdub != 0.0f) h = fminf(h, 1.0f / dfdub);
-  h = fmaxf(h, tab::HS_T_FLOOR * fabsf(a));
+  if (dfdub != 0.0f) h = rk::nan_min(h, 1.0f / dfdub);
+  h = rk::nan_max(h, tab::HS_T_FLOOR * fabsf(a));
   if (h == 0.0f) h = tab::HS_SMALL * fabsf(b);
   return h;
 }
 
-// Stages I..S-1 of one attempt of the group: stage I writes its argument
+// Stages I..END-1 of one attempt of the group: stage I writes its argument
 // into arg[b], takes the barrier and evaluates K[I]; b then flips.
-template <bool COMP, int I, class Group>
+template <bool COMP, int I, int END, class Group>
 __device__ __forceinline__ void stages(Group& g, float t, float h, float hh,
                                        const float* Y, const float* Ylo,
                                        float* K, float* const (&arg)[2],
                                        int& b) {
-  if constexpr (I < S) {
+  if constexpr (I < END) {
     const int r = g.rank();
     const int nt = g.size();
     float* a = arg[b];
@@ -302,8 +320,32 @@ __device__ __forceinline__ void stages(Group& g, float t, float h, float hh,
     g.sync();
     for (int i = r; i < N; i += nt) K[I * N + i] = stage_f(t + ch, a, i);
     b ^= 1;
-    stages<COMP, I + 1>(g, t, h, hh, Y, Ylo, K, arg, b);
+    stages<COMP, I + 1, END>(g, t, h, hh, Y, Ylo, K, arg, b);
   }
+}
+
+// A member's start: its state Y from y0, K[0] = f(t0, Y) and the first |h|
+// (Watts' start where asked, counted in nfev).
+template <class Group>
+__device__ float start(Group& g, float* Y, float* K,
+                       const float* __restrict__ y0, const Launch& L,
+                       int& nfev) {
+  const int r = g.rank();
+  const int nt = g.size();
+  for (int j = r; j < NF; j += nt) Y[j] = y0[j];
+  g.sync();
+  for (int i = r; i < N; i += nt) K[i] = stage_f(L.t0, Y, i);
+  nfev = 1;
+  if (!L.use_hstart) return L.h0;
+  float* w = K + N;
+  g.sync();  // K[0] complete
+  for (int j = r; j < NF; j += nt) {
+    w[j] = RKN ? (j < N ? Y[N + j] : K[j - N]) : K[j];
+  }
+  // max_step is +inf when the caller gave none
+  const float bq = L.t0 + L.dir * fminf(fabsf(L.tf - L.t0), L.max_step);
+  nfev = 2 + (NF + 1 < 3 ? NF + 1 : 3);
+  return fabsf(hstart(g, L.t0, bq, Y, w, L.rtol, L.atol));
 }
 
 // The whole integration of one member by the group g (rank(), size(),
@@ -320,23 +362,9 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   float* const arg[2] = {sm + kArg, sm + kArg + NF};
   float* YloNew = sm + kYloNew;
 
-  for (int j = r; j < NF; j += nt) Y[j] = y0[j];
-  g.sync();
+  int nfev;
+  rk::StepControl ctl{start(g, Y, K, y0, L, nfev)};
   float t = L.t0;
-  for (int i = r; i < N; i += nt) K[i] = stage_f(t, Y, i);
-  rk::StepControl ctl{L.h0};
-  int nfev = 1;
-  if (L.use_hstart) {
-    float* w = K + N;
-    g.sync();  // K[0] complete
-    for (int j = r; j < NF; j += nt) {
-      w[j] = RKN ? (j < N ? Y[N + j] : K[j - N]) : K[j];
-    }
-    // max_step is +inf when the caller gave none
-    const float bq = t + L.dir * fminf(fabsf(L.tf - t), L.max_step);
-    ctl.h_abs = fabsf(hstart(g, t, bq, Y, w, L.rtol, L.atol));
-    nfev = 2 + (NF + 1 < 3 ? NF + 1 : 3);
-  }
   for (int j = r; j < NF; j += nt) Ylo[j] = 0.0f;
 
   float t_lo = 0.0f;
@@ -354,7 +382,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
     const float hh = h * h;
 
     int b = 0;
-    stages<COMP, 1>(g, t, h, hh, Y, Ylo, K, arg, b);
+    stages<COMP, 1, S>(g, t, h, hh, Y, Ylo, K, arg, b);
 
     // the solution into arg[b]; element i carries u[i] and v[i] for RKN
     float* Yn = arg[b];
@@ -482,6 +510,144 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   }
 }
 
+// The solution Y + h sum_j WB_j K_j over the first LEN stages into sol (own
+// elements), and the RMS over the member of its error h sum_j WE_j K_j
+// scaled by atol + rtol max(|Y|, |sol|), a group reduction (not yet
+// clean()ed).
+template <class WB, class WE, int LEN, class Group>
+__device__ float assess(Group& g, const float* Y, const float* K, float h,
+                        const Launch& L, float* sol) {
+  float sq = 0.0f;
+  for (int i = g.rank(); i < N; i += g.size()) {
+    sol[i] = Y[i] + h * wsum<WB, LEN>(K, i);
+    const float err = h * wsum<WE, LEN>(K, i);
+    const float q =
+        err / (L.atol + L.rtol * fmaxf(fabsf(Y[i]), fabsf(sol[i])));
+    sq += q * q;
+  }
+  return sqrtf(g.sum(sq) / static_cast<float>(N));
+}
+
+// The whole integration of one member with CKdisc's cascade (B12), by the
+// group g as integrate; ck_control.cuh has the cascade, fused_ckdisc.cu the
+// same loop on one thread.
+template <class Group>
+__device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
+                             const Launch& L, int member, const Out& out) {
+  const int r = g.rank();
+  const int nt = g.size();
+  float* Y = sm + kY;
+  float* K = sm + kK;
+  float* const arg[2] = {sm + kArg, sm + kArg + NF};
+  float* Ysol = K + S * N;  // the attempt's candidate solution
+
+  int nfev;
+  ck::Control ctl{{start(g, Y, K, y0, L, nfev)}};
+  float t = L.t0;
+  int status = kRunning;
+  int nstep = 0;
+  int it = 0;
+
+  while (status == kRunning) {
+    g.sync();  // the last attempt's commits and endpoint reads are done
+
+    float d;
+    bool too_small;
+    ctl.prepare(t, L.tf, L.max_step, d, too_small);
+    const float h = ctl.h_abs * L.dir;
+
+    // E1 after two stages; E2 after four where E1 lets the attempt go on;
+    // E4 after six where E2 does (kBig where skipped)
+    int b = 0;
+    stages<false, 1, 2>(g, t, h, h * h, Y, nullptr, K, arg, b);
+    const float E1 = sqrtf(ck::clean(
+        assess<ck::RowBas<0>, ck::RowEas<0>, 2>(g, Y, K, h, L, Ysol)));
+    const bool go2 = ctl.go2(E1);
+    float E2 = ck::kBig;
+    if (go2) {
+      stages<false, 2, 4>(g, t, h, h * h, Y, nullptr, K, arg, b);
+      E2 = ck::cbrt_floor(ck::clean(
+          assess<ck::RowBas<1>, ck::RowEas<1>, 4>(g, Y, K, h, L, Ysol)));
+    }
+    const bool go4 = go2 && ctl.go4(E2);
+    float E4 = ck::kBig;
+    bool bad4 = false;
+    if (go4) {
+      stages<false, 4, 6>(g, t, h, h * h, Y, nullptr, K, arg, b);
+      const float nm = assess<RowB, RowE, 6>(g, Y, K, h, L, Ysol);
+      bad4 = !isfinite(nm);
+      E4 = ck::p5rt_floor(ck::clean(nm));
+      if (E4 == 0.0f) E4 = 1e-38f;
+    }
+    const bool accept4 = go4 && E4 < 1.0f && !too_small;
+
+    // the fallbacks: the 3rd-order solution at c = 3/5, else the 2nd-order
+    // one at 1/5, each taken when its own error test passes
+    bool fb3_ok = false;
+    if (go4 && !accept4 && !bad4 && E2 < 1.0f && !too_small) {
+      fb3_ok = ck::clean(assess<ck::RowBfb<1>, ck::RowEfb<1>, 4>(
+                   g, Y, K, h, L, Ysol)) < 1.0f;
+    }
+    const bool fb2_try =
+        go2 && !accept4 && !bad4 && !fb3_ok && E1 < 1.0f && !too_small;
+    bool fb2_ok = false;
+    if (fb2_try) {
+      fb2_ok = ck::clean(assess<ck::RowBfb<0>, ck::RowEfb<0>, 2>(
+                   g, Y, K, h, L, Ysol)) < 1.0f;
+    }
+    const bool accepted = accept4 || fb3_ok || fb2_ok;
+
+    // a fallback shortens this step: its weights sum to C_fallback
+    const float h_used =
+        accept4 ? h : (fb3_ok ? h * tab::CFB(1) : h * tab::CFB(0));
+    ctl.update(E1, E2, E4, go2, go4, accept4, fb3_ok, fb2_try);
+
+    if (too_small) {
+      status = kTooSmall;
+    } else if (bad4) {
+      status = kOverflow;
+    }
+    const bool is_last = accepted && fabsf(h_used) >= d;
+    const float t_new = is_last ? L.tf : t + h_used;
+    if (status == kRunning && is_last) status = kFinished;
+
+    nfev += 1 + (go2 ? 2 : 0) + (go4 ? 2 : 0);
+    if (accepted) {
+      // Ysol is complete: its norm's reduction was the last barrier.  The
+      // endpoint derivative goes into K[0]; one reduction counts the
+      // elements of the member that are not finite
+      float bad = 0.0f;
+      for (int i = r; i < N; i += nt) {
+        K[i] = stage_f(t_new, Ysol, i);
+        bad += (isfinite(Ysol[i]) && isfinite(K[i])) ? 0.0f : 1.0f;
+      }
+      nfev += 1;
+      if (g.sum(bad) == 0.0f) {
+        for (int i = r; i < N; i += nt) Y[i] = Ysol[i];
+        t = t_new;
+        nstep += 1;
+      } else {
+        status = kOverflow;
+      }
+    }
+
+    // step cap: loop iterations, accepted plus rejected
+    it += 1;
+    if (it >= L.max_steps && status == kRunning) status = kOverflow;
+    ctl.end(accepted, status == kRunning);
+  }
+
+  g.sync();
+  for (int j = r; j < N; j += nt) {
+    out.y[static_cast<size_t>(member) * N + j] = Y[j];
+  }
+  if (r == 0) {
+    out.status[member] = status;
+    out.nsteps[member] = nstep;
+    out.nfev[member] = nfev;
+  }
+}
+
 }  // namespace
 
 // ---- CUDA groups, kernels and launch ----
@@ -496,8 +662,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   __shared__ float red[64];
   BlockGroup g{red};
   const int member = blockIdx.x;
-  integrate<COMP>(g, sm, y0 + static_cast<size_t>(member) * NF, L, member,
-                  out);
+  const float* y = y0 + static_cast<size_t>(member) * NF;
+  if constexpr (tab::CK) {
+    integrate_ck(g, sm, y, L, member, out);
+  } else {
+    integrate<COMP>(g, sm, y, L, member, out);
+  }
 }
 
 }  // namespace

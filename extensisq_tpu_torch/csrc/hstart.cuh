@@ -1,6 +1,7 @@
 // Watts' starting step for one member, unsigned: the scalar form of
 // ops/_hstart_tile.py:hstart_tile, shared by the fused kernels.  Costs
-// 1 + min(N + 1, 3) evaluations of the right-hand side.
+// 1 + min(N + 1, 3) evaluations of the right-hand side.  Its maxima and
+// minima keep a NaN, as the plain version's do.
 //
 // Include after the kernel's generated config header: it reads the
 // float32 constants tab::HS_BIG, HS_SMALL, HS_RELPER and HS_T_FLOOR and
@@ -43,7 +44,7 @@ __device__ float hstart(float a, float b, const float (&y)[N],
   if (dely == 0.0f) dely = kRelper;
   dely = dely * sdx;
   delf = rms(f);
-  fbnd = fmaxf(fbnd, delf);
+  fbnd = nan_max(fbnd, delf);
 
   const bool have_slope = delf != 0.0f;
 #pragma unroll
@@ -70,10 +71,10 @@ __device__ float hstart(float a, float b, const float (&y)[N],
 #pragma unroll
       for (int k = 0; k < N; ++k) pv[k] = yp[k] - f[k];
     }
-    if (!done) fbnd = fmaxf(fbnd, rms(yp));
+    if (!done) fbnd = nan_max(fbnd, rms(yp));
     delf = rms(pv);
     const bool overflow = delf >= kBig * fabsf(dely);
-    if (!done) dfdub = overflow ? kBig : fmaxf(dfdub, delf / fabsf(dely));
+    if (!done) dfdub = overflow ? kBig : nan_max(dfdub, delf / fabsf(dely));
     done = done || overflow;
     if (p == kProbes) break;
 
@@ -98,15 +99,15 @@ __device__ float hstart(float a, float b, const float (&y)[N],
   for (int k = 0; k < N; ++k) {
     const float te = log10f(etol[k]);
     tolsum = tolsum + te;
-    tolmin = k == 0 ? te : fminf(tolmin, te);
+    tolmin = k == 0 ? te : nan_min(tolmin, te);
   }
-  tolmin = fminf(tolmin, kBig);
+  tolmin = nan_min(tolmin, kBig);
   const float tolp = powf(
       10.0f, 0.5f * (tolsum / static_cast<float>(N) + tolmin) /
                  static_cast<float>(MORDER + 1));
 
   float h = absdx;
-  const float srydpb = sqrtf(0.5f * fmaxf(ydpb, 0.0f));
+  const float srydpb = sqrtf(0.5f * nan_max(ydpb, 0.0f));
   if (ydpb == 0.0f && fbnd == 0.0f) {
     if (tolp < 1.0f) h = absdx * tolp;
   } else if (ydpb == 0.0f) {
@@ -114,8 +115,8 @@ __device__ float hstart(float a, float b, const float (&y)[N],
   } else if (tolp < srydpb * absdx) {
     h = tolp / srydpb;
   }
-  if (dfdub != 0.0f) h = fminf(h, 1.0f / dfdub);
-  h = fmaxf(h, tab::HS_T_FLOOR * fabsf(a));
+  if (dfdub != 0.0f) h = nan_min(h, 1.0f / dfdub);
+  h = nan_max(h, tab::HS_T_FLOOR * fabsf(a));
   if (h == 0.0f) h = tab::HS_SMALL * fabsf(b);
   return h;
 }

@@ -1,6 +1,7 @@
 // Device helpers shared by the fused Runge-Kutta kernels (fused_erk.cu,
 // fused_esdirk.cu): the double-single arithmetic of the compensated mode,
-// unrolled weighted sums with compile-time weights, and the RMS norm.
+// unrolled weighted sums with compile-time weights, NaN-keeping max/min and
+// the RMS norm.
 //
 // FMA contraction: nvcc contracts a*b + c into one fma by default.  That is
 // harmless in the plain sums, but it breaks the compensated mode: the error
@@ -105,6 +106,17 @@ __device__ __forceinline__ void comp_wsum(float (&acc)[N], float (&comp)[N],
     for (int k = 0; k < N; ++k) acc[k] = __fmul_rn(w, K[F][k]);
     comp_tail<W, LEN, F + 1>(acc, comp, K);
   }
+}
+
+// max and min that keep a NaN, as torch.maximum and torch.minimum do (fmaxf
+// and fminf drop it): the starting step and the step preparation use them,
+// so that a member whose f(t0) is not finite starts as in the plain
+// versions.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
 }
 
 // RMS over the state, one member.

@@ -3,7 +3,7 @@
 // and the end-of-interval look-ahead split, applied on fresh steps only) and
 // the float32 accept/reject controller of core/controller.py:
 // erk_accept_update.  Their plain version is ops/fused_erk.py:fresh_step
-// and controller.
+// and controller; the preparation keeps a NaN step, as fresh_step does.
 //
 // Include after the kernel's generated config header: it reads tab::H_MIN_A,
 // TINY_ERR and the controller constants SAFETY, SAFETY_SC, MINBETA1,
@@ -11,6 +11,8 @@
 #pragma once
 
 #include <math.h>
+
+#include "rk_common.cuh"
 
 namespace rk {
 
@@ -28,12 +30,13 @@ struct StepControl {
   // This attempt's |h| (in h_abs) at time t; d = |tf - t|.
   __device__ __forceinline__ void prepare(float t, float tf, float max_step,
                                           float& d, bool& too_small) {
-    const float ms = fmaxf(tab::H_MIN_A * (fabsf(t) + h_abs), tab::TINY_ERR);
-    const float h_pre = fminf(fmaxf(h_abs, ms), max_step);
+    const float ms =
+        nan_max(tab::H_MIN_A * (fabsf(t) + h_abs), tab::TINY_ERR);
+    const float h_pre = nan_min(nan_max(h_abs, ms), max_step);
     d = fabsf(tf - t);
     const bool split = (d < 2.0f * h_pre) && (d > h_pre);
     if (fresh) {
-      h_abs = split ? fmaxf(0.5f * d, ms) : (d <= h_pre ? d : h_pre);
+      h_abs = split ? nan_max(0.5f * d, ms) : (d <= h_pre ? d : h_pre);
       min_step = ms;
     }
     std_b = std_sc || (fresh && split);

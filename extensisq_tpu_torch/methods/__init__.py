@@ -1,10 +1,8 @@
-"""Method registry of the port: the explicit Runge-Kutta methods, the
+"""Method registry of the port: the explicit Runge-Kutta methods, CKdisc
+(Cash-Karp's variable-order cascade for non-smooth problems), the
 Runge-Kutta-Nystrom pairs for second-order systems, the implicit ESDIRK
 methods, SWAG, the variable-order Adams method, and SSV2stab, the
 stabilized Runge-Kutta-Chebyshev method.
-
-CKdisc's tableau comes along as data; its ``ckdisc`` family is not
-ported yet (ROADMAP A14).
 """
 from .erk import BS5, Ts5, CK5, CKdisc, Me4
 from .erk_high import Pr7, Pr8, Pr9, CFMR7osc

@@ -13,6 +13,10 @@ kernel launch, each with its plain PyTorch version beside it.
 * :func:`solve_fused_erk_grid` and :func:`solve_fused_rkn_grid` — the ERK
   and RKN loops for mid-size systems of any n, one thread block per member
   (``csrc/fused_rk_grid.cu``)
+* :func:`solve_fused_ckdisc` and :func:`solve_fused_ckdisc_grid` — the
+  CKdisc variable-order cascade for non-smooth ensembles, one thread per
+  member (``csrc/fused_ckdisc.cu``) or, for mid-size systems, one thread
+  block per member (``csrc/fused_rk_grid.cu``)
 * :func:`solve_fused_rkc` and :func:`solve_fused_rkc_ensemble` — SSV2stab
   (Runge-Kutta-Chebyshev) on one PDE grid across the whole card, or on an
   ensemble of grids with one thread block per member
@@ -22,10 +26,13 @@ kernel launch, each with its plain PyTorch version beside it.
   RKN kernel's acceleration, :class:`FusedGridRHS`, :class:`FusedGridAcc`
   and :class:`FusedRho` are the grid kernels' counterparts
 
-The other fused families of ``extensisq_tpu.ops`` are queued in
-ROADMAP.md (queue B).
+The mid-size SWAG and ESDIRK kernels of ``extensisq_tpu.ops`` are queued
+in ROADMAP.md (queue B).
 """
 from .fused_adams import fused_adams_reference, solve_fused_adams
+from .fused_ckdisc import fused_ckdisc_reference, solve_fused_ckdisc
+from .fused_ckdisc_grid import (fused_ckdisc_grid_reference,
+                                solve_fused_ckdisc_grid)
 from .fused_erk import FusedRHS, fused_erk_reference, solve_fused_erk
 from .fused_erk_grid import fused_erk_grid_reference, solve_fused_erk_grid
 from .fused_esdirk import fused_esdirk_reference, solve_fused_esdirk
@@ -43,4 +50,6 @@ __all__ = ["FusedRHS", "fused_erk_reference", "solve_fused_erk",
            "FusedAcc", "fused_rkn_reference", "solve_fused_rkn",
            "fused_erk_grid_reference", "solve_fused_erk_grid",
            "FusedGridAcc", "fused_rkn_grid_reference",
-           "solve_fused_rkn_grid"]
+           "solve_fused_rkn_grid", "fused_ckdisc_reference",
+           "solve_fused_ckdisc", "fused_ckdisc_grid_reference",
+           "solve_fused_ckdisc_grid"]

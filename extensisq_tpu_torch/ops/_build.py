@@ -155,6 +155,17 @@ def _rk_accessors(k):
         _accessor("EP", k.get("Ep", np.zeros(A.shape[0] + 1)))])
 
 
+def _ck_accessors(k):
+    """``constexpr`` accessors of CKdisc's cascade: the assessment rows
+    BAS(r, j)/EAS(r, j) (E1 after two stages, E2 after four), the fallback
+    rows BFB(r, j)/EFB(r, j) and their nodes CFB(r) (r = 0: the 2nd-order
+    solution at c = 1/5, r = 1: the 3rd-order one at 3/5); zeros for the
+    other families."""
+    rows = [_accessor(name, k.get(key, np.zeros((2, 1)))) for name, key in (
+        ("BAS", "B_as"), ("EAS", "E_as"), ("BFB", "B_fb"), ("EFB", "E_fb"))]
+    return "\n".join(rows + [_accessor("CFB", k.get("C_fb", np.zeros(2)))])
+
+
 def _flag(b):
     return "true" if b else "false"
 
@@ -188,13 +199,16 @@ GRID_ACC_STUB = ("__device__ float acc(float t, const float* u, "
 
 def fused_rk_grid_header(k, rkn, shape, src):
     """Text of ``fused_rk_grid_config.cuh`` for the constants ``k`` of an
-    ERK (``rkn`` False) or RKN method, a member grid of extents ``shape``
+    ERK (``rkn`` False) or RKN method, or of CKdisc's cascade
+    (``ops.fused_ckdisc.ck_consts``), a member grid of extents ``shape``
     (one stage row: the states of an ERK system, the positions of an RKN
     one) and the CUDA source of the right-hand side ``rhs`` or the
     acceleration ``acc``; the other of the two is a stub never called."""
     dims = ", ".join(str(int(d)) for d in shape)
+    ck = "B_as" in k
+    family = "RKN" if rkn else ("CKdisc" if ck else "ERK")
     return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
-// {'RKN' if rkn else 'ERK'} tableau {k['name']} rounded to float32, the
+// {family} tableau {k['name']} rounded to float32, the
 // member grid and the user's {'acceleration' if rkn else 'right-hand side'}.
 #pragma once
 
@@ -202,16 +216,40 @@ namespace tab {{
 using G = grid::Grid<{dims}>;
 constexpr int N = {int(np.prod(shape))};
 constexpr bool RKN = {_flag(rkn)};
+constexpr bool CK = {_flag(ck)};
 constexpr int S = {k['s']};
 constexpr bool FSAL = {_flag(k['fsal'])};
 constexpr int MORDER = {k['morder']};
 {_rk_accessors(k)}
+{_ck_accessors(k)}
 {_rk_constants(k)}
 }}  // namespace tab
 
 {src}
 
 {GRID_RHS_STUB if rkn else GRID_ACC_STUB}
+"""
+
+
+def fused_ckdisc_header(k, n, rhs_src):
+    """Text of ``fused_ckdisc_config.cuh`` for the constants ``k`` of
+    ``ops.fused_ckdisc.ck_consts``, state size ``n`` and the CUDA RHS
+    source."""
+    return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
+// CKdisc's tableau and cascade weights rounded to float32, and the user's
+// right-hand side.
+#pragma once
+
+namespace tab {{
+constexpr int N = {int(n)};
+constexpr int S = {k['s']};
+constexpr int MORDER = {k['morder']};
+{_rk_accessors(k)}
+{_ck_accessors(k)}
+{_rk_constants(k)}
+}}  // namespace tab
+
+{rhs_src}
 """
 
 
@@ -467,9 +505,9 @@ def load_fused_rkn(consts, m, acc_src):
 
 def load_fused_rk_grid(consts, rkn, shape, src):
     """Build (at first use) and load the block-per-member kernel (B4 for
-    an ERK tableau, B6 for an RKN one) for one member grid and right-hand
-    side; returns :class:`Built` with ``lib.fused_rk_grid_launch`` and
-    ``lib.fused_rk_grid_smem`` bound."""
+    an ERK tableau, B6 for an RKN one, B12 for CKdisc's cascade) for one
+    member grid and right-hand side; returns :class:`Built` with
+    ``lib.fused_rk_grid_launch`` and ``lib.fused_rk_grid_smem`` bound."""
     built = load_kernel(
         "fused_rk_grid", fused_rk_grid_header(consts, rkn, shape, src),
         [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CF, _CI,
@@ -478,6 +516,15 @@ def load_fused_rk_grid(consts, rkn, shape, src):
     smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     smem.restype = ctypes.c_int
     return built
+
+
+def load_fused_ckdisc(consts, n, rhs_src):
+    """Build (at first use) and load the fused CKdisc kernel (B11) for one
+    RHS; returns :class:`Built` with ``lib.fused_ckdisc_launch`` bound."""
+    return load_kernel(
+        "fused_ckdisc", fused_ckdisc_header(consts, n, rhs_src),
+        [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI, _CF,
+         _CI, _CI, _VP])
 
 
 def load_fused_esdirk(consts, m_diag, rot, n, rhs_src):

@@ -1,0 +1,87 @@
+"""Fused CKdisc solver for mid-size non-smooth systems: the whole adaptive
+integration of an ensemble in one CUDA kernel launch, one thread block per
+member.
+
+Counterpart of ``extensisq_tpu/ops/fused_ckdisc_grid.py``, which runs the
+CKdisc loop of ``fused_ckdisc`` with the state across the 128 lanes and
+zero-pads n to a multiple of 128.  On Hopper a member is one thread block
+of ``csrc/fused_rk_grid.cu``, the body shared with the mid-size ERK and RKN
+kernels, its rows in shared memory; any n is taken without padding.  Every
+thread holds the same block reductions, so the whole block takes the same
+branch of the cascade, and a stage that E1 or E2 vetoes is skipped with its
+barrier.  The plain version, :func:`fused_ckdisc_grid_reference`, runs
+``ops.fused_ckdisc.run_ck_loop`` on the rows-first ``(n, B)`` state; the
+wrapper :func:`solve_fused_ckdisc_grid` takes it only for tensors on the
+CPU.
+
+Right-hand sides are :class:`~.fused_rkc.FusedGridRHS` with
+``shape=(n,)``: ``torch_fn(t, y)`` on ``(n, B)``, shifts as
+``torch.roll(y, s, 0)`` with ``jnp.roll``'s sign, and the CUDA ``rhs(t,
+y, i, p)`` of one element.
+"""
+import torch
+
+from .._device import as_input
+from .fused_ckdisc import ck_consts, run_ck_loop
+from .fused_erk import check_options
+from .fused_erk_grid import _state_size, check_grid_input, launch_grid
+from .fused_rkc import FusedGridRHS
+
+
+def fused_ckdisc_grid_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
+                                first_step=None, max_steps=100_000,
+                                max_step=None):
+    """The plain PyTorch version of the mid-size CKdisc kernel, on the
+    device of ``y0_batch`` ``(B, n)``: the loop of ``fused_ckdisc``.
+    ``fun`` is a :class:`FusedGridRHS` or a rows-first torch function.
+    Returns ``(y (B, n), status (B,), nsteps (B,), nfev (B,))``."""
+    if isinstance(fun, FusedGridRHS):
+        _state_size(fun)
+        fun = fun.torch_fn
+    y = torch.as_tensor(y0_batch).to(torch.float32).T.contiguous()
+    return run_ck_loop(fun, ck_consts(), t_span, y, rtol, atol, first_step,
+                       max_steps, max_step)
+
+
+def _kernel(fun):
+    """The kernel built for one FusedGridRHS."""
+    from . import _build
+    return _build.cached("fused_ckdisc_grid", (fun,),
+                         lambda: _build.load_fused_rk_grid(
+                             ck_consts(), False, fun.shape, fun.cuda_src))
+
+
+def solve_fused_ckdisc_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
+                            first_step=None, max_steps=100_000, t_eval=None,
+                            events=None, max_step=None, params=None):
+    """Integrate an ensemble of mid-size non-smooth systems with the CKdisc
+    cascade in one kernel launch.
+
+    ``y0_batch``: (B, n) float32, any n.  Returns ``(y_final (B, n), status
+    (B,), nsteps (B,), nfev (B,))``, status as :func:`solve_fused_ckdisc`.
+
+    A ``y0_batch`` that is not a tensor goes to the card as float32 (and
+    raises where there is none); a tensor keeps its device.  On a CUDA
+    tensor ``fun`` must be a :class:`FusedGridRHS`, and the call launches
+    ``csrc/fused_rk_grid.cu`` with one block of up to 256 threads per
+    member (raising when the member's rows do not fit in shared memory),
+    or raises.  On a CPU tensor it runs :func:`fused_ckdisc_grid_reference`.
+
+    ``t_eval``, ``events`` and ``params`` are not ported yet.
+    """
+    check_options("solve_fused_ckdisc_grid", "B12", t_eval=t_eval,
+                  events=events, params=params)
+    y0 = as_input(y0_batch, torch.float32)
+    kw = dict(rtol=rtol, atol=atol, first_step=first_step,
+              max_steps=max_steps, max_step=max_step)
+    if y0.device.type != "cuda":
+        return fused_ckdisc_grid_reference(fun, t_span, y0, **kw)
+    n = _state_size(fun) if isinstance(fun, FusedGridRHS) else -1
+    check_grid_input("solve_fused_ckdisc_grid", y0, n, FusedGridRHS, fun)
+    return launch_grid(solve_fused_ckdisc_grid, _kernel(fun), y0, n, t_span,
+                       compensated=False, **kw)
+
+
+# kernel launches since the count was last set to 0 (the plain version on
+# CPU tensors does not count)
+solve_fused_ckdisc_grid.launches = 0

@@ -38,7 +38,7 @@ def grid_threads(n):
 def _state_size(fun):
     """n of a :class:`FusedGridRHS` of ``shape=(n,)``."""
     if len(fun.shape) != 1:
-        raise ValueError("the mid-size ERK kernel takes a FusedGridRHS of "
+        raise ValueError("the mid-size kernels take a FusedGridRHS of "
                          f"shape (n,), got {tuple(fun.shape)}")
     return int(fun.shape[0])
 

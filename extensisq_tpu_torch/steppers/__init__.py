@@ -1,13 +1,9 @@
 """Stepper construction: dispatch a Method handle to its implementation.
 
-The explicit Runge-Kutta, Runge-Kutta-Nystrom (``rkn``), ESDIRK, SWAG
-(``adams``) and SSV2stab (``rkc``) families are ported; every other family
-of the JAX package names the ROADMAP item that brings it.
+Every family of the JAX package is ported: the explicit Runge-Kutta,
+Runge-Kutta-Nystrom (``rkn``), CKdisc (``ckdisc``), ESDIRK, SWAG
+(``adams``) and SSV2stab (``rkc``) families.
 """
-
-_NOT_PORTED = {
-    "ckdisc": "A14",
-}
 
 
 def build_stepper(method, fun, n, dtype, **options):
@@ -29,6 +25,10 @@ def build_stepper(method, fun, n, dtype, **options):
         from .erk import ERKStepper
         return ERKStepper(fun, method.tableau, n, dtype,
                           sc_params=merged.get("sc_params"))
+    if family == "ckdisc":
+        from .ckdisc import CKdiscStepper
+        return CKdiscStepper(fun, method.tableau, n, dtype,
+                             data=merged["ckdisc"])
     if family == "rkn":
         from .rkn import RKNStepper
         return RKNStepper(fun, method.tableau, n, dtype,
@@ -55,8 +55,4 @@ def build_stepper(method, fun, n, dtype, **options):
         return RKCStepper(fun, n, dtype, options={
             "rho_jac": merged.get("rho_jac"),
             "const_jac": merged.get("const_jac", False)})
-    if family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {family!r} family is not ported yet: ROADMAP item "
-            f"{_NOT_PORTED[family]}")
     raise ValueError(f"unknown method family {family!r}")

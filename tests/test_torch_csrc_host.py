@@ -29,6 +29,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import test_torch_fused_adams as TA  # noqa: E402
+import test_torch_fused_ckdisc as TC  # noqa: E402
 import test_torch_fused_esdirk as T  # noqa: E402
 import test_torch_fused_erk as TK  # noqa: E402
 import test_torch_fused_erk_grid as TG  # noqa: E402
@@ -37,6 +38,7 @@ import test_torch_fused_rkn as TN  # noqa: E402
 
 from extensisq_tpu_torch.ops import _build  # noqa: E402
 from extensisq_tpu_torch.ops import fused_adams as FA  # noqa: E402
+from extensisq_tpu_torch.ops import fused_ckdisc as FC  # noqa: E402
 from extensisq_tpu_torch.ops import fused_erk as FK  # noqa: E402
 from extensisq_tpu_torch.ops import fused_esdirk as FE  # noqa: E402
 from extensisq_tpu_torch.ops import fused_rkc as FR  # noqa: E402
@@ -180,8 +182,9 @@ extern "C" int fused_rkn_launch(
 }
 """
 
-# The grid body integrate<COMP, Group> (B4 and B6) run by a one-thread group
-# on a host buffer in place of shared memory, one member after another.
+# The grid bodies integrate<COMP, Group> (B4 and B6) and integrate_ck<Group>
+# (B12) run by a one-thread group on a host buffer in place of shared
+# memory, one member after another.
 GRID_LAUNCH = """
 struct HostGroup {
   int rank() const { return 0; }
@@ -190,6 +193,21 @@ struct HostGroup {
   float sum(float v) const { return v; }
   float min(float v) const { return v; }
 };
+
+// one member by the body of the header's family (a template, so that the
+// other family's body is never instantiated)
+template <bool CK>
+void host_member(float* sm, const float* y0, const Launch& L, int m,
+                 const Out& out, int compensated) {
+  HostGroup g;
+  if constexpr (CK) {
+    integrate_ck(g, sm, y0, L, m, out);
+  } else if (compensated) {
+    integrate<true>(g, sm, y0, L, m, out);
+  } else {
+    integrate<false>(g, sm, y0, L, m, out);
+  }
+}
 
 extern "C" int fused_rk_grid_host(
     const float* y0, float* y_out, int* status, int* nsteps, int* nfev,
@@ -201,14 +219,27 @@ extern "C" int fused_rk_grid_host(
   const Out out{y_out, status, nsteps, nfev};
   float* sm = new float[kFloats];
   for (int m = 0; m < members; ++m) {
-    HostGroup g;
-    if (compensated) {
-      integrate<true>(g, sm, y0 + m * NF, L, m, out);
-    } else {
-      integrate<false>(g, sm, y0 + m * NF, L, m, out);
-    }
+    host_member<tab::CK>(sm, y0 + m * NF, L, m, out, compensated);
   }
   delete[] sm;
+  return 0;
+}
+"""
+
+CK_LAUNCH = """
+extern "C" int fused_ckdisc_launch(
+    const void* y0, void* y_out, void* status, void* nstep, void* nfev,
+    int B, float t0, float tf, float rtol, float atol, float h0,
+    int use_hstart, float max_step, int max_steps, int threads,
+    void* stream) {
+  blockDim.x = 1;
+  for (int b = 0; b < B; ++b) {
+    blockIdx.x = b;
+    threadIdx.x = 0;
+    fused_ckdisc_kernel((const float*)y0, (float*)y_out, (int*)status,
+                        (int*)nstep, (int*)nfev, B, t0, tf, rtol, atol, h0,
+                        use_hstart, max_step, max_steps);
+  }
   return 0;
 }
 """
@@ -294,6 +325,14 @@ def libs(tmp_path_factory):
     jobs["grid_fisher"] = ("fused_rk_grid", _build.fused_rk_grid_header(
         FK._fused_consts(TK.BS5), False, (TG.N,), TG.RHS["fisher"].cuda_src),
         GRID_LAUNCH, RKC_MARKER)
+    for prob in ("swdec", "rational", "cubic"):
+        jobs["ck_" + prob] = ("fused_ckdisc", _build.fused_ckdisc_header(
+            FC.ck_consts(), TC.RHS[prob].n, TC.RHS[prob].cuda_src),
+            CK_LAUNCH)
+    for prob in ("mol", "diffusion"):
+        jobs["ck_" + prob] = ("fused_rk_grid", _build.fused_rk_grid_header(
+            FC.ck_consts(), False, TC.RHS[prob].shape,
+            TC.RHS[prob].cuda_src), GRID_LAUNCH, RKC_MARKER)
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(_compile, *v[:3], d / k, *v[3:])
                    for k, v in jobs.items()}
@@ -658,3 +697,74 @@ def test_rkn_kernels_isolate_an_overflowing_member(libs, tmp_path, case):
     np.testing.assert_array_equal(out[1], ref[1])
     ok = out[1] == 1
     assert np.max(np.abs(out[2][ok] - ref[2][ok])) <= 1
+
+
+def _ck_host(lib, span, y0, **kw):
+    y0 = np.ascontiguousarray(y0, np.float32)
+    nb = y0.shape[0]
+    out = np.empty_like(y0)
+    st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
+    t0, tf, rt, at, h0, use_h, mstep, msteps, _ = FK.launch_args(
+        span, kw["rtol"], kw["atol"], kw.get("first_step"),
+        kw.get("max_steps", 100_000), False, kw.get("max_step"))
+    fn = lib.fused_ckdisc_launch
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [vp] * 5 + [ci, cf, cf, cf, cf, cf, ci, cf, ci, ci, vp]
+    fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
+       nf.ctypes.data, nb, t0, tf, rt, at, h0, use_h, mstep, msteps, 128,
+       None)
+    return out, st, ns, nf
+
+
+def _ck_case(libs, name, **over):
+    """The host-built kernel's and the plain version's results on a case of
+    ``test_torch_fused_ckdisc.py``."""
+    kind, prob, span, y0, kw = TC.CASES[name]
+    kw = dict(kw, **over)
+    host = _ck_host if kind == "flat" else _grid_host
+    return (host(libs["ck_" + prob], span, TC.Y0[y0], **kw),
+            TC._port(name, **over))
+
+
+# (case, max |dy|, max |dnsteps|, members with other counts), measured:
+# swdec 1.24e-3, 5, 39 of 128 (the libraries' powf parts a last bit of h,
+# and the cascade's bisection towards each switch of the RHS carries it
+# on); mol 3.3e-4, 7, 7 of 8 (n = 128, the same); rational_h0, overflow
+# and overflow_h0 0, 0, 0 (the overflowing member with status 3 from
+# Watts' NaN start and 2 from a first step, on both); mol_overflow 8.8e-6,
+# 0, 2 and mol_overflow_h0 2.7e-6, 0, 0 (the same statuses); diffusion
+# 9.5e-7, 0, 0 (n = 200, the group sums in another order).  Gates about
+# 2x.
+CK_GATES = [("swdec", 2.5e-3, 10, 80), ("rational_h0", 1e-6, 0, 0),
+            ("overflow", 1e-6, 0, 0), ("overflow_h0", 1e-6, 0, 0),
+            ("mol", 7e-4, 14, 8), ("mol_overflow", 2e-5, 0, 2),
+            ("mol_overflow_h0", 6e-6, 0, 0), ("diffusion", 2e-6, 0, 0)]
+
+
+@pytest.mark.parametrize("case,y_gate,dsteps,nmembers", CK_GATES)
+def test_ckdisc_kernels_match_plain_versions(libs, case, y_gate, dsteps,
+                                             nmembers):
+    """B11 (``fused_ckdisc.cu``, one member per thread) and the cascade of
+    the block body (``fused_rk_grid.cu``'s integrate_ck, B12, run by a
+    one-thread group) against their plain versions: status identical,
+    counts within the gates."""
+    (y, st, ns, nf), (ry, rst, rns, rnf) = _ck_case(libs, case)
+    np.testing.assert_array_equal(st, rst)
+    ok = st == 1
+    print(case, np.max(np.abs(y[ok] - ry[ok])), np.max(np.abs(ns - rns)), np.sum((ns != rns) | (nf != rnf)), st[:8], rst[:8])
+    assert np.max(np.abs(y[ok] - ry[ok])) <= y_gate
+    assert np.max(np.abs(ns - rns)) <= dsteps
+    assert np.sum((ns != rns) | (nf != rnf)) <= nmembers
+
+
+@pytest.mark.parametrize("case,attempts", [("swdec_h0", 1), ("swdec_h0", 3),
+                                           ("rational_h0", 10),
+                                           ("mol_h0", 1), ("mol_h0", 3)])
+def test_ckdisc_kernels_first_attempts_bit_identical(libs, case, attempts):
+    """With ``first_step`` given, the kernels' first attempts (stages, the
+    cascade's norms and decisions, the fallbacks, the twiddle and quit
+    updates and the new point) repeat the plain version's arithmetic bit
+    for bit."""
+    out, ref = _ck_case(libs, case, max_steps=attempts)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a, b)

@@ -13,8 +13,8 @@ import pytest
 import torch
 
 import extensisq_tpu as X
-from extensisq_tpu_torch import (BS5, CK5, Ts5, solve, solve_ensemble,
-                                 Method)
+from extensisq_tpu_torch import (BS5, CK5, CKdisc, Ts5, solve,
+                                 solve_ensemble, Method)
 from extensisq_tpu_torch.steppers import build_stepper
 
 MU = 3.0
@@ -184,7 +184,10 @@ def test_unported_solve_options_raise(kw):
                        **kw)
 
 
-def test_unported_families_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item A14"):
-        build_stepper(Method(name="x", family="ckdisc"), vdp_torch, 2,
+def test_build_stepper_routes_ckdisc_and_refuses_unknown_families():
+    from extensisq_tpu_torch.steppers.ckdisc import CKdiscStepper
+    assert isinstance(build_stepper(CKdisc, vdp_torch, 2, torch.float64),
+                      CKdiscStepper)
+    with pytest.raises(ValueError, match="unknown method family"):
+        build_stepper(Method(name="x", family="nope"), vdp_torch, 2,
                       torch.float64)
