@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three paths once each:
+Drives each of the port's paths once:
 
 * explicit: 4096 Van der Pol members (mu = 3, t in [0, 10]) integrated
   with BS5, first through the f64 batched solver ``solve_ensemble`` and
@@ -33,7 +33,13 @@ Drives the port's three paths once each:
   sign-switching decay (t in [0, 5], rtol 1e-4 / atol 1e-7) through
   ``ops.solve_fused_ckdisc`` and the f64 ``solve_ensemble``, and 64 members
   of a 256-state advection-reaction MoL with a switching forcing (t in
-  [0, 1.2]) through ``ops.solve_fused_ckdisc_grid`` and the f64 driver.
+  [0, 1.2]) through ``ops.solve_fused_ckdisc_grid`` and the f64 driver;
+* mid-size SWAG and ESDIRK (BASELINE configs 2d and 4d): 32 members of a
+  256-state periodic heat MoL (t in [0, 0.25], k_max 6) through
+  ``ops.solve_fused_adams_grid`` and the f64 SWAG driver, and 32 members of
+  a 128-state periodic reaction-diffusion (t in [0, 1], Kv3I) through
+  ``ops.solve_fused_esdirk_grid`` and the f64 driver, with a DAE-lanes
+  check against the exact solution and a compensated one against f64.
 
 Before that, it builds every kernel from the sources in this checkout
 (one nvcc per variant, all started together) and holds each against its
@@ -461,6 +467,12 @@ def build_all(jobs):
         if kernel == "fused_adams":
             return _build.load_fused_adams(_adams_consts(opt, rhs.n),
                                            rhs.cuda_src)
+        if kernel == "fused_adams_grid":
+            return _build.load_fused_adams_grid(
+                _adams_consts(opt, rhs.shape[0]), rhs.shape, rhs.cuda_src)
+        if kernel == "fused_esdirk_grid":
+            return _build.load_fused_esdirk_grid(_esdirk_consts(opt),
+                                                 rhs.shape, rhs.cuda_src)
         if kernel == "fused_rkc":
             n_par, rho = opt
             return _build.load_fused_rkc(rhs.shape, n_par, rhs.cuda_src,
@@ -2020,6 +2032,459 @@ def ckdisc_path():
                                   int(mol[3].sum()), CKMOL_M, 5)))]
 
 
+# -- the mid-size SWAG and ESDIRK paths (B8, B7) -----------------------------
+# BASELINE config 2d (validation/benchmarks.py:221-259): 32 members of the
+# 256-state periodic heat MoL (D = 0.01, dx = 1/256), y0 = amps sin(2 pi x)
+# + 0.3 cos(4 pi x) with amps = linspace(0.5, 1.5), SWAG with k_max 6 on
+# t in [0, 0.25] at rtol 1e-4 / atol 1e-6
+HEAT_N, HEAT_M, HEAT_SPAN = 256, 32, (0.0, 0.25)
+HEAT_TOL = dict(rtol=1e-4, atol=1e-6, k_max=6)
+# BASELINE config 4d (validation/benchmarks.py:463-502): 32 members of the
+# 128-state periodic reaction-diffusion (D = 1, dx = 1/128, f = D lap y +
+# y^2 (1 - y)), y0 = 0.5 + 0.4 amps sin(2 pi x) with amps =
+# linspace(0.3, 0.7), Kv3I on t in [0, 1] at rtol 1e-4 / atol 1e-6
+RD_N, RD_M, RD_SPAN = 128, 32, (0.0, 1.0)
+RD_TOL = dict(rtol=1e-4, atol=1e-6)
+# the JAX tests' span for the step gate (tests/test_fused_pallas.py:957-988):
+# on the whole span the float32 steps inflate ~3x at the steady-state tail
+# (validation/benchmarks.py:463-469), so the steps are held on t <= 0.1
+RD_STEP_SPAN = (0.0, 0.1)
+GRID_LARGE = 1024                     # timing only: ~8 blocks per SM
+# the JAX gates: 2d and 4d endpoints within 1e-3 of the f64 driver; 2d mean
+# nsteps within 15% (tests/test_fused_pallas.py:598-628), 4d within 20% + 2
+# (:957-988); the DAE lanes within 1e-4 of y0 exp(-t) (:991-1015); the
+# compensated run at rtol 1e-6 within 3e-5 of f64 (:1018-1039)
+GRID_F64_GATE = 1e-3
+HEAT_STEP_GATE = 0.15
+RD_STEP_GATE = 0.2
+DAE_EXACT_GATE = 1e-4
+RD_COMP_GATE = 3e-5
+# kernel against its plain version on the card: (max |dy| over finished
+# members, relative difference of mean nsteps, max |dnsteps|).  Measured on
+# an H100 (nvcc contracts into fma, the plain version rounds each
+# operation): heat32 4.5e-5 / 4.0e-3 / 2, skew_back 7.2e-7 / 0 / 0,
+# heat_max_step 1.8e-7 / 0 / 0, heat_overflow 3.3e-5 / 0 / 0, rd_kv3i
+# 1.0e-5 / 7.0e-3 / 1, rd_trbdf2 7.3e-6 / 0 / 0, rd_comp 2.5e-6 / 9.6e-3 /
+# 1, dae 1.8e-7 / 0 / 0, dirichlet_back 6.1e-7 / 0 / 0, cubic_overflow
+# 2.1e-7 / 0 / 0; on the paths, whose float32 step sequences bifurcate
+# (2d's stability-limited SWAG steps, 4d's steady-state tail, where
+# round-off caps h), heat2d 5.4e-4 / 3.8e-3 / 58 and rd4d 6.4e-5 / 7.7e-3 /
+# 28.  The gates keep a margin of 2-5x
+MID_KERNEL_GATES = {"heat32": (1e-4, 2e-2, 4), "skew_back": (2e-6, 1e-2, 1),
+                    "heat_max_step": (1e-6, 1e-2, 1),
+                    "heat_overflow": (1e-4, 1e-2, 2),
+                    "rd_kv3i": (3e-5, 3e-2, 2), "rd_trbdf2": (2e-5, 1e-2, 1),
+                    "rd_comp": (1e-5, 3e-2, 2), "dae": (1e-6, 1e-2, 1),
+                    "dirichlet_back": (2e-6, 1e-2, 1),
+                    "cubic_overflow": (1e-6, 1e-2, 1),
+                    "heat2d": (2e-3, 2e-2, 120), "rd4d": (2e-4, 3e-2, 60)}
+# RHS_OPS of the mid-size lines, per element: the heat stencil (two adds, a
+# product, a difference and the scale) and the reaction-diffusion's (the
+# same and y^2 (1 - y), its sum with the stencil)
+RHS_OPS.update({"heat": 5, "rdiff": 9})
+
+
+def heat_mol(n, diff):
+    c = diff * n * n
+
+    def fun(t, y):
+        return (torch.roll(y, 1, 0) + torch.roll(y, -1, 0) - 2.0 * y) * c
+    return fun
+
+
+def _heat_cuda(n, diff):
+    return ("__device__ float rhs(float t, const float* y, int i, "
+            "const float* p) {\n  using G = tab::G;\n"
+            "  return (G::rolled<0>(y, i, 1) + G::rolled<0>(y, i, -1) - "
+            f"2.0f * y[i]) * {_lit(diff * n * n)};\n}}")
+
+
+def heat_cubic32(t, y):
+    return heat_mol(32, 0.05)(t, y) + y * y * y
+
+
+def skew32(t, y):
+    return -(torch.roll(y, -1, 0) - torch.roll(y, 1, 0)) * 16.0
+
+
+def rdiff_mol(n):
+    c = float(n * n)
+
+    def fun(t, y):
+        return ((torch.roll(y, 1, 0) + torch.roll(y, -1, 0) - 2.0 * y) * c
+                + y * y * (1.0 - y))
+    return fun
+
+
+def _rdiff_cuda(n):
+    return ("template <class T>\n__device__ T rhs(T t, const T* y, int i, "
+            "const float* p) {\n  using G = tab::G;\n"
+            "  return (G::rolled<0>(y, i, 1) + G::rolled<0>(y, i, -1) - "
+            f"2.0f * y[i]) * {_lit(n * n)}\n"
+            "         + y[i] * y[i] * (1.0f - y[i]);\n}")
+
+
+def dae_lanes(t, y):
+    even = (torch.arange(y.shape[0], device=y.device)[:, None] % 2
+            == 0).to(y.dtype)
+    return even * (-y) + (1.0 - even) * (torch.roll(y, 1, 0) - y)
+
+
+def dirichlet(n, cubic):
+    """Central advection (or, with ``cubic``, diffusion plus a cubic
+    source) with zero boundaries: a strictly tridiagonal Jacobian."""
+    def fun(t, y):
+        z = torch.zeros_like(y[:1])
+        right, left = torch.cat([y[1:], z]), torch.cat([z, y[:-1]])
+        if cubic:
+            return (right + left - 2.0 * y) * float(n * n) + y * y * y
+        return -(right - left) * (0.5 * n)
+    return fun
+
+
+def _dirichlet_cuda(n, cubic):
+    body = (f"(right + left - 2.0f * y[i]) * {_lit(n * n)} + y[i] * y[i] * "
+            "y[i]" if cubic else f"-(right - left) * {_lit(0.5 * n)}")
+    return ("template <class T>\n__device__ T rhs(T t, const T* y, int i, "
+            "const float* p) {\n"
+            f"  const T right = i < {n - 1} ? y[i + 1] : T(0.0f);\n"
+            "  const T left = i > 0 ? y[i - 1] : T(0.0f);\n"
+            f"  return {body};\n}}")
+
+
+def mid_rhs():
+    """The FusedGridRHS of every B8/B7 variant, by label."""
+    from extensisq_tpu_torch.ops import FusedGridRHS
+    skew_src = ("__device__ float rhs(float t, const float* y, int i, "
+                "const float* p) {\n  using G = tab::G;\n"
+                "  return -(G::rolled<0>(y, i, -1) - G::rolled<0>(y, i, 1))"
+                " * 16.0f;\n}")
+    cubic_src = ("template <class T>\n__device__ T rhs(T t, const T* y, "
+                 "int i, const float* p) {\n  using G = tab::G;\n"
+                 "  return (G::rolled<0>(y, i, 1) + G::rolled<0>(y, i, -1) "
+                 f"- 2.0f * y[i]) * {_lit(51.2)} + y[i] * y[i] * y[i];\n}}")
+    return {
+        "heat": FusedGridRHS(heat_mol(HEAT_N, 0.01),
+                             _heat_cuda(HEAT_N, 0.01), (HEAT_N,)),
+        "heat32": FusedGridRHS(heat_mol(32, 0.05), _heat_cuda(32, 0.05),
+                               (32,)),
+        "skew32": FusedGridRHS(skew32, skew_src, (32,)),
+        "heat_cubic32": FusedGridRHS(heat_cubic32, cubic_src, (32,)),
+        "rdiff": FusedGridRHS(rdiff_mol(RD_N), _rdiff_cuda(RD_N), (RD_N,)),
+        "dae": FusedGridRHS(dae_lanes, (
+            "template <class T>\n__device__ T rhs(T t, const T* y, int i, "
+            "const float* p) {\n  return i % 2 == 0 ? -y[i] : "
+            "tab::G::rolled<0>(y, i, 1) - y[i];\n}"), (RD_N,)),
+        "skew_d32": FusedGridRHS(dirichlet(32, False),
+                                 _dirichlet_cuda(32, False), (32,)),
+        "cubic_d32": FusedGridRHS(dirichlet(32, True),
+                                  _dirichlet_cuda(32, True), (32,))}
+
+
+def mid_builds(rhs):
+    """(kernel, label, rhs, option) of every B8 (k_max) and B7 (method)
+    variant."""
+    from extensisq_tpu_torch import Kv3I, TRBDF2
+    return ([("fused_adams_grid", f"{k} k_max={km}", rhs[k], km)
+             for k, km in (("heat", 6), ("heat32", 4), ("heat32", 3),
+                           ("skew32", 3), ("heat_cubic32", 4))]
+            + [("fused_esdirk_grid", f"{k} {m.name}", rhs[k], m)
+               for k, m in (("rdiff", Kv3I), ("rdiff", TRBDF2),
+                            ("dae", Kv3I), ("skew_d32", TRBDF2),
+                            ("cubic_d32", Kv3I))])
+
+
+def heat_y0(members, n):
+    """Config 2d's members (validation/benchmarks.py:242-245)."""
+    x = np.linspace(0, 1, n, endpoint=False)
+    amps = np.linspace(0.5, 1.5, members)
+    return torch.tensor((amps[:, None] * np.sin(2 * np.pi * x)[None, :]
+                         + 0.3 * np.cos(4 * np.pi * x)[None, :]),
+                        dtype=torch.float32, device="cuda")
+
+
+def rdiff_y0(members, n):
+    """Config 4d's members (validation/benchmarks.py:482-485)."""
+    x = np.linspace(0, 1, n, endpoint=False)
+    amps = np.linspace(0.3, 0.7, members)
+    return torch.tensor(0.5 + 0.4 * amps[:, None]
+                        * np.sin(2 * np.pi * x)[None, :],
+                        dtype=torch.float32, device="cuda")
+
+
+def adams_grid_ops(n, km, rhs_ops, nfev_sum, nsteps_sum, init_sum):
+    """float32 operations of a B8 run whose members made ``nfev_sum`` RHS
+    evaluations, ``init_sum`` of them in the float32 stepper's init (run
+    outside the kernel, not counted) and took ``nsteps_sum`` steps.
+    Counted from csrc/fused_adams_grid.cu: per attempt (one evaluation of f
+    at the prediction) and element the beta scaling, the g . phi sum and
+    the reverse cumulative sum over at most k_max + 2 rows (4 (k_max + 2)),
+    the weights and the three scaled squares of the error ladder (14); per
+    accepted step (a second evaluation) and element the corrector (3), the
+    phi update over the rows (k_max + 3) and the order k + 1 norm (3); per
+    member and attempt ~10 k_max^2 for the coefficient recurrences and the
+    order and step selection."""
+    attempts = nfev_sum - init_sum - nsteps_sum
+    return (attempts * (n * (4 * (km + 2) + 14 + rhs_ops) + 10 * km * km)
+            + nsteps_sum * n * ((km + 3) + 6 + rhs_ops))
+
+
+def esdirk_grid_ops(n, k, rhs_ops, newton_evals, nsteps_sum):
+    """float32 operations of a B7 run whose members made ``newton_evals``
+    Newton RHS evaluations and took ``nsteps_sum`` steps (rejected attempts
+    not counted, so this is a lower bound), counted from
+    csrc/fused_esdirk_grid.cu with L = ceil(log2 n) reduction rounds, per
+    element: each attempt's four dual RHS passes (3 rhs_ops and 3 band sums
+    each), W (3), the reduction's multipliers (12 L + 3), the stage sums (4
+    per weight of A and Az), the solution, error and its norm (2 S + 8) and
+    the filter's replay (4 L + 2); each Newton iteration's point (2), RHS,
+    right-hand side (3), replay (4 L + 1), norm (6) and update (1)."""
+    L = (n - 1).bit_length()
+    s = k["s"]
+    stage = sum(_wsum_ops(k["A"][i, :i]) + _wsum_ops(k["Az"][i, :i]) + 4
+                for i in range(1, s))
+    per_attempt = n * (4 * (3 * rhs_ops + 3) + 3 + 12 * L + 3 + stage
+                       + 2 * s + 8 + (4 * L + 2 if k["filter_error"] else 0))
+    per_newton = n * (2 + rhs_ops + 3 + 4 * L + 1 + 6 + 1)
+    return nsteps_sum * per_attempt + newton_evals * per_newton
+
+
+def mid_path():
+    """The mid-size SWAG and ESDIRK paths: B8 and B7 against their plain
+    versions (small checks with an overflowing member, and the paths'
+    shapes), config 2d through B8 against the f64 SWAG driver, config 4d
+    through B7 against the f64 Kv3I driver with the DAE-lanes and
+    compensated checks; returns the ``kernels`` entries of B8 and B7."""
+    from extensisq_tpu_torch import Kv3I, SWAG, TRBDF2, solve_ensemble
+    from extensisq_tpu_torch import ops
+    from extensisq_tpu_torch.ops.fused_adams import _host_init
+    from extensisq_tpu_torch.ops.fused_esdirk import _esdirk_consts
+    R = mid_rhs()
+    kinds = {"fused_adams_grid": (ops.solve_fused_adams_grid,
+                                  ops.fused_adams_grid_reference),
+             "fused_esdirk_grid": (ops.solve_fused_esdirk_grid,
+                                   ops.fused_esdirk_grid_reference)}
+
+    def compare(kind, label, rhs, span, y0, **kw):
+        run, plain = kinds[kind]
+        return hold_against_plain(
+            kind, label, lambda: run(rhs, span, y0, **kw),
+            lambda: plain(rhs, span, y0, **kw), *MID_KERNEL_GATES[label])
+
+    # (a) each kernel against its plain version on small checks, with an
+    # overflowing member each
+    h32 = heat_y0(8, 32)
+    compare("fused_adams_grid", "heat32", R["heat32"], (0.0, 0.25), h32,
+            rtol=1e-4, atol=1e-6, k_max=4)
+    compare("fused_adams_grid", "skew_back", R["skew32"], (0.5, 0.0), h32,
+            rtol=1e-5, atol=1e-7, k_max=3)
+    compare("fused_adams_grid", "heat_max_step", R["heat32"], (0.0, 0.25),
+            h32, rtol=1e-4, atol=1e-6, k_max=3, first_step=1e-3,
+            max_step=0.005)
+    bad = h32.clone()
+    bad[3] *= 1e19                        # this member overflows in f32
+    k, _, _, _ = compare("fused_adams_grid", "heat_overflow",
+                         R["heat_cubic32"], (0.0, 0.1), bad, rtol=1e-4,
+                         atol=1e-6, k_max=4, max_steps=2000)
+    check(int(k[1][3]) == 3 and int((k[1] == 1).sum()) == 7,
+          "B8 overflow isolation: member 3 must end with status 3 alone")
+    r8 = rdiff_y0(8, RD_N)
+    compare("fused_esdirk_grid", "rd_kv3i", R["rdiff"], RD_STEP_SPAN, r8,
+            method=Kv3I, **RD_TOL)
+    compare("fused_esdirk_grid", "rd_trbdf2", R["rdiff"], RD_STEP_SPAN, r8,
+            method=TRBDF2, **RD_TOL)
+    compare("fused_esdirk_grid", "rd_comp", R["rdiff"], (0.0, 0.02), r8,
+            rtol=1e-6, atol=1e-9, compensated=True)
+    m_dae = (np.arange(RD_N) % 2 == 0).astype(np.float64)
+    d8 = torch.ones(8, RD_N, device="cuda") * torch.linspace(
+        0.5, 2.0, 8, device="cuda")[:, None]
+    compare("fused_esdirk_grid", "dae", R["dae"], (0.0, 1.0), d8, M=m_dae,
+            yp0_batch=-d8, rtol=1e-5, atol=1e-7)
+    xs = np.linspace(0, 1, 32)
+    bump = torch.tensor(np.exp(-40 * (xs - 0.5) ** 2)[None, :]
+                        * np.linspace(0.5, 1.0, 8)[:, None],
+                        dtype=torch.float32, device="cuda")
+    compare("fused_esdirk_grid", "dirichlet_back", R["skew_d32"], (0.2, 0.0),
+            bump, method=TRBDF2, rtol=1e-5, atol=1e-7)
+    bad = bump.clone()
+    bad[3] *= 1e19                        # this member overflows in f32
+    k, _, _, _ = compare("fused_esdirk_grid", "cubic_overflow",
+                         R["cubic_d32"], (0.0, 0.05), bad, rtol=1e-4,
+                         atol=1e-6, first_step=1e-3, max_steps=2000)
+    check(int(k[1][3]) != 1 and int((k[1] == 1).sum()) == 7,
+          "B7 overflow isolation: member 3 must fail alone")
+
+    # (b) the paths, each with every count set to 0 just before it and read
+    # just after
+    every = (ops.solve_fused_erk, ops.solve_fused_esdirk,
+             ops.solve_fused_adams, ops.solve_fused_rkc,
+             ops.solve_fused_rkc_ensemble, ops.solve_fused_rkn,
+             ops.solve_fused_erk_grid, ops.solve_fused_rkn_grid,
+             ops.solve_fused_ckdisc, ops.solve_fused_ckdisc_grid,
+             ops.solve_fused_adams_grid, ops.solve_fused_esdirk_grid)
+    H32 = heat_y0(HEAT_M, HEAT_N)
+    RD32 = rdiff_y0(RD_M, RD_N)
+    launches, outs = {}, {}
+    for label, run in (
+            ("fused_adams_grid", lambda: ops.solve_fused_adams_grid(
+                R["heat"], HEAT_SPAN, H32, **HEAT_TOL)),
+            ("fused_esdirk_grid", lambda: ops.solve_fused_esdirk_grid(
+                R["rdiff"], RD_SPAN, RD32, **RD_TOL))):
+        for fn in every:
+            fn.launches = 0
+        outs[label] = run()
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in every if fn.launches}
+        print(f"mid-size path [{label}]: launches {counts}")
+        launches[label] = getattr(ops, "solve_" + label).launches
+        check(counts == {"solve_" + label: 1},
+              f"{label} path: launches {counts}, expected one of its own")
+    heat, rd = outs["fused_adams_grid"], outs["fused_esdirk_grid"]
+
+    # (c) the gates against the f64 drivers
+    t0 = time.perf_counter()
+    heat64 = solve_ensemble(R["heat"].torch_fn, HEAT_SPAN, H32.double(),
+                            method=SWAG, **HEAT_TOL)
+    torch.cuda.synchronize()
+    heat64_s = time.perf_counter() - t0
+    check(bool((heat[1] == 1).all()) and bool((heat64.status == 1).all()),
+          "heat2d: not all finished")
+    check(heat[0].shape == (HEAT_M, HEAT_N)
+          and bool(torch.isfinite(heat[0]).all()), "heat2d B8: bad output")
+    dh = (heat[0].double() - heat64.y).abs().max().item()
+    mean, mean64 = (heat[2].double().mean().item(),
+                    heat64.nsteps.double().mean().item())
+    print(f"heat256x32-swag (2d): B8 endpoint vs f64 max |d| {dh:.3e} (gate "
+          f"{GRID_F64_GATE:.0e}), mean nsteps {mean:.3f} vs {mean64:.3f} "
+          f"(gate {HEAT_STEP_GATE:.0%}), mean nfev "
+          f"{heat[3].double().mean():.2f} vs "
+          f"{heat64.nfev.double().mean():.2f}")
+    check(dh < GRID_F64_GATE, "heat2d: B8 and f64 endpoints")
+    check(abs(mean - mean64) < HEAT_STEP_GATE * mean64,
+          "heat2d: B8 and f64 step counts")
+    t0 = time.perf_counter()
+    rd64 = solve_ensemble(R["rdiff"].torch_fn, RD_SPAN, RD32.double(),
+                          method=Kv3I, **RD_TOL)
+    torch.cuda.synchronize()
+    rd64_s = time.perf_counter() - t0
+    check(bool((rd[1] == 1).all()) and bool((rd64.status == 1).all()),
+          "rdiff4d: not all finished")
+    check(rd[0].shape == (RD_M, RD_N) and bool(torch.isfinite(rd[0]).all()),
+          "rdiff4d B7: bad output")
+    dr = (rd[0].double() - rd64.y).abs().max().item()
+    print(f"rdiff128x32-kv3i (4d): B7 endpoint vs f64 max |d| {dr:.3e} (gate "
+          f"{GRID_F64_GATE:.0e}), mean nsteps {rd[2].double().mean():.3f} vs "
+          f"{rd64.nsteps.double().mean():.3f} (not gated on t <= 1: the "
+          "float32 steady-state tail)")
+    check(dr < GRID_F64_GATE, "rdiff4d: B7 and f64 endpoints")
+    rs = ops.solve_fused_esdirk_grid(R["rdiff"], RD_STEP_SPAN, RD32,
+                                     **RD_TOL)
+    rs64 = solve_ensemble(R["rdiff"].torch_fn, RD_STEP_SPAN, RD32.double(),
+                          method=Kv3I, **RD_TOL)
+    mean, mean64 = (rs[2].double().mean().item(),
+                    rs64.nsteps.double().mean().item())
+    drs = (rs[0].double() - rs64.y).abs().max().item()
+    print(f"rdiff128x32-kv3i on t <= 0.1: B7 vs f64 max |d| {drs:.3e}, mean "
+          f"nsteps {mean:.3f} vs {mean64:.3f} (gate {RD_STEP_GATE:.0%} + 2)")
+    check(bool((rs[1] == 1).all()) and drs < GRID_F64_GATE,
+          "rdiff4d on t <= 0.1: B7 and f64 endpoints")
+    check(abs(mean - mean64) < RD_STEP_GATE * mean64 + 2.0,
+          "rdiff4d on t <= 0.1: B7 and f64 step counts")
+    dae = ops.solve_fused_esdirk_grid(R["dae"], (0.0, 1.0), d8, M=m_dae,
+                                      yp0_batch=-d8, rtol=1e-5, atol=1e-7)
+    dexact = (dae[0] - d8 * np.exp(-1.0)).abs().max().item()
+    print(f"B7 DAE lanes vs y0 exp(-t): max |d| {dexact:.3e} (gate "
+          f"{DAE_EXACT_GATE:.0e})")
+    check(bool((dae[1] == 1).all()) and dexact < DAE_EXACT_GATE,
+          "B7 DAE lanes off the exact solution")
+    comp = ops.solve_fused_esdirk_grid(R["rdiff"], RD_STEP_SPAN, r8,
+                                       rtol=1e-6, atol=1e-9, compensated=True)
+    comp64 = solve_ensemble(R["rdiff"].torch_fn, RD_STEP_SPAN, r8.double(),
+                            method=Kv3I, rtol=1e-6, atol=1e-9)
+    dcomp = (comp[0].double() - comp64.y).abs().max().item()
+    print(f"B7 compensated at rtol 1e-6 vs f64: max |d| {dcomp:.3e} (gate "
+          f"{RD_COMP_GATE:.0e}), mean nsteps {comp[2].double().mean():.3f} "
+          f"vs {comp64.nsteps.double().mean():.3f}")
+    check(bool((comp[1] == 1).all()) and dcomp < RD_COMP_GATE,
+          "B7 compensated: off the f64 driver")
+
+    # (d) each kernel against its plain version at the paths' shapes
+    errs, plain_ms = {}, {}
+    for kind, label, rhs, span, y0, tol, out in (
+            ("fused_adams_grid", "heat2d", R["heat"], HEAT_SPAN, H32,
+             HEAT_TOL, heat),
+            ("fused_esdirk_grid", "rd4d", R["rdiff"], RD_SPAN, RD32, RD_TOL,
+             rd)):
+        _, _, errs[kind], r_s = hold_against_plain(
+            kind, f"{label}, the path", lambda o=out: o,
+            lambda: kinds[kind][1](rhs, span, y0, **tol),
+            *MID_KERNEL_GATES[label])
+        plain_ms[kind] = r_s * 1e3
+
+    # (e) times: warm medians; the timing-only lines fill the card
+    def run_heat(y=H32):
+        return lambda: ops.solve_fused_adams_grid(R["heat"], HEAT_SPAN, y,
+                                                  **HEAT_TOL)
+
+    def run_rd(y=RD32):
+        return lambda: ops.solve_fused_esdirk_grid(R["rdiff"], RD_SPAN, y,
+                                                   **RD_TOL)
+
+    times = {}
+    for label, fn, out in (("heat256x32 B8", run_heat(), heat),
+                           ("rdiff128x32 B7", run_rd(), rd)):
+        ms, dev = wall_ms(fn), event_ms(fn)
+        times[label] = (ms, dev)
+        print(f"time [{label}]: {ms:.3f} ms wall, {dev:.4f} ms device (CUDA "
+              f"events), {int(out[2].sum()) / ms * 1e3:.4g} accepted "
+              f"steps/s, {int(out[3].sum()) / ms * 1e3:.4g} RHS evals/s")
+    print(f"time [plain versions] (one run each): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items())
+          + f"; [f64 solve_ensemble] (one run each): heat256x32 "
+          f"{heat64_s * 1e3:.1f} ms, rdiff128x32 {rd64_s * 1e3:.1f} ms")
+    for label, y_large, run in (
+            ("heat1024 B8", heat_y0(GRID_LARGE, HEAT_N), run_heat),
+            ("rdiff1024 B7", rdiff_y0(GRID_LARGE, RD_N), run_rd)):
+        out = run(y_large)()
+        check(bool((out[1] == 1).all()), f"{label}: not all finished")
+        ms = event_ms(run(y_large))
+        print(f"time [{label}] ({GRID_LARGE} blocks): {ms:.3f} ms device, "
+              f"{int(out[2].sum()) / ms * 1e3:.4g} accepted steps/s")
+
+    _, s0, _ = _host_init(R["heat"].torch_fn, HEAT_SPAN, H32.T,
+                          HEAT_TOL["rtol"], HEAT_TOL["atol"], None, 6, None)
+    csrc = "extensisq_tpu_torch/csrc/"
+    return [
+        dict({"name": "fused_adams_grid", "route": "cuda",
+              "source": csrc + "fused_adams_grid.cu",
+              "replaces": "extensisq_tpu/ops/fused_adams_grid.py:802",
+              "launches": launches["fused_adams_grid"],
+              "max_abs_err": errs["fused_adams_grid"],
+              "ms": times["heat256x32 B8"][0],
+              "device_ms": times["heat256x32 B8"][1],
+              "plain_ms": plain_ms["fused_adams_grid"],
+              "f64_ms": heat64_s * 1e3},
+             **bound_entry(HEAT_M * (HEAT_N * 4 * 3 + 4 * 5),
+                           adams_grid_ops(HEAT_N, 6, RHS_OPS["heat"],
+                                          int(heat[3].sum()),
+                                          int(heat[2].sum()),
+                                          int(s0.nfev.sum())))),
+        dict({"name": "fused_esdirk_grid", "route": "cuda",
+              "source": csrc + "fused_esdirk_grid.cu",
+              "replaces": "extensisq_tpu/ops/fused_esdirk_grid.py:873",
+              "launches": launches["fused_esdirk_grid"],
+              "max_abs_err": errs["fused_esdirk_grid"],
+              "ms": times["rdiff128x32 B7"][0],
+              "device_ms": times["rdiff128x32 B7"][1],
+              "plain_ms": plain_ms["fused_esdirk_grid"],
+              "f64_ms": rd64_s * 1e3},
+             **bound_entry(RD_M * (RD_N * 4 * 2 + 4 * 3),
+                           esdirk_grid_ops(RD_N, _esdirk_consts(Kv3I),
+                                           RHS_OPS["rdiff"],
+                                           int(rd[3].sum()) - RD_M,
+                                           int(rd[2].sum()))))]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2048,7 +2513,7 @@ def main():
                ("fused_erk", "cubic", CUBIC, None)] + esdirk_builds()
               + adams_builds(adams_rhs()) + rkc_builds(rkc_rhs())
               + rkn_grid_builds(rkn_grid_rhs())
-              + ckdisc_builds(ckdisc_rhs()))
+              + ckdisc_builds(ckdisc_rhs()) + mid_builds(mid_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
@@ -2217,6 +2682,13 @@ def main():
     # 9. the CKdisc paths: kernel checks, config 1c and the MoL, times
     ck = ckdisc_path()
 
+    # 10. the mid-size SWAG and ESDIRK paths: kernel checks, configs 2d and
+    # 4d, times
+    mid = mid_path()
+
+    # the card again, so that the end of the output names it beside the
+    # kernels' times
+    print(smi.splitlines()[0])
     print(json.dumps({"kernels": [dict({
         "name": "fused_erk",
         "route": "cuda",
@@ -2230,7 +2702,7 @@ def main():
         "plain_ms_compensated": times["plain version, compensated"],
     }, **bound_entry(N_MEMBERS * (2 * 4 * 2 + 4 * 3),
                      int(plain[3].sum()) * OPS_PER_EVAL["fused_erk"])),
-        esdirk, adams] + rkc + rkn + ck}))
+        esdirk, adams] + rkc + rkn + ck + mid}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

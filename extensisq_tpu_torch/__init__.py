@@ -17,7 +17,8 @@ SSV2stab (Runge-Kutta-Chebyshev) for semi-discretized PDEs:
   second-order systems (accelerations as :class:`ops.FusedAcc`);
   :func:`ops.solve_fused_ckdisc` — CKdisc's cascade for non-smooth
   problems; :func:`ops.solve_fused_erk_grid`,
-  :func:`ops.solve_fused_rkn_grid` and :func:`ops.solve_fused_ckdisc_grid`
+  :func:`ops.solve_fused_rkn_grid`, :func:`ops.solve_fused_ckdisc_grid`,
+  :func:`ops.solve_fused_adams_grid` and :func:`ops.solve_fused_esdirk_grid`
   — mid-size systems of any n, one thread block per member;
   :func:`ops.solve_fused_rkc` and :func:`ops.solve_fused_rkc_ensemble` —
   the same for SSV2stab on PDE grids (right-hand sides as
@@ -40,9 +41,11 @@ from .methods import (  # noqa: F401
     TRBDF2, TRX2, HS2I, HS2Ia, KC3I, KC4I, KC4Ia, Kv3I, SWAG, SSV2stab,
     EXPLICIT_METHODS, RKN_METHODS, ESDIRK_METHODS, METHODS_BY_NAME)
 from .ops import (FusedAcc, FusedGridAcc, FusedGridRHS,  # noqa: F401
-                  FusedRHS, FusedRho, solve_fused_adams, solve_fused_ckdisc,
+                  FusedRHS, FusedRho, solve_fused_adams,
+                  solve_fused_adams_grid, solve_fused_ckdisc,
                   solve_fused_ckdisc_grid, solve_fused_erk,
-                  solve_fused_erk_grid, solve_fused_esdirk, solve_fused_rkc,
+                  solve_fused_erk_grid, solve_fused_esdirk,
+                  solve_fused_esdirk_grid, solve_fused_rkc,
                   solve_fused_rkc_ensemble, solve_fused_rkn,
                   solve_fused_rkn_grid)
 from .solve import solve, solve_ensemble, Solution  # noqa: F401
@@ -57,7 +60,8 @@ __all__ = [
     "solve_fused_erk", "solve_fused_esdirk", "solve_fused_adams",
     "solve_fused_rkc", "solve_fused_rkc_ensemble", "solve_fused_rkn",
     "solve_fused_erk_grid", "solve_fused_rkn_grid", "solve_fused_ckdisc",
-    "solve_fused_ckdisc_grid", "ERKTableau", "ESDIRKTableau", "RKNTableau",
+    "solve_fused_ckdisc_grid", "solve_fused_adams_grid",
+    "solve_fused_esdirk_grid", "ERKTableau", "ESDIRKTableau", "RKNTableau",
     "Method", "tableau_from_arrays",
     "BS5", "Ts5", "CK5", "CKdisc", "Me4", "Pr7", "Pr8", "Pr9", "CFMR7osc",
     "Fi4N", "Fi5N", "Mu5Nmb", "MR6NN", "RKN_METHODS",

@@ -1,15 +1,19 @@
 // One thread block as the group of threads that works on one ensemble member
-// (the block-per-member kernels fused_rkc.cu and fused_rk_grid.cu).
+// (the block-per-member kernels fused_rkc.cu, fused_rk_grid.cu,
+// fused_adams_grid.cu and fused_esdirk_grid.cu).
 //
 // A group reduction gives every thread the same value, in an order fixed by
 // the launch shape: a warp butterfly, then the warps' results from shared
-// memory in warp order.  `red` holds two 32-float buffers used in turn, so
-// that one barrier per reduction suffices.  The block size must be a
+// memory in warp order; the minimum keeps a NaN, as torch.amin does.  `red`
+// holds two 32-float buffers used in turn, so that one barrier per reduction
+// suffices.  The block size must be a
 // multiple of 32.  Include it after the kernel's device body: host
 // rehearsals of a body run it with a one-thread group instead.
 #pragma once
 
 #include <math.h>
+
+#include "rk_common.cuh"
 
 namespace {
 
@@ -18,7 +22,7 @@ __device__ __forceinline__ float block_reduce(float v, float* red, int& turn) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = MIN ? fminf(v, w) : v + w;
+    v = MIN ? rk::nan_min(v, w) : v + w;
   }
   float* buf = red + 32 * turn;
   turn ^= 1;
@@ -26,7 +30,9 @@ __device__ __forceinline__ float block_reduce(float v, float* red, int& turn) {
   __syncthreads();
   const int nwarps = (blockDim.x + 31) >> 5;
   float s = buf[0];
-  for (int k = 1; k < nwarps; ++k) s = MIN ? fminf(s, buf[k]) : s + buf[k];
+  for (int k = 1; k < nwarps; ++k) {
+    s = MIN ? rk::nan_min(s, buf[k]) : s + buf[k];
+  }
   return s;
 }
 

@@ -60,6 +60,7 @@
 
 #include "dual.cuh"
 #include "fused_esdirk_config.cuh"
+#include "esdirk_control.cuh"
 #include "hstart.cuh"
 #include "rk_common.cuh"
 
@@ -73,18 +74,9 @@ constexpr int kFinished = 1;
 constexpr int kTooSmall = 2;
 constexpr int kOverflow = 3;
 
-// Weight rows as the shared sums read them.
-template <int I>
-struct RowA {
-  __host__ __device__ static constexpr float w(int j) { return tab::A(I, j); }
-};
-template <int I>
-struct RowAz {
-  __host__ __device__ static constexpr float w(int j) { return tab::AZ(I, j); }
-};
-struct RowE {
-  __host__ __device__ static constexpr float w(int j) { return tab::E(j); }
-};
+using esdirk::RowA;
+using esdirk::RowAz;
+using esdirk::RowE;
 
 // out = Mat x for the rotation matrices, zero coefficients dropped, summed
 // in order.
@@ -247,8 +239,7 @@ __device__ __forceinline__ bool newton(float t_stage, float h,
                                        const float (&a)[N][N], unsigned swaps,
                                        const Params& p, float& rate_out,
                                        int& nfev, bool& bad_any) {
-  float rate = -1.0f;  // < 0: not yet measured
-  float dz_old = 0.0f;
+  esdirk::Newton nw;
   bool conv = false;
   nfev = 0;
   bad_any = false;
@@ -273,30 +264,15 @@ __device__ __forceinline__ bool newton(float t_stage, float h,
     to_user(dz, dz_u);
     const float dz_norm =
         finite_or_one(scaled_norm(dz_u, yu_c, yu_pred, p.rtol, p.atol), bad);
-
-    const bool tiny_ok = dz_norm <= p.tiny_err;
-    bool diverged = false;
-    bool conv_normal = false;
-    if (it > 0) {
-      if (rate < 0.0f || dz_old > tab::KAPPA) {
-        rate = fmaxf(rate, dz_norm / fmaxf(dz_old, 1e-30f));
-      }
-      float rp = 1.0f;
-      for (int r = it; r < tab::NEWTON_MAXITER; ++r) rp = rp * rate;
-      diverged = rate >= 1.0f || dz_norm * rp >= tab::KAPPA * (1.0f - rate);
-      conv_normal =
-          dz_norm * rate < tab::KAPPA * (1.0f - rate) && !diverged;
-    }
+    const bool stop = nw.test(it, dz_norm, p.tiny_err, bad, conv);
     if (!bad) {
 #pragma unroll
       for (int i = 0; i < N; ++i) z[i] = z[i] + dz[i];
     }
-    conv = tiny_ok || conv_normal;
-    dz_old = dz_norm;
     bad_any = bad_any || bad;
-    if (bad || tiny_ok || diverged || conv_normal) break;
+    if (stop) break;
   }
-  rate_out = fmaxf(rate, 0.0f);
+  rate_out = fmaxf(nw.rate, 0.0f);
   return conv;
 }
 
@@ -407,23 +383,13 @@ __global__ void fused_esdirk_kernel(
   int nstep = 0;
   int nfev = have_yp0 ? 0 : 1;
   int it = 0;
-  bool std_sc = true;
-  bool rejected = false;
-  float err_old = 1.0f;
-  float h_prev = 0.0f;
-  float max_fac = tab::MAX_FACTOR0;
+  esdirk::Control ctl{h_abs};
 
   while (status == kRunning) {
     // step-size limits and the landing on tf, every attempt
     const float tc = t + t_lo;
-    const float min_step = fmaxf(tab::H_MIN_A * (fabsf(tc) + h_abs),
-                                 tab::H_MIN_B);
-    const bool out_rng = h_abs < min_step || h_abs > max_step;
-    float ha = fminf(fmaxf(min_step, h_abs), max_step);
-    const bool std_b = std_sc || out_rng;
-    const float d = fabsf((tf - t) - t_lo);
-    if (fabsf(d / ha - 1.0f) < 1e-2f || d < ha) ha = d;
-    bool too_small = ha < min_step;
+    ctl.prepare(t, t_lo, tf, max_step);
+    const float ha = ctl.ha;
     const float h = ha * dir;
 
     // Newton matrix W = Sc (M - h d J), factored once per attempt
@@ -450,7 +416,7 @@ __global__ void fused_esdirk_kernel(
     }
     st.Rate = 0.0f;
     st.nfev = 0;
-    st.conv = !too_small;
+    st.conv = !ctl.too_small;
     float yu_c[N];
     to_user(y, yu_c);
     stages<COMP, 1>(st, tc, h, y, y_lo, yu_c, a, swaps, p);
@@ -506,42 +472,10 @@ __global__ void fused_esdirk_kernel(
     if (bad_m) err_norm = err_norm + 10.0f;
     const bool accepted = st.conv && err_norm < 1.0f && !bad_m;
 
-    // implicit controller (core/controller.py:esdirk_accept_update, f32)
-    const float err_c = fmaxf(err_norm, 1e-30f);
-    const float f_pow = tab::SAFETY * powf(err_c, tab::ERROR_EXPONENT);
-    const float f_std = fminf(f_pow, max_fac);
-    const float hr = h / (h_prev == 0.0f ? h : h_prev);
-    const float f_2nd = fminf(
-        fmaxf(tab::SAFETY_SC * powf(err_c, tab::MINBETA1) *
-                  powf(fmaxf(err_old, 1e-30f), tab::MINBETA2) *
-                  powf(fmaxf(fabsf(hr), 1e-30f), tab::MINALPHA),
-              tab::MIN_FACTOR),
-        max_fac);
-    const bool is_tiny = err_norm < tiny_err;
-    float fac_acc = is_tiny ? max_fac : (std_b ? f_std : f_2nd);
-    const bool on_scale = max_fac == tab::MAX_FACTOR;
-    bool std_after = is_tiny || (std_b && on_scale ? false : std_sc);
-    if (rejected) {
-      fac_acc = fminf(1.0f, fac_acc);
-      std_after = true;
-    }
-    const float max_fac_new = fac_acc < tab::MAX_FACTOR ? tab::MAX_FACTOR
-                                                        : max_fac;
-    const float f_rej = fmaxf(tab::MIN_FACTOR, f_pow);
-    // convergence failure: the rate-based reduction
-    const float f_nrf = fminf(
-        fmaxf(st.Rate > 0.0f ? tab::MAX_RATE / fmaxf(st.Rate, 1e-30f)
-                             : tab::MIN_FACTOR,
-              tab::MIN_FACTOR),
-        tab::MAX_FACTOR_NRF);
-    bool bad_h = false;
-    const float h_abs_next = finite_or_one(
-        ha * (accepted ? fac_acc : (st.conv ? f_rej : f_nrf)), bad_h);
-
-    // a rejected attempt whose reduced h falls below min_step ends the
-    // member instead of being clamped back up
-    too_small = too_small || (!accepted && h_abs_next < min_step);
-    if (too_small) status = kTooSmall;
+    // implicit controller and the rate-based reduction after a convergence
+    // failure (esdirk_control.cuh)
+    ctl.finish(err_norm, st.Rate, st.conv, accepted, h, tiny_err);
+    if (ctl.too_small) status = kTooSmall;
     // double-single t advance; the landing test uses the remainder
     float t_adv, t_lo_adv;
     rk::df_add(t, t_lo, h, t_adv, t_lo_adv);
@@ -562,16 +496,8 @@ __global__ void fused_esdirk_kernel(
       }
       t = is_last ? tf : t_adv;
       t_lo = is_last ? 0.0f : t_lo_adv;
-      std_sc = std_after;
-      err_old = err_norm;
-      h_prev = h;
-      max_fac = max_fac_new;
       nstep += 1;
-    } else {
-      std_sc = true;
     }
-    h_abs = h_abs_next;
-    rejected = !accepted && (rejected || !too_small);
     nfev += st.nfev;
   }
 

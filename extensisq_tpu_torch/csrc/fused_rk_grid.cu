@@ -75,7 +75,9 @@
 #include "rk_common.cuh"
 #include "rk_control.cuh"
 #include "rk_rows.cuh"
+#include "block_rows.cuh"
 #include "ck_control.cuh"
+#include "block_hstart.cuh"
 
 namespace {
 
@@ -122,33 +124,16 @@ using rk::RowBp;
 using rk::RowE;
 using rk::RowEp;
 
-// Column i of the stage rows, indexed as the shared sums index a one-state
-// member: col[j][0] is K[j][i].
-struct Column {
-  const float* k;
-  int i;
-  struct Entry {
-    const float* p;
-    __device__ float operator[](int) const { return *p; }
-  };
-  __device__ Entry operator[](int j) const { return Entry{k + j * N + i}; }
-};
-
 template <class W, int LEN>
 __device__ __forceinline__ float wsum(const float* K, int i) {
-  float a[1];
-  rk::wsum<W, LEN>(a, Column{K, i});
-  return a[0];
+  return rk::col_wsum<W, LEN, N>(K, i);
 }
 
 // (sum, compensation) of one column, as the JAX _comp_wsum
 template <class W, int LEN>
 __device__ __forceinline__ void comp_wsum(const float* K, int i, float& s,
                                           float& c) {
-  float a[1], b[1];
-  rk::comp_wsum<W, LEN>(a, b, Column{K, i});
-  s = a[0];
-  c = b[0];
+  rk::col_comp_wsum<W, LEN, N>(K, i, s, c);
 }
 
 // The stage row entry i at (t, Y): the RHS, or the acceleration of the
@@ -170,124 +155,12 @@ __device__ __forceinline__ float deriv(float t, const float* Y, int j) {
   }
 }
 
-// Watts' starting step for one member, unsigned: hstart.cuh's algorithm on
-// the group, with its norms and minimum as group reductions (the minimum
-// over the elements drops a NaN of a non-finite y0).  y is the
-// state (NF, in shared memory), w six scratch rows of NF whose first holds
-// f(a, y).  Costs 1 + min(NF + 1, 3) evaluations of the RHS.
-template <class Group>
-__device__ float hstart(Group& g, float a, float b, const float* y, float* w,
-                        float rtol, float atol) {
-  constexpr float kBig = tab::HS_BIG;
-  constexpr float kRelper = tab::HS_RELPER;
-  const int r = g.rank();
-  const int nt = g.size();
-  const float* F = w;
-  float* SF = w + NF;
-  float* PR = w + 2 * NF;   // the probe point, read by the RHS
-  float* YP = w + 3 * NF;
-  float* DF = w + 4 * NF;
-  float* SPY = w + 5 * NF;
-  auto rms = [&](const float* x) {
-    float s = 0.0f;
-    for (int j = r; j < NF; j += nt) s += x[j] * x[j];
-    return sqrtf(g.sum(s) / static_cast<float>(NF));
-  };
-
-  const float dx = b - a;
-  const float absdx = fabsf(dx);
-  const float sdx = dx >= 0.0f ? 1.0f : -1.0f;
-
-  // bound on d f / d t
-  float da = sdx * fmaxf(fminf(kRelper * fabsf(a), absdx),
-                         tab::HS_T_FLOOR * fabsf(a));
-  if (da == 0.0f) da = kRelper * dx;
-  for (int j = r; j < NF; j += nt) {
-    SF[j] = deriv(a + da, y, j);
-    YP[j] = SF[j] - F[j];
+// deriv as the block start calls it
+struct Deriv {
+  __device__ float operator()(float t, const float* Y, int j) const {
+    return deriv(t, Y, j);
   }
-  float delf = rms(YP);
-  const float dfdxb = delf < kBig * fabsf(da) ? delf / fabsf(da) : kBig;
-  float fbnd = rms(SF);
-
-  // local Lipschitz constant from min(NF + 1, 3) probes
-  float dely = kRelper * rms(y);
-  if (dely == 0.0f) dely = kRelper;
-  dely = dely * sdx;
-  delf = rms(F);
-  fbnd = rk::nan_max(fbnd, delf);
-
-  const bool have_slope = delf != 0.0f;
-  for (int j = r; j < NF; j += nt) {
-    SPY[j] = have_slope ? F[j] : 0.0f;
-    YP[j] = have_slope ? F[j] : 1.0f;
-  }
-  if (!have_slope) delf = 1.0f;  // rms of a vector of ones
-
-  float dfdub = 0.0f;
-  bool done = false;
-  constexpr int kProbes = NF + 1 < 3 ? NF + 1 : 3;
-  for (int p = 1; p <= kProbes; ++p) {
-    const float step = dely / (delf == 0.0f ? 1.0f : delf);
-    for (int j = r; j < NF; j += nt) PR[j] = y[j] + step * YP[j];
-    g.sync();
-    const float* base = p == 2 ? SF : F;
-    const float tp = p == 2 ? a + da : a;
-    for (int j = r; j < NF; j += nt) {
-      YP[j] = deriv(tp, PR, j);
-      DF[j] = YP[j] - base[j];
-    }
-    const float nyp = rms(YP);
-    if (!done) fbnd = rk::nan_max(fbnd, nyp);
-    delf = rms(DF);
-    const bool overflow = delf >= kBig * fabsf(dely);
-    if (!done) {
-      dfdub = overflow ? kBig : rk::nan_max(dfdub, delf / fabsf(dely));
-    }
-    done = done || overflow;
-    if (p == kProbes) break;
-
-    // next perturbation vector, signs matched to local slopes
-    if (delf == 0.0f) delf = 1.0f;
-    for (int j = r; j < NF; j += nt) {
-      const float dy = p == 2 ? (y[j] != 0.0f ? y[j] : dely / kRelper)
-                              : (DF[j] != 0.0f ? DF[j] : delf);
-      if (SPY[j] == 0.0f) SPY[j] = YP[j];
-      YP[j] = SPY[j] != 0.0f ? fabsf(dy) * (SPY[j] >= 0.0f ? 1.0f : -1.0f)
-                             : dy;
-    }
-    delf = rms(YP);
-  }
-
-  // second-derivative bound and tolerance midpoint
-  const float ydpb = dfdxb + dfdub * fbnd;
-  float tsum = 0.0f;
-  float tmin = INFINITY;
-  for (int j = r; j < NF; j += nt) {
-    const float te = log10f(atol + rtol * fabsf(y[j]));
-    tsum += te;
-    tmin = fminf(tmin, te);
-  }
-  const float tolsum = g.sum(tsum);
-  const float tolmin = rk::nan_min(g.min(tmin), kBig);
-  const float tolp = powf(
-      10.0f, 0.5f * (tolsum / static_cast<float>(NF) + tolmin) /
-                 static_cast<float>(tab::MORDER + 1));
-
-  float h = absdx;
-  const float srydpb = sqrtf(0.5f * rk::nan_max(ydpb, 0.0f));
-  if (ydpb == 0.0f && fbnd == 0.0f) {
-    if (tolp < 1.0f) h = absdx * tolp;
-  } else if (ydpb == 0.0f) {
-    if (tolp < fbnd * absdx) h = tolp / fbnd;
-  } else if (tolp < srydpb * absdx) {
-    h = tolp / srydpb;
-  }
-  if (dfdub != 0.0f) h = rk::nan_min(h, 1.0f / dfdub);
-  h = rk::nan_max(h, tab::HS_T_FLOOR * fabsf(a));
-  if (h == 0.0f) h = tab::HS_SMALL * fabsf(b);
-  return h;
-}
+};
 
 // Stages I..END-1 of one attempt of the group: stage I writes its argument
 // into arg[b], takes the barrier and evaluates K[I]; b then flips.
@@ -345,7 +218,8 @@ __device__ float start(Group& g, float* Y, float* K,
   // max_step is +inf when the caller gave none
   const float bq = L.t0 + L.dir * fminf(fabsf(L.tf - L.t0), L.max_step);
   nfev = 2 + (NF + 1 < 3 ? NF + 1 : 3);
-  return fabsf(hstart(g, L.t0, bq, Y, w, L.rtol, L.atol));
+  return fabsf(rk::block_hstart<NF, tab::MORDER>(g, Deriv{}, L.t0, bq, Y, w,
+                                                 L.rtol, L.atol));
 }
 
 // The whole integration of one member by the group g (rank(), size(),

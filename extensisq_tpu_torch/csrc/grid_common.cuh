@@ -1,4 +1,6 @@
-// Periodic grid indexing for the right-hand sides of the fused RKC kernels.
+// Periodic grid indexing for the right-hand sides of the block-per-member
+// kernels (fused_rkc.cu, fused_rk_grid.cu, fused_adams_grid.cu,
+// fused_esdirk_grid.cu).
 //
 // A member's state is a row-major grid of extents D... (e.g. (2, ny, nx) for
 // the Brusselator's two fields).  The generated header names it
@@ -45,9 +47,10 @@ struct Grid {
     return i + (c2 - c) * st;
   }
 
-  template <int AXIS>
-  __device__ __forceinline__ static float rolled(const float* y, int i,
-                                                 int shift) {
+  // of any element type, so that a template right-hand side can run as
+  // rhs<Dual> (dual.cuh) for the implicit kernels' Jacobian bands
+  template <int AXIS, class T>
+  __device__ __forceinline__ static T rolled(const T* y, int i, int shift) {
     return y[shifted<AXIS>(i, shift)];
   }
 };

@@ -17,6 +17,13 @@ kernel launch, each with its plain PyTorch version beside it.
   CKdisc variable-order cascade for non-smooth ensembles, one thread per
   member (``csrc/fused_ckdisc.cu``) or, for mid-size systems, one thread
   block per member (``csrc/fused_rk_grid.cu``)
+* :func:`solve_fused_adams_grid` — SWAG for mid-size systems, one thread
+  block per member with its divided differences in shared memory
+  (``csrc/fused_adams_grid.cu``)
+* :func:`solve_fused_esdirk_grid` — ESDIRK for mid-size stiff systems and
+  index-1 DAEs with tridiagonal (optionally periodic) Jacobians: striped
+  dual-number bands and cyclic reduction, one thread block per member
+  (``csrc/fused_esdirk_grid.cu``)
 * :func:`solve_fused_rkc` and :func:`solve_fused_rkc_ensemble` — SSV2stab
   (Runge-Kutta-Chebyshev) on one PDE grid across the whole card, or on an
   ensemble of grids with one thread block per member
@@ -26,16 +33,21 @@ kernel launch, each with its plain PyTorch version beside it.
   RKN kernel's acceleration, :class:`FusedGridRHS`, :class:`FusedGridAcc`
   and :class:`FusedRho` are the grid kernels' counterparts
 
-The mid-size SWAG and ESDIRK kernels of ``extensisq_tpu.ops`` are queued
-in ROADMAP.md (queue B).
+Every whole-integration kernel of ``extensisq_tpu.ops`` has its
+counterpart here; their options not ported yet are queued in ROADMAP.md
+(queue B).
 """
 from .fused_adams import fused_adams_reference, solve_fused_adams
+from .fused_adams_grid import (fused_adams_grid_reference,
+                               solve_fused_adams_grid)
 from .fused_ckdisc import fused_ckdisc_reference, solve_fused_ckdisc
 from .fused_ckdisc_grid import (fused_ckdisc_grid_reference,
                                 solve_fused_ckdisc_grid)
 from .fused_erk import FusedRHS, fused_erk_reference, solve_fused_erk
 from .fused_erk_grid import fused_erk_grid_reference, solve_fused_erk_grid
 from .fused_esdirk import fused_esdirk_reference, solve_fused_esdirk
+from .fused_esdirk_grid import (fused_esdirk_grid_reference,
+                                solve_fused_esdirk_grid)
 from .fused_rkc import (FusedGridRHS, FusedRho, fused_rkc_reference,
                         solve_fused_rkc, solve_fused_rkc_ensemble)
 from .fused_rkn import FusedAcc, fused_rkn_reference, solve_fused_rkn
@@ -44,7 +56,9 @@ from .fused_rkn_grid import (FusedGridAcc, fused_rkn_grid_reference,
 
 __all__ = ["FusedRHS", "fused_erk_reference", "solve_fused_erk",
            "fused_esdirk_reference", "solve_fused_esdirk",
+           "fused_esdirk_grid_reference", "solve_fused_esdirk_grid",
            "fused_adams_reference", "solve_fused_adams",
+           "fused_adams_grid_reference", "solve_fused_adams_grid",
            "FusedGridRHS", "FusedRho", "fused_rkc_reference",
            "solve_fused_rkc", "solve_fused_rkc_ensemble",
            "FusedAcc", "fused_rkn_reference", "solve_fused_rkn",

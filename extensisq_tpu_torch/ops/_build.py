@@ -253,44 +253,18 @@ constexpr int MORDER = {k['morder']};
 """
 
 
-def fused_esdirk_header(k, m_diag, rot, n, rhs_src):
-    """Text of ``fused_esdirk_config.cuh`` for the constants ``k`` of
-    ``ops.fused_esdirk._esdirk_consts``, the mass-matrix setup ``(m_diag,
-    rot)`` of ``ops.fused_esdirk._mass_setup``, state size ``n`` and the
-    CUDA RHS source (the template form ``rhs<T>``)."""
+def _esdirk_constants(k):
+    """The method and controller constants of the fused ESDIRK kernels'
+    generated headers, from the constants ``k`` of
+    ``ops.fused_esdirk._esdirk_consts``, and the tableau accessors A, AZ,
+    C and E."""
     from .._config import (NEWTON_MAXITER, MAX_RATE, MAX_FACTOR_NRF,
                            MAX_FACTOR, MAX_FACTOR0)
-    s, cc, hs = k["s"], k["cc"], k["hstart"]
-    mass = np.ones(n) if m_diag is None else np.asarray(m_diag, float)
-    inv_mass = np.array([1.0 / m if m else 0.0 for m in mass])
-    if rot is None:
-        vh = v = uts = np.eye(n)
-    else:
-        vh, uts = rot
-        v = vh.T
-
-    def flag(b):
-        return "true" if b else "false"
-
-    accessors = "\n".join([
-        _accessor("A", k["A"]), _accessor("AZ", k["Az"]),
-        _accessor("C", k["C"]), _accessor("E", k["E"]),
-        _accessor("MASS", mass), _accessor("INV_MASS", inv_mass),
-        _accessor("ALG", mass == 0.0, "bool"),
-        _accessor("VH", vh), _accessor("V", v), _accessor("UTS", uts)])
-    return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
-// ESDIRK method {k['name']} rounded to float32, the mass-matrix setup and
-// the user's right-hand side.
-#pragma once
-
-namespace tab {{
-constexpr int N = {n};
-constexpr int S = {s};
+    cc, hs = k["cc"], k["hstart"]
+    return f"""constexpr int S = {k['s']};
 constexpr int MORDER = {k['morder']};
 constexpr int NEWTON_MAXITER = {NEWTON_MAXITER};
-constexpr bool FILTER_ERROR = {flag(k['filter_error'])};
-constexpr bool HAS_M = {flag(m_diag is not None)};
-constexpr bool ROT = {flag(rot is not None)};
+constexpr bool FILTER_ERROR = {_flag(k['filter_error'])};
 constexpr float D = {_f32(k['d'])};
 constexpr float INV_D = {_f32(k['inv_d'])};
 constexpr float KAPPA = {_f32(k['kappa'])};
@@ -312,6 +286,36 @@ constexpr float HS_BIG = {_f32(hs['big'])};
 constexpr float HS_SMALL = {_f32(hs['small'])};
 constexpr float HS_RELPER = {_f32(hs['relper'])};
 constexpr float HS_T_FLOOR = {_f32(hs['t_floor'])};
+""" + "\n".join([_accessor("A", k["A"]), _accessor("AZ", k["Az"]),
+                 _accessor("C", k["C"]), _accessor("E", k["E"])])
+
+
+def fused_esdirk_header(k, m_diag, rot, n, rhs_src):
+    """Text of ``fused_esdirk_config.cuh`` for the constants ``k`` of
+    ``ops.fused_esdirk._esdirk_consts``, the mass-matrix setup ``(m_diag,
+    rot)`` of ``ops.fused_esdirk._mass_setup``, state size ``n`` and the
+    CUDA RHS source (the template form ``rhs<T>``)."""
+    mass = np.ones(n) if m_diag is None else np.asarray(m_diag, float)
+    inv_mass = np.array([1.0 / m if m else 0.0 for m in mass])
+    if rot is None:
+        vh = v = uts = np.eye(n)
+    else:
+        vh, uts = rot
+        v = vh.T
+    accessors = "\n".join([
+        _accessor("MASS", mass), _accessor("INV_MASS", inv_mass),
+        _accessor("ALG", mass == 0.0, "bool"),
+        _accessor("VH", vh), _accessor("V", v), _accessor("UTS", uts)])
+    return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
+// ESDIRK method {k['name']} rounded to float32, the mass-matrix setup and
+// the user's right-hand side.
+#pragma once
+
+namespace tab {{
+constexpr int N = {n};
+constexpr bool HAS_M = {_flag(m_diag is not None)};
+constexpr bool ROT = {_flag(rot is not None)};
+{_esdirk_constants(k)}
 {accessors}
 }}  // namespace tab
 
@@ -319,23 +323,50 @@ constexpr float HS_T_FLOOR = {_f32(hs['t_floor'])};
 """
 
 
-def fused_adams_header(k, rhs_src):
-    """Text of ``fused_adams_config.cuh`` for the constants ``k`` of
-    ``ops.fused_adams._adams_consts`` (order bound ``KM``, state size
-    ``N``, the Adams error constants ``gstr``, ``iqq`` and the ``2^(q+1)``
-    doubling table, rounded to float32 as the JAX kernel rounds them) and
-    the CUDA RHS source (``rhs(float t, ...)`` or the template
-    ``rhs<T>``)."""
+def fused_esdirk_grid_header(k, shape, rhs_src):
+    """Text of ``fused_esdirk_grid_config.cuh`` for the constants ``k`` of
+    ``ops.fused_esdirk._esdirk_consts``, a member grid of extents ``shape``
+    and the CUDA source of the template right-hand side ``rhs<T>(T t,
+    const T* y, int i, const float* p)``; ``L`` is the number of cyclic
+    reduction rounds, ceil(log2 n)."""
+    n = int(np.prod(shape))
+    dims = ", ".join(str(int(d)) for d in shape)
+    return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
+// ESDIRK method {k['name']} rounded to float32, the member grid and the
+// user's right-hand side.
+#pragma once
+
+namespace tab {{
+using G = grid::Grid<{dims}>;
+constexpr int N = {n};
+constexpr int L = {(n - 1).bit_length()};
+{_esdirk_constants(k)}
+}}  // namespace tab
+
+{rhs_src}
+"""
+
+
+def fused_adams_header(k, rhs_src, shape=None):
+    """Text of ``fused_adams_config.cuh`` (or, for a member grid of extents
+    ``shape``, of the mid-size kernel's ``fused_adams_grid_config.cuh``)
+    for the constants ``k`` of ``ops.fused_adams._adams_consts`` (order
+    bound ``KM``, state size ``N``, the Adams error constants ``gstr``,
+    ``iqq`` and the ``2^(q+1)`` doubling table, rounded to float32 as the
+    JAX kernel rounds them) and the CUDA RHS source (``rhs(float t, ...)``
+    or the template ``rhs<T>``)."""
     accessors = "\n".join([_accessor("GSTR", k["gstr"]),
                            _accessor("IQQ", k["iqq"]),
                            _accessor("TWO", k["two"])])
+    grid = ("" if shape is None else "using G = grid::Grid<"
+            + ", ".join(str(int(d)) for d in shape) + ">;\n")
     return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
 // SWAG with k_max = {k['km']} for N = {k['n']}, its constants rounded to
 // float32, and the user's right-hand side.
 #pragma once
 
 namespace tab {{
-constexpr int KM = {k['km']};
+{grid}constexpr int KM = {k['km']};
 constexpr int N = {k['n']};
 constexpr float INV_N = {_f32(k['inv_n'])};
 constexpr float FOURU_T = {_f32(k['fouru_t'])};
@@ -537,6 +568,21 @@ def load_fused_esdirk(consts, m_diag, rot, n, rhs_src):
          _CI, _CF, _CI, _CF, _CI, _CI, _VP])
 
 
+def load_fused_esdirk_grid(consts, shape, rhs_src):
+    """Build (at first use) and load the mid-size ESDIRK kernel (B7) for
+    one method, member grid and RHS; returns :class:`Built` with
+    ``lib.fused_esdirk_grid_launch`` and ``lib.fused_esdirk_grid_smem``
+    bound."""
+    built = load_kernel(
+        "fused_esdirk_grid", fused_esdirk_grid_header(consts, shape, rhs_src),
+        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF,
+         _CI, _CI, _CF, _CI, _CF, _CI, _CI, _VP])
+    smem = built.lib.fused_esdirk_grid_smem
+    smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    smem.restype = ctypes.c_int
+    return built
+
+
 def load_fused_adams(consts, rhs_src):
     """Build (at first use) and load the fused SWAG kernel for one
     ``k_max``, state size and RHS; returns :class:`Built` with
@@ -545,6 +591,21 @@ def load_fused_adams(consts, rhs_src):
         "fused_adams", fused_adams_header(consts, rhs_src),
         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF,
          _CF, _CF, _CI, _CI, _CI, _VP])
+
+
+def load_fused_adams_grid(consts, shape, rhs_src):
+    """Build (at first use) and load the mid-size SWAG kernel (B8) for one
+    ``k_max``, member grid and RHS; returns :class:`Built` with
+    ``lib.fused_adams_grid_launch`` and ``lib.fused_adams_grid_smem``
+    bound."""
+    built = load_kernel(
+        "fused_adams_grid", fused_adams_header(consts, rhs_src, shape),
+        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF,
+         _CF, _CF, _CI, _CI, _VP])
+    smem = built.lib.fused_adams_grid_smem
+    smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    smem.restype = ctypes.c_int
+    return built
 
 
 def load_fused_rkc(shape, n_par, rhs_src, rho_src=None):

@@ -114,6 +114,16 @@ def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     """
     if isinstance(fun, FusedRHS):
         fun = fun.torch_fn
+    return run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step,
+                          k_max, max_steps, compensated, max_step,
+                          _member_norm)
+
+
+def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
+                   max_steps, compensated, max_step, member_norm):
+    """The fused SWAG loop on the rows-first torch function ``fun``, shared
+    by the plain versions of B3 and B8; ``member_norm`` maps ``(n, B)`` to
+    the members' RMS norms in the order of the kernel's sums."""
     km = int(k_max)
     y = torch.as_tensor(y0_batch).to(torch.float32).T.contiguous()
     n, nb = y.shape
@@ -213,11 +223,11 @@ def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
         inv_wt = 1.0 / wtn
         temp4 = yp_pred - phi_n[0]
         absh = torch.abs(h_in)
-        erk = absh * _member_norm(temp4 * inv_wt)
-        erkm1 = absh * _member_norm(
+        erk = absh * member_norm(temp4 * inv_wt)
+        erkm1 = absh * member_norm(
             (_take(phi_n, clip(km1, km + 1)) + temp4) * inv_wt) \
             * _take(sig_n, clip(km1, km)) * gstr[clip(km2, 12).long()]
-        erkm2 = absh * _member_norm(
+        erkm2 = absh * member_norm(
             (_take(phi_n, clip(km2, km + 1)) + temp4) * inv_wt) \
             * _take(sig_n, clip(km2, km)) * gstr[clip(km2 - 1, 12).long()]
         err = erk * (_take(g_n, clip(km1, km)) - _take(g_n, clip(k, km)))
@@ -275,7 +285,7 @@ def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
 
         phase1_b = phase1 & ~((knew == km1) | (k == km))
         erkp1 = gstr[clip(k, 12).long()] * absh \
-            * _member_norm(_take(phi_f, kp1c) / wtn)
+            * member_norm(_take(phi_f, kp1c) / wtn)
         can_est = ~phase1_b & (knew != km1) & (k < ns2)
         raise1 = (k == 1) & (erkp1 < 0.5 * erk) & (k < km)
         lower = (k != 1) & (erkm1 <= torch.minimum(erk, erkp1))

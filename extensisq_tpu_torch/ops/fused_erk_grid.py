@@ -74,13 +74,28 @@ def check_grid_input(name, y0, n_state, rhs_type, fun):
         raise ValueError("y0_batch must be contiguous")
 
 
+def check_shared_memory(name, smem_fn, remedy):
+    """Raise unless a member's rows fit in a block's shared memory on the
+    current card: ``smem_fn(need, limit)`` is the kernel library's query,
+    ``remedy`` the advice in the message."""
+    import ctypes
+    need, limit = ctypes.c_int(0), ctypes.c_int(0)
+    rc = smem_fn(ctypes.byref(need), ctypes.byref(limit))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    if need.value > limit.value:
+        raise ValueError(
+            f"{name}: a member needs {need.value} bytes of shared memory for "
+            f"its rows, more than the {limit.value} a thread block may have "
+            f"on this card; {remedy}")
+
+
 def launch_grid(wrapper, built, y0, n_row, t_span, rtol, atol, first_step,
                 max_steps, compensated, max_step):
     """Launch ``csrc/fused_rk_grid.cu`` (one block per member, stage rows
     of ``n_row``) on the current stream for ``wrapper``, whose launch count
     it raises; raise before launch when a member's rows do not fit in the
     card's shared memory.  Returns ``(y, status, nsteps, nfev)``."""
-    import ctypes
     name = wrapper.__name__
     nb = y0.shape[0]
     y_out = torch.empty_like(y0)
@@ -88,17 +103,9 @@ def launch_grid(wrapper, built, y0, n_row, t_span, rtol, atol, first_step,
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     with torch.cuda.device(y0.device):
-        need, limit = ctypes.c_int(0), ctypes.c_int(0)
-        rc = built.lib.fused_rk_grid_smem(ctypes.byref(need),
-                                          ctypes.byref(limit))
-        if rc != 0:
-            raise RuntimeError(f"{name}: CUDA error {rc}")
-        if need.value > limit.value:
-            raise ValueError(
-                f"{name}: a member needs {need.value} bytes of shared memory "
-                f"for its rows, more than the {limit.value} a thread block "
-                "may have on this card; take a smaller system or "
-                "solve_fused_* of the flat layout")
+        check_shared_memory(name, built.lib.fused_rk_grid_smem,
+                            "take a smaller system or solve_fused_* of the "
+                            "flat layout")
         if nb == 0:
             return y_out, status, nsteps, nfev
         t0, tf, rt, at, h0, use_h, mstep, msteps, comp = launch_args(

@@ -203,15 +203,10 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
     if isinstance(fun, FusedRHS):
         fun = fun.torch_fn
     k = _esdirk_consts(method)
-    A, C, E, Az = k["A"], k["C"], k["E"], k["Az"]
-    s, dd, kappa, cc = k["s"], k["d"], k["kappa"], k["cc"]
-    h_min_a, h_min_b = k["h_min_a"], k["h_min_b"]
-
     f32 = torch.float32
     y = torch.as_tensor(y0_batch).to(f32).T.contiguous()
     n, nb = y.shape
     dev = y.device
-    tiny_err = _tiny_err(n, rtol)
     m_diag, rot = _mass_setup(M, n)
     if m_diag is not None and yp0_batch is None and np.any(m_diag == 0.0):
         raise ValueError("DAE: pass consistent yp0_batch (e.g. from the "
@@ -219,8 +214,8 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
     is_alg = [m_diag is not None and m_diag[i] == 0.0 for i in range(n)]
     mass = [1.0 if m_diag is None else float(m_diag[i]) for i in range(n)]
 
-    def rows(x):
-        return [x[i] for i in range(n)]
+    def mat(c, x):
+        return torch.stack(_mat_rows(c, list(x)))
 
     if rot is not None:
         Vh, UTs = rot
@@ -228,57 +223,111 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
         user_fun = fun
 
         def fun(t, w):                       # noqa: F811
-            f = user_fun(t, torch.stack(_mat_rows(V, rows(w))))
-            return torch.stack(_mat_rows(UTs, rows(f)))
+            return mat(UTs, user_fun(t, mat(V, w)))
 
-        def to_user(r):
-            return _mat_rows(V, r)
-        y = torch.stack(_mat_rows(Vh, rows(y)))
+        def to_user(x):
+            return mat(V, x)
+        y = mat(Vh, y)
     else:
-        def to_user(r):
-            return r
+        to_user = None
 
-    def full(v):
-        return torch.full((nb,), v, dtype=f32, device=dev)
-
-    t = full(t_span[0])
-    tf = full(t_span[1])
-    direction = torch.sign(tf - t)
-    rtol_r, atol_r = full(rtol), full(atol)
+    t0 = torch.full((nb,), _f32(t_span[0]), dtype=f32, device=dev)
+    tf = torch.full((nb,), _f32(t_span[1]), dtype=f32, device=dev)
     if yp0_batch is not None:
         yp = torch.as_tensor(yp0_batch).to(device=dev, dtype=f32).T
         if rot is not None:
-            yp = torch.stack(_mat_rows(Vh, rows(yp)))
+            yp = mat(Vh, yp)
     else:
-        yp = fun(t, y)
+        yp = fun(t0, y)
         if m_diag is not None and rot is None:
             yp = torch.stack([yp[i] * _f32(1.0 / mass[i]) for i in range(n)])
-    if first_step is not None:
-        h_abs = full(first_step)
-    elif m_diag is None and rot is None:
-        # the in-kernel Watts start, plain ODEs only; its evaluations are
-        # not counted
-        bq = t + direction * torch.clamp(
-            torch.abs(tf - t), max=np.inf if max_step is None
-            else float(max_step))
-        h_abs = torch.abs(_hstart_tile.hstart_tile(
-            fun, t, bq, y, yp, k["morder"], rtol_r, atol_r))
-    else:
-        h_abs = 0.01 * torch.abs(tf - t)
+    h_abs = _start_step(fun, k, t0, tf, y, yp, rtol, atol, first_step,
+                        max_step, m_diag is None and rot is None)
 
+    def factor(tc, yy, hd):
+        """W = Sc (M - h d J) by the JAX kernel's bubble elimination."""
+        J = jacfwd(fun, n)(tc, yy)
+        return _gauss_factor([[-J[:, i, j] if is_alg[i]
+                               else (mass[i] if i == j else 0.0)
+                               - hd * J[:, i, j] for j in range(n)]
+                              for i in range(n)])
+
+    def solve(fact, b):
+        return torch.stack(_gauss_replay(fact, list(b)))
+
+    y, status, nstep, nfev = run_esdirk_loop(
+        fun, k, t0, tf, y, yp, h_abs, 0 if yp0_batch is not None else 1,
+        rtol, atol, max_steps, compensated, max_step,
+        torch.tensor(mass, dtype=f32, device=dev)[:, None],
+        torch.tensor(is_alg, device=dev)[:, None], factor, solve, to_user)
+    if rot is not None:
+        y = mat(rot[0].T, y)
+    return y.T.contiguous(), status, nstep, nfev
+
+
+def _start_step(fun, k, t0, tf, y, yp, rtol, atol, first_step, max_step,
+                watts):
+    """The first |h| of every member: ``first_step``; else Watts' estimate
+    where ``watts`` (plain ODEs; its evaluations are not counted), 1% of
+    the span otherwise."""
+    full = torch.full_like(t0, 1.0)
+    if first_step is not None:
+        return full * _f32(first_step)
+    direction = torch.sign(tf - t0)
+    if watts:
+        bq = t0 + direction * torch.clamp(
+            torch.abs(tf - t0), max=np.inf if max_step is None
+            else float(max_step))
+        return torch.abs(_hstart_tile.hstart_tile(
+            fun, t0, bq, y, yp, k["morder"], full * _f32(rtol),
+            full * _f32(atol)))
+    return 0.01 * torch.abs(tf - t0)
+
+
+def run_esdirk_loop(fun, k, t, tf, y, yp, h_abs, nfev0, rtol, atol,
+                    max_steps, compensated, max_step, mass, alg, factor,
+                    solve, to_user=None):
+    """The fused ESDIRK loop, shared by the plain versions of B2 and B7.
+
+    ``fun`` is the rows-first torch function of the integrated system, ``k``
+    the method's constants (:func:`_esdirk_consts`); ``y``, ``yp`` (n, B)
+    the members' start and its derivative, ``h_abs`` (B,) the first |h| and
+    ``nfev0`` the evaluations counted so far; ``mass`` (n, 1) the mass
+    diagonal (ones for ODEs) and ``alg`` (n, 1) its algebraic rows.  The
+    linear algebra is a parameter: ``factor(tc, y, hd)`` builds and factors
+    the Newton matrix ``W = M - hd J(tc, y)`` (the algebraic rows ``-J``)
+    once per attempt, ``solve(fact, b)`` solves ``W x = b`` for (n, B) rows
+    ``b``.  ``to_user`` maps rows to the user's coordinates, where every
+    norm is taken (identity when None).  Returns ``(y (n, B), status,
+    nsteps, nfev)``."""
+    A, C, E, Az = k["A"], k["C"], k["E"], k["Az"]
+    s, dd, kappa, cc = k["s"], k["d"], k["kappa"], k["cc"]
+    h_min_a, h_min_b = k["h_min_a"], k["h_min_b"]
+    n, nb = y.shape
+    dev = y.device
+    # rows-first and contiguous, so that every norm sums over the rows in
+    # one order
+    y, yp = y.contiguous(), yp.contiguous()
+    tiny_err = _tiny_err(n, rtol)
+    if to_user is None:
+        def to_user(x):
+            return x
     i32 = dict(dtype=torch.int32, device=dev)
+    direction = torch.sign(tf - t)
+    rtol_r = torch.full_like(t, _f32(rtol))
+    atol_r = torch.full_like(t, _f32(atol))
     t_lo = torch.zeros_like(t)
     y_lo = torch.zeros_like(y)
     status = torch.full((nb,), RUNNING, **i32)
     std_sc = torch.ones(nb, dtype=torch.bool, device=dev)
     rejected = torch.zeros_like(std_sc)
-    err_old = full(1.0)
+    err_old = torch.ones_like(t)
     h_prev = torch.zeros_like(t)
-    max_fac = full(MAX_FACTOR0)
+    max_fac = torch.full_like(t, MAX_FACTOR0)
     nstep = torch.zeros(nb, **i32)
-    nfev = torch.full((nb,), 0 if yp0_batch is not None else 1, **i32)
+    nfev = torch.full((nb,), nfev0, **i32)
 
-    def newton(t_stage, z, h, psi, y_c, fact):
+    def newton(t_stage, z, h, psi, yu_c, fact):
         """Modified Newton for one stage, each member stopping on its own.
         Returns (converged, z, rate, nfev, bad)."""
         rate = torch.full_like(h, -1.0)          # < 0: not yet measured
@@ -287,32 +336,20 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
         stop = torch.zeros_like(std_sc)
         bad_any = torch.zeros_like(std_sc)
         nf = torch.zeros(nb, **i32)
-        yu_c = to_user(y_c)
         for it in range(NEWTON_MAXITER):
             active = ~stop
             if not bool(active.any()):
                 break
-            y_pred = [psi[i] + dd * z[i] for i in range(n)]
-            fs = fun(t_stage, torch.stack(y_pred))
+            y_pred = psi + dd * z
+            fs, bad = _finite(fun(t_stage, y_pred))
+            bad = bad.any(0)
             nf = nf + active.to(torch.int32)
-            bad = torch.zeros_like(std_sc)
-            rhs = []
-            for i in range(n):
-                fi, bi = _finite(fs[i])
-                bad = bad | bi
-                rhs.append(fi * k["inv_d"] if is_alg[i]
-                           else h * fi - mass[i] * z[i])
-            dz = []
-            for di in _gauss_replay(fact, rhs):
-                di, bi = _finite(di)
-                bad = bad | bi
-                dz.append(di)
-            yu_pred, dz_u = to_user(y_pred), to_user(dz)
-            scale = [atol_r + rtol_r * torch.maximum(torch.abs(yu_c[i]),
-                                                     torch.abs(yu_pred[i]))
-                     for i in range(n)]
-            dz_norm, bn = _finite(norm(torch.stack(
-                [dz_u[i] / scale[i] for i in range(n)])))
+            dz, bd = _finite(solve(fact, torch.where(
+                alg, fs * k["inv_d"], h * fs - mass * z)))
+            bad = bad | bd.any(0)
+            scale = atol_r + rtol_r * torch.maximum(torch.abs(yu_c),
+                                                    torch.abs(to_user(y_pred)))
+            dz_norm, bn = _finite(norm(to_user(dz) / scale))
             bad = bad | bn
 
             tiny_ok = dz_norm <= tiny_err
@@ -333,7 +370,7 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
             stop_new = bad | tiny_ok | diverged | conv_normal
 
             keep = active & ~bad
-            z = [torch.where(keep, z[i] + dz[i], z[i]) for i in range(n)]
+            z = torch.where(keep, z + dz, z)
             conv = torch.where(active, tiny_ok | conv_normal, conv)
             rate = torch.where(active, rate_new, rate)
             dz_old = torch.where(active, dz_norm, dz_old)
@@ -363,78 +400,52 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
         too_small = h_a < min_step
         h = h_a * direction
 
-        # Newton matrix W = Sc (M - h d J), factored once per attempt
-        y_c = rows(y)
-        J = jacfwd(fun, n)(tc, y)
+        # the Newton matrix, factored once per attempt
         hd = h * dd
-        W = [[-J[:, i, j] if is_alg[i]
-              else (mass[i] if i == j else 0.0) - hd * J[:, i, j]
-              for j in range(n)] for i in range(n)]
-        fact = _gauss_factor(W)
+        fact = factor(tc, y, hd)
 
         # stages (stage 0 explicit: K0 = yp; h * K_j == z_j)
-        K = [rows(yp)]
-        Z = [[h * K[0][i] for i in range(n)]]
-        y_lo_rows = rows(y_lo)
+        K = [yp]
+        Z = [h * yp]
+        yu_c = to_user(y)
         conv_all = running & ~too_small
         Rate = torch.zeros_like(h)
         nfev_d = torch.zeros(nb, **i32)
         for si in range(1, s):
             if compensated:
-                psi = []
-                for i in range(n):
-                    acc, cmp = _comp_wsum([Z[j][i] for j in range(si)],
-                                          A[si, :si])
-                    psi.append(y_c[i] + (acc + (cmp + y_lo_rows[i])))
+                acc, cmp = _comp_wsum(Z[:si], A[si, :si])
+                psi = y + (acc + (cmp + y_lo))
             else:
-                psi = [y_c[i] + h * weighted_sum(
-                    [K[j][i] for j in range(si)], A[si, :si])
-                       for i in range(n)]
-            z0 = [h * weighted_sum([K[j][i] for j in range(si)], Az[si, :si])
-                  for i in range(n)]
+                psi = y + h * weighted_sum(K[:si], A[si, :si])
+            z0 = h * weighted_sum(K[:si], Az[si, :si])
             conv_s, z, rate_s, nfev_s, bad_s = newton(
-                tc + float(C[si]) * h, z0, h, psi, y_c, fact)
+                tc + float(C[si]) * h, z0, h, psi, yu_c, fact)
             conv_all = conv_all & conv_s & ~bad_s
             Rate = torch.maximum(Rate, rate_s)
             nfev_d = nfev_d + nfev_s
-            inv_h = 1.0 / h
-            K.append([z[i] * inv_h for i in range(n)])
+            K.append(z * (1.0 / h))
             Z.append(z)
 
         # solution and error estimate; stiffly accurate methods:
         # y_new = psi + d z of the last stage
         if compensated:
-            y_rows, ylo_rows = [], []
-            for i in range(n):
-                inc_s, inc_c = _comp_wsum([Z[j][i] for j in range(s)],
-                                          A[s - 1, :s])
-                hi, lo1 = _df_add(y_c[i], y_lo_rows[i], inc_s)
-                hi, lo2 = _two_sum(hi, lo1 + inc_c)
-                y_rows.append(hi)
-                ylo_rows.append(lo2)
-            y_new, y_lo_new = torch.stack(y_rows), torch.stack(ylo_rows)
+            inc_s, inc_c = _comp_wsum(Z, A[s - 1, :s])
+            hi, lo1 = _df_add(y, y_lo, inc_s)
+            y_new, y_lo_new = _two_sum(hi, lo1 + inc_c)
         else:
-            y_new = torch.stack([psi[i] + dd * z[i] for i in range(n)])
+            y_new = psi + dd * z
             y_lo_new = y_lo
         y_new, bad_y = _finite(y_new)
-        scale = atol_r + rtol_r * torch.maximum(
-            torch.abs(torch.stack(to_user(y_c))),
-            torch.abs(torch.stack(to_user(rows(y_new)))))
+        scale = atol_r + rtol_r * torch.maximum(torch.abs(yu_c),
+                                                torch.abs(to_user(y_new)))
         if compensated:
-            err_rows = []
-            for i in range(n):
-                acc, cmp = _comp_wsum([Z[j][i] for j in range(s)], E[:s])
-                err_rows.append(acc + cmp)
+            acc, cmp = _comp_wsum(Z, E[:s])
+            err = acc + cmp
         else:
-            err_rows = [h * weighted_sum([K[j][i] for j in range(s)], E[:s])
-                        for i in range(n)]
+            err = h * weighted_sum(K, E[:s])
         if k["filter_error"]:
-            inv_hd = 1.0 / hd
-            solved = _gauss_replay(fact, [err_rows[i] * inv_hd if is_alg[i]
-                                        else err_rows[i] for i in range(n)])
-            err_rows = [mass[i] * solved[i] for i in range(n)]
-        err_norm, bad_e = _finite(norm(torch.stack(to_user(err_rows))
-                                       / scale))
+            err = mass * solve(fact, torch.where(alg, err * (1.0 / hd), err))
+        err_norm, bad_e = _finite(norm(to_user(err) / scale))
         bad_m = bad_y.any(0) | bad_e
         err_norm = torch.where(bad_m, err_norm + 10.0, err_norm)
         accepted = conv_all & (err_norm < 1.0) & ~bad_m
@@ -484,7 +495,7 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
         it += 1
         status = torch.where((status == RUNNING) & (it >= max_steps),
                              OVERFLOW, status).to(torch.int32)
-        yp_new, _ = _finite(torch.stack(K[s - 1]))
+        yp_new, _ = _finite(K[s - 1])
 
         upd = accepted
         y = torch.where(upd, y_new, y)
@@ -500,11 +511,7 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
         rejected = ~upd & (rejected | (running & ~too_small & ~accepted))
         nstep = nstep + upd.to(torch.int32)
         nfev = nfev + torch.where(running, nfev_d, 0).to(torch.int32)
-
-    if rot is not None:
-        y = torch.stack(_mat_rows(rot[0].T, rows(y)))
-    return y.T.contiguous(), status, nstep, nfev
-
+    return y, status, nstep, nfev
 
 
 def _kernel(method, fun, M, m_diag, rot, n):

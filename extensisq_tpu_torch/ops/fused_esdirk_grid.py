@@ -1,0 +1,296 @@
+"""Fused implicit solver for mid-size systems: the whole adaptive ESDIRK
+integration of an ensemble of stiff systems or index-1 DAEs with
+tridiagonal Jacobians in one CUDA kernel launch, one thread block per
+member.
+
+Counterpart of ``extensisq_tpu/ops/fused_esdirk_grid.py``.  Per attempt,
+as in the JAX kernel:
+
+* the three bands of the Jacobian at ``(t, y)`` from four forward-mode
+  JVPs with mod-4 striped tangents (element j seeded where ``j % 4 == c``:
+  the neighbours i - 1, i, i + 1 of a row fall on distinct stripes), the
+  exact JVP of ``jax.linearize`` (dual numbers in the kernel,
+  ``torch.func.jvp`` here), not counted in ``nfev``;
+* the Newton matrix ``W = M - h d J`` (algebraic rows of a diagonal ``M``
+  take ``-J``, the ``1/(h d)`` rescale) as three bands, solved by parallel
+  cyclic reduction: ``ceil(log2 n)`` rounds, each coupling equation i to
+  i -/+ s and doubling s.  The rounds' multipliers depend on ``W`` alone,
+  so both versions compute them once per attempt and replay them on every
+  right-hand side (the Pallas body recomputes them in each solve; the
+  arithmetic is the same);
+* B2's modified Newton, error filter and implicit controller: the loop is
+  ``ops/fused_esdirk.py:run_esdirk_loop`` with this linear algebra.
+
+The plain version, :func:`fused_esdirk_grid_reference`, runs that loop on
+rows-first ``(n, B)`` float32 tensors; the wrapper
+:func:`solve_fused_esdirk_grid` takes it only for tensors on the CPU and
+launches ``csrc/fused_esdirk_grid.cu`` on CUDA tensors.
+
+Which Jacobians the reduction solves exactly: a strictly tridiagonal one
+at any n (the zero corners keep every wrapped coupling zero), and one with
+periodic corners where n is a power of two of at least 4 (the couplings
+wrap onto each equation itself after the last round, and the stripes stay
+distinct around the ring).  Elsewhere ``W`` is an approximation: the
+Newton residuals stay exact, so converged results remain correct, and the
+controller pays with smaller steps, as the JAX kernel's contract for wider
+stencils says.  The JAX kernel pads other n to a power-of-two multiple of
+128 with inert lanes and supports strictly tridiagonal Jacobians there;
+the port takes n as it is.
+
+Right-hand sides are :class:`~.fused_rkc.FusedGridRHS` with ``shape=(n,)``:
+``torch_fn(t, y)`` on ``(n, B)``, shifts as ``torch.roll(y, s, 0)``, and a
+CUDA source that defines the template ``template <class T> __device__ T
+rhs(T t, const T* y, int i, const float* p)`` (run as ``rhs<Dual>`` for
+the bands), neighbours through ``tab::G::rolled``.
+"""
+import numpy as np
+import torch
+
+from .._device import as_input
+from .fused_erk import check_options
+from .fused_erk_grid import (_state_size, check_grid_input,
+                             check_shared_memory, grid_threads)
+from .fused_esdirk import (_esdirk_consts, _f32, _start_step, _tiny_err,
+                           run_esdirk_loop)
+from .fused_rkc import FusedGridRHS
+
+
+def pcr_rounds(n):
+    """The rounds of cyclic reduction for n equations: ceil(log2 n)."""
+    return (int(n) - 1).bit_length()
+
+
+def pcr_factor(wl, wd, wu):
+    """The cyclic reduction of the tridiagonal ``W`` with bands ``wl[i] =
+    W[i, i-1 mod n]``, ``wd[i] = W[i, i]``, ``wu[i] = W[i, i+1 mod n]``
+    (each (n, B)): each round's multipliers ``(alpha, gamma, s)`` and the
+    final diagonal ``den``, with the JAX ``_pcr_solve``'s guards (a zero
+    pivot or denominator reads 1)."""
+    a, b, c = wl, wd, wu
+    rounds = []
+    s = 1
+    for _ in range(pcr_rounds(wd.shape[0])):
+        b_m = torch.roll(b, s, 0)
+        b_p = torch.roll(b, -s, 0)
+        b_m = torch.where(b_m == 0.0, 1.0, b_m)
+        b_p = torch.where(b_p == 0.0, 1.0, b_p)
+        alpha = -a / b_m
+        gamma = -c / b_p
+        a_new = alpha * torch.roll(a, s, 0)
+        c_new = gamma * torch.roll(c, -s, 0)
+        b = b + alpha * torch.roll(c, s, 0) + gamma * torch.roll(a, -s, 0)
+        a, c = a_new, c_new
+        rounds.append((alpha, gamma, s))
+        s *= 2
+    den = a + b + c
+    return rounds, torch.where(den == 0.0, 1.0, den)
+
+
+def pcr_solve(fact, d):
+    """``W x = d`` for (n, B) rows ``d`` with a :func:`pcr_factor`
+    factor."""
+    rounds, den = fact
+    for alpha, gamma, s in rounds:
+        d = d + alpha * torch.roll(d, s, 0) + gamma * torch.roll(d, -s, 0)
+    return d / den
+
+
+def jac_bands(fun, t, y):
+    """(lower, diagonal, upper) bands of the Jacobian of the rows-first
+    ``fun`` at ``(t, y)``, each (n, B), from four JVPs with mod-4 striped
+    tangents, summed as the JAX ``jac_bands`` sums them."""
+    n = y.shape[0]
+    lane = torch.arange(n, device=y.device)[:, None]
+
+    def stripe(k, c):
+        return ((lane + k) % 4 == c).to(y.dtype)
+
+    nz = y * 0.0
+    jv = [torch.func.jvp(lambda w: fun(t, w), (y,), (stripe(0, c) + nz,))[1]
+          for c in range(4)]
+    return tuple(sum(stripe(k, c) * jv[c] for c in range(4))
+                 for k in (3, 0, 1))
+
+
+def _mass_diag(M, n):
+    """The float32 mass diagonal (n,) of ``M`` (None, a length-n vector or a
+    diagonal matrix), or None."""
+    if M is None:
+        return None
+    M = np.asarray(M, dtype=np.float64)
+    if M.ndim == 2:
+        if not np.array_equal(M, np.diag(np.diag(M))):
+            raise ValueError("fused grid ESDIRK takes a diagonal mass matrix "
+                             "only; a dense or hidden M is the small-system "
+                             "kernel's (solve_fused_esdirk)")
+        M = np.diag(M)
+    if M.shape != (n,):
+        raise ValueError("M must be (n,) or a diagonal (n, n)")
+    return M.astype(np.float32)
+
+
+def fused_esdirk_grid_reference(fun, t_span, y0_batch, method=None, M=None,
+                                yp0_batch=None, rtol=1e-4, atol=1e-6,
+                                first_step=None, max_steps=100_000,
+                                compensated=False, max_step=None):
+    """The plain PyTorch version of the mid-size ESDIRK kernel, on the
+    device of ``y0_batch`` ``(B, n)``: B2's loop with the tridiagonal
+    bands and cyclic reduction.  ``fun`` is a :class:`FusedGridRHS` or a
+    rows-first torch function.  Returns ``(y (B, n), status (B,), nsteps
+    (B,), nfev (B,))``."""
+    if isinstance(fun, FusedGridRHS):
+        _state_size(fun)
+        fun = fun.torch_fn
+    k = _esdirk_consts(method)
+    f32 = torch.float32
+    y = torch.as_tensor(y0_batch).to(f32).T.contiguous()
+    n, nb = y.shape
+    dev = y.device
+    m_diag = _mass_diag(M, n)
+    if m_diag is not None and yp0_batch is None and np.any(m_diag == 0.0):
+        raise ValueError("DAE: pass consistent yp0_batch (e.g. from the "
+                         "f64 stepper's init)")
+    mass = torch.ones((n, 1), dtype=f32, device=dev)
+    if m_diag is not None:
+        mass = torch.tensor(m_diag, device=dev)[:, None]
+    alg = mass == 0.0
+    t0 = torch.full((nb,), _f32(t_span[0]), dtype=f32, device=dev)
+    tf = torch.full((nb,), _f32(t_span[1]), dtype=f32, device=dev)
+    if yp0_batch is not None:
+        yp = torch.as_tensor(yp0_batch).to(device=dev, dtype=f32).T
+    else:
+        yp = fun(t0, y)
+        if m_diag is not None:
+            yp = yp / mass
+    h_abs = _start_step(fun, k, t0, tf, y, yp, rtol, atol, first_step,
+                        max_step, m_diag is None)
+
+    def factor(tc, yy, hd):
+        jl, jd, ju = jac_bands(fun, tc, yy)
+        return pcr_factor(torch.where(alg, -jl, -hd * jl),
+                          torch.where(alg, -jd, mass - hd * jd),
+                          torch.where(alg, -ju, -hd * ju))
+
+    y, status, nstep, nfev = run_esdirk_loop(
+        fun, k, t0, tf, y, yp, h_abs, 0 if yp0_batch is not None else 1,
+        rtol, atol, max_steps, compensated, max_step, mass, alg, factor,
+        pcr_solve)
+    return y.T.contiguous(), status, nstep, nfev
+
+
+def _kernel(method, fun):
+    """The kernel built for one method and FusedGridRHS."""
+    if method is None:
+        from ..methods import Kv3I as method
+    from . import _build
+    return _build.cached("fused_esdirk_grid", (method, fun),
+                         lambda: _build.load_fused_esdirk_grid(
+                             _esdirk_consts(method), fun.shape, fun.cuda_src))
+
+
+def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
+                            yp0_batch=None, rtol=1e-4, atol=1e-6,
+                            first_step=None, max_steps=100_000,
+                            block_members=8, compensated=False, t_eval=None,
+                            events=None, max_step=None, params=None,
+                            dense=None, block_base=None):
+    """Integrate an ensemble of mid-size stiff systems or index-1 DAEs with
+    tridiagonal Jacobians (optionally with periodic corners) in one kernel
+    launch.
+
+    ``y0_batch``: (B, n) float32, any n that fits a block's shared memory
+    (see the module docstring for the Jacobians solved exactly).
+    ``method``: an ESDIRK method (Kv3I by default).  ``M``: None, or a
+    length-n diagonal (zeros mark algebraic rows; pass consistent
+    ``yp0_batch`` for DAEs).  For ODEs ``yp0_batch`` defaults to ``M^-1
+    f(t0, y0)``.  Without ``first_step`` a plain ODE starts from Watts'
+    estimate and a DAE from 1% of the span.  Returns ``(y_final (B, n),
+    status (B,), nsteps (B,), nfev (B,))`` with status 1 = finished, 2 =
+    step size underflow, 3 = step cap (``max_steps`` counts loop
+    iterations, accepted plus rejected).  ``compensated=True`` adds the
+    double-single carry of y and Neumaier stage sums.  ``block_members``
+    is accepted for the JAX signature and has no effect: a member is one
+    thread block.
+
+    A ``y0_batch`` that is not a tensor goes to the card as float32 (and
+    raises where there is none); a tensor keeps its device.  On a CUDA
+    tensor ``fun`` must be a :class:`FusedGridRHS` whose CUDA source
+    defines the template ``rhs<T>``, and the call launches
+    ``csrc/fused_esdirk_grid.cu`` (built at first use) with one block of up
+    to 256 threads per member (raising when the member's rows do not fit
+    in shared memory), or raises.  On a CPU tensor it runs
+    :func:`fused_esdirk_grid_reference`.
+
+    ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet;
+    nor is ``block_base``, the simultaneous-corrector mode of the
+    sensitivities.
+    """
+    check_options("solve_fused_esdirk_grid", "B7", t_eval=t_eval,
+                  events=events, params=params, dense=dense)
+    if block_base is not None:
+        raise NotImplementedError(
+            "solve_fused_esdirk_grid(block_base=...) is not ported yet: "
+            "ROADMAP queue A, item A16 (sensitivities)")
+    y0 = as_input(y0_batch, torch.float32)
+    kw = dict(method=method, M=M, yp0_batch=yp0_batch, rtol=rtol, atol=atol,
+              first_step=first_step, max_steps=max_steps,
+              compensated=compensated, max_step=max_step)
+    if y0.device.type != "cuda":
+        return fused_esdirk_grid_reference(fun, t_span, y0, **kw)
+    n = _state_size(fun) if isinstance(fun, FusedGridRHS) else -1
+    check_grid_input("solve_fused_esdirk_grid", y0, n, FusedGridRHS, fun)
+    return _launch(_kernel(method, fun), t_span, y0, **kw)
+
+
+def _launch(built, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
+            max_steps, compensated, max_step):
+    """Launch ``csrc/fused_esdirk_grid.cu`` on the current stream; raise
+    before launch when a member's rows do not fit in the card's shared
+    memory."""
+    nb, n = y0.shape
+    m_diag = _mass_diag(M, n)
+    if m_diag is not None and yp0_batch is None and np.any(m_diag == 0.0):
+        raise ValueError("DAE: pass consistent yp0_batch (e.g. from the "
+                         "f64 stepper's init)")
+    yp0 = None
+    if yp0_batch is not None:
+        yp0 = torch.as_tensor(yp0_batch, device=y0.device)
+        if yp0.shape != y0.shape or yp0.dtype != torch.float32:
+            raise ValueError("yp0_batch must be float32 of the shape of "
+                             "y0_batch")
+        yp0 = yp0.contiguous()
+    mass = (None if m_diag is None
+            else torch.tensor(m_diag, device=y0.device))
+    y_out = torch.empty_like(y0)
+    status = torch.empty(nb, dtype=torch.int32, device=y0.device)
+    nsteps = torch.empty_like(status)
+    nfev = torch.empty_like(status)
+    with torch.cuda.device(y0.device):
+        check_shared_memory("solve_fused_esdirk_grid",
+                            built.lib.fused_esdirk_grid_smem,
+                            "take a smaller system")
+        if nb == 0:
+            return y_out, status, nsteps, nfev
+        t0, tf = np.float32(t_span[0]), np.float32(t_span[1])
+        h0 = (np.float32(first_step) if first_step is not None
+              else np.float32(0.01) * abs(tf - t0))
+        stream = torch.cuda.current_stream(y0.device).cuda_stream
+        rc = built.lib.fused_esdirk_grid_launch(
+            y0.data_ptr(), None if yp0 is None else yp0.data_ptr(),
+            None if mass is None else mass.data_ptr(), y_out.data_ptr(),
+            status.data_ptr(), nsteps.data_ptr(), nfev.data_ptr(), nb,
+            float(t0), float(tf), float(rtol), float(atol), float(h0),
+            int(first_step is None and M is None), int(yp0 is not None),
+            np.inf if max_step is None else float(max_step), int(max_steps),
+            _tiny_err(n, rtol), int(bool(compensated)), grid_threads(n),
+            stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_esdirk_grid kernel launch failed: CUDA error {rc}")
+    solve_fused_esdirk_grid.launches += 1
+    return y_out, status, nsteps, nfev
+
+
+# kernel launches since the count was last set to 0 (the plain version on
+# CPU tensors does not count)
+solve_fused_esdirk_grid.launches = 0

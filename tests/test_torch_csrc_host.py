@@ -29,8 +29,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import test_torch_fused_adams as TA  # noqa: E402
+import test_torch_fused_adams_grid as TAG  # noqa: E402
 import test_torch_fused_ckdisc as TC  # noqa: E402
 import test_torch_fused_esdirk as T  # noqa: E402
+import test_torch_fused_esdirk_grid as TEG  # noqa: E402
 import test_torch_fused_erk as TK  # noqa: E402
 import test_torch_fused_erk_grid as TG  # noqa: E402
 import test_torch_fused_rkc as TR  # noqa: E402
@@ -38,9 +40,11 @@ import test_torch_fused_rkn as TN  # noqa: E402
 
 from extensisq_tpu_torch.ops import _build  # noqa: E402
 from extensisq_tpu_torch.ops import fused_adams as FA  # noqa: E402
+from extensisq_tpu_torch.ops import fused_adams_grid as FAG  # noqa: E402
 from extensisq_tpu_torch.ops import fused_ckdisc as FC  # noqa: E402
 from extensisq_tpu_torch.ops import fused_erk as FK  # noqa: E402
 from extensisq_tpu_torch.ops import fused_esdirk as FE  # noqa: E402
+from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG  # noqa: E402
 from extensisq_tpu_torch.ops import fused_rkc as FR  # noqa: E402
 from extensisq_tpu_torch.ops import fused_rkn as FN  # noqa: E402
 from extensisq_tpu_torch.parallel import pde  # noqa: E402
@@ -226,6 +230,62 @@ extern "C" int fused_rk_grid_host(
 }
 """
 
+HOST_GROUP = """
+struct HostGroup {
+  int rank() const { return 0; }
+  int size() const { return 1; }
+  void sync() const {}
+  float sum(float v) const { return v; }
+  float min(float v) const { return v; }
+};
+"""
+
+# The mid-size SWAG body (B8) run by a one-thread group on a host buffer in
+# place of shared memory, one member after another.
+ADAMS_GRID_LAUNCH = HOST_GROUP + """
+extern "C" int fused_adams_grid_host(
+    const float* y0, const float* yp0, const float* h0, const int* nfev0,
+    float* y_out, int* status, int* nsteps, int* nfev, int members,
+    float t0, float tf, float dir, float rtol, float atol, float max_step,
+    int max_steps) {
+  const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
+  const Out out{y_out, status, nsteps, nfev};
+  float* sm = new float[kFloats];
+  for (int m = 0; m < members; ++m) {
+    HostGroup g;
+    integrate(g, sm, y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L, m, out);
+  }
+  delete[] sm;
+  return 0;
+}
+"""
+
+# The mid-size ESDIRK body (B7) run by a one-thread group on a host buffer in
+# place of shared memory, one member after another.
+ESDIRK_GRID_LAUNCH = HOST_GROUP + """
+extern "C" int fused_esdirk_grid_host(
+    const float* y0, const float* yp0, const float* mass, float* y_out,
+    int* status, int* nsteps, int* nfev, int members, float t0, float tf,
+    float rtol, float atol, float h0, int use_hstart, int have_yp0,
+    float max_step, int max_steps, float tiny_err, int compensated) {
+  const Launch Lc{t0, tf, rtol, atol, h0, use_hstart, have_yp0, max_step,
+                  max_steps, tiny_err};
+  const Out out{y_out, status, nsteps, nfev};
+  float* sm = new float[kFloats];
+  for (int m = 0; m < members; ++m) {
+    HostGroup g;
+    const float* yp = yp0 ? yp0 + m * N : nullptr;
+    if (compensated) {
+      integrate<true>(g, sm, y0 + m * N, yp, mass, Lc, m, out);
+    } else {
+      integrate<false>(g, sm, y0 + m * N, yp, mass, Lc, m, out);
+    }
+  }
+  delete[] sm;
+  return 0;
+}
+"""
+
 CK_LAUNCH = """
 extern "C" int fused_ckdisc_launch(
     const void* y0, void* y_out, void* status, void* nstep, void* nfev,
@@ -252,6 +312,18 @@ ADAMS_VARIANTS = {"vdp": ("vdp5", 6), "osc_comp": ("osc", 4),
 ADAMS_CASES = dict(TA.CASES, bench12=(
     "vdp1e3", (0.0, 0.05), TA.X0,
     dict(rtol=1e-6, atol=1e-9, k_max=12, compensated=True)))
+
+# label -> (problem, k_max) of each mid-size SWAG build
+ADAMS_GRID_VARIANTS = {"ag_heat4": ("heat", 4), "ag_heat3": ("heat", 3),
+                       "ag_skew3": ("skew", 3),
+                       "ag_cubic4": ("heat_cubic", 4)}
+
+# label -> (problem, method) of each mid-size ESDIRK build
+ESDIRK_GRID_VARIANTS = {"eg_rd_kv3i": ("rdiff", "Kv3I"),
+                        "eg_rd_trbdf2": ("rdiff", "TRBDF2"),
+                        "eg_dae": ("dae", "Kv3I"),
+                        "eg_skew": ("skew", "TRBDF2"),
+                        "eg_cubic": ("cubic", "Kv3I")}
 
 ESDIRK_VARIANTS = {           # label -> (problem, method, M)
     "rob_kv3i": ("rob", "Kv3I", None),
@@ -333,6 +405,16 @@ def libs(tmp_path_factory):
         jobs["ck_" + prob] = ("fused_rk_grid", _build.fused_rk_grid_header(
             FC.ck_consts(), False, TC.RHS[prob].shape,
             TC.RHS[prob].cuda_src), GRID_LAUNCH, RKC_MARKER)
+    for label, (prob, meth) in ESDIRK_GRID_VARIANTS.items():
+        rhs = TEG.RHS[prob]
+        jobs[label] = ("fused_esdirk_grid", _build.fused_esdirk_grid_header(
+            FE._esdirk_consts(TEG.METHODS[meth]), rhs.shape, rhs.cuda_src),
+            ESDIRK_GRID_LAUNCH, RKC_MARKER)
+    for label, (prob, km) in ADAMS_GRID_VARIANTS.items():
+        rhs = TAG.RHS[prob]
+        jobs[label] = ("fused_adams_grid", _build.fused_adams_header(
+            FA._adams_consts(km, rhs.shape[0]), rhs.cuda_src, rhs.shape),
+            ADAMS_GRID_LAUNCH, RKC_MARKER)
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(_compile, *v[:3], d / k, *v[3:])
                    for k, v in jobs.items()}
@@ -768,3 +850,251 @@ def test_ckdisc_kernels_first_attempts_bit_identical(libs, case, attempts):
     out, ref = _ck_case(libs, case, max_steps=attempts)
     for a, b in zip(out, ref):
         np.testing.assert_array_equal(a, b)
+
+
+def _adams_grid_host(lib, fun, span, y0, **kw):
+    """The host-built mid-size SWAG body on ``y0``, started from the float32
+    stepper's init as the wrapper starts it."""
+    y0 = np.ascontiguousarray(y0, np.float32)
+    nb = y0.shape[0]
+    _, s0, direction = FA._host_init(
+        fun.torch_fn, span, torch.tensor(y0).T, kw["rtol"], kw["atol"],
+        kw.get("first_step"), kw["k_max"], kw.get("max_step"))
+    yp0 = np.ascontiguousarray(s0.yp.T.numpy())
+    h0 = np.ascontiguousarray(s0.h.numpy())
+    nfev0 = np.ascontiguousarray(s0.nfev.numpy())
+    out = np.empty_like(y0)
+    st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
+    fn = lib.fused_adams_grid_host
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [vp] * 8 + [ci] + [cf] * 6 + [ci]
+    mstep = kw.get("max_step")
+    fn(y0.ctypes.data, yp0.ctypes.data, h0.ctypes.data, nfev0.ctypes.data,
+       out.ctypes.data, st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb,
+       FA._f32(span[0]), FA._f32(span[1]), direction, FA._f32(kw["rtol"]),
+       FA._f32(kw["atol"]), np.inf if mstep is None else FA._f32(mstep),
+       kw.get("max_steps", 200_000))
+    return out, st, ns, nf
+
+
+# name -> (library, problem, span, y0, options): the cases of
+# test_torch_fused_adams_grid.py and its overflowing member
+ADAMS_GRID_CASES = {
+    "heat": ("ag_heat4",) + TAG.CASES["heat"],
+    "skew_back": ("ag_skew3",) + TAG.CASES["skew_back"],
+    "heat_max_step": ("ag_heat3",) + TAG.CASES["heat_max_step"],
+    "overflow": ("ag_cubic4", "heat_cubic", (0.0, 0.1), "bad",
+                 dict(TAG.TOL, k_max=4, max_steps=2000)),
+}
+
+
+def _adams_grid_case(libs, name, **over):
+    lib, prob, span, y0, kw = ADAMS_GRID_CASES[name]
+    kw = dict(kw, **over)
+    fun, y0 = TAG.RHS[prob], TAG.Y0[y0]
+    host = _adams_grid_host(libs[lib], fun, span, y0, **kw)
+    ref = FAG.fused_adams_grid_reference(fun, span, torch.tensor(y0), **kw)
+    return host, tuple(r.numpy() for r in ref)
+
+
+# (case, max |dy|, max |dnsteps|, members with other counts), measured:
+# heat 2.0e-5, 2, 2; skew_back 7.2e-7, 0, 0; heat_max_step 0, 0, 0 (bit
+# for bit); overflow 2.2e-5, 1, 1 (the overflowing member with status 3 on
+# both).  powf against torch.pow in the step ratio and the order of the
+# norms' sums (the host body sums the elements in order, the plain version
+# by torch.sum) part last bits of h; gates about 2x.
+ADAMS_GRID_GATES = [("heat", 4e-5, 4, 4), ("skew_back", 2e-6, 1, 2),
+                    ("heat_max_step", 0.0, 0, 0), ("overflow", 5e-5, 2, 2)]
+
+
+@pytest.mark.parametrize("case,y_gate,dsteps,nmembers", ADAMS_GRID_GATES)
+def test_adams_grid_body_matches_plain_version(libs, case, y_gate, dsteps,
+                                               nmembers):
+    """The mid-size SWAG body (``fused_adams_grid.cu``, B8, run by a
+    one-thread group) against its plain version: status identical (the
+    overflowing member ends with status 3 alone), counts within the
+    gates."""
+    (y, st, ns, nf), (ry, rst, rns, rnf) = _adams_grid_case(libs, case)
+    np.testing.assert_array_equal(st, rst)
+    ok = st == 1
+    assert np.sum(ok) == len(st) - (1 if case == "overflow" else 0)
+    assert np.max(np.abs(y[ok] - ry[ok])) <= y_gate
+    assert np.max(np.abs(ns - rns)) <= dsteps
+    assert np.sum((ns != rns) | (nf != rnf)) <= nmembers
+
+
+@pytest.mark.parametrize("case,attempts", [("heat_max_step", 5),
+                                           ("heat_max_step", 30)])
+def test_adams_grid_body_first_attempts_bit_identical(libs, case, attempts):
+    """The body's first attempts (the coefficient update, the predictor on
+    the phi columns, the error ladder, the corrector and the order
+    selection) repeat the plain version's arithmetic bit for bit."""
+    out, ref = _adams_grid_case(libs, case, max_steps=attempts)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+def _esdirk_grid_host(lib, span, y0, yp0=None, M=None, rtol=1e-4, atol=1e-6,
+                      first_step=None, max_steps=100_000, compensated=False,
+                      max_step=None, method=None):
+    """The host-built mid-size ESDIRK body on ``y0``, launched as the
+    wrapper launches the kernel."""
+    y0 = np.ascontiguousarray(y0, np.float32)
+    nb, n = y0.shape
+    out = np.empty_like(y0)
+    st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
+    yp = None if yp0 is None else np.ascontiguousarray(yp0, np.float32)
+    mass = None if M is None else np.ascontiguousarray(M, np.float32)
+    t0, tf = np.float32(span[0]), np.float32(span[1])
+    h0 = (np.float32(first_step) if first_step is not None
+          else np.float32(0.01) * abs(tf - t0))
+    fn = lib.fused_esdirk_grid_host
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [vp] * 7 + [ci] + [cf] * 5 + [ci, ci, cf, ci, cf, ci]
+    fn(y0.ctypes.data, None if yp is None else yp.ctypes.data,
+       None if mass is None else mass.ctypes.data, out.ctypes.data,
+       st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb, float(t0),
+       float(tf), rtol, atol, float(h0), int(first_step is None and M is None),
+       int(yp is not None), np.inf if max_step is None else float(max_step),
+       max_steps, FE._tiny_err(n, rtol), int(compensated))
+    return out, st, ns, nf
+
+
+# name -> (library, case of test_torch_fused_esdirk_grid.py or its
+# (problem, method, span, y0, options))
+ESDIRK_GRID_CASES = {
+    "rd_kv3i": ("eg_rd_kv3i", "rd_kv3i"),
+    "rd_trbdf2": ("eg_rd_trbdf2", "rd_trbdf2"),
+    "rd_h0": ("eg_rd_kv3i", "rd_h0"),
+    "rd_comp": ("eg_rd_kv3i", "rd_comp"),
+    "dae": ("eg_dae", "dae"),
+    "skew_back": ("eg_skew", "skew_back"),
+    "overflow": ("eg_cubic", ("cubic", "Kv3I", (0.0, 0.05), "bad",
+                              dict(TEG.TOL, first_step=1e-3,
+                                   max_steps=2000))),
+    "nan_start": ("eg_cubic", ("cubic", "Kv3I", (0.0, 0.05), "nan",
+                               dict(TEG.TOL, max_steps=50))),
+}
+
+
+def _esdirk_grid_case(libs, name, **over):
+    lib, case = ESDIRK_GRID_CASES[name]
+    prob, meth, span, y0, kw = TEG.CASES[case] if isinstance(case, str) \
+        else case
+    kw = dict(TEG._options(kw), **over)
+    fun = TEG.RHS[prob]
+    y0 = NAN_Y0 if y0 == "nan" else TEG.Y0[y0]
+    host_kw = dict(kw)
+    if "yp0_batch" in host_kw:
+        host_kw["yp0"] = host_kw.pop("yp0_batch").numpy()
+    host = _esdirk_grid_host(libs[lib], span, y0, **host_kw)
+    ref = FEG.fused_esdirk_grid_reference(fun, span, torch.tensor(y0),
+                                          method=TEG.METHODS[meth], **kw)
+    return host, tuple(r.numpy() for r in ref)
+
+
+# a member whose y0 holds a NaN: the block start's element minimum keeps it
+NAN_Y0 = TEG.Y0["bump"].copy()
+NAN_Y0[5, 7] = np.nan
+
+# (case, max |dy|, max |dnsteps|, members with other counts), measured:
+# rd_kv3i 9.7e-6, 1, 6; rd_trbdf2 4.4e-6, 0, 0; rd_h0 1.0e-5, 0, 2; rd_comp
+# 2.6e-6, 2, 7; dae 1.5e-7, 0, 0; skew_back 6.6e-7, 0, 0; overflow 3.0e-7,
+# 0, 0 (the overflowing member with status 2 on both); nan_start 2.7e-7, 0,
+# 1 (status 2 on both).  powf against torch.pow in the controller and the
+# order of the norms' sums part last bits of h; gates about 2x.
+ESDIRK_GRID_GATES = [("rd_kv3i", 2e-5, 2, 8), ("rd_trbdf2", 1e-5, 1, 2),
+                     ("rd_h0", 2e-5, 1, 4), ("rd_comp", 6e-6, 4, 8),
+                     ("dae", 5e-7, 1, 2), ("skew_back", 1.5e-6, 1, 2),
+                     ("overflow", 1e-6, 1, 2), ("nan_start", 1e-6, 1, 2)]
+
+
+@pytest.mark.parametrize("case,y_gate,dsteps,nmembers", ESDIRK_GRID_GATES)
+def test_esdirk_grid_body_matches_plain_version(libs, case, y_gate, dsteps,
+                                                nmembers):
+    """The mid-size ESDIRK body (``fused_esdirk_grid.cu``, B7, run by a
+    one-thread group: the dual-number bands, the cyclic reduction, Newton
+    and the controller) against its plain version: status identical (the
+    overflowing member fails alone, the member with a NaN in y0 takes the
+    plain version's status from the block start), counts within the
+    gates."""
+    (y, st, ns, nf), (ry, rst, rns, rnf) = _esdirk_grid_case(libs, case)
+    np.testing.assert_array_equal(st, rst)
+    ok = st == 1
+    if case in ("overflow", "nan_start"):
+        assert np.sum(ok) == len(st) - 1
+    else:
+        assert np.all(ok)
+    assert np.max(np.abs(y[ok] - ry[ok])) <= y_gate
+    assert np.max(np.abs(ns - rns)) <= dsteps
+    assert np.sum((ns != rns) | (nf != rnf)) <= nmembers
+
+
+@pytest.mark.parametrize("case,attempts", [("rd_h0", 1), ("rd_h0", 2),
+                                           ("dae", 1)])
+def test_esdirk_grid_body_first_attempts_bit_identical(libs, case, attempts):
+    """The body's first attempts repeat the plain version's arithmetic bit
+    for bit."""
+    out, ref = _esdirk_grid_case(libs, case, max_steps=attempts)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+# The block start's tolerance parts alone, by a one-thread group, for an
+# NF = 4 member.
+LOG_TOL_SRC = HOST_GROUP + """
+namespace tab {
+constexpr float HS_BIG = 1.0f, HS_RELPER = 1.0f, HS_SMALL = 1.0f,
+                HS_T_FLOOR = 1.0f;
+}
+#include "block_hstart.cuh"
+
+extern "C" void log_tolerances_host(const float* y, float rtol, float atol,
+                                    float* out) {
+  HostGroup g;
+  rk::log_tolerances<4>(g, y, rtol, atol, out[0], out[1]);
+}
+"""
+
+
+def test_block_start_keeps_a_nan_of_y0(tmp_path):
+    """The block start's minimum over the elements of log10(atol + rtol
+    |y|) keeps a NaN of y0, as torch.amin does in ``hstart_tile`` (it
+    dropped it, with fminf, before); finite members give the sum and the
+    minimum of the plain version."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the CUDA sources for the host")
+    (tmp_path / "shim.h").write_text(SHIM)
+    (tmp_path / "log_tol.cpp").write_text(LOG_TOL_SRC)
+    so = tmp_path / "lib.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                    "-ffp-contract=off", "-include", str(tmp_path / "shim.h"),
+                    "-I", str(_build.CSRC), "-o", str(so),
+                    str(tmp_path / "log_tol.cpp")],
+                   check=True, capture_output=True, text=True, timeout=600)
+    fn = ctypes.CDLL(str(so)).log_tolerances_host
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_void_p]
+    for y in ([0.5, -2.0, 3.0, 1e-3], [0.5, np.nan, 3.0, 1e-3]):
+        y = np.asarray(y, np.float32)
+        out = np.empty(2, np.float32)
+        fn(y.ctypes.data, 1e-4, 1e-6, out.ctypes.data)
+        te = torch.log10(1e-6 + 1e-4 * torch.abs(torch.tensor(y)))
+        np.testing.assert_allclose(out, [te.sum(), te.amin()], rtol=1e-6)
+        assert np.isnan(out[1]) == bool(np.isnan(y).any())
+
+
+def test_grid_body_nan_start_status_as_plain(libs):
+    """A member of B4's block body whose y0 holds a NaN ends with the plain
+    version's status, and its neighbours with the plain version's counts
+    (the block start's NaN reaches h through its norms, as in
+    ``hstart_tile``)."""
+    host, lib, plain, fun, span, y0, kw = _new_case("fisher_plain")
+    y0 = y0.copy()
+    y0[2, 5] = np.nan
+    kw["max_steps"] = 200
+    y, st, ns, nf = host(libs[lib], span, y0, **kw)
+    ry, rst, rns, rnf = (r.numpy() for r in plain(fun, span,
+                                                  torch.tensor(y0), **kw))
+    np.testing.assert_array_equal(st, rst)
+    assert st[2] != 1 and np.sum(st == 1) == len(st) - 1

@@ -490,7 +490,7 @@ def test_build_key_hashes_shared_headers(monkeypatch, tmp_path):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.shared_headers("fused_esdirk")] == [
-        "dual.cuh", "hstart.cuh", "rk_common.cuh"]
+        "dual.cuh", "esdirk_control.cuh", "hstart.cuh", "rk_common.cuh"]
     assert [p.name for p in _build.shared_headers("fused_erk")] == [
         "hstart.cuh", "rk_common.cuh", "rk_control.cuh"]
     before = {k: _build.build_key(k, "header") for k in ("fused_erk",

@@ -1,0 +1,490 @@
+"""The port's mid-size fused ESDIRK path (B7) against the JAX package's
+Pallas kernel and the port's f64 driver.
+
+``fused_esdirk_grid_reference`` (the CUDA kernel's plain PyTorch version:
+B2's loop with the striped-JVP bands and cyclic reduction) runs on the CPU;
+the JAX side runs ``solve_fused_esdirk_grid(..., interpret=True)`` on the
+same seeded members, in one subprocess without FMA
+(``XLA_FLAGS=--xla_cpu_max_isa=SSE4_2``, see ``test_torch_fused_erk.py``).
+The periodic cases take n = 128, which the JAX kernel runs unpadded; the
+strictly tridiagonal ones take n = 32, which it pads to 128 inert lanes
+and the port takes as it is (the reduction's wrapped couplings are zero
+there, so both solve the same system).  The first attempts agree bit for
+bit; from there the port's ``pow`` in the controller (the JAX kernel takes
+``exp(e log x)``, a Mosaic workaround left out) and the order of the
+norms' sums part last bits of h, and the gates below are measured with a
+margin.  Config 4d's shapes (32 reaction-diffusion members of n = 128 with
+Kv3I) are held against the port's f64 driver, with the gates of the JAX
+tests (``tests/test_fused_pallas.py:957-1039``).
+
+The tests marked ``gpu`` hold the CUDA kernel against its plain version on
+the card; they skip where there is none.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from extensisq_tpu_torch import Kv3I, TRBDF2, solve_ensemble
+from extensisq_tpu_torch.ops import (FusedGridRHS, fused_esdirk_grid_reference,
+                                     solve_fused_esdirk_grid)
+from extensisq_tpu_torch.ops.fused_esdirk_grid import (jac_bands, pcr_factor,
+                                                       pcr_solve)
+
+REPO = Path(__file__).resolve().parents[1]
+B = 8
+N = 128             # config 4d's width (validation/benchmarks.py:463-502)
+N_SMALL = 32        # strictly tridiagonal cases
+B_4D = 32
+METHODS = {"Kv3I": Kv3I, "TRBDF2": TRBDF2}
+
+
+def rdiff(n):
+    """Config 4d's periodic reaction-diffusion, D = 1, dx = 1/n."""
+    c = float(n * n)
+
+    def fun(t, y):
+        return ((torch.roll(y, 1, 0) + torch.roll(y, -1, 0) - 2.0 * y) * c
+                + y * y * (1.0 - y))
+    return fun
+
+
+def rdiff_cuda(n):
+    return f"""template <class T>
+__device__ T rhs(T t, const T* y, int i, const float* p) {{
+  using G = tab::G;
+  return (G::rolled<0>(y, i, 1) + G::rolled<0>(y, i, -1) - 2.0f * y[i])
+         * {float(n * n)!r}f + y[i] * y[i] * (1.0f - y[i]);
+}}"""
+
+
+def dae(t, y):
+    """Even rows y' = -y, odd rows 0 = y[i-1] - y[i]
+    (``tests/test_fused_pallas.py:991-1015``)."""
+    even = (torch.arange(y.shape[0], device=y.device)[:, None] % 2
+            == 0).to(y.dtype)
+    return even * (-y) + (1.0 - even) * (torch.roll(y, 1, 0) - y)
+
+
+DAE_CUDA = """template <class T>
+__device__ T rhs(T t, const T* y, int i, const float* p) {
+  return i % 2 == 0 ? -y[i] : tab::G::rolled<0>(y, i, 1) - y[i];
+}"""
+
+
+def skew(t, y):
+    """Central advection with zero boundaries: a strictly tridiagonal
+    Jacobian with an imaginary spectrum, bounded both ways in t."""
+    z = torch.zeros_like(y[:1])
+    return -(torch.cat([y[1:], z]) - torch.cat([z, y[:-1]])) * (0.5 * N_SMALL)
+
+
+SKEW_CUDA = f"""template <class T>
+__device__ T rhs(T t, const T* y, int i, const float* p) {{
+  const T right = i < {N_SMALL - 1} ? y[i + 1] : T(0.0f);
+  const T left = i > 0 ? y[i - 1] : T(0.0f);
+  return -(right - left) * {0.5 * N_SMALL!r}f;
+}}"""
+
+
+def stiff_cubic(t, y):
+    """Dirichlet diffusion with a cubic source that blows up a large
+    member."""
+    z = torch.zeros_like(y[:1])
+    return ((torch.cat([y[1:], z]) + torch.cat([z, y[:-1]]) - 2.0 * y)
+            * float(N_SMALL ** 2) + y * y * y)
+
+
+CUBIC_CUDA = f"""template <class T>
+__device__ T rhs(T t, const T* y, int i, const float* p) {{
+  const T right = i < {N_SMALL - 1} ? y[i + 1] : T(0.0f);
+  const T left = i > 0 ? y[i - 1] : T(0.0f);
+  return (right + left - 2.0f * y[i]) * {float(N_SMALL ** 2)!r}f
+         + y[i] * y[i] * y[i];
+}}"""
+
+RHS = {
+    "rdiff": FusedGridRHS(rdiff(N), rdiff_cuda(N), (N,)),
+    "dae": FusedGridRHS(dae, DAE_CUDA, (N,)),
+    "skew": FusedGridRHS(skew, SKEW_CUDA, (N_SMALL,)),
+    "cubic": FusedGridRHS(stiff_cubic, CUBIC_CUDA, (N_SMALL,)),
+}
+M_DAE = (np.arange(N) % 2 == 0).astype(np.float64)
+
+
+def rdiff_y0(members, n):
+    """Config 4d's members: 0.5 + 0.4 amps sin(2 pi x)."""
+    x = np.linspace(0, 1, n, endpoint=False)
+    amps = np.linspace(0.3, 0.7, members)
+    return (0.5 + 0.4 * amps[:, None]
+            * np.sin(2 * np.pi * x)[None, :]).astype(np.float32)
+
+
+def _inputs():
+    xs = np.linspace(0, 1, N_SMALL)
+    bump = np.exp(-40 * (xs - 0.5) ** 2)[None, :] * np.linspace(0.5, 1.0, B)[
+        :, None]
+    bad = bump.copy()
+    bad[3] *= 1e19                    # this member blows up in f32
+    dae0 = np.ones((B, N)) * np.linspace(0.5, 2.0, B)[:, None]
+    return {k: np.asarray(v, np.float32) for k, v in dict(
+        rdiff=rdiff_y0(B, N), bump=bump, bad=bad, dae=dae0,
+        dae_yp=-dae0).items()}
+
+
+Y0 = _inputs()
+TOL = dict(rtol=1e-4, atol=1e-6)
+# name -> (problem, method, span, y0, options); a DAE names its mass
+# diagonal and consistent yp0 as "M" and "yp0"
+CASES = {
+    "rd_kv3i": ("rdiff", "Kv3I", (0.0, 0.1), "rdiff", TOL),
+    "rd_trbdf2": ("rdiff", "TRBDF2", (0.0, 0.1), "rdiff", TOL),
+    "rd_h0": ("rdiff", "Kv3I", (0.0, 0.1), "rdiff",
+              dict(TOL, first_step=1e-3, max_step=0.01)),
+    "rd_comp": ("rdiff", "Kv3I", (0.0, 0.02), "rdiff",
+                dict(rtol=1e-6, atol=1e-9, compensated=True)),
+    "dae": ("dae", "Kv3I", (0.0, 1.0), "dae",
+            dict(rtol=1e-5, atol=1e-7, M="M", yp0="dae_yp")),
+    "skew_back": ("skew", "TRBDF2", (0.2, 0.0), "bump",
+                  dict(rtol=1e-5, atol=1e-7)),
+}
+# the first attempts of a case, bit for bit: name -> (case, max_steps)
+FIRST = {"rd_h0_2": ("rd_h0", 2)}
+
+_JAX_SCRIPT = textwrap.dedent(f"""
+    import json, sys
+    import numpy as np
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from extensisq_tpu import Kv3I, TRBDF2
+    from extensisq_tpu.ops import solve_fused_esdirk_grid
+
+    def dae(t, y):
+        mask = (jax.lax.broadcasted_iota(jnp.int32, y.shape, 1)
+                % 2 == 0).astype(jnp.float32)
+        return mask * (-y) + (1.0 - mask) * (jnp.roll(y, 1, -1) - y)
+
+    def shift(y, s):
+        z = jnp.zeros_like(y[:, :1])
+        return (jnp.concatenate([z, y[:, :-1]], axis=1) if s > 0
+                else jnp.concatenate([y[:, 1:], z], axis=1))
+
+    problems = {{
+        "rdiff": lambda t, y: ((jnp.roll(y, 1, -1) + jnp.roll(y, -1, -1)
+                                - 2.0 * y) * {float(N * N)!r}
+                               + y * y * (1.0 - y)),
+        "dae": dae,
+        "skew": lambda t, y: -(shift(y, -1) - shift(y, 1))
+                             * {0.5 * N_SMALL!r},
+    }}
+    methods = {{"Kv3I": Kv3I, "TRBDF2": TRBDF2}}
+    inputs = np.load(sys.argv[1])
+    m_dae = np.asarray(json.loads(sys.argv[4]))
+    out = {{}}
+    for name, (prob, meth, span, y0, kw) in json.loads(sys.argv[2]).items():
+        kw = dict(kw)
+        if "M" in kw:
+            kw["M"] = m_dae
+            kw["yp0_batch"] = inputs[kw.pop("yp0")]
+        res = solve_fused_esdirk_grid(problems[prob], tuple(span),
+                                      inputs[y0], method=methods[meth],
+                                      block_members=8, interpret=True, **kw)
+        for i, r in enumerate(res):
+            out[f"{{name}}/{{i}}"] = np.asarray(r)
+    np.savez(sys.argv[3], **out)
+""")
+
+
+def _spec():
+    spec = {k: list(v) for k, v in CASES.items()}
+    for name, (case, attempts) in FIRST.items():
+        prob, meth, span, y0, kw = CASES[case]
+        spec[name] = [prob, meth, span, y0, dict(kw, max_steps=attempts)]
+    return spec
+
+
+@pytest.fixture(scope="module")
+def jax_results(tmp_path_factory):
+    """The JAX kernel's outputs for every case, from one subprocess."""
+    d = tmp_path_factory.mktemp("jax_fused_esdirk_grid")
+    np.savez(d / "in.npz", **Y0)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_cpu_max_isa=SSE4_2", PYTHONPATH=str(REPO))
+    subprocess.run([sys.executable, "-c", _JAX_SCRIPT, str(d / "in.npz"),
+                    json.dumps(_spec()), str(d / "out.npz"),
+                    json.dumps(M_DAE.tolist())],
+                   cwd=REPO, env=env, check=True, timeout=600)
+    out = np.load(d / "out.npz")
+    return {k: tuple(out[f"{k}/{i}"] for i in range(4)) for k in _spec()}
+
+
+def _options(kw):
+    """A case's options with the DAE's mass diagonal and yp0 filled in."""
+    kw = dict(kw)
+    if "M" in kw:
+        kw["M"] = M_DAE
+        kw["yp0_batch"] = torch.tensor(Y0[kw.pop("yp0")])
+    return kw
+
+
+def _port(name, **over):
+    prob, meth, span, y0, kw = CASES[name]
+    res = fused_esdirk_grid_reference(RHS[prob], span, torch.tensor(Y0[y0]),
+                                      method=METHODS[meth],
+                                      **dict(_options(kw), **over))
+    return tuple(r.numpy() for r in res)
+
+
+# (case, max |dy|, max |dnsteps|, max |dnfev|, members with other counts),
+# measured on the CPU: rd_kv3i 1.2e-5, 1, 3, 3; rd_trbdf2 5.1e-6, 0, 0, 0;
+# rd_h0 (first_step and max_step) 1.2e-5, 0, 1, 1; rd_comp 2.4e-6, 1, 19
+# (Newton iterations), 7; dae 1.2e-7, 0, 0, 0; skew_back (a backward span,
+# n = 32 strictly tridiagonal) 4.8e-7, 0, 0, 0.  Gates about 2x.
+GATES = [("rd_kv3i", 3e-5, 2, 6, 6), ("rd_trbdf2", 1e-5, 1, 2, 2),
+         ("rd_h0", 3e-5, 1, 2, 2), ("rd_comp", 5e-6, 2, 38, 8),
+         ("dae", 3e-7, 1, 2, 2), ("skew_back", 1e-6, 1, 2, 2)]
+
+
+@pytest.mark.parametrize("name,y_gate,dsteps,dfev,nmembers", GATES)
+def test_reference_matches_jax_kernel(jax_results, name, y_gate, dsteps,
+                                      dfev, nmembers):
+    y, status, nsteps, nfev = _port(name)
+    jy, jstatus, jnsteps, jnfev = jax_results[name]
+    np.testing.assert_array_equal(status, jstatus)
+    assert np.all(status == 1)
+    assert np.max(np.abs(y - jy)) <= y_gate
+    assert np.max(np.abs(nsteps - jnsteps)) <= dsteps
+    assert np.max(np.abs(nfev - jnfev)) <= dfev
+    assert np.sum((nsteps != jnsteps) | (nfev != jnfev)) <= nmembers
+
+
+@pytest.mark.parametrize("name", list(FIRST))
+def test_first_attempts_bit_identical(jax_results, name):
+    """With ``first_step`` given, the first attempts (the striped-JVP
+    bands, the cyclic reduction, Newton, the error and the controller)
+    repeat the JAX kernel's arithmetic bit for bit."""
+    case, attempts = FIRST[name]
+    out = _port(case, max_steps=attempts)
+    for a, b in zip(out, jax_results[name]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n,periodic", [(16, True), (128, True), (20, False),
+                                        (37, False)])
+def test_cyclic_reduction_solves_the_tridiagonal_system(n, periodic):
+    """``pcr_factor``/``pcr_solve`` against a dense solve
+    (``tests/test_fused_pallas.py``'s ``_pcr_solve`` check): periodic
+    corners at powers of two, strictly tridiagonal systems at any n."""
+    rng = np.random.RandomState(n)
+    lo, up = rng.randn(2, n, 3)
+    di = 4.0 + rng.rand(n, 3)
+    if not periodic:
+        lo[0] = 0.0
+        up[-1] = 0.0
+    r = rng.randn(n, 3)
+    f = [torch.tensor(a, dtype=torch.float32) for a in (lo, di, up, r)]
+    x = pcr_solve(pcr_factor(*f[:3]), f[3]).numpy()
+    for m in range(3):
+        W = np.zeros((n, n))
+        for i in range(n):
+            W[i, (i - 1) % n] += lo[i, m]
+            W[i, i] += di[i, m]
+            W[i, (i + 1) % n] += up[i, m]
+        xe = np.linalg.solve(W, r[:, m])
+        assert np.max(np.abs(x[:, m] - xe)) / max(1.0, np.abs(xe).max()) < 5e-5
+
+
+def test_bands_are_the_jacobian():
+    """The striped JVPs give the three bands of the dense Jacobian of the
+    periodic reaction-diffusion, corners included."""
+    y = torch.tensor(Y0["rdiff"][:2].T.copy(), dtype=torch.float64)
+    t = torch.zeros(2, dtype=torch.float64)
+    lo, di, up = jac_bands(rdiff(N), t, y)
+    for m in range(2):
+        J = torch.autograd.functional.jacobian(
+            lambda v: rdiff(N)(t[m], v[:, None])[:, 0], y[:, m])
+        idx = torch.arange(N)
+        assert torch.allclose(lo[:, m], J[idx, (idx - 1) % N])
+        assert torch.allclose(di[:, m], J[idx, idx])
+        assert torch.allclose(up[:, m], J[idx, (idx + 1) % N])
+
+
+def config_4d(span):
+    """Config 4d's members and right-hand side on ``span``."""
+    return RHS["rdiff"], span, torch.tensor(rdiff_y0(B_4D, N))
+
+
+@pytest.mark.parametrize("meth", ["Kv3I", "TRBDF2"])
+def test_config_4d_tracks_the_f64_driver(meth):
+    """Config 4d's members on the JAX test's span, t in [0, 0.1]: every
+    member finishes, within 1e-3 of the port's f64 driver with the same
+    method and with mean nsteps within 20% + 2
+    (``tests/test_fused_pallas.py:957-988``).  On the whole span, t in
+    [0, 1], the float32 steps inflate ~3x at the steady-state tail
+    (validation/benchmarks.py:463-469), so chip_smoke.py holds the
+    endpoint there and the steps here."""
+    fun, span, y0 = config_4d((0.0, 0.1))
+    y, status, nsteps, _ = fused_esdirk_grid_reference(
+        fun, span, y0, method=METHODS[meth], **TOL)
+    ref = solve_ensemble(fun.torch_fn, span, y0.double(),
+                         method=METHODS[meth], **TOL)
+    assert bool((status == 1).all()) and bool((ref.status == 1).all())
+    assert (y.double() - ref.y).abs().max().item() < 1e-3
+    mean, mean64 = nsteps.double().mean(), ref.nsteps.double().mean()
+    assert abs(mean - mean64) < 0.2 * mean64 + 2.0
+
+
+def test_dae_lanes_match_the_exact_solution():
+    """Lane-interleaved algebraic rows (zeros of a diagonal M): every lane
+    follows y0 exp(-t) within 1e-4 at t = 1
+    (``tests/test_fused_pallas.py:991-1015``)."""
+    y, status, _, _ = _port("dae")
+    assert np.all(status == 1)
+    assert np.max(np.abs(y - Y0["dae"] * np.exp(-1.0))) < 1e-4
+
+
+def test_compensated_tracks_the_f64_driver():
+    """``compensated=True`` at rtol 1e-6 / atol 1e-9 lands within 3e-5 of
+    the f64 driver (``tests/test_fused_pallas.py:1018-1039``), here on
+    t in [0, 0.02]."""
+    y, status, _, _ = _port("rd_comp")
+    _, meth, span, y0, kw = CASES["rd_comp"]
+    ref = solve_ensemble(RHS["rdiff"].torch_fn, span,
+                         torch.tensor(Y0[y0], dtype=torch.float64),
+                         method=Kv3I, rtol=1e-6, atol=1e-9)
+    assert np.all(status == 1)
+    assert np.max(np.abs(y - ref.y.numpy())) < 3e-5
+
+
+def test_overflow_member_isolated():
+    """A member whose state overflows fails alone; its neighbours finish
+    with the steps they take without it."""
+    span, kw = (0.0, 0.05), dict(TOL, first_step=1e-3, max_steps=2000)
+    y, status, nsteps, _ = fused_esdirk_grid_reference(
+        RHS["cubic"], span, torch.tensor(Y0["bad"]), **kw)
+    ref = fused_esdirk_grid_reference(
+        RHS["cubic"], span, torch.tensor(Y0["bump"]), **kw)
+    assert int(status[3]) != 1 and int((status == 1).sum()) == B - 1
+    ok = np.arange(B) != 3
+    assert torch.equal(nsteps[ok], ref[2][ok])
+    assert torch.equal(y[ok], ref[0][ok])
+
+
+def test_nondiagonal_mass_raises():
+    M = np.eye(N) + np.eye(N, k=1)
+    with pytest.raises(ValueError, match="diagonal"):
+        fused_esdirk_grid_reference(RHS["rdiff"], (0.0, 0.1),
+                                    torch.tensor(Y0["rdiff"]), M=M)
+
+
+def test_dae_needs_yp0():
+    with pytest.raises(ValueError, match="yp0_batch"):
+        fused_esdirk_grid_reference(RHS["dae"], (0.0, 0.1),
+                                    torch.tensor(Y0["dae"]), M=M_DAE)
+
+
+def test_cpu_wrapper_runs_plain_version():
+    """On CPU tensors the wrapper runs the plain version, with a
+    FusedGridRHS or a bare torch function, and launches no kernel."""
+    prob, meth, span, y0, kw = CASES["rd_h0"]
+    y0 = torch.tensor(Y0[y0])
+    kw = dict(kw, method=METHODS[meth])
+    before = solve_fused_esdirk_grid.launches
+    ref = fused_esdirk_grid_reference(RHS[prob], span, y0, **kw)
+    for f in (RHS[prob], RHS[prob].torch_fn):
+        for a, b in zip(solve_fused_esdirk_grid(f, span, y0, **kw), ref):
+            assert torch.equal(a, b)
+    assert solve_fused_esdirk_grid.launches == before
+
+
+@pytest.mark.parametrize("option", ["t_eval", "events", "params", "dense"])
+def test_unported_options_raise(option):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+        solve_fused_esdirk_grid(RHS["rdiff"], (0.0, 1.0),
+                                torch.tensor(Y0["rdiff"]), **{option: 1})
+
+
+def test_block_base_raises_naming_a16():
+    with pytest.raises(NotImplementedError, match="A16"):
+        solve_fused_esdirk_grid(RHS["rdiff"], (0.0, 1.0),
+                                torch.tensor(Y0["rdiff"]), block_base=64)
+
+
+def test_generated_header_carries_the_grid_and_rounds():
+    from extensisq_tpu_torch.ops import _build
+    from extensisq_tpu_torch.ops.fused_esdirk import _esdirk_consts
+    text = _build.fused_esdirk_grid_header(_esdirk_consts(Kv3I), (N,),
+                                           RHS["rdiff"].cuda_src)
+    assert f"using G = grid::Grid<{N}>;" in text
+    assert "constexpr int L = 7;" in text and "constexpr int S = 4;" in text
+    assert RHS["rdiff"].cuda_src in text
+    assert "constexpr int L = 6;" in _build.fused_esdirk_grid_header(
+        _esdirk_consts(Kv3I), (37,), SKEW_CUDA)
+    assert [p.name for p in _build.shared_headers("fused_esdirk_grid")] == [
+        "dual.cuh", "grid_common.cuh", "esdirk_control.cuh",
+        "block_hstart.cuh", "block_rows.cuh", "rk_common.cuh",
+        "block_group.cuh"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+# kernel against its plain version on the same card: status identical,
+# |dy| over finished members within the gates chip_smoke.py measured
+CARD_GATES = {"rd_kv3i": 1e-4, "rd_trbdf2": 1e-4, "rd_h0": 1e-4,
+              "rd_comp": 1e-5, "dae": 1e-4, "skew_back": 1e-4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CARD_GATES))
+def test_kernel_matches_plain_version_on_card(cuda, name):
+    prob, meth, span, y0, kw = CASES[name]
+    kw = dict(_options(kw), method=METHODS[meth])
+    if "yp0_batch" in kw:
+        kw["yp0_batch"] = kw["yp0_batch"].to(cuda)
+    y0 = torch.tensor(Y0[y0], device=cuda)
+    before = solve_fused_esdirk_grid.launches
+    k = solve_fused_esdirk_grid(RHS[prob], span, y0, **kw)
+    assert solve_fused_esdirk_grid.launches == before + 1
+    r = fused_esdirk_grid_reference(RHS[prob], span, y0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k[1], r[1])
+    ok = r[1] == 1
+    assert (k[0][ok] - r[0][ok]).abs().max().item() <= CARD_GATES[name]
+
+
+@pytest.mark.gpu
+def test_overflow_member_isolated_on_card(cuda):
+    span, kw = (0.0, 0.05), dict(TOL, first_step=1e-3, max_steps=2000)
+    y0 = torch.tensor(Y0["bad"], device=cuda)
+    k = solve_fused_esdirk_grid(RHS["cubic"], span, y0, **kw)
+    r = fused_esdirk_grid_reference(RHS["cubic"], span, y0, **kw)
+    assert torch.equal(k[1], r[1]) and int(k[1][3]) != 1
+    assert int((k[1] == 1).sum()) == B - 1
+
+
+@pytest.mark.gpu
+def test_empty_batch_launches_nothing(cuda):
+    before = solve_fused_esdirk_grid.launches
+    y, status, nsteps, nfev = solve_fused_esdirk_grid(
+        RHS["rdiff"], (0.0, 1.0), torch.zeros((0, N), device=cuda))
+    assert y.shape == (0, N) and status.shape == (0,)
+    assert solve_fused_esdirk_grid.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_needs_fused_grid_rhs(cuda):
+    with pytest.raises(TypeError, match="FusedGridRHS"):
+        solve_fused_esdirk_grid(rdiff(N), (0.0, 1.0),
+                                torch.tensor(Y0["rdiff"], device=cuda))

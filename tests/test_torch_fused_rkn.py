@@ -481,7 +481,8 @@ def test_build_keys_hash_the_included_headers(monkeypatch, tmp_path):
                             "rk_control.cuh", "rk_rows.cuh"],
               "fused_rk_grid": ["grid_common.cuh", "rk_common.cuh",
                                 "rk_control.cuh", "rk_rows.cuh",
-                                "ck_control.cuh", "block_group.cuh"]}
+                                "block_rows.cuh", "ck_control.cuh",
+                                "block_hstart.cuh", "block_group.cuh"]}
     for name, headers in expect.items():
         assert [p.name for p in _build.shared_headers(name)] == headers
         before = _build.build_key(name, "header")
