@@ -215,9 +215,10 @@ F32_OPS_S = 67e12
 # the kernel source: the RHS plus the share of the stage sums, the error
 # norm and the controller that one evaluation carries (BS5 on Van der Pol,
 # Kv3I on the pendulum DAE with its dual-number Jacobian, LU and Newton
-# solves, SWAG at k_max = 12), and for the RKC kernels per grid element
-# (the Brusselator stencil, ~14, and the stage recurrence, ~9)
-OPS_PER_EVAL = {"fused_erk": 35, "fused_esdirk": 100, "fused_adams": 1000}
+# solves), and for the RKC kernels per grid element (the Brusselator
+# stencil, ~14, and the stage recurrence, ~9).  SWAG is counted by
+# adams_ops (B3) and adams_grid_ops (B8)
+OPS_PER_EVAL = {"fused_erk": 35, "fused_esdirk": 100}
 OPS_PER_ELEMENT_EVAL = {"fused_rkc": 23}
 # The explicit kernels B4, B5 and B6 (csrc/fused_rkn.cu, fused_rk_grid.cu)
 # are counted from their sources and the tableau's nonzero weights, since
@@ -228,7 +229,9 @@ OPS_PER_ELEMENT_EVAL = {"fused_rkc": 23}
 # scaled square 8 per state; a member's attempt adds ~30 for the step
 # control and the norm.  A transcendental function counts as one
 # operation, so the count is a lower bound.  RHS operations per element:
-RHS_OPS = {"kepler": 7, "fisher": 5, "wave": 4, "swdec": 6, "ckmol": 11}
+RHS_OPS = {"kepler": 7, "fisher": 5, "wave": 4, "swdec": 6, "ckmol": 11,
+           # Van der Pol: 5 operations over its 2 states
+           "vdp": 2.5}
 CONTROL_OPS = 30
 
 
@@ -365,6 +368,12 @@ def esdirk_builds():
 SWAG_MU = 1000.0
 SWAG_N = 256
 SWAG_N_LARGE = 32_768
+# the bench line's members per block: at 32 lanes per member, 64 blocks of
+# 128 threads on 64 SMs (the wrapper takes the lanes, ops/fused_adams.py:
+# _lanes_per_member)
+SWAG_BLOCK_MEMBERS = 4
+# the member counts timed beside the bench line, each at the wrapper's lanes
+SWAG_SIZES = (1024, 4096, SWAG_N_LARGE)
 SWAG_SPAN = (0.0, 20.0)
 SWAG_TOL = dict(rtol=1e-6, atol=1e-9, k_max=12, max_steps=400_000)
 # the span on which the plain version and the f64 driver, both host-bound
@@ -692,6 +701,7 @@ def adams_path():
     from extensisq_tpu_torch.ops import (fused_adams_reference,
                                          solve_fused_adams, solve_fused_erk,
                                          solve_fused_esdirk)
+    from extensisq_tpu_torch.ops.fused_adams import _host_init
     R = adams_rhs()
 
     def compare(label, rhs, span, y0, **kw):
@@ -705,6 +715,18 @@ def adams_path():
                                 np.zeros(1024)], 1), dtype=torch.float32,
                       device="cuda")
     compare("vdp", "vdp", (0.0, 2.0), x0, rtol=1e-4, atol=1e-6, k_max=6)
+    # the same members repeated to 4096 and 32,768, where the wrapper takes
+    # 8 lanes per member and one
+    for nb in (4096, SWAG_N_LARGE):
+        xr = x0.repeat(nb // 1024, 1)
+        hold_against_plain(
+            "adams", f"vdp x{nb // 1024}",
+            lambda: solve_fused_adams(R["vdp"], (0.0, 2.0), xr, rtol=1e-4,
+                                      atol=1e-6, k_max=6),
+            lambda: fused_adams_reference(R["vdp"], (0.0, 2.0), xr,
+                                          rtol=1e-4, atol=1e-6, k_max=6),
+            *ADAMS_GATES["vdp"])
+        print(f"  {nb} members: {shape_text(solve_fused_adams, nb)}")
     ho0 = torch.tensor([[1.0, 0.0]], device="cuda") \
         * torch.linspace(0.9, 1.1, 1024, device="cuda")[:, None]
     compare("osc_comp", "osc", (0.0, 6.0), ho0, rtol=1e-6, atol=1e-9,
@@ -736,20 +758,24 @@ def adams_path():
     solve_fused_esdirk.launches = 0
     solve_fused_adams.launches = 0
     t0 = time.perf_counter()
-    comp = solve_fused_adams(R["bench"], SWAG_SPAN, y0, block_members=128,
+    comp = solve_fused_adams(R["bench"], SWAG_SPAN, y0,
+                             block_members=SWAG_BLOCK_MEMBERS,
                              compensated=True, **SWAG_TOL)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     launches = solve_fused_adams.launches
-    print(f"multistep path: {path_s:.3f} s, fused_adams launches {launches}")
+    lanes, bm = solve_fused_adams.last_shape
+    work = solve_fused_adams.last_work.long().sum(0).tolist()
+    print(f"multistep path: {path_s:.3f} s, fused_adams launches {launches}"
+          f"; {shape_text(solve_fused_adams, SWAG_N)}")
     check(launches == 1, f"fused_adams launched {launches} times, expected 1")
     check(solve_fused_erk.launches == 0 and solve_fused_esdirk.launches == 0,
           "the multistep path launched another kernel")
     check(bool((comp[1] == 1).all()), "SWAG bench line: not all finished")
     check(comp[0].shape == (SWAG_N, 2) and bool(torch.isfinite(comp[0]).all()),
           "SWAG bench line: bad output")
-    plain = solve_fused_adams(R["bench"], SWAG_SPAN, y0, block_members=128,
-                              **SWAG_TOL)
+    plain = solve_fused_adams(R["bench"], SWAG_SPAN, y0,
+                              block_members=SWAG_BLOCK_MEMBERS, **SWAG_TOL)
     torch.cuda.synchronize()
     idx = torch.linspace(0, SWAG_N - 1, SWAG_RADAU_MEMBERS).long()
     t0 = time.perf_counter()
@@ -807,44 +833,78 @@ def adams_path():
           "f64 SWAG: card and CPU step counts disagree")
 
     # (d) times: warm medians of the kernel on the whole span
-    def run_kernel(y=y0):
-        return solve_fused_adams(R["bench"], SWAG_SPAN, y, block_members=128,
+    def run_kernel(y=y0, bm=SWAG_BLOCK_MEMBERS):
+        return solve_fused_adams(R["bench"], SWAG_SPAN, y, block_members=bm,
                                  compensated=True, **SWAG_TOL)
+
+    def slowest_attempts(y, out):
+        """Attempts of the member that made the most (each one evaluates f
+        once, and an accepted one once more; init's evaluations apart)."""
+        _, s0, _ = _host_init(R["bench"].torch_fn, SWAG_SPAN, y.T,
+                              SWAG_TOL["rtol"], SWAG_TOL["atol"], None,
+                              SWAG_TOL["k_max"], None)
+        return int((out[3] - s0.nfev - out[2]).max()), int(s0.nfev.sum())
 
     k_ms = wall_ms(run_kernel)
     k_dev = event_ms(run_kernel)
     max_steps = int(comp[2].max())
     steps = int(comp[2].sum())
     fev = int(comp[3].sum())
+    attempts, init_fev = slowest_attempts(y0, comp)
+    ops = adams_ops(2, RHS_OPS["vdp"], True, work, fev - init_fev)
+    print(f"B3 work at the orders taken: {work[0]} attempts, mean order "
+          f"{work[1] / work[0]:.3f}, {work[3] / work[0]:.3f} coefficient "
+          f"elements and {work[4] / work[0]:.3f} v and g element steps per "
+          f"attempt: {ops:.6g} float32 operations, {ops / work[0]:.1f} per "
+          f"attempt")
     print(f"time [fused_adams kernel] {SWAG_N} members, t in "
-          f"[0, {SWAG_SPAN[1]:g}]: "
-          f"{k_ms:.3f} ms wall, {k_dev:.3f} ms device (CUDA events), "
-          f"{k_ms / max_steps:.5f} ms per step (wall / max nsteps "
-          f"{max_steps}), {steps / k_ms * 1e3:.4g} accepted steps/s, "
+          f"[0, {SWAG_SPAN[1]:g}], {lanes} lanes per member, {bm} members "
+          f"per block: {k_ms:.3f} ms wall, {k_dev:.3f} ms device (CUDA "
+          f"events), {k_ms / max_steps:.5f} ms per step (wall / max nsteps "
+          f"{max_steps}), {k_dev / attempts:.5f} ms device per attempt of "
+          f"the slowest member ({attempts} attempts), "
+          f"{steps / k_ms * 1e3:.4g} accepted steps/s, "
           f"{fev / k_ms * 1e3:.4g} RHS evals/s")
     print(f"time [plain version] {SWAG_N} members, t in [0, {SWAG_T_CUT}] "
           f"(cut span): {plain_s * 1e3:.1f} ms wall, one run; "
           f"[f64 solve_ensemble] same span: {f64_s * 1e3:.1f} ms wall")
-    yl = torch.tensor(np.stack([np.linspace(1.9, 2.1, SWAG_N_LARGE),
-                                np.zeros(SWAG_N_LARGE)], 1),
-                      dtype=torch.float32, device="cuda")
-    out = run_kernel(yl)
-    large_ms = event_ms(lambda: run_kernel(yl))
-    check(bool((out[1] == 1).all()), "SWAG 32,768: not all finished")
-    print(f"fused_adams kernel {SWAG_N_LARGE} members "
-          f"({SWAG_N_LARGE // 128} blocks of 128): {large_ms:.3f} ms, max "
-          f"nsteps {int(out[2].max())}, "
-          f"{int(out[2].sum()) / large_ms * 1e3:.4g} accepted steps/s")
+    sizes = {}
+    for nb in SWAG_SIZES:
+        yl = torch.tensor(np.stack([np.linspace(1.9, 2.1, nb),
+                                    np.zeros(nb)], 1),
+                          dtype=torch.float32, device="cuda")
+        out = run_kernel(yl, None)
+        shape = shape_text(solve_fused_adams, nb)
+        ms = event_ms(lambda: run_kernel(yl, None))
+        check(bool((out[1] == 1).all()), f"SWAG {nb}: not all finished")
+        att, _ = slowest_attempts(yl, out)
+        print(f"time [fused_adams kernel] {nb} members, {shape}: "
+              f"{ms:.3f} ms device, max nsteps {int(out[2].max())}, "
+              f"{ms / att:.5f} ms per attempt of the slowest member, "
+              f"{int(out[2].sum()) / ms * 1e3:.4g} accepted steps/s")
+        sizes[nb] = (solve_fused_adams.last_shape[0], ms)
     return dict({"name": "fused_adams", "route": "cuda",
                  "source": "extensisq_tpu_torch/csrc/fused_adams.cu",
                  "replaces": "extensisq_tpu/ops/fused_adams.py:876",
                  "launches": launches, "max_abs_err": err_k, "ms": k_ms,
                  "plain_ms": plain_s * 1e3, "plain_span": [0.0, SWAG_T_CUT],
                  "device_ms": k_dev, "ms_per_step": k_ms / max_steps,
+                 "lanes_per_member": lanes, "block_members": bm,
+                 "ms_per_attempt": k_dev / attempts,
                  "f64_ms_cut_span": f64_s * 1e3,
-                 "err_vs_radau": float(err_comp), "ms_32768": large_ms},
-                **bound_entry(SWAG_N * (2 * 4 * 3 + 4 * 5),
-                              fev * OPS_PER_EVAL["fused_adams"]))
+                 "err_vs_radau": float(err_comp),
+                 **{f"ms_{nb}": ms for nb, (_, ms) in sizes.items()},
+                 **{f"lanes_{nb}": g for nb, (g, _) in sizes.items()},
+                 "ops_per_attempt": ops / work[0]},
+                **bound_entry(SWAG_N * (2 * 4 * 3 + 4 * 5), ops))
+
+
+def shape_text(wrapper, nb):
+    """The launch shape of ``wrapper``'s last launch of ``nb`` members."""
+    lanes, bm = wrapper.last_shape
+    blocks = -(-nb // bm)
+    return (f"{lanes} lanes per member, {bm} members per block ({blocks} "
+            f"blocks of {bm * lanes} threads)")
 
 
 # -- the RKC path --------------------------------------------------------------
@@ -2210,6 +2270,37 @@ def rdiff_y0(members, n):
     return torch.tensor(0.5 + 0.4 * amps[:, None]
                         * np.sin(2 * np.pi * x)[None, :],
                         dtype=torch.float32, device="cuda")
+
+
+def adams_ops(n, rhs_ops, compensated, work, evals):
+    """float32 operations of a B3 run on members of ``n`` states from the
+    kernel's work counters summed over the members, ``work`` = (attempts,
+    and over them the sums of the order k, of k where the step was
+    accepted, of the coefficient elements updated and of the element steps
+    of the v update and the g loop), and its ``evals`` RHS evaluations (the
+    init's left out).  Counted from csrc/fused_adams.cu at the orders the
+    members took: per attempt and element the error weights, the three
+    scaled error vectors and their squares (16) and the prediction (2,
+    compensated 5), and ~20 scalar operations; per row of the predictor (k
+    an attempt) and element its g . phi term (2, compensated 8) and the
+    cumulative sum (1); per accepted step (a second evaluation) and element
+    the corrector (3, compensated 29), the rows k and k + 1, q and its
+    square (5), one add per row below k, and ~30 scalar operations of the
+    order and step selection; per rejected attempt and row below k the
+    restore (2 per element) and psi (1), and ~5 scalar operations; per
+    coefficient element psi, alpha, the beta ratio and product, sig (9)
+    and its row's beta scaling (1 per element); per element step of the v
+    update and the g loop 2.  A transcendental function counts as one and
+    the diagonal v update (taken when the order rises after several steps
+    at one h) is left out, so the count is a lower bound."""
+    att, rows, rows_acc, coef, steps = (int(x) for x in work)
+    acc = int(evals) - att
+    rej, rows_rej = att - acc, rows - rows_acc
+    return (att * (n * (16 + (5 if compensated else 2) + rhs_ops) + 20)
+            + rows * n * ((8 if compensated else 2) + 1)
+            + acc * (n * ((29 if compensated else 3) + 5 + rhs_ops) + 30)
+            + rows_acc * n + rows_rej * 2 * n + (rows_rej - rej) + rej * 5
+            + coef * (9 + n) + steps * 2)
 
 
 def adams_grid_ops(n, km, rhs_ops, nfev_sum, nsteps_sum, init_sum):

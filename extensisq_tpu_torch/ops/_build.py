@@ -585,12 +585,13 @@ def load_fused_esdirk_grid(consts, shape, rhs_src):
 
 def load_fused_adams(consts, rhs_src):
     """Build (at first use) and load the fused SWAG kernel for one
-    ``k_max``, state size and RHS; returns :class:`Built` with
-    ``lib.fused_adams_launch`` bound."""
+    ``k_max``, state size and RHS, with each lane count per member the
+    wrapper takes; returns :class:`Built` with ``lib.fused_adams_launch``
+    bound."""
     return load_kernel(
         "fused_adams", fused_adams_header(consts, rhs_src),
-        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF,
-         _CF, _CF, _CI, _CI, _CI, _VP])
+        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF,
+         _CF, _CF, _CF, _CI, _CI, _CI, _CI, _VP])
 
 
 def load_fused_adams_grid(consts, shape, rhs_src):

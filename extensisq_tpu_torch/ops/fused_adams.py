@@ -2,10 +2,13 @@
 integration in one CUDA kernel launch.
 
 Counterpart of ``extensisq_tpu/ops/fused_adams.py``.  The kernel
-(``csrc/fused_adams.cu``) runs one thread per member and keeps the
-member's whole multistep state in registers: the scaled divided
-differences ``phi``, the coefficient vectors psi/alpha/beta/sig/v/w/g,
-the order ``k`` and the counters.  Its plain PyTorch version,
+(``csrc/fused_adams.cu``) runs a group of G = 8, 16 or 32 lanes of one
+warp per member, or one thread per member (G from
+:func:`_lanes_per_member`), and keeps the member's whole multistep state
+in registers: lane r holds the rows r, r + G, ... of the scaled divided
+differences ``phi`` and the same elements of the coefficient vectors
+psi/alpha/beta/sig/v/w/g; every lane holds the order ``k``, the counters
+and the state.  Its plain PyTorch version,
 :func:`fused_adams_reference`, runs the same loop on rows-first
 ``(n, B)`` float32 tensors, with the block-1 coefficient update of the
 port's own stepper (:meth:`AdamsStepper._coefficients` in float32); the
@@ -50,6 +53,8 @@ _EPS32 = float(np.finfo(np.float32).eps)
 FOURU_T = 4.0 * 2.0 ** -30
 # landing on tf: the double-single remainder within 8 ulps of h
 LAND_TOL = 8.0 * _EPS32
+# work counters per member (the kernel's and fused_adams_reference's)
+_WORK = 5
 
 
 def _f32(x):
@@ -101,7 +106,7 @@ def _member_norm(x):
 
 def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
                           first_step=None, k_max=12, max_steps=200_000,
-                          compensated=False, max_step=None):
+                          compensated=False, max_step=None, work=None):
     """The plain PyTorch version of the fused SWAG kernel, on the device of
     ``y0_batch``.
 
@@ -111,19 +116,27 @@ def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     ``max_steps`` iterations.  ``fun`` is a :class:`FusedRHS` or a
     rows-first torch function.  Returns ``(y (B, n), status (B,), nsteps
     (B,), nfev (B,))`` like :func:`solve_fused_adams`.
+
+    ``work``, a (B, 5) integer tensor, receives the kernel's work counters
+    of each member: its attempts, and over them the sums of the order k,
+    of k where the step was accepted, of the coefficient elements updated
+    (k - ns where k >= ns) and of the element steps of the v update and
+    the g loop (k - ns + 1 where ns > 1, plus (k - ns) (k - ns + 1) / 2).
     """
     if isinstance(fun, FusedRHS):
         fun = fun.torch_fn
     return run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step,
                           k_max, max_steps, compensated, max_step,
-                          _member_norm)
+                          _member_norm, work)
 
 
 def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
-                   max_steps, compensated, max_step, member_norm):
+                   max_steps, compensated, max_step, member_norm, work=None):
     """The fused SWAG loop on the rows-first torch function ``fun``, shared
     by the plain versions of B3 and B8; ``member_norm`` maps ``(n, B)`` to
-    the members' RMS norms in the order of the kernel's sums."""
+    the members' RMS norms in the order of the kernel's sums, and ``work``
+    (None or (B, 5)) receives the work counters of
+    :func:`fused_adams_reference`."""
     km = int(k_max)
     y = torch.as_tensor(y0_batch).to(torch.float32).T.contiguous()
     n, nb = y.shape
@@ -159,6 +172,8 @@ def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
     def i32(x):
         return x.to(torch.int32)
 
+    if work is not None:
+        counts = torch.zeros(_WORK, nb, dtype=torch.int64, device=dev)
     it = 0
     while it < max_steps:
         running = status == RUNNING
@@ -336,6 +351,13 @@ def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
         status3 = i32(torch.where((status3 == RUNNING) & (it >= max_steps),
                                   OVERFLOW, status3))
 
+        if work is not None:
+            a = torch.clamp(k - ns2, min=0)
+            steps = torch.where(k >= ns2, torch.where(ns2 > 1, a + 1, 0)
+                                + a * (a + 1) // 2, 0)
+            counts += attempted * torch.stack(
+                [torch.ones_like(k), k, torch.where(ok, k, 0), a, steps])
+
         # writeback: a rejected attempt's restore carries
         y = torch.where(extrap, y_ext, torch.where(ok, y_corr, y))
         y_lo = torch.where(extrap, y_ext_lo, torch.where(ok, y_corr_lo,
@@ -369,7 +391,68 @@ def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
         nfev = nfev2
         nsteps = nsteps + i32(ok_any)
 
+    if work is not None:
+        work.copy_(counts.T)
+
     return y.T.contiguous(), status, nsteps, nfev
+
+
+# threads per block when the caller leaves block_members to the wrapper
+_BLOCK_THREADS = 128
+# threads per SM at which the member sweep ran fastest at every ensemble
+# size (8 warps: two per SM sub-partition)
+_THREADS_PER_SM = 256
+# the lane counts the wrapper takes besides 1, most first
+_LANES = (32, 16, 8)
+
+
+def _lanes_per_member(B, sm_count, k_max):
+    """Lanes per member for an ensemble of ``B`` members on a card of
+    ``sm_count`` SMs at order cap ``k_max``: the largest G of 32, 16 and
+    8 with B G <= 256 sm_count; else 8 while 8 B <= 512 sm_count and
+    k_max >= 8; else 1 (one thread per member).
+
+    From the member sweeps of the SWAG bench line (Van der Pol mu = 1000,
+    compensated, n / 2 uncoupled pairs per member;
+    ``tools/probe_fused_adams.py``) on an H100 (132 SMs, 700 W), device ms
+    of one thread per member against the lane groups.  n = 2, k_max 12:
+    256 members 315.7 against 106.6 at G = 32; 1,024: 308.4 against 122.2
+    at 32; 4,096: 329.3 against 191.0 at 8 (213.4 at 16); 8,192: 332.1
+    against 259.7 at 8; 16,384: 320.8, and 491.3 at 8.  n = 2, k_max 8:
+    8,192 members 234.9 against 196.3 at 8.  n = 2, k_max 4: 4,096
+    members 125.4 against 111.1 at 8, but 8,192 125.1 against 139.4 at 8.
+    n = 8, k_max 12: 256 members 1,053.7 against 239.6 at 32; 4,096: 997.5
+    against 482.3 at 8; 8,192: 953.2 against 928.8 at 8.  n = 8, k_max 4:
+    8,192 members 247.7 against 379.3 at 8.  The best G put about 32,768
+    threads on the card (two warps per SM sub-partition), and up to twice
+    that at 8 lanes where the one-thread body's select walks over k_max
+    are long.  2 and 4 lanes never beat 1 and 8, so neither is built.
+    Where the rule misses the best G: n = 8, k_max 12, 1,024 members take
+    32 lanes (334.7 ms) where 16 take 290.2 (one thread: 996.4).
+    """
+    budget = _THREADS_PER_SM * int(sm_count)
+    for lanes in _LANES:
+        if int(B) * lanes <= budget:
+            return lanes
+    return 8 if int(k_max) >= 8 and 8 * int(B) <= 2 * budget else 1
+
+
+def _launch_shape(B, lanes, block_members=None):
+    """``(block_members, threads per block, blocks)`` of a launch of ``B``
+    members at ``lanes`` lanes each.  ``block_members`` None takes
+    128 / lanes members per block (at least one); a block of more than
+    1024 threads raises."""
+    if block_members is None:
+        block_members = max(1, _BLOCK_THREADS // lanes)
+    block_members = int(block_members)
+    if block_members < 1:
+        raise ValueError("block_members must be at least 1")
+    threads = block_members * lanes
+    if threads > 1024:
+        raise ValueError(
+            f"block_members={block_members} at {lanes} lanes per member is "
+            f"{threads} threads per block; at most 1024")
+    return block_members, threads, -(-int(B) // block_members)
 
 
 def _kernel(fun, km):
@@ -382,7 +465,7 @@ def _kernel(fun, km):
 
 def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
                       first_step=None, k_max=12, max_steps=200_000,
-                      block_members=128, compensated=False, t_eval=None,
+                      block_members=None, compensated=False, t_eval=None,
                       events=None, max_step=None, params=None, dense=None):
     """Integrate an ensemble of small ODE systems with SWAG in one kernel
     launch.
@@ -399,8 +482,11 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     defines ``rhs(float t, const float* y, float* dy)`` or the template
     ``rhs<T>``); the members' starting state is computed by torch
     operations on the card, and the call launches ``csrc/fused_adams.cu``
-    (built at first use) with ``block_members`` threads per block, or
-    raises.  On a CPU tensor it runs :func:`fused_adams_reference`, with a
+    (built at first use) or raises: G lanes per member, G from
+    :func:`_lanes_per_member` (the ensemble size, the card's SM count and
+    ``k_max``), and ``block_members`` members per block (None: 128 / G), so
+    ``block_members * G`` threads per block, at most 1024.  On a CPU
+    tensor it runs :func:`fused_adams_reference`, with a
     :class:`FusedRHS` or a plain rows-first torch function.
 
     ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet.
@@ -434,8 +520,9 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
                          f"{tuple(y0.shape)}")
     if y0.dtype != torch.float32:
         raise TypeError(f"y0_batch must be float32, got {y0.dtype}")
-    if not 1 <= block_members <= 1024:
-        raise ValueError("block_members must be in [1, 1024]")
+    lanes = _lanes_per_member(nb, torch.cuda.get_device_properties(
+        y0.device).multi_processor_count, km)
+    block_members, _, _ = _launch_shape(nb, lanes, block_members)
     y0 = y0.contiguous()
 
     built = _kernel(fun, km)
@@ -443,6 +530,7 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
+    work = torch.empty(nb, _WORK, dtype=torch.int32, device=y0.device)
     if nb == 0:
         return y_out, status, nsteps, nfev
     # the starting state, outside the kernel as in the JAX package
@@ -456,17 +544,24 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
         rc = built.lib.fused_adams_launch(
             y0.data_ptr(), yp0.data_ptr(), h0.data_ptr(),
             nfev0.data_ptr(), y_out.data_ptr(), status.data_ptr(),
-            nsteps.data_ptr(), nfev.data_ptr(), nb, _f32(t_span[0]),
+            nsteps.data_ptr(), nfev.data_ptr(), work.data_ptr(), nb,
+            _f32(t_span[0]),
             _f32(t_span[1]), direction, _f32(rtol), _f32(atol),
             np.inf if max_step is None else _f32(max_step), int(max_steps),
-            int(bool(compensated)), int(block_members), stream)
+            int(bool(compensated)), lanes, block_members, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_adams kernel launch failed: CUDA error {rc}")
     solve_fused_adams.launches += 1
+    solve_fused_adams.last_shape = (lanes, block_members)
+    solve_fused_adams.last_work = work
     return y_out, status, nsteps, nfev
 
 
 # kernel launches since the count was last set to 0 (the plain version on
-# CPU tensors does not count)
+# CPU tensors does not count), the (lanes per member, members per block)
+# of the last launch and its (B, 5) work counters (fused_adams_reference's
+# ``work``)
 solve_fused_adams.launches = 0
+solve_fused_adams.last_shape = None
+solve_fused_adams.last_work = None

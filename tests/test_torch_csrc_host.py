@@ -13,10 +13,14 @@ CPU operations.  So the kernel's logic, not only its plain version, is
 checked on every CPU run: its first attempts are bit-identical to the
 plain version's, and what remains is the libraries' ``powf``/``log10f``
 and the dual numbers' derivative round-off.  The SWAG kernel starts from
-the float32 stepper's ``init``, as its wrapper starts it.  Skipped where
-no g++ is installed.
+the float32 stepper's ``init``, as its wrapper starts it, and runs its
+body both as one thread per member and with each member's rows and
+coefficients spread over 4 and 32 lanes (coroutines on one thread that
+hand over at each shuffle).  Skipped where no g++ is installed.
 """
 import ctypes
+import functools
+import platform
 import shutil
 import subprocess
 import sys
@@ -112,22 +116,155 @@ extern "C" int fused_erk_launch(
 }
 """
 
-ADAMS_LAUNCH = """
-extern "C" int fused_adams_launch(
-    const void* y0, const void* yp0, const void* h0, const void* nfev0,
-    void* y_out, void* status, void* nstep, void* nfev, int B, float t0,
-    float tf, float dir, float rtol, float atol, float max_step,
-    int max_steps, int compensated, int threads, void* stream) {
-  blockDim.x = 1;
-  for (int b = 0; b < B; ++b) {
-    blockIdx.x = b;
-    threadIdx.x = 0;
-    auto k = compensated ? fused_adams_kernel<true>
-                         : fused_adams_kernel<false>;
-    k((const float*)y0, (const float*)yp0, (const float*)h0,
-      (const int*)nfev0, (float*)y_out, (int*)status, (int*)nstep,
-      (int*)nfev, B, t0, tf, dir, rtol, atol, max_step, max_steps);
+# The SWAG bodies of B3 run one member after another: at one lane the
+# thread-per-member body integrate_thread<COMP>, at G lanes the group body
+# integrate<G, COMP> with the lanes run as coroutines on one thread: a lane
+# runs until its next shfl and hands over to the next lane (an x86-64 stack
+# switch), so every lane sees the others' values at each shuffle and a
+# wrong split of rows or coefficients over the lanes shows on the host.
+# The CUDA group and kernel after the marker are left out.
+ADAMS_LAUNCH = r"""
+#include <cstdint>
+#include <cstdlib>
+
+// G lanes of one member as coroutines on one thread: a lane runs until its
+// next shfl, then hands over to the next lane; the last hands back
+// to lane 0, which then finds every lane's value in the buffer (two
+// buffers used in turn, so that one hand-over round per shfl suffices).
+extern "C" void adams_lane_switch(void** save_sp, void* load_sp);
+asm(R"(
+  .text
+  .globl adams_lane_switch
+  .hidden adams_lane_switch
+  .type adams_lane_switch, @function
+adams_lane_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size adams_lane_switch, .-adams_lane_switch
+)");
+
+struct HostLaneSet {
+  int G;
+  int started;
+  void* sp[32];
+  void* main_sp;
+  float fbuf[2][32];
+  void (*run)(int rank);
+};
+static HostLaneSet* g_set;
+
+struct HostLanes {
+  int r;
+  int turn = 0;
+  int rank() const { return r; }
+  void pass() {
+    adams_lane_switch(&g_set->sp[r], g_set->sp[(r + 1) % g_set->G]);
   }
+  float shfl(float v, int src) {
+    float* buf = g_set->fbuf[turn];
+    turn ^= 1;
+    buf[r] = v;
+    pass();
+    return buf[src];
+  }
+};
+
+static void lane_entry() {
+  const int r = g_set->started++;
+  g_set->run(r);
+  // the lanes end in rank order; the last hands back to the caller
+  void* dead;
+  adams_lane_switch(&dead, r + 1 < g_set->G ? g_set->sp[r + 1]
+                                            : g_set->main_sp);
+}
+
+static const int kLaneStack = 1 << 18;
+
+// run(rank) on G lanes, each on a stack of its own
+static void run_lanes(int G, void (*run)(int), char* stacks) {
+  HostLaneSet set;
+  set.G = G;
+  set.started = 0;
+  set.run = run;
+  g_set = &set;
+  for (int r = 0; r < G; ++r) {
+    uintptr_t top = (reinterpret_cast<uintptr_t>(stacks) +
+                     static_cast<uintptr_t>(r + 1) * kLaneStack) &
+                    ~static_cast<uintptr_t>(15);
+    void** sp = reinterpret_cast<void**>(top);
+    *--sp = nullptr;
+    *--sp = reinterpret_cast<void*>(&lane_entry);
+    for (int i = 0; i < 6; ++i) *--sp = nullptr;
+    set.sp[r] = sp;
+  }
+  adams_lane_switch(&set.main_sp, set.sp[0]);
+}
+
+struct HostMember {
+  const float *y0, *yp0;
+  float h0;
+  int nfev0;
+  Launch L;
+  int m;
+  Out out;
+  int comp;
+};
+static HostMember g_member;
+
+template <int G>
+static void lane_body(int rank) {
+  HostLanes lane{rank};
+  const HostMember& a = g_member;
+  if (a.comp) {
+    integrate<G, true>(lane, a.y0, a.yp0, a.h0, a.nfev0, a.L, a.m, a.out);
+  } else {
+    integrate<G, false>(lane, a.y0, a.yp0, a.h0, a.nfev0, a.L, a.m, a.out);
+  }
+}
+
+extern "C" int fused_adams_host(
+    const float* y0, const float* yp0, const float* h0, const int* nfev0,
+    float* y_out, int* status, int* nsteps, int* nfev, int* work,
+    int members, float t0, float tf, float dir, float rtol, float atol,
+    float max_step, int max_steps, int compensated, int lanes) {
+  const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
+  const Out out{y_out, status, nsteps, nfev, work};
+  void (*body)(int) = lanes == 4 ? lane_body<4>
+                      : lanes == 8 ? lane_body<8>
+                      : lanes == 16 ? lane_body<16>
+                      : lanes == 32 ? lane_body<32> : nullptr;
+  if (lanes != 1 && body == nullptr) return 1;
+  char* stacks = lanes > 1 ? static_cast<char*>(
+      std::malloc(static_cast<size_t>(lanes) * kLaneStack)) : nullptr;
+  for (int m = 0; m < members; ++m) {
+    if (lanes == 1) {
+      if (compensated) {
+        integrate_thread<true>(y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L,
+                               m, out);
+      } else {
+        integrate_thread<false>(y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L,
+                                m, out);
+      }
+    } else {
+      g_member = HostMember{y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L, m,
+                            out, compensated};
+      run_lanes(lanes, body, stacks);
+    }
+  }
+  std::free(stacks);
   return 0;
 }
 """
@@ -384,7 +521,8 @@ def libs(tmp_path_factory):
         jobs["adams_" + label] = (
             "fused_adams",
             _build.fused_adams_header(FA._adams_consts(km, rhs.n),
-                                      rhs.cuda_src), ADAMS_LAUNCH)
+                                      rhs.cuda_src), ADAMS_LAUNCH,
+            RKC_MARKER)
     rkc_p = pde.brusselator_2d_grid(RKC_SHAPE, B=None)
     jobs["rkc"] = ("fused_rkc", _build.fused_rkc_header(
         rkc_p.shape, 1, rkc_p.cuda_src, TR.RHO_FN.cuda_src), RKC_LAUNCH,
@@ -514,9 +652,11 @@ def test_erk_kernel_matches_plain_version(libs, label, case):
     assert np.max(np.abs(nf - rnf)) <= 14
 
 
-def _adams_host(lib, case, **over):
-    """The host-built SWAG kernel on ``case``, started from the float32
-    stepper's init as the wrapper starts it."""
+def _adams_host(lib, case, lanes=1, **over):
+    """The host-built SWAG kernel on ``case`` at ``lanes`` lanes per member,
+    started from the float32 stepper's init as the wrapper starts it."""
+    if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
+        pytest.skip("the host lane group switches x86-64 stacks")
     prob, span, y0, kw = ADAMS_CASES[case]
     kw = dict(kw, **over)
     rhs = TA.PROBLEMS[prob]
@@ -530,56 +670,86 @@ def _adams_host(lib, case, **over):
     nfev0 = np.ascontiguousarray(s0.nfev.numpy())
     out = np.empty_like(y0)
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
-    fn = lib.fused_adams_launch
+    work = np.empty((nb, FA._WORK), np.int32)
+    fn = lib.fused_adams_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 8 + [ci, cf, cf, cf, cf, cf, cf, ci, ci, ci, vp]
-    fn(y0.ctypes.data, yp0.ctypes.data, h0.ctypes.data, nfev0.ctypes.data,
-       out.ctypes.data, st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb,
-       FA._f32(span[0]), FA._f32(span[1]), direction, FA._f32(kw["rtol"]),
-       FA._f32(kw["atol"]), np.inf, kw.get("max_steps", 200_000),
-       int(kw.get("compensated", False)), 128, None)
-    return out, st, ns, nf
+    fn.argtypes = [vp] * 9 + [ci, cf, cf, cf, cf, cf, cf, ci, ci, ci]
+    rc = fn(y0.ctypes.data, yp0.ctypes.data, h0.ctypes.data,
+            nfev0.ctypes.data, out.ctypes.data, st.ctypes.data,
+            ns.ctypes.data, nf.ctypes.data, work.ctypes.data, nb,
+            FA._f32(span[0]),
+            FA._f32(span[1]), direction, FA._f32(kw["rtol"]),
+            FA._f32(kw["atol"]), np.inf, kw.get("max_steps", 200_000),
+            int(kw.get("compensated", False)), lanes)
+    assert rc == 0
+    return out, st, ns, nf, work
 
 
-def _adams_plain(case, **over):
+@functools.lru_cache(maxsize=None)
+def _adams_plain(case, max_steps=None):
+    """The plain version on ``case``: (y, status, nsteps, nfev, work)."""
     prob, span, y0, kw = ADAMS_CASES[case]
-    return tuple(r.numpy() for r in FA.fused_adams_reference(
-        TA.PROBLEMS[prob], span, torch.tensor(y0), **dict(kw, **over)))
+    if max_steps is not None:
+        kw = dict(kw, max_steps=max_steps)
+    work = torch.zeros(len(y0), FA._WORK, dtype=torch.int64)
+    out = FA.fused_adams_reference(TA.PROBLEMS[prob], span,
+                                   torch.tensor(y0), work=work, **kw)
+    return tuple(r.numpy() for r in out + (work,))
 
 
-@pytest.mark.parametrize("case,attempts", [("vdp", 2), ("bench", 4),
-                                           ("osc_comp", 200_000),
-                                           ("decay_1e6", 200_000),
-                                           ("bench12", 200_000)])
-def test_adams_kernel_first_attempts_bit_identical(libs, case, attempts):
+# the multi-lane groups each SWAG case also runs under, besides one lane
+ADAMS_LANES = {"vdp": (4, 32), "osc_comp": (4, 32), "bench12": (4, 32)}
+
+
+def _over_lanes(params):
+    """Each parameter tuple at one lane (under its old id) and at the
+    case's multi-lane groups."""
+    out = []
+    for p in params:
+        base = "-".join(str(x) for x in p)
+        out.append(pytest.param(*p, 1, id=base))
+        out += [pytest.param(*p, g, id=f"{base}-lanes{g}")
+                for g in ADAMS_LANES.get(p[0], ())]
+    return out
+
+
+@pytest.mark.parametrize("case,attempts,lanes", _over_lanes(
+    [("vdp", 2), ("bench", 4), ("osc_comp", 200_000),
+     ("decay_1e6", 200_000), ("bench12", 200_000)]))
+def test_adams_kernel_first_attempts_bit_identical(libs, case, attempts,
+                                                   lanes):
     """The kernel's attempts (the coefficient update, predictor, error
     estimates, corrector, order selection and the double-single carries,
     plain and compensated) repeat the plain version's arithmetic bit for
     bit until a step ratio taken by powf rounds differently from
     torch.pow: after 2 attempts on vdp and 4 on bench; never in the whole
-    runs of osc_comp, decay_1e6 and bench12 (k_max = 12, 134 steps)."""
-    y, st, ns, nf = _adams_host(libs["adams_" + case], case,
-                                max_steps=attempts)
-    ry, rst, rns, rnf = _adams_plain(case, max_steps=attempts)
+    runs of osc_comp, decay_1e6 and bench12 (k_max = 12, 134 steps).  The
+    same holds with the rows and coefficients spread over 4 and 32
+    lanes, and the kernel's work counters equal the plain version's."""
+    y, st, ns, nf, work = _adams_host(libs["adams_" + case], case, lanes,
+                                      max_steps=attempts)
+    ry, rst, rns, rnf, rwork = _adams_plain(case, attempts)
     np.testing.assert_array_equal(y, ry)
     np.testing.assert_array_equal(st, rst)
     np.testing.assert_array_equal(ns, rns)
     np.testing.assert_array_equal(nf, rnf)
+    np.testing.assert_array_equal(work, rwork)
 
 
 # (case, max |dy|, max |dnsteps|, members with other counts), measured:
-# vdp 1.5e-5, 1, 2; bench 7.6e-10, 0, 1; the rest 0, 0, 0.  Gates about
-# 2x, with a floor of 1e-7 on |dy|.
+# vdp 1.5e-5, 1, 2; bench 7.6e-10, 0, 1; the rest 0, 0, 0 (the same at
+# 1, 4 and 32 lanes).  Gates about 2x, with a floor of 1e-7 on |dy|.
 GATES_ADAMS = [("vdp", 3e-5, 2, 4), ("osc_comp", 1e-7, 1, 2),
                ("decay_1e6", 1e-7, 1, 2), ("bench", 2e-9, 1, 2),
                ("bench12", 1e-7, 1, 2)]
 
 
-@pytest.mark.parametrize("case,y_gate,dsteps,nmembers", GATES_ADAMS)
+@pytest.mark.parametrize("case,y_gate,dsteps,nmembers,lanes",
+                         _over_lanes(GATES_ADAMS))
 def test_adams_kernel_matches_plain_version(libs, case, y_gate, dsteps,
-                                            nmembers):
-    y, st, ns, nf = _adams_host(libs["adams_" + case], case)
-    ry, rst, rns, rnf = _adams_plain(case)
+                                            nmembers, lanes):
+    y, st, ns, nf, _ = _adams_host(libs["adams_" + case], case, lanes)
+    ry, rst, rns, rnf, _ = _adams_plain(case)
     np.testing.assert_array_equal(st, rst)
     assert np.all(st == 1)
     assert np.max(np.abs(y - ry)) <= y_gate

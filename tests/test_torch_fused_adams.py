@@ -18,8 +18,9 @@ by the host-compiled kernel (``test_torch_csrc_host.py``) and on the card.
 The block-1 coefficient update is checked on its own against JAX
 ``make_coefficients``, and the plain version against the JAX tests' own
 gates with the port's f64 driver.  The tests marked ``gpu`` hold the CUDA
-kernel against the plain version on the card; they skip where there is
-none.  JAX is imported only inside the tests that call it, so that the
+kernel against the plain version on the card, at member counts that
+select each lane count per member the wrapper takes; they skip where
+there is none.  JAX is imported only inside the tests that call it, so that the
 file also runs where only torch is installed (``-m gpu --noconftest``).
 """
 import json
@@ -371,15 +372,15 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_build_key_hashes_adams_headers(monkeypatch, tmp_path):
-    """The kernel's build key covers adams_common.cuh and rk_common.cuh,
-    which it includes, and no other shared header."""
+    """The kernel's build key covers adams_common.cuh, rk_common.cuh and
+    lane_group.cuh, which it includes, and no other shared header."""
     import shutil
     from extensisq_tpu_torch.ops import _build
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.shared_headers("fused_adams")] == [
-        "adams_common.cuh", "rk_common.cuh"]
+        "adams_common.cuh", "rk_common.cuh", "lane_group.cuh"]
     before = _build.build_key("fused_adams", "header")
     common = csrc / "adams_common.cuh"
     common.write_text(common.read_text() + "\n// edited\n")
@@ -388,6 +389,58 @@ def test_build_key_hashes_adams_headers(monkeypatch, tmp_path):
     dual = csrc / "dual.cuh"
     dual.write_text(dual.read_text() + "\n// edited\n")
     assert _build.build_key("fused_adams", "header") == after
+
+
+@pytest.mark.parametrize("nb,k_max,lanes", [
+    (256, 12, 32), (1024, 12, 32), (4096, 12, 8), (8192, 12, 8),
+    (16384, 12, 1), (32768, 12, 1), (8192, 8, 8), (256, 4, 32),
+    (4096, 4, 8), (8192, 4, 1)])
+def test_lanes_per_member_on_132_sms(nb, k_max, lanes):
+    """The lane count the wrapper takes for the member sweeps' sizes on an
+    H100's 132 SMs."""
+    assert FA._lanes_per_member(nb, 132, k_max) == lanes
+
+
+def test_lanes_per_member_rule():
+    """The largest of 32, 16 and 8 lanes that keeps B G within 256 threads
+    per SM, else 8 up to twice that at k_max >= 8, else 1: never 2 or 4,
+    and fewer lanes for more members."""
+    budget = 256 * 132
+    for km in range(1, 13):
+        wide = 2 * budget if km >= 8 else budget
+        prev = 32
+        for nb in range(1, 40_000, 37):
+            lanes = FA._lanes_per_member(nb, 132, km)
+            assert lanes in (1, 8, 16, 32) and lanes <= prev
+            assert lanes not in (16, 32) or nb * lanes <= budget
+            assert lanes != 8 or (nb * 16 > budget and nb * 8 <= wide)
+            assert lanes != 1 or nb * 8 > wide
+            prev = lanes
+    assert FA._lanes_per_member(1056, 132, 12) == 32
+    assert FA._lanes_per_member(1057, 132, 12) == 16
+    assert FA._lanes_per_member(2113, 132, 12) == 8
+    assert FA._lanes_per_member(8448, 132, 8) == 8
+    assert FA._lanes_per_member(8449, 132, 12) == 1
+    assert FA._lanes_per_member(4225, 132, 7) == 1
+    assert FA._lanes_per_member(256, 66, 12) == 32
+    assert FA._lanes_per_member(4096, 66, 12) == 8
+    assert FA._lanes_per_member(4225, 66, 12) == 1
+
+
+def test_launch_shape_refuses_more_than_1024_threads():
+    """block_members keeps its meaning (members per block); a block holds
+    block_members x G threads, at most 1024, and None takes 128 / G
+    members per block.  The refusal comes before any card is needed."""
+    assert FA._launch_shape(256, 32) == (4, 128, 64)
+    assert FA._launch_shape(256, 32, 1) == (1, 32, 256)
+    assert FA._launch_shape(32768, 1) == (128, 128, 256)
+    assert FA._launch_shape(1000, 1, 1024) == (1024, 1024, 1)
+    assert FA._launch_shape(4097, 8) == (16, 128, 257)
+    for nb, lanes, bm in ((256, 32, 33), (256, 8, 129), (10, 1, 1025)):
+        with pytest.raises(ValueError, match="at most 1024"):
+            FA._launch_shape(nb, lanes, bm)
+    with pytest.raises(ValueError, match="at least 1"):
+        FA._launch_shape(256, 8, 0)
 
 
 # -- on the card -------------------------------------------------------------
@@ -400,18 +453,25 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [32, 16, 8, 1])
 @pytest.mark.parametrize("name,y_gate", [("vdp", 1e-3), ("osc_comp", 1e-5),
                                          ("decay_1e6", 1e-5),
                                          ("bench", 1e-5)])
-def test_kernel_matches_plain_version_on_card(cuda, name, y_gate):
-    """The CUDA kernel against its plain version on the same card; f32
-    round-off (the kernel contracts to FMA) allows other step sequences,
-    hence gates of the size chip_smoke.py measures."""
+def test_kernel_matches_plain_version_on_card(cuda, name, y_gate, lanes):
+    """The CUDA kernel against its plain version on the same card, at a
+    member count (the case's members repeated) that selects each lane
+    count the wrapper takes; f32 round-off (the kernel contracts to FMA)
+    allows other step sequences, hence gates of the size chip_smoke.py
+    measures."""
     prob, span, y0, kw = CASES[name]
-    y0 = torch.tensor(y0, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nb = FA._THREADS_PER_SM * sms // lanes
+    assert FA._lanes_per_member(nb, sms, kw["k_max"]) == lanes
+    y0 = torch.tensor(np.resize(y0, (nb, y0.shape[1])), device=cuda)
     before = solve_fused_adams.launches
     k = solve_fused_adams(PROBLEMS[prob], span, y0, **kw)
     assert solve_fused_adams.launches == before + 1
+    assert solve_fused_adams.last_shape == (lanes, max(1, 128 // lanes))
     r = fused_adams_reference(PROBLEMS[prob], span, y0, **kw)
     torch.cuda.synchronize()
     assert torch.equal(k[1], r[1])
