@@ -19,8 +19,9 @@ Drives each of the port's paths once:
   2x256x256 grid (t in [0, 1], rtol 1e-4 / atol 1e-7) through the f64
   ``solve`` and through ``ops.solve_fused_rkc`` (the whole card on one
   grid), and 64 members of 2x64x128 with B per member (t in [0, 4])
-  through ``ops.solve_fused_rkc_ensemble`` with a rho bound and with the
-  in-kernel power iteration, held against the f64 ``solve_ensemble``;
+  through ``ops.solve_fused_rkc_ensemble`` (a thread-block cluster per
+  member, its launches repeated bit for bit) with a rho bound and with
+  the in-kernel power iteration, held against the f64 ``solve_ensemble``;
 * second-order and mid-size explicit (BASELINE configs 3 and 1b): 2048
   Kepler orbits with Fi5N through the f64 ``solve_ensemble`` (rtol 1e-9)
   and ``ops.solve_fused_rkn`` (plain f32 at rtol 1e-5, compensated at
@@ -36,14 +37,16 @@ Drives each of the port's paths once:
   [0, 1.2]) through ``ops.solve_fused_ckdisc_grid`` and the f64 driver;
 * mid-size SWAG and ESDIRK (BASELINE configs 2d and 4d): 32 members of a
   256-state periodic heat MoL (t in [0, 0.25], k_max 6) through
-  ``ops.solve_fused_adams_grid`` and the f64 SWAG driver, and 32 members of
+  ``ops.solve_fused_adams_grid`` (timed also as the launch alone, its
+  float32 init outside the window) and the f64 SWAG driver, and 32 members of
   a 128-state periodic reaction-diffusion (t in [0, 1], Kv3I) through
   ``ops.solve_fused_esdirk_grid`` and the f64 driver, with a DAE-lanes
   check against the exact solution and a compensated one against f64.
 
 Before that, it builds every kernel from the sources in this checkout
 (one nvcc per variant, all started together) and holds each against its
-plain PyTorch version on the card.  Any mismatch raises; the script exits
+plain PyTorch version on the card (B10 both at its cluster size and in
+its one-block-per-member body).  Any mismatch raises; the script exits
 0 only if every phase passed.
 
     python3 chip_smoke.py
@@ -1010,9 +1013,11 @@ def hold_rkc(label, what, k, r, gate_key, extra=""):
 
 def rkc_kernel_checks(R):
     """Each RKC kernel against its plain version on the card, in the three
-    rho modes; B10 with a member that overflows.  Returns the largest |dy|
-    of B9 and of B10."""
-    from extensisq_tpu_torch.ops import (fused_rkc_reference,
+    rho modes; B10 with a member that overflows, both at the wrapper's
+    cluster size and in its one-block-per-member body (C = 1), and at C = 1
+    where the wrapper takes it, on members whose arrays fit no CTA's shared
+    memory.  Returns the largest |dy| of B9 and of B10."""
+    from extensisq_tpu_torch.ops import (fused_rkc, fused_rkc_reference,
                                          solve_fused_rkc,
                                          solve_fused_rkc_ensemble)
     rhos = {"float": 8.0 * 0.02 * 128**2 + 5.5, "callback": R["rho_fn"],
@@ -1024,6 +1029,13 @@ def rkc_kernel_checks(R):
     y10[5] *= 1e30                      # this member overflows
     p10 = torch.linspace(2.8, 3.5, 8, device="cuda")[:, None]
     for mode, rho in rhos.items():
+        plain10 = {}
+
+        def block(rho=rho):
+            out, c = fused_rkc._launch_ensemble(
+                R["b10_small"], (0.0, 1.0), y10, rho, p10, 1, **RKC_TOL)
+            check(c == 1, "rkc b10 block: not one block per member")
+            return out if rho is None else out[:4]
         for label, run, plain in (
                 ("b9", lambda: solve_fused_rkc(
                     R["b9_small"], (0.0, 1.0), y9, rho, **RKC_TOL),
@@ -1032,9 +1044,10 @@ def rkc_kernel_checks(R):
                 ("b10", lambda: solve_fused_rkc_ensemble(
                     R["b10_small"], (0.0, 1.0), y10, rho, params=p10,
                     **RKC_TOL),
-                 lambda: fused_rkc_reference(
+                 lambda: plain10.setdefault("r", fused_rkc_reference(
                      R["b10_small"], (0.0, 1.0), y10, rho, params=p10,
-                     **RKC_TOL))):
+                     **RKC_TOL))),
+                ("b10 C=1", block, lambda: plain10["r"])):
             t0 = time.perf_counter()
             k = run()
             torch.cuda.synchronize()
@@ -1043,14 +1056,57 @@ def rkc_kernel_checks(R):
             r = plain()
             torch.cuda.synchronize()
             r_s = time.perf_counter() - t0
-            dy = hold_rkc(label, f"rho {mode}", k, r, label,
+            key = label.split()[0]
+            dy = hold_rkc(label, f"rho {mode}", k, r, key,
                           f"; {k_s:.3f} s vs {r_s:.3f} s")
-            worst[label] = max(worst[label], dy)
-            if label == "b10":
+            worst[key] = max(worst[key], dy)
+            if key == "b10":
                 bad = 6 if rho is None else 3
                 check(int(k[1][5]) == bad and int((k[1] == 1).sum()) == 7,
-                      "rkc overflow isolation: member 5 must fail alone")
+                      f"rkc overflow isolation ({label}): member 5 must "
+                      "fail alone")
+            if label == "b10":
+                c = solve_fused_rkc_ensemble.cluster
+                same = repeats_bit_for_bit(k, run)
+                print(f"rkc b10 rho {mode}: clusters of {c} CTAs per member;"
+                      f" {REPEATS_B10} launches bit-identical {same}")
+                check(c > 1, "rkc b10: the 8-member check took no cluster")
+                check(same, f"rkc b10 rho {mode}: launches differ")
+
+    # two members of the 2x256x256 grid: no C holds a chunk of their six
+    # arrays in shared memory, so the wrapper runs one block per member
+    yb = torch.tensor(np.stack([brus131k_y0()] * 2), dtype=torch.float32,
+                      device="cuda")
+    yb[1, 0] += 0.1
+    t0 = time.perf_counter()
+    k = solve_fused_rkc_ensemble(R["b9"], (0.0, 1.0), yb, BRUS_RHO,
+                                 **RKC_TOL)
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    c = solve_fused_rkc_ensemble.cluster
+    t0 = time.perf_counter()
+    r = fused_rkc_reference(R["b9"], (0.0, 1.0), yb, BRUS_RHO, **RKC_TOL)
+    torch.cuda.synchronize()
+    r_s = time.perf_counter() - t0
+    dy = hold_rkc("b10", f"2 x 2x{BRUS_N}x{BRUS_N}, rho float", k, r, "b10",
+                  f"; {k_s:.3f} s vs {r_s:.3f} s; clusters of {c}")
+    check(c == 1, f"rkc b10 2x{BRUS_N}x{BRUS_N}: took clusters of {c}, "
+          "not one block per member")
+    check(bool((k[1] == 1).all()), f"rkc b10 2x{BRUS_N}x{BRUS_N}: status")
+    worst["b10"] = max(worst["b10"], dy)
     return worst
+
+
+# B10's cluster launch: a stale L1 line of a peer's stage argument would
+# show as outputs that differ from launch to launch
+REPEATS_B10 = 3
+
+
+def repeats_bit_for_bit(first, run):
+    """Whether ``REPEATS_B10 - 1`` more runs give ``first`` bit for bit."""
+    outs = [run() for _ in range(REPEATS_B10 - 1)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for o in outs for a, b in zip(o, first))
 
 
 def rkc_path():
@@ -1098,6 +1154,7 @@ def rkc_path():
     b10p = solve_fused_rkc_ensemble(R["b10"], (0.0, ENS_TF), Y10, None,
                                     params=P10, **RKC_TOL)
     torch.cuda.synchronize()
+    cluster10 = solve_fused_rkc_ensemble.cluster
     t0 = time.perf_counter()
     ens = solve_ensemble(flat_ens, (0.0, ENS_TF),
                          Y10.reshape(ENS_M, -1).double(),
@@ -1173,6 +1230,11 @@ def rkc_path():
     b9_ms, b9_dev = wall_ms(run9), event_ms(run9)
     b10_ms, b10_dev = wall_ms(run10), event_ms(run10)
     b10p_dev = event_ms(lambda: run10(None))
+    same = (repeats_bit_for_bit(b10, run10)
+            and repeats_bit_for_bit(b10p, lambda: run10(None)))
+    print(f"B10 on the path (5d, 5e): clusters of {cluster10} CTAs per "
+          f"member; {REPEATS_B10} launches of each bit-identical {same}")
+    check(same, "B10 on the path: launches differ")
 
     # (f) the path's kernel runs against their plain versions, same inputs
     t0 = time.perf_counter()
@@ -1194,6 +1256,7 @@ def rkc_path():
                          "b10_power_path"))
     stages9 = int(b9[3]) - 1
     stages10 = int(b10[3].max()) - 1
+    evals10p = int((b10p[3] + b10p[4]).max()) - 1
     print(f"time [fused_rkc B9] 2x{BRUS_N}x{BRUS_N}: {b9_ms:.3f} ms wall, "
           f"{b9_dev:.3f} ms device (CUDA events), "
           f"{b9_dev / stages9 * 1e3:.2f} us per RHS evaluation "
@@ -1201,7 +1264,9 @@ def rkc_path():
     print(f"time [fused_rkc_ensemble B10] {ENS_M} x 2x{ENS_NY}x{ENS_NX}: "
           f"{b10_ms:.3f} ms wall, {b10_dev:.3f} ms device, "
           f"{b10_dev / stages10 * 1e3:.2f} us per RHS evaluation of the "
-          f"slowest member; power iteration {b10p_dev:.3f} ms device")
+          f"slowest member; power iteration {b10p_dev:.3f} ms device "
+          f"({b10p_dev / evals10p * 1e3:.2f} us per evaluation, the power "
+          f"iteration's included); clusters of {cluster10}")
     print(f"time [plain versions] B9 {plain9_ms:.1f} ms, B10 "
           f"{plain10_ms:.1f} ms (one run each); [f64 solve] 5a "
           f"{f64_s * 1e3:.1f} ms, [f64 solve_ensemble] 5d {ens_s * 1e3:.1f}"
@@ -1223,6 +1288,7 @@ def rkc_path():
                  launches=launches[1], max_abs_err=max(worst["b10"], err10),
                  ms=b10_ms, plain_ms=plain10_ms, device_ms=b10_dev,
                  device_ms_power=b10p_dev, f64_ms=ens_s * 1e3,
+                 cluster=cluster10,
                  **bound_entry(2 * 4 * ntot10 * ENS_M + 4 * 4 * ENS_M,
                                per_eval * ntot10 * int(b10[3].sum())))]
 
@@ -2521,6 +2587,20 @@ def mid_path():
         return lambda: ops.solve_fused_esdirk_grid(R["rdiff"], RD_SPAN, y,
                                                    **RD_TOL)
 
+    def heat_alone(y, out):
+        """B8's launch alone on ``y``, its float32 init run before the
+        window: (median device ms, attempts of the slowest member in
+        ``out``, one evaluation each and one more when accepted)."""
+        from extensisq_tpu_torch.ops import fused_adams_grid as FAG
+        built = FAG._kernel(R["heat"], HEAT_TOL["k_max"])
+        kw = dict(HEAT_TOL, first_step=None, max_steps=200_000,
+                  max_step=None)
+        start = FAG._start(R["heat"], HEAT_SPAN, y, kw["rtol"], kw["atol"],
+                           None, kw["k_max"], None)
+        ms = event_ms(lambda: FAG._launch(built, R["heat"], HEAT_SPAN, y,
+                                          start=start, **kw))
+        return ms, int((out[3] - start[2] - out[2]).max())
+
     times = {}
     for label, fn, out in (("heat256x32 B8", run_heat(), heat),
                            ("rdiff128x32 B7", run_rd(), rd)):
@@ -2529,6 +2609,11 @@ def mid_path():
         print(f"time [{label}]: {ms:.3f} ms wall, {dev:.4f} ms device (CUDA "
               f"events), {int(out[2].sum()) / ms * 1e3:.4g} accepted "
               f"steps/s, {int(out[3].sum()) / ms * 1e3:.4g} RHS evals/s")
+    alone, att = heat_alone(H32, heat)
+    print(f"time [heat256x32 B8, launch alone]: {alone:.4f} ms device "
+          f"(the window above also holds the float32 init), "
+          f"{alone / att * 1e3:.3f} us per attempt of the slowest member "
+          f"({att} attempts)")
     print(f"time [plain versions] (one run each): "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items())
           + f"; [f64 solve_ensemble] (one run each): heat256x32 "
@@ -2541,6 +2626,11 @@ def mid_path():
         ms = event_ms(run(y_large))
         print(f"time [{label}] ({GRID_LARGE} blocks): {ms:.3f} ms device, "
               f"{int(out[2].sum()) / ms * 1e3:.4g} accepted steps/s")
+        if run is run_heat:
+            ms1024, att1024 = heat_alone(y_large, out)
+            print(f"time [{label}, launch alone]: {ms1024:.3f} ms device, "
+                  f"{ms1024 / att1024 * 1e3:.3f} us per attempt of the "
+                  f"slowest member")
 
     _, s0, _ = _host_init(R["heat"].torch_fn, HEAT_SPAN, H32.T,
                           HEAT_TOL["rtol"], HEAT_TOL["atol"], None, 6, None)
@@ -2553,6 +2643,7 @@ def mid_path():
               "max_abs_err": errs["fused_adams_grid"],
               "ms": times["heat256x32 B8"][0],
               "device_ms": times["heat256x32 B8"][1],
+              "device_ms_launch": alone,
               "plain_ms": plain_ms["fused_adams_grid"],
               "f64_ms": heat64_s * 1e3},
              **bound_entry(HEAT_M * (HEAT_N * 4 * 3 + 4 * 5),

@@ -16,24 +16,31 @@
 // scaled divided differences phi live in shared memory: (7 + KM + 2) N
 // floats, 21 KB at KM = 12 and N = 256.  Element i belongs to the thread of
 // rank i mod (block size), which does every per-element operation on it.
-// The per-member scalars (t, h, the order k, the step count ns, the
-// coefficient vectors psi/alpha/beta/sig/v/w/g of adams_common.cuh's
-// Coef<KM>) are computed by every thread from identical inputs, so every
-// thread takes the same branches, as in fused_rk_grid.cu.  Each norm is a
-// group sum in a fixed order whose result every thread holds
-// (block_group.cuh).  Per attempt: one barrier between writing the
-// predicted state and evaluating f there, the three norms of the error
-// ladder (orders k - 2, k - 1, k); on acceptance one barrier before f at
-// the corrected state, one reduction that counts its non-finite elements
-// and the norm at order k + 1.
+// The per-member scalars (t, h, the order k, the step count ns) are
+// computed by every thread from identical inputs, so every thread takes the
+// same branches, as in fused_rk_grid.cu.  The coefficient vectors
+// (psi/alpha/beta/sig/v/w/g, adams_common.cuh's LaneCoef) are spread over
+// the 32 lanes of each warp, element e on lane e, and every warp runs
+// coefficients_lanes, the update B3's lane groups run (fused_adams.cu):
+// the element-wise steps across the lanes, the running products and the
+// diagonal update as one chain in the one-thread update's order, so every
+// warp ends with the same values and no barrier is added; the predictor
+// and the failure restore take beta[r] and g[r] from lane r by shuffle.
+// Each norm is a block sum in a fixed order whose result every thread
+// holds; the error ladder's three sums (orders k - 2, k - 1, k) share one
+// reduction, and on acceptance the count of non-finite elements at the
+// corrected state shares one with the order k + 1 sum (the phi update
+// before it runs either way: a member that overflows ends there, and its
+// phi is never read again).  So an accepted attempt takes four barriers:
+// after the predicted state, the ladder's reduction, after the corrected
+// state and the acceptance's reduction; a rejected one two.
 //
 // What bounds it on the H100: per attempt an element costs two RHS
 // evaluations (a stencil of a few flops on shared memory) and ~6 (KM + 2)
-// flops on its phi column, and the attempt costs 6 barriers and the
-// coefficient recurrences, O(KM^2) dependent selects that every thread
-// repeats.  At N = 256 that is latency of barriers, reductions and the
-// scalar chain, not the card's flop or byte rate; members run in parallel
-// on the SMs (32 members use 32 of 132).
+// flops on its phi column, and the attempt costs its four barriers and the
+// coefficient update's chain of shuffles.  At N = 256 that is latency of
+// barriers, reductions and the scalar chain, not the card's flop or byte
+// rate; members run in parallel on the SMs (32 members use 32 of 132).
 //
 // The generated header fused_adams_grid_config.cuh provides
 //   namespace tab { G = grid::Grid<N>, KM, N, INV_N, FOURU_T, LAND_TOL,
@@ -119,25 +126,36 @@ struct Two {
     return tab::TWO(i);
   }
 };
+struct Iqq {
+  __device__ __forceinline__ float operator()(int i) const {
+    return tab::IQQ(i);
+  }
+};
 
-// RMS over the member of the per-thread partial sums of squares, in the
-// kernel's order.
-template <class Group>
-__device__ __forceinline__ float member_norm(Group& g, float part) {
-  return sqrtf(g.sum(part) * tab::INV_N);
+// RMS over the member from the group's sum of squares.
+__device__ __forceinline__ float member_norm(float sum) {
+  return sqrtf(sum * tab::INV_N);
 }
 
 // The whole integration of one member by the group g (rank(), size(),
-// sync() and sum(x), a reduction whose result every thread holds).  sm is
-// the member's shared memory (kFloats); y0, yp0 its initial state and
-// f(t0, y0), h0 and nfev0 its starting step and evaluation count from the
+// sync() and sums(v), the group's sums of the K values of v, every value
+// reduced in its own fixed order and the results held by every thread),
+// with the coefficient vectors spread over the W lanes of `lanes` (rank(),
+// shfl(v, src); W = 32 on the card, the lanes of a warp).  sm is the
+// member's shared memory (kFloats); y0, yp0 its initial state and f(t0,
+// y0), h0 and nfev0 its starting step and evaluation count from the
 // float32 stepper's init, as in the JAX package.
-template <class Group>
-__device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
+template <int W, class Group, class Lanes>
+__device__ void integrate(Group& g, Lanes& lanes, float* sm,
+                          const float* __restrict__ y0,
                           const float* __restrict__ yp0, float h0, int nfev0,
                           const Launch& L, int member, const Out& out) {
+  using Coef = adams::LaneCoef<KM, W>;
+  constexpr int S = Coef::S;
+  constexpr int S1 = Coef::S1;
   const int r0 = g.rank();
   const int nt = g.size();
+  const int lane = lanes.rank();
   float* Y = sm + kY;
   float* Yp = sm + kYp;
   float* P = sm + kP;
@@ -149,33 +167,35 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
 
   // the starting state (steppers/adams.py:init); one reduction counts the
   // elements that are not finite
-  float bad = 0.0f;
+  float bad[1] = {0.0f};
   for (int i = r0; i < N; i += nt) {
     Y[i] = y0[i];
     Yp[i] = yp0[i];
     phi[i] = Yp[i];
 #pragma unroll
     for (int r = 1; r < R; ++r) phi[r * N + i] = 0.0f;
-    bad += (isfinite(Y[i]) && isfinite(Yp[i])) ? 0.0f : 1.0f;
+    bad[0] += (isfinite(Y[i]) && isfinite(Yp[i])) ? 0.0f : 1.0f;
   }
-  const bool start_ok = g.sum(bad) == 0.0f && isfinite(h0);
+  g.sums(bad);
+  const bool start_ok = bad[0] == 0.0f && isfinite(h0);
 
-  adams::Coef<KM> c;
+  // the lane's elements of the coefficient vectors and of tab::IQQ
+  Coef c;
+  float iqq[S];
 #pragma unroll
-  for (int r = 0; r < KM; ++r) {
-    c.psi[r] = c.alpha[r] = c.beta[r] = c.v[r] = c.w[r] = 0.0f;
+  for (int s = 0; s < S; ++s) {
+    c.psi[s] = c.alpha[s] = c.beta[s] = c.v[s] = c.w[s] = 0.0f;
+    iqq[s] = ctake<KM>(Iqq{}, s * W + lane);
   }
 #pragma unroll
-  for (int r = 0; r <= KM; ++r) {
-    c.sig[r] = r == 0 ? 1.0f : 0.0f;
-    c.g[r] = r == 0 ? 1.0f : (r == 1 ? 0.5f : 0.0f);
+  for (int s = 0; s < S1; ++s) {
+    const int e = s * W + lane;
+    c.sig[s] = e == 0 ? 1.0f : 0.0f;
+    c.g[s] = e == 0 ? 1.0f : (e == 1 ? 0.5f : 0.0f);
   }
 #pragma unroll
-  for (int r = 0; r < adams::Coef<KM>::NGI; ++r) c.gi[r] = 0.0f;
-#pragma unroll
-  for (int r = 0; r < adams::Coef<KM>::NIV; ++r) c.iv[r] = 0;
+  for (int r = 0; r < Coef::NIV; ++r) c.iv[r] = 0;
   c.ivc = 0;
-  c.kgi = 0;
 
   float t = L.t0;
   float t_lo = 0.0f;
@@ -217,9 +237,16 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
     }
     int ns2 = h_in != hold ? 0 : ns;
     if (ns2 <= kold) ns2 += 1;
-    adams::coefficients<KM>(c, h_in, k, ns2, kprev, kold);
+    adams::coefficients_lanes<KM, W>(lanes, c, iqq, h_in, k, ns2, kprev,
+                                     kold);
     const int km1 = k - 1;
     const int km2 = k - 2;
+    // beta and g in every thread, element r from lane r
+    float beta[KM], gw[KM + 1];
+#pragma unroll
+    for (int r = 0; r < KM; ++r) beta[r] = lanes.shfl(c.beta[r / W], r % W);
+#pragma unroll
+    for (int r = 0; r <= KM; ++r) gw[r] = lanes.shfl(c.g[r / W], r % W);
 
     // block 2: predict (own elements); phi[r] *= beta[r] for r in [ns, k),
     // phi[k + 1] = phi[k], phi[k] = 0, p = h sum_{r < k} g[r] phi[r] + y,
@@ -230,15 +257,15 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
       for (int r = 0; r < R; ++r) col[r] = phi[r * N + i];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        if (r >= ns2 && r < k) col[r] = col[r] * c.beta[r < KM ? r : KM - 1];
+        if (r >= ns2 && r < k) col[r] = col[r] * beta[r < KM ? r : KM - 1];
       }
       adams::put(col, k + 1, adams::take(col, k));
       adams::put(col, k, 0.0f);
       float acc = 0.0f;
 #pragma unroll
       for (int r = 0; r <= KM; ++r) {
-        const float gw = r < k ? c.g[r] : 0.0f;
-        acc = acc + gw * col[r];
+        const float gr = r < k ? gw[r] : 0.0f;
+        acc = acc + gr * col[r];
       }
       P[i] = h_in * acc + Y[i];
       float run = 0.0f;
@@ -273,17 +300,19 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
       s2 = s2 + e2 * e2;
     }
     nfev += 1;
+    float ladder[3] = {s0, s1, s2};
+    g.sums(ladder);
     const float absh = fabsf(h_in);
-    float erk = absh * member_norm(g, s0);
-    const float erkm1 = absh * member_norm(g, s1) *
-                        adams::take(c.sig, clip(km1, 0, KM)) *
+    float erk = absh * member_norm(ladder[0]);
+    const float erkm1 = absh * member_norm(ladder[1]) *
+                        adams::lget<W>(lanes, c.sig, clip(km1, 0, KM)) *
                         ctake<13>(Gstr{}, clip(km2, 0, 12));
-    const float erkm2 = absh * member_norm(g, s2) *
-                        adams::take(c.sig, clip(km2, 0, KM)) *
+    const float erkm2 = absh * member_norm(ladder[2]) *
+                        adams::lget<W>(lanes, c.sig, clip(km2, 0, KM)) *
                         ctake<13>(Gstr{}, clip(km2 - 1, 0, 12));
-    float err = erk * (adams::take(c.g, clip(km1, 0, KM)) -
-                       adams::take(c.g, clip(k, 0, KM)));
-    erk = erk * adams::take(c.sig, clip(k, 0, KM)) *
+    float err = erk * (adams::lget<W>(lanes, c.g, clip(km1, 0, KM)) -
+                       adams::lget<W>(lanes, c.g, clip(k, 0, KM)));
+    erk = erk * adams::lget<W>(lanes, c.sig, clip(k, 0, KM)) *
           ctake<13>(Gstr{}, clip(km1, 0, 12));
     const bool bad_e = !isfinite(err);
     if (bad_e) err = 11.0f;
@@ -294,25 +323,18 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
     const bool success = err <= 1.0f && !bad_e;
 
     if (success) {
-      // block 4: correct (own elements), then f at the corrected state
-      const float g_k = adams::take(c.g, clip(k, 0, KM));
+      // block 4: correct (own elements); then f at the corrected state,
+      // the phi update and the norm at order k + 1, with the count of the
+      // elements that are not finite in the same reduction
+      const float g_k = adams::lget<W>(lanes, c.g, clip(k, 0, KM));
       for (int i = r0; i < N; i += nt) Yc[i] = h_in * g_k * T4[i] + P[i];
       g.sync();
-      float nonfinite = 0.0f;
+      float acc2[2] = {0.0f, 0.0f};  // non-finite count, sum of squares
       for (int i = r0; i < N; i += nt) {
-        Fc[i] = rhs(x, Yc, i, nullptr);
-        nonfinite += (isfinite(Yc[i]) && isfinite(Fc[i])) ? 0.0f : 1.0f;
-      }
-      nfev += 1;
-      if (g.sum(nonfinite) != 0.0f) {
-        status = kOverflow;
-        break;
-      }
-
-      // phi update and the norm at order k + 1
-      float sq = 0.0f;
-      for (int i = r0; i < N; i += nt) {
-        const float pkn = Fc[i] - phi[i];
+        const float fc = rhs(x, Yc, i, nullptr);
+        Fc[i] = fc;
+        acc2[0] += (isfinite(Yc[i]) && isfinite(fc)) ? 0.0f : 1.0f;
+        const float pkn = fc - phi[i];
         phi[k * N + i] = pkn;
         phi[(k + 1) * N + i] = pkn - phi[(k + 1) * N + i];
 #pragma unroll
@@ -320,10 +342,16 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
           if (r < k) phi[r * N + i] = phi[r * N + i] + pkn;
         }
         const float q = phi[(k + 1) * N + i] / Wt[i];
-        sq = sq + q * q;
+        acc2[1] = acc2[1] + q * q;
+      }
+      nfev += 1;
+      g.sums(acc2);
+      if (acc2[0] != 0.0f) {
+        status = kOverflow;
+        break;
       }
       const float erkp1 =
-          ctake<13>(Gstr{}, clip(k, 0, 12)) * absh * member_norm(g, sq);
+          ctake<13>(Gstr{}, clip(k, 0, 12)) * absh * member_norm(acc2[1]);
 
       // order selection for the next step (shampine.py:420-455)
       const bool ph1 = phase1 && !(knew == km1 || k == KM);
@@ -387,16 +415,18 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (r < k) {
-            const float b = c.beta[r < KM ? r : KM - 1];
+            const float b = beta[r < KM ? r : KM - 1];
             const float bsafe = b == 0.0f ? 1.0f : b;
             const float up = phi[(r + 1 < R ? r + 1 : R - 1) * N + i];
             phi[r * N + i] = (phi[r * N + i] - up) / bsafe;
           }
         }
       }
+      float psi_up[S];
+      adams::shift_down<W, KM>(lanes, c.psi, psi_up);
 #pragma unroll
-      for (int r = 0; r < KM; ++r) {
-        if (r < km1) c.psi[r] = c.psi[r + 1 < KM ? r + 1 : KM - 1] - h_in;
+      for (int s = 0; s < S; ++s) {
+        if (s * W + lane < km1) c.psi[s] = psi_up[s] - h_in;
       }
       const int ifail2 = ifail + 1;
       const float temp2 = (ifail2 >= 4 && 0.5f < 0.25f * erk)
@@ -430,8 +460,12 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
 
 // ---- CUDA groups, kernels and launch ----
 #include "block_group.cuh"
+#include "lane_group.cuh"
 
 namespace {
+
+// sums of up to kMaxSums values in one barrier
+constexpr int kMaxSums = 3;
 
 __global__ void __launch_bounds__(kMaxThreads)
     fused_adams_grid_kernel(const float* __restrict__ y0,
@@ -440,11 +474,13 @@ __global__ void __launch_bounds__(kMaxThreads)
                             const int* __restrict__ nfev0, Launch L,
                             Out out) {
   extern __shared__ float sm[];
-  __shared__ float red[64];
-  BlockGroup g{red};
+  __shared__ float red[2 * kMaxSums * 32];
+  BlockGroupOf<kMaxSums> g{red};
+  LaneGroup<32> lanes;
   const int m = blockIdx.x;
   const size_t off = static_cast<size_t>(m) * N;
-  integrate(g, sm, y0 + off, yp0 + off, h0[m], nfev0[m], L, m, out);
+  integrate<32>(g, lanes, sm, y0 + off, yp0 + off, h0[m], nfev0[m], L, m,
+                out);
 }
 
 }  // namespace

@@ -4,12 +4,14 @@
 // Replaces the two Pallas kernels of extensisq_tpu/ops/fused_rkc.py, which
 // share one body, `_integrate`: solve_fused_rkc (B9, one grid) and
 // solve_fused_rkc_ensemble (B10, one member grid per program instance).
-// Here too one device template, integrate<G>, runs both; G is the group of
-// threads that works on one member:
-//   * B10: a thread block, one CTA per member (blockIdx.x = member);
+// Here too one device template, integrate<RHO, Group>, runs both; Group is
+// the threads that work on one member and where its arrays live:
 //   * B9:  the whole grid of a cooperative launch, so every SM works on the
 //          one member; every block is resident (the host sizes the grid from
-//          the occupancy), and grid.sync() is the barrier.
+//          the occupancy), and grid.sync() is the barrier;
+//   * B10: a thread-block cluster of C = 2, 4 or 8 CTAs per member on as
+//          many SMs, or, where the wrapper's rule finds no such C
+//          (ops/fused_rkc.py:_cluster_size), one CTA per member.
 // Its plain PyTorch version is extensisq_tpu_torch/ops/fused_rkc.py:
 // fused_rkc_reference; the two take the same steps up to round-off.
 //
@@ -17,26 +19,48 @@
 // (t, h, m, accept/reject, status, the power iteration's exit, the Chebyshev
 // coefficients) is computed by every thread from identical inputs, and every
 // thread takes the same branch: no broadcast, and no thread can miss a
-// barrier.  Element i of the member's grid belongs to the thread of rank
-// i mod (group size); the arrays live in global memory, in a workspace the
-// wrapper allocates: y_hi, y_lo, f, f_new, two deviation buffers e (the
-// stage recurrence updates e_{j-2} in place with e_j), two stage-argument
-// buffers a (double-buffered, so one group barrier per stage suffices), and
-// V, the power iteration's warm start (its iterate and f(v) reuse the a
-// buffers).  At the B9 size (2x256x256) each array is 512 KB: the nine fit
-// in the H100's 50 MB L2.  A norm is a group sum: a warp butterfly (all
-// lanes end with the same value), the warps' sums in shared memory added in
-// order by every thread, and on the grid the blocks' sums in a global slot
-// each, added lane-strided and butterflied by every warp.  The order is fixed
-// by the launch shape, so every thread holds the identical total.
+// barrier.  A group owns the elements [lo, hi) of the member (all of them,
+// but for a CTA of a cluster its contiguous chunk), element i belonging to
+// the thread of rank (i - lo) mod (threads).  Per member there are nine
+// arrays: y_hi, y_lo, f, f_new, two deviation buffers e (the stage
+// recurrence updates e_{j-2} in place with e_j), two stage-argument buffers
+// a (double-buffered, so one group barrier per stage suffices) and V, the
+// power iteration's warm start (its iterate and f(v) reuse the a buffers).
+// Only the a buffers are read at other elements' indices (by the user's
+// stencil, across the chunks), so they and V stay in a global workspace;
+// the six arrays read at their own index only live where Group::kLocal
+// says: in global memory (B9, and B10 at C = 1: the parent layout, 576 KB
+// a member at 2x64x128, which no SM's L1 holds, so every stage went to L2
+// through one SM's port, ~35 GB/s), or in each CTA's dynamic shared memory
+// for its chunk (B10 at C > 1: 192 KB a CTA at C = 2 and 2x64x128).  Under
+// a rho callback, which reads the whole member, a global copy of y_hi is
+// written at each accepted step.  A norm is a group sum: a warp butterfly
+// (all lanes end with the same value), the warps' sums in shared memory
+// added in order by every thread, then on the grid the blocks' sums in a
+// global slot each, added lane-strided and butterflied by every warp, and
+// in a cluster each CTA's sum written into every peer's shared memory
+// (DSMEM) and the C sums added in rank order.  The order is fixed by the
+// launch shape, so every thread holds the identical total.
 //
-// What bounds it on the H100: per stage each element costs one RHS (a 5-point
-// stencil: ~20 flops, five loads that hit L1/L2) and ~10 flops of the
-// recurrence, so a stage is ~30 flops and ~20 bytes of L2 traffic per
-// element, while the barrier after it costs a few microseconds on the whole
-// grid (B9) or a __syncthreads (B10).  B9 at 131,072 elements is therefore
-// bound by the grid barrier and L2 latency, not by the card's flop rate;
-// B10 runs one member per SM, 64 members on 64 of the 132 SMs.
+// What bounds it on the H100: per stage each element costs one RHS (a
+// 5-point stencil with its periodic index arithmetic: ~20 flops and five
+// loads of a) and ~10 flops of the recurrence, and the stage ends in a
+// barrier: the whole grid's (B9), the cluster's (B10 at C > 1) or a
+// __syncthreads (B10 at C = 1).  B9 at 131,072 elements is bound by the
+// grid barrier and L2 latency, not by the card's flop rate.  B10 at C > 1
+// takes ~2.6 us a stage of fixed work (the barrier, and the Chebyshev
+// scalars, computed between its arrive and its wait) and ~1 SM cycle per
+// element of the CTA's chunk (tools/probe_fused_rkc.py: 3.7, 4.8 and 7.1
+// us per evaluation at C = 8, 4 and 2 on 2x64x128), so on clusters of 2
+// it is bound by instruction issue on 128 SMs; issuing the stencil loads
+// of four elements together (fewer L2 round trips) ran no faster.
+//
+// Visibility across the cluster: a_next is written by one CTA and read by
+// its peers on other SMs after the cluster barrier (barrier.cluster.arrive
+// .release / wait.acquire).  The arrive compiles to MEMBAR.ALL.GPU and
+// UCGABAR_ARV, the wait to UCGABAR_WAIT and CCTL.IVALL, an invalidation of
+// the SM's L1, so no stale line of a survives a barrier; the card check
+// runs the cluster launch three times and requires bit-identical outputs.
 //
 // The grid shape, the parameter count, the float32 constants and the user's
 // right-hand side come from the generated header fused_rkc_config.cuh:
@@ -80,6 +104,9 @@ constexpr int kArrays = 9;       // per-member arrays in the workspace
 // B9's block size bound: a grid kernel of at most 512 threads per block may
 // use 128 registers a thread (B10's blocks of up to 1024 get 64)
 constexpr int kGridThreads = 512;
+// B10's CTA size bound at cluster size C > 1 (64 registers a thread; CTAs
+// of 512 with 128 ran slower on 5d, tools/probe_fused_rkc.py)
+constexpr int kClusterThreads = 1024;
 
 // how the spectral radius is found
 constexpr int kRhoConst = 0;     // a float bound
@@ -173,34 +200,48 @@ __device__ __forceinline__ float cube_root(float x) {
   return powf(x, 1.0f / 3.0f);
 }
 
-// The whole integration of one member by the group g (rank(), size(),
-// sync(), and sum(x): the group's sum of x, identical in every thread).
-// y0 and p are the member's initial grid and parameters; w its nine arrays,
-// NTOT floats each.
+// The whole integration of one member by the group g: rank(), size(),
+// sync() (or its two halves, arrive() and wait(), with work on registers
+// between them), sum(x) (the group's sum of x, identical in every
+// thread), the elements [lo(), hi()) it owns, and kLocal, where the six
+// elementwise arrays live: in sm (the group's hi - lo elements of each)
+// or, if not kLocal, in w.  y0 and p are the member's initial grid and
+// parameters; w its kArrays * NTOT floats of workspace.
 template <int RHO, class Group>
 __device__ void integrate(Group& g, const float* __restrict__ y0,
-                          const float* __restrict__ p, float* w,
+                          const float* __restrict__ p, float* w, float* sm,
                           const Solve& s, int member, const Out& out) {
+  constexpr bool LOCAL = Group::kLocal;
   const int rank = g.rank();
   const int nthr = g.size();
-  float* y_hi = w;
-  float* y_lo = w + NTOT;
-  float* f = w + 2 * NTOT;
-  float* f_new = w + 3 * NTOT;
-  float* e_a = w + 4 * NTOT;
-  float* e_b = w + 5 * NTOT;
+  const int lo = g.lo();
+  const int hi = g.hi();
+  // element i of the member is entry i - off of the elementwise arrays
+  const int off = LOCAL ? lo : 0;
+  const int len = LOCAL ? hi - lo : NTOT;
+  float* const ew = LOCAL ? sm : w;
+  float* y_hi = ew;
+  float* y_lo = ew + len;
+  float* f = ew + 2 * len;
+  float* f_new = ew + 3 * len;
+  float* e_a = ew + 4 * len;
+  float* e_b = ew + 5 * len;
   float* arg[2] = {w + 6 * NTOT, w + 7 * NTOT};
   float* V = w + 8 * NTOT;
+  float* y_glob = w;  // with kLocal: the copy of y_hi that rho() reads
+  constexpr bool kGlobY = LOCAL && RHO == kRhoFn;
   const float nf = static_cast<float>(NTOT);  // jnp.mean divides by n
 
-  for (int i = rank; i < NTOT; i += nthr) {
-    y_hi[i] = y0[i];
-    y_lo[i] = 0.0f;
+  for (int i = lo + rank; i < hi; i += nthr) {
+    y_hi[i - off] = y0[i];
+    y_lo[i - off] = 0.0f;
+    if constexpr (kGlobY) y_glob[i] = y0[i];
   }
   g.sync();
-  for (int i = rank; i < NTOT; i += nthr) {
-    f[i] = rhs(s.t0, y_hi, i, p);
-    if constexpr (RHO == kRhoPower) V[i] = f[i];
+  for (int i = lo + rank; i < hi; i += nthr) {
+    const int l = i - off;
+    f[l] = rhs(s.t0, y0, i, p);
+    if constexpr (RHO == kRhoPower) V[i] = f[l];
   }
   // steppers/rkc.py:141-143: hmax from the span and max_step
   const float mse = fminf(fabsf(s.tf - s.t0), s.max_step);
@@ -232,13 +273,14 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
       sprad = s.rho_const;
       rho_ok = sprad == sprad;
     } else if constexpr (RHO == kRhoFn) {
-      sprad = rho(t, y_hi, p);
+      sprad = rho(t, kGlobY ? y_glob : y_hi, p);
       rho_ok = sprad == sprad;
     } else {
       if (newspc) {
         float yy = 0.0f, vv = 0.0f;
-        for (int i = rank; i < NTOT; i += nthr) {
-          yy += y_hi[i] * y_hi[i];
+        for (int i = lo + rank; i < hi; i += nthr) {
+          const int l = i - off;
+          yy += y_hi[l] * y_hi[l];
           vv += V[i] * V[i];
         }
         const float ynrm = sqrtf(g.sum(yy));
@@ -251,8 +293,8 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
         const float vs = dynrm / (vnrm == 0.0f ? 1.0f : vnrm);
         float* v = arg[0];
         float* fv = arg[1];
-        for (int i = rank; i < NTOT; i += nthr) {
-          v[i] = both     ? y_hi[i] + V[i] * vs
+        for (int i = lo + rank; i < hi; i += nthr) {
+          v[i] = both     ? y_hi[i - off] + V[i] * vs
                  : only_y ? V[i] * tab::ONE_P_SQRTU
                  : only_v ? V[i] * vs
                           : dynrm;
@@ -264,10 +306,10 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
         sprad = 0.0f;
         for (int k = 0; k < kItMax && !done; ++k) {
           float dd = 0.0f;
-          for (int i = rank; i < NTOT; i += nthr) {
+          for (int i = lo + rank; i < hi; i += nthr) {
             const float fvi = rhs(t, v, i, p);
             fv[i] = fvi;
-            const float df = fvi - f[i];
+            const float df = fvi - f[i - off];
             dd += df * df;
           }
           const float dfnrm = sqrtf(g.sum(dd));
@@ -280,12 +322,13 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
           } else {
             if (dfnrm != 0.0f) {
               const float scale = dynrm / dfnrm;
-              for (int i = rank; i < NTOT; i += nthr) {
-                v[i] = y_hi[i] + (fv[i] - f[i]) * scale;
+              for (int i = lo + rank; i < hi; i += nthr) {
+                v[i] = y_hi[i - off] + (fv[i] - f[i - off]) * scale;
               }
-            } else if (k % NTOT % nthr == rank) {
-              // degenerate case: flip the sign of component k mod n
-              v[k % NTOT] = -v[k % NTOT];
+            } else {
+              // degenerate case: the owner of component k mod n flips it
+              const int e = k % NTOT;
+              if (e >= lo && e < hi && (e - lo) % nthr == rank) v[e] = -v[e];
             }
             g.sync();
           }
@@ -293,7 +336,9 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
         }
         rho_ok = done;
         if (done) {
-          for (int i = rank; i < NTOT; i += nthr) V[i] = v[i] - y_hi[i];
+          for (int i = lo + rank; i < hi; i += nthr) {
+            V[i] = v[i] - y_hi[i - off];
+          }
         }
         nfesig += nev;
         jacatt_att = true;
@@ -306,12 +351,15 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
       float absh0 = sprad * mse > 1.0f ? 1.0f / sprad : mse;
       absh0 = fmaxf(absh0, tab::SQRTMIN);
       float* a = arg[0];
-      for (int i = rank; i < NTOT; i += nthr) a[i] = y_hi[i] + absh0 * f[i];
+      for (int i = lo + rank; i < hi; i += nthr) {
+        a[i] = y_hi[i - off] + absh0 * f[i - off];
+      }
       g.sync();
       float acc = 0.0f;
-      for (int i = rank; i < NTOT; i += nthr) {
-        const float q = (rhs(t + absh0, a, i, p) - f[i]) /
-                        (s.atol + s.rtol * fabsf(y_hi[i]));
+      for (int i = lo + rank; i < hi; i += nthr) {
+        const int l = i - off;
+        const float q = (rhs(t + absh0, a, i, p) - f[l]) /
+                        (s.atol + s.rtol * fabsf(y_hi[l]));
         acc += q * q;
       }
       const float est = absh0 * sqrtf(g.sum(acc) / nf);
@@ -342,32 +390,39 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
     float* em1 = e_b;
     int ab = 0;
     const float hmus0 = h * c.mus0;
-    for (int i = rank; i < NTOT; i += nthr) {
-      const float e1 = hmus0 * f[i];
-      em2[i] = 0.0f;
-      em1[i] = e1;
-      arg[0][i] = y_hi[i] + (y_lo[i] + e1);
+    for (int i = lo + rank; i < hi; i += nthr) {
+      const int l = i - off;
+      const float e1 = hmus0 * f[l];
+      em2[l] = 0.0f;
+      em1[l] = e1;
+      arg[0][i] = y_hi[l] + (y_lo[l] + e1);
     }
-    g.sync();
+    // each barrier as arrive and wait, the next stage's coefficients
+    // computed in between
+    float muc, nuc, ajc, mus, th;
+    g.arrive();
+    c.next(muc, nuc, ajc, mus, th);
+    g.wait();
     for (int j = 2; j <= m; ++j) {
-      float muc, nuc, ajc, mus, th;
-      c.next(muc, nuc, ajc, mus, th);
       const float tj = t + h * th;
       const float hmus = h * mus;
       const float* a = arg[ab];
       float* a_next = arg[ab ^ 1];
-      for (int i = rank; i < NTOT; i += nthr) {
+      for (int i = lo + rank; i < hi; i += nthr) {
+        const int l = i - off;
         const float fj = rhs(tj, a, i, p);
         const float ej =
-            muc * em1[i] + nuc * em2[i] + hmus * (fj - ajc * f[i]);
-        em2[i] = ej;
-        a_next[i] = y_hi[i] + (y_lo[i] + ej);
+            muc * em1[l] + nuc * em2[l] + hmus * (fj - ajc * f[l]);
+        em2[l] = ej;
+        a_next[i] = y_hi[l] + (y_lo[l] + ej);
       }
       float* tmp = em2;
       em2 = em1;
       em1 = tmp;
       ab ^= 1;
-      g.sync();
+      g.arrive();
+      if (j < m) c.next(muc, nuc, ajc, mus, th);
+      g.wait();
     }
     // arg[ab] now holds y_k = y_n + e_m
 
@@ -375,11 +430,12 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
     const float* yk = arg[ab];
     const float h4 = 0.4f * h;
     float acc = 0.0f;
-    for (int i = rank; i < NTOT; i += nthr) {
+    for (int i = lo + rank; i < hi; i += nthr) {
+      const int l = i - off;
       const float fk = rhs(t + h, yk, i, p);
-      f_new[i] = fk;
-      const float wt = s.atol + s.rtol * fmaxf(fabsf(y_hi[i]), fabsf(yk[i]));
-      const float est = -0.8f * em1[i] + h4 * (f[i] + fk);
+      f_new[l] = fk;
+      const float wt = s.atol + s.rtol * fmaxf(fabsf(y_hi[l]), fabsf(yk[i]));
+      const float est = -0.8f * em1[l] + h4 * (f[l] + fk);
       const float r = est / wt;
       acc += r * r;
     }
@@ -431,10 +487,12 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
       t = is_last ? s.tf : tn.hi;
       t_lo = is_last ? 0.0f : tn.lo;
       // the double-single y carry advances by the step's deviation
-      for (int i = rank; i < NTOT; i += nthr) {
-        const ds::DS yn = ds::add_f(ds::DS{y_hi[i], y_lo[i]}, em1[i]);
-        y_hi[i] = yn.hi;
-        y_lo[i] = yn.lo;
+      for (int i = lo + rank; i < hi; i += nthr) {
+        const int l = i - off;
+        const ds::DS yn = ds::add_f(ds::DS{y_hi[l], y_lo[l]}, em1[l]);
+        y_hi[l] = yn.hi;
+        y_lo[l] = yn.lo;
+        if constexpr (kGlobY) y_glob[i] = yn.hi;
       }
       float* tmp = f;
       f = f_new;
@@ -449,10 +507,10 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
   }
 
   g.sync();
-  for (int i = rank; i < NTOT; i += nthr) {
-    out.y[static_cast<size_t>(member) * NTOT + i] = y_hi[i];
+  for (int i = lo + rank; i < hi; i += nthr) {
+    out.y[static_cast<size_t>(member) * NTOT + i] = y_hi[i - off];
   }
-  if (rank == 0) {
+  if (lo == 0 && rank == 0) {
     out.status[member] = status;
     out.nsteps[member] = nstep;
     out.nfev[member] = nfev;
@@ -463,17 +521,26 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
 }  // namespace
 
 // ---- CUDA groups, kernels and launch ----
-// B10's group, one thread block per member, is block_group.cuh's BlockGroup.
 #include "block_group.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
+// B10 at C = 1: one thread block per member, its arrays in the workspace.
+struct MemberBlock : BlockGroup {
+  static constexpr bool kLocal = false;
+  __device__ int lo() const { return 0; }
+  __device__ int hi() const { return NTOT; }
+  __device__ void arrive() const { __syncthreads(); }
+  __device__ void wait() const {}
+};
+
 // B9: the whole cooperative grid on one member.  Each block's sum goes to
 // its slot of `partials` (two sets of gridDim.x slots, used in turn); after
 // grid.sync() every warp adds the slots lane-strided and butterflies them.
 struct GridGroup {
+  static constexpr bool kLocal = false;
   cg::grid_group grid;
   float* red;
   float* partials;
@@ -483,7 +550,11 @@ struct GridGroup {
     return blockIdx.x * blockDim.x + threadIdx.x;
   }
   __device__ int size() const { return gridDim.x * blockDim.x; }
+  __device__ int lo() const { return 0; }
+  __device__ int hi() const { return NTOT; }
   __device__ void sync() { grid.sync(); }
+  __device__ void arrive() { grid.sync(); }
+  __device__ void wait() const {}
   __device__ float sum(float v) {
     const float b = block_sum(v, red, turn);
     float* slots = partials + gridDim.x * pturn;
@@ -498,17 +569,84 @@ struct GridGroup {
   }
 };
 
+// B10 at C > 1: one CTA of a cluster of C on one member, owning the
+// contiguous chunk [lo, hi) with its elementwise arrays in shared memory.
+// A sum: the CTA's block_sum, written by thread j into slot `crank` of
+// peer j's `parts` (DSMEM; two sets of slots used in turn, so that one
+// cluster barrier per sum suffices), then the C slots added in rank order.
+constexpr int kMaxCluster = 8;
+struct ClusterGroup {
+  static constexpr bool kLocal = true;
+  float* red;
+  float* parts;
+  int c;
+  int crank;
+  int lo_;
+  int hi_;
+  int turn = 0;
+  int pturn = 0;
+  __device__ int rank() const { return threadIdx.x; }
+  __device__ int size() const { return blockDim.x; }
+  __device__ int lo() const { return lo_; }
+  __device__ int hi() const { return hi_; }
+  __device__ void sync() const { cg::this_cluster().sync(); }
+  __device__ void arrive() const { cg::this_cluster().barrier_arrive(); }
+  __device__ void wait() const { cg::this_cluster().barrier_wait(); }
+  __device__ float sum(float v) {
+    const float b = block_sum(v, red, turn);
+    float* slots = parts + kMaxCluster * pturn;
+    pturn ^= 1;
+    if (static_cast<int>(threadIdx.x) < c) {
+      cg::this_cluster().map_shared_rank(slots, threadIdx.x)[crank] = b;
+    }
+    cg::this_cluster().sync();
+    float s = slots[0];
+    for (int k = 1; k < c; ++k) s += slots[k];
+    return s;
+  }
+};
+
+// The chunk of each CTA at cluster size c, and its dynamic shared memory.
+__host__ __device__ constexpr int cluster_chunk(int c) {
+  return (NTOT + c - 1) / c;
+}
+constexpr int kLocalArrays = 6;
+__host__ __device__ constexpr size_t cluster_smem(int c) {
+  return static_cast<size_t>(kLocalArrays) * cluster_chunk(c) * sizeof(float);
+}
+
 template <int RHO>
 __global__ void __launch_bounds__(1024)
     fused_rkc_block_kernel(const float* __restrict__ y0,
                            const float* __restrict__ params, float* work,
                            Solve s, Out out) {
   __shared__ float red[64];
-  BlockGroup g{red};
+  MemberBlock g{{red}};
   const int member = blockIdx.x;
   integrate<RHO>(g, y0 + static_cast<size_t>(member) * NTOT,
                  tab::NPAR ? params + member * tab::NPAR : nullptr,
-                 work + static_cast<size_t>(member) * kArrays * NTOT, s,
+                 work + static_cast<size_t>(member) * kArrays * NTOT,
+                 nullptr, s, member, out);
+}
+
+template <int RHO>
+__global__ void __launch_bounds__(kClusterThreads)
+    fused_rkc_cluster_kernel(const float* __restrict__ y0,
+                             const float* __restrict__ params, float* work,
+                             Solve s, Out out) {
+  extern __shared__ float sm[];
+  __shared__ float red[64];
+  __shared__ float parts[2 * kMaxCluster];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.num_blocks());
+  const int crank = static_cast<int>(cluster.block_rank());
+  const int member = blockIdx.x / c;
+  const int lo = min(crank * cluster_chunk(c), NTOT);
+  const int hi = min(lo + cluster_chunk(c), NTOT);
+  ClusterGroup g{red, parts, c, crank, lo, hi};
+  integrate<RHO>(g, y0 + static_cast<size_t>(member) * NTOT,
+                 tab::NPAR ? params + member * tab::NPAR : nullptr,
+                 work + static_cast<size_t>(member) * kArrays * NTOT, sm, s,
                  member, out);
 }
 
@@ -519,7 +657,8 @@ __global__ void __launch_bounds__(kGridThreads)
                           float* partials, Solve s, Out out) {
   __shared__ float red[64];
   GridGroup g{cg::this_grid(), red, partials};
-  integrate<RHO>(g, y0, tab::NPAR ? params : nullptr, work, s, 0, out);
+  integrate<RHO>(g, y0, tab::NPAR ? params : nullptr, work, nullptr, s, 0,
+                 out);
 }
 
 const void* grid_kernel(int rho_mode) {
@@ -530,6 +669,37 @@ const void* grid_kernel(int rho_mode) {
     return reinterpret_cast<const void*>(&fused_rkc_grid_kernel<kRhoFn>);
   }
   return reinterpret_cast<const void*>(&fused_rkc_grid_kernel<kRhoPower>);
+}
+
+using ClusterKernel = void (*)(const float*, const float*, float*, Solve, Out);
+
+ClusterKernel cluster_kernel(int rho_mode) {
+  if (rho_mode == kRhoConst) return &fused_rkc_cluster_kernel<kRhoConst>;
+  if (rho_mode == kRhoFn) return &fused_rkc_cluster_kernel<kRhoFn>;
+  return &fused_rkc_cluster_kernel<kRhoPower>;
+}
+
+// The launch configuration of B10 at cluster size c, after raising the
+// kernel's dynamic shared memory limit to what it needs.
+cudaError_t cluster_config(ClusterKernel k, int members, int c, int threads,
+                           cudaStream_t st, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute& attr) {
+  const size_t bytes = cluster_smem(c);
+  const cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(members * c);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -550,11 +720,39 @@ extern "C" int fused_rkc_grid_capacity(int rho_mode, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
+// B10 at cluster size c (2, 4 or 8) with CTAs of `threads`: the dynamic
+// shared memory a CTA needs (*bytes) and the clusters resident at once
+// (*clusters, cudaOccupancyMaxActiveClusters; 0 where the chunk's arrays do
+// not fit the card's opt-in shared memory); returns the CUDA error code.
+extern "C" int fused_rkc_cluster_capacity(int rho_mode, int threads, int c,
+                                          int* clusters, int* bytes) {
+  int dev = 0;
+  int optin = 0;
+  cudaFuncAttributes fa;
+  const ClusterKernel k = cluster_kernel(rho_mode);
+  *clusters = 0;
+  *bytes = static_cast<int>(cluster_smem(c));
+  if (c < 2 || c > kMaxCluster || threads > kClusterThreads) return 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  cudaError_t e = cudaFuncGetAttributes(&fa, k);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (*bytes + static_cast<int>(fa.sharedSizeBytes) > optin) return 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  e = cluster_config(k, c, c, threads, nullptr, cfg, attr);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveClusters(clusters, k, &cfg);
+  return static_cast<int>(e);
+}
+
 // Launches B9 (grid = 1: one member on a cooperative grid of `blocks`
-// blocks) or B10 (grid = 0: one block per member) on the caller's stream and
+// blocks) or B10 (grid = 0: one block per member at cluster = 1, else a
+// cluster of `cluster` blocks per member) on the caller's stream and
 // returns the CUDA error code; the wrapper raises on anything but 0, and a
-// refused cooperative launch is such an error.  `work` holds kArrays * NTOT
-// floats per member, `partials` 2 * blocks floats (B9 only).
+// refused cooperative or cluster launch is such an error.  `work` holds
+// kArrays * NTOT floats per member, `partials` 2 * blocks floats (B9 only).
 extern "C" int fused_rkc_launch(int grid, int rho_mode, const void* y0,
                                 const void* params, void* y_out, void* status,
                                 void* nsteps, void* nfev, void* nfesig,
@@ -563,7 +761,7 @@ extern "C" int fused_rkc_launch(int grid, int rho_mode, const void* y0,
                                 float atol, float h0, float rho_const,
                                 float max_step, int mmax, int max_steps,
                                 int const_jac, int threads, int blocks,
-                                void* stream) {
+                                int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Solve s{t0, tf, dir, rtol, atol, h0, rho_const, max_step,
           mmax, max_steps, const_jac};
@@ -578,6 +776,18 @@ extern "C" int fused_rkc_launch(int grid, int rho_mode, const void* y0,
     void* args[] = {&y0f, &pf, &wf, &part, &s, &out};
     return static_cast<int>(cudaLaunchCooperativeKernel(
         grid_kernel(rho_mode), dim3(blocks), dim3(threads), args, 0, st));
+  }
+  if (cluster > 1) {
+    if (cluster > kMaxCluster || threads > kClusterThreads) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    const ClusterKernel k = cluster_kernel(rho_mode);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    const cudaError_t e =
+        cluster_config(k, members, cluster, threads, st, cfg, attr);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaLaunchKernelEx(&cfg, k, y0f, pf, wf, s, out));
   }
   if (rho_mode == kRhoConst) {
     fused_rkc_block_kernel<kRhoConst><<<members, threads, 0, st>>>(

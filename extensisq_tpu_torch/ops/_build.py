@@ -612,13 +612,18 @@ def load_fused_adams_grid(consts, shape, rhs_src):
 def load_fused_rkc(shape, n_par, rhs_src, rho_src=None):
     """Build (at first use) and load the fused RKC kernels (B9 and B10) for
     one grid shape, parameter count and right-hand side; returns
-    :class:`Built` with ``lib.fused_rkc_launch`` and
-    ``lib.fused_rkc_grid_capacity`` bound."""
+    :class:`Built` with ``lib.fused_rkc_launch``,
+    ``lib.fused_rkc_grid_capacity`` and ``lib.fused_rkc_cluster_capacity``
+    bound."""
     built = load_kernel(
         "fused_rkc", fused_rkc_header(shape, n_par, rhs_src, rho_src),
         [_CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF,
-         _CF, _CF, _CF, _CF, _CF, _CF, _CF, _CI, _CI, _CI, _CI, _CI, _VP])
+         _CF, _CF, _CF, _CF, _CF, _CF, _CF, _CI, _CI, _CI, _CI, _CI, _CI,
+         _VP])
     cap = built.lib.fused_rkc_grid_capacity
     cap.argtypes = [_CI, _CI, ctypes.POINTER(ctypes.c_int)]
     cap.restype = ctypes.c_int
+    ccap = built.lib.fused_rkc_cluster_capacity
+    ccap.argtypes = [_CI, _CI, _CI] + [ctypes.POINTER(ctypes.c_int)] * 2
+    ccap.restype = ctypes.c_int
     return built

@@ -100,9 +100,20 @@ def solve_fused_adams_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     return _launch(_kernel(fun, km), fun, t_span, y0, **kw)
 
 
+def _start(fun, t_span, y0, rtol, atol, first_step, k_max, max_step):
+    """Each member's starting state, outside the kernel as in the JAX
+    package: the float32 stepper's init run as torch operations on the
+    card.  Returns (f(t0, y0) (B, n), h0 (B,), nfev0 (B,), direction)."""
+    _, s0, direction = _host_init(fun.torch_fn, t_span, y0.T, rtol, atol,
+                                  first_step, k_max, max_step)
+    return (s0.yp.T.contiguous(), s0.h.contiguous(), s0.nfev.contiguous(),
+            direction)
+
+
 def _launch(built, fun, t_span, y0, rtol, atol, first_step, k_max,
-            max_steps, max_step):
-    """Launch ``csrc/fused_adams_grid.cu`` on the current stream; raise
+            max_steps, max_step, start=None):
+    """Launch ``csrc/fused_adams_grid.cu`` on the current stream from the
+    members' ``start`` (:func:`_start`'s, computed here when None); raise
     before launch when a member's rows do not fit in the card's shared
     memory."""
     nb, n = y0.shape
@@ -116,12 +127,10 @@ def _launch(built, fun, t_span, y0, rtol, atol, first_step, k_max,
                             "take a smaller system or a lower k_max")
         if nb == 0:
             return y_out, status, nsteps, nfev
-        # the starting state, outside the kernel as in the JAX package
-        _, s0, direction = _host_init(fun.torch_fn, t_span, y0.T, rtol, atol,
-                                      first_step, k_max, max_step)
-        yp0 = s0.yp.T.contiguous()
-        h0 = s0.h.contiguous()
-        nfev0 = s0.nfev.contiguous()
+        if start is None:
+            start = _start(fun, t_span, y0, rtol, atol, first_step, k_max,
+                           max_step)
+        yp0, h0, nfev0, direction = start
         stream = torch.cuda.current_stream(y0.device).cuda_stream
         rc = built.lib.fused_adams_grid_launch(
             y0.data_ptr(), yp0.data_ptr(), h0.data_ptr(), nfev0.data_ptr(),

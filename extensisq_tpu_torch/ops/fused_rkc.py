@@ -6,8 +6,10 @@ CUDA body (``csrc/fused_rkc.cu``, ``integrate<Group>``):
 
 * :func:`solve_fused_rkc` (B9): one grid, run by the whole card in a
   cooperative launch;
-* :func:`solve_fused_rkc_ensemble` (B10): many member grids, one thread
-  block each, with per-member parameters.
+* :func:`solve_fused_rkc_ensemble` (B10): many member grids, each on a
+  thread-block cluster of C CTAs with its elementwise arrays in their
+  shared memory (C from :func:`_cluster_size`), or on one thread block,
+  with per-member parameters.
 
 Both run the JAX kernel's algorithm in float32: the Chebyshev stage
 recurrence in deviation form with double-single coefficients (``ops/ds.py``,
@@ -38,10 +40,13 @@ ITMAX = 50               # power-iteration bound
 N_ARRAYS = 9             # per-member float32 arrays of the kernel's workspace
 # Launch shapes.  B9: one block of 512 per SM (within the resident grid);
 # on an H100 that ran the 2x256x256 Brusselator faster than the whole
-# resident grid of blocks of 256.  B10: one block of 1024 per member, which
-# beat 256 and 512 on 64 members of 2x64x128 (PERF.md, section 6).
+# resident grid of blocks of 256.  B10: blocks (at C = 1) and CTAs (at
+# C > 1) of 1024; at C = 1 that beat 256 and 512 on 64 members of 2x64x128,
+# at C = 2 CTAs of 512 were no faster (PERF.md, section 6).
 GRID_THREADS = 512
 BLOCK_THREADS = 1024
+# B10's cluster sizes
+CLUSTER_SIZES = (8, 4, 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -447,6 +452,58 @@ def _stages(fn, t, y, y_lo, f, h, m, running):
 
 # (build key, rho mode, device index) -> B9's grid
 _GRIDS = {}
+# (build key, rho mode, device index) -> {C: B10's clusters resident at once}
+_CLUSTERS = {}
+
+
+def _cluster_size(members, max_clusters):
+    """B10's cluster size for ``members`` grids.  Of the C in 8, 4 and 2 of
+    which the card holds clusters at all (``max_clusters[C]``, the card's
+    ``cudaOccupancyMaxActiveClusters``, 0 where a CTA's chunk of the six
+    elementwise arrays does not fit its shared memory; a cluster may not
+    span GPCs), the largest whose ``members`` clusters are all resident at
+    once; where there are more members than that, the smallest such C, its
+    clusters in waves; where there is none, 1: one block per member with
+    the arrays in global memory.
+
+    On an H100 (132 SMs, 700 W; 66, 30 and 15 clusters of 2, 4 and 8
+    resident at 2x64x128, 0, 30 and 15 at 2x128x128;
+    ``tools/probe_fused_rkc.py``, PERF.md section 6), config 5d's 2x64x128
+    members, device ms at C = 8 / 4 / 2 / 1: 8 members 3.43 / 4.48 / 6.57
+    / 13.47; 64: 14.43 / 11.15 / 6.49 / 13.50; 256 (C = 2 in four waves):
+    50.75 / 34.03 / 23.63 / 48.56.  At 2x128x128: 16 members 7.87 / 6.67 /
+    - / 25.39; 128 (C = 4 in five waves): 34.26 / 28.73 / - / 55.51."""
+    held = [c for c in CLUSTER_SIZES if int(max_clusters.get(c, 0)) > 0]
+    if int(members) < 1 or not held:
+        return 1
+    for c in held:
+        if int(members) <= int(max_clusters[c]):
+            return c
+    return held[-1]
+
+
+def _max_clusters(built, rho, device):
+    """{C: clusters of B10 resident at once} on ``device`` for each of
+    :data:`CLUSTER_SIZES`, from the kernel library (0 where a CTA's chunk
+    does not fit the card's shared memory); raises on a CUDA error."""
+    import ctypes
+    with torch.cuda.device(device):
+        dev = torch.cuda.current_device()
+        key = (built.key, _rho_mode(rho), dev)
+        hit = _CLUSTERS.get(key)
+        if hit is None:
+            hit = {}
+            for c in CLUSTER_SIZES:
+                n, nbytes = ctypes.c_int(0), ctypes.c_int(0)
+                rc = built.lib.fused_rkc_cluster_capacity(
+                    _rho_mode(rho), BLOCK_THREADS, c, ctypes.byref(n),
+                    ctypes.byref(nbytes))
+                if rc != 0:
+                    raise RuntimeError(f"fused_rkc: cluster occupancy query "
+                                       f"failed at C = {c}: CUDA error {rc}")
+                hit[c] = n.value
+            _CLUSTERS[key] = hit
+    return hit
 
 
 def _kernel(fun, rho, n_par):
@@ -480,10 +537,11 @@ def _check_card_inputs(name, fun, rho, y0, lead):
 
 def _launch(built, grid, rho, y0, params, n_members, t_span, rtol, atol,
             first_step, max_steps, m_max, const_jac, max_step, threads,
-            blocks):
+            blocks, cluster=1):
     """Allocate the outputs and the workspace and launch B9 (``grid``) or
-    B10 on the current stream; returns (y, status, nsteps, nfev, nfesig)
-    with the member axis first."""
+    B10 (a cluster of ``cluster`` CTAs per member, or one block at 1) on
+    the current stream; returns (y, status, nsteps, nfev, nfesig) with the
+    member axis first."""
     dev = y0.device
     ntot = int(np.prod(y0.shape[1:]))
     mode = _rho_mode(rho)
@@ -510,7 +568,7 @@ def _launch(built, grid, rho, y0, params, n_members, t_span, rtol, atol,
             _f32(rho) if mode == 0 else 0.0,
             np.inf if max_step is None else _f32(max_step), mmax,
             int(max_steps), int(bool(const_jac)), int(threads), int(blocks),
-            stream)
+            int(cluster), stream)
     if rc != 0:
         raise RuntimeError(f"fused_rkc kernel launch failed: CUDA error {rc}")
     return (y_out, *ints)
@@ -598,10 +656,14 @@ def solve_fused_rkc_ensemble(fun, t_span, y0, rho=None, params=None,
     takes the steps :func:`solve_fused_rkc` takes on it alone.
 
     Returns ``(y_final, status, nsteps, nfev[, nfesig])``, per-member
-    arrays.  On a CUDA tensor the call launches one block of 1024 threads
-    per member, or raises; on a CPU tensor it runs
-    :func:`fused_rkc_reference`.  ``t_eval`` and ``events`` are not ported
-    yet.
+    arrays.  On a CUDA tensor the call launches a thread-block cluster of C
+    CTAs of 1024 threads per member, C from :func:`_cluster_size` (all
+    members' clusters resident at once, each CTA's chunk of the member's
+    elementwise arrays in its shared memory), or one block of 1024 threads
+    per member where no C > 1 qualifies; it raises where the launch is
+    refused.  The C taken is left in ``solve_fused_rkc_ensemble.cluster``.
+    On a CPU tensor it runs :func:`fused_rkc_reference`.  ``t_eval`` and
+    ``events`` are not ported yet.
     """
     check_options("solve_fused_rkc_ensemble", "B10", t_eval=t_eval,
                   events=events)
@@ -618,16 +680,35 @@ def solve_fused_rkc_ensemble(fun, t_span, y0, rho=None, params=None,
                                    **kw)
     _check_card_inputs("solve_fused_rkc_ensemble", fun, rho, y0,
                        y0.shape[:1])
+    out, c = _launch_ensemble(fun, t_span, y0, rho, params, None, **kw)
+    solve_fused_rkc_ensemble.launches += 1
+    solve_fused_rkc_ensemble.cluster = c
+    return out if rho is None else out[:4]
+
+
+def _launch_ensemble(fun, t_span, y0, rho, params, cluster, rtol=1e-4,
+                     atol=1e-6, first_step=None, max_steps=100_000,
+                     m_max=None, const_jac=False, max_step=None):
+    """B10 on the card: a cluster of ``cluster`` CTAs per member (None: the
+    C of :func:`_cluster_size`; 1: one block per member).  Returns the five
+    outputs and the C taken."""
+    kw = dict(rtol=rtol, atol=atol, first_step=first_step,
+              max_steps=max_steps, m_max=m_max, const_jac=const_jac,
+              max_step=max_step)
     n_par = 0 if params is None else params.shape[1]
     built = _kernel(fun, rho, n_par)
+    c = cluster or _cluster_size(y0.shape[0],
+                                 _max_clusters(built, rho, y0.device))
     out = _launch(built, False, rho, y0.contiguous(),
                   None if params is None else params.contiguous(),
-                  y0.shape[0], t_span, threads=BLOCK_THREADS, blocks=0, **kw)
-    solve_fused_rkc_ensemble.launches += 1
-    return out if rho is None else out[:4]
+                  y0.shape[0], t_span, threads=BLOCK_THREADS, blocks=0,
+                  cluster=c, **kw)
+    return out, c
 
 
 # kernel launches since the count was last set to 0 (the plain version on
 # CPU tensors does not count)
 solve_fused_rkc.launches = 0
 solve_fused_rkc_ensemble.launches = 0
+# B10's cluster size at its last launch
+solve_fused_rkc_ensemble.cluster = 0

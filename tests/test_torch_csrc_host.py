@@ -116,14 +116,10 @@ extern "C" int fused_erk_launch(
 }
 """
 
-# The SWAG bodies of B3 run one member after another: at one lane the
-# thread-per-member body integrate_thread<COMP>, at G lanes the group body
-# integrate<G, COMP> with the lanes run as coroutines on one thread: a lane
-# runs until its next shfl and hands over to the next lane (an x86-64 stack
-# switch), so every lane sees the others' values at each shuffle and a
-# wrong split of rows or coefficients over the lanes shows on the host.
-# The CUDA group and kernel after the marker are left out.
-ADAMS_LAUNCH = r"""
+# G lanes (or CTAs) of one member as coroutines on one thread, for the
+# bodies that run on groups of threads: SWAG's lane groups, B8's warp of
+# coefficient lanes and B10's cluster of CTAs.
+COROUTINES = r"""
 #include <cstdint>
 #include <cstdlib>
 
@@ -212,7 +208,16 @@ static void run_lanes(int G, void (*run)(int), char* stacks) {
   }
   adams_lane_switch(&set.main_sp, set.sp[0]);
 }
+"""
 
+# The SWAG bodies of B3 run one member after another: at one lane the
+# thread-per-member body integrate_thread<COMP>, at G lanes the group body
+# integrate<G, COMP> with the lanes run as coroutines on one thread: a lane
+# runs until its next shfl and hands over to the next lane (an x86-64 stack
+# switch), so every lane sees the others' values at each shuffle and a
+# wrong split of rows or coefficients over the lanes shows on the host.
+# The CUDA group and kernel after the marker are left out.
+ADAMS_LAUNCH = COROUTINES + r"""
 struct HostMember {
   const float *y0, *yp0;
   float h0;
@@ -269,36 +274,108 @@ extern "C" int fused_adams_host(
 }
 """
 
-# The RKC body integrate<RHO, Group> run by a one-thread group whose sync()
-# does nothing, one member after another; the CUDA groups and kernels after
-# the marker are left out.
+# The RKC body integrate<RHO, Group> run one member after another, at
+# cluster = 1 by a one-thread group whose sync() does nothing (the arrays in
+# the workspace, as B9 and B10's block body), at cluster = C by C one-thread
+# CTAs as coroutines that hand over at each cluster barrier, each with its
+# chunk's arrays in a buffer of its own and its sums written into every
+# CTA's slots (the DSMEM partials of the card's ClusterGroup), then added
+# in rank order.  The CUDA groups and kernels after the marker are left
+# out.
 RKC_MARKER = "// ---- CUDA groups, kernels and launch ----"
-RKC_LAUNCH = """
+RKC_LAUNCH = COROUTINES + r"""
 struct HostGroup {
+  static constexpr bool kLocal = false;
   int rank() const { return 0; }
   int size() const { return 1; }
+  int lo() const { return 0; }
+  int hi() const { return NTOT; }
   void sync() const {}
+  void arrive() const {}
+  void wait() const {}
   float sum(float v) const { return v; }
 };
+
+static float g_parts[8][2][8];  // [CTA][turn][sending CTA]
+
+struct HostCta {
+  static constexpr bool kLocal = true;
+  int r, c, lo_, hi_;
+  int turn = 0;
+  int rank() const { return 0; }
+  int size() const { return 1; }
+  int lo() const { return lo_; }
+  int hi() const { return hi_; }
+  void sync() const {
+    adams_lane_switch(&g_set->sp[r], g_set->sp[(r + 1) % g_set->G]);
+  }
+  void arrive() const { sync(); }
+  void wait() const {}
+  float sum(float v) {
+    for (int k = 0; k < c; ++k) g_parts[k][turn][r] = v;
+    const float* mine = g_parts[r][turn];
+    turn ^= 1;
+    sync();
+    float s = mine[0];
+    for (int k = 1; k < c; ++k) s += mine[k];
+    return s;
+  }
+};
+
+struct HostRkcMember {
+  int rho_mode, c;
+  const float *y, *p;
+  float *w, *sm;
+  Solve s;
+  int m;
+  Out out;
+};
+static HostRkcMember g_rkc;
+
+template <class Group>
+static void rkc_member(Group& g, const HostRkcMember& a, float* sm) {
+  if (a.rho_mode == kRhoConst) integrate<kRhoConst>(g, a.y, a.p, a.w, sm, a.s, a.m, a.out);
+  if (a.rho_mode == kRhoFn) integrate<kRhoFn>(g, a.y, a.p, a.w, sm, a.s, a.m, a.out);
+  if (a.rho_mode == kRhoPower) integrate<kRhoPower>(g, a.y, a.p, a.w, sm, a.s, a.m, a.out);
+}
+
+static void rkc_cta(int r) {
+  const HostRkcMember& a = g_rkc;
+  const int chunk = (NTOT + a.c - 1) / a.c;
+  const int lo = min(r * chunk, NTOT);
+  HostCta g{r, a.c, lo, min(lo + chunk, NTOT)};
+  rkc_member(g, a, a.sm + static_cast<size_t>(r) * 6 * chunk);
+}
 
 extern "C" int fused_rkc_host(
     int rho_mode, const float* y0, const float* params, float* y_out,
     int* status, int* nsteps, int* nfev, int* nfesig, float* work,
     int members, float t0, float tf, float dir, float rtol, float atol,
     float h0, float rho_const, float max_step, int mmax, int max_steps,
-    int const_jac) {
+    int const_jac, int cluster) {
+  if (cluster < 1 || cluster > 8) return 1;
   Solve s{t0, tf, dir, rtol, atol, h0, rho_const, max_step,
           mmax, max_steps, const_jac};
   Out out{y_out, status, nsteps, nfev, nfesig};
+  const int chunk = (NTOT + cluster - 1) / cluster;
+  float* sm = new float[static_cast<size_t>(cluster) * 6 * chunk];
+  char* stacks = static_cast<char*>(
+      std::malloc(static_cast<size_t>(cluster) * kLaneStack));
   for (int m = 0; m < members; ++m) {
-    HostGroup g;
-    const float* p = tab::NPAR ? params + m * tab::NPAR : nullptr;
-    const float* y = y0 + m * NTOT;
-    float* w = work + static_cast<size_t>(m) * kArrays * NTOT;
-    if (rho_mode == kRhoConst) integrate<kRhoConst>(g, y, p, w, s, m, out);
-    if (rho_mode == kRhoFn) integrate<kRhoFn>(g, y, p, w, s, m, out);
-    if (rho_mode == kRhoPower) integrate<kRhoPower>(g, y, p, w, s, m, out);
+    g_rkc = HostRkcMember{rho_mode, cluster,
+                          y0 + m * NTOT,
+                          tab::NPAR ? params + m * tab::NPAR : nullptr,
+                          work + static_cast<size_t>(m) * kArrays * NTOT,
+                          sm, s, m, out};
+    if (cluster == 1) {
+      HostGroup g;
+      rkc_member(g, g_rkc, nullptr);
+    } else {
+      run_lanes(cluster, rkc_cta, stacks);
+    }
   }
+  std::free(stacks);
+  delete[] sm;
   return 0;
 }
 """
@@ -377,21 +454,93 @@ struct HostGroup {
 };
 """
 
-# The mid-size SWAG body (B8) run by a one-thread group on a host buffer in
-# place of shared memory, one member after another.
-ADAMS_GRID_LAUNCH = HOST_GROUP + """
+# The mid-size SWAG body (B8) integrate<W> run one member after another on
+# a host buffer in place of shared memory: at lanes = 1 by a one-thread
+# group whose sums return their values and one coefficient lane (W = 1); at
+# lanes = 32 by a warp of 32 coroutine threads, the coefficient vectors
+# spread over their lanes (W = 32, as on the card) and exchanged by the
+# coroutine shfl, the member's elements all on thread 0 (so the norms sum
+# in the one-thread order) and the block's sums and barriers handed round
+# the warp.
+ADAMS_GRID_LAUNCH = COROUTINES + r"""
+struct HostBlock {
+  int rank() const { return 0; }
+  int size() const { return 1; }
+  void sync() const {}
+  template <int K>
+  void sums(float (&)[K]) const {}
+};
+
+struct HostOneLane {
+  int rank() const { return 0; }
+  float shfl(float v, int) const { return v; }
+};
+
+static float g_sums[2][3][32];  // [turn][value][thread]
+
+struct HostWarpBlock {
+  int r;
+  int turn = 0;
+  int rank() const { return r == 0 ? 0 : N; }
+  int size() const { return 1; }
+  void sync() const {
+    adams_lane_switch(&g_set->sp[r], g_set->sp[(r + 1) % g_set->G]);
+  }
+  template <int K>
+  void sums(float (&v)[K]) {
+    const int t = turn;
+    turn ^= 1;
+    for (int j = 0; j < K; ++j) g_sums[t][j][r] = v[j];
+    sync();
+    for (int j = 0; j < K; ++j) {
+      float s = g_sums[t][j][0];
+      for (int k = 1; k < 32; ++k) s = s + g_sums[t][j][k];
+      v[j] = s;
+    }
+  }
+};
+
+struct HostGridMember {
+  const float *y0, *yp0;
+  float h0;
+  int nfev0;
+  Launch L;
+  int m;
+  Out out;
+  float* sm;
+};
+static HostGridMember g_grid;
+
+static void warp_thread(int r) {
+  HostWarpBlock g{r};
+  HostLanes lanes{r};
+  const HostGridMember& a = g_grid;
+  integrate<32>(g, lanes, a.sm, a.y0, a.yp0, a.h0, a.nfev0, a.L, a.m, a.out);
+}
+
 extern "C" int fused_adams_grid_host(
     const float* y0, const float* yp0, const float* h0, const int* nfev0,
     float* y_out, int* status, int* nsteps, int* nfev, int members,
     float t0, float tf, float dir, float rtol, float atol, float max_step,
-    int max_steps) {
+    int max_steps, int lanes) {
+  if (lanes != 1 && lanes != 32) return 1;
   const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
   const Out out{y_out, status, nsteps, nfev};
   float* sm = new float[kFloats];
+  char* stacks = static_cast<char*>(std::malloc(32 * kLaneStack));
   for (int m = 0; m < members; ++m) {
-    HostGroup g;
-    integrate(g, sm, y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L, m, out);
+    if (lanes == 1) {
+      HostBlock g;
+      HostOneLane one;
+      integrate<1>(g, one, sm, y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L,
+                   m, out);
+    } else {
+      g_grid = HostGridMember{y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L,
+                              m, out, sm};
+      run_lanes(32, warp_thread, stacks);
+    }
   }
+  std::free(stacks);
   delete[] sm;
   return 0;
 }
@@ -767,7 +916,9 @@ def _rkc_inputs():
     return y0, np.array([[2.9], [3.2], [3.4]], np.float32)
 
 
-def _rkc_host(lib, rho_mode, rho, **kw):
+def _rkc_host(lib, rho_mode, rho, cluster=1, **kw):
+    if cluster > 1 and platform.machine() not in ("x86_64", "AMD64"):
+        pytest.skip("the host cluster switches x86-64 stacks")
     y0, params = _rkc_inputs()
     nb = y0.shape[0]
     ntot = int(np.prod(y0.shape[1:]))
@@ -776,13 +927,14 @@ def _rkc_host(lib, rho_mode, rho, **kw):
     work = np.empty(nb * FR.N_ARRAYS * ntot, np.float32)
     fn = lib.fused_rkc_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ci] + [vp] * 8 + [ci] + [cf] * 8 + [ci] * 3
-    fn(rho_mode, y0.ctypes.data, params.ctypes.data, out.ctypes.data,
-       *[a.ctypes.data for a in ints], work.ctypes.data, nb, 0.0, 1.0, 1.0,
-       1e-4, 1e-7, FR._f32(kw.get("first_step", -1.0)),
-       FR._f32(rho) if rho_mode == 0 else 0.0, np.inf,
-       FR._mmax_for(1e-4, kw.get("m_max"))[0], 100_000,
-       int(kw.get("const_jac", False)))
+    fn.argtypes = [ci] + [vp] * 8 + [ci] + [cf] * 8 + [ci] * 4
+    rc = fn(rho_mode, y0.ctypes.data, params.ctypes.data, out.ctypes.data,
+            *[a.ctypes.data for a in ints], work.ctypes.data, nb, 0.0, 1.0,
+            1.0, 1e-4, 1e-7, FR._f32(kw.get("first_step", -1.0)),
+            FR._f32(rho) if rho_mode == 0 else 0.0, np.inf,
+            FR._mmax_for(1e-4, kw.get("m_max"))[0], 100_000,
+            int(kw.get("const_jac", False)), cluster)
+    assert rc == 0
     return (out, *ints)
 
 
@@ -796,17 +948,13 @@ RKC_CASES = {"float": (0, {}), "callable": (1, {}), "power": (2, {}),
              "m_max": (0, {"m_max": 2})}
 
 
-@pytest.mark.parametrize("case", list(RKC_CASES))
-def test_rkc_kernel_matches_plain_version(libs, case):
-    """The RKC body (B9 and B10 share it) run on the host by a one-thread
-    group against fused_rkc_reference on three 2x8x8 Brusselator members
-    with their own B, one of which overflows.  Measured: identical status,
-    nsteps, nfev and nfesig, |dy| <= 1.4e-6 over the finished members (the
-    libraries' logf/sinhf/coshf/powf and the order of the grid sums, which
-    the host kernel takes sequentially); the gate is 5e-6."""
+def _rkc_against_plain(libs, case, cluster):
+    """The host body at ``cluster`` CTAs per member against
+    fused_rkc_reference on ``case``: identical status, nsteps, nfev and
+    nfesig, and max |dy| over the finished members (returned)."""
     mode, kw = RKC_CASES[case]
     rho = {0: RHO_8, 1: TR.RHO_FN, 2: None}[mode]
-    y, st, ns, nf, nsig = _rkc_host(libs["rkc"], mode, RHO_8, **kw)
+    y, st, ns, nf, nsig = _rkc_host(libs["rkc"], mode, RHO_8, cluster, **kw)
     y0, params = _rkc_inputs()
     ref = FR.fused_rkc_reference(
         pde.brusselator_2d_grid(RKC_SHAPE, B=None), (0.0, 1.0),
@@ -819,7 +967,32 @@ def test_rkc_kernel_matches_plain_version(libs, case):
     np.testing.assert_array_equal(nf, ref[3])
     if mode == 2:
         np.testing.assert_array_equal(nsig, ref[4])
-    assert np.max(np.abs(y[:2] - ref[0][:2])) <= 5e-6
+    return np.max(np.abs(y[:2] - ref[0][:2]))
+
+
+@pytest.mark.parametrize("case", list(RKC_CASES))
+def test_rkc_kernel_matches_plain_version(libs, case):
+    """The RKC body (B9 and B10 share it) run on the host by a one-thread
+    group, its arrays in the workspace, against fused_rkc_reference on
+    three 2x8x8 Brusselator members with their own B, one of which
+    overflows.  Measured: identical status, nsteps, nfev and nfesig, |dy|
+    <= 1.4e-6 over the finished members (the libraries'
+    logf/sinhf/coshf/powf and the order of the grid sums, which the host
+    kernel takes sequentially); the gate is 5e-6."""
+    assert _rkc_against_plain(libs, case, 1) <= 5e-6
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+@pytest.mark.parametrize("case", list(RKC_CASES))
+def test_rkc_cluster_body_matches_plain_version(libs, case, cluster):
+    """B10's cluster body on the host: each member on ``cluster`` CTAs
+    (coroutines that hand over at each cluster barrier), each owning a
+    contiguous chunk of the grid with its elementwise arrays in a buffer of
+    its own, the stage arguments shared across the chunks, and every sum
+    the CTAs' partials added in rank order, against fused_rkc_reference at
+    the one-thread body's gates: identical status and counts (the
+    overflowing member fails alone), |dy| <= 5e-6."""
+    assert _rkc_against_plain(libs, case, cluster) <= 5e-6
 
 
 def _rkn_host(lib, span, y0, **kw):
@@ -1022,9 +1195,12 @@ def test_ckdisc_kernels_first_attempts_bit_identical(libs, case, attempts):
         np.testing.assert_array_equal(a, b)
 
 
-def _adams_grid_host(lib, fun, span, y0, **kw):
-    """The host-built mid-size SWAG body on ``y0``, started from the float32
-    stepper's init as the wrapper starts it."""
+def _adams_grid_host(lib, fun, span, y0, lanes=1, **kw):
+    """The host-built mid-size SWAG body on ``y0`` with its coefficients on
+    ``lanes`` lanes, started from the float32 stepper's init as the wrapper
+    starts it."""
+    if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
+        pytest.skip("the host warp switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
     nb = y0.shape[0]
     _, s0, direction = FA._host_init(
@@ -1037,13 +1213,15 @@ def _adams_grid_host(lib, fun, span, y0, **kw):
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
     fn = lib.fused_adams_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 8 + [ci] + [cf] * 6 + [ci]
+    fn.argtypes = [vp] * 8 + [ci] + [cf] * 6 + [ci, ci]
     mstep = kw.get("max_step")
-    fn(y0.ctypes.data, yp0.ctypes.data, h0.ctypes.data, nfev0.ctypes.data,
-       out.ctypes.data, st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb,
-       FA._f32(span[0]), FA._f32(span[1]), direction, FA._f32(kw["rtol"]),
-       FA._f32(kw["atol"]), np.inf if mstep is None else FA._f32(mstep),
-       kw.get("max_steps", 200_000))
+    rc = fn(y0.ctypes.data, yp0.ctypes.data, h0.ctypes.data,
+            nfev0.ctypes.data, out.ctypes.data, st.ctypes.data,
+            ns.ctypes.data, nf.ctypes.data, nb, FA._f32(span[0]),
+            FA._f32(span[1]), direction, FA._f32(kw["rtol"]),
+            FA._f32(kw["atol"]), np.inf if mstep is None else FA._f32(mstep),
+            kw.get("max_steps", 200_000), lanes)
+    assert rc == 0
     return out, st, ns, nf
 
 
@@ -1058,11 +1236,11 @@ ADAMS_GRID_CASES = {
 }
 
 
-def _adams_grid_case(libs, name, **over):
+def _adams_grid_case(libs, name, lanes=1, **over):
     lib, prob, span, y0, kw = ADAMS_GRID_CASES[name]
     kw = dict(kw, **over)
     fun, y0 = TAG.RHS[prob], TAG.Y0[y0]
-    host = _adams_grid_host(libs[lib], fun, span, y0, **kw)
+    host = _adams_grid_host(libs[lib], fun, span, y0, lanes, **kw)
     ref = FAG.fused_adams_grid_reference(fun, span, torch.tensor(y0), **kw)
     return host, tuple(r.numpy() for r in ref)
 
@@ -1101,6 +1279,30 @@ def test_adams_grid_body_first_attempts_bit_identical(libs, case, attempts):
     selection) repeat the plain version's arithmetic bit for bit."""
     out, ref = _adams_grid_case(libs, case, max_steps=attempts)
     for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case,attempts", [("heat_max_step", 5),
+                                           ("heat_max_step", 30)])
+def test_adams_grid_warp_lanes_first_attempts_bit_identical(libs, case,
+                                                            attempts):
+    """With the coefficient vectors spread over a warp of 32 lanes (the
+    card's layout: coefficients_lanes in every warp, beta and g by shuffle,
+    the failure restore's psi shift across the lanes), the body's first
+    attempts still repeat the plain version's arithmetic bit for bit."""
+    out, ref = _adams_grid_case(libs, case, 32, max_steps=attempts)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", list(ADAMS_GRID_CASES))
+def test_adams_grid_warp_lanes_equal_one_lane(libs, case):
+    """Whole runs with the coefficients on 32 lanes equal the one-lane
+    body's bit for bit (every order change, rejection and failure restore
+    of these cases, the overflowing member's status 3 included)."""
+    (out, _), (one, _) = (_adams_grid_case(libs, case, lanes)
+                          for lanes in (32, 1))
+    for a, b in zip(out, one):
         np.testing.assert_array_equal(a, b)
 
 

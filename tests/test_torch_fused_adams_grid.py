@@ -291,7 +291,7 @@ def test_generated_header_carries_the_grid():
     assert "constexpr int KM = 6;" in text and RHS["heat"].cuda_src in text
     assert [p.name for p in _build.shared_headers("fused_adams_grid")] == [
         "grid_common.cuh", "adams_common.cuh", "rk_common.cuh",
-        "block_group.cuh"]
+        "block_group.cuh", "lane_group.cuh"]
 
 
 @pytest.fixture

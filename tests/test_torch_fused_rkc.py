@@ -391,6 +391,80 @@ def test_b10_kernel_matches_plain_version_on_card(cuda, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rho", ["float", None])
+def test_b10_cluster_launch_matches_plain_version_and_repeats(cuda, rho):
+    """B10 at the wrapper's cluster size on 8 members of 2x32x128 (C = 8
+    on an H100: each CTA keeps a chunk of 1,024 elements in shared memory)
+    against its plain version at chip_smoke.py's gates for these members
+    (5e-4, 3 steps), and three launches bit-identical (a stale line of a
+    peer's stage argument in L1 would show as a run-to-run difference)."""
+    shape = (32, 128)
+    fun = parallel.brusselator_2d_grid(shape, B=None, alpha=ALPHA)
+    x = np.linspace(0, 1, shape[1], endpoint=False)
+    y0 = np.zeros((8, 2) + shape, np.float32)
+    y0[:, 0] = 1.0 + 0.3 * np.sin(2 * np.pi * x)[None, :]
+    y0[:, 1] = 3.0
+    y0[:, 0] += np.linspace(0.0, 0.2, 8)[:, None, None]
+    y0 = torch.tensor(y0, device=cuda)
+    p = torch.linspace(2.8, 3.5, 8, device=cuda)[:, None]
+    r = _rho(rho, 8.0 * ALPHA * shape[1]**2 + 5.5)
+    runs = [solve_fused_rkc_ensemble(fun, (0.0, 1.0), y0, r, params=p, **TOL)
+            for _ in range(3)]
+    assert solve_fused_rkc_ensemble.cluster > 1
+    ref = fused_rkc_reference(fun, (0.0, 1.0), y0, r, params=p, **TOL)
+    torch.cuda.synchronize()
+    for k in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(k, runs[0]))
+    k = runs[0]
+    assert torch.equal(k[1], ref[1]) and bool((k[1] == 1).all())
+    assert (k[0] - ref[0]).abs().max().item() <= 5e-4
+    assert (k[2] - ref[2]).abs().max().item() <= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(ENS_CASES))
+def test_b10_block_body_matches_plain_version_on_card(cuda, name):
+    """B10's one-block-per-member body (C = 1, the arrays in global memory,
+    which the wrapper takes where no chunk fits in shared memory) on the
+    cases of test_b10_kernel_matches_plain_version_on_card, at its gates;
+    a comparison launch, so the launch count stays."""
+    rho = _rho(ENS_CASES[name], RHO_ENS)
+    y0 = torch.tensor(ENS0, device=cuda)
+    p = torch.tensor(BS, device=cuda)
+    before = solve_fused_rkc_ensemble.launches
+    k, c = FR._launch_ensemble(BRUS_P, (0.0, 1.0), y0, rho, p, 1, **TOL)
+    assert c == 1 and solve_fused_rkc_ensemble.launches == before
+    r = fused_rkc_reference(BRUS_P, (0.0, 1.0), y0, rho, params=p, **TOL)
+    torch.cuda.synchronize()
+    assert torch.equal(k[1], r[1])
+    assert (k[0] - r[0]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_b10_takes_one_block_where_no_chunk_fits(cuda):
+    """Two members of a 2x256x256 grid: a chunk of the six arrays does not
+    fit a CTA's shared memory at any C, so the wrapper runs one block per
+    member; held against the plain version at chip_smoke.py's b10 gates
+    (5e-4, 3 steps)."""
+    shape = (256, 256)
+    fun = parallel.brusselator_2d_grid(shape, alpha=ALPHA)
+    x = np.linspace(0, 1, shape[1], endpoint=False)
+    y0 = np.zeros((2, 2) + shape, np.float32)
+    y0[:, 0] = 1.0 + 0.3 * np.sin(2 * np.pi * x)[None, :]
+    y0[:, 1] = 3.0
+    y0[1, 0] += 0.1
+    y0 = torch.tensor(y0, device=cuda)
+    r = 8.0 * ALPHA * shape[1]**2 + 5.5
+    k = solve_fused_rkc_ensemble(fun, (0.0, 0.1), y0, r, **TOL)
+    assert solve_fused_rkc_ensemble.cluster == 1
+    ref = fused_rkc_reference(fun, (0.0, 0.1), y0, r, **TOL)
+    torch.cuda.synchronize()
+    assert torch.equal(k[1], ref[1]) and bool((k[1] == 1).all())
+    assert (k[0] - ref[0]).abs().max().item() <= 5e-4
+    assert (k[2] - ref[2]).abs().max().item() <= 3
+
+
+@pytest.mark.gpu
 def test_cuda_tensor_needs_grid_rhs(cuda):
     with pytest.raises(TypeError, match="FusedGridRHS"):
         solve_fused_rkc(BRUS.torch_fn, (0.0, 1.0),
@@ -398,3 +472,51 @@ def test_cuda_tensor_needs_grid_rhs(cuda):
     with pytest.raises(TypeError, match="FusedRho"):
         solve_fused_rkc(BRUS, (0.0, 1.0), torch.tensor(Y0, device=cuda),
                         lambda t, y: RHO)
+
+
+# clusters of 2, 4 and 8 CTAs of 1,024 threads resident at once on an H100
+# (132 SMs; cudaOccupancyMaxActiveClusters, tools/probe_fused_rkc.py), by
+# the member's element count: 0 where a CTA's chunk of the six elementwise
+# arrays does not fit the 227 KB of shared memory
+H100_CLUSTERS = {2 * 64 * 128: {2: 66, 4: 30, 8: 15},
+                 2 * 128 * 128: {2: 0, 4: 30, 8: 15},
+                 2 * 256 * 256: {2: 0, 4: 0, 8: 0}}
+
+
+@pytest.mark.parametrize("members,ntot,c", [
+    (8, 2 * 64 * 128, 8),        # the 8-member checks: clusters of 8
+    (15, 2 * 64 * 128, 8),
+    (16, 2 * 64 * 128, 4),       # more than 15 clusters of 8
+    (30, 2 * 64 * 128, 4),
+    (31, 2 * 64 * 128, 2),
+    (64, 2 * 64 * 128, 2),       # config 5d/5e: clusters of 2, 128 SMs
+    (66, 2 * 64 * 128, 2),
+    (67, 2 * 64 * 128, 2),       # more than fit at once: C = 2 in waves
+    (256, 2 * 64 * 128, 2),
+    (8, 2 * 128 * 128, 8),
+    (30, 2 * 128 * 128, 4),      # a chunk of 2 x 128 x 128 / 2: 384 KB
+    (64, 2 * 128 * 128, 4),      # ... so C = 4 in waves
+    (1, 2 * 256 * 256, 1),       # no chunk fits in shared memory
+])
+def test_cluster_size_on_132_sms(members, ntot, c):
+    """The cluster size the B10 wrapper takes: the largest C of 8, 4 and 2
+    whose members' clusters are all resident at once (none where the
+    chunk does not fit in shared memory); with more members, the smallest
+    C the card holds; 1 where it holds none."""
+    assert FR._cluster_size(members, H100_CLUSTERS[ntot]) == c
+
+
+def test_cluster_size_rule():
+    """The rule's edges: a C of which the card holds no cluster (0
+    resident) is never taken, and no such C or an empty ensemble takes one
+    block per member."""
+    h100 = H100_CLUSTERS[2 * 64 * 128]
+    assert FR._cluster_size(8, {2: 66, 4: 30, 8: 0}) == 4
+    assert FR._cluster_size(100, {2: 0, 4: 30, 8: 15}) == 4
+    assert FR._cluster_size(8, {}) == 1
+    assert FR._cluster_size(4, {2: 0, 4: 0, 8: 0}) == 1
+    assert FR._cluster_size(0, h100) == 1
+    for members in range(1, 300):
+        c = FR._cluster_size(members, h100)
+        resident = [d for d in (8, 4, 2) if members <= h100[d]]
+        assert c == (resident[0] if resident else 2)

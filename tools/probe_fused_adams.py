@@ -25,11 +25,8 @@ kernel takes one branch).  Writes chiprun_out/<--tag>.json.
 """
 import argparse
 import ctypes
-import json
 import re
-import shutil
 import statistics
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -38,6 +35,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from _probe import (build, card, launch_signature, ptxas_lines, sass_ops,
+                    timed, turns, write_out)
 from extensisq_tpu_torch.ops import _build
 from extensisq_tpu_torch.ops import fused_adams as FA
 
@@ -70,37 +69,22 @@ def vdp_rows(t, y):
 
 def old_convention(src_dir):
     """(lanes, work) of the launch signature of src_dir/fused_adams.cu."""
-    text = (src_dir / "fused_adams.cu").read_text()
-    sig = re.search(r'extern "C" int fused_adams_launch\((.*?)\)', text, re.S)
-    if sig is None:
-        raise RuntimeError(f"{src_dir}: no fused_adams_launch")
-    args = sig.group(1)
+    args = launch_signature(src_dir, "fused_adams")
     return "int lanes" in args, "void* work" in args
 
 
 def build_old(header, old_src, tag):
     """nvcc the earlier kernel of ``old_src`` with ``header``; returns
     (library, .so path, seconds, compiler output)."""
-    d = _build.BUILD_DIR / f"fused_adams_old_{tag}"
-    if d.exists():
-        shutil.rmtree(d)
-    d.mkdir(parents=True)
-    (d / "fused_adams_config.cuh").write_text(header)
-    so = d / "lib.so"
-    cmd = [str(_build._nvcc()), *_build.NVCC_FLAGS, "-I", str(d), "-I",
-           str(old_src), "-o", str(so), str(old_src / "fused_adams.cu")]
-    t0 = time.perf_counter()
-    p = subprocess.run(cmd, capture_output=True, text=True)
-    if p.returncode:
-        raise RuntimeError(p.stdout + p.stderr)
+    b = build(old_src, "fused_adams", header, f"b3_old_{tag}")
     lanes, work = old_convention(old_src)
-    lib = ctypes.CDLL(str(so))
+    lib = b["lib"]
     V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_adams_launch.argtypes = (
         [V] * (9 if work else 8) + [I, F, F, F, F, F, F, I, I]
         + ([I, I] if lanes else [I]) + [V])
     lib.fused_adams_launch.restype = I
-    return lib, so, time.perf_counter() - t0, p.stdout + p.stderr
+    return lib, b["so"], b["seconds"], b["log"]
 
 
 # SASS opcodes by kind, for the instruction mix of each kernel function
@@ -113,28 +97,20 @@ FLOAT_OPS = {"FADD", "FMUL", "FFMA", "FSEL", "FSETP", "FMNMX", "MUFU",
 def sass_counts(so):
     """{function: {"total", "shfl", "int", "float", "branch"}} from
     cuobjdump -sass, or a note where cuobjdump is not found."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
-        return "cuobjdump not found"
-    p = subprocess.run([tool, "-sass", str(so)], capture_output=True,
-                       text=True)
-    counts, name = {}, None
-    for ln in p.stdout.splitlines():
-        m = re.match(r"\s*Function : (\S+)", ln)
-        if m:
-            name = m.group(1)
-            counts[name] = dict.fromkeys(
-                ("total", "shfl", "int", "float", "branch"), 0)
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
-                     ln)
-        if name and m:
-            op, c = m.group(1), counts[name]
-            c["total"] += 1
-            c["shfl"] += op == "SHFL"
-            c["int"] += op in INT_OPS
-            c["float"] += op in FLOAT_OPS
-            c["branch"] += op in ("BRA", "BSSY", "BSYNC")
+    ops = sass_ops(so)
+    if not isinstance(ops, dict):
+        return ops
+    counts = {}
+    for name, c in ops.items():
+        k = dict.fromkeys(("total", "shfl", "int", "float", "branch"), 0)
+        for op, n in c.items():
+            op = op.split(".")[0]
+            k["total"] += n
+            k["shfl"] += n * (op == "SHFL")
+            k["int"] += n * (op in INT_OPS)
+            k["float"] += n * (op in FLOAT_OPS)
+            k["branch"] += n * (op in ("BRA", "BSSY", "BSYNC"))
+        counts[name] = k
     return counts
 
 
@@ -192,13 +168,7 @@ class Probe:
         return y, st, ns, nf
 
     def timed(self, cfg, inp, comp=True):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = self.launch(cfg, inp, comp)
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b), out
+        return timed(lambda: self.launch(cfg, inp, comp))
 
     def warm(self):
         """Every kernel function once on a short span."""
@@ -218,11 +188,9 @@ class Probe:
             old = self.old_cfg(B)
             cfgs = [("new", G, max(1, 128 // G)) for G in NEW_LANES
                     if B * G <= MAX_THREADS]
-            times, outs = {}, {}
-            for cfg in [old] + cfgs + cfgs[::-1] + [old]:
-                ms, out = self.timed(cfg, inp)
-                times.setdefault(cfg, []).append(ms)
-                outs[cfg] = out
+            times, outs = turns(
+                [(cfg, lambda cfg=cfg: self.launch(cfg, inp))
+                 for cfg in [old] + cfgs], 1, warm=False)
             ref = outs[old]
             done = all(bool((o[1] == 1).all()) for o in outs.values())
             rule = FA._lanes_per_member(B, self.sms, self.km)
@@ -274,9 +242,8 @@ class Probe:
 
 def print_builds(tag, old_log, new, old_so):
     for kind, log in (("old", old_log), ("new", new.log)):
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln or "entry function" in ln:
-                print(f"ptxas[{tag} {kind}] {ln.strip()}")
+        for ln in ptxas_lines(log, entries=True):
+            print(f"ptxas[{tag} {kind}] {ln}")
     new_so = _build.BUILD_DIR / f"fused_adams_{new.key}" / "lib.so"
     sass = {}
     for kind, so in (("old", old_so), ("new", new_so)):
@@ -308,10 +275,7 @@ def main():
     if not torch.cuda.is_available():
         print("no CUDA device")
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(smi)
+    smi = card()
     OUT["card"] = smi
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print("SMs", sms, "torch", torch.__version__, torch.version.cuda)
@@ -352,8 +316,7 @@ def main():
         if args.witness and i == 0:
             OUT[tag].update(p.witness())
 
-    Path("chiprun_out").mkdir(exist_ok=True)
-    Path(f"chiprun_out/{args.tag}.json").write_text(json.dumps(OUT, indent=1))
+    write_out(args.tag, OUT)
     print(smi)
     return 0
 
