@@ -45,8 +45,10 @@ Drives each of the port's paths once:
 
 Before that, it builds every kernel from the sources in this checkout
 (one nvcc per variant, all started together) and holds each against its
-plain PyTorch version on the card (B10 both at its cluster size and in
-its one-block-per-member body).  Any mismatch raises; the script exits
+plain PyTorch version on the card (B2 at the wrapper's lanes per member,
+its thread body held to it bit for bit; B9 with its elementwise arrays
+in shared and in global memory, bit for bit; B10 both at its cluster
+size and in its one-block-per-member body).  Any mismatch raises; the script exits
 0 only if every phase passed.
 
     python3 chip_smoke.py
@@ -507,6 +509,20 @@ def build_all(jobs):
           "variants in parallel")
 
 
+def _launch_esdirk(rhs, span, y0, kw, lanes):
+    """B2 at ``lanes`` lanes per member (a comparison launch, not counted):
+    ((y, status, nsteps, nfev), (lanes, members per block))."""
+    from extensisq_tpu_torch.ops import fused_esdirk as FE
+    kw = dict(kw)
+    return FE._launch(rhs, span, y0, kw.pop("method", None),
+                      kw.pop("M", None), kw.pop("yp0_batch", None),
+                      kw.pop("rtol"), kw.pop("atol"),
+                      kw.pop("first_step", None),
+                      kw.pop("max_steps", 100_000),
+                      kw.pop("compensated", False), kw.pop("max_step", None),
+                      lanes)
+
+
 def pend_start(n, device, t_bound=PEND_SPAN[1]):
     """The bench line's members, theta0 in [0.2, 1.2], and their
     consistent (y0, yp0) from the f64 stepper's DAE projection."""
@@ -535,10 +551,25 @@ def esdirk_path():
     KAPS = FusedRHS(kaps_hidden, KAPS_HIDDEN_CUDA, 2)
 
     def compare(label, rhs, span, y0, **kw):
-        return hold_against_plain(
+        """The kernel at the rule's launch shape (a lane group per member
+        at these sizes) against the plain version at the label's gates,
+        and the thread body against it bit for bit; returns (kernel
+        result, plain result, max |dy|)."""
+        nb = y0.shape[0]
+        k, r, dy, _ = hold_against_plain(
             "esdirk", label, lambda: solve_fused_esdirk(rhs, span, y0, **kw),
             lambda: fused_esdirk_reference(rhs, span, y0, **kw),
-            *ESDIRK_GATES[label])[:3]
+            *ESDIRK_GATES[label])
+        lanes = solve_fused_esdirk.last_shape[0]
+        check(lanes > 1, f"esdirk {label}: the rule took one thread per "
+              f"member at {nb} members")
+        thread, _ = _launch_esdirk(rhs, span, y0, kw, 1)
+        same = all(torch.equal(a, b) for a, b in zip(k, thread))
+        print(f"esdirk [{label}]: {shape_text(solve_fused_esdirk, nb)}; "
+              f"one thread per member bit-identical {same}")
+        check(same, f"esdirk {label}: the lane body and the thread body "
+              "differ")
+        return k, r, dy
 
     # (a) every variant against its plain version, 1024 members
     rob0 = torch.zeros(1024, 3, device="cuda")
@@ -573,14 +604,16 @@ def esdirk_path():
     y64, yc, ypc = pend_start(PEND_N, "cuda")
     Y0, YP0 = yc.float(), ypc.float()
     fused = solve_fused_esdirk(PEND, PEND_SPAN, Y0, method=Kv3I, M=M_PEND,
-                               yp0_batch=YP0, block_members=128, **PEND_TOL)
+                               yp0_batch=YP0, **PEND_TOL)
+    shape = solve_fused_esdirk.last_shape
     ens = solve_ensemble(pendulum, PEND_SPAN, y64, method=Kv3I,
                          M=np.diag(M_PEND), **PEND_TOL)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     launches = solve_fused_esdirk.launches
     print(f"implicit path: {path_s:.3f} s, fused_esdirk launches "
-          f"{launches}, fused_erk launches {solve_fused_erk.launches}")
+          f"{launches}, fused_erk launches {solve_fused_erk.launches}; "
+          f"{PEND_N} members at {shape_text(solve_fused_esdirk, PEND_N)}")
     check(launches == 1, f"fused_esdirk launched {launches} times, "
           "expected 1")
     check(solve_fused_erk.launches == 0,
@@ -619,12 +652,19 @@ def esdirk_path():
     check(drel <= 1e-12, "f64 pendulum: card and CPU disagree")
     _, ref, err_k = compare("bench", PEND, PEND_SPAN, Y0, method=Kv3I,
                             M=M_PEND, yp0_batch=YP0, **PEND_TOL)
+    # the bench line's launch against the other body, bit for bit
+    other = 1 if shape[0] > 1 else 4
+    same = all(torch.equal(a, b) for a, b in zip(fused, _launch_esdirk(
+        PEND, PEND_SPAN, Y0, dict(method=Kv3I, M=M_PEND, yp0_batch=YP0,
+                                  **PEND_TOL), other)[0]))
+    print(f"bench line: {shape[0]} lanes per member (the rule's) and "
+          f"{other} bit-identical {same}")
+    check(same, "bench line: the lane body and the thread body differ")
 
     # (c) times: warm, synchronized medians
     def run_kernel():
         return solve_fused_esdirk(PEND, PEND_SPAN, Y0, method=Kv3I,
-                                  M=M_PEND, yp0_batch=YP0,
-                                  block_members=128, **PEND_TOL)
+                                  M=M_PEND, yp0_batch=YP0, **PEND_TOL)
 
     def run_plain():
         return fused_esdirk_reference(PEND, PEND_SPAN, Y0, method=Kv3I,
@@ -648,27 +688,28 @@ def esdirk_path():
           f"{int(ref[2].sum()) / plain_ms * 1e3:.4g} accepted steps/s")
     print(f"time [f64 solve_ensemble] {PEND_N} members: {f64_ms:.3f} ms wall, "
           f"{int(ens.nsteps.sum()) / f64_ms * 1e3:.4g} accepted steps/s")
-    # the kernel on a full card: 262,144 members, 2048 blocks of 128
+    # the kernel on a full card: 262,144 members, the rule's launch shape
     _, yl, ypl = pend_start(N_LARGE, "cuda")
     Yl, YPl = yl.float(), ypl.float()
 
     def run_large():
         return solve_fused_esdirk(PEND, PEND_SPAN, Yl, method=Kv3I,
-                                  M=M_PEND, yp0_batch=YPl,
-                                  block_members=128, **PEND_TOL)
+                                  M=M_PEND, yp0_batch=YPl, **PEND_TOL)
 
     out = run_large()
     large_ms = event_ms(run_large)
     check(bool((out[1] == 1).all()), "pendulum 262,144: not all finished")
-    print(f"fused_esdirk kernel {N_LARGE} members ({N_LARGE // 128} blocks "
-          f"of 128): {large_ms:.3f} ms, max nsteps {int(out[2].max())}, "
+    print(f"fused_esdirk kernel {N_LARGE} members "
+          f"({shape_text(solve_fused_esdirk, N_LARGE)}): {large_ms:.3f} ms, "
+          f"max nsteps {int(out[2].max())}, "
           f"{int(out[2].sum()) / large_ms * 1e3:.4g} accepted steps/s")
     return dict({"name": "fused_esdirk", "route": "cuda",
                  "source": "extensisq_tpu_torch/csrc/fused_esdirk.cu",
                  "replaces": "extensisq_tpu/ops/fused_esdirk.py:1001",
                  "launches": launches, "max_abs_err": err_k, "ms": k_ms,
                  "plain_ms": plain_ms, "device_ms": k_dev,
-                 "ms_per_step": k_ms / max_steps, "f64_ms": f64_ms},
+                 "ms_per_step": k_ms / max_steps, "f64_ms": f64_ms,
+                 "lanes": shape[0], "large_ms": large_ms},
                 **bound_entry(PEND_N * 5 * 4 * 3 + PEND_N * 4 * 3,
                               int(fused[3].sum()) * OPS_PER_EVAL[
                                   "fused_esdirk"]))
@@ -1013,10 +1054,12 @@ def hold_rkc(label, what, k, r, gate_key, extra=""):
 
 def rkc_kernel_checks(R):
     """Each RKC kernel against its plain version on the card, in the three
-    rho modes; B10 with a member that overflows, both at the wrapper's
-    cluster size and in its one-block-per-member body (C = 1), and at C = 1
-    where the wrapper takes it, on members whose arrays fit no CTA's shared
-    memory.  Returns the largest |dy| of B9 and of B10."""
+    rho modes: B9 in its shared placement (the wrapper's here) and in its
+    global one, which must agree bit for bit; B10 with a member that
+    overflows, both at the wrapper's cluster size and in its
+    one-block-per-member body (C = 1), and at C = 1 where the wrapper
+    takes it, on members whose arrays fit no CTA's shared memory.  Returns
+    the largest |dy| of B9 and of B10."""
     from extensisq_tpu_torch.ops import (fused_rkc, fused_rkc_reference,
                                          solve_fused_rkc,
                                          solve_fused_rkc_ensemble)
@@ -1036,11 +1079,22 @@ def rkc_kernel_checks(R):
                 R["b10_small"], (0.0, 1.0), y10, rho, p10, 1, **RKC_TOL)
             check(c == 1, "rkc b10 block: not one block per member")
             return out if rho is None else out[:4]
+        plain9 = {}
+
+        def grid_global(rho=rho):
+            out, shape = fused_rkc._launch_grid(
+                R["b9_small"], (0.0, 1.0), y9, rho, fused_rkc.GLOBAL,
+                **RKC_TOL)
+            check(shape[1] == fused_rkc.GLOBAL, "rkc b9 global: placement")
+            return out if rho is None else out[:4]
         for label, run, plain in (
                 ("b9", lambda: solve_fused_rkc(
                     R["b9_small"], (0.0, 1.0), y9, rho, **RKC_TOL),
-                 lambda: tuple(x[0] for x in fused_rkc_reference(
-                     R["b9_small"], (0.0, 1.0), y9[None], rho, **RKC_TOL))),
+                 lambda: plain9.setdefault("r", tuple(
+                     x[0] for x in fused_rkc_reference(
+                         R["b9_small"], (0.0, 1.0), y9[None], rho,
+                         **RKC_TOL)))),
+                ("b9 global", grid_global, lambda: plain9["r"]),
                 ("b10", lambda: solve_fused_rkc_ensemble(
                     R["b10_small"], (0.0, 1.0), y10, rho, params=p10,
                     **RKC_TOL),
@@ -1065,6 +1119,17 @@ def rkc_kernel_checks(R):
                 check(int(k[1][5]) == bad and int((k[1] == 1).sum()) == 7,
                       f"rkc overflow isolation ({label}): member 5 must "
                       "fail alone")
+            if label == "b9":
+                shape9 = solve_fused_rkc.last_shape
+                check(shape9[1] == fused_rkc.SHARED,
+                      "rkc b9: the small grid took the global placement")
+                first9 = k
+            if label == "b9 global":
+                same = all(torch.equal(a, b) for a, b in zip(k, first9))
+                print(f"rkc b9 rho {mode}: {shape9[0]} blocks, shared "
+                      f"placement ({shape9[2]} B a block) and global "
+                      f"placement bit-identical {same}")
+                check(same, f"rkc b9 rho {mode}: the placements differ")
             if label == "b10":
                 c = solve_fused_rkc_ensemble.cluster
                 same = repeats_bit_for_bit(k, run)
@@ -1154,6 +1219,7 @@ def rkc_path():
     b10p = solve_fused_rkc_ensemble(R["b10"], (0.0, ENS_TF), Y10, None,
                                     params=P10, **RKC_TOL)
     torch.cuda.synchronize()
+    shape9 = solve_fused_rkc.last_shape
     cluster10 = solve_fused_rkc_ensemble.cluster
     t0 = time.perf_counter()
     ens = solve_ensemble(flat_ens, (0.0, ENS_TF),
@@ -1177,7 +1243,8 @@ def rkc_path():
     check(int(f64.status) == 1, "brus131k-f64: not finished")
     d9 = (b9[0].double().reshape(-1) - f64.y).abs().max().item()
     print(f"brus131k-fused (B9): status {int(b9[1])}, nsteps {int(b9[2])}, "
-          f"nfev {int(b9[3])}, a block of {fused_rkc.GRID_THREADS} per SM; "
+          f"nfev {int(b9[3])}, {shape9[0]} blocks of "
+          f"{fused_rkc.GRID_THREADS}; "
           f"vs f64 max |dy| {d9:.3e} (gate {RKC_F64_GATE:.0e})")
     check(int(b9[1]) == 1 and b9[0].shape == Y9.shape
           and bool(torch.isfinite(b9[0]).all()), "brus131k-fused: bad run")
@@ -1228,6 +1295,15 @@ def rkc_path():
                                         params=P10, **RKC_TOL)
 
     b9_ms, b9_dev = wall_ms(run9), event_ms(run9)
+    same9 = repeats_bit_for_bit(b9, run9)
+    print(f"B9 on the path: {shape9[0]} blocks of "
+          f"{fused_rkc.GRID_THREADS}, "
+          f"{'shared' if shape9[1] == fused_rkc.SHARED else 'global'} "
+          f"placement ({shape9[2]} B a block); {REPEATS_B10} launches "
+          f"bit-identical {same9}")
+    check(same9, "B9 on the path: launches differ")
+    b9g, _ = fused_rkc._launch_grid(R["b9"], (0.0, 1.0), Y9, BRUS_RHO,
+                                    fused_rkc.GLOBAL, **RKC_TOL)
     b10_ms, b10_dev = wall_ms(run10), event_ms(run10)
     b10p_dev = event_ms(lambda: run10(None))
     same = (repeats_bit_for_bit(b10, run10)
@@ -1249,8 +1325,12 @@ def rkc_path():
     plain10_ms = (time.perf_counter() - t0) * 1e3
     r10p = fused_rkc_reference(R["b10"], (0.0, ENS_TF), Y10, None,
                                params=P10, **RKC_TOL)
-    err9 = hold_rkc("b9", "the path, 2x256x256", tuple(x[None] for x in b9),
-                    r9, "b9")
+    err9 = max(hold_rkc("b9", "the path, 2x256x256",
+                        tuple(x[None] for x in b9), r9, "b9"),
+               hold_rkc("b9", "the path, 2x256x256, global placement",
+                        tuple(x[None] for x in b9g[:4]), r9, "b9"))
+    check(all(torch.equal(a, b) for a, b in zip(b9, b9g)),
+          "B9 on the path: the placements differ")
     err10 = max(hold_rkc("b10", "the path, 5d bound", b10, r10, "b10"),
                 hold_rkc("b10", "the path, 5e power", b10p, r10p,
                          "b10_power_path"))
@@ -1280,7 +1360,9 @@ def rkc_path():
                  replaces="extensisq_tpu/ops/fused_rkc.py:804",
                  launches=launches[0], max_abs_err=max(worst["b9"], err9),
                  ms=b9_ms, plain_ms=plain9_ms, device_ms=b9_dev,
-                 f64_ms=f64_s * 1e3,
+                 f64_ms=f64_s * 1e3, blocks=shape9[0],
+                 placement="shared" if shape9[1] == fused_rkc.SHARED
+                 else "global",
                  **bound_entry(2 * 4 * ntot9,
                                per_eval * ntot9 * int(b9[3]))),
             dict(name="fused_rkc_ensemble", route="cuda", source=source,

@@ -88,6 +88,23 @@ struct Control {
     too_small = ha < min_step;
   }
 
+  // The controller's four powers after an attempt of step h with error
+  // norm err_norm are pow_base(q) ** pow_exponent(q), q < 4: the error's
+  // to ERROR_EXPONENT and MINBETA1, the last accepted error's to MINBETA2
+  // and the step ratio's to MINALPHA (a lane group splits them).
+  __device__ __forceinline__ float pow_base(int q, float err_norm,
+                                            float h) const {
+    const float hr = h / (h_prev == 0.0f ? h : h_prev);
+    return q == 2 ? fmaxf(err_old, 1e-30f)
+                  : (q == 3 ? fmaxf(fabsf(hr), 1e-30f)
+                            : fmaxf(err_norm, 1e-30f));
+  }
+  __device__ static __forceinline__ float pow_exponent(int q) {
+    return q == 0 ? tab::ERROR_EXPONENT
+                  : (q == 1 ? tab::MINBETA1
+                            : (q == 2 ? tab::MINBETA2 : tab::MINALPHA));
+  }
+
   // After the attempt of step h (= ha with its sign): the next |h| from the
   // error norm, the stages' largest Newton rate and whether they all
   // converged; a rejected attempt whose reduced step falls below min_step
@@ -95,15 +112,23 @@ struct Control {
   __device__ __forceinline__ void finish(float err_norm, float rate,
                                          bool conv, bool accepted, float h,
                                          float tiny_err) {
-    const float err_c = fmaxf(err_norm, 1e-30f);
-    const float f_pow = tab::SAFETY * powf(err_c, tab::ERROR_EXPONENT);
+    float pw[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      pw[q] = powf(pow_base(q, err_norm, h), pow_exponent(q));
+    }
+    finish(err_norm, rate, conv, accepted, h, tiny_err, pw);
+  }
+
+  // The same with the four powers given.
+  __device__ __forceinline__ void finish(float err_norm, float rate,
+                                         bool conv, bool accepted, float h,
+                                         float tiny_err,
+                                         const float (&pw)[4]) {
+    const float f_pow = tab::SAFETY * pw[0];
     const float f_std = fminf(f_pow, max_fac);
-    const float hr = h / (h_prev == 0.0f ? h : h_prev);
     const float f_2nd = fminf(
-        fmaxf(tab::SAFETY_SC * powf(err_c, tab::MINBETA1) *
-                  powf(fmaxf(err_old, 1e-30f), tab::MINBETA2) *
-                  powf(fmaxf(fabsf(hr), 1e-30f), tab::MINALPHA),
-              tab::MIN_FACTOR),
+        fmaxf(tab::SAFETY_SC * pw[1] * pw[2] * pw[3], tab::MIN_FACTOR),
         max_fac);
     const bool is_tiny = err_norm < tiny_err;
     float fac_acc = is_tiny ? max_fac : (std_b ? f_std : f_2nd);

@@ -6,11 +6,23 @@
 // plain PyTorch version is extensisq_tpu_torch/ops/fused_esdirk.py:
 // fused_esdirk_reference; the two take the same steps up to round-off.
 //
-// Design: one thread per ensemble member.  Each thread keeps y, y_lo, yp,
-// the stage rows K[S][N] (and Z[S][N] in compensated mode), the Newton
-// matrix and its factor in registers, and runs its own loop of attempts
-// until its status leaves RUNNING.  A member reads device memory once at
-// the start and writes once at the end.
+// Design: a group of G lanes of one warp per member, G = 4, 8, 16 or 32
+// (lane_group.cuh), or one thread per member (G = 1, integrate_thread).
+// Every lane of a group keeps the member's whole state in registers (y,
+// y_lo, yp, the stage rows K[S][N] and Z[S][N] in compensated mode, the
+// Newton matrix and its factor) and computes every scalar and N-vector
+// from identical inputs, so the group takes every branch together and no
+// lane misses a shuffle.  The lanes split the work that has the same code
+// for every part and no chain between the parts: the Jacobian (lane r
+// evaluates rhs<Dual> for the columns r, r + G, ...), the divisions of
+// every scaled norm and the controller's four powf; the results reach
+// every lane by shuffle and are summed in the one-thread order.  A thread
+// issues such independent divisions and powf one after another (each
+// IEEE division is a branch around its slow path), a group at once.  The
+// factor and its replays stay whole in every lane: they are chains of
+// dependent operations (the bubble pivot, back substitution's divisions)
+// that shuffles would only lengthen.  A member reads device memory once
+// at the start and lane 0 writes once at the end.
 //
 // Per attempt, as in the JAX kernel:
 //  * J at (t, y) from N evaluations of rhs<Dual> (dual.cuh), one tangent
@@ -25,12 +37,16 @@
 //    controller, the rate-based reduction after a convergence failure and
 //    the double-single time carry.
 //
-// What bounds it on the H100: like the explicit kernel, each member is a
-// long chain of dependent f32 operations, now with N dual RHS evaluations,
-// an N^3/3 elimination and several N^2 solves per attempt, so a thread is
-// latency-bound and the card's throughput comes from members in flight.
-// Registers are the scarce resource: Kv3I at N = 5 holds about 120 floats
-// per thread; the build prints registers and spills (-Xptxas -v).
+// What bounds it on the H100: each member is a long chain of dependent f32
+// operations, now with N dual RHS evaluations, an N^3/3 elimination and
+// several N^2 solves per attempt, so a lane is latency-bound and the
+// card's throughput comes from members in flight.  One thread per member
+// packs 32 members into a warp, which runs every Newton iteration that any
+// of them needs and until the slowest of them ends; a group of G lanes
+// packs 32 / G.  The wrapper (ops/fused_esdirk.py:_lanes_per_member) takes
+// G from the ensemble size and the card's SM count.  Registers are the
+// scarce resource: Kv3I at N = 5 holds about 120 floats per lane; the
+// build prints registers and spills (-Xptxas -v).
 //
 // The method, the mass-matrix setup and the user's right-hand side come
 // from the generated header fused_esdirk_config.cuh:
@@ -130,19 +146,48 @@ __device__ __forceinline__ void to_user(const float (&w)[N], float (&y)[N]) {
   }
 }
 
-// J[i][j] = d fun1_i / d y_j at (t, y): one dual evaluation per column.
-__device__ __forceinline__ void jacobian(float t, const float (&y)[N],
+// j, unknown to the compiler: a seed that folds to a constant 1 would let
+// nvcc contract a column's dual arithmetic otherwise in one body than in
+// another, so every body seeds its columns (and picks its controller
+// powers) through this.
+__device__ __forceinline__ int opaque(int j) {
+  asm volatile("" : "+r"(j));
+  return j;
+}
+
+// J[i][j] = d fun1_i / d y_j at (t, y) in every lane of the group grp of G
+// lanes (rank(), shfl(v, src)): lane r evaluates rhs<Dual> with the
+// tangent seeded at the columns r, r + G, ... (none past N), and each
+// entry comes from its column's lane.
+template <int G, class Group>
+__device__ __forceinline__ void jacobian(Group& grp, float t,
+                                         const float (&y)[N],
                                          float (&J)[N][N]) {
+  constexpr int JC = (N + G - 1) / G;  // columns per lane
+  float col[JC][N];
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
+  for (int q = 0; q < JC; ++q) {
+    const int c = opaque(q * G + grp.rank());
     Dual yd[N], fd[N];
 #pragma unroll
-    for (int k = 0; k < N; ++k) yd[k] = Dual(y[k], k == j ? 1.0f : 0.0f);
+    for (int k = 0; k < N; ++k) yd[k] = Dual(y[k], k == c ? 1.0f : 0.0f);
     fun1(Dual(t), yd, fd);
 #pragma unroll
-    for (int i = 0; i < N; ++i) J[i][j] = fd[i].d;
+    for (int i = 0; i < N; ++i) col[q][i] = fd[i].d;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) J[i][j] = grp.shfl(col[j / G][i], j % G);
   }
 }
+
+// One lane per member: the group of integrate_thread, whose shuffle is the
+// identity.
+struct OneLane {
+  __device__ int rank() const { return 0; }
+  __device__ float shfl(float v, int) const { return v; }
+};
 
 // Factor a in place: the eliminated rows with the multipliers below the
 // diagonal; bit q of `swaps` records the q-th bubble swap.
@@ -211,34 +256,123 @@ __device__ __forceinline__ float finite_or_one(float x, bool& bad) {
   return 1.0f;
 }
 
-// RMS of x / (atol + rtol max(|a|, |b|)), all in user coordinates.
-__device__ __forceinline__ float scaled_norm(const float (&x)[N],
+// x_i for an index i unknown to the compiler: a select walk over the N
+// entries (a register array indexed at run time would go to local memory).
+__device__ __forceinline__ float pick(const float (&x)[N], int i) {
+  float v = x[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) v = k == i ? x[k] : v;
+  return v;
+}
+
+// RMS of x / (atol + rtol max(|a|, |b|)), all in user coordinates, in every
+// lane of the group grp of G lanes: lane r divides the entries r, r + G,
+// ... and the quotients reach every lane by shuffle, to be squared and
+// summed in entry order.  One thread issues its N IEEE divisions one after
+// another (each a branch around its slow path); a group of G >= N lanes
+// waits for one.
+template <int G, class Group>
+__device__ __forceinline__ float scaled_norm(Group& grp, const float (&x)[N],
                                              const float (&a)[N],
                                              const float (&b)[N], float rtol,
                                              float atol) {
+  constexpr int Q = (N + G - 1) / G;  // entries per lane
+  float r[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int i = q * G + grp.rank();
+    const float scale =
+        atol + rtol * fmaxf(fabsf(pick(a, i)), fabsf(pick(b, i)));
+    r[q] = pick(x, i) / scale;
+  }
   float sq = 0.0f;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const float scale = atol + rtol * fmaxf(fabsf(a[i]), fabsf(b[i]));
-    const float r = x[i] / scale;
-    sq = sq + r * r;
+    const float ri = grp.shfl(r[i / G], i % G);
+    sq = sq + ri * ri;
   }
   return sqrtf(sq / static_cast<float>(N));
+}
+
+// The controller's four powers (esdirk::Control::pow_base, pow_exponent)
+// in every lane of the group: lane r takes the powers r, r + G, ...  The
+// power's index is opaque, so that powf runs the same code at every G.
+template <int G, class Group>
+__device__ __forceinline__ void control_powers(Group& grp,
+                                               const esdirk::Control& ctl,
+                                               float err_norm, float h,
+                                               float (&pw)[4]) {
+  constexpr int Q = (4 + G - 1) / G;
+  float mine[Q];
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int q = opaque(k * G + grp.rank());
+    mine[k] = powf(ctl.pow_base(q, err_norm, h),
+                   esdirk::Control::pow_exponent(q));
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) pw[q] = grp.shfl(mine[q / G], q % G);
 }
 
 struct Params {
   float rtol, atol, tiny_err;
 };
 
+// Section clocks of one member, in the probe's build only
+// (tools/probe_fused_esdirk.py compiles with FUSED_ESDIRK_SECTIONS): the
+// SM cycles spent in each part of the attempts, summed over them and
+// written by lane 0.  A lane waiting for the others of its warp at the end
+// of a divergent part counts the wait in the part that follows.  The
+// shipped build's Clock is empty and compiles to nothing.
+enum Section {
+  kJacobian,     // the dual evaluations and the shuffles of J
+  kFactor,       // W and its factor
+  kNewtonRhs,    // y_pred, the RHS and the Newton right-hand side
+  kNewtonSolve,  // the factor's replay in a Newton iteration
+  kNewtonTest,   // the update's norm, the convergence tests, z += dz
+  kStage,        // the stage predictors and K, Z
+  kError,        // y_new, the error estimate, its filter solve and norm
+  kControl,      // the step-size limits, the controller, t and status
+  kSections
+};
+#ifdef FUSED_ESDIRK_SECTIONS
+__device__ unsigned* g_sections;  // [member][kSections]
+struct Clock {
+  unsigned acc[kSections];
+  unsigned last;
+  __device__ Clock() : last(static_cast<unsigned>(clock())) {
+#pragma unroll
+    for (int k = 0; k < kSections; ++k) acc[k] = 0u;
+  }
+  __device__ void mark(int section) {
+    const unsigned now = static_cast<unsigned>(clock());
+    acc[section] += now - last;
+    last = now;
+  }
+  __device__ void write(int member) const {
+#pragma unroll
+    for (int k = 0; k < kSections; ++k) {
+      g_sections[static_cast<size_t>(member) * kSections + k] = acc[k];
+    }
+  }
+};
+#else
+struct Clock {
+  __device__ void mark(int) {}
+  __device__ void write(int) const {}
+};
+#endif
+
 // Modified Newton for one stage: z from its predictor to the stage
 // increment.  Returns converged; sets the stage's rate (>= 0), its RHS
 // evaluations and whether a non-finite value stopped it.
-__device__ __forceinline__ bool newton(float t_stage, float h,
+template <int G, class Group>
+__device__ __forceinline__ bool newton(Group& grp, float t_stage, float h,
                                        const float (&psi)[N],
                                        const float (&yu_c)[N], float (&z)[N],
                                        const float (&a)[N][N], unsigned swaps,
                                        const Params& p, float& rate_out,
-                                       int& nfev, bool& bad_any) {
+                                       int& nfev, bool& bad_any, Clock& clk) {
   esdirk::Newton nw;
   bool conv = false;
   nfev = 0;
@@ -256,20 +390,24 @@ __device__ __forceinline__ bool newton(float t_stage, float h,
       const float fi = finite_or_one(f[i], bad);
       dz[i] = tab::ALG(i) ? fi * tab::INV_D : h * fi - tab::MASS(i) * z[i];
     }
+    clk.mark(kNewtonRhs);
     gauss_solve(a, swaps, dz);
+    clk.mark(kNewtonSolve);
 #pragma unroll
     for (int i = 0; i < N; ++i) dz[i] = finite_or_one(dz[i], bad);
     float yu_pred[N], dz_u[N];
     to_user(y_pred, yu_pred);
     to_user(dz, dz_u);
     const float dz_norm =
-        finite_or_one(scaled_norm(dz_u, yu_c, yu_pred, p.rtol, p.atol), bad);
+        finite_or_one(scaled_norm<G>(grp, dz_u, yu_c, yu_pred, p.rtol, p.atol),
+                      bad);
     const bool stop = nw.test(it, dz_norm, p.tiny_err, bad, conv);
     if (!bad) {
 #pragma unroll
       for (int i = 0; i < N; ++i) z[i] = z[i] + dz[i];
     }
     bad_any = bad_any || bad;
+    clk.mark(kNewtonTest);
     if (stop) break;
   }
   rate_out = fmaxf(nw.rate, 0.0f);
@@ -288,13 +426,14 @@ struct Stages {
 };
 
 // Stages I..S-1 of one attempt; K[0] (and Z[0]) hold the first stage.
-template <bool COMP, int I>
-__device__ __forceinline__ void stages(Stages& st, float tc, float h,
+template <int G, bool COMP, int I, class Group>
+__device__ __forceinline__ void stages(Group& grp, Stages& st, float tc,
+                                       float h,
                                        const float (&y)[N],
                                        const float (&y_lo)[N],
                                        const float (&yu_c)[N],
                                        const float (&a)[N][N], unsigned swaps,
-                                       const Params& p) {
+                                       const Params& p, Clock& clk) {
   if constexpr (I < S) {
     float acc[N];
     if constexpr (COMP) {
@@ -311,11 +450,12 @@ __device__ __forceinline__ void stages(Stages& st, float tc, float h,
 #pragma unroll
     for (int i = 0; i < N; ++i) st.z[i] = h * acc[i];
     constexpr float c = tab::C(I);
+    clk.mark(kStage);
     float rate;
     int nf;
     bool bad;
-    const bool conv = newton(tc + c * h, h, st.psi, yu_c, st.z, a, swaps, p,
-                             rate, nf, bad);
+    const bool conv = newton<G>(grp, tc + c * h, h, st.psi, yu_c, st.z, a,
+                                swaps, p, rate, nf, bad, clk);
     st.conv = st.conv && conv && !bad;
     st.Rate = fmaxf(st.Rate, rate);
     st.nfev += nf;
@@ -325,25 +465,41 @@ __device__ __forceinline__ void stages(Stages& st, float tc, float h,
       st.K[I][i] = st.z[i] * inv_h;
       if constexpr (COMP) st.Z[I][i] = st.z[i];
     }
-    stages<COMP, I + 1>(st, tc, h, y, y_lo, yu_c, a, swaps, p);
+    clk.mark(kStage);
+    stages<G, COMP, I + 1>(grp, st, tc, h, y, y_lo, yu_c, a, swaps, p,
+                           clk);
   }
 }
 
-template <bool COMP>
-__global__ void fused_esdirk_kernel(
-    const float* __restrict__ y0, const float* __restrict__ yp0,
-    float* __restrict__ y_out, int* __restrict__ status_out,
-    int* __restrict__ nstep_out, int* __restrict__ nfev_out, int B, float t0,
-    float tf, float rtol, float atol, float h0, int use_hstart, int have_yp0,
-    float max_step, int max_steps, float tiny_err) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B) return;  // ragged last block: no member padding
-  const Params p{rtol, atol, tiny_err};
+// The launch's scalars, the same for every member (max_step is +inf when
+// the caller gave none; yp0 is used where have_yp0).
+struct Launch {
+  float t0, tf, rtol, atol, h0, max_step, tiny_err;
+  int use_hstart, have_yp0, max_steps;
+};
+
+struct Out {
+  float* y;
+  int* status;
+  int* nstep;
+  int* nfev;
+};
+
+// The whole integration of one member by the group grp of G lanes
+// (rank(), shfl(v, src); OneLane at G = 1).  y0 (and yp0) are the member's
+// initial state (and derivative); lane 0 writes the results.
+template <int G, bool COMP, class Group>
+__device__ void integrate(Group& grp, const float* __restrict__ y0,
+                          const float* __restrict__ yp0, const Launch& L,
+                          int member, const Out& out) {
+  const Params p{L.rtol, L.atol, L.tiny_err};
+  const float tf = L.tf;
+  Clock clk;
 
   float y[N], y_lo[N], yp[N], in[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    in[k] = y0[static_cast<size_t>(idx) * N + k];
+    in[k] = y0[k];
     y_lo[k] = 0.0f;
   }
   if constexpr (tab::ROT) {
@@ -352,13 +508,13 @@ __global__ void fused_esdirk_kernel(
 #pragma unroll
     for (int k = 0; k < N; ++k) y[k] = in[k];
   }
-  float t = t0;
+  float t = L.t0;
   float t_lo = 0.0f;
-  const float span = tf - t0;
+  const float span = tf - L.t0;
   const float dir = span > 0.0f ? 1.0f : (span < 0.0f ? -1.0f : 0.0f);
-  if (have_yp0) {
+  if (L.have_yp0) {
 #pragma unroll
-    for (int k = 0; k < N; ++k) in[k] = yp0[static_cast<size_t>(idx) * N + k];
+    for (int k = 0; k < N; ++k) in[k] = yp0[k];
     if constexpr (tab::ROT) {
       mat_rows<Mat::VH>(in, yp);
     } else {
@@ -372,29 +528,31 @@ __global__ void fused_esdirk_kernel(
       for (int k = 0; k < N; ++k) yp[k] = yp[k] * tab::INV_MASS(k);
     }
   }
-  float h_abs = h0;
-  if (use_hstart) {
+  float h_abs = L.h0;
+  if (L.use_hstart) {
     // plain ODEs only; max_step is +inf when the caller gave none
-    const float bq = t + dir * fminf(fabsf(tf - t), max_step);
-    h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, yp, rtol, atol));
+    const float bq = t + dir * fminf(fabsf(tf - t), L.max_step);
+    h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, yp, L.rtol, L.atol));
   }
 
   int status = kRunning;
   int nstep = 0;
-  int nfev = have_yp0 ? 0 : 1;
+  int nfev = L.have_yp0 ? 0 : 1;
   int it = 0;
   esdirk::Control ctl{h_abs};
 
   while (status == kRunning) {
     // step-size limits and the landing on tf, every attempt
     const float tc = t + t_lo;
-    ctl.prepare(t, t_lo, tf, max_step);
+    ctl.prepare(t, t_lo, tf, L.max_step);
     const float ha = ctl.ha;
     const float h = ha * dir;
+    clk.mark(kControl);
 
     // Newton matrix W = Sc (M - h d J), factored once per attempt
     float a[N][N];
-    jacobian(tc, y, a);
+    jacobian<G>(grp, tc, y, a);
+    clk.mark(kJacobian);
     const float hd = h * tab::D;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -406,6 +564,7 @@ __global__ void fused_esdirk_kernel(
     }
     unsigned swaps;
     gauss_factor(a, swaps);
+    clk.mark(kFactor);
 
     // stages (stage 0 explicit: K0 = yp; h K_j == z_j)
     Stages st;
@@ -419,7 +578,7 @@ __global__ void fused_esdirk_kernel(
     st.conv = !ctl.too_small;
     float yu_c[N];
     to_user(y, yu_c);
-    stages<COMP, 1>(st, tc, h, y, y_lo, yu_c, a, swaps, p);
+    stages<G, COMP, 1>(grp, st, tc, h, y, y_lo, yu_c, a, swaps, p, clk);
 
     // solution and error estimate; stiffly accurate: y_new = psi + d z of
     // the last stage
@@ -468,13 +627,16 @@ __global__ void fused_esdirk_kernel(
     to_user(y_new, yu_new);
     to_user(err, err_u);
     float err_norm = finite_or_one(
-        scaled_norm(err_u, yu_c, yu_new, rtol, atol), bad_m);
+        scaled_norm<G>(grp, err_u, yu_c, yu_new, L.rtol, L.atol), bad_m);
     if (bad_m) err_norm = err_norm + 10.0f;
     const bool accepted = st.conv && err_norm < 1.0f && !bad_m;
+    clk.mark(kError);
 
     // implicit controller and the rate-based reduction after a convergence
     // failure (esdirk_control.cuh)
-    ctl.finish(err_norm, st.Rate, st.conv, accepted, h, tiny_err);
+    float pw[4];
+    control_powers<G>(grp, ctl, err_norm, h, pw);
+    ctl.finish(err_norm, st.Rate, st.conv, accepted, h, L.tiny_err, pw);
     if (ctl.too_small) status = kTooSmall;
     // double-single t advance; the landing test uses the remainder
     float t_adv, t_lo_adv;
@@ -484,7 +646,7 @@ __global__ void fused_esdirk_kernel(
     if (status == kRunning && is_last) status = kFinished;
     // step cap: loop iterations, accepted plus rejected
     it += 1;
-    if (status == kRunning && it >= max_steps) status = kOverflow;
+    if (status == kRunning && it >= L.max_steps) status = kOverflow;
 
     if (accepted) {
       bool unused = false;
@@ -501,20 +663,87 @@ __global__ void fused_esdirk_kernel(
     nfev += st.nfev;
   }
 
-  float out[N];
-  to_user(y, out);
+  if (grp.rank() != 0) return;
+  float res[N];
+  to_user(y, res);
 #pragma unroll
-  for (int k = 0; k < N; ++k) y_out[static_cast<size_t>(idx) * N + k] = out[k];
-  status_out[idx] = status;
-  nstep_out[idx] = nstep;
-  nfev_out[idx] = nfev;
+  for (int k = 0; k < N; ++k) {
+    out.y[static_cast<size_t>(member) * N + k] = res[k];
+  }
+  out.status[member] = status;
+  out.nstep[member] = nstep;
+  out.nfev[member] = nfev;
+  clk.write(member);
+}
+
+// One thread per member: the group body on one lane, for ensembles that
+// fill the card.
+template <bool COMP>
+__device__ void integrate_thread(const float* __restrict__ y0,
+                                 const float* __restrict__ yp0,
+                                 const Launch& L, int member,
+                                 const Out& out) {
+  OneLane one;
+  integrate<1, COMP>(one, y0, yp0, L, member, out);
 }
 
 }  // namespace
 
-// Launches one thread per member on the caller's stream and returns
-// cudaGetLastError(); the wrapper raises on anything but 0.  yp0 may be
-// null when have_yp0 is 0.
+// ---- CUDA groups, kernels and launch ----
+#include "lane_group.cuh"
+
+namespace {
+
+template <int G, bool COMP>
+__global__ void fused_esdirk_kernel(const float* __restrict__ y0,
+                                    const float* __restrict__ yp0, Out out,
+                                    int B, int block_members, Launch L) {
+  const int member =
+      blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
+  if (member >= B) return;  // ragged last block: no member padding
+  const float* y0m = y0 + static_cast<size_t>(member) * N;
+  const float* yp0m = L.have_yp0 ? yp0 + static_cast<size_t>(member) * N
+                                 : nullptr;
+  if constexpr (G == 1) {
+    integrate_thread<COMP>(y0m, yp0m, L, member, out);
+  } else {
+    LaneGroup<G> grp;
+    integrate<G, COMP>(grp, y0m, yp0m, L, member, out);
+  }
+}
+
+template <int G>
+int launch(const float* y0, const float* yp0, const Out& out, int B,
+           const Launch& L, int compensated, int block_members,
+           cudaStream_t s) {
+  const int blocks = (B + block_members - 1) / block_members;
+  const int threads = block_members * G;
+  if (compensated) {
+    fused_esdirk_kernel<G, true><<<blocks, threads, 0, s>>>(
+        y0, yp0, out, B, block_members, L);
+  } else {
+    fused_esdirk_kernel<G, false><<<blocks, threads, 0, s>>>(
+        y0, yp0, out, B, block_members, L);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#ifdef FUSED_ESDIRK_SECTIONS
+// The probe build's section clocks: kSections unsigned counters per member
+// are written to `sections` by the launches that follow.
+extern "C" int fused_esdirk_sections(void* sections) {
+  unsigned* ptr = static_cast<unsigned*>(sections);
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_sections, &ptr, sizeof(ptr)));
+}
+#endif
+
+// Launches block_members members per block, `lanes` (1, 4, 8, 16 or 32)
+// threads per member, on the caller's stream and returns
+// cudaGetLastError() (cudaErrorInvalidValue for another lane count); the
+// wrapper raises on anything but 0.  yp0 may be null when have_yp0 is 0.
 extern "C" int fused_esdirk_launch(const void* y0, const void* yp0,
                                    void* y_out, void* status, void* nstep,
                                    void* nfev, int B, float t0, float tf,
@@ -522,23 +751,29 @@ extern "C" int fused_esdirk_launch(const void* y0, const void* yp0,
                                    int use_hstart, int have_yp0,
                                    float max_step, int max_steps,
                                    float tiny_err, int compensated,
-                                   int threads, void* stream) {
-  const int blocks = (B + threads - 1) / threads;
+                                   int lanes, int block_members,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* y0f = static_cast<const float*>(y0);
   const float* yp0f = static_cast<const float*>(yp0);
-  float* yf = static_cast<float*>(y_out);
-  int* st = static_cast<int*>(status);
-  int* ns = static_cast<int*>(nstep);
-  int* nf = static_cast<int*>(nfev);
-  if (compensated) {
-    fused_esdirk_kernel<true><<<blocks, threads, 0, s>>>(
-        y0f, yp0f, yf, st, ns, nf, B, t0, tf, rtol, atol, h0, use_hstart,
-        have_yp0, max_step, max_steps, tiny_err);
-  } else {
-    fused_esdirk_kernel<false><<<blocks, threads, 0, s>>>(
-        y0f, yp0f, yf, st, ns, nf, B, t0, tf, rtol, atol, h0, use_hstart,
-        have_yp0, max_step, max_steps, tiny_err);
+  const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
+                static_cast<int*>(nstep), static_cast<int*>(nfev)};
+  const Launch L{t0,       tf,       rtol,       atol,     h0,
+                 max_step, tiny_err, use_hstart, have_yp0, max_steps};
+  switch (lanes) {
+    case 1:
+      return launch<1>(y0f, yp0f, out, B, L, compensated, block_members, s);
+    case 4:
+      return launch<4>(y0f, yp0f, out, B, L, compensated, block_members, s);
+    case 8:
+      return launch<8>(y0f, yp0f, out, B, L, compensated, block_members, s);
+    case 16:
+      return launch<16>(y0f, yp0f, out, B, L, compensated, block_members,
+                        s);
+    case 32:
+      return launch<32>(y0f, yp0f, out, B, L, compensated, block_members,
+                        s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

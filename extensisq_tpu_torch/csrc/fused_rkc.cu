@@ -8,7 +8,8 @@
 // the threads that work on one member and where its arrays live:
 //   * B9:  the whole grid of a cooperative launch, so every SM works on the
 //          one member; every block is resident (the host sizes the grid from
-//          the occupancy), and grid.sync() is the barrier;
+//          the occupancy), and a split grid barrier of its own (a counter
+//          in the workspace) is the barrier;
 //   * B10: a thread-block cluster of C = 2, 4 or 8 CTAs per member on as
 //          many SMs, or, where the wrapper's rule finds no such C
 //          (ops/fused_rkc.py:_cluster_size), one CTA per member.
@@ -29,12 +30,14 @@
 // Only the a buffers are read at other elements' indices (by the user's
 // stencil, across the chunks), so they and V stay in a global workspace;
 // the six arrays read at their own index only live where Group::kLocal
-// says: in global memory (B9, and B10 at C = 1: the parent layout, 576 KB
-// a member at 2x64x128, which no SM's L1 holds, so every stage went to L2
-// through one SM's port, ~35 GB/s), or in each CTA's dynamic shared memory
-// for its chunk (B10 at C > 1: 192 KB a CTA at C = 2 and 2x64x128).  Under
-// a rho callback, which reads the whole member, a global copy of y_hi is
-// written at each accepted step.  A norm is a group sum: a warp butterfly
+// says: in global memory (B10 at C = 1: 576 KB a member at 2x64x128, which
+// no SM's L1 holds, so every stage went to L2 through one SM's port, ~35
+// GB/s; and B9 where a block's share does not fit), or in shared memory:
+// each CTA's chunk (B10 at C > 1: 192 KB a CTA at C = 2 and 2x64x128), or
+// on B9's grid the slots of each block's threads' own elements (24 KB a
+// block at 2x256x256 on 132 blocks of 512).  Under a rho callback, which
+// reads the whole member, a global copy of y_hi is written at each
+// accepted step.  A norm is a group sum: a warp butterfly
 // (all lanes end with the same value), the warps' sums in shared memory
 // added in order by every thread, then on the grid the blocks' sums in a
 // global slot each, added lane-strided and butterflied by every warp, and
@@ -47,7 +50,9 @@
 // loads of a) and ~10 flops of the recurrence, and the stage ends in a
 // barrier: the whole grid's (B9), the cluster's (B10 at C > 1) or a
 // __syncthreads (B10 at C = 1).  B9 at 131,072 elements is bound by the
-// grid barrier and L2 latency, not by the card's flop rate.  B10 at C > 1
+// grid barrier and the L2 round trips of the stencil's reads, not by the
+// card's flop rate; the next stage's Chebyshev scalars are computed
+// between the barrier's arrive and its wait.  B10 at C > 1
 // takes ~2.6 us a stage of fixed work (the barrier, and the Chebyshev
 // scalars, computed between its arrive and its wait) and ~1 SM cycle per
 // element of the CTA's chunk (tools/probe_fused_rkc.py: 3.7, 4.8 and 7.1
@@ -203,10 +208,13 @@ __device__ __forceinline__ float cube_root(float x) {
 // The whole integration of one member by the group g: rank(), size(),
 // sync() (or its two halves, arrive() and wait(), with work on registers
 // between them), sum(x) (the group's sum of x, identical in every
-// thread), the elements [lo(), hi()) it owns, and kLocal, where the six
-// elementwise arrays live: in sm (the group's hi - lo elements of each)
-// or, if not kLocal, in w.  y0 and p are the member's initial grid and
-// parameters; w its kArrays * NTOT floats of workspace.
+// thread), the elements [lo(), hi()) it owns (element i to the thread of
+// rank (i - lo) mod size), and kLocal, where the six elementwise arrays
+// live: if not kLocal, in w; else in sm, local_len() floats each, the k-th
+// element of a thread at local_rank() + k local_size() (its block's slots:
+// a CTA's chunk in a cluster, a block's share of the grid).  y0 and p are
+// the member's initial grid and parameters; w its kArrays * NTOT floats of
+// workspace.
 template <int RHO, class Group>
 __device__ void integrate(Group& g, const float* __restrict__ y0,
                           const float* __restrict__ p, float* w, float* sm,
@@ -216,9 +224,17 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
   const int nthr = g.size();
   const int lo = g.lo();
   const int hi = g.hi();
-  // element i of the member is entry i - off of the elementwise arrays
-  const int off = LOCAL ? lo : 0;
-  const int len = LOCAL ? hi - lo : NTOT;
+  // a thread's k-th element i = lo + rank + k nthr is entry l = l0 + k
+  // lstep of the elementwise arrays: i itself in the workspace, else its
+  // slot in the group's share (len floats each)
+  int l0 = lo + rank;
+  int lstep = nthr;
+  int len = NTOT;
+  if constexpr (LOCAL) {
+    l0 = g.local_rank();
+    lstep = g.local_size();
+    len = g.local_len();
+  }
   float* const ew = LOCAL ? sm : w;
   float* y_hi = ew;
   float* y_lo = ew + len;
@@ -232,14 +248,13 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
   constexpr bool kGlobY = LOCAL && RHO == kRhoFn;
   const float nf = static_cast<float>(NTOT);  // jnp.mean divides by n
 
-  for (int i = lo + rank; i < hi; i += nthr) {
-    y_hi[i - off] = y0[i];
-    y_lo[i - off] = 0.0f;
+  for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
+    y_hi[l] = y0[i];
+    y_lo[l] = 0.0f;
     if constexpr (kGlobY) y_glob[i] = y0[i];
   }
   g.sync();
-  for (int i = lo + rank; i < hi; i += nthr) {
-    const int l = i - off;
+  for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
     f[l] = rhs(s.t0, y0, i, p);
     if constexpr (RHO == kRhoPower) V[i] = f[l];
   }
@@ -278,8 +293,7 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
     } else {
       if (newspc) {
         float yy = 0.0f, vv = 0.0f;
-        for (int i = lo + rank; i < hi; i += nthr) {
-          const int l = i - off;
+        for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
           yy += y_hi[l] * y_hi[l];
           vv += V[i] * V[i];
         }
@@ -293,8 +307,8 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
         const float vs = dynrm / (vnrm == 0.0f ? 1.0f : vnrm);
         float* v = arg[0];
         float* fv = arg[1];
-        for (int i = lo + rank; i < hi; i += nthr) {
-          v[i] = both     ? y_hi[i - off] + V[i] * vs
+        for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
+          v[i] = both     ? y_hi[l] + V[i] * vs
                  : only_y ? V[i] * tab::ONE_P_SQRTU
                  : only_v ? V[i] * vs
                           : dynrm;
@@ -306,10 +320,10 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
         sprad = 0.0f;
         for (int k = 0; k < kItMax && !done; ++k) {
           float dd = 0.0f;
-          for (int i = lo + rank; i < hi; i += nthr) {
+          for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
             const float fvi = rhs(t, v, i, p);
             fv[i] = fvi;
-            const float df = fvi - f[i - off];
+            const float df = fvi - f[l];
             dd += df * df;
           }
           const float dfnrm = sqrtf(g.sum(dd));
@@ -322,8 +336,8 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
           } else {
             if (dfnrm != 0.0f) {
               const float scale = dynrm / dfnrm;
-              for (int i = lo + rank; i < hi; i += nthr) {
-                v[i] = y_hi[i - off] + (fv[i] - f[i - off]) * scale;
+              for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
+                v[i] = y_hi[l] + (fv[i] - f[l]) * scale;
               }
             } else {
               // degenerate case: the owner of component k mod n flips it
@@ -336,8 +350,8 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
         }
         rho_ok = done;
         if (done) {
-          for (int i = lo + rank; i < hi; i += nthr) {
-            V[i] = v[i] - y_hi[i - off];
+          for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
+            V[i] = v[i] - y_hi[l];
           }
         }
         nfesig += nev;
@@ -351,13 +365,12 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
       float absh0 = sprad * mse > 1.0f ? 1.0f / sprad : mse;
       absh0 = fmaxf(absh0, tab::SQRTMIN);
       float* a = arg[0];
-      for (int i = lo + rank; i < hi; i += nthr) {
-        a[i] = y_hi[i - off] + absh0 * f[i - off];
+      for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
+        a[i] = y_hi[l] + absh0 * f[l];
       }
       g.sync();
       float acc = 0.0f;
-      for (int i = lo + rank; i < hi; i += nthr) {
-        const int l = i - off;
+      for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
         const float q = (rhs(t + absh0, a, i, p) - f[l]) /
                         (s.atol + s.rtol * fabsf(y_hi[l]));
         acc += q * q;
@@ -390,26 +403,24 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
     float* em1 = e_b;
     int ab = 0;
     const float hmus0 = h * c.mus0;
-    for (int i = lo + rank; i < hi; i += nthr) {
-      const int l = i - off;
+    for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
       const float e1 = hmus0 * f[l];
       em2[l] = 0.0f;
       em1[l] = e1;
       arg[0][i] = y_hi[l] + (y_lo[l] + e1);
     }
-    // each barrier as arrive and wait, the next stage's coefficients
-    // computed in between
-    float muc, nuc, ajc, mus, th;
-    g.arrive();
-    c.next(muc, nuc, ajc, mus, th);
-    g.wait();
+    // the barrier before each stage as arrive and wait, the stage's
+    // coefficients computed in between
     for (int j = 2; j <= m; ++j) {
+      float muc, nuc, ajc, mus, th;
+      g.arrive();
+      c.next(muc, nuc, ajc, mus, th);
+      g.wait();
       const float tj = t + h * th;
       const float hmus = h * mus;
       const float* a = arg[ab];
       float* a_next = arg[ab ^ 1];
-      for (int i = lo + rank; i < hi; i += nthr) {
-        const int l = i - off;
+      for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
         const float fj = rhs(tj, a, i, p);
         const float ej =
             muc * em1[l] + nuc * em2[l] + hmus * (fj - ajc * f[l]);
@@ -420,18 +431,15 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
       em2 = em1;
       em1 = tmp;
       ab ^= 1;
-      g.arrive();
-      if (j < m) c.next(muc, nuc, ajc, mus, th);
-      g.wait();
     }
+    g.sync();
     // arg[ab] now holds y_k = y_n + e_m
 
     // f(t + h, y_k) and the embedded error estimate
     const float* yk = arg[ab];
     const float h4 = 0.4f * h;
     float acc = 0.0f;
-    for (int i = lo + rank; i < hi; i += nthr) {
-      const int l = i - off;
+    for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
       const float fk = rhs(t + h, yk, i, p);
       f_new[l] = fk;
       const float wt = s.atol + s.rtol * fmaxf(fabsf(y_hi[l]), fabsf(yk[i]));
@@ -487,8 +495,7 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
       t = is_last ? s.tf : tn.hi;
       t_lo = is_last ? 0.0f : tn.lo;
       // the double-single y carry advances by the step's deviation
-      for (int i = lo + rank; i < hi; i += nthr) {
-        const int l = i - off;
+      for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
         const ds::DS yn = ds::add_f(ds::DS{y_hi[l], y_lo[l]}, em1[l]);
         y_hi[l] = yn.hi;
         y_lo[l] = yn.lo;
@@ -507,8 +514,8 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
   }
 
   g.sync();
-  for (int i = lo + rank; i < hi; i += nthr) {
-    out.y[static_cast<size_t>(member) * NTOT + i] = y_hi[i - off];
+  for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
+    out.y[static_cast<size_t>(member) * NTOT + i] = y_hi[l];
   }
   if (lo == 0 && rank == 0) {
     out.status[member] = status;
@@ -536,31 +543,75 @@ struct MemberBlock : BlockGroup {
   __device__ void wait() const {}
 };
 
-// B9: the whole cooperative grid on one member.  Each block's sum goes to
-// its slot of `partials` (two sets of gridDim.x slots, used in turn); after
-// grid.sync() every warp adds the slots lane-strided and butterflies them.
+// B9: the whole cooperative grid on one member; kLocal: each block keeps
+// the six elementwise arrays of its threads' elements in its dynamic shared
+// memory, K = ceil(NTOT / threads of the grid) slots of blockDim.x floats
+// each, so that every thread owns the elements it owns in the global
+// placement and sums them in the same order.  The barrier is split: in
+// arrive() one thread of each block adds 1 to the generation counter `bar`
+// by a release reduction after a __syncthreads (so the block's writes are
+// visible before the count), in wait() it spins with acquire loads until
+// every block of the grid has arrived, then the block meets at a
+// __syncthreads; work on registers goes between the two.  Each block's sum
+// goes to its slot of `partials` (two sets of gridDim.x slots, used in
+// turn); after the barrier every warp adds the slots lane-strided and
+// butterflies them.
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+template <bool LOCAL>
 struct GridGroup {
-  static constexpr bool kLocal = false;
-  cg::grid_group grid;
+  static constexpr bool kLocal = LOCAL;
   float* red;
   float* partials;
+  unsigned* bar;
   int turn = 0;
   int pturn = 0;
+  unsigned target = 0;  // the count of arrivals that ends the next wait
   __device__ int rank() const {
     return blockIdx.x * blockDim.x + threadIdx.x;
   }
   __device__ int size() const { return gridDim.x * blockDim.x; }
   __device__ int lo() const { return 0; }
   __device__ int hi() const { return NTOT; }
-  __device__ void sync() { grid.sync(); }
-  __device__ void arrive() { grid.sync(); }
-  __device__ void wait() const {}
+  __device__ int local_rank() const { return threadIdx.x; }
+  __device__ int local_size() const { return blockDim.x; }
+  __device__ int local_len() const {
+    return (NTOT + size() - 1) / size() * static_cast<int>(blockDim.x);
+  }
+  __device__ void arrive() {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
+                   :
+                   : "l"(bar)
+                   : "memory");
+    }
+    target += gridDim.x;
+  }
+  __device__ void wait() const {
+    if (threadIdx.x == 0) {
+      while (static_cast<int>(load_acquire(bar) - target) < 0) {
+      }
+    }
+    __syncthreads();
+  }
+  __device__ void sync() {
+    arrive();
+    wait();
+  }
   __device__ float sum(float v) {
     const float b = block_sum(v, red, turn);
     float* slots = partials + gridDim.x * pturn;
     pturn ^= 1;
     if (threadIdx.x == 0) slots[blockIdx.x] = b;
-    grid.sync();
+    sync();
     float s = 0.0f;
     for (unsigned k = threadIdx.x & 31; k < gridDim.x; k += 32) s += slots[k];
 #pragma unroll
@@ -589,6 +640,9 @@ struct ClusterGroup {
   __device__ int size() const { return blockDim.x; }
   __device__ int lo() const { return lo_; }
   __device__ int hi() const { return hi_; }
+  __device__ int local_rank() const { return threadIdx.x; }
+  __device__ int local_size() const { return blockDim.x; }
+  __device__ int local_len() const { return hi_ - lo_; }
   __device__ void sync() const { cg::this_cluster().sync(); }
   __device__ void arrive() const { cg::this_cluster().barrier_arrive(); }
   __device__ void wait() const { cg::this_cluster().barrier_wait(); }
@@ -650,25 +704,42 @@ __global__ void __launch_bounds__(kClusterThreads)
                  member, out);
 }
 
-template <int RHO>
+template <int RHO, bool LOCAL>
 __global__ void __launch_bounds__(kGridThreads)
     fused_rkc_grid_kernel(const float* __restrict__ y0,
                           const float* __restrict__ params, float* work,
                           float* partials, Solve s, Out out) {
+  extern __shared__ float sm[];
   __shared__ float red[64];
-  GridGroup g{cg::this_grid(), red, partials};
-  integrate<RHO>(g, y0, tab::NPAR ? params : nullptr, work, nullptr, s, 0,
-                 out);
+  GridGroup<LOCAL> g{red, partials,
+                     reinterpret_cast<unsigned*>(partials + 2 * gridDim.x)};
+  integrate<RHO>(g, y0, tab::NPAR ? params : nullptr, work,
+                 LOCAL ? sm : nullptr, s, 0, out);
 }
 
-const void* grid_kernel(int rho_mode) {
+template <bool LOCAL>
+const void* grid_kernel_of(int rho_mode) {
   if (rho_mode == kRhoConst) {
-    return reinterpret_cast<const void*>(&fused_rkc_grid_kernel<kRhoConst>);
+    return reinterpret_cast<const void*>(
+        &fused_rkc_grid_kernel<kRhoConst, LOCAL>);
   }
   if (rho_mode == kRhoFn) {
-    return reinterpret_cast<const void*>(&fused_rkc_grid_kernel<kRhoFn>);
+    return reinterpret_cast<const void*>(&fused_rkc_grid_kernel<kRhoFn, LOCAL>);
   }
-  return reinterpret_cast<const void*>(&fused_rkc_grid_kernel<kRhoPower>);
+  return reinterpret_cast<const void*>(
+      &fused_rkc_grid_kernel<kRhoPower, LOCAL>);
+}
+
+const void* grid_kernel(int rho_mode, bool local) {
+  return local ? grid_kernel_of<true>(rho_mode)
+               : grid_kernel_of<false>(rho_mode);
+}
+
+// B9's dynamic shared memory in the shared placement on `blocks` blocks of
+// `threads`: the six arrays' slots of every thread.
+size_t grid_smem(int blocks, int threads) {
+  const int per = (NTOT + blocks * threads - 1) / (blocks * threads);
+  return static_cast<size_t>(kLocalArrays) * per * threads * sizeof(float);
 }
 
 using ClusterKernel = void (*)(const float*, const float*, float*, Solve, Out);
@@ -705,8 +776,8 @@ cudaError_t cluster_config(ClusterKernel k, int members, int c, int threads,
 }  // namespace
 
 // The largest grid whose blocks of `threads` threads are all resident at
-// once (the blocks one SM holds times the SM count), written to *blocks;
-// returns the CUDA error code.
+// once in B9's global placement (the blocks one SM holds times the SM
+// count), written to *blocks; returns the CUDA error code.
 extern "C" int fused_rkc_grid_capacity(int rho_mode, int threads,
                                        int* blocks) {
   int dev = 0;
@@ -714,10 +785,41 @@ extern "C" int fused_rkc_grid_capacity(int rho_mode, int threads,
   int per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_kernel(rho_mode),
-                                                threads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, grid_kernel(rho_mode, false), threads, 0);
   *blocks = per_sm * sms;
   return static_cast<int>(cudaGetLastError());
+}
+
+// B9's shared placement on a grid of `blocks` blocks of `threads`: the
+// dynamic shared memory a block needs (*bytes) and whether the card holds
+// all of the grid's blocks at once with it (*fits: 0 where it exceeds the
+// card's opt-in shared memory); returns the CUDA error code.
+extern "C" int fused_rkc_grid_smem(int rho_mode, int threads, int blocks,
+                                   int* bytes, int* fits) {
+  int dev = 0;
+  int sms = 0;
+  int optin = 0;
+  int per_sm = 0;
+  cudaFuncAttributes fa;
+  const void* k = grid_kernel(rho_mode, true);
+  *fits = 0;
+  *bytes = static_cast<int>(grid_smem(blocks, threads));
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  cudaError_t e = cudaFuncGetAttributes(&fa, k);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (*bytes + static_cast<int>(fa.sharedSizeBytes) > optin) return 0;
+  e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           *bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads,
+                                                    *bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *fits = per_sm * sms >= blocks ? 1 : 0;
+  return 0;
 }
 
 // B10 at cluster size c (2, 4 or 8) with CTAs of `threads`: the dynamic
@@ -747,12 +849,15 @@ extern "C" int fused_rkc_cluster_capacity(int rho_mode, int threads, int c,
   return static_cast<int>(e);
 }
 
-// Launches B9 (grid = 1: one member on a cooperative grid of `blocks`
-// blocks) or B10 (grid = 0: one block per member at cluster = 1, else a
-// cluster of `cluster` blocks per member) on the caller's stream and
-// returns the CUDA error code; the wrapper raises on anything but 0, and a
-// refused cooperative or cluster launch is such an error.  `work` holds
-// kArrays * NTOT floats per member, `partials` 2 * blocks floats (B9 only).
+// Launches B9 (one member on a cooperative grid of `blocks` blocks, its
+// six elementwise arrays in global memory at grid = 1 or in the blocks'
+// shared memory at grid = 2) or B10 (grid = 0: one block per member at
+// cluster = 1, else a cluster of `cluster` blocks per member) on the
+// caller's stream and returns the CUDA error code; the wrapper raises on
+// anything but 0, and a refused cooperative or cluster launch is such an
+// error.  `work` holds kArrays * NTOT floats per member, `partials`
+// 2 * blocks + 1 floats (B9 only: the blocks' sums and the barrier's
+// counter, which the launch sets to 0 first).
 extern "C" int fused_rkc_launch(int grid, int rho_mode, const void* y0,
                                 const void* params, void* y_out, void* status,
                                 void* nsteps, void* nfev, void* nfesig,
@@ -773,9 +878,19 @@ extern "C" int fused_rkc_launch(int grid, int rho_mode, const void* y0,
   float* wf = static_cast<float*>(work);
   if (grid) {
     float* part = static_cast<float*>(partials);
+    const bool local = grid == 2;
+    const void* k = grid_kernel(rho_mode, local);
+    const size_t bytes = local ? grid_smem(blocks, threads) : 0;
+    cudaError_t e = cudaMemsetAsync(part + 2 * blocks, 0, sizeof(unsigned),
+                                    st);
+    if (e == cudaSuccess && local) {
+      e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
     void* args[] = {&y0f, &pf, &wf, &part, &s, &out};
     return static_cast<int>(cudaLaunchCooperativeKernel(
-        grid_kernel(rho_mode), dim3(blocks), dim3(threads), args, 0, st));
+        k, dim3(blocks), dim3(threads), args, bytes, st));
   }
   if (cluster > 1) {
     if (cluster > kMaxCluster || threads > kClusterThreads) {

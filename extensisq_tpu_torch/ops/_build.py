@@ -560,12 +560,13 @@ def load_fused_ckdisc(consts, n, rhs_src):
 
 def load_fused_esdirk(consts, m_diag, rot, n, rhs_src):
     """Build (at first use) and load the fused ESDIRK kernel for one
-    method, mass-matrix setup and RHS; returns :class:`Built` with
-    ``lib.fused_esdirk_launch`` bound."""
+    method, mass-matrix setup and RHS, with each lane count per member the
+    launch takes; returns :class:`Built` with ``lib.fused_esdirk_launch``
+    bound."""
     return load_kernel(
         "fused_esdirk", fused_esdirk_header(consts, m_diag, rot, n, rhs_src),
         [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI,
-         _CI, _CF, _CI, _CF, _CI, _CI, _VP])
+         _CI, _CF, _CI, _CF, _CI, _CI, _CI, _VP])
 
 
 def load_fused_esdirk_grid(consts, shape, rhs_src):
@@ -613,8 +614,8 @@ def load_fused_rkc(shape, n_par, rhs_src, rho_src=None):
     """Build (at first use) and load the fused RKC kernels (B9 and B10) for
     one grid shape, parameter count and right-hand side; returns
     :class:`Built` with ``lib.fused_rkc_launch``,
-    ``lib.fused_rkc_grid_capacity`` and ``lib.fused_rkc_cluster_capacity``
-    bound."""
+    ``lib.fused_rkc_grid_capacity``, ``lib.fused_rkc_grid_smem`` and
+    ``lib.fused_rkc_cluster_capacity`` bound."""
     built = load_kernel(
         "fused_rkc", fused_rkc_header(shape, n_par, rhs_src, rho_src),
         [_CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF,
@@ -623,6 +624,9 @@ def load_fused_rkc(shape, n_par, rhs_src, rho_src=None):
     cap = built.lib.fused_rkc_grid_capacity
     cap.argtypes = [_CI, _CI, ctypes.POINTER(ctypes.c_int)]
     cap.restype = ctypes.c_int
+    smem = built.lib.fused_rkc_grid_smem
+    smem.argtypes = [_CI, _CI, _CI] + [ctypes.POINTER(ctypes.c_int)] * 2
+    smem.restype = ctypes.c_int
     ccap = built.lib.fused_rkc_cluster_capacity
     ccap.argtypes = [_CI, _CI, _CI] + [ctypes.POINTER(ctypes.c_int)] * 2
     ccap.restype = ctypes.c_int

@@ -2,10 +2,12 @@
 stiff ODEs and index-1 DAEs, in one CUDA kernel launch.
 
 Counterpart of ``extensisq_tpu/ops/fused_esdirk.py``.  The kernel
-(``csrc/fused_esdirk.cu``) runs one thread per member: the Jacobian, the
-pivoted factor of the Newton matrix, the stages, the modified-Newton
+(``csrc/fused_esdirk.cu``) runs each member on a group of G lanes of one
+warp or on one thread (G from :func:`_lanes_per_member`): the Jacobian,
+the pivoted factor of the Newton matrix, the stages, the modified-Newton
 iterations, the error filter, the implicit controller and the time loop
-all stay in registers for the whole integration.  Its plain PyTorch
+all stay in registers for the whole integration, and a group's lanes
+split the Jacobian's dual evaluations.  Its plain PyTorch
 version, :func:`fused_esdirk_reference`, runs the same loop on rows-first
 ``(n, B)`` float32 tensors; the wrapper :func:`solve_fused_esdirk` takes
 it only for tensors on the CPU.
@@ -43,6 +45,7 @@ from ..core.numerics import norm
 from ..steppers.erk import weighted_sum
 from ..steppers.esdirk import jacfwd
 from . import _hstart_tile
+from .fused_adams import _launch_shape
 from .fused_erk import FusedRHS, _comp_wsum, _df_add, _two_sum
 
 _EPS32 = float(np.finfo(np.float32).eps)
@@ -514,6 +517,37 @@ def run_esdirk_loop(fun, k, t, tf, y, yp, h_abs, nfev0, rtol, atol,
     return y, status, nstep, nfev
 
 
+# threads per SM up to which the wrapper spreads members over lane groups
+# (one warp per SM sub-partition)
+_THREADS_PER_SM = 128
+# the lane counts the wrapper takes besides 1, most first
+_LANES = (32, 16, 8, 4)
+
+
+def _lanes_per_member(B, sm_count, n):
+    """Lanes per member for an ensemble of ``B`` members of ``n`` states on
+    a card of ``sm_count`` SMs: the largest G of 32, 16, 8 and 4 with
+    B G <= 128 sm_count, else 1 (one thread per member).
+
+    From the member sweep of the pendulum bench line (n = 5, Kv3I, 707
+    steps of the slowest member; ``tools/probe_fused_esdirk.py``) on an
+    H100 (132 SMs, 700 W), device ms of one thread per member against the
+    lane groups G = 4 / 8 / 16 / 32: 512 members 3.750 against 3.417 /
+    3.040 / 2.940 / 2.740; 1,024: 3.709, 3.391 / 3.054 / 2.975 / 3.190;
+    2,048: 3.768, 3.378 / 3.046 / 3.365 / 4.358; 4,096: 3.734, 3.362 /
+    3.418 / 4.523 / 8.046; 8,192: 3.755, 3.800 at G = 4; 16,384: 3.726,
+    4.948.  The best G puts about 16,384 threads on the card (one warp
+    per SM sub-partition): a member's lanes run one chain of dependent
+    operations, the norms' divisions and the controller's powers split
+    over them, and a second warp per scheduler already costs issue slots.
+    ``n`` (at most 8) is not used yet: the sweep ran at n = 5 only."""
+    budget = _THREADS_PER_SM * int(sm_count)
+    for lanes in _LANES:
+        if int(B) * lanes <= budget:
+            return lanes
+    return 1
+
+
 def _kernel(method, fun, M, m_diag, rot, n):
     """The kernel built for one method, FusedRHS and mass-matrix setup."""
     if method is None:
@@ -529,7 +563,7 @@ def _kernel(method, fun, M, m_diag, rot, n):
 def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
                        yp0_batch=None, rtol=1e-4, atol=1e-6,
                        first_step=None, max_steps=100_000,
-                       block_members=128, compensated=False, t_eval=None,
+                       block_members=None, compensated=False, t_eval=None,
                        events=None, max_step=None, params=None,
                        block_base=None, dense=None):
     """Integrate an ensemble of small stiff systems or index-1 DAEs in one
@@ -549,10 +583,14 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
     raises where there is none); a tensor keeps its device.
     On a CUDA tensor ``fun`` must be a :class:`FusedRHS` whose
     ``cuda_src`` defines the template ``rhs<T>`` (see ``csrc/dual.cuh``),
-    and the call launches ``csrc/fused_esdirk.cu`` (built at first use)
-    with ``block_members`` threads per block, or raises.  On a CPU tensor
-    it runs :func:`fused_esdirk_reference`, with a :class:`FusedRHS` or a
-    plain rows-first torch function.
+    and the call launches ``csrc/fused_esdirk.cu`` (built at first use) or
+    raises: G lanes per member, G from :func:`_lanes_per_member` (the
+    ensemble size, the card's SM count and n), and ``block_members``
+    members per block (None: 128 / G), so ``block_members * G`` threads
+    per block, at most 1024; the shape taken is left in
+    ``solve_fused_esdirk.last_shape``.  On a CPU tensor it runs
+    :func:`fused_esdirk_reference`, with a :class:`FusedRHS` or a plain
+    rows-first torch function.
 
     ``t_eval``, ``events``, ``params``, ``block_base`` and ``dense`` are
     not ported yet.
@@ -574,6 +612,20 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
             rtol=rtol, atol=atol, first_step=first_step,
             max_steps=max_steps, compensated=compensated, max_step=max_step)
 
+    out, shape = _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol,
+                         first_step, max_steps, compensated, max_step, None,
+                         block_members)
+    solve_fused_esdirk.launches += 1
+    solve_fused_esdirk.last_shape = shape
+    return out
+
+
+def _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
+            max_steps, compensated, max_step, lanes, block_members=None):
+    """B2 on the card for the CUDA tensor ``y0``: ``lanes`` lanes per member
+    (None: :func:`_lanes_per_member`'s) and ``block_members`` members per
+    block (None: 128 / lanes).  Returns the four outputs and the ``(lanes,
+    block_members)`` taken."""
     if not isinstance(fun, FusedRHS):
         raise TypeError("solve_fused_esdirk on a CUDA tensor needs a "
                         "FusedRHS (a CUDA source of the right-hand side); "
@@ -593,8 +645,10 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
         if x is not None and (x.dtype != torch.float32
                               or x.device != y0.device):
             raise TypeError(f"{name} must be float32 on {y0.device}")
-    if not 1 <= block_members <= 1024:
-        raise ValueError("block_members must be in [1, 1024]")
+    if lanes is None:
+        lanes = _lanes_per_member(nb, torch.cuda.get_device_properties(
+            y0.device).multi_processor_count, n)
+    block_members, _, _ = _launch_shape(nb, lanes, block_members)
     m_diag, rot = _mass_setup(M, n)
     if m_diag is not None and yp0 is None and np.any(m_diag == 0.0):
         raise ValueError("DAE: pass consistent yp0_batch (e.g. from the "
@@ -605,8 +659,9 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
+    shape = (lanes, block_members)
     if nb == 0:
-        return y_out, status, nsteps, nfev
+        return (y_out, status, nsteps, nfev), shape
     t0, tf = np.float32(t_span[0]), np.float32(t_span[1])
     use_hstart = first_step is None and M is None
     if first_step is not None:
@@ -622,14 +677,15 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
             float(atol), float(h0), int(use_hstart), int(yp0 is not None),
             np.inf if max_step is None else float(max_step),
             int(max_steps), _tiny_err(n, rtol), int(bool(compensated)),
-            int(block_members), stream)
+            int(lanes), block_members, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_esdirk kernel launch failed: CUDA error {rc}")
-    solve_fused_esdirk.launches += 1
-    return y_out, status, nsteps, nfev
+    return (y_out, status, nsteps, nfev), shape
 
 
 # kernel launches since the count was last set to 0 (the plain version on
-# CPU tensors does not count)
+# CPU tensors does not count) and the (lanes per member, members per block)
+# of the last launch
 solve_fused_esdirk.launches = 0
+solve_fused_esdirk.last_shape = None

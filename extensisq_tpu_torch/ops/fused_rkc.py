@@ -5,7 +5,8 @@ Counterpart of ``extensisq_tpu/ops/fused_rkc.py``.  Two kernels from one
 CUDA body (``csrc/fused_rkc.cu``, ``integrate<Group>``):
 
 * :func:`solve_fused_rkc` (B9): one grid, run by the whole card in a
-  cooperative launch;
+  cooperative launch, with each block's share of the elementwise arrays in
+  its shared memory where it fits (:func:`_grid_shape`);
 * :func:`solve_fused_rkc_ensemble` (B10): many member grids, each on a
   thread-block cluster of C CTAs with its elementwise arrays in their
   shared memory (C from :func:`_cluster_size`), or on one thread block,
@@ -450,7 +451,7 @@ def _stages(fn, t, y, y_lo, f, h, m, running):
 
 # -- the wrappers and the kernels --------------------------------------------
 
-# (build key, rho mode, device index) -> B9's grid
+# (build key, rho mode, device index) -> B9's (blocks, placement, bytes)
 _GRIDS = {}
 # (build key, rho mode, device index) -> {C: B10's clusters resident at once}
 _CLUSTERS = {}
@@ -538,10 +539,11 @@ def _check_card_inputs(name, fun, rho, y0, lead):
 def _launch(built, grid, rho, y0, params, n_members, t_span, rtol, atol,
             first_step, max_steps, m_max, const_jac, max_step, threads,
             blocks, cluster=1):
-    """Allocate the outputs and the workspace and launch B9 (``grid``) or
-    B10 (a cluster of ``cluster`` CTAs per member, or one block at 1) on
-    the current stream; returns (y, status, nsteps, nfev, nfesig) with the
-    member axis first."""
+    """Allocate the outputs and the workspace and launch B9 (``grid`` 1:
+    the elementwise arrays in global memory, 2: in the blocks' shared
+    memory) or B10 (``grid`` 0: a cluster of ``cluster`` CTAs per member,
+    or one block at 1) on the current stream; returns (y, status, nsteps,
+    nfev, nfesig) with the member axis first."""
     dev = y0.device
     ntot = int(np.prod(y0.shape[1:]))
     mode = _rho_mode(rho)
@@ -552,7 +554,8 @@ def _launch(built, grid, rho, y0, params, n_members, t_span, rtol, atol,
             for _ in range(4)]
     work = torch.empty(n_members * N_ARRAYS * ntot, dtype=torch.float32,
                        device=dev)
-    partials = torch.empty(2 * max(blocks, 1), dtype=torch.float32,
+    # B9: the blocks' sums and the grid barrier's counter
+    partials = torch.empty(2 * max(blocks, 1) + 1, dtype=torch.float32,
                            device=dev)
     if n_members == 0:
         return (y_out, *ints)
@@ -574,27 +577,65 @@ def _launch(built, grid, rho, y0, params, n_members, t_span, rtol, atol,
     return (y_out, *ints)
 
 
-def _grid_blocks(built, fun, rho, device):
-    """B9's grid for ``fun`` on ``device``: one block of
-    :data:`GRID_THREADS` per SM, at most one thread per grid element, and
-    no more blocks than are resident at once (the occupancy times the SM
-    count), or the launch would be refused."""
+# B9's placements of the six elementwise arrays (the launch's ``grid``)
+GLOBAL, SHARED = 1, 2
+
+
+def _grid_shape(built, fun, rho, device):
+    """B9's launch shape for ``fun`` on ``device``: ``(blocks, placement,
+    shared memory bytes per block)``.  One block of :data:`GRID_THREADS`
+    per SM, at most one thread per grid element and no more blocks than
+    are resident at once (the occupancy times the SM count), or the launch
+    would be refused; the elementwise arrays in each block's shared memory
+    (:data:`SHARED`) where its threads' share fits and the card still
+    holds every block, else in global memory (:data:`GLOBAL`, 0 bytes)."""
     import ctypes
     with torch.cuda.device(device):
         dev = torch.cuda.current_device()
         key = (built.key, _rho_mode(rho), dev)
-        blocks = _GRIDS.get(key)
-        if blocks is None:
+        shape = _GRIDS.get(key)
+        if shape is None:
+            mode = _rho_mode(rho)
             cap = ctypes.c_int(0)
             rc = built.lib.fused_rkc_grid_capacity(
-                _rho_mode(rho), GRID_THREADS, ctypes.byref(cap))
+                mode, GRID_THREADS, ctypes.byref(cap))
             if rc != 0 or cap.value < 1:
                 raise RuntimeError(f"fused_rkc: no resident grid of blocks "
                                    f"of {GRID_THREADS} (CUDA error {rc})")
             need = -(-int(np.prod(fun.shape)) // GRID_THREADS)
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            blocks = _GRIDS[key] = min(cap.value, sms, need)
-    return blocks
+            blocks = min(cap.value, sms, need)
+            nbytes, fits = ctypes.c_int(0), ctypes.c_int(0)
+            rc = built.lib.fused_rkc_grid_smem(
+                mode, GRID_THREADS, blocks, ctypes.byref(nbytes),
+                ctypes.byref(fits))
+            if rc != 0:
+                raise RuntimeError(f"fused_rkc: shared memory query failed: "
+                                   f"CUDA error {rc}")
+            shape = _GRIDS[key] = ((blocks, SHARED, nbytes.value)
+                                   if fits.value else (blocks, GLOBAL, 0))
+    return shape
+
+
+def _launch_grid(fun, t_span, y0, rho, placement=None, rtol=1e-4,
+                 atol=1e-6, first_step=None, max_steps=100_000, m_max=None,
+                 const_jac=False, max_step=None):
+    """B9 on the card in ``placement`` (:data:`SHARED` or :data:`GLOBAL`;
+    None: :func:`_grid_shape`'s).  Returns the five outputs of the one
+    member and the shape ``(blocks, placement, bytes)`` taken."""
+    kw = dict(rtol=rtol, atol=atol, first_step=first_step,
+              max_steps=max_steps, m_max=m_max, const_jac=const_jac,
+              max_step=max_step)
+    built = _kernel(fun, rho, 0)
+    blocks, rule, nbytes = _grid_shape(built, fun, rho, y0.device)
+    placement = placement or rule
+    if placement == SHARED and rule != SHARED:
+        raise ValueError("fused_rkc: a block's share of the arrays does not "
+                         "fit its shared memory on this grid")
+    out = _launch(built, placement, rho, y0.contiguous()[None], None, 1,
+                  t_span, threads=GRID_THREADS, blocks=blocks, **kw)
+    return (tuple(x[0] for x in out),
+            (blocks, placement, nbytes if placement == SHARED else 0))
 
 
 def solve_fused_rkc(fun, t_span, y0, rho=None, rtol=1e-4, atol=1e-6,
@@ -618,8 +659,11 @@ def solve_fused_rkc(fun, t_span, y0, rho=None, rtol=1e-4, atol=1e-6,
     A ``y0`` that is not a tensor goes to the card as float32 (and raises
     where there is none).  On a CUDA tensor ``fun`` must be a
     :class:`FusedGridRHS`, and the call launches ``csrc/fused_rkc.cu``'s
-    grid kernel cooperatively (one block of 512 threads per SM), or raises;
-    a refused cooperative launch raises too.  On a CPU tensor it runs
+    grid kernel cooperatively (one block of 512 threads per SM, each
+    block's share of the elementwise arrays in its shared memory where it
+    fits, :func:`_grid_shape`; the ``(blocks, placement, bytes)`` taken is
+    left in ``solve_fused_rkc.last_shape``), or raises; a refused
+    cooperative launch raises too.  On a CPU tensor it runs
     :func:`fused_rkc_reference`.
 
     ``t_eval`` and ``events`` are not ported yet.
@@ -633,12 +677,9 @@ def solve_fused_rkc(fun, t_span, y0, rho=None, rtol=1e-4, atol=1e-6,
         out = fused_rkc_reference(fun, t_span, y0[None], rho=rho, **kw)
         return tuple(x[0] for x in out)
     _check_card_inputs("solve_fused_rkc", fun, rho, y0, ())
-    built = _kernel(fun, rho, 0)
-    out = _launch(built, True, rho, y0.contiguous()[None], None, 1, t_span,
-                  threads=GRID_THREADS,
-                  blocks=_grid_blocks(built, fun, rho, y0.device), **kw)
+    out, shape = _launch_grid(fun, t_span, y0, rho, **kw)
     solve_fused_rkc.launches += 1
-    out = tuple(x[0] for x in out)
+    solve_fused_rkc.last_shape = shape
     return out if rho is None else out[:4]
 
 
@@ -699,7 +740,7 @@ def _launch_ensemble(fun, t_span, y0, rho, params, cluster, rtol=1e-4,
     built = _kernel(fun, rho, n_par)
     c = cluster or _cluster_size(y0.shape[0],
                                  _max_clusters(built, rho, y0.device))
-    out = _launch(built, False, rho, y0.contiguous(),
+    out = _launch(built, 0, rho, y0.contiguous(),
                   None if params is None else params.contiguous(),
                   y0.shape[0], t_span, threads=BLOCK_THREADS, blocks=0,
                   cluster=c, **kw)
@@ -710,5 +751,7 @@ def _launch_ensemble(fun, t_span, y0, rho, params, cluster, rtol=1e-4,
 # CPU tensors does not count)
 solve_fused_rkc.launches = 0
 solve_fused_rkc_ensemble.launches = 0
+# B9's (blocks, placement, shared memory bytes per block) at its last launch
+solve_fused_rkc.last_shape = None
 # B10's cluster size at its last launch
 solve_fused_rkc_ensemble.cluster = 0

@@ -77,26 +77,6 @@ using std::max;
 using std::min;
 """
 
-ESDIRK_LAUNCH = """
-extern "C" int fused_esdirk_launch(
-    const void* y0, const void* yp0, void* y_out, void* status, void* nstep,
-    void* nfev, int B, float t0, float tf, float rtol, float atol, float h0,
-    int use_hstart, int have_yp0, float max_step, int max_steps,
-    float tiny_err, int compensated, int threads, void* stream) {
-  blockDim.x = 1;
-  for (int b = 0; b < B; ++b) {
-    blockIdx.x = b;
-    threadIdx.x = 0;
-    auto k = compensated ? fused_esdirk_kernel<true>
-                         : fused_esdirk_kernel<false>;
-    k((const float*)y0, (const float*)yp0, (float*)y_out, (int*)status,
-      (int*)nstep, (int*)nfev, B, t0, tf, rtol, atol, h0, use_hstart,
-      have_yp0, max_step, max_steps, tiny_err);
-  }
-  return 0;
-}
-"""
-
 ERK_LAUNCH = """
 extern "C" int fused_erk_launch(
     const void* y0, void* y_out, void* status, void* nstep, void* nfev,
@@ -274,6 +254,67 @@ extern "C" int fused_adams_host(
 }
 """
 
+# The ESDIRK bodies of B2 run one member after another: at one lane the
+# thread-per-member body integrate_thread<COMP>, at G lanes the group body
+# integrate<G, COMP> with the lanes as coroutines that hand over at each
+# shuffle (the Jacobian's columns).  The CUDA group and kernel after the
+# marker are left out.
+ESDIRK_LAUNCH = COROUTINES + r"""
+struct HostEsdirkMember {
+  const float *y0, *yp0;
+  Launch L;
+  int m;
+  Out out;
+  int comp;
+};
+static HostEsdirkMember g_esdirk;
+
+template <int G>
+static void esdirk_lane(int rank) {
+  HostLanes lane{rank};
+  const HostEsdirkMember& a = g_esdirk;
+  if (a.comp) {
+    integrate<G, true>(lane, a.y0, a.yp0, a.L, a.m, a.out);
+  } else {
+    integrate<G, false>(lane, a.y0, a.yp0, a.L, a.m, a.out);
+  }
+}
+
+extern "C" int fused_esdirk_launch(
+    const void* y0, const void* yp0, void* y_out, void* status, void* nstep,
+    void* nfev, int B, float t0, float tf, float rtol, float atol, float h0,
+    int use_hstart, int have_yp0, float max_step, int max_steps,
+    float tiny_err, int compensated, int lanes, int block_members,
+    void* stream) {
+  const Out out{(float*)y_out, (int*)status, (int*)nstep, (int*)nfev};
+  const Launch L{t0, tf, rtol, atol, h0, max_step, tiny_err, use_hstart,
+                 have_yp0, max_steps};
+  void (*body)(int) = lanes == 4 ? esdirk_lane<4>
+                      : lanes == 8 ? esdirk_lane<8> : nullptr;
+  if (lanes != 1 && body == nullptr) return 1;
+  char* stacks = lanes > 1 ? static_cast<char*>(
+      std::malloc(static_cast<size_t>(lanes) * kLaneStack)) : nullptr;
+  const float* y0f = (const float*)y0;
+  const float* yp0f = (const float*)yp0;
+  for (int m = 0; m < B; ++m) {
+    const float* y0m = y0f + m * N;
+    const float* yp0m = have_yp0 ? yp0f + m * N : nullptr;
+    if (lanes == 1) {
+      if (compensated) {
+        integrate_thread<true>(y0m, yp0m, L, m, out);
+      } else {
+        integrate_thread<false>(y0m, yp0m, L, m, out);
+      }
+    } else {
+      g_esdirk = HostEsdirkMember{y0m, yp0m, L, m, out, compensated};
+      run_lanes(lanes, body, stacks);
+    }
+  }
+  std::free(stacks);
+  return 0;
+}
+"""
+
 # The RKC body integrate<RHO, Group> run one member after another, at
 # cluster = 1 by a one-thread group whose sync() does nothing (the arrays in
 # the workspace, as B9 and B10's block body), at cluster = C by C one-thread
@@ -306,6 +347,9 @@ struct HostCta {
   int size() const { return 1; }
   int lo() const { return lo_; }
   int hi() const { return hi_; }
+  int local_rank() const { return 0; }
+  int local_size() const { return 1; }
+  int local_len() const { return hi_ - lo_; }
   void sync() const {
     adams_lane_switch(&g_set->sp[r], g_set->sp[(r + 1) % g_set->G]);
   }
@@ -345,6 +389,77 @@ static void rkc_cta(int r) {
   const int lo = min(r * chunk, NTOT);
   HostCta g{r, a.c, lo, min(lo + chunk, NTOT)};
   rkc_member(g, a, a.sm + static_cast<size_t>(r) * 6 * chunk);
+}
+
+// B9's grid group on the host: `nb` one-thread blocks as coroutines that
+// hand over at each arrive (wait does nothing; the last hands back to the
+// first, so every block has arrived when one goes on), element i to block
+// i mod nb; with LOCAL each block keeps the k-th slot of its elements'
+// six arrays at k of a buffer of its own (the card's shared placement),
+// else the arrays are in the workspace.  A sum: each block's value in its
+// slot, the barrier, then the slots added in block order by every block.
+static float g_gparts[2][8];
+
+template <bool LOCAL>
+struct HostGridBlock {
+  static constexpr bool kLocal = LOCAL;
+  int b, nb;
+  int turn = 0;
+  int rank() const { return b; }
+  int size() const { return nb; }
+  int lo() const { return 0; }
+  int hi() const { return NTOT; }
+  int local_rank() const { return 0; }
+  int local_size() const { return 1; }
+  int local_len() const { return (NTOT + nb - 1) / nb; }
+  void arrive() const {
+    adams_lane_switch(&g_set->sp[b], g_set->sp[(b + 1) % g_set->G]);
+  }
+  void wait() const {}
+  void sync() const { arrive(); }
+  float sum(float v) {
+    float* parts = g_gparts[turn];
+    turn ^= 1;
+    parts[b] = v;
+    sync();
+    float s = parts[0];
+    for (int k = 1; k < nb; ++k) s += parts[k];
+    return s;
+  }
+};
+
+template <bool LOCAL>
+static void rkc_grid_block(int b) {
+  const HostRkcMember& a = g_rkc;
+  HostGridBlock<LOCAL> g{b, a.c};
+  float* sm = LOCAL ? a.sm + static_cast<size_t>(b) * 6 * g.local_len()
+                    : nullptr;
+  rkc_member(g, a, sm);
+}
+
+// One member (B9) on `blocks` host blocks (at most 8), its arrays in their
+// buffers (local) or in the workspace.
+extern "C" int fused_rkc_grid_host(
+    int rho_mode, const float* y0, const float* params, float* y_out,
+    int* status, int* nsteps, int* nfev, int* nfesig, float* work,
+    float t0, float tf, float dir, float rtol, float atol, float h0,
+    float rho_const, float max_step, int mmax, int max_steps,
+    int const_jac, int blocks, int local) {
+  if (blocks < 1 || blocks > 8) return 1;
+  Solve s{t0, tf, dir, rtol, atol, h0, rho_const, max_step,
+          mmax, max_steps, const_jac};
+  Out out{y_out, status, nsteps, nfev, nfesig};
+  const int len = (NTOT + blocks - 1) / blocks;
+  float* sm = new float[static_cast<size_t>(blocks) * 6 * len];
+  char* stacks = static_cast<char*>(
+      std::malloc(static_cast<size_t>(blocks) * kLaneStack));
+  g_rkc = HostRkcMember{rho_mode, blocks, y0,
+                        tab::NPAR ? params : nullptr, work, sm, s, 0, out};
+  run_lanes(blocks, local ? rkc_grid_block<true> : rkc_grid_block<false>,
+            stacks);
+  std::free(stacks);
+  delete[] sm;
+  return 0;
 }
 
 extern "C" int fused_rkc_host(
@@ -659,7 +774,7 @@ def libs(tmp_path_factory):
         header = _build.fused_esdirk_header(
             FE._esdirk_consts(T.METHODS[meth]), *FE._mass_setup(M, rhs.n),
             rhs.n, rhs.cuda_src)
-        jobs[label] = ("fused_esdirk", header, ESDIRK_LAUNCH)
+        jobs[label] = ("fused_esdirk", header, ESDIRK_LAUNCH, RKC_MARKER)
     for label, rhs in (("vdp", TK.PROBLEMS["vdp"]),
                        ("vdp_template", VDP_TEMPLATE)):
         header = _build.fused_erk_header(FK._fused_consts(TK.BS5), rhs.n,
@@ -708,7 +823,11 @@ def libs(tmp_path_factory):
         return {k: f.result() for k, f in futures.items()}
 
 
-def _esdirk_host(lib, case, **over):
+def _esdirk_host(lib, case, lanes=1, **over):
+    """The host-built ESDIRK kernel on ``case`` at ``lanes`` lanes per
+    member."""
+    if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
+        pytest.skip("the host lane group switches x86-64 stacks")
     prob, meth, span, y0, yp0, M, kw = T.CASES[case]
     kw = dict(kw, **over)
     rtol, atol = kw.pop("rtol"), kw.pop("atol")
@@ -724,13 +843,14 @@ def _esdirk_host(lib, case, **over):
     fn = lib.fused_esdirk_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [vp] * 6 + [ci, cf, cf, cf, cf, cf, ci, ci, cf, ci, cf,
-                              ci, ci, vp]
-    fn(y0.ctypes.data, None if yp is None else yp.ctypes.data,
-       out.ctypes.data, st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb,
-       float(t0), float(tf), rtol, atol,
-       float(np.float32(0.01) * abs(tf - t0)), int(M is None),
-       int(yp is not None), np.inf, max_steps, FE._tiny_err(n, rtol),
-       int(comp), 128, None)
+                              ci, ci, ci, vp]
+    rc = fn(y0.ctypes.data, None if yp is None else yp.ctypes.data,
+            out.ctypes.data, st.ctypes.data, ns.ctypes.data,
+            nf.ctypes.data, nb, float(t0), float(tf), rtol, atol,
+            float(np.float32(0.01) * abs(tf - t0)), int(M is None),
+            int(yp is not None), np.inf, max_steps, FE._tiny_err(n, rtol),
+            int(comp), lanes, 128 // lanes, None)
+    assert rc == 0
     return out, st, ns, nf
 
 
@@ -742,10 +862,31 @@ GATES = [("rob_kv3i", 1e-6, 2, 12), ("rob_kv3i_comp", 1e-8, 2, 26),
          ("kaps_hidden", 2e-6, 1, 8)]
 
 
-@pytest.mark.parametrize("case,y_gate,dsteps,nmembers", GATES)
+# the multi-lane groups each SWAG case also runs under, besides one lane
+ADAMS_LANES = {"vdp": (4, 32), "osc_comp": (4, 32), "bench12": (4, 32)}
+
+
+def _over_lanes(params, lanes=ADAMS_LANES):
+    """Each parameter tuple at one lane (under its old id) and at the
+    case's multi-lane groups (``lanes``: case -> lane counts)."""
+    out = []
+    for p in params:
+        base = "-".join(str(x) for x in p)
+        out.append(pytest.param(*p, 1, id=base))
+        out += [pytest.param(*p, g, id=f"{base}-lanes{g}")
+                for g in lanes.get(p[0], ())]
+    return out
+
+
+# the lane groups each ESDIRK case also runs under, besides one lane
+ESDIRK_LANES = (4, 8)
+
+
+@pytest.mark.parametrize("case,y_gate,dsteps,nmembers,lanes", _over_lanes(
+    GATES, {case: ESDIRK_LANES for case, *_ in GATES}))
 def test_esdirk_kernel_matches_plain_version(libs, case, y_gate, dsteps,
-                                             nmembers):
-    y, st, ns, nf = _esdirk_host(libs[VARIANT_OF[case]], case)
+                                             nmembers, lanes):
+    y, st, ns, nf = _esdirk_host(libs[VARIANT_OF[case]], case, lanes)
     ry, rst, rns, rnf = T._port(case)
     np.testing.assert_array_equal(st, rst)
     assert np.all(st == 1)
@@ -767,6 +908,20 @@ def test_esdirk_kernel_first_attempts_bit_identical(libs, case, attempts):
     np.testing.assert_array_equal(st, rst)
     np.testing.assert_array_equal(ns, rns)
     np.testing.assert_array_equal(nf, rnf)
+
+
+@pytest.mark.parametrize("lanes", ESDIRK_LANES)
+@pytest.mark.parametrize("case", list(VARIANT_OF))
+def test_esdirk_lane_body_bit_identical_to_thread_body(libs, case, lanes):
+    """B2's group body, each member's Jacobian columns spread over 4 and 8
+    lanes (coroutines that hand over at each shuffle) and everything else
+    computed by every lane, gives the thread body's y, status, nsteps and
+    nfev bit for bit over the whole runs (pendulum DAE, Robertson plain
+    and compensated, TRBDF2's filtered error, the hidden-M Kaps
+    problem)."""
+    lib = libs[VARIANT_OF[case]]
+    for a, b in zip(_esdirk_host(lib, case, lanes), _esdirk_host(lib, case)):
+        np.testing.assert_array_equal(a, b)
 
 
 def _erk_host(lib, span, y0, **kw):
@@ -844,22 +999,6 @@ def _adams_plain(case, max_steps=None):
     out = FA.fused_adams_reference(TA.PROBLEMS[prob], span,
                                    torch.tensor(y0), work=work, **kw)
     return tuple(r.numpy() for r in out + (work,))
-
-
-# the multi-lane groups each SWAG case also runs under, besides one lane
-ADAMS_LANES = {"vdp": (4, 32), "osc_comp": (4, 32), "bench12": (4, 32)}
-
-
-def _over_lanes(params):
-    """Each parameter tuple at one lane (under its old id) and at the
-    case's multi-lane groups."""
-    out = []
-    for p in params:
-        base = "-".join(str(x) for x in p)
-        out.append(pytest.param(*p, 1, id=base))
-        out += [pytest.param(*p, g, id=f"{base}-lanes{g}")
-                for g in ADAMS_LANES.get(p[0], ())]
-    return out
 
 
 @pytest.mark.parametrize("case,attempts,lanes", _over_lanes(
@@ -993,6 +1132,61 @@ def test_rkc_cluster_body_matches_plain_version(libs, case, cluster):
     the one-thread body's gates: identical status and counts (the
     overflowing member fails alone), |dy| <= 5e-6."""
     assert _rkc_against_plain(libs, case, cluster) <= 5e-6
+
+
+def _rkc_grid_host(lib, rho_mode, blocks, local, **kw):
+    """B9's body on ``blocks`` host blocks, its arrays in their buffers
+    (``local``) or in the workspace, on member 0 of the RKC inputs."""
+    if platform.machine() not in ("x86_64", "AMD64"):
+        pytest.skip("the host grid switches x86-64 stacks")
+    y0, params = (np.ascontiguousarray(x[:1]) for x in _rkc_inputs())
+    ntot = int(np.prod(y0.shape[1:]))
+    out = np.empty_like(y0)
+    ints = [np.empty(1, np.int32) for _ in range(4)]
+    work = np.empty(FR.N_ARRAYS * ntot, np.float32)
+    fn = lib.fused_rkc_grid_host
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [ci] + [vp] * 8 + [cf] * 8 + [ci] * 5
+    rc = fn(rho_mode, y0.ctypes.data, params.ctypes.data, out.ctypes.data,
+            *[a.ctypes.data for a in ints], work.ctypes.data, 0.0, 1.0, 1.0,
+            1e-4, 1e-7, FR._f32(kw.get("first_step", -1.0)),
+            FR._f32(RHO_8) if rho_mode == 0 else 0.0, np.inf,
+            FR._mmax_for(1e-4, kw.get("m_max"))[0], 100_000,
+            int(kw.get("const_jac", False)), blocks, int(local))
+    assert rc == 0
+    return (out, *ints)
+
+
+@pytest.mark.parametrize("blocks", [3, 4])
+@pytest.mark.parametrize("case", list(RKC_CASES))
+def test_rkc_grid_placements_bit_identical(libs, case, blocks):
+    """B9's grid body on the host: one member on 3 and 4 one-thread blocks
+    (coroutines that hand over at each barrier's arrive), element i to
+    block i mod blocks.  With the elementwise arrays in each block's own
+    buffer (the shared placement: a block's k-th element at slot k) the
+    run is bit-identical to the global placement on the same blocks, since
+    every block owns the same elements and sums them in the same order; and
+    both hold fused_rkc_reference's counts exactly and |dy| <= 5e-6 (the
+    one-thread gate: the blocks' partial sums part the last bits from the
+    plain version's torch.sum)."""
+    mode, kw = RKC_CASES[case]
+    rho = {0: RHO_8, 1: TR.RHO_FN, 2: None}[mode]
+    local = _rkc_grid_host(libs["rkc"], mode, blocks, True, **kw)
+    glob = _rkc_grid_host(libs["rkc"], mode, blocks, False, **kw)
+    for a, b in zip(local, glob):
+        np.testing.assert_array_equal(a, b)
+    y0, params = _rkc_inputs()
+    ref = [r.numpy() for r in FR.fused_rkc_reference(
+        pde.brusselator_2d_grid(RKC_SHAPE, B=None), (0.0, 1.0),
+        torch.tensor(y0[:1]), rho, params=torch.tensor(params[:1]),
+        rtol=1e-4, atol=1e-7, **kw)]
+    y, st, ns, nf, nsig = local
+    assert list(st) == [1] and list(ref[1]) == [1]
+    np.testing.assert_array_equal(ns, ref[2])
+    np.testing.assert_array_equal(nf, ref[3])
+    if mode == 2:
+        np.testing.assert_array_equal(nsig, ref[4])
+    assert np.max(np.abs(y - ref[0])) <= 5e-6
 
 
 def _rkn_host(lib, span, y0, **kw):

@@ -29,6 +29,7 @@ import torch
 from extensisq_tpu_torch import Kv3I, TRBDF2, solve, solve_ensemble
 from extensisq_tpu_torch.ops import (FusedRHS, fused_esdirk_reference,
                                      solve_fused_esdirk)
+from extensisq_tpu_torch.ops import fused_esdirk as FE
 from extensisq_tpu_torch.steppers import build_stepper
 from extensisq_tpu_torch.types import IVPParams
 
@@ -490,7 +491,8 @@ def test_build_key_hashes_shared_headers(monkeypatch, tmp_path):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.shared_headers("fused_esdirk")] == [
-        "dual.cuh", "esdirk_control.cuh", "hstart.cuh", "rk_common.cuh"]
+        "dual.cuh", "esdirk_control.cuh", "hstart.cuh", "rk_common.cuh",
+        "lane_group.cuh"]
     assert [p.name for p in _build.shared_headers("fused_erk")] == [
         "hstart.cuh", "rk_common.cuh", "rk_control.cuh"]
     before = {k: _build.build_key(k, "header") for k in ("fused_erk",
@@ -504,6 +506,21 @@ def test_build_key_hashes_shared_headers(monkeypatch, tmp_path):
     assert _build.build_key("fused_esdirk", "header") != after["fused_esdirk"]
     assert _build.build_key("fused_erk", "header") == after["fused_erk"]
     assert _build.build_key("fused_erk", "other") != after["fused_erk"]
+
+
+@pytest.mark.parametrize("members,lanes", [
+    (128, 32), (512, 32),        # 16,384 threads: one warp an SM partition
+    (1024, 16), (2048, 8),
+    (4096, 4),                   # the bench line
+    (4225, 1), (8192, 1),        # past 128 threads an SM: one thread
+    (262144, 1),
+])
+def test_lanes_per_member_on_132_sms(members, lanes):
+    """B2's lane count on an H100 (132 SMs): the largest of 32, 16, 8 and
+    4 lanes per member that keeps the ensemble within 128 threads an SM,
+    else one thread per member (the pendulum sweep of
+    tools/probe_fused_esdirk.py, PERF.md)."""
+    assert FE._lanes_per_member(members, 132, 5) == lanes
 
 
 # -- on the card -------------------------------------------------------------
@@ -537,6 +554,58 @@ def test_kernel_matches_plain_version_on_card(cuda, name, y_gate):
     torch.cuda.synchronize()
     assert torch.equal(k[1], r[1])
     assert (k[0] - r[0]).abs().max().item() <= y_gate
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CASES))
+def test_lane_body_bit_identical_to_thread_body_on_card(cuda, name):
+    """B2's group body at 4, 8, 16 and 32 lanes per member against its
+    one-thread body on the card: y, status, nsteps and nfev bit for bit
+    (the lanes split only the Jacobian's columns, seeded through the same
+    opaque index, and every per-element operation keeps its order and its
+    FMA contraction); comparison launches, so the launch count stays."""
+    prob, meth, span, y0, yp0, M, kw = CASES[name]
+    y0 = torch.tensor(y0, device=cuda)
+    yp0 = None if yp0 is None else torch.tensor(yp0, device=cuda)
+    kw = dict(kw)
+    args = (PROBLEMS[prob], span, y0, METHODS[meth], M, yp0,
+            kw.pop("rtol"), kw.pop("atol"), None, 100_000,
+            kw.pop("compensated", False), None)
+    assert not kw
+    before = solve_fused_esdirk.launches
+    one, shape = FE._launch(*args, 1)
+    assert shape == (1, 128)
+    for lanes in (4, 8, 16, 32):
+        out, shape = FE._launch(*args, lanes)
+        assert shape == (lanes, 128 // lanes)
+        torch.cuda.synchronize()
+        for a, b in zip(out, one):
+            assert torch.equal(a, b), (lanes, name)
+    assert solve_fused_esdirk.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("members", [128, 2048, 8192])
+def test_wrapper_takes_the_rules_launch_shape(cuda, members):
+    """solve_fused_esdirk launches the rule's lanes per member, 128 / G
+    members a block, and its result equals the thread body's bit for
+    bit (Robertson on a short span)."""
+    y0 = np.tile(np.array([1.0, 0.0, 0.0], np.float32), (members, 1))
+    y0[:, 0] = np.linspace(0.9, 1.1, members)
+    y0 = torch.tensor(y0, device=cuda)
+    kw = dict(rtol=1e-4, atol=1e-8)
+    k = solve_fused_esdirk(PROBLEMS["rob"], (0.0, 0.1), y0, method=Kv3I,
+                           **kw)
+    lanes = FE._lanes_per_member(members, torch.cuda.get_device_properties(
+        cuda).multi_processor_count, 3)
+    assert solve_fused_esdirk.last_shape == (lanes, max(1, 128 // lanes))
+    one, _ = FE._launch(PROBLEMS["rob"], (0.0, 0.1), y0, Kv3I, None, None,
+                        kw["rtol"], kw["atol"], None, 100_000, False, None,
+                        1)
+    torch.cuda.synchronize()
+    assert bool((k[1] == 1).all())
+    for a, b in zip(k, one):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -369,10 +369,35 @@ def test_b9_kernel_matches_plain_version_on_card(cuda, name):
     before = solve_fused_rkc.launches
     k = solve_fused_rkc(BRUS, (0.0, 1.0), y0, _rho(rho), **kw)
     assert solve_fused_rkc.launches == before + 1
+    assert solve_fused_rkc.last_shape[1] == FR.SHARED
     r = fused_rkc_reference(BRUS, (0.0, 1.0), y0[None], _rho(rho), **kw)
     torch.cuda.synchronize()
     assert int(k[1]) == int(r[1][0])
     assert (k[0] - r[0][0]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CASES))
+def test_b9_placements_bit_identical_on_card(cuda, name):
+    """B9 with the elementwise arrays in each block's shared memory (the
+    wrapper's placement here) and in global memory: every thread owns the
+    same elements and sums them in the same order, so the two launches are
+    bit-identical, and both hold the plain version within 1e-4; comparison
+    launches, so the launch count stays."""
+    rho, kw = CASES[name]
+    y0 = torch.tensor(Y0, device=cuda)
+    before = solve_fused_rkc.launches
+    sh, shape = FR._launch_grid(BRUS, (0.0, 1.0), y0, _rho(rho), FR.SHARED,
+                                **kw)
+    gl, gshape = FR._launch_grid(BRUS, (0.0, 1.0), y0, _rho(rho),
+                                 FR.GLOBAL, **kw)
+    assert shape[1] == FR.SHARED and gshape[1] == FR.GLOBAL
+    assert solve_fused_rkc.launches == before
+    r = fused_rkc_reference(BRUS, (0.0, 1.0), y0[None], _rho(rho), **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(sh, gl))
+    assert int(sh[1]) == int(r[1][0])
+    assert (sh[0] - r[0][0]).abs().max().item() <= 1e-4
 
 
 @pytest.mark.gpu

@@ -42,9 +42,10 @@ def launch_signature(src_dir, kernel):
     return sig.group(1)
 
 
-def build(src_dir, kernel, header, tag):
+def build(src_dir, kernel, header, tag, flags=()):
     """nvcc ``src_dir``/<kernel>.cu with ``header`` as its generated
-    <kernel>_config.cuh, under the build directory's probe_<tag>; returns
+    <kernel>_config.cuh and the extra nvcc ``flags`` (e.g. a define of an
+    instrumented build), under the build directory's probe_<tag>; returns
     a dict with the loaded library (no argument types set), the .so path,
     the nvcc seconds and the compiler output."""
     d = _build.BUILD_DIR / f"probe_{tag}"
@@ -54,8 +55,8 @@ def build(src_dir, kernel, header, tag):
     (d / f"{kernel}_config.cuh").write_text(header)
     so = d / "lib.so"
     src_dir = Path(src_dir)
-    cmd = [str(_build._nvcc()), *_build.NVCC_FLAGS, "-I", str(d), "-I",
-           str(src_dir), "-o", str(so), str(src_dir / f"{kernel}.cu")]
+    cmd = [str(_build._nvcc()), *_build.NVCC_FLAGS, *flags, "-I", str(d),
+           "-I", str(src_dir), "-o", str(so), str(src_dir / f"{kernel}.cu")]
     t0 = time.perf_counter()
     p = subprocess.run(cmd, capture_output=True, text=True)
     if p.returncode:

@@ -6,7 +6,12 @@ B10 on config 5d (a rho bound) and 5e (the power iteration)
 (u0 = 1 + 0.3 sin(2 pi x), v0 = 3, B = linspace(2.8, 3.5, M)) on t in
 [0, 4] at rtol 1e-4 / atol 1e-7, at each M of --sizes (default 8, 64 and
 256), and at each grid of --extra (NYxNX:M,M..., 5d only); B9 on config
-5c's 2x256x256 grid on t in [0, 1].  The kernel of --old-src (a directory
+5c's 2x256x256 grid on t in [0, 1], the current kernel in its global and
+(where it fits) its shared placement of the elementwise arrays, with each
+build of --b9-src (label=directory, e.g. a copy of the sources with one
+header of an earlier commit; in its shared placement where it has one)
+beside them; --b9-only skips B10.  The
+kernel of --old-src (a directory
 holding an earlier fused_rkc.cu with the headers it includes; its launch
 signature, with or without the cluster size, is read from the source) and
 the current one are built from the same generated header, the current one
@@ -22,7 +27,8 @@ Prints C, the clusters resident at once and the shared memory of a CTA at
 each C, registers and spills of every build, the cluster barriers, fences
 and L1 invalidations in each kernel's SASS (cuobjdump), whether B9 and
 B10 at C = 1 are bit-identical to the old kernel and whether three
-launches of B10 at the rule's C repeat bit for bit, and us per RHS
+launches of B10 at the rule's C and of B9 in each placement repeat bit
+for bit, and us per RHS
 evaluation of the slowest member.  Writes chiprun_out/<--tag>.json.
 
     git archive <commit> extensisq_tpu_torch/csrc | tar -x -C <dir>
@@ -121,13 +127,15 @@ def variant_src(name, const, value):
 
 
 def sass_barriers(so):
-    """{kernel function: {op: count}} for the ops of SASS_OPS, or a note
-    where cuobjdump is not found."""
+    """{kernel function: {op: count}} for the ops of SASS_OPS, with the
+    function's instruction count as "total", or a note where cuobjdump is
+    not found."""
     ops = sass_ops(so)
     if not isinstance(ops, dict):
         return ops
-    return {fn: {op: n for op, n in c.items()
-                 if op.split(".")[0].startswith(SASS_OPS)}
+    return {fn: {"total": sum(c.values()),
+                 **{op: n for op, n in c.items()
+                    if op.split(".")[0].startswith(SASS_OPS)}}
             for fn, c in ops.items()}
 
 
@@ -142,7 +150,7 @@ class Line:
         self.ntot = int(np.prod(y0.shape[1:] if not grid else y0.shape))
         self.mmax, _ = FR._mmax_for(RTOL, None)
 
-    def launch(self, b, cluster=1, threads=None, blocks=0):
+    def launch(self, b, cluster=1, threads=None, blocks=0, placement=1):
         dev = self.y0.device
         M = self.members
         y = torch.empty_like(self.y0)
@@ -150,11 +158,13 @@ class Line:
                 for _ in range(4)]
         work = torch.empty(M * FR.N_ARRAYS * self.ntot, dtype=torch.float32,
                            device=dev)
-        part = torch.empty(2 * max(blocks, 1), dtype=torch.float32,
+        # B9: the blocks' sums and, in a build with a grid barrier of its
+        # own, the barrier's counter
+        part = torch.empty(2 * max(blocks, 1) + 1, dtype=torch.float32,
                            device=dev)
         if threads is None:
             threads = FR.GRID_THREADS if self.grid else FR.BLOCK_THREADS
-        args = [int(self.grid), self.mode, self.y0.data_ptr(),
+        args = [placement if self.grid else 0, self.mode, self.y0.data_ptr(),
                 None if self.params is None else self.params.data_ptr(),
                 y.data_ptr(), *[x.data_ptr() for x in ints],
                 work.data_ptr(), part.data_ptr(), M, 0.0,
@@ -260,33 +270,89 @@ def b10_sizes(builds, variants, ny, nx, sizes, modes, old_at_rule=False):
             OUT[tag] = res
 
 
-def b9(builds):
+def grid_blocks(b, ntot):
+    """B9's grid for build ``b``: one block of GRID_THREADS per SM, within
+    the resident grid and at most one thread per element."""
+    cap = ctypes.c_int(0)
+    rc = b["lib"].fused_rkc_grid_capacity(0, FR.GRID_THREADS,
+                                          ctypes.byref(cap))
+    if rc:
+        raise RuntimeError(f"B9 capacity: CUDA error {rc}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return min(cap.value, sms, -(-ntot // FR.GRID_THREADS))
+
+
+def shared_fits(b, blocks):
+    """(bytes, fits) of B9's shared placement in build ``b`` on ``blocks``
+    blocks, or None where the build has no shared placement."""
+    lib = b["lib"]
+    if not hasattr(lib, "fused_rkc_grid_smem"):
+        return None
+    I = ctypes.c_int
+    lib.fused_rkc_grid_smem.argtypes = [I, I, I] + [ctypes.POINTER(I)] * 2
+    lib.fused_rkc_grid_smem.restype = I
+    nbytes, fits = I(0), I(0)
+    rc = lib.fused_rkc_grid_smem(0, FR.GRID_THREADS, blocks,
+                                 ctypes.byref(nbytes), ctypes.byref(fits))
+    if rc:
+        raise RuntimeError(f"B9 shared memory query: CUDA error {rc}")
+    return nbytes.value, bool(fits.value)
+
+
+def b9(builds, labels, n_turns):
+    """B9 on 5c's grid: the old build, the current one in its global and
+    (where it fits) its shared placement, and each build of ``labels``
+    (--b9-src) in its global placement, in turns; bit identity with the
+    old build, and three launches of each current placement repeated."""
     line = Line(b9_y0(), None, 1.0, BRUS_RHO, True)
-    blocks = {}
-    for kind in ("old", "new"):
-        b = builds[f"{kind}_b9"]
-        cap = ctypes.c_int(0)
-        rc = b["lib"].fused_rkc_grid_capacity(0, FR.GRID_THREADS,
-                                              ctypes.byref(cap))
-        if rc:
-            raise RuntimeError(f"B9 capacity: CUDA error {rc}")
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        blocks[kind] = min(cap.value, sms, -(-line.ntot // FR.GRID_THREADS))
-    runs = [(k, lambda k=k: line.launch(builds[f"{k}_b9"],
-                                        blocks=blocks[k]))
-            for k in ("old", "new")]
-    times, outs = turns(runs, TURNS)
-    ev = int(outs["new"][3].max()) - 1
-    same = equal(outs["old"], outs["new"])
-    res = {"bit_identical": same, "blocks": blocks}
-    for k in ("old", "new"):
-        med = statistics.median(times[k])
-        print(f"b9 2x{BRUS_N}x{BRUS_N} {k} ({blocks[k]} blocks): "
-              f"{' '.join(f'{x:.3f}' for x in times[k])} ms (median "
-              f"{med:.3f}), {med / ev * 1e3:.3f} us per evaluation ({ev})")
-        res[k] = {"ms": times[k], "median_ms": med}
-    print(f"b9: new bit-identical to old {same}; status "
-          f"{int(outs['new'][1][0])}, nsteps {int(outs['new'][2][0])}")
+    kinds = ["old", "new"] + list(labels)
+    blocks = {k: grid_blocks(builds[f"{k}_b9"], line.ntot) for k in kinds}
+    runs = [(k if k != "new" else "new global",
+             lambda k=k: line.launch(builds[f"{k}_b9"], blocks=blocks[k]))
+            for k in kinds[:2]]
+    for k in labels:
+        # a build of --b9-src in its shared placement where it has one
+        ks = shared_fits(builds[f"{k}_b9"], blocks[k])
+        p = 2 if ks is not None and ks[1] else 1
+        runs.append((f"{k} {'shared' if p == 2 else 'global'}",
+                     lambda k=k, p=p: line.launch(
+                         builds[f"{k}_b9"], blocks=blocks[k], placement=p)))
+    sh = shared_fits(builds["new_b9"], blocks["new"])
+    res = {"blocks": blocks, "shared": sh}
+    for label, fn in list(runs[2:]):
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print(f"b9 {label}: {e}; not timed")
+            res[label] = str(e)
+            runs.remove((label, fn))
+    if sh is not None:
+        print(f"b9: shared placement {sh[0]} B a block, fits {sh[1]}")
+        if sh[1]:
+            runs.insert(2, ("new shared", lambda: line.launch(
+                builds["new_b9"], blocks=blocks["new"], placement=2)))
+    times, outs = turns(runs, n_turns)
+    ev = int(outs["new global"][3].max()) - 1
+    for label, _ in runs:
+        med = statistics.median(times[label])
+        same = equal(outs["old"], outs[label])
+        print(f"b9 2x{BRUS_N}x{BRUS_N} {label}: "
+              f"{' '.join(f'{x:.3f}' for x in times[label])} ms (median "
+              f"{med:.3f}), {med / ev * 1e3:.3f} us per evaluation ({ev}); "
+              f"bit-identical to old {same}")
+        res[label] = {"ms": times[label], "median_ms": med,
+                      "bit_identical": same}
+    for label, fn in runs[1:3]:
+        if label.startswith("new"):
+            first = fn()
+            again = [fn() for _ in range(REPEATS - 1)]
+            torch.cuda.synchronize()
+            same = all(equal(first, r) for r in again)
+            print(f"b9 {label}: {REPEATS} launches repeat bit for bit {same}")
+            res[label]["repeat_bit_identical"] = same
+    print(f"b9: status {int(outs['new global'][1][0])}, nsteps "
+          f"{int(outs['new global'][2][0])}")
     OUT["b9"] = res
 
 
@@ -304,6 +370,12 @@ def main():
     ap.add_argument("--old-at-rule", action="store_true",
                     help="launch an old kernel that has cluster launches at "
                          "the rule's C too (else at C = 1)")
+    ap.add_argument("--b9-src", action="append", default=[],
+                    help="label=directory: another B9 build timed with the "
+                         "old and the current one")
+    ap.add_argument("--b9-only", action="store_true",
+                    help="time B9 alone (no B10 lines)")
+    ap.add_argument("--b9-turns", type=int, default=TURNS)
     ap.add_argument("--tag", default="probe_rkc", help="output file name")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -311,9 +383,10 @@ def main():
         return 1
     smi = card()
     OUT["card"] = smi
-    grids = [(ENS_NY, ENS_NX, [int(x) for x in args.sizes.split(",")],
-              ("5d", "5e"))]
-    for item in filter(None, args.extra.split(";")):
+    grids = [] if args.b9_only else [
+        (ENS_NY, ENS_NX, [int(x) for x in args.sizes.split(",")],
+         ("5d", "5e"))]
+    for item in filter(None, [] if args.b9_only else args.extra.split(";")):
         shape, ms = item.split(":")
         ny, nx = (int(x) for x in shape.split("x"))
         grids.append((ny, nx, [int(x) for x in ms.split(",")], ("5d",)))
@@ -337,6 +410,9 @@ def main():
     h_b9 = _build.fused_rkc_header(brus.shape, 0, brus.cuda_src)
     jobs["old_b9"] = (old_src, h_b9)
     jobs["new_b9"] = (_build.CSRC, h_b9)
+    extra = dict(item.split("=", 1) for item in args.b9_src)
+    for label, d in extra.items():
+        jobs[f"{label}_b9"] = (Path(d).resolve(), h_b9)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {k: pool.submit(build_rkc, *v, k) for k, v in jobs.items()}
@@ -360,7 +436,7 @@ def main():
     for ny, nx, sizes, modes in grids:
         b10_sizes(builds, vt if has_cluster(_build.CSRC) else [], ny, nx,
                   sizes, modes, args.old_at_rule)
-    b9(builds)
+    b9(builds, list(extra), args.b9_turns)
     write_out(args.tag, OUT)
     print(smi)
     return 0
