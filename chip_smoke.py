@@ -951,6 +951,59 @@ def shape_text(wrapper, nb):
             f"blocks of {bm * lanes} threads)")
 
 
+def grid_shape_text(shape, nb):
+    """A mid-size kernel's launch shape ``(threads, warp members)`` for
+    ``nb`` members (B7, B6)."""
+    threads, warp = shape
+    if warp:
+        return (f"one warp per member, {warp} members per block "
+                f"({-(-nb // warp)} blocks of {32 * warp} threads)")
+    return f"one block of {threads} threads per member ({nb} blocks)"
+
+
+def grid_launch(kind, rhs, span, y0, kw, shape):
+    """B7 or B6 forced to ``shape`` (a comparison launch, not counted):
+    (y, status, nsteps, nfev)."""
+    from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
+    from extensisq_tpu_torch.ops import fused_rkn_grid as FNG
+    kw = dict(kw)
+    method = kw.pop("method", None)
+    if kind == "fused_esdirk_grid":
+        return FEG._launch(FEG._kernel(method, rhs), span, y0, method=method,
+                           shape=shape, **kw)[0]
+    return FNG._launch(FNG._kernel(method, rhs), span, y0, rhs.n,
+                       shape=shape, **kw)[0]
+
+
+def hold_grid_shapes(kind, label, rhs, span, y0, kw, k, shape, r, gates):
+    """B7 or B6 on a check whose wrapper run ``k`` took the rule's
+    ``shape``: that run bit for bit against the kernel forced to one block
+    of 32 threads per member (where the rule takes another block size, the
+    warp body is held so instead), and the block of ``grid_threads(n)``
+    threads per member still held against the plain version's run ``r`` at
+    the check's gates."""
+    from extensisq_tpu_torch import ops
+    nb = y0.shape[0]
+    n = rhs.n if kind == "fused_rkn_grid" else y0.shape[1]
+    b32 = grid_launch(kind, rhs, span, y0, kw, (32, 0))
+    held, what = k, "the rule's shape"
+    if shape[0] != 32:
+        warp = (32, ops.fused_erk_grid.WARP_MEMBERS)
+        held = grid_launch(kind, rhs, span, y0, kw, warp)
+        what = grid_shape_text(warp, nb)
+    same = all(torch.equal(a, b) for a, b in zip(held, b32))
+    print(f"{kind} [{label}, {nb}]: the rule takes "
+          f"{grid_shape_text(shape, nb)}; {what} bit-identical to one block "
+          f"of 32 threads per member: {same}")
+    check(same, f"{label}: {what} and the block of 32 threads differ")
+    full = (ops.fused_erk_grid.grid_threads(n), 0)
+    if full != (32, 0):
+        hold_against_plain(
+            kind, f"{label}, one block of {full[0]} threads per member",
+            lambda: grid_launch(kind, rhs, span, y0, kw, full), lambda: r,
+            *gates)
+
+
 # -- the RKC path --------------------------------------------------------------
 # validation/benchmarks.py:511-668 (config 5): 5a/5c on one 2x256x256
 # Brusselator grid, 5d/5e on 64 members of 2x64x128 with B per member
@@ -1638,10 +1691,16 @@ def rkn_grid_path():
 
     def compare(kind, label, rhs, span, y0, method, **kw):
         run, plain = kinds[kind]
-        return hold_against_plain(
+        res = hold_against_plain(
             kind, label, lambda: run(rhs, span, y0, method=method, **kw),
             lambda: plain(rhs, span, y0, method=method, **kw),
             *RKN_KERNEL_GATES[label])
+        if kind == "fused_rkn_grid":
+            hold_grid_shapes(kind, label, rhs, span, y0,
+                             dict(kw, method=method), res[0],
+                             ops.solve_fused_rkn_grid.last_shape, res[1],
+                             RKN_KERNEL_GATES[label])
+        return res
 
     # (a) each kernel against its plain version: 1024 Kepler members, 8
     # members of n = 128 and n = 100, one overflowing member each
@@ -1717,6 +1776,7 @@ def rkn_grid_path():
     wav_comp = ops.solve_fused_rkn_grid(R["wave"], WAVE_SPAN, W32,
                                         method=Fi5N, **WAVE_COMP_TOL)
     torch.cuda.synchronize()
+    wave_shape = ops.solve_fused_rkn_grid.last_shape
     launches = tuple(fn.launches for fn in counted)
     print(f"second-order and mid-size paths: fused_erk_grid, fused_rkn, "
           f"fused_rkn_grid launches {launches}, others "
@@ -1812,10 +1872,14 @@ def rkn_grid_path():
              WAVE_TOL, wav),
             ("fused_rkn_grid", "wave_comp", R["wave"], WAVE_SPAN, W32, Fi5N,
              WAVE_COMP_TOL, wav_comp)):
-        _, _, err, r_s = hold_against_plain(
+        _, r, err, r_s = hold_against_plain(
             kind, f"{label}, the path", lambda o=out: o,
             lambda: kinds[kind][1](rhs, span, y0, method=meth, **tol),
             *RKN_KERNEL_GATES[label])
+        if kind == "fused_rkn_grid":
+            hold_grid_shapes(kind, f"{label}, the path", rhs, span, y0,
+                             dict(tol, method=meth), out, wave_shape, r,
+                             RKN_KERNEL_GATES[label])
         errs[kind] = max(errs.get(kind, 0.0), err)
         plain_ms.setdefault(kind, r_s * 1e3)
 
@@ -1866,9 +1930,11 @@ def rkn_grid_path():
     out = run_wav(WAVE_TOL, w_large)()
     check(bool((out[1] == 1).all()), "wave1024: not all finished")
     ms = event_ms(run_wav(WAVE_TOL, w_large))
-    print(f"fused_rkn_grid kernel wave1024 ({WAVE_M_LARGE} blocks of "
-          f"{ops.fused_erk_grid.grid_threads(WAVE_N)}): {ms:.3f} ms, "
+    shape = grid_shape_text(ops.solve_fused_rkn_grid.last_shape,
+                            WAVE_M_LARGE)
+    print(f"fused_rkn_grid kernel wave1024 ({shape}): {ms:.3f} ms, "
           f"{int(out[2].sum()) / ms * 1e3:.4g} accepted steps/s")
+    print(f"wave256x64 B6 ran at {grid_shape_text(wave_shape, WAVE_M)}")
 
     def entry(name, source, replaces, launches, key, bytes_moved, ops_):
         return dict({"name": name, "route": "cuda", "source": source,
@@ -2506,9 +2572,14 @@ def mid_path():
 
     def compare(kind, label, rhs, span, y0, **kw):
         run, plain = kinds[kind]
-        return hold_against_plain(
+        res = hold_against_plain(
             kind, label, lambda: run(rhs, span, y0, **kw),
             lambda: plain(rhs, span, y0, **kw), *MID_KERNEL_GATES[label])
+        if kind == "fused_esdirk_grid":
+            hold_grid_shapes(kind, label, rhs, span, y0, kw, res[0],
+                             ops.solve_fused_esdirk_grid.last_shape, res[1],
+                             MID_KERNEL_GATES[label])
+        return res
 
     # (a) each kernel against its plain version on small checks, with an
     # overflowing member each
@@ -2563,7 +2634,7 @@ def mid_path():
              ops.solve_fused_adams_grid, ops.solve_fused_esdirk_grid)
     H32 = heat_y0(HEAT_M, HEAT_N)
     RD32 = rdiff_y0(RD_M, RD_N)
-    launches, outs = {}, {}
+    launches, outs, shapes = {}, {}, {}
     for label, run in (
             ("fused_adams_grid", lambda: ops.solve_fused_adams_grid(
                 R["heat"], HEAT_SPAN, H32, **HEAT_TOL)),
@@ -2573,6 +2644,8 @@ def mid_path():
             fn.launches = 0
         outs[label] = run()
         torch.cuda.synchronize()
+        shapes[label] = getattr(getattr(ops, "solve_" + label),
+                                "last_shape", None)
         counts = {fn.__name__: fn.launches for fn in every if fn.launches}
         print(f"mid-size path [{label}]: launches {counts}")
         launches[label] = getattr(ops, "solve_" + label).launches
@@ -2654,10 +2727,13 @@ def mid_path():
              HEAT_TOL, heat),
             ("fused_esdirk_grid", "rd4d", R["rdiff"], RD_SPAN, RD32, RD_TOL,
              rd)):
-        _, _, errs[kind], r_s = hold_against_plain(
+        _, r, errs[kind], r_s = hold_against_plain(
             kind, f"{label}, the path", lambda o=out: o,
             lambda: kinds[kind][1](rhs, span, y0, **tol),
             *MID_KERNEL_GATES[label])
+        if kind == "fused_esdirk_grid":
+            hold_grid_shapes(kind, f"{label}, the path", rhs, span, y0, tol,
+                             out, shapes[kind], r, MID_KERNEL_GATES[label])
         plain_ms[kind] = r_s * 1e3
 
     # (e) times: warm medians; the timing-only lines fill the card
@@ -2691,6 +2767,8 @@ def mid_path():
         print(f"time [{label}]: {ms:.3f} ms wall, {dev:.4f} ms device (CUDA "
               f"events), {int(out[2].sum()) / ms * 1e3:.4g} accepted "
               f"steps/s, {int(out[3].sum()) / ms * 1e3:.4g} RHS evals/s")
+    print(f"rdiff128x32 B7 ran at "
+          f"{grid_shape_text(shapes['fused_esdirk_grid'], RD_M)}")
     alone, att = heat_alone(H32, heat)
     print(f"time [heat256x32 B8, launch alone]: {alone:.4f} ms device "
           f"(the window above also holds the float32 init), "
@@ -2706,7 +2784,10 @@ def mid_path():
         out = run(y_large)()
         check(bool((out[1] == 1).all()), f"{label}: not all finished")
         ms = event_ms(run(y_large))
-        print(f"time [{label}] ({GRID_LARGE} blocks): {ms:.3f} ms device, "
+        shape = (grid_shape_text(ops.solve_fused_esdirk_grid.last_shape,
+                                 GRID_LARGE) if run is run_rd
+                 else f"{GRID_LARGE} blocks")
+        print(f"time [{label}] ({shape}): {ms:.3f} ms device, "
               f"{int(out[2].sum()) / ms * 1e3:.4g} accepted steps/s")
         if run is run_heat:
             ms1024, att1024 = heat_alone(y_large, out)

@@ -1,6 +1,7 @@
 // One thread block as the group of threads that works on one ensemble member
 // (the block-per-member kernels fused_rkc.cu, fused_rk_grid.cu,
-// fused_adams_grid.cu and fused_esdirk_grid.cu).
+// fused_adams_grid.cu and fused_esdirk_grid.cu), or one warp (WarpGroup,
+// the warp-per-member bodies of fused_rk_grid.cu and fused_esdirk_grid.cu).
 //
 // A group reduction gives every thread the same value, in an order fixed by
 // the launch shape: a warp butterfly, then the warps' results from shared
@@ -20,9 +21,10 @@
 
 namespace {
 
+// The butterfly over a warp's 32 lanes: each lane ends with the same value
+// (each addition or minimum meets the same two operands in every lane).
 template <bool MIN, int K>
-__device__ __forceinline__ void block_reduce(float (&v)[K], float* red,
-                                             int slots, int& turn) {
+__device__ __forceinline__ void warp_reduce(float (&v)[K]) {
 #pragma unroll
   for (int j = 0; j < K; ++j) {
 #pragma unroll
@@ -31,6 +33,12 @@ __device__ __forceinline__ void block_reduce(float (&v)[K], float* red,
       v[j] = MIN ? rk::nan_min(v[j], w) : v[j] + w;
     }
   }
+}
+
+template <bool MIN, int K>
+__device__ __forceinline__ void block_reduce(float (&v)[K], float* red,
+                                             int slots, int& turn) {
+  warp_reduce<MIN>(v);
   float* buf = red + 32 * slots * turn;
   turn ^= 1;
   if ((threadIdx.x & 31) == 0) {
@@ -60,6 +68,7 @@ __device__ __forceinline__ float block_sum(float v, float* red, int& turn) {
 // holds 2 x SLOTS x 32 floats.
 template <int SLOTS>
 struct BlockGroupOf {
+  static constexpr int kStride = 0;  // the block size is a launch argument
   float* red;
   int turn = 0;
   __device__ int rank() const { return threadIdx.x; }
@@ -82,5 +91,32 @@ struct BlockGroupOf {
   }
 };
 using BlockGroup = BlockGroupOf<1>;
+
+// One warp as a member's group: lane l owns the elements l, l + 32, ...;
+// sync() is __syncwarp() and a reduction is the butterfly alone, so no
+// shared memory or block barrier is touched, and several members may share
+// a block, one a warp.  Its reductions equal BlockGroup's in a block of 32
+// threads bit for bit (that one reads lane 0's butterfly back from shared
+// memory).
+struct WarpGroup {
+  static constexpr int kStride = 32;
+  __device__ int rank() const { return static_cast<int>(threadIdx.x & 31u); }
+  __device__ int size() const { return 32; }
+  __device__ void sync() const { __syncwarp(); }
+  template <int K>
+  __device__ void sums(float (&v)[K]) const {
+    warp_reduce<false>(v);
+  }
+  __device__ float sum(float v) const {
+    float a[1] = {v};
+    warp_reduce<false>(a);
+    return a[0];
+  }
+  __device__ float min(float v) const {
+    float a[1] = {v};
+    warp_reduce<true>(a);
+    return a[0];
+  }
+};
 
 }  // namespace

@@ -1,7 +1,7 @@
 // Fused adaptive ESDIRK ensemble solver for mid-size stiff systems and
 // index-1 DAEs on Hopper (sm_90a): tridiagonal Newton matrices solved by
 // parallel cyclic reduction, the whole implicit integration of each member
-// in one launch, one thread block per member.
+// in one launch, one thread block or one warp per member.
 //
 // Replaces extensisq_tpu/ops/fused_esdirk_grid.py:solve_fused_esdirk_grid
 // (B7), the Pallas kernel (its body `kernel`, with `jac_bands`, `newton` and
@@ -12,36 +12,47 @@
 //
 // Design.  A member's y (and its lo carry), yp, the stage rows K[S][N] (and
 // the increments Z[S][N] of the compensated mode), the stage's psi and z,
-// the point where f is evaluated, one row of dual numbers, the Newton
+// the point where f is evaluated, four rows of dual numbers, the Newton
 // matrix's three bands (two sets, used in turn by the reduction), the
 // reduction's multipliers alpha[L][N] and gamma[L][N] with L = ceil(log2 N)
 // and its final diagonal, and two right-hand-side rows live in shared
-// memory: (17 + 2 S + 2 L) N floats plus the mass row, 44 KB for Kv3I at
-// N = 256.  Element i belongs to the thread of rank i mod (block size),
-// which does every per-element operation on it; the per-member scalars
-// (t, h, the Newton rate, the controller of esdirk_control.cuh) are
-// computed by every thread from identical inputs, so every thread takes the
-// same branches.  Per attempt:
-//  * the bands of J at (t, y): four passes of rhs<Dual> over the block,
-//    element j seeded with the tangent (j % 4 == c); the tangent at i gives
-//    J[i, i-1], J[i, i] or J[i, i+1] where (i + 3) % 4, i % 4 or
-//    (i + 1) % 4 equals c (the exact JVP of jax.linearize, not counted in
-//    nfev), and W = M - h d J (algebraic rows -J) from them;
+// memory: (25 + 2 S + 2 L) N floats plus the mass row, 24 KB for Kv3I at
+// N = 128.  One body, integrate<COMP, Group>, runs on two groups
+// (block_group.cuh): a block of 32-256 threads per member (BlockGroupOf<2>)
+// or one warp per member (WarpGroup: __syncwarp and shuffle butterflies,
+// no block barrier, P members a block, each warp on its own rows).
+// Element i belongs to the thread of rank i mod (group size), which does
+// every per-element operation on it; a warp's lane holds N / 32 elements
+// and computes the values of all of them before it stores any
+// (rk::for_elements_put), so that their chains overlap.  The warp body is
+// the block body at 32 threads bit for bit.  The per-member scalars (t, h,
+// the Newton rate, the controller of esdirk_control.cuh) are computed by
+// every thread from identical inputs, so every thread takes the same
+// branches.  Per attempt:
+//  * the bands of J at (t, y): four rows of rhs<Dual>, element j of row c
+//    seeded with the tangent (j % 4 == c), all four seeded before one
+//    barrier; the tangent at i gives J[i, i-1], J[i, i] or J[i, i+1] where
+//    (i + 3) % 4, i % 4 or (i + 1) % 4 equals c (the exact JVP of
+//    jax.linearize, not counted in nfev), summed in column order, and
+//    W = M - h d J (algebraic rows -J) from them;
 //  * the cyclic reduction's multipliers, once: L rounds, one barrier each;
 //  * each stage by modified Newton: per iteration one RHS evaluation (a
 //    barrier before it), the reduction replayed on the right-hand side (L
-//    rounds, a barrier each), and two group sums (the update's norm and its
-//    count of non-finite values);
-//  * the solution, the filtered or plain error (one more replay) and its
-//    norm, and B2's implicit controller.
+//    rounds, a barrier each), and one group reduction of two sums (the
+//    update's norm and its count of non-finite values);
+//  * the solution, the filtered or plain error (one more replay), its norm
+//    and non-finite count in one reduction, and B2's implicit controller.
 //
 // What bounds it on the H100: per Newton iteration an element costs one RHS
 // (a stencil of a few flops on shared memory) and 4 flops per reduction
-// round, and the iteration costs L + 3 barriers; with one element per
-// thread at N = 128-256 that is barrier latency, not the card's flop or
-// byte rate, and members run in parallel on the SMs (32 members use 32 of
-// 132).
-//
+// round, and the iteration costs L + 2 barriers or reductions; at N =
+// 128-256 that is latency, not the card's flop or byte rate.  A block
+// spends it at the barriers (one element a thread); a warp at its lanes'
+// chains (4 elements a lane at N = 128, two IEEE divisions an element in
+// each round of the factor), with no barrier to wait at; the wrapper's rule
+// (ops/fused_esdirk_grid.py:_launch_shape) takes the faster of the two by
+// the ensemble's size, from a measured sweep.
+
 // The generated header fused_esdirk_grid_config.cuh provides
 //   namespace tab { G = grid::Grid<N>, N, L, S, MORDER, NEWTON_MAXITER,
 //                   FILTER_ERROR, D, INV_D, KAPPA, controller and start
@@ -85,10 +96,11 @@ constexpr int kTooSmall = 2;
 constexpr int kOverflow = 3;
 constexpr int kMaxThreads = 256;
 
-// Shared-memory layout of a member, in floats; the dual row comes first, so
-// that it is aligned for its 8-byte elements.
-constexpr int kDual = 0;                 // one row of Dual, 2 N
-constexpr int kY = kDual + 2 * N;        // state
+// Shared-memory layout of a member, in floats; the dual rows come first, so
+// that they are aligned for their 8-byte elements (a member's size is even,
+// so that the members of a warp-per-member block stay aligned too).
+constexpr int kDual = 0;                 // four rows of Dual, 8 N
+constexpr int kY = kDual + 8 * N;        // state
 constexpr int kYlo = kY + N;             // its lo carry
 constexpr int kYp = kYlo + N;            // f at the state
 constexpr int kMass = kYp + N;           // mass diagonal
@@ -104,7 +116,7 @@ constexpr int kBand = kRhs + 2 * N;      // two sets of bands a, b, c
 constexpr int kAlpha = kBand + 6 * N;    // alpha[L][N]
 constexpr int kGamma = kAlpha + L * N;   // gamma[L][N]
 constexpr int kDen = kGamma + L * N;     // the final diagonal
-constexpr int kFloats = kDen + N;
+constexpr int kFloats = (kDen + N + 1) & ~1;
 
 struct Launch {  // the launch's scalars, the same for every member
   float t0, tf, rtol, atol, h0;
@@ -143,6 +155,56 @@ __device__ __forceinline__ float finite_or_one(float x, float& bad) {
   return 1.0f;
 }
 
+// Section clocks of one member, in the probe's build only
+// (tools/probe_fused_esdirk_grid.py compiles with
+// FUSED_ESDIRK_GRID_SECTIONS): the SM cycles rank 0 spends in each part of
+// the attempts, summed over them, and the attempts.  A thread waiting at a
+// barrier counts the wait in the part that ends with it.  The shipped
+// build's Clock is empty and compiles to nothing.
+enum Section {
+  kBands,       // the dual passes and the bands of W
+  kFactor,      // the reduction's multipliers
+  kNewtonRhs,   // the Newton point and its RHS
+  kReplay,      // the multipliers replayed on a Newton right-hand side
+  kNewtonTest,  // the update's norm, the convergence tests, z += dz
+  kStage,       // the stage predictors and K, Z
+  kError,       // y_new, the error estimate, its filter solve and norm
+  kControl,     // the step-size limits, the controller, t and status
+  kSections
+};
+// a member's row of the probe's counters: the sections' cycles, the barrier
+// phases (syncs and reductions) and the attempts
+constexpr int kPhases = kSections;
+constexpr int kAttempts = kSections + 1;
+constexpr int kSectionSlots = kSections + 2;
+#ifdef FUSED_ESDIRK_GRID_SECTIONS
+__device__ unsigned* g_sections;  // [member][kSectionSlots]
+struct Clock {
+  unsigned acc[kSections];
+  unsigned last;
+  __device__ Clock() : last(static_cast<unsigned>(clock())) {
+#pragma unroll
+    for (int k = 0; k < kSections; ++k) acc[k] = 0u;
+  }
+  __device__ void mark(int section) {
+    const unsigned now = static_cast<unsigned>(clock());
+    acc[section] += now - last;
+    last = now;
+  }
+  __device__ void write(int member, int attempts) const {
+    unsigned* row = g_sections + static_cast<size_t>(member) * kSectionSlots;
+#pragma unroll
+    for (int k = 0; k < kSections; ++k) row[k] = acc[k];
+    row[kAttempts] = static_cast<unsigned>(attempts);
+  }
+};
+#else
+struct Clock {
+  __device__ void mark(int) {}
+  __device__ void write(int, int) const {}
+};
+#endif
+
 // The element derivative as the block start calls it.
 struct Deriv {
   __device__ float operator()(float t, const float* Y, int j) const {
@@ -151,37 +213,149 @@ struct Deriv {
 };
 
 // W = M - h d J at (tc, y) into the first set of bands (a = lower, b =
-// diagonal, c = upper): four dual passes with striped tangents.
+// diagonal, c = upper): four dual rows with striped tangents, seeded at
+// once, so that one barrier serves the four passes; each band entry sums
+// the passes in column order.
+struct Tri {  // an element's entries of three bands
+  float a, b, c;
+};
 template <class Group>
 __device__ void newton_matrix(Group& g, const Rows& m, float tc, float hd) {
-  const int r0 = g.rank();
-  const int nt = g.size();
-  float* a = m.band;
-  float* b = m.band + N;
-  float* c = m.band + 2 * N;
-  for (int i = r0; i < N; i += nt) a[i] = b[i] = c[i] = 0.0f;
-#pragma unroll 1
-  for (int col = 0; col < 4; ++col) {
-    for (int j = r0; j < N; j += nt) {
+  rk::for_elements<N>(g, [&](int j) {
+    const float yj = m.y[j];
+#pragma unroll
+    for (int col = 0; col < 4; ++col) {
       const float seed = (j % 4 == col) ? 1.0f : 0.0f;
-      m.dual[j] = Dual(m.y[j], seed + m.y[j] * 0.0f);
+      m.dual[col * N + j] = Dual(yj, seed + yj * 0.0f);
     }
-    g.sync();
-    for (int i = r0; i < N; i += nt) {
-      const float jv = rhs(Dual(tc), m.dual, i, nullptr).d;
-      a[i] = a[i] + ((i + 3) % 4 == col ? 1.0f : 0.0f) * jv;
-      b[i] = b[i] + (i % 4 == col ? 1.0f : 0.0f) * jv;
-      c[i] = c[i] + ((i + 1) % 4 == col ? 1.0f : 0.0f) * jv;
-    }
-    g.sync();  // the dual row is rewritten by the next pass
-  }
-  for (int i = r0; i < N; i += nt) {
-    const float mi = m.mass[i];
-    const bool alg = mi == 0.0f;
-    a[i] = alg ? -a[i] : -hd * a[i];
-    b[i] = alg ? -b[i] : mi - hd * b[i];
-    c[i] = alg ? -c[i] : -hd * c[i];
-  }
+  });
+  g.sync();  // the dual rows complete before the RHS reads neighbours
+  rk::for_elements_put<N>(
+      g,
+      [&](int i) {
+        float a = 0.0f, b = 0.0f, c = 0.0f;
+#pragma unroll
+        for (int col = 0; col < 4; ++col) {
+          const float jv = rhs(Dual(tc), m.dual + col * N, i, nullptr).d;
+          a = a + ((i + 3) % 4 == col ? 1.0f : 0.0f) * jv;
+          b = b + (i % 4 == col ? 1.0f : 0.0f) * jv;
+          c = c + ((i + 1) % 4 == col ? 1.0f : 0.0f) * jv;
+        }
+        const float mi = m.mass[i];
+        const bool alg = mi == 0.0f;
+        return Tri{alg ? -a : -hd * a, alg ? -b : mi - hd * b,
+                   alg ? -c : -hd * c};
+      },
+      [&](int i, const Tri& w) {
+        m.band[i] = w.a;
+        m.band[N + i] = w.b;
+        m.band[2 * N + i] = w.c;
+      });
+}
+
+// The per-element loops of the reduction and of a Newton iteration, each
+// reading rows other than those it writes (__restrict__): a warp's lane
+// computes the values of all its elements (4 at N = 128) before it stores
+// them (rk::for_elements_put), so that their chains overlap.  The
+// arithmetic is the parent's, expression for expression.
+
+// One round of the multipliers: bands (a, b, c) of the round into its
+// multipliers and the next round's bands (da, db, dc).
+struct FactorRow {
+  float alpha, gamma, a, b, c;
+};
+template <class Group>
+__device__ __forceinline__ void factor_round(
+    const Group& g, const float* __restrict__ a, const float* __restrict__ b,
+    const float* __restrict__ c, float* __restrict__ alpha_l,
+    float* __restrict__ gamma_l, float* __restrict__ da,
+    float* __restrict__ db, float* __restrict__ dc, int s) {
+  rk::for_elements_put<N>(
+      g,
+      [&](int i) {
+        const int im = (i - s + N) % N;
+        const int ip = (i + s) % N;
+        const float bm = b[im] == 0.0f ? 1.0f : b[im];
+        const float bp = b[ip] == 0.0f ? 1.0f : b[ip];
+        const float alpha = -a[i] / bm;
+        const float gamma = -c[i] / bp;
+        return FactorRow{alpha, gamma, alpha * a[im],
+                         b[i] + alpha * c[im] + gamma * a[ip],
+                         gamma * c[ip]};
+      },
+      [&](int i, const FactorRow& f) {
+        alpha_l[i] = f.alpha;
+        gamma_l[i] = f.gamma;
+        da[i] = f.a;
+        db[i] = f.b;
+        dc[i] = f.c;
+      });
+}
+
+// One round of the replay: src into dst with the round's multipliers.
+template <class Group>
+__device__ __forceinline__ void replay_round(
+    const Group& g, const float* __restrict__ src, float* __restrict__ dst,
+    const float* __restrict__ alpha_l, const float* __restrict__ gamma_l,
+    int s) {
+  rk::for_elements_put<N>(
+      g,
+      [&](int i) {
+        return src[i] + alpha_l[i] * src[(i - s + N) % N] +
+               gamma_l[i] * src[(i + s) % N];
+      },
+      [&](int i, float x) { dst[i] = x; });
+}
+
+// The Newton point psi + d z into pred.
+template <class Group>
+__device__ __forceinline__ void newton_point(const Group& g,
+                                             const float* __restrict__ psi,
+                                             const float* __restrict__ z,
+                                             float* __restrict__ pred) {
+  rk::for_elements_put<N>(
+      g, [&](int i) { return psi[i] + tab::D * z[i]; },
+      [&](int i, float x) { pred[i] = x; });
+}
+
+// The Newton right-hand side at the point pred into out, non-finite RHS
+// values counted in nbad.
+template <class Group>
+__device__ __forceinline__ void newton_rhs(
+    const Group& g, float t_stage, float h, const float* __restrict__ pred,
+    const float* __restrict__ mass, const float* __restrict__ z,
+    float* __restrict__ out, float& nbad) {
+  rk::for_elements_put<N>(
+      g,
+      [&](int i) {
+        const float fi = finite_or_one(rhs(t_stage, pred, i, nullptr), nbad);
+        const float mi = mass[i];
+        return mi == 0.0f ? fi * tab::INV_D : h * fi - mi * z[i];
+      },
+      [&](int i, float x) { out[i] = x; });
+}
+
+// The update dz scrubbed (non-finite values counted in nbad) and the sum of
+// its squares scaled by atol + rtol max(|y|, |pred|), in element order.
+template <class Group>
+__device__ __forceinline__ float newton_sq(const Group& g,
+                                           float* __restrict__ dz,
+                                           const float* __restrict__ y,
+                                           const float* __restrict__ pred,
+                                           const Launch& Lc, float& nbad) {
+  float sq = 0.0f;
+  rk::for_elements_put<N>(
+      g,
+      [&](int i) {
+        const float d = finite_or_one(dz[i], nbad);
+        const float scale =
+            Lc.atol + Lc.rtol * fmaxf(fabsf(y[i]), fabsf(pred[i]));
+        const float q = d / scale;
+        sq = sq + q * q;
+        return d;
+      },
+      [&](int i, float d) { dz[i] = d; });
+  return sq;
 }
 
 // The cyclic reduction's multipliers of the bands in m.band: round l
@@ -189,39 +363,23 @@ __device__ void newton_matrix(Group& g, const Rows& m, float tc, float hd) {
 // round go to the other set.
 template <class Group>
 __device__ void pcr_factor(Group& g, const Rows& m) {
-  const int r0 = g.rank();
-  const int nt = g.size();
   float* src = m.band;
   float* dst = m.band + 3 * N;
   int s = 1;
 #pragma unroll 1
   for (int l = 0; l < L; ++l) {
     g.sync();  // the bands of this round are complete
-    const float* a = src;
-    const float* b = src + N;
-    const float* c = src + 2 * N;
-    for (int i = r0; i < N; i += nt) {
-      const int im = (i - s + N) % N;
-      const int ip = (i + s) % N;
-      const float bm = b[im] == 0.0f ? 1.0f : b[im];
-      const float bp = b[ip] == 0.0f ? 1.0f : b[ip];
-      const float alpha = -a[i] / bm;
-      const float gamma = -c[i] / bp;
-      m.alpha[l * N + i] = alpha;
-      m.gamma[l * N + i] = gamma;
-      dst[i] = alpha * a[im];
-      dst[2 * N + i] = gamma * c[ip];
-      dst[N + i] = b[i] + alpha * c[im] + gamma * a[ip];
-    }
+    factor_round(g, src, src + N, src + 2 * N, m.alpha + l * N,
+                 m.gamma + l * N, dst, dst + N, dst + 2 * N, s);
     float* t = src;
     src = dst;
     dst = t;
     s *= 2;
   }
-  for (int i = r0; i < N; i += nt) {
+  rk::for_elements<N>(g, [&](int i) {
     const float den = src[i] + src[N + i] + src[2 * N + i];
     m.den[i] = den == 0.0f ? 1.0f : den;
-  }
+  });
 }
 
 // W x = d for the right-hand side in m.rhs (own elements written by the
@@ -230,24 +388,19 @@ __device__ void pcr_factor(Group& g, const Rows& m) {
 // holds x (own elements final).
 template <class Group>
 __device__ float* pcr_solve(Group& g, const Rows& m) {
-  const int r0 = g.rank();
-  const int nt = g.size();
   float* src = m.rhs;
   float* dst = m.rhs + N;
   int s = 1;
 #pragma unroll 1
   for (int l = 0; l < L; ++l) {
     g.sync();
-    for (int i = r0; i < N; i += nt) {
-      dst[i] = src[i] + m.alpha[l * N + i] * src[(i - s + N) % N] +
-               m.gamma[l * N + i] * src[(i + s) % N];
-    }
+    replay_round(g, src, dst, m.alpha + l * N, m.gamma + l * N, s);
     float* t = src;
     src = dst;
     dst = t;
     s *= 2;
   }
-  for (int i = r0; i < N; i += nt) src[i] = src[i] / m.den[i];
+  rk::for_elements<N>(g, [&](int i) { src[i] = src[i] / m.den[i]; });
   return src;
 }
 
@@ -257,44 +410,34 @@ __device__ float* pcr_solve(Group& g, const Rows& m) {
 template <class Group>
 __device__ bool newton(Group& g, const Rows& m, float t_stage, float h,
                        const Launch& Lc, float& rate_out, int& nfev,
-                       bool& bad_any) {
-  const int r0 = g.rank();
-  const int nt = g.size();
+                       bool& bad_any, Clock& clk) {
   esdirk::Newton nw;
   bool conv = false;
   nfev = 0;
   bad_any = false;
 #pragma unroll 1
   for (int it = 0; it < tab::NEWTON_MAXITER; ++it) {
-    for (int i = r0; i < N; i += nt) m.pred[i] = m.psi[i] + tab::D * m.z[i];
+    newton_point(g, m.psi, m.z, m.pred);
     g.sync();  // the point complete before the RHS reads neighbours
     float nbad = 0.0f;
-    for (int i = r0; i < N; i += nt) {
-      const float fi = finite_or_one(rhs(t_stage, m.pred, i, nullptr), nbad);
-      const float mi = m.mass[i];
-      m.rhs[i] = mi == 0.0f ? fi * tab::INV_D : h * fi - mi * m.z[i];
-    }
+    newton_rhs(g, t_stage, h, m.pred, m.mass, m.z, m.rhs, nbad);
     nfev += 1;
+    clk.mark(kNewtonRhs);
     float* dz = pcr_solve(g, m);
-    float sq = 0.0f;
-    for (int i = r0; i < N; i += nt) {
-      dz[i] = finite_or_one(dz[i], nbad);
-      const float scale =
-          Lc.atol + Lc.rtol * fmaxf(fabsf(m.y[i]), fabsf(m.pred[i]));
-      const float q = dz[i] / scale;
-      sq = sq + q * q;
-    }
-    float dz_norm = sqrtf(g.sum(sq) / static_cast<float>(N));
-    if (!isfinite(dz_norm)) {
-      dz_norm = 1.0f;
-      nbad += 1.0f;
-    }
-    const bool bad = g.sum(nbad) != 0.0f;
+    clk.mark(kReplay);
+    const float sq = newton_sq(g, dz, m.y, m.pred, Lc, nbad);
+    // the norm and the count of non-finite values in one reduction
+    float v[2] = {sq, nbad};
+    g.sums(v);
+    float dz_norm = sqrtf(v[0] / static_cast<float>(N));
+    const bool bad = v[1] != 0.0f || !isfinite(dz_norm);
+    if (!isfinite(dz_norm)) dz_norm = 1.0f;
     const bool stop = nw.test(it, dz_norm, Lc.tiny_err, bad, conv);
     if (!bad) {
-      for (int i = r0; i < N; i += nt) m.z[i] = m.z[i] + dz[i];
+      rk::for_elements<N>(g, [&](int i) { m.z[i] = m.z[i] + dz[i]; });
     }
     bad_any = bad_any || bad;
+    clk.mark(kNewtonTest);
     if (stop) break;
   }
   rate_out = fmaxf(nw.rate, 0.0f);
@@ -311,11 +454,10 @@ struct StageSum {
 // Stages I..S-1 of one attempt; K[0] (and Z[0]) hold the first stage.
 template <bool COMP, int I, class Group>
 __device__ __forceinline__ void stages(Group& g, const Rows& m, StageSum& st,
-                                       float tc, float h, const Launch& Lc) {
+                                       float tc, float h, const Launch& Lc,
+                                       Clock& clk) {
   if constexpr (I < S) {
-    const int r0 = g.rank();
-    const int nt = g.size();
-    for (int i = r0; i < N; i += nt) {
+    rk::for_elements<N>(g, [&](int i) {
       if constexpr (COMP) {
         float acc, cmp;
         rk::col_comp_wsum<RowA<I>, I, N>(m.Z, i, acc, cmp);
@@ -324,21 +466,23 @@ __device__ __forceinline__ void stages(Group& g, const Rows& m, StageSum& st,
         m.psi[i] = m.y[i] + h * rk::col_wsum<RowA<I>, I, N>(m.K, i);
       }
       m.z[i] = h * rk::col_wsum<RowAz<I>, I, N>(m.K, i);
-    }
+    });
+    clk.mark(kStage);
     constexpr float c = tab::C(I);
     float rate;
     int nf;
     bool bad;
-    const bool conv = newton(g, m, tc + c * h, h, Lc, rate, nf, bad);
+    const bool conv = newton(g, m, tc + c * h, h, Lc, rate, nf, bad, clk);
     st.conv = st.conv && conv && !bad;
     st.Rate = fmaxf(st.Rate, rate);
     st.nfev += nf;
     const float inv_h = 1.0f / h;
-    for (int i = r0; i < N; i += nt) {
+    rk::for_elements<N>(g, [&](int i) {
       m.K[I * N + i] = m.z[i] * inv_h;
       if constexpr (COMP) m.Z[I * N + i] = m.z[i];
-    }
-    stages<COMP, I + 1>(g, m, st, tc, h, Lc);
+    });
+    clk.mark(kStage);
+    stages<COMP, I + 1>(g, m, st, tc, h, Lc, clk);
   }
 }
 
@@ -349,26 +493,24 @@ __device__ float start(Group& g, const Rows& m, const float* __restrict__ y0,
                        const float* __restrict__ yp0,
                        const float* __restrict__ mass, float dir,
                        const Launch& Lc) {
-  const int r0 = g.rank();
-  const int nt = g.size();
-  for (int i = r0; i < N; i += nt) {
+  rk::for_elements<N>(g, [&](int i) {
     m.y[i] = y0[i];
     m.ylo[i] = 0.0f;
     m.mass[i] = mass ? mass[i] : 1.0f;
-  }
+  });
   if (Lc.have_yp0) {
-    for (int i = r0; i < N; i += nt) m.yp[i] = yp0[i];
+    rk::for_elements<N>(g, [&](int i) { m.yp[i] = yp0[i]; });
   } else {
     g.sync();  // y complete before the RHS reads neighbours
-    for (int i = r0; i < N; i += nt) {
+    rk::for_elements<N>(g, [&](int i) {
       const float f = rhs(Lc.t0, m.y, i, nullptr);
       m.yp[i] = mass ? f / m.mass[i] : f;
-    }
+    });
   }
   if (!Lc.use_hstart) return Lc.h0;
   // plain ODEs only; the six scratch rows are the two sets of bands, the
   // first holding f(t0, y); max_step is +inf when the caller gave none
-  for (int i = r0; i < N; i += nt) m.band[i] = m.yp[i];
+  rk::for_elements<N>(g, [&](int i) { m.band[i] = m.yp[i]; });
   g.sync();  // y complete (when yp0 was given) before the start reads it
   const float bq = Lc.t0 + dir * fminf(fabsf(Lc.tf - Lc.t0), Lc.max_step);
   return fabsf(rk::block_hstart<N, tab::MORDER>(g, Deriv{}, Lc.t0, bq, m.y,
@@ -383,8 +525,6 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
                           const float* __restrict__ yp0,
                           const float* __restrict__ mass, const Launch& Lc,
                           int member, const Out& out) {
-  const int r0 = g.rank();
-  const int nt = g.size();
   const Rows m = rows(sm);
   const float span = Lc.tf - Lc.t0;
   const float dir = span > 0.0f ? 1.0f : (span < 0.0f ? -1.0f : 0.0f);
@@ -395,6 +535,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   int nstep = 0;
   int nfev = Lc.have_yp0 ? 0 : 1;
   int it = 0;
+  Clock clk;
 
   while (status == kRunning) {
     // step-size limits and the landing on tf, every attempt
@@ -403,23 +544,26 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
     const float ha = ctl.ha;
     const float h = ha * dir;
     const float hd = h * tab::D;
+    clk.mark(kControl);
 
     // the Newton matrix and its reduction, once per attempt
     newton_matrix(g, m, tc, hd);
+    clk.mark(kBands);
     pcr_factor(g, m);
+    clk.mark(kFactor);
 
     // stages (stage 0 explicit: K0 = yp; h K_j == z_j)
-    for (int i = r0; i < N; i += nt) {
+    rk::for_elements<N>(g, [&](int i) {
       m.K[i] = m.yp[i];
       if constexpr (COMP) m.Z[i] = h * m.yp[i];
-    }
+    });
     StageSum st{0.0f, 0, !ctl.too_small};
-    stages<COMP, 1>(g, m, st, tc, h, Lc);
+    stages<COMP, 1>(g, m, st, tc, h, Lc, clk);
 
     // solution and error estimate; stiffly accurate: y_new = psi + d z of
     // the last stage
     float nbad = 0.0f;
-    for (int i = r0; i < N; i += nt) {
+    rk::for_elements<N>(g, [&](int i) {
       float yn, yln, err;
       if constexpr (COMP) {
         float inc_s, inc_c, hi, lo1, e_s, e_c;
@@ -436,31 +580,31 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
       m.ynew[i] = finite_or_one(yn, nbad);
       m.ylonew[i] = yln;
       m.rhs[i] = err;
-    }
+    });
     float* err = m.rhs;
     if constexpr (tab::FILTER_ERROR) {
       const float inv_hd = 1.0f / hd;
-      for (int i = r0; i < N; i += nt) {
+      rk::for_elements<N>(g, [&](int i) {
         if (m.mass[i] == 0.0f) m.rhs[i] = m.rhs[i] * inv_hd;
-      }
+      });
       err = pcr_solve(g, m);
-      for (int i = r0; i < N; i += nt) err[i] = m.mass[i] * err[i];
+      rk::for_elements<N>(g, [&](int i) { err[i] = m.mass[i] * err[i]; });
     }
     float sq = 0.0f;
-    for (int i = r0; i < N; i += nt) {
+    rk::for_elements<N>(g, [&](int i) {
       const float scale =
           Lc.atol + Lc.rtol * fmaxf(fabsf(m.y[i]), fabsf(m.ynew[i]));
       const float q = err[i] / scale;
       sq = sq + q * q;
-    }
-    float err_norm = sqrtf(g.sum(sq) / static_cast<float>(N));
-    if (!isfinite(err_norm)) {
-      err_norm = 1.0f;
-      nbad += 1.0f;
-    }
-    const bool bad_m = g.sum(nbad) != 0.0f;
+    });
+    float v[2] = {sq, nbad};
+    g.sums(v);
+    float err_norm = sqrtf(v[0] / static_cast<float>(N));
+    const bool bad_m = v[1] != 0.0f || !isfinite(err_norm);
+    if (!isfinite(err_norm)) err_norm = 1.0f;
     if (bad_m) err_norm = err_norm + 10.0f;
     const bool accepted = st.conv && err_norm < 1.0f && !bad_m;
+    clk.mark(kError);
 
     // implicit controller and the rate-based reduction after a convergence
     // failure (esdirk_control.cuh)
@@ -478,26 +622,28 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
 
     if (accepted) {
       float unused = 0.0f;
-      for (int i = r0; i < N; i += nt) {
+      rk::for_elements<N>(g, [&](int i) {
         m.y[i] = m.ynew[i];
         m.ylo[i] = m.ylonew[i];
         m.yp[i] = finite_or_one(m.K[(S - 1) * N + i], unused);
-      }
+      });
       t = is_last ? Lc.tf : t_adv;
       t_lo = is_last ? 0.0f : t_lo_adv;
       nstep += 1;
     }
     nfev += st.nfev;
+    clk.mark(kControl);
   }
 
   g.sync();
-  for (int i = r0; i < N; i += nt) {
+  rk::for_elements<N>(g, [&](int i) {
     out.y[static_cast<size_t>(member) * N + i] = m.y[i];
-  }
-  if (r0 == 0) {
+  });
+  if (g.rank() == 0) {
     out.status[member] = status;
     out.nsteps[member] = nstep;
     out.nfev[member] = nfev;
+    clk.write(member, it);
   }
 }
 
@@ -508,6 +654,49 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
 
 namespace {
 
+#ifdef FUSED_ESDIRK_GRID_SECTIONS
+// The probe's group: the kernel's, counting its barrier phases.
+template <class Group>
+struct Counted : Group {
+  unsigned phases = 0;
+  __device__ void sync() {
+    ++phases;
+    Group::sync();
+  }
+  template <int K>
+  __device__ void sums(float (&v)[K]) {
+    ++phases;
+    Group::sums(v);
+  }
+  __device__ float sum(float v) {
+    ++phases;
+    return Group::sum(v);
+  }
+  __device__ float min(float v) {
+    ++phases;
+    return Group::min(v);
+  }
+};
+template <class Group>
+__device__ Counted<Group> group(Group g) {
+  return Counted<Group>{g};
+}
+template <class Group>
+__device__ void write_phases(const Counted<Group>& g, int member) {
+  if (g.rank() == 0) {
+    g_sections[static_cast<size_t>(member) * kSectionSlots + kPhases] =
+        g.phases;
+  }
+}
+#else
+template <class Group>
+__device__ Group group(Group g) {
+  return g;
+}
+template <class Group>
+__device__ void write_phases(const Group&, int) {}
+#endif
+
 template <bool COMP>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_esdirk_grid_kernel(const float* __restrict__ y0,
@@ -515,15 +704,59 @@ __global__ void __launch_bounds__(kMaxThreads)
                              const float* __restrict__ mass, Launch Lc,
                              Out out) {
   extern __shared__ float sm[];
-  __shared__ float red[64];
-  BlockGroup g{red};
+  __shared__ float red[2 * 2 * 32];
+  auto g = group(BlockGroupOf<2>{red});
   const int member = blockIdx.x;
   const size_t off = static_cast<size_t>(member) * N;
   integrate<COMP>(g, sm, y0 + off, yp0 ? yp0 + off : nullptr, mass, Lc,
                   member, out);
+  write_phases(g, member);
+}
+
+// One warp per member, blockDim.x / 32 members a block, each warp on its own
+// kFloats of the dynamic shared memory; a warp past the ensemble returns at
+// once (no block barrier waits for it).
+template <bool COMP>
+__global__ void __launch_bounds__(kMaxThreads)
+    fused_esdirk_grid_warp_kernel(const float* __restrict__ y0,
+                                  const float* __restrict__ yp0,
+                                  const float* __restrict__ mass, Launch Lc,
+                                  Out out, int members) {
+  extern __shared__ float sm[];
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int member = static_cast<int>(blockIdx.x * (blockDim.x >> 5)) + warp;
+  if (member >= members) return;
+  auto g = group(WarpGroup{});
+  const size_t off = static_cast<size_t>(member) * N;
+  integrate<COMP>(g, sm + warp * kFloats, y0 + off,
+                  yp0 ? yp0 + off : nullptr, mass, Lc, member, out);
+  write_phases(g, member);
+}
+
+using Kernel = void (*)(const float*, const float*, const float*, Launch,
+                        Out);
+using WarpKernel = void (*)(const float*, const float*, const float*, Launch,
+                            Out, int);
+
+// Allows `bytes` of dynamic shared memory where it is above 48 KB.
+template <class K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
+
+#ifdef FUSED_ESDIRK_GRID_SECTIONS
+// The probe build's counters: kSectionSlots unsigned values per member are
+// written to `sections` by the launches that follow.
+extern "C" int fused_esdirk_grid_sections(void* sections) {
+  unsigned* ptr = static_cast<unsigned*>(sections);
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_sections, &ptr, sizeof(ptr)));
+}
+#endif
 
 // The shared memory one member needs and the most a block may have on this
 // card, in bytes; returns the CUDA error code.
@@ -535,33 +768,47 @@ extern "C" int fused_esdirk_grid_smem(int* need, int* limit) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches one block of `threads` (a multiple of 32, at most kMaxThreads)
-// per member on the caller's stream, with the member's rows as dynamic
-// shared memory (above 48 KB after cudaFuncSetAttribute), and returns the
-// CUDA error code; the wrapper raises on anything but 0.  yp0 may be null
-// when have_yp0 is 0, mass null for ODEs.
+// Launches the members on the caller's stream and returns the CUDA error
+// code; the wrapper raises on anything but 0.  warp_members = 0: one block
+// of `threads` (a multiple of 32, at most kMaxThreads) per member;
+// warp_members = P >= 1: one warp per member, P members a block of 32 P
+// threads (threads must be 32, P at most kMaxThreads / 32; another shape is
+// cudaErrorInvalidValue).  The members' rows are dynamic shared memory
+// (above 48 KB after cudaFuncSetAttribute).  yp0 may be null when have_yp0
+// is 0, mass null for ODEs.
 extern "C" int fused_esdirk_grid_launch(
     const void* y0, const void* yp0, const void* mass, void* y_out,
     void* status, void* nstep, void* nfev, int members, float t0, float tf,
     float rtol, float atol, float h0, int use_hstart, int have_yp0,
     float max_step, int max_steps, float tiny_err, int compensated,
-    int threads, void* stream) {
+    int threads, int warp_members, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Launch Lc{t0,         tf,        rtol,     atol,      h0,
                   use_hstart, have_yp0,  max_step, max_steps, tiny_err};
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
-  const int bytes = static_cast<int>(kFloats * sizeof(float));
-  void (*kernel)(const float*, const float*, const float*, Launch, Out) =
-      compensated ? fused_esdirk_grid_kernel<true>
-                  : fused_esdirk_grid_kernel<false>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const float* y0f = static_cast<const float*>(y0);
+  const float* yp0f = static_cast<const float*>(yp0);
+  const float* massf = static_cast<const float*>(mass);
+  const int member_bytes = static_cast<int>(kFloats * sizeof(float));
+  if (warp_members > 0) {
+    if (threads != 32 || warp_members > kMaxThreads / 32) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int bytes = warp_members * member_bytes;
+    WarpKernel kernel = compensated ? fused_esdirk_grid_warp_kernel<true>
+                                    : fused_esdirk_grid_warp_kernel<false>;
+    const cudaError_t e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
+    const int blocks = (members + warp_members - 1) / warp_members;
+    kernel<<<blocks, 32 * warp_members, bytes, st>>>(y0f, yp0f, massf, Lc,
+                                                     out, members);
+    return static_cast<int>(cudaGetLastError());
   }
-  kernel<<<members, threads, bytes, st>>>(
-      static_cast<const float*>(y0), static_cast<const float*>(yp0),
-      static_cast<const float*>(mass), Lc, out);
+  Kernel kernel = compensated ? fused_esdirk_grid_kernel<true>
+                              : fused_esdirk_grid_kernel<false>;
+  const cudaError_t e = allow_smem(kernel, member_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<members, threads, member_bytes, st>>>(y0f, yp0f, massf, Lc, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 // Fused adaptive explicit Runge-Kutta, Runge-Kutta-Nystrom and CKdisc
-// ensembles of mid-size systems for Hopper (sm_90a): one thread block per
-// member.
+// ensembles of mid-size systems for Hopper (sm_90a): one thread block or
+// one warp per member.
 //
 // Replaces the three Pallas kernels of the JAX package's mid-size layout,
 // which run the loops of the small-system kernels with the state across
@@ -22,8 +22,17 @@
 // K[0..S] (K[0] = f), two stage-argument buffers and the attempt's lo carry
 // live in shared memory: NF + (S + 1) N + 4 NF floats, with N the length of
 // a stage row and NF = N (ERK) or 2N (RKN); Fi5N at N = 256 takes 17 KB.
-// Element i belongs to the thread of rank i mod (block size), which computes
-// its stage sums from its own entries of K.  A stage writes its argument,
+// The bodies run on two groups (block_group.cuh): a block of 32-256
+// threads per member (BlockGroup), or one warp per member (WarpGroup:
+// __syncwarp and shuffle butterflies, no block barrier, P members a block,
+// each warp on its own rows; the block body at 32 threads bit for bit),
+// which the RKN wrapper's rule takes for large ensembles
+// (ops/fused_rkn_grid.py:_launch_shape); B4 and B12 launch blocks.
+// Element i belongs to the thread of rank i mod (group size), which
+// computes its stage sums from its own entries of K; a warp's lane holds
+// N / 32 elements and computes the values of all of them before it stores
+// any (rk::for_elements_put), so that their chains overlap.  A stage
+// writes its argument,
 // takes one barrier, and then reads neighbours through the user's RHS; the
 // two argument buffers are used in turn, so one barrier per stage suffices.
 // Every per-member scalar (h, accept, status, counters, the controller) is
@@ -51,7 +60,9 @@
 // barriers is tens of cycles, so an attempt is bound by barrier and
 // reduction latency, not by the card's flop or byte rate, and members run
 // in parallel on the SMs: 64 members use 64 of the 132 SMs, 1024 members
-// keep several blocks on every SM.
+// keep several blocks on every SM, whose barriers then contend; a warp per
+// member has no barrier to wait at but runs its lane's elements on one
+// instruction stream.
 //
 // The generated header fused_rk_grid_config.cuh provides
 //   namespace tab { G = grid::Grid<...>, N, RKN, CK, S, FSAL, MORDER, the
@@ -162,6 +173,62 @@ struct Deriv {
   }
 };
 
+// The per-element loops of a stage and of the solution, each reading rows
+// other than those it writes (__restrict__): a warp's lane computes the
+// values of all its elements (8 positions at N = 256) before it stores
+// them (rk::for_elements_put), so that their chains overlap.  The
+// arithmetic is the parent's, expression for expression.
+
+// An element's two entries: u and v of RKN (ERK uses u); and of a
+// solution, with their lo carries.
+struct Pair {
+  float u, v;
+};
+struct Sol {
+  Pair y, lo;
+};
+
+// Stage I's argument Y + h sum_j A_Ij K_j (RKN: positions and velocities)
+// into a.
+template <bool COMP, int I, class Group>
+__device__ __forceinline__ void stage_arg(const Group& g, float h, float hh,
+                                          float ch,
+                                          const float* __restrict__ Y,
+                                          const float* __restrict__ Ylo,
+                                          const float* __restrict__ K,
+                                          float* __restrict__ a) {
+  rk::for_elements_put<N>(
+      g,
+      [&](int i) {
+        if constexpr (RKN) {
+          float du = hh * wsum<RowA<I>, I>(K, i) + ch * Y[N + i];
+          float dv = h * wsum<RowAp<I>, I>(K, i);
+          if constexpr (COMP) {
+            du = du + Ylo[i];
+            dv = dv + Ylo[N + i];
+          }
+          return Pair{Y[i] + du, Y[N + i] + dv};
+        } else {
+          const float dy = h * wsum<RowA<I>, I>(K, i);
+          return Pair{COMP ? Y[i] + (dy + Ylo[i]) : Y[i] + dy, 0.0f};
+        }
+      },
+      [&](int i, const Pair& x) {
+        a[i] = x.u;
+        if constexpr (RKN) a[N + i] = x.v;
+      });
+}
+
+// The stage row at (t, Y) into out.
+template <class Group>
+__device__ __forceinline__ void stage_row(const Group& g, float t,
+                                          const float* __restrict__ Y,
+                                          float* __restrict__ out) {
+  rk::for_elements_put<N>(
+      g, [&](int i) { return stage_f(t, Y, i); },
+      [&](int i, float x) { out[i] = x; });
+}
+
 // Stages I..END-1 of one attempt of the group: stage I writes its argument
 // into arg[b], takes the barrier and evaluates K[I]; b then flips.
 template <bool COMP, int I, int END, class Group>
@@ -170,31 +237,64 @@ __device__ __forceinline__ void stages(Group& g, float t, float h, float hh,
                                        float* K, float* const (&arg)[2],
                                        int& b) {
   if constexpr (I < END) {
-    const int r = g.rank();
-    const int nt = g.size();
     float* a = arg[b];
     constexpr float c = tab::C(I);
     const float ch = c * h;
-    for (int i = r; i < N; i += nt) {
-      if constexpr (RKN) {
-        float du = hh * wsum<RowA<I>, I>(K, i) + ch * Y[N + i];
-        float dv = h * wsum<RowAp<I>, I>(K, i);
-        if constexpr (COMP) {
-          du = du + Ylo[i];
-          dv = dv + Ylo[N + i];
-        }
-        a[i] = Y[i] + du;
-        a[N + i] = Y[N + i] + dv;
-      } else {
-        const float dy = h * wsum<RowA<I>, I>(K, i);
-        a[i] = COMP ? Y[i] + (dy + Ylo[i]) : Y[i] + dy;
-      }
-    }
+    stage_arg<COMP, I>(g, h, hh, ch, Y, Ylo, K, a);
     g.sync();
-    for (int i = r; i < N; i += nt) K[I * N + i] = stage_f(t + ch, a, i);
+    stage_row(g, t + ch, a, K + I * N);
     b ^= 1;
     stages<COMP, I + 1, END>(g, t, h, hh, Y, Ylo, K, arg, b);
   }
+}
+
+// The attempt's solution into Yn (and its lo carry into YloNew); element i
+// carries u[i] and v[i] for RKN.
+template <bool COMP, class Group>
+__device__ __forceinline__ void solution(const Group& g, float h, float hh,
+                                         const float* __restrict__ Y,
+                                         const float* __restrict__ Ylo,
+                                         const float* __restrict__ K,
+                                         float* __restrict__ Yn,
+                                         float* __restrict__ YloNew) {
+  rk::for_elements_put<N>(
+      g,
+      [&](int i) {
+        Pair y{0.0f, 0.0f}, lo{0.0f, 0.0f};
+        if constexpr (RKN) {
+          if constexpr (COMP) {
+            float bs, bc, ps, pc, hi, l1, l2;
+            comp_wsum<RowB, S>(K, i, bs, bc);
+            comp_wsum<RowBp, S>(K, i, ps, pc);
+            rk::df_add(Y[i], Ylo[i], __fmul_rn(h, Y[N + i]), hi, l1);
+            rk::two_sum(hi, __fadd_rn(l1, __fmul_rn(hh, bs)), hi, l2);
+            rk::two_sum(hi, __fadd_rn(l2, __fmul_rn(hh, bc)), y.u, lo.u);
+            rk::df_add(Y[N + i], Ylo[N + i], __fmul_rn(h, ps), hi, l1);
+            rk::two_sum(hi, __fadd_rn(l1, __fmul_rn(h, pc)), y.v, lo.v);
+          } else {
+            y.u = Y[i] + h * Y[N + i] + hh * wsum<RowB, S>(K, i);
+            y.v = Y[N + i] + h * wsum<RowBp, S>(K, i);
+          }
+        } else {
+          if constexpr (COMP) {
+            float bs, bc, hi, lo1;
+            comp_wsum<RowB, S>(K, i, bs, bc);
+            rk::df_add(Y[i], Ylo[i], __fmul_rn(h, bs), hi, lo1);
+            rk::two_sum(hi, __fadd_rn(lo1, __fmul_rn(h, bc)), y.u, lo.u);
+          } else {
+            y.u = Y[i] + h * wsum<RowB, S>(K, i);
+          }
+        }
+        return Sol{y, lo};
+      },
+      [&](int i, const Sol& x) {
+        Yn[i] = x.y.u;
+        if constexpr (RKN) Yn[N + i] = x.y.v;
+        if constexpr (COMP) {
+          YloNew[i] = x.lo.u;
+          if constexpr (RKN) YloNew[N + i] = x.lo.v;
+        }
+      });
 }
 
 // A member's start: its state Y from y0, K[0] = f(t0, Y) and the first |h|
@@ -203,18 +303,16 @@ template <class Group>
 __device__ float start(Group& g, float* Y, float* K,
                        const float* __restrict__ y0, const Launch& L,
                        int& nfev) {
-  const int r = g.rank();
-  const int nt = g.size();
-  for (int j = r; j < NF; j += nt) Y[j] = y0[j];
+  rk::for_elements<NF>(g, [&](int j) { Y[j] = y0[j]; });
   g.sync();
-  for (int i = r; i < N; i += nt) K[i] = stage_f(L.t0, Y, i);
+  rk::for_elements<N>(g, [&](int i) { K[i] = stage_f(L.t0, Y, i); });
   nfev = 1;
   if (!L.use_hstart) return L.h0;
   float* w = K + N;
   g.sync();  // K[0] complete
-  for (int j = r; j < NF; j += nt) {
+  rk::for_elements<NF>(g, [&](int j) {
     w[j] = RKN ? (j < N ? Y[N + j] : K[j - N]) : K[j];
-  }
+  });
   // max_step is +inf when the caller gave none
   const float bq = L.t0 + L.dir * fminf(fabsf(L.tf - L.t0), L.max_step);
   nfev = 2 + (NF + 1 < 3 ? NF + 1 : 3);
@@ -228,8 +326,6 @@ __device__ float start(Group& g, float* Y, float* K,
 template <bool COMP, class Group>
 __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
                           const Launch& L, int member, const Out& out) {
-  const int r = g.rank();
-  const int nt = g.size();
   float* Y = sm + kY;
   float* K = sm + kK;
   float* Ylo = sm + kYlo;
@@ -239,7 +335,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   int nfev;
   rk::StepControl ctl{start(g, Y, K, y0, L, nfev)};
   float t = L.t0;
-  for (int j = r; j < NF; j += nt) Ylo[j] = 0.0f;
+  rk::for_elements<NF>(g, [&](int j) { Ylo[j] = 0.0f; });
 
   float t_lo = 0.0f;
   int status = kRunning;
@@ -260,43 +356,15 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
 
     // the solution into arg[b]; element i carries u[i] and v[i] for RKN
     float* Yn = arg[b];
-    for (int i = r; i < N; i += nt) {
-      if constexpr (RKN) {
-        if constexpr (COMP) {
-          float bs, bc, ps, pc, hi, l1, l2;
-          comp_wsum<RowB, S>(K, i, bs, bc);
-          comp_wsum<RowBp, S>(K, i, ps, pc);
-          rk::df_add(Y[i], Ylo[i], __fmul_rn(h, Y[N + i]), hi, l1);
-          rk::two_sum(hi, __fadd_rn(l1, __fmul_rn(hh, bs)), hi, l2);
-          rk::two_sum(hi, __fadd_rn(l2, __fmul_rn(hh, bc)), Yn[i],
-                      YloNew[i]);
-          rk::df_add(Y[N + i], Ylo[N + i], __fmul_rn(h, ps), hi, l1);
-          rk::two_sum(hi, __fadd_rn(l1, __fmul_rn(h, pc)), Yn[N + i],
-                      YloNew[N + i]);
-        } else {
-          Yn[i] = Y[i] + h * Y[N + i] + hh * wsum<RowB, S>(K, i);
-          Yn[N + i] = Y[N + i] + h * wsum<RowBp, S>(K, i);
-        }
-      } else {
-        if constexpr (COMP) {
-          float bs, bc, hi, lo1;
-          comp_wsum<RowB, S>(K, i, bs, bc);
-          rk::df_add(Y[i], Ylo[i], __fmul_rn(h, bs), hi, lo1);
-          rk::two_sum(hi, __fadd_rn(lo1, __fmul_rn(h, bc)), Yn[i],
-                      YloNew[i]);
-        } else {
-          Yn[i] = Y[i] + h * wsum<RowB, S>(K, i);
-        }
-      }
-    }
+    solution<COMP>(g, h, hh, Y, Ylo, K, Yn, YloNew);
     if constexpr (tab::FSAL) {
       g.sync();
-      for (int i = r; i < N; i += nt) K[S * N + i] = stage_f(t + h, Yn, i);
+      stage_row(g, t + h, Yn, K + S * N);
     }
 
     // the error norm over NF; a non-finite element adds +inf
     float sq = 0.0f;
-    for (int i = r; i < N; i += nt) {
+    rk::for_elements<N>(g, [&](int i) {
       float e0, e1 = 0.0f;
       if constexpr (COMP) {
         float s, c;
@@ -321,7 +389,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
         part = part + q * q;
       }
       sq += finite ? part : INFINITY;
-    }
+    });
     const float err_norm = sqrtf(g.sum(sq) / static_cast<float>(NF));
     // overflow: NaN/Inf anywhere ends this member with status 3
     const bool bad = !isfinite(err_norm);
@@ -351,7 +419,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
     nfev += tab::FSAL ? S : S - 1;
     if (accepted) {
       // each thread commits the elements it computed
-      for (int i = r; i < N; i += nt) {
+      rk::for_elements<N>(g, [&](int i) {
         Y[i] = Yn[i];
         if constexpr (RKN) Y[N + i] = Yn[N + i];
         if constexpr (COMP) {
@@ -360,7 +428,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
         }
         // a non-FSAL pair evaluates the endpoint of accepted steps only
         K[i] = tab::FSAL ? K[S * N + i] : stage_f(t_new, Yn, i);
-      }
+      });
       if constexpr (!tab::FSAL) nfev += 1;
       t = t_new;
       t_lo = t_lo_new;
@@ -374,10 +442,10 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   }
 
   g.sync();
-  for (int j = r; j < NF; j += nt) {
+  rk::for_elements<NF>(g, [&](int j) {
     out.y[static_cast<size_t>(member) * NF + j] = Y[j];
-  }
-  if (r == 0) {
+  });
+  if (g.rank() == 0) {
     out.status[member] = status;
     out.nsteps[member] = nstep;
     out.nfev[member] = nfev;
@@ -392,13 +460,13 @@ template <class WB, class WE, int LEN, class Group>
 __device__ float assess(Group& g, const float* Y, const float* K, float h,
                         const Launch& L, float* sol) {
   float sq = 0.0f;
-  for (int i = g.rank(); i < N; i += g.size()) {
+  rk::for_elements<N>(g, [&](int i) {
     sol[i] = Y[i] + h * wsum<WB, LEN>(K, i);
     const float err = h * wsum<WE, LEN>(K, i);
     const float q =
         err / (L.atol + L.rtol * fmaxf(fabsf(Y[i]), fabsf(sol[i])));
     sq += q * q;
-  }
+  });
   return sqrtf(g.sum(sq) / static_cast<float>(N));
 }
 
@@ -408,8 +476,6 @@ __device__ float assess(Group& g, const float* Y, const float* K, float h,
 template <class Group>
 __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
                              const Launch& L, int member, const Out& out) {
-  const int r = g.rank();
-  const int nt = g.size();
   float* Y = sm + kY;
   float* K = sm + kK;
   float* const arg[2] = {sm + kArg, sm + kArg + NF};
@@ -491,13 +557,13 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
       // endpoint derivative goes into K[0]; one reduction counts the
       // elements of the member that are not finite
       float bad = 0.0f;
-      for (int i = r; i < N; i += nt) {
+      rk::for_elements<N>(g, [&](int i) {
         K[i] = stage_f(t_new, Ysol, i);
         bad += (isfinite(Ysol[i]) && isfinite(K[i])) ? 0.0f : 1.0f;
-      }
+      });
       nfev += 1;
       if (g.sum(bad) == 0.0f) {
-        for (int i = r; i < N; i += nt) Y[i] = Ysol[i];
+        rk::for_elements<N>(g, [&](int i) { Y[i] = Ysol[i]; });
         t = t_new;
         nstep += 1;
       } else {
@@ -512,10 +578,10 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
   }
 
   g.sync();
-  for (int j = r; j < N; j += nt) {
+  rk::for_elements<N>(g, [&](int j) {
     out.y[static_cast<size_t>(member) * N + j] = Y[j];
-  }
-  if (r == 0) {
+  });
+  if (g.rank() == 0) {
     out.status[member] = status;
     out.nsteps[member] = nstep;
     out.nfev[member] = nfev;
@@ -529,19 +595,49 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
 
 namespace {
 
-template <bool COMP>
-__global__ void __launch_bounds__(kMaxThreads)
-    fused_rk_grid_kernel(const float* __restrict__ y0, Launch L, Out out) {
-  extern __shared__ float sm[];
-  __shared__ float red[64];
-  BlockGroup g{red};
-  const int member = blockIdx.x;
+template <bool COMP, class Group>
+__device__ __forceinline__ void member_body(Group& g, float* sm,
+                                            const float* __restrict__ y0,
+                                            const Launch& L, int member,
+                                            const Out& out) {
   const float* y = y0 + static_cast<size_t>(member) * NF;
   if constexpr (tab::CK) {
     integrate_ck(g, sm, y, L, member, out);
   } else {
     integrate<COMP>(g, sm, y, L, member, out);
   }
+}
+
+template <bool COMP>
+__global__ void __launch_bounds__(kMaxThreads)
+    fused_rk_grid_kernel(const float* __restrict__ y0, Launch L, Out out) {
+  extern __shared__ float sm[];
+  __shared__ float red[64];
+  BlockGroup g{red};
+  member_body<COMP>(g, sm, y0, L, static_cast<int>(blockIdx.x), out);
+}
+
+// One warp per member, blockDim.x / 32 members a block, each warp on its own
+// kFloats of the dynamic shared memory; a warp past the ensemble returns at
+// once (no block barrier waits for it).
+template <bool COMP>
+__global__ void __launch_bounds__(kMaxThreads)
+    fused_rk_grid_warp_kernel(const float* __restrict__ y0, Launch L, Out out,
+                              int members) {
+  extern __shared__ float sm[];
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int member = static_cast<int>(blockIdx.x * (blockDim.x >> 5)) + warp;
+  if (member >= members) return;
+  WarpGroup g;
+  member_body<COMP>(g, sm + warp * kFloats, y0, L, member, out);
+}
+
+// Allows `bytes` of dynamic shared memory where it is above 48 KB.
+template <class K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
@@ -556,31 +652,45 @@ extern "C" int fused_rk_grid_smem(int* need, int* limit) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches one block of `threads` (a multiple of 32, at most kMaxThreads)
-// per member on the caller's stream, with the member's rows as dynamic
-// shared memory (above 48 KB after cudaFuncSetAttribute), and returns the
-// CUDA error code; the wrapper raises on anything but 0.
+// Launches the members on the caller's stream and returns the CUDA error
+// code; the wrapper raises on anything but 0.  warp_members = 0: one block
+// of `threads` (a multiple of 32, at most kMaxThreads) per member;
+// warp_members = P >= 1: one warp per member, P members a block of 32 P
+// threads (threads must be 32, P at most kMaxThreads / 32; another shape is
+// cudaErrorInvalidValue).  The members' rows are dynamic shared memory
+// (above 48 KB after cudaFuncSetAttribute).
 extern "C" int fused_rk_grid_launch(const void* y0, void* y_out, void* status,
                                     void* nstep, void* nfev, int members,
                                     float t0, float tf, float dir, float rtol,
                                     float atol, float h0, int use_hstart,
                                     float max_step, int max_steps,
                                     int compensated, int threads,
-                                    void* stream) {
+                                    int warp_members, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Launch L{t0, tf, dir, rtol, atol, h0, use_hstart, max_step,
                  max_steps};
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
   const float* y0f = static_cast<const float*>(y0);
-  const int bytes = static_cast<int>(kFloats * sizeof(float));
+  const int member_bytes = static_cast<int>(kFloats * sizeof(float));
+  if (warp_members > 0) {
+    if (threads != 32 || warp_members > kMaxThreads / 32) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int bytes = warp_members * member_bytes;
+    void (*kernel)(const float*, Launch, Out, int) =
+        compensated ? fused_rk_grid_warp_kernel<true>
+                    : fused_rk_grid_warp_kernel<false>;
+    const cudaError_t e = allow_smem(kernel, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int blocks = (members + warp_members - 1) / warp_members;
+    kernel<<<blocks, 32 * warp_members, bytes, st>>>(y0f, L, out, members);
+    return static_cast<int>(cudaGetLastError());
+  }
   void (*kernel)(const float*, Launch, Out) =
       compensated ? fused_rk_grid_kernel<true> : fused_rk_grid_kernel<false>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<members, threads, bytes, st>>>(y0f, L, out);
+  const cudaError_t e = allow_smem(kernel, member_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<members, threads, member_bytes, st>>>(y0f, L, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -542,7 +542,7 @@ def load_fused_rk_grid(consts, rkn, shape, src):
     built = load_kernel(
         "fused_rk_grid", fused_rk_grid_header(consts, rkn, shape, src),
         [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CF, _CI,
-         _CF, _CI, _CI, _CI, _VP])
+         _CF, _CI, _CI, _CI, _CI, _VP])
     smem = built.lib.fused_rk_grid_smem
     smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     smem.restype = ctypes.c_int
@@ -577,7 +577,7 @@ def load_fused_esdirk_grid(consts, shape, rhs_src):
     built = load_kernel(
         "fused_esdirk_grid", fused_esdirk_grid_header(consts, shape, rhs_src),
         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF,
-         _CI, _CI, _CF, _CI, _CF, _CI, _CI, _VP])
+         _CI, _CI, _CF, _CI, _CF, _CI, _CI, _CI, _VP])
     smem = built.lib.fused_esdirk_grid_smem
     smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     smem.restype = ctypes.c_int

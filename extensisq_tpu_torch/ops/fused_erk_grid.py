@@ -27,6 +27,11 @@ from .fused_rkc import FusedGridRHS
 # the most threads of a block; a member of n states gets ceil(n / 32) warps
 # up to this bound, one element per thread where n allows
 MAX_THREADS = 256
+# the warp-per-member bodies of B6 and B7: members per block, and the
+# members per SM above which their rules take them (an SM issues from four
+# warp schedulers, so a warp per member fills it from four members on)
+WARP_MEMBERS = 4
+WARP_FROM = 4
 
 
 def grid_threads(n):
@@ -74,29 +79,53 @@ def check_grid_input(name, y0, n_state, rhs_type, fun):
         raise ValueError("y0_batch must be contiguous")
 
 
-def check_shared_memory(name, smem_fn, remedy):
-    """Raise unless a member's rows fit in a block's shared memory on the
-    current card: ``smem_fn(need, limit)`` is the kernel library's query,
-    ``remedy`` the advice in the message."""
+def shared_memory(name, smem_fn):
+    """(bytes of shared memory one member needs, the most a block may have
+    on the current card) from the kernel library's query ``smem_fn(need,
+    limit)``."""
     import ctypes
     need, limit = ctypes.c_int(0), ctypes.c_int(0)
     rc = smem_fn(ctypes.byref(need), ctypes.byref(limit))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
-    if need.value > limit.value:
+    return need.value, limit.value
+
+
+def check_shared_memory(name, smem_fn, remedy, members=1):
+    """Raise unless ``members`` members' rows fit in a block's shared
+    memory on the current card: ``smem_fn(need, limit)`` is the kernel
+    library's query, ``remedy`` the advice in the message."""
+    need, limit = shared_memory(name, smem_fn)
+    if need * members > limit:
         raise ValueError(
-            f"{name}: a member needs {need.value} bytes of shared memory for "
-            f"its rows, more than the {limit.value} a thread block may have "
-            f"on this card; {remedy}")
+            f"{name}: {members} member(s) need {need * members} bytes of "
+            f"shared memory for their rows, more than the {limit} a thread "
+            f"block may have on this card; {remedy}")
+
+
+def fit_shape(name, smem_fn, shape):
+    """A rule's launch ``shape`` (threads, warp members) with its warp
+    members cut to what a block's shared memory holds on the current card
+    (at least one)."""
+    threads, warp = shape
+    if warp:
+        need, limit = shared_memory(name, smem_fn)
+        warp = max(1, min(warp, limit // need))
+    return threads, warp
 
 
 def launch_grid(wrapper, built, y0, n_row, t_span, rtol, atol, first_step,
-                max_steps, compensated, max_step):
-    """Launch ``csrc/fused_rk_grid.cu`` (one block per member, stage rows
-    of ``n_row``) on the current stream for ``wrapper``, whose launch count
-    it raises; raise before launch when a member's rows do not fit in the
-    card's shared memory.  Returns ``(y, status, nsteps, nfev)``."""
+                max_steps, compensated, max_step, shape=None, count=True):
+    """Launch ``csrc/fused_rk_grid.cu`` (stage rows of ``n_row``) on the
+    current stream for ``wrapper``, whose launch count it raises (where
+    ``count``; not for comparison launches), at
+    ``shape``: ``(threads, 0)`` one block of that many threads per member
+    (default ``grid_threads(n_row)``), ``(32, P)`` one warp per member and
+    P members a block; raise before launch when the members' rows do not
+    fit in the card's shared memory.  Returns ``(y, status, nsteps,
+    nfev)``."""
     name = wrapper.__name__
+    threads, warp_members = shape or (grid_threads(n_row), 0)
     nb = y0.shape[0]
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
@@ -105,7 +134,7 @@ def launch_grid(wrapper, built, y0, n_row, t_span, rtol, atol, first_step,
     with torch.cuda.device(y0.device):
         check_shared_memory(name, built.lib.fused_rk_grid_smem,
                             "take a smaller system or solve_fused_* of the "
-                            "flat layout")
+                            "flat layout", max(1, warp_members))
         if nb == 0:
             return y_out, status, nsteps, nfev
         t0, tf, rt, at, h0, use_h, mstep, msteps, comp = launch_args(
@@ -115,10 +144,10 @@ def launch_grid(wrapper, built, y0, n_row, t_span, rtol, atol, first_step,
             y0.data_ptr(), y_out.data_ptr(), status.data_ptr(),
             nsteps.data_ptr(), nfev.data_ptr(), nb, t0, tf,
             float(np.sign(np.float32(tf) - np.float32(t0))), rt, at, h0,
-            use_h, mstep, msteps, comp, grid_threads(n_row), stream)
+            use_h, mstep, msteps, comp, threads, warp_members, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    wrapper.launches += 1
+    wrapper.launches += int(count)
     return y_out, status, nsteps, nfev
 
 

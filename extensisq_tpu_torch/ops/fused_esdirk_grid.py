@@ -1,7 +1,7 @@
 """Fused implicit solver for mid-size systems: the whole adaptive ESDIRK
 integration of an ensemble of stiff systems or index-1 DAEs with
-tridiagonal Jacobians in one CUDA kernel launch, one thread block per
-member.
+tridiagonal Jacobians in one CUDA kernel launch, one thread block or one
+warp per member (:func:`_launch_shape`).
 
 Counterpart of ``extensisq_tpu/ops/fused_esdirk_grid.py``.  Per attempt,
 as in the JAX kernel:
@@ -48,8 +48,9 @@ import torch
 
 from .._device import as_input
 from .fused_erk import check_options
-from .fused_erk_grid import (_state_size, check_grid_input,
-                             check_shared_memory, grid_threads)
+from .fused_erk_grid import (WARP_FROM, WARP_MEMBERS, _state_size,
+                             check_grid_input, check_shared_memory, fit_shape,
+                             grid_threads)
 from .fused_esdirk import (_esdirk_consts, _f32, _start_step, _tiny_err,
                            run_esdirk_loop)
 from .fused_rkc import FusedGridRHS
@@ -178,6 +179,29 @@ def fused_esdirk_grid_reference(fun, t_span, y0_batch, method=None, M=None,
     return y.T.contiguous(), status, nstep, nfev
 
 
+def _launch_shape(B, n, sm_count):
+    """The launch shape for ``B`` members of ``n`` states on a card of
+    ``sm_count`` SMs: one warp per member, ``(32, WARP_MEMBERS)`` (four
+    members a block), where the ensemble gives every SM more than
+    ``WARP_FROM`` (4) members; else one block of ``grid_threads(n)``
+    threads per member, ``(threads, 0)``.
+
+    A warp runs its member on one of an SM's four schedulers, with no
+    barrier; a block of 128 spreads it over all four and waits at its
+    barriers, so the warp wins once the members fill the schedulers.  From
+    the sweep of config 4d's line (n = 128, Kv3I;
+    ``tools/probe_fused_esdirk_grid.py``) on an H100 (132 SMs, 700 W),
+    device ms of one block of 32 / 64 / 128 threads per member against
+    one warp per member at 1 / 2 / 4 members a block: 32 members 2.650 /
+    1.735 / 1.474 against 1.652 / 1.652 / 1.684; 256 members 2.899 /
+    1.985 / 1.505 against 1.852 / 1.832 / 1.826; 512 members 2.930 /
+    1.954 / 1.772 against 1.892 / 1.885 / 1.903; 1,024 members 3.145 /
+    2.489 / 2.629 against 2.302 / 2.312 / 2.303."""
+    if int(B) > WARP_FROM * int(sm_count):
+        return 32, WARP_MEMBERS
+    return grid_threads(n), 0
+
+
 def _kernel(method, fun):
     """The kernel built for one method and FusedGridRHS."""
     if method is None:
@@ -209,16 +233,18 @@ def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
     step size underflow, 3 = step cap (``max_steps`` counts loop
     iterations, accepted plus rejected).  ``compensated=True`` adds the
     double-single carry of y and Neumaier stage sums.  ``block_members``
-    is accepted for the JAX signature and has no effect: a member is one
-    thread block.
+    is accepted for the JAX signature and has no effect: the launch shape
+    is :func:`_launch_shape`'s.
 
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.  On a CUDA
     tensor ``fun`` must be a :class:`FusedGridRHS` whose CUDA source
     defines the template ``rhs<T>``, and the call launches
-    ``csrc/fused_esdirk_grid.cu`` (built at first use) with one block of up
-    to 256 threads per member (raising when the member's rows do not fit
-    in shared memory), or raises.  On a CPU tensor it runs
+    ``csrc/fused_esdirk_grid.cu`` (built at first use) with one block or
+    one warp per member, as :func:`_launch_shape` says from the ensemble
+    size, n and the card's SM count (raising when the members' rows do not
+    fit in shared memory), or raises; the shape taken is
+    ``solve_fused_esdirk_grid.last_shape``.  On a CPU tensor it runs
     :func:`fused_esdirk_grid_reference`.
 
     ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet;
@@ -239,14 +265,20 @@ def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
         return fused_esdirk_grid_reference(fun, t_span, y0, **kw)
     n = _state_size(fun) if isinstance(fun, FusedGridRHS) else -1
     check_grid_input("solve_fused_esdirk_grid", y0, n, FusedGridRHS, fun)
-    return _launch(_kernel(method, fun), t_span, y0, **kw)
+    out, shape = _launch(_kernel(method, fun), t_span, y0, **kw)
+    solve_fused_esdirk_grid.launches += int(y0.shape[0] > 0)
+    solve_fused_esdirk_grid.last_shape = shape
+    return out
 
 
-def _launch(built, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
-            max_steps, compensated, max_step):
-    """Launch ``csrc/fused_esdirk_grid.cu`` on the current stream; raise
-    before launch when a member's rows do not fit in the card's shared
-    memory."""
+def _launch(built, t_span, y0, method=None, M=None, yp0_batch=None,
+            rtol=1e-4, atol=1e-6, first_step=None, max_steps=100_000,
+            compensated=False, max_step=None, shape=None):
+    """Launch ``csrc/fused_esdirk_grid.cu`` on the current stream at
+    ``shape`` (None: :func:`_launch_shape`'s, its P capped by the card's
+    shared memory; a given shape is taken as it is, for comparisons); raise
+    before launch when the members' rows do not fit in the card's shared
+    memory.  Returns the four outputs and the shape taken."""
     nb, n = y0.shape
     m_diag = _mass_diag(M, n)
     if m_diag is not None and yp0_batch is None and np.any(m_diag == 0.0):
@@ -265,12 +297,17 @@ def _launch(built, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
+    name = "solve_fused_esdirk_grid"
     with torch.cuda.device(y0.device):
-        check_shared_memory("solve_fused_esdirk_grid",
-                            built.lib.fused_esdirk_grid_smem,
-                            "take a smaller system")
+        smem = built.lib.fused_esdirk_grid_smem
+        if shape is None:
+            shape = fit_shape(name, smem, _launch_shape(
+                nb, n, torch.cuda.get_device_properties(
+                    y0.device).multi_processor_count))
+        check_shared_memory(name, smem, "take a smaller system",
+                            max(1, shape[1]))
         if nb == 0:
-            return y_out, status, nsteps, nfev
+            return (y_out, status, nsteps, nfev), shape
         t0, tf = np.float32(t_span[0]), np.float32(t_span[1])
         h0 = (np.float32(first_step) if first_step is not None
               else np.float32(0.01) * abs(tf - t0))
@@ -282,15 +319,16 @@ def _launch(built, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
             float(t0), float(tf), float(rtol), float(atol), float(h0),
             int(first_step is None and M is None), int(yp0 is not None),
             np.inf if max_step is None else float(max_step), int(max_steps),
-            _tiny_err(n, rtol), int(bool(compensated)), grid_threads(n),
+            _tiny_err(n, rtol), int(bool(compensated)), shape[0], shape[1],
             stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_esdirk_grid kernel launch failed: CUDA error {rc}")
-    solve_fused_esdirk_grid.launches += 1
-    return y_out, status, nsteps, nfev
+    return (y_out, status, nsteps, nfev), shape
 
 
 # kernel launches since the count was last set to 0 (the plain version on
-# CPU tensors does not count)
+# CPU tensors does not count), and the (threads, warp members) of the last
+# launch
 solve_fused_esdirk_grid.launches = 0
+solve_fused_esdirk_grid.last_shape = None

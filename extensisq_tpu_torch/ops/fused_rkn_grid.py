@@ -1,12 +1,13 @@
 """Fused RKN solver for mid-size second-order systems: the whole adaptive
-integration of an ensemble in one CUDA kernel launch, one thread block per
-member.
+integration of an ensemble in one CUDA kernel launch, one thread block or
+one warp per member (:func:`_launch_shape`).
 
 Counterpart of ``extensisq_tpu/ops/fused_rkn_grid.py``, which runs B5's
 loop (``_run_rkn_loop``) with each partition of the state across the 128
-lanes.  On Hopper a member is one thread block of ``csrc/fused_rk_grid.cu``
-(the body shared with the mid-size ERK kernel), its ``[u | v]`` state and
-stage accelerations in shared memory; any n is taken without padding.  The
+lanes.  On Hopper a member is one thread block or one warp of
+``csrc/fused_rk_grid.cu`` (the body shared with the mid-size ERK kernel),
+its ``[u | v]`` state and stage accelerations in shared memory; any n is
+taken without padding.  The
 plain version, :func:`fused_rkn_grid_reference`, runs B5's loop
 (``ops.fused_rkn.run_rkn_loop``) on the rows-first ``(2n, B)`` state; the
 wrapper :func:`solve_fused_rkn_grid` takes it only for tensors on the CPU.
@@ -18,7 +19,8 @@ import torch
 
 from .._device import as_input
 from .fused_erk import check_options
-from .fused_erk_grid import check_grid_input, launch_grid
+from .fused_erk_grid import (WARP_FROM, WARP_MEMBERS, check_grid_input,
+                             fit_shape, grid_threads, launch_grid)
 from .fused_rkn import _state, rkn_consts, run_rkn_loop
 
 
@@ -57,6 +59,32 @@ def fused_rkn_grid_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                         max_step)
 
 
+def _launch_shape(B, n, sm_count):
+    """The launch shape for ``B`` members of ``n`` positions on a card of
+    ``sm_count`` SMs: one warp per member, ``(32, WARP_MEMBERS)`` (four
+    members a block), where the ensemble gives every SM more than
+    ``WARP_FROM`` (4) members; else one block per member, ``(threads,
+    0)``, of ``grid_threads(n)`` threads where it gives at most 2 and of
+    at most 128 between.
+
+    A warp runs its member on one of an SM's four schedulers, with no
+    barrier; blocks spread a member over them and wait at their barriers,
+    which contend once several blocks share an SM.  From the sweep of the
+    wave (n = 256, Fi5N; ``tools/probe_fused_rk_grid.py``) on an H100 (132
+    SMs, 700 W), device ms plain / compensated of one block of 128 and of
+    256 threads per member against one warp per member at 4 members a
+    block: 64 members 0.228 / 1.142 and 0.220 / 1.033 against 0.250 /
+    1.781; 256 members 0.229 / 1.178 and 0.212 / 1.097 against 0.247 /
+    1.931; 512 members 0.246 / 1.459 and 0.280 / 1.679 against 0.255 /
+    1.958; 1,024 members 0.369 / 2.441 and 0.480 / 3.017 against 0.276 /
+    2.127."""
+    B, sm_count = int(B), int(sm_count)
+    if B > WARP_FROM * sm_count:
+        return 32, WARP_MEMBERS
+    full = grid_threads(n)
+    return (full if B <= 2 * sm_count else min(full, 128)), 0
+
+
 def _kernel(method, fun):
     """The kernel built for one RKN method and FusedGridAcc."""
     if method is None:
@@ -83,9 +111,11 @@ def solve_fused_rkn_grid(acc, t_span, y0_batch, method=None, rtol=1e-4,
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.  On a CUDA
     tensor ``acc`` must be a :class:`FusedGridAcc`, and the call launches
-    ``csrc/fused_rk_grid.cu`` with one block of up to 256 threads per
-    member (raising when the member's rows do not fit in shared memory),
-    or raises.  On a CPU tensor it runs :func:`fused_rkn_grid_reference`.
+    ``csrc/fused_rk_grid.cu`` with one block or one warp per member, as
+    :func:`_launch_shape` says from the ensemble size, n and the card's SM
+    count (raising when the members' rows do not fit in shared memory), or
+    raises; the shape taken is ``solve_fused_rkn_grid.last_shape``.  On a
+    CPU tensor it runs :func:`fused_rkn_grid_reference`.
 
     ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet.
     """
@@ -99,10 +129,33 @@ def solve_fused_rkn_grid(acc, t_span, y0_batch, method=None, rtol=1e-4,
         return fused_rkn_grid_reference(acc, t_span, y0, method=method, **kw)
     n = acc.n if isinstance(acc, FusedGridAcc) else -1
     check_grid_input("solve_fused_rkn_grid", y0, 2 * n, FusedGridAcc, acc)
-    return launch_grid(solve_fused_rkn_grid, _kernel(method, acc), y0, n,
-                       t_span, **kw)
+    out, shape = _launch(_kernel(method, acc), t_span, y0, n, count=True,
+                         **kw)
+    solve_fused_rkn_grid.last_shape = shape
+    return out
+
+
+def _launch(built, t_span, y0, n, shape=None, count=False, rtol=1e-4,
+            atol=1e-6, first_step=None, max_steps=100_000, compensated=False,
+            max_step=None):
+    """Launch B6 for the CUDA tensor ``y0`` at ``shape`` (None:
+    :func:`_launch_shape`'s, its P capped by the card's shared memory; a
+    given shape is taken as it is, for comparisons), counted where
+    ``count``.  Returns the four outputs and the shape taken."""
+    if shape is None:
+        with torch.cuda.device(y0.device):
+            shape = fit_shape("solve_fused_rkn_grid",
+                              built.lib.fused_rk_grid_smem, _launch_shape(
+                                  y0.shape[0], n,
+                                  torch.cuda.get_device_properties(
+                                      y0.device).multi_processor_count))
+    return launch_grid(solve_fused_rkn_grid, built, y0, n, t_span, rtol, atol,
+                       first_step, max_steps, compensated, max_step,
+                       shape=shape, count=count), shape
 
 
 # kernel launches since the count was last set to 0 (the plain version on
-# CPU tensors does not count)
+# CPU tensors does not count), and the (threads, warp members) of the last
+# launch through the wrapper
 solve_fused_rkn_grid.launches = 0
+solve_fused_rkn_grid.last_shape = None

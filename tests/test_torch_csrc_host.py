@@ -515,24 +515,83 @@ extern "C" int fused_rkn_launch(
 }
 """
 
-# The grid bodies integrate<COMP, Group> (B4 and B6) and integrate_ck<Group>
-# (B12) run by a one-thread group on a host buffer in place of shared
-# memory, one member after another.
-GRID_LAUNCH = """
+HOST_GROUP = """
 struct HostGroup {
+  static constexpr int kStride = 0;
   int rank() const { return 0; }
   int size() const { return 1; }
   void sync() const {}
+  template <int K>
+  void sums(float (&)[K]) const {}
   float sum(float v) const { return v; }
   float min(float v) const { return v; }
 };
+"""
 
+# The warp bodies' group as a warp of 32 coroutine lanes: lane r owns the
+# elements r, r + 32, ...; sync() hands over to the next lane (a barrier,
+# since every lane calls it alike), and a reduction hands each lane's values
+# round the warp and runs block_group.cuh's butterfly (warp_reduce) on
+# them.  Each lane takes its own lane's result, as WarpGroup does, or with
+# BLOCK lane 0's, as BlockGroup in a block of one warp reads it back.
+HOST_WARP = COROUTINES + r"""
+static float g_warp_red[2][4][32];  // [turn][value][lane]
+
+template <bool BLOCK>
+struct HostWarp {
+  static constexpr int kStride = 32;
+  int r;
+  int turn = 0;
+  int rank() const { return r; }
+  int size() const { return 32; }
+  void sync() const {
+    adams_lane_switch(&g_set->sp[r], g_set->sp[(r + 1) % g_set->G]);
+  }
+  template <bool MIN, int K>
+  void reduce(float (&v)[K]) {
+    const int t = turn;
+    turn ^= 1;
+    for (int j = 0; j < K; ++j) g_warp_red[t][j][r] = v[j];
+    sync();
+    for (int j = 0; j < K; ++j) {
+      float w[32], x[32];
+      for (int l = 0; l < 32; ++l) w[l] = g_warp_red[t][j][l];
+      for (int o = 16; o > 0; o >>= 1) {
+        for (int l = 0; l < 32; ++l) {
+          x[l] = MIN ? rk::nan_min(w[l], w[l ^ o]) : w[l] + w[l ^ o];
+        }
+        for (int l = 0; l < 32; ++l) w[l] = x[l];
+      }
+      v[j] = w[BLOCK ? 0 : r];
+    }
+  }
+  template <int K>
+  void sums(float (&v)[K]) {
+    reduce<false>(v);
+  }
+  float sum(float v) {
+    float a[1] = {v};
+    reduce<false>(a);
+    return a[0];
+  }
+  float min(float v) {
+    float a[1] = {v};
+    reduce<true>(a);
+    return a[0];
+  }
+};
+"""
+
+# The grid bodies integrate<COMP, Group> (B4 and B6) and integrate_ck<Group>
+# (B12) run on a host buffer in place of shared memory, one member after
+# another: at lanes = 1 by a one-thread group, at lanes = 32 by a warp of 32
+# coroutine lanes (the warp body's layout and reductions).
+GRID_LAUNCH = HOST_GROUP + HOST_WARP + r"""
 // one member by the body of the header's family (a template, so that the
 // other family's body is never instantiated)
-template <bool CK>
-void host_member(float* sm, const float* y0, const Launch& L, int m,
-                 const Out& out, int compensated) {
-  HostGroup g;
+template <bool CK, class Group>
+void host_member(Group& g, float* sm, const float* y0, const Launch& L,
+                 int m, const Out& out, int compensated) {
   if constexpr (CK) {
     integrate_ck(g, sm, y0, L, m, out);
   } else if (compensated) {
@@ -542,31 +601,48 @@ void host_member(float* sm, const float* y0, const Launch& L, int m,
   }
 }
 
+struct HostGridMember {
+  float* sm;
+  const float* y0;
+  Launch L;
+  int m;
+  Out out;
+  int compensated;
+};
+static HostGridMember g_member;
+
+template <bool BLOCK>
+static void grid_warp_lane(int r) {
+  HostWarp<BLOCK> g{r};
+  const HostGridMember& a = g_member;
+  host_member<tab::CK>(g, a.sm, a.y0, a.L, a.m, a.out, a.compensated);
+}
+
 extern "C" int fused_rk_grid_host(
     const float* y0, float* y_out, int* status, int* nsteps, int* nfev,
     int members, float t0, float tf, float dir, float rtol, float atol,
     float h0, int use_hstart, float max_step, int max_steps,
-    int compensated) {
+    int compensated, int lanes, int block_order) {
+  if (lanes != 1 && lanes != 32) return 1;
   const Launch L{t0, tf, dir, rtol, atol, h0, use_hstart, max_step,
                  max_steps};
   const Out out{y_out, status, nsteps, nfev};
   float* sm = new float[kFloats];
+  char* stacks = static_cast<char*>(std::malloc(32 * kLaneStack));
   for (int m = 0; m < members; ++m) {
-    host_member<tab::CK>(sm, y0 + m * NF, L, m, out, compensated);
+    if (lanes == 1) {
+      HostGroup g;
+      host_member<tab::CK>(g, sm, y0 + m * NF, L, m, out, compensated);
+    } else {
+      g_member = HostGridMember{sm, y0 + m * NF, L, m, out, compensated};
+      run_lanes(32, block_order ? grid_warp_lane<true>
+                                : grid_warp_lane<false>, stacks);
+    }
   }
+  std::free(stacks);
   delete[] sm;
   return 0;
 }
-"""
-
-HOST_GROUP = """
-struct HostGroup {
-  int rank() const { return 0; }
-  int size() const { return 1; }
-  void sync() const {}
-  float sum(float v) const { return v; }
-  float min(float v) const { return v; }
-};
 """
 
 # The mid-size SWAG body (B8) integrate<W> run one member after another on
@@ -661,27 +737,60 @@ extern "C" int fused_adams_grid_host(
 }
 """
 
-# The mid-size ESDIRK body (B7) run by a one-thread group on a host buffer in
-# place of shared memory, one member after another.
-ESDIRK_GRID_LAUNCH = HOST_GROUP + """
+# The mid-size ESDIRK body (B7) run on a host buffer in place of shared
+# memory, one member after another: at lanes = 1 by a one-thread group, at
+# lanes = 32 by a warp of 32 coroutine lanes (the warp body's layout and
+# reductions).
+ESDIRK_GRID_LAUNCH = HOST_GROUP + HOST_WARP + r"""
+struct HostEsdirkMember {
+  float* sm;
+  const float *y0, *yp0, *mass;
+  Launch Lc;
+  int m;
+  Out out;
+  int compensated;
+};
+static HostEsdirkMember g_member;
+
+template <class Group>
+void host_member(Group& g, const HostEsdirkMember& a) {
+  if (a.compensated) {
+    integrate<true>(g, a.sm, a.y0, a.yp0, a.mass, a.Lc, a.m, a.out);
+  } else {
+    integrate<false>(g, a.sm, a.y0, a.yp0, a.mass, a.Lc, a.m, a.out);
+  }
+}
+
+template <bool BLOCK>
+static void esdirk_warp_lane(int r) {
+  HostWarp<BLOCK> g{r};
+  host_member(g, g_member);
+}
+
 extern "C" int fused_esdirk_grid_host(
     const float* y0, const float* yp0, const float* mass, float* y_out,
     int* status, int* nsteps, int* nfev, int members, float t0, float tf,
     float rtol, float atol, float h0, int use_hstart, int have_yp0,
-    float max_step, int max_steps, float tiny_err, int compensated) {
+    float max_step, int max_steps, float tiny_err, int compensated,
+    int lanes, int block_order) {
+  if (lanes != 1 && lanes != 32) return 1;
   const Launch Lc{t0, tf, rtol, atol, h0, use_hstart, have_yp0, max_step,
                   max_steps, tiny_err};
   const Out out{y_out, status, nsteps, nfev};
   float* sm = new float[kFloats];
+  char* stacks = static_cast<char*>(std::malloc(32 * kLaneStack));
   for (int m = 0; m < members; ++m) {
-    HostGroup g;
-    const float* yp = yp0 ? yp0 + m * N : nullptr;
-    if (compensated) {
-      integrate<true>(g, sm, y0 + m * N, yp, mass, Lc, m, out);
+    g_member = HostEsdirkMember{sm, y0 + m * N, yp0 ? yp0 + m * N : nullptr,
+                                mass, Lc, m, out, compensated};
+    if (lanes == 1) {
+      HostGroup g;
+      host_member(g, g_member);
     } else {
-      integrate<false>(g, sm, y0 + m * N, yp, mass, Lc, m, out);
+      run_lanes(32, block_order ? esdirk_warp_lane<true>
+                                : esdirk_warp_lane<false>, stacks);
     }
   }
+  std::free(stacks);
   delete[] sm;
   return 0;
 }
@@ -1205,22 +1314,41 @@ def _rkn_host(lib, span, y0, **kw):
     return out, st, ns, nf
 
 
-def _grid_host(lib, span, y0, **kw):
+def _grid_host(lib, span, y0, lanes=1, block_order=False, **kw):
+    """The host-built grid body on ``y0`` by a one-thread group (lanes = 1)
+    or a warp of 32 coroutine lanes, whose reductions take their own lane's
+    butterfly result or, with ``block_order``, lane 0's."""
+    if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
+        pytest.skip("the host warp switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
     nb = y0.shape[0]
     out = np.empty_like(y0)
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
     fn = lib.fused_rk_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 5 + [ci] + [cf] * 6 + [ci, cf, ci, ci]
+    fn.argtypes = [vp] * 5 + [ci] + [cf] * 6 + [ci, cf, ci, ci, ci, ci]
     t0, tf, rt, at, h0, use_h, mstep, msteps, comp = FK.launch_args(
         span, kw["rtol"], kw["atol"], kw.get("first_step"),
         kw.get("max_steps", 100_000), kw.get("compensated", False), None)
-    fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
-       nf.ctypes.data, nb, t0, tf, float(np.sign(tf - t0)), rt, at, h0,
-       use_h, mstep, msteps, comp)
+    rc = fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
+            nf.ctypes.data, nb, t0, tf, float(np.sign(tf - t0)), rt, at, h0,
+            use_h, mstep, msteps, comp, lanes, int(block_order))
+    assert rc == 0
     return out, st, ns, nf
 
+
+
+def _with_warp(params, warp):
+    """pytest parameters of the one-thread cases (``lanes`` = 1, their ids
+    as before) and of those whose case is in ``warp`` again on a warp of
+    32 coroutine lanes (``lanes`` = 32, ids ending in ``-warp32``)."""
+    out = []
+    for p in params:
+        base = "-".join(str(x) for x in p)
+        out.append(pytest.param(*p, 1, id=base))
+        if p[0] in warp:
+            out.append(pytest.param(*p, 32, id=base + "-warp32"))
+    return out
 
 
 def _new_case(label):
@@ -1250,16 +1378,30 @@ NEW_GATES = [("kepler_plain", 2e-4, 2, 16), ("kepler_comp", 6e-5, 2, 100),
              ("fisher_h0", 2e-6, 0, 0)]
 
 
-@pytest.mark.parametrize("case,y_gate,dsteps,nmembers", NEW_GATES)
+# the grid body's cases that also run on a warp of 32 coroutine lanes: B6's
+# warp body.  Against the plain version's gates only wave_h0: the warp's
+# order of the norm's sums moves the last bits of the compensated wave's
+# error estimate, which is round-off there, so 5 of its 8 members take
+# other counts (measured; the gate is 2, as on one thread); wave_comp's
+# first five attempts at 32 lanes stay bit-identical to the plain version
+WARP_GRID_CASES = ("wave_h0", "wave_comp")
+
+
+@pytest.mark.parametrize("case,y_gate,dsteps,nmembers,lanes",
+                         _with_warp(NEW_GATES, WARP_GRID_CASES[:1]))
 def test_rkn_and_grid_kernels_match_plain_versions(libs, case, y_gate,
-                                                    dsteps, nmembers):
+                                                    dsteps, nmembers, lanes):
     """B5 (``fused_rkn.cu``, one member per thread) and the block body of
-    B4 and B6 (``fused_rk_grid.cu``, run by a one-thread group) against
+    B4 and B6 (``fused_rk_grid.cu``, run by a one-thread group, and B6's
+    also by a warp of 32 coroutine lanes, the warp body's layout) against
     their plain versions: status identical, counts within the gates (the
     libraries' powf/log10f part last bits of h), identical where
     ``first_step`` is given."""
     host, lib, plain, fun, span, y0, kw = _new_case(case)
+    if lanes > 1:
+        kw["lanes"] = lanes
     y, st, ns, nf = host(libs[lib], span, y0, **kw)
+    kw.pop("lanes", None)
     ry, rst, rns, rnf = (r.numpy() for r in plain(fun, span,
                                                   torch.tensor(y0), **kw))
     np.testing.assert_array_equal(st, rst)
@@ -1269,17 +1411,18 @@ def test_rkn_and_grid_kernels_match_plain_versions(libs, case, y_gate,
     assert np.sum((ns != rns) | (nf != rnf)) <= nmembers
 
 
-@pytest.mark.parametrize("case,attempts", [("wave_comp", 5), ("wave_h0", 1),
-                                           ("fisher_h0", 1),
-                                           ("fisher_comp", 1)])
-def test_grid_body_first_attempts_bit_identical(libs, case, attempts):
+@pytest.mark.parametrize("case,attempts,lanes", _with_warp(
+    [("wave_comp", 5), ("wave_h0", 1), ("fisher_h0", 1), ("fisher_comp", 1)],
+    WARP_GRID_CASES))
+def test_grid_body_first_attempts_bit_identical(libs, case, attempts, lanes):
     """With ``first_step`` given, the grid body's first attempts (stage
     sums, the compensated carries, the norm, the controller) repeat the
     plain version's arithmetic bit for bit: five attempts of the
-    compensated wave, until powf and torch.pow round a step ratio apart."""
+    compensated wave, until powf and torch.pow round a step ratio apart;
+    B6's also on a warp of 32 coroutine lanes."""
     host, lib, plain, fun, span, y0, kw = _new_case(case)
     kw.update(first_step=0.01, max_steps=attempts)
-    y, st, ns, nf = host(libs[lib], span, y0, **kw)
+    y, st, ns, nf = host(libs[lib], span, y0, lanes=lanes, **kw)
     ry, rst, rns, rnf = (r.numpy() for r in plain(fun, span,
                                                   torch.tensor(y0), **kw))
     np.testing.assert_array_equal(y, ry)
@@ -1502,9 +1645,13 @@ def test_adams_grid_warp_lanes_equal_one_lane(libs, case):
 
 def _esdirk_grid_host(lib, span, y0, yp0=None, M=None, rtol=1e-4, atol=1e-6,
                       first_step=None, max_steps=100_000, compensated=False,
-                      max_step=None, method=None):
+                      max_step=None, method=None, lanes=1,
+                      block_order=False):
     """The host-built mid-size ESDIRK body on ``y0``, launched as the
-    wrapper launches the kernel."""
+    wrapper launches the kernel, by a one-thread group (lanes = 1) or a
+    warp of 32 coroutine lanes (reductions as in ``_grid_host``)."""
+    if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
+        pytest.skip("the host warp switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
     nb, n = y0.shape
     out = np.empty_like(y0)
@@ -1516,13 +1663,16 @@ def _esdirk_grid_host(lib, span, y0, yp0=None, M=None, rtol=1e-4, atol=1e-6,
           else np.float32(0.01) * abs(tf - t0))
     fn = lib.fused_esdirk_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 7 + [ci] + [cf] * 5 + [ci, ci, cf, ci, cf, ci]
-    fn(y0.ctypes.data, None if yp is None else yp.ctypes.data,
-       None if mass is None else mass.ctypes.data, out.ctypes.data,
-       st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb, float(t0),
-       float(tf), rtol, atol, float(h0), int(first_step is None and M is None),
-       int(yp is not None), np.inf if max_step is None else float(max_step),
-       max_steps, FE._tiny_err(n, rtol), int(compensated))
+    fn.argtypes = ([vp] * 7 + [ci] + [cf] * 5
+                   + [ci, ci, cf, ci, cf, ci, ci, ci])
+    rc = fn(y0.ctypes.data, None if yp is None else yp.ctypes.data,
+            None if mass is None else mass.ctypes.data, out.ctypes.data,
+            st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb, float(t0),
+            float(tf), rtol, atol, float(h0),
+            int(first_step is None and M is None), int(yp is not None),
+            np.inf if max_step is None else float(max_step), max_steps,
+            FE._tiny_err(n, rtol), int(compensated), lanes, int(block_order))
+    assert rc == 0
     return out, st, ns, nf
 
 
@@ -1543,17 +1693,22 @@ ESDIRK_GRID_CASES = {
 }
 
 
-def _esdirk_grid_case(libs, name, **over):
+def _esdirk_grid_case(libs, name, lanes=1, block_order=False, plain=True,
+                      **over):
+    """The host body's outputs on case ``name`` (at ``lanes``, see
+    ``_esdirk_grid_host``) and, where ``plain``, the plain version's."""
     lib, case = ESDIRK_GRID_CASES[name]
     prob, meth, span, y0, kw = TEG.CASES[case] if isinstance(case, str) \
         else case
     kw = dict(TEG._options(kw), **over)
     fun = TEG.RHS[prob]
     y0 = NAN_Y0 if y0 == "nan" else TEG.Y0[y0]
-    host_kw = dict(kw)
+    host_kw = dict(kw, lanes=lanes, block_order=block_order)
     if "yp0_batch" in host_kw:
         host_kw["yp0"] = host_kw.pop("yp0_batch").numpy()
     host = _esdirk_grid_host(libs[lib], span, y0, **host_kw)
+    if not plain:
+        return host, None
     ref = FEG.fused_esdirk_grid_reference(fun, span, torch.tensor(y0),
                                           method=TEG.METHODS[meth], **kw)
     return host, tuple(r.numpy() for r in ref)
@@ -1575,16 +1730,19 @@ ESDIRK_GRID_GATES = [("rd_kv3i", 2e-5, 2, 8), ("rd_trbdf2", 1e-5, 1, 2),
                      ("overflow", 1e-6, 1, 2), ("nan_start", 1e-6, 1, 2)]
 
 
-@pytest.mark.parametrize("case,y_gate,dsteps,nmembers", ESDIRK_GRID_GATES)
+@pytest.mark.parametrize("case,y_gate,dsteps,nmembers,lanes",
+                         _with_warp(ESDIRK_GRID_GATES, ESDIRK_GRID_CASES))
 def test_esdirk_grid_body_matches_plain_version(libs, case, y_gate, dsteps,
-                                                nmembers):
+                                                nmembers, lanes):
     """The mid-size ESDIRK body (``fused_esdirk_grid.cu``, B7, run by a
-    one-thread group: the dual-number bands, the cyclic reduction, Newton
-    and the controller) against its plain version: status identical (the
+    one-thread group and by a warp of 32 coroutine lanes, the warp body's
+    layout: the dual-number bands, the cyclic reduction, Newton and the
+    controller) against its plain version: status identical (the
     overflowing member fails alone, the member with a NaN in y0 takes the
     plain version's status from the block start), counts within the
     gates."""
-    (y, st, ns, nf), (ry, rst, rns, rnf) = _esdirk_grid_case(libs, case)
+    (y, st, ns, nf), (ry, rst, rns, rnf) = _esdirk_grid_case(libs, case,
+                                                             lanes)
     np.testing.assert_array_equal(st, rst)
     ok = st == 1
     if case in ("overflow", "nan_start"):
@@ -1596,13 +1754,33 @@ def test_esdirk_grid_body_matches_plain_version(libs, case, y_gate, dsteps,
     assert np.sum((ns != rns) | (nf != rnf)) <= nmembers
 
 
-@pytest.mark.parametrize("case,attempts", [("rd_h0", 1), ("rd_h0", 2),
-                                           ("dae", 1)])
-def test_esdirk_grid_body_first_attempts_bit_identical(libs, case, attempts):
+@pytest.mark.parametrize("case,attempts,lanes", _with_warp(
+    [("rd_h0", 1), ("rd_h0", 2), ("dae", 1)], ESDIRK_GRID_CASES))
+def test_esdirk_grid_body_first_attempts_bit_identical(libs, case, attempts,
+                                                       lanes):
     """The body's first attempts repeat the plain version's arithmetic bit
-    for bit."""
-    out, ref = _esdirk_grid_case(libs, case, max_steps=attempts)
+    for bit, on one thread and on a warp of 32 coroutine lanes."""
+    out, ref = _esdirk_grid_case(libs, case, lanes, max_steps=attempts)
     for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", list(ESDIRK_GRID_CASES) + list(
+    WARP_GRID_CASES))
+def test_warp_body_equals_block_order(libs, case):
+    """A warp's reductions give every lane the same value: whole runs of
+    the warp bodies of B7 and B6 (32 coroutine lanes, each taking its own
+    lane's butterfly result, as WarpGroup does) equal the same runs with
+    every lane taking lane 0's (as BlockGroup in a block of one warp
+    reads it back), bit for bit."""
+    if case in ESDIRK_GRID_CASES:
+        runs = [_esdirk_grid_case(libs, case, 32, block, plain=False)[0]
+                for block in (False, True)]
+    else:
+        host, lib, _, _, span, y0, kw = _new_case(case)
+        runs = [host(libs[lib], span, y0, 32, block, **kw)
+                for block in (False, True)]
+    for a, b in zip(*runs):
         np.testing.assert_array_equal(a, b)
 
 

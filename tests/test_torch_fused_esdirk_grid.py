@@ -417,6 +417,18 @@ def test_block_base_raises_naming_a16():
                                 torch.tensor(Y0["rdiff"]), block_base=64)
 
 
+@pytest.mark.parametrize("members,n,shape", [
+    (8, N, (128, 0)), (32, N, (128, 0)), (256, N, (128, 0)),
+    (528, N, (128, 0)), (529, N, (32, 4)), (1024, N, (32, 4)),
+    (8, N_SMALL, (32, 0)), (4096, N_SMALL, (32, 4)), (8, 300, (256, 0))])
+def test_launch_shape_on_132_sms(members, n, shape):
+    """The rule's launch shape on the H100's 132 SMs: one block of
+    ``grid_threads(n)`` threads per member up to 4 members an SM, one warp
+    per member (four a block) beyond."""
+    from extensisq_tpu_torch.ops.fused_esdirk_grid import _launch_shape
+    assert _launch_shape(members, n, 132) == shape
+
+
 def test_generated_header_carries_the_grid_and_rounds():
     from extensisq_tpu_torch.ops import _build
     from extensisq_tpu_torch.ops.fused_esdirk import _esdirk_consts
@@ -488,3 +500,59 @@ def test_cuda_tensor_needs_fused_grid_rhs(cuda):
     with pytest.raises(TypeError, match="FusedGridRHS"):
         solve_fused_esdirk_grid(rdiff(N), (0.0, 1.0),
                                 torch.tensor(Y0["rdiff"], device=cuda))
+
+
+def _card_case(name, cuda):
+    prob, meth, span, y0, kw = CASES[name]
+    kw = dict(_options(kw), method=METHODS[meth])
+    if "yp0_batch" in kw:
+        kw["yp0_batch"] = kw["yp0_batch"].to(cuda)
+    return RHS[prob], span, torch.tensor(Y0[y0], device=cuda), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CARD_GATES))
+def test_warp_body_bit_identical_to_block_of_32_on_card(cuda, name):
+    """The rule's warp shape, one warp per member and four members a block,
+    equals one block of 32 threads per member bit for bit, on all members
+    and on the first 7 (a ragged last block, whose absent warp nobody
+    waits for); the block shape the rule takes for these ensembles is held
+    against the plain version by test_kernel_matches_plain_version_on_card.
+    Comparison launches are not counted."""
+    from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
+    fun, span, y0, kw = _card_case(name, cuda)
+    built = FEG._kernel(kw["method"], fun)
+    before = solve_fused_esdirk_grid.launches
+    for ys, yp in ((y0, kw.get("yp0_batch")),
+                   (y0[:7], None if "yp0_batch" not in kw
+                    else kw["yp0_batch"][:7])):
+        kk = dict(kw, yp0_batch=yp)
+        block, shape_b = FEG._launch(built, span, ys, shape=(32, 0), **kk)
+        warp, shape_w = FEG._launch(built, span, ys,
+                                    shape=(32, FEG.WARP_MEMBERS), **kk)
+        torch.cuda.synchronize()
+        assert shape_b == (32, 0) and shape_w == (32, FEG.WARP_MEMBERS)
+        for a, b in zip(warp, block):
+            assert torch.equal(a, b)
+    assert solve_fused_esdirk_grid.launches == before
+
+
+@pytest.mark.gpu
+def test_wrapper_takes_the_rules_launch_shape_on_card(cuda):
+    """The wrapper launches the rule's shape for the card's SM count, a
+    block at 8 members and the warp body past 4 members an SM, where its
+    outputs equal one block of 32 threads per member bit for bit."""
+    from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for members in (8, FEG.WARP_FROM * sms + 1):
+        y0 = torch.tensor(rdiff_y0(members, N), device=cuda)
+        span = (0.0, 0.01)
+        out = solve_fused_esdirk_grid(RHS["rdiff"], span, y0, **TOL)
+        shape = FEG._launch_shape(members, N, sms)
+        assert solve_fused_esdirk_grid.last_shape == shape
+        assert bool((out[1] == 1).all())
+        if shape[0] == 32:
+            ref, _ = FEG._launch(FEG._kernel(None, RHS["rdiff"]), span, y0,
+                                 shape=(32, 0), **TOL)
+            for a, b in zip(out, ref):
+                assert torch.equal(a, b)

@@ -469,6 +469,76 @@ def test_cuda_tensor_needs_fused_acc(cuda):
                                                              device=cuda))
 
 
+@pytest.mark.parametrize("members,n,shape", [
+    (64, 256, (256, 0)), (264, 256, (256, 0)), (265, 256, (128, 0)),
+    (512, 256, (128, 0)), (529, 256, (32, 4)), (1024, 256, (32, 4)),
+    (8, 100, (128, 0)), (300, 100, (128, 0)), (8, 20, (32, 0))])
+def test_launch_shape_on_132_sms(members, n, shape):
+    """B6's launch shape on the H100's 132 SMs: one block of
+    ``grid_threads(n)`` threads per member up to 2 members an SM, of at
+    most 128 up to 4, one warp per member (four a block) beyond."""
+    from extensisq_tpu_torch.ops.fused_rkn_grid import _launch_shape
+    assert _launch_shape(members, n, 132) == shape
+
+
+GRID_CARD_CASES = [k for k, v in CASES.items() if v[0] == "grid"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", GRID_CARD_CASES)
+def test_rule_shapes_bit_identical_to_block_of_32_on_card(cuda, name):
+    """B6 at each shape its rule can take: one warp per member (four
+    members a block, also with a ragged last block) bit for bit against
+    one block of 32 threads per member; the blocks of 128 and of
+    ``grid_threads(n)`` threads against the plain version at the card
+    gates.  Comparison launches are not counted."""
+    from extensisq_tpu_torch.ops import fused_rkn_grid as FNG
+    from extensisq_tpu_torch.ops.fused_erk_grid import grid_threads
+    kind, prob, meth, span, y0, kw = CASES[name]
+    fun = CARD_PROBLEMS[prob]
+    y0 = torch.tensor(y0, device=cuda)
+    built = FNG._kernel(METHODS[meth], fun)
+    before = solve_fused_rkn_grid.launches
+    for ys in (y0, y0[:7]):
+        block, _ = FNG._launch(built, span, ys, fun.n, shape=(32, 0), **kw)
+        warp, _ = FNG._launch(built, span, ys, fun.n,
+                              shape=(32, FNG.WARP_MEMBERS), **kw)
+        for a, b in zip(warp, block):
+            assert torch.equal(a, b)
+    r = fused_rkn_grid_reference(fun, span, y0, method=METHODS[meth], **kw)
+    for threads in {min(grid_threads(fun.n), 128), grid_threads(fun.n)}:
+        k, _ = FNG._launch(built, span, y0, fun.n, shape=(threads, 0), **kw)
+        assert torch.equal(k[1], r[1])
+        ok = r[1] == 1
+        assert (k[0][ok] - r[0][ok]).abs().max().item() <= CARD_GATES[name]
+    assert solve_fused_rkn_grid.launches == before
+
+
+@pytest.mark.gpu
+def test_wrapper_takes_the_rules_launch_shape_on_card(cuda):
+    """solve_fused_rkn_grid launches its rule's shape for the card's SM
+    count: a block at 16 members, the warp body past 4 members an SM,
+    where its outputs equal one block of 32 threads per member."""
+    from extensisq_tpu_torch.ops import fused_rkn_grid as FNG
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    x = np.linspace(0, 1, N_GRID, endpoint=False)
+    kw = dict(rtol=1e-5, atol=1e-7, first_step=0.05)
+    for members in (16, FNG.WARP_FROM * sms + 1):
+        u0 = (np.linspace(0.5, 1.5, members)[:, None]
+              * np.sin(2 * np.pi * x)[None, :])
+        y0 = torch.tensor(np.concatenate([u0, np.zeros_like(u0)], 1),
+                          dtype=torch.float32, device=cuda)
+        out = solve_fused_rkn_grid(WAVE, (0.0, 0.2), y0, method=Fi5N, **kw)
+        shape = FNG._launch_shape(members, N_GRID, sms)
+        assert solve_fused_rkn_grid.last_shape == shape
+        assert bool((out[1] == 1).all())
+        if shape[0] == 32:
+            ref, _ = FNG._launch(FNG._kernel(Fi5N, WAVE), (0.0, 0.2), y0,
+                                 N_GRID, shape=(32, 0), **kw)
+            for a, b in zip(out, ref):
+                assert torch.equal(a, b)
+
+
 def test_build_keys_hash_the_included_headers(monkeypatch, tmp_path):
     """Each new kernel's build key covers the shared headers it includes
     (directly or through another), and changes when one of them does."""
