@@ -977,31 +977,35 @@ def grid_launch(kind, rhs, span, y0, kw, shape):
 
 def hold_grid_shapes(kind, label, rhs, span, y0, kw, k, shape, r, gates):
     """B7 or B6 on a check whose wrapper run ``k`` took the rule's
-    ``shape``: that run bit for bit against the kernel forced to one block
-    of 32 threads per member (where the rule takes another block size, the
-    warp body is held so instead), and the block of ``grid_threads(n)``
-    threads per member still held against the plain version's run ``r`` at
-    the check's gates."""
+    ``shape`` and was held against the plain version's run ``r``: the
+    warp body (one warp per member, the rule's members a block) and the
+    block of ``grid_threads(n)`` threads per member, each where the rule
+    took another shape, held against ``r`` at the check's ``gates``; the
+    warp body bit for bit against the kernel forced to one block of 32
+    threads per member."""
     from extensisq_tpu_torch import ops
+    mod = (ops.fused_rkn_grid if kind == "fused_rkn_grid"
+           else ops.fused_esdirk_grid)
     nb = y0.shape[0]
     n = rhs.n if kind == "fused_rkn_grid" else y0.shape[1]
-    b32 = grid_launch(kind, rhs, span, y0, kw, (32, 0))
-    held, what = k, "the rule's shape"
-    if shape[0] != 32:
-        warp = (32, ops.fused_erk_grid.WARP_MEMBERS)
-        held = grid_launch(kind, rhs, span, y0, kw, warp)
-        what = grid_shape_text(warp, nb)
-    same = all(torch.equal(a, b) for a, b in zip(held, b32))
+    warp = (32, mod.WARP_MEMBERS)
+    runs = {tuple(shape): k}
     print(f"{kind} [{label}, {nb}]: the rule takes "
-          f"{grid_shape_text(shape, nb)}; {what} bit-identical to one block "
-          f"of 32 threads per member: {same}")
-    check(same, f"{label}: {what} and the block of 32 threads differ")
-    full = (ops.fused_erk_grid.grid_threads(n), 0)
-    if full != (32, 0):
-        hold_against_plain(
-            kind, f"{label}, one block of {full[0]} threads per member",
-            lambda: grid_launch(kind, rhs, span, y0, kw, full), lambda: r,
-            *gates)
+          f"{grid_shape_text(shape, nb)}")
+    for s in (warp, (ops.fused_erk_grid.grid_threads(n), 0)):
+        if s not in runs:
+            runs[s] = hold_against_plain(
+                kind, f"{label}, {grid_shape_text(s, nb)}",
+                lambda s=s: grid_launch(kind, rhs, span, y0, kw, s),
+                lambda: r, *gates)[0]
+    b32 = runs.get((32, 0))
+    if b32 is None:
+        b32 = grid_launch(kind, rhs, span, y0, kw, (32, 0))
+    same = all(torch.equal(a, b) for a, b in zip(runs[warp], b32))
+    print(f"{kind} [{label}, {nb}]: {grid_shape_text(warp, nb)} "
+          f"bit-identical to one block of 32 threads per member: {same}")
+    check(same, f"{label}: the warp body and the block of 32 threads "
+          "differ")
 
 
 # -- the RKC path --------------------------------------------------------------
@@ -1455,15 +1459,18 @@ WAVE_COMP_TOL = dict(rtol=1e-6, atol=1e-9, first_step=0.05,
 # so FMA parts h), kepler_comp 5.3e-5 / 2.1e-3 / 3, cubic 0 / 0 / 0;
 # fisher 2.4e-4 / 6e-5 / 2, fisher_comp 1.8e-5 / 2.0e-3 / 1,
 # fisher_overflow 5.8e-4 / 0 / 0 (B4); wave 1.9e-3 / 2.6e-3 / 3, wave_comp
-# 5.9e-5 / 5.6e-3 / 4, wave_overflow 2.3e-5 / 0 / 0 (B6).  The gates keep a
-# margin of 2-4x, at least 1e-3 on mean steps and 1 on max steps
+# 5.9e-5 / 5.6e-3 / 4, wave_overflow 2.3e-5 / 0 / 0 (B6); wave1024 (the
+# warp body, 1,024 members: the max over members grows with their number)
+# 2.6e-3 / 1.1e-3 / 7.  The gates keep a margin of 2-4x, at least 1e-3 on
+# mean steps and 1 on max steps
 RKN_KERNEL_GATES = {"kepler": (1e-3, 5e-3, 3),
                     "kepler_comp": (2e-4, 6e-3, 6),
                     "cubic": (1e-6, 1e-3, 1), "fisher": (1e-3, 1e-3, 4),
                     "fisher_comp": (6e-5, 6e-3, 3),
                     "fisher_overflow": (2e-3, 1e-3, 1),
                     "wave": (5e-3, 8e-3, 6), "wave_comp": (2e-4, 1.5e-2, 8),
-                    "wave_overflow": (1e-4, 1e-3, 1)}
+                    "wave_overflow": (1e-4, 1e-3, 1),
+                    "wave1024": (5e-3, 8e-3, 14)}
 # the lines against the f64 driver: config 1b's endpoint gate 1e-3
 # (validation/benchmarks.py:100); the wave's 5e-3 and mean nsteps within
 # 10% + 2 (tests/test_fused_pallas.py:1407-1414), which that test sets at
@@ -1929,9 +1936,17 @@ def rkn_grid_path():
     w_large = wave_y0(WAVE_M_LARGE, WAVE_N)
     out = run_wav(WAVE_TOL, w_large)()
     check(bool((out[1] == 1).all()), "wave1024: not all finished")
+    large_shape = ops.solve_fused_rkn_grid.last_shape
+    shape = grid_shape_text(large_shape, WAVE_M_LARGE)
+    _, r, _, _ = hold_against_plain(
+        "fused_rkn_grid", "wave1024", lambda: out,
+        lambda: ops.fused_rkn_grid_reference(R["wave"], WAVE_SPAN, w_large,
+                                             method=Fi5N, **WAVE_TOL),
+        *RKN_KERNEL_GATES["wave1024"])
+    hold_grid_shapes("fused_rkn_grid", "wave1024", R["wave"], WAVE_SPAN,
+                     w_large, dict(WAVE_TOL, method=Fi5N), out, large_shape,
+                     r, RKN_KERNEL_GATES["wave1024"])
     ms = event_ms(run_wav(WAVE_TOL, w_large))
-    shape = grid_shape_text(ops.solve_fused_rkn_grid.last_shape,
-                            WAVE_M_LARGE)
     print(f"fused_rkn_grid kernel wave1024 ({shape}): {ms:.3f} ms, "
           f"{int(out[2].sum()) / ms * 1e3:.4g} accepted steps/s")
     print(f"wave256x64 B6 ran at {grid_shape_text(wave_shape, WAVE_M)}")
@@ -2783,10 +2798,20 @@ def mid_path():
             ("rdiff1024 B7", rdiff_y0(GRID_LARGE, RD_N), run_rd)):
         out = run(y_large)()
         check(bool((out[1] == 1).all()), f"{label}: not all finished")
-        ms = event_ms(run(y_large))
         shape = (grid_shape_text(ops.solve_fused_esdirk_grid.last_shape,
                                  GRID_LARGE) if run is run_rd
                  else f"{GRID_LARGE} blocks")
+        if run is run_rd:
+            kind = "fused_esdirk_grid"
+            _, r, _, _ = hold_against_plain(
+                kind, "rdiff1024", lambda: out,
+                lambda: kinds[kind][1](R["rdiff"], RD_SPAN, y_large,
+                                       **RD_TOL), *MID_KERNEL_GATES["rd4d"])
+            hold_grid_shapes(kind, "rdiff1024", R["rdiff"], RD_SPAN, y_large,
+                             RD_TOL, out,
+                             ops.solve_fused_esdirk_grid.last_shape, r,
+                             MID_KERNEL_GATES["rd4d"])
+        ms = event_ms(run(y_large))
         print(f"time [{label}] ({shape}): {ms:.3f} ms device, "
               f"{int(out[2].sum()) / ms * 1e3:.4g} accepted steps/s")
         if run is run_heat:

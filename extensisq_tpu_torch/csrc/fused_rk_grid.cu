@@ -619,17 +619,21 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // One warp per member, blockDim.x / 32 members a block, each warp on its own
 // kFloats of the dynamic shared memory; a warp past the ensemble returns at
-// once (no block barrier waits for it).
+// once (no block barrier waits for it).  The RKN family only (B6): the ERK
+// and CKdisc builds compile an empty body, and their launch refuses a warp.
 template <bool COMP>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_rk_grid_warp_kernel(const float* __restrict__ y0, Launch L, Out out,
                               int members) {
-  extern __shared__ float sm[];
-  const int warp = static_cast<int>(threadIdx.x >> 5);
-  const int member = static_cast<int>(blockIdx.x * (blockDim.x >> 5)) + warp;
-  if (member >= members) return;
-  WarpGroup g;
-  member_body<COMP>(g, sm + warp * kFloats, y0, L, member, out);
+  if constexpr (RKN) {
+    extern __shared__ float sm[];
+    const int warp = static_cast<int>(threadIdx.x >> 5);
+    const int member =
+        static_cast<int>(blockIdx.x * (blockDim.x >> 5)) + warp;
+    if (member >= members) return;
+    WarpGroup g;
+    member_body<COMP>(g, sm + warp * kFloats, y0, L, member, out);
+  }
 }
 
 // Allows `bytes` of dynamic shared memory where it is above 48 KB.
@@ -656,9 +660,9 @@ extern "C" int fused_rk_grid_smem(int* need, int* limit) {
 // code; the wrapper raises on anything but 0.  warp_members = 0: one block
 // of `threads` (a multiple of 32, at most kMaxThreads) per member;
 // warp_members = P >= 1: one warp per member, P members a block of 32 P
-// threads (threads must be 32, P at most kMaxThreads / 32; another shape is
-// cudaErrorInvalidValue).  The members' rows are dynamic shared memory
-// (above 48 KB after cudaFuncSetAttribute).
+// threads (RKN only; threads must be 32, P at most kMaxThreads / 32; another
+// shape is cudaErrorInvalidValue).  The members' rows are dynamic shared
+// memory (above 48 KB after cudaFuncSetAttribute).
 extern "C" int fused_rk_grid_launch(const void* y0, void* y_out, void* status,
                                     void* nstep, void* nfev, int members,
                                     float t0, float tf, float dir, float rtol,
@@ -674,7 +678,7 @@ extern "C" int fused_rk_grid_launch(const void* y0, void* y_out, void* status,
   const float* y0f = static_cast<const float*>(y0);
   const int member_bytes = static_cast<int>(kFloats * sizeof(float));
   if (warp_members > 0) {
-    if (threads != 32 || warp_members > kMaxThreads / 32) {
+    if (!RKN || threads != 32 || warp_members > kMaxThreads / 32) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const int bytes = warp_members * member_bytes;

@@ -27,11 +27,6 @@ from .fused_rkc import FusedGridRHS
 # the most threads of a block; a member of n states gets ceil(n / 32) warps
 # up to this bound, one element per thread where n allows
 MAX_THREADS = 256
-# the warp-per-member bodies of B6 and B7: members per block, and the
-# members per SM above which their rules take them (an SM issues from four
-# warp schedulers, so a warp per member fills it from four members on)
-WARP_MEMBERS = 4
-WARP_FROM = 4
 
 
 def grid_threads(n):

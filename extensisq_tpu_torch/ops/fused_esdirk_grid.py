@@ -48,9 +48,8 @@ import torch
 
 from .._device import as_input
 from .fused_erk import check_options
-from .fused_erk_grid import (WARP_FROM, WARP_MEMBERS, _state_size,
-                             check_grid_input, check_shared_memory, fit_shape,
-                             grid_threads)
+from .fused_erk_grid import (_state_size, check_grid_input,
+                             check_shared_memory, fit_shape, grid_threads)
 from .fused_esdirk import (_esdirk_consts, _f32, _start_step, _tiny_err,
                            run_esdirk_loop)
 from .fused_rkc import FusedGridRHS
@@ -179,27 +178,45 @@ def fused_esdirk_grid_reference(fun, t_span, y0_batch, method=None, M=None,
     return y.T.contiguous(), status, nstep, nfev
 
 
+# the shapes of :func:`_launch_shape` for large ensembles: the members an SM
+# above which it leaves one block of one element a thread (an SM issues
+# from four warp schedulers, so a warp per member fills it from four members
+# on), the members a block of the warp body, and the largest n the warp is
+# taken at (beyond it the swept sizes ran faster on blocks)
+WARP_FROM = 4
+WARP_MEMBERS = 4
+WARP_MAX_N = 128
+
+
 def _launch_shape(B, n, sm_count):
     """The launch shape for ``B`` members of ``n`` states on a card of
-    ``sm_count`` SMs: one warp per member, ``(32, WARP_MEMBERS)`` (four
-    members a block), where the ensemble gives every SM more than
-    ``WARP_FROM`` (4) members; else one block of ``grid_threads(n)``
-    threads per member, ``(threads, 0)``.
+    ``sm_count`` SMs: one block of ``grid_threads(n)`` threads per member,
+    ``(threads, 0)``, where the ensemble gives every SM at most
+    ``WARP_FROM`` (4) members; beyond, one warp per member, ``(32,
+    WARP_MEMBERS)`` (four members a block), where n is at most
+    ``WARP_MAX_N``, else one block of two elements a thread,
+    ``grid_threads(ceil(n / 2))``.
 
     A warp runs its member on one of an SM's four schedulers, with no
-    barrier; a block of 128 spreads it over all four and waits at its
-    barriers, so the warp wins once the members fill the schedulers.  From
-    the sweep of config 4d's line (n = 128, Kv3I;
-    ``tools/probe_fused_esdirk_grid.py``) on an H100 (132 SMs, 700 W),
-    device ms of one block of 32 / 64 / 128 threads per member against
-    one warp per member at 1 / 2 / 4 members a block: 32 members 2.650 /
-    1.735 / 1.474 against 1.652 / 1.652 / 1.684; 256 members 2.899 /
-    1.985 / 1.505 against 1.852 / 1.832 / 1.826; 512 members 2.930 /
-    1.954 / 1.772 against 1.892 / 1.885 / 1.903; 1,024 members 3.145 /
-    2.489 / 2.629 against 2.302 / 2.312 / 2.303."""
-    if int(B) > WARP_FROM * int(sm_count):
+    barrier; a block spreads it over all four and waits at its barriers,
+    which contend once several blocks share an SM.  From the sweeps of
+    config 4d's line (Kv3I; ``tools/probe_fused_esdirk_grid.py``) on an
+    H100 (132 SMs, 700 W), device ms.  At n = 128, one block of 32 / 64 /
+    128 threads per member against one warp per member at 1 / 2 / 4
+    members a block: 32 members 2.650 / 1.735 / 1.474 against 1.652 /
+    1.652 / 1.684; 256 members 2.899 / 1.985 / 1.505 against 1.852 / 1.832
+    / 1.826; 512 members 2.930 / 1.954 / 1.772 against 1.892 / 1.885 /
+    1.903; 1,024 members 3.145 / 2.489 / 2.629 against 2.302 / 2.312 /
+    2.303.  At 1,024 members, blocks of 128 / 256 threads against the warp
+    at 1 / 2 / 4 a block: n = 256 14.209 / 16.037 against 22.367 / 22.634
+    / 22.838; n = 512 100.884 / 84.957 against 224.267 / 224.960 (four
+    do not fit; the warp spills, 8 and 16 elements a lane)."""
+    B, n, sm_count = int(B), int(n), int(sm_count)
+    if B <= WARP_FROM * sm_count:
+        return grid_threads(n), 0
+    if n <= WARP_MAX_N:
         return 32, WARP_MEMBERS
-    return grid_threads(n), 0
+    return grid_threads(-(-n // 2)), 0
 
 
 def _kernel(method, fun):
@@ -265,20 +282,21 @@ def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
         return fused_esdirk_grid_reference(fun, t_span, y0, **kw)
     n = _state_size(fun) if isinstance(fun, FusedGridRHS) else -1
     check_grid_input("solve_fused_esdirk_grid", y0, n, FusedGridRHS, fun)
-    out, shape = _launch(_kernel(method, fun), t_span, y0, **kw)
-    solve_fused_esdirk_grid.launches += int(y0.shape[0] > 0)
+    out, shape = _launch(_kernel(method, fun), t_span, y0, count=True,
+                         **kw)
     solve_fused_esdirk_grid.last_shape = shape
     return out
 
 
 def _launch(built, t_span, y0, method=None, M=None, yp0_batch=None,
             rtol=1e-4, atol=1e-6, first_step=None, max_steps=100_000,
-            compensated=False, max_step=None, shape=None):
+            compensated=False, max_step=None, shape=None, count=False):
     """Launch ``csrc/fused_esdirk_grid.cu`` on the current stream at
     ``shape`` (None: :func:`_launch_shape`'s, its P capped by the card's
-    shared memory; a given shape is taken as it is, for comparisons); raise
-    before launch when the members' rows do not fit in the card's shared
-    memory.  Returns the four outputs and the shape taken."""
+    shared memory; a given shape is taken as it is, for comparisons),
+    counted where ``count``; raise before launch when the members' rows do
+    not fit in the card's shared memory.  Returns the four outputs and the
+    shape taken."""
     nb, n = y0.shape
     m_diag = _mass_diag(M, n)
     if m_diag is not None and yp0_batch is None and np.any(m_diag == 0.0):
@@ -324,6 +342,7 @@ def _launch(built, t_span, y0, method=None, M=None, yp0_batch=None,
     if rc != 0:
         raise RuntimeError(
             f"fused_esdirk_grid kernel launch failed: CUDA error {rc}")
+    solve_fused_esdirk_grid.launches += int(count)
     return (y_out, status, nsteps, nfev), shape
 
 

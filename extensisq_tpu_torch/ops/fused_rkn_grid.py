@@ -19,8 +19,8 @@ import torch
 
 from .._device import as_input
 from .fused_erk import check_options
-from .fused_erk_grid import (WARP_FROM, WARP_MEMBERS, check_grid_input,
-                             fit_shape, grid_threads, launch_grid)
+from .fused_erk_grid import (check_grid_input, fit_shape, grid_threads,
+                             launch_grid)
 from .fused_rkn import _state, rkn_consts, run_rkn_loop
 
 
@@ -59,30 +59,47 @@ def fused_rkn_grid_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                         max_step)
 
 
+# the shapes of :func:`_launch_shape` for large ensembles: the members an SM
+# above which it leaves one block of one element a thread, and above which
+# it takes the warp body (an SM issues from four warp schedulers, so a warp
+# per member fills it from four members on), the members a block of the
+# warp body, and the largest n the warp is taken at (beyond it the swept
+# sizes ran faster on blocks)
+HALF_FROM = 2
+WARP_FROM = 4
+WARP_MEMBERS = 4
+WARP_MAX_N = 256
+
+
 def _launch_shape(B, n, sm_count):
     """The launch shape for ``B`` members of ``n`` positions on a card of
-    ``sm_count`` SMs: one warp per member, ``(32, WARP_MEMBERS)`` (four
-    members a block), where the ensemble gives every SM more than
-    ``WARP_FROM`` (4) members; else one block per member, ``(threads,
-    0)``, of ``grid_threads(n)`` threads where it gives at most 2 and of
-    at most 128 between.
+    ``sm_count`` SMs: one block of ``grid_threads(n)`` threads per member,
+    ``(threads, 0)``, where the ensemble gives every SM at most
+    ``HALF_FROM`` (2) members; one warp per member, ``(32, WARP_MEMBERS)``
+    (four members a block), where it gives more than ``WARP_FROM`` (4) and
+    n is at most ``WARP_MAX_N``; else one block of two positions a thread,
+    ``grid_threads(ceil(n / 2))``.
 
     A warp runs its member on one of an SM's four schedulers, with no
     barrier; blocks spread a member over them and wait at their barriers,
-    which contend once several blocks share an SM.  From the sweep of the
-    wave (n = 256, Fi5N; ``tools/probe_fused_rk_grid.py``) on an H100 (132
-    SMs, 700 W), device ms plain / compensated of one block of 128 and of
+    which contend once several blocks share an SM.  From the sweeps of the
+    wave (Fi5N; ``tools/probe_fused_rk_grid.py``) on an H100 (132 SMs, 700
+    W), device ms plain / compensated.  At n = 256, one block of 128 and of
     256 threads per member against one warp per member at 4 members a
     block: 64 members 0.228 / 1.142 and 0.220 / 1.033 against 0.250 /
     1.781; 256 members 0.229 / 1.178 and 0.212 / 1.097 against 0.247 /
     1.931; 512 members 0.246 / 1.459 and 0.280 / 1.679 against 0.255 /
     1.958; 1,024 members 0.369 / 2.441 and 0.480 / 3.017 against 0.276 /
-    2.127."""
-    B, sm_count = int(B), int(sm_count)
-    if B > WARP_FROM * sm_count:
+    2.127.  At 1,024 members, blocks of 128 and of 256 threads against the
+    warp at 1 / 4 a block: n = 512 1.025 / 12.744 and 0.904 / 11.685
+    against 1.112 / 21.053 and 1.052 / 18.047; n = 1024 3.131 / 73.281 and
+    2.870 / 66.205 against 4.431 / 274.456 (four do not fit)."""
+    B, n, sm_count = int(B), int(n), int(sm_count)
+    if B <= HALF_FROM * sm_count:
+        return grid_threads(n), 0
+    if n <= WARP_MAX_N and B > WARP_FROM * sm_count:
         return 32, WARP_MEMBERS
-    full = grid_threads(n)
-    return (full if B <= 2 * sm_count else min(full, 128)), 0
+    return grid_threads(-(-n // 2)), 0
 
 
 def _kernel(method, fun):

@@ -420,11 +420,13 @@ def test_block_base_raises_naming_a16():
 @pytest.mark.parametrize("members,n,shape", [
     (8, N, (128, 0)), (32, N, (128, 0)), (256, N, (128, 0)),
     (528, N, (128, 0)), (529, N, (32, 4)), (1024, N, (32, 4)),
-    (8, N_SMALL, (32, 0)), (4096, N_SMALL, (32, 4)), (8, 300, (256, 0))])
+    (8, N_SMALL, (32, 0)), (4096, N_SMALL, (32, 4)), (8, 300, (256, 0)),
+    (1024, 256, (128, 0)), (1024, 300, (160, 0)), (1024, 512, (256, 0))])
 def test_launch_shape_on_132_sms(members, n, shape):
     """The rule's launch shape on the H100's 132 SMs: one block of
     ``grid_threads(n)`` threads per member up to 4 members an SM, one warp
-    per member (four a block) beyond."""
+    per member (four a block) beyond where n is at most 128, else blocks
+    of two elements a thread."""
     from extensisq_tpu_torch.ops.fused_esdirk_grid import _launch_shape
     assert _launch_shape(members, n, 132) == shape
 
@@ -516,9 +518,10 @@ def test_warp_body_bit_identical_to_block_of_32_on_card(cuda, name):
     """The rule's warp shape, one warp per member and four members a block,
     equals one block of 32 threads per member bit for bit, on all members
     and on the first 7 (a ragged last block, whose absent warp nobody
-    waits for); the block shape the rule takes for these ensembles is held
-    against the plain version by test_kernel_matches_plain_version_on_card.
-    Comparison launches are not counted."""
+    waits for), and is held against the plain version at the card gates
+    (the block shape the rule takes for these ensembles is held so by
+    test_kernel_matches_plain_version_on_card).  Comparison launches are
+    not counted."""
     from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
     fun, span, y0, kw = _card_case(name, cuda)
     built = FEG._kernel(kw["method"], fun)
@@ -534,6 +537,11 @@ def test_warp_body_bit_identical_to_block_of_32_on_card(cuda, name):
         assert shape_b == (32, 0) and shape_w == (32, FEG.WARP_MEMBERS)
         for a, b in zip(warp, block):
             assert torch.equal(a, b)
+        r = fused_esdirk_grid_reference(fun, span, ys, **kk)
+        assert torch.equal(warp[1], r[1])
+        ok = r[1] == 1
+        assert ((warp[0][ok] - r[0][ok]).abs().max().item()
+                <= CARD_GATES[name])
     assert solve_fused_esdirk_grid.launches == before
 
 

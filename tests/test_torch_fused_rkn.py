@@ -472,11 +472,13 @@ def test_cuda_tensor_needs_fused_acc(cuda):
 @pytest.mark.parametrize("members,n,shape", [
     (64, 256, (256, 0)), (264, 256, (256, 0)), (265, 256, (128, 0)),
     (512, 256, (128, 0)), (529, 256, (32, 4)), (1024, 256, (32, 4)),
-    (8, 100, (128, 0)), (300, 100, (128, 0)), (8, 20, (32, 0))])
+    (8, 100, (128, 0)), (300, 100, (64, 0)), (8, 20, (32, 0)),
+    (64, 512, (256, 0)), (1024, 512, (256, 0)), (1024, 1024, (256, 0))])
 def test_launch_shape_on_132_sms(members, n, shape):
     """B6's launch shape on the H100's 132 SMs: one block of
-    ``grid_threads(n)`` threads per member up to 2 members an SM, of at
-    most 128 up to 4, one warp per member (four a block) beyond."""
+    ``grid_threads(n)`` threads per member up to 2 members an SM, of two
+    positions a thread up to 4, one warp per member (four a block) beyond
+    where n is at most 256, else blocks of two positions a thread."""
     from extensisq_tpu_torch.ops.fused_rkn_grid import _launch_shape
     assert _launch_shape(members, n, 132) == shape
 
@@ -489,8 +491,8 @@ GRID_CARD_CASES = [k for k, v in CASES.items() if v[0] == "grid"]
 def test_rule_shapes_bit_identical_to_block_of_32_on_card(cuda, name):
     """B6 at each shape its rule can take: one warp per member (four
     members a block, also with a ragged last block) bit for bit against
-    one block of 32 threads per member; the blocks of 128 and of
-    ``grid_threads(n)`` threads against the plain version at the card
+    one block of 32 threads per member; the warp and the blocks of one
+    and of two positions a thread against the plain version at the card
     gates.  Comparison launches are not counted."""
     from extensisq_tpu_torch.ops import fused_rkn_grid as FNG
     from extensisq_tpu_torch.ops.fused_erk_grid import grid_threads
@@ -506,8 +508,9 @@ def test_rule_shapes_bit_identical_to_block_of_32_on_card(cuda, name):
         for a, b in zip(warp, block):
             assert torch.equal(a, b)
     r = fused_rkn_grid_reference(fun, span, y0, method=METHODS[meth], **kw)
-    for threads in {min(grid_threads(fun.n), 128), grid_threads(fun.n)}:
-        k, _ = FNG._launch(built, span, y0, fun.n, shape=(threads, 0), **kw)
+    for shape in {(32, FNG.WARP_MEMBERS), (grid_threads(-(-fun.n // 2)), 0),
+                  (grid_threads(fun.n), 0)}:
+        k, _ = FNG._launch(built, span, y0, fun.n, shape=shape, **kw)
         assert torch.equal(k[1], r[1])
         ok = r[1] == 1
         assert (k[0][ok] - r[0][ok]).abs().max().item() <= CARD_GATES[name]

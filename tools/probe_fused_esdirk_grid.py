@@ -18,7 +18,10 @@ kernel only).  Each shape's outputs (y, status, nsteps, nfev) are held
 bit for bit against the old kernel at the same block size (a warp against
 the old block of 32 threads); so are chip_smoke.py's B7 cases (rd_kv3i,
 rd_trbdf2, rd_comp, dae, dirichlet_back, cubic_overflow) at every shape.
-Prints the shape the wrapper's rule takes at each size.
+Prints the shape the wrapper's rule takes at each size.  With --n the
+line's members have n states instead of 128 (the same problem on a finer
+grid), and a warp shape whose members do not fit a block's shared memory
+is left out.
 
 With --sections, the current source is also built with
 FUSED_ESDIRK_GRID_SECTIONS, whose SM clock counters
@@ -54,6 +57,8 @@ from extensisq_tpu_torch import Kv3I, TRBDF2
 from extensisq_tpu_torch.ops import _build
 from extensisq_tpu_torch.ops import fused_esdirk as FE
 from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
+from extensisq_tpu_torch.ops.fused_erk_grid import shared_memory
+from extensisq_tpu_torch.ops.fused_rkc import FusedGridRHS
 
 SECTIONS = ("bands", "factor", "newton_rhs", "replay", "newton_test",
             "stage", "error", "control")
@@ -158,10 +163,17 @@ def rule_shape(B, n):
     return rule(B, n, sms) if rule else (FEG.grid_threads(n), 0)
 
 
-def sweep(builds, sizes, old_threads, shapes, n_turns):
+def fits(b, shape):
+    """Whether ``shape``'s members fit a block's shared memory."""
+    need, limit = shared_memory("probe", b["lib"].fused_esdirk_grid_smem)
+    return need * max(1, shape[1]) <= limit
+
+
+def sweep(builds, sizes, old_threads, shapes, n_turns, n):
     res = {}
+    shapes = [s for s in shapes if fits(builds["new"], parse_shape(s))]
     for B in sizes:
-        y0 = CS.rdiff_y0(B, CS.RD_N)
+        y0 = CS.rdiff_y0(B, n)
         kw = dict(CS.RD_TOL)
         runs = [(f"old b{t}", lambda t=t: launch(builds["old"], CS.RD_SPAN,
                                                  y0, (t, 0), **kw))
@@ -171,10 +183,11 @@ def sweep(builds, sizes, old_threads, shapes, n_turns):
             for s in shapes]
         times, outs = turns(runs, n_turns)
         ref = outs[runs[0][0]]
-        r = {"rule": rule_shape(B, CS.RD_N), "max_nsteps": int(ref[2].max()),
+        r = {"n": n, "rule": rule_shape(B, n),
+             "max_nsteps": int(ref[2].max()),
              "mean_nsteps": float(ref[2].double().mean()),
              "mean_nfev": float(ref[3].double().mean())}
-        print(f"b7 B={B}: the wrapper takes {r['rule']}; status "
+        print(f"b7 n={n} B={B}: the wrapper takes {r['rule']}; status "
               f"{torch.unique(ref[1]).tolist()}, max nsteps "
               f"{r['max_nsteps']}, mean nsteps {r['mean_nsteps']:.2f}, mean "
               f"nfev {r['mean_nfev']:.1f}")
@@ -185,12 +198,13 @@ def sweep(builds, sizes, old_threads, shapes, n_turns):
             twin = f"old b{threads}"
             same = (equal(outs[label], outs[twin]) if twin in outs
                     else None)
-            print(f"  b7 B={B} {label}: {' '.join(f'{x:.4f}' for x in t)} ms "
+            print(f"  b7 n={n} B={B} {label}: "
+                  f"{' '.join(f'{x:.4f}' for x in t)} ms "
                   f"(median {med:.4f}), {med / r['max_nsteps'] * 1e3:.3f} us"
                   f" per step of the slowest member; bit-identical to "
                   f"{twin} {same}")
             r[label] = {"ms": t, "median_ms": med, "bit_identical": same}
-        res[str(B)] = r
+        res[str(B) if n == CS.RD_N else f"n{n}/{B}"] = r
     return res
 
 
@@ -217,10 +231,10 @@ def case_checks(builds, old_threads, shapes):
     return res
 
 
-def sections(b, sizes, shapes):
+def sections(b, sizes, shapes, n):
     res = {}
     for B in sizes:
-        y0 = CS.rdiff_y0(B, CS.RD_N)
+        y0 = CS.rdiff_y0(B, n)
         buf = torch.zeros(B, SLOTS, dtype=torch.int32, device="cuda")
         rc = b["lib"].fused_esdirk_grid_sections(buf.data_ptr())
         if rc:
@@ -283,6 +297,8 @@ def main():
                     help="shapes of the section breakdown")
     ap.add_argument("--no-cases", action="store_true",
                     help="skip chip_smoke.py's B7 cases")
+    ap.add_argument("--n", type=int, default=CS.RD_N,
+                    help="states of the line's members")
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--tag", default="probe_b7", help="output file name")
     args = ap.parse_args()
@@ -293,7 +309,13 @@ def main():
     OUT["card"] = smi
     print("SMs", torch.cuda.get_device_properties(0).multi_processor_count,
           "torch", torch.__version__, torch.version.cuda)
+    if args.n != CS.RD_N and not args.no_cases:
+        print(f"--n {args.n}: chip_smoke.py's B7 cases are left out (their"
+              f" reaction-diffusion has {CS.RD_N} states)")
+        args.no_cases = True
     rhs = CS.mid_rhs()
+    rhs["rdiff"] = FusedGridRHS(CS.rdiff_mol(args.n), CS._rdiff_cuda(args.n),
+                                (args.n,))
     headers = {k: _build.fused_esdirk_grid_header(
         FE._esdirk_consts(m), rhs[r].shape, rhs[r].cuda_src)
         for k, (r, m) in BUILDS.items()}
@@ -330,11 +352,11 @@ def main():
     if args.sections:
         OUT["sections"] = sections(
             builds["sections"], [int(x) for x in args.sections.split(",")],
-            args.section_shapes.split(","))
+            args.section_shapes.split(","), args.n)
     if not args.no_cases:
         OUT["cases"] = case_checks(builds, old_threads, shapes)
     OUT["sweep"] = sweep(builds, [int(x) for x in args.sizes.split(",")],
-                         old_threads, shapes, args.turns)
+                         old_threads, shapes, args.turns, args.n)
     write_out(args.tag, OUT)
     print(smi)
     return 0

@@ -19,8 +19,10 @@ events around the launch alone; each shape's outputs (y, status, nsteps,
 nfev) are held bit for bit against the old kernel at the same block size
 (a warp against the old block of 32 threads).  B4 (fisher256x64, BS5) and
 B12 (ckmol256x64) run at their wrapper's block size, old against new,
-timed in turns and held bit for bit.  Prints the shape the RKN wrapper's
-rule takes at each size, registers and spills of every build; writes
+timed in turns and held bit for bit.  With --n the wave has n positions
+instead of 256, and a warp shape whose members do not fit a block's shared
+memory is left out.  Prints the shape the RKN wrapper's rule takes at each
+size, registers and spills of every build; writes
 chiprun_out/<--tag>.json.
 
     git archive <commit> extensisq_tpu_torch/csrc | tar -x -C <dir>
@@ -45,7 +47,8 @@ from extensisq_tpu_torch.ops import _build
 from extensisq_tpu_torch.ops import fused_erk as FK
 from extensisq_tpu_torch.ops import fused_rkn_grid as FNG
 from extensisq_tpu_torch.ops.fused_ckdisc import ck_consts
-from extensisq_tpu_torch.ops.fused_erk_grid import grid_threads
+from extensisq_tpu_torch.ops.fused_erk_grid import (grid_threads,
+                                                    shared_memory)
 from extensisq_tpu_torch.ops.fused_rkn import rkn_consts
 
 OUT = {}
@@ -104,10 +107,17 @@ def rule_shape(B, n):
     return rule(B, n, sms) if rule else (grid_threads(n), 0)
 
 
-def wave_sweep(builds, sizes, old_threads, shapes, n_turns):
+def fits(b, shape):
+    """Whether ``shape``'s members fit a block's shared memory."""
+    need, limit = shared_memory("probe", b["lib"].fused_rk_grid_smem)
+    return need * max(1, shape[1]) <= limit
+
+
+def wave_sweep(builds, sizes, old_threads, shapes, n_turns, n):
     res = {}
+    shapes = [s for s in shapes if fits(builds["new wave"], parse_shape(s))]
     for B in sizes:
-        y0 = CS.wave_y0(B, CS.WAVE_N)
+        y0 = CS.wave_y0(B, n)
         for mode, tol in (("plain", CS.WAVE_TOL),
                           ("compensated", CS.WAVE_COMP_TOL)):
             runs = [(f"old b{t}", lambda t=t, tol=tol: launch(
@@ -118,10 +128,10 @@ def wave_sweep(builds, sizes, old_threads, shapes, n_turns):
                 for s in shapes]
             times, outs = turns(runs, n_turns)
             ref = outs[runs[0][0]]
-            r = {"rule": rule_shape(B, CS.WAVE_N),
+            r = {"n": n, "rule": rule_shape(B, n),
                  "max_nsteps": int(ref[2].max()),
                  "mean_nsteps": float(ref[2].double().mean())}
-            print(f"b6 wave{CS.WAVE_N}x{B} {mode}: the wrapper takes "
+            print(f"b6 wave{n}x{B} {mode}: the wrapper takes "
                   f"{r['rule']}; status {torch.unique(ref[1]).tolist()}, max"
                   f" nsteps {r['max_nsteps']}, mean {r['mean_nsteps']:.2f}")
             for label, _ in runs:
@@ -130,13 +140,14 @@ def wave_sweep(builds, sizes, old_threads, shapes, n_turns):
                 twin = f"old b{parse_shape(label.split()[1])[0]}"
                 same = (equal(outs[label], outs[twin]) if twin in outs
                         else None)
-                print(f"  b6 wave{CS.WAVE_N}x{B} {mode} {label}: "
+                print(f"  b6 wave{n}x{B} {mode} {label}: "
                       f"{' '.join(f'{x:.4f}' for x in t)} ms (median "
                       f"{med:.4f}), {med / r['max_nsteps'] * 1e3:.3f} us per "
                       f"step of the slowest member; bit-identical to {twin} "
                       f"{same}")
                 r[label] = {"ms": t, "median_ms": med, "bit_identical": same}
-            res[f"{B}/{mode}"] = r
+            key = f"{B}/{mode}"
+            res[key if n == CS.WAVE_N else f"n{n}/{key}"] = r
     return res
 
 
@@ -177,6 +188,8 @@ def main():
     ap.add_argument("--shapes", default="",
                     help="shapes of the current kernel (b<T>, w<P>); "
                     "default: the old block sizes")
+    ap.add_argument("--n", type=int, default=CS.WAVE_N,
+                    help="positions of the wave")
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--tag", default="probe_b6", help="output file name")
     args = ap.parse_args()
@@ -190,7 +203,7 @@ def main():
     rhs = dict(CS.rkn_grid_rhs(), ckmol=CS.ckdisc_rhs()["ckmol"])
     headers = {
         "wave": _build.fused_rk_grid_header(rkn_consts(Fi5N), True,
-                                            (rhs["wave"].n,),
+                                            (args.n,),
                                             rhs["wave"].cuda_src),
         "fisher": _build.fused_rk_grid_header(
             FK._fused_consts(BS5), False, rhs["fisher"].shape,
@@ -217,7 +230,7 @@ def main():
               else [f"b{t}" for t in old_threads])
     OUT["siblings"] = siblings(builds, args.turns)
     OUT["wave"] = wave_sweep(builds, [int(x) for x in args.sizes.split(",")],
-                             old_threads, shapes, args.turns)
+                             old_threads, shapes, args.turns, args.n)
     write_out(args.tag, OUT)
     print(smi)
     return 0
