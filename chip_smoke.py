@@ -953,7 +953,7 @@ def shape_text(wrapper, nb):
 
 def grid_shape_text(shape, nb):
     """A mid-size kernel's launch shape ``(threads, warp members)`` for
-    ``nb`` members (B7, B6)."""
+    ``nb`` members (B7, B6, B4, B12)."""
     threads, warp = shape
     if warp:
         return (f"one warp per member, {warp} members per block "
@@ -962,8 +962,10 @@ def grid_shape_text(shape, nb):
 
 
 def grid_launch(kind, rhs, span, y0, kw, shape):
-    """B7 or B6 forced to ``shape`` (a comparison launch, not counted):
-    (y, status, nsteps, nfev)."""
+    """B7, B6, B4 or B12 forced to ``shape`` (a comparison launch, not
+    counted): (y, status, nsteps, nfev)."""
+    from extensisq_tpu_torch.ops import fused_ckdisc_grid as FCG
+    from extensisq_tpu_torch.ops import fused_erk_grid as FKG
     from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
     from extensisq_tpu_torch.ops import fused_rkn_grid as FNG
     kw = dict(kw)
@@ -971,33 +973,47 @@ def grid_launch(kind, rhs, span, y0, kw, shape):
     if kind == "fused_esdirk_grid":
         return FEG._launch(FEG._kernel(method, rhs), span, y0, method=method,
                            shape=shape, **kw)[0]
+    if kind == "fused_erk_grid":
+        return FKG._launch(FKG._kernel(method, rhs), span, y0, y0.shape[1],
+                           shape=shape, **kw)[0]
+    if kind == "fused_ckdisc_grid":
+        return FCG._launch(FCG._kernel(rhs), span, y0, y0.shape[1],
+                           shape=shape, **kw)[0]
     return FNG._launch(FNG._kernel(method, rhs), span, y0, rhs.n,
                        shape=shape, **kw)[0]
 
 
 def hold_grid_shapes(kind, label, rhs, span, y0, kw, k, shape, r, gates):
-    """B7 or B6 on a check whose wrapper run ``k`` took the rule's
-    ``shape`` and was held against the plain version's run ``r``: the
-    warp body (one warp per member, the rule's members a block) and the
-    block of ``grid_threads(n)`` threads per member, each where the rule
-    took another shape, held against ``r`` at the check's ``gates``; the
-    warp body bit for bit against the kernel forced to one block of 32
-    threads per member."""
+    """B7, B6, B4 or B12 on a check whose wrapper run ``k`` took the
+    rule's ``shape`` and was held against the plain version's run ``r``:
+    the warp body (one warp per member, the rule's members a block) and
+    the block of ``grid_threads(n)`` threads per member (B12, which has no
+    warp body: that block and the rule's block for large ensembles), each
+    where the rule took another shape, held against ``r`` at the check's
+    ``gates`` (or the shape's own, ``GRID_SHAPE_GATES``); the warp body bit
+    for bit against the kernel forced to one block of 32 threads per
+    member."""
     from extensisq_tpu_torch import ops
-    mod = (ops.fused_rkn_grid if kind == "fused_rkn_grid"
-           else ops.fused_esdirk_grid)
+    mod = getattr(ops, kind)
     nb = y0.shape[0]
     n = rhs.n if kind == "fused_rkn_grid" else y0.shape[1]
-    warp = (32, mod.WARP_MEMBERS)
+    threads = ops.fused_erk_grid.grid_threads
     runs = {tuple(shape): k}
     print(f"{kind} [{label}, {nb}]: the rule takes "
           f"{grid_shape_text(shape, nb)}")
-    for s in (warp, (ops.fused_erk_grid.grid_threads(n), 0)):
+    if kind == "fused_ckdisc_grid":
+        others = [(threads(n), 0), (min(mod.SMALL_THREADS, threads(n)), 0)]
+    else:
+        warp = (32, mod.WARP_MEMBERS)
+        others = [warp, (threads(n), 0)]
+    for s in others:
         if s not in runs:
             runs[s] = hold_against_plain(
                 kind, f"{label}, {grid_shape_text(s, nb)}",
                 lambda s=s: grid_launch(kind, rhs, span, y0, kw, s),
-                lambda: r, *gates)[0]
+                lambda: r, *GRID_SHAPE_GATES.get((kind, label, s), gates))[0]
+    if kind == "fused_ckdisc_grid":
+        return
     b32 = runs.get((32, 0))
     if b32 is None:
         b32 = grid_launch(kind, rhs, span, y0, kw, (32, 0))
@@ -1444,7 +1460,7 @@ KEP_PLAIN_TOL = dict(rtol=1e-5, atol=1e-7)
 KEP_COMP_TOL = dict(rtol=1e-7, atol=1e-9, compensated=True)
 PL_N = 512
 PL_SPAN = (0.0, 3.0)
-FISHER_N, FISHER_M, FISHER_SPAN = 256, 64, (0.0, 2.0)
+FISHER_N, FISHER_M, FISHER_M_LARGE, FISHER_SPAN = 256, 64, 1024, (0.0, 2.0)
 FISHER_TOL = dict(rtol=1e-5, atol=1e-7)
 WAVE_N, WAVE_M, WAVE_M_LARGE, WAVE_SPAN = 256, 64, 1024, (0.0, 4.0)
 WAVE_C2 = 400.0
@@ -1461,8 +1477,9 @@ WAVE_COMP_TOL = dict(rtol=1e-6, atol=1e-9, first_step=0.05,
 # fisher_overflow 5.8e-4 / 0 / 0 (B4); wave 1.9e-3 / 2.6e-3 / 3, wave_comp
 # 5.9e-5 / 5.6e-3 / 4, wave_overflow 2.3e-5 / 0 / 0 (B6); wave1024 (the
 # warp body, 1,024 members: the max over members grows with their number)
-# 2.6e-3 / 1.1e-3 / 7.  The gates keep a margin of 2-4x, at least 1e-3 on
-# mean steps and 1 on max steps
+# 2.6e-3 / 1.1e-3 / 7; fisher1024 (B4's warp, 1,024 members) 3.7e-4 /
+# 1.4e-4 / 15 (154 members with other counts).  The gates keep a margin of
+# 2-4x, at least 1e-3 on mean steps and 1 on max steps
 RKN_KERNEL_GATES = {"kepler": (1e-3, 5e-3, 3),
                     "kepler_comp": (2e-4, 6e-3, 6),
                     "cubic": (1e-6, 1e-3, 1), "fisher": (1e-3, 1e-3, 4),
@@ -1470,7 +1487,8 @@ RKN_KERNEL_GATES = {"kepler": (1e-3, 5e-3, 3),
                     "fisher_overflow": (2e-3, 1e-3, 1),
                     "wave": (5e-3, 8e-3, 6), "wave_comp": (2e-4, 1.5e-2, 8),
                     "wave_overflow": (1e-4, 1e-3, 1),
-                    "wave1024": (5e-3, 8e-3, 14)}
+                    "wave1024": (5e-3, 8e-3, 14),
+                    "fisher1024": (1e-3, 1e-3, 30)}
 # the lines against the f64 driver: config 1b's endpoint gate 1e-3
 # (validation/benchmarks.py:100); the wave's 5e-3 and mean nsteps within
 # 10% + 2 (tests/test_fused_pallas.py:1407-1414), which that test sets at
@@ -1702,11 +1720,10 @@ def rkn_grid_path():
             kind, label, lambda: run(rhs, span, y0, method=method, **kw),
             lambda: plain(rhs, span, y0, method=method, **kw),
             *RKN_KERNEL_GATES[label])
-        if kind == "fused_rkn_grid":
+        if kind != "fused_rkn":
             hold_grid_shapes(kind, label, rhs, span, y0,
-                             dict(kw, method=method), res[0],
-                             ops.solve_fused_rkn_grid.last_shape, res[1],
-                             RKN_KERNEL_GATES[label])
+                             dict(kw, method=method), res[0], run.last_shape,
+                             res[1], RKN_KERNEL_GATES[label])
         return res
 
     # (a) each kernel against its plain version: 1024 Kepler members, 8
@@ -1778,6 +1795,7 @@ def rkn_grid_path():
     pl_s = time.perf_counter() - t0
     fis = ops.solve_fused_erk_grid(R["fisher"], FISHER_SPAN, F32, method=BS5,
                                    **FISHER_TOL)
+    fis_shape = ops.solve_fused_erk_grid.last_shape
     wav = ops.solve_fused_rkn_grid(R["wave"], WAVE_SPAN, W32, method=Fi5N,
                                    **WAVE_TOL)
     wav_comp = ops.solve_fused_rkn_grid(R["wave"], WAVE_SPAN, W32,
@@ -1883,10 +1901,11 @@ def rkn_grid_path():
             kind, f"{label}, the path", lambda o=out: o,
             lambda: kinds[kind][1](rhs, span, y0, method=meth, **tol),
             *RKN_KERNEL_GATES[label])
-        if kind == "fused_rkn_grid":
+        if kind != "fused_rkn":
             hold_grid_shapes(kind, f"{label}, the path", rhs, span, y0,
-                             dict(tol, method=meth), out, wave_shape, r,
-                             RKN_KERNEL_GATES[label])
+                             dict(tol, method=meth), out,
+                             fis_shape if kind == "fused_erk_grid"
+                             else wave_shape, r, RKN_KERNEL_GATES[label])
         errs[kind] = max(errs.get(kind, 0.0), err)
         plain_ms.setdefault(kind, r_s * 1e3)
 
@@ -1950,6 +1969,30 @@ def rkn_grid_path():
     print(f"fused_rkn_grid kernel wave1024 ({shape}): {ms:.3f} ms, "
           f"{int(out[2].sum()) / ms * 1e3:.4g} accepted steps/s")
     print(f"wave256x64 B6 ran at {grid_shape_text(wave_shape, WAVE_M)}")
+    f_large = fisher_y0(FISHER_M_LARGE, FISHER_N)
+
+    def run_fis_large():
+        return ops.solve_fused_erk_grid(R["fisher"], FISHER_SPAN, f_large,
+                                        method=BS5, **FISHER_TOL)
+
+    out = run_fis_large()
+    check(bool((out[1] == 1).all()), "fisher1024: not all finished")
+    large_shape = ops.solve_fused_erk_grid.last_shape
+    _, r, _, _ = hold_against_plain(
+        "fused_erk_grid", "fisher1024", lambda: out,
+        lambda: ops.fused_erk_grid_reference(R["fisher"], FISHER_SPAN,
+                                             f_large, method=BS5,
+                                             **FISHER_TOL),
+        *RKN_KERNEL_GATES["fisher1024"])
+    hold_grid_shapes("fused_erk_grid", "fisher1024", R["fisher"],
+                     FISHER_SPAN, f_large, dict(FISHER_TOL, method=BS5), out,
+                     large_shape, r, RKN_KERNEL_GATES["fisher1024"])
+    fis_large_ms = event_ms(run_fis_large)
+    print(f"fused_erk_grid kernel fisher1024 "
+          f"({grid_shape_text(large_shape, FISHER_M_LARGE)}): "
+          f"{fis_large_ms:.3f} ms, {int(out[2].sum()) / fis_large_ms * 1e3:.4g}"
+          " accepted steps/s")
+    print(f"fisher256x64 B4 ran at {grid_shape_text(fis_shape, FISHER_M)}")
 
     def entry(name, source, replaces, launches, key, bytes_moved, ops_):
         return dict({"name": name, "route": "cuda", "source": source,
@@ -1968,12 +2011,13 @@ def rkn_grid_path():
                    rk_ops(fi5n, True, 2, RHS_OPS["kepler"],
                           int(kep_plain[3].sum()), KEP_N, 5)),
              ms_compensated=times["kepler2048 B5 compensated"][0]),
-        entry("fused_erk_grid", csrc + "fused_rk_grid.cu",
-              "extensisq_tpu/ops/fused_erk_grid.py:321", launches[0],
-              "fisher256x64 B4",
-              FISHER_M * (FISHER_N * 4 * 2 + 4 * 3),
-              rk_ops(bs5, False, FISHER_N, RHS_OPS["fisher"],
-                     int(fis[3].sum()), FISHER_M, 5)),
+        dict(entry("fused_erk_grid", csrc + "fused_rk_grid.cu",
+                   "extensisq_tpu/ops/fused_erk_grid.py:321", launches[0],
+                   "fisher256x64 B4",
+                   FISHER_M * (FISHER_N * 4 * 2 + 4 * 3),
+                   rk_ops(bs5, False, FISHER_N, RHS_OPS["fisher"],
+                          int(fis[3].sum()), FISHER_M, 5)),
+             device_ms_1024=fis_large_ms),
         dict(entry("fused_rkn_grid", csrc + "fused_rk_grid.cu",
                    "extensisq_tpu/ops/fused_rkn_grid.py:337", launches[2],
                    "wave256x64 B6 plain",
@@ -2021,6 +2065,17 @@ CK_KERNEL_GATES = {"linear": (1e-6, 2e-3, 2), "rational": (1e-6, 1e-3, 1),
                    "mol_overflow": (1e-4, 1e-3, 1),
                    "mol": (1e-3, 8e-2, 12), "swdec": (6e-3, 2e-2, 20),
                    "ckmol": (2e-3, 1e-2, 20)}
+# B12 at its other block shapes (measured on an H100, blocks of 64 / 128 /
+# 256 threads): fisher 1.5e-5 / 5.5e-3 / 1 at 64 threads, two elements a
+# thread (three of the 8 members one step apart; 1.6e-5 / 1.8e-3 / 1 at
+# 128), its own gate below; diffusion 9.5e-7 / 0 / 0 and mol_overflow
+# 2.8e-5 / 0 / 0 at 64; mol 3.0e-4 / 2.3e-2 / 5; ckmol (the path) 4.7e-4 /
+# 2.6e-3 / 6, 4.7e-4 / 3.6e-3 / 6, 5.7e-4 / 2.5e-3 / 9; ckmol1024 (1,024
+# members; the rule takes 64 threads) 9.5e-4 / 1.1e-4 / 11, 9.6e-4 /
+# 2.7e-4 / 10, 1.0e-3 / 4.2e-5 / 11, within the ckmol gates
+CK_KERNEL_GATES["ckmol1024"] = CK_KERNEL_GATES["ckmol"]
+GRID_SHAPE_GATES = {("fused_ckdisc_grid", "fisher", (64, 0)):
+                    (5e-5, 1.2e-2, 2)}
 # the f64 line rerun on the CPU: counters identical, |dy| relative to
 # max(1, |y|) within the gate; the sampled members also run inside the whole
 # batch on the CPU, the witness of what the batch's shape alone moves
@@ -2149,9 +2204,13 @@ def ckdisc_path():
 
     def compare(kind, label, rhs, span, y0, **kw):
         run, plain = kinds[kind]
-        return hold_against_plain(
+        res = hold_against_plain(
             kind, label, lambda: run(rhs, span, y0, **kw),
             lambda: plain(rhs, span, y0, **kw), *CK_KERNEL_GATES[label])
+        if kind == "fused_ckdisc_grid":
+            hold_grid_shapes(kind, label, rhs, span, y0, kw, res[0],
+                             run.last_shape, res[1], CK_KERNEL_GATES[label])
+        return res
 
     # (a) each kernel against its plain version on problems that do not
     # bifurcate, and an overflowing member of each
@@ -2209,6 +2268,7 @@ def ckdisc_path():
                                 **CK_TOL)
     mol = ops.solve_fused_ckdisc_grid(R["ckmol"], CKMOL_SPAN, M32,
                                       **CKMOL_TOL)
+    mol_shape = ops.solve_fused_ckdisc_grid.last_shape
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mol64 = solve_ensemble(ck_mol(CKMOL_N), CKMOL_SPAN, M32.double(),
@@ -2260,11 +2320,14 @@ def ckdisc_path():
             ("fused_ckdisc", "swdec", R["swdec"], CK_SPAN, S32, CK_TOL, sw),
             ("fused_ckdisc_grid", "ckmol", R["ckmol"], CKMOL_SPAN, M32,
              CKMOL_TOL, mol)):
-        _, _, errs[kind], r_s = hold_against_plain(
+        _, r, errs[kind], r_s = hold_against_plain(
             kind, f"{label}, the path", lambda o=out: o,
             lambda: kinds[kind][1](rhs, span, y0, **tol),
             *CK_KERNEL_GATES[label])
         plain_ms[kind] = r_s * 1e3
+        if kind == "fused_ckdisc_grid":
+            hold_grid_shapes(kind, f"{label}, the path", rhs, span, y0, tol,
+                             out, mol_shape, r, CK_KERNEL_GATES[label])
 
     # (e) times: warm medians; the timing-only line fills the card
     def run_sw():
@@ -2290,10 +2353,21 @@ def ckdisc_path():
     m_large = fisher_y0(CKMOL_M_LARGE, CKMOL_N)
     out = run_mol(m_large)()
     check(bool((out[1] == 1).all()), "ckmol1024: not all finished")
-    ms = event_ms(run_mol(m_large))
-    print(f"fused_ckdisc_grid kernel ckmol1024 ({CKMOL_M_LARGE} blocks of "
-          f"{ops.fused_erk_grid.grid_threads(CKMOL_N)}): {ms:.3f} ms, "
-          f"{int(out[2].sum()) / ms * 1e3:.4g} accepted steps/s")
+    large_shape = ops.solve_fused_ckdisc_grid.last_shape
+    _, r, _, _ = hold_against_plain(
+        "fused_ckdisc_grid", "ckmol1024", lambda: out,
+        lambda: ops.fused_ckdisc_grid_reference(R["ckmol"], CKMOL_SPAN,
+                                                m_large, **CKMOL_TOL),
+        *CK_KERNEL_GATES["ckmol1024"])
+    hold_grid_shapes("fused_ckdisc_grid", "ckmol1024", R["ckmol"],
+                     CKMOL_SPAN, m_large, CKMOL_TOL, out, large_shape, r,
+                     CK_KERNEL_GATES["ckmol1024"])
+    mol_large_ms = event_ms(run_mol(m_large))
+    print(f"fused_ckdisc_grid kernel ckmol1024 "
+          f"({grid_shape_text(large_shape, CKMOL_M_LARGE)}): "
+          f"{mol_large_ms:.3f} ms, "
+          f"{int(out[2].sum()) / mol_large_ms * 1e3:.4g} accepted steps/s")
+    print(f"ckmol256x64 B12 ran at {grid_shape_text(mol_shape, CKMOL_M)}")
 
     csrc = "extensisq_tpu_torch/csrc/"
     return [
@@ -2315,7 +2389,7 @@ def ckdisc_path():
               "ms": times["ckmol256x64 B12"][0],
               "device_ms": times["ckmol256x64 B12"][1],
               "plain_ms": plain_ms["fused_ckdisc_grid"],
-              "f64_ms": mol64_s * 1e3},
+              "f64_ms": mol64_s * 1e3, "device_ms_1024": mol_large_ms},
              **bound_entry(CKMOL_M * (CKMOL_N * 4 * 2 + 4 * 3),
                            ck_ops(CKMOL_N, RHS_OPS["ckmol"],
                                   int(mol[3].sum()), CKMOL_M, 5)))]

@@ -8,11 +8,12 @@
 // memory in warp order; the minimum keeps a NaN, as torch.amin does.  One
 // reduction may take K values at once, each reduced in that order, with one
 // barrier for all of them (a body that needs several norms of one state
-// pays one barrier, not one each).  `red` holds two buffers of SLOTS x 32
-// floats (SLOTS >= K) used in turn, so that one barrier per reduction
-// suffices.  The block size must be a multiple of 32.  Include it after
-// the kernel's device body: host rehearsals of a body run it with a
-// one-thread group instead.
+// pays one barrier, not one each).  A reduction is a barrier of the
+// group: what a thread wrote before it, every thread may read after it.
+// `red` holds two buffers of SLOTS x 32 floats (SLOTS >= K) used in turn,
+// so that one barrier per reduction suffices.  The block size must be a
+// multiple of 32.  Include it after the kernel's device body: host
+// rehearsals of a body run it with a one-thread group instead.
 #pragma once
 
 #include <math.h>
@@ -93,11 +94,13 @@ struct BlockGroupOf {
 using BlockGroup = BlockGroupOf<1>;
 
 // One warp as a member's group: lane l owns the elements l, l + 32, ...;
-// sync() is __syncwarp() and a reduction is the butterfly alone, so no
-// shared memory or block barrier is touched, and several members may share
-// a block, one a warp.  Its reductions equal BlockGroup's in a block of 32
-// threads bit for bit (that one reads lane 0's butterfly back from shared
-// memory).
+// sync() is __syncwarp() and a reduction is a __syncwarp() and the
+// butterfly, so no block barrier is touched, and several members may share
+// a block, one a warp.  A reduction orders the lanes' shared-memory
+// accesses as BlockGroup's does with its barrier (shuffles alone do not),
+// so a body may read what other lanes wrote before it.  Its reductions
+// equal BlockGroup's in a block of 32 threads bit for bit (that one reads
+// lane 0's butterfly back from shared memory).
 struct WarpGroup {
   static constexpr int kStride = 32;
   __device__ int rank() const { return static_cast<int>(threadIdx.x & 31u); }
@@ -105,15 +108,17 @@ struct WarpGroup {
   __device__ void sync() const { __syncwarp(); }
   template <int K>
   __device__ void sums(float (&v)[K]) const {
+    __syncwarp();
     warp_reduce<false>(v);
   }
   __device__ float sum(float v) const {
     float a[1] = {v};
-    warp_reduce<false>(a);
+    sums(a);
     return a[0];
   }
   __device__ float min(float v) const {
     float a[1] = {v};
+    __syncwarp();
     warp_reduce<true>(a);
     return a[0];
   }

@@ -26,8 +26,10 @@
 // threads per member (BlockGroup), or one warp per member (WarpGroup:
 // __syncwarp and shuffle butterflies, no block barrier, P members a block,
 // each warp on its own rows; the block body at 32 threads bit for bit),
-// which the RKN wrapper's rule takes for large ensembles
-// (ops/fused_rkn_grid.py:_launch_shape); B4 and B12 launch blocks.
+// as each wrapper's rule says from the ensemble size and n (_launch_shape
+// in ops/fused_erk_grid.py, fused_rkn_grid.py and fused_ckdisc_grid.py):
+// B4 and B6 blocks or, for large ensembles, the warp; B12 blocks (a CKdisc
+// build has no warp kernel).
 // Element i belongs to the thread of rank i mod (group size), which
 // computes its stage sums from its own entries of K; a warp's lane holds
 // N / 32 elements and computes the values of all of them before it stores
@@ -48,7 +50,7 @@
 //
 // The CKdisc cascade (ck_control.cuh) has up to five norms per attempt: E1,
 // E2, E4 and the two fallbacks' error tests.  Every thread holds the same
-// reductions, so the whole block takes the same branch, and stages that E1
+// reductions, so the whole group takes the same branch, and stages that E1
 // or E2 vetoes are skipped with their barriers.  The candidate solution of
 // an attempt goes into the free stage row K[6]; the reduction of its norm
 // is the barrier after which the endpoint's RHS may read its neighbours.
@@ -57,12 +59,15 @@
 // of a few flops, loads from shared memory) and ~2 S flops of stage sums,
 // and the stage costs one __syncthreads; an attempt adds the error norm's
 // reduction.  At N = 256 with one element per thread the work between
-// barriers is tens of cycles, so an attempt is bound by barrier and
-// reduction latency, not by the card's flop or byte rate, and members run
-// in parallel on the SMs: 64 members use 64 of the 132 SMs, 1024 members
-// keep several blocks on every SM, whose barriers then contend; a warp per
-// member has no barrier to wait at but runs its lane's elements on one
-// instruction stream.
+// barriers is tens of cycles, so an attempt is bound by latency, not by
+// the card's flop or byte rate: of a B4 attempt at 64 members a third is
+// barrier and reduction waits, the rest the stage sums, the RHS and the
+// controller, which every thread repeats; of a B12 attempt a quarter is
+// the reductions and a fifth the cascade's scalar control (its powf).
+// Members run in parallel on the SMs: 64 members use 64 of the 132 SMs,
+// 1024 members keep several blocks on every SM, whose barriers then
+// contend; a warp per member has no barrier to wait at but runs its
+// lane's elements on one of the SM's four schedulers.
 //
 // The generated header fused_rk_grid_config.cuh provides
 //   namespace tab { G = grid::Grid<...>, N, RKN, CK, S, FSAL, MORDER, the
@@ -128,6 +133,69 @@ struct Out {
   int* nfev;
 };
 
+// Section clocks of one member, in the probe's build only
+// (tools/probe_fused_rk_grid.py compiles with FUSED_RK_GRID_SECTIONS): the
+// SM cycles rank 0 spends in each part of the attempts, summed over them,
+// the attempts, and the attempts that CKdisc's E1 and E2 veto.  A thread
+// waiting at a barrier counts the wait in the part that ends with it; the
+// reductions' waits are a part of their own.  The shipped build's Clock is
+// empty and compiles to nothing.
+enum Section {
+  kArgs,     // the stage arguments and the stages' barriers
+  kRhs,      // the stage rows (the RHS), the FSAL row and the endpoint
+  kNorm,     // the solution and the norms' partial sums
+  kWait,     // the reductions
+  kControl,  // the controller or the cascade's decisions, t and status
+  kCommit,   // the commit and the barrier before the next attempt
+  kSections
+};
+// a member's row of the probe's counters: the sections' cycles, the barrier
+// phases (syncs and reductions), the attempts and the E1 and E2 vetoes
+constexpr int kPhases = kSections;
+constexpr int kAttempts = kSections + 1;
+constexpr int kVeto1 = kSections + 2;
+constexpr int kVeto2 = kSections + 3;
+constexpr int kSectionSlots = kSections + 4;
+#ifdef FUSED_RK_GRID_SECTIONS
+__device__ unsigned* g_sections;  // [member][kSectionSlots]
+struct Clock {
+  unsigned acc[kSections];
+  unsigned veto[2] = {0u, 0u};
+  unsigned last;
+  __device__ Clock() : last(static_cast<unsigned>(clock())) {
+#pragma unroll
+    for (int k = 0; k < kSections; ++k) acc[k] = 0u;
+  }
+  __device__ void mark(int section) {
+    const unsigned now = static_cast<unsigned>(clock());
+    acc[section] += now - last;
+    last = now;
+  }
+  // the cascade's vetoes: E1 stops the attempt (!go2), or E2 (go2, !go4)
+  __device__ void vetoes(bool go2, bool go4) {
+    veto[0] += go2 ? 0u : 1u;
+    veto[1] += (go2 && !go4) ? 1u : 0u;
+  }
+  template <class Group>
+  __device__ void write(const Group& g, int member, int attempts) const {
+    if (g.rank() != 0) return;
+    unsigned* row = g_sections + static_cast<size_t>(member) * kSectionSlots;
+#pragma unroll
+    for (int k = 0; k < kSections; ++k) row[k] = acc[k];
+    row[kAttempts] = static_cast<unsigned>(attempts);
+    row[kVeto1] = veto[0];
+    row[kVeto2] = veto[1];
+  }
+};
+#else
+struct Clock {
+  __device__ void mark(int) {}
+  __device__ void vetoes(bool, bool) {}
+  template <class Group>
+  __device__ void write(const Group&, int, int) const {}
+};
+#endif
+
 using rk::RowA;
 using rk::RowAp;
 using rk::RowB;
@@ -187,6 +255,11 @@ struct Pair {
 struct Sol {
   Pair y, lo;
 };
+// and of an accepted step's commit, with the new K[0] entry
+struct Commit {
+  Pair y, lo;
+  float k;
+};
 
 // Stage I's argument Y + h sum_j A_Ij K_j (RKN: positions and velocities)
 // into a.
@@ -235,16 +308,18 @@ template <bool COMP, int I, int END, class Group>
 __device__ __forceinline__ void stages(Group& g, float t, float h, float hh,
                                        const float* Y, const float* Ylo,
                                        float* K, float* const (&arg)[2],
-                                       int& b) {
+                                       int& b, Clock& clk) {
   if constexpr (I < END) {
     float* a = arg[b];
     constexpr float c = tab::C(I);
     const float ch = c * h;
     stage_arg<COMP, I>(g, h, hh, ch, Y, Ylo, K, a);
     g.sync();
+    clk.mark(kArgs);
     stage_row(g, t + ch, a, K + I * N);
+    clk.mark(kRhs);
     b ^= 1;
-    stages<COMP, I + 1, END>(g, t, h, hh, Y, Ylo, K, arg, b);
+    stages<COMP, I + 1, END>(g, t, h, hh, Y, Ylo, K, arg, b, clk);
   }
 }
 
@@ -341,25 +416,30 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   int status = kRunning;
   int nstep = 0;
   int it = 0;
+  Clock clk;
 
   while (status == kRunning) {
     g.sync();  // the last attempt's commits and endpoint reads are done
+    clk.mark(kCommit);
 
     float d;
     bool too_small;
     ctl.prepare(t, L.tf, L.max_step, d, too_small);
     const float h = ctl.h_abs * L.dir;
     const float hh = h * h;
+    clk.mark(kControl);
 
     int b = 0;
-    stages<COMP, 1, S>(g, t, h, hh, Y, Ylo, K, arg, b);
+    stages<COMP, 1, S>(g, t, h, hh, Y, Ylo, K, arg, b, clk);
 
     // the solution into arg[b]; element i carries u[i] and v[i] for RKN
     float* Yn = arg[b];
     solution<COMP>(g, h, hh, Y, Ylo, K, Yn, YloNew);
     if constexpr (tab::FSAL) {
       g.sync();
+      clk.mark(kNorm);
       stage_row(g, t + h, Yn, K + S * N);
+      clk.mark(kRhs);
     }
 
     // the error norm over NF; a non-finite element adds +inf
@@ -390,7 +470,9 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
       }
       sq += finite ? part : INFINITY;
     });
+    clk.mark(kNorm);
     const float err_norm = sqrtf(g.sum(sq) / static_cast<float>(NF));
+    clk.mark(kWait);
     // overflow: NaN/Inf anywhere ends this member with status 3
     const bool bad = !isfinite(err_norm);
     const bool accepted = err_norm < 1.0f && !too_small && !bad;
@@ -415,20 +497,33 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
       t_lo_new = t_lo;
     }
     if (status == kRunning && is_last) status = kFinished;
+    clk.mark(kControl);
 
     nfev += tab::FSAL ? S : S - 1;
     if (accepted) {
-      // each thread commits the elements it computed
-      rk::for_elements<N>(g, [&](int i) {
-        Y[i] = Yn[i];
-        if constexpr (RKN) Y[N + i] = Yn[N + i];
-        if constexpr (COMP) {
-          Ylo[i] = YloNew[i];
-          if constexpr (RKN) Ylo[N + i] = YloNew[N + i];
-        }
-        // a non-FSAL pair evaluates the endpoint of accepted steps only
-        K[i] = tab::FSAL ? K[S * N + i] : stage_f(t_new, Yn, i);
-      });
+      // each thread commits the elements it computed; a non-FSAL pair
+      // evaluates the endpoint of accepted steps only
+      rk::for_elements_put<N>(
+          g,
+          [&](int i) {
+            Commit c{{Yn[i], 0.0f}, {0.0f, 0.0f}, 0.0f};
+            if constexpr (RKN) c.y.v = Yn[N + i];
+            if constexpr (COMP) {
+              c.lo.u = YloNew[i];
+              if constexpr (RKN) c.lo.v = YloNew[N + i];
+            }
+            c.k = tab::FSAL ? K[S * N + i] : stage_f(t_new, Yn, i);
+            return c;
+          },
+          [&](int i, const Commit& c) {
+            Y[i] = c.y.u;
+            if constexpr (RKN) Y[N + i] = c.y.v;
+            if constexpr (COMP) {
+              Ylo[i] = c.lo.u;
+              if constexpr (RKN) Ylo[N + i] = c.lo.v;
+            }
+            K[i] = c.k;
+          });
       if constexpr (!tab::FSAL) nfev += 1;
       t = t_new;
       t_lo = t_lo_new;
@@ -439,7 +534,9 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
     it += 1;
     if (it >= L.max_steps && status == kRunning) status = kOverflow;
     ctl.end(accepted, status == kRunning);
+    clk.mark(kCommit);
   }
+  clk.write(g, member, it);
 
   g.sync();
   rk::for_elements<NF>(g, [&](int j) {
@@ -458,7 +555,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
 // clean()ed).
 template <class WB, class WE, int LEN, class Group>
 __device__ float assess(Group& g, const float* Y, const float* K, float h,
-                        const Launch& L, float* sol) {
+                        const Launch& L, float* sol, Clock& clk) {
   float sq = 0.0f;
   rk::for_elements<N>(g, [&](int i) {
     sol[i] = Y[i] + h * wsum<WB, LEN>(K, i);
@@ -467,12 +564,21 @@ __device__ float assess(Group& g, const float* Y, const float* K, float h,
         err / (L.atol + L.rtol * fmaxf(fabsf(Y[i]), fabsf(sol[i])));
     sq += q * q;
   });
-  return sqrtf(g.sum(sq) / static_cast<float>(N));
+  clk.mark(kNorm);
+  const float s = g.sum(sq);
+  clk.mark(kWait);
+  return sqrtf(s / static_cast<float>(N));
 }
 
 // The whole integration of one member with CKdisc's cascade (B12), by the
 // group g as integrate; ck_control.cuh has the cascade, fused_ckdisc.cu the
-// same loop on one thread.
+// same loop on one thread.  A full attempt takes ten barrier phases (the
+// loop top, five stages, E1, E2, E4 and the endpoint's count of
+// non-finite elements).  Its norms stay one reduction each, where the
+// cascade reads them: E4's with the fallbacks' in one reduction, or all
+// five in the JAX kernel's order, gave the same bits but ran 14-15% slower
+// on an H100 (PERF.md §6, PR 13), since they compute assessments that the
+// cascade mostly does not read.
 template <class Group>
 __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
                              const Launch& L, int member, const Out& out) {
@@ -487,38 +593,42 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
   int status = kRunning;
   int nstep = 0;
   int it = 0;
+  Clock clk;
 
   while (status == kRunning) {
     g.sync();  // the last attempt's commits and endpoint reads are done
+    clk.mark(kCommit);
 
     float d;
     bool too_small;
     ctl.prepare(t, L.tf, L.max_step, d, too_small);
     const float h = ctl.h_abs * L.dir;
+    clk.mark(kControl);
 
     // E1 after two stages; E2 after four where E1 lets the attempt go on;
     // E4 after six where E2 does (kBig where skipped)
     int b = 0;
-    stages<false, 1, 2>(g, t, h, h * h, Y, nullptr, K, arg, b);
+    stages<false, 1, 2>(g, t, h, h * h, Y, nullptr, K, arg, b, clk);
     const float E1 = sqrtf(ck::clean(
-        assess<ck::RowBas<0>, ck::RowEas<0>, 2>(g, Y, K, h, L, Ysol)));
+        assess<ck::RowBas<0>, ck::RowEas<0>, 2>(g, Y, K, h, L, Ysol, clk)));
     const bool go2 = ctl.go2(E1);
     float E2 = ck::kBig;
     if (go2) {
-      stages<false, 2, 4>(g, t, h, h * h, Y, nullptr, K, arg, b);
+      stages<false, 2, 4>(g, t, h, h * h, Y, nullptr, K, arg, b, clk);
       E2 = ck::cbrt_floor(ck::clean(
-          assess<ck::RowBas<1>, ck::RowEas<1>, 4>(g, Y, K, h, L, Ysol)));
+          assess<ck::RowBas<1>, ck::RowEas<1>, 4>(g, Y, K, h, L, Ysol, clk)));
     }
     const bool go4 = go2 && ctl.go4(E2);
     float E4 = ck::kBig;
     bool bad4 = false;
     if (go4) {
-      stages<false, 4, 6>(g, t, h, h * h, Y, nullptr, K, arg, b);
-      const float nm = assess<RowB, RowE, 6>(g, Y, K, h, L, Ysol);
+      stages<false, 4, 6>(g, t, h, h * h, Y, nullptr, K, arg, b, clk);
+      const float nm = assess<RowB, RowE, 6>(g, Y, K, h, L, Ysol, clk);
       bad4 = !isfinite(nm);
       E4 = ck::p5rt_floor(ck::clean(nm));
       if (E4 == 0.0f) E4 = 1e-38f;
     }
+    clk.vetoes(go2, go4);
     const bool accept4 = go4 && E4 < 1.0f && !too_small;
 
     // the fallbacks: the 3rd-order solution at c = 3/5, else the 2nd-order
@@ -526,14 +636,14 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
     bool fb3_ok = false;
     if (go4 && !accept4 && !bad4 && E2 < 1.0f && !too_small) {
       fb3_ok = ck::clean(assess<ck::RowBfb<1>, ck::RowEfb<1>, 4>(
-                   g, Y, K, h, L, Ysol)) < 1.0f;
+                   g, Y, K, h, L, Ysol, clk)) < 1.0f;
     }
     const bool fb2_try =
         go2 && !accept4 && !bad4 && !fb3_ok && E1 < 1.0f && !too_small;
     bool fb2_ok = false;
     if (fb2_try) {
       fb2_ok = ck::clean(assess<ck::RowBfb<0>, ck::RowEfb<0>, 2>(
-                   g, Y, K, h, L, Ysol)) < 1.0f;
+                   g, Y, K, h, L, Ysol, clk)) < 1.0f;
     }
     const bool accepted = accept4 || fb3_ok || fb2_ok;
 
@@ -550,6 +660,7 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
     const bool is_last = accepted && fabsf(h_used) >= d;
     const float t_new = is_last ? L.tf : t + h_used;
     if (status == kRunning && is_last) status = kFinished;
+    clk.mark(kControl);
 
     nfev += 1 + (go2 ? 2 : 0) + (go4 ? 2 : 0);
     if (accepted) {
@@ -562,7 +673,10 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
         bad += (isfinite(Ysol[i]) && isfinite(K[i])) ? 0.0f : 1.0f;
       });
       nfev += 1;
-      if (g.sum(bad) == 0.0f) {
+      clk.mark(kRhs);
+      const float n_bad = g.sum(bad);
+      clk.mark(kWait);
+      if (n_bad == 0.0f) {
         rk::for_elements<N>(g, [&](int i) { Y[i] = Ysol[i]; });
         t = t_new;
         nstep += 1;
@@ -575,7 +689,9 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
     it += 1;
     if (it >= L.max_steps && status == kRunning) status = kOverflow;
     ctl.end(accepted, status == kRunning);
+    clk.mark(kCommit);
   }
+  clk.write(g, member, it);
 
   g.sync();
   rk::for_elements<N>(g, [&](int j) {
@@ -595,6 +711,49 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
 
 namespace {
 
+#ifdef FUSED_RK_GRID_SECTIONS
+// The probe's group: the kernel's, counting its barrier phases.
+template <class Group>
+struct Counted : Group {
+  unsigned phases = 0;
+  __device__ void sync() {
+    ++phases;
+    Group::sync();
+  }
+  template <int K>
+  __device__ void sums(float (&v)[K]) {
+    ++phases;
+    Group::sums(v);
+  }
+  __device__ float sum(float v) {
+    ++phases;
+    return Group::sum(v);
+  }
+  __device__ float min(float v) {
+    ++phases;
+    return Group::min(v);
+  }
+};
+template <class Group>
+__device__ Counted<Group> group(Group g) {
+  return Counted<Group>{g};
+}
+template <class Group>
+__device__ void write_phases(const Counted<Group>& g, int member) {
+  if (g.rank() == 0) {
+    g_sections[static_cast<size_t>(member) * kSectionSlots + kPhases] =
+        g.phases;
+  }
+}
+#else
+template <class Group>
+__device__ Group group(Group g) {
+  return g;
+}
+template <class Group>
+__device__ void write_phases(const Group&, int) {}
+#endif
+
 template <bool COMP, class Group>
 __device__ __forceinline__ void member_body(Group& g, float* sm,
                                             const float* __restrict__ y0,
@@ -613,26 +772,34 @@ __global__ void __launch_bounds__(kMaxThreads)
     fused_rk_grid_kernel(const float* __restrict__ y0, Launch L, Out out) {
   extern __shared__ float sm[];
   __shared__ float red[64];
-  BlockGroup g{red};
-  member_body<COMP>(g, sm, y0, L, static_cast<int>(blockIdx.x), out);
+  auto g = group(BlockGroup{red});
+  const int member = static_cast<int>(blockIdx.x);
+  member_body<COMP>(g, sm, y0, L, member, out);
+  write_phases(g, member);
 }
 
 // One warp per member, blockDim.x / 32 members a block, each warp on its own
 // kFloats of the dynamic shared memory; a warp past the ensemble returns at
-// once (no block barrier waits for it).  The RKN family only (B6): the ERK
-// and CKdisc builds compile an empty body, and their launch refuses a warp.
+// once (no block barrier waits for it).  The ERK and RKN families (B4, B6):
+// a CKdisc build compiles an empty body and its launch refuses a warp.  On
+// the card the cascade's warp parted from its block of 32 threads in the
+// last bits (9 of 1,024 ckmol members' counts; bit for bit with
+// -fmad=false, so the compiler contracts some sum of the cascade otherwise
+// in the two kernels), and it ran 1.3-2.7x slower than B12's blocks
+// (measured on an H100; PERF.md §6).
 template <bool COMP>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_rk_grid_warp_kernel(const float* __restrict__ y0, Launch L, Out out,
                               int members) {
-  if constexpr (RKN) {
+  if constexpr (!tab::CK) {
     extern __shared__ float sm[];
     const int warp = static_cast<int>(threadIdx.x >> 5);
     const int member =
         static_cast<int>(blockIdx.x * (blockDim.x >> 5)) + warp;
     if (member >= members) return;
-    WarpGroup g;
+    auto g = group(WarpGroup{});
     member_body<COMP>(g, sm + warp * kFloats, y0, L, member, out);
+    write_phases(g, member);
   }
 }
 
@@ -645,6 +812,16 @@ cudaError_t allow_smem(K kernel, int bytes) {
 }
 
 }  // namespace
+
+#ifdef FUSED_RK_GRID_SECTIONS
+// The probe build's counters: kSectionSlots unsigned values per member are
+// written to `sections` by the launches that follow.
+extern "C" int fused_rk_grid_sections(void* sections) {
+  unsigned* ptr = static_cast<unsigned*>(sections);
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_sections, &ptr, sizeof(ptr)));
+}
+#endif
 
 // The shared memory one member needs and the most a block may have on this
 // card, in bytes; returns the CUDA error code.
@@ -660,9 +837,9 @@ extern "C" int fused_rk_grid_smem(int* need, int* limit) {
 // code; the wrapper raises on anything but 0.  warp_members = 0: one block
 // of `threads` (a multiple of 32, at most kMaxThreads) per member;
 // warp_members = P >= 1: one warp per member, P members a block of 32 P
-// threads (RKN only; threads must be 32, P at most kMaxThreads / 32; another
-// shape is cudaErrorInvalidValue).  The members' rows are dynamic shared
-// memory (above 48 KB after cudaFuncSetAttribute).
+// threads (ERK and RKN only; threads must be 32, P at most kMaxThreads /
+// 32; another shape is cudaErrorInvalidValue).  The members' rows are
+// dynamic shared memory (above 48 KB after cudaFuncSetAttribute).
 extern "C" int fused_rk_grid_launch(const void* y0, void* y_out, void* status,
                                     void* nstep, void* nfev, int members,
                                     float t0, float tf, float dir, float rtol,
@@ -678,7 +855,7 @@ extern "C" int fused_rk_grid_launch(const void* y0, void* y_out, void* status,
   const float* y0f = static_cast<const float*>(y0);
   const int member_bytes = static_cast<int>(kFloats * sizeof(float));
   if (warp_members > 0) {
-    if (!RKN || threads != 32 || warp_members > kMaxThreads / 32) {
+    if (tab::CK || threads != 32 || warp_members > kMaxThreads / 32) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const int bytes = warp_members * member_bytes;

@@ -1,6 +1,6 @@
 """Fused CKdisc solver for mid-size non-smooth systems: the whole adaptive
 integration of an ensemble in one CUDA kernel launch, one thread block per
-member.
+member of the size :func:`_launch_shape` gives.
 
 Counterpart of ``extensisq_tpu/ops/fused_ckdisc_grid.py``, which runs the
 CKdisc loop of ``fused_ckdisc`` with the state across the 128 lanes and
@@ -24,7 +24,8 @@ import torch
 from .._device import as_input
 from .fused_ckdisc import ck_consts, run_ck_loop
 from .fused_erk import check_options
-from .fused_erk_grid import _state_size, check_grid_input, launch_grid
+from .fused_erk_grid import (_state_size, check_grid_input, grid_threads,
+                             launch_by_rule)
 from .fused_rkc import FusedGridRHS
 
 
@@ -41,6 +42,40 @@ def fused_ckdisc_grid_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     y = torch.as_tensor(y0_batch).to(torch.float32).T.contiguous()
     return run_ck_loop(fun, ck_consts(), t_span, y, rtol, atol, first_step,
                        max_steps, max_step)
+
+
+# B12's launch shapes (see :func:`_launch_shape`): blocks of
+# ``grid_threads(n)`` threads up to HALF_FROM members an SM, of two
+# elements a thread up to SMALL_FROM, beyond of SMALL_THREADS
+HALF_FROM = 2
+SMALL_FROM = 4
+SMALL_THREADS = 64
+
+
+def _launch_shape(B, n, sm_count):
+    """B12's launch shape ``(threads, 0)`` for ``B`` members of ``n``
+    states on a card of ``sm_count`` SMs: one block of ``grid_threads(n)``
+    threads per member up to 2 members an SM, of two elements a thread up
+    to 4, beyond one block of 64 threads; never the warp, which a CKdisc
+    build does not have.  Blocks that share an SM contend at their
+    barriers, the less so the smaller they are.
+
+    From the sweeps of the non-smooth MoL (ckmol, CKdisc at rtol 1e-4;
+    ``tools/probe_fused_rk_grid.py --family ck``) on an H100 (132 SMs,
+    700 W), device ms, launch alone, blocks of 256 / 128 / 64 threads.  At
+    n = 256: 64 members 0.981 / 1.026 / 1.248; 256 members 1.031 / 1.016 /
+    1.259; 512 members 1.566 / 1.174 / 1.284; 1,024 members 2.791 / 1.874
+    / 1.499.  At n = 512, 1,024 members: 7.099 / 5.276 / 4.734.  A warp
+    body, measured while it was built for CKdisc, lost everywhere (at n =
+    256, 1,024 members, 2.3-3.8 ms in two builds): an attempt spends most
+    of its time in the RHS and the cascade's scalar control, which a warp
+    runs on one of an SM's four schedulers."""
+    B, n, sm_count = int(B), int(n), int(sm_count)
+    if B <= HALF_FROM * sm_count:
+        return grid_threads(n), 0
+    if B <= SMALL_FROM * sm_count:
+        return grid_threads(-(-n // 2)), 0
+    return min(SMALL_THREADS, grid_threads(n)), 0
 
 
 def _kernel(fun):
@@ -63,9 +98,11 @@ def solve_fused_ckdisc_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.  On a CUDA
     tensor ``fun`` must be a :class:`FusedGridRHS`, and the call launches
-    ``csrc/fused_rk_grid.cu`` with one block of up to 256 threads per
-    member (raising when the member's rows do not fit in shared memory),
-    or raises.  On a CPU tensor it runs :func:`fused_ckdisc_grid_reference`.
+    ``csrc/fused_rk_grid.cu`` with one block per member of the size
+    :func:`_launch_shape` gives from the ensemble size, n and the card's
+    SM count (raising when the member's rows do not fit in shared memory),
+    or raises; the shape taken is ``solve_fused_ckdisc_grid.last_shape``.  On
+    a CPU tensor it runs :func:`fused_ckdisc_grid_reference`.
 
     ``t_eval``, ``events`` and ``params`` are not ported yet.
     """
@@ -78,10 +115,25 @@ def solve_fused_ckdisc_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
         return fused_ckdisc_grid_reference(fun, t_span, y0, **kw)
     n = _state_size(fun) if isinstance(fun, FusedGridRHS) else -1
     check_grid_input("solve_fused_ckdisc_grid", y0, n, FusedGridRHS, fun)
-    return launch_grid(solve_fused_ckdisc_grid, _kernel(fun), y0, n, t_span,
-                       compensated=False, **kw)
+    out, shape = _launch(_kernel(fun), t_span, y0, n, count=True, **kw)
+    solve_fused_ckdisc_grid.last_shape = shape
+    return out
+
+
+def _launch(built, t_span, y0, n, shape=None, count=False, rtol=1e-4,
+            atol=1e-6, first_step=None, max_steps=100_000, max_step=None):
+    """Launch B12 for the CUDA tensor ``y0`` at ``shape`` (None:
+    :func:`_launch_shape`'s; a given shape is taken as it is, for
+    comparisons), counted where ``count``.  Returns the four outputs and
+    the shape taken."""
+    return launch_by_rule(solve_fused_ckdisc_grid, _launch_shape, built, y0,
+                          n, t_span, shape, count, rtol=rtol, atol=atol,
+                          first_step=first_step, max_steps=max_steps,
+                          compensated=False, max_step=max_step)
 
 
 # kernel launches since the count was last set to 0 (the plain version on
-# CPU tensors does not count)
+# CPU tensors does not count), and the (threads, warp members) of the last
+# launch through the wrapper
 solve_fused_ckdisc_grid.launches = 0
+solve_fused_ckdisc_grid.last_shape = None

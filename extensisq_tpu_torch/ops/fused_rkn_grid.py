@@ -19,8 +19,8 @@ import torch
 
 from .._device import as_input
 from .fused_erk import check_options
-from .fused_erk_grid import (check_grid_input, fit_shape, grid_threads,
-                             launch_grid)
+from .fused_erk_grid import (check_grid_input, grid_launch_shape,
+                             launch_by_rule)
 from .fused_rkn import _state, rkn_consts, run_rkn_loop
 
 
@@ -94,12 +94,8 @@ def _launch_shape(B, n, sm_count):
     warp at 1 / 4 a block: n = 512 1.025 / 12.744 and 0.904 / 11.685
     against 1.112 / 21.053 and 1.052 / 18.047; n = 1024 3.131 / 73.281 and
     2.870 / 66.205 against 4.431 / 274.456 (four do not fit)."""
-    B, n, sm_count = int(B), int(n), int(sm_count)
-    if B <= HALF_FROM * sm_count:
-        return grid_threads(n), 0
-    if n <= WARP_MAX_N and B > WARP_FROM * sm_count:
-        return 32, WARP_MEMBERS
-    return grid_threads(-(-n // 2)), 0
+    return grid_launch_shape(B, n, sm_count, HALF_FROM, WARP_FROM,
+                             WARP_MEMBERS, WARP_MAX_N)
 
 
 def _kernel(method, fun):
@@ -159,16 +155,10 @@ def _launch(built, t_span, y0, n, shape=None, count=False, rtol=1e-4,
     :func:`_launch_shape`'s, its P capped by the card's shared memory; a
     given shape is taken as it is, for comparisons), counted where
     ``count``.  Returns the four outputs and the shape taken."""
-    if shape is None:
-        with torch.cuda.device(y0.device):
-            shape = fit_shape("solve_fused_rkn_grid",
-                              built.lib.fused_rk_grid_smem, _launch_shape(
-                                  y0.shape[0], n,
-                                  torch.cuda.get_device_properties(
-                                      y0.device).multi_processor_count))
-    return launch_grid(solve_fused_rkn_grid, built, y0, n, t_span, rtol, atol,
-                       first_step, max_steps, compensated, max_step,
-                       shape=shape, count=count), shape
+    return launch_by_rule(solve_fused_rkn_grid, _launch_shape, built, y0, n,
+                          t_span, shape, count, rtol=rtol, atol=atol,
+                          first_step=first_step, max_steps=max_steps,
+                          compensated=compensated, max_step=max_step)
 
 
 # kernel launches since the count was last set to 0 (the plain version on

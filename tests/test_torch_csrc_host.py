@@ -1381,13 +1381,14 @@ NEW_GATES = [("kepler_plain", 2e-4, 2, 16), ("kepler_comp", 6e-5, 2, 100),
 
 
 # the grid body's cases that also run on a warp of 32 coroutine lanes: B6's
-# warp body, at the one-thread gates but for the compensated wave's count
+# and B4's warp body, at the one-thread gates but for the compensated wave's count
 # of members with other counts.  The warp's order of the norm's sums moves
 # the last bits of that error estimate, which is round-off there: at 32
 # lanes max |dy| 1.2e-5 and max |dnsteps| 1, as on one thread, but 5 of
 # the 8 members one step apart (measured; 1 on one thread); its first
 # five attempts stay bit-identical to the plain version
-WARP_GRID_CASES = ("wave_h0", "wave_comp")
+WARP_GRID_CASES = ("wave_h0", "wave_comp", "fisher_plain", "fisher_comp",
+                   "fisher_h0")
 WARP_GRID_GATES = {"wave_comp": (3e-5, 2, 6)}
 
 
@@ -1397,8 +1398,8 @@ WARP_GRID_GATES = {"wave_comp": (3e-5, 2, 6)}
 def test_rkn_and_grid_kernels_match_plain_versions(libs, case, y_gate,
                                                     dsteps, nmembers, lanes):
     """B5 (``fused_rkn.cu``, one member per thread) and the block body of
-    B4 and B6 (``fused_rk_grid.cu``, run by a one-thread group, and B6's
-    also by a warp of 32 coroutine lanes, the warp body's layout) against
+    B4 and B6 (``fused_rk_grid.cu``, run by a one-thread group, and also
+    by a warp of 32 coroutine lanes, the warp body's layout) against
     their plain versions: status identical, counts within the gates (the
     libraries' powf/log10f part last bits of h), identical where
     ``first_step`` is given."""
@@ -1424,7 +1425,7 @@ def test_grid_body_first_attempts_bit_identical(libs, case, attempts, lanes):
     sums, the compensated carries, the norm, the controller) repeat the
     plain version's arithmetic bit for bit: five attempts of the
     compensated wave, until powf and torch.pow round a step ratio apart;
-    B6's also on a warp of 32 coroutine lanes."""
+    B6's and B4's also on a warp of 32 coroutine lanes."""
     host, lib, plain, fun, span, y0, kw = _new_case(case)
     kw.update(first_step=0.01, max_steps=attempts)
     y, st, ns, nf = host(libs[lib], span, y0, lanes=lanes, **kw)
@@ -1774,9 +1775,9 @@ def test_esdirk_grid_body_first_attempts_bit_identical(libs, case, attempts,
     WARP_GRID_CASES))
 def test_warp_body_equals_block_order(libs, case):
     """A warp's reductions give every lane the same value: whole runs of
-    the warp bodies of B7 and B6 (32 coroutine lanes, each taking its own
-    lane's butterfly result, as WarpGroup does) equal the same runs with
-    every lane taking lane 0's (as BlockGroup in a block of one warp
+    the warp bodies of B7, B6 and B4 (32 coroutine lanes, each taking its
+    own lane's butterfly result, as WarpGroup does) equal the same runs
+    with every lane taking lane 0's (as BlockGroup in a block of one warp
     reads it back), bit for bit."""
     if case in ESDIRK_GRID_CASES:
         runs = [_esdirk_grid_case(libs, case, 32, block, plain=False)[0]

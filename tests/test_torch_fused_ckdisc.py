@@ -535,3 +535,52 @@ def test_cuda_tensor_needs_fused_rhs(cuda):
     with pytest.raises(TypeError, match="FusedGridRHS"):
         solve_fused_ckdisc_grid(mol, (0.0, 1.0),
                                 torch.tensor(Y0["mol"], device=cuda))
+
+
+GRID_CARD_CASES = [k for k in CARD_GATES if CASES[k][0] == "grid"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", GRID_CARD_CASES)
+def test_rule_shapes_match_plain_version_on_card(cuda, name):
+    """B12 at each shape its rule can take, blocks of one, two and four
+    elements a thread (64 threads), against the plain version at the card
+    gates; a warp launch is refused; the wrapper records the rule's shape.
+    Comparison launches are not counted."""
+    from extensisq_tpu_torch.ops import fused_ckdisc_grid as FCG
+    from extensisq_tpu_torch.ops.fused_erk_grid import grid_threads
+    _, prob, span, y0, kw = CASES[name]
+    fun = RHS[prob]
+    n = fun.shape[0]
+    y0 = torch.tensor(Y0[y0], device=cuda)
+    built = FCG._kernel(fun)
+    before = solve_fused_ckdisc_grid.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FCG._launch(built, span, y0, n, shape=(32, 4), **kw)
+    r = fused_ckdisc_grid_reference(fun, span, y0, **kw)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rule = FCG._launch_shape(len(y0), n, sms)
+    for shape in {rule, (grid_threads(n), 0), (grid_threads(-(-n // 2)), 0),
+                  (min(FCG.SMALL_THREADS, grid_threads(n)), 0)}:
+        k, _ = FCG._launch(built, span, y0, n, shape=shape, **kw)
+        assert torch.equal(k[1], r[1])
+        ok = r[1] == 1
+        assert (k[0][ok] - r[0][ok]).abs().max().item() <= CARD_GATES[name]
+    assert solve_fused_ckdisc_grid.launches == before
+    solve_fused_ckdisc_grid(fun, span, y0, **kw)
+    assert solve_fused_ckdisc_grid.last_shape == rule
+    assert solve_fused_ckdisc_grid.launches == before + 1
+
+
+@pytest.mark.parametrize("members,n,shape", [
+    (64, 256, (256, 0)), (264, 256, (256, 0)), (265, 256, (128, 0)),
+    (528, 256, (128, 0)), (529, 256, (64, 0)), (1024, 256, (64, 0)),
+    (8, 100, (128, 0)), (300, 100, (64, 0)), (1024, 512, (64, 0)),
+    (8, 20, (32, 0)), (1024, 20, (32, 0))])
+def test_launch_shape_on_132_sms(members, n, shape):
+    """B12's launch shape on the H100's 132 SMs: one block of
+    ``grid_threads(n)`` threads per member up to 2 members an SM, of two
+    elements a thread up to 4, beyond one block of 64 threads (never
+    more than ``grid_threads(n)``); never the warp."""
+    from extensisq_tpu_torch.ops.fused_ckdisc_grid import _launch_shape
+    assert _launch_shape(members, n, 132) == shape

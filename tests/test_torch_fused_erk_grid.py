@@ -283,3 +283,53 @@ def test_cuda_tensor_needs_fused_grid_rhs(cuda):
     with pytest.raises(TypeError, match="FusedGridRHS"):
         solve_fused_erk_grid(fisher, (0.0, 1.0),
                              torch.tensor(FIS0, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CARD_GATES))
+def test_rule_shapes_bit_identical_to_block_of_32_on_card(cuda, name):
+    """B4 at each shape its rule can take: one warp per member (four
+    members a block, also with a ragged last block) bit for bit against
+    one block of 32 threads per member; the rule's shape, the warp and the
+    blocks of one and of two elements a thread against the plain version
+    at the card gates; the wrapper records the rule's shape.  Comparison
+    launches are not counted."""
+    from extensisq_tpu_torch.ops import fused_erk_grid as FKG
+    prob, meth, span, y0, kw = CASES[name]
+    fun, method = RHS[prob], METHODS[meth]
+    y0 = torch.tensor(y0, device=cuda)
+    built = FKG._kernel(method, fun)
+    before = solve_fused_erk_grid.launches
+    for ys in (y0, y0[:7]):
+        block, _ = FKG._launch(built, span, ys, N, shape=(32, 0), **kw)
+        warp, _ = FKG._launch(built, span, ys, N,
+                              shape=(32, FKG.WARP_MEMBERS), **kw)
+        for a, b in zip(warp, block):
+            assert torch.equal(a, b)
+    r = fused_erk_grid_reference(fun, span, y0, method=method, **kw)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rule = FKG._launch_shape(len(y0), N, sms)
+    for shape in {rule, (32, FKG.WARP_MEMBERS), (FKG.grid_threads(N), 0),
+                  (FKG.grid_threads(-(-N // 2)), 0)}:
+        k, _ = FKG._launch(built, span, y0, N, shape=shape, **kw)
+        assert torch.equal(k[1], r[1])
+        ok = r[1] == 1
+        assert (k[0][ok] - r[0][ok]).abs().max().item() <= CARD_GATES[name]
+    assert solve_fused_erk_grid.launches == before
+    solve_fused_erk_grid(fun, span, y0, method=method, **kw)
+    assert solve_fused_erk_grid.last_shape == rule
+    assert solve_fused_erk_grid.launches == before + 1
+
+
+@pytest.mark.parametrize("members,n,shape", [
+    (64, 256, (256, 0)), (1, 20, (32, 0)), (8, 100, (128, 0)),
+    (264, 256, (256, 0)), (265, 256, (32, 4)), (1024, 256, (32, 4)),
+    (1024, 512, (32, 4)), (1024, 513, (256, 0)), (1024, 1024, (256, 0)),
+    (64, 1025, (256, 0)), (1024, 300, (32, 4)), (1024, 600, (256, 0))])
+def test_launch_shape_on_132_sms(members, n, shape):
+    """B4's launch shape on the H100's 132 SMs: one block of
+    ``grid_threads(n)`` threads per member up to 2 members an SM, beyond
+    one warp per member (four a block) where n is at most 512, else
+    blocks of two elements a thread."""
+    from extensisq_tpu_torch.ops.fused_erk_grid import _launch_shape
+    assert _launch_shape(members, n, 132) == shape

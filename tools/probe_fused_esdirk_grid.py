@@ -10,12 +10,13 @@ of --sizes.  The kernel of --old-src (a directory holding an earlier
 fused_esdirk_grid.cu with the headers it includes; its launch signature
 is read from the source: ``..., threads, stream`` for one block a member,
 or ``..., threads, warp_members, stream``) at each block size of
---old-threads and the current kernel at each shape of --shapes are timed
-in turns (old, each shape, the same in reverse, old) with CUDA events
-around the launch alone.  A shape is ``b<T>``, one block of T threads a
-member, or ``w<P>``, one warp a member and P members a block (the current
-kernel only).  Each shape's outputs (y, status, nsteps, nfev) are held
-bit for bit against the old kernel at the same block size (a warp against
+--old-threads (and its warp at each P of --old-warp, where it has the
+warp body) and the current kernel at each shape of --shapes are timed in
+turns (old, each shape, the same in reverse, old) with CUDA events around
+the launch alone.  A shape is ``b<T>``, one block of T threads a member,
+or ``w<P>``, one warp a member and P members a block.  Each shape's
+outputs (y, status, nsteps, nfev) are held bit for bit against the old
+kernel at the same shape, else at the same block size (a warp against
 the old block of 32 threads); so are chip_smoke.py's B7 cases (rd_kv3i,
 rd_trbdf2, rd_comp, dae, dirichlet_back, cubic_overflow) at every shape.
 Prints the shape the wrapper's rule takes at each size.  With --n the
@@ -169,7 +170,7 @@ def fits(b, shape):
     return need * max(1, shape[1]) <= limit
 
 
-def sweep(builds, sizes, old_threads, shapes, n_turns, n):
+def sweep(builds, sizes, old_threads, shapes, n_turns, n, old_warp=()):
     res = {}
     shapes = [s for s in shapes if fits(builds["new"], parse_shape(s))]
     for B in sizes:
@@ -178,6 +179,9 @@ def sweep(builds, sizes, old_threads, shapes, n_turns, n):
         runs = [(f"old b{t}", lambda t=t: launch(builds["old"], CS.RD_SPAN,
                                                  y0, (t, 0), **kw))
                 for t in old_threads]
+        runs += [(f"old w{p}", lambda p=p: launch(builds["old"], CS.RD_SPAN,
+                                                  y0, (32, p), **kw))
+                 for p in old_warp]
         runs += [(f"new {s}", lambda s=s: launch(
             builds["new"], CS.RD_SPAN, y0, parse_shape(s), **kw))
             for s in shapes]
@@ -194,8 +198,9 @@ def sweep(builds, sizes, old_threads, shapes, n_turns, n):
         for label, _ in runs:
             t = times[label]
             med = statistics.median(t)
-            threads, _ = parse_shape(label.split()[1])
-            twin = f"old b{threads}"
+            shape = label.split()[1]
+            twin = (f"old {shape}" if f"old {shape}" in outs
+                    else f"old b{parse_shape(shape)[0]}")
             same = (equal(outs[label], outs[twin]) if twin in outs
                     else None)
             print(f"  b7 n={n} B={B} {label}: "
@@ -291,6 +296,9 @@ def main():
     ap.add_argument("--shapes", default="",
                     help="shapes of the current kernel (b<T>, w<P>); "
                     "default: the old block sizes")
+    ap.add_argument("--old-warp", default="",
+                    help="members a block of the old kernel's warp shapes "
+                    "(where it has the warp body)")
     ap.add_argument("--sections", default="",
                     help="member counts of the section breakdown")
     ap.add_argument("--section-shapes", default="b128",
@@ -356,7 +364,8 @@ def main():
     if not args.no_cases:
         OUT["cases"] = case_checks(builds, old_threads, shapes)
     OUT["sweep"] = sweep(builds, [int(x) for x in args.sizes.split(",")],
-                         old_threads, shapes, args.turns, args.n)
+                         old_threads, shapes, args.turns, args.n,
+                         [int(x) for x in args.old_warp.split(",") if x])
     write_out(args.tag, OUT)
     print(smi)
     return 0
