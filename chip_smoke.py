@@ -951,6 +951,33 @@ def shape_text(wrapper, nb):
             f"blocks of {bm * lanes} threads)")
 
 
+def small_launch(kind, rhs, span, y0, kw, lanes):
+    """B1 (``kind`` fused_erk) or B5 (fused_rkn) at ``lanes`` lanes per
+    member (a comparison launch, not counted): (y, status, nsteps, nfev)."""
+    from extensisq_tpu_torch.ops import fused_erk as FK
+    from extensisq_tpu_torch.ops import fused_rkn as FN
+    mod = FK if kind == "fused_erk" else FN
+    kw = dict(kw)
+    return mod._launch(rhs, span, y0, kw.pop("method", None), kw.pop("rtol"),
+                       kw.pop("atol"), kw.pop("first_step", None),
+                       kw.pop("max_steps", 100_000),
+                       kw.pop("compensated", False),
+                       kw.pop("max_step", None), lanes)[0]
+
+
+def hold_small_lanes(kind, label, rhs, span, y0, kw, k, shape):
+    """B1 or B5 on a check whose wrapper run ``k`` took the rule's ``shape``
+    (lanes, members per block): bit for bit against the other body, one
+    thread per member where the rule took a lane group, else 2 lanes."""
+    other = 1 if shape[0] > 1 else 2
+    same = all(torch.equal(a, b) for a, b in zip(
+        k, small_launch(kind, rhs, span, y0, kw, other)))
+    print(f"{kind} [{label}, {y0.shape[0]}]: {shape[0]} lanes per member, "
+          f"{shape[1]} members per block (the rule's); {other} lanes "
+          f"bit-identical {same}")
+    check(same, f"{kind} {label}: {shape[0]} lanes and {other} differ")
+
+
 def grid_shape_text(shape, nb):
     """A mid-size kernel's launch shape ``(threads, warp members)`` for
     ``nb`` members (B7, B6, B4, B12)."""
@@ -1720,7 +1747,10 @@ def rkn_grid_path():
             kind, label, lambda: run(rhs, span, y0, method=method, **kw),
             lambda: plain(rhs, span, y0, method=method, **kw),
             *RKN_KERNEL_GATES[label])
-        if kind != "fused_rkn":
+        if kind == "fused_rkn":
+            hold_small_lanes(kind, label, rhs, span, y0,
+                             dict(kw, method=method), res[0], run.last_shape)
+        else:
             hold_grid_shapes(kind, label, rhs, span, y0,
                              dict(kw, method=method), res[0], run.last_shape,
                              res[1], RKN_KERNEL_GATES[label])
@@ -1786,8 +1816,10 @@ def rkn_grid_path():
     kep64_s = time.perf_counter() - t0
     kep_plain = ops.solve_fused_rkn(R["kepler"], KEP_SPAN, K32, method=Fi5N,
                                     **KEP_PLAIN_TOL)
+    kep_shape = ops.solve_fused_rkn.last_shape
     kep_comp = ops.solve_fused_rkn(R["kepler"], KEP_SPAN, K32, method=Fi5N,
                                    **KEP_COMP_TOL)
+    kep_comp_shape = ops.solve_fused_rkn.last_shape
     t0 = time.perf_counter()
     pl64 = solve_ensemble(pleiades, PL_SPAN, P64, method=CFMR7osc,
                           rtol=1e-9, atol=1e-12)
@@ -1901,7 +1933,12 @@ def rkn_grid_path():
             kind, f"{label}, the path", lambda o=out: o,
             lambda: kinds[kind][1](rhs, span, y0, method=meth, **tol),
             *RKN_KERNEL_GATES[label])
-        if kind != "fused_rkn":
+        if kind == "fused_rkn":
+            hold_small_lanes(kind, f"{label}, the path", rhs, span, y0,
+                             dict(tol, method=meth), out,
+                             kep_comp_shape if tol.get("compensated")
+                             else kep_shape)
+        else:
             hold_grid_shapes(kind, f"{label}, the path", rhs, span, y0,
                              dict(tol, method=meth), out,
                              fis_shape if kind == "fused_erk_grid"
@@ -1948,10 +1985,15 @@ def rkn_grid_path():
                                                   KEP_COMP_TOL)):
         out = run_kep(tol, k_large)()
         check(bool((out[1] == 1).all()), f"kepler262k {label}: not finished")
+        check(ops.solve_fused_rkn.last_shape[0] == 1,
+              f"kepler262k {label}: the rule took a lane group")
+        large = shape_text(ops.solve_fused_rkn, N_LARGE)
         ms = event_ms(run_kep(tol, k_large))
-        print(f"fused_rkn kernel {label} kepler262k ({N_LARGE // 128} blocks "
-              f"of 128): {ms:.3f} ms, {int(out[2].sum()) / ms * 1e3:.4g} "
-              f"accepted steps/s")
+        print(f"fused_rkn kernel {label} kepler262k ({large}): {ms:.3f} ms, "
+              f"{int(out[2].sum()) / ms * 1e3:.4g} accepted steps/s")
+    print(f"kepler2048 B5 ran at {kep_shape[0]} lanes per member, "
+          f"{kep_shape[1]} members per block (plain), {kep_comp_shape[0]} "
+          f"and {kep_comp_shape[1]} (compensated)")
     w_large = wave_y0(WAVE_M_LARGE, WAVE_N)
     out = run_wav(WAVE_TOL, w_large)()
     check(bool((out[1] == 1).all()), "wave1024: not all finished")
@@ -2010,7 +2052,10 @@ def rkn_grid_path():
                    "kepler2048 B5 plain", KEP_N * (4 * 4 * 2 + 4 * 3),
                    rk_ops(fi5n, True, 2, RHS_OPS["kepler"],
                           int(kep_plain[3].sum()), KEP_N, 5)),
-             ms_compensated=times["kepler2048 B5 compensated"][0]),
+             ms_compensated=times["kepler2048 B5 compensated"][0],
+             lanes=kep_shape[0], block_members=kep_shape[1],
+             lanes_compensated=kep_comp_shape[0],
+             block_members_compensated=kep_comp_shape[1]),
         dict(entry("fused_erk_grid", csrc + "fused_rk_grid.cu",
                    "extensisq_tpu/ops/fused_erk_grid.py:321", launches[0],
                    "fisher256x64 B4",
@@ -2961,11 +3006,14 @@ def main():
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
-        return hold_against_plain(
+        k, r = hold_against_plain(
             "erk", label,
             lambda: solve_fused_erk(rhs, span, y0, method=BS5, **kw),
             lambda: fused_erk_reference(rhs, span, y0, method=BS5, **kw),
             y_gate, STEP_GATE)[:2]
+        hold_small_lanes("fused_erk", label, rhs, span, y0,
+                         dict(kw, method=BS5), k, solve_fused_erk.last_shape)
+        return k, r
 
     y1024 = vdp_y0(1024, torch.float32)
     compare("vdp plain", VDP, T_SPAN, y1024, PLAIN_GATE, **PLAIN_TOL)
@@ -3003,14 +3051,16 @@ def main():
     solve_fused_esdirk.launches = 0
     t0 = time.perf_counter()
     ens = solve_ensemble(vdp, T_SPAN, y64, method=BS5, rtol=1e-6, atol=1e-9)
-    plain = solve_fused_erk(VDP, T_SPAN, y32, method=BS5,
-                            block_members=128, **PLAIN_TOL)
-    comp = solve_fused_erk(VDP, T_SPAN, y32, method=BS5,
-                           block_members=128, **COMP_TOL)
+    plain = solve_fused_erk(VDP, T_SPAN, y32, method=BS5, **PLAIN_TOL)
+    plain_shape = solve_fused_erk.last_shape
+    comp = solve_fused_erk(VDP, T_SPAN, y32, method=BS5, **COMP_TOL)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = solve_fused_erk.launches
-    print(f"main path: {main_s:.3f} s, fused_erk launches {launches}")
+    comp_shape = solve_fused_erk.last_shape
+    print(f"main path: {main_s:.3f} s, fused_erk launches {launches}; "
+          f"{N_MEMBERS} members at {plain_shape[0]} lanes per member "
+          f"(plain), {comp_shape[0]} (compensated), 128 threads a block")
     check(launches == 2, f"fused_erk launched {launches} times, expected 2")
     check(solve_fused_esdirk.launches == 0,
           "the explicit path launched the implicit kernel")
@@ -3065,6 +3115,11 @@ def main():
           and torch.equal(comp[1], ref_comp[1]), "status differs at 4096")
     check(err_plain <= PLAIN_GATE and err_comp <= COMP_GATE,
           "kernel and plain version disagree at 4096")
+    for label, tol, out, shape in (
+            ("main path plain", PLAIN_TOL, plain, plain_shape),
+            ("main path compensated", COMP_TOL, comp, comp_shape)):
+        hold_small_lanes("fused_erk", label, VDP, T_SPAN, y32,
+                         dict(tol, method=BS5), out, shape)
 
     # timing: warm, synchronized, median of REPS
     def run_f64():
@@ -3072,8 +3127,7 @@ def main():
                               atol=1e-9)
 
     def run_kernel(tol, y=y32):
-        return lambda: solve_fused_erk(VDP, T_SPAN, y, method=BS5,
-                                       block_members=128, **tol)
+        return lambda: solve_fused_erk(VDP, T_SPAN, y, method=BS5, **tol)
 
     def run_ref(tol):
         return lambda: fused_erk_reference(VDP, T_SPAN, y32, method=BS5,
@@ -3101,12 +3155,13 @@ def main():
 
     y_large = vdp_y0(N_LARGE, torch.float32)
     for label, tol in (("plain", PLAIN_TOL), ("compensated", COMP_TOL)):
-        out = solve_fused_erk(VDP, T_SPAN, y_large, method=BS5,
-                              block_members=128, **tol)
+        out = solve_fused_erk(VDP, T_SPAN, y_large, method=BS5, **tol)
+        check(solve_fused_erk.last_shape[0] == 1,
+              f"large {label}: the rule took a lane group")
+        large = shape_text(solve_fused_erk, N_LARGE)
         ms = event_ms(run_kernel(tol, y_large))
         check(bool((out[1] == 1).all()), f"large {label}: not finished")
-        print(f"kernel {label} {N_LARGE} members ({N_LARGE // 128} blocks "
-              f"of 128): {ms:.3f} ms, "
+        print(f"kernel {label} {N_LARGE} members ({large}): {ms:.3f} ms, "
               f"{out[2].sum().item() / ms * 1e3:.4g} accepted steps/s, "
               f"{out[3].sum().item() / ms * 1e3:.4g} RHS evals/s")
 
@@ -3144,6 +3199,9 @@ def main():
         "plain_ms": times["plain version, plain f32"],
         "ms_compensated": times["kernel compensated"],
         "plain_ms_compensated": times["plain version, compensated"],
+        "lanes": plain_shape[0], "block_members": plain_shape[1],
+        "lanes_compensated": comp_shape[0],
+        "block_members_compensated": comp_shape[1],
     }, **bound_entry(N_MEMBERS * (2 * 4 * 2 + 4 * 3),
                      int(plain[3].sum()) * OPS_PER_EVAL["fused_erk"])),
         esdirk, adams] + rkc + rkn + ck + mid}))

@@ -6,20 +6,31 @@
 // Its plain PyTorch version is extensisq_tpu_torch/ops/fused_erk.py:
 // fused_erk_reference; the two take the same steps up to round-off.
 //
-// Design: one thread per ensemble member.  Each thread holds its y, y_lo, f
-// and the K[S+1][N] stage rows in registers and runs its own adaptive loop
-// (stages, error norm, controller, end landing) until its status leaves
-// RUNNING.  A member reads device memory once at the start and writes once
-// at the end; nothing inside the loop touches device memory.
+// Design: one member per thread (integrate_thread), or per group of G = 2,
+// 4 or 8 lanes of one warp (integrate<G>, lane_group.cuh).  A member holds
+// its y, y_lo, f and the K[S+1][N] stage rows in registers and runs its own
+// adaptive loop (stages, error norm, controller, end landing) until its
+// status leaves RUNNING; it reads device memory once at the start and lane
+// 0 writes once at the end.  Every lane of a group runs the whole member,
+// the RHS too, so the group branches together; the lanes split the norm's
+// divisions and finiteness tests and the controller's powers left after
+// folding (rk_lanes.cuh), with the one-thread bits at every G.
 //
 // What bounds it on the H100: each member is a long chain of dependent f32
-// operations (stages, powf in the controller), so a thread's time is
-// latency-bound and the card's throughput comes from the number of members
-// in flight.  Threads per block is the caller's block_members (128 by
-// default); 4096 members fill only 32 blocks, about a quarter of the 132 SMs,
-// while 262,144 members give 2048 blocks.  A warp runs until its slowest
-// member ends, so members that need fewer steps idle their lanes meanwhile.
-// No shared memory and no padding: the last block masks idx < B.
+// operations, and the launch lasts as long as the slowest member's chain.
+// At vdp4096 (BS5, n = 2) the slowest member takes 51 attempts; their
+// section clocks (tools/probe_fused_small.py, an instrumented build) put
+// half of an attempt in the norm (two IEEE divisions and a sqrt) and the
+// controller (one powf: BS5's other three fold away), and a third of the
+// launch (26.6 us, plain, ten launches back to back) is a one-step
+// launch's fixed cost (9.3 us).  Spreading members over all SMs gains
+// nothing by itself (blocks of 32 tie blocks of 128: one warp a scheduler
+// either way), and one thread already overlaps two divisions, so the plain
+// mode keeps one thread per member; the compensated mode runs 6-10%
+// faster on 4 or 8 lanes (ops/fused_erk.py:_lanes_per_member, from the
+// member sweep).  262,144 members (2,048 blocks) fill the card on one
+// thread each.  No shared memory and no padding: the last block masks
+// member < B.
 //
 // The tableau (float32, rounded as the JAX kernel rounds it) and the user's
 // right-hand side come from the generated header fused_erk_config.cuh:
@@ -57,6 +68,7 @@
 #include "hstart.cuh"
 #include "rk_common.cuh"
 #include "rk_control.cuh"
+#include "rk_lanes.cuh"
 
 namespace {
 
@@ -93,7 +105,8 @@ using Stages = float[S + 1][N];
 // Stages I..S-1 of one attempt; K[0] holds f(t, y).
 template <bool COMP, int I>
 __device__ __forceinline__ void stages(float t, float h, const float (&y)[N],
-                                       const float (&y_lo)[N], Stages& K) {
+                                       const float (&y_lo)[N], Stages& K,
+                                       rk::Clock& clk) {
   if constexpr (I < S) {
     float acc[N], arg[N];
     rk::wsum<Row<I>, I>(acc, K);
@@ -102,39 +115,47 @@ __device__ __forceinline__ void stages(float t, float h, const float (&y)[N],
       const float dy = h * acc[k];
       arg[k] = COMP ? y[k] + (dy + y_lo[k]) : y[k] + dy;
     }
+    clk.mark(rk::kStageSums);
     constexpr float c = weight(kRowC, I);
     rhs(t + c * h, arg, K[I]);
-    stages<COMP, I + 1>(t, h, y, y_lo, K);
+    clk.mark(rk::kRhs);
+    stages<COMP, I + 1>(t, h, y, y_lo, K, clk);
   }
 }
 
-template <bool COMP>
-__global__ void fused_erk_kernel(const float* __restrict__ y0,
-                                 float* __restrict__ y_out,
-                                 int* __restrict__ status_out,
-                                 int* __restrict__ nstep_out,
-                                 int* __restrict__ nfev_out, int B, float t0,
-                                 float tf, float rtol, float atol, float h0,
-                                 int use_hstart, float max_step,
-                                 int max_steps) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B) return;  // ragged last block: no member padding
+using rk::Launch;
+using rk::OneLane;
+using rk::Out;
 
+// The whole integration of one member by the group grp of G lanes (rank(),
+// shfl(v, src); OneLane at G = 1) from its initial state y0; lane 0 writes
+// the results.  At G = 1 the norm and the controller run as one thread
+// runs them; at G > 1 their divisions and powers are split over the lanes
+// (rk_lanes.cuh), with the same bits.
+template <int G, bool COMP, class Group>
+__device__ __forceinline__ void integrate(Group& grp,
+                                          const float* __restrict__ y0,
+                                          const Launch& L, int member,
+                                          const Out& out) {
+  const float tf = L.tf;
+  const float rtol = L.rtol;
+  const float atol = L.atol;
+  const float max_step = L.max_step;
   float y[N], y_lo[N], f[N];
   Stages K;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    y[k] = y0[static_cast<size_t>(idx) * N + k];
+    y[k] = y0[k];
     y_lo[k] = 0.0f;
   }
-  const float span = tf - t0;
+  const float span = tf - L.t0;
   const float dir = span > 0.0f ? 1.0f : (span < 0.0f ? -1.0f : 0.0f);
-  float t = t0;
+  float t = L.t0;
   float t_lo = 0.0f;
   rhs(t, y, f);
-  rk::StepControl ctl{h0};
+  rk::StepControl ctl{L.h0};
   int nfev = 1;
-  if (use_hstart) {
+  if (L.use_hstart) {
     // max_step is +inf when the caller gave none
     const float bq = t + dir * fminf(fabsf(tf - t), max_step);
     ctl.h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, f, rtol, atol));
@@ -144,6 +165,7 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
   int status = kRunning;
   int nstep = 0;
   int it = 0;
+  rk::Clock clk;
 
   while (status == kRunning) {
     float d;
@@ -154,7 +176,8 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
     // stages, solution and error estimate
 #pragma unroll
     for (int k = 0; k < N; ++k) K[0][k] = f[k];
-    stages<COMP, 1>(t, h, y, y_lo, K);
+    clk.mark(rk::kLoop);
+    stages<COMP, 1>(t, h, y, y_lo, K, clk);
     float y_new[N], y_lo_new[N], err[N];
     if constexpr (COMP) {
       float inc_s[N], inc_c[N];
@@ -175,7 +198,9 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
         y_lo_new[k] = y_lo[k];
       }
     }
+    clk.mark(rk::kSolution);
     if constexpr (tab::FSAL) rhs(t + h, y_new, K[S]);
+    clk.mark(rk::kRhs);
     if constexpr (COMP) {
       float e_s[N], e_c[N];
       rk::comp_wsum<Row<kRowE>, M>(e_s, e_c, K);
@@ -187,20 +212,31 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
 #pragma unroll
       for (int k = 0; k < N; ++k) err[k] = h * e[k];
     }
-    float sq = 0.0f;
-    bool finite = true;
+    clk.mark(rk::kSolution);
+    float err_norm;
+    bool bad;
+    if constexpr (G == 1) {
+      float sq = 0.0f;
+      bool finite = true;
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float scale = atol + rtol * fmaxf(fabsf(y[k]), fabsf(y_new[k]));
-      const float q = err[k] / scale;
-      sq = sq + q * q;
-      finite = finite && isfinite(y_new[k]);
-      if constexpr (tab::FSAL) finite = finite && isfinite(K[S][k]);
+      for (int k = 0; k < N; ++k) {
+        const float scale = atol + rtol * fmaxf(fabsf(y[k]), fabsf(y_new[k]));
+        const float q = err[k] / scale;
+        sq = sq + q * q;
+        finite = finite && isfinite(y_new[k]);
+        if constexpr (tab::FSAL) finite = finite && isfinite(K[S][k]);
+      }
+      err_norm = sqrtf(sq / static_cast<float>(N));
+      // overflow: NaN/Inf anywhere ends this member with status 3
+      bad = !(finite && isfinite(err_norm));
+    } else {
+      // a non-finite y_new or FSAL stage makes the norm non-finite
+      const float(&fsal)[N] = tab::FSAL ? K[S] : y_new;
+      err_norm = rk::lane_norm<G>(grp, err, y, y_new, fsal, rtol, atol);
+      bad = !isfinite(err_norm);
     }
-    const float err_norm = sqrtf(sq / static_cast<float>(N));
-    // overflow: NaN/Inf anywhere ends this member with status 3
-    const bool bad = !(finite && isfinite(err_norm));
     const bool accepted = err_norm < 1.0f && !too_small && !bad;
+    clk.mark(rk::kNorm);
 
     if (too_small) {
       status = kTooSmall;
@@ -211,7 +247,15 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
     // exact landing: the look-ahead clamps h_abs <= d, with equality only
     // on the last step, which then lands on tf exactly
     const bool is_last = accepted && ctl.h_abs >= d;
-    ctl.update(err_norm, h, accepted);
+    clk.mark(rk::kLoop);
+    if constexpr (G == 1) {
+      ctl.update(err_norm, h, accepted);
+    } else {
+      float pw[4];
+      rk::lane_powers<G>(grp, ctl, err_norm, h, pw);
+      ctl.update(err_norm, h, accepted, pw);
+    }
+    clk.mark(rk::kControl);
     float t_new, t_lo_new;
     if constexpr (COMP) {
       float t_adv, t_lo_adv;
@@ -245,41 +289,106 @@ __global__ void fused_erk_kernel(const float* __restrict__ y0,
 
     // step cap: loop iterations, accepted plus rejected
     it += 1;
-    if (it >= max_steps && status == kRunning) status = kOverflow;
+    if (it >= L.max_steps && status == kRunning) status = kOverflow;
     ctl.end(accepted, status == kRunning);
+    clk.mark(rk::kLoop);
   }
 
+  if (grp.rank() != 0) return;
 #pragma unroll
-  for (int k = 0; k < N; ++k) y_out[static_cast<size_t>(idx) * N + k] = y[k];
-  status_out[idx] = status;
-  nstep_out[idx] = nstep;
-  nfev_out[idx] = nfev;
+  for (int k = 0; k < N; ++k) {
+    out.y[static_cast<size_t>(member) * N + k] = y[k];
+  }
+  out.status[member] = status;
+  out.nstep[member] = nstep;
+  out.nfev[member] = nfev;
+  clk.write(member, it);
+}
+
+// One thread per member: the group body on one lane, for ensembles that
+// fill the card.
+template <bool COMP>
+__device__ void integrate_thread(const float* __restrict__ y0,
+                                 const Launch& L, int member,
+                                 const Out& out) {
+  OneLane one;
+  integrate<1, COMP>(one, y0, L, member, out);
 }
 
 }  // namespace
 
-// Launches one thread per member on the caller's stream and returns
-// cudaGetLastError(); the wrapper raises on anything but 0.
+// ---- CUDA groups, kernels and launch ----
+#include "lane_group.cuh"
+
+namespace {
+
+template <int G, bool COMP>
+__global__ void fused_erk_kernel(const float* __restrict__ y0, Out out,
+                                 int B, int block_members, Launch L) {
+  const int member =
+      blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
+  if (member >= B) return;  // ragged last block: no member padding
+  const float* y0m = y0 + static_cast<size_t>(member) * N;
+  if constexpr (G == 1) {
+    integrate_thread<COMP>(y0m, L, member, out);
+  } else {
+    LaneGroup<G> grp;
+    integrate<G, COMP>(grp, y0m, L, member, out);
+  }
+}
+
+template <int G>
+int launch(const float* y0, const Out& out, int B, const Launch& L,
+           int compensated, int block_members, cudaStream_t s) {
+  const int blocks = (B + block_members - 1) / block_members;
+  const int threads = block_members * G;
+  if (compensated) {
+    fused_erk_kernel<G, true><<<blocks, threads, 0, s>>>(y0, out, B,
+                                                         block_members, L);
+  } else {
+    fused_erk_kernel<G, false><<<blocks, threads, 0, s>>>(y0, out, B,
+                                                          block_members, L);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#ifdef FUSED_SMALL_SECTIONS
+// The probe build's section clocks: rk::kSectionSlots unsigned counters per
+// member are written to `sections` by the launches that follow.
+extern "C" int fused_erk_sections(void* sections) {
+  unsigned* ptr = static_cast<unsigned*>(sections);
+  return static_cast<int>(
+      cudaMemcpyToSymbol(rk::g_sections, &ptr, sizeof(ptr)));
+}
+#endif
+
+// Launches block_members members per block, `lanes` (1, 2, 4 or 8)
+// threads per member, on the caller's stream and returns
+// cudaGetLastError() (cudaErrorInvalidValue for another lane count); the
+// wrapper raises on anything but 0.
 extern "C" int fused_erk_launch(const void* y0, void* y_out, void* status,
                                 void* nstep, void* nfev, int B, float t0,
                                 float tf, float rtol, float atol, float h0,
                                 int use_hstart, float max_step, int max_steps,
-                                int compensated, int threads, void* stream) {
-  const int blocks = (B + threads - 1) / threads;
+                                int compensated, int lanes, int block_members,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* y0f = static_cast<const float*>(y0);
-  float* yf = static_cast<float*>(y_out);
-  int* st = static_cast<int*>(status);
-  int* ns = static_cast<int*>(nstep);
-  int* nf = static_cast<int*>(nfev);
-  if (compensated) {
-    fused_erk_kernel<true><<<blocks, threads, 0, s>>>(
-        y0f, yf, st, ns, nf, B, t0, tf, rtol, atol, h0, use_hstart, max_step,
-        max_steps);
-  } else {
-    fused_erk_kernel<false><<<blocks, threads, 0, s>>>(
-        y0f, yf, st, ns, nf, B, t0, tf, rtol, atol, h0, use_hstart, max_step,
-        max_steps);
+  const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
+                static_cast<int*>(nstep), static_cast<int*>(nfev)};
+  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  switch (lanes) {
+    case 1:
+      return launch<1>(y0f, out, B, L, compensated, block_members, s);
+    case 2:
+      return launch<2>(y0f, out, B, L, compensated, block_members, s);
+    case 4:
+      return launch<4>(y0f, out, B, L, compensated, block_members, s);
+    case 8:
+      return launch<8>(y0f, out, B, L, compensated, block_members, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -7,21 +7,29 @@
 // extensisq_tpu_torch/ops/fused_rkn.py:fused_rkn_reference; the two take the
 // same steps up to round-off.
 //
-// Design: one thread per ensemble member, as fused_erk.cu.  Each thread
-// holds u, v, their lo parts, the carried acceleration f and the stage
-// accelerations K[S+1][M] in registers and runs its own adaptive loop
-// (stages with h^2 A and h Ap weights, the combined [u, v] error norm, the
-// controller, the end landing) until its status leaves RUNNING.  A member
-// reads device memory once at the start and writes once at the end.
+// Design: one member per thread or per group of G = 2, 4 or 8 lanes of one
+// warp, as fused_erk.cu.  A member holds u, v, their lo parts, the carried
+// acceleration f and the stage accelerations K[S+1][M] in registers and
+// runs its own adaptive loop (stages with h^2 A and h Ap weights, the
+// combined [u, v] error norm, the controller, the end landing) until its
+// status leaves RUNNING; it reads device memory once at the start and lane
+// 0 writes once at the end.  The lanes of a group split the norm's 2M
+// divisions and finiteness tests and the controller's powers (Fi5N leaves
+// three: the error's to -0.2 and -0.14, the last error's to 0.08), with
+// the one-thread bits at every G (rk_lanes.cuh).
 //
 // What bounds it on the H100: as B1, each member is a long chain of
-// dependent f32 operations (stages, powf in the controller), so a thread's
-// time is latency-bound and the card's throughput comes from the number of
-// members in flight: blocks of 128 threads, 2048 Kepler members give 16
-// blocks (an eighth of the 132 SMs), 262,144 give 2048.  Registers grow
-// with M (Fi5N keeps 7 stage rows of M accelerations); the build prints
-// -Xptxas -v, and chip_smoke.py reports it for M = 2 and M = 14.  A warp
-// runs until its slowest member ends.
+// dependent f32 operations and the launch lasts as long as the slowest
+// member's.  At kepler2048 its attempt (section clocks,
+// tools/probe_fused_small.py) is half the acceleration (a powf in each of
+// the 7 stages and the FSAL row), which no lane can split, and 38% the
+// norm's four divisions and the controller's three powf, issued one after
+// another by one thread.  4 or 8 lanes a member (ops/fused_rkn.py:
+// _lanes_per_member) cut that share and the launch by 10-13% plain, 7-11%
+// compensated, up to one warp per SM sub-partition; 262,144 members run
+// one thread each.  Registers grow with M (Fi5N keeps 7 stage rows of M
+// accelerations); the build prints -Xptxas -v, and chip_smoke.py reports
+// it for M = 2 and M = 14.
 //
 // The tableau (float32, rounded as the JAX kernel rounds it; E and Ep as the
 // tableau has them, without the stepper's Mu5Nmb damping) and the user's
@@ -50,7 +58,6 @@ using tab::M;
 using tab::S;
 constexpr int N = 2 * M;                    // the first-order state [u, v]
 constexpr int MM = S + (tab::FSAL ? 1 : 0);  // rows of the error estimate
-constexpr int kThreads = 128;
 
 constexpr int kRunning = 0;
 constexpr int kFinished = 1;
@@ -68,10 +75,14 @@ __device__ __forceinline__ void rhs(float t, const float* y, float* dy) {
 
 #include "hstart.cuh"
 #include "rk_control.cuh"
+#include "rk_lanes.cuh"
 #include "rk_rows.cuh"
 
 namespace {
 
+using rk::Launch;
+using rk::OneLane;
+using rk::Out;
 using rk::RowA;
 using rk::RowAp;
 using rk::RowB;
@@ -86,7 +97,8 @@ __device__ __forceinline__ void stages(float t, float h, float hh,
                                        const float (&u)[M],
                                        const float (&u_lo)[M],
                                        const float (&v)[M],
-                                       const float (&v_lo)[M], Stages& K) {
+                                       const float (&v_lo)[M], Stages& K,
+                                       rk::Clock& clk) {
   if constexpr (I < S) {
     float wa[M], wp[M], au[M], av[M];
     rk::wsum<RowA<I>, I>(wa, K);
@@ -104,38 +116,44 @@ __device__ __forceinline__ void stages(float t, float h, float hh,
       au[k] = u[k] + du;
       av[k] = v[k] + dv;
     }
+    clk.mark(rk::kStageSums);
     acc(t + ch, au, av, K[I]);
-    stages<COMP, I + 1>(t, h, hh, u, u_lo, v, v_lo, K);
+    clk.mark(rk::kRhs);
+    stages<COMP, I + 1>(t, h, hh, u, u_lo, v, v_lo, K, clk);
   }
 }
 
-template <bool COMP>
-__global__ void __launch_bounds__(kThreads)
-    fused_rkn_kernel(const float* __restrict__ y0, float* __restrict__ y_out,
-                     int* __restrict__ status_out, int* __restrict__ nstep_out,
-                     int* __restrict__ nfev_out, int B, float t0, float tf,
-                     float rtol, float atol, float h0, int use_hstart,
-                     float max_step, int max_steps) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B) return;  // ragged last block: no member padding
-
+// The whole integration of one member by the group grp of G lanes (rank(),
+// shfl(v, src); OneLane at G = 1) from its initial state y0 = [u, v]; lane
+// 0 writes the results.  At G = 1 the norm and the controller run as one
+// thread runs them; at G > 1 their divisions and powers are split over the
+// lanes (rk_lanes.cuh), with the same bits.
+template <int G, bool COMP, class Group>
+__device__ __forceinline__ void integrate(Group& grp,
+                                          const float* __restrict__ y0,
+                                          const Launch& L, int member,
+                                          const Out& out) {
+  const float tf = L.tf;
+  const float rtol = L.rtol;
+  const float atol = L.atol;
+  const float max_step = L.max_step;
   float u[M], v[M], u_lo[M], v_lo[M], f[M];
   Stages K;
 #pragma unroll
   for (int k = 0; k < M; ++k) {
-    u[k] = y0[static_cast<size_t>(idx) * N + k];
-    v[k] = y0[static_cast<size_t>(idx) * N + M + k];
+    u[k] = y0[k];
+    v[k] = y0[M + k];
     u_lo[k] = 0.0f;
     v_lo[k] = 0.0f;
   }
-  const float span = tf - t0;
+  const float span = tf - L.t0;
   const float dir = span > 0.0f ? 1.0f : (span < 0.0f ? -1.0f : 0.0f);
-  float t = t0;
+  float t = L.t0;
   float t_lo = 0.0f;
   acc(t, u, v, f);
-  rk::StepControl ctl{h0};
+  rk::StepControl ctl{L.h0};
   int nfev = 1;
-  if (use_hstart) {
+  if (L.use_hstart) {
     float y[N], yp[N];
 #pragma unroll
     for (int k = 0; k < M; ++k) {
@@ -153,6 +171,7 @@ __global__ void __launch_bounds__(kThreads)
   int status = kRunning;
   int nstep = 0;
   int it = 0;
+  rk::Clock clk;
 
   while (status == kRunning) {
     float d;
@@ -164,7 +183,8 @@ __global__ void __launch_bounds__(kThreads)
     // stages, solution and error estimate
 #pragma unroll
     for (int k = 0; k < M; ++k) K[0][k] = f[k];
-    stages<COMP, 1>(t, h, hh, u, u_lo, v, v_lo, K);
+    clk.mark(rk::kLoop);
+    stages<COMP, 1>(t, h, hh, u, u_lo, v, v_lo, K, clk);
     float u_new[M], v_new[M], u_lo_new[M], v_lo_new[M];
     float err_u[M], err_v[M];
     if constexpr (COMP) {
@@ -194,7 +214,9 @@ __global__ void __launch_bounds__(kThreads)
         v_lo_new[k] = v_lo[k];
       }
     }
+    clk.mark(rk::kSolution);
     if constexpr (tab::FSAL) acc(t + h, u_new, v_new, K[S]);
+    clk.mark(rk::kRhs);
     if constexpr (COMP) {
       float es[M], ec[M], eps[M], epc[M];
       rk::comp_wsum<RowE, MM>(es, ec, K);
@@ -214,27 +236,50 @@ __global__ void __launch_bounds__(kThreads)
         err_v[k] = h * eps[k];
       }
     }
+    clk.mark(rk::kSolution);
     // the RMS of [err_u, err_v] over the 2M states
-    float sq = 0.0f;
-    bool finite = true;
+    float err_norm;
+    bool bad;
+    if constexpr (G == 1) {
+      float sq = 0.0f;
+      bool finite = true;
 #pragma unroll
-    for (int k = 0; k < M; ++k) {
-      const float q =
-          err_u[k] / (atol + rtol * fmaxf(fabsf(u[k]), fabsf(u_new[k])));
-      sq = sq + q * q;
-      finite = finite && isfinite(u_new[k]) && isfinite(v_new[k]);
-      if constexpr (tab::FSAL) finite = finite && isfinite(K[S][k]);
-    }
+      for (int k = 0; k < M; ++k) {
+        const float q =
+            err_u[k] / (atol + rtol * fmaxf(fabsf(u[k]), fabsf(u_new[k])));
+        sq = sq + q * q;
+        finite = finite && isfinite(u_new[k]) && isfinite(v_new[k]);
+        if constexpr (tab::FSAL) finite = finite && isfinite(K[S][k]);
+      }
 #pragma unroll
-    for (int k = 0; k < M; ++k) {
-      const float q =
-          err_v[k] / (atol + rtol * fmaxf(fabsf(v[k]), fabsf(v_new[k])));
-      sq = sq + q * q;
+      for (int k = 0; k < M; ++k) {
+        const float q =
+            err_v[k] / (atol + rtol * fmaxf(fabsf(v[k]), fabsf(v_new[k])));
+        sq = sq + q * q;
+      }
+      err_norm = sqrtf(sq / static_cast<float>(N));
+      // overflow: NaN/Inf anywhere ends this member with status 3
+      bad = !(finite && isfinite(err_norm));
+    } else {
+      // the same over [u, v] as one vector; a non-finite u_new, v_new or
+      // FSAL stage makes the norm non-finite
+      float e[N], a[N], b[N], c[N];
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        e[k] = err_u[k];
+        e[M + k] = err_v[k];
+        a[k] = u[k];
+        a[M + k] = v[k];
+        b[k] = u_new[k];
+        b[M + k] = v_new[k];
+        c[k] = tab::FSAL ? K[S][k] : u_new[k];
+        c[M + k] = v_new[k];
+      }
+      err_norm = rk::lane_norm<G>(grp, e, a, b, c, rtol, atol);
+      bad = !isfinite(err_norm);
     }
-    const float err_norm = sqrtf(sq / static_cast<float>(N));
-    // overflow: NaN/Inf anywhere ends this member with status 3
-    const bool bad = !(finite && isfinite(err_norm));
     const bool accepted = err_norm < 1.0f && !too_small && !bad;
+    clk.mark(rk::kNorm);
 
     if (too_small) {
       status = kTooSmall;
@@ -245,7 +290,15 @@ __global__ void __launch_bounds__(kThreads)
     // exact landing: the look-ahead clamps h_abs <= d, with equality only
     // on the last step, which then lands on tf exactly
     const bool is_last = accepted && ctl.h_abs >= d;
-    ctl.update(err_norm, h, accepted);
+    clk.mark(rk::kLoop);
+    if constexpr (G == 1) {
+      ctl.update(err_norm, h, accepted);
+    } else {
+      float pw[4];
+      rk::lane_powers<G>(grp, ctl, err_norm, h, pw);
+      ctl.update(err_norm, h, accepted, pw);
+    }
+    clk.mark(rk::kControl);
     float t_new, t_lo_new;
     if constexpr (COMP) {
       float t_adv, t_lo_adv;
@@ -282,45 +335,107 @@ __global__ void __launch_bounds__(kThreads)
 
     // step cap: loop iterations, accepted plus rejected
     it += 1;
-    if (it >= max_steps && status == kRunning) status = kOverflow;
+    if (it >= L.max_steps && status == kRunning) status = kOverflow;
     ctl.end(accepted, status == kRunning);
+    clk.mark(rk::kLoop);
   }
 
+  if (grp.rank() != 0) return;
 #pragma unroll
   for (int k = 0; k < M; ++k) {
-    y_out[static_cast<size_t>(idx) * N + k] = u[k];
-    y_out[static_cast<size_t>(idx) * N + M + k] = v[k];
+    out.y[static_cast<size_t>(member) * N + k] = u[k];
+    out.y[static_cast<size_t>(member) * N + M + k] = v[k];
   }
-  status_out[idx] = status;
-  nstep_out[idx] = nstep;
-  nfev_out[idx] = nfev;
+  out.status[member] = status;
+  out.nstep[member] = nstep;
+  out.nfev[member] = nfev;
+  clk.write(member, it);
+}
+
+// One thread per member: the group body on one lane, for ensembles that
+// fill the card.
+template <bool COMP>
+__device__ void integrate_thread(const float* __restrict__ y0,
+                                 const Launch& L, int member,
+                                 const Out& out) {
+  OneLane one;
+  integrate<1, COMP>(one, y0, L, member, out);
 }
 
 }  // namespace
 
-// Launches one thread per member, in blocks of kThreads, on the caller's
-// stream and returns cudaGetLastError(); the wrapper raises on anything but
-// 0.
+// ---- CUDA groups, kernels and launch ----
+#include "lane_group.cuh"
+
+namespace {
+
+template <int G, bool COMP>
+__global__ void fused_rkn_kernel(const float* __restrict__ y0, Out out,
+                                 int B, int block_members, Launch L) {
+  const int member =
+      blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
+  if (member >= B) return;  // ragged last block: no member padding
+  const float* y0m = y0 + static_cast<size_t>(member) * N;
+  if constexpr (G == 1) {
+    integrate_thread<COMP>(y0m, L, member, out);
+  } else {
+    LaneGroup<G> grp;
+    integrate<G, COMP>(grp, y0m, L, member, out);
+  }
+}
+
+template <int G>
+int launch(const float* y0, const Out& out, int B, const Launch& L,
+           int compensated, int block_members, cudaStream_t s) {
+  const int blocks = (B + block_members - 1) / block_members;
+  const int threads = block_members * G;
+  if (compensated) {
+    fused_rkn_kernel<G, true><<<blocks, threads, 0, s>>>(y0, out, B,
+                                                         block_members, L);
+  } else {
+    fused_rkn_kernel<G, false><<<blocks, threads, 0, s>>>(y0, out, B,
+                                                          block_members, L);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#ifdef FUSED_SMALL_SECTIONS
+// The probe build's section clocks: rk::kSectionSlots unsigned counters per
+// member are written to `sections` by the launches that follow.
+extern "C" int fused_rkn_sections(void* sections) {
+  unsigned* ptr = static_cast<unsigned*>(sections);
+  return static_cast<int>(
+      cudaMemcpyToSymbol(rk::g_sections, &ptr, sizeof(ptr)));
+}
+#endif
+
+// Launches block_members members per block, `lanes` (1, 2, 4 or 8)
+// threads per member, on the caller's stream and returns
+// cudaGetLastError() (cudaErrorInvalidValue for another lane count); the
+// wrapper raises on anything but 0.
 extern "C" int fused_rkn_launch(const void* y0, void* y_out, void* status,
                                 void* nstep, void* nfev, int B, float t0,
                                 float tf, float rtol, float atol, float h0,
                                 int use_hstart, float max_step, int max_steps,
-                                int compensated, void* stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
+                                int compensated, int lanes, int block_members,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* y0f = static_cast<const float*>(y0);
-  float* yf = static_cast<float*>(y_out);
-  int* st = static_cast<int*>(status);
-  int* ns = static_cast<int*>(nstep);
-  int* nf = static_cast<int*>(nfev);
-  if (compensated) {
-    fused_rkn_kernel<true><<<blocks, kThreads, 0, s>>>(
-        y0f, yf, st, ns, nf, B, t0, tf, rtol, atol, h0, use_hstart, max_step,
-        max_steps);
-  } else {
-    fused_rkn_kernel<false><<<blocks, kThreads, 0, s>>>(
-        y0f, yf, st, ns, nf, B, t0, tf, rtol, atol, h0, use_hstart, max_step,
-        max_steps);
+  const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
+                static_cast<int*>(nstep), static_cast<int*>(nfev)};
+  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  switch (lanes) {
+    case 1:
+      return launch<1>(y0f, out, B, L, compensated, block_members, s);
+    case 2:
+      return launch<2>(y0f, out, B, L, compensated, block_members, s);
+    case 4:
+      return launch<4>(y0f, out, B, L, compensated, block_members, s);
+    case 8:
+      return launch<8>(y0f, out, B, L, compensated, block_members, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -521,7 +521,7 @@ def load_fused_erk(consts, n, rhs_src):
     return load_kernel(
         "fused_erk", fused_erk_header(consts, n, rhs_src),
         [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI, _CF,
-         _CI, _CI, _CI, _VP])
+         _CI, _CI, _CI, _CI, _VP])
 
 
 def load_fused_rkn(consts, m, acc_src):
@@ -531,7 +531,7 @@ def load_fused_rkn(consts, m, acc_src):
     return load_kernel(
         "fused_rkn", fused_rkn_header(consts, m, acc_src),
         [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI, _CF,
-         _CI, _CI, _VP])
+         _CI, _CI, _CI, _CI, _VP])
 
 
 def load_fused_rk_grid(consts, rkn, shape, src):

@@ -45,7 +45,7 @@ from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW
 from .._device import as_input
 from ..steppers.adams import AdamsStepper, _GSTR, _put, _rows, _take
 from ..types import IVPParams
-from .fused_erk import FusedRHS, _df_add, _two_sum
+from .fused_erk import FusedRHS, _df_add, _launch_shape, _two_sum
 
 _EPS32 = float(np.finfo(np.float32).eps)
 # the double-single t carry resolves ~2^-46, so the minimum step is
@@ -397,8 +397,6 @@ def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
     return y.T.contiguous(), status, nsteps, nfev
 
 
-# threads per block when the caller leaves block_members to the wrapper
-_BLOCK_THREADS = 128
 # threads per SM at which the member sweep ran fastest at every ensemble
 # size (8 warps: two per SM sub-partition)
 _THREADS_PER_SM = 256
@@ -435,24 +433,6 @@ def _lanes_per_member(B, sm_count, k_max):
         if int(B) * lanes <= budget:
             return lanes
     return 8 if int(k_max) >= 8 and 8 * int(B) <= 2 * budget else 1
-
-
-def _launch_shape(B, lanes, block_members=None):
-    """``(block_members, threads per block, blocks)`` of a launch of ``B``
-    members at ``lanes`` lanes each.  ``block_members`` None takes
-    128 / lanes members per block (at least one); a block of more than
-    1024 threads raises."""
-    if block_members is None:
-        block_members = max(1, _BLOCK_THREADS // lanes)
-    block_members = int(block_members)
-    if block_members < 1:
-        raise ValueError("block_members must be at least 1")
-    threads = block_members * lanes
-    if threads > 1024:
-        raise ValueError(
-            f"block_members={block_members} at {lanes} lanes per member is "
-            f"{threads} threads per block; at most 1024")
-    return block_members, threads, -(-int(B) // block_members)
 
 
 def _kernel(fun, km):

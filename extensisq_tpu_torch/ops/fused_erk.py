@@ -13,6 +13,7 @@ solution and error sums and a double-single ``(hi, lo)`` carry for y and
 t, which lets float32 run rtol ~1e-6 / atol ~1e-9.
 """
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -322,6 +323,28 @@ def launch_args(t_span, rtol, atol, first_step, max_steps, compensated,
             int(max_steps), int(bool(compensated)))
 
 
+# threads per block when the caller leaves block_members to the wrapper
+_BLOCK_THREADS = 128
+
+
+def _launch_shape(B, lanes, block_members=None):
+    """``(block_members, threads per block, blocks)`` of a launch of ``B``
+    members at ``lanes`` lanes each.  ``block_members`` None takes
+    128 / lanes members per block (at least one); a block of more than
+    1024 threads raises."""
+    if block_members is None:
+        block_members = max(1, _BLOCK_THREADS // lanes)
+    block_members = int(block_members)
+    if block_members < 1:
+        raise ValueError("block_members must be at least 1")
+    threads = block_members * lanes
+    if threads > 1024:
+        raise ValueError(
+            f"block_members={block_members} at {lanes} lanes per member is "
+            f"{threads} threads per block; at most 1024")
+    return block_members, threads, -(-int(B) // block_members)
+
+
 def _kernel(method, fun):
     """The kernel built for one method and FusedRHS."""
     if method is None:
@@ -332,9 +355,58 @@ def _kernel(method, fun):
                              _fused_consts(method), fun.n, fun.cuda_src))
 
 
+# threads per SM up to which the wrappers spread members over lane groups
+# (one warp per SM sub-partition)
+_THREADS_PER_SM = 128
+# the lane counts B1 takes besides 1, most first
+_LANES = (8, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def device_sm_count(device):
+    """The SM count of the CUDA ``device``, asked of the driver once: B1's
+    and B5's launches take tens of microseconds, and the property call
+    is a share of their host time."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def lanes_within_budget(B, sm_count, lanes):
+    """The largest G of ``lanes`` (most first) with B G <= 128 sm_count,
+    else 1: one warp per SM sub-partition (B1, B2, B5)."""
+    budget = _THREADS_PER_SM * int(sm_count)
+    for g in lanes:
+        if int(B) * g <= budget:
+            return g
+    return 1
+
+
+def _lanes_per_member(B, sm_count, compensated):
+    """Lanes per member of B1 for an ensemble of ``B`` members on a card of
+    ``sm_count`` SMs: in the compensated mode the largest G of 8 and 4 with
+    B G <= 128 sm_count, else 1 (one thread per member); in the plain
+    mode 1.
+
+    From the member sweep of the Van der Pol line (BS5, n = 2, mu = 3, t
+    in [0, 10]; ``tools/probe_fused_small.py``, launch alone, ten launches
+    back to back) on an H100 (132 SMs, 700 W), us per launch of one
+    thread per member (128 a block) against G = 2 / 4 / 8 (128 / G
+    members a block).  Compensated: 512 members 78.7 against 78.6 / 73.5
+    / 70.9; 2,048: 78.6 against 79.0 / 74.5 / 72.0; 4,096: 78.8 against
+    79.1 / 74.2 / 88.5; 16,384: 78.9 against 96.0 / 137.8 / 250.9.
+    Plain: 512 members 26.6 against 29.2 / 27.0 / 25.8; 2,048: 26.1
+    against 29.4 / 27.0 / 26.0; 4,096: 26.6 against 29.8 / 27.9 / 30.2.
+    BS5 leaves the controller one power (the others fold to 1 or repeat
+    it), which every lane computes, so the lanes split only the norm's n
+    divisions, which one thread already overlaps at n = 2: in the plain
+    mode the lanes tie or lose.  Past one warp per SM sub-partition (B G
+    > 128 sm_count) every G loses.  G = 2 is built (a comparison body)
+    but never taken."""
+    return lanes_within_budget(B, sm_count, _LANES) if compensated else 1
+
+
 def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
                     atol=1e-6, first_step=None, max_steps=100_000,
-                    block_members=128, compensated=False, t_eval=None,
+                    block_members=None, compensated=False, t_eval=None,
                     events=None, max_step=None, params=None, dense=None):
     """Integrate an ensemble of small ODE systems in one kernel launch.
 
@@ -346,10 +418,15 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.
     On a CUDA tensor ``fun`` must be a :class:`FusedRHS`, and the call
-    launches ``csrc/fused_erk.cu`` (built at first use) with
-    ``block_members`` threads per block, or raises.  On a CPU tensor it
-    runs :func:`fused_erk_reference`, with a :class:`FusedRHS` or a plain
-    rows-first torch function.
+    launches ``csrc/fused_erk.cu`` (built at first use) or raises: G lanes
+    of one warp per member, G from :func:`_lanes_per_member` (the ensemble
+    size, the card's SM count and the mode; every lane runs the member,
+    the lanes split the norm's divisions and the controller's powers, with
+    the bits of one thread per member), and ``block_members`` members per
+    block (None: 128 / G), so ``block_members * G`` threads per block, at
+    most 1024; the shape taken is left in ``solve_fused_erk.last_shape``.
+    On a CPU tensor it runs :func:`fused_erk_reference`, with a
+    :class:`FusedRHS` or a plain rows-first torch function.
 
     ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet.
     """
@@ -362,6 +439,21 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
             first_step=first_step, max_steps=max_steps,
             compensated=compensated, max_step=max_step)
 
+    out, shape = _launch(fun, t_span, y0, method, rtol, atol, first_step,
+                         max_steps, compensated, max_step, None,
+                         block_members)
+    solve_fused_erk.last_shape = shape
+    if y0.shape[0]:
+        solve_fused_erk.launches += 1
+    return out
+
+
+def _launch(fun, t_span, y0, method, rtol, atol, first_step, max_steps,
+            compensated, max_step, lanes, block_members=None):
+    """B1 on the card for the CUDA tensor ``y0``: ``lanes`` lanes per member
+    (None: :func:`_lanes_per_member`'s) and ``block_members`` members per
+    block (None: 128 / lanes).  Returns the four outputs and the ``(lanes,
+    block_members)`` taken; an empty batch launches nothing."""
     if not isinstance(fun, FusedRHS):
         raise TypeError("solve_fused_erk on a CUDA tensor needs a FusedRHS "
                         "(a CUDA source of the right-hand side); got "
@@ -373,30 +465,35 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
                          f"{tuple(y0.shape)}")
     if not y0.is_contiguous():
         raise ValueError("y0_batch must be contiguous")
-    if not 1 <= block_members <= 1024:
-        raise ValueError("block_members must be in [1, 1024]")
+    nb = y0.shape[0]
+    if lanes is None:
+        lanes = _lanes_per_member(nb, device_sm_count(y0.device),
+                                  compensated)
+    block_members, _, _ = _launch_shape(nb, lanes, block_members)
 
     built = _kernel(method, fun)
-    nb = y0.shape[0]
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
+    shape = (lanes, block_members)
     if nb == 0:
-        return y_out, status, nsteps, nfev
+        return (y_out, status, nsteps, nfev), shape
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
         rc = built.lib.fused_erk_launch(
             y0.data_ptr(), y_out.data_ptr(), status.data_ptr(),
             nsteps.data_ptr(), nfev.data_ptr(), nb,
             *launch_args(t_span, rtol, atol, first_step, max_steps,
-                         compensated, max_step), int(block_members), stream)
+                         compensated, max_step), int(lanes), block_members,
+            stream)
     if rc != 0:
         raise RuntimeError(f"fused_erk kernel launch failed: CUDA error {rc}")
-    solve_fused_erk.launches += 1
-    return y_out, status, nsteps, nfev
+    return (y_out, status, nsteps, nfev), shape
 
 
 # kernel launches since the count was last set to 0 (the plain version on
-# CPU tensors does not count)
+# CPU tensors does not count) and the (lanes per member, members per block)
+# of the last launch
 solve_fused_erk.launches = 0
+solve_fused_erk.last_shape = None

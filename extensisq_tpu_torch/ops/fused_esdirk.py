@@ -45,8 +45,8 @@ from ..core.numerics import norm
 from ..steppers.erk import weighted_sum
 from ..steppers.esdirk import jacfwd
 from . import _hstart_tile
-from .fused_adams import _launch_shape
-from .fused_erk import FusedRHS, _comp_wsum, _df_add, _two_sum
+from .fused_erk import (FusedRHS, _comp_wsum, _df_add, _launch_shape,
+                        _two_sum, lanes_within_budget)
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -517,9 +517,6 @@ def run_esdirk_loop(fun, k, t, tf, y, yp, h_abs, nfev0, rtol, atol,
     return y, status, nstep, nfev
 
 
-# threads per SM up to which the wrapper spreads members over lane groups
-# (one warp per SM sub-partition)
-_THREADS_PER_SM = 128
 # the lane counts the wrapper takes besides 1, most first
 _LANES = (32, 16, 8, 4)
 
@@ -541,11 +538,7 @@ def _lanes_per_member(B, sm_count, n):
     operations, the norms' divisions and the controller's powers split
     over them, and a second warp per scheduler already costs issue slots.
     ``n`` (at most 8) is not used yet: the sweep ran at n = 5 only."""
-    budget = _THREADS_PER_SM * int(sm_count)
-    for lanes in _LANES:
-        if int(B) * lanes <= budget:
-            return lanes
-    return 1
+    return lanes_within_budget(B, sm_count, _LANES)
 
 
 def _kernel(method, fun, M, m_diag, rot, n):

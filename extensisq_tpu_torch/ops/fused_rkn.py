@@ -33,8 +33,9 @@ from ..core.controller import resolve_controller
 from ..core.numerics import norm
 from ..steppers.erk import weighted_sum
 from . import _hstart_tile
-from .fused_erk import (_comp_wsum, _df_add, _two_sum, check_options,
-                        controller, fresh_step, launch_args)
+from .fused_erk import (_comp_wsum, _df_add, _launch_shape, _two_sum,
+                        check_options, controller, device_sm_count,
+                        fresh_step, lanes_within_budget, launch_args)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -284,10 +285,46 @@ def _kernel(method, fun):
                              rkn_consts(method), fun.m, fun.cuda_src))
 
 
+# the lane counts the wrapper takes besides 1, most first
+_LANES = (8, 4)
+# the most positions per member at which the wrapper takes lanes
+_LANES_MAX_M = 2
+
+
+def _lanes_per_member(B, sm_count, m):
+    """Lanes per member of B5 for an ensemble of ``B`` members of ``m``
+    positions on a card of ``sm_count`` SMs: where m <= 2, the largest G
+    of 8 and 4 with B G <= 128 sm_count, else 1 (one thread per member).
+
+    From the member sweeps (``tools/probe_fused_small.py``, launch alone,
+    ten launches back to back) on an H100 (132 SMs, 700 W), us per launch
+    of one thread per member (128 a block) against G = 2 / 4 / 8 (128 / G
+    members a block).  Kepler (Fi5N, m = 2, one orbit, eccentricities
+    0.1-0.7), plain: 512 members 62.6 against 67.7 / 57.0 / 55.2; 2,048:
+    64.1 against 69.1 / 58.1 / 56.4; 4,096: 64.2 against 69.3 / 58.2 /
+    60.7; 16,384: 64.4 against 74.1 / 81.1 / 129.8.  Compensated: 512
+    members 168.7 against 180.3 / 154.0 / 149.8; 2,048: 167.8 against
+    179.8 / 153.7 / 149.5; 4,096: 169.2 against 180.6 / 154.0 / 161.4;
+    16,384: 169.6 against 194.4 / 228.8 / 376.2.  The lanes split Fi5N's
+    three controller powers (each lane's exponent then known only at run
+    time, a longer powf: at G = 2, two a lane, they lose) and the norm's
+    2m divisions; past one warp per SM sub-partition every G loses.
+    Pleiades (m = 14, seven bodies, t in [0, 3]), where the acceleration
+    outweighs what the lanes split: plain, 512 members 6,435 against
+    6,670 / 6,600 / 6,602; 2,048: 6,455 against 6,723 / 6,638 / 6,609;
+    compensated, 512: 17,636 against 18,201 / 17,966 / 17,921; 2,048:
+    18,492 against 19,261 / 18,865 / 18,400.  m from 3 to 13 is not
+    measured and keeps one thread.  G = 2 is built (a comparison body) but
+    never taken."""
+    if int(m) > _LANES_MAX_M:
+        return 1
+    return lanes_within_budget(B, sm_count, _LANES)
+
+
 def solve_fused_rkn(acc, t_span, y0_batch, method=None, rtol=1e-4,
                     atol=1e-6, first_step=None, max_steps=100_000,
-                    compensated=False, t_eval=None, events=None,
-                    max_step=None, params=None, dense=None):
+                    block_members=None, compensated=False, t_eval=None,
+                    events=None, max_step=None, params=None, dense=None):
     """Integrate an ensemble of small second-order systems in one kernel
     launch.
 
@@ -300,9 +337,14 @@ def solve_fused_rkn(acc, t_span, y0_batch, method=None, rtol=1e-4,
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.  On a CUDA
     tensor ``acc`` must be a :class:`FusedAcc`, and the call launches
-    ``csrc/fused_rkn.cu`` (built at first use, one thread per member in
-    blocks of 128), or raises.  On a CPU tensor it runs
-    :func:`fused_rkn_reference`.
+    ``csrc/fused_rkn.cu`` (built at first use) or raises: G lanes of one
+    warp per member, G from :func:`_lanes_per_member` (the ensemble size,
+    the card's SM count and m; every lane runs the member, the lanes split
+    the norm's divisions and the controller's powers, with the bits of one
+    thread per member), and ``block_members`` members per block (None: 128
+    / G), so ``block_members * G`` threads per block, at most 1024; the
+    shape taken is left in ``solve_fused_rkn.last_shape``.  On a CPU
+    tensor it runs :func:`fused_rkn_reference`.
 
     ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet.
     """
@@ -315,6 +357,21 @@ def solve_fused_rkn(acc, t_span, y0_batch, method=None, rtol=1e-4,
             first_step=first_step, max_steps=max_steps,
             compensated=compensated, max_step=max_step)
 
+    out, shape = _launch(acc, t_span, y0, method, rtol, atol, first_step,
+                         max_steps, compensated, max_step, None,
+                         block_members)
+    solve_fused_rkn.last_shape = shape
+    if y0.shape[0]:
+        solve_fused_rkn.launches += 1
+    return out
+
+
+def _launch(acc, t_span, y0, method, rtol, atol, first_step, max_steps,
+            compensated, max_step, lanes, block_members=None):
+    """B5 on the card for the CUDA tensor ``y0``: ``lanes`` lanes per member
+    (None: :func:`_lanes_per_member`'s) and ``block_members`` members per
+    block (None: 128 / lanes).  Returns the four outputs and the ``(lanes,
+    block_members)`` taken; an empty batch launches nothing."""
     if not isinstance(acc, FusedAcc):
         raise TypeError("solve_fused_rkn on a CUDA tensor needs a FusedAcc "
                         "(a CUDA source of the acceleration); got "
@@ -326,28 +383,34 @@ def solve_fused_rkn(acc, t_span, y0_batch, method=None, rtol=1e-4,
                          f"{tuple(y0.shape)}")
     if not y0.is_contiguous():
         raise ValueError("y0_batch must be contiguous")
+    nb = y0.shape[0]
+    if lanes is None:
+        lanes = _lanes_per_member(nb, device_sm_count(y0.device), acc.m)
+    block_members, _, _ = _launch_shape(nb, lanes, block_members)
 
     built = _kernel(method, acc)
-    nb = y0.shape[0]
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
+    shape = (lanes, block_members)
     if nb == 0:
-        return y_out, status, nsteps, nfev
+        return (y_out, status, nsteps, nfev), shape
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
         rc = built.lib.fused_rkn_launch(
             y0.data_ptr(), y_out.data_ptr(), status.data_ptr(),
             nsteps.data_ptr(), nfev.data_ptr(), nb,
             *launch_args(t_span, rtol, atol, first_step, max_steps,
-                         compensated, max_step), stream)
+                         compensated, max_step), int(lanes), block_members,
+            stream)
     if rc != 0:
         raise RuntimeError(f"fused_rkn kernel launch failed: CUDA error {rc}")
-    solve_fused_rkn.launches += 1
-    return y_out, status, nsteps, nfev
+    return (y_out, status, nsteps, nfev), shape
 
 
 # kernel launches since the count was last set to 0 (the plain version on
-# CPU tensors does not count)
+# CPU tensors does not count) and the (lanes per member, members per block)
+# of the last launch
 solve_fused_rkn.launches = 0
+solve_fused_rkn.last_shape = None

@@ -77,25 +77,6 @@ using std::max;
 using std::min;
 """
 
-ERK_LAUNCH = """
-extern "C" int fused_erk_launch(
-    const void* y0, void* y_out, void* status, void* nstep, void* nfev,
-    int B, float t0, float tf, float rtol, float atol, float h0,
-    int use_hstart, float max_step, int max_steps, int compensated,
-    int threads, void* stream) {
-  blockDim.x = 1;
-  for (int b = 0; b < B; ++b) {
-    blockIdx.x = b;
-    threadIdx.x = 0;
-    auto k = compensated ? fused_erk_kernel<true> : fused_erk_kernel<false>;
-    k((const float*)y0, (float*)y_out, (int*)status, (int*)nstep,
-      (int*)nfev, B, t0, tf, rtol, atol, h0, use_hstart, max_step,
-      max_steps);
-  }
-  return 0;
-}
-"""
-
 # G lanes (or CTAs) of one member as coroutines on one thread, for the
 # bodies that run on groups of threads: SWAG's lane groups, B8's warp of
 # coefficient lanes and B10's cluster of CTAs.
@@ -189,6 +170,66 @@ static void run_lanes(int G, void (*run)(int), char* stacks) {
   adams_lane_switch(&set.main_sp, set.sp[0]);
 }
 """
+
+# The explicit bodies of B1 and B5 run one member after another: at one
+# lane the thread-per-member body integrate_thread<COMP>, at G lanes the
+# group body integrate<G, COMP> with the lanes as coroutines that hand over
+# at each shuffle (the norm's quotients, the controller's powers).  The
+# CUDA group and kernel after the marker are left out.
+SMALL_LAUNCH = COROUTINES + r"""
+struct HostSmallMember {
+  const float* y0;
+  Launch L;
+  int m;
+  Out out;
+  int comp;
+};
+static HostSmallMember g_small;
+
+template <int G>
+static void small_lane(int rank) {
+  HostLanes lane{rank};
+  const HostSmallMember& a = g_small;
+  if (a.comp) {
+    integrate<G, true>(lane, a.y0, a.L, a.m, a.out);
+  } else {
+    integrate<G, false>(lane, a.y0, a.L, a.m, a.out);
+  }
+}
+
+extern "C" int KERNEL_launch(
+    const void* y0, void* y_out, void* status, void* nstep, void* nfev,
+    int B, float t0, float tf, float rtol, float atol, float h0,
+    int use_hstart, float max_step, int max_steps, int compensated,
+    int lanes, int block_members, void* stream) {
+  const Out out{(float*)y_out, (int*)status, (int*)nstep, (int*)nfev};
+  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  void (*body)(int) = lanes == 2 ? small_lane<2>
+                      : lanes == 4 ? small_lane<4>
+                      : lanes == 8 ? small_lane<8> : nullptr;
+  if (lanes != 1 && body == nullptr) return 1;
+  char* stacks = lanes > 1 ? static_cast<char*>(
+      std::malloc(static_cast<size_t>(lanes) * kLaneStack)) : nullptr;
+  const float* y0f = (const float*)y0;
+  for (int m = 0; m < B; ++m) {
+    const float* y0m = y0f + static_cast<size_t>(m) * N;
+    if (lanes == 1) {
+      if (compensated) {
+        integrate_thread<true>(y0m, L, m, out);
+      } else {
+        integrate_thread<false>(y0m, L, m, out);
+      }
+    } else {
+      g_small = HostSmallMember{y0m, L, m, out, compensated};
+      run_lanes(lanes, body, stacks);
+    }
+  }
+  std::free(stacks);
+  return 0;
+}
+"""
+ERK_LAUNCH = SMALL_LAUNCH.replace("KERNEL", "fused_erk")
+RKN_LAUNCH = SMALL_LAUNCH.replace("KERNEL", "fused_rkn")
 
 # The SWAG bodies of B3 run one member after another: at one lane the
 # thread-per-member body integrate_thread<COMP>, at G lanes the group body
@@ -495,25 +536,6 @@ extern "C" int fused_rkc_host(
 }
 """
 RKC_SHAPE = (8, 8)
-
-RKN_LAUNCH = """
-extern "C" int fused_rkn_launch(
-    const void* y0, void* y_out, void* status, void* nstep, void* nfev,
-    int B, float t0, float tf, float rtol, float atol, float h0,
-    int use_hstart, float max_step, int max_steps, int compensated,
-    void* stream) {
-  blockDim.x = 1;
-  for (int b = 0; b < B; ++b) {
-    blockIdx.x = b;
-    threadIdx.x = 0;
-    auto k = compensated ? fused_rkn_kernel<true> : fused_rkn_kernel<false>;
-    k((const float*)y0, (float*)y_out, (int*)status, (int*)nstep,
-      (int*)nfev, B, t0, tf, rtol, atol, h0, use_hstart, max_step,
-      max_steps);
-  }
-  return 0;
-}
-"""
 
 HOST_GROUP = """
 struct HostGroup {
@@ -888,7 +910,7 @@ def libs(tmp_path_factory):
                        ("vdp_template", VDP_TEMPLATE)):
         header = _build.fused_erk_header(FK._fused_consts(TK.BS5), rhs.n,
                                          rhs.cuda_src)
-        jobs[label] = ("fused_erk", header, ERK_LAUNCH)
+        jobs[label] = ("fused_erk", header, ERK_LAUNCH, RKC_MARKER)
     for label, (prob, km) in ADAMS_VARIANTS.items():
         rhs = TA.PROBLEMS[prob]
         jobs["adams_" + label] = (
@@ -901,7 +923,12 @@ def libs(tmp_path_factory):
         rkc_p.shape, 1, rkc_p.cuda_src, TR.RHO_FN.cuda_src), RKC_LAUNCH,
         RKC_MARKER)
     jobs["rkn_kepler"] = ("fused_rkn", _build.fused_rkn_header(
-        FN.rkn_consts(TN.Fi5N), 2, TN.KEPLER.cuda_src), RKN_LAUNCH)
+        FN.rkn_consts(TN.Fi5N), 2, TN.KEPLER.cuda_src), RKN_LAUNCH,
+        RKC_MARKER)
+    cubic = TN.CARD_PROBLEMS["cubic"]
+    jobs["rkn_cubic"] = ("fused_rkn", _build.fused_rkn_header(
+        FN.rkn_consts(TN.Fi5N), cubic.m, cubic.cuda_src), RKN_LAUNCH,
+        RKC_MARKER)
     jobs["grid_wave"] = ("fused_rk_grid", _build.fused_rk_grid_header(
         FN.rkn_consts(TN.Fi5N), True, (TN.N_GRID,), TN.WAVE_CUDA),
         GRID_LAUNCH, RKC_MARKER)
@@ -1033,20 +1060,32 @@ def test_esdirk_lane_body_bit_identical_to_thread_body(libs, case, lanes):
         np.testing.assert_array_equal(a, b)
 
 
-def _erk_host(lib, span, y0, **kw):
+def _small_host(lib, name, span, y0, lanes=1, **kw):
+    """The host-built B1 (``name`` fused_erk) or B5 (fused_rkn) on ``y0``
+    by one thread per member (lanes = 1) or ``lanes`` coroutine lanes."""
+    if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
+        pytest.skip("the host lane group switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
     nb = y0.shape[0]
     out = np.empty_like(y0)
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
-    fn = lib.fused_erk_launch
+    fn = getattr(lib, f"{name}_launch")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [vp] * 5 + [ci, cf, cf, cf, cf, cf, ci, cf, ci, ci, ci,
-                              vp]
-    fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
-       nf.ctypes.data, nb, span[0], span[1], kw["rtol"], kw["atol"], 0.0, 1,
-       np.inf,
-       100_000, int(kw.get("compensated", False)), 128, None)
+                              ci, vp]
+    rc = fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
+            nf.ctypes.data, nb,
+            *FK.launch_args(span, kw["rtol"], kw["atol"],
+                            kw.get("first_step"),
+                            kw.get("max_steps", 100_000),
+                            kw.get("compensated", False), None),
+            lanes, max(1, 128 // lanes), None)
+    assert rc == 0
     return out, st, ns, nf
+
+
+def _erk_host(lib, span, y0, **kw):
+    return _small_host(lib, "fused_erk", span, y0, **kw)
 
 
 @pytest.mark.parametrize("label", ["vdp", "vdp_template"])
@@ -1063,6 +1102,26 @@ def test_erk_kernel_matches_plain_version(libs, label, case):
     assert np.max(np.abs(y - ry)) <= 3e-6
     np.testing.assert_array_equal(ns, rns)
     assert np.max(np.abs(nf - rnf)) <= 14
+
+
+# the lane counts of B1's and B5's group bodies
+SMALL_LANES = (2, 4, 8)
+
+
+@pytest.mark.parametrize("lanes", SMALL_LANES)
+@pytest.mark.parametrize("label", ["vdp", "vdp_template"])
+@pytest.mark.parametrize("case", ["vdp_plain", "vdp_compensated"])
+def test_erk_lane_body_bit_identical_to_thread_body(libs, label, case,
+                                                    lanes):
+    """B1's group body, each member's norm divisions and finiteness tests
+    split over 2, 4 and 8 lanes (coroutines that hand over at each
+    shuffle; BS5 leaves one controller power, which every lane computes),
+    gives the thread body's y, status, nsteps and nfev bit for bit over
+    whole runs, with a plain and a template right-hand side."""
+    prob, meth, span, y0, kw = TK.CASES[case]
+    for a, b in zip(_erk_host(libs[label], span, y0, lanes=lanes, **kw),
+                    _erk_host(libs[label], span, y0, **kw)):
+        np.testing.assert_array_equal(a, b)
 
 
 def _adams_host(lib, case, lanes=1, **over):
@@ -1299,19 +1358,7 @@ def test_rkc_grid_placements_bit_identical(libs, case, blocks):
 
 
 def _rkn_host(lib, span, y0, **kw):
-    y0 = np.ascontiguousarray(y0, np.float32)
-    nb = y0.shape[0]
-    out = np.empty_like(y0)
-    st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
-    fn = lib.fused_rkn_launch
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 5 + [ci, cf, cf, cf, cf, cf, ci, cf, ci, ci, vp]
-    fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
-       nf.ctypes.data, nb,
-       *FK.launch_args(span, kw["rtol"], kw["atol"], kw.get("first_step"),
-                       kw.get("max_steps", 100_000),
-                       kw.get("compensated", False), None), None)
-    return out, st, ns, nf
+    return _small_host(lib, "fused_rkn", span, y0, **kw)
 
 
 def _grid_host(lib, span, y0, lanes=1, block_order=False, **kw):
@@ -1437,6 +1484,30 @@ def test_grid_body_first_attempts_bit_identical(libs, case, attempts, lanes):
     np.testing.assert_array_equal(nf, rnf)
 
 
+@pytest.mark.parametrize("lanes", SMALL_LANES)
+@pytest.mark.parametrize("case", ["kepler_plain", "kepler_comp"])
+def test_rkn_lane_body_bit_identical_to_thread_body(libs, case, lanes):
+    """B5's group body, the norm's four divisions and finiteness tests and
+    Fi5N's three controller powers split over 2, 4 and 8 coroutine lanes,
+    gives the thread body's y, status, nsteps and nfev bit for bit over
+    whole Kepler orbits, plain and compensated."""
+    _, lib, _, _, span, y0, kw = _new_case(case)
+    for a, b in zip(_rkn_host(libs[lib], span, y0, lanes=lanes, **kw),
+                    _rkn_host(libs[lib], span, y0, **kw)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_rkn_lane_body_isolates_an_overflowing_member(libs):
+    """At 4 lanes a member whose state overflows (the cubic acceleration)
+    ends with status 3 alone, its group's shuffles leaving the other
+    groups alone, and every member's outputs equal the thread body's."""
+    _, _, _, span, y0, kw = TN.CASES["overflow"]
+    out = _rkn_host(libs["rkn_cubic"], span, y0, lanes=4, **kw)
+    assert out[1][7] == 3 and np.sum(out[1] == 1) == len(y0) - 1
+    for a, b in zip(out, _rkn_host(libs["rkn_cubic"], span, y0, **kw)):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("case", ["overflow", "wave_overflow"])
 def test_rkn_kernels_isolate_an_overflowing_member(libs, tmp_path, case):
     """A member whose state overflows ends with status 3 alone, in the
@@ -1449,7 +1520,8 @@ def test_rkn_kernels_isolate_an_overflowing_member(libs, tmp_path, case):
     if kind == "flat":
         header = _build.fused_rkn_header(FN.rkn_consts(TN.Fi5N), fun.m,
                                          fun.cuda_src)
-        lib = _compile("fused_rkn", header, RKN_LAUNCH, tmp_path / case)
+        lib = _compile("fused_rkn", header, RKN_LAUNCH, tmp_path / case,
+                       RKC_MARKER)
         out = _rkn_host(lib, span, y0, **kw)
         plain = FN.fused_rkn_reference
     else:

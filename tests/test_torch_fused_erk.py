@@ -253,10 +253,13 @@ def cuda():
     return torch.device("cuda")
 
 
+# kernel against its plain version on the same card: status identical,
+# |dy| over finished members within the gates chip_smoke.py measured
+CARD_GATES = {"vdp_plain": 3e-2, "vdp_compensated": 1e-4, "overflow": 1e-6}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,y_gate", [("vdp_plain", 3e-2),
-                                         ("vdp_compensated", 1e-4),
-                                         ("overflow", 1e-6)])
+@pytest.mark.parametrize("name,y_gate", list(CARD_GATES.items()))
 def test_kernel_matches_plain_version_on_card(cuda, name, y_gate):
     """The CUDA kernel against its plain version on the same card; f32
     round-off (the kernel contracts to FMA) allows other step sequences,
@@ -280,3 +283,78 @@ def test_cuda_tensor_needs_fused_rhs(cuda):
     y0 = torch.tensor(VDP0, device=cuda)
     with pytest.raises(TypeError, match="FusedRHS"):
         solve_fused_erk(PROBLEMS["vdp"].torch_fn, (0.0, 1.0), y0)
+
+
+@pytest.mark.parametrize("members,compensated,lanes", [
+    (512, True, 8), (2112, True, 8), (2113, True, 4), (4096, True, 4),
+    (4224, True, 4), (4225, True, 1), (262144, True, 1), (512, False, 1),
+    (4096, False, 1)])
+def test_lanes_per_member_on_132_sms(members, compensated, lanes):
+    """B1's rule on the H100's 132 SMs: compensated, the largest of 8 and
+    4 lanes with members x lanes <= 128 x 132, else one thread; plain,
+    one thread (the sweep's ties and losses)."""
+    from extensisq_tpu_torch.ops.fused_erk import _lanes_per_member
+    assert _lanes_per_member(members, 132, compensated) == lanes
+
+
+def _launch_args(name, cuda):
+    prob, meth, span, y0, kw = CASES[name]
+    return (PROBLEMS[prob], span, torch.tensor(y0, device=cuda),
+            METHODS[meth], kw["rtol"], kw["atol"], kw.get("first_step"),
+            kw.get("max_steps", 100_000), kw.get("compensated", False), None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CARD_GATES))
+def test_lane_bodies_bit_identical_to_one_thread_on_card(cuda, name):
+    """B1 forced to 2, 4 and 8 lanes a member (128 / G members a block):
+    bit for bit the one-thread body, and against the plain version at the
+    card gates.  Comparison launches are not counted."""
+    from extensisq_tpu_torch.ops import fused_erk as FK
+    args = _launch_args(name, cuda)
+    before = solve_fused_erk.launches
+    one, shape = FK._launch(*args, 1)
+    assert shape == (1, 128)
+    fun, span, y0, method = args[:4]
+    prob, meth, span, _, kw = CASES[name]
+    r = fused_erk_reference(fun, span, y0, method=method, **kw)
+    for lanes in (2, 4, 8):
+        k, shape = FK._launch(*args, lanes)
+        assert shape == (lanes, 128 // lanes)
+        for a, b in zip(k, one):
+            assert torch.equal(a, b)
+        assert torch.equal(k[1], r[1])
+        ok = r[1] == 1
+        assert (k[0][ok] - r[0][ok]).abs().max().item() <= CARD_GATES[name]
+    assert solve_fused_erk.launches == before
+
+
+@pytest.mark.gpu
+def test_wrapper_takes_the_rules_shape_on_card(cuda):
+    """solve_fused_erk launches its rule's shape for the card's SM count
+    and mode, and records it in last_shape."""
+    from extensisq_tpu_torch.ops import fused_erk as FK
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for name in ("vdp_plain", "vdp_compensated"):
+        prob, meth, span, y0, kw = CASES[name]
+        for y in (y0, np.repeat(y0, 40, axis=0)):
+            solve_fused_erk(PROBLEMS[prob], span, torch.tensor(y, device=cuda),
+                            method=METHODS[meth], **kw)
+            g = FK._lanes_per_member(len(y), sms, kw.get("compensated", False))
+            assert solve_fused_erk.last_shape == (g, 128 // g)
+
+
+@pytest.mark.gpu
+def test_block_of_more_than_1024_threads_raises(cuda):
+    """An explicit block_members of more than 1024 threads at the lanes
+    taken raises before any launch."""
+    from extensisq_tpu_torch.ops import fused_erk as FK
+    args = _launch_args("vdp_compensated", cuda)
+    before = solve_fused_erk.launches
+    with pytest.raises(ValueError, match="at most 1024"):
+        FK._launch(*args, 8, 256)
+    prob, meth, span, y0, kw = CASES["vdp_plain"]
+    with pytest.raises(ValueError, match="at most 1024"):
+        solve_fused_erk(PROBLEMS[prob], span, torch.tensor(y0, device=cuda),
+                        method=METHODS[meth], block_members=2048, **kw)
+    assert solve_fused_erk.launches == before

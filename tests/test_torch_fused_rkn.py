@@ -483,6 +483,75 @@ def test_launch_shape_on_132_sms(members, n, shape):
     assert _launch_shape(members, n, 132) == shape
 
 
+@pytest.mark.parametrize("members,m,lanes", [
+    (512, 2, 8), (2048, 2, 8), (2112, 2, 8), (2113, 2, 4), (4096, 2, 4),
+    (4224, 2, 4), (4225, 2, 1), (16384, 2, 1), (262144, 2, 1), (512, 1, 8),
+    (512, 3, 1), (2048, 14, 1)])
+def test_lanes_per_member_on_132_sms(members, m, lanes):
+    """B5's rule on the H100's 132 SMs: at m <= 2 positions the largest of
+    8 and 4 lanes with members x lanes <= 128 x 132, else one thread per
+    member."""
+    from extensisq_tpu_torch.ops.fused_rkn import _lanes_per_member
+    assert _lanes_per_member(members, 132, m) == lanes
+
+
+FLAT_CARD_CASES = [k for k in CARD_GATES if CASES[k][0] == "flat"]
+
+
+def _flat_args(name, cuda):
+    kind, prob, meth, span, y0, kw = CASES[name]
+    return (CARD_PROBLEMS[prob], span, torch.tensor(y0, device=cuda),
+            METHODS[meth], kw["rtol"], kw["atol"], kw.get("first_step"),
+            kw.get("max_steps", 100_000), kw.get("compensated", False), None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", FLAT_CARD_CASES)
+def test_lane_bodies_bit_identical_to_one_thread_on_card(cuda, name):
+    """B5 forced to 2, 4 and 8 lanes a member (128 / G members a block):
+    bit for bit the one-thread body, and against the plain version at the
+    card gates (the overflowing member ends alone with status 3).
+    Comparison launches are not counted."""
+    from extensisq_tpu_torch.ops import fused_rkn as FN
+    args = _flat_args(name, cuda)
+    before = solve_fused_rkn.launches
+    one, shape = FN._launch(*args, 1)
+    assert shape == (1, 128)
+    kind, prob, meth, span, _, kw = CASES[name]
+    r = fused_rkn_reference(args[0], span, args[2], method=args[3], **kw)
+    for lanes in (2, 4, 8):
+        k, shape = FN._launch(*args, lanes)
+        assert shape == (lanes, 128 // lanes)
+        for a, b in zip(k, one):
+            assert torch.equal(a, b)
+        assert torch.equal(k[1], r[1])
+        ok = r[1] == 1
+        assert (k[0][ok] - r[0][ok]).abs().max().item() <= CARD_GATES[name]
+    assert solve_fused_rkn.launches == before
+
+
+@pytest.mark.gpu
+def test_flat_wrapper_takes_the_rules_shape_on_card(cuda):
+    """solve_fused_rkn launches its rule's shape for the card's SM count
+    and records it in last_shape; an explicit block_members of more than
+    1024 threads at the lanes taken raises before any launch."""
+    from extensisq_tpu_torch.ops import fused_rkn as FN
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    kind, prob, meth, span, y0, kw = CASES["kepler_plain"]
+    for y in (y0, np.repeat(y0, 40, axis=0)):
+        solve_fused_rkn(KEPLER, span, torch.tensor(y, device=cuda),
+                        method=METHODS[meth], **kw)
+        g = FN._lanes_per_member(len(y), sms, KEPLER.m)
+        assert solve_fused_rkn.last_shape == (g, 128 // g)
+    before = solve_fused_rkn.launches
+    with pytest.raises(ValueError, match="at most 1024"):
+        FN._launch(*_flat_args("kepler_plain", cuda), 8, 256)
+    with pytest.raises(ValueError, match="at most 1024"):
+        solve_fused_rkn(KEPLER, span, torch.tensor(y0, device=cuda),
+                        method=METHODS[meth], block_members=1025, **kw)
+    assert solve_fused_rkn.launches == before
+
+
 GRID_CARD_CASES = [k for k, v in CASES.items() if v[0] == "grid"]
 
 
@@ -551,7 +620,8 @@ def test_build_keys_hash_the_included_headers(monkeypatch, tmp_path):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     expect = {"fused_rkn": ["rk_common.cuh", "hstart.cuh",
-                            "rk_control.cuh", "rk_rows.cuh"],
+                            "rk_control.cuh", "rk_lanes.cuh", "rk_rows.cuh",
+                            "lane_group.cuh"],
               "fused_rk_grid": ["grid_common.cuh", "rk_common.cuh",
                                 "rk_control.cuh", "rk_rows.cuh",
                                 "block_rows.cuh", "ck_control.cuh",
