@@ -952,12 +952,19 @@ def shape_text(wrapper, nb):
 
 
 def small_launch(kind, rhs, span, y0, kw, lanes):
-    """B1 (``kind`` fused_erk) or B5 (fused_rkn) at ``lanes`` lanes per
-    member (a comparison launch, not counted): (y, status, nsteps, nfev)."""
+    """B1 (``kind`` fused_erk), B5 (fused_rkn) or B11 (fused_ckdisc) at
+    ``lanes`` lanes per member (a comparison launch, not counted): (y,
+    status, nsteps, nfev)."""
+    from extensisq_tpu_torch.ops import fused_ckdisc as FC
     from extensisq_tpu_torch.ops import fused_erk as FK
     from extensisq_tpu_torch.ops import fused_rkn as FN
-    mod = FK if kind == "fused_erk" else FN
     kw = dict(kw)
+    if kind == "fused_ckdisc":
+        return FC._launch(rhs, span, y0, kw.pop("rtol"), kw.pop("atol"),
+                          kw.pop("first_step", None),
+                          kw.pop("max_steps", 100_000),
+                          kw.pop("max_step", None), lanes)[0]
+    mod = FK if kind == "fused_erk" else FN
     return mod._launch(rhs, span, y0, kw.pop("method", None), kw.pop("rtol"),
                        kw.pop("atol"), kw.pop("first_step", None),
                        kw.pop("max_steps", 100_000),
@@ -966,9 +973,10 @@ def small_launch(kind, rhs, span, y0, kw, lanes):
 
 
 def hold_small_lanes(kind, label, rhs, span, y0, kw, k, shape):
-    """B1 or B5 on a check whose wrapper run ``k`` took the rule's ``shape``
-    (lanes, members per block): bit for bit against the other body, one
-    thread per member where the rule took a lane group, else 2 lanes."""
+    """B1, B5 or B11 on a check whose wrapper run ``k`` took the rule's
+    ``shape`` (lanes, members per block): bit for bit against the other
+    body, one thread per member where the rule took a lane group, else 2
+    lanes."""
     other = 1 if shape[0] > 1 else 2
     same = all(torch.equal(a, b) for a, b in zip(
         k, small_launch(kind, rhs, span, y0, kw, other)))
@@ -2255,6 +2263,9 @@ def ckdisc_path():
         if kind == "fused_ckdisc_grid":
             hold_grid_shapes(kind, label, rhs, span, y0, kw, res[0],
                              run.last_shape, res[1], CK_KERNEL_GATES[label])
+        else:
+            hold_small_lanes(kind, label, rhs, span, y0, kw, res[0],
+                             run.last_shape)
         return res
 
     # (a) each kernel against its plain version on problems that do not
@@ -2309,8 +2320,8 @@ def ckdisc_path():
     sw64 = solve_ensemble(swdec_rows, CK_SPAN, S64, method=CKdisc, **CK_TOL)
     torch.cuda.synchronize()
     sw64_s = time.perf_counter() - t0
-    sw = ops.solve_fused_ckdisc(R["swdec"], CK_SPAN, S32, block_members=128,
-                                **CK_TOL)
+    sw = ops.solve_fused_ckdisc(R["swdec"], CK_SPAN, S32, **CK_TOL)
+    sw_shape = ops.solve_fused_ckdisc.last_shape
     mol = ops.solve_fused_ckdisc_grid(R["ckmol"], CKMOL_SPAN, M32,
                                       **CKMOL_TOL)
     mol_shape = ops.solve_fused_ckdisc_grid.last_shape
@@ -2373,11 +2384,13 @@ def ckdisc_path():
         if kind == "fused_ckdisc_grid":
             hold_grid_shapes(kind, f"{label}, the path", rhs, span, y0, tol,
                              out, mol_shape, r, CK_KERNEL_GATES[label])
+        else:
+            hold_small_lanes(kind, f"{label}, the path", rhs, span, y0, tol,
+                             out, sw_shape)
 
     # (e) times: warm medians; the timing-only line fills the card
     def run_sw():
-        return ops.solve_fused_ckdisc(R["swdec"], CK_SPAN, S32,
-                                      block_members=128, **CK_TOL)
+        return ops.solve_fused_ckdisc(R["swdec"], CK_SPAN, S32, **CK_TOL)
 
     def run_mol(y=M32):
         return lambda: ops.solve_fused_ckdisc_grid(R["ckmol"], CKMOL_SPAN, y,
@@ -2412,7 +2425,8 @@ def ckdisc_path():
           f"({grid_shape_text(large_shape, CKMOL_M_LARGE)}): "
           f"{mol_large_ms:.3f} ms, "
           f"{int(out[2].sum()) / mol_large_ms * 1e3:.4g} accepted steps/s")
-    print(f"ckmol256x64 B12 ran at {grid_shape_text(mol_shape, CKMOL_M)}")
+    print(f"ckmol256x64 B12 ran at {grid_shape_text(mol_shape, CKMOL_M)}; "
+          f"swdec1024 B11 at {shape_text(ops.solve_fused_ckdisc, CK_N)}")
 
     csrc = "extensisq_tpu_torch/csrc/"
     return [
@@ -2422,7 +2436,8 @@ def ckdisc_path():
               "launches": launches[0], "max_abs_err": errs["fused_ckdisc"],
               "ms": times["swdec1024 B11"][0],
               "device_ms": times["swdec1024 B11"][1],
-              "plain_ms": plain_ms["fused_ckdisc"], "f64_ms": sw64_s * 1e3},
+              "plain_ms": plain_ms["fused_ckdisc"], "f64_ms": sw64_s * 1e3,
+              "lanes": sw_shape[0], "block_members": sw_shape[1]},
              **bound_entry(CK_N * (2 * 4 * 2 + 4 * 3),
                            ck_ops(2, RHS_OPS["swdec"], int(sw[3].sum()),
                                   CK_N, 5))),

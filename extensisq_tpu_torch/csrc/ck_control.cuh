@@ -29,6 +29,8 @@ constexpr float kMinFactor = 0.2f;
 constexpr float kBig = 1e30f;
 // the floor of the roots: E2 >= 1e-10, E4 >= 1e-6, so E4 can divide
 constexpr float kRootFloor = 1e-30f;
+// the independent quotients of Control::update
+constexpr int kQuotients = 5;
 
 // Weight rows of the assessments (R = 0: E1 over two stages, 1: E2 over
 // four) and of the fallbacks (R = 0: 2nd order, 1: 3rd order), as
@@ -89,16 +91,54 @@ struct Control : rk::StepControl {
     return E2 < tw1 * q1;
   }
 
+  // The quotients of update, independent of each other: E1 / q0, E2 / q1,
+  // and kSafety, E1 and E2 over E4 floored at 1e-30; quotient_terms gives
+  // the numerator and the denominator of quotient i (a lane group splits
+  // them, fused_ckdisc.cu; an i past them gives the third).
+  enum Quotient { kE1Q0, kE2Q1, kSafetyE4, kE1E4, kE2E4 };
+  __device__ __forceinline__ void quotient_terms(int i, float E1, float E2,
+                                                 float E4, float& num,
+                                                 float& den) const {
+    num = (i == kE1Q0 || i == kE1E4) ? E1
+                                     : ((i == kE2Q1 || i == kE2E4) ? E2
+                                                                   : kSafety);
+    den = i == kE1Q0 ? q0 : (i == kE2Q1 ? q1 : fmaxf(E4, 1e-30f));
+  }
+
   // After the attempt: the next |h| and the twiddle and quit updates.  E2
   // and E4 are kBig where their stages were skipped; fb2_try is whether the
-  // 2nd-order fallback was tried.
+  // 2nd-order fallback was tried.  Each quotient is divided where it is
+  // read, as one thread runs it.
   __device__ __forceinline__ void update(float E1, float E2, float E4,
                                          bool go2, bool go4, bool accept4,
                                          bool fb3_ok, bool fb2_try) {
-    const float esttol = go4 ? E4 : (go2 ? E2 / q1 : E1 / q0);
-    float fac4 = fminf(kSafety / fmaxf(E4, 1e-30f), kMaxFactor);
+    apply(E4, go2, go4, accept4, fb3_ok, fb2_try, [&](int i) {
+      float num, den;
+      quotient_terms(i, E1, E2, E4, num, den);
+      return num / den;
+    });
+  }
+
+  // The same with the quotients given (quotient_terms' order).
+  __device__ __forceinline__ void update(float E1, float E2, float E4,
+                                         bool go2, bool go4, bool accept4,
+                                         bool fb3_ok, bool fb2_try,
+                                         const float (&qt)[kQuotients]) {
+    apply(E4, go2, go4, accept4, fb3_ok, fb2_try,
+          [&](int i) { return qt[i]; });
+  }
+
+ private:
+  template <class Quot>
+  __device__ __forceinline__ void apply(float E4, bool go2, bool go4,
+                                        bool accept4, bool fb3_ok,
+                                        bool fb2_try, const Quot& quot) {
+    const float esttol = go4 ? E4 : (go2 ? quot(kE2Q1) : quot(kE1Q0));
+    float fac4 = fminf(quot(kSafetyE4), kMaxFactor);
     if (rejected) fac4 = fminf(fac4, 1.0f);
-    const float fac_rej = fmaxf(kSafety / fmaxf(esttol, 1e-30f), kMinFactor);
+    const float fac_rej =
+        fmaxf(go4 ? quot(kSafetyE4) : kSafety / fmaxf(esttol, 1e-30f),
+              kMinFactor);
     float h_next =
         accept4 ? h_abs * fac4
                 : (fb3_ok ? h_abs * tab::CFB(1)
@@ -106,18 +146,17 @@ struct Control : rk::StepControl {
     h_abs = isfinite(h_next) ? h_next : 1.0f;
 
     if (go4 && !accept4) {  // 5th-order rejection
-      const float eq1 = E1 / q0;
-      const float eq2 = E2 / q1;
+      const float eq1 = quot(kE1Q0);
+      const float eq2 = quot(kE2Q1);
       if (eq1 < tw0) tw0 = fmaxf(eq1, 1.1f);
       if (eq2 < tw1) tw1 = fmaxf(eq2, 1.1f);
     }
     if (accept4) {
-      q0 = quit(E1 / fmaxf(E4, 1e-30f), q0);
-      q1 = quit(E2 / fmaxf(E4, 1e-30f), q1);
+      q0 = quit(quot(kE1E4), q0);
+      q1 = quit(quot(kE2E4), q1);
     }
   }
 
- private:
   __device__ __forceinline__ static float quit(float qv, float qf) {
     const float q_adj =
         qv > qf ? fminf(qv, 10.0f * qf) : fmaxf(qv, (2.0f / 3.0f) * qf);

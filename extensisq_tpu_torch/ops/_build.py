@@ -555,7 +555,7 @@ def load_fused_ckdisc(consts, n, rhs_src):
     return load_kernel(
         "fused_ckdisc", fused_ckdisc_header(consts, n, rhs_src),
         [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI, _CF,
-         _CI, _CI, _VP])
+         _CI, _CI, _CI, _VP])
 
 
 def load_fused_esdirk(consts, m_diag, rot, n, rhs_src):

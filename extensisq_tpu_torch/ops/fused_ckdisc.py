@@ -7,16 +7,20 @@ stages 2 and 4 veto the remaining stages, and fallback solutions of order 3
 and 2 advance a member to c = 3/5 or 1/5 of the step with no further
 evaluations; the twiddle and quit factors adapt per member.
 
-The kernel (``csrc/fused_ckdisc.cu``) runs one thread per member, with the
-state and stage rows in registers.  Unlike the TPU kernel, which computes
-all six stages for every member and applies the cascade as masks, a thread
-really skips stages 3-6 when E1 or E2 vetoes, and evaluates the endpoint
-only on acceptance; ``nfev`` counts the evaluations of the reference method
-(``1 + 2 go2 + 2 go4`` per attempt, plus the endpoint of an accepted one)
-on both.  Its plain PyTorch version, :func:`fused_ckdisc_reference`, runs
-the same loop, :func:`run_ck_loop` (shared with the mid-size layout of
-``ops/fused_ckdisc_grid.py``), on rows-first ``(n, B)`` float32 tensors;
-the wrapper :func:`solve_fused_ckdisc` takes it only for tensors on the CPU.
+The kernel (``csrc/fused_ckdisc.cu``) runs each member on G lanes of one
+warp (G from :func:`_lanes_per_member`) or on one thread, with the state
+and stage rows in registers: every lane runs the member's stages, so the
+group takes the cascade's branches together, and the lanes split each
+assessment's divisions and the step control's.  Unlike the TPU kernel,
+which computes all six stages for every member and applies the cascade as
+masks, a member really skips stages 3-6 when E1 or E2 vetoes, and
+evaluates the endpoint only on acceptance; ``nfev`` counts the evaluations
+of the reference method (``1 + 2 go2 + 2 go4`` per attempt, plus the
+endpoint of an accepted one) on both.  Its plain PyTorch version,
+:func:`fused_ckdisc_reference`, runs the same loop, :func:`run_ck_loop`
+(shared with the mid-size layout of ``ops/fused_ckdisc_grid.py``), on
+rows-first ``(n, B)`` float32 tensors; the wrapper
+:func:`solve_fused_ckdisc` takes it only for tensors on the CPU.
 
 Numerics follow the JAX kernel with its Mosaic workarounds left out: the
 roots are ``pow`` of the norm floored at 1e-30 (the floor is the method's:
@@ -35,7 +39,9 @@ from ..core.controller import resolve_controller
 from ..core.numerics import norm, over
 from ..steppers.erk import weighted_sum
 from . import _hstart_tile
-from .fused_erk import FusedRHS, check_options, fresh_step, launch_args
+from .fused_erk import (FusedRHS, _launch_shape, check_options,
+                        device_sm_count, fresh_step, lanes_within_budget,
+                        launch_args)
 
 SAFETY = 0.9
 MAX_FACTOR_CK = 5.0
@@ -256,8 +262,39 @@ def _kernel(fun):
                              ck_consts(), fun.n, fun.cuda_src))
 
 
+# the lane counts B11 takes besides 1, most first, and the threads per SM
+# up to which it takes them (two warps per SM sub-partition)
+_LANES = (32, 16, 8)
+_THREADS_PER_SM = 256
+
+
+def _lanes_per_member(B, sm_count):
+    """Lanes per member of B11 for an ensemble of ``B`` members on a card of
+    ``sm_count`` SMs: the largest G of 32, 16 and 8 with B G <= 256
+    sm_count, else 1 (one thread per member).
+
+    From the member sweep of config 1c's line (the sign-switching decay,
+    n = 2, rtol 1e-4 / atol 1e-7, t in [0, 5]; ``tools/probe_fused_small.py
+    --family ck``, launch alone, ten launches back to back) on an H100 (132
+    SMs, 700 W), us per launch of one thread per member (128 a block)
+    against G = 2 / 4 / 8 / 16 / 32 (128 / G members a block): 256 members
+    142.6 against 158.3 / 143.8 / 130.8 / 121.9 / **103.0**; 1,024: 146.7
+    against 162.4 / 148.5 / 135.9 / 126.0 / **113.8**; 4,096: 151.0 against
+    167.5 / 154.6 / **146.4** / 172.7 / 249.6; 16,384: 153.1 against 174.8
+    / 192.9 / 311.8 / 519.4 / 834.1; 262,144: 662.0 against 1,176 to
+    12,447.  Every lane runs the member, so a warp of 32 / G members splits
+    on the cascade only between its groups: at one thread a member's warp
+    took other cascade paths in 87% of its attempts and 12% of the
+    lane-attempts waited for the warp's slowest member, at G = 32 none
+    (the slowest member's attempt 3,765 -> 2,942 cycles).  Past two warps
+    per SM sub-partition (B G > 256 sm_count) the lanes' issue slots cost
+    more than the splits they save; G = 2 and 4 lose or tie everywhere and
+    are built for comparisons only."""
+    return lanes_within_budget(B, sm_count, _LANES, _THREADS_PER_SM)
+
+
 def solve_fused_ckdisc(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
-                       first_step=None, max_steps=100_000, block_members=128,
+                       first_step=None, max_steps=100_000, block_members=None,
                        t_eval=None, events=None, max_step=None, params=None):
     """Integrate an ensemble of small non-smooth systems with the CKdisc
     cascade in one kernel launch.
@@ -269,9 +306,14 @@ def solve_fused_ckdisc(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.  On a CUDA
     tensor ``fun`` must be a :class:`FusedRHS`, and the call launches
-    ``csrc/fused_ckdisc.cu`` (built at first use) with ``block_members``
-    threads per block, or raises.  On a CPU tensor it runs
-    :func:`fused_ckdisc_reference`.
+    ``csrc/fused_ckdisc.cu`` (built at first use) or raises: G lanes of one
+    warp per member, G from :func:`_lanes_per_member` (the ensemble size
+    and the card's SM count; every lane runs the member, the lanes split
+    the assessments' and the step control's divisions, with the bits of one
+    thread per member), and ``block_members`` members per block (None:
+    128 / G), so ``block_members * G`` threads per block, at most 1024; the
+    shape taken is left in ``solve_fused_ckdisc.last_shape``.  On a CPU
+    tensor it runs :func:`fused_ckdisc_reference`.
 
     ``t_eval``, ``events`` and ``params`` are not ported yet.
     """
@@ -283,6 +325,20 @@ def solve_fused_ckdisc(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
                                       first_step=first_step,
                                       max_steps=max_steps, max_step=max_step)
 
+    out, shape = _launch(fun, t_span, y0, rtol, atol, first_step, max_steps,
+                         max_step, None, block_members)
+    solve_fused_ckdisc.last_shape = shape
+    if y0.shape[0]:
+        solve_fused_ckdisc.launches += 1
+    return out
+
+
+def _launch(fun, t_span, y0, rtol, atol, first_step, max_steps, max_step,
+            lanes, block_members=None):
+    """B11 on the card for the CUDA tensor ``y0``: ``lanes`` lanes per member
+    (None: :func:`_lanes_per_member`'s) and ``block_members`` members per
+    block (None: 128 / lanes).  Returns the four outputs and the ``(lanes,
+    block_members)`` taken; an empty batch launches nothing."""
     if not isinstance(fun, FusedRHS):
         raise TypeError("solve_fused_ckdisc on a CUDA tensor needs a FusedRHS "
                         "(a CUDA source of the right-hand side); got "
@@ -294,17 +350,19 @@ def solve_fused_ckdisc(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
                          f"{tuple(y0.shape)}")
     if not y0.is_contiguous():
         raise ValueError("y0_batch must be contiguous")
-    if not 1 <= block_members <= 1024:
-        raise ValueError("block_members must be in [1, 1024]")
+    nb = y0.shape[0]
+    if lanes is None:
+        lanes = _lanes_per_member(nb, device_sm_count(y0.device))
+    block_members, _, _ = _launch_shape(nb, lanes, block_members)
 
     built = _kernel(fun)
-    nb = y0.shape[0]
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
+    shape = (lanes, block_members)
     if nb == 0:
-        return y_out, status, nsteps, nfev
+        return (y_out, status, nsteps, nfev), shape
     t0, tf, rt, at, h0, use_h, mstep, msteps, _ = launch_args(
         t_span, rtol, atol, first_step, max_steps, False, max_step)
     with torch.cuda.device(y0.device):
@@ -312,14 +370,15 @@ def solve_fused_ckdisc(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
         rc = built.lib.fused_ckdisc_launch(
             y0.data_ptr(), y_out.data_ptr(), status.data_ptr(),
             nsteps.data_ptr(), nfev.data_ptr(), nb, t0, tf, rt, at, h0,
-            use_h, mstep, msteps, int(block_members), stream)
+            use_h, mstep, msteps, int(lanes), block_members, stream)
     if rc != 0:
         raise RuntimeError(f"fused_ckdisc kernel launch failed: CUDA error "
                            f"{rc}")
-    solve_fused_ckdisc.launches += 1
-    return y_out, status, nsteps, nfev
+    return (y_out, status, nsteps, nfev), shape
 
 
 # kernel launches since the count was last set to 0 (the plain version on
-# CPU tensors does not count)
+# CPU tensors does not count) and the (lanes per member, members per block)
+# of the last launch
 solve_fused_ckdisc.launches = 0
+solve_fused_ckdisc.last_shape = None

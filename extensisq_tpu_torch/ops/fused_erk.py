@@ -370,10 +370,11 @@ def device_sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def lanes_within_budget(B, sm_count, lanes):
-    """The largest G of ``lanes`` (most first) with B G <= 128 sm_count,
-    else 1: one warp per SM sub-partition (B1, B2, B5)."""
-    budget = _THREADS_PER_SM * int(sm_count)
+def lanes_within_budget(B, sm_count, lanes, threads_per_sm=_THREADS_PER_SM):
+    """The largest G of ``lanes`` (most first) with B G <= threads_per_sm
+    sm_count, else 1: by default one warp per SM sub-partition (B1, B2,
+    B5)."""
+    budget = int(threads_per_sm) * int(sm_count)
     for g in lanes:
         if int(B) * g <= budget:
             return g

@@ -818,20 +818,52 @@ extern "C" int fused_esdirk_grid_host(
 }
 """
 
-CK_LAUNCH = """
+# B11's body runs one member after another: at one lane the
+# thread-per-member body integrate_thread, at G lanes the group body
+# integrate<G> with the lanes as coroutines that hand over at each shuffle
+# (the assessments' quotients, the step control's quotients).  The CUDA
+# group and kernel after the marker are left out.
+CK_LAUNCH = COROUTINES + r"""
+struct HostCkMember {
+  const float* y0;
+  Launch L;
+  int m;
+  Out out;
+};
+static HostCkMember g_ck;
+
+template <int G>
+static void ck_lane(int rank) {
+  HostLanes lane{rank};
+  integrate<G>(lane, g_ck.y0, g_ck.L, g_ck.m, g_ck.out);
+}
+
 extern "C" int fused_ckdisc_launch(
     const void* y0, void* y_out, void* status, void* nstep, void* nfev,
     int B, float t0, float tf, float rtol, float atol, float h0,
-    int use_hstart, float max_step, int max_steps, int threads,
-    void* stream) {
-  blockDim.x = 1;
-  for (int b = 0; b < B; ++b) {
-    blockIdx.x = b;
-    threadIdx.x = 0;
-    fused_ckdisc_kernel((const float*)y0, (float*)y_out, (int*)status,
-                        (int*)nstep, (int*)nfev, B, t0, tf, rtol, atol, h0,
-                        use_hstart, max_step, max_steps);
+    int use_hstart, float max_step, int max_steps, int lanes,
+    int block_members, void* stream) {
+  const Out out{(float*)y_out, (int*)status, (int*)nstep, (int*)nfev};
+  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  void (*body)(int) = lanes == 2 ? ck_lane<2>
+                      : lanes == 4 ? ck_lane<4>
+                      : lanes == 8 ? ck_lane<8>
+                      : lanes == 16 ? ck_lane<16>
+                      : lanes == 32 ? ck_lane<32> : nullptr;
+  if (lanes != 1 && body == nullptr) return 1;
+  char* stacks = lanes > 1 ? static_cast<char*>(
+      std::malloc(static_cast<size_t>(lanes) * kLaneStack)) : nullptr;
+  const float* y0f = (const float*)y0;
+  for (int m = 0; m < B; ++m) {
+    const float* y0m = y0f + static_cast<size_t>(m) * N;
+    if (lanes == 1) {
+      integrate_thread(y0m, L, m, out);
+    } else {
+      g_ck = HostCkMember{y0m, L, m, out};
+      run_lanes(lanes, body, stacks);
+    }
   }
+  std::free(stacks);
   return 0;
 }
 """
@@ -938,7 +970,7 @@ def libs(tmp_path_factory):
     for prob in ("swdec", "rational", "cubic"):
         jobs["ck_" + prob] = ("fused_ckdisc", _build.fused_ckdisc_header(
             FC.ck_consts(), TC.RHS[prob].n, TC.RHS[prob].cuda_src),
-            CK_LAUNCH)
+            CK_LAUNCH, RKC_MARKER)
     for prob in ("mol", "diffusion"):
         jobs["ck_" + prob] = ("fused_rk_grid", _build.fused_rk_grid_header(
             FC.ck_consts(), False, TC.RHS[prob].shape,
@@ -1539,7 +1571,11 @@ def test_rkn_kernels_isolate_an_overflowing_member(libs, tmp_path, case):
     assert np.max(np.abs(out[2][ok] - ref[2][ok])) <= 1
 
 
-def _ck_host(lib, span, y0, **kw):
+def _ck_host(lib, span, y0, lanes=1, **kw):
+    """The host-built B11 on ``y0`` by one thread per member (lanes = 1) or
+    ``lanes`` coroutine lanes."""
+    if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
+        pytest.skip("the host lane group switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
     nb = y0.shape[0]
     out = np.empty_like(y0)
@@ -1549,10 +1585,12 @@ def _ck_host(lib, span, y0, **kw):
         kw.get("max_steps", 100_000), False, kw.get("max_step"))
     fn = lib.fused_ckdisc_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 5 + [ci, cf, cf, cf, cf, cf, ci, cf, ci, ci, vp]
-    fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
-       nf.ctypes.data, nb, t0, tf, rt, at, h0, use_h, mstep, msteps, 128,
-       None)
+    fn.argtypes = [vp] * 5 + [ci, cf, cf, cf, cf, cf, ci, cf, ci, ci, ci,
+                              vp]
+    rc = fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
+            nf.ctypes.data, nb, t0, tf, rt, at, h0, use_h, mstep, msteps,
+            lanes, max(1, 128 // lanes), None)
+    assert rc == 0
     return out, st, ns, nf
 
 
@@ -1607,6 +1645,39 @@ def test_ckdisc_kernels_first_attempts_bit_identical(libs, case, attempts):
     for bit."""
     out, ref = _ck_case(libs, case, max_steps=attempts)
     for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+# the lane counts of B11's group body
+CK_LANES = (2, 4, 8, 16, 32)
+
+
+@pytest.mark.parametrize("lanes", CK_LANES)
+@pytest.mark.parametrize("case", ["swdec", "rational_h0", "overflow"])
+def test_ckdisc_lane_body_bit_identical_to_thread_body(libs, case, lanes):
+    """B11's group body, each assessment's divisions and the step control's
+    five quotients split over 2 to 32 lanes (coroutines that hand over at
+    each shuffle; every lane runs the stages and the roots), gives the
+    thread body's y, status, nsteps and nfev bit for bit over whole runs:
+    the sign-switching decay (bisecting towards each switch), the rational
+    problem from a first step and the overflowing cubic."""
+    _, prob, span, y0, kw = TC.CASES[case]
+    lib = libs["ck_" + prob]
+    for a, b in zip(_ck_host(lib, span, TC.Y0[y0], lanes=lanes, **kw),
+                    _ck_host(lib, span, TC.Y0[y0], **kw)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_ckdisc_lane_body_isolates_an_overflowing_member(libs):
+    """At 8 lanes (four groups a warp) a member whose state overflows (the
+    cubic from Watts' start) ends with status 3 alone, its group's shuffles
+    leaving the other groups alone, and every member's outputs equal the
+    thread body's."""
+    _, prob, span, y0, kw = TC.CASES["overflow"]
+    lib = libs["ck_" + prob]
+    out = _ck_host(lib, span, TC.Y0[y0], lanes=8, **kw)
+    assert out[1][7] == 3 and np.sum(out[1] == 1) == len(out[1]) - 1
+    for a, b in zip(out, _ck_host(lib, span, TC.Y0[y0], **kw)):
         np.testing.assert_array_equal(a, b)
 
 

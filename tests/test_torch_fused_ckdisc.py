@@ -472,7 +472,7 @@ def test_build_keys_hash_the_included_headers():
     from extensisq_tpu_torch.ops import _build
     assert [p.name for p in _build.shared_headers("fused_ckdisc")] == [
         "hstart.cuh", "rk_common.cuh", "rk_rows.cuh", "ck_control.cuh",
-        "rk_control.cuh"]
+        "rk_lanes.cuh", "lane_group.cuh", "rk_control.cuh"]
     assert "ck_control.cuh" in [p.name for p in
                                 _build.shared_headers("fused_rk_grid")]
 
@@ -537,6 +537,72 @@ def test_cuda_tensor_needs_fused_rhs(cuda):
                                 torch.tensor(Y0["mol"], device=cuda))
 
 
+FLAT_CARD_CASES = [k for k in CARD_GATES if CASES[k][0] == "flat"]
+# B11's lane counts besides one thread
+LANES = (2, 4, 8, 16, 32)
+
+
+def _flat_launch_args(name, cuda):
+    _, prob, span, y0, kw = CASES[name]
+    return (RHS[prob], span, torch.tensor(Y0[y0], device=cuda), kw["rtol"],
+            kw["atol"], kw.get("first_step"), kw.get("max_steps", 100_000),
+            kw.get("max_step"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", FLAT_CARD_CASES)
+def test_lane_bodies_bit_identical_to_one_thread_on_card(cuda, name):
+    """B11 forced to 2, 4, 8, 16 and 32 lanes a member (128 / G members a
+    block): bit for bit the one-thread body, and against the plain version
+    at the card gates.  Comparison launches are not counted."""
+    from extensisq_tpu_torch.ops import fused_ckdisc as FC
+    args = _flat_launch_args(name, cuda)
+    before = solve_fused_ckdisc.launches
+    one, shape = FC._launch(*args, 1)
+    assert shape == (1, 128)
+    _, prob, span, _, kw = CASES[name]
+    r = fused_ckdisc_reference(RHS[prob], span, args[2], **kw)
+    for lanes in LANES:
+        k, shape = FC._launch(*args, lanes)
+        assert shape == (lanes, max(1, 128 // lanes))
+        for a, b in zip(k, one):
+            assert torch.equal(a, b)
+        assert torch.equal(k[1], r[1])
+        ok = r[1] == 1
+        assert (k[0][ok] - r[0][ok]).abs().max().item() <= CARD_GATES[name]
+    assert solve_fused_ckdisc.launches == before
+
+
+@pytest.mark.gpu
+def test_wrapper_takes_the_rules_shape_on_card(cuda):
+    """solve_fused_ckdisc launches its rule's shape for the card's SM count
+    and records it in last_shape."""
+    from extensisq_tpu_torch.ops import fused_ckdisc as FC
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, prob, span, y0, kw = CASES["swdec"]
+    for y in (Y0[y0], np.repeat(Y0[y0], 8, axis=0),
+              np.repeat(Y0[y0], 128, axis=0)):
+        solve_fused_ckdisc(RHS[prob], span, torch.tensor(y, device=cuda),
+                           **kw)
+        g = FC._lanes_per_member(len(y), sms)
+        assert solve_fused_ckdisc.last_shape == (g, max(1, 128 // g))
+
+
+@pytest.mark.gpu
+def test_block_of_more_than_1024_threads_raises(cuda):
+    """An explicit block_members of more than 1024 threads at the lanes
+    taken raises before any launch."""
+    from extensisq_tpu_torch.ops import fused_ckdisc as FC
+    args = _flat_launch_args("swdec", cuda)
+    before = solve_fused_ckdisc.launches
+    with pytest.raises(ValueError, match="at most 1024"):
+        FC._launch(*args, 8, 256)
+    with pytest.raises(ValueError, match="at most 1024"):
+        solve_fused_ckdisc(*args[:2], args[2], rtol=1e-4, atol=1e-7,
+                           block_members=2048)
+    assert solve_fused_ckdisc.launches == before
+
+
 GRID_CARD_CASES = [k for k in CARD_GATES if CASES[k][0] == "grid"]
 
 
@@ -570,6 +636,17 @@ def test_rule_shapes_match_plain_version_on_card(cuda, name):
     solve_fused_ckdisc_grid(fun, span, y0, **kw)
     assert solve_fused_ckdisc_grid.last_shape == rule
     assert solve_fused_ckdisc_grid.launches == before + 1
+
+
+@pytest.mark.parametrize("members,lanes", [
+    (256, 32), (1024, 32), (1056, 32), (1057, 16), (2112, 16), (2113, 8),
+    (4224, 8), (4225, 1), (16384, 1), (262144, 1)])
+def test_lanes_per_member_on_132_sms(members, lanes):
+    """B11's rule on the H100's 132 SMs: the largest of 32, 16 and 8 lanes
+    with members x lanes <= 256 x 132 (two warps per SM sub-partition),
+    else one thread per member (the member sweep's wins and losses)."""
+    from extensisq_tpu_torch.ops.fused_ckdisc import _lanes_per_member
+    assert _lanes_per_member(members, 132) == lanes
 
 
 @pytest.mark.parametrize("members,n,shape", [

@@ -1,9 +1,9 @@
-"""Member and launch-shape sweep and section breakdown of the small explicit
-kernels B1 (csrc/fused_erk.cu) and B5 (csrc/fused_rkn.cu) against an
-earlier build of them, on one card.
+"""Member and launch-shape sweep and section breakdown of the small
+kernels B1 (csrc/fused_erk.cu), B5 (csrc/fused_rkn.cu) and B11
+(csrc/fused_ckdisc.cu) against an earlier build of them, on one card.
 
-Each family has its line (--family, one or more of erk, rkn, pleiades), as
-chip_smoke.py runs it or builds it:
+Each family has its line (--family, one or more of erk, rkn, pleiades, ck),
+as chip_smoke.py runs it or builds it:
   erk  vdp (bench.py:18-54, the main path): Van der Pol at mu = 3 from
        y0 = (linspace(1.5, 2.5), 0), BS5 on t in [0, 10], plain at rtol
        1e-4 / atol 1e-6 and compensated at 1e-6 / 1e-9;
@@ -15,6 +15,10 @@ chip_smoke.py runs it or builds it:
        acceleration, which it builds for its registers only): the
        Pleiades start plus 1e-3 N(0, 1) (seed 1) on t in [0, 3], Fi5N at
        Kepler's tolerances;
+  ck   swdec (config 1c, validation/benchmarks.py:105-142): the
+       sign-switching decay from y0 = 1 + 0.5 U(0, 1) (seed 1, the first
+       members of chip_smoke.py's 1,024), CKdisc on t in [0, 5] at rtol
+       1e-4 / atol 1e-7 (one mode, "plain");
 each at every member count of --sizes.  Shapes: ``t<T>``, one thread per
 member and T threads a block; ``g<G>``, G lanes of one warp per member
 and 128 / G members a block; ``g<G>x<P>``, the same with P members a
@@ -35,15 +39,20 @@ solve_fused_rkn at its rule's shape), the parent's wrapper body (four
 allocations, the launch scalars and the launch of the old build at 128
 threads) and the current build launched alone once at the rule's shape,
 in turns at the family's chip_smoke.py member count (vdp 4,096, kepler
-2,048): the host's share of those lines.
+2,048, swdec 1,024): the host's share of those lines.
 
 With --sections, the current source is also built with
 FUSED_SMALL_SECTIONS, whose SM clock counters (csrc/rk_lanes.cuh: Clock)
 give each member's cycles per section of its attempts (stage sums, RHS,
-solution and error sums, norm, controller, loop) and its attempts: printed
+solution and error sums, norm, controller, loop; B11: stage sums, RHS,
+assessments, roots, cascade and controller, loop) and its attempts: printed
 at each shape of --section-shapes for the member counts of --sections, as
 cycles per attempt of the slowest member (the most attempts) and as
-shares over all members.  The instrumented launches are not timed against
+shares over all members; B11's build also gives each member the attempts
+of the slowest member of its warp and the attempts in which its warp's
+members took other cascade paths (a ballot of go2, go4, accept4 and
+fb3_ok), printed as the warp's wait and divergence.  The instrumented
+launches are not timed against
 the others.  Prints the shape each wrapper's rule takes (where it has
 one), registers, spills and the float32 SASS mix of every build; writes
 chiprun_out/<--tag>.json.
@@ -69,11 +78,15 @@ from _probe import (build, card, launch_signature, ptxas_lines, sass_ops,
                     turns, write_out)
 from extensisq_tpu_torch import BS5, Fi5N
 from extensisq_tpu_torch.ops import _build
+from extensisq_tpu_torch.ops import fused_ckdisc as FC
 from extensisq_tpu_torch.ops import fused_erk as FK
 from extensisq_tpu_torch.ops import fused_rkn as FN
 
 SECTIONS = ("stage_sums", "rhs", "solution", "norm", "control", "loop")
+# B11's sections (csrc/fused_ckdisc.cu: Section), in the same slots
+CK_SECTIONS = ("stage_sums", "rhs", "assess", "roots", "control", "loop")
 SLOTS = len(SECTIONS) + 1    # the sections and the attempts
+WARP_SLOTS = 2               # B11: the warp's slowest attempts, its splits
 FIXED_SPAN = (0.0, 1e-6)
 # family -> (kernel, line, state width, span, [(mode, options)], wrapper)
 FAMILIES = {
@@ -84,11 +97,16 @@ FAMILIES = {
     "pleiades": ("fused_rkn", "pleiades", 28, CS.PL_SPAN,
                  [("plain", CS.KEP_PLAIN_TOL), ("comp", CS.KEP_COMP_TOL)],
                  FN),
+    "ck": ("fused_ckdisc", "swdec", 2, CS.CK_SPAN, [("plain", CS.CK_TOL)],
+           FC),
 }
 OUT = {}
 
 
 def header(family):
+    if family == "ck":
+        return _build.fused_ckdisc_header(FC.ck_consts(), 2,
+                                          CS.ckdisc_rhs()["swdec"].cuda_src)
     if family == "erk":
         return _build.fused_erk_header(FK._fused_consts(BS5), 2, CS.VDP_CUDA)
     if family == "pleiades":
@@ -112,13 +130,15 @@ def build_small(src_dir, family, tag, flags=()):
     conv = convention(src_dir, kernel)
     V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = getattr(b["lib"], f"{kernel}_launch")
-    fn.argtypes = ([V] * 5 + [I, F, F, F, F, F, I, F, I, I]
+    ck = kernel == "fused_ckdisc"          # no compensated mode
+    fn.argtypes = ([V] * 5 + [I, F, F, F, F, F, I, F, I]
+                   + ([] if ck else [I])
                    + {"lanes": [I, I], "threads": [I], "fixed": []}[conv]
                    + [V])
     fn.restype = I
     if flags:
         sec = getattr(b["lib"], f"{kernel}_sections")
-        sec.argtypes = [V]
+        sec.argtypes = [V, V] if ck else [V]
         sec.restype = I
     b.update(conv=conv, kernel=kernel)
     return b
@@ -171,10 +191,13 @@ def launcher(b, y0, span, tol, shape, reps=1):
     ints = [torch.empty(B, dtype=torch.int32, device="cuda")
             for _ in range(3)]
     fn = getattr(b["lib"], f"{b['kernel']}_launch")
+    scalars = FK.launch_args(span, tol["rtol"], tol["atol"],
+                             tol.get("first_step"), 100_000,
+                             tol.get("compensated", False), None)
+    if b["kernel"] == "fused_ckdisc":
+        scalars = scalars[:-1]             # no compensated mode
     args = [y0.data_ptr(), y.data_ptr(), *[x.data_ptr() for x in ints], B,
-            *FK.launch_args(span, tol["rtol"], tol["atol"],
-                            tol.get("first_step"), 100_000,
-                            tol.get("compensated", False), None)]
+            *scalars]
     args += {"lanes": [lanes, bm], "threads": [bm],
              "fixed": []}[b["conv"]]
     args = [a if not isinstance(a, float) else ctypes.c_float(a)
@@ -200,20 +223,25 @@ def parent_wrapper(b, y0, span, tol):
 
 def wrapper_sweep(family, builds, n_turns):
     kernel, line, _, span, modes, mod = FAMILIES[family]
-    B = 4096 if family == "erk" else CS.KEP_N
+    B = {"erk": 4096, "ck": CS.CK_N}.get(family, CS.KEP_N)
     y0 = members(family, B)
-    fun = (FK.FusedRHS(CS.vdp, CS.VDP_CUDA, 2) if family == "erk"
-           else CS.rkn_grid_rhs()["kepler"])
-    solve = mod.solve_fused_erk if family == "erk" else mod.solve_fused_rkn
-    method = BS5 if family == "erk" else Fi5N
+    if family == "ck":
+        fun, solve, opts = (CS.ckdisc_rhs()["swdec"], mod.solve_fused_ckdisc,
+                            {})
+    elif family == "erk":
+        fun, solve, opts = (FK.FusedRHS(CS.vdp, CS.VDP_CUDA, 2),
+                            mod.solve_fused_erk, {"method": BS5})
+    else:
+        fun, solve, opts = (CS.rkn_grid_rhs()["kepler"], mod.solve_fused_rkn,
+                            {"method": Fi5N})
     res = {}
     for mode, tol in modes:
-        solve(fun, span, y0, method=method, **tol)
+        solve(fun, span, y0, **opts, **tol)
         shape = solve.last_shape
         runs = [("old wrapper", parent_wrapper(builds[f"old {family}"], y0,
                                                span, tol)),
-                ("new wrapper", lambda tol=tol: solve(fun, span, y0,
-                                                      method=method, **tol)),
+                ("new wrapper", lambda tol=tol: solve(fun, span, y0, **opts,
+                                                      **tol)),
                 ("new launch", launcher(builds[f"new {family}"], y0, span,
                                         tol, shape))]
         times, outs = turns(runs, n_turns)
@@ -232,6 +260,9 @@ def wrapper_sweep(family, builds, n_turns):
 
 
 def members(family, n):
+    if family == "ck":
+        y0 = 1.0 + 0.5 * np.random.RandomState(1).rand(n, 2)
+        return torch.tensor(y0.astype(np.float32), device="cuda")
     if family == "erk":
         return CS.vdp_y0(n, torch.float32)
     if family == "pleiades":
@@ -252,6 +283,8 @@ def rule(family, n, sms, tol):
         return None
     if family == "erk":
         return fn(n, sms, tol.get("compensated", False))
+    if family == "ck":
+        return fn(n, sms)
     return fn(n, sms, FAMILIES[family][2] // 2)
 
 
@@ -298,14 +331,37 @@ def sweep(family, builds, sizes, shapes, n_turns, reps, span=None,
     return res
 
 
+def warp_readings(warp, att):
+    """B11's warp readings over all members: the mean attempts of the
+    slowest member of each member's warp against the member's own, the
+    share of lane-attempts spent waiting for the warp's slowest member, and
+    the share of a member's attempts in which its warp's members took other
+    cascade paths."""
+    slowest = warp[:, 0].double()
+    split = warp[:, 1].double()
+    att = att.double()
+    return {"mean_attempts": att.mean().item(),
+            "mean_warp_slowest": slowest.mean().item(),
+            "wait_share": ((slowest - att).sum() / slowest.sum()).item(),
+            "split_share": (split.sum() / att.sum()).item(),
+            "split_share_of_warp_attempts":
+                (split.sum() / slowest.sum()).item()}
+
+
 def sections(family, b, sizes, shapes):
     kernel, line, _, span, modes, _ = FAMILIES[family]
+    ck = family == "ck"
+    names = CK_SECTIONS if ck else SECTIONS
     res = {}
     for mode, tol in modes:
         for B in sizes:
             y0 = members(family, B)
             buf = torch.zeros(B, SLOTS, dtype=torch.int32, device="cuda")
-            rc = getattr(b["lib"], f"{kernel}_sections")(buf.data_ptr())
+            warp = torch.zeros(B, WARP_SLOTS, dtype=torch.int32,
+                               device="cuda")
+            fn = getattr(b["lib"], f"{kernel}_sections")
+            rc = (fn(buf.data_ptr(), warp.data_ptr()) if ck
+                  else fn(buf.data_ptr()))
             if rc:
                 raise RuntimeError(f"sections: CUDA error {rc}")
             for s in shapes:
@@ -313,11 +369,12 @@ def sections(family, b, sizes, shapes):
                 if not takes(b, shape):
                     continue
                 buf.zero_()
+                warp.zero_()
                 out = launcher(b, y0, span, tol, shape)()
                 torch.cuda.synchronize()
                 raw = buf.to(torch.int64) % 2**32
-                cyc = raw[:, :len(SECTIONS)].double()
-                att = raw[:, len(SECTIONS)]
+                cyc = raw[:, :len(names)].double()
+                att = raw[:, len(names)]
                 share = cyc.sum(0) / cyc.sum()
                 slow = int(att.argmax())
                 n_att = int(att[slow])
@@ -327,27 +384,39 @@ def sections(family, b, sizes, shapes):
                       f"({n_att} attempts, {int(out[2][slow])} steps), "
                       f"cycles per attempt {per.sum():.0f}: "
                       + ", ".join(f"{n} {c:.0f}" for n, c in
-                                  zip(SECTIONS, per.tolist())))
+                                  zip(names, per.tolist())))
                 print(f"{kernel} sections {key}: shares over all members "
                       + ", ".join(f"{n} {x:.3f}" for n, x in
-                                  zip(SECTIONS, share.tolist()))
+                                  zip(names, share.tolist()))
                       + f"; attempts mean {att.double().mean():.2f}")
                 res[key] = {
                     "slowest": slow, "attempts": n_att,
                     "steps": int(out[2][slow]),
-                    "cycles_per_attempt": dict(zip(SECTIONS, per.tolist())),
-                    "shares": dict(zip(SECTIONS, share.tolist())),
+                    "cycles_per_attempt": dict(zip(names, per.tolist())),
+                    "shares": dict(zip(names, share.tolist())),
                     "mean_attempts": att.double().mean().item()}
+                if ck:
+                    w = warp_readings(warp.to(torch.int64), att)
+                    print(f"{kernel} warps {key}: attempts mean "
+                          f"{w['mean_attempts']:.2f}, of the warp's slowest "
+                          f"member {w['mean_warp_slowest']:.2f} (waiting "
+                          f"{w['wait_share']:.3f} of the lane-attempts); "
+                          f"attempts whose warp split on the cascade "
+                          f"{w['split_share']:.3f} of a member's, "
+                          f"{w['split_share_of_warp_attempts']:.3f} of the "
+                          f"warp's; the slowest member's warp split in "
+                          f"{int(warp[slow, 1])} of its {n_att}")
+                    res[key]["warp"] = w
     return res
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-src", type=Path, required=True,
-                    help="directory of the earlier fused_erk.cu and "
-                    "fused_rkn.cu")
+                    help="directory of the earlier fused_erk.cu, "
+                    "fused_rkn.cu and fused_ckdisc.cu")
     ap.add_argument("--family", default="erk,rkn",
-                    help="comma-separated families: erk, rkn, pleiades")
+                    help="comma-separated families: erk, rkn, pleiades, ck")
     ap.add_argument("--sizes", default="512,1024,2048,4096,16384,262144",
                     help="comma-separated member counts")
     ap.add_argument("--shapes", default="t32,t64,t128,t256,g2,g4,g8",
