@@ -41,7 +41,14 @@ Drives each of the port's paths once:
   float32 init outside the window) and the f64 SWAG driver, and 32 members of
   a 128-state periodic reaction-diffusion (t in [0, 1], Kv3I) through
   ``ops.solve_fused_esdirk_grid`` and the f64 driver, with a DAE-lanes
-  check against the exact solution and a compensated one against f64.
+  check against the exact solution and a compensated one against f64;
+* the f64 driver's trajectory options on the explicit line (after it):
+  201 ``t_eval`` points with ``save_steps`` (the counters of the
+  final-state run, the record ending at y), a zero crossing and a
+  terminal event that stops the members starting above it, and four
+  ``solve_windowed`` windows, bit for bit the single shot; 64 sampled
+  members rerun on the CPU; and one 64-member ``t_eval`` run of Fi5N,
+  Kv3I, SWAG, SSV2stab and CKdisc each, held against the CPU.
 
 Before that, it builds every kernel from the sources in this checkout
 (one nvcc per variant, all started together) and holds each against its
@@ -676,8 +683,9 @@ def esdirk_path():
 
     k_ms = wall_ms(run_kernel)
     k_dev = event_ms(run_kernel)
-    plain_ms = wall_ms(run_plain, reps=2)
-    f64_ms = wall_ms(run_f64, reps=2)
+    # the host-bound references, ~15-40 s a run: one warm run each
+    plain_ms = wall_ms(run_plain, reps=1)
+    f64_ms = wall_ms(run_f64, reps=1)
     max_steps = int(fused[2].max())
     steps = int(fused[2].sum())
     print(f"time [fused_esdirk kernel] {PEND_N} members: {k_ms:.3f} ms wall, "
@@ -2989,6 +2997,189 @@ def mid_path():
                                            int(rd[2].sum()))))]
 
 
+# the trajectory phase: the f64 driver's dense output, events and windows
+# on the main path's line, then one 64-member t_eval run per other family
+TRAJ_N_EVAL = 201
+TRAJ_TOL = dict(rtol=1e-6, atol=1e-9)
+TRAJ_STOP = 2.45            # the terminal event's level: y[0] down through it
+TRAJ_CPU_MEMBERS = 64
+TRAJ_Y_GATE = 1e-11         # card vs CPU, relative to max(1, |y|)
+TRAJ_T_GATE = 1e-10         # card vs CPU event times
+TRAJ_LAST_GATE = 1e-12      # ys at the last step vs y, relative
+TRAJ_FAMILIES = 64
+TRAJ_REPS = 3               # warm timed runs of each vdp4096 variant
+
+
+def _zero_y0(t, y):
+    return y[0]
+
+
+def _stop_y0(t, y):
+    return y[0] - TRAJ_STOP
+
+
+_stop_y0.terminal = True
+_stop_y0.direction = -1
+
+
+def _rel(a, b):
+    return ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+
+
+def _record_bytes(sol):
+    return sum(v.numel() * v.element_size() for v in sol.record.values())
+
+
+def trajectory_family_runs():
+    """One 64-member ``t_eval`` run per family other than ERK on the card,
+    each rerun on the CPU: counters identical, y_eval within the gate."""
+    from extensisq_tpu_torch import solve_ensemble
+    x = np.linspace(0.0, 1.0, 64, endpoint=False)
+    rng = np.random.default_rng(16)
+    heat0 = (np.sin(2 * np.pi * x)[None] * rng.uniform(0.8, 1.2, (64, 1))
+             + 0.01 * rng.uniform(-1.0, 1.0, (64, 64)))
+    vdp64 = vdp_y0(TRAJ_FAMILIES, torch.float64)
+    runs = [("Fi5N", kepler, (0.0, 2 * np.pi),
+             kepler_y0(TRAJ_FAMILIES, torch.float64), dict(rtol=1e-8,
+                                                           atol=1e-11)),
+            ("Kv3I", vdp, (0.0, 1.5), vdp64, dict(rtol=1e-5, atol=1e-8)),
+            ("SWAG", vdp, (0.0, 3.0), vdp64, dict(rtol=1e-6, atol=1e-9,
+                                                  k_max=6)),
+            ("SSV2stab", heat_mol(64, 0.1), (0.0, 0.05),
+             torch.tensor(heat0, device="cuda"), dict(rtol=1e-4, atol=1e-7)),
+            ("CKdisc", vdp, (0.0, 3.0), vdp64, dict(rtol=1e-6, atol=1e-9))]
+    for method, fun, span, y0, kw in runs:
+        te = np.linspace(span[0], span[1], TRAJ_N_EVAL)
+
+        def run(y=y0):
+            return solve_ensemble(fun, span, y, method=method, t_eval=te,
+                                  save_steps=True, max_steps=2000, **kw)
+        run()                                   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu = run(y0.cpu())
+        same = {f: torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+                for f in ("status", "nsteps", "nfev", "nfailed")}
+        d = _rel(card.y_eval.cpu(), cpu.y_eval)
+        print(f"trajectory {method} {TRAJ_FAMILIES} members t in {span}, "
+              f"{TRAJ_N_EVAL} t_eval + save_steps: {ms:.1f} ms wall, mean "
+              f"nsteps {card.nsteps.double().mean():.1f}; card vs CPU "
+              f"counters equal {same}, max |dy_eval| relative {d:.3e} (gate "
+              f"{TRAJ_Y_GATE:.0e})")
+        check(bool((card.status == 1).all()), f"trajectory {method}: status")
+        check(all(same.values()), f"trajectory {method}: counters card/CPU")
+        check(d <= TRAJ_Y_GATE, f"trajectory {method}: y_eval card/CPU")
+
+
+def trajectory_path(y64, ens, final_ms):
+    """The main path's line (vdp4096, BS5, f64) with t_eval of 201 points
+    and save_steps, with events (y[0]'s zero crossings, and a terminal
+    event that stops the members that start above TRAJ_STOP), and in four
+    windows: the recorded run's counters equal the final-state run's, its
+    last step ends at y, the windows are the single shot bit for bit, and
+    sampled members rerun on the CPU agree."""
+    from extensisq_tpu_torch import solve_ensemble, solve_windowed
+    start = time.perf_counter()
+    te = np.linspace(T_SPAN[0], T_SPAN[1], TRAJ_N_EVAL)
+    events = [_zero_y0, _stop_y0]
+
+    def recorded(y=y64):
+        return solve_ensemble(vdp, T_SPAN, y, method="BS5", t_eval=te,
+                              save_steps=True, **TRAJ_TOL)
+
+    def with_events(y=y64):
+        return solve_ensemble(vdp, T_SPAN, y, method="BS5", events=events,
+                              **TRAJ_TOL)
+
+    def windowed():
+        return solve_windowed(vdp, T_SPAN, y64, 4, method="BS5",
+                              ensemble=True, **TRAJ_TOL)
+
+    rec_ms = wall_ms(recorded, TRAJ_REPS)
+    ev_ms = wall_ms(with_events, TRAJ_REPS)
+    win_ms = wall_ms(windowed, TRAJ_REPS)
+    rec, ev, win = recorded(), with_events(), windowed()
+    print(f"trajectory vdp{N_MEMBERS} BS5 f64 wall: final state "
+          f"{final_ms:.1f} ms, t_eval {TRAJ_N_EVAL} + save_steps "
+          f"{rec_ms:.1f} ms (record {_record_bytes(rec) / 2**30:.3f} GiB), "
+          f"events {ev_ms:.1f} ms, 4 windows {win_ms:.1f} ms")
+
+    # (a) the record: the final-state run's counters and end, ys ends at y
+    for f in ("status", "nsteps", "nfev", "nfailed"):
+        check(torch.equal(getattr(rec, f), getattr(ens, f)),
+              f"trajectory: recorded {f} differs from the final-state run")
+    check(torch.equal(rec.y, ens.y), "trajectory: recorded y differs")
+    b = torch.arange(N_MEMBERS, device="cuda")
+    last = rec.ys[b, rec.nsteps.long() - 1]
+    d_last = _rel(last, rec.y)
+    check(rec.y_eval.shape == (N_MEMBERS, TRAJ_N_EVAL, 2)
+          and bool(torch.isfinite(rec.y_eval).all()), "trajectory: y_eval")
+    d_end = _rel(rec.y_eval[:, -1], rec.y)
+    print(f"trajectory record: counters equal the final-state run's, ys at "
+          f"the last step vs y {d_last:.3e}, y_eval at t = 10 vs y "
+          f"{d_end:.3e} (gate {TRAJ_LAST_GATE:.0e})")
+    check(max(d_last, d_end) <= TRAJ_LAST_GATE,
+          "trajectory: the record does not end at y")
+
+    # (b) events: the terminal one stops some members and not others; the
+    # rest take the final-state run's steps
+    stopped = ev.status == 8
+    n_stop = int(stopped.sum())
+    free = ~stopped
+    print(f"trajectory events: {n_stop} of {N_MEMBERS} members stopped at "
+          f"y[0] = {TRAJ_STOP}, zero crossings per member "
+          f"{ev.n_events[:, 0].min().item()}-{ev.n_events[:, 0].max().item()}")
+    check(0 < n_stop < N_MEMBERS, "trajectory: the terminal event stopped "
+          "all members or none")
+    check(bool((ev.status[free] == 1).all()) and bool(
+        (ev.t[stopped] < T_SPAN[1]).all()), "trajectory: event status")
+    for f in ("nsteps", "nfev", "nfailed"):
+        check(torch.equal(getattr(ev, f)[free], getattr(ens, f)[free]),
+              f"trajectory: events changed {f} of a free member")
+    check(torch.equal(ev.y[free], ens.y[free]),
+          "trajectory: events changed y of a free member")
+    y_stop = ev.y_events[stopped, 1, 0, 0]
+    check(bool(((y_stop - TRAJ_STOP).abs() < 1e-9).all()),
+          "trajectory: terminal states off the event level")
+
+    # (c) four windows, bit for bit the single shot
+    for f in ("t", "y", "status", "nsteps", "nfev", "nfailed"):
+        check(torch.equal(getattr(win, f), getattr(ens, f)),
+              f"trajectory: windowed {f} differs from the single shot")
+    print("trajectory windows: 4 windows bit-identical to the single shot "
+          "(t, y, status, nsteps, nfev, nfailed)")
+
+    # (d) sampled members on the CPU, stopped ones among them
+    idx = torch.cat([torch.linspace(0, N_MEMBERS - 1, TRAJ_CPU_MEMBERS
+                                    - 8, device="cuda").long(),
+                     stopped.nonzero()[:8, 0]])
+    rec_cpu = recorded(y64[idx].cpu())
+    ev_cpu = with_events(y64[idx].cpu())
+    same = all(torch.equal(getattr(r, f)[idx].cpu(), getattr(c, f))
+               for r, c in ((rec, rec_cpu), (ev, ev_cpu))
+               for f in ("status", "nsteps", "nfev", "nfailed"))
+    same = same and torch.equal(ev.n_events[idx].cpu(), ev_cpu.n_events)
+    d_eval = _rel(rec.y_eval[idx].cpu(), rec_cpu.y_eval)
+    t_card, t_cpu = ev.t_events[idx].cpu(), ev_cpu.t_events
+    nan_same = torch.equal(t_card.isnan(), t_cpu.isnan())
+    ok = ~t_cpu.isnan()
+    d_t = (t_card[ok] - t_cpu[ok]).abs().max().item()
+    print(f"trajectory card vs CPU on {len(idx)} members: counters and "
+          f"n_events equal {same}, max |dy_eval| relative {d_eval:.3e} (gate "
+          f"{TRAJ_Y_GATE:.0e}), max |dt_event| {d_t:.3e} (gate "
+          f"{TRAJ_T_GATE:.0e})")
+    check(same and nan_same, "trajectory: card and CPU counters differ")
+    check(d_eval <= TRAJ_Y_GATE and d_t <= TRAJ_T_GATE,
+          "trajectory: card and CPU disagree")
+    line_s = time.perf_counter() - start
+    trajectory_family_runs()
+    print(f"trajectory phase: {time.perf_counter() - start:.1f} s (the "
+          f"vdp{N_MEMBERS} line {line_s:.1f} s)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3179,6 +3370,9 @@ def main():
         print(f"kernel {label} {N_LARGE} members ({large}): {ms:.3f} ms, "
               f"{out[2].sum().item() / ms * 1e3:.4g} accepted steps/s, "
               f"{out[3].sum().item() / ms * 1e3:.4g} RHS evals/s")
+
+    # 4b. the trajectory options of the f64 driver on the main path's line
+    trajectory_path(y64, ens, times["f64 solve_ensemble"])
 
     # 5. the implicit path: kernel checks, the bench line, times
     esdirk = esdirk_path()

@@ -6,7 +6,10 @@ implicit ESDIRK, the SWAG (variable-order Adams) ensemble paths and
 SSV2stab (Runge-Kutta-Chebyshev) for semi-discretized PDEs:
 
 * :func:`solve` / :func:`solve_ensemble` — the batched on-device solver
-  (final state, counters and status per member), in the dtype of ``y0``;
+  (final state, counters and status per member, and on request the
+  trajectory: ``save_steps``, ``t_eval``, events, the stiffness
+  diagnosis), in the dtype of ``y0``; :func:`solve_windowed` — the same
+  over warm-started windows, bit for bit;
   ESDIRK methods take ``jac=``, a mass matrix ``M=`` (index-1 DAEs) and
   ``jac_each_step=``; SWAG takes ``k_max=``; SSV2stab ``rho_jac=`` and
   ``const_jac=``;
@@ -48,14 +51,16 @@ from .ops import (FusedAcc, FusedGridAcc, FusedGridRHS,  # noqa: F401
                   solve_fused_esdirk_grid, solve_fused_rkc,
                   solve_fused_rkc_ensemble, solve_fused_rkn,
                   solve_fused_rkn_grid)
-from .solve import solve, solve_ensemble, Solution  # noqa: F401
+from .solve import (solve, solve_ensemble, solve_windowed,  # noqa: F401
+                    Solution)
 from .types import (ERKTableau, ESDIRKTableau, Method,  # noqa: F401
                     RKNTableau, tableau_from_arrays)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "solve", "solve_ensemble", "Solution", "ops", "parallel", "FusedRHS",
+    "solve", "solve_ensemble", "solve_windowed", "Solution", "ops",
+    "parallel", "FusedRHS",
     "FusedGridRHS", "FusedRho", "FusedAcc", "FusedGridAcc",
     "solve_fused_erk", "solve_fused_esdirk", "solve_fused_adams",
     "solve_fused_rkc", "solve_fused_rkc_ensemble", "solve_fused_rkn",

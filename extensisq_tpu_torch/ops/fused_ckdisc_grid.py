@@ -87,8 +87,9 @@ def _kernel(fun):
 
 
 def solve_fused_ckdisc_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
-                            first_step=None, max_steps=100_000, t_eval=None,
-                            events=None, max_step=None, params=None):
+                            first_step=None, max_steps=100_000,
+                            block_members=32, t_eval=None, events=None,
+                            max_step=None, params=None):
     """Integrate an ensemble of mid-size non-smooth systems with the CKdisc
     cascade in one kernel launch.
 
@@ -103,6 +104,8 @@ def solve_fused_ckdisc_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     SM count (raising when the member's rows do not fit in shared memory),
     or raises; the shape taken is ``solve_fused_ckdisc_grid.last_shape``.  On
     a CPU tensor it runs :func:`fused_ckdisc_grid_reference`.
+    ``block_members`` is accepted for the JAX signature and has no effect:
+    a member is one block, its size from :func:`_launch_shape`.
 
     ``t_eval``, ``events`` and ``params`` are not ported yet.
     """

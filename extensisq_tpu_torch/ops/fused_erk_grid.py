@@ -240,8 +240,9 @@ def _kernel(method, fun):
 
 def solve_fused_erk_grid(fun, t_span, y0_batch, method=None, rtol=1e-4,
                          atol=1e-6, first_step=None, max_steps=100_000,
-                         compensated=False, t_eval=None, events=None,
-                         max_step=None, params=None, dense=None):
+                         block_members=32, compensated=False, t_eval=None,
+                         events=None, max_step=None, params=None,
+                         dense=None):
     """Integrate an ensemble of mid-size systems with an explicit RK pair
     (BS5 by default) in one kernel launch.
 
@@ -257,6 +258,9 @@ def solve_fused_erk_grid(fun, t_span, y0_batch, method=None, rtol=1e-4,
     count (raising when the members' rows do not fit in shared memory), or
     raises; the shape taken is ``solve_fused_erk_grid.last_shape``.  On a
     CPU tensor it runs :func:`fused_erk_grid_reference`.
+    ``block_members`` is accepted for the JAX signature and has no effect:
+    the members a block come from the measured rule
+    (:func:`grid_launch_shape`), not from the caller.
 
     ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet.
     """

@@ -12,28 +12,35 @@ def build_stepper(method, fun, n, dtype, **options):
     (a callable returning the rows-first ``(n, n, B)`` Jacobian, or a
     constant ``(n, n)`` array for linear problems), ``M`` (a constant
     mass matrix, ``(n,)`` diagonal or ``(n, n)``) and ``jac_each_step``.
-    The JAX package's dense-output options (``interpolant``,
-    ``carry_stages``) have no use before dense output is ported and are
-    ignored.  RKN methods take ``scale_embedded`` (Mu5Nmb's default damps
-    the embedded estimate by 0.75).  SWAG takes ``k_max`` (1 to 12);
-    SSV2stab takes ``rho_jac`` (a spectral-radius bound ``rho_jac(t, y)``)
-    and ``const_jac``."""
+    The explicit families (ERK, RKN, CKdisc) take ``carry_stages``, which
+    keeps the last accepted step's start and stages for dense output,
+    events and the stiffness check (``solve`` sets it when they are
+    asked for), and ERK, RKN and ESDIRK ``interpolant`` (the default of
+    ``dense_segments``).  RKN methods take ``scale_embedded`` (Mu5Nmb's
+    default damps the embedded estimate by 0.75).  SWAG takes ``k_max``
+    (1 to 12); SSV2stab takes ``rho_jac`` (a spectral-radius bound
+    ``rho_jac(t, y)``) and ``const_jac``."""
     family = method.family
     merged = dict(method.options or {})
     merged.update(options)
     if family == "erk":
         from .erk import ERKStepper
         return ERKStepper(fun, method.tableau, n, dtype,
-                          sc_params=merged.get("sc_params"))
+                          sc_params=merged.get("sc_params"),
+                          carry_stages=merged.get("carry_stages", False),
+                          interpolant=merged.get("interpolant"))
     if family == "ckdisc":
         from .ckdisc import CKdiscStepper
         return CKdiscStepper(fun, method.tableau, n, dtype,
-                             data=merged["ckdisc"])
+                             data=merged["ckdisc"],
+                             carry_stages=merged.get("carry_stages", False))
     if family == "rkn":
         from .rkn import RKNStepper
         return RKNStepper(fun, method.tableau, n, dtype,
                           sc_params=merged.get("sc_params"),
-                          scale_embedded=bool(merged.get("scale_embedded")))
+                          scale_embedded=bool(merged.get("scale_embedded")),
+                          carry_stages=merged.get("carry_stages", False),
+                          interpolant=merged.get("interpolant"))
     if family == "esdirk":
         for name in ("bands", "jac_sparsity"):
             if merged.get(name) is not None:
@@ -45,7 +52,8 @@ def build_stepper(method, fun, n, dtype, **options):
                              sc_params=merged.get("sc_params"),
                              jac=merged.get("jac"), M=merged.get("M"),
                              jac_each_step=merged.get("jac_each_step",
-                                                      False))
+                                                      False),
+                             interpolant=merged.get("interpolant"))
     if family == "adams":
         from .adams import AdamsStepper
         return AdamsStepper(fun, n, dtype,

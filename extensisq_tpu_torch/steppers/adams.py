@@ -12,8 +12,8 @@ index becomes ``torch.gather``/``scatter`` along axis 0.  Products and
 sums that the JAX stepper unrolls (``_cumprod``, ``_cumsum_rev``) keep
 its sequential order, so float64 runs give the JAX counts.
 
-Dense output (``record_coefficients``, ``dense_segments``) comes with
-ROADMAP A4b, complex states with A3.
+Dense output (``record_coefficients``, ``dense_segments``) is
+``adams_dense.py``; complex states come with ROADMAP A3.
 """
 from typing import Any, NamedTuple
 
@@ -722,10 +722,12 @@ class AdamsStepper:
     # -- dense output ---------------------------------------------------------
 
     def record_coefficients(self, state):
-        raise NotImplementedError(
-            "SWAG dense output (adams_dense.dintp_coefficients) is not "
-            "ported yet: ROADMAP A4b")
+        """Watts' dintp polynomial ``(n, k_max + 2, B)`` of the last
+        accepted step (linear after the extrapolated final step)."""
+        from .adams_dense import dintp_coefficients
+        return dintp_coefficients(self, state)
 
     def dense_segments(self, state, interpolant=None):
-        return self.record_coefficients(state)
+        return [(state.t_old, state.h_previous, state.y_old,
+                 self.record_coefficients(state))], 0
 

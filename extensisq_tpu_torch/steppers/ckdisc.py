@@ -13,8 +13,8 @@ JAX stepper skips stages under ``lax.cond``, this one evaluates every
 stage for the whole batch and selects with ``torch.where`` (a skipped
 member's stage arguments may be inf or NaN, so nothing is multiplied by a
 mask); ``nfev`` counts only what each member's own branch evaluated.  The
-stage rows are not carried from step to step: dense output
-(``record_coefficients``, ``dense_segments``) is ROADMAP A4b.
+stage rows are carried from step to step only with ``carry_stages``, for
+dense output (``record_coefficients``, ``dense_segments``) and events.
 """
 from typing import Any, NamedTuple
 
@@ -22,6 +22,8 @@ import torch
 
 from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW
 from ..core.hstart import h_start
+from ..core.interpolate import (hermite_cubic_coefficients,
+                                stage_coefficients)
 from ..core.numerics import calculate_scale, dtype_constants, norm, over
 from .erk import ERKStepper, weighted_sum
 
@@ -44,6 +46,10 @@ class CKState(NamedTuple):
     nfev: Any                # int32 counters
     nsteps: Any
     nfailed: Any
+    # carry_stages only (None otherwise): the last accepted step
+    t_old: Any = None
+    y_old: Any = None
+    K: Any = None            # (7, n, B): its stages, the endpoint's last
 
 
 class CKdiscStepper:
@@ -55,8 +61,10 @@ class CKdiscStepper:
     """
     family = "ckdisc"
 
-    def __init__(self, fun, tableau, n, dtype, data):
+    def __init__(self, fun, tableau, n, dtype, data, carry_stages=False):
         self.fun = fun
+        self.carry_stages = bool(carry_stages)
+        self.matrices = {}           # the interpolant matrix on the device
         self.tab = tableau
         self.n = n
         self.dtype = dtype
@@ -91,13 +99,18 @@ class CKdiscStepper:
             h_abs = torch.full_like(t0, float(first_step))
         i0 = torch.zeros(B, dtype=torch.int32, device=y0.device)
         pair = torch.ones(2, B, dtype=self.dtype, device=y0.device)
+        dense = {}
+        if self.carry_stages:
+            dense = dict(t_old=t0, y_old=y0,
+                         K=y0.new_zeros((self.tab.n_stages + 1,)
+                                        + tuple(y0.shape)))
         return CKState(
             t=t0, y=y0, f=f0, h_abs=h_abs, status=i0 + RUNNING,
             twiddle=pair * torch.tensor([[1.5], [1.1]], dtype=self.dtype,
                                         device=y0.device),
             quit_f=pair * 100.0, order_accepted=i0 + 4,
             h_previous=torch.zeros_like(t0), nfev=i0 + nfev, nsteps=i0,
-            nfailed=i0)
+            nfailed=i0, **dense)
 
     # -- the cascade ---------------------------------------------------------
 
@@ -186,7 +199,8 @@ class CKdiscStepper:
                                                        h * c2)),
             y_new=torch.where(accept4, y5, torch.where(fb3_ok, y3, y2)),
             order=torch.where(accept4, 4, torch.where(fb3_ok, 2, 1)),
-            nfev=1 + 2 * go2.to(torch.int32) + 2 * go4.to(torch.int32))
+            nfev=1 + 2 * go2.to(torch.int32) + 2 * go4.to(torch.int32),
+            rows=rows)
 
     def reassess_stepsize(self, params, t, h_abs):
         """Step-size limits + end-of-interval look-ahead split."""
@@ -237,6 +251,12 @@ class CKdiscStepper:
                              status).to(torch.int32)
         nfev = (state.nfev + torch.where(gate, a["nfev"], 0)
                 + ok.to(torch.int32))
+        dense = {}
+        if self.carry_stages:
+            dense = dict(t_old=torch.where(ok, t, state.t_old),
+                         y_old=torch.where(ok, y, state.y_old),
+                         K=torch.where(ok, torch.stack(a["rows"] + [f_new]),
+                                       state.K))
         new_state = CKState(
             t=torch.where(ok, t_new, t),
             y=torch.where(ok, a["y_new"], y),
@@ -250,7 +270,8 @@ class CKdiscStepper:
             h_previous=torch.where(ok, a["h_used"], state.h_previous),
             nfev=nfev.to(torch.int32),
             nsteps=state.nsteps + ok.to(torch.int32),
-            nfailed=state.nfailed + (gate & ~a["accepted"]).to(torch.int32))
+            nfailed=state.nfailed + (gate & ~a["accepted"]).to(torch.int32),
+            **dense)
         rejected = rejected | (gate & ~a["accepted"])
         aux_new = (ok | (status != RUNNING), min_step, rejected & ~ok)
         return new_state, aux_new, ok
@@ -262,9 +283,18 @@ class CKdiscStepper:
     # -- dense output --------------------------------------------------------
 
     def record_coefficients(self, state):
-        raise NotImplementedError("CKdisc dense output is not ported yet: "
-                                  "ROADMAP A4b")
+        """The order-aware free interpolant ``(n, p, B)`` (extensisq
+        ``cash.py``): ``K^T P h`` after a fifth-order step, the cubic
+        Hermite (zero-padded) after a fallback, per member."""
+        h = state.h_previous
+        Qp = stage_coefficients(state.K, self.tab.P, h, self.matrices)
+        Qc = hermite_cubic_coefficients(h, state.y_old, state.y,
+                                        state.K[0], state.K[-1])
+        Qc = torch.cat([Qc, Qc.new_zeros((Qc.shape[0], Qp.shape[1]
+                                          - Qc.shape[1], Qc.shape[2]))],
+                       dim=1)
+        return torch.where(state.order_accepted == 4, Qp, Qc)
 
     def dense_segments(self, state, interpolant=None):
-        raise NotImplementedError("CKdisc dense output is not ported yet: "
-                                  "ROADMAP A4b")
+        return [(state.t_old, state.h_previous, state.y_old,
+                 self.record_coefficients(state))], 0

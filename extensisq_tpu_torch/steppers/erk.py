@@ -9,17 +9,26 @@ with ``lax.cond``, this one evaluates both sides for the whole batch and
 selects with masks; the work counters add only what each member's own
 branch evaluated, so ``nfev`` counts exactly what the JAX version counts.
 
-Dense output (``dense_segments``, ``record_coefficients``) and the
-stiffness bookkeeping come with ``t_eval``/events (ROADMAP A4).
+With ``carry_stages`` the state also keeps the last accepted step's start
+(``t_old``, ``y_old``, ``f_old``) and stages ``K`` ``(s + 1, n, B)``, which
+dense output (``record_coefficients``, ``dense_segments``) and the
+stiffness diagnosis read, and the stiffness bookkeeping (``jflstp``,
+``okstp``, ``havg``).  ``solve`` asks for them only when a trajectory,
+events or the stiffness check need them (the JAX driver's
+``carry_stages=False`` rule): without, these fields are ``None`` and a step
+runs the final-state path's operations alone.
 """
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW
 from ..core.controller import (resolve_controller, erk_accept_update,
                                reject_factor)
 from ..core.hstart import h_start
+from ..core.interpolate import (hermite_cubic_coefficients,
+                                stage_coefficients)
 from ..core.numerics import calculate_scale, norm, dtype_constants
 
 
@@ -37,6 +46,14 @@ class ERKState(NamedTuple):
     nfev: Any                # int32 counters
     nsteps: Any
     nfailed: Any
+    # carry_stages only (None otherwise): the last accepted step
+    t_old: Any = None
+    y_old: Any = None
+    f_old: Any = None
+    K: Any = None            # (s + 1, n, B) its stages
+    jflstp: Any = None       # failed steps since the last stiffness check
+    okstp: Any = None        # accepted steps (stiffness bookkeeping)
+    havg: Any = None         # exponentially averaged step size
 
 
 class _Carry(NamedTuple):
@@ -53,6 +70,7 @@ class _Carry(NamedTuple):
     error_norm: Any
     nfev: Any
     nfailed: Any
+    K: Any = None            # stages of the accepted attempt (carry_stages)
 
 
 def select(mask, a, b):
@@ -60,11 +78,15 @@ def select(mask, a, b):
     tuples) of tensors; ``mask`` is per member, ``(B,)``.  Fields have the
     member axis last, except those a NamedTuple type names in its
     ``members_first`` (batched matrices ``(B, n, n)``), where the mask
-    goes on the first axis."""
+    goes on the first axis.  A field that is ``None`` in both stays
+    ``None``."""
     first = getattr(type(a), "members_first", ())
     names = getattr(a, "_fields", ())
     vals = []
     for i, (x, y) in enumerate(zip(a, b)):
+        if x is None:
+            vals.append(None)
+            continue
         m = mask
         if names and names[i] in first:
             m = mask.reshape(mask.shape + (1,) * (x.ndim - 1))
@@ -89,11 +111,17 @@ class ERKStepper:
     """init/step functions for one (fun, tableau, controller) combination.
 
     ``fun(t, y)`` takes ``t`` of shape ``(B,)`` and ``y`` of shape
-    ``(n, B)`` and returns ``(n, B)``.
+    ``(n, B)`` and returns ``(n, B)``.  ``carry_stages`` keeps what dense
+    output and the stiffness diagnosis read (module docstring);
+    ``interpolant`` names ``dense_segments``' default.
     """
 
-    def __init__(self, fun, tableau, n, dtype, sc_params=None):
+    def __init__(self, fun, tableau, n, dtype, sc_params=None,
+                 carry_stages=False, interpolant=None):
         self.fun = fun
+        self.carry_stages = bool(carry_stages)
+        self.interpolant = interpolant
+        self.matrices = {}           # interpolant matrices on the device
         self.tab = tableau
         self.n = n
         self.dtype = dtype
@@ -112,6 +140,16 @@ class ERKStepper:
         self.E = tableau.E
         self.fsal = tableau.fsal
         self.s = tableau.n_stages
+
+    def _dense_fields(self, t0, y0, f0, rows):
+        """The ``carry_stages`` fields of an initial state (``rows`` state
+        rows a stage)."""
+        if not self.carry_stages:
+            return {}
+        i0 = torch.zeros_like(t0, dtype=torch.int32)
+        return dict(t_old=t0, y_old=y0, f_old=f0,
+                    K=y0.new_zeros((self.s + 1, rows, y0.shape[1])),
+                    jflstp=i0, okstp=i0, havg=torch.zeros_like(t0))
 
     # -- construction ------------------------------------------------------
 
@@ -141,7 +179,8 @@ class ERKStepper:
             error_norm_old=torch.ones_like(t0),
             h_previous=torch.zeros_like(t0),
             max_factor=torch.full_like(t0, 10.0),
-            nfev=i0 + nfev, nsteps=i0, nfailed=i0)
+            nfev=i0 + nfev, nsteps=i0, nfailed=i0,
+            **self._dense_fields(t0, y0, f0, self.n))
 
     # -- stage machinery -----------------------------------------------------
 
@@ -233,6 +272,11 @@ class ERKStepper:
             h_ratio, c.rejected, c.standard_sc, c.max_factor)
         factor_rej = reject_factor(self.cc, err_for_reject)
 
+        K = c.K
+        if self.carry_stages:
+            while len(K_rows) < self.s + 1:
+                K_rows.append(zero_y)
+            K = torch.where(accepted, torch.stack(K_rows), c.K)
         h_abs_new = c.h_abs * torch.where(accepted, factor_acc, factor_rej)
         status = torch.where(bad & ~accepted, OVERFLOW, c.status)
         return _Carry(
@@ -248,6 +292,7 @@ class ERKStepper:
             error_norm=torch.where(accepted, error_norm, c.error_norm),
             nfev=nfev,
             nfailed=c.nfailed + (~accepted).to(torch.int32),
+            K=K,
         )
 
     # -- flat (attempt-level) stepping for the batched solve loop ------------
@@ -283,7 +328,7 @@ class ERKStepper:
             max_factor=state.max_factor,
             y_new=y, f_new=torch.zeros_like(f),
             error_norm=state.error_norm_old,
-            nfev=state.nfev, nfailed=state.nfailed)
+            nfev=state.nfev, nfailed=state.nfailed, K=state.K)
         # a too-small step or an already-terminal status evaluates no RHS
         # for that member (the JAX lax.cond), so nfev/nfailed keep only
         # the attempts that ran
@@ -307,6 +352,26 @@ class ERKStepper:
         status = torch.where((status == RUNNING) & is_last, FINISHED,
                              status).to(torch.int32)
 
+        dense = {}
+        if self.carry_stages:
+            K_final = c.K
+            if not self.fsal:
+                K_final = torch.cat([c.K[:self.s], f_new[None]])
+            # stiffness bookkeeping (extensisq common.py), the JAX order
+            okstp = state.okstp + ok.to(torch.int32)
+            havg = torch.where(ok, 0.9 * state.havg + 0.1 * c.h_used,
+                               state.havg)
+            reset = ok & (okstp == 20)
+            havg = torch.where(reset, c.h_used, havg)
+            jflstp = state.jflstp + (c.nfailed - state.nfailed)
+            dense = dict(
+                t_old=torch.where(ok, t, state.t_old),
+                y_old=torch.where(ok, y, state.y_old),
+                f_old=torch.where(ok, f, state.f_old),
+                K=torch.where(ok, K_final, state.K),
+                jflstp=torch.where(reset, 0, jflstp).to(torch.int32),
+                okstp=okstp, havg=havg)
+
         new_state = ERKState(
             t=torch.where(ok, t_new, state.t),
             y=torch.where(ok, c.y_new, state.y),
@@ -320,7 +385,7 @@ class ERKStepper:
             max_factor=torch.where(ok, c.max_factor, state.max_factor),
             nfev=nfev,
             nsteps=state.nsteps + ok.to(torch.int32),
-            nfailed=c.nfailed)
+            nfailed=c.nfailed, **dense)
         aux_new = (ok | (status != RUNNING), min_step, c.rejected & ~ok)
         return new_state, aux_new, ok
 
@@ -338,3 +403,52 @@ class ERKStepper:
             aux = select(active, aux_new, aux)
             active = active & ~ok & (state.status == RUNNING)
         return state
+
+    # -- dense output (carry_stages) ------------------------------------------
+
+    def error_estimate(self, state):
+        """Raw embedded error estimate of the last accepted step, ``(n, B)``:
+        the stiffness diagnosis' perturbation vector."""
+        m = self.s + (1 if self.fsal else 0)
+        return state.h_previous * weighted_sum(list(state.K)[:m],
+                                               self.E[:m])
+
+    def record_coefficients(self, state):
+        """The free interpolant ``Q`` ``(n, p, B)`` of the last accepted step
+        (no RHS evaluations): ``K^T P h``, or the cubic Hermite where the
+        tableau has no ``P``."""
+        h = state.h_previous
+        if self.tab.P is not None:
+            return stage_coefficients(state.K, self.tab.P, h, self.matrices)
+        return hermite_cubic_coefficients(h, state.y_old, state.y,
+                                          state.f_old, state.f)
+
+    def dense_segments(self, state, interpolant=None):
+        """Dense-output segments of the last accepted step:
+        ``([(t_anchor, h, y_anchor, Q)], nfev_extra)`` with ``y(u) =
+        y_anchor + sum_k Q[:, k] u^(k+1)``, ``u = (t - t_anchor) / h``.
+
+        An extra-stage interpolant (BS5's ``'low'``/``'best'``) evaluates
+        its extra stages here, only where dense output is asked for.
+        """
+        name = interpolant if interpolant is not None else \
+            (self.interpolant or "free")
+        h = state.h_previous
+        spec = (self.tab.interpolants or {}).get(name)
+        if spec is None:
+            return [(state.t_old, h, state.y_old,
+                     self.record_coefficients(state))], 0
+        C_extra = np.asarray(spec["C_extra"])
+        A_extra = np.asarray(spec["A_extra"])
+        rows = list(state.K)
+        t_old, y_old = state.t_old, state.y_old
+        for j, cx in enumerate(C_extra):
+            sx = self.s + 1 + j
+            dy = h * weighted_sum(rows[:sx], A_extra[j, :sx])
+            rows.append(self.fun(t_old + float(cx) * h, y_old + dy))
+        Q = stage_coefficients(torch.stack(rows), spec["P"], h,
+                               self.matrices)
+        if spec.get("anchor") == "end":
+            # RKSuite convention: the polynomial looks back from the end
+            return [(state.t, h, state.y, Q)], len(C_extra)
+        return [(t_old, h, y_old, Q)], len(C_extra)

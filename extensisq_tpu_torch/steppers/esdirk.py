@@ -32,7 +32,8 @@ Where the JAX stepper branches per member with ``lax.cond`` (refactor,
 Jacobian refresh, skipped stages), this one computes for the batch and
 selects per member; the counters move only where the JAX branch ran.
 Banded linear algebra, ``jac_sparsity`` and complex states are ROADMAP
-A8b; dense output and the DAE index check come with A4b/A7.
+A8b; the DAE index check comes with A7.  The state keeps the last accepted
+step's start (``t_old``, ``y_old``, ``yp_old``) for dense output.
 """
 from typing import Any, NamedTuple
 
@@ -44,6 +45,8 @@ from .._config import (RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW,
 from ..core.controller import (resolve_controller, esdirk_accept_update,
                                reject_factor)
 from ..core.hstart import h_start
+from ..core.interpolate import (hermite_cubic_coefficients,
+                                stage_coefficients)
 from ..core.linalg import gauss_solve
 from ..core.numerics import calculate_scale, norm, dtype_constants
 from .erk import select, weighted_sum
@@ -69,6 +72,9 @@ class ESDIRKState(NamedTuple):
     Rate: Any               # max Newton rate of the last attempt
     Niter: Any              # max Newton iterations of the last attempt
     K: Any                  # (s, n, B) stage derivatives
+    t_old: Any              # the last accepted step's start
+    y_old: Any
+    yp_old: Any
     nfev: Any
     njev: Any
     nlu: Any
@@ -127,11 +133,14 @@ def jacfwd(fun, n):
 class ESDIRKStepper:
     """init/step functions for one (fun, tableau, controller, options)
     combination.  ``fun(t, y)`` takes ``t`` of shape ``(B,)`` and ``y``
-    of shape ``(n, B)`` and returns ``(n, B)``."""
+    of shape ``(n, B)`` and returns ``(n, B)``.  ``interpolant`` names a
+    tableau interpolant (``'C0'``, ``'C1'``) for ``dense_segments``."""
 
     def __init__(self, fun, tableau, n, dtype, sc_params=None, jac=None,
-                 M=None, jac_each_step=False):
+                 M=None, jac_each_step=False, interpolant=None):
         self.fun = fun
+        self.interpolant = interpolant
+        self.matrices = {}           # interpolant matrices on the device
         self.tab = tableau
         self.n = n
         self.dtype = dtype
@@ -344,6 +353,7 @@ class ESDIRKStepper:
             Rate=torch.full_like(t0, -torch.inf), Niter=i0,
             K=torch.zeros((self.s,) + tuple(y0.shape), dtype=self.dtype,
                           device=y0.device),
+            t_old=t0, y_old=y0, yp_old=yp0,
             nfev=i0 + 1, njev=i0 + njev, nlu=i0, nls=i0, nfi=i0,
             nsteps=i0, nfailed=i0)
 
@@ -621,6 +631,9 @@ class ESDIRKStepper:
             LU=c.LU, piv=c.piv, LU_valid=c.LU_valid, h_LU=c.h_LU,
             Rate=c.Rate, Niter=c.Niter,
             K=torch.where(ok, c.K, state.K),
+            t_old=torch.where(ok, t, state.t_old),
+            y_old=torch.where(ok, y, state.y_old),
+            yp_old=torch.where(ok, yp, state.yp_old),
             nfev=c.nfev, njev=c.njev, nlu=c.nlu, nls=c.nls, nfi=c.nfi,
             nsteps=state.nsteps + ok.to(torch.int32),
             nfailed=c.nfailed)
@@ -639,3 +652,37 @@ class ESDIRKStepper:
             aux = select(active, aux_new, aux)
             active = active & ~ok & (state.status == RUNNING)
         return state
+
+    # -- dense output --------------------------------------------------------
+
+    def record_coefficients(self, state):
+        """The free interpolant ``(n, p, B)``: ``K^T P h``, or the cubic
+        Hermite on ``yp_old``/``yp`` where the tableau has no ``P``."""
+        h = state.h_previous
+        if self.tab.P is not None:
+            return stage_coefficients(state.K, self.tab.P, h, self.matrices)
+        return hermite_cubic_coefficients(h, state.y_old, state.y,
+                                          state.yp_old, state.yp)
+
+    def dense_segments(self, state, interpolant=None):
+        """Dense-output segments of the last accepted step: the HS methods'
+        piecewise cubic through the first implicit stage (two segments),
+        else a tableau interpolant or the free one."""
+        h = state.h_previous
+        if self.tab.piecewise_cubic_dense:
+            c1 = float(self.C[1])
+            t_mid = state.t_old + c1 * h
+            y_mid = state.y_old + h * weighted_sum(list(state.K), self.A[1])
+            Q1 = hermite_cubic_coefficients(c1 * h, state.y_old, y_mid,
+                                            state.K[0], state.K[1])
+            Q2 = hermite_cubic_coefficients((1 - c1) * h, y_mid, state.y,
+                                            state.K[1], state.K[2])
+            return [(state.t_old, c1 * h, state.y_old, Q1),
+                    (t_mid, (1 - c1) * h, y_mid, Q2)], 0
+        name = interpolant if interpolant is not None else self.interpolant
+        P = (self.tab.interpolants or {}).get(name)
+        if P is None:
+            return [(state.t_old, h, state.y_old,
+                     self.record_coefficients(state))], 0
+        return [(state.t_old, h, state.y_old,
+                 stage_coefficients(state.K, P, h, self.matrices))], 0

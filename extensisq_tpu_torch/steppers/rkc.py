@@ -9,11 +9,9 @@ them; the nonlinear power iteration for the spectral radius), this one
 loops to the largest trip count of the running members and keeps each
 member's carry once its own loop has ended, so ``nfev`` and ``nfesig``
 count exactly what the JAX stepper counts.  Both dtypes run: float64 for
-the driver, float32 for tests of the fused kernels' arithmetic.
-
-Dense output (``record_coefficients``, ``dense_segments``) comes with
-ROADMAP A4b, and with it the last accepted step's (t, y, f) that the JAX
-state carries for it.
+the driver, float32 for tests of the fused kernels' arithmetic.  The state
+keeps the last accepted step's start (``t_old``, ``y_old``, ``f_old``) for
+dense output, a cubic Hermite over it.
 """
 from typing import Any, NamedTuple
 
@@ -21,6 +19,7 @@ import numpy as np
 import torch
 
 from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW, RHO_FAIL
+from ..core.interpolate import hermite_cubic_coefficients
 from ..core.numerics import calculate_scale, norm, dtype_constants
 from .erk import select
 
@@ -41,6 +40,9 @@ class RKCState(NamedTuple):
     errold: Any
     nstsig: Any            # steps since last rho refresh (mod 25)
     mlim: Any              # consecutive steps at the m cap
+    t_old: Any             # the last accepted step's start
+    y_old: Any
+    f_old: Any
     # counters
     nfev: Any
     nfesig: Any
@@ -165,7 +167,7 @@ class RKCStepper:
         return RKCState(
             t=t0, y=y0, f=f0, h_abs=h_abs, status=i0 + RUNNING,
             sprad=z, V=f0 * 1.0, newspc=~b0, jacatt=b0, h_previous=z,
-            errold=z + 1.0, nstsig=i0, mlim=i0,
+            errold=z + 1.0, nstsig=i0, mlim=i0, t_old=t0, y_old=y0, f_old=f0,
             nfev=i0 + 1, nfesig=i0, nsteps=i0, nfailed=i0, maxm=i0,
             max_step_eff=max_step_eff, hmin0=hmin0)
 
@@ -345,6 +347,9 @@ class RKCStepper:
             errold=torch.where(ok, err, state.errold),
             nstsig=nstsig,
             mlim=mlim,
+            t_old=torch.where(ok, t, state.t_old),
+            y_old=torch.where(ok, yn, state.y_old),
+            f_old=torch.where(ok, fn, state.f_old),
             nfev=nfev.to(torch.int32), nfesig=nfesig.to(torch.int32),
             nsteps=state.nsteps + ok.to(torch.int32),
             nfailed=state.nfailed + (~ok).to(torch.int32),
@@ -368,9 +373,11 @@ class RKCStepper:
     # -- dense output --------------------------------------------------------
 
     def record_coefficients(self, state):
-        raise NotImplementedError("SSV2stab dense output is not ported yet: "
-                                  "ROADMAP A4b")
+        """The cubic Hermite ``(n, 3, B)`` over the last accepted step,
+        ``h = t - t_old``."""
+        return hermite_cubic_coefficients(state.t - state.t_old, state.y_old,
+                                          state.y, state.f_old, state.f)
 
     def dense_segments(self, state, interpolant=None):
-        raise NotImplementedError("SSV2stab dense output is not ported yet: "
-                                  "ROADMAP A4b")
+        return [(state.t_old, state.t - state.t_old, state.y_old,
+                 self.record_coefficients(state))], 0

@@ -18,6 +18,8 @@ import torch
 
 from .._config import RUNNING
 from ..core.hstart import h_start
+from ..core.interpolate import (host_matrix, nystrom_coefficients,
+                                quintic_hermite_coefficients)
 from .erk import ERKStepper, ERKState, weighted_sum
 
 _SECOND_ORDER = ("This method is for second order problems and `fun` should"
@@ -32,10 +34,11 @@ class RKNStepper(ERKStepper):
     """
 
     def __init__(self, fun, tableau, n, dtype, sc_params=None,
-                 scale_embedded=False):
+                 scale_embedded=False, carry_stages=False, interpolant=None):
         if n % 2:
             raise ValueError(_SECOND_ORDER)
-        super().__init__(fun, tableau, n, dtype, sc_params=sc_params)
+        super().__init__(fun, tableau, n, dtype, sc_params=sc_params,
+                         carry_stages=carry_stages, interpolant=interpolant)
         self.m = n // 2
         self.fun_first_order = fun
         self.fun = self.afun
@@ -57,13 +60,58 @@ class RKNStepper(ERKStepper):
             "the host driver's second-order problem check is not ported "
             "yet: ROADMAP A7")
 
+    # -- dense output (carry_stages) ------------------------------------------
+
+    def error_estimate(self, state):
+        """The displacement and velocity error estimates of the last
+        accepted step, stacked ``(2m, B)``."""
+        h = state.h_previous
+        mm = self.s + (1 if self.fsal else 0)
+        rows = list(state.K)[:mm]
+        eu = weighted_sum(rows, self.E_u[:mm]) * h * h
+        ev = weighted_sum(rows, self.E_v[:mm]) * h
+        return torch.cat([eu, ev])
+
+    def _nystrom(self, K, P, Pp, h, y_old):
+        Q, Qp = (torch.einsum("snb,sp->npb", K,
+                              host_matrix(self.matrices, x, K))
+                 for x in (P, Pp))
+        return nystrom_coefficients(h, y_old, Q, Qp)
+
     def record_coefficients(self, state):
-        raise NotImplementedError("RKN dense output is not ported yet: "
-                                  "ROADMAP A4b")
+        """The free interpolant ``(2m, p, B)``: the Nystrom form of ``P``
+        and ``Pp``, or the quintic Hermite where the tableau has none."""
+        h = state.h_previous
+        if self.tab.P is not None and self.tab.Pp is not None:
+            return self._nystrom(state.K, self.tab.P, self.tab.Pp, h,
+                                 state.y_old)
+        return quintic_hermite_coefficients(h, state.y_old, state.y,
+                                            state.f_old, state.f)
 
     def dense_segments(self, state, interpolant=None):
-        raise NotImplementedError("RKN dense output is not ported yet: "
-                                  "ROADMAP A4b")
+        """As the ERK stepper's; an extra-stage interpolant (Fi5N's,
+        Mu5Nmb's) runs its extra stages in the Nystrom form."""
+        name = interpolant if interpolant is not None else self.interpolant
+        spec = (self.tab.interpolants or {}).get(name)
+        if spec is None:
+            return [(state.t_old, state.h_previous, state.y_old,
+                     self.record_coefficients(state))], 0
+        C_extra = np.atleast_1d(np.asarray(spec["C_extra"]))
+        A_extra = np.atleast_2d(np.asarray(spec["A_extra"]))
+        Ap_extra = np.atleast_2d(np.asarray(spec["Ap_extra"]))
+        h = state.h_previous
+        t_old, y_old = state.t_old, state.y_old
+        v_old = y_old[self.m:]
+        rows = list(state.K)
+        for j, cx in enumerate(C_extra):
+            sx = self.s + 1 + j
+            dt = float(cx) * h
+            du = weighted_sum(rows[:sx], A_extra[j, :sx]) * (h * h) \
+                + dt * v_old
+            dv = weighted_sum(rows[:sx], Ap_extra[j, :sx]) * h
+            rows.append(self.afun(t_old + dt, y_old + torch.cat([du, dv])))
+        Q = self._nystrom(torch.stack(rows), spec["P"], spec["Pp"], h, y_old)
+        return [(t_old, h, y_old, Q)], len(C_extra)
 
     # -- construction --------------------------------------------------------
 
@@ -92,7 +140,8 @@ class RKNStepper(ERKStepper):
             error_norm_old=torch.ones_like(t0),
             h_previous=torch.zeros_like(t0),
             max_factor=torch.full_like(t0, 10.0),
-            nfev=i0 + nfev, nsteps=i0, nfailed=i0)
+            nfev=i0 + nfev, nsteps=i0, nfailed=i0,
+            **self._dense_fields(t0, y0, f_full[self.m:], self.m))
 
     # -- RKN stage machinery -------------------------------------------------
 

@@ -328,7 +328,9 @@ def test_unported_parts_name_their_roadmap_item():
     params = IVPParams(t_bound=1.0, direction=1.0, rtol=1e-6, atol=1e-9,
                        max_step=np.inf)
     state = stepper.init(0.0, torch.tensor([[0.0], [1.0]]), params)
-    with pytest.raises(NotImplementedError, match="A4b"):
-        stepper.dense_segments(state)
+    # dense output is ported (tests/test_torch_dense.py): before the first
+    # step (kold = 0) the segment is the linear one, here zero
+    (t_a, h, ya, Q), = stepper.dense_segments(state)[0]
+    assert Q.shape == (2, 14, 1) and not Q.any()
     with pytest.raises(NotImplementedError, match="A3"):
         solve(osc, (0.0, 1.0), torch.tensor([0.5 + 1j, 0.0]), method=SWAG)

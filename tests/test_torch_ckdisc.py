@@ -101,6 +101,7 @@ _JAX_SCRIPT = textwrap.dedent("""
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import extensisq_tpu as X
+    DENSE_T = np.linspace(0.0, 10.0, 41)
 
     def sw(t):
         return jnp.where(jnp.sin(3.0 * t) >= 0.0, 1.0, -1.0)
@@ -126,6 +127,12 @@ _JAX_SCRIPT = textwrap.dedent("""
         res = run(jnp.asarray(inputs[name]))
         for f in ("y", "status", "nsteps", "nfev", "nfailed"):
             out[f"{name}/{f}"] = np.asarray(getattr(res, f))
+    # dense output: the f_disc members' free interpolant at t_eval
+    prob, span, kw = json.loads(sys.argv[2])["f_disc"]
+    res = jax.jit(lambda Y: X.solve_ensemble(
+        problems[prob], tuple(span), Y, method=X.CKdisc,
+        t_eval=jnp.asarray(DENSE_T), **kw))(jnp.asarray(inputs["f_disc"]))
+    out["dense/y_eval"] = np.asarray(res.y_eval)
     np.savez(sys.argv[3], **out)
 """)
 
@@ -143,8 +150,10 @@ def jax_results(tmp_path_factory):
                     json.dumps(spec), str(d / "out.npz")],
                    cwd=REPO, env=env, check=True, timeout=600)
     out = np.load(d / "out.npz")
-    return {k: {f: out[f"{k}/{f}"] for f in ("y",) + COUNTERS}
-            for k in CASES}
+    res = {k: {f: out[f"{k}/{f}"] for f in ("y",) + COUNTERS}
+           for k in CASES}
+    res["dense"] = {"y_eval": out["dense/y_eval"]}
+    return res
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -230,12 +239,22 @@ def test_stepper_counts_and_state():
     assert torch.all(s1.nfev == 1) and torch.all(s1.h_abs == 0.1)
 
 
-def test_dense_output_names_its_roadmap_item():
-    st = build_stepper(CKdisc, decay, 1, torch.float64)
-    for call in (lambda: st.record_coefficients(None),
-                 lambda: st.dense_segments(None)):
-        with pytest.raises(NotImplementedError, match="A4b"):
-            call()
+def test_dense_output_names_its_roadmap_item(jax_results):
+    """Dense output (ROADMAP A4b, ported): the f_disc members' order-aware
+    free interpolant at 41 times across both switches matches JAX's
+    within 1e-10, and the stepper's dense segment is its record
+    coefficients."""
+    prob, span, y0, kw = CASES["f_disc"]
+    te = np.linspace(0.0, 10.0, 41)
+    out = solve_ensemble(f_disc, span, torch.tensor(y0), method=CKdisc,
+                         t_eval=te, return_state=True, **kw)
+    assert np.max(np.abs(out.y_eval.numpy()
+                         - jax_results["dense"]["y_eval"])) <= 1e-10
+    st = build_stepper(CKdisc, f_disc, 2, torch.float64, carry_stages=True)
+    (t_a, h, ya, Q), = st.dense_segments(out.final_state)[0]
+    assert torch.equal(Q, st.record_coefficients(out.final_state))
+    assert torch.equal(t_a + h, out.t) and torch.equal(ya, out.final_state
+                                                       .y_old)
 
 
 # -- the tableaux -------------------------------------------------------------

@@ -174,14 +174,43 @@ def test_step_matches_jax_step():
                              - np.asarray(jstate.y))) < 1e-9
 
 
-@pytest.mark.parametrize("kw", [{"t_eval": [1.0]}, {"save_steps": True},
-                                {"events": lambda t, y: y[0]},
-                                {"pause_at": 1.0},
-                                {"nfev_stiff_detect": 100}])
+def _event_y0(t, y):
+    return y[0]
+
+
+# the options that the final-state driver refused before they were ported
+OPTIONS = [{"t_eval": np.linspace(0.0, 1.0, 7)}, {"save_steps": True},
+           {"events": _event_y0}, {"pause_at": 0.5},
+           {"nfev_stiff_detect": 100}]
+OUTPUTS = {"t_eval": ("y_eval",), "save_steps": ("ts", "ys"),
+           "events": ("t_events", "y_events", "n_events"), "pause_at": ("t",),
+           "nfev_stiff_detect": ("stiffness",)}
+
+
+@pytest.mark.parametrize("kw", OPTIONS)
 def test_unported_solve_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        solve_ensemble(vdp_torch, (0.0, 1.0), torch.tensor(_members(7, True)),
-                       **kw)
+    """Each option once refused (ROADMAP A4) now runs and matches the JAX
+    ``solve_ensemble``: counters and integer outputs identical, the
+    endpoints within 1e-10 and the per-step values within 1e-9 (NaN where
+    JAX has NaN), the gate of test_step_matches_jax_step: XLA's pow in
+    h_start moves the first step, and with it t and y, by ~1e-10)."""
+    y0 = _members(7, True)
+    port = solve_ensemble(vdp_torch, (0.0, 1.0), torch.tensor(y0),
+                          method=BS5, rtol=1e-6, atol=1e-9, max_steps=200,
+                          **kw)
+    ref = _jax_ensemble(vdp_jax, (0.0, 1.0), y0, X.BS5, rtol=1e-6, atol=1e-9,
+                        max_steps=200, **kw)
+    if "pause_at" in kw:
+        assert torch.all(port.status == 9)
+    _assert_same(port, ref)
+    for f in OUTPUTS[next(iter(kw))]:
+        a, b = getattr(port, f).numpy(), np.asarray(getattr(ref, f))
+        assert a.shape == b.shape, f
+        if a.dtype.kind == "i":
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        else:
+            np.testing.assert_allclose(a, b, rtol=0.0, atol=1e-9,
+                                       err_msg=f)
 
 
 def test_build_stepper_routes_ckdisc_and_refuses_unknown_families():

@@ -223,6 +223,42 @@ def test_cpu_wrapper_runs_plain_version():
     assert solve_fused_erk_grid.launches == before
 
 
+def test_fused_wrappers_take_the_jax_parameters():
+    """Every ``solve_fused_*`` of the port has the JAX wrapper's parameter
+    names in its order, ``interpret`` (Pallas' interpreter) left out."""
+    import inspect
+
+    import extensisq_tpu.ops as jops
+    import extensisq_tpu_torch.ops as pops
+    names = [n for n in dir(pops) if n.startswith("solve_fused_")]
+    assert len(names) == 12
+    for name in names:
+        want = [k for k in inspect.signature(getattr(jops, name)).parameters
+                if k != "interpret"]
+        assert list(inspect.signature(getattr(pops, name)).parameters) \
+            == want, name
+
+
+def test_grid_wrappers_accept_block_members():
+    """B4, B6 and B12 take the JAX keyword ``block_members`` (default 32)
+    and ignore it: the same result at 8 as without it."""
+    from extensisq_tpu_torch.ops import (FusedGridAcc, solve_fused_ckdisc_grid,
+                                         solve_fused_rkn_grid)
+    y0 = torch.tensor(FIS0[:2])
+    wave = FusedGridAcc(lambda t, u, v: torch.roll(u, 1, 0) - u, "", N)
+    calls = [
+        lambda **kw: solve_fused_erk_grid(RHS["fisher"], (0.0, 0.2), y0,
+                                          first_step=0.01, **kw),
+        lambda **kw: solve_fused_rkn_grid(wave, (0.0, 0.2),
+                                          torch.cat([y0, y0], 1), **kw),
+        lambda **kw: solve_fused_ckdisc_grid(RHS["fisher"], (0.0, 0.2), y0,
+                                             **kw),
+    ]
+    for call in calls:
+        for a, b in zip(call(block_members=8), call()):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("option", ["t_eval", "events", "params", "dense"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

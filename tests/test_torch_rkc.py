@@ -277,9 +277,11 @@ def test_registry_and_unported_parts():
     params = IVPParams(t_bound=1.0, direction=1.0, rtol=1e-4, atol=1e-7,
                        max_step=np.inf)
     state = stepper.init(0.0, torch.tensor(HEAT0[:1]).T.contiguous(), params)
-    for fn in (stepper.dense_segments, stepper.record_coefficients):
-        with pytest.raises(NotImplementedError, match="A4b"):
-            fn(state)
+    # dense output is ported (tests/test_torch_dense.py): the cubic
+    # Hermite over t - t_old, zero before the first step
+    (t_a, h, ya, Q), = stepper.dense_segments(state)[0]
+    assert Q.shape == (N, 3, 1) and torch.equal(
+        Q, stepper.record_coefficients(state)) and not Q.any()
     with pytest.raises(ValueError, match="complex"):
         solve(lambda t, y: -y, (0.0, 1.0), torch.tensor([1j]),
               method=SSV2stab)

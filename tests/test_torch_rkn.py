@@ -222,12 +222,13 @@ def test_mu5nmb_damping_is_an_option():
 
 
 def test_unported_parts_name_their_roadmap_item():
+    """The host driver's problem check is A7; dense output and the
+    stiffness check (A4b) run: tests/test_torch_dense.py and
+    tests/test_torch_events.py hold them against JAX."""
     st = build_stepper(P.Fi5N, kepler_torch, 4, torch.float64)
-    for call, item in ((lambda: st.validate_problem(None, 0.0, None), "A7"),
-                       (lambda: st.record_coefficients(None), "A4b"),
-                       (lambda: st.dense_segments(None), "A4b")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        solve_ensemble(kepler_torch, (0.0, 1.0), torch.tensor(kepler_y0(2)),
-                       method="Fi5N", nfev_stiff_detect=100)
+    with pytest.raises(NotImplementedError, match="A7"):
+        st.validate_problem(None, 0.0, None)
+    out = solve_ensemble(kepler_torch, (0.0, 1.0), torch.tensor(kepler_y0(2)),
+                         method="Fi5N", nfev_stiff_detect=100, save_steps=True,
+                         max_steps=100)
+    assert out.stiffness.shape == (2,) and out.ys.shape == (2, 100, 4)
