@@ -48,7 +48,16 @@ Drives each of the port's paths once:
   terminal event that stops the members starting above it, and four
   ``solve_windowed`` windows, bit for bit the single shot; 64 sampled
   members rerun on the CPU; and one 64-member ``t_eval`` run of Fi5N,
-  Kv3I, SWAG, SSV2stab and CKdisc each, held against the CPU.
+  Kv3I, SWAG, SSV2stab and CKdisc each, held against the CPU;
+* banded ESDIRK and complex states (after the trajectory phase): config
+  8, Medazko at n = 512, 1,024 and 2,048 with KC4I (t in [0, 20], rtol
+  1e-3, ``jac_sparsity``) through ``solve`` with ``bands=True`` (block
+  cyclic reduction) and dense (cuSOLVER's LU), equal steps at 512 and
+  within 1 beyond, endpoints within 1e-5, both warm walls printed; a
+  16-member banded ensemble at n = 512 against its 16 single solves,
+  ``bands="rcm"`` on a relabelled chain against the dense path, a member
+  rerun on the CPU; 64-member complex128 BS5, TRBDF2 (a callable complex
+  Jacobian) and SWAG ensembles, each against the CPU.
 
 Before that, it builds every kernel from the sources in this checkout
 (one nvcc per variant, all started together) and holds each against its
@@ -3180,6 +3189,213 @@ def trajectory_path(y64, ens, final_ms):
           f"vdp{N_MEMBERS} line {line_s:.1f} s)")
 
 
+# the banded and complex phase: config 8 (Medazko, banded against dense
+# ESDIRK linear algebra), a banded ensemble, RCM, and complex states
+CONFIG8_N = (256, 512, 1024)          # N of Medazko: n = 2N states
+CONFIG8_SPAN = (0.0, 20.0)
+CONFIG8_TOL = dict(rtol=1e-3, atol=1e-6, max_steps=400)
+CONFIG8_DY_GATE = 1e-5                # banded vs dense endpoint (config 8)
+BAND_ENS = 16                         # members of the banded ensemble
+BAND_ENS_N = 256
+# the ensemble against its 16 single solves: t in [0, 1], 19 of config
+# 8's 58 steps at n = 512 (the whole span: ~120 s of singles, run CJ)
+BAND_ENS_SPAN = (0.0, 1.0)
+CPLX_MEMBERS = 64
+CPLX_TOL = dict(rtol=1e-6, atol=1e-9)
+CPLX_TOL_IMPLICIT = dict(rtol=1e-4, atol=1e-7)   # TRBDF2: ~49 steps
+CPLX_GATE = 1e-10                     # card vs CPU, relative to max(1, |y|)
+CPLX_A = np.array([[-1.0 + 2.0j, 0.5], [0.1j, -3.0]])
+
+
+def _cplx_nonlinear(t, y):
+    return torch.stack([(-1.0 + 3.0j) * y[0] + 0.3j * y[1] ** 2,
+                        -(1 + 0.5j) * y[1] + torch.sin(y[0])])
+
+
+def _cplx_linear(t, y):
+    return torch.as_tensor(CPLX_A, device=y.device) @ y
+
+
+def _relabelled_chain(n=60, seed=3):
+    """The irregular pattern of the JAX package's RCM test: a diffusion
+    chain with its states randomly relabelled (natural bandwidths ~n)."""
+    rng = np.random.RandomState(seed)
+    sig = np.asarray(rng.permutation(n))
+    pos = np.argsort(sig)
+    lam = 1.0 + np.linspace(0.0, 1.0, n)
+    Sc = np.abs(np.subtract.outer(np.arange(n), np.arange(n))) <= 1
+
+    def rhs(t, y):
+        w = y[torch.as_tensor(sig, device=y.device)]
+        left = torch.cat([w[:1], w[:-1]])
+        right = torch.cat([w[1:], w[-1:]])
+        gw = (30.0 * (left - 2.0 * w + right)
+              - torch.as_tensor(lam, device=y.device)[:, None] * w)
+        return gw[torch.as_tensor(pos, device=y.device)]
+
+    return rhs, Sc[np.ix_(pos, pos)].astype(int), \
+        1.0 + 0.1 * np.sin(np.arange(n))
+
+
+def _counts(sol):
+    st = sol.final_state
+    out = {f: getattr(sol, f).reshape(-1).cpu() for f in
+           ("status", "nsteps", "nfev", "nfailed")}
+    if st is not None:
+        out.update(njev=st.njev.cpu(), nlu=st.nlu.cpu())
+    return out
+
+
+def config8_lines():
+    """Config 8: Medazko at n = 512, 1,024 and 2,048 through ``solve``
+    with KC4I and its pattern, banded (``bands=True``, block cyclic
+    reduction) and dense (cuSOLVER's LU); each warm wall time printed."""
+    from extensisq_tpu_torch import KC4I, solve
+    from extensisq_tpu_torch.problems import medazko
+    times = {}
+    for N in CONFIG8_N:
+        P = medazko(N)
+        n = 2 * N
+        y0 = torch.tensor(P.y0, device="cuda")
+
+        def run(span=CONFIG8_SPAN, **kw):
+            return solve(P.rhs, span, y0, method=KC4I,
+                         jac_sparsity=P.jac_sparsity, return_state=True,
+                         **CONFIG8_TOL, **kw)
+        out = {}
+        for label, kw in (("banded", dict(bands=True)), ("dense", {})):
+            if N == CONFIG8_N[0]:
+                run((0.0, 0.5), **kw)                  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[label] = run(**kw)
+            torch.cuda.synchronize()
+            times[(n, label)] = time.perf_counter() - t0
+        rb, rd = out["banded"], out["dense"]
+        cb, cd = _counts(rb), _counts(rd)
+        ds = abs(int(rb.nsteps) - int(rd.nsteps))
+        dy = (rb.y - rd.y).abs().max().item()
+        print(f"config 8 Medazko n={n} KC4I t in {CONFIG8_SPAN}: banded "
+              f"{times[(n, 'banded')]:.3f} s, dense "
+              f"{times[(n, 'dense')]:.3f} s (dense/banded "
+              f"{times[(n, 'dense')] / times[(n, 'banded')]:.2f}x); "
+              f"banded {({k: int(v) for k, v in cb.items()})}, dense "
+              f"{({k: int(v) for k, v in cd.items()})}; endpoint |dy| "
+              f"{dy:.3e} (gate {CONFIG8_DY_GATE:.0e})")
+        check(int(rb.status) == 1 and int(rd.status) == 1,
+              f"config 8 n={n}: status")
+        check(ds <= (0 if n <= 512 else 1), f"config 8 n={n}: step drift "
+              f"{ds}")
+        check(dy < CONFIG8_DY_GATE, f"config 8 n={n}: endpoint {dy}")
+    return times
+
+
+def banded_ensemble_and_cpu():
+    """A 16-member banded ensemble at n = 512 (y0 scaled per member)
+    against 16 single solves on t in [0, 1]; RCM on an irregular pattern
+    against the dense path; one member rerun on the CPU."""
+    from extensisq_tpu_torch import KC4I, TRBDF2, solve, solve_ensemble
+    from extensisq_tpu_torch.problems import medazko
+    P = medazko(BAND_ENS_N)
+    scales = np.linspace(0.8, 1.2, BAND_ENS)
+    Y0 = torch.tensor(scales[:, None] * P.y0[None], device="cuda")
+    kw = dict(method=KC4I, bands=True, jac_sparsity=P.jac_sparsity,
+              **CONFIG8_TOL)
+    t0 = time.perf_counter()
+    ens = solve_ensemble(P.rhs, BAND_ENS_SPAN, Y0, **kw)
+    torch.cuda.synchronize()
+    ens_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = [solve(P.rhs, BAND_ENS_SPAN, Y0[i], **kw)
+               for i in range(BAND_ENS)]
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    same = all(int(getattr(one, f)) == int(getattr(ens, f)[i])
+               for i, one in enumerate(singles)
+               for f in ("status", "nsteps", "nfev", "nfailed"))
+    dy = max((one.y - ens.y[i]).abs().max().item()
+             for i, one in enumerate(singles))
+    print(f"banded ensemble {BAND_ENS} x n={2 * BAND_ENS_N} KC4I t in "
+          f"{BAND_ENS_SPAN}: "
+          f"{ens_s:.3f} s, {BAND_ENS} single solves {one_s:.3f} s; counters "
+          f"equal {same}, max |dy| {dy:.3e} (gate {CONFIG8_DY_GATE:.0e}), "
+          f"nsteps {ens.nsteps.min().item()}-{ens.nsteps.max().item()}")
+    check(bool((ens.status == 1).all()), "banded ensemble: status")
+    check(same and dy < CONFIG8_DY_GATE,
+          "banded ensemble differs from its single solves")
+
+    rhs, S, y0 = _relabelled_chain()
+    y0 = torch.tensor(y0, device="cuda")
+    runs = [solve(rhs, (0.0, 0.5), y0, method=TRBDF2, return_state=True,
+                  **opt) for opt in (dict(bands="rcm", jac_sparsity=S), {})]
+    cr, cd = (_counts(r) for r in runs)
+    dy = (runs[0].y - runs[1].y).abs().max().item()
+    same = all(torch.equal(cr[f], cd[f]) for f in cr)
+    print(f"bands='rcm' on the relabelled chain (n = 60): counters equal "
+          f"the dense path's {same} ({({k: int(v) for k, v in cr.items()})})"
+          f", |dy| {dy:.3e}")
+    check(int(runs[0].status) == 1 and same and dy < 1e-9,
+          "bands='rcm' differs from the dense path")
+
+    i = BAND_ENS // 3
+    cpu = solve(P.rhs, BAND_ENS_SPAN, Y0[i].cpu(), **kw)
+    ds = abs(int(cpu.nsteps) - int(ens.nsteps[i]))
+    dy = (cpu.y - ens.y[i].cpu()).abs().max().item()
+    print(f"banded member {i} on the CPU: nsteps {int(cpu.nsteps)} vs card "
+          f"{int(ens.nsteps[i])}, nfev {int(cpu.nfev)} vs "
+          f"{int(ens.nfev[i])}, |dy| {dy:.3e} (gates: steps within 1, "
+          f"{CONFIG8_DY_GATE:.0e})")
+    check(int(cpu.status) == 1 and ds <= 1 and dy < CONFIG8_DY_GATE,
+          "banded member: card and CPU disagree")
+    return ens_s, one_s
+
+
+def complex_runs():
+    """BS5, TRBDF2 with a callable complex Jacobian, and SWAG on a
+    64-member complex128 ensemble, each rerun on the CPU."""
+    from extensisq_tpu_torch import solve_ensemble
+    rng = np.random.default_rng(17)
+    y0 = torch.tensor((rng.standard_normal((CPLX_MEMBERS, 2))
+                       + 1j * rng.standard_normal((CPLX_MEMBERS, 2))) * 0.5,
+                      device="cuda")
+    jac = (lambda t, y: torch.as_tensor(CPLX_A, device=y.device))  # noqa
+    runs = [("BS5", _cplx_nonlinear, CPLX_TOL),
+            ("TRBDF2", _cplx_linear, dict(CPLX_TOL_IMPLICIT, jac=jac)),
+            ("SWAG", _cplx_nonlinear, dict(CPLX_TOL, k_max=6))]
+    for method, fun, kw in runs:
+        def run(y=y0):
+            return solve_ensemble(fun, (0.0, 2.0), y, method=method, **kw)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu = run(y0.cpu())
+        same = all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+                   for f in ("status", "nsteps", "nfev", "nfailed"))
+        d = _rel(card.y.cpu(), cpu.y)
+        print(f"complex128 {method} {CPLX_MEMBERS} members: {ms:.1f} ms "
+              f"wall, mean nsteps {card.nsteps.double().mean():.1f}; card vs "
+              f"CPU counters equal {same}, max |dy| relative {d:.3e} (gate "
+              f"{CPLX_GATE:.0e})")
+        check(card.y.dtype == torch.complex128
+              and bool((card.status == 1).all()), f"complex {method}: status")
+        check(same and d <= CPLX_GATE, f"complex {method}: card and CPU "
+              "disagree")
+
+
+def banded_complex_path(smi):
+    """Config 8 on the card, a banded ensemble and RCM, and complex
+    states; prints the phase's time."""
+    start = time.perf_counter()
+    print(f"config 8 on {smi.splitlines()[0]}")
+    config8_lines()
+    banded_ensemble_and_cpu()
+    complex_runs()
+    print(f"banded and complex phase: {time.perf_counter() - start:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3373,6 +3589,9 @@ def main():
 
     # 4b. the trajectory options of the f64 driver on the main path's line
     trajectory_path(y64, ens, times["f64 solve_ensemble"])
+
+    # 4c. banded and sparse ESDIRK Jacobians (config 8) and complex states
+    banded_complex_path(smi)
 
     # 5. the implicit path: kernel checks, the bench line, times
     esdirk = esdirk_path()

@@ -10,9 +10,11 @@ SSV2stab (Runge-Kutta-Chebyshev) for semi-discretized PDEs:
   trajectory: ``save_steps``, ``t_eval``, events, the stiffness
   diagnosis), in the dtype of ``y0``; :func:`solve_windowed` — the same
   over warm-started windows, bit for bit;
-  ESDIRK methods take ``jac=``, a mass matrix ``M=`` (index-1 DAEs) and
-  ``jac_each_step=``; SWAG takes ``k_max=``; SSV2stab ``rho_jac=`` and
-  ``const_jac=``;
+  ESDIRK methods take ``jac=``, a mass matrix ``M=`` (index-1 DAEs),
+  ``jac_each_step=``, ``jac_sparsity=`` and ``bands=`` (banded Newton
+  linear algebra by cyclic reduction); SWAG takes ``k_max=``; SSV2stab
+  ``rho_jac=`` and ``const_jac=``; ``y0`` may be complex (not for
+  SSV2stab);
 * :func:`ops.solve_fused_erk`, :func:`ops.solve_fused_esdirk` and
   :func:`ops.solve_fused_adams` — the whole adaptive integration in one
   CUDA kernel launch (float32, optionally compensated);
@@ -28,7 +30,9 @@ SSV2stab (Runge-Kutta-Chebyshev) for semi-discretized PDEs:
   :class:`ops.FusedGridRHS`, e.g. from :mod:`parallel`);
 * the explicit RK (CKdisc among them), RKN and ESDIRK methods as tableau
   data, SWAG, and
-  :func:`tableau_from_arrays` for custom explicit tableaux.
+  :func:`tableau_from_arrays` for custom explicit tableaux;
+* :mod:`problems`: the JAX package's problem library with rows-first
+  right-hand sides.
 
 Right-hand sides are row-stacked: ``fun(t, y)`` takes ``y`` of shape
 ``(n, B)`` with members on the last axis and ``t`` of shape ``(B,)``.
@@ -37,12 +41,13 @@ runs on the device of a tensor input (a CPU tensor asks for the CPU) and
 on the card for a numpy array or a list.  The package imports torch and
 numpy, never jax.
 """
-from . import ops, parallel  # noqa: F401
+from . import ops, parallel, problems  # noqa: F401
 from .methods import (  # noqa: F401
     BS5, Ts5, CK5, CKdisc, Me4, Pr7, Pr8, Pr9, CFMR7osc,
     Fi4N, Fi5N, Mu5Nmb, MR6NN,
     TRBDF2, TRX2, HS2I, HS2Ia, KC3I, KC4I, KC4Ia, Kv3I, SWAG, SSV2stab,
-    EXPLICIT_METHODS, RKN_METHODS, ESDIRK_METHODS, METHODS_BY_NAME)
+    EXPLICIT_METHODS, RKN_METHODS, ESDIRK_METHODS, ALL_METHODS,
+    METHODS_BY_NAME)
 from .ops import (FusedAcc, FusedGridAcc, FusedGridRHS,  # noqa: F401
                   FusedRHS, FusedRho, solve_fused_adams,
                   solve_fused_adams_grid, solve_fused_ckdisc,
@@ -60,7 +65,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "solve", "solve_ensemble", "solve_windowed", "Solution", "ops",
-    "parallel", "FusedRHS",
+    "parallel", "problems", "FusedRHS",
     "FusedGridRHS", "FusedRho", "FusedAcc", "FusedGridAcc",
     "solve_fused_erk", "solve_fused_esdirk", "solve_fused_adams",
     "solve_fused_rkc", "solve_fused_rkc_ensemble", "solve_fused_rkn",
@@ -71,6 +76,6 @@ __all__ = [
     "BS5", "Ts5", "CK5", "CKdisc", "Me4", "Pr7", "Pr8", "Pr9", "CFMR7osc",
     "Fi4N", "Fi5N", "Mu5Nmb", "MR6NN", "RKN_METHODS",
     "TRBDF2", "TRX2", "HS2I", "HS2Ia", "KC3I", "KC4I", "KC4Ia", "Kv3I",
-    "SWAG", "SSV2stab", "EXPLICIT_METHODS", "ESDIRK_METHODS",
+    "SWAG", "SSV2stab", "EXPLICIT_METHODS", "ESDIRK_METHODS", "ALL_METHODS",
     "METHODS_BY_NAME",
 ]

@@ -5,8 +5,9 @@ extensisq's ``h_start``, a translation of SLATEC dstrt.f).  The
 data-dependent branches become ``torch.where`` masks, one value per
 member; the Lipschitz sampling loop has the static trip count
 ``min(n + 1, 3)``.  Costs ``1 + min(n + 1, 3)`` RHS evaluations, like
-the JAX version.  Real states only.  The DAE short cuts ``J`` (a
-Jacobian bound in place of the Lipschitz probes), ``T`` (a df/dt
+the JAX version.  Complex states match signs on the real and the
+imaginary parts apart, as in the JAX version.  The DAE short cuts ``J``
+(a Jacobian bound in place of the Lipschitz probes), ``T`` (a df/dt
 estimate in place of the time probe) and ``returnT`` (return that
 estimate) serve the ESDIRK stepper's consistent initial conditions.
 """
@@ -17,6 +18,17 @@ from .numerics import dtype_constants, norm
 
 def _copysign_like(mag, sign_src):
     return torch.abs(mag) * torch.where(sign_src >= 0, 1.0, -1.0)
+
+
+def _match_signs(dy, spy):
+    """``dy`` with the signs of ``spy`` where ``spy`` is nonzero, part by
+    part for complex states."""
+    if not dy.is_complex():
+        return torch.where(spy != 0, _copysign_like(dy, spy), dy)
+    nz = spy != 0
+    re = torch.where(nz, _copysign_like(dy.real, spy.real), dy.real)
+    im = torch.where(nz, _copysign_like(dy.imag, spy.imag), dy.imag)
+    return torch.complex(re, im)
 
 
 def h_start(df, a, b, y, yprime, morder, rtol, atol, J=None, T=None,
@@ -62,11 +74,11 @@ def h_start(df, a, b, y, yprime, morder, rtol, atol, J=None, T=None,
         dfdub, fbnd = _lipschitz(df, a, da, dx, y, yprime, sf, fbnd, big,
                                  relper)
     else:
-        dfdub = torch.sqrt((J * J).sum((-2, -1)))
+        dfdub = torch.sqrt((J * J.conj()).real.sum((-2, -1)))
 
     # second-derivative bound and tolerance midpoint
     ydpb = dfdxb + dfdub * fbnd
-    tolexp = torch.log10(etol) * torch.ones_like(y)
+    tolexp = torch.log10(etol) * torch.ones_like(y.real)
     tolsum = tolexp.sum(0)
     tolmin = torch.clamp(tolexp.amin(0), max=big)
     tolp = 10.0 ** (0.5 * (tolsum / neq + tolmin) / (morder + 1))
@@ -126,6 +138,6 @@ def _lipschitz(df, a, da, dx, y, yprime, sf, fbnd, big, relper):
         else:
             dy = torch.where(pv != 0, pv, delf.expand_as(pv))
         spy = torch.where(spy != 0, spy, yp)
-        yp = torch.where(spy != 0, _copysign_like(dy, spy), dy)
+        yp = _match_signs(dy, spy)
         delf = norm(yp)
     return dfdub, fbnd

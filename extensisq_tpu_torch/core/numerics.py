@@ -13,8 +13,16 @@ import torch
 def norm(x):
     """RMS norm over the state axis (axis 0), one value per member:
     ``(n, B) -> (B,)`` and ``(n,) -> ()``, as in extensisq ``common.py``.
-    Real states only; complex states are ROADMAP A3."""
+    Complex-safe: ``sqrt(sum(real(x conj(x))) / n)``."""
+    if x.is_complex():
+        return torch.sqrt((x * x.conj()).real.sum(0) / x.shape[0])
     return torch.sqrt((x * x).sum(0) / x.shape[0])
+
+
+def real_dtype(dtype):
+    """The real dtype of a state dtype (float64 for complex128): the
+    dtype of times, step sizes and norms."""
+    return dtype.to_real() if dtype.is_complex else dtype
 
 
 def over(c, x):
@@ -24,7 +32,8 @@ def over(c, x):
 
 
 def calculate_scale(atol, rtol, y, y_new, _mean=False):
-    """Error-scale array ``atol + rtol * max(|y|, |y_new|)``.
+    """Error-scale array ``atol + rtol * max(|y|, |y_new|)`` (real, also
+    for complex states).
 
     The ``_mean`` variant (average of magnitudes) is what the Adams
     solver uses.

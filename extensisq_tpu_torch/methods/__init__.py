@@ -17,8 +17,10 @@ EXPLICIT_METHODS = [BS5, Ts5, CK5, Me4, Pr7, Pr8, Pr9, CFMR7osc]
 RKN_METHODS = [Fi4N, Fi5N, Mu5Nmb, MR6NN]
 ESDIRK_METHODS = [TRBDF2, TRX2, KC3I, KC4I, KC4Ia, Kv3I]
 
-METHODS_BY_NAME = {m.name: m for m in EXPLICIT_METHODS + [CKdisc]
-                   + RKN_METHODS + ESDIRK_METHODS + [SWAG, SSV2stab]}
+ALL_METHODS = (EXPLICIT_METHODS + [CKdisc] + RKN_METHODS + ESDIRK_METHODS
+               + [SWAG, SSV2stab])
+
+METHODS_BY_NAME = {m.name: m for m in ALL_METHODS}
 METHODS_BY_NAME["HS2I"] = HS2I
 METHODS_BY_NAME["HS2Ia"] = HS2Ia
 
@@ -26,6 +28,6 @@ __all__ = [
     "BS5", "Ts5", "CK5", "CKdisc", "Me4", "Pr7", "Pr8", "Pr9", "CFMR7osc",
     "Fi4N", "Fi5N", "Mu5Nmb", "MR6NN", "RKN_METHODS",
     "TRBDF2", "TRX2", "HS2I", "HS2Ia", "KC3I", "KC4I", "KC4Ia", "Kv3I",
-    "SWAG", "SSV2stab", "EXPLICIT_METHODS", "ESDIRK_METHODS",
+    "SWAG", "SSV2stab", "EXPLICIT_METHODS", "ESDIRK_METHODS", "ALL_METHODS",
     "METHODS_BY_NAME",
 ]

@@ -15,9 +15,12 @@ the last axis and ``t`` shape ``(B,)``, e.g.
 code is the RHS of the fused kernel's plain version.  ``solve`` calls it
 with ``B = 1``.  An event function ``e(t, y)`` follows the same contract
 and returns ``(B,)``; its ``terminal`` and ``direction`` attributes are
-read as in scipy.  ESDIRK methods take the stepper options ``jac``, ``M``
-and ``jac_each_step`` as keyword arguments, SWAG takes ``k_max``, SSV2stab
-``rho_jac`` and ``const_jac`` (see ``steppers.build_stepper``).
+read as in scipy.  ESDIRK methods take the stepper options ``jac``, ``M``,
+``jac_each_step``, ``jac_sparsity`` and ``bands`` as keyword arguments,
+SWAG takes ``k_max``, SSV2stab ``rho_jac`` and ``const_jac`` (see
+``steppers.build_stepper``).  ``y0`` may be complex in every family but
+SSV2stab (times, steps and counters stay real; the stiffness check is
+off), as in the JAX driver.
 
 Trajectory options, as in the JAX driver: ``save_steps`` (every accepted
 step's end), ``t_eval`` (the steps' free interpolants at given times),
@@ -382,12 +385,8 @@ def _integrate(fun, t_span, y, method, rtol, atol, max_step, first_step,
     return sol
 
 
-def _as_float_tensor(y0, method):
+def _as_float_tensor(y0):
     y0 = as_input(y0)
-    if y0.is_complex() and method.family != "rkc":
-        # SSV2stab refuses complex states itself, as in the JAX package
-        raise NotImplementedError("complex states are not ported yet: "
-                                  "ROADMAP A3")
     if not (y0.is_floating_point() or y0.is_complex()):
         y0 = y0.to(torch.float64)
     return y0
@@ -426,7 +425,7 @@ def solve(fun, t_span, y0, method=None, rtol=1e-3, atol=1e-6,
     it step for step.
     """
     method = _resolve_method(method)
-    y0 = _as_float_tensor(y0, method).reshape(-1)
+    y0 = _as_float_tensor(y0).reshape(-1)
     if args is not None:
         base = fun
         fun = lambda t, y: base(t, y, *args)                 # noqa: E731
@@ -469,7 +468,7 @@ def solve_ensemble(fun, t_span, y0_batch, params_batch=None, method=None,
     shapes of the JAX ``vmap`` of ``solve``).
     """
     method = _resolve_method(method)
-    y0_batch = _as_float_tensor(y0_batch, method)
+    y0_batch = _as_float_tensor(y0_batch)
     if y0_batch.ndim != 2:
         raise ValueError("y0_batch must be (B, n)")
     extra = tuple(args or ())

@@ -11,7 +11,10 @@ def build_stepper(method, fun, n, dtype, **options):
     (the controller preset or 4-tuple) and, for ESDIRK methods, ``jac``
     (a callable returning the rows-first ``(n, n, B)`` Jacobian, or a
     constant ``(n, n)`` array for linear problems), ``M`` (a constant
-    mass matrix, ``(n,)`` diagonal or ``(n, n)``) and ``jac_each_step``.
+    mass matrix, ``(n,)`` diagonal or ``(n, n)``), ``jac_each_step``,
+    ``jac_sparsity`` (a 0/1 pattern: the Jacobian from one JVP per column
+    group) and ``bands`` (``(kl, ku)``, ``True`` or ``"rcm"``: the Newton
+    matrices factored by block cyclic reduction, ``core/banded.py``).
     The explicit families (ERK, RKN, CKdisc) take ``carry_stages``, which
     keeps the last accepted step's start and stages for dense output,
     events and the stiffness check (``solve`` sets it when they are
@@ -42,18 +45,15 @@ def build_stepper(method, fun, n, dtype, **options):
                           carry_stages=merged.get("carry_stages", False),
                           interpolant=merged.get("interpolant"))
     if family == "esdirk":
-        for name in ("bands", "jac_sparsity"):
-            if merged.get(name) is not None:
-                raise NotImplementedError(
-                    f"ESDIRK {name}=...: banded and sparse Jacobians are not "
-                    "ported yet: ROADMAP item A8b")
         from .esdirk import ESDIRKStepper
         return ESDIRKStepper(fun, method.tableau, n, dtype,
                              sc_params=merged.get("sc_params"),
                              jac=merged.get("jac"), M=merged.get("M"),
                              jac_each_step=merged.get("jac_each_step",
                                                       False),
-                             interpolant=merged.get("interpolant"))
+                             interpolant=merged.get("interpolant"),
+                             bands=merged.get("bands"),
+                             jac_sparsity=merged.get("jac_sparsity"))
     if family == "adams":
         from .adams import AdamsStepper
         return AdamsStepper(fun, n, dtype,

@@ -13,7 +13,8 @@ sums that the JAX stepper unrolls (``_cumprod``, ``_cumsum_rev``) keep
 its sequential order, so float64 runs give the JAX counts.
 
 Dense output (``record_coefficients``, ``dense_segments``) is
-``adams_dense.py``; complex states come with ROADMAP A3.
+``adams_dense.py``.  Complex states keep ``phi`` and the state complex
+and the coefficients, times and weights real.
 """
 from typing import Any, NamedTuple
 
@@ -22,7 +23,8 @@ import torch
 
 from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, TOL_TOO_TIGHT
 from ..core.hstart import h_start
-from ..core.numerics import calculate_scale, norm, dtype_constants
+from ..core.numerics import (calculate_scale, norm, dtype_constants,
+                             real_dtype)
 from .erk import select
 
 K_MAX_LIMIT = 12
@@ -153,8 +155,9 @@ class AdamsStepper:
     """init/step functions of SWAG for one right-hand side.
 
     ``fun(t, y)`` takes ``t`` of shape ``(B,)`` and ``y`` of shape
-    ``(n, B)`` and returns ``(n, B)``.  ``dtype`` is float64 for the
-    driver and float32 for the fused kernel's starting state.
+    ``(n, B)`` and returns ``(n, B)``.  ``dtype`` is the state's: float64
+    or complex128 for the driver, float32 for the fused kernel's starting
+    state.
     """
     family = "adams"
 
@@ -162,7 +165,7 @@ class AdamsStepper:
         self.fun = fun
         self.n = n
         self.dtype = dtype
-        self.real_dtype = dtype
+        self.real_dtype = real_dtype(dtype)
         consts = dtype_constants(dtype)
         small = consts["uround"]
         self.twou = 2.0 * small
@@ -198,9 +201,6 @@ class AdamsStepper:
         """Initial state for ``y0`` of shape ``(n, B)`` at time ``t0``
         (a float or a ``(B,)`` tensor): 1 RHS evaluation + h_start unless
         ``first_step`` is given."""
-        if y0.is_complex():
-            raise NotImplementedError("complex states are not ported yet: "
-                                      "ROADMAP A3")
         B = y0.shape[1]
         dev = y0.device
         rd = self.real_dtype

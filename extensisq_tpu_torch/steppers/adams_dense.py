@@ -96,7 +96,8 @@ def dintp_coefficients(stepper, state):
     # yout = h phi[:kold+1]^T (dG - gdif sigma) + sigma (y - y_old) + y_old
     phi_m = torch.where(used[:, None, :], state.phi[:km + 1], 0.0)
     terms = dG - gdif[:, None, :] * sigma[None]
-    Q_full = state.h_previous * torch.einsum("snb,sdb->ndb", phi_m, terms)
+    Q_full = state.h_previous * torch.einsum("snb,sdb->ndb", phi_m,
+                                             terms.to(phi_m.dtype))
     dy = state.y - state.y_old
     Q_full = Q_full + dy[:, None, :] * sigma[None]
     Q = Q_full[:, 1:]                # the constant term is zero

@@ -24,7 +24,8 @@ from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW
 from ..core.hstart import h_start
 from ..core.interpolate import (hermite_cubic_coefficients,
                                 stage_coefficients)
-from ..core.numerics import calculate_scale, dtype_constants, norm, over
+from ..core.numerics import (calculate_scale, dtype_constants, norm, over,
+                             real_dtype)
 from .erk import ERKStepper, weighted_sum
 
 SAFETY = 0.9
@@ -84,7 +85,7 @@ class CKdiscStepper:
         1 RHS evaluation, plus Watts' start (``1 + min(n + 1, 3)``) unless
         ``first_step`` is given."""
         B = y0.shape[1]
-        t0 = torch.as_tensor(t0, dtype=self.dtype,
+        t0 = torch.as_tensor(t0, dtype=real_dtype(self.dtype),
                              device=y0.device).expand(B).clone()
         f0 = self.fun(t0, y0)
         nfev = 1
@@ -98,7 +99,7 @@ class CKdiscStepper:
         else:
             h_abs = torch.full_like(t0, float(first_step))
         i0 = torch.zeros(B, dtype=torch.int32, device=y0.device)
-        pair = torch.ones(2, B, dtype=self.dtype, device=y0.device)
+        pair = torch.ones(2, B, dtype=t0.dtype, device=y0.device)
         dense = {}
         if self.carry_stages:
             dense = dict(t_old=t0, y_old=y0,
@@ -106,7 +107,7 @@ class CKdiscStepper:
                                         + tuple(y0.shape)))
         return CKState(
             t=t0, y=y0, f=f0, h_abs=h_abs, status=i0 + RUNNING,
-            twiddle=pair * torch.tensor([[1.5], [1.1]], dtype=self.dtype,
+            twiddle=pair * torch.tensor([[1.5], [1.1]], dtype=t0.dtype,
                                         device=y0.device),
             quit_f=pair * 100.0, order_accepted=i0 + 4,
             h_previous=torch.zeros_like(t0), nfev=i0 + nfev, nsteps=i0,

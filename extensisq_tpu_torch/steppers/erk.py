@@ -29,7 +29,8 @@ from ..core.controller import (resolve_controller, erk_accept_update,
 from ..core.hstart import h_start
 from ..core.interpolate import (hermite_cubic_coefficients,
                                 stage_coefficients)
-from ..core.numerics import calculate_scale, norm, dtype_constants
+from ..core.numerics import (calculate_scale, norm, dtype_constants,
+                             real_dtype)
 
 
 class ERKState(NamedTuple):
@@ -77,21 +78,30 @@ def select(mask, a, b):
     """Field-wise ``torch.where(mask, a, b)`` over two NamedTuples (or
     tuples) of tensors; ``mask`` is per member, ``(B,)``.  Fields have the
     member axis last, except those a NamedTuple type names in its
-    ``members_first`` (batched matrices ``(B, n, n)``), where the mask
-    goes on the first axis.  A field that is ``None`` in both stays
-    ``None``."""
+    ``members_first`` (batched matrices ``(B, n, n)``, or tuples of
+    them), where the mask goes on the first axis.  A field that is
+    ``None`` in both stays ``None``."""
     first = getattr(type(a), "members_first", ())
     names = getattr(a, "_fields", ())
     vals = []
     for i, (x, y) in enumerate(zip(a, b)):
         if x is None:
             vals.append(None)
-            continue
-        m = mask
-        if names and names[i] in first:
-            m = mask.reshape(mask.shape + (1,) * (x.ndim - 1))
-        vals.append(torch.where(m, x, y))
+        elif names and names[i] in first:
+            vals.append(where_first(mask, x, y))
+        else:
+            vals.append(torch.where(mask, x, y))
     return type(a)(*vals) if names else tuple(vals)
+
+
+def where_first(mask, a, b):
+    """``torch.where(mask, a, b)`` with the ``(B,)`` mask on the first
+    axis of ``a`` and ``b``, or of each tensor of two nested tuples of
+    the same structure (the levels of a banded factor)."""
+    if isinstance(a, tuple):
+        return tuple(where_first(mask, x, y) for x, y in zip(a, b))
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)),
+                       a, b)
 
 
 def weighted_sum(K_rows, weights):
@@ -158,7 +168,7 @@ class ERKStepper:
         (a float or a ``(B,)`` tensor): 1 RHS eval + h_start unless
         ``first_step`` is given."""
         B = y0.shape[1]
-        t0 = torch.as_tensor(t0, dtype=self.dtype,
+        t0 = torch.as_tensor(t0, dtype=real_dtype(self.dtype),
                              device=y0.device).expand(B).clone()
         f0 = self.fun(t0, y0)
         nfev = 1

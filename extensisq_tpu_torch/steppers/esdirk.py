@@ -1,7 +1,7 @@
 """ESDIRK implicit stepper with index-1 DAE (mass matrix) support, over a
 batch of members.
 
-Counterpart of ``extensisq_tpu/steppers/esdirk.py`` (the dense path).
+Counterpart of ``extensisq_tpu/steppers/esdirk.py``.
 State is rows-first like the explicit stepper's: ``y`` is ``(n, B)`` with
 members last, every per-member scalar is ``(B,)``, and the stage rows
 ``K`` are ``(s, n, B)``.  The Jacobian, its LU factors and pivots are
@@ -19,20 +19,31 @@ their first axis.
   member, as under the JAX vmap.
 * The Jacobian defaults to forward-mode autodiff of the RHS: ``n``
   ``torch.func.jvp`` calls, one basis tangent per column for every
-  member at once (the counterpart of ``jax.jacfwd`` under vmap).  A
-  callable ``jac(t, y)`` returns the rows-first ``(n, n, B)`` matrix; a
-  constant ``jac`` array selects the linear fast path (one direct solve
-  per stage, a refactor on every change of h).
-* The LU is ``torch.linalg.lu_factor_ex``/``lu_solve`` on ``(B, n, n)``.
+  member at once (the counterpart of ``jax.jacfwd`` under vmap), or with
+  ``jac_sparsity`` one per group of columns that share no row
+  (``core.linalg.colored_jacfwd``).  A callable ``jac(t, y)`` returns the
+  rows-first ``(n, n, B)`` matrix; a constant ``jac`` array selects the
+  linear fast path (one direct solve per stage, a refactor on every
+  change of h).  Complex states take the holomorphic JVP.
+* The LU is ``torch.linalg.lu_factor_ex``/``lu_solve`` on ``(B, n, n)``,
+  in the state's dtype.  With ``bands`` the Jacobian is banded storage
+  ``(B, kl+ku+1, n)`` (``kl + ku + 1`` JVPs) and the Newton matrix is
+  factored by block cyclic reduction (``core/banded.py``): the factor, a
+  tuple of levels of ``(B, m, b, b)`` blocks, sits in the ``LU`` field
+  and ``piv`` is empty.  ``bands="rcm"`` differentiates and factors in a
+  reverse Cuthill-McKee order, the RHS, states and outputs staying in
+  the user's.
 * A constant mass matrix ``M``: a host SVD splits differential and
   algebraic parts, algebraic rows are rescaled by ``1/(h d)``, and DAE
-  initial conditions are made consistent by Newton projection.
+  initial conditions are made consistent by Newton projection.  In
+  banded mode ``M`` is diagonal (the rescaling a row scaling of the
+  zero-mass rows) or banded and nonsingular.
 
 Where the JAX stepper branches per member with ``lax.cond`` (refactor,
 Jacobian refresh, skipped stages), this one computes for the batch and
-selects per member; the counters move only where the JAX branch ran.
-Banded linear algebra, ``jac_sparsity`` and complex states are ROADMAP
-A8b; the DAE index check comes with A7.  The state keeps the last accepted
+selects per member; the counters move only where the JAX branch ran (a
+colored Jacobian is one ``njev``, its JVPs are not in ``nfev``).  The DAE
+index check comes with ROADMAP A7.  The state keeps the last accepted
 step's start (``t_old``, ``y_old``, ``yp_old``) for dense output.
 """
 from typing import Any, NamedTuple
@@ -47,9 +58,11 @@ from ..core.controller import (resolve_controller, esdirk_accept_update,
 from ..core.hstart import h_start
 from ..core.interpolate import (hermite_cubic_coefficients,
                                 stage_coefficients)
-from ..core.linalg import gauss_solve
-from ..core.numerics import calculate_scale, norm, dtype_constants
-from .erk import select, weighted_sum
+from ..core import banded as bd
+from ..core.linalg import colored_jacfwd, gauss_solve, seed_jvps
+from ..core.numerics import (calculate_scale, norm, dtype_constants,
+                             real_dtype)
+from .erk import select, weighted_sum, where_first
 
 
 class ESDIRKState(NamedTuple):
@@ -63,10 +76,10 @@ class ESDIRKState(NamedTuple):
     error_norm_old: Any
     h_previous: Any
     max_factor: Any
-    J: Any                  # (B, n, n) current Jacobian
+    J: Any                  # (B, n, n) current Jacobian, or banded
     current_J: Any          # J evaluated at the current (t, y)
-    LU: Any                 # (B, n, n) packed LU factors
-    piv: Any                # (B, n) pivots
+    LU: Any                 # (B, n, n) packed LU factors, or BCR levels
+    piv: Any                # (B, n) pivots ((B, 0) in banded mode)
     LU_valid: Any
     h_LU: Any               # signed h the LU was built for
     Rate: Any               # max Newton rate of the last attempt
@@ -120,13 +133,12 @@ def jacfwd(fun, n):
     """``jac(t, y)`` -> ``(B, n, n)``: the Jacobian of the rows-first
     ``fun`` for every member, from ``n`` forward-mode JVPs, one basis
     tangent per column broadcast over the members."""
+    eye = {}
+
     def jac(t, y):
-        cols = []
-        for j in range(n):
-            v = torch.zeros_like(y)
-            v[j] = 1.0
-            cols.append(torch.func.jvp(lambda yy: fun(t, yy), (y,), (v,))[1])
-        return torch.stack(cols, dim=-1).permute(1, 0, 2)
+        if y.device not in eye:
+            eye[y.device] = torch.eye(n, dtype=y.dtype, device=y.device)
+        return seed_jvps(fun, t, y, eye[y.device]).permute(2, 1, 0)
     return jac
 
 
@@ -137,13 +149,16 @@ class ESDIRKStepper:
     tableau interpolant (``'C0'``, ``'C1'``) for ``dense_segments``."""
 
     def __init__(self, fun, tableau, n, dtype, sc_params=None, jac=None,
-                 M=None, jac_each_step=False, interpolant=None):
+                 M=None, jac_each_step=False, interpolant=None, bands=None,
+                 jac_sparsity=None):
         self.fun = fun
         self.interpolant = interpolant
         self.matrices = {}           # interpolant matrices on the device
         self.tab = tableau
         self.n = n
         self.dtype = dtype
+        self.real_dtype = real_dtype(dtype)
+        self.np_dtype = torch.empty((), dtype=dtype).numpy().dtype
         consts = dtype_constants(dtype)
         self.h_min_a = 10.0 * consts["epsneg"] / tableau.c_spacing()
         self.h_min_b = consts["sqrt_tiny"]
@@ -161,23 +176,35 @@ class ESDIRKStepper:
         self.filter_error = tableau.filter_error
         self.jac_each_step = bool(jac_each_step)
         self._consts = {}
+        self.banded = bands is not None
+        self.perm = self.iperm = None
+        self._M_band = None
+        if self.banded:
+            self._setup_bands(bands, jac_sparsity, M)
 
         # Jacobian setup
         if jac is None:
-            self.jac = jacfwd(fun, n)
+            if self.banded:
+                self.jac = self._banded_autodiff_jac(fun)
+            elif jac_sparsity is not None:
+                self.jac = colored_jacfwd(fun, jac_sparsity, n)
+            else:
+                self.jac = jacfwd(fun, n)
             self.linear = False
         elif callable(jac):
-            def user_jac(t, y):
-                Jr = torch.as_tensor(jac(t, y), dtype=y.dtype,
-                                     device=y.device)
-                return Jr.expand(n, n, y.shape[1]).permute(2, 0, 1)
-            self.jac = user_jac
+            self.jac = self._user_jac(jac)
             self.linear = False
         else:
             Jc = np.asarray(jac.toarray() if hasattr(jac, "toarray")
-                            else jac, dtype=float)
-            if Jc.shape != (n, n):
-                raise ValueError(f"`jac` is expected to have shape {(n, n)}"
+                            else jac, dtype=self.np_dtype)
+            if self.banded and Jc.shape == (n, n):
+                if self.perm is not None:
+                    Jc = Jc[self.perm][:, self.perm]
+                Jc = bd.banded_from_dense(torch.as_tensor(Jc), self.kl,
+                                          self.ku).numpy()
+            expect = (self._nbr, n) if self.banded else (n, n)
+            if Jc.shape != expect:
+                raise ValueError(f"`jac` is expected to have shape {expect}"
                                  f", but actually has {Jc.shape}.")
             self.J_const = Jc
             self.jac = None
@@ -185,7 +212,7 @@ class ESDIRKStepper:
 
         # mass matrix / DAE setup: the SVD split of extensisq _handle_M
         self.isDAE = False
-        self.M = None
+        self.M = self.mvec = None
         if M is not None:
             M = np.asarray(M.toarray() if hasattr(M, "toarray") else M,
                            dtype=float)
@@ -194,12 +221,114 @@ class ESDIRKStepper:
             if M.shape != (n, n):
                 raise ValueError("M should have shape (n,) or (n, n)")
             self.M = M
+            if self.banded and self._M_band is None:
+                self.mvec = np.diag(M).copy()
             U, sv, Vh = np.linalg.svd(M)
-            real = torch.empty((), dtype=dtype).numpy().dtype
-            cond_lim = sv[0] * n ** 2 * np.finfo(real).eps
+            cond_lim = sv[0] * n ** 2 * np.finfo(self.np_dtype).eps
             self.nAE = int(np.sum(sv < cond_lim))
             self.isDAE = self.nAE > 0
             self.U, self.sv, self.Vh = U, sv, Vh
+            if self.isDAE and self.banded:
+                # for diagonal M the zero-singular-value subspace is axis
+                # aligned: U diag(sc) U^T is a row scaling of these rows
+                self.alg_mask = np.abs(self.mvec) < cond_lim
+
+    def _setup_bands(self, bands, sparsity, M):
+        """Banded mode: ``bands=(kl, ku)``, ``True`` (the bandwidths of
+        ``jac_sparsity``) or ``"rcm"`` (a reverse Cuthill-McKee reordering
+        where it narrows the band; the RHS, states, outputs and counters
+        stay in the user's order).  A non-diagonal ``M`` must be banded
+        and nonsingular; its bandwidths join the Jacobian's."""
+        n = self.n
+        want_rcm = isinstance(bands, str) and bands == "rcm"
+        if bands is True or want_rcm:
+            if sparsity is None:
+                raise ValueError(
+                    "bands=True requires jac_sparsity to derive the "
+                    "bandwidths; pass bands=(kl, ku) directly otherwise.")
+            S = (sparsity.toarray() if hasattr(sparsity, "toarray")
+                 else np.asarray(sparsity))
+            bands = bd.bands_of_sparsity(S)
+            if want_rcm:
+                p = bd.rcm_order(S)
+                red = bd.bands_of_sparsity(S[p][:, p])
+                if red[0] + red[1] < bands[0] + bands[1]:
+                    self.perm, self.iperm = p, np.argsort(p)
+                    bands = red
+        self.kl, self.ku = int(bands[0]), int(bands[1])
+        if not (0 <= self.kl < n and 0 <= self.ku < n):
+            raise ValueError(f"bands=({self.kl}, {self.ku}) out of range "
+                             f"for an {n}-state system.")
+        if M is not None:
+            Mp = np.asarray(M.toarray() if hasattr(M, "toarray") else M,
+                            dtype=float)
+            if Mp.ndim == 2 and np.any(Mp != np.diag(np.diag(Mp))):
+                if self.perm is not None:
+                    raise ValueError(
+                        "bands='rcm' supports diagonal mass matrices only;"
+                        " for banded non-diagonal M pass bands=(kl, ku) "
+                        "in an order where both J and M are banded.")
+                sv = np.linalg.svd(Mp, compute_uv=False)
+                if sv[-1] < sv[0] * n ** 2 * np.finfo(self.np_dtype).eps:
+                    raise ValueError(
+                        "banded mode with a non-diagonal M requires M "
+                        "nonsingular (the hidden-M DAE rotation densifies "
+                        "a banded Jacobian; use the dense path).")
+                klm, kum = bd.bands_of_sparsity(Mp != 0)
+                self.kl = max(self.kl, int(klm))
+                self.ku = max(self.ku, int(kum))
+                self._M_band = bd.banded_from_dense(
+                    torch.as_tensor(Mp), self.kl, self.ku).numpy()
+        self._nbr = self.kl + self.ku + 1        # band rows
+        # matrix row of each banded entry (d, j): j + d - ku, clipped
+        self.band_rows = np.clip(np.arange(n)[None, :]
+                                 + np.arange(self._nbr)[:, None] - self.ku,
+                                 0, n - 1)
+
+    def _banded_autodiff_jac(self, fun):
+        """The banded Jacobian in ``kl + ku + 1`` JVPs; under ``rcm`` the
+        permuted map ``g(yp) = P f(P^T yp)`` is the one differentiated."""
+        if self.perm is None:
+            return bd.banded_colored_jacfwd(fun, self.kl, self.ku, self.n)
+
+        def permuted(t, yp):
+            y = bd.take(yp, 0, self._idx("iperm", yp))
+            return bd.take(fun(t, y), 0, self._idx("perm", yp))
+
+        bj = bd.banded_colored_jacfwd(permuted, self.kl, self.ku, self.n)
+        return lambda t, y: bj(t, bd.take(y, 0, self._idx("perm", y)))
+
+    def _user_jac(self, jac):
+        """A user ``jac(t, y)`` returning rows-first ``(n, n[, B])``, or in
+        banded mode also ``(kl+ku+1, n[, B])`` banded storage, as the
+        stepper's members-first Jacobian."""
+        n = self.n
+
+        def user_jac(t, y):
+            Jr = torch.as_tensor(jac(t, y), dtype=y.dtype, device=y.device)
+            if Jr.ndim == 2:
+                Jr = Jr[..., None]
+            Jr = Jr.expand(Jr.shape[0], n, y.shape[1]).permute(2, 0, 1)
+            if not self.banded:
+                return Jr
+            if self.perm is not None:
+                if Jr.shape[1] != n:
+                    raise ValueError(
+                        "bands='rcm' requires jac to return the dense (n, "
+                        "n) matrix: banded storage would be in the "
+                        "internal permuted order")
+                p = self._idx("perm", y)
+                Jr = bd.take(bd.take(Jr, 1, p), 2, p)
+            if Jr.shape[1] == n:
+                return bd.banded_from_dense(Jr, self.kl, self.ku)
+            if Jr.shape[1] != self._nbr:
+                raise ValueError(
+                    f"banded jac must return ({n}, {n}) dense or "
+                    f"({self._nbr}, {n}) banded storage, got "
+                    f"{tuple(Jr.shape[1:])}")
+            return Jr
+
+        return user_jac
 
     # -- device constants ---------------------------------------------------
 
@@ -207,13 +336,28 @@ class ESDIRKStepper:
         """Host array ``name`` as a tensor on the device of ``like``."""
         key = (name, like.device)
         if key not in self._consts:
+            a = getattr(self, name)
             self._consts[key] = torch.as_tensor(
-                getattr(self, name), dtype=self.dtype, device=like.device)
+                a, dtype=torch.bool if a.dtype == bool else self.dtype,
+                device=like.device)
+        return self._consts[key]
+
+    def _idx(self, name, like):
+        """Host index array ``name`` as a long tensor on ``like``'s
+        device."""
+        key = (name, like.device)
+        if key not in self._consts:
+            self._consts[key] = torch.as_tensor(getattr(self, name),
+                                                device=like.device).long()
         return self._consts[key]
 
     def _sc(self, h):
         """(n, B) row factors of Sc = U diag(sc) U^T: 1 on the
         differential rows, 1/(h d) on the algebraic ones."""
+        if self.banded:
+            # diagonal M: the algebraic rows are the zero-mass ones
+            return torch.where(self._c("alg_mask", h)[:, None],
+                               1.0 / (h * self.d), torch.ones_like(h))
         nd = self.n - self.nAE
         alg = (1.0 / (h * self.d)).expand(self.nAE, h.shape[0])
         return torch.cat([torch.ones_like(alg[:1]).expand(nd, -1), alg])
@@ -223,17 +367,46 @@ class ESDIRKStepper:
     def _M_mul(self, z):
         if self.M is None:
             return z
+        if self._M_band is not None:
+            return bd.banded_matvec(self._c("_M_band", z), self.kl, self.ku,
+                                    z.T).T
+        if self.mvec is not None:
+            return self._c("mvec", z)[:, None] * z
         return self._c("M", z) @ z
 
     def _Sc_mul(self, h, v):
         """Scale the algebraic rows by 1/(h d) (extensisq common.py)."""
         if not self.isDAE:
             return v
+        if self.banded:
+            return self._sc(h) * v
         U = self._c("U", v)
         return U @ (self._sc(h) * (U.T @ v))
 
     def _factor(self, h, J):
-        """LU of Sc (M - h d J), per member."""
+        """LU of Sc (M - h d J), per member; in banded mode the BCR
+        factor of the banded ``J`` (in the internal order under rcm)."""
+        if self.banded:
+            W = -(h * self.d)[:, None, None] * J
+            if self._M_band is not None:
+                W = W + self._c("_M_band", J)
+            else:
+                mdiag = (torch.ones(self.n, dtype=J.dtype, device=J.device)
+                         if self.M is None else self._c("mvec", J))
+                if self.perm is not None and self.M is not None:
+                    mdiag = bd.take(mdiag, 0, self._idx("perm", J))
+                W[:, self.ku] = W[:, self.ku] + mdiag
+            if self.isDAE:
+                # row scaling in banded storage: entry (d, j) is matrix
+                # row j + d - ku
+                sc = self._sc(h)
+                if self.perm is not None:
+                    sc = bd.take(sc, 0, self._idx("perm", J))
+                W = W * bd.take(sc, 0, self._idx("band_rows", J)).permute(
+                    2, 0, 1)
+            fact = bd.banded_factor(W, self.kl, self.ku, self.n)
+            return fact, torch.zeros((J.shape[0], 0), dtype=torch.int32,
+                                     device=J.device)
         if self.M is None:
             A = torch.eye(self.n, dtype=J.dtype, device=J.device)
         else:
@@ -245,15 +418,47 @@ class ESDIRKStepper:
         LU, piv, _ = torch.linalg.lu_factor_ex(W)
         return LU, piv
 
-    @staticmethod
-    def _solve(LU, piv, b):
-        return torch.linalg.lu_solve(LU, piv, b.T[:, :, None])[:, :, 0].T
+    def _solve(self, LU, piv, b):
+        """Solve with ``_factor``'s result for rows-first ``b`` (n, B)."""
+        if not self.banded:
+            return torch.linalg.lu_solve(LU, piv, b.T[:, :, None])[:, :, 0].T
+        if self.perm is None:
+            return bd.banded_solve(LU, b.T, self.n, self.kl, self.ku).T
+        # (P W P^T)(P x) = P b: the rhs permuted in, the solution out
+        x = bd.banded_solve(LU, bd.take(b, 0, self._idx("perm", b)).T,
+                            self.n, self.kl, self.ku)
+        return bd.take(x, 1, self._idx("iperm", b)).T
+
+    def _const_jac(self, y):
+        """The constant Jacobian as stored, broadcast over the members."""
+        Jc = self._c("J_const", y)
+        return Jc.expand((y.shape[1],) + tuple(Jc.shape))
+
+    def _to_dense(self, J):
+        """A dense ``(B, n, n)`` in the user's order from the stepper's
+        Jacobian (banded storage in the internal order in banded mode)."""
+        if not self.banded:
+            return J
+        D = bd.dense_from_banded(J, self.kl, self.ku, self.n)
+        if self.perm is not None:
+            ip = self._idx("iperm", J)
+            D = bd.take(bd.take(D, 1, ip), 2, ip)
+        return D
+
+    def _from_dense(self, D):
+        """The stepper's Jacobian from a dense ``(B, n, n)``."""
+        if not self.banded:
+            return D
+        if self.perm is not None:
+            p = self._idx("perm", D)
+            D = bd.take(bd.take(D, 1, p), 2, p)
+        return bd.banded_from_dense(D, self.kl, self.ku)
 
     def _jac_dense(self):
+        """A dense-J view for the one-time DAE initial conditions."""
         if self.jac is None:
-            return lambda t, y: self._c("J_const", y).expand(
-                y.shape[1], self.n, self.n)
-        return self.jac
+            return lambda t, y: self._to_dense(self._const_jac(y))
+        return lambda t, y: self._to_dense(self.jac(t, y))
 
     # -- DAE consistent initial conditions ----------------------------------
 
@@ -304,7 +509,7 @@ class ESDIRKStepper:
     def init(self, t0, y0, params, first_step=None):
         """Initial state for ``y0`` of shape ``(n, B)`` at time ``t0``."""
         nb = y0.shape[1]
-        t0 = torch.as_tensor(t0, dtype=self.dtype,
+        t0 = torch.as_tensor(t0, dtype=self.real_dtype,
                              device=y0.device).expand(nb).clone()
         njev = 0
         b = t0 + params.direction * torch.clamp(
@@ -312,6 +517,7 @@ class ESDIRKStepper:
         morder = min(self.tab.order_secondary, self.tab.order)
         if self.isDAE:
             y0, yp0, J, hs_kwargs = self.consistent_ics(t0, y0, params)
+            J = self._from_dense(J)
             njev += 1
             if first_step is None:
                 h_abs = torch.abs(h_start(
@@ -322,13 +528,25 @@ class ESDIRKStepper:
             if self.M is None:
                 yp0 = f0
                 fun_ext = self.fun
+            elif self._M_band is not None:
+                MB = self._c("_M_band", y0).expand(nb, self._nbr, self.n)
+                mf = bd.banded_factor(MB, self.kl, self.ku, self.n)
+
+                def fun_ext(t, y):
+                    return bd.banded_solve(mf, self.fun(t, y).T, self.n,
+                                           self.kl, self.ku).T
+                yp0 = bd.banded_solve(mf, f0.T, self.n, self.kl, self.ku).T
+            elif self.mvec is not None:
+                mv = self._c("mvec", y0)[:, None]
+                yp0 = f0 / mv
+                fun_ext = lambda t, y: self.fun(t, y) / mv   # noqa: E731
             else:
                 Mb = self._c("M", y0).expand(nb, self.n, self.n)
                 yp0 = gauss_solve(Mb, f0.T).T
                 fun_ext = lambda t, y: gauss_solve(   # noqa: E731
                     Mb, self.fun(t, y).T).T
             if self.linear:
-                J = self._jac_dense()(t0, y0)
+                J = self._const_jac(y0)
             else:
                 J = self.jac(t0, y0)
                 njev += 1
@@ -341,15 +559,20 @@ class ESDIRKStepper:
 
         i0 = torch.zeros(nb, dtype=torch.int32, device=y0.device)
         no = torch.zeros(nb, dtype=torch.bool, device=y0.device)
+        if self.banded:
+            LU = bd.bcr_zero_factor(self.n, self.kl, self.ku, self.dtype,
+                                    nb, y0.device)
+            piv = torch.zeros((nb, 0), dtype=torch.int32, device=y0.device)
+        else:
+            LU = torch.zeros_like(J)
+            piv = torch.zeros_like(J[:, 0], dtype=torch.int32)
         return ESDIRKState(
             t=t0, y=y0, yp=yp0, h_abs=h_abs, status=i0 + RUNNING,
             standard_sc=~no, error_norm_old=torch.ones_like(t0),
             h_previous=torch.zeros_like(t0),
             max_factor=torch.full_like(t0, 10.0),
-            J=J.contiguous(), current_J=~no,
-            LU=torch.zeros_like(J), piv=torch.zeros_like(J[:, 0],
-                                                       dtype=torch.int32),
-            LU_valid=no, h_LU=torch.zeros_like(t0),
+            J=J.contiguous(), current_J=~no, LU=LU, piv=piv, LU_valid=no,
+            h_LU=torch.zeros_like(t0),
             Rate=torch.full_like(t0, -torch.inf), Niter=i0,
             K=torch.zeros((self.s,) + tuple(y0.shape), dtype=self.dtype,
                           device=y0.device),
@@ -476,8 +699,8 @@ class ESDIRKStepper:
         LU, piv, nlu, h_LU = c.LU, c.piv, c.nlu, c.h_LU
         if bool(need_lu.any()):
             LU_f, piv_f = self._factor(h, c.J)
-            LU = torch.where(need_lu[:, None, None], LU_f, LU)
-            piv = torch.where(need_lu[:, None], piv_f, piv)
+            LU = where_first(need_lu, LU_f, LU)
+            piv = where_first(need_lu, piv_f, piv)
             nlu = nlu + need_lu.to(torch.int32)
             h_LU = torch.where(need_lu, h, h_LU)
 

@@ -18,6 +18,7 @@ import torch
 
 from .._config import RUNNING
 from ..core.hstart import h_start
+from ..core.numerics import real_dtype
 from ..core.interpolate import (host_matrix, nystrom_coefficients,
                                 quintic_hermite_coefficients)
 from .erk import ERKStepper, ERKState, weighted_sum
@@ -119,7 +120,7 @@ class RKNStepper(ERKStepper):
         """Initial state: h_start runs on the first-order form; the carried
         derivative ``f`` is the acceleration ``(m, B)``."""
         B = y0.shape[1]
-        t0 = torch.as_tensor(t0, dtype=self.dtype,
+        t0 = torch.as_tensor(t0, dtype=real_dtype(self.dtype),
                              device=y0.device).expand(B).clone()
         f_full = self.fun_first_order(t0, y0)
         nfev = 1

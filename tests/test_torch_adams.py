@@ -332,5 +332,9 @@ def test_unported_parts_name_their_roadmap_item():
     # step (kold = 0) the segment is the linear one, here zero
     (t_a, h, ya, Q), = stepper.dense_segments(state)[0]
     assert Q.shape == (2, 14, 1) and not Q.any()
-    with pytest.raises(NotImplementedError, match="A3"):
-        solve(osc, (0.0, 1.0), torch.tensor([0.5 + 1j, 0.0]), method=SWAG)
+    # complex states (ROADMAP A3) are ported: the JAX test's gates
+    res = solve(lambda t, y: -y, (0.0, 1.0),
+                torch.tensor([0.5 + 1j], dtype=torch.complex128),
+                method=SWAG, rtol=1e-3, atol=1e-6)
+    assert int(res.status) == 1 and int(res.nfev) < 40
+    assert abs(complex(res.y[0]) - (0.5 + 1j) * np.exp(-1.0)) < 1e-4

@@ -389,15 +389,37 @@ def test_solve_matches_ensemble_member():
         assert torch.allclose(one.y, ens.y[i], rtol=0.0, atol=1e-12)
 
 
+# Robertson's Jacobian pattern: full bands (2, 2) at n = 3
+ROB_OPTIONS = {"bands": (2, 2),
+               "jac_sparsity": np.array([[1, 1, 1], [1, 1, 1], [0, 1, 0]])}
+
+
 @pytest.mark.parametrize("option", ["bands", "jac_sparsity"])
 def test_banded_options_name_roadmap_item(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP item A8b"):
-        P.solve_ensemble(rob_torch, (0.0, 1.0),
-                         torch.tensor(_members("rob")), method="Kv3I",
-                         **{option: (1, 1)})
+    """The banded and sparse Jacobian options (ROADMAP A8b, ported) run an
+    ensemble with the dense path's counters and endpoints (1e-12)."""
+    y0 = torch.tensor(_members("rob"))
+    kw = dict(method="Kv3I", return_state=True)
+    dense = P.solve_ensemble(rob_torch, (0.0, 1.0), y0, **kw)
+    run = P.solve_ensemble(rob_torch, (0.0, 1.0), y0,
+                           **{option: ROB_OPTIONS[option]}, **kw)
+    assert torch.all(run.status == 1)
+    for f in COUNTERS:
+        assert torch.equal(getattr(run, f), getattr(dense, f)), f
+    for f in ("njev", "nlu"):
+        assert torch.equal(getattr(run.final_state, f),
+                           getattr(dense.final_state, f)), f
+    assert torch.allclose(run.y, dense.y, rtol=0.0, atol=1e-12)
 
 
 def test_complex_states_raise():
-    with pytest.raises(NotImplementedError, match="complex"):
-        P.solve(lambda t, y: -y, (0.0, 1.0),
-                torch.tensor([0.5 + 1j]), method="TRBDF2")
+    """Complex states (ROADMAP A3, ported) run: TRBDF2 on y' = -y from
+    0.5 + 1j, with the JAX test's gates (one Jacobian, at most 5 LUs,
+    5e-3 from the exact solution)."""
+    res = P.solve(lambda t, y: -y, (0.0, 1.0),
+                  torch.tensor([0.5 + 1j], dtype=torch.complex128),
+                  method="TRBDF2", return_state=True)
+    assert int(res.status) == 1 and res.y.dtype == torch.complex128
+    assert int(res.final_state.njev[0]) == 1
+    assert int(res.final_state.nlu[0]) < 6
+    assert abs(complex(res.y[0]) - (0.5 + 1j) * np.exp(-1.0)) < 5e-3
