@@ -5,6 +5,13 @@ The port carries the explicit Runge-Kutta, the Runge-Kutta-Nystrom
 implicit ESDIRK, the SWAG (variable-order Adams) ensemble paths and
 SSV2stab (Runge-Kutta-Chebyshev) for semi-discretized PDEs:
 
+* :func:`solve_ivp` — the scipy-semantics host driver (``t_eval``,
+  events located by Brent's method on the host, dense output, the host
+  stiffness check, an :class:`OdeResult`), and the stepwise protocol
+  ``BS5(fun, t0, y0, t_bound).step()``; :func:`sens_forward`,
+  :func:`sens_adjoint_end` and :func:`sens_adjoint_int` — sensitivities on
+  top of it; :func:`solve_final` — ``y(t_f)`` of a device solve under
+  ``torch.autograd`` (the continuous adjoint);
 * :func:`solve` / :func:`solve_ensemble` — the batched on-device solver
   (final state, counters and status per member, and on request the
   trajectory: ``save_steps``, ``t_eval``, events, the stiffness
@@ -15,7 +22,9 @@ SSV2stab (Runge-Kutta-Chebyshev) for semi-discretized PDEs:
   linear algebra by cyclic reduction); SWAG takes ``k_max=``; SSV2stab
   ``rho_jac=`` and ``const_jac=``; ``y0`` may be complex (not for
   SSV2stab);
-* :func:`ops.solve_fused_erk`, :func:`ops.solve_fused_esdirk` and
+* :func:`ops.solve_fused` — the fused kernels' front door, by method
+  family;
+  :func:`ops.solve_fused_erk`, :func:`ops.solve_fused_esdirk` and
   :func:`ops.solve_fused_adams` — the whole adaptive integration in one
   CUDA kernel launch (float32, optionally compensated);
   :func:`ops.solve_fused_rkn` — the same for Nystrom pairs on
@@ -34,8 +43,10 @@ SSV2stab (Runge-Kutta-Chebyshev) for semi-discretized PDEs:
 * :mod:`problems`: the JAX package's problem library with rows-first
   right-hand sides.
 
-Right-hand sides are row-stacked: ``fun(t, y)`` takes ``y`` of shape
-``(n, B)`` with members on the last axis and ``t`` of shape ``(B,)``.
+Right-hand sides of the device driver and the kernels are row-stacked:
+``fun(t, y)`` takes ``y`` of shape ``(n, B)`` with members on the last
+axis and ``t`` of shape ``(B,)``; those of the host driver take a 1-D
+``y`` ``(n,)`` and a 0-d ``t`` (:mod:`extensisq_tpu_torch.ivp`).
 Public arrays keep the JAX package's ``(B, n)`` layout.  An entry point
 runs on the device of a tensor input (a CPU tensor asks for the CPU) and
 on the card for a numpy array or a list.  The package imports torch and
@@ -56,6 +67,9 @@ from .ops import (FusedAcc, FusedGridAcc, FusedGridRHS,  # noqa: F401
                   solve_fused_esdirk_grid, solve_fused_rkc,
                   solve_fused_rkc_ensemble, solve_fused_rkn,
                   solve_fused_rkn_grid)
+from .ivp import OdeResult, solve_ivp  # noqa: F401
+from .sensitivity import (sens_adjoint_end,  # noqa: F401
+                          sens_adjoint_int, sens_forward, solve_final)
 from .solve import (solve, solve_ensemble, solve_windowed,  # noqa: F401
                     Solution)
 from .types import (ERKTableau, ESDIRKTableau, Method,  # noqa: F401
@@ -64,6 +78,8 @@ from .types import (ERKTableau, ESDIRKTableau, Method,  # noqa: F401
 __version__ = "0.1.0"
 
 __all__ = [
+    "solve_ivp", "OdeResult", "sens_forward", "sens_adjoint_end",
+    "sens_adjoint_int", "solve_final",
     "solve", "solve_ensemble", "solve_windowed", "Solution", "ops",
     "parallel", "problems", "FusedRHS",
     "FusedGridRHS", "FusedRho", "FusedAcc", "FusedGridAcc",

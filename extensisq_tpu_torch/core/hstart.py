@@ -80,7 +80,9 @@ def h_start(df, a, b, y, yprime, morder, rtol, atol, J=None, T=None,
     ydpb = dfdxb + dfdub * fbnd
     tolexp = torch.log10(etol) * torch.ones_like(y.real)
     tolsum = tolexp.sum(0)
-    tolmin = torch.clamp(tolexp.amin(0), max=big)
+    # an empty state's minimum is +inf, clamped to big (as in JAX)
+    tolmin = (torch.clamp(tolexp.amin(0), max=big) if y.shape[0]
+              else torch.full_like(tolsum, big))
     tolp = 10.0 ** (0.5 * (tolsum / neq + tolmin) / (morder + 1))
 
     h = absdx

@@ -28,6 +28,9 @@ kernel launch, each with its plain PyTorch version beside it.
   (Runge-Kutta-Chebyshev) on one PDE grid across the whole card, or on an
   ensemble of grids with one thread block per member
   (``csrc/fused_rkc.cu``)
+* :func:`solve_fused` — the front door: routes by method family to the
+  flat or the grid kernel, reading the layout from the RHS object
+  (``ops/dispatch.py``)
 * :class:`FusedRHS` — a right-hand side as a rows-first torch function
   plus the CUDA source the kernel compiles in; :class:`FusedAcc` is the
   RKN kernel's acceleration, :class:`FusedGridRHS`, :class:`FusedGridAcc`
@@ -37,6 +40,7 @@ Every whole-integration kernel of ``extensisq_tpu.ops`` has its
 counterpart here; their options not ported yet are queued in ROADMAP.md
 (queue B).
 """
+from .dispatch import solve_fused
 from .fused_adams import fused_adams_reference, solve_fused_adams
 from .fused_adams_grid import (fused_adams_grid_reference,
                                solve_fused_adams_grid)
@@ -54,7 +58,8 @@ from .fused_rkn import FusedAcc, fused_rkn_reference, solve_fused_rkn
 from .fused_rkn_grid import (FusedGridAcc, fused_rkn_grid_reference,
                              solve_fused_rkn_grid)
 
-__all__ = ["FusedRHS", "fused_erk_reference", "solve_fused_erk",
+__all__ = ["solve_fused", "FusedRHS", "fused_erk_reference",
+           "solve_fused_erk",
            "fused_esdirk_reference", "solve_fused_esdirk",
            "fused_esdirk_grid_reference", "solve_fused_esdirk_grid",
            "fused_adams_reference", "solve_fused_adams",

@@ -19,8 +19,10 @@ def build_stepper(method, fun, n, dtype, **options):
     keeps the last accepted step's start and stages for dense output,
     events and the stiffness check (``solve`` sets it when they are
     asked for), and ERK, RKN and ESDIRK ``interpolant`` (the default of
-    ``dense_segments``).  RKN methods take ``scale_embedded`` (Mu5Nmb's
-    default damps the embedded estimate by 0.75).  SWAG takes ``k_max``
+    ``dense_segments``); ERK and RKN steppers keep the merged options as
+    ``options`` (the host driver's stiffness check reads
+    ``nfev_stiff_detect`` there).  RKN methods take ``scale_embedded``
+    (Mu5Nmb's default damps the embedded estimate by 0.75).  SWAG takes ``k_max``
     (1 to 12); SSV2stab takes ``rho_jac`` (a spectral-radius bound
     ``rho_jac(t, y)``) and ``const_jac``."""
     family = method.family
@@ -31,7 +33,8 @@ def build_stepper(method, fun, n, dtype, **options):
         return ERKStepper(fun, method.tableau, n, dtype,
                           sc_params=merged.get("sc_params"),
                           carry_stages=merged.get("carry_stages", False),
-                          interpolant=merged.get("interpolant"))
+                          interpolant=merged.get("interpolant"),
+                          options=merged)
     if family == "ckdisc":
         from .ckdisc import CKdiscStepper
         return CKdiscStepper(fun, method.tableau, n, dtype,
@@ -43,7 +46,8 @@ def build_stepper(method, fun, n, dtype, **options):
                           sc_params=merged.get("sc_params"),
                           scale_embedded=bool(merged.get("scale_embedded")),
                           carry_stages=merged.get("carry_stages", False),
-                          interpolant=merged.get("interpolant"))
+                          interpolant=merged.get("interpolant"),
+                          options=merged)
     if family == "esdirk":
         from .esdirk import ESDIRKStepper
         return ESDIRKStepper(fun, method.tableau, n, dtype,

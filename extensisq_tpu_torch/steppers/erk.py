@@ -123,12 +123,15 @@ class ERKStepper:
     ``fun(t, y)`` takes ``t`` of shape ``(B,)`` and ``y`` of shape
     ``(n, B)`` and returns ``(n, B)``.  ``carry_stages`` keeps what dense
     output and the stiffness diagnosis read (module docstring);
-    ``interpolant`` names ``dense_segments``' default.
+    ``interpolant`` names ``dense_segments``' default.  ``options`` is the
+    solve's merged option mapping, which the host driver's stiffness
+    check reads (``nfev_stiff_detect``).
     """
 
     def __init__(self, fun, tableau, n, dtype, sc_params=None,
-                 carry_stages=False, interpolant=None):
+                 carry_stages=False, interpolant=None, options=None):
         self.fun = fun
+        self.options = dict(options or {})
         self.carry_stages = bool(carry_stages)
         self.interpolant = interpolant
         self.matrices = {}           # interpolant matrices on the device

@@ -42,9 +42,10 @@ their first axis.
 Where the JAX stepper branches per member with ``lax.cond`` (refactor,
 Jacobian refresh, skipped stages), this one computes for the batch and
 selects per member; the counters move only where the JAX branch ran (a
-colored Jacobian is one ``njev``, its JVPs are not in ``nfev``).  The DAE
-index check comes with ROADMAP A7.  The state keeps the last accepted
-step's start (``t_old``, ``y_old``, ``yp_old``) for dense output.
+colored Jacobian is one ``njev``, its JVPs are not in ``nfev``).  The host
+driver runs the DAE index check (``validate_problem``) before ``init``.
+The state keeps the last accepted step's start (``t_old``, ``y_old``,
+``yp_old``) for dense output.
 """
 from typing import Any, NamedTuple
 
@@ -459,6 +460,25 @@ class ESDIRKStepper:
         if self.jac is None:
             return lambda t, y: self._to_dense(self._const_jac(y))
         return lambda t, y: self._to_dense(self.jac(t, y))
+
+    def validate_problem(self, fun_np, t0, y0, device=None):
+        """The host driver's DAE index check (extensisq ``common.py``): the
+        algebraic block of ``U^T J V`` at ``(t0, y0)`` (one member, numpy)
+        must have full rank, else the index exceeds 1.  The Jacobian is
+        evaluated on ``device`` and not counted."""
+        if not self.isDAE:
+            return
+        y = torch.as_tensor(np.asarray(y0), dtype=self.dtype,
+                            device=device)[:, None]
+        t = torch.full((1,), float(t0), dtype=self.real_dtype,
+                       device=y.device)
+        J = self._jac_dense()(t, y)[0].cpu().numpy()
+        G = self.U.T @ J @ self.Vh.T
+        Gvv = G[self.n - self.nAE:, self.n - self.nAE:]
+        if np.linalg.matrix_rank(Gvv) != Gvv.shape[1]:
+            raise ValueError(
+                "The index of the DAE seems to be larger than 1."
+                " This method is not suitable for solving it.")
 
     # -- DAE consistent initial conditions ----------------------------------
 

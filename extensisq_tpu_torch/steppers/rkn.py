@@ -35,11 +35,13 @@ class RKNStepper(ERKStepper):
     """
 
     def __init__(self, fun, tableau, n, dtype, sc_params=None,
-                 scale_embedded=False, carry_stages=False, interpolant=None):
+                 scale_embedded=False, carry_stages=False, interpolant=None,
+                 options=None):
         if n % 2:
             raise ValueError(_SECOND_ORDER)
         super().__init__(fun, tableau, n, dtype, sc_params=sc_params,
-                         carry_stages=carry_stages, interpolant=interpolant)
+                         carry_stages=carry_stages, interpolant=interpolant,
+                         options=options)
         self.m = n // 2
         self.fun_first_order = fun
         self.fun = self.afun
@@ -56,10 +58,29 @@ class RKNStepper(ERKStepper):
         """The acceleration rows of the first-order RHS."""
         return self.fun_first_order(t, y)[self.m:]
 
-    def validate_problem(self, fun_np, t0, y0):
-        raise NotImplementedError(
-            "the host driver's second-order problem check is not ported "
-            "yet: ROADMAP A7")
+    def validate_problem(self, fun_np, t0, y0, device=None):
+        """The host driver's probe of the second-order form: uncounted RHS
+        evaluations of ``fun_np`` (numpy in and out, evaluated where the
+        driver runs, so ``device`` is not needed) on one member's ``y0``,
+        as in the JAX stepper."""
+        m = self.m
+        y0 = np.asarray(y0)
+        f0 = np.asarray(fun_np(t0, y0))
+        if not np.all(y0[m:] == f0[:m]):
+            raise AssertionError(_SECOND_ORDER)
+        if np.all(y0[m:] == y0[:m]):
+            y_test = y0.copy()
+            y_test[m:] = y_test[m:] * (1 + 1e-8) + 1e-8
+            if not np.all(np.asarray(fun_np(t0, y_test))[:m]
+                          == y_test[m:]):
+                raise AssertionError(_SECOND_ORDER)
+        if self.tab.Ap is None:
+            y_test = y0.copy()
+            y_test[m:] = y_test[m:] * (1 + 1e-8) + 1e-8
+            if not np.all(np.asarray(fun_np(t0, y_test))[m:] == f0[m:]):
+                raise AssertionError(
+                    "This method is for velocity independent ODEs, but "
+                    "`fun` seems velocity dependent.")
 
     # -- dense output (carry_stages) ------------------------------------------
 

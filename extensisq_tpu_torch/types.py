@@ -208,11 +208,11 @@ class Method:
         return dataclasses.replace(self, options=merged)
 
     def __call__(self, fun, t0, y0, t_bound, **options):
-        """The scipy ``OdeSolver`` stepwise protocol of the JAX package
-        (``extensisq_tpu.ivp.Stepper``) is not ported yet."""
-        raise NotImplementedError(
-            "the stepwise host protocol (solve_ivp / Stepper) is not "
-            "ported yet: ROADMAP item A7")
+        """The scipy ``OdeSolver`` stepwise protocol:
+        ``BS5(fun, t0, y0, t_bound).step()`` (an
+        :class:`extensisq_tpu_torch.ivp.Stepper`)."""
+        from .ivp import Stepper
+        return Stepper(self, fun, t0, y0, t_bound, **options)
 
     def __repr__(self):
         return f"<extensisq_tpu_torch method {self.name}>"

@@ -222,12 +222,20 @@ def test_mu5nmb_damping_is_an_option():
 
 
 def test_unported_parts_name_their_roadmap_item():
-    """The host driver's problem check is A7; dense output and the
-    stiffness check (A4b) run: tests/test_torch_dense.py and
-    tests/test_torch_events.py hold them against JAX."""
+    """The host driver's problem check (A7) is ported: it takes Kepler's
+    [v, a] form and refuses another (tests/test_torch_ivp.py holds its
+    refusals against JAX's); dense output and the stiffness check (A4b)
+    run: tests/test_torch_dense.py and tests/test_torch_events.py hold
+    them against JAX."""
     st = build_stepper(P.Fi5N, kepler_torch, 4, torch.float64)
-    with pytest.raises(NotImplementedError, match="A7"):
-        st.validate_problem(None, 0.0, None)
+    y0 = kepler_y0(1)[0]
+
+    def fun_np(t, y):
+        return kepler_torch(torch.tensor([t]),
+                            torch.as_tensor(y)[:, None])[:, 0].numpy()
+    st.validate_problem(fun_np, 0.0, y0)
+    with pytest.raises(AssertionError, match="second order"):
+        st.validate_problem(lambda t, y: -np.asarray(y), 0.0, y0)
     out = solve_ensemble(kepler_torch, (0.0, 1.0), torch.tensor(kepler_y0(2)),
                          method="Fi5N", nfev_stiff_detect=100, save_steps=True,
                          max_steps=100)
