@@ -58,6 +58,15 @@ Drives each of the port's paths once:
   ``bands="rcm"`` on a relabelled chain against the dense path, a member
   rerun on the CPU; 64-member complex128 BS5, TRBDF2 (a callable complex
   Jacobian) and SWAG ensembles, each against the CPU;
+* the fused sensitivities (configs 7a and 7b, before the host phase): B1
+  and B2 with per-member ``params`` and B2's simultaneous corrector
+  (``block_base``) on a variational system, each against its plain version
+  on the card; 7a, 512 Robertson members (k1 in [0.04, 0.05], TRBDF2, t in
+  [0, 0.4], rtol 1e-4 / atol 1e-8) through ``ops.solve_fused_sens``, one
+  launch of B2, member 0 at the CVODES table's gates; 7b, the gradient of
+  sum(y_f[:, 0]) over 1,024 Van der Pol members (mu in [1, 2], BS5, t in
+  [0, 3], rtol 1e-5 / atol 1e-8) through ``ops.solve_fused_final``, two
+  launches of B1, against central differences of B1 with params;
 * the host driver, the sensitivities and the front door (last):
   ``solve_ivp`` on the card against the same call on CPU tensors (VdP
   with BS5, ``t_eval``, dense output and two events; the CKdisc decay;
@@ -81,7 +90,9 @@ size and in its one-block-per-member body).  Any mismatch raises; the script exi
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line
 before it lists each kernel with its launch count on its path (and
-through the front door, ``launches_solve_fused``), its
+through the front door, ``launches_solve_fused``; B1's and B2's entries
+also hold the sensitivity lines' launches, times and bounds, the keys
+ending in ``_7b`` and ``_7a``), its
 largest difference from the plain version, its time, the plain version's
 and its bound in ms (the least time the card could take: the larger of
 its bytes over the memory rate and its operations over the float32 peak).
@@ -504,7 +515,7 @@ def build_all(jobs):
                                              rhs.cuda_src)
         if kernel == "fused_erk":
             return _build.load_fused_erk(_fused_consts(BS5), rhs.n,
-                                         rhs.cuda_src)
+                                         rhs.cuda_src, rhs.k)
         if kernel == "fused_adams":
             return _build.load_fused_adams(_adams_consts(opt, rhs.n),
                                            rhs.cuda_src)
@@ -519,10 +530,10 @@ def build_all(jobs):
             return _build.load_fused_rkc(rhs.shape, n_par, rhs.cuda_src,
                                          None if rho is None
                                          else rho.cuda_src)
-        method, M = opt
+        method, M, *nb = opt
         return _build.load_fused_esdirk(_esdirk_consts(method),
                                         *_mass_setup(M, rhs.n), rhs.n,
-                                        rhs.cuda_src)
+                                        rhs.cuda_src, rhs.k, *nb)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -547,7 +558,8 @@ def _launch_esdirk(rhs, span, y0, kw, lanes):
                       kw.pop("first_step", None),
                       kw.pop("max_steps", 100_000),
                       kw.pop("compensated", False), kw.pop("max_step", None),
-                      lanes)
+                      lanes, None, kw.pop("params", None),
+                      kw.pop("block_base", None))
 
 
 def pend_start(n, device, t_bound=PEND_SPAN[1]):
@@ -993,11 +1005,12 @@ def small_launch(kind, rhs, span, y0, kw, lanes):
                           kw.pop("max_steps", 100_000),
                           kw.pop("max_step", None), lanes)[0]
     mod = FK if kind == "fused_erk" else FN
+    extra = (None, kw.pop("params", None)) if kind == "fused_erk" else ()
     return mod._launch(rhs, span, y0, kw.pop("method", None), kw.pop("rtol"),
                        kw.pop("atol"), kw.pop("first_step", None),
                        kw.pop("max_steps", 100_000),
                        kw.pop("compensated", False),
-                       kw.pop("max_step", None), lanes)[0]
+                       kw.pop("max_step", None), lanes, *extra)[0]
 
 
 def hold_small_lanes(kind, label, rhs, span, y0, kw, k, shape):
@@ -3418,6 +3431,327 @@ def banded_complex_path(smi):
 # (gates 1e-8).  The decay takes a first step: without it, h_start's pow
 # parts the cascade's choices at the switches (77 steps on the card, 79 on
 # the CPU)
+# -- the fused sensitivities (configs 7a and 7b) --------------------------
+SENS_ROB_N = 512
+SENS_ROB_SPAN = (0.0, 0.4)
+SENS_ROB_TOL = dict(rtol=1e-4, atol=1e-8)
+SENS_VDP_N = 1024
+SENS_VDP_SPAN = (0.0, 3.0)
+SENS_VDP_TOL = dict(rtol=1e-5, atol=1e-8)
+SENS_FD_TOL = dict(rtol=1e-6, atol=1e-9)
+SENS_FD_EPS = 1e-2
+# JAX's gates (validation/benchmarks.py:825-835, 858-869): member 0 of 7a
+# against the CVODES table, y_f within 5e-4 relative and each dy/dp_j
+# column, scaled by its largest entry, within 2e-2; 7b's dL/dmu within
+# 5e-3 of central differences of B1 with params
+SENS_CVODES_RTOL = 5e-4
+SENS_CVODES_SCALED = 2e-2
+SENS_FD_GATE = 5e-3
+CVODES_YF = np.array([9.8517e-01, 3.3864e-05, 1.4794e-02])
+CVODES_SENS = np.array([[-3.5595e-01, 9.5428e-08, -1.5832e-11],
+                        [3.9026e-04, -2.1310e-10, -5.2900e-13],
+                        [3.5556e-01, -9.5215e-08, 1.6361e-11]])
+# kernel against its plain version on the card: (max |dy|, relative
+# difference of mean nsteps, max |dnsteps|) of each check, and for 7a the
+# largest difference of a dy/dp_j column over its largest entry.  Measured
+# on an H100 (tools/probe_sens.py): vdp params 2.2e-4, 3.8e-4, 1; vdp
+# variational 4.8e-4, 0, 1; stiff params 3.2e-6, 0, 0; robertson
+# variational 1.6e-5, 0, 0 and 4.5e-4 scaled.  The gates allow 3-5x
+SENS_KERNEL_GATES = {"vdp params": (1e-3, 2e-3, 2),
+                     "vdp variational": (2e-3, 2e-3, 2),
+                     "stiff params": (1e-5, 2e-3, 1),
+                     "robertson variational": (5e-5, 2e-3, 1)}
+SENS_SCALED_GATE = 2e-3
+# float32 operations per evaluation of the variational Robertson system
+# (n = 3, k = 3: 12 rows) in B2, counted from the source as OPS_PER_EVAL:
+# the rhs (8) and three dual evaluations (~20 each), the blockwise replay
+# of the 3 x 3 factor over four blocks (~72), the Newton update's scaled
+# norm over 12 rows (~96); the per-attempt Jacobian (three duals of the
+# base rhs) and factor are spread over the attempt's evaluations
+SENS_ESDIRK_OPS = 250
+# the variational Van der Pol system of 7b (k = 1 and the 2 initial
+# condition blocks: 8 rows): the rhs (5) and three dual evaluations (~13
+# each) per 8 elements of a stage row
+SENS_VDP_AUG_RHS_OPS = 44 / 8
+
+VDP_P_CUDA = """
+template <class T>
+__device__ void rhs(T t, const T* y, T* dy, const T* p) {
+  dy[0] = y[1];
+  dy[1] = p[0] * (1.0f - y[0] * y[0]) * y[1] - y[0];
+}
+"""
+ROB_P_CUDA = """
+template <class T>
+__device__ void rhs(T t, const T* y, T* dy, const T* p) {
+  const T r1 = p[0] * y[0];
+  const T r2 = p[1] * y[1] * y[2];
+  const T r3 = p[2] * y[1] * y[1];
+  dy[0] = -r1 + r2;
+  dy[1] = r1 - r2 - r3;
+  dy[2] = r3;
+}
+"""
+STIFF_P_CUDA = """
+template <class T>
+__device__ void rhs(T t, const T* y, T* dy, const T* p) {
+  dy[0] = -p[0] * (y[0] - cos(t));
+}
+"""
+
+
+def vdp_p(t, y, p):
+    return torch.stack([y[1], p[0] * (1 - y[0] ** 2) * y[1] - y[0]])
+
+
+def robertson_p(t, y, p):
+    r1 = p[0] * y[0]
+    r2 = p[1] * y[1] * y[2]
+    r3 = p[2] * y[1] * y[1]
+    return torch.stack([-r1 + r2, r1 - r2 - r3, r3])
+
+
+def stiff_p(t, y, p):
+    return torch.stack([-p[0] * (y[0] - torch.cos(t))])
+
+
+def sens_rhs():
+    """The sensitivity phase's right-hand sides (FusedRHS with their
+    parameter counts) and the variational systems solve_fused_sens builds
+    from them: 7b's backward (k = 1 with the initial-condition blocks) and
+    7a's (k = 3)."""
+    from extensisq_tpu_torch.ops import FusedRHS
+    from extensisq_tpu_torch.ops.fused_sens import _aug_rhs
+    vdp = FusedRHS(vdp_p, VDP_P_CUDA, 2, 1)
+    rob = FusedRHS(robertson_p, ROB_P_CUDA, 3, 3)
+    return {"vdp": vdp, "rob": rob,
+            "stiff": FusedRHS(stiff_p, STIFF_P_CUDA, 1, 1),
+            "vdp_aug": _aug_rhs(vdp, 2, 1, 2),
+            "rob_aug": _aug_rhs(rob, 3, 3, 0)}
+
+
+def sens_builds(rhs):
+    """(kernel, label, FusedRHS, options) of the phase's variants."""
+    from extensisq_tpu_torch import Kv3I, TRBDF2
+    return [("fused_erk", "vdp params", rhs["vdp"], None),
+            ("fused_erk", "vdp variational", rhs["vdp_aug"], None),
+            ("fused_esdirk", "stiff params Kv3I", rhs["stiff"],
+             (Kv3I, None)),
+            ("fused_esdirk", "robertson variational TRBDF2 block_base 3",
+             rhs["rob_aug"], (TRBDF2, None, 3))]
+
+
+def sens_inputs():
+    """7a's 512 Robertson members (k1 in [0.04, 0.05], member 0 at the
+    nominal values) and 7b's 1,024 Van der Pol members (mu in [1, 2],
+    y0 = (2, 0)) on the card, with the initial states of their variational
+    systems as solve_fused_sens builds them: ``(y0a, pa, Ya, y0b, mus,
+    Yb)``."""
+    y0a = torch.tensor([[1.0, 0.0, 0.0]], device="cuda").repeat(
+        SENS_ROB_N, 1)
+    pa = np.tile([0.04, 1e4, 3e7], (SENS_ROB_N, 1)).astype(np.float32)
+    pa[:, 0] = np.linspace(0.04, 0.05, SENS_ROB_N)
+    pa[0, 0] = 0.04
+    y0b = torch.zeros(SENS_VDP_N, 2, device="cuda")
+    y0b[:, 0] = 2.0
+    mus = np.linspace(1.0, 2.0, SENS_VDP_N).astype(np.float32)[:, None]
+    Ya = torch.cat([y0a, torch.zeros(SENS_ROB_N, 9, device="cuda")], 1)
+    Yb = torch.cat([y0b, torch.zeros_like(y0b),
+                    torch.eye(2, device="cuda").reshape(1, 4).repeat(
+                        SENS_VDP_N, 1)], 1)
+    return (y0a, torch.tensor(pa, device="cuda"), Ya, y0b,
+            torch.tensor(mus, device="cuda"), Yb)
+
+
+def sens_kernel_checks(R, y0a, pa, ya_aug, y0b, mus, yb_aug):
+    """B1 and B2 with params, B1 on 7b's variational system and B2's
+    simultaneous corrector on 7a's, each against its plain version on the
+    card at the phase's sizes, and each bit for bit against the other body
+    (one thread per member, or a lane group).  Returns the largest |dy| of
+    the B1 and of the B2 checks."""
+    from extensisq_tpu_torch import BS5, Kv3I, TRBDF2
+    from extensisq_tpu_torch.ops import (fused_erk_reference,
+                                         fused_esdirk_reference,
+                                         solve_fused_erk, solve_fused_esdirk)
+    ks = torch.linspace(50.0, 500.0, SENS_VDP_N, device="cuda")[:, None]
+    y0s = torch.zeros(SENS_VDP_N, 1, device="cuda")
+    erk = [("vdp params", R["vdp"], y0b, mus),
+           ("vdp variational", R["vdp_aug"], yb_aug, mus)]
+    errs = {"fused_erk": 0.0, "fused_esdirk": 0.0}
+    for label, rhs, y0, par in erk:
+        kw = dict(method=BS5, params=par, **SENS_VDP_TOL)
+        k, _, dy, _ = hold_against_plain(
+            "sens", label,
+            lambda: solve_fused_erk(rhs, SENS_VDP_SPAN, y0, **kw),
+            lambda: fused_erk_reference(rhs, SENS_VDP_SPAN, y0, **kw),
+            *SENS_KERNEL_GATES[label])
+        hold_small_lanes("fused_erk", label, rhs, SENS_VDP_SPAN, y0, kw, k,
+                         solve_fused_erk.last_shape)
+        errs["fused_erk"] = max(errs["fused_erk"], dy)
+    esd = [("stiff params", R["stiff"], (0.0, 1.0), y0s, ks,
+            dict(method=Kv3I, rtol=1e-4, atol=1e-6)),
+           ("robertson variational", R["rob_aug"], SENS_ROB_SPAN, ya_aug,
+            pa, dict(method=TRBDF2, block_base=3, **SENS_ROB_TOL))]
+    for label, rhs, span, y0, par, kw in esd:
+        kw = dict(kw, params=par)
+        k, r, dy, _ = hold_against_plain(
+            "sens", label,
+            lambda: solve_fused_esdirk(rhs, span, y0, **kw),
+            lambda: fused_esdirk_reference(rhs, span, y0, **kw),
+            *SENS_KERNEL_GATES[label])
+        shape = solve_fused_esdirk.last_shape
+        other = 1 if shape[0] > 1 else 4
+        same = all(torch.equal(a, b) for a, b in zip(
+            k, _launch_esdirk(rhs, span, y0, kw, other)[0]))
+        print(f"esdirk [{label}, {y0.shape[0]}]: "
+              f"{shape_text(solve_fused_esdirk, y0.shape[0])}; {other} "
+              f"lanes bit-identical {same}")
+        check(same, f"esdirk {label}: the lane body and the other differ")
+        errs["fused_esdirk"] = max(errs["fused_esdirk"], dy)
+        if label == "robertson variational":
+            S_k = k[0][:, 3:].reshape(-1, 3, 3)
+            S_r = r[0][:, 3:].reshape(-1, 3, 3)
+            scaled = ((S_k - S_r).abs().amax((0, 2))
+                      / S_r.abs().amax((0, 2))).max().item()
+            print(f"sens [{label}]: kernel vs plain, largest dy/dp_j "
+                  f"column difference over its largest entry {scaled:.3e} "
+                  f"(gate {SENS_SCALED_GATE:.0e})")
+            check(scaled <= SENS_SCALED_GATE,
+                  f"{label}: scaled sensitivities differ by {scaled}")
+    return errs
+
+
+def sens_path():
+    """Configs 7a and 7b on the card: the kernel checks, 7a's 512-member
+    stiff forward sensitivities through B2's simultaneous corrector at the
+    CVODES gates, and 7b's gradient of a 1,024-member Van der Pol sweep
+    through solve_fused_final (two B1 launches) against central
+    differences; the lines' warm walls, the kernels' device ms and the
+    plain versions' walls.  Returns the ``kernels`` keys of B1 and B2."""
+    from extensisq_tpu_torch import BS5, TRBDF2
+    from extensisq_tpu_torch.ops import (fused_erk_reference,
+                                         fused_esdirk_reference,
+                                         solve_fused_erk, solve_fused_esdirk,
+                                         solve_fused_final, solve_fused_sens)
+    from extensisq_tpu_torch.ops.fused_erk import _fused_consts
+    start = time.perf_counter()
+    R = sens_rhs()
+    y0a, pa, Ya, y0b, mus, Yb = sens_inputs()
+    errs = sens_kernel_checks(R, y0a, pa, Ya, y0b, mus, Yb)
+
+    # 7a: one launch of B2 in block_base mode for all 512 members
+    solve_fused_erk.launches = 0
+    solve_fused_esdirk.launches = 0
+    t0 = time.perf_counter()
+    yf, Sp, Sy0, st, ns, nf = solve_fused_sens(
+        R["rob"], SENS_ROB_SPAN, y0a, params=pa, method=TRBDF2,
+        **SENS_ROB_TOL)
+    torch.cuda.synchronize()
+    a_s = time.perf_counter() - t0
+    la = (solve_fused_erk.launches, solve_fused_esdirk.launches)
+    check(la == (0, 1), f"7a: launches (B1, B2) {la}, expected (0, 1)")
+    check(bool((st == 1).all()), "7a: not every member finished")
+    check(Sp.shape == (SENS_ROB_N, 3, 3) and Sy0 is None
+          and bool(torch.isfinite(Sp).all()), "7a: bad sensitivities")
+    y_0 = yf[0].double().cpu().numpy()
+    S_0 = Sp[0].double().cpu().numpy()
+    d_yf = np.max(np.abs(y_0 - CVODES_YF) / np.abs(CVODES_YF))
+    sc = np.abs(CVODES_SENS).max(0)
+    d_S = np.max(np.abs(S_0 - CVODES_SENS) / sc)
+    print(f"7a Robertson x{SENS_ROB_N} (TRBDF2, 3 params, block_base 3): "
+          f"{a_s * 1e3:.1f} ms first call, launches (B1, B2) {la}, mean "
+          f"nsteps {ns.double().mean():.2f}, max {int(ns.max())}; member 0 "
+          f"vs CVODES: y_f rel {d_yf:.3e} (gate {SENS_CVODES_RTOL:.0e}), "
+          f"scaled S {d_S:.3e} (gate {SENS_CVODES_SCALED:.0e})")
+    check(d_yf <= SENS_CVODES_RTOL, "7a: y_f off the CVODES table")
+    check(d_S <= SENS_CVODES_SCALED, "7a: S off the CVODES table")
+
+    # 7b: the value and gradient of a 1,024-member sweep, two B1 launches
+    def grad_7b():
+        P = mus.clone().requires_grad_(True)
+        out = solve_fused_final(R["vdp"], SENS_VDP_SPAN, y0b, P, BS5,
+                                **SENS_VDP_TOL)
+        val = out[:, 0].sum()
+        g, = torch.autograd.grad(val, P)
+        return val.detach(), g
+
+    solve_fused_erk.launches = 0
+    solve_fused_esdirk.launches = 0
+    t0 = time.perf_counter()
+    val, g = grad_7b()
+    torch.cuda.synchronize()
+    b_s = time.perf_counter() - t0
+    lb = (solve_fused_erk.launches, solve_fused_esdirk.launches)
+    check(lb == (2, 0), f"7b: launches (B1, B2) {lb}, expected (2, 0)")
+    check(bool(torch.isfinite(g).all()), "7b: non-finite gradient")
+    kw = dict(method=BS5, **SENS_FD_TOL)
+    yp = solve_fused_erk(R["vdp"], SENS_VDP_SPAN, y0b,
+                         params=mus + SENS_FD_EPS, **kw)
+    ym = solve_fused_erk(R["vdp"], SENS_VDP_SPAN, y0b,
+                         params=mus - SENS_FD_EPS, **kw)
+    check(bool((yp[1] == 1).all() and (ym[1] == 1).all()),
+          "7b: a central-difference run did not finish")
+    fd = (yp[0][:, 0] - ym[0][:, 0]) / (2 * SENS_FD_EPS)
+    d_fd = (g[:, 0] - fd).abs().max().item()
+    print(f"7b value_and_grad VdP x{SENS_VDP_N} (BS5, 2 launches): "
+          f"{b_s * 1e3:.1f} ms first call, launches (B1, B2) {lb}, loss "
+          f"{float(val):.6f}; dL/dmu vs central differences (eps "
+          f"{SENS_FD_EPS:.0e}) max |d| {d_fd:.3e} (gate {SENS_FD_GATE:.0e})")
+    check(d_fd <= SENS_FD_GATE, "7b: gradient off central differences")
+
+    # times: warm walls of the two lines, the kernels' device time and the
+    # plain versions' walls (one warm run each)
+    kwa = dict(method=TRBDF2, params=pa, block_base=3, **SENS_ROB_TOL)
+    kwb = dict(method=BS5, params=mus, **SENS_VDP_TOL)
+    a_ms = wall_ms(lambda: solve_fused_sens(
+        R["rob"], SENS_ROB_SPAN, y0a, params=pa, method=TRBDF2,
+        **SENS_ROB_TOL), reps=3)
+    b_ms = wall_ms(grad_7b, reps=3)
+    a_dev = event_ms(lambda: solve_fused_esdirk(R["rob_aug"], SENS_ROB_SPAN,
+                                                Ya, **kwa))
+    b_fwd = event_ms(lambda: solve_fused_erk(R["vdp"], SENS_VDP_SPAN, y0b,
+                                             **kwb))
+    b_bwd = event_ms(lambda: solve_fused_erk(R["vdp_aug"], SENS_VDP_SPAN, Yb,
+                                             **kwb))
+    a_plain = wall_ms(lambda: fused_esdirk_reference(
+        R["rob_aug"], SENS_ROB_SPAN, Ya, **kwa), reps=1)
+    b_plain = wall_ms(lambda: (
+        fused_erk_reference(R["vdp"], SENS_VDP_SPAN, y0b, **kwb),
+        fused_erk_reference(R["vdp_aug"], SENS_VDP_SPAN, Yb, **kwb)), reps=1)
+    print(f"time [7a, B2 block_base 3] {SENS_ROB_N} members: "
+          f"{a_ms:.3f} ms wall (solve_fused_sens), {a_dev:.4f} ms device "
+          f"(CUDA events, the launch), plain version {a_plain:.1f} ms wall")
+    print(f"time [7b, two B1 launches] {SENS_VDP_N} members: {b_ms:.3f} ms "
+          f"wall (value and gradient), device {b_fwd:.4f} ms forward + "
+          f"{b_bwd:.4f} ms backward (CUDA events), plain versions "
+          f"{b_plain:.1f} ms wall")
+
+    # bounds: the states in and out once, the params once; operations from
+    # this run's evaluations
+    fwd = solve_fused_erk(R["vdp"], SENS_VDP_SPAN, y0b, **kwb)
+    bwd = solve_fused_erk(R["vdp_aug"], SENS_VDP_SPAN, Yb, **kwb)
+    k_bs5 = _fused_consts(BS5)
+    start_b = 2 + min(2 + 1, 3)
+    ops_b = (rk_ops(k_bs5, False, 2, RHS_OPS["vdp"], int(fwd[3].sum()),
+                    SENS_VDP_N, start_b)
+             + rk_ops(k_bs5, False, 8, SENS_VDP_AUG_RHS_OPS,
+                      int(bwd[3].sum()), SENS_VDP_N, 2 + min(8 + 1, 3)))
+    bound_b = bound_entry(SENS_VDP_N * 4 * (2 * 2 + 2 * 8 + 2 + 2 * 3),
+                          ops_b)
+    bound_a = bound_entry(SENS_ROB_N * 4 * (2 * 12 + 3 + 3),
+                          int(nf.sum()) * SENS_ESDIRK_OPS)
+    print(f"sensitivity phase: {time.perf_counter() - start:.1f} s")
+    return ({"launches_7b": lb[0], "max_abs_err_params": errs["fused_erk"],
+             "ms_7b": b_ms, "device_ms_7b": b_fwd + b_bwd,
+             "plain_ms_7b": b_plain, "bound_ms_7b": bound_b["bound_ms"],
+             "bound_by_7b": bound_b["bound_by"]},
+            {"launches_7a": la[1],
+             "max_abs_err_block_base": errs["fused_esdirk"],
+             "ms_7a": a_ms, "device_ms_7a": a_dev, "plain_ms_7a": a_plain,
+             "bound_ms_7a": bound_a["bound_ms"],
+             "bound_by_7a": bound_a["bound_by"]})
+
+
 HOST_GATE = 1e-9
 HOST_GATES = {"pleiades-cfmr7osc": 1e-6, "kepler-fi5n": 1e-8,
               "swdec-ckdisc": 1e-8}
@@ -3766,7 +4100,8 @@ def main():
                ("fused_erk", "cubic", CUBIC, None)] + esdirk_builds()
               + adams_builds(adams_rhs()) + rkc_builds(rkc_rhs())
               + rkn_grid_builds(rkn_grid_rhs())
-              + ckdisc_builds(ckdisc_rhs()) + mid_builds(mid_rhs()))
+              + ckdisc_builds(ckdisc_rhs()) + mid_builds(mid_rhs())
+              + sens_builds(sens_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
@@ -3955,7 +4290,11 @@ def main():
     # 4d, times
     mid = mid_path()
 
-    # 11. the host driver (solve_ivp, the Stepper), the sensitivities and
+    # 11. the fused sensitivities: params on B1 and B2, B2's simultaneous
+    # corrector, configs 7a and 7b
+    sens_erk, sens_esdirk = sens_path()
+
+    # 12. the host driver (solve_ivp, the Stepper), the sensitivities and
     # the front door ops.solve_fused over every kernel
     door = host_path(smi, VDP)
 
@@ -3977,8 +4316,8 @@ def main():
         "lanes_compensated": comp_shape[0],
         "block_members_compensated": comp_shape[1],
     }, **bound_entry(N_MEMBERS * (2 * 4 * 2 + 4 * 3),
-                     int(plain[3].sum()) * OPS_PER_EVAL["fused_erk"])),
-        esdirk, adams] + rkc + rkn + ck + mid
+                     int(plain[3].sum()) * OPS_PER_EVAL["fused_erk"]),
+        **sens_erk), dict(esdirk, **sens_esdirk), adams] + rkc + rkn + ck + mid
     for k in kernels:
         # the launches of the front door phase beside those of the path
         k["launches_solve_fused"] = door[k["name"]]

@@ -34,14 +34,17 @@
 //
 // The tableau (float32, rounded as the JAX kernel rounds it) and the user's
 // right-hand side come from the generated header fused_erk_config.cuh:
-//   namespace tab { N, S, FSAL, A, B, C, E, controller constants, ... }
+//   namespace tab { N, NPAR, S, FSAL, A, B, C, E, controller constants, ... }
 //   __device__ void rhs(float t, const float* y, float* dy);
 // (or the template form rhs<T> of the implicit kernels, instantiated as
-// rhs<float>).  Weights are read through constexpr accessors at compile
-// time, so zero weights drop out of the unrolled sums as they do at the JAX
-// trace.  The sums, the double-single helpers and the starting step are
-// shared with the implicit kernel (rk_common.cuh, hstart.cuh), the step
-// control with the RKN and mid-size kernels (rk_control.cuh).
+// rhs<float>); with NPAR = K > 0 per-member parameters, rhs takes a fourth
+// argument, the member's K parameters (member_rhs.cuh), which a member
+// loads into registers once, before its loop.  Weights are read through
+// constexpr accessors at compile time, so zero weights drop out of the
+// unrolled sums as they do at the JAX trace.  The sums, the double-single
+// helpers and the starting step are shared with the implicit kernel
+// (rk_common.cuh, hstart.cuh), the step control with the RKN and mid-size
+// kernels (rk_control.cuh).
 //
 // Numerics, each handled where it appears:
 //  * FMA contraction.  nvcc contracts a*b + c into one fma by default.  That
@@ -64,8 +67,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dual.cuh"
 #include "fused_erk_config.cuh"
 #include "hstart.cuh"
+#include "member_rhs.cuh"
 #include "rk_common.cuh"
 #include "rk_control.cuh"
 #include "rk_lanes.cuh"
@@ -101,10 +106,12 @@ struct Row {
 };
 
 using Stages = float[S + 1][N];
+using Rhs = MemberRhs<tab::NPAR>;
 
 // Stages I..S-1 of one attempt; K[0] holds f(t, y).
 template <bool COMP, int I>
-__device__ __forceinline__ void stages(float t, float h, const float (&y)[N],
+__device__ __forceinline__ void stages(const Rhs& fn, float t, float h,
+                                       const float (&y)[N],
                                        const float (&y_lo)[N], Stages& K,
                                        rk::Clock& clk) {
   if constexpr (I < S) {
@@ -117,9 +124,9 @@ __device__ __forceinline__ void stages(float t, float h, const float (&y)[N],
     }
     clk.mark(rk::kStageSums);
     constexpr float c = weight(kRowC, I);
-    rhs(t + c * h, arg, K[I]);
+    fn(t + c * h, arg, K[I]);
     clk.mark(rk::kRhs);
-    stages<COMP, I + 1>(t, h, y, y_lo, K, clk);
+    stages<COMP, I + 1>(fn, t, h, y, y_lo, K, clk);
   }
 }
 
@@ -128,15 +135,18 @@ using rk::OneLane;
 using rk::Out;
 
 // The whole integration of one member by the group grp of G lanes (rank(),
-// shfl(v, src); OneLane at G = 1) from its initial state y0; lane 0 writes
-// the results.  At G = 1 the norm and the controller run as one thread
+// shfl(v, src); OneLane at G = 1) from its initial state y0 with its
+// parameters par (tab::NPAR floats; unread when there are none); lane 0
+// writes the results.  At G = 1 the norm and the controller run as one thread
 // runs them; at G > 1 their divisions and powers are split over the lanes
 // (rk_lanes.cuh), with the same bits.
 template <int G, bool COMP, class Group>
 __device__ __forceinline__ void integrate(Group& grp,
                                           const float* __restrict__ y0,
+                                          const float* __restrict__ par,
                                           const Launch& L, int member,
                                           const Out& out) {
+  const Rhs fn(par);
   const float tf = L.tf;
   const float rtol = L.rtol;
   const float atol = L.atol;
@@ -152,13 +162,14 @@ __device__ __forceinline__ void integrate(Group& grp,
   const float dir = span > 0.0f ? 1.0f : (span < 0.0f ? -1.0f : 0.0f);
   float t = L.t0;
   float t_lo = 0.0f;
-  rhs(t, y, f);
+  fn(t, y, f);
   rk::StepControl ctl{L.h0};
   int nfev = 1;
   if (L.use_hstart) {
     // max_step is +inf when the caller gave none
     const float bq = t + dir * fminf(fabsf(tf - t), max_step);
-    ctl.h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, f, rtol, atol));
+    ctl.h_abs =
+        fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, f, rtol, atol, fn));
     nfev = 2 + (N + 1 < 3 ? N + 1 : 3);
   }
 
@@ -177,7 +188,7 @@ __device__ __forceinline__ void integrate(Group& grp,
 #pragma unroll
     for (int k = 0; k < N; ++k) K[0][k] = f[k];
     clk.mark(rk::kLoop);
-    stages<COMP, 1>(t, h, y, y_lo, K, clk);
+    stages<COMP, 1>(fn, t, h, y, y_lo, K, clk);
     float y_new[N], y_lo_new[N], err[N];
     if constexpr (COMP) {
       float inc_s[N], inc_c[N];
@@ -199,7 +210,7 @@ __device__ __forceinline__ void integrate(Group& grp,
       }
     }
     clk.mark(rk::kSolution);
-    if constexpr (tab::FSAL) rhs(t + h, y_new, K[S]);
+    if constexpr (tab::FSAL) fn(t + h, y_new, K[S]);
     clk.mark(rk::kRhs);
     if constexpr (COMP) {
       float e_s[N], e_c[N];
@@ -274,7 +285,7 @@ __device__ __forceinline__ void integrate(Group& grp,
 #pragma unroll
         for (int k = 0; k < N; ++k) f[k] = K[S][k];
       } else {
-        rhs(t_new, y_new, f);
+        fn(t_new, y_new, f);
         nfev += 1;
       }
 #pragma unroll
@@ -309,10 +320,11 @@ __device__ __forceinline__ void integrate(Group& grp,
 // fill the card.
 template <bool COMP>
 __device__ void integrate_thread(const float* __restrict__ y0,
+                                 const float* __restrict__ par,
                                  const Launch& L, int member,
                                  const Out& out) {
   OneLane one;
-  integrate<1, COMP>(one, y0, L, member, out);
+  integrate<1, COMP>(one, y0, par, L, member, out);
 }
 
 }  // namespace
@@ -323,31 +335,34 @@ __device__ void integrate_thread(const float* __restrict__ y0,
 namespace {
 
 template <int G, bool COMP>
-__global__ void fused_erk_kernel(const float* __restrict__ y0, Out out,
+__global__ void fused_erk_kernel(const float* __restrict__ y0,
+                                 const float* __restrict__ par, Out out,
                                  int B, int block_members, Launch L) {
   const int member =
       blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
   if (member >= B) return;  // ragged last block: no member padding
   const float* y0m = y0 + static_cast<size_t>(member) * N;
+  const float* parm = par + static_cast<size_t>(member) * tab::NPAR;
   if constexpr (G == 1) {
-    integrate_thread<COMP>(y0m, L, member, out);
+    integrate_thread<COMP>(y0m, parm, L, member, out);
   } else {
     LaneGroup<G> grp;
-    integrate<G, COMP>(grp, y0m, L, member, out);
+    integrate<G, COMP>(grp, y0m, parm, L, member, out);
   }
 }
 
 template <int G>
-int launch(const float* y0, const Out& out, int B, const Launch& L,
-           int compensated, int block_members, cudaStream_t s) {
+int launch(const float* y0, const float* par, const Out& out, int B,
+           const Launch& L, int compensated, int block_members,
+           cudaStream_t s) {
   const int blocks = (B + block_members - 1) / block_members;
   const int threads = block_members * G;
   if (compensated) {
-    fused_erk_kernel<G, true><<<blocks, threads, 0, s>>>(y0, out, B,
-                                                         block_members, L);
+    fused_erk_kernel<G, true><<<blocks, threads, 0, s>>>(
+        y0, par, out, B, block_members, L);
   } else {
-    fused_erk_kernel<G, false><<<blocks, threads, 0, s>>>(y0, out, B,
-                                                          block_members, L);
+    fused_erk_kernel<G, false><<<blocks, threads, 0, s>>>(
+        y0, par, out, B, block_members, L);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -367,8 +382,10 @@ extern "C" int fused_erk_sections(void* sections) {
 // Launches block_members members per block, `lanes` (1, 2, 4 or 8)
 // threads per member, on the caller's stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for another lane count); the
-// wrapper raises on anything but 0.
-extern "C" int fused_erk_launch(const void* y0, void* y_out, void* status,
+// wrapper raises on anything but 0.  params is (B, tab::NPAR) float32,
+// row-major (null when NPAR is 0).
+extern "C" int fused_erk_launch(const void* y0, const void* params,
+                                void* y_out, void* status,
                                 void* nstep, void* nfev, int B, float t0,
                                 float tf, float rtol, float atol, float h0,
                                 int use_hstart, float max_step, int max_steps,
@@ -376,18 +393,23 @@ extern "C" int fused_erk_launch(const void* y0, void* y_out, void* status,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* y0f = static_cast<const float*>(y0);
+  const float* par = static_cast<const float*>(params);
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
   const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
   switch (lanes) {
     case 1:
-      return launch<1>(y0f, out, B, L, compensated, block_members, s);
+      return launch<1>(y0f, par, out, B, L, compensated,
+                         block_members, s);
     case 2:
-      return launch<2>(y0f, out, B, L, compensated, block_members, s);
+      return launch<2>(y0f, par, out, B, L, compensated,
+                         block_members, s);
     case 4:
-      return launch<4>(y0f, out, B, L, compensated, block_members, s);
+      return launch<4>(y0f, par, out, B, L, compensated,
+                         block_members, s);
     case 8:
-      return launch<8>(y0f, out, B, L, compensated, block_members, s);
+      return launch<8>(y0f, par, out, B, L, compensated,
+                         block_members, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

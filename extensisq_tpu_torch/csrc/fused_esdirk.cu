@@ -50,9 +50,25 @@
 //
 // The method, the mass-matrix setup and the user's right-hand side come
 // from the generated header fused_esdirk_config.cuh:
-//   namespace tab { N, S, D, KAPPA, controller constants,
+//   namespace tab { N, NB, NPAR, S, D, KAPPA, controller constants,
 //                   A(i,j), AZ(i,j), C(i), E(j), MASS(i), ALG(i), V(i,j), ... }
 //   template <class T> __device__ void rhs(T t, const T* y, T* dy);
+// with NPAR = K > 0 per-member parameters rhs takes a fourth argument, the
+// member's parameters as T (member_rhs.cuh).
+//
+// The simultaneous corrector (NB < N, ops/fused_sens.py's variational
+// systems, CVODES's SIM scheme): the state is N = NB x blocks rows whose
+// Jacobian is block lower triangular with every diagonal block the base
+// block J = df/dy of the first NB rows.  J comes from base_rhs<Dual> over
+// those rows only (the variational rhs evaluates the user's rhs on duals
+// itself, and a dual of duals is not needed), W = I - h d J is NB x NB and
+// factored once per attempt, and every Newton iteration and the error
+// filter replay the one factor over each block of NB rows.  The neglected
+// coupling below the diagonal blocks only lags the Newton rate, which the
+// rate and divergence tests handle; the norms run over all N rows.  Plain
+// ODEs only (no mass matrix).  The lanes of a group split the NB columns of
+// the base block (lanes past NB idle there) and the N divisions of every
+// norm.
 // The accessors are constexpr functions returning float32 literals, so
 // after unrolling every coefficient is a constant and zero weights drop out
 // of the sums as they do at the JAX trace.
@@ -78,12 +94,17 @@
 #include "fused_esdirk_config.cuh"
 #include "esdirk_control.cuh"
 #include "hstart.cuh"
+#include "member_rhs.cuh"
 #include "rk_common.cuh"
 
 namespace {
 
 using tab::N;
+using tab::NB;  // rows of the Newton matrix: N, or the base block's
 using tab::S;
+using Rhs = MemberRhs<tab::NPAR>;
+static_assert(N % NB == 0 && NB * (NB - 1) / 2 <= 32,
+              "the base block divides N, and its swaps fit one word");
 
 constexpr int kRunning = 0;
 constexpr int kFinished = 1;
@@ -125,14 +146,15 @@ __device__ __forceinline__ void mat_rows(const T (&x)[N], T (&out)[N]) {
 // The system the kernel integrates: the user's rhs, or for a dense/hidden
 // mass matrix the unit-mass rotated system w' = diag(1/s) U^T f(t, V w).
 template <class T>
-__device__ __forceinline__ void fun1(T t, const T (&w)[N], T (&dw)[N]) {
+__device__ __forceinline__ void fun1(const Rhs& fn, T t, const T (&w)[N],
+                                     T (&dw)[N]) {
   if constexpr (tab::ROT) {
     T y[N], f[N];
     mat_rows<Mat::V>(w, y);
-    rhs(t, y, f);
+    fn(t, y, f);
     mat_rows<Mat::UTS>(f, dw);
   } else {
-    rhs(t, w, dw);
+    fn(t, w, dw);
   }
 }
 
@@ -155,30 +177,41 @@ __device__ __forceinline__ int opaque(int j) {
   return j;
 }
 
-// J[i][j] = d fun1_i / d y_j at (t, y) in every lane of the group grp of G
-// lanes (rank(), shfl(v, src)): lane r evaluates rhs<Dual> with the
-// tangent seeded at the columns r, r + G, ... (none past N), and each
-// entry comes from its column's lane.
-template <int G, class Group>
-__device__ __forceinline__ void jacobian(Group& grp, float t,
+// J[i][j] = d fun1_i / d y_j (i, j < NB) at (t, y) in every lane of the
+// group grp of G lanes (rank(), shfl(v, src)): lane r evaluates rhs<Dual>
+// (base_rhs<Dual> over the base block when NB < N) with the tangent seeded
+// at the columns r, r + G, ... (none past NB), and each entry comes from
+// its column's lane.  D is Dual; a parameter keeps the unused branch
+// uninstantiated.
+template <int G, class Group, class D = Dual>
+__device__ __forceinline__ void jacobian(Group& grp, const Rhs& fn, float t,
                                          const float (&y)[N],
-                                         float (&J)[N][N]) {
-  constexpr int JC = (N + G - 1) / G;  // columns per lane
-  float col[JC][N];
+                                         float (&J)[NB][NB]) {
+  constexpr int JC = (NB + G - 1) / G;  // columns per lane
+  float col[JC][NB];
 #pragma unroll
   for (int q = 0; q < JC; ++q) {
     const int c = opaque(q * G + grp.rank());
-    Dual yd[N], fd[N];
+    if constexpr (NB < N) {
+      D yd[NB], fd[NB];
 #pragma unroll
-    for (int k = 0; k < N; ++k) yd[k] = Dual(y[k], k == c ? 1.0f : 0.0f);
-    fun1(Dual(t), yd, fd);
+      for (int k = 0; k < NB; ++k) yd[k] = D(y[k], k == c ? 1.0f : 0.0f);
+      fn.base(D(t), yd, fd);
 #pragma unroll
-    for (int i = 0; i < N; ++i) col[q][i] = fd[i].d;
+      for (int i = 0; i < NB; ++i) col[q][i] = fd[i].d;
+    } else {
+      D yd[N], fd[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) yd[k] = D(y[k], k == c ? 1.0f : 0.0f);
+      fun1(fn, D(t), yd, fd);
+#pragma unroll
+      for (int i = 0; i < N; ++i) col[q][i] = fd[i].d;
+    }
   }
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
+  for (int j = 0; j < NB; ++j) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) J[i][j] = grp.shfl(col[j / G][i], j % G);
+    for (int i = 0; i < NB; ++i) J[i][j] = grp.shfl(col[j / G][i], j % G);
   }
 }
 
@@ -191,17 +224,17 @@ struct OneLane {
 
 // Factor a in place: the eliminated rows with the multipliers below the
 // diagonal; bit q of `swaps` records the q-th bubble swap.
-__device__ __forceinline__ void gauss_factor(float (&a)[N][N],
+__device__ __forceinline__ void gauss_factor(float (&a)[NB][NB],
                                              unsigned& swaps) {
   swaps = 0u;
   int q = 0;
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
+  for (int k = 0; k < NB; ++k) {
 #pragma unroll
-    for (int i = k + 1; i < N; ++i) {
+    for (int i = k + 1; i < NB; ++i) {
       const bool sw = fabsf(a[i][k]) > fabsf(a[k][k]);
 #pragma unroll
-      for (int j = k; j < N; ++j) {
+      for (int j = k; j < NB; ++j) {
         const float akj = a[k][j];
         const float aij = a[i][j];
         a[k][j] = sw ? aij : akj;
@@ -212,40 +245,46 @@ __device__ __forceinline__ void gauss_factor(float (&a)[N][N],
     }
     const float inv = 1.0f / a[k][k];
 #pragma unroll
-    for (int i = k + 1; i < N; ++i) {
+    for (int i = k + 1; i < NB; ++i) {
       const float fkt = a[i][k] * inv;
 #pragma unroll
-      for (int j = k + 1; j < N; ++j) a[i][j] = a[i][j] - fkt * a[k][j];
+      for (int j = k + 1; j < NB; ++j) a[i][j] = a[i][j] - fkt * a[k][j];
       a[i][k] = fkt;
     }
   }
 }
 
-// Solve in place with a gauss_factor factor: the swaps and the elimination
-// replayed on x in the factor's order, then back substitution.
-__device__ __forceinline__ void gauss_solve(const float (&a)[N][N],
+// Solve in place with a gauss_factor factor, block by block of NB rows (one
+// block when NB == N): the swaps and the elimination replayed on the block
+// in the factor's order, then back substitution.
+__device__ __forceinline__ void gauss_solve(const float (&a)[NB][NB],
                                             unsigned swaps, float (&x)[N]) {
-  int q = 0;
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
+  for (int b = 0; b < N; b += NB) {
+    int q = 0;
 #pragma unroll
-    for (int i = k + 1; i < N; ++i) {
-      const bool sw = (swaps >> q) & 1u;
-      const float xk = x[k];
-      const float xi = x[i];
-      x[k] = sw ? xi : xk;
-      x[i] = sw ? xk : xi;
-      ++q;
+    for (int k = 0; k < NB; ++k) {
+#pragma unroll
+      for (int i = k + 1; i < NB; ++i) {
+        const bool sw = (swaps >> q) & 1u;
+        const float xk = x[b + k];
+        const float xi = x[b + i];
+        x[b + k] = sw ? xi : xk;
+        x[b + i] = sw ? xk : xi;
+        ++q;
+      }
+#pragma unroll
+      for (int i = k + 1; i < NB; ++i) {
+        x[b + i] = x[b + i] - a[i][k] * x[b + k];
+      }
     }
 #pragma unroll
-    for (int i = k + 1; i < N; ++i) x[i] = x[i] - a[i][k] * x[k];
-  }
+    for (int k = NB - 1; k >= 0; --k) {
+      float acc = x[b + k];
 #pragma unroll
-  for (int k = N - 1; k >= 0; --k) {
-    float acc = x[k];
-#pragma unroll
-    for (int j = k + 1; j < N; ++j) acc = acc - a[k][j] * x[j];
-    x[k] = acc / a[k][k];
+      for (int j = k + 1; j < NB; ++j) acc = acc - a[k][j] * x[b + j];
+      x[b + k] = acc / a[k][k];
+    }
   }
 }
 
@@ -367,10 +406,12 @@ struct Clock {
 // increment.  Returns converged; sets the stage's rate (>= 0), its RHS
 // evaluations and whether a non-finite value stopped it.
 template <int G, class Group>
-__device__ __forceinline__ bool newton(Group& grp, float t_stage, float h,
+__device__ __forceinline__ bool newton(Group& grp, const Rhs& fn,
+                                       float t_stage, float h,
                                        const float (&psi)[N],
                                        const float (&yu_c)[N], float (&z)[N],
-                                       const float (&a)[N][N], unsigned swaps,
+                                       const float (&a)[NB][NB],
+                                       unsigned swaps,
                                        const Params& p, float& rate_out,
                                        int& nfev, bool& bad_any, Clock& clk) {
   esdirk::Newton nw;
@@ -382,7 +423,7 @@ __device__ __forceinline__ bool newton(Group& grp, float t_stage, float h,
     float y_pred[N], f[N], dz[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) y_pred[i] = psi[i] + tab::D * z[i];
-    fun1(t_stage, y_pred, f);
+    fun1(fn, t_stage, y_pred, f);
     nfev += 1;
     bool bad = false;
 #pragma unroll
@@ -427,12 +468,13 @@ struct Stages {
 
 // Stages I..S-1 of one attempt; K[0] (and Z[0]) hold the first stage.
 template <int G, bool COMP, int I, class Group>
-__device__ __forceinline__ void stages(Group& grp, Stages& st, float tc,
-                                       float h,
+__device__ __forceinline__ void stages(Group& grp, const Rhs& fn, Stages& st,
+                                       float tc, float h,
                                        const float (&y)[N],
                                        const float (&y_lo)[N],
                                        const float (&yu_c)[N],
-                                       const float (&a)[N][N], unsigned swaps,
+                                       const float (&a)[NB][NB],
+                                       unsigned swaps,
                                        const Params& p, Clock& clk) {
   if constexpr (I < S) {
     float acc[N];
@@ -454,8 +496,8 @@ __device__ __forceinline__ void stages(Group& grp, Stages& st, float tc,
     float rate;
     int nf;
     bool bad;
-    const bool conv = newton<G>(grp, tc + c * h, h, st.psi, yu_c, st.z, a,
-                                swaps, p, rate, nf, bad, clk);
+    const bool conv = newton<G>(grp, fn, tc + c * h, h, st.psi, yu_c, st.z,
+                                a, swaps, p, rate, nf, bad, clk);
     st.conv = st.conv && conv && !bad;
     st.Rate = fmaxf(st.Rate, rate);
     st.nfev += nf;
@@ -466,7 +508,7 @@ __device__ __forceinline__ void stages(Group& grp, Stages& st, float tc,
       if constexpr (COMP) st.Z[I][i] = st.z[i];
     }
     clk.mark(kStage);
-    stages<G, COMP, I + 1>(grp, st, tc, h, y, y_lo, yu_c, a, swaps, p,
+    stages<G, COMP, I + 1>(grp, fn, st, tc, h, y, y_lo, yu_c, a, swaps, p,
                            clk);
   }
 }
@@ -487,11 +529,14 @@ struct Out {
 
 // The whole integration of one member by the group grp of G lanes
 // (rank(), shfl(v, src); OneLane at G = 1).  y0 (and yp0) are the member's
-// initial state (and derivative); lane 0 writes the results.
+// initial state (and derivative), par its tab::NPAR parameters (unread when
+// there are none); lane 0 writes the results.
 template <int G, bool COMP, class Group>
 __device__ void integrate(Group& grp, const float* __restrict__ y0,
-                          const float* __restrict__ yp0, const Launch& L,
+                          const float* __restrict__ yp0,
+                          const float* __restrict__ par, const Launch& L,
                           int member, const Out& out) {
+  const Rhs fn(par);
   const Params p{L.rtol, L.atol, L.tiny_err};
   const float tf = L.tf;
   Clock clk;
@@ -522,7 +567,7 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
       for (int k = 0; k < N; ++k) yp[k] = in[k];
     }
   } else {
-    fun1(t, y, yp);
+    fun1(fn, t, y, yp);
     if constexpr (tab::HAS_M && !tab::ROT) {
 #pragma unroll
       for (int k = 0; k < N; ++k) yp[k] = yp[k] * tab::INV_MASS(k);
@@ -532,7 +577,8 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
   if (L.use_hstart) {
     // plain ODEs only; max_step is +inf when the caller gave none
     const float bq = t + dir * fminf(fabsf(tf - t), L.max_step);
-    h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, yp, L.rtol, L.atol));
+    h_abs = fabsf(
+        rk::hstart<N, tab::MORDER>(t, bq, y, yp, L.rtol, L.atol, fn));
   }
 
   int status = kRunning;
@@ -549,15 +595,16 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
     const float h = ha * dir;
     clk.mark(kControl);
 
-    // Newton matrix W = Sc (M - h d J), factored once per attempt
-    float a[N][N];
-    jacobian<G>(grp, tc, y, a);
+    // Newton matrix W = Sc (M - h d J), factored once per attempt (on the
+    // base block when NB < N)
+    float a[NB][NB];
+    jacobian<G>(grp, fn, tc, y, a);
     clk.mark(kJacobian);
     const float hd = h * tab::D;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int i = 0; i < NB; ++i) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
+      for (int j = 0; j < NB; ++j) {
         a[i][j] = tab::ALG(i) ? -a[i][j]
                               : (i == j ? tab::MASS(i) : 0.0f) - hd * a[i][j];
       }
@@ -578,7 +625,7 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
     st.conv = !ctl.too_small;
     float yu_c[N];
     to_user(y, yu_c);
-    stages<G, COMP, 1>(grp, st, tc, h, y, y_lo, yu_c, a, swaps, p, clk);
+    stages<G, COMP, 1>(grp, fn, st, tc, h, y, y_lo, yu_c, a, swaps, p, clk);
 
     // solution and error estimate; stiffly accurate: y_new = psi + d z of
     // the last stage
@@ -681,10 +728,11 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
 template <bool COMP>
 __device__ void integrate_thread(const float* __restrict__ y0,
                                  const float* __restrict__ yp0,
+                                 const float* __restrict__ par,
                                  const Launch& L, int member,
                                  const Out& out) {
   OneLane one;
-  integrate<1, COMP>(one, y0, yp0, L, member, out);
+  integrate<1, COMP>(one, y0, yp0, par, L, member, out);
 }
 
 }  // namespace
@@ -696,7 +744,8 @@ namespace {
 
 template <int G, bool COMP>
 __global__ void fused_esdirk_kernel(const float* __restrict__ y0,
-                                    const float* __restrict__ yp0, Out out,
+                                    const float* __restrict__ yp0,
+                                    const float* __restrict__ par, Out out,
                                     int B, int block_members, Launch L) {
   const int member =
       blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
@@ -704,26 +753,27 @@ __global__ void fused_esdirk_kernel(const float* __restrict__ y0,
   const float* y0m = y0 + static_cast<size_t>(member) * N;
   const float* yp0m = L.have_yp0 ? yp0 + static_cast<size_t>(member) * N
                                  : nullptr;
+  const float* parm = par + static_cast<size_t>(member) * tab::NPAR;
   if constexpr (G == 1) {
-    integrate_thread<COMP>(y0m, yp0m, L, member, out);
+    integrate_thread<COMP>(y0m, yp0m, parm, L, member, out);
   } else {
     LaneGroup<G> grp;
-    integrate<G, COMP>(grp, y0m, yp0m, L, member, out);
+    integrate<G, COMP>(grp, y0m, yp0m, parm, L, member, out);
   }
 }
 
 template <int G>
-int launch(const float* y0, const float* yp0, const Out& out, int B,
-           const Launch& L, int compensated, int block_members,
-           cudaStream_t s) {
+int launch(const float* y0, const float* yp0, const float* par,
+           const Out& out, int B, const Launch& L, int compensated,
+           int block_members, cudaStream_t s) {
   const int blocks = (B + block_members - 1) / block_members;
   const int threads = block_members * G;
   if (compensated) {
     fused_esdirk_kernel<G, true><<<blocks, threads, 0, s>>>(
-        y0, yp0, out, B, block_members, L);
+        y0, yp0, par, out, B, block_members, L);
   } else {
     fused_esdirk_kernel<G, false><<<blocks, threads, 0, s>>>(
-        y0, yp0, out, B, block_members, L);
+        y0, yp0, par, out, B, block_members, L);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -743,9 +793,11 @@ extern "C" int fused_esdirk_sections(void* sections) {
 // Launches block_members members per block, `lanes` (1, 4, 8, 16 or 32)
 // threads per member, on the caller's stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for another lane count); the
-// wrapper raises on anything but 0.  yp0 may be null when have_yp0 is 0.
+// wrapper raises on anything but 0.  yp0 may be null when have_yp0 is 0;
+// params is (B, tab::NPAR) float32, row-major (null when NPAR is 0).
 extern "C" int fused_esdirk_launch(const void* y0, const void* yp0,
-                                   void* y_out, void* status, void* nstep,
+                                   const void* params, void* y_out,
+                                   void* status, void* nstep,
                                    void* nfev, int B, float t0, float tf,
                                    float rtol, float atol, float h0,
                                    int use_hstart, int have_yp0,
@@ -756,23 +808,27 @@ extern "C" int fused_esdirk_launch(const void* y0, const void* yp0,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* y0f = static_cast<const float*>(y0);
   const float* yp0f = static_cast<const float*>(yp0);
+  const float* par = static_cast<const float*>(params);
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
   const Launch L{t0,       tf,       rtol,       atol,     h0,
                  max_step, tiny_err, use_hstart, have_yp0, max_steps};
   switch (lanes) {
     case 1:
-      return launch<1>(y0f, yp0f, out, B, L, compensated, block_members, s);
+      return launch<1>(y0f, yp0f, par, out, B, L, compensated,
+                       block_members, s);
     case 4:
-      return launch<4>(y0f, yp0f, out, B, L, compensated, block_members, s);
+      return launch<4>(y0f, yp0f, par, out, B, L, compensated,
+                       block_members, s);
     case 8:
-      return launch<8>(y0f, yp0f, out, B, L, compensated, block_members, s);
+      return launch<8>(y0f, yp0f, par, out, B, L, compensated,
+                       block_members, s);
     case 16:
-      return launch<16>(y0f, yp0f, out, B, L, compensated, block_members,
-                        s);
+      return launch<16>(y0f, yp0f, par, out, B, L, compensated,
+                        block_members, s);
     case 32:
-      return launch<32>(y0f, yp0f, out, B, L, compensated, block_members,
-                        s);
+      return launch<32>(y0f, yp0f, par, out, B, L, compensated,
+                        block_members, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

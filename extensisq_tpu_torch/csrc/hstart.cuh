@@ -5,7 +5,7 @@
 //
 // Include after the kernel's generated config header: it reads the
 // float32 constants tab::HS_BIG, HS_SMALL, HS_RELPER and HS_T_FLOOR and
-// calls the user's rhs(t, y, dy) on float arguments.
+// calls fn(t, y, dy) on float arguments, by default the user's rhs.
 #pragma once
 
 #include <math.h>
@@ -14,9 +14,18 @@
 
 namespace rk {
 
-template <int N, int MORDER>
+// The user's rhs(t, y, dy), the right-hand side hstart calls by default.
+struct CallRhs {
+  template <class T>
+  __device__ __forceinline__ void operator()(T t, const T* y, T* dy) const {
+    rhs(t, y, dy);
+  }
+};
+
+template <int N, int MORDER, class F = CallRhs>
 __device__ float hstart(float a, float b, const float (&y)[N],
-                        const float (&f)[N], float rtol, float atol) {
+                        const float (&f)[N], float rtol, float atol,
+                        const F& fn = F()) {
   constexpr float kBig = tab::HS_BIG;
   constexpr float kRelper = tab::HS_RELPER;
   float etol[N];
@@ -32,7 +41,7 @@ __device__ float hstart(float a, float b, const float (&y)[N],
                          tab::HS_T_FLOOR * fabsf(a));
   if (da == 0.0f) da = kRelper * dx;
   float sf[N], yp[N], pv[N], spy[N];
-  rhs(a + da, y, sf);
+  fn(a + da, y, sf);
 #pragma unroll
   for (int k = 0; k < N; ++k) yp[k] = sf[k] - f[k];
   float delf = rms(yp);
@@ -63,11 +72,11 @@ __device__ float hstart(float a, float b, const float (&y)[N],
 #pragma unroll
     for (int k = 0; k < N; ++k) pv[k] = y[k] + step * yp[k];
     if (p == 2) {
-      rhs(a + da, pv, yp);
+      fn(a + da, pv, yp);
 #pragma unroll
       for (int k = 0; k < N; ++k) pv[k] = yp[k] - sf[k];
     } else {
-      rhs(a, pv, yp);
+      fn(a, pv, yp);
 #pragma unroll
       for (int k = 0; k < N; ++k) pv[k] = yp[k] - f[k];
     }

@@ -28,6 +28,11 @@ kernel launch, each with its plain PyTorch version beside it.
   (Runge-Kutta-Chebyshev) on one PDE grid across the whole card, or on an
   ensemble of grids with one thread block per member
   (``csrc/fused_rkc.cu``)
+* :func:`solve_fused_sens` and :func:`solve_fused_final` — forward
+  sensitivities of a parameter-sweep ensemble in one launch of B1, or of
+  B2 with its simultaneous corrector, and ``y(t_f)`` differentiable
+  through ``torch.autograd`` by one more such launch
+  (``ops/fused_sens.py``, the flat layout)
 * :func:`solve_fused` — the front door: routes by method family to the
   flat or the grid kernel, reading the layout from the RHS object
   (``ops/dispatch.py``)
@@ -57,6 +62,8 @@ from .fused_rkc import (FusedGridRHS, FusedRho, fused_rkc_reference,
 from .fused_rkn import FusedAcc, fused_rkn_reference, solve_fused_rkn
 from .fused_rkn_grid import (FusedGridAcc, fused_rkn_grid_reference,
                              solve_fused_rkn_grid)
+from .fused_sens import (solve_fused_adjoint, solve_fused_final,
+                         solve_fused_sens)
 
 __all__ = ["solve_fused", "FusedRHS", "fused_erk_reference",
            "solve_fused_erk",
@@ -71,4 +78,5 @@ __all__ = ["solve_fused", "FusedRHS", "fused_erk_reference",
            "FusedGridAcc", "fused_rkn_grid_reference",
            "solve_fused_rkn_grid", "fused_ckdisc_reference",
            "solve_fused_ckdisc", "fused_ckdisc_grid_reference",
-           "solve_fused_ckdisc_grid"]
+           "solve_fused_ckdisc_grid", "solve_fused_sens",
+           "solve_fused_final", "solve_fused_adjoint"]

@@ -62,10 +62,10 @@ def _array(values):
     return "{" + ", ".join(_f32(v) for v in values) + "}"
 
 
-def fused_erk_header(k, n, rhs_src):
+def fused_erk_header(k, n, rhs_src, npar=0):
     """Text of ``fused_erk_config.cuh`` for the constants ``k`` of
-    ``ops.fused_erk._fused_consts``, state size ``n`` and the CUDA RHS
-    source."""
+    ``ops.fused_erk._fused_consts``, state size ``n``, the CUDA RHS
+    source and its number of per-member parameters ``npar``."""
     s = k["s"]
     A = k["A"]
     cc = k["cc"]
@@ -77,6 +77,7 @@ def fused_erk_header(k, n, rhs_src):
 
 namespace tab {{
 constexpr int N = {n};
+constexpr int NPAR = {int(npar)};
 constexpr int S = {s};
 constexpr bool FSAL = {'true' if k['fsal'] else 'false'};
 constexpr int MORDER = {k['morder']};
@@ -290,11 +291,13 @@ constexpr float HS_T_FLOOR = {_f32(hs['t_floor'])};
                  _accessor("C", k["C"]), _accessor("E", k["E"])])
 
 
-def fused_esdirk_header(k, m_diag, rot, n, rhs_src):
+def fused_esdirk_header(k, m_diag, rot, n, rhs_src, npar=0, nb=None):
     """Text of ``fused_esdirk_config.cuh`` for the constants ``k`` of
     ``ops.fused_esdirk._esdirk_consts``, the mass-matrix setup ``(m_diag,
-    rot)`` of ``ops.fused_esdirk._mass_setup``, state size ``n`` and the
-    CUDA RHS source (the template form ``rhs<T>``)."""
+    rot)`` of ``ops.fused_esdirk._mass_setup``, state size ``n``, the
+    CUDA RHS source (the template form ``rhs<T>``), its number of
+    per-member parameters ``npar`` and the simultaneous corrector's base
+    block ``nb`` (None: the whole state)."""
     mass = np.ones(n) if m_diag is None else np.asarray(m_diag, float)
     inv_mass = np.array([1.0 / m if m else 0.0 for m in mass])
     if rot is None:
@@ -313,6 +316,8 @@ def fused_esdirk_header(k, m_diag, rot, n, rhs_src):
 
 namespace tab {{
 constexpr int N = {n};
+constexpr int NB = {n if nb is None else int(nb)};
+constexpr int NPAR = {int(npar)};
 constexpr bool HAS_M = {_flag(m_diag is not None)};
 constexpr bool ROT = {_flag(rot is not None)};
 {_esdirk_constants(k)}
@@ -515,13 +520,14 @@ def cached(kind, objects, build, extra=()):
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def load_fused_erk(consts, n, rhs_src):
-    """Build (at first use) and load the fused ERK kernel for one tableau
-    and RHS; returns :class:`Built` with ``lib.fused_erk_launch`` bound."""
+def load_fused_erk(consts, n, rhs_src, npar=0):
+    """Build (at first use) and load the fused ERK kernel for one tableau,
+    RHS and parameter count; returns :class:`Built` with
+    ``lib.fused_erk_launch`` bound."""
     return load_kernel(
-        "fused_erk", fused_erk_header(consts, n, rhs_src),
-        [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI, _CF,
-         _CI, _CI, _CI, _CI, _VP])
+        "fused_erk", fused_erk_header(consts, n, rhs_src, npar),
+        [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI,
+         _CF, _CI, _CI, _CI, _CI, _VP])
 
 
 def load_fused_rkn(consts, m, acc_src):
@@ -558,15 +564,17 @@ def load_fused_ckdisc(consts, n, rhs_src):
          _CI, _CI, _CI, _VP])
 
 
-def load_fused_esdirk(consts, m_diag, rot, n, rhs_src):
+def load_fused_esdirk(consts, m_diag, rot, n, rhs_src, npar=0, nb=None):
     """Build (at first use) and load the fused ESDIRK kernel for one
-    method, mass-matrix setup and RHS, with each lane count per member the
-    launch takes; returns :class:`Built` with ``lib.fused_esdirk_launch``
+    method, mass-matrix setup, RHS, parameter count and base block (None:
+    no simultaneous corrector), with each lane count per member the launch
+    takes; returns :class:`Built` with ``lib.fused_esdirk_launch``
     bound."""
     return load_kernel(
-        "fused_esdirk", fused_esdirk_header(consts, m_diag, rot, n, rhs_src),
-        [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI,
-         _CI, _CF, _CI, _CF, _CI, _CI, _CI, _VP])
+        "fused_esdirk",
+        fused_esdirk_header(consts, m_diag, rot, n, rhs_src, npar, nb),
+        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF,
+         _CI, _CI, _CF, _CI, _CF, _CI, _CI, _CI, _VP])
 
 
 def load_fused_esdirk_grid(consts, shape, rhs_src):

@@ -10,7 +10,8 @@ runs the same loop on rows-first ``(n, B)`` float32 tensors; the wrapper
 
 ``compensated=True`` is the mixed-precision mode: Neumaier-compensated
 solution and error sums and a double-single ``(hi, lo)`` carry for y and
-t, which lets float32 run rtol ~1e-6 / atol ~1e-9.
+t, which lets float32 run rtol ~1e-6 / atol ~1e-9.  ``params`` (B, k)
+gives every member its own k parameters (a parameter-sweep ensemble).
 """
 import dataclasses
 import functools
@@ -37,11 +38,56 @@ class FusedRHS:
 
         __device__ void rhs(float t, const float* y, float* dy);
 
-    ``n`` is the state size.
+    ``n`` is the state size.  With ``k`` > 0 per-member parameters the
+    function takes them as a third argument: ``torch_fn(t, y, p)`` with
+    ``p`` a k-tuple of ``(B,)`` tensors, and in CUDA the member's k
+    floats, ``rhs(float t, const float* y, float* dy, const float* p)``,
+    or the template form ``template <class T> __device__ void rhs(T t,
+    const T* y, T* dy, const T* p)``, which the implicit kernels and the
+    sensitivities (``ops/fused_sens.py``) need.
     """
     torch_fn: Callable
     cuda_src: str
     n: int
+    k: int = 0
+
+
+def member_params(params, y0, fun):
+    """``params`` as the ``(B, k)`` float32 tensor the kernels read (None
+    stays None; a non-tensor goes to ``y0``'s device as float32), checked
+    as the JAX kernels check it: ``(B, k)`` or ``ValueError``; a tensor
+    must be float32 on ``y0``'s device (``TypeError``); a
+    :class:`FusedRHS` must take the same ``k`` (``ValueError``)."""
+    k_fun = fun.k if isinstance(fun, FusedRHS) else None
+    if params is None:
+        if k_fun:
+            raise ValueError(f"the FusedRHS takes {k_fun} parameters a "
+                             f"member: pass params of shape (B, {k_fun})")
+        return None
+    if not isinstance(params, torch.Tensor):
+        params = torch.as_tensor(np.asarray(params, np.float32),
+                                 device=y0.device)
+    if params.ndim != 2 or params.shape[0] != y0.shape[0]:
+        raise ValueError("params must be (B, k)")
+    if k_fun is not None and params.shape[1] != k_fun:
+        raise ValueError(f"params has {params.shape[1]} columns; the "
+                         f"FusedRHS takes k = {k_fun}")
+    if params.dtype != torch.float32 or params.device != y0.device:
+        raise TypeError(f"params must be float32 on {y0.device}")
+    return params
+
+
+def bind_params(fun, params):
+    """The rows-first ``fun(t, y)`` of the plain versions: ``fun`` (a
+    :class:`FusedRHS` or a torch function) with every member's parameters
+    bound, ``p[j]`` the ``(B,)`` column j of ``params`` (None: no
+    parameters)."""
+    if isinstance(fun, FusedRHS):
+        fun = fun.torch_fn
+    if params is None:
+        return fun
+    p = tuple(params[:, j] for j in range(params.shape[1]))
+    return lambda t, y: fun(t, y, p)
 
 
 def _fused_consts(method):
@@ -156,18 +202,17 @@ def controller(k, err_norm, err_old, h, h_prev, std_b, rejected, max_fac):
 
 def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                         atol=1e-6, first_step=None, max_steps=100_000,
-                        compensated=False, max_step=None):
+                        compensated=False, max_step=None, params=None):
     """The plain PyTorch version of the fused kernel, on the device of
     ``y0_batch``.
 
     Runs the kernel's loop for the whole batch at once, in float32: each
     iteration is one attempt of every running member, and the loop ends
     once no member is RUNNING.  ``fun`` is a :class:`FusedRHS` or a
-    rows-first torch function.  Returns ``(y (B, n), status (B,),
+    rows-first torch function, called as ``fun(t, y, p)`` where
+    ``params`` (B, k) is given.  Returns ``(y (B, n), status (B,),
     nsteps (B,), nfev (B,))`` like :func:`solve_fused_erk`.
     """
-    if isinstance(fun, FusedRHS):
-        fun = fun.torch_fn
     k = _fused_consts(method)
     A, B_w, C, E = k["A"], k["B"], k["C"], k["E"]
     s, fsal = k["s"], k["fsal"]
@@ -176,6 +221,7 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
     y = torch.as_tensor(y0_batch).to(f32).T.contiguous()
     n, nb = y.shape
     dev = y.device
+    fun = bind_params(fun, member_params(params, y.T, fun))
 
     def full(v):
         return torch.full((nb,), v, dtype=f32, device=dev)
@@ -352,7 +398,8 @@ def _kernel(method, fun):
     from . import _build
     return _build.cached("fused_erk", (method, fun),
                          lambda: _build.load_fused_erk(
-                             _fused_consts(method), fun.n, fun.cuda_src))
+                             _fused_consts(method), fun.n, fun.cuda_src,
+                             fun.k))
 
 
 # threads per SM up to which the wrappers spread members over lane groups
@@ -429,20 +476,23 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
     On a CPU tensor it runs :func:`fused_erk_reference`, with a
     :class:`FusedRHS` or a plain rows-first torch function.
 
-    ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet.
+    ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
+    them as its third argument (see :class:`FusedRHS`, whose ``k`` must
+    agree).  ``t_eval``, ``events`` and ``dense`` are not ported yet.
     """
     check_options("solve_fused_erk", "B1", t_eval=t_eval, events=events,
-                  params=params, dense=dense)
+                  dense=dense)
     y0 = as_input(y0_batch, torch.float32)
+    params = member_params(params, y0, fun)
     if y0.device.type != "cuda":
         return fused_erk_reference(
             fun, t_span, y0, method=method, rtol=rtol, atol=atol,
             first_step=first_step, max_steps=max_steps,
-            compensated=compensated, max_step=max_step)
+            compensated=compensated, max_step=max_step, params=params)
 
     out, shape = _launch(fun, t_span, y0, method, rtol, atol, first_step,
                          max_steps, compensated, max_step, None,
-                         block_members)
+                         block_members, params)
     solve_fused_erk.last_shape = shape
     if y0.shape[0]:
         solve_fused_erk.launches += 1
@@ -450,11 +500,13 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
 
 
 def _launch(fun, t_span, y0, method, rtol, atol, first_step, max_steps,
-            compensated, max_step, lanes, block_members=None):
-    """B1 on the card for the CUDA tensor ``y0``: ``lanes`` lanes per member
-    (None: :func:`_lanes_per_member`'s) and ``block_members`` members per
-    block (None: 128 / lanes).  Returns the four outputs and the ``(lanes,
-    block_members)`` taken; an empty batch launches nothing."""
+            compensated, max_step, lanes, block_members=None, params=None):
+    """B1 on the card for the CUDA tensor ``y0`` (and the members'
+    ``params``, checked by :func:`member_params`): ``lanes`` lanes per
+    member (None: :func:`_lanes_per_member`'s) and ``block_members``
+    members per block (None: 128 / lanes).  Returns the four outputs and
+    the ``(lanes, block_members)`` taken; an empty batch launches
+    nothing."""
     if not isinstance(fun, FusedRHS):
         raise TypeError("solve_fused_erk on a CUDA tensor needs a FusedRHS "
                         "(a CUDA source of the right-hand side); got "
@@ -466,6 +518,9 @@ def _launch(fun, t_span, y0, method, rtol, atol, first_step, max_steps,
                          f"{tuple(y0.shape)}")
     if not y0.is_contiguous():
         raise ValueError("y0_batch must be contiguous")
+    params = member_params(params, y0, fun)
+    if params is not None and not params.is_contiguous():
+        raise ValueError("params must be contiguous")
     nb = y0.shape[0]
     if lanes is None:
         lanes = _lanes_per_member(nb, device_sm_count(y0.device),
@@ -483,7 +538,8 @@ def _launch(fun, t_span, y0, method, rtol, atol, first_step, max_steps,
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
         rc = built.lib.fused_erk_launch(
-            y0.data_ptr(), y_out.data_ptr(), status.data_ptr(),
+            y0.data_ptr(), None if params is None else params.data_ptr(),
+            y_out.data_ptr(), status.data_ptr(),
             nsteps.data_ptr(), nfev.data_ptr(), nb,
             *launch_args(t_span, rtol, atol, first_step, max_steps,
                          compensated, max_step), int(lanes), block_members,

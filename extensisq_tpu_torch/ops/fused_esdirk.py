@@ -32,6 +32,12 @@ system in ``w = V^T y``, with every norm taken back in user coordinates.
 ``compensated=True`` adds the double-single ``(hi, lo)`` carry of ``y``
 and Neumaier-compensated stage sums over the increments ``z``.  Time is
 carried in double-single in both modes.
+
+``params`` (B, k) gives every member its own parameters; the Jacobian is
+taken at fixed parameters.  ``block_base`` is the simultaneous corrector
+of the variational systems of ``ops/fused_sens.py``: W is built and
+factored on the first ``block_base`` rows and columns only and solves
+every block of ``block_base`` rows.
 """
 import numpy as np
 import torch
@@ -41,12 +47,14 @@ from .._config import (RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW,
                        MAX_FACTOR, MAX_FACTOR0)
 from .._device import as_input
 from ..core.controller import resolve_controller
+from ..core.linalg import seed_jvps
 from ..core.numerics import norm
 from ..steppers.erk import weighted_sum
 from ..steppers.esdirk import jacfwd
 from . import _hstart_tile
 from .fused_erk import (FusedRHS, _comp_wsum, _df_add, _launch_shape,
-                        _two_sum, lanes_within_budget)
+                        _two_sum, bind_params, lanes_within_budget,
+                        member_params)
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -190,26 +198,50 @@ def _gauss_replay(fact, b):
     return x
 
 
+def _block_checks(block_base, M, n):
+    """The base block's rows: ``n``, or ``block_base`` where it divides n
+    with block_base <= 8 and n <= 64 and no mass matrix is given (else
+    ``ValueError``, as in JAX)."""
+    if block_base is None:
+        if n > 8:
+            raise ValueError("fused ESDIRK takes y0_batch of shape (B, n) "
+                             "with n <= 8; use solve_ensemble for larger "
+                             "states")
+        return n
+    nbase = int(block_base)
+    if M is not None:
+        raise ValueError("block_base (simultaneous corrector) supports "
+                         "plain ODEs only, no mass matrix")
+    if nbase < 1 or n % nbase or nbase > 8 or n > 64:
+        raise ValueError("block_base must divide n, with block_base <= 8 "
+                         "and n <= 64")
+    return nbase
+
+
 def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
                            yp0_batch=None, rtol=1e-4, atol=1e-6,
                            first_step=None, max_steps=100_000,
-                           compensated=False, max_step=None):
+                           compensated=False, max_step=None, params=None,
+                           block_base=None):
     """The plain PyTorch version of the fused ESDIRK kernel, on the device
     of ``y0_batch``.
 
     Runs the kernel's loop for the whole batch at once in float32: each
     iteration is one attempt of every running member, and the loop ends
     once no member is RUNNING.  ``fun`` is a :class:`FusedRHS` or a
-    rows-first torch function.  Returns ``(y (B, n), status (B,), nsteps
+    rows-first torch function, called as ``fun(t, y, p)`` where
+    ``params`` (B, k) is given.  With ``block_base`` the Newton matrix is
+    the first ``block_base`` rows and columns of the Jacobian and solves
+    each block of as many rows.  Returns ``(y (B, n), status (B,), nsteps
     (B,), nfev (B,))`` like :func:`solve_fused_esdirk`.
     """
-    if isinstance(fun, FusedRHS):
-        fun = fun.torch_fn
     k = _esdirk_consts(method)
     f32 = torch.float32
     y = torch.as_tensor(y0_batch).to(f32).T.contiguous()
     n, nb = y.shape
     dev = y.device
+    nbase = _block_checks(block_base, M, n)
+    fun = bind_params(fun, member_params(params, y.T, fun))
     m_diag, rot = _mass_setup(M, n)
     if m_diag is not None and yp0_batch is None and np.any(m_diag == 0.0):
         raise ValueError("DAE: pass consistent yp0_batch (e.g. from the "
@@ -247,16 +279,29 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
     h_abs = _start_step(fun, k, t0, tf, y, yp, rtol, atol, first_step,
                         max_step, m_diag is None and rot is None)
 
+    if nbase == n:
+        jac = jacfwd(fun, n)
+    else:
+        # the base block: the first nbase rows of the JVPs along the first
+        # nbase columns, as the JAX kernel's linearization gives it
+        seeds = torch.eye(nbase, n, dtype=f32, device=dev)
+
+        def jac(tc, yy):
+            return seed_jvps(lambda t_, y_: fun(t_, y_)[:nbase], tc, yy,
+                             seeds).permute(2, 1, 0)
+
     def factor(tc, yy, hd):
         """W = Sc (M - h d J) by the JAX kernel's bubble elimination."""
-        J = jacfwd(fun, n)(tc, yy)
+        J = jac(tc, yy)
         return _gauss_factor([[-J[:, i, j] if is_alg[i]
                                else (mass[i] if i == j else 0.0)
-                               - hd * J[:, i, j] for j in range(n)]
-                              for i in range(n)])
+                               - hd * J[:, i, j] for j in range(nbase)]
+                              for i in range(nbase)])
 
     def solve(fact, b):
-        return torch.stack(_gauss_replay(fact, list(b)))
+        b = list(b)
+        return torch.stack([x for i in range(0, n, nbase)
+                            for x in _gauss_replay(fact, b[i:i + nbase])])
 
     y, status, nstep, nfev = run_esdirk_loop(
         fun, k, t0, tf, y, yp, h_abs, 0 if yp0_batch is not None else 1,
@@ -541,16 +586,19 @@ def _lanes_per_member(B, sm_count, n):
     return lanes_within_budget(B, sm_count, _LANES)
 
 
-def _kernel(method, fun, M, m_diag, rot, n):
-    """The kernel built for one method, FusedRHS and mass-matrix setup."""
+def _kernel(method, fun, M, m_diag, rot, n, nbase):
+    """The kernel built for one method, FusedRHS, mass-matrix setup and
+    base block."""
     if method is None:
         from ..methods import Kv3I as method
     from . import _build
     return _build.cached(
         "fused_esdirk", (method, fun),
-        lambda: _build.load_fused_esdirk(_esdirk_consts(method), m_diag, rot,
-                                         n, fun.cuda_src),
-        None if M is None else np.asarray(M, np.float64).tobytes())
+        lambda: _build.load_fused_esdirk(
+            _esdirk_consts(method), m_diag, rot, n, fun.cuda_src, fun.k,
+            None if nbase == n else nbase),
+        (None if M is None else np.asarray(M, np.float64).tobytes(),
+         nbase))
 
 
 def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
@@ -562,15 +610,16 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
     """Integrate an ensemble of small stiff systems or index-1 DAEs in one
     kernel launch.
 
-    ``y0_batch``: (B, n) float32, n <= 8.  ``M``: None, a length-n
-    diagonal (zeros mark algebraic rows), or a dense/hidden ``(n, n)``
-    mass matrix.  ``yp0_batch``: (B, n) consistent initial derivatives,
-    required for DAEs (e.g. from the f64 stepper's ``init``); for ODEs it
-    defaults to ``M^-1 f(t0, y0)``.  Without ``first_step`` a plain ODE
-    starts from the in-kernel Watts estimate and a DAE from 1% of the
-    span.  Returns ``(y_final (B, n), status (B,), nsteps (B,), nfev
-    (B,))`` with status 1 = finished, 2 = step size underflow, 3 = step
-    cap (``max_steps`` counts loop iterations, accepted plus rejected).
+    ``y0_batch``: (B, n) float32, n <= 8 (n <= 64 with ``block_base``).
+    ``M``: None, a length-n diagonal (zeros mark algebraic rows), or a
+    dense/hidden ``(n, n)`` mass matrix.  ``yp0_batch``: (B, n)
+    consistent initial derivatives, required for DAEs (e.g. from the f64
+    stepper's ``init``); for ODEs it defaults to ``M^-1 f(t0, y0)``.
+    Without ``first_step`` a plain ODE starts from the in-kernel Watts
+    estimate and a DAE from 1% of the span.  Returns ``(y_final (B, n),
+    status (B,), nsteps (B,), nfev (B,))`` with status 1 = finished, 2 =
+    step size underflow, 3 = step cap (``max_steps`` counts loop
+    iterations, accepted plus rejected).
 
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.
@@ -585,39 +634,59 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
     :func:`fused_esdirk_reference`, with a :class:`FusedRHS` or a plain
     rows-first torch function.
 
-    ``t_eval``, ``events``, ``params``, ``block_base`` and ``dense`` are
-    not ported yet.
+    ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
+    them as its third argument (see :class:`FusedRHS`; the CUDA source in
+    the template form ``rhs<T>(t, y, dy, p)``).
+
+    ``block_base``: the simultaneous corrector (CVODES's SIM scheme) for
+    the variational systems of ``ops/fused_sens.py``.  The state is
+    ``n = block_base x blocks`` rows whose Jacobian is block lower
+    triangular with every diagonal block the base block, the first
+    ``block_base`` rows and columns; W is built and factored on the base
+    block only, and each Newton iteration and the error filter solve every
+    block of rows with that one factor.  Error control runs on the whole
+    state.  ``block_base`` must divide n, with block_base <= 8 and
+    n <= 64, and no ``M`` (``ValueError``).  On the card the source also
+    defines ``base_rhs``, the first block's right-hand side in the form of
+    ``rhs`` (``ops/fused_sens.py`` generates it), from which the kernel
+    takes the base block's Jacobian.
+
+    ``t_eval``, ``events`` and ``dense`` are not ported yet.
     """
     for name, value in (("t_eval", t_eval), ("events", events),
-                        ("params", params), ("block_base", block_base),
                         ("dense", dense)):
         if value is not None:
             raise NotImplementedError(
                 f"solve_fused_esdirk({name}=...) is not ported yet: ROADMAP "
                 "queue B, item B2 (remaining options)")
     y0 = as_input(y0_batch, torch.float32)
-    if y0.ndim != 2 or y0.shape[1] > 8:
-        raise ValueError("fused ESDIRK takes y0_batch of shape (B, n) with "
-                         "n <= 8; use solve_ensemble for larger states")
+    if y0.ndim != 2:
+        raise ValueError("fused ESDIRK takes y0_batch of shape (B, n)")
+    _block_checks(block_base, M, y0.shape[1])
+    params = member_params(params, y0, fun)
     if y0.device.type != "cuda":
         return fused_esdirk_reference(
             fun, t_span, y0, method=method, M=M, yp0_batch=yp0_batch,
             rtol=rtol, atol=atol, first_step=first_step,
-            max_steps=max_steps, compensated=compensated, max_step=max_step)
+            max_steps=max_steps, compensated=compensated, max_step=max_step,
+            params=params, block_base=block_base)
 
     out, shape = _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol,
                          first_step, max_steps, compensated, max_step, None,
-                         block_members)
+                         block_members, params, block_base)
     solve_fused_esdirk.launches += 1
     solve_fused_esdirk.last_shape = shape
     return out
 
 
 def _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
-            max_steps, compensated, max_step, lanes, block_members=None):
-    """B2 on the card for the CUDA tensor ``y0``: ``lanes`` lanes per member
-    (None: :func:`_lanes_per_member`'s) and ``block_members`` members per
-    block (None: 128 / lanes).  Returns the four outputs and the ``(lanes,
+            max_steps, compensated, max_step, lanes, block_members=None,
+            params=None, block_base=None):
+    """B2 on the card for the CUDA tensor ``y0`` (with the members'
+    ``params`` and the base block ``block_base``, checked as the wrapper
+    checks them): ``lanes`` lanes per member (None:
+    :func:`_lanes_per_member`'s) and ``block_members`` members per block
+    (None: 128 / lanes).  Returns the four outputs and the ``(lanes,
     block_members)`` taken."""
     if not isinstance(fun, FusedRHS):
         raise TypeError("solve_fused_esdirk on a CUDA tensor needs a "
@@ -627,6 +696,10 @@ def _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
     if n != fun.n:
         raise ValueError(f"y0_batch must be (B, {fun.n}), got "
                          f"{tuple(y0.shape)}")
+    nbase = _block_checks(block_base, M, n)
+    params = member_params(params, y0, fun)
+    if params is not None:
+        params = params.contiguous()
     y0 = y0.contiguous()
     yp0 = None if yp0_batch is None else torch.as_tensor(
         yp0_batch, device=y0.device)
@@ -647,7 +720,7 @@ def _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
         raise ValueError("DAE: pass consistent yp0_batch (e.g. from the "
                          "f64 stepper's init)")
 
-    built = _kernel(method, fun, M, m_diag, rot, n)
+    built = _kernel(method, fun, M, m_diag, rot, n, nbase)
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
@@ -665,9 +738,10 @@ def _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
         stream = torch.cuda.current_stream(y0.device).cuda_stream
         rc = built.lib.fused_esdirk_launch(
             y0.data_ptr(), None if yp0 is None else yp0.data_ptr(),
-            y_out.data_ptr(), status.data_ptr(), nsteps.data_ptr(),
-            nfev.data_ptr(), nb, float(t0), float(tf), float(rtol),
-            float(atol), float(h0), int(use_hstart), int(yp0 is not None),
+            None if params is None else params.data_ptr(), y_out.data_ptr(),
+            status.data_ptr(), nsteps.data_ptr(), nfev.data_ptr(), nb,
+            float(t0), float(tf), float(rtol), float(atol), float(h0),
+            int(use_hstart), int(yp0 is not None),
             np.inf if max_step is None else float(max_step),
             int(max_steps), _tiny_err(n, rtol), int(bool(compensated)),
             int(lanes), block_members, stream)

@@ -51,6 +51,7 @@ from extensisq_tpu_torch.ops import fused_esdirk as FE  # noqa: E402
 from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG  # noqa: E402
 from extensisq_tpu_torch.ops import fused_rkc as FR  # noqa: E402
 from extensisq_tpu_torch.ops import fused_rkn as FN  # noqa: E402
+from extensisq_tpu_torch.ops.fused_sens import _aug_rhs  # noqa: E402
 from extensisq_tpu_torch.parallel import pde  # noqa: E402
 
 SHIM = """
@@ -179,6 +180,7 @@ static void run_lanes(int G, void (*run)(int), char* stacks) {
 SMALL_LAUNCH = COROUTINES + r"""
 struct HostSmallMember {
   const float* y0;
+  const float* par;
   Launch L;
   int m;
   Out out;
@@ -191,14 +193,15 @@ static void small_lane(int rank) {
   HostLanes lane{rank};
   const HostSmallMember& a = g_small;
   if (a.comp) {
-    integrate<G, true>(lane, a.y0, a.L, a.m, a.out);
+    integrate<G, true>(lane, a.y0, PAR_ARG a.L, a.m, a.out);
   } else {
-    integrate<G, false>(lane, a.y0, a.L, a.m, a.out);
+    integrate<G, false>(lane, a.y0, PAR_ARG a.L, a.m, a.out);
   }
 }
 
 extern "C" int KERNEL_launch(
-    const void* y0, void* y_out, void* status, void* nstep, void* nfev,
+    const void* y0, PAR_DECL void* y_out, void* status, void* nstep,
+    void* nfev,
     int B, float t0, float tf, float rtol, float atol, float h0,
     int use_hstart, float max_step, int max_steps, int compensated,
     int lanes, int block_members, void* stream) {
@@ -213,14 +216,15 @@ extern "C" int KERNEL_launch(
   const float* y0f = (const float*)y0;
   for (int m = 0; m < B; ++m) {
     const float* y0m = y0f + static_cast<size_t>(m) * N;
+    const float* parm = PAR_ROW;
     if (lanes == 1) {
       if (compensated) {
-        integrate_thread<true>(y0m, L, m, out);
+        integrate_thread<true>(y0m, PAR_M L, m, out);
       } else {
-        integrate_thread<false>(y0m, L, m, out);
+        integrate_thread<false>(y0m, PAR_M L, m, out);
       }
     } else {
-      g_small = HostSmallMember{y0m, L, m, out, compensated};
+      g_small = HostSmallMember{y0m, parm, L, m, out, compensated};
       run_lanes(lanes, body, stacks);
     }
   }
@@ -228,8 +232,15 @@ extern "C" int KERNEL_launch(
   return 0;
 }
 """
-ERK_LAUNCH = SMALL_LAUNCH.replace("KERNEL", "fused_erk")
-RKN_LAUNCH = SMALL_LAUNCH.replace("KERNEL", "fused_rkn")
+# B1 reads the members' parameters ((B, tab::NPAR), row-major); B5 takes
+# none
+ERK_LAUNCH = (SMALL_LAUNCH.replace("KERNEL", "fused_erk")
+              .replace("PAR_DECL", "const void* params,")
+              .replace("PAR_ROW", "(const float*)params + m * tab::NPAR")
+              .replace("PAR_ARG", "a.par,").replace("PAR_M", "parm,"))
+RKN_LAUNCH = (SMALL_LAUNCH.replace("KERNEL", "fused_rkn")
+              .replace("PAR_DECL", "").replace("PAR_ROW", "nullptr")
+              .replace("PAR_ARG", "").replace("PAR_M", ""))
 
 # The SWAG bodies of B3 run one member after another: at one lane the
 # thread-per-member body integrate_thread<COMP>, at G lanes the group body
@@ -302,7 +313,7 @@ extern "C" int fused_adams_host(
 # marker are left out.
 ESDIRK_LAUNCH = COROUTINES + r"""
 struct HostEsdirkMember {
-  const float *y0, *yp0;
+  const float *y0, *yp0, *par;
   Launch L;
   int m;
   Out out;
@@ -315,18 +326,18 @@ static void esdirk_lane(int rank) {
   HostLanes lane{rank};
   const HostEsdirkMember& a = g_esdirk;
   if (a.comp) {
-    integrate<G, true>(lane, a.y0, a.yp0, a.L, a.m, a.out);
+    integrate<G, true>(lane, a.y0, a.yp0, a.par, a.L, a.m, a.out);
   } else {
-    integrate<G, false>(lane, a.y0, a.yp0, a.L, a.m, a.out);
+    integrate<G, false>(lane, a.y0, a.yp0, a.par, a.L, a.m, a.out);
   }
 }
 
 extern "C" int fused_esdirk_launch(
-    const void* y0, const void* yp0, void* y_out, void* status, void* nstep,
-    void* nfev, int B, float t0, float tf, float rtol, float atol, float h0,
-    int use_hstart, int have_yp0, float max_step, int max_steps,
-    float tiny_err, int compensated, int lanes, int block_members,
-    void* stream) {
+    const void* y0, const void* yp0, const void* params, void* y_out,
+    void* status, void* nstep, void* nfev, int B, float t0, float tf,
+    float rtol, float atol, float h0, int use_hstart, int have_yp0,
+    float max_step, int max_steps, float tiny_err, int compensated,
+    int lanes, int block_members, void* stream) {
   const Out out{(float*)y_out, (int*)status, (int*)nstep, (int*)nfev};
   const Launch L{t0, tf, rtol, atol, h0, max_step, tiny_err, use_hstart,
                  have_yp0, max_steps};
@@ -340,14 +351,15 @@ extern "C" int fused_esdirk_launch(
   for (int m = 0; m < B; ++m) {
     const float* y0m = y0f + m * N;
     const float* yp0m = have_yp0 ? yp0f + m * N : nullptr;
+    const float* parm = (const float*)params + m * tab::NPAR;
     if (lanes == 1) {
       if (compensated) {
-        integrate_thread<true>(y0m, yp0m, L, m, out);
+        integrate_thread<true>(y0m, yp0m, parm, L, m, out);
       } else {
-        integrate_thread<false>(y0m, yp0m, L, m, out);
+        integrate_thread<false>(y0m, yp0m, parm, L, m, out);
       }
     } else {
-      g_esdirk = HostEsdirkMember{y0m, yp0m, L, m, out, compensated};
+      g_esdirk = HostEsdirkMember{y0m, yp0m, parm, L, m, out, compensated};
       run_lanes(lanes, body, stacks);
     }
   }
@@ -895,9 +907,18 @@ ESDIRK_VARIANTS = {           # label -> (problem, method, M)
     "pend": ("pend", "Kv3I", T.M_PEND),
     "kaps_hidden": ("kaps_hidden", "TRBDF2", T.M_HIDDEN),
 }
+# label -> (problem, method, base block): B2 with per-member params, and
+# its simultaneous corrector on Robertson's variational system
+ESDIRK_PARAM_VARIANTS = {"stiff_params": ("stiff_p", "Kv3I", None),
+                         "rob_block": ("rob_aug", "TRBDF2", 3)}
 VARIANT_OF = {"rob_kv3i": "rob_kv3i", "rob_kv3i_comp": "rob_kv3i",
               "rob_trbdf2": "rob_trbdf2", "pend_dae": "pend",
-              "kaps_hidden": "kaps_hidden"}
+              "kaps_hidden": "kaps_hidden", "stiff_params": "stiff_params",
+              "rob_block": "rob_block"}
+# B1 with a per-member mu, and on Van der Pol's variational system for mu
+# and y0 (ops.solve_fused_sens's)
+ERK_PARAM_RHS = {"vdp_params": TK.PROBLEMS["vdp_p"],
+                 "vdp_variational": _aug_rhs(TK.PROBLEMS["vdp_p"], 2, 1, 2)}
 VDP_TEMPLATE = FK.FusedRHS(
     TK.PROBLEMS["vdp"].torch_fn,
     "template <class T>\n__device__ void rhs(T t, const T* y, T* dy) {\n"
@@ -938,10 +959,16 @@ def libs(tmp_path_factory):
             FE._esdirk_consts(T.METHODS[meth]), *FE._mass_setup(M, rhs.n),
             rhs.n, rhs.cuda_src)
         jobs[label] = ("fused_esdirk", header, ESDIRK_LAUNCH, RKC_MARKER)
+    for label, (prob, meth, nb) in ESDIRK_PARAM_VARIANTS.items():
+        rhs = T.PROBLEMS[prob]
+        jobs[label] = ("fused_esdirk", _build.fused_esdirk_header(
+            FE._esdirk_consts(T.METHODS[meth]), None, None, rhs.n,
+            rhs.cuda_src, rhs.k, nb), ESDIRK_LAUNCH, RKC_MARKER)
     for label, rhs in (("vdp", TK.PROBLEMS["vdp"]),
-                       ("vdp_template", VDP_TEMPLATE)):
+                       ("vdp_template", VDP_TEMPLATE),
+                       *ERK_PARAM_RHS.items()):
         header = _build.fused_erk_header(FK._fused_consts(TK.BS5), rhs.n,
-                                         rhs.cuda_src)
+                                         rhs.cuda_src, rhs.k)
         jobs[label] = ("fused_erk", header, ERK_LAUNCH, RKC_MARKER)
     for label, (prob, km) in ADAMS_VARIANTS.items():
         rhs = TA.PROBLEMS[prob]
@@ -996,8 +1023,12 @@ def _esdirk_host(lib, case, lanes=1, **over):
     member."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host lane group switches x86-64 stacks")
-    prob, meth, span, y0, yp0, M, kw = T.CASES[case]
+    prob, meth, span, y0, yp0, M, kw = {**T.CASES, **T.PARAM_CASES}[case]
     kw = dict(kw, **over)
+    kw.pop("block_base", None)          # the build's
+    par = T.PARAMS.get(case)
+    if par is not None:
+        par = np.ascontiguousarray(par, np.float32)
     rtol, atol = kw.pop("rtol"), kw.pop("atol")
     comp = kw.pop("compensated", False)
     max_steps = kw.pop("max_steps", 100_000)
@@ -1010,11 +1041,12 @@ def _esdirk_host(lib, case, lanes=1, **over):
     yp = None if yp0 is None else np.ascontiguousarray(yp0, np.float32)
     fn = lib.fused_esdirk_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 6 + [ci, cf, cf, cf, cf, cf, ci, ci, cf, ci, cf,
+    fn.argtypes = [vp] * 7 + [ci, cf, cf, cf, cf, cf, ci, ci, cf, ci, cf,
                               ci, ci, ci, vp]
     rc = fn(y0.ctypes.data, None if yp is None else yp.ctypes.data,
-            out.ctypes.data, st.ctypes.data, ns.ctypes.data,
-            nf.ctypes.data, nb, float(t0), float(tf), rtol, atol,
+            None if par is None else par.ctypes.data, out.ctypes.data,
+            st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb, float(t0),
+            float(tf), rtol, atol,
             float(np.float32(0.01) * abs(tf - t0)), int(M is None),
             int(yp is not None), np.inf, max_steps, FE._tiny_err(n, rtol),
             int(comp), lanes, 128 // lanes, None)
@@ -1024,10 +1056,14 @@ def _esdirk_host(lib, case, lanes=1, **over):
 
 # (case, max |dy|, max |dnsteps|, members with other counts), measured:
 # rob_kv3i 3.6e-7, 1, 6; rob_kv3i_comp 3.7e-9, 1, 13; rob_trbdf2 1.7e-6,
-# 1, 2; pend_dae 4.8e-6, 1, 11; kaps_hidden 6.7e-7, 0, 4.  Gates about 2x.
+# 1, 2; pend_dae 4.8e-6, 1, 11; kaps_hidden 6.7e-7, 0, 4; stiff_params
+# (a parameter a member) 1.8e-6, 0, 1; rob_block (the simultaneous
+# corrector on Robertson's variational system) 1.2e-7, 0, 0.  Gates about
+# 2x.
 GATES = [("rob_kv3i", 1e-6, 2, 12), ("rob_kv3i_comp", 1e-8, 2, 26),
          ("rob_trbdf2", 4e-6, 2, 4), ("pend_dae", 1e-5, 2, 22),
-         ("kaps_hidden", 2e-6, 1, 8)]
+         ("kaps_hidden", 2e-6, 1, 8), ("stiff_params", 4e-6, 1, 2),
+         ("rob_block", 3e-7, 1, 2)]
 
 
 # the multi-lane groups each SWAG case also runs under, besides one lane
@@ -1048,6 +1084,8 @@ def _over_lanes(params, lanes=ADAMS_LANES):
 
 # the lane groups each ESDIRK case also runs under, besides one lane
 ESDIRK_LANES = (4, 8)
+# the plain version of a case, run once for its lane counts
+_plain_esdirk = functools.lru_cache(maxsize=None)(T._port)
 
 
 @pytest.mark.parametrize("case,y_gate,dsteps,nmembers,lanes", _over_lanes(
@@ -1055,7 +1093,7 @@ ESDIRK_LANES = (4, 8)
 def test_esdirk_kernel_matches_plain_version(libs, case, y_gate, dsteps,
                                              nmembers, lanes):
     y, st, ns, nf = _esdirk_host(libs[VARIANT_OF[case]], case, lanes)
-    ry, rst, rns, rnf = T._port(case)
+    ry, rst, rns, rnf = _plain_esdirk(case)
     np.testing.assert_array_equal(st, rst)
     assert np.all(st == 1)
     assert np.max(np.abs(y - ry)) <= y_gate
@@ -1092,9 +1130,10 @@ def test_esdirk_lane_body_bit_identical_to_thread_body(libs, case, lanes):
         np.testing.assert_array_equal(a, b)
 
 
-def _small_host(lib, name, span, y0, lanes=1, **kw):
-    """The host-built B1 (``name`` fused_erk) or B5 (fused_rkn) on ``y0``
-    by one thread per member (lanes = 1) or ``lanes`` coroutine lanes."""
+def _small_host(lib, name, span, y0, lanes=1, params=None, **kw):
+    """The host-built B1 (``name`` fused_erk, with the members' ``params``
+    or none) or B5 (fused_rkn) on ``y0`` by one thread per member (lanes =
+    1) or ``lanes`` coroutine lanes."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host lane group switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
@@ -1103,9 +1142,14 @@ def _small_host(lib, name, span, y0, lanes=1, **kw):
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
     fn = getattr(lib, f"{name}_launch")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 5 + [ci, cf, cf, cf, cf, cf, ci, cf, ci, ci, ci,
-                              ci, vp]
-    rc = fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
+    first = [y0.ctypes.data]
+    if name == "fused_erk":
+        if params is not None:
+            params = np.ascontiguousarray(params, np.float32)
+        first.append(None if params is None else params.ctypes.data)
+    fn.argtypes = [vp] * (4 + len(first)) + [ci, cf, cf, cf, cf, cf, ci, cf,
+                                             ci, ci, ci, ci, vp]
+    rc = fn(*first, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
             nf.ctypes.data, nb,
             *FK.launch_args(span, kw["rtol"], kw["atol"],
                             kw.get("first_step"),
@@ -1153,6 +1197,50 @@ def test_erk_lane_body_bit_identical_to_thread_body(libs, label, case,
     prob, meth, span, y0, kw = TK.CASES[case]
     for a, b in zip(_erk_host(libs[label], span, y0, lanes=lanes, **kw),
                     _erk_host(libs[label], span, y0, **kw)):
+        np.testing.assert_array_equal(a, b)
+
+
+def _erk_params_case(label):
+    """B1's params cases: the mu sweep of test_torch_fused_erk.py (y0 =
+    (2, 0), mu in [1, 2]) on Van der Pol, and on its variational system
+    from (y0, 0, I)."""
+    y0 = TK.VDPP0
+    if label == "vdp_variational":
+        y0 = np.concatenate([y0, np.zeros_like(y0), np.tile(
+            np.eye(2, dtype=np.float32).reshape(1, 4), (len(y0), 1))], 1)
+    return y0, TK.MUS, dict(rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("label,y_gate", [("vdp_params", 6e-6),
+                                          ("vdp_variational", 1.2e-4)])
+def test_erk_params_kernels_match_plain_version(libs, label, y_gate):
+    """B1 with a parameter a member, and on the variational system whose
+    tangent rows the kernel takes on dual numbers, against the plain
+    version (torch.func.jvp for the tangents).  Measured: |dy| 3.0e-6 and
+    6.0e-5 (the tangent rows, |s| up to ~6), identical counts."""
+    y0, mus, kw = _erk_params_case(label)
+    y, st, ns, nf = _erk_host(libs[label], (0.0, 3.0), y0, params=mus, **kw)
+    ry, rst, rns, rnf = (r.numpy() for r in FK.fused_erk_reference(
+        ERK_PARAM_RHS[label], (0.0, 3.0), torch.tensor(y0),
+        params=torch.tensor(mus), method=TK.BS5, **kw))
+    np.testing.assert_array_equal(st, rst)
+    assert np.all(st == 1)
+    assert np.max(np.abs(y - ry)) <= y_gate
+    np.testing.assert_array_equal(ns, rns)
+    np.testing.assert_array_equal(nf, rnf)
+
+
+@pytest.mark.parametrize("lanes", SMALL_LANES)
+@pytest.mark.parametrize("label", list(ERK_PARAM_RHS))
+def test_erk_params_lane_body_bit_identical_to_thread_body(libs, label,
+                                                           lanes):
+    """The params and variational builds of B1 on 2, 4 and 8 coroutine
+    lanes per member: the thread body's results bit for bit."""
+    y0, mus, kw = _erk_params_case(label)
+    for a, b in zip(_erk_host(libs[label], (0.0, 3.0), y0, lanes=lanes,
+                              params=mus, **kw),
+                    _erk_host(libs[label], (0.0, 3.0), y0, params=mus,
+                              **kw)):
         np.testing.assert_array_equal(a, b)
 
 

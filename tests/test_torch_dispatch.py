@@ -8,8 +8,8 @@ tensor asks).  The cases are ``tests/test_fused_pallas.py:1739``'s routes
 (BS5 on 128 Van der Pol members, Kv3I past the flat cap, SSV2stab on one
 grid and on a member stack) and one route per family and layout, with the
 RHS object's type deciding the layout, the RKN half-width, the flat caps,
-a contradicting ``layout=`` (``TypeError``) and a method without a family
-(``ValueError``).
+a contradicting ``layout=`` (``TypeError``), a method without a family
+(``ValueError``) and per-member ``params``, passed through to B1 and B2.
 """
 import numpy as np
 import pytest
@@ -34,6 +34,14 @@ def vdp(t, y):
 
 def decay(t, y):
     return -y
+
+
+def vdp_p(t, y, p):
+    return torch.stack([y[1], p[0] * (1 - y[0] ** 2) * y[1] - y[0]])
+
+
+def decay_p(t, y, p):
+    return -p[0] * y
 
 
 def heat(t, y):
@@ -73,6 +81,8 @@ BRU0[0] += 0.1 * np.sin(2 * np.pi * np.linspace(0, 1, 16, endpoint=False))
 BRU0[1] = 3.0
 BRU0 = torch.as_tensor(BRU0)
 RHO = 8 * 0.02 * 16 ** 2 + 6.0
+# per-member parameters of 4 members
+P4 = torch.linspace(1.0, 2.0, 4)[:, None]
 
 # name -> (fun, method name, y0, layout=, ensemble=, kw, wrapper expected)
 CASES = {
@@ -129,6 +139,11 @@ CASES = {
                        "solve_fused_ckdisc_grid"),
     "default_method": (vdp, None, members(2), None, None, {},
                        "solve_fused_erk"),
+    # params pass through to B1 and B2
+    "erk_params": (FusedRHS(vdp_p, "", 2, 1), "BS5", members(2), None, None,
+                   dict(params=P4), "solve_fused_erk"),
+    "esdirk_params": (FusedRHS(decay_p, "", 2, 1), "Kv3I", members(2), None,
+                      None, dict(params=P4), "solve_fused_esdirk"),
 }
 SPAN = (0.0, 0.5)
 

@@ -54,6 +54,15 @@ PROBLEMS = {
   dy[0] = y[1];
   dy[1] = y[0] * y[0] * y[0];
 }""", 2),
+    # Van der Pol with a per-member mu (one parameter)
+    "vdp_p": FusedRHS(
+        lambda t, y, p: torch.stack([y[1],
+                                     p[0] * (1 - y[0] ** 2) * y[1] - y[0]]),
+        """template <class T>
+__device__ void rhs(T t, const T* y, T* dy, const T* p) {
+  dy[0] = y[1];
+  dy[1] = p[0] * (1.0f - y[0] * y[0]) * y[1] - y[0];
+}""", 2, 1),
 }
 METHODS = {"BS5": BS5, "CK5": CK5}
 
@@ -71,6 +80,11 @@ def _inputs():
 
 
 VDP0, LIN0, CUB0 = _inputs()
+# the mu sweep of the JAX package's params tests: mu in [1, 2], y0 = (2, 0)
+MUS = np.linspace(1.0, 2.0, B).astype(np.float32)[:, None]
+VDPP0 = np.stack([np.full(B, 2.0), np.zeros(B)], axis=1).astype(np.float32)
+# name -> the members' params, for the cases that take them
+PARAMS = {"vdp_params": MUS}
 CASES = {
     "vdp_plain": ("vdp", "BS5", (0.0, 2.0), VDP0,
                   dict(rtol=1e-4, atol=1e-6)),
@@ -80,6 +94,8 @@ CASES = {
                    dict(rtol=1e-5, atol=1e-7)),
     "overflow": ("cubic", "BS5", (0.0, 1.0), CUB0,
                  dict(rtol=1e-4, atol=1e-6, max_steps=2000)),
+    "vdp_params": ("vdp_p", "BS5", (0.0, 3.0), VDPP0,
+                   dict(rtol=1e-5, atol=1e-8, first_step=0.01)),
 }
 
 _JAX_SCRIPT = textwrap.dedent("""
@@ -95,10 +111,14 @@ _JAX_SCRIPT = textwrap.dedent("""
                                        3.0 * (1 - y[0] ** 2) * y[1] - y[0]]),
         "linear": lambda t, y: jnp.stack([y[1], -y[0]]),
         "cubic": lambda t, y: jnp.stack([y[1], y[0] ** 3]),
+        "vdp_p": lambda t, y, p: jnp.stack(
+            [y[1], p[0] * (1 - y[0] ** 2) * y[1] - y[0]]),
     }
     inputs = np.load(sys.argv[1])
     out = {}
     for name, (prob, meth, span, kw) in json.loads(sys.argv[2]).items():
+        if name + "/params" in inputs.files:
+            kw["params"] = inputs[name + "/params"]
         res = solve_fused_erk(problems[prob], tuple(span), inputs[name],
                               method=getattr(X, meth), block_members=128,
                               interpret=True, **kw)
@@ -112,7 +132,8 @@ _JAX_SCRIPT = textwrap.dedent("""
 def jax_results(tmp_path_factory):
     """The JAX kernel's outputs for every case, from one subprocess."""
     d = tmp_path_factory.mktemp("jax_fused")
-    np.savez(d / "in.npz", **{k: v[3] for k, v in CASES.items()})
+    np.savez(d / "in.npz", **{k: v[3] for k, v in CASES.items()},
+             **{k + "/params": v for k, v in PARAMS.items()})
     spec = {k: [v[0], v[1], v[2], v[4]] for k, v in CASES.items()}
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_cpu_max_isa=SSE4_2",
@@ -126,6 +147,8 @@ def jax_results(tmp_path_factory):
 
 def _port(name):
     prob, meth, span, y0, kw = CASES[name]
+    if name in PARAMS:
+        kw = dict(kw, params=torch.tensor(PARAMS[name]))
     res = fused_erk_reference(PROBLEMS[prob], span, torch.tensor(y0),
                               method=METHODS[meth], **kw)
     return tuple(r.numpy() for r in res)
@@ -135,12 +158,15 @@ def _port(name):
 # difference).  Measured on the CPU: vdp_plain 2.8e-5, one member one
 # rejected attempt (7 RHS evals) apart; vdp_compensated 2.4e-6, six
 # members at most one step (14 RHS evals) apart; linear_ck5 7.2e-7 with
-# identical counts.  Each count difference starts from the last bits of
-# the starting step; the gates add a margin of about 2x.
+# identical counts; vdp_params (per-member mu, first_step given) 2.9e-6
+# with identical counts.
+# Each count difference starts from the last bits of the starting step;
+# the gates add a margin of about 2x.
 GATES = [
     ("vdp_plain", 1e-4, 1, 14, 4),
     ("vdp_compensated", 1e-5, 2, 28, 12),
     ("linear_ck5", 1e-5, 0, 0, 0),
+    ("vdp_params", 6e-6, 0, 0, 0),
 ]
 
 
@@ -191,11 +217,49 @@ def test_cpu_wrapper_runs_plain_version():
     assert solve_fused_erk.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events", "params", "dense"])
+@pytest.mark.parametrize("option", ["t_eval", "events", "dense"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_fused_erk(PROBLEMS["vdp"], (0.0, 1.0), torch.tensor(VDP0),
                         **{option: 1})
+
+
+@pytest.mark.parametrize("fun,params,match", [
+    ("vdp_p", MUS[:-1], "params must be"),
+    ("vdp_p", MUS[:, 0], "params must be"),
+    ("vdp_p", None, "takes 1 parameters"),
+    ("vdp_p", np.repeat(MUS, 2, axis=1), "k = 1"),
+    ("vdp", MUS, "k = 0")])
+def test_params_checks_raise(fun, params, match):
+    """As the JAX kernel checks them: params of another shape than (B, k)
+    raise ValueError, and so do params a FusedRHS's k does not take."""
+    with pytest.raises(ValueError, match=match):
+        solve_fused_erk(PROBLEMS[fun], (0.0, 1.0), torch.tensor(VDPP0),
+                        params=params)
+
+
+def test_params_bit_for_bit_baked():
+    """Per-member params give each member the steps of the same RHS with
+    its mu baked in, bit for bit (the JAX package's
+    test_fused_erk_params_bit_exact_vs_baked).  The baked run repeats the
+    member over a batch of the same size, as the JAX test does: PyTorch's
+    CPU pow rounds otherwise in its vectorized body than in its scalar
+    tail, so a batch of one would part in the last bits."""
+    mus = np.linspace(1.0, 4.0, B).astype(np.float32)[:, None]
+    kw = dict(method=BS5, rtol=1e-4, atol=1e-6)
+    y, st, ns, nf = fused_erk_reference(
+        PROBLEMS["vdp_p"], (0.0, 5.0), torch.tensor(VDPP0),
+        params=torch.tensor(mus), **kw)
+    assert torch.all(st == 1)
+    for i in (0, 37, 127):
+        mu = float(mus[i, 0])
+        baked = fused_erk_reference(
+            lambda t, yy, mu=mu: torch.stack(
+                [yy[1], mu * (1 - yy[0] ** 2) * yy[1] - yy[0]]),
+            (0.0, 5.0), torch.tensor(VDPP0[i:i + 1]).repeat(B, 1), **kw)
+        assert torch.equal(baked[0][0], y[i])
+        assert int(baked[2][0]) == int(ns[i])
+        assert int(baked[3][0]) == int(nf[i])
 
 
 def test_step_cap_counts_attempts():

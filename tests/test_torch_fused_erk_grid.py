@@ -225,13 +225,14 @@ def test_cpu_wrapper_runs_plain_version():
 
 def test_fused_wrappers_take_the_jax_parameters():
     """Every ``solve_fused_*`` of the port has the JAX wrapper's parameter
-    names in its order, ``interpret`` (Pallas' interpreter) left out."""
+    names in its order, ``interpret`` (Pallas' interpreter) left out: the
+    twelve kernels' wrappers and the three of ``ops/fused_sens.py``."""
     import inspect
 
     import extensisq_tpu.ops as jops
     import extensisq_tpu_torch.ops as pops
     names = [n for n in dir(pops) if n.startswith("solve_fused_")]
-    assert len(names) == 12
+    assert len(names) == 15
     for name in names:
         want = [k for k in inspect.signature(getattr(jops, name)).parameters
                 if k != "interpret"]

@@ -14,9 +14,6 @@ the f64 driver, here the port's ``solve_ensemble``.  The tests marked
 ``gpu`` hold the CUDA kernel against the plain version on the card; they
 skip where there is none.
 """
-import json
-import os
-import subprocess
 import sys
 import textwrap
 import warnings
@@ -30,8 +27,12 @@ from extensisq_tpu_torch import Kv3I, TRBDF2, solve, solve_ensemble
 from extensisq_tpu_torch.ops import (FusedRHS, fused_esdirk_reference,
                                      solve_fused_esdirk)
 from extensisq_tpu_torch.ops import fused_esdirk as FE
+from extensisq_tpu_torch.ops.fused_sens import _aug_rhs
 from extensisq_tpu_torch.steppers import build_stepper
 from extensisq_tpu_torch.types import IVPParams
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from jax_reference import run_jax  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 B = 128
@@ -103,9 +104,42 @@ __device__ void rhs(T t, const T* z, T* dz) {{
   dz[1] = {_f(HID_A[1, 0])} * f0 + {_f(HID_A[1, 1])} * f1;
 }}
 """
+def rob_p(t, y, p):
+    """Robertson with the rate constants as per-member parameters."""
+    r1 = p[0] * y[0]
+    r2 = p[1] * y[1] * y[2]
+    r3 = p[2] * y[1] * y[1]
+    return torch.stack([-r1 + r2, r1 - r2 - r3, r3])
+
+
+ROB_P_CUDA = """
+template <class T>
+__device__ void rhs(T t, const T* y, T* dy, const T* p) {
+  const T r1 = p[0] * y[0];
+  const T r2 = p[1] * y[1] * y[2];
+  const T r3 = p[2] * y[1] * y[1];
+  dy[0] = -r1 + r2;
+  dy[1] = r1 - r2 - r3;
+  dy[2] = r3;
+}
+"""
+STIFF_P_CUDA = """
+template <class T>
+__device__ void rhs(T t, const T* y, T* dy, const T* p) {
+  dy[0] = -p[0] * (y[0] - cos(t));
+}
+"""
+ROB_P = FusedRHS(rob_p, ROB_P_CUDA, 3, 3)
 PROBLEMS = {"rob": FusedRHS(rob, ROB_CUDA, 3),
             "pend": FusedRHS(pend, PEND_CUDA, 5),
-            "kaps_hidden": FusedRHS(kaps_hidden, KAPS_HIDDEN_CUDA, 2)}
+            "kaps_hidden": FusedRHS(kaps_hidden, KAPS_HIDDEN_CUDA, 2),
+            # the JAX package's test_fused_esdirk_params_stiff
+            "stiff_p": FusedRHS(
+                lambda t, y, p: torch.stack([-p[0] * (y[0] - torch.cos(t))]),
+                STIFF_P_CUDA, 1, 1),
+            # Robertson's variational system for its three rate constants,
+            # as ops.solve_fused_sens builds it
+            "rob_aug": _aug_rhs(ROB_P, 3, 3, 0)}
 METHODS = {"Kv3I": Kv3I, "TRBDF2": TRBDF2}
 M_PEND = np.array([1.0, 1.0, 1.0, 1.0, 0.0])
 
@@ -135,6 +169,22 @@ def _inputs():
 
 
 ROB0, PEND0, PENDP0, KZ0, KZP0 = _inputs()
+# the params cases: a stiff relaxation towards cos(t) at rates 50-500, and
+# 8 Robertson members (k1 in [0.04, 0.05]) through the simultaneous
+# corrector on their variational system
+PSTIFF = np.linspace(50.0, 500.0, B).astype(np.float32)[:, None]
+PROB = np.tile([0.04, 1e4, 3e7], (8, 1)).astype(np.float32)
+PROB[:, 0] = np.linspace(0.04, 0.05, 8)
+ROBA0 = np.concatenate([np.tile(np.array([1.0, 0.0, 0.0], np.float32),
+                                (8, 1)), np.zeros((8, 9), np.float32)], 1)
+PARAM_CASES = {
+    "stiff_params": ("stiff_p", "Kv3I", (0.0, 1.0),
+                     np.zeros((B, 1), np.float32), None, None,
+                     dict(rtol=1e-4, atol=1e-6)),
+    "rob_block": ("rob_aug", "TRBDF2", (0.0, 0.4), ROBA0, None, None,
+                  dict(rtol=1e-4, atol=1e-8, block_base=3)),
+}
+PARAMS = {"stiff_params": PSTIFF, "rob_block": PROB}
 # name -> (problem, method, span, y0, yp0, M, options)
 CASES = {
     "rob_kv3i": ("rob", "Kv3I", (0.0, 1.0), ROB0, None, None,
@@ -157,8 +207,8 @@ _JAX_SCRIPT = textwrap.dedent("""
     import jax.numpy as jnp
     import extensisq_tpu as X
     from extensisq_tpu.ops.fused_esdirk import solve_fused_esdirk
-    hid = np.load(sys.argv[4])
-    A, Binv = hid["A"], hid["Binv"]
+    inputs = np.load(sys.argv[1])
+    A, Binv = inputs["hid/A"], inputs["hid/Binv"]
 
     def rob(t, y):
         r1 = -0.04 * y[0] + 1e4 * y[1] * y[2]
@@ -180,7 +230,6 @@ _JAX_SCRIPT = textwrap.dedent("""
                           A[1, 0] * f0 + A[1, 1] * f1])
 
     problems = {"rob": rob, "pend": pend, "kaps_hidden": kaps_hidden}
-    inputs = np.load(sys.argv[1])
     out = {}
     for name, (prob, meth, span, has_yp, M, kw) in json.loads(
             sys.argv[2]).items():
@@ -198,9 +247,14 @@ _JAX_SCRIPT = textwrap.dedent("""
 
 @pytest.fixture(scope="module")
 def jax_results(tmp_path_factory):
-    """The JAX kernel's outputs for every case, from one subprocess."""
+    """The JAX kernel's outputs for every case: the cases without params
+    from one subprocess; the params cases from
+    ``tests/jax_fused_esdirk_params.npz``, which
+    ``tests/jax_fused_esdirk_params.py`` writes from the JAX package
+    (interpret mode compiles the ``block_base`` case for ~40 s), its
+    inputs held equal to these."""
     d = tmp_path_factory.mktemp("jax_fused_esdirk")
-    arrays = {}
+    arrays = {"hid/A": HID_A, "hid/Binv": HID_BINV}
     spec = {}
     for name, (prob, meth, span, y0, yp0, M, kw) in CASES.items():
         arrays[name + "/y0"] = y0
@@ -209,19 +263,22 @@ def jax_results(tmp_path_factory):
         spec[name] = [prob, meth, span, yp0 is not None,
                       None if M is None else np.asarray(M).tolist(), kw]
     np.savez(d / "in.npz", **arrays)
-    np.savez(d / "hid.npz", A=HID_A, Binv=HID_BINV)
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_cpu_max_isa=SSE4_2", PYTHONPATH=str(REPO))
-    subprocess.run([sys.executable, "-c", _JAX_SCRIPT, str(d / "in.npz"),
-                    json.dumps(spec), str(d / "out.npz"), str(d / "hid.npz")],
-                   cwd=REPO, env=env, check=True, timeout=900)
-    out = np.load(d / "out.npz")
-    return {k: tuple(out[f"{k}/{i}"] for i in range(4)) for k in CASES}
+    out = dict(run_jax(_JAX_SCRIPT, d, [spec]))
+    rec = np.load(Path(__file__).resolve().parent
+                  / "jax_fused_esdirk_params.npz")
+    for name in PARAM_CASES:
+        np.testing.assert_array_equal(rec[name + "/y0"], PARAM_CASES[name][3])
+        np.testing.assert_array_equal(rec[name + "/params"], PARAMS[name])
+        out.update({f"{name}/{i}": rec[f"{name}/{i}"] for i in range(4)})
+    return {k: tuple(out[f"{k}/{i}"] for i in range(4))
+            for k in list(CASES) + list(PARAM_CASES)}
 
 
 def _port(name, **over):
-    prob, meth, span, y0, yp0, M, kw = CASES[name]
+    prob, meth, span, y0, yp0, M, kw = {**CASES, **PARAM_CASES}[name]
     kw = dict(kw, **over)
+    if name in PARAMS:
+        kw["params"] = torch.tensor(PARAMS[name])
     res = fused_esdirk_reference(
         PROBLEMS[prob], span, torch.tensor(y0), method=METHODS[meth], M=M,
         yp0_batch=None if yp0 is None else torch.tensor(yp0), **kw)
@@ -231,7 +288,8 @@ def _port(name, **over):
 # (case, max |dy|, max |dnsteps|, max |dnfev|, members with a count
 # difference).  Measured on the CPU: rob_kv3i 4.2e-7, 1 step, 11 evals,
 # 23 members; rob_kv3i_comp 1.2e-7, 1, 8, 27; rob_trbdf2 3.6e-7, 0, 1, 1;
-# pend_dae 4.8e-6, 1, 3, 53; kaps_hidden 1.5e-6, 0, 1, 14.  The first
+# pend_dae 4.8e-6, 1, 3, 53; kaps_hidden 1.5e-6, 0, 1, 14; stiff_params
+# 1.8e-7, 0, 1, 1; rob_block 2.4e-7 with identical counts.  The first
 # attempt of every member is bit-identical where no starting step is
 # estimated (pend_dae, kaps_hidden); the counts part where the last bit of
 # a step size (pow, log10) moves a Newton residual across its round-off
@@ -242,7 +300,20 @@ GATES = [
     ("rob_trbdf2", 1e-6, 1, 4, 4),
     ("pend_dae", 1e-5, 2, 6, 100),
     ("kaps_hidden", 3e-6, 1, 4, 28),
+    ("stiff_params", 4e-7, 1, 2, 2),
+    ("rob_block", 5e-7, 0, 0, 0),
 ]
+
+
+def test_block_base_sensitivities_match_jax_kernel(jax_results):
+    """The simultaneous corrector's sensitivities (each dy/dp_j column over
+    its largest entry, which spans 11 decades across j) against the JAX
+    kernel's.  Measured: 1.4e-6; the gate allows 2x."""
+    y = _port("rob_block")[0]
+    jy = jax_results["rob_block"][0]
+    S, JS = y[:, 3:].reshape(-1, 3, 3), jy[:, 3:].reshape(-1, 3, 3)
+    scaled = np.abs(S - JS).max((0, 2)) / np.abs(JS).max((0, 2))
+    assert np.max(scaled) <= 3e-6
 
 
 @pytest.mark.parametrize("name,y_gate,dsteps,dfev,nmembers", GATES)
@@ -380,12 +451,29 @@ def test_cpu_wrapper_runs_plain_version():
     assert solve_fused_esdirk.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events", "params",
-                                    "block_base", "dense"])
+@pytest.mark.parametrize("option", ["t_eval", "events", "dense"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_fused_esdirk(PROBLEMS["rob"], (0.0, 1.0), torch.tensor(ROB0),
                            **{option: 1})
+
+
+@pytest.mark.parametrize("prob,y0,kw,match", [
+    ("stiff_p", np.zeros((B, 1), np.float32), dict(params=PSTIFF[:-1]),
+     "params must be"),
+    ("stiff_p", np.zeros((B, 1), np.float32), dict(), "takes 1 parameters"),
+    ("rob_aug", ROBA0, dict(params=PROB, block_base=5), "divide n"),
+    ("rob_aug", ROBA0, dict(params=PROB, block_base=12), "block_base <= 8"),
+    ("rob", np.zeros((8, 72), np.float32), dict(block_base=8), "n <= 64"),
+    ("pend", PEND0, dict(block_base=5, M=M_PEND), "no mass matrix"),
+    ("rob_aug", ROBA0, dict(params=PROB), "n <= 8")])
+def test_option_checks_raise(prob, y0, kw, match):
+    """What the JAX kernel checks raises ValueError: params of another shape
+    than (B, k) or that the FusedRHS's k does not take; a block_base that
+    does not divide n, above 8, or with n above 64; block_base with a mass
+    matrix; n above 8 without block_base."""
+    with pytest.raises(ValueError, match=match):
+        solve_fused_esdirk(PROBLEMS[prob], (0.0, 1.0), torch.tensor(y0), **kw)
 
 
 def test_dae_needs_consistent_yp0_and_small_n():
@@ -491,19 +579,19 @@ def test_build_key_hashes_shared_headers(monkeypatch, tmp_path):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.shared_headers("fused_esdirk")] == [
-        "dual.cuh", "esdirk_control.cuh", "hstart.cuh", "rk_common.cuh",
-        "lane_group.cuh"]
+        "dual.cuh", "esdirk_control.cuh", "hstart.cuh", "member_rhs.cuh",
+        "rk_common.cuh", "lane_group.cuh"]
     assert [p.name for p in _build.shared_headers("fused_erk")] == [
-        "hstart.cuh", "rk_common.cuh", "rk_control.cuh", "rk_lanes.cuh",
-        "lane_group.cuh"]
+        "dual.cuh", "hstart.cuh", "member_rhs.cuh", "rk_common.cuh",
+        "rk_control.cuh", "rk_lanes.cuh", "lane_group.cuh"]
     before = {k: _build.build_key(k, "header") for k in ("fused_erk",
                                                          "fused_esdirk")}
     common = csrc / "rk_common.cuh"
     common.write_text(common.read_text() + "\n// edited\n")
     after = {k: _build.build_key(k, "header") for k in before}
     assert all(before[k] != after[k] for k in before)
-    dual = csrc / "dual.cuh"
-    dual.write_text(dual.read_text() + "\n// edited\n")
+    control = csrc / "esdirk_control.cuh"
+    control.write_text(control.read_text() + "\n// edited\n")
     assert _build.build_key("fused_esdirk", "header") != after["fused_esdirk"]
     assert _build.build_key("fused_erk", "header") == after["fused_erk"]
     assert _build.build_key("fused_erk", "other") != after["fused_erk"]

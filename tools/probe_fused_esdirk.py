@@ -99,16 +99,19 @@ def lane_convention(src_dir):
 def build_esdirk(src_dir, header, tag, flags=()):
     b = build(src_dir, "fused_esdirk", header, f"b2_{tag}", flags)
     lanes = lane_convention(src_dir)
+    # since B2 takes per-member params: their pointer after yp0
+    par = "params" in launch_signature(src_dir, "fused_esdirk")
     V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib = b["lib"]
     lib.fused_esdirk_launch.argtypes = (
-        [V] * 6 + [I, F, F, F, F, F, I, I, F, I, F, I]
+        [V] * (6 + par) + [I, F, F, F, F, F, I, I, F, I, F, I]
         + ([I, I] if lanes else [I]) + [V])
     lib.fused_esdirk_launch.restype = I
     if flags:
         lib.fused_esdirk_sections.argtypes = [V]
         lib.fused_esdirk_sections.restype = I
     b["lanes"] = lanes
+    b["par"] = par
     return b
 
 
@@ -121,7 +124,8 @@ def launch(b, y0, yp0, lanes=1):
     ints = [torch.empty(B, dtype=torch.int32, device="cuda")
             for _ in range(3)]
     t0, tf = np.float32(SPAN[0]), np.float32(SPAN[1])
-    args = [y0.data_ptr(), yp0.data_ptr(), y.data_ptr(),
+    args = [y0.data_ptr(), yp0.data_ptr(), *([None] if b["par"] else []),
+            y.data_ptr(),
             *[x.data_ptr() for x in ints], B, float(t0), float(tf),
             float(np.float32(RTOL)), float(np.float32(ATOL)),
             float(np.float32(0.01) * abs(tf - t0)), 0, 1, np.inf, MAX_STEPS,

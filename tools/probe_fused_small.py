@@ -128,10 +128,12 @@ def build_small(src_dir, family, tag, flags=()):
     kernel = FAMILIES[family][0]
     b = build(src_dir, kernel, header(family), tag, flags)
     conv = convention(src_dir, kernel)
+    # B1 since it takes per-member params: their pointer after y0
+    par = "params" in launch_signature(src_dir, kernel)
     V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = getattr(b["lib"], f"{kernel}_launch")
     ck = kernel == "fused_ckdisc"          # no compensated mode
-    fn.argtypes = ([V] * 5 + [I, F, F, F, F, F, I, F, I]
+    fn.argtypes = ([V] * (5 + par) + [I, F, F, F, F, F, I, F, I]
                    + ([] if ck else [I])
                    + {"lanes": [I, I], "threads": [I], "fixed": []}[conv]
                    + [V])
@@ -140,7 +142,7 @@ def build_small(src_dir, family, tag, flags=()):
         sec = getattr(b["lib"], f"{kernel}_sections")
         sec.argtypes = [V, V] if ck else [V]
         sec.restype = I
-    b.update(conv=conv, kernel=kernel)
+    b.update(conv=conv, kernel=kernel, par=par)
     return b
 
 
@@ -196,8 +198,8 @@ def launcher(b, y0, span, tol, shape, reps=1):
                              tol.get("compensated", False), None)
     if b["kernel"] == "fused_ckdisc":
         scalars = scalars[:-1]             # no compensated mode
-    args = [y0.data_ptr(), y.data_ptr(), *[x.data_ptr() for x in ints], B,
-            *scalars]
+    args = [y0.data_ptr(), *([None] if b["par"] else []), y.data_ptr(),
+            *[x.data_ptr() for x in ints], B, *scalars]
     args += {"lanes": [lanes, bm], "threads": [bm],
              "fixed": []}[b["conv"]]
     args = [a if not isinstance(a, float) else ctypes.c_float(a)
