@@ -67,6 +67,17 @@ Drives each of the port's paths once:
   sum(y_f[:, 0]) over 1,024 Van der Pol members (mu in [1, 2], BS5, t in
   [0, 3], rtol 1e-5 / atol 1e-8) through ``ops.solve_fused_final``, two
   launches of B1, against central differences of B1 with params;
+* the fused sensitivities on the grid layout (after configs 7a and 7b):
+  B4 with ``params`` and on a variational system, B7 with ``params`` and
+  its simultaneous corrector (``block_base``), each against its plain
+  version on the card; 64 members of a 256-state periodic Fisher MoL (r in
+  [0.8, 1.2], BS5, t in [0, 0.25], rtol 1e-5 / atol 1e-8) through
+  ``ops.solve_fused_sens(layout="grid")``, one B4 launch on 512 rows,
+  against central differences of B4 with params; 32 members of a
+  128-state reaction-diffusion (k in [5, 30], D = 200, TRBDF2, t in [0,
+  0.04]) through it, one B7 launch with block_base 128 on 384 rows,
+  members 0 and 31 against the f64 ``sensitivity.sens_forward`` on the
+  CPU;
 * the host driver, the sensitivities and the front door (last):
   ``solve_ivp`` on the card against the same call on CPU tensors (VdP
   with BS5, ``t_eval``, dense output and two events; the CKdisc decay;
@@ -92,7 +103,8 @@ The last line of output is ``{"ok": true, "device": {...}}``; the line
 before it lists each kernel with its launch count on its path (and
 through the front door, ``launches_solve_fused``; B1's and B2's entries
 also hold the sensitivity lines' launches, times and bounds, the keys
-ending in ``_7b`` and ``_7a``), its
+ending in ``_7b`` and ``_7a``, B4's and B7's those of the grid layout's,
+ending in ``_sens_grid``), its
 largest difference from the plain version, its time, the plain version's
 and its bound in ms (the least time the card could take: the larger of
 its bytes over the memory rate and its operations over the float32 peak).
@@ -504,7 +516,7 @@ def build_all(jobs):
                                          rhs.cuda_src)
         if kernel == "fused_erk_grid":
             return _build.load_fused_rk_grid(_fused_consts(opt), False,
-                                             rhs.shape, rhs.cuda_src)
+                                             rhs.shape, rhs.cuda_src, rhs.k)
         if kernel == "fused_rkn_grid":
             return _build.load_fused_rk_grid(rkn_consts(opt), True,
                                              (rhs.n,), rhs.cuda_src)
@@ -523,8 +535,9 @@ def build_all(jobs):
             return _build.load_fused_adams_grid(
                 _adams_consts(opt, rhs.shape[0]), rhs.shape, rhs.cuda_src)
         if kernel == "fused_esdirk_grid":
-            return _build.load_fused_esdirk_grid(_esdirk_consts(opt),
-                                                 rhs.shape, rhs.cuda_src)
+            method, nb = opt if isinstance(opt, tuple) else (opt, None)
+            return _build.load_fused_esdirk_grid(
+                _esdirk_consts(method), rhs.shape, rhs.cuda_src, rhs.k, nb)
         if kernel == "fused_rkc":
             n_par, rho = opt
             return _build.load_fused_rkc(rhs.shape, n_par, rhs.cuda_src,
@@ -1047,8 +1060,9 @@ def grid_launch(kind, rhs, span, y0, kw, shape):
     kw = dict(kw)
     method = kw.pop("method", None)
     if kind == "fused_esdirk_grid":
-        return FEG._launch(FEG._kernel(method, rhs), span, y0, method=method,
-                           shape=shape, **kw)[0]
+        nb = kw.pop("block_base", None)
+        return FEG._launch(FEG._kernel(method, rhs, nb), span, y0,
+                           method=method, shape=shape, **kw)[0]
     if kind == "fused_erk_grid":
         return FKG._launch(FKG._kernel(method, rhs), span, y0, y0.shape[1],
                            shape=shape, **kw)[0]
@@ -2724,22 +2738,29 @@ def adams_grid_ops(n, km, rhs_ops, nfev_sum, nsteps_sum, init_sum):
             + nsteps_sum * n * ((km + 3) + 6 + rhs_ops))
 
 
-def esdirk_grid_ops(n, k, rhs_ops, newton_evals, nsteps_sum):
+def esdirk_grid_ops(n, k, rhs_ops, newton_evals, nsteps_sum, nb=None,
+                    band_ops=None):
     """float32 operations of a B7 run whose members made ``newton_evals``
     Newton RHS evaluations and took ``nsteps_sum`` steps (rejected attempts
     not counted, so this is a lower bound), counted from
-    csrc/fused_esdirk_grid.cu with L = ceil(log2 n) reduction rounds, per
-    element: each attempt's four dual RHS passes (3 rhs_ops and 3 band sums
-    each), W (3), the reduction's multipliers (12 L + 3), the stage sums (4
-    per weight of A and Az), the solution, error and its norm (2 S + 8) and
-    the filter's replay (4 L + 2); each Newton iteration's point (2), RHS,
-    right-hand side (3), replay (4 L + 1), norm (6) and update (1)."""
-    L = (n - 1).bit_length()
+    csrc/fused_esdirk_grid.cu with L = ceil(log2 nb) reduction rounds: per
+    element of the base block (nb rows, n without block_base) the band
+    passes of each attempt (``band_ops``; by default four dual RHS passes
+    of 3 rhs_ops and 3 band sums each), W (3) and the reduction's
+    multipliers (12 L + 3);
+    per element of the state the stage sums (4 per weight of A and Az), the
+    solution, error and its norm (2 S + 8) and the filter's replay (4 L +
+    2), and each Newton iteration's point (2), RHS, right-hand side (3),
+    replay (4 L + 1), norm (6) and update (1)."""
+    nb = n if nb is None else nb
+    band_ops = 4 * (3 * rhs_ops + 3) if band_ops is None else band_ops
+    L = (nb - 1).bit_length()
     s = k["s"]
     stage = sum(_wsum_ops(k["A"][i, :i]) + _wsum_ops(k["Az"][i, :i]) + 4
                 for i in range(1, s))
-    per_attempt = n * (4 * (3 * rhs_ops + 3) + 3 + 12 * L + 3 + stage
-                       + 2 * s + 8 + (4 * L + 2 if k["filter_error"] else 0))
+    per_attempt = (nb * (band_ops + 3 + 12 * L + 3)
+                   + n * (stage + 2 * s + 8
+                          + (4 * L + 2 if k["filter_error"] else 0)))
     per_newton = n * (2 + rhs_ops + 3 + 4 * L + 1 + 6 + 1)
     return nsteps_sum * per_attempt + newton_evals * per_newton
 
@@ -3752,6 +3773,325 @@ def sens_path():
              "bound_by_7a": bound_a["bound_by"]})
 
 
+# -- the fused sensitivities on the grid layout (configs 1b and 4d) ----------
+# B4 with params and on a variational system at config 1b's width (JAX's
+# Fisher grid case at n = 256, 64 members), B7 with params and its
+# simultaneous corrector (block_base) at config 4d's (JAX's reaction-
+# diffusion grid case at n = 128, 32 members): tests/test_fused_sens.py
+# :261-291 and :320-366 at those widths
+SG_FIS_N, SG_FIS_M, SG_FIS_SPAN = 256, 64, (0.0, 0.25)
+SG_FIS_TOL = dict(rtol=1e-5, atol=1e-8)
+# the central differences' B4 runs: JAX's eps, 4e-3, but at rtol 1e-8 /
+# atol 1e-11 in the compensated mode.  At n = 256 the JAX test's plain
+# rtol 1e-7 / atol 1e-10 leaves the quotient noisy: on 4 members (CPU,
+# plain versions) it parted from S_p by 9.6e-3 of max |FD| (7.0e-3
+# compensated), while S_p at rtol 1e-5 and 1e-7 agree to 4.5e-5 and the
+# tighter quotient meets S_p to 3.9e-4
+SG_FD_TOL = dict(rtol=1e-8, atol=1e-11, compensated=True)
+SG_FD_EPS = 4e-3
+SG_RD_N, SG_RD_M, SG_RD_SPAN = 128, 32, (0.0, 0.04)
+SG_RD_TOL = dict(rtol=1e-5, atol=1e-8)
+SG_F64_TOL = dict(rtol=1e-9, atol=1e-12)
+# JAX's gates: S_p within 6e-3 of the largest |FD| (Fisher); members 0 and
+# 31 against the f64 sens_forward, |dy| 2e-5 and each dy/dp_j within 3e-3
+# of its largest entry (the reaction-diffusion)
+SG_FD_GATE = 6e-3
+SG_F64_Y_GATE = 2e-5
+SG_F64_S_GATE = 3e-3
+# kernel against its plain version on the card: (max |dy|, relative
+# difference of mean nsteps, max |dnsteps|).  Measured on an H100
+# (tools/probe_sens.py --grid), the rule's shape / the warp: fisher params
+# 8.3e-5 / 7.1e-5, 0, 0; fisher variational 1.6e-5 / 2.6e-5, 0, 0 (2 / 5
+# members one rejected attempt apart in nfev); rd params 3.6e-7, 0, 0; rd
+# variational (block_base) 3.6e-7, 0, 0.  The gates allow 3-5x
+SG_KERNEL_GATES = {"fisher params": (3e-4, 2e-3, 1),
+                   "fisher variational": (1e-4, 2e-3, 1),
+                   "rd params": (2e-6, 2e-3, 1),
+                   "rd variational": (2e-6, 2e-3, 1)}
+# float32 operations per element of a right-hand side evaluation, counted
+# from the sources as the work the function needs: an addition,
+# subtraction or multiplication one, a negation and a product with a seed
+# of 1 or 0 none.  Fisher: its stencil and logistic term (6); a row of its
+# tangent block, the tangent on (y, s) with p seeded (8) and the two
+# intermediates that reads, p y and 1 - y (10).  The reaction-diffusion
+# (7); a row of the tangent block of k (7, and y - 1: 8) and of D (7, and
+# the stencil sum: 10); a row of a band pass, the tangent on the base
+# block at fixed p (6), needed in the 3 of the 4 striped passes whose
+# seeds touch its neighbours (its tangent is 0 in the fourth)
+SG_RHS_OPS = {"fisher": 6, "fisher_tangent": 10, "rd": 7,
+              "rd_tangent_k": 8, "rd_tangent_d": 10, "rd_band": 6}
+
+
+def fisher_p(n):
+    return lambda t, y, p: (-(y - torch.roll(y, 1, 0)) * float(n)
+                            + p[0] * y * (1.0 - y))
+
+
+def _fisher_p_cuda(n):
+    return ("template <class T, class V>\n"
+            "__device__ T rhs(T t, V y, int i, const T* p) {\n"
+            f"  return -(y[i] - tab::G::rolled<0>(y, i, 1)) * {_lit(n)}\n"
+            "         + p[0] * y[i] * (1.0f - y[i]);\n}")
+
+
+def rd_p(t, y, p):
+    left = torch.cat([y[:1], y[:-1]])
+    right = torch.cat([y[1:], y[-1:]])
+    return (left - 2.0 * y + right) * p[1] - p[0] * (y - 1.0)
+
+
+def rd_1(t, y, k, D):
+    """One member of ``rd_p`` for the f64 ``sens_forward``."""
+    return rd_p(t, y, (k, D))
+
+
+def _rd_p_cuda(n):
+    return ("template <class T, class V>\n"
+            "__device__ T rhs(T t, V y, int i, const T* p) {\n"
+            "  const T left = y[i > 0 ? i - 1 : 0];\n"
+            f"  const T right = y[i < {n - 1} ? i + 1 : {n - 1}];\n"
+            "  return (left - 2.0f * y[i] + right) * p[1]"
+            " - p[0] * (y[i] - 1.0f);\n}")
+
+
+def sens_grid_rhs():
+    """The grid phase's right-hand sides (FusedGridRHS with their parameter
+    counts) and the variational systems solve_fused_sens(layout="grid")
+    builds from them."""
+    from extensisq_tpu_torch.ops import FusedGridRHS
+    from extensisq_tpu_torch.ops.fused_sens import _aug_grid_rhs
+    fis = FusedGridRHS(fisher_p(SG_FIS_N), _fisher_p_cuda(SG_FIS_N),
+                       (SG_FIS_N,), 1)
+    rd = FusedGridRHS(rd_p, _rd_p_cuda(SG_RD_N), (SG_RD_N,), 2)
+    return {"fisher": fis, "rd": rd,
+            "fisher_aug": _aug_grid_rhs(fis, SG_FIS_N, 1),
+            "rd_aug": _aug_grid_rhs(rd, SG_RD_N, 2)}
+
+
+def sens_grid_builds(rhs):
+    """(kernel, label, FusedGridRHS, options) of the grid phase's
+    variants."""
+    from extensisq_tpu_torch import BS5, TRBDF2
+    return [("fused_erk_grid", "fisher params", rhs["fisher"], BS5),
+            ("fused_erk_grid", "fisher variational", rhs["fisher_aug"], BS5),
+            ("fused_esdirk_grid", "rd params TRBDF2", rhs["rd"],
+             (TRBDF2, None)),
+            ("fused_esdirk_grid", f"rd variational TRBDF2 block_base "
+             f"{SG_RD_N}", rhs["rd_aug"], (TRBDF2, SG_RD_N))]
+
+
+def sens_grid_inputs():
+    """The Fisher members (y0 = 0.5 + 0.3 sin(2 pi x), r in [0.8, 1.2])
+    and the reaction-diffusion members (y0 = 1 + 0.5 sin(pi x), k in [5,
+    30], D = 200) on the card, with the initial states of their
+    variational systems: ``(fy0, r, fY, ry0, kd, rY)``."""
+    x = np.linspace(0, 1, SG_FIS_N, endpoint=False)
+    fy0 = torch.tensor(np.tile(0.5 + 0.3 * np.sin(2 * np.pi * x),
+                               (SG_FIS_M, 1)), dtype=torch.float32,
+                       device="cuda")
+    r = torch.linspace(0.8, 1.2, SG_FIS_M, device="cuda")[:, None]
+    xr = np.linspace(0, 1, SG_RD_N)
+    ry0 = torch.tensor(np.tile(1.0 + 0.5 * np.sin(np.pi * xr),
+                               (SG_RD_M, 1)), dtype=torch.float32,
+                       device="cuda")
+    kd = torch.stack([torch.linspace(5.0, 30.0, SG_RD_M, device="cuda"),
+                      torch.full((SG_RD_M,), 200.0, device="cuda")], 1)
+    fY = torch.cat([fy0, torch.zeros_like(fy0)], 1)
+    rY = torch.cat([ry0, torch.zeros(SG_RD_M, 2 * SG_RD_N, device="cuda")],
+                   1)
+    return fy0, r, fY, ry0, kd, rY
+
+
+def sens_grid_kernel_checks(R, fy0, r, fY, ry0, kd, rY):
+    """B4 with params and on the Fisher variational system, B7 with params
+    and in block_base mode on the reaction-diffusion's, each against its
+    plain version on the card at the phase's sizes, and at the other
+    launch shapes (the warp body bit for bit the block of 32).  Returns
+    the largest |dy| of the B4 and of the B7 checks and the plain
+    versions' seconds."""
+    from extensisq_tpu_torch import BS5, TRBDF2
+    from extensisq_tpu_torch import ops
+    runs = {"fused_erk_grid": (ops.solve_fused_erk_grid,
+                               ops.fused_erk_grid_reference),
+            "fused_esdirk_grid": (ops.solve_fused_esdirk_grid,
+                                  ops.fused_esdirk_grid_reference)}
+    checks = [
+        ("fused_erk_grid", "fisher params", R["fisher"], SG_FIS_SPAN, fy0,
+         dict(method=BS5, params=r, **SG_FIS_TOL)),
+        ("fused_erk_grid", "fisher variational", R["fisher_aug"],
+         SG_FIS_SPAN, fY, dict(method=BS5, params=r, **SG_FIS_TOL)),
+        ("fused_esdirk_grid", "rd params", R["rd"], SG_RD_SPAN, ry0,
+         dict(method=TRBDF2, params=kd, **SG_RD_TOL)),
+        ("fused_esdirk_grid", "rd variational", R["rd_aug"], SG_RD_SPAN, rY,
+         dict(method=TRBDF2, params=kd, block_base=SG_RD_N, **SG_RD_TOL))]
+    errs = {"fused_erk_grid": 0.0, "fused_esdirk_grid": 0.0}
+    plain_s = {}
+    for kind, label, rhs, span, y0, kw in checks:
+        run, plain = runs[kind]
+        k, res, dy, r_s = hold_against_plain(
+            "sens grid", label, lambda: run(rhs, span, y0, **kw),
+            lambda: plain(rhs, span, y0, **kw), *SG_KERNEL_GATES[label])
+        print(f"sens grid [{label}, {y0.shape[0]} members of "
+              f"{y0.shape[1]} rows]: plain version {r_s:.3f} s")
+        hold_grid_shapes(kind, label, rhs, span, y0, kw, k,
+                         getattr(ops, "solve_" + kind).last_shape, res,
+                         SG_KERNEL_GATES[label])
+        errs[kind] = max(errs[kind], dy)
+        plain_s[label] = r_s
+    return errs, plain_s
+
+
+def sens_grid_path():
+    """Forward sensitivities on the grid layout at the mid-size configs'
+    widths: the kernel checks; Fisher's 64-member sweep (n = 256) through
+    ``solve_fused_sens(layout="grid")``, one launch of B4 on 512 rows,
+    against central differences of B4 with params; the reaction-diffusion's
+    32-member sweep (n = 128, k = 2) through it with TRBDF2, one launch of
+    B7 with block_base 128 on 384 rows, members 0 and 31 against the
+    port's f64 ``sens_forward`` on the CPU; the lines' walls, device ms and
+    bounds.  Returns the ``_sens_grid`` keys of B4 and B7."""
+    from extensisq_tpu_torch import BS5, KC4I, TRBDF2, sensitivity
+    from extensisq_tpu_torch import ops
+    from extensisq_tpu_torch.ops.fused_erk import _fused_consts
+    from extensisq_tpu_torch.ops.fused_esdirk import _esdirk_consts
+    start = time.perf_counter()
+    R = sens_grid_rhs()
+    fy0, r, fY, ry0, kd, rY = sens_grid_inputs()
+    errs, plain_s = sens_grid_kernel_checks(R, fy0, r, fY, ry0, kd, rY)
+    erk, esd = ops.solve_fused_erk_grid, ops.solve_fused_esdirk_grid
+    every = [getattr(ops, k) for k in dir(ops) if k.startswith("solve_fused_")
+             and hasattr(getattr(ops, k), "launches")]
+
+    def counted(fn):
+        """``fn()`` with every kernel's count set to 0 just before it and
+        read just after: (its result, (B4's, B7's launches), seconds);
+        fails where another kernel launched."""
+        for w in every:
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        others = {w.__name__: w.launches for w in every
+                  if w not in (erk, esd) and w.launches}
+        check(not others, f"sens grid: other kernels launched {others}")
+        return out, (erk.launches, esd.launches), sec
+
+    # the Fisher line: one launch of B4 on the variational system
+    def run_fis():
+        return ops.solve_fused_sens(R["fisher"], SG_FIS_SPAN, fy0, params=r,
+                                    layout="grid", **SG_FIS_TOL)
+
+    (yf, Sp, Sy0, st, ns, nf), lf, f_s = counted(run_fis)
+    check(lf == (1, 0), f"sens grid fisher: launches (B4, B7) {lf}, "
+          "expected (1, 0)")
+    check(bool((st == 1).all()), "sens grid fisher: not every member "
+          "finished")
+    check(Sp.shape == (SG_FIS_M, SG_FIS_N, 1) and Sy0 is None
+          and bool(torch.isfinite(Sp).all()), "sens grid fisher: bad S_p")
+    yp = erk(R["fisher"], SG_FIS_SPAN, fy0, params=r + SG_FD_EPS,
+             **SG_FD_TOL)
+    ym = erk(R["fisher"], SG_FIS_SPAN, fy0, params=r - SG_FD_EPS,
+             **SG_FD_TOL)
+    check(bool((yp[1] == 1).all() and (ym[1] == 1).all()),
+          "sens grid fisher: a central-difference run did not finish")
+    fd = (yp[0] - ym[0]) / (2 * SG_FD_EPS)
+    d_fd = (Sp[:, :, 0] - fd).abs().max().item() / fd.abs().max().item()
+    print(f"sens grid Fisher x{SG_FIS_M} (n {SG_FIS_N}, BS5, 512 rows): "
+          f"{f_s * 1e3:.1f} ms first call, launches (B4, B7) {lf}, mean "
+          f"nsteps {ns.double().mean():.2f}; S_p vs central differences "
+          f"of B4 with params (eps {SG_FD_EPS:.0e}): max |d| / max |FD| "
+          f"{d_fd:.3e} (gate {SG_FD_GATE:.0e})")
+    check(d_fd < SG_FD_GATE, "sens grid fisher: S_p off central "
+          "differences")
+
+    # the reaction-diffusion line: one launch of B7 in block_base mode
+    def run_rd():
+        return ops.solve_fused_sens(R["rd"], SG_RD_SPAN, ry0, params=kd,
+                                    method=TRBDF2, layout="grid",
+                                    **SG_RD_TOL)
+
+    (ryf, rSp, rSy0, rst, rns, rnf), lr, r_s = counted(run_rd)
+    check(lr == (0, 1), f"sens grid rd: launches (B4, B7) {lr}, expected "
+          "(0, 1)")
+    check(bool((rst == 1).all()), "sens grid rd: not every member finished")
+    check(rSp.shape == (SG_RD_M, SG_RD_N, 2) and rSy0 is None
+          and bool(torch.isfinite(rSp).all()), "sens grid rd: bad S_p")
+    t0 = time.perf_counter()
+    worst_y, worst_s = 0.0, 0.0
+    for b in (0, SG_RD_M - 1):
+        ref = sensitivity.sens_forward(
+            rd_1, SG_RD_SPAN, ry0[b].double().cpu(),
+            p=(float(kd[b, 0]), float(kd[b, 1])), method=KC4I,
+            **SG_F64_TOL)
+        ref_S = torch.as_tensor(ref.sensf)
+        worst_y = max(worst_y, (ryf[b].double().cpu()
+                                - torch.as_tensor(ref.yf)).abs().max().item())
+        for j in range(2):
+            sc = max(ref_S[:, j].abs().max().item(), 1e-12)
+            worst_s = max(worst_s, (rSp[b, :, j].double().cpu()
+                                    - ref_S[:, j]).abs().max().item() / sc)
+    f64_s = time.perf_counter() - t0
+    print(f"sens grid reaction-diffusion x{SG_RD_M} (n {SG_RD_N}, k 2, "
+          f"TRBDF2, block_base {SG_RD_N}, 384 rows): {r_s * 1e3:.1f} ms "
+          f"first call, launches (B4, B7) {lr}, mean nsteps "
+          f"{rns.double().mean():.2f}; members 0 and {SG_RD_M - 1} vs the "
+          f"f64 sens_forward (KC4I, rtol 1e-9, CPU, {f64_s:.1f} s): max "
+          f"|dy| {worst_y:.3e} (gate {SG_F64_Y_GATE:.0e}), max |dS_j| / "
+          f"max |S_j| {worst_s:.3e} (gate {SG_F64_S_GATE:.0e})")
+    check(worst_y < SG_F64_Y_GATE, "sens grid rd: y_f off the f64 driver")
+    check(worst_s < SG_F64_S_GATE, "sens grid rd: S_p off the f64 driver")
+
+    # times: the lines' warm walls, the launches' device ms, the plain
+    # versions' walls (from the kernel checks, one run each)
+    kwf = dict(method=BS5, params=r, **SG_FIS_TOL)
+    kwr = dict(method=TRBDF2, params=kd, block_base=SG_RD_N, **SG_RD_TOL)
+    f_ms = wall_ms(run_fis, reps=3)
+    r_ms = wall_ms(run_rd, reps=3)
+    f_dev = event_ms(lambda: erk(R["fisher_aug"], SG_FIS_SPAN, fY, **kwf))
+    r_dev = event_ms(lambda: esd(R["rd_aug"], SG_RD_SPAN, rY, **kwr))
+    f_plain = plain_s["fisher variational"] * 1e3
+    r_plain = plain_s["rd variational"] * 1e3
+    print(f"time [sens grid Fisher, B4 on 512 rows] {SG_FIS_M} members: "
+          f"{f_ms:.3f} ms wall (solve_fused_sens), {f_dev:.4f} ms device "
+          f"(CUDA events, the launch), plain version {f_plain:.1f} ms wall")
+    print(f"time [sens grid reaction-diffusion, B7 block_base on 384 rows] "
+          f"{SG_RD_M} members: {r_ms:.3f} ms wall (solve_fused_sens), "
+          f"{r_dev:.4f} ms device, plain version {r_plain:.1f} ms wall")
+
+    # bounds: the states in and out once, the params once; operations from
+    # this run's evaluations, each row counted as the work it needs
+    n_f = 2 * SG_FIS_N
+    ops_f = rk_ops(_fused_consts(BS5), False, n_f,
+                   (SG_RHS_OPS["fisher"] + SG_RHS_OPS["fisher_tangent"]) / 2,
+                   int(nf.sum()), SG_FIS_M, 5)
+    bound_f = bound_entry(SG_FIS_M * 4 * (2 * n_f + 1 + 3), ops_f)
+    n_r = 3 * SG_RD_N
+    ops_r = esdirk_grid_ops(
+        n_r, _esdirk_consts(TRBDF2),
+        (SG_RHS_OPS["rd"] + SG_RHS_OPS["rd_tangent_k"]
+         + SG_RHS_OPS["rd_tangent_d"]) / 3,
+        int(rnf.sum()) - SG_RD_M, int(rns.sum()), nb=SG_RD_N,
+        band_ops=3 * SG_RHS_OPS["rd_band"])
+    bound_r = bound_entry(SG_RD_M * 4 * (2 * n_r + 2 + 3), ops_r)
+    print(f"bound [sens grid Fisher]: {bound_f['bound_ms']:.4f} ms "
+          f"({bound_f['bound_by']}); [sens grid reaction-diffusion]: "
+          f"{bound_r['bound_ms']:.4f} ms ({bound_r['bound_by']})")
+    print(f"sensitivity grid phase: {time.perf_counter() - start:.1f} s")
+    return ({"launches_sens_grid": lf[0],
+             "max_abs_err_sens_grid": errs["fused_erk_grid"],
+             "ms_sens_grid": f_ms, "device_ms_sens_grid": f_dev,
+             "plain_ms_sens_grid": f_plain,
+             "bound_ms_sens_grid": bound_f["bound_ms"],
+             "bound_by_sens_grid": bound_f["bound_by"]},
+            {"launches_sens_grid": lr[1],
+             "max_abs_err_sens_grid": errs["fused_esdirk_grid"],
+             "ms_sens_grid": r_ms, "device_ms_sens_grid": r_dev,
+             "plain_ms_sens_grid": r_plain,
+             "bound_ms_sens_grid": bound_r["bound_ms"],
+             "bound_by_sens_grid": bound_r["bound_by"]})
+
+
 HOST_GATE = 1e-9
 HOST_GATES = {"pleiades-cfmr7osc": 1e-6, "kepler-fi5n": 1e-8,
               "swdec-ckdisc": 1e-8}
@@ -4101,7 +4441,7 @@ def main():
               + adams_builds(adams_rhs()) + rkc_builds(rkc_rhs())
               + rkn_grid_builds(rkn_grid_rhs())
               + ckdisc_builds(ckdisc_rhs()) + mid_builds(mid_rhs())
-              + sens_builds(sens_rhs()))
+              + sens_builds(sens_rhs()) + sens_grid_builds(sens_grid_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
@@ -4293,6 +4633,14 @@ def main():
     # 11. the fused sensitivities: params on B1 and B2, B2's simultaneous
     # corrector, configs 7a and 7b
     sens_erk, sens_esdirk = sens_path()
+
+    # 11b. the grid layout's sensitivities: params on B4 and B7, B7's
+    # simultaneous corrector, the Fisher and reaction-diffusion sweeps
+    grid_erk, grid_esdirk = sens_grid_path()
+    for entry in rkn + mid:
+        entry.update({"fused_erk_grid": grid_erk,
+                      "fused_esdirk_grid": grid_esdirk}.get(entry["name"],
+                                                            {}))
 
     # 12. the host driver (solve_ivp, the Stepper), the sensitivities and
     # the front door ops.solve_fused over every kernel

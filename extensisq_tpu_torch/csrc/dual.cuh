@@ -111,3 +111,15 @@ __device__ __forceinline__ Dual pow(Dual a, Dual p) {
   const float r = powf(a.v, p.v);
   return Dual(r, r * (p.d * logf(a.v) + p.v * a.d / a.v));
 }
+
+// A state and one tangent row read as duals, y[m] = Dual(v[m], d[m]): the
+// state of a grid right-hand side on one tangent block of a variational
+// system (ops/fused_sens.py), whose neighbours come through the same view,
+// so no dual copy of the state is written.
+struct DualRows {
+  const float* v;
+  const float* d;
+  __device__ __forceinline__ Dual operator[](int m) const {
+    return Dual(v[m], d[m]);
+  }
+};

@@ -17,7 +17,27 @@
 // reduction's multipliers alpha[L][N] and gamma[L][N] with L = ceil(log2 N)
 // and its final diagonal, and two right-hand-side rows live in shared
 // memory: (25 + 2 S + 2 L) N floats plus the mass row, 24 KB for Kv3I at
-// N = 128.  One body, integrate<COMP, Group>, runs on two groups
+// N = 128.
+//
+// The simultaneous corrector (tab::NB < N: the sensitivities' block_base,
+// ops/fused_sens.py).  The state is N / NB blocks [y | s_1 .. s_k] of NB
+// rows whose Jacobian is block lower triangular with every diagonal block
+// the base block's J.  The bands come from the base block alone: the dual
+// rows hold NB elements, seeded on the base block's columns with the same
+// mod-4 rule, and the evaluation is base_rhs<Dual>, the user's right-hand
+// side (never the augmented rhs on duals, which would need duals of
+// duals).  The multipliers are computed once an attempt on the ring of NB
+// rows, L = ceil(log2 NB) rounds, and replayed on each block of NB rows in
+// every Newton iteration and in the error filter's solve: block-diag(W,
+// ..., W), the JAX _pcr_solve(..., pos, nb) without its per-block lane
+// padding.  So the dual rows, the bands, the multipliers and the final
+// diagonal take NB columns; the other rows, the Newton and error norms and
+// the Newton floor (tiny_err) are the whole augmented state's.  The block
+// start's six scratch rows then lie over the stage rows, which the first
+// attempt writes before it reads them.  Both groups run it (a warp member
+// as a block member); the wrapper's rule takes the shape from N.
+//
+// One body, integrate<COMP, Group>, runs on two groups
 // (block_group.cuh): a block of 32-256 threads per member (BlockGroupOf<2>)
 // or one warp per member (WarpGroup: __syncwarp and shuffle butterflies,
 // no block barrier, P members a block, each warp on its own rows).
@@ -54,13 +74,19 @@
 // the ensemble's size, from a measured sweep.
 
 // The generated header fused_esdirk_grid_config.cuh provides
-//   namespace tab { G = grid::Grid<N>, N, L, S, MORDER, NEWTON_MAXITER,
-//                   FILTER_ERROR, D, INV_D, KAPPA, controller and start
-//                   constants, the accessors A(i, j), AZ(i, j), C(i), E(j) }
+//   namespace tab { G = grid::Grid<N>, N, NB, L, NPAR, S, MORDER,
+//                   NEWTON_MAXITER, FILTER_ERROR, D, INV_D, KAPPA,
+//                   controller and start constants, the accessors A(i, j),
+//                   AZ(i, j), C(i), E(j) }
 //   template <class T> __device__ T rhs(T t, const T* y, int i,
-//                                       const float* p);
-// neighbours come from tab::G::rolled.  The mass diagonal is an input (all
-// ones for ODEs), zeros marking algebraic rows.
+//                                       const T* p);
+// (with NPAR = 0 p may be `const float*`: it is a null pointer), and with
+// NB < N also base_rhs, the base block's; neighbours come from
+// tab::G::rolled.  p is the member's NPAR parameters, loaded once into its
+// shared memory and promoted to duals of zero tangent for the bands, so
+// that the Jacobian is d f / d y at fixed p, as jax.linearize takes it.
+// The mass diagonal is an input (all ones for ODEs), zeros marking
+// algebraic rows.
 //
 // Numerics, as in fused_esdirk.cu (B2): FMA contraction stays on except in
 // the compensated helpers; a non-finite RHS value or Newton update makes the
@@ -85,7 +111,9 @@ namespace {
 
 using tab::L;
 using tab::N;
+using tab::NB;
 using tab::S;
+constexpr bool kBlock = NB < N;  // the simultaneous corrector
 using esdirk::RowA;
 using esdirk::RowAz;
 using esdirk::RowE;
@@ -99,8 +127,8 @@ constexpr int kMaxThreads = 256;
 // Shared-memory layout of a member, in floats; the dual rows come first, so
 // that they are aligned for their 8-byte elements (a member's size is even,
 // so that the members of a warp-per-member block stay aligned too).
-constexpr int kDual = 0;                 // four rows of Dual, 8 N
-constexpr int kY = kDual + 8 * N;        // state
+constexpr int kDual = 0;                 // four rows of Dual, 8 NB
+constexpr int kY = kDual + 8 * NB;       // state
 constexpr int kYlo = kY + N;             // its lo carry
 constexpr int kYp = kYlo + N;            // f at the state
 constexpr int kMass = kYp + N;           // mass diagonal
@@ -112,11 +140,13 @@ constexpr int kPred = kZc + N;           // psi + d z, read by the RHS
 constexpr int kYnew = kPred + N;         // the attempt's solution
 constexpr int kYlonew = kYnew + N;       // and its lo carry
 constexpr int kRhs = kYlonew + N;        // two right-hand-side rows
-constexpr int kBand = kRhs + 2 * N;      // two sets of bands a, b, c
-constexpr int kAlpha = kBand + 6 * N;    // alpha[L][N]
-constexpr int kGamma = kAlpha + L * N;   // gamma[L][N]
-constexpr int kDen = kGamma + L * N;     // the final diagonal
-constexpr int kFloats = (kDen + N + 1) & ~1;
+constexpr int kBand = kRhs + 2 * N;      // two sets of bands a, b, c, NB
+constexpr int kAlpha = kBand + 6 * NB;   // alpha[L][NB]
+constexpr int kGamma = kAlpha + L * NB;  // gamma[L][NB]
+constexpr int kDen = kGamma + L * NB;    // the final diagonal, NB
+constexpr int kPar = kDen + NB;          // the member's parameters, NPAR
+constexpr int kFloats = (kPar + tab::NPAR + 1) & ~1;
+static_assert(N % NB == 0, "the base block divides the state");
 
 struct Launch {  // the launch's scalars, the same for every member
   float t0, tf, rtol, atol, h0;
@@ -133,18 +163,57 @@ struct Out {
   int* nfev;
 };
 
-// Pointers into a member's shared memory.
+// Pointers into a member's shared memory; par is null without parameters.
 struct Rows {
   Dual* dual;
   float *y, *ylo, *yp, *mass, *K, *Z, *psi, *z, *pred, *ynew, *ylonew;
   float *rhs, *band, *alpha, *gamma, *den;
+  const float* par;
 };
 
 __device__ __forceinline__ Rows rows(float* sm) {
   return Rows{reinterpret_cast<Dual*>(sm + kDual),
               sm + kY, sm + kYlo, sm + kYp, sm + kMass, sm + kK, sm + kZ,
               sm + kPsi, sm + kZc, sm + kPred, sm + kYnew, sm + kYlonew,
-              sm + kRhs, sm + kBand, sm + kAlpha, sm + kGamma, sm + kDen};
+              sm + kRhs, sm + kBand, sm + kAlpha, sm + kGamma, sm + kDen,
+              tab::NPAR > 0 ? sm + kPar : nullptr};
+}
+
+// The member's parameters into its shared memory (the caller's barrier
+// publishes them).
+template <class Group>
+__device__ __forceinline__ void load_params(const Group& g, float* sm,
+                                            const float* __restrict__ params,
+                                            int member) {
+  if constexpr (tab::NPAR > 0) {
+    rk::for_elements<tab::NPAR>(g, [&](int q) {
+      sm[kPar + q] = params[static_cast<size_t>(member) * tab::NPAR + q];
+    });
+  }
+}
+
+// Element i of the bands' dual evaluation on the dual rows y: rhs<Dual>, or
+// with the simultaneous corrector base_rhs<Dual> on the base block, with
+// the member's parameters P as duals of zero tangent.  A template of the
+// state's type, so that only the evaluation the build takes is compiled.
+template <class V>
+__device__ __forceinline__ Dual band_rhs(float tc, V y, int i,
+                                         const float* P) {
+  const auto eval = [&](auto p) {
+    if constexpr (kBlock) {
+      return base_rhs(Dual(tc), y, i, p);
+    } else {
+      return rhs(Dual(tc), y, i, p);
+    }
+  };
+  if constexpr (tab::NPAR > 0) {
+    Dual pd[tab::NPAR];
+#pragma unroll
+    for (int q = 0; q < tab::NPAR; ++q) pd[q] = Dual(P[q]);
+    return eval(static_cast<const Dual*>(pd));
+  } else {
+    return eval(nullptr);  // a null p for sources typed const float* p
+  }
 }
 
 // x, or 1 with `bad` counted where x is not finite (the JAX kernel's
@@ -207,36 +276,41 @@ struct Clock {
 
 // The element derivative as the block start calls it.
 struct Deriv {
+  const float* P;
   __device__ float operator()(float t, const float* Y, int j) const {
-    return rhs(t, Y, j, nullptr);
+    return rhs(t, Y, j, P);
   }
 };
 
 // W = M - h d J at (tc, y) into the first set of bands (a = lower, b =
 // diagonal, c = upper): four dual rows with striped tangents, seeded at
 // once, so that one barrier serves the four passes; each band entry sums
-// the passes in column order.
+// the passes in column order.  With the simultaneous corrector, the base
+// block's NB rows and columns.
 struct Tri {  // an element's entries of three bands
   float a, b, c;
 };
 template <class Group>
 __device__ void newton_matrix(Group& g, const Rows& m, float tc, float hd) {
-  rk::for_elements<N>(g, [&](int j) {
+  rk::for_elements<NB>(g, [&](int j) {
     const float yj = m.y[j];
 #pragma unroll
     for (int col = 0; col < 4; ++col) {
       const float seed = (j % 4 == col) ? 1.0f : 0.0f;
-      m.dual[col * N + j] = Dual(yj, seed + yj * 0.0f);
+      m.dual[col * NB + j] = Dual(yj, seed + yj * 0.0f);
     }
   });
   g.sync();  // the dual rows complete before the RHS reads neighbours
-  rk::for_elements_put<N>(
+  rk::for_elements_put<NB>(
       g,
       [&](int i) {
         float a = 0.0f, b = 0.0f, c = 0.0f;
 #pragma unroll
         for (int col = 0; col < 4; ++col) {
-          const float jv = rhs(Dual(tc), m.dual + col * N, i, nullptr).d;
+          const float jv =
+              band_rhs(tc, static_cast<const Dual*>(m.dual + col * NB), i,
+                       m.par)
+                  .d;
           a = a + ((i + 3) % 4 == col ? 1.0f : 0.0f) * jv;
           b = b + (i % 4 == col ? 1.0f : 0.0f) * jv;
           c = c + ((i + 1) % 4 == col ? 1.0f : 0.0f) * jv;
@@ -248,8 +322,8 @@ __device__ void newton_matrix(Group& g, const Rows& m, float tc, float hd) {
       },
       [&](int i, const Tri& w) {
         m.band[i] = w.a;
-        m.band[N + i] = w.b;
-        m.band[2 * N + i] = w.c;
+        m.band[NB + i] = w.b;
+        m.band[2 * NB + i] = w.c;
       });
 }
 
@@ -260,7 +334,8 @@ __device__ void newton_matrix(Group& g, const Rows& m, float tc, float hd) {
 // arithmetic is the parent's, expression for expression.
 
 // One round of the multipliers: bands (a, b, c) of the round into its
-// multipliers and the next round's bands (da, db, dc).
+// multipliers and the next round's bands (da, db, dc), on the ring of NB
+// rows.
 struct FactorRow {
   float alpha, gamma, a, b, c;
 };
@@ -270,11 +345,11 @@ __device__ __forceinline__ void factor_round(
     const float* __restrict__ c, float* __restrict__ alpha_l,
     float* __restrict__ gamma_l, float* __restrict__ da,
     float* __restrict__ db, float* __restrict__ dc, int s) {
-  rk::for_elements_put<N>(
+  rk::for_elements_put<NB>(
       g,
       [&](int i) {
-        const int im = (i - s + N) % N;
-        const int ip = (i + s) % N;
+        const int im = (i - s + NB) % NB;
+        const int ip = (i + s) % NB;
         const float bm = b[im] == 0.0f ? 1.0f : b[im];
         const float bp = b[ip] == 0.0f ? 1.0f : b[ip];
         const float alpha = -a[i] / bm;
@@ -292,7 +367,9 @@ __device__ __forceinline__ void factor_round(
       });
 }
 
-// One round of the replay: src into dst with the round's multipliers.
+// One round of the replay: src into dst with the round's multipliers;
+// with the simultaneous corrector on each block of NB rows, row r of a
+// block coupled to its block's rows r -/+ s (mod NB).
 template <class Group>
 __device__ __forceinline__ void replay_round(
     const Group& g, const float* __restrict__ src, float* __restrict__ dst,
@@ -301,8 +378,15 @@ __device__ __forceinline__ void replay_round(
   rk::for_elements_put<N>(
       g,
       [&](int i) {
-        return src[i] + alpha_l[i] * src[(i - s + N) % N] +
-               gamma_l[i] * src[(i + s) % N];
+        if constexpr (kBlock) {
+          const int r = i % NB;
+          const int o = i - r;
+          return src[i] + alpha_l[r] * src[o + (r - s + NB) % NB] +
+                 gamma_l[r] * src[o + (r + s) % NB];
+        } else {
+          return src[i] + alpha_l[i] * src[(i - s + N) % N] +
+                 gamma_l[i] * src[(i + s) % N];
+        }
       },
       [&](int i, float x) { dst[i] = x; });
 }
@@ -324,11 +408,11 @@ template <class Group>
 __device__ __forceinline__ void newton_rhs(
     const Group& g, float t_stage, float h, const float* __restrict__ pred,
     const float* __restrict__ mass, const float* __restrict__ z,
-    float* __restrict__ out, float& nbad) {
+    float* __restrict__ out, const float* P, float& nbad) {
   rk::for_elements_put<N>(
       g,
       [&](int i) {
-        const float fi = finite_or_one(rhs(t_stage, pred, i, nullptr), nbad);
+        const float fi = finite_or_one(rhs(t_stage, pred, i, P), nbad);
         const float mi = mass[i];
         return mi == 0.0f ? fi * tab::INV_D : h * fi - mi * z[i];
       },
@@ -359,25 +443,25 @@ __device__ __forceinline__ float newton_sq(const Group& g,
 }
 
 // The cyclic reduction's multipliers of the bands in m.band: round l
-// couples equation i to i -/+ 2^l (indices mod N); the bands of the next
+// couples equation i to i -/+ 2^l (indices mod NB); the bands of the next
 // round go to the other set.
 template <class Group>
 __device__ void pcr_factor(Group& g, const Rows& m) {
   float* src = m.band;
-  float* dst = m.band + 3 * N;
+  float* dst = m.band + 3 * NB;
   int s = 1;
 #pragma unroll 1
   for (int l = 0; l < L; ++l) {
     g.sync();  // the bands of this round are complete
-    factor_round(g, src, src + N, src + 2 * N, m.alpha + l * N,
-                 m.gamma + l * N, dst, dst + N, dst + 2 * N, s);
+    factor_round(g, src, src + NB, src + 2 * NB, m.alpha + l * NB,
+                 m.gamma + l * NB, dst, dst + NB, dst + 2 * NB, s);
     float* t = src;
     src = dst;
     dst = t;
     s *= 2;
   }
-  rk::for_elements<N>(g, [&](int i) {
-    const float den = src[i] + src[N + i] + src[2 * N + i];
+  rk::for_elements<NB>(g, [&](int i) {
+    const float den = src[i] + src[NB + i] + src[2 * NB + i];
     m.den[i] = den == 0.0f ? 1.0f : den;
   });
 }
@@ -394,13 +478,15 @@ __device__ float* pcr_solve(Group& g, const Rows& m) {
 #pragma unroll 1
   for (int l = 0; l < L; ++l) {
     g.sync();
-    replay_round(g, src, dst, m.alpha + l * N, m.gamma + l * N, s);
+    replay_round(g, src, dst, m.alpha + l * NB, m.gamma + l * NB, s);
     float* t = src;
     src = dst;
     dst = t;
     s *= 2;
   }
-  rk::for_elements<N>(g, [&](int i) { src[i] = src[i] / m.den[i]; });
+  rk::for_elements<N>(g, [&](int i) {
+    src[i] = src[i] / m.den[kBlock ? i % NB : i];
+  });
   return src;
 }
 
@@ -420,7 +506,7 @@ __device__ bool newton(Group& g, const Rows& m, float t_stage, float h,
     newton_point(g, m.psi, m.z, m.pred);
     g.sync();  // the point complete before the RHS reads neighbours
     float nbad = 0.0f;
-    newton_rhs(g, t_stage, h, m.pred, m.mass, m.z, m.rhs, nbad);
+    newton_rhs(g, t_stage, h, m.pred, m.mass, m.z, m.rhs, m.par, nbad);
     nfev += 1;
     clk.mark(kNewtonRhs);
     float* dz = pcr_solve(g, m);
@@ -503,29 +589,34 @@ __device__ float start(Group& g, const Rows& m, const float* __restrict__ y0,
   } else {
     g.sync();  // y complete before the RHS reads neighbours
     rk::for_elements<N>(g, [&](int i) {
-      const float f = rhs(Lc.t0, m.y, i, nullptr);
+      const float f = rhs(Lc.t0, m.y, i, m.par);
       m.yp[i] = mass ? f / m.mass[i] : f;
     });
   }
   if (!Lc.use_hstart) return Lc.h0;
-  // plain ODEs only; the six scratch rows are the two sets of bands, the
-  // first holding f(t0, y); max_step is +inf when the caller gave none
-  rk::for_elements<N>(g, [&](int i) { m.band[i] = m.yp[i]; });
+  // plain ODEs only; the six scratch rows are the rows from K on (2 S + 7
+  // rows before the bands), the first holding f(t0, y); max_step is +inf
+  // when the caller gave none
+  float* w = m.K;
+  rk::for_elements<N>(g, [&](int i) { w[i] = m.yp[i]; });
   g.sync();  // y complete (when yp0 was given) before the start reads it
   const float bq = Lc.t0 + dir * fminf(fabsf(Lc.tf - Lc.t0), Lc.max_step);
-  return fabsf(rk::block_hstart<N, tab::MORDER>(g, Deriv{}, Lc.t0, bq, m.y,
-                                               m.band, Lc.rtol, Lc.atol));
+  return fabsf(rk::block_hstart<N, tab::MORDER>(g, Deriv{m.par}, Lc.t0, bq,
+                                               m.y, w, Lc.rtol, Lc.atol));
 }
 
 // The whole integration of one member by the group g (rank(), size(),
 // sync() and sum(x), a reduction whose result every thread holds, and
-// min(x) for the start).  sm is the member's shared memory (kFloats).
+// min(x) for the start).  sm is the member's shared memory (kFloats),
+// params every member's NPAR parameters (null without any).
 template <bool COMP, class Group>
 __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
                           const float* __restrict__ yp0,
-                          const float* __restrict__ mass, const Launch& Lc,
+                          const float* __restrict__ mass,
+                          const float* __restrict__ params, const Launch& Lc,
                           int member, const Out& out) {
   const Rows m = rows(sm);
+  load_params(g, sm, params, member);
   const float span = Lc.tf - Lc.t0;
   const float dir = span > 0.0f ? 1.0f : (span < 0.0f ? -1.0f : 0.0f);
   esdirk::Control ctl{start(g, m, y0, yp0, mass, dir, Lc)};
@@ -701,15 +792,16 @@ template <bool COMP>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_esdirk_grid_kernel(const float* __restrict__ y0,
                              const float* __restrict__ yp0,
-                             const float* __restrict__ mass, Launch Lc,
+                             const float* __restrict__ mass,
+                             const float* __restrict__ params, Launch Lc,
                              Out out) {
   extern __shared__ float sm[];
   __shared__ float red[2 * 2 * 32];
   auto g = group(BlockGroupOf<2>{red});
   const int member = blockIdx.x;
   const size_t off = static_cast<size_t>(member) * N;
-  integrate<COMP>(g, sm, y0 + off, yp0 ? yp0 + off : nullptr, mass, Lc,
-                  member, out);
+  integrate<COMP>(g, sm, y0 + off, yp0 ? yp0 + off : nullptr, mass, params,
+                  Lc, member, out);
   write_phases(g, member);
 }
 
@@ -720,7 +812,8 @@ template <bool COMP>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_esdirk_grid_warp_kernel(const float* __restrict__ y0,
                                   const float* __restrict__ yp0,
-                                  const float* __restrict__ mass, Launch Lc,
+                                  const float* __restrict__ mass,
+                                  const float* __restrict__ params, Launch Lc,
                                   Out out, int members) {
   extern __shared__ float sm[];
   const int warp = static_cast<int>(threadIdx.x >> 5);
@@ -729,14 +822,14 @@ __global__ void __launch_bounds__(kMaxThreads)
   auto g = group(WarpGroup{});
   const size_t off = static_cast<size_t>(member) * N;
   integrate<COMP>(g, sm + warp * kFloats, y0 + off,
-                  yp0 ? yp0 + off : nullptr, mass, Lc, member, out);
+                  yp0 ? yp0 + off : nullptr, mass, params, Lc, member, out);
   write_phases(g, member);
 }
 
-using Kernel = void (*)(const float*, const float*, const float*, Launch,
-                        Out);
-using WarpKernel = void (*)(const float*, const float*, const float*, Launch,
-                            Out, int);
+using Kernel = void (*)(const float*, const float*, const float*,
+                        const float*, Launch, Out);
+using WarpKernel = void (*)(const float*, const float*, const float*,
+                            const float*, Launch, Out, int);
 
 // Allows `bytes` of dynamic shared memory where it is above 48 KB.
 template <class K>
@@ -775,9 +868,11 @@ extern "C" int fused_esdirk_grid_smem(int* need, int* limit) {
 // threads (threads must be 32, P at most kMaxThreads / 32; another shape is
 // cudaErrorInvalidValue).  The members' rows are dynamic shared memory
 // (above 48 KB after cudaFuncSetAttribute).  yp0 may be null when have_yp0
-// is 0, mass null for ODEs.
+// is 0, mass null for ODEs, params (NPAR floats a member) null where NPAR
+// is 0.
 extern "C" int fused_esdirk_grid_launch(
-    const void* y0, const void* yp0, const void* mass, void* y_out,
+    const void* y0, const void* yp0, const void* mass, const void* params,
+    void* y_out,
     void* status, void* nstep, void* nfev, int members, float t0, float tf,
     float rtol, float atol, float h0, int use_hstart, int have_yp0,
     float max_step, int max_steps, float tiny_err, int compensated,
@@ -790,6 +885,7 @@ extern "C" int fused_esdirk_grid_launch(
   const float* y0f = static_cast<const float*>(y0);
   const float* yp0f = static_cast<const float*>(yp0);
   const float* massf = static_cast<const float*>(mass);
+  const float* pf = static_cast<const float*>(params);
   const int member_bytes = static_cast<int>(kFloats * sizeof(float));
   if (warp_members > 0) {
     if (threads != 32 || warp_members > kMaxThreads / 32) {
@@ -801,14 +897,15 @@ extern "C" int fused_esdirk_grid_launch(
     const cudaError_t e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int blocks = (members + warp_members - 1) / warp_members;
-    kernel<<<blocks, 32 * warp_members, bytes, st>>>(y0f, yp0f, massf, Lc,
-                                                     out, members);
+    kernel<<<blocks, 32 * warp_members, bytes, st>>>(y0f, yp0f, massf, pf,
+                                                     Lc, out, members);
     return static_cast<int>(cudaGetLastError());
   }
   Kernel kernel = compensated ? fused_esdirk_grid_kernel<true>
                               : fused_esdirk_grid_kernel<false>;
   const cudaError_t e = allow_smem(kernel, member_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<members, threads, member_bytes, st>>>(y0f, yp0f, massf, Lc, out);
+  kernel<<<members, threads, member_bytes, st>>>(y0f, yp0f, massf, pf, Lc,
+                                                 out);
   return static_cast<int>(cudaGetLastError());
 }

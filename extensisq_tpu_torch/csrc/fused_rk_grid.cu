@@ -70,14 +70,17 @@
 // lane's elements on one of the SM's four schedulers.
 //
 // The generated header fused_rk_grid_config.cuh provides
-//   namespace tab { G = grid::Grid<...>, N, RKN, CK, S, FSAL, MORDER, the
-//                   weight accessors A, AP, B, BP, C, E, EP and the cascade's
-//                   BAS, EAS, BFB, EFB, CFB (zeros for ERK and RKN),
-//                   controller and start constants }
+//   namespace tab { G = grid::Grid<...>, N, NPAR, RKN, CK, S, FSAL, MORDER,
+//                   the weight accessors A, AP, B, BP, C, E, EP and the
+//                   cascade's BAS, EAS, BFB, EFB, CFB (zeros for ERK and
+//                   RKN), controller and start constants }
 //   __device__ float rhs(float t, const float* y, int i, const float* p);
 //   __device__ float acc(float t, const float* u, const float* v, int i,
 //                        const float* p);
-// (one of the two a stub); neighbours come from tab::G::rolled.
+// (one of the two a stub); neighbours come from tab::G::rolled.  p is the
+// member's NPAR parameters (B4's params), which it loads once into its
+// shared memory before anything reads them; with NPAR = 0 (B6, B12 and B4
+// without params) p is a null pointer, as it always was.
 //
 // Numerics as in fused_erk.cu and fused_rkn.cu: the compensated helpers
 // round every operation on its own (__f*_rn), elsewhere nvcc may contract;
@@ -116,7 +119,8 @@ constexpr int kK = kY + NF;              // stage rows K[0..S], N each
 constexpr int kYlo = kK + (S + 1) * N;   // lo carry, NF
 constexpr int kArg = kYlo + NF;          // two stage arguments, NF each
 constexpr int kYloNew = kArg + 2 * NF;   // the attempt's lo carry, NF
-constexpr int kFloats = kYloNew + NF;
+constexpr int kPar = kYloNew + NF;       // the member's parameters, NPAR
+constexpr int kFloats = kPar + tab::NPAR;
 static_assert(kK + N + 6 * NF <= kFloats, "starting-step scratch");
 
 struct Launch {  // the launch's scalars, the same for every member
@@ -216,30 +220,50 @@ __device__ __forceinline__ void comp_wsum(const float* K, int i, float& s,
 }
 
 // The stage row entry i at (t, Y): the RHS, or the acceleration of the
-// positions Y[0..N) and velocities Y[N..2N).
-__device__ __forceinline__ float stage_f(float t, const float* Y, int i) {
+// positions Y[0..N) and velocities Y[N..2N); P the member's parameters.
+__device__ __forceinline__ float stage_f(float t, const float* Y, int i,
+                                         const float* P) {
   if constexpr (RKN) {
-    return acc(t, Y, Y + N, i, nullptr);
+    return acc(t, Y, Y + N, i, P);
   } else {
-    return rhs(t, Y, i, nullptr);
+    return rhs(t, Y, i, P);
   }
 }
 
 // Element j of the first-order derivative at (t, Y): [v, acc] for RKN.
-__device__ __forceinline__ float deriv(float t, const float* Y, int j) {
+__device__ __forceinline__ float deriv(float t, const float* Y, int j,
+                                       const float* P) {
   if constexpr (RKN) {
-    return j < N ? Y[N + j] : acc(t, Y, Y + N, j - N, nullptr);
+    return j < N ? Y[N + j] : acc(t, Y, Y + N, j - N, P);
   } else {
-    return rhs(t, Y, j, nullptr);
+    return rhs(t, Y, j, P);
   }
 }
 
 // deriv as the block start calls it
 struct Deriv {
+  const float* P;
   __device__ float operator()(float t, const float* Y, int j) const {
-    return deriv(t, Y, j);
+    return deriv(t, Y, j, P);
   }
 };
+
+// The member's parameters in its shared memory (the caller's barrier
+// publishes them), or a null pointer without any.
+template <class Group>
+__device__ __forceinline__ const float* load_params(
+    const Group& g, float* sm, const float* __restrict__ params,
+    int member) {
+  if constexpr (tab::NPAR > 0) {
+    float* P = sm + kPar;
+    rk::for_elements<tab::NPAR>(g, [&](int q) {
+      P[q] = params[static_cast<size_t>(member) * tab::NPAR + q];
+    });
+    return P;
+  } else {
+    return nullptr;
+  }
+}
 
 // The per-element loops of a stage and of the solution, each reading rows
 // other than those it writes (__restrict__): a warp's lane computes the
@@ -296,9 +320,10 @@ __device__ __forceinline__ void stage_arg(const Group& g, float h, float hh,
 template <class Group>
 __device__ __forceinline__ void stage_row(const Group& g, float t,
                                           const float* __restrict__ Y,
-                                          float* __restrict__ out) {
+                                          float* __restrict__ out,
+                                          const float* P) {
   rk::for_elements_put<N>(
-      g, [&](int i) { return stage_f(t, Y, i); },
+      g, [&](int i) { return stage_f(t, Y, i, P); },
       [&](int i, float x) { out[i] = x; });
 }
 
@@ -308,7 +333,7 @@ template <bool COMP, int I, int END, class Group>
 __device__ __forceinline__ void stages(Group& g, float t, float h, float hh,
                                        const float* Y, const float* Ylo,
                                        float* K, float* const (&arg)[2],
-                                       int& b, Clock& clk) {
+                                       int& b, const float* P, Clock& clk) {
   if constexpr (I < END) {
     float* a = arg[b];
     constexpr float c = tab::C(I);
@@ -316,10 +341,10 @@ __device__ __forceinline__ void stages(Group& g, float t, float h, float hh,
     stage_arg<COMP, I>(g, h, hh, ch, Y, Ylo, K, a);
     g.sync();
     clk.mark(kArgs);
-    stage_row(g, t + ch, a, K + I * N);
+    stage_row(g, t + ch, a, K + I * N, P);
     clk.mark(kRhs);
     b ^= 1;
-    stages<COMP, I + 1, END>(g, t, h, hh, Y, Ylo, K, arg, b, clk);
+    stages<COMP, I + 1, END>(g, t, h, hh, Y, Ylo, K, arg, b, P, clk);
   }
 }
 
@@ -373,14 +398,15 @@ __device__ __forceinline__ void solution(const Group& g, float h, float hh,
 }
 
 // A member's start: its state Y from y0, K[0] = f(t0, Y) and the first |h|
-// (Watts' start where asked, counted in nfev).
+// (Watts' start where asked, counted in nfev); P the member's parameters,
+// written before the first barrier.
 template <class Group>
 __device__ float start(Group& g, float* Y, float* K,
                        const float* __restrict__ y0, const Launch& L,
-                       int& nfev) {
+                       const float* P, int& nfev) {
   rk::for_elements<NF>(g, [&](int j) { Y[j] = y0[j]; });
   g.sync();
-  rk::for_elements<N>(g, [&](int i) { K[i] = stage_f(L.t0, Y, i); });
+  rk::for_elements<N>(g, [&](int i) { K[i] = stage_f(L.t0, Y, i, P); });
   nfev = 1;
   if (!L.use_hstart) return L.h0;
   float* w = K + N;
@@ -391,24 +417,27 @@ __device__ float start(Group& g, float* Y, float* K,
   // max_step is +inf when the caller gave none
   const float bq = L.t0 + L.dir * fminf(fabsf(L.tf - L.t0), L.max_step);
   nfev = 2 + (NF + 1 < 3 ? NF + 1 : 3);
-  return fabsf(rk::block_hstart<NF, tab::MORDER>(g, Deriv{}, L.t0, bq, Y, w,
-                                                 L.rtol, L.atol));
+  return fabsf(rk::block_hstart<NF, tab::MORDER>(g, Deriv{P}, L.t0, bq, Y,
+                                                 w, L.rtol, L.atol));
 }
 
 // The whole integration of one member by the group g (rank(), size(),
 // sync(), sum(x) and min(x): reductions whose result every thread holds).
-// sm is the member's shared memory (kFloats), y0 its initial state.
+// sm is the member's shared memory (kFloats), y0 its initial state, params
+// every member's NPAR parameters (null without any).
 template <bool COMP, class Group>
 __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
-                          const Launch& L, int member, const Out& out) {
+                          const float* __restrict__ params, const Launch& L,
+                          int member, const Out& out) {
   float* Y = sm + kY;
   float* K = sm + kK;
   float* Ylo = sm + kYlo;
   float* const arg[2] = {sm + kArg, sm + kArg + NF};
   float* YloNew = sm + kYloNew;
+  const float* P = load_params(g, sm, params, member);
 
   int nfev;
-  rk::StepControl ctl{start(g, Y, K, y0, L, nfev)};
+  rk::StepControl ctl{start(g, Y, K, y0, L, P, nfev)};
   float t = L.t0;
   rk::for_elements<NF>(g, [&](int j) { Ylo[j] = 0.0f; });
 
@@ -430,7 +459,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
     clk.mark(kControl);
 
     int b = 0;
-    stages<COMP, 1, S>(g, t, h, hh, Y, Ylo, K, arg, b, clk);
+    stages<COMP, 1, S>(g, t, h, hh, Y, Ylo, K, arg, b, P, clk);
 
     // the solution into arg[b]; element i carries u[i] and v[i] for RKN
     float* Yn = arg[b];
@@ -438,7 +467,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
     if constexpr (tab::FSAL) {
       g.sync();
       clk.mark(kNorm);
-      stage_row(g, t + h, Yn, K + S * N);
+      stage_row(g, t + h, Yn, K + S * N, P);
       clk.mark(kRhs);
     }
 
@@ -512,7 +541,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
               c.lo.u = YloNew[i];
               if constexpr (RKN) c.lo.v = YloNew[N + i];
             }
-            c.k = tab::FSAL ? K[S * N + i] : stage_f(t_new, Yn, i);
+            c.k = tab::FSAL ? K[S * N + i] : stage_f(t_new, Yn, i, P);
             return c;
           },
           [&](int i, const Commit& c) {
@@ -586,9 +615,10 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
   float* K = sm + kK;
   float* const arg[2] = {sm + kArg, sm + kArg + NF};
   float* Ysol = K + S * N;  // the attempt's candidate solution
+  const float* P = nullptr;  // B12 takes no parameters
 
   int nfev;
-  ck::Control ctl{{start(g, Y, K, y0, L, nfev)}};
+  ck::Control ctl{{start(g, Y, K, y0, L, P, nfev)}};
   float t = L.t0;
   int status = kRunning;
   int nstep = 0;
@@ -608,13 +638,13 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
     // E1 after two stages; E2 after four where E1 lets the attempt go on;
     // E4 after six where E2 does (kBig where skipped)
     int b = 0;
-    stages<false, 1, 2>(g, t, h, h * h, Y, nullptr, K, arg, b, clk);
+    stages<false, 1, 2>(g, t, h, h * h, Y, nullptr, K, arg, b, P, clk);
     const float E1 = sqrtf(ck::clean(
         assess<ck::RowBas<0>, ck::RowEas<0>, 2>(g, Y, K, h, L, Ysol, clk)));
     const bool go2 = ctl.go2(E1);
     float E2 = ck::kBig;
     if (go2) {
-      stages<false, 2, 4>(g, t, h, h * h, Y, nullptr, K, arg, b, clk);
+      stages<false, 2, 4>(g, t, h, h * h, Y, nullptr, K, arg, b, P, clk);
       E2 = ck::cbrt_floor(ck::clean(
           assess<ck::RowBas<1>, ck::RowEas<1>, 4>(g, Y, K, h, L, Ysol, clk)));
     }
@@ -622,7 +652,7 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
     float E4 = ck::kBig;
     bool bad4 = false;
     if (go4) {
-      stages<false, 4, 6>(g, t, h, h * h, Y, nullptr, K, arg, b, clk);
+      stages<false, 4, 6>(g, t, h, h * h, Y, nullptr, K, arg, b, P, clk);
       const float nm = assess<RowB, RowE, 6>(g, Y, K, h, L, Ysol, clk);
       bad4 = !isfinite(nm);
       E4 = ck::p5rt_floor(ck::clean(nm));
@@ -669,7 +699,7 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
       // elements of the member that are not finite
       float bad = 0.0f;
       rk::for_elements<N>(g, [&](int i) {
-        K[i] = stage_f(t_new, Ysol, i);
+        K[i] = stage_f(t_new, Ysol, i, P);
         bad += (isfinite(Ysol[i]) && isfinite(K[i])) ? 0.0f : 1.0f;
       });
       nfev += 1;
@@ -757,24 +787,27 @@ __device__ void write_phases(const Group&, int) {}
 template <bool COMP, class Group>
 __device__ __forceinline__ void member_body(Group& g, float* sm,
                                             const float* __restrict__ y0,
+                                            const float* __restrict__ params,
                                             const Launch& L, int member,
                                             const Out& out) {
   const float* y = y0 + static_cast<size_t>(member) * NF;
   if constexpr (tab::CK) {
     integrate_ck(g, sm, y, L, member, out);
   } else {
-    integrate<COMP>(g, sm, y, L, member, out);
+    integrate<COMP>(g, sm, y, params, L, member, out);
   }
 }
 
 template <bool COMP>
 __global__ void __launch_bounds__(kMaxThreads)
-    fused_rk_grid_kernel(const float* __restrict__ y0, Launch L, Out out) {
+    fused_rk_grid_kernel(const float* __restrict__ y0,
+                         const float* __restrict__ params, Launch L,
+                         Out out) {
   extern __shared__ float sm[];
   __shared__ float red[64];
   auto g = group(BlockGroup{red});
   const int member = static_cast<int>(blockIdx.x);
-  member_body<COMP>(g, sm, y0, L, member, out);
+  member_body<COMP>(g, sm, y0, params, L, member, out);
   write_phases(g, member);
 }
 
@@ -789,8 +822,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 // (measured on an H100; PERF.md §6).
 template <bool COMP>
 __global__ void __launch_bounds__(kMaxThreads)
-    fused_rk_grid_warp_kernel(const float* __restrict__ y0, Launch L, Out out,
-                              int members) {
+    fused_rk_grid_warp_kernel(const float* __restrict__ y0,
+                              const float* __restrict__ params, Launch L,
+                              Out out, int members) {
   if constexpr (!tab::CK) {
     extern __shared__ float sm[];
     const int warp = static_cast<int>(threadIdx.x >> 5);
@@ -798,7 +832,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         static_cast<int>(blockIdx.x * (blockDim.x >> 5)) + warp;
     if (member >= members) return;
     auto g = group(WarpGroup{});
-    member_body<COMP>(g, sm + warp * kFloats, y0, L, member, out);
+    member_body<COMP>(g, sm + warp * kFloats, y0, params, L, member, out);
     write_phases(g, member);
   }
 }
@@ -839,8 +873,10 @@ extern "C" int fused_rk_grid_smem(int* need, int* limit) {
 // warp_members = P >= 1: one warp per member, P members a block of 32 P
 // threads (ERK and RKN only; threads must be 32, P at most kMaxThreads /
 // 32; another shape is cudaErrorInvalidValue).  The members' rows are
-// dynamic shared memory (above 48 KB after cudaFuncSetAttribute).
-extern "C" int fused_rk_grid_launch(const void* y0, void* y_out, void* status,
+// dynamic shared memory (above 48 KB after cudaFuncSetAttribute).  params
+// holds NPAR floats a member (null where NPAR is 0).
+extern "C" int fused_rk_grid_launch(const void* y0, const void* params,
+                                    void* y_out, void* status,
                                     void* nstep, void* nfev, int members,
                                     float t0, float tf, float dir, float rtol,
                                     float atol, float h0, int use_hstart,
@@ -853,25 +889,27 @@ extern "C" int fused_rk_grid_launch(const void* y0, void* y_out, void* status,
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
   const float* y0f = static_cast<const float*>(y0);
+  const float* pf = static_cast<const float*>(params);
   const int member_bytes = static_cast<int>(kFloats * sizeof(float));
   if (warp_members > 0) {
     if (tab::CK || threads != 32 || warp_members > kMaxThreads / 32) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const int bytes = warp_members * member_bytes;
-    void (*kernel)(const float*, Launch, Out, int) =
+    void (*kernel)(const float*, const float*, Launch, Out, int) =
         compensated ? fused_rk_grid_warp_kernel<true>
                     : fused_rk_grid_warp_kernel<false>;
     const cudaError_t e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int blocks = (members + warp_members - 1) / warp_members;
-    kernel<<<blocks, 32 * warp_members, bytes, st>>>(y0f, L, out, members);
+    kernel<<<blocks, 32 * warp_members, bytes, st>>>(y0f, pf, L, out,
+                                                     members);
     return static_cast<int>(cudaGetLastError());
   }
-  void (*kernel)(const float*, Launch, Out) =
+  void (*kernel)(const float*, const float*, Launch, Out) =
       compensated ? fused_rk_grid_kernel<true> : fused_rk_grid_kernel<false>;
   const cudaError_t e = allow_smem(kernel, member_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<members, threads, member_bytes, st>>>(y0f, L, out);
+  kernel<<<members, threads, member_bytes, st>>>(y0f, pf, L, out);
   return static_cast<int>(cudaGetLastError());
 }

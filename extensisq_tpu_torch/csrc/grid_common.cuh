@@ -53,6 +53,15 @@ struct Grid {
   __device__ __forceinline__ static T rolled(const T* y, int i, int shift) {
     return y[shifted<AXIS>(i, shift)];
   }
+
+  // and of any indexable view of the state, such as the dual rows
+  // (dual.cuh: DualRows) through which the variational systems of
+  // ops/fused_sens.py evaluate a right-hand side on a tangent block
+  template <int AXIS, class V>
+  __device__ __forceinline__ static auto rolled(const V& y, int i,
+                                                int shift) {
+    return y[shifted<AXIS>(i, shift)];
+  }
 };
 
 }  // namespace grid

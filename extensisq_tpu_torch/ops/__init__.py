@@ -30,9 +30,10 @@ kernel launch, each with its plain PyTorch version beside it.
   (``csrc/fused_rkc.cu``)
 * :func:`solve_fused_sens` and :func:`solve_fused_final` — forward
   sensitivities of a parameter-sweep ensemble in one launch of B1, or of
-  B2 with its simultaneous corrector, and ``y(t_f)`` differentiable
+  B2 with its simultaneous corrector (with ``layout="grid"``, of B4, or
+  of B7 with its simultaneous corrector), and ``y(t_f)`` differentiable
   through ``torch.autograd`` by one more such launch
-  (``ops/fused_sens.py``, the flat layout)
+  (``ops/fused_sens.py``)
 * :func:`solve_fused` — the front door: routes by method family to the
   flat or the grid kernel, reading the layout from the RHS object
   (``ops/dispatch.py``)

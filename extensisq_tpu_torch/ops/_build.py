@@ -198,13 +198,14 @@ GRID_ACC_STUB = ("__device__ float acc(float t, const float* u, "
                  "const float* v, int i, const float* p) { return 0.0f; }")
 
 
-def fused_rk_grid_header(k, rkn, shape, src):
+def fused_rk_grid_header(k, rkn, shape, src, npar=0):
     """Text of ``fused_rk_grid_config.cuh`` for the constants ``k`` of an
     ERK (``rkn`` False) or RKN method, or of CKdisc's cascade
     (``ops.fused_ckdisc.ck_consts``), a member grid of extents ``shape``
     (one stage row: the states of an ERK system, the positions of an RKN
-    one) and the CUDA source of the right-hand side ``rhs`` or the
-    acceleration ``acc``; the other of the two is a stub never called."""
+    one), the CUDA source of the right-hand side ``rhs`` or the
+    acceleration ``acc`` (the other of the two is a stub never called) and
+    its number of per-member parameters ``npar`` (B4's ``params``)."""
     dims = ", ".join(str(int(d)) for d in shape)
     ck = "B_as" in k
     family = "RKN" if rkn else ("CKdisc" if ck else "ERK")
@@ -216,6 +217,7 @@ def fused_rk_grid_header(k, rkn, shape, src):
 namespace tab {{
 using G = grid::Grid<{dims}>;
 constexpr int N = {int(np.prod(shape))};
+constexpr int NPAR = {int(npar)};
 constexpr bool RKN = {_flag(rkn)};
 constexpr bool CK = {_flag(ck)};
 constexpr int S = {k['s']};
@@ -328,13 +330,16 @@ constexpr bool ROT = {_flag(rot is not None)};
 """
 
 
-def fused_esdirk_grid_header(k, shape, rhs_src):
+def fused_esdirk_grid_header(k, shape, rhs_src, npar=0, nb=None):
     """Text of ``fused_esdirk_grid_config.cuh`` for the constants ``k`` of
-    ``ops.fused_esdirk._esdirk_consts``, a member grid of extents ``shape``
-    and the CUDA source of the template right-hand side ``rhs<T>(T t,
-    const T* y, int i, const float* p)``; ``L`` is the number of cyclic
-    reduction rounds, ceil(log2 n)."""
+    ``ops.fused_esdirk._esdirk_consts``, a member grid of extents ``shape``,
+    the CUDA source of the template right-hand side ``rhs<T>(T t, const T*
+    y, int i, const T* p)``, its number of per-member parameters ``npar``
+    and the simultaneous corrector's base block ``nb`` (None: the whole
+    state); ``L`` is the number of cyclic reduction rounds, ceil(log2 nb)
+    over the base block's rows."""
     n = int(np.prod(shape))
+    nb = n if nb is None else int(nb)
     dims = ", ".join(str(int(d)) for d in shape)
     return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
 // ESDIRK method {k['name']} rounded to float32, the member grid and the
@@ -344,7 +349,9 @@ def fused_esdirk_grid_header(k, shape, rhs_src):
 namespace tab {{
 using G = grid::Grid<{dims}>;
 constexpr int N = {n};
-constexpr int L = {(n - 1).bit_length()};
+constexpr int NB = {nb};
+constexpr int L = {(nb - 1).bit_length()};
+constexpr int NPAR = {int(npar)};
 {_esdirk_constants(k)}
 }}  // namespace tab
 
@@ -452,26 +459,38 @@ def _compile(name, header, out_dir):
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
+def _included(texts, found=()):
+    """The ``csrc/*.cuh`` files that ``texts`` include, directly or through
+    another of them, in include order, past those already ``found``."""
+    found = list(found)
+    new = []
+    todo = list(texts)
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0)):
+            path = CSRC / inc
+            if path.exists() and path not in found:
+                found.append(path)
+                new.append(path)
+                todo.append(path.read_text())
+    return new
+
+
 def shared_headers(name):
     """The ``csrc/*.cuh`` files that ``csrc/<name>.cu`` includes, directly
     or through another of them, in include order (the generated config
     header lives in the build directory and is not among them)."""
-    found = []
-    todo = [CSRC / f"{name}.cu"]
-    while todo:
-        for inc in _INCLUDE.findall(todo.pop(0).read_text()):
-            path = CSRC / inc
-            if path.exists() and path not in found:
-                found.append(path)
-                todo.append(path)
-    return found
+    return _included([(CSRC / f"{name}.cu").read_text()])
 
 
 def build_key(name, header):
     """Hash of everything the build of ``name`` reads: its source, the
-    shared headers it includes, the generated header and the flags."""
+    shared headers it includes, the generated header, the shared headers
+    that one includes (a variational system's source includes dual.cuh)
+    and the flags."""
     parts = [(CSRC / f"{name}.cu").read_text()]
-    parts += [f"{p.name}\0{p.read_text()}" for p in shared_headers(name)]
+    shared = shared_headers(name)
+    shared += _included([header], shared)
+    parts += [f"{p.name}\0{p.read_text()}" for p in shared]
     parts += [header, " ".join(NVCC_FLAGS)]
     return hashlib.sha256("\0".join(parts).encode()).hexdigest()[:16]
 
@@ -540,15 +559,16 @@ def load_fused_rkn(consts, m, acc_src):
          _CI, _CI, _CI, _CI, _VP])
 
 
-def load_fused_rk_grid(consts, rkn, shape, src):
+def load_fused_rk_grid(consts, rkn, shape, src, npar=0):
     """Build (at first use) and load the block-per-member kernel (B4 for
     an ERK tableau, B6 for an RKN one, B12 for CKdisc's cascade) for one
-    member grid and right-hand side; returns :class:`Built` with
-    ``lib.fused_rk_grid_launch`` and ``lib.fused_rk_grid_smem`` bound."""
+    member grid, right-hand side and parameter count; returns
+    :class:`Built` with ``lib.fused_rk_grid_launch`` and
+    ``lib.fused_rk_grid_smem`` bound."""
     built = load_kernel(
-        "fused_rk_grid", fused_rk_grid_header(consts, rkn, shape, src),
-        [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CF, _CI,
-         _CF, _CI, _CI, _CI, _CI, _VP])
+        "fused_rk_grid", fused_rk_grid_header(consts, rkn, shape, src, npar),
+        [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CF,
+         _CI, _CF, _CI, _CI, _CI, _CI, _VP])
     smem = built.lib.fused_rk_grid_smem
     smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     smem.restype = ctypes.c_int
@@ -577,15 +597,17 @@ def load_fused_esdirk(consts, m_diag, rot, n, rhs_src, npar=0, nb=None):
          _CI, _CI, _CF, _CI, _CF, _CI, _CI, _CI, _VP])
 
 
-def load_fused_esdirk_grid(consts, shape, rhs_src):
+def load_fused_esdirk_grid(consts, shape, rhs_src, npar=0, nb=None):
     """Build (at first use) and load the mid-size ESDIRK kernel (B7) for
-    one method, member grid and RHS; returns :class:`Built` with
+    one method, member grid, RHS, parameter count and base block (None: no
+    simultaneous corrector); returns :class:`Built` with
     ``lib.fused_esdirk_grid_launch`` and ``lib.fused_esdirk_grid_smem``
     bound."""
     built = load_kernel(
-        "fused_esdirk_grid", fused_esdirk_grid_header(consts, shape, rhs_src),
-        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF,
-         _CI, _CI, _CF, _CI, _CF, _CI, _CI, _CI, _VP])
+        "fused_esdirk_grid",
+        fused_esdirk_grid_header(consts, shape, rhs_src, npar, nb),
+        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF,
+         _CF, _CI, _CI, _CF, _CI, _CF, _CI, _CI, _CI, _VP])
     smem = built.lib.fused_esdirk_grid_smem
     smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     smem.restype = ctypes.c_int

@@ -57,11 +57,14 @@ def member_params(params, y0, fun):
     stays None; a non-tensor goes to ``y0``'s device as float32), checked
     as the JAX kernels check it: ``(B, k)`` or ``ValueError``; a tensor
     must be float32 on ``y0``'s device (``TypeError``); a
-    :class:`FusedRHS` must take the same ``k`` (``ValueError``)."""
-    k_fun = fun.k if isinstance(fun, FusedRHS) else None
+    :class:`FusedRHS` (or a ``FusedGridRHS``) must take the same ``k``
+    (``ValueError``)."""
+    from .fused_rkc import FusedGridRHS  # fused_rkc imports this module
+    k_fun = fun.k if isinstance(fun, (FusedRHS, FusedGridRHS)) else None
+    kind = type(fun).__name__
     if params is None:
         if k_fun:
-            raise ValueError(f"the FusedRHS takes {k_fun} parameters a "
+            raise ValueError(f"the {kind} takes {k_fun} parameters a "
                              f"member: pass params of shape (B, {k_fun})")
         return None
     if not isinstance(params, torch.Tensor):
@@ -71,7 +74,7 @@ def member_params(params, y0, fun):
         raise ValueError("params must be (B, k)")
     if k_fun is not None and params.shape[1] != k_fun:
         raise ValueError(f"params has {params.shape[1]} columns; the "
-                         f"FusedRHS takes k = {k_fun}")
+                         f"{kind} takes k = {k_fun}")
     if params.dtype != torch.float32 or params.device != y0.device:
         raise TypeError(f"params must be float32 on {y0.device}")
     return params

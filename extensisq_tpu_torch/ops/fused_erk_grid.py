@@ -18,14 +18,18 @@ it only for tensors on the CPU.
 Right-hand sides are :class:`~.fused_rkc.FusedGridRHS` with
 ``shape=(n,)``: ``torch_fn(t, y)`` on ``(n, B)``, shifts as
 ``torch.roll(y, s, 0)`` with ``jnp.roll``'s sign, and the CUDA ``rhs(t,
-y, i, p)`` of one element.
+y, i, p)`` of one element.  With ``params`` (B, k) the FusedGridRHS takes
+``k`` parameters: ``torch_fn(t, y, p)`` gets them as ``p`` of shape ``(k,
+B)`` (``p[j]`` one parameter across the members; JAX's grid functions get
+a k-tuple of ``(bm, 1)`` columns), the CUDA ``rhs`` the member's k floats,
+which the kernel loads once into the member's shared memory.
 """
 import numpy as np
 import torch
 
 from .._device import as_input
 from .fused_erk import (_fused_consts, check_options, fused_erk_reference,
-                        launch_args)
+                        launch_args, member_params)
 from .fused_rkc import FusedGridRHS
 
 # the most threads of a block; a member of n states gets ceil(n / 32) warps
@@ -69,24 +73,41 @@ def _state_size(fun):
     return int(fun.shape[0])
 
 
+def bind_grid_params(fun, params):
+    """The rows-first ``fun(t, y)`` of the grid plain versions: ``fun`` (a
+    :class:`FusedGridRHS` or a torch function) with every member's
+    parameters bound as ``p``, the ``(k, B)`` transpose of ``params``
+    (None: no parameters)."""
+    if isinstance(fun, FusedGridRHS):
+        fun = fun.torch_fn
+    if params is None:
+        return fun
+    p = params.T
+    return lambda t, y: fun(t, y, p)
+
+
 def fused_erk_grid_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                              atol=1e-6, first_step=None, max_steps=100_000,
-                             compensated=False, max_step=None):
+                             compensated=False, max_step=None, params=None):
     """The plain PyTorch version of the mid-size ERK kernel, on the device
     of ``y0_batch`` ``(B, n)``: B1's loop (``fused_erk_reference``).
-    ``fun`` is a :class:`FusedGridRHS` or a rows-first torch function.
-    Returns ``(y (B, n), status (B,), nsteps (B,), nfev (B,))``."""
+    ``fun`` is a :class:`FusedGridRHS` or a rows-first torch function,
+    called as ``fun(t, y, p)`` with ``p`` ``(k, B)`` where ``params`` (B, k)
+    is given.  Returns ``(y (B, n), status (B,), nsteps (B,), nfev
+    (B,))``."""
     if isinstance(fun, FusedGridRHS):
         _state_size(fun)
-        fun = fun.torch_fn
-    return fused_erk_reference(fun, t_span, y0_batch, method=method, rtol=rtol,
+    y0 = torch.as_tensor(y0_batch)
+    fun = bind_grid_params(fun, member_params(params, y0, fun))
+    return fused_erk_reference(fun, t_span, y0, method=method, rtol=rtol,
                                atol=atol, first_step=first_step,
                                max_steps=max_steps, compensated=compensated,
                                max_step=max_step)
 
 
-def check_grid_input(name, y0, n_state, rhs_type, fun):
-    """``y0`` must be a contiguous float32 ``(B, n_state)`` tensor."""
+def check_grid_input(name, y0, n_state, rhs_type, fun, params=None):
+    """``y0`` must be a contiguous float32 ``(B, n_state)`` tensor, and
+    ``params`` (checked by ``member_params``) contiguous."""
     if not isinstance(fun, rhs_type):
         raise TypeError(f"{name} on a CUDA tensor needs a {rhs_type.__name__}"
                         " (with the CUDA source of the right-hand side); got "
@@ -98,6 +119,8 @@ def check_grid_input(name, y0, n_state, rhs_type, fun):
                          f"{tuple(y0.shape)}")
     if not y0.is_contiguous():
         raise ValueError("y0_batch must be contiguous")
+    if params is not None and not params.is_contiguous():
+        raise ValueError("params must be contiguous")
 
 
 def shared_memory(name, smem_fn):
@@ -154,14 +177,15 @@ def launch_by_rule(wrapper, rule, built, y0, n_row, t_span, shape, count,
 
 
 def launch_grid(wrapper, built, y0, n_row, t_span, shape, count, rtol, atol,
-                first_step, max_steps, compensated, max_step):
+                first_step, max_steps, compensated, max_step, params=None):
     """Launch ``csrc/fused_rk_grid.cu`` (stage rows of ``n_row``) on the
     current stream for ``wrapper``, whose launch count it raises (where
     ``count``; not for comparison launches), at ``shape``: ``(threads,
     0)`` one block of that many threads per member, ``(32, P)`` one warp
     per member and P members a block; raise before launch when the
-    members' rows do not fit in the card's shared memory.  Returns ``(y,
-    status, nsteps, nfev)``."""
+    members' rows do not fit in the card's shared memory.  ``params``:
+    the members' (B, k) parameters of a build with k of them, or None.
+    Returns ``(y, status, nsteps, nfev)``."""
     name = wrapper.__name__
     threads, warp_members = shape
     nb = y0.shape[0]
@@ -179,7 +203,8 @@ def launch_grid(wrapper, built, y0, n_row, t_span, shape, count, rtol, atol,
             t_span, rtol, atol, first_step, max_steps, compensated, max_step)
         stream = torch.cuda.current_stream(y0.device).cuda_stream
         rc = built.lib.fused_rk_grid_launch(
-            y0.data_ptr(), y_out.data_ptr(), status.data_ptr(),
+            y0.data_ptr(), None if params is None else params.data_ptr(),
+            y_out.data_ptr(), status.data_ptr(),
             nsteps.data_ptr(), nfev.data_ptr(), nb, t0, tf,
             float(np.sign(np.float32(tf) - np.float32(t0))), rt, at, h0,
             use_h, mstep, msteps, comp, threads, warp_members, stream)
@@ -235,7 +260,7 @@ def _kernel(method, fun):
     return _build.cached("fused_erk_grid", (method, fun),
                          lambda: _build.load_fused_rk_grid(
                              _fused_consts(method), False, fun.shape,
-                             fun.cuda_src))
+                             fun.cuda_src, fun.k))
 
 
 def solve_fused_erk_grid(fun, t_span, y0_batch, method=None, rtol=1e-4,
@@ -262,18 +287,23 @@ def solve_fused_erk_grid(fun, t_span, y0_batch, method=None, rtol=1e-4,
     the members a block come from the measured rule
     (:func:`grid_launch_shape`), not from the caller.
 
-    ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet.
+    ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
+    them as its third argument (see the module docstring; a
+    :class:`FusedGridRHS`'s ``k`` must agree).  ``t_eval``, ``events`` and
+    ``dense`` are not ported yet.
     """
     check_options("solve_fused_erk_grid", "B4", t_eval=t_eval,
-                  events=events, params=params, dense=dense)
+                  events=events, dense=dense)
     y0 = as_input(y0_batch, torch.float32)
+    params = member_params(params, y0, fun)
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, compensated=compensated,
-              max_step=max_step)
+              max_step=max_step, params=params)
     if y0.device.type != "cuda":
         return fused_erk_grid_reference(fun, t_span, y0, method=method, **kw)
     n = _state_size(fun) if isinstance(fun, FusedGridRHS) else -1
-    check_grid_input("solve_fused_erk_grid", y0, n, FusedGridRHS, fun)
+    check_grid_input("solve_fused_erk_grid", y0, n, FusedGridRHS, fun,
+                     params)
     out, shape = _launch(_kernel(method, fun), t_span, y0, n, count=True,
                          **kw)
     solve_fused_erk_grid.last_shape = shape
@@ -282,15 +312,17 @@ def solve_fused_erk_grid(fun, t_span, y0_batch, method=None, rtol=1e-4,
 
 def _launch(built, t_span, y0, n, shape=None, count=False, rtol=1e-4,
             atol=1e-6, first_step=None, max_steps=100_000, compensated=False,
-            max_step=None):
-    """Launch B4 for the CUDA tensor ``y0`` at ``shape`` (None:
-    :func:`_launch_shape`'s, its P capped by the card's shared memory; a
-    given shape is taken as it is, for comparisons), counted where
-    ``count``.  Returns the four outputs and the shape taken."""
+            max_step=None, params=None):
+    """Launch B4 for the CUDA tensor ``y0`` (and the members' ``params``,
+    as the build takes them) at ``shape`` (None: :func:`_launch_shape`'s,
+    its P capped by the card's shared memory; a given shape is taken as it
+    is, for comparisons), counted where ``count``.  Returns the four
+    outputs and the shape taken."""
     return launch_by_rule(solve_fused_erk_grid, _launch_shape, built, y0, n,
                           t_span, shape, count, rtol=rtol, atol=atol,
                           first_step=first_step, max_steps=max_steps,
-                          compensated=compensated, max_step=max_step)
+                          compensated=compensated, max_step=max_step,
+                          params=params)
 
 
 # kernel launches since the count was last set to 0 (the plain version on

@@ -40,15 +40,28 @@ the port takes n as it is.
 Right-hand sides are :class:`~.fused_rkc.FusedGridRHS` with ``shape=(n,)``:
 ``torch_fn(t, y)`` on ``(n, B)``, shifts as ``torch.roll(y, s, 0)``, and a
 CUDA source that defines the template ``template <class T> __device__ T
-rhs(T t, const T* y, int i, const float* p)`` (run as ``rhs<Dual>`` for
-the bands), neighbours through ``tab::G::rolled``.
+rhs(T t, const T* y, int i, const T* p)`` (run as ``rhs<Dual>`` for the
+bands; without parameters ``p`` may be ``const float*``, a null pointer),
+neighbours through ``tab::G::rolled``.  With ``params`` (B, k) the
+FusedGridRHS takes ``k`` parameters, ``torch_fn(t, y, p)`` with ``p`` of
+shape ``(k, B)``; the bands are d f / d y at fixed p.
+
+``block_base`` is the simultaneous corrector of the sensitivities
+(``ops/fused_sens.py``): the state is ``n / block_base`` blocks ``[y |
+s_1 .. s_k]`` of ``block_base`` rows whose Jacobian is block lower
+triangular with every diagonal block the base block's; the bands come
+from the base block alone (the striped tangents on its columns, its rows
+of the JVPs) and one reduction of ``ceil(log2 block_base)`` rounds is
+replayed on every block, block-diag(W, ..., W).  The Newton residuals are
+the whole system's, so converged results are exact; the neglected coupling
+below the diagonal only slows the Newton rate (JAX's contract).
 """
 import numpy as np
 import torch
 
 from .._device import as_input
-from .fused_erk import check_options
-from .fused_erk_grid import (_state_size, check_grid_input,
+from .fused_erk import check_options, member_params
+from .fused_erk_grid import (_state_size, bind_grid_params, check_grid_input,
                              check_shared_memory, fit_shape, grid_threads)
 from .fused_esdirk import (_esdirk_consts, _f32, _start_step, _tiny_err,
                            run_esdirk_loop)
@@ -87,29 +100,56 @@ def pcr_factor(wl, wd, wu):
 
 
 def pcr_solve(fact, d):
-    """``W x = d`` for (n, B) rows ``d`` with a :func:`pcr_factor`
-    factor."""
+    """``W x = d`` for (n, B) rows ``d`` with a :func:`pcr_factor` factor
+    of nb rows: where nb < n, block-diag(W, ..., W) x = d, each block of nb
+    rows of ``d`` reduced on its own ring (the simultaneous corrector)."""
     rounds, den = fact
+    n, nb = d.shape[0], den.shape[0]
+    d = d.reshape(n // nb, nb, -1) if nb < n else d
+    ax = d.dim() - den.dim()
     for alpha, gamma, s in rounds:
-        d = d + alpha * torch.roll(d, s, 0) + gamma * torch.roll(d, -s, 0)
-    return d / den
+        d = d + alpha * torch.roll(d, s, ax) + gamma * torch.roll(d, -s, ax)
+    return (d / den).reshape(n, -1)
 
 
-def jac_bands(fun, t, y):
+def jac_bands(fun, t, y, nb=None):
     """(lower, diagonal, upper) bands of the Jacobian of the rows-first
     ``fun`` at ``(t, y)``, each (n, B), from four JVPs with mod-4 striped
-    tangents, summed as the JAX ``jac_bands`` sums them."""
+    tangents, summed as the JAX ``jac_bands`` sums them.  With a base block
+    of ``nb`` < n rows the tangents lie on its columns only and the bands
+    are its nb rows."""
     n = y.shape[0]
+    nb = n if nb is None else int(nb)
     lane = torch.arange(n, device=y.device)[:, None]
 
     def stripe(k, c):
         return ((lane + k) % 4 == c).to(y.dtype)
 
+    base = (lane < nb).to(y.dtype) if nb < n else None
     nz = y * 0.0
-    jv = [torch.func.jvp(lambda w: fun(t, w), (y,), (stripe(0, c) + nz,))[1]
+    jv = [torch.func.jvp(lambda w: fun(t, w), (y,),
+                         ((stripe(0, c) if base is None
+                           else stripe(0, c) * base) + nz,))[1]
           for c in range(4)]
-    return tuple(sum(stripe(k, c) * jv[c] for c in range(4))
+    return tuple(sum(stripe(k, c) * jv[c] for c in range(4))[:nb]
                  for k in (3, 0, 1))
+
+
+def _base_block(block_base, M, n):
+    """The base block's rows: n, or ``block_base`` (``ValueError`` with a
+    mass matrix or where it does not divide n, as in JAX)."""
+    if block_base is None:
+        return n
+    nb = int(block_base)
+    if M is not None:
+        raise ValueError(
+            "block_base (simultaneous corrector) requires M=None: the tiled "
+            "base bands assume identity mass on every block")
+    if nb < 1 or n % nb:
+        raise ValueError(
+            f"block_base={nb} must divide the state width {n} into equal "
+            "[y | s_j] blocks")
+    return nb
 
 
 def _mass_diag(M, n):
@@ -132,18 +172,23 @@ def _mass_diag(M, n):
 def fused_esdirk_grid_reference(fun, t_span, y0_batch, method=None, M=None,
                                 yp0_batch=None, rtol=1e-4, atol=1e-6,
                                 first_step=None, max_steps=100_000,
-                                compensated=False, max_step=None):
+                                compensated=False, max_step=None,
+                                params=None, block_base=None):
     """The plain PyTorch version of the mid-size ESDIRK kernel, on the
     device of ``y0_batch`` ``(B, n)``: B2's loop with the tridiagonal
     bands and cyclic reduction.  ``fun`` is a :class:`FusedGridRHS` or a
-    rows-first torch function.  Returns ``(y (B, n), status (B,), nsteps
-    (B,), nfev (B,))``."""
+    rows-first torch function, called as ``fun(t, y, p)`` with ``p`` (k,
+    B) where ``params`` (B, k) is given; ``block_base`` the simultaneous
+    corrector's base block (see the module docstring).  Returns ``(y (B,
+    n), status (B,), nsteps (B,), nfev (B,))``."""
     if isinstance(fun, FusedGridRHS):
         _state_size(fun)
-        fun = fun.torch_fn
     k = _esdirk_consts(method)
     f32 = torch.float32
-    y = torch.as_tensor(y0_batch).to(f32).T.contiguous()
+    y0 = torch.as_tensor(y0_batch)
+    nbase = _base_block(block_base, M, y0.shape[1])
+    fun = bind_grid_params(fun, member_params(params, y0, fun))
+    y = y0.to(f32).T.contiguous()
     n, nb = y.shape
     dev = y.device
     m_diag = _mass_diag(M, n)
@@ -166,10 +211,11 @@ def fused_esdirk_grid_reference(fun, t_span, y0_batch, method=None, M=None,
                         max_step, m_diag is None)
 
     def factor(tc, yy, hd):
-        jl, jd, ju = jac_bands(fun, tc, yy)
-        return pcr_factor(torch.where(alg, -jl, -hd * jl),
-                          torch.where(alg, -jd, mass - hd * jd),
-                          torch.where(alg, -ju, -hd * ju))
+        jl, jd, ju = jac_bands(fun, tc, yy, nbase)
+        a, m = alg[:nbase], mass[:nbase]
+        return pcr_factor(torch.where(a, -jl, -hd * jl),
+                          torch.where(a, -jd, m - hd * jd),
+                          torch.where(a, -ju, -hd * ju))
 
     y, status, nstep, nfev = run_esdirk_loop(
         fun, k, t0, tf, y, yp, h_abs, 0 if yp0_batch is not None else 1,
@@ -219,14 +265,16 @@ def _launch_shape(B, n, sm_count):
     return grid_threads(-(-n // 2)), 0
 
 
-def _kernel(method, fun):
-    """The kernel built for one method and FusedGridRHS."""
+def _kernel(method, fun, nb=None):
+    """The kernel built for one method, FusedGridRHS (with its parameter
+    count) and base block (None: no simultaneous corrector)."""
     if method is None:
         from ..methods import Kv3I as method
     from . import _build
     return _build.cached("fused_esdirk_grid", (method, fun),
                          lambda: _build.load_fused_esdirk_grid(
-                             _esdirk_consts(method), fun.shape, fun.cuda_src))
+                             _esdirk_consts(method), fun.shape, fun.cuda_src,
+                             fun.k, nb), extra=(nb,))
 
 
 def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
@@ -264,25 +312,31 @@ def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
     ``solve_fused_esdirk_grid.last_shape``.  On a CPU tensor it runs
     :func:`fused_esdirk_grid_reference`.
 
-    ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet;
-    nor is ``block_base``, the simultaneous-corrector mode of the
-    sensitivities.
+    ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
+    them as its third argument (see the module docstring; a
+    :class:`FusedGridRHS`'s ``k`` must agree).  ``block_base``: the
+    simultaneous corrector of the sensitivities (module docstring); it
+    must divide n and takes no ``M`` (``ValueError``, as in JAX), and its
+    FusedGridRHS must also define ``base_rhs``, the base block's template
+    (``ops/fused_sens.py`` builds it).  ``t_eval``, ``events`` and
+    ``dense`` are not ported yet.
     """
     check_options("solve_fused_esdirk_grid", "B7", t_eval=t_eval,
-                  events=events, params=params, dense=dense)
-    if block_base is not None:
-        raise NotImplementedError(
-            "solve_fused_esdirk_grid(block_base=...) is not ported yet: "
-            "ROADMAP queue A, item A16 (sensitivities)")
+                  events=events, dense=dense)
+    nbase = _base_block(block_base, M, np.shape(y0_batch)[1])
     y0 = as_input(y0_batch, torch.float32)
+    params = member_params(params, y0, fun)
     kw = dict(method=method, M=M, yp0_batch=yp0_batch, rtol=rtol, atol=atol,
               first_step=first_step, max_steps=max_steps,
-              compensated=compensated, max_step=max_step)
+              compensated=compensated, max_step=max_step, params=params)
     if y0.device.type != "cuda":
-        return fused_esdirk_grid_reference(fun, t_span, y0, **kw)
+        return fused_esdirk_grid_reference(fun, t_span, y0,
+                                           block_base=block_base, **kw)
     n = _state_size(fun) if isinstance(fun, FusedGridRHS) else -1
-    check_grid_input("solve_fused_esdirk_grid", y0, n, FusedGridRHS, fun)
-    out, shape = _launch(_kernel(method, fun), t_span, y0, count=True,
+    check_grid_input("solve_fused_esdirk_grid", y0, n, FusedGridRHS, fun,
+                     params)
+    nb = None if nbase == n else nbase
+    out, shape = _launch(_kernel(method, fun, nb), t_span, y0, count=True,
                          **kw)
     solve_fused_esdirk_grid.last_shape = shape
     return out
@@ -290,9 +344,11 @@ def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
 
 def _launch(built, t_span, y0, method=None, M=None, yp0_batch=None,
             rtol=1e-4, atol=1e-6, first_step=None, max_steps=100_000,
-            compensated=False, max_step=None, shape=None, count=False):
-    """Launch ``csrc/fused_esdirk_grid.cu`` on the current stream at
-    ``shape`` (None: :func:`_launch_shape`'s, its P capped by the card's
+            compensated=False, max_step=None, shape=None, count=False,
+            params=None):
+    """Launch ``csrc/fused_esdirk_grid.cu`` on the current stream (with the
+    members' ``params`` as the build takes them) at ``shape`` (None:
+    :func:`_launch_shape`'s on the whole state, its P capped by the card's
     shared memory; a given shape is taken as it is, for comparisons),
     counted where ``count``; raise before launch when the members' rows do
     not fit in the card's shared memory.  Returns the four outputs and the
@@ -332,7 +388,8 @@ def _launch(built, t_span, y0, method=None, M=None, yp0_batch=None,
         stream = torch.cuda.current_stream(y0.device).cuda_stream
         rc = built.lib.fused_esdirk_grid_launch(
             y0.data_ptr(), None if yp0 is None else yp0.data_ptr(),
-            None if mass is None else mass.data_ptr(), y_out.data_ptr(),
+            None if mass is None else mass.data_ptr(),
+            None if params is None else params.data_ptr(), y_out.data_ptr(),
             status.data_ptr(), nsteps.data_ptr(), nfev.data_ptr(), nb,
             float(t0), float(tf), float(rtol), float(atol), float(h0),
             int(first_step is None and M is None), int(yp0 is not None),

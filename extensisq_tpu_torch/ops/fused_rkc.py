@@ -71,10 +71,21 @@ class FusedGridRHS:
     ``tab::G::rolled<AXIS>(y, i, shift)``, the value at ``i`` of
     ``torch.roll(y, shift, AXIS)`` (``csrc/grid_common.cuh``; the extents
     are compile-time constants of the generated header).
+
+    ``k`` is the number of per-member parameters the mid-size kernels B4
+    and B7 take with ``params`` (they check it against ``params``; the RKC
+    kernels count the columns of their ``params``).  The implicit kernel
+    and the sensitivities (``ops/fused_sens.py``) evaluate the source on
+    dual numbers and need the template form ``template <class T> __device__
+    T rhs(T t, const T* y, int i, const T* p)``; the sensitivities' grid
+    layout takes the state as a second template parameter, ``template
+    <class T, class V> __device__ T rhs(T t, V y, int i, const T* p)``,
+    indexed as ``y[m]`` and through ``tab::G::rolled``.
     """
     torch_fn: Callable
     cuda_src: str
     shape: tuple
+    k: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

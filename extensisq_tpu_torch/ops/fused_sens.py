@@ -1,13 +1,16 @@
 """Forward sensitivities and gradients through the fused kernels.
 
-Counterpart of ``extensisq_tpu/ops/fused_sens.py``, the flat layout:
+Counterpart of ``extensisq_tpu/ops/fused_sens.py``:
 
 * :func:`solve_fused_sens` integrates the variational system ``[y; dy/dp_j
   (; dy/dy0_i)]`` of a whole parameter-sweep ensemble in one launch of B1
   (``csrc/fused_erk.cu``) or, for an ESDIRK method, of B2
   (``csrc/fused_esdirk.cu``) with its simultaneous corrector
   (``block_base=n``: one n x n factor solves every block of the augmented
-  Newton system).  The tangent rows are forward-mode derivatives of the
+  Newton system); with ``layout="grid"`` (mid-size method-of-lines sweeps)
+  of B4 (``csrc/fused_rk_grid.cu``) or B7 (``csrc/fused_esdirk_grid.cu``,
+  ``block_base=n``: the base block's tridiagonal factor replayed on every
+  block).  The tangent rows are forward-mode derivatives of the
   user's right-hand side, taken inside the kernel on dual numbers
   (``csrc/dual.cuh``) and in the plain versions by ``torch.func.jvp``, so
   the variational matrix is never formed.  Error control runs on the whole
@@ -18,14 +21,24 @@ Counterpart of ``extensisq_tpu/ops/fused_sens.py``, the flat layout:
   solve contracted with the cotangent, so a gradient of a per-member loss
   over the whole ensemble costs two launches.
 
-The user's right-hand side is a :class:`~extensisq_tpu_torch.ops.FusedRHS`
-whose ``torch_fn(t, y, p)`` is rows-first (``p`` a k-tuple of ``(B,)``
-tensors; ``torch_fn(t, y)`` without params) and whose ``cuda_src`` is the
-template form ``template <class T> __device__ void rhs(T t, const T* y,
-T* dy, const T* p)`` (without ``p`` when there are no params), which the
-kernels evaluate on duals.  On CPU tensors a bare rows-first torch
-function does as well.  The grid layout waits for ``params`` and
-``block_base`` on B4 and B7 (ROADMAP A16).
+The user's right-hand side of the flat layout is a
+:class:`~extensisq_tpu_torch.ops.FusedRHS` whose ``torch_fn(t, y, p)`` is
+rows-first (``p`` a k-tuple of ``(B,)`` tensors; ``torch_fn(t, y)`` without
+params) and whose ``cuda_src`` is the template form ``template <class T>
+__device__ void rhs(T t, const T* y, T* dy, const T* p)`` (without ``p``
+when there are no params), which the kernels evaluate on duals.  That of
+the grid layout is a :class:`~extensisq_tpu_torch.ops.FusedGridRHS` of
+``shape=(n,)`` and ``k`` parameters: ``torch_fn(t, y, p)`` on rows-first
+``(n, B)`` states with ``p`` of shape ``(k, B)`` (JAX's grid functions take
+the transposed ``(bm, n)`` state and a k-tuple of ``(bm, 1)`` columns), and
+a ``cuda_src`` that takes the state as a template parameter of its own,
+``template <class T, class V> __device__ T rhs(T t, V y, int i, const T*
+p)``, returning element i and reading neighbours as ``y[m]`` or
+``tab::G::rolled<0>(y, i, shift)`` (``tab::G`` is the user's grid of n
+there, not the augmented state's).  The kernels evaluate it on floats,
+on the dual rows of the base block (B7's bands) and on ``DualRows``, the
+state and one tangent block read as duals.  On CPU tensors a bare
+rows-first torch function does as well.
 """
 import functools
 
@@ -34,7 +47,10 @@ import torch
 
 from .._device import as_input
 from .fused_erk import FusedRHS, bind_params, member_params, solve_fused_erk
+from .fused_erk_grid import solve_fused_erk_grid
 from .fused_esdirk import solve_fused_esdirk
+from .fused_esdirk_grid import solve_fused_esdirk_grid
+from .fused_rkc import FusedGridRHS
 
 
 def _family(method):
@@ -117,6 +133,94 @@ __device__ void rhs(float t, const float* Y, float* dY{fpar}) {{
 """
 
 
+def _aug_fun_grid(fun, n, k):
+    """The rows-first variational right-hand side of the grid layout: input
+    rows ``[y (n); s_1..s_k (n each)]`` and ``p`` (k, B), output ``[f; J
+    s_j + f_pj]``, each tangent block one ``torch.func.jvp`` of ``fun``
+    seeded with ``(s_j, e_j)`` (JAX's ``_aug_fun_grid`` on the transposed
+    state)."""
+    def aug(t, Y, p):
+        y = Y[:n]
+        cols = tuple(p[j] for j in range(k))
+
+        def prim(yy, *pp):
+            return fun(t, yy, torch.stack(pp))
+
+        blocks = [prim(y, *cols)]
+        zeros = tuple(torch.zeros_like(c) for c in cols)
+        for j in range(k):
+            seed = tuple(torch.ones_like(c) if i == j else zeros[i]
+                         for i, c in enumerate(cols))
+            blocks.append(torch.func.jvp(
+                prim, (y, *cols), (Y[n * (1 + j):n * (2 + j)], *seed))[1])
+        return torch.cat(blocks, 0)
+    return aug
+
+
+def aug_grid_cuda_src(src, n, k):
+    """CUDA source of the grid layout's variational system for the user's
+    element template ``rhs<T, V>`` in ``src`` (n states, k parameters): the
+    user's source in a namespace of its own, where ``tab::G`` is the grid of
+    the n states (so that a periodic roll wraps within the state, not into
+    the tangent blocks); ``base_rhs<T, V>``, the user's rhs, which B7's
+    simultaneous corrector differentiates on the base block; and the
+    augmented ``rhs`` on floats: row i < n the user's rhs, row i of
+    tangent block j the tangent of the user's rhs at row i - n (1 + j) on
+    the duals (y, s_j) (``DualRows``, neighbours included) with ``p_j``
+    seeded by 1."""
+    return f"""#include "dual.cuh"
+
+namespace user_rhs {{
+namespace tab {{
+using namespace ::tab;
+using G = grid::Grid<{n}>;
+constexpr int N = {n};
+}}  // namespace tab
+{src}
+}}  // namespace user_rhs
+
+// the first block: the user's right-hand side
+template <class T, class V>
+__device__ __forceinline__ T base_rhs(T t, V y, int i, const T* p) {{
+  return user_rhs::rhs(t, y, i, p);
+}}
+
+// element i of the variational system [f; J s_j + df/dp_j] over
+// {n} * {1 + k} rows: row i - {n} (1 + j) of tangent block j for i >= {n}.
+// Out of line, so that the warp and the block bodies run the same code:
+// inlined into their different element loops, nvcc contracted its
+// products into fma otherwise in each, and the warp's last bits parted
+// from a block of 32 threads
+__device__ __noinline__ float rhs(float t, const float* Y, int i,
+                                  const float* p) {{
+  if (i < {n}) return user_rhs::rhs(t, Y, i, p);
+  const int j = i / {n} - 1;
+  Dual pd[{k}];
+#pragma unroll
+  for (int q = 0; q < {k}; ++q) pd[q] = Dual(p[q], q == j ? 1.0f : 0.0f);
+  return user_rhs::rhs(Dual(t), DualRows{{Y, Y + {n} * (1 + j)}},
+                       i - {n} * (1 + j), static_cast<const Dual*>(pd)).d;
+}}
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def _aug_grid_rhs(fun, n, k):
+    """The grid layout's variational system of ``fun`` (a FusedGridRHS of
+    k parameters or a torch function) as a FusedGridRHS of shape (n (1 +
+    k),) (a torch function for a torch function), one object per (fun, n,
+    k), so that each kernel is built once."""
+    if not isinstance(fun, FusedGridRHS):
+        return _aug_fun_grid(fun, n, k)
+    if tuple(fun.shape) != (n,):
+        raise ValueError(f"the grid layout takes a FusedGridRHS of shape "
+                         f"({n},) for y0_batch (B, {n}); got "
+                         f"{tuple(fun.shape)}")
+    return FusedGridRHS(_aug_fun_grid(fun.torch_fn, n, k),
+                        aug_grid_cuda_src(fun.cuda_src, n, k),
+                        (n * (1 + k),), k)
+
+
 @functools.lru_cache(maxsize=None)
 def _aug_rhs(fun, n, k, n_v):
     """The variational system of ``fun`` (a FusedRHS of k parameters or a
@@ -145,16 +249,25 @@ def solve_fused_sens(fun, t_span, y0_batch, params=None, method=None,
     "erk" family (default BS5) B1; others raise ``ValueError``.
     ``block_members`` None takes the wrapper's rule.
 
-    ``layout``: "flat" (the default; rows-first ``fun``) or "grid", which
-    raises ``ValueError`` with ``sens_y0`` (as in JAX) and else
-    ``NotImplementedError`` (ROADMAP A16: params and block_base on B4 and
-    B7 come first).
+    ``layout``: "flat" (the default; rows-first ``fun``) or "grid", for
+    mid-size sweeps: ``fun`` is then a FusedGridRHS (module docstring; on
+    CPU tensors a rows-first torch function ``fun(t, y, p)`` with ``p`` (k,
+    B)), the augmented state ``[y | s_1 .. s_k]`` runs on B4 (the "erk"
+    family) or on B7 with ``block_base=n`` (the "esdirk" family), and
+    ``sens_y0`` raises ``ValueError`` (as in JAX: use
+    ``solve_fused_adjoint``).  ``block_members`` is passed to the grid
+    wrappers, which take their launch shape from their rules.
 
     Returns ``(y_final (B, n), S_p (B, n, k), S_y0 (B, n, n) | None,
     status (B,), nsteps (B,), nfev (B,))``: ``S_p[b, m, j] = d y_m(t_f) /
     d p_j`` and ``S_y0[b, m, i] = d y_m(t_f) / d y0_i`` of member b; nfev
     counts evaluations of the augmented system.
     """
+    if layout == "grid" and sens_y0:
+        raise ValueError(
+            "sens_y0 on the grid layout would carry n*n "
+            "fundamental-solution lanes; use solve_fused_adjoint for "
+            "dL/dy0 at mid-size n")
     y0 = as_input(y0_batch, torch.float32)
     B, n = y0.shape
     if params is None and not sens_y0:
@@ -164,25 +277,26 @@ def solve_fused_sens(fun, t_span, y0_batch, params=None, method=None,
     k = 0 if params is None else params.shape[1]
     n_v = n if sens_y0 else 0
     fam = _family(method)
-    if layout == "grid":
-        if sens_y0:
-            raise ValueError(
-                "sens_y0 on the grid layout would carry n*n "
-                "fundamental-solution lanes; use solve_fused_adjoint for "
-                "dL/dy0 at mid-size n")
-        raise NotImplementedError(
-            "solve_fused_sens(layout='grid') is not ported yet: ROADMAP A16 "
-            "(params and block_base on B4 and B7)")
 
     cols = [y0, y0.new_zeros(B, n * k)]
     if sens_y0:
         cols.append(torch.eye(n, dtype=torch.float32, device=y0.device)
                     .reshape(1, n * n).expand(B, n * n))
     Y0 = torch.cat(cols, 1).contiguous()
-    aug = _aug_rhs(fun, n, k, n_v)
     kw = dict(method=method, rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, block_members=block_members,
               compensated=compensated, max_step=max_step, params=params)
+    if layout == "grid":
+        aug = _aug_grid_rhs(fun, n, k)
+        if fam == "esdirk":
+            y_aug, status, nsteps, nfev = solve_fused_esdirk_grid(
+                aug, t_span, Y0, block_base=n, **kw)
+        else:
+            y_aug, status, nsteps, nfev = solve_fused_erk_grid(
+                aug, t_span, Y0, **kw)
+        return (y_aug[:, :n], y_aug[:, n:].reshape(B, k, n).transpose(1, 2),
+                None, status, nsteps, nfev)
+    aug = _aug_rhs(fun, n, k, n_v)
     if fam == "esdirk":
         y_aug, status, nsteps, nfev = solve_fused_esdirk(
             aug, t_span, Y0, block_base=n, **kw)

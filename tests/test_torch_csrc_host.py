@@ -51,7 +51,8 @@ from extensisq_tpu_torch.ops import fused_esdirk as FE  # noqa: E402
 from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG  # noqa: E402
 from extensisq_tpu_torch.ops import fused_rkc as FR  # noqa: E402
 from extensisq_tpu_torch.ops import fused_rkn as FN  # noqa: E402
-from extensisq_tpu_torch.ops.fused_sens import _aug_rhs  # noqa: E402
+from extensisq_tpu_torch.ops.fused_sens import (_aug_grid_rhs,  # noqa: E402
+                                                _aug_rhs)
 from extensisq_tpu_torch.parallel import pde  # noqa: E402
 
 SHIM = """
@@ -61,6 +62,7 @@ SHIM = """
 #define __global__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __restrict__
 #define __launch_bounds__(x)
 struct HostDim3 { int x; };
@@ -624,20 +626,21 @@ GRID_LAUNCH = HOST_GROUP + HOST_WARP + r"""
 // one member by the body of the header's family (a template, so that the
 // other family's body is never instantiated)
 template <bool CK, class Group>
-void host_member(Group& g, float* sm, const float* y0, const Launch& L,
-                 int m, const Out& out, int compensated) {
+void host_member(Group& g, float* sm, const float* y0, const float* params,
+                 const Launch& L, int m, const Out& out, int compensated) {
   if constexpr (CK) {
     integrate_ck(g, sm, y0, L, m, out);
   } else if (compensated) {
-    integrate<true>(g, sm, y0, L, m, out);
+    integrate<true>(g, sm, y0, params, L, m, out);
   } else {
-    integrate<false>(g, sm, y0, L, m, out);
+    integrate<false>(g, sm, y0, params, L, m, out);
   }
 }
 
 struct HostGridMember {
   float* sm;
   const float* y0;
+  const float* params;
   Launch L;
   int m;
   Out out;
@@ -649,11 +652,13 @@ template <bool BLOCK>
 static void grid_warp_lane(int r) {
   HostWarp<BLOCK> g{r};
   const HostGridMember& a = g_member;
-  host_member<tab::CK>(g, a.sm, a.y0, a.L, a.m, a.out, a.compensated);
+  host_member<tab::CK>(g, a.sm, a.y0, a.params, a.L, a.m, a.out,
+                       a.compensated);
 }
 
 extern "C" int fused_rk_grid_host(
-    const float* y0, float* y_out, int* status, int* nsteps, int* nfev,
+    const float* y0, const float* params, float* y_out, int* status,
+    int* nsteps, int* nfev,
     int members, float t0, float tf, float dir, float rtol, float atol,
     float h0, int use_hstart, float max_step, int max_steps,
     int compensated, int lanes, int block_order) {
@@ -666,9 +671,11 @@ extern "C" int fused_rk_grid_host(
   for (int m = 0; m < members; ++m) {
     if (lanes == 1) {
       HostGroup g;
-      host_member<tab::CK>(g, sm, y0 + m * NF, L, m, out, compensated);
+      host_member<tab::CK>(g, sm, y0 + m * NF, params, L, m, out,
+                           compensated);
     } else {
-      g_member = HostGridMember{sm, y0 + m * NF, L, m, out, compensated};
+      g_member = HostGridMember{sm, y0 + m * NF, params, L, m, out,
+                                compensated};
       run_lanes(32, block_order ? grid_warp_lane<true>
                                 : grid_warp_lane<false>, stacks);
     }
@@ -778,7 +785,7 @@ extern "C" int fused_adams_grid_host(
 ESDIRK_GRID_LAUNCH = HOST_GROUP + HOST_WARP + r"""
 struct HostEsdirkMember {
   float* sm;
-  const float *y0, *yp0, *mass;
+  const float *y0, *yp0, *mass, *params;
   Launch Lc;
   int m;
   Out out;
@@ -789,9 +796,11 @@ static HostEsdirkMember g_member;
 template <class Group>
 void host_member(Group& g, const HostEsdirkMember& a) {
   if (a.compensated) {
-    integrate<true>(g, a.sm, a.y0, a.yp0, a.mass, a.Lc, a.m, a.out);
+    integrate<true>(g, a.sm, a.y0, a.yp0, a.mass, a.params, a.Lc, a.m,
+                    a.out);
   } else {
-    integrate<false>(g, a.sm, a.y0, a.yp0, a.mass, a.Lc, a.m, a.out);
+    integrate<false>(g, a.sm, a.y0, a.yp0, a.mass, a.params, a.Lc, a.m,
+                     a.out);
   }
 }
 
@@ -802,7 +811,8 @@ static void esdirk_warp_lane(int r) {
 }
 
 extern "C" int fused_esdirk_grid_host(
-    const float* y0, const float* yp0, const float* mass, float* y_out,
+    const float* y0, const float* yp0, const float* mass,
+    const float* params, float* y_out,
     int* status, int* nsteps, int* nfev, int members, float t0, float tf,
     float rtol, float atol, float h0, int use_hstart, int have_yp0,
     float max_step, int max_steps, float tiny_err, int compensated,
@@ -815,7 +825,7 @@ extern "C" int fused_esdirk_grid_host(
   char* stacks = static_cast<char*>(std::malloc(32 * kLaneStack));
   for (int m = 0; m < members; ++m) {
     g_member = HostEsdirkMember{sm, y0 + m * N, yp0 ? yp0 + m * N : nullptr,
-                                mass, Lc, m, out, compensated};
+                                mass, params, Lc, m, out, compensated};
     if (lanes == 1) {
       HostGroup g;
       host_member(g, g_member);
@@ -919,6 +929,19 @@ VARIANT_OF = {"rob_kv3i": "rob_kv3i", "rob_kv3i_comp": "rob_kv3i",
 # and y0 (ops.solve_fused_sens's)
 ERK_PARAM_RHS = {"vdp_params": TK.PROBLEMS["vdp_p"],
                  "vdp_variational": _aug_rhs(TK.PROBLEMS["vdp_p"], 2, 1, 2)}
+# B4 with a growth rate a member and on the variational system of the
+# periodic Fisher MoL (whose roll in the base block wraps within its 64
+# states only where the user's namespace has its own grid), B7 with (k, D)
+# a member and its simultaneous corrector on the reaction-diffusion's
+# variational system: label -> (kernel, FusedGridRHS, method, base block)
+GRID_PARAM_RHS = {
+    "grid_fisher_params": ("fused_rk_grid", TG.FISHER_P, "BS5", None),
+    "grid_fisher_variational": ("fused_rk_grid",
+                                _aug_grid_rhs(TG.FISHER_P, TG.N_P, 1), "BS5",
+                                None),
+    "eg_rd_params": ("fused_esdirk_grid", TEG.RD_P, "Kv3I", None),
+    "eg_rd_block": ("fused_esdirk_grid", _aug_grid_rhs(TEG.RD_P, TEG.N_P, 2),
+                    "TRBDF2", TEG.N_P)}
 VDP_TEMPLATE = FK.FusedRHS(
     TK.PROBLEMS["vdp"].torch_fn,
     "template <class T>\n__device__ void rhs(T t, const T* y, T* dy) {\n"
@@ -1007,6 +1030,18 @@ def libs(tmp_path_factory):
         jobs[label] = ("fused_esdirk_grid", _build.fused_esdirk_grid_header(
             FE._esdirk_consts(TEG.METHODS[meth]), rhs.shape, rhs.cuda_src),
             ESDIRK_GRID_LAUNCH, RKC_MARKER)
+    for label, (kernel, rhs, meth, nb) in GRID_PARAM_RHS.items():
+        if kernel == "fused_rk_grid":
+            header = _build.fused_rk_grid_header(
+                FK._fused_consts(TK.BS5), False, rhs.shape, rhs.cuda_src,
+                rhs.k)
+            launch = GRID_LAUNCH
+        else:
+            header = _build.fused_esdirk_grid_header(
+                FE._esdirk_consts(TEG.METHODS[meth]), rhs.shape,
+                rhs.cuda_src, rhs.k, nb)
+            launch = ESDIRK_GRID_LAUNCH
+        jobs[label] = (kernel, header, launch, RKC_MARKER)
     for label, (prob, km) in ADAMS_GRID_VARIANTS.items():
         rhs = TAG.RHS[prob]
         jobs[label] = ("fused_adams_grid", _build.fused_adams_header(
@@ -1481,23 +1516,28 @@ def _rkn_host(lib, span, y0, **kw):
     return _small_host(lib, "fused_rkn", span, y0, **kw)
 
 
-def _grid_host(lib, span, y0, lanes=1, block_order=False, **kw):
-    """The host-built grid body on ``y0`` by a one-thread group (lanes = 1)
-    or a warp of 32 coroutine lanes, whose reductions take their own lane's
-    butterfly result or, with ``block_order``, lane 0's."""
+def _grid_host(lib, span, y0, lanes=1, block_order=False, params=None,
+               **kw):
+    """The host-built grid body on ``y0`` (and the members' ``params``) by
+    a one-thread group (lanes = 1) or a warp of 32 coroutine lanes, whose
+    reductions take their own lane's butterfly result or, with
+    ``block_order``, lane 0's."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host warp switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
+    par = None if params is None else np.ascontiguousarray(params,
+                                                           np.float32)
     nb = y0.shape[0]
     out = np.empty_like(y0)
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
     fn = lib.fused_rk_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 5 + [ci] + [cf] * 6 + [ci, cf, ci, ci, ci, ci]
+    fn.argtypes = [vp] * 6 + [ci] + [cf] * 6 + [ci, cf, ci, ci, ci, ci]
     t0, tf, rt, at, h0, use_h, mstep, msteps, comp = FK.launch_args(
         span, kw["rtol"], kw["atol"], kw.get("first_step"),
         kw.get("max_steps", 100_000), kw.get("compensated", False), None)
-    rc = fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
+    rc = fn(y0.ctypes.data, None if par is None else par.ctypes.data,
+            out.ctypes.data, st.ctypes.data, ns.ctypes.data,
             nf.ctypes.data, nb, t0, tf, float(np.sign(tf - t0)), rt, at, h0,
             use_h, mstep, msteps, comp, lanes, int(block_order))
     assert rc == 0
@@ -1883,13 +1923,16 @@ def test_adams_grid_warp_lanes_equal_one_lane(libs, case):
 def _esdirk_grid_host(lib, span, y0, yp0=None, M=None, rtol=1e-4, atol=1e-6,
                       first_step=None, max_steps=100_000, compensated=False,
                       max_step=None, method=None, lanes=1,
-                      block_order=False):
-    """The host-built mid-size ESDIRK body on ``y0``, launched as the
-    wrapper launches the kernel, by a one-thread group (lanes = 1) or a
-    warp of 32 coroutine lanes (reductions as in ``_grid_host``)."""
+                      block_order=False, params=None, block_base=None):
+    """The host-built mid-size ESDIRK body on ``y0`` (and the members'
+    ``params``; ``block_base`` is the build's), launched as the wrapper
+    launches the kernel, by a one-thread group (lanes = 1) or a warp of 32
+    coroutine lanes (reductions as in ``_grid_host``)."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host warp switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
+    par = None if params is None else np.ascontiguousarray(params,
+                                                           np.float32)
     nb, n = y0.shape
     out = np.empty_like(y0)
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
@@ -1900,10 +1943,11 @@ def _esdirk_grid_host(lib, span, y0, yp0=None, M=None, rtol=1e-4, atol=1e-6,
           else np.float32(0.01) * abs(tf - t0))
     fn = lib.fused_esdirk_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([vp] * 7 + [ci] + [cf] * 5
+    fn.argtypes = ([vp] * 8 + [ci] + [cf] * 5
                    + [ci, ci, cf, ci, cf, ci, ci, ci])
     rc = fn(y0.ctypes.data, None if yp is None else yp.ctypes.data,
-            None if mass is None else mass.ctypes.data, out.ctypes.data,
+            None if mass is None else mass.ctypes.data,
+            None if par is None else par.ctypes.data, out.ctypes.data,
             st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb, float(t0),
             float(tf), rtol, atol, float(h0),
             int(first_step is None and M is None), int(yp is not None),
@@ -2079,3 +2123,89 @@ def test_grid_body_nan_start_status_as_plain(libs):
                                                   torch.tensor(y0), **kw))
     np.testing.assert_array_equal(st, rst)
     assert st[2] != 1 and np.sum(st == 1) == len(st) - 1
+
+
+def _grid_param_case(label, lanes=1, **over):
+    """The host body's outputs on ``label`` of GRID_PARAM_RHS (8 members,
+    the fixture's inputs; a variational system starts from [y0 | 0]) and
+    its plain version's: the Fisher cases on t in [0, 0.25], the
+    reaction-diffusion cases on [0, 0.04], at rtol 1e-5 / atol 1e-8."""
+    kernel, rhs, meth, nb = GRID_PARAM_RHS[label]
+    if kernel == "fused_rk_grid":
+        y0, par = TG.fisher_p_inputs()
+        span, method = (0.0, 0.25), TK.BS5
+    else:
+        y0, par = TEG.rd_p_inputs()
+        span, method = (0.0, 0.04), TEG.METHODS[meth]
+    if rhs.shape[0] > y0.shape[1]:
+        y0 = np.concatenate([y0, np.zeros((len(y0), rhs.shape[0]
+                                           - y0.shape[1]), np.float32)], 1)
+    kw = dict(dict(rtol=1e-5, atol=1e-8), **over)
+    if kernel == "fused_rk_grid":
+        host = _grid_host(LIBS_OF[label], span, y0, lanes=lanes, params=par,
+                          **kw)
+        ref = TG.fused_erk_grid_reference(
+            rhs, span, torch.tensor(y0), method=method,
+            params=torch.tensor(par), **kw)
+    else:
+        host = _esdirk_grid_host(LIBS_OF[label], span, y0, lanes=lanes,
+                                 params=par, **kw)
+        ref = FEG.fused_esdirk_grid_reference(
+            rhs, span, torch.tensor(y0), method=method,
+            params=torch.tensor(par), block_base=nb, **kw)
+    return host, tuple(r.numpy() for r in ref)
+
+
+LIBS_OF = {}
+
+
+@pytest.fixture
+def grid_param_libs(libs):
+    LIBS_OF.update(libs)
+    return libs
+
+
+# (case, max |dy|, max |dnsteps|, members with other counts), measured:
+# grid_fisher_params 4.6e-6, 0, 0; grid_fisher_variational 7.3e-6, 0, 2
+# (the tangent rows on DualRows against torch.func.jvp; one rejected
+# attempt more or less); eg_rd_params 4.8e-7, 0, 1; eg_rd_block 4.8e-7, 0,
+# 0 (the base block's dual bands and the block-cyclic replay).  powf and
+# torch.pow part last bits of h from the second attempt; gates about 2x.
+GRID_PARAM_GATES = [("grid_fisher_params", 1e-5, 1, 2),
+                    ("grid_fisher_variational", 1.5e-5, 1, 4),
+                    ("eg_rd_params", 1e-6, 1, 2),
+                    ("eg_rd_block", 1e-6, 1, 2)]
+
+
+@pytest.mark.parametrize("case,y_gate,dsteps,nmembers,lanes", _with_warp(
+    GRID_PARAM_GATES, ("eg_rd_block", "grid_fisher_variational")))
+def test_grid_params_kernels_match_plain_versions(grid_param_libs, case,
+                                                  y_gate, dsteps, nmembers,
+                                                  lanes):
+    """B4 with params and on a variational system, B7 with params and with
+    ``block_base`` (``fused_rk_grid.cu``, ``fused_esdirk_grid.cu`` run by a
+    one-thread group, the block_base and variational builds also by a warp
+    of 32 coroutine lanes) against their plain versions: status identical,
+    counts and endpoints within the gates."""
+    (y, st, ns, nf), (ry, rst, rns, rnf) = _grid_param_case(case, lanes)
+    np.testing.assert_array_equal(st, rst)
+    assert np.all(st == 1)
+    assert np.max(np.abs(y - ry)) <= y_gate
+    assert np.max(np.abs(ns - rns)) <= dsteps
+    assert np.sum((ns != rns) | (nf != rnf)) <= nmembers
+
+
+@pytest.mark.parametrize("case,attempts", [
+    ("grid_fisher_params", 1), ("grid_fisher_variational", 1),
+    ("eg_rd_params", 2), ("eg_rd_block", 1)])
+def test_grid_params_first_attempts_bit_identical(grid_param_libs, case,
+                                                  attempts):
+    """With ``first_step`` given, the first attempts of each params and
+    variational build repeat the plain version's arithmetic bit for bit:
+    the member's parameters from shared memory, the tangent rows' duals
+    through the user's grid, the base block's bands and the block-cyclic
+    replay."""
+    host, ref = _grid_param_case(case, first_step=1e-4, max_steps=attempts)
+    for a, b in zip(host, ref):
+        np.testing.assert_array_equal(a, b)
+

@@ -14,6 +14,11 @@ starting step's ``log10``/``pow``) part later last bits: with
 attempts close to the threshold, takes one attempt more or less on one
 member; elsewhere the gates below are measured with a margin.
 
+Per-member ``params`` (a Fisher MoL with its growth rate a member, n =
+64) are held to the JAX kernel's outputs in ``tests/jax_fused_sens_grid.npz``
+(written by ``tests/jax_fused_sens_grid.py``, interpret mode without FMA),
+with ``first_step`` given: identical counts.
+
 The tests marked ``gpu`` hold the CUDA kernel against its plain version on
 the card; they skip where there is none.
 """
@@ -36,6 +41,9 @@ REPO = Path(__file__).resolve().parents[1]
 B = 8
 N = 100
 METHODS = {"BS5": BS5, "CK5": CK5}
+# the params cases' members (tests/jax_fused_sens_grid.py)
+FIXTURE = np.load(REPO / "tests" / "jax_fused_sens_grid.npz")
+N_P = 64
 
 
 def fisher(t, y):
@@ -60,6 +68,29 @@ RHS = {
   return -(G::rolled<0>(y, i, -1) - G::rolled<0>(y, i, 1)) * {0.5 * N!r}f;
 }}""", (N,)),
 }
+
+
+def fisher_p(t, y, p):
+    """The periodic upwind Fisher MoL at n = 64 with its growth rate p[0]
+    a member (JAX's ``test_fused_sens_grid_layout_fisher_fd``)."""
+    return -(y - torch.roll(y, 1, 0)) * float(N_P) + p[0] * y * (1.0 - y)
+
+
+# its CUDA source in the sensitivities' template form (ops/fused_sens.py),
+# which B4 with params runs as rhs<float, const float*>
+FISHER_P = FusedGridRHS(fisher_p, f"""template <class T, class V>
+__device__ T rhs(T t, V y, int i, const T* p) {{
+  return -(y[i] - tab::G::rolled<0>(y, i, 1)) * {float(N_P)!r}f
+         + p[0] * y[i] * (1.0f - y[i]);
+}}""", (N_P,), 1)
+
+
+def fisher_p_inputs():
+    """8 members from y0 = 0.5 + 0.3 sin(2 pi x), r in [0.8, 1.2]."""
+    x = np.linspace(0, 1, N_P, endpoint=False)
+    y0 = np.tile((0.5 + 0.3 * np.sin(2 * np.pi * x)).astype(np.float32),
+                 (B, 1))
+    return y0, np.linspace(0.8, 1.2, B).astype(np.float32)[:, None]
 
 
 def _inputs():
@@ -260,7 +291,80 @@ def test_grid_wrappers_accept_block_members():
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events", "params", "dense"])
+PARAMS_KW = dict(rtol=1e-5, atol=1e-8, first_step=0.005)
+
+
+def test_params_match_jax_kernel():
+    """B4's plain version with a growth rate a member (``params`` (B, 1),
+    ``p`` (1, B) in the torch function) against the JAX kernel's fixture
+    on the same members: status, nsteps and nfev identical (first_step
+    given), max |dy| measured 2.6e-5 (the controller's pow parts last bits
+    of h), gate 6e-5."""
+    y0, r = fisher_p_inputs()
+    np.testing.assert_array_equal(y0, FIXTURE["erk_params/y0"])
+    np.testing.assert_array_equal(r, FIXTURE["erk_params/params"])
+    y, st, ns, nf = (x.numpy() for x in fused_erk_grid_reference(
+        FISHER_P, (0.0, 0.25), torch.tensor(y0), params=torch.tensor(r),
+        **PARAMS_KW))
+    assert np.all(st == 1)
+    np.testing.assert_array_equal(st, FIXTURE["erk_params/1"])
+    np.testing.assert_array_equal(ns, FIXTURE["erk_params/2"])
+    np.testing.assert_array_equal(nf, FIXTURE["erk_params/3"])
+    assert np.max(np.abs(y - FIXTURE["erk_params/0"])) <= 6e-5
+
+
+def test_params_wrapper_on_cpu_and_a_baked_rate():
+    """On CPU tensors the wrapper with ``params`` runs the plain version
+    (bit for bit, no launch counted), and a member's rate bound as params
+    equals the same rate baked into the function, member by member."""
+    y0, r = fisher_p_inputs()
+    y0, r = torch.tensor(y0), torch.tensor(r)
+    before = solve_fused_erk_grid.launches
+    out = solve_fused_erk_grid(FISHER_P, (0.0, 0.25), y0, params=r,
+                               **PARAMS_KW)
+    ref = fused_erk_grid_reference(FISHER_P, (0.0, 0.25), y0, params=r,
+                                   **PARAMS_KW)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert solve_fused_erk_grid.launches == before
+    for m in (0, B - 1):
+        rate = r[m:m + 1, 0]
+        one = fused_erk_grid_reference(
+            lambda t, y: fisher_p(t, y, rate[None]), (0.0, 0.25),
+            y0[m:m + 1], **PARAMS_KW)
+        got = fused_erk_grid_reference(FISHER_P, (0.0, 0.25), y0[m:m + 1],
+                                       params=r[m:m + 1], **PARAMS_KW)
+        for a, b in zip(got, one):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(), r"pass params of shape \(B, 1\)"),
+    (dict(params=np.ones((B - 1, 1), np.float32)), r"params must be \(B, k\)"),
+    (dict(params=np.ones((B, 2), np.float32)), "k = 1")])
+def test_params_checked_against_the_rhs(kw, match):
+    """``params`` must be (B, k) with the FusedGridRHS's k, as the JAX
+    kernel and B1 check it."""
+    y0, _ = fisher_p_inputs()
+    with pytest.raises(ValueError, match=match):
+        solve_fused_erk_grid(FISHER_P, (0.0, 0.25), torch.tensor(y0), **kw)
+
+
+@pytest.mark.parametrize("fun", ["acc", "class"])
+def test_params_k_read_from_the_two_rhs_classes_only(fun):
+    """Only a FusedRHS or a FusedGridRHS says how many parameters it takes:
+    another of the port's right-hand-side objects, or the FusedGridRHS
+    class itself, is not read for k, so that the wrapper's own type check
+    (TypeError on the card) speaks, not an AttributeError."""
+    from extensisq_tpu_torch.ops.fused_erk import member_params
+    from extensisq_tpu_torch.ops.fused_rkn_grid import FusedGridAcc
+    obj = (FusedGridAcc(lambda t, u, v: u, "", 4) if fun == "acc"
+           else FusedGridRHS)
+    p = torch.ones(B, 3)
+    assert member_params(p, torch.zeros(B, 4), obj) is p
+
+
+@pytest.mark.parametrize("option", ["t_eval", "events", "dense"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_fused_erk_grid(RHS["fisher"], (0.0, 1.0), torch.tensor(FIS0),
@@ -275,6 +379,10 @@ def test_generated_header_carries_the_grid_and_stub():
     assert f"using G = grid::Grid<{N}>;" in text
     assert "constexpr bool RKN = false;" in text
     assert RHS["fisher"].cuda_src in text and "float acc(" in text
+    assert "constexpr int NPAR = 0;" in text
+    assert "constexpr int NPAR = 1;" in _build.fused_rk_grid_header(
+        _fused_consts(BS5), False, FISHER_P.shape, FISHER_P.cuda_src,
+        FISHER_P.k)
 
 
 @pytest.fixture
@@ -356,6 +464,31 @@ def test_rule_shapes_bit_identical_to_block_of_32_on_card(cuda, name):
     solve_fused_erk_grid(fun, span, y0, method=method, **kw)
     assert solve_fused_erk_grid.last_shape == rule
     assert solve_fused_erk_grid.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_params_kernel_matches_plain_version_on_card(cuda):
+    """B4 with params on the card against its plain version there: status
+    and counts equal where the step sequences allow, |dy| within the
+    fisher_h0 gate; the warp body bit for bit the block of 32."""
+    from extensisq_tpu_torch.ops import fused_erk_grid as FKG
+    y0, r = (torch.tensor(x, device=cuda) for x in fisher_p_inputs())
+    before = solve_fused_erk_grid.launches
+    k = solve_fused_erk_grid(FISHER_P, (0.0, 0.25), y0, params=r,
+                             **PARAMS_KW)
+    assert solve_fused_erk_grid.launches == before + 1
+    ref = fused_erk_grid_reference(FISHER_P, (0.0, 0.25), y0, params=r,
+                                   **PARAMS_KW)
+    assert torch.equal(k[1], ref[1])
+    assert (k[0] - ref[0]).abs().max().item() <= CARD_GATES["fisher_h0"]
+    built = FKG._kernel(None, FISHER_P)
+    block, _ = FKG._launch(built, (0.0, 0.25), y0, N_P, shape=(32, 0),
+                           params=r, **PARAMS_KW)
+    warp, _ = FKG._launch(built, (0.0, 0.25), y0, N_P,
+                          shape=(32, FKG.WARP_MEMBERS), params=r,
+                          **PARAMS_KW)
+    for a, b in zip(warp, block):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("members,n,shape", [

@@ -1,10 +1,11 @@
 """The port's fused ESDIRK path against the JAX package's Pallas kernel.
 
 ``fused_esdirk_reference`` (the CUDA kernel's plain PyTorch version) runs
-on the CPU; the JAX side runs ``solve_fused_esdirk(..., interpret=True)``
-as the JAX package's own tests run it, on the same seeded inputs, in one
-subprocess with ``XLA_FLAGS=--xla_cpu_max_isa=SSE4_2`` so that XLA, like
-PyTorch's CPU operations, rounds every product on its own (no FMA).  What
+on the CPU; the JAX side is ``solve_fused_esdirk(..., interpret=True)``
+as the JAX package's own tests run it, on the same seeded inputs, without
+FMA (``XLA_FLAGS=--xla_cpu_max_isa=SSE4_2``, so that XLA, like PyTorch's
+CPU operations, rounds every product on its own), its outputs written to
+``tests/jax_fused_esdirk.npz`` by ``tests/jax_fused_esdirk.py``.  What
 remains between the two is the round-off of ``pow`` (``exp(e log x)`` in
 the JAX kernel), of the starting step's ``log10``/``pow`` and of the two
 libraries' forward-mode derivatives, which the gates below allow for.
@@ -14,8 +15,6 @@ the f64 driver, here the port's ``solve_ensemble``.  The tests marked
 ``gpu`` hold the CUDA kernel against the plain version on the card; they
 skip where there is none.
 """
-import sys
-import textwrap
 import warnings
 from pathlib import Path
 
@@ -30,9 +29,6 @@ from extensisq_tpu_torch.ops import fused_esdirk as FE
 from extensisq_tpu_torch.ops.fused_sens import _aug_rhs
 from extensisq_tpu_torch.steppers import build_stepper
 from extensisq_tpu_torch.types import IVPParams
-
-sys.path.insert(0, str(Path(__file__).resolve().parent))
-from jax_reference import run_jax  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 B = 128
@@ -199,78 +195,21 @@ CASES = {
                     M_HIDDEN, dict(rtol=1e-4, atol=1e-6)),
 }
 
-_JAX_SCRIPT = textwrap.dedent("""
-    import json, sys
-    import numpy as np
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    import jax.numpy as jnp
-    import extensisq_tpu as X
-    from extensisq_tpu.ops.fused_esdirk import solve_fused_esdirk
-    inputs = np.load(sys.argv[1])
-    A, Binv = inputs["hid/A"], inputs["hid/Binv"]
-
-    def rob(t, y):
-        r1 = -0.04 * y[0] + 1e4 * y[1] * y[2]
-        r3 = 3e7 * y[1] * y[1]
-        return jnp.stack([r1, -r1 - r3, r3])
-
-    def pend(t, s):
-        return jnp.stack([s[2], s[3], -s[4] * s[0], -s[4] * s[1] - 9.81,
-                          s[2] * s[2] + s[3] * s[3]
-                          - s[4] * (s[0] * s[0] + s[1] * s[1])
-                          - 9.81 * s[1]])
-
-    def kaps_hidden(t, z):
-        y0 = Binv[0, 0] * z[0] + Binv[0, 1] * z[1]
-        y1 = Binv[1, 0] * z[0] + Binv[1, 1] * z[1]
-        f0 = -y0 + y1 * y1
-        f1 = y0 - y1 - y1 * y1
-        return jnp.stack([A[0, 0] * f0 + A[0, 1] * f1,
-                          A[1, 0] * f0 + A[1, 1] * f1])
-
-    problems = {"rob": rob, "pend": pend, "kaps_hidden": kaps_hidden}
-    out = {}
-    for name, (prob, meth, span, has_yp, M, kw) in json.loads(
-            sys.argv[2]).items():
-        res = solve_fused_esdirk(
-            problems[prob], tuple(span), inputs[name + "/y0"],
-            method=getattr(X, meth),
-            M=None if M is None else np.asarray(M),
-            yp0_batch=inputs[name + "/yp0"] if has_yp else None,
-            block_members=128, interpret=True, **kw)
-        for i, r in enumerate(res):
-            out[f"{name}/{i}"] = np.asarray(r)
-    np.savez(sys.argv[3], **out)
-""")
-
-
 @pytest.fixture(scope="module")
-def jax_results(tmp_path_factory):
-    """The JAX kernel's outputs for every case: the cases without params
-    from one subprocess; the params cases from
-    ``tests/jax_fused_esdirk_params.npz``, which
-    ``tests/jax_fused_esdirk_params.py`` writes from the JAX package
-    (interpret mode compiles the ``block_base`` case for ~40 s), its
-    inputs held equal to these."""
-    d = tmp_path_factory.mktemp("jax_fused_esdirk")
-    arrays = {"hid/A": HID_A, "hid/Binv": HID_BINV}
-    spec = {}
-    for name, (prob, meth, span, y0, yp0, M, kw) in CASES.items():
-        arrays[name + "/y0"] = y0
+def jax_results():
+    """The JAX kernel's outputs for every case, from
+    ``tests/jax_fused_esdirk.npz``, which ``tests/jax_fused_esdirk.py``
+    writes from the JAX package (interpret mode takes ~1.5 min for these
+    cases), its inputs held equal to these."""
+    rec = np.load(Path(__file__).resolve().parent / "jax_fused_esdirk.npz")
+    for name, case in {**CASES, **PARAM_CASES}.items():
+        y0, yp0 = case[3], case[4]
+        np.testing.assert_array_equal(rec[name + "/y0"], y0)
         if yp0 is not None:
-            arrays[name + "/yp0"] = yp0
-        spec[name] = [prob, meth, span, yp0 is not None,
-                      None if M is None else np.asarray(M).tolist(), kw]
-    np.savez(d / "in.npz", **arrays)
-    out = dict(run_jax(_JAX_SCRIPT, d, [spec]))
-    rec = np.load(Path(__file__).resolve().parent
-                  / "jax_fused_esdirk_params.npz")
-    for name in PARAM_CASES:
-        np.testing.assert_array_equal(rec[name + "/y0"], PARAM_CASES[name][3])
-        np.testing.assert_array_equal(rec[name + "/params"], PARAMS[name])
-        out.update({f"{name}/{i}": rec[f"{name}/{i}"] for i in range(4)})
-    return {k: tuple(out[f"{k}/{i}"] for i in range(4))
+            np.testing.assert_array_equal(rec[name + "/yp0"], yp0)
+        if name in PARAMS:
+            np.testing.assert_array_equal(rec[name + "/params"], PARAMS[name])
+    return {k: tuple(rec[f"{k}/{i}"] for i in range(4))
             for k in list(CASES) + list(PARAM_CASES)}
 
 

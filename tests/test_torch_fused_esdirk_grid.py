@@ -3,9 +3,10 @@ Pallas kernel and the port's f64 driver.
 
 ``fused_esdirk_grid_reference`` (the CUDA kernel's plain PyTorch version:
 B2's loop with the striped-JVP bands and cyclic reduction) runs on the CPU;
-the JAX side runs ``solve_fused_esdirk_grid(..., interpret=True)`` on the
-same seeded members, in one subprocess without FMA
-(``XLA_FLAGS=--xla_cpu_max_isa=SSE4_2``, see ``test_torch_fused_erk.py``).
+the JAX side is ``solve_fused_esdirk_grid(..., interpret=True)`` on the
+same seeded members without FMA (``XLA_FLAGS=--xla_cpu_max_isa=SSE4_2``,
+see ``test_torch_fused_erk.py``), its outputs written to
+``tests/jax_fused_esdirk_grid.npz`` by ``tests/jax_fused_esdirk_grid.py``.
 The periodic cases take n = 128, which the JAX kernel runs unpadded; the
 strictly tridiagonal ones take n = 32, which it pads to 128 inert lanes
 and the port takes as it is (the reduction's wrapped couplings are zero
@@ -17,14 +18,17 @@ margin.  Config 4d's shapes (32 reaction-diffusion members of n = 128 with
 Kv3I) are held against the port's f64 driver, with the gates of the JAX
 tests (``tests/test_fused_pallas.py:957-1039``).
 
+Per-member ``params`` (JAX's edge-replicated reaction-diffusion with its
+rate k and diffusivity D a member, n = 64) are held to the JAX kernel's
+outputs in ``tests/jax_fused_sens_grid.npz`` (``tests/jax_fused_sens_grid.py``),
+and the simultaneous corrector's parts (``block_base``: the base block's
+bands, the block-cyclic reduction, JAX's guard rails) to their
+definitions; ``tests/test_torch_fused_sens.py`` holds the whole
+``block_base`` solve to the JAX fixture.
+
 The tests marked ``gpu`` hold the CUDA kernel against its plain version on
 the card; they skip where there is none.
 """
-import json
-import os
-import subprocess
-import sys
-import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +42,7 @@ from extensisq_tpu_torch.ops.fused_esdirk_grid import (jac_bands, pcr_factor,
                                                        pcr_solve)
 
 REPO = Path(__file__).resolve().parents[1]
+FIXTURE = np.load(REPO / "tests" / "jax_fused_sens_grid.npz")
 B = 8
 N = 128             # config 4d's width (validation/benchmarks.py:463-502)
 N_SMALL = 32        # strictly tridiagonal cases
@@ -109,6 +114,36 @@ __device__ T rhs(T t, const T* y, int i, const float* p) {{
          + y[i] * y[i] * y[i];
 }}"""
 
+N_P = 64            # the params and sensitivity cases
+
+
+def rd_p(t, y, p):
+    """JAX's edge-replicated reaction-diffusion (``tests/test_fused_sens.py``
+    ``rd_g``), rows-first, with k = p[0] and D = p[1] a member."""
+    left = torch.cat([y[:1], y[:-1]])
+    right = torch.cat([y[1:], y[-1:]])
+    return (left - 2.0 * y + right) * p[1] - p[0] * (y - 1.0)
+
+
+# its CUDA source in the sensitivities' template form (ops/fused_sens.py),
+# which B7 with params runs as rhs<float, const float*> and, for the
+# bands, rhs<Dual, const Dual*>
+RD_P = FusedGridRHS(rd_p, f"""template <class T, class V>
+__device__ T rhs(T t, V y, int i, const T* p) {{
+  const T left = y[i > 0 ? i - 1 : 0];
+  const T right = y[i < {N_P - 1} ? i + 1 : {N_P - 1}];
+  return (left - 2.0f * y[i] + right) * p[1] - p[0] * (y[i] - 1.0f);
+}}""", (N_P,), 2)
+
+
+def rd_p_inputs():
+    """8 members from y0 = 1 + 0.5 sin(pi x), k in [5, 30], D = 200."""
+    x = np.linspace(0, 1, N_P)
+    y0 = np.tile((1.0 + 0.5 * np.sin(np.pi * x)).astype(np.float32), (B, 1))
+    return y0, np.stack([np.linspace(5.0, 30.0, B).astype(np.float32),
+                         np.full(B, 200.0, np.float32)], axis=1)
+
+
 RHS = {
     "rdiff": FusedGridRHS(rdiff(N), rdiff_cuda(N), (N,)),
     "dae": FusedGridRHS(dae, DAE_CUDA, (N,)),
@@ -157,51 +192,6 @@ CASES = {
 # the first attempts of a case, bit for bit: name -> (case, max_steps)
 FIRST = {"rd_h0_2": ("rd_h0", 2)}
 
-_JAX_SCRIPT = textwrap.dedent(f"""
-    import json, sys
-    import numpy as np
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    import jax.numpy as jnp
-    from extensisq_tpu import Kv3I, TRBDF2
-    from extensisq_tpu.ops import solve_fused_esdirk_grid
-
-    def dae(t, y):
-        mask = (jax.lax.broadcasted_iota(jnp.int32, y.shape, 1)
-                % 2 == 0).astype(jnp.float32)
-        return mask * (-y) + (1.0 - mask) * (jnp.roll(y, 1, -1) - y)
-
-    def shift(y, s):
-        z = jnp.zeros_like(y[:, :1])
-        return (jnp.concatenate([z, y[:, :-1]], axis=1) if s > 0
-                else jnp.concatenate([y[:, 1:], z], axis=1))
-
-    problems = {{
-        "rdiff": lambda t, y: ((jnp.roll(y, 1, -1) + jnp.roll(y, -1, -1)
-                                - 2.0 * y) * {float(N * N)!r}
-                               + y * y * (1.0 - y)),
-        "dae": dae,
-        "skew": lambda t, y: -(shift(y, -1) - shift(y, 1))
-                             * {0.5 * N_SMALL!r},
-    }}
-    methods = {{"Kv3I": Kv3I, "TRBDF2": TRBDF2}}
-    inputs = np.load(sys.argv[1])
-    m_dae = np.asarray(json.loads(sys.argv[4]))
-    out = {{}}
-    for name, (prob, meth, span, y0, kw) in json.loads(sys.argv[2]).items():
-        kw = dict(kw)
-        if "M" in kw:
-            kw["M"] = m_dae
-            kw["yp0_batch"] = inputs[kw.pop("yp0")]
-        res = solve_fused_esdirk_grid(problems[prob], tuple(span),
-                                      inputs[y0], method=methods[meth],
-                                      block_members=8, interpret=True, **kw)
-        for i, r in enumerate(res):
-            out[f"{{name}}/{{i}}"] = np.asarray(r)
-    np.savez(sys.argv[3], **out)
-""")
-
-
 def _spec():
     spec = {k: list(v) for k, v in CASES.items()}
     for name, (case, attempts) in FIRST.items():
@@ -211,18 +201,17 @@ def _spec():
 
 
 @pytest.fixture(scope="module")
-def jax_results(tmp_path_factory):
-    """The JAX kernel's outputs for every case, from one subprocess."""
-    d = tmp_path_factory.mktemp("jax_fused_esdirk_grid")
-    np.savez(d / "in.npz", **Y0)
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_cpu_max_isa=SSE4_2", PYTHONPATH=str(REPO))
-    subprocess.run([sys.executable, "-c", _JAX_SCRIPT, str(d / "in.npz"),
-                    json.dumps(_spec()), str(d / "out.npz"),
-                    json.dumps(M_DAE.tolist())],
-                   cwd=REPO, env=env, check=True, timeout=600)
-    out = np.load(d / "out.npz")
-    return {k: tuple(out[f"{k}/{i}"] for i in range(4)) for k in _spec()}
+def jax_results():
+    """The JAX kernel's outputs for every case, from
+    ``tests/jax_fused_esdirk_grid.npz``, which
+    ``tests/jax_fused_esdirk_grid.py`` writes from the JAX package
+    (interpret mode takes ~1.5 min for these cases), its inputs held
+    equal to these."""
+    rec = np.load(REPO / "tests" / "jax_fused_esdirk_grid.npz")
+    for k, v in Y0.items():
+        np.testing.assert_array_equal(rec["y0/" + k], v)
+    np.testing.assert_array_equal(rec["M_DAE"], M_DAE)
+    return {k: tuple(rec[f"{k}/{i}"] for i in range(4)) for k in _spec()}
 
 
 def _options(kw):
@@ -404,17 +393,105 @@ def test_cpu_wrapper_runs_plain_version():
     assert solve_fused_esdirk_grid.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events", "params", "dense"])
+@pytest.mark.parametrize("option", ["t_eval", "events", "dense"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
         solve_fused_esdirk_grid(RHS["rdiff"], (0.0, 1.0),
                                 torch.tensor(Y0["rdiff"]), **{option: 1})
 
 
-def test_block_base_raises_naming_a16():
-    with pytest.raises(NotImplementedError, match="A16"):
-        solve_fused_esdirk_grid(RHS["rdiff"], (0.0, 1.0),
-                                torch.tensor(Y0["rdiff"]), block_base=64)
+PARAMS_SPAN = (0.0, 0.04)
+PARAMS_KW = dict(method=Kv3I, rtol=1e-5, atol=1e-8)
+
+
+def test_params_match_jax_kernel():
+    """B7's plain version with (k, D) a member against the JAX kernel's
+    fixture (n = 64, which the JAX kernel pads to 128 inert lanes): status
+    and nsteps identical, nfev apart on at most one member by one Newton
+    iteration (measured: 1), max |dy| measured 3.6e-7, gate 1e-6."""
+    y0, P = rd_p_inputs()
+    np.testing.assert_array_equal(y0, FIXTURE["esdirk_params/y0"])
+    np.testing.assert_array_equal(P, FIXTURE["esdirk_params/params"])
+    y, st, ns, nf = (x.numpy() for x in fused_esdirk_grid_reference(
+        RD_P, PARAMS_SPAN, torch.tensor(y0), params=torch.tensor(P),
+        **PARAMS_KW))
+    assert np.all(st == 1)
+    np.testing.assert_array_equal(st, FIXTURE["esdirk_params/1"])
+    np.testing.assert_array_equal(ns, FIXTURE["esdirk_params/2"])
+    dfev = np.abs(nf - FIXTURE["esdirk_params/3"])
+    assert dfev.max() <= 1 and np.sum(dfev != 0) <= 1
+    assert np.max(np.abs(y - FIXTURE["esdirk_params/0"])) <= 1e-6
+
+
+def test_params_wrapper_on_cpu_and_checks():
+    """On CPU tensors the wrapper with ``params`` runs the plain version
+    bit for bit and counts no launch; ``params`` must agree with the
+    FusedGridRHS's k."""
+    y0, P = (torch.tensor(x) for x in rd_p_inputs())
+    kw = dict(PARAMS_KW, first_step=1e-3, max_steps=4)
+    before = solve_fused_esdirk_grid.launches
+    for a, b in zip(solve_fused_esdirk_grid(RD_P, PARAMS_SPAN, y0, params=P,
+                                            **kw),
+                    fused_esdirk_grid_reference(RD_P, PARAMS_SPAN, y0,
+                                                params=P, **kw)):
+        assert torch.equal(a, b)
+    assert solve_fused_esdirk_grid.launches == before
+    with pytest.raises(ValueError, match="k = 2"):
+        solve_fused_esdirk_grid(RD_P, PARAMS_SPAN, y0, params=P[:, :1])
+    with pytest.raises(ValueError, match=r"pass params of shape \(B, 2\)"):
+        solve_fused_esdirk_grid(RD_P, PARAMS_SPAN, y0)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(M=np.ones(64), block_base=32), "M=None"),
+    (dict(block_base=48), "divide")])
+def test_block_base_guard_rails(kw, match):
+    """JAX's guard rails of the simultaneous corrector
+    (``tests/test_fused_sens.py``): a mass matrix with ``block_base``, and
+    a ``block_base`` that does not divide n, raise ValueError naming them,
+    before anything runs."""
+    with pytest.raises(ValueError, match=match):
+        solve_fused_esdirk_grid(lambda t, y: -y, (0.0, 1.0),
+                                np.ones((8, 64), np.float32), **kw)
+
+
+def test_block_cyclic_reduction_solves_each_block():
+    """``pcr_solve`` with a factor of nb rows on kb nb rows solves
+    block-diag(W, ..., W), each block bit for bit as the factor's own
+    solve, and each within the dense solve's tolerance."""
+    rng = np.random.RandomState(3)
+    nb, kb = 20, 3
+    lo, up = rng.randn(2, nb, 2)
+    lo[0] = 0.0
+    up[-1] = 0.0
+    di = 4.0 + rng.rand(nb, 2)
+    fact = pcr_factor(*(torch.tensor(a, dtype=torch.float32)
+                        for a in (lo, di, up)))
+    d = torch.tensor(rng.randn(kb * nb, 2), dtype=torch.float32)
+    x = pcr_solve(fact, d)
+    assert x.shape == d.shape
+    for b in range(kb):
+        rows = slice(b * nb, (b + 1) * nb)
+        assert torch.equal(x[rows], pcr_solve(fact, d[rows]))
+        W = np.diag(di[:, 0]) + np.diag(lo[1:, 0], -1) + np.diag(up[:-1, 0], 1)
+        xe = np.linalg.solve(W, d[rows, 0].numpy())
+        assert np.max(np.abs(x[rows, 0].numpy() - xe)) < 5e-5
+
+
+def test_base_block_bands_are_the_users():
+    """With a base block the striped tangents lie on its columns: the bands
+    of the variational system's first block equal the bands of the user's
+    right-hand side bit for bit, nb rows each."""
+    from extensisq_tpu_torch.ops.fused_erk_grid import bind_grid_params
+    from extensisq_tpu_torch.ops.fused_sens import _aug_grid_rhs
+    y0, P = (torch.tensor(x) for x in rd_p_inputs())
+    aug = _aug_grid_rhs(RD_P, N_P, 2)
+    Y = torch.cat([y0, torch.randn(B, 2 * N_P)], 1).T.contiguous()
+    t = torch.zeros(B)
+    got = jac_bands(bind_grid_params(aug, P), t, Y, N_P)
+    want = jac_bands(bind_grid_params(RD_P, P), t, Y[:N_P].contiguous())
+    for a, b in zip(got, want):
+        assert a.shape == (N_P, B) and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("members,n,shape", [
@@ -441,6 +518,13 @@ def test_generated_header_carries_the_grid_and_rounds():
     assert RHS["rdiff"].cuda_src in text
     assert "constexpr int L = 6;" in _build.fused_esdirk_grid_header(
         _esdirk_consts(Kv3I), (37,), SKEW_CUDA)
+    assert "constexpr int NB = 128;" in text
+    assert "constexpr int NPAR = 0;" in text
+    block = _build.fused_esdirk_grid_header(_esdirk_consts(Kv3I), (192,),
+                                            RD_P.cuda_src, 2, 64)
+    assert "constexpr int NB = 64;" in block
+    assert "constexpr int L = 6;" in block
+    assert "constexpr int NPAR = 2;" in block
     assert [p.name for p in _build.shared_headers("fused_esdirk_grid")] == [
         "dual.cuh", "grid_common.cuh", "esdirk_control.cuh",
         "block_hstart.cuh", "block_rows.cuh", "rk_common.cuh",
@@ -543,6 +627,36 @@ def test_warp_body_bit_identical_to_block_of_32_on_card(cuda, name):
         assert ((warp[0][ok] - r[0][ok]).abs().max().item()
                 <= CARD_GATES[name])
     assert solve_fused_esdirk_grid.launches == before
+
+
+@pytest.mark.gpu
+def test_params_and_block_base_kernels_match_plain_versions_on_card(cuda):
+    """B7 with params, and in block_base mode on the reaction-diffusion's
+    variational system, against their plain versions on the card (status
+    equal, |dy| within the rd gates), each also on the warp body bit for
+    bit the block of 32."""
+    from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
+    from extensisq_tpu_torch.ops.fused_sens import _aug_grid_rhs
+    y0, P = (torch.tensor(x, device=cuda) for x in rd_p_inputs())
+    aug = _aug_grid_rhs(RD_P, N_P, 2)
+    Y = torch.cat([y0, torch.zeros(B, 2 * N_P, device=cuda)], 1)
+    for fun, ys, kw in (
+            (RD_P, y0, dict(PARAMS_KW, params=P)),
+            (aug, Y, dict(PARAMS_KW, method=TRBDF2, params=P,
+                          block_base=N_P))):
+        before = solve_fused_esdirk_grid.launches
+        k = solve_fused_esdirk_grid(fun, PARAMS_SPAN, ys, **kw)
+        assert solve_fused_esdirk_grid.launches == before + 1
+        r = fused_esdirk_grid_reference(fun, PARAMS_SPAN, ys, **kw)
+        assert torch.equal(k[1], r[1]) and bool((r[1] == 1).all())
+        assert (k[0] - r[0]).abs().max().item() <= CARD_GATES["rd_trbdf2"]
+        nb = kw.pop("block_base", None)
+        built = FEG._kernel(kw["method"], fun, nb)
+        block, _ = FEG._launch(built, PARAMS_SPAN, ys, shape=(32, 0), **kw)
+        warp, _ = FEG._launch(built, PARAMS_SPAN, ys,
+                              shape=(32, FEG.WARP_MEMBERS), **kw)
+        for a, c in zip(warp, block):
+            assert torch.equal(a, c)
 
 
 @pytest.mark.gpu

@@ -7,8 +7,14 @@ with ``block_base``), held to what the JAX package's
 of the fused primal, the f64 ``sens_forward`` and ``jacrev`` of the f64
 ``solve_final`` of the JAX package (one no-FMA subprocess, run while the
 port's cases run), the CVODES Robertson table and ``expm`` of a linear
-system.  The tests marked ``gpu`` run the kernels on the card against the
-plain versions; they skip where there is none.
+system.  The grid layout (``layout="grid"``, B4 and B7's simultaneous
+corrector) runs JAX's three grid cases (an analytic decay, a Fisher MoL
+and a stiff reaction-diffusion sweep) against the JAX package's fused
+outputs and f64 ``sens_forward`` in ``tests/jax_fused_sens_grid.npz``
+(``tests/jax_fused_sens_grid.py``), and the Fisher sweep also against
+central differences of B4 with params.  The tests marked ``gpu`` run the
+kernels on the card against the plain versions; they skip where there is
+none.
 """
 import sys
 import textwrap
@@ -20,11 +26,14 @@ import scipy.linalg as sl
 import torch
 
 from extensisq_tpu_torch import BS5, SSV2stab, TRBDF2
-from extensisq_tpu_torch.ops import (FusedRHS, solve_fused_adjoint,
-                                     solve_fused_erk, solve_fused_esdirk,
+from extensisq_tpu_torch.ops import (FusedGridRHS, FusedRHS,
+                                     solve_fused_adjoint, solve_fused_erk,
+                                     solve_fused_erk_grid, solve_fused_esdirk,
                                      solve_fused_final, solve_fused_sens)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+import test_torch_fused_erk_grid as TG  # noqa: E402
+import test_torch_fused_esdirk_grid as TEG  # noqa: E402
 from jax_reference import run_jax  # noqa: E402
 
 B = 128
@@ -252,13 +261,117 @@ def test_fused_sens_rejects_unsupported_family():
 
 @pytest.mark.parametrize("kw,error,match", [
     (dict(sens_y0=True), ValueError, "sens_y0 on the grid"),
-    (dict(), NotImplementedError, "A16")])
+    (dict(method=SSV2stab), ValueError, "family"),
+    (dict(fun=TG.FISHER_P), ValueError, r"shape \(2,\)")])
 def test_fused_sens_grid_layout_raises(kw, error, match):
-    """layout="grid": JAX's ValueError for sens_y0 first, then
-    NotImplementedError until params and block_base reach B4 and B7."""
+    """layout="grid": JAX's ValueError for sens_y0 before anything else
+    (even with the flat layout's FusedRHS), the families other than erk
+    and esdirk, and a FusedGridRHS whose shape is not the state's."""
     Y0, mus = _vdp_setup()
+    kw = dict(kw)
     with pytest.raises(error, match=match):
-        solve_fused_sens(VDP_P, SPAN, Y0, params=mus, layout="grid", **kw)
+        solve_fused_sens(kw.pop("fun", VDP_P), SPAN, Y0, params=mus,
+                         layout="grid", **kw)
+
+
+# -- the grid layout ---------------------------------------------------------
+GRID = np.load(Path(__file__).resolve().parent / "jax_fused_sens_grid.npz")
+DECAY_G = FusedGridRHS(lambda t, y, p: -p[0] * y, """template <class T, class V>
+__device__ T rhs(T t, V y, int i, const T* p) { return -p[0] * y[i]; }""",
+                       (32,), 1)
+
+
+def _grid_case(name, fun, span, **kw):
+    """The port's grid-layout sensitivities (plain versions) on case
+    ``name`` of the JAX fixture, its inputs checked equal to the tests'
+    own, and the fixture's outputs."""
+    y0 = GRID[name + "/y0"]
+    p = GRID[name + "/params"]
+    out = solve_fused_sens(fun, span, torch.tensor(y0),
+                           params=torch.tensor(p), layout="grid", **kw)
+    yf, Sp, Sy0, st, ns, nf = out
+    assert Sy0 is None and Sp.shape == (len(y0), y0.shape[1], p.shape[1])
+    jax = [GRID[f"{name}/{i}"] for i in (0, 1, 3, 4, 5)]
+    return [x.numpy() for x in (yf, Sp, st, ns, nf)], jax
+
+
+def test_fused_sens_grid_decay_analytic():
+    """JAX's analytic grid case (n = 32, a in [0.5, 1.5]) through B4's
+    plain version: y_f and S_a = -t y0 e^{-a t} within JAX's gates (5e-5
+    and 5e-4 relative; measured 2.4e-7 on both), the JAX kernel's counts
+    identical and its outputs within 4e-7 (measured 1.8e-7 and 2.4e-7)."""
+    y0 = np.tile(np.linspace(1.0, 2.0, 32, dtype=np.float32), (8, 1))
+    rates = np.linspace(0.5, 1.5, 8).astype(np.float32)[:, None]
+    np.testing.assert_array_equal(y0, GRID["sens_decay/y0"])
+    np.testing.assert_array_equal(rates, GRID["sens_decay/params"])
+    (yf, Sp, st, ns, nf), (jy, jS, jst, jns, jnf) = _grid_case(
+        "sens_decay", DECAY_G, (0.0, 1.0), rtol=1e-6, atol=1e-9)
+    assert np.all(st == 1)
+    ex = y0 * np.exp(-rates)
+    np.testing.assert_allclose(yf, ex, rtol=5e-5)
+    np.testing.assert_allclose(Sp[:, :, 0], -ex, rtol=5e-4)
+    for a, b in ((st, jst), (ns, jns), (nf, jnf)):
+        np.testing.assert_array_equal(a, b)
+    assert np.max(np.abs(yf - jy)) <= 4e-7
+    assert np.max(np.abs(Sp - jS)) <= 4e-7
+
+
+def test_fused_sens_grid_fisher_matches_jax_and_fd():
+    """JAX's Fisher grid case (n = 64, periodic upwind, r in [0.8, 1.2])
+    through B4's plain version on the variational system: against the JAX
+    kernel, status and nsteps identical, nfev apart on at most 4 members
+    by at most 14 (measured 2 members, 7: one rejected attempt), y_f within
+    1e-5 and S_p within 2e-6 (measured 5.1e-6 and 1.1e-6); against central
+    differences of B4 with params (eps 4e-3, rtol 1e-7 / atol 1e-10),
+    within JAX's 6e-3 of the largest |FD|."""
+    y0, r = TG.fisher_p_inputs()
+    np.testing.assert_array_equal(y0, GRID["sens_fisher/y0"])
+    np.testing.assert_array_equal(r, GRID["sens_fisher/params"])
+    (yf, Sp, st, ns, nf), (jy, jS, jst, jns, jnf) = _grid_case(
+        "sens_fisher", TG.FISHER_P, (0.0, 0.25), rtol=1e-5, atol=1e-8)
+    assert np.all(st == 1)
+    np.testing.assert_array_equal(st, jst)
+    np.testing.assert_array_equal(ns, jns)
+    assert np.max(np.abs(nf - jnf)) <= 14 and np.sum(nf != jnf) <= 4
+    assert np.max(np.abs(yf - jy)) <= 1e-5
+    assert np.max(np.abs(Sp - jS)) <= 2e-6
+    eps = np.float32(4e-3)
+    kw = dict(rtol=1e-7, atol=1e-10)
+    y0t = torch.tensor(y0)
+    yp = solve_fused_erk_grid(TG.FISHER_P, (0.0, 0.25), y0t,
+                              params=torch.tensor(r + eps), **kw)[0]
+    ym = solve_fused_erk_grid(TG.FISHER_P, (0.0, 0.25), y0t,
+                              params=torch.tensor(r - eps), **kw)[0]
+    fd = ((yp - ym) / (2 * eps)).numpy()
+    assert np.max(np.abs(Sp[:, :, 0] - fd)) < 6e-3 * np.abs(fd).max()
+
+
+def test_fused_sens_grid_esdirk_matches_jax_and_f64():
+    """JAX's stiff grid case (the edge-replicated reaction-diffusion, n =
+    64, k in [5, 30], D = 200: three blocks) through B7's simultaneous
+    corrector (``block_base=n``) with TRBDF2: against the JAX kernel,
+    status and counts identical, y_f within 1e-6 and S_p within 1e-8
+    (measured 3.6e-7 and 3.7e-9); members 0 and 7 against the JAX
+    package's f64 sens_forward within JAX's gates, |dy| 2e-5 and each
+    column of S_p within 3e-3 of its largest entry."""
+    y0, P = TEG.rd_p_inputs()
+    np.testing.assert_array_equal(y0, GRID["sens_rd/y0"])
+    np.testing.assert_array_equal(P, GRID["sens_rd/params"])
+    (yf, Sp, st, ns, nf), (jy, jS, jst, jns, jnf) = _grid_case(
+        "sens_rd", TEG.RD_P, (0.0, 0.04), method=TRBDF2, rtol=1e-5,
+        atol=1e-8)
+    assert np.all(st == 1)
+    for a, b in ((st, jst), (ns, jns), (nf, jnf)):
+        np.testing.assert_array_equal(a, b)
+    assert np.max(np.abs(yf - jy)) <= 1e-6
+    assert np.max(np.abs(Sp - jS)) <= 1e-8
+    for b in (0, 7):
+        ref_y = GRID[f"sens_rd_f64/{b}/yf"]
+        ref_S = GRID[f"sens_rd_f64/{b}/sensf"]
+        assert np.max(np.abs(yf[b] - ref_y)) < 2e-5
+        for j in range(2):
+            sc = max(np.abs(ref_S[:, j]).max(), 1e-12)
+            assert np.max(np.abs(Sp[b, :, j] - ref_S[:, j])) < 3e-3 * sc
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -317,3 +430,42 @@ def test_sens_kernels_match_plain_versions_on_card(cuda):
                                rtol=1e-4, atol=1e-8)
     assert torch.equal(st, r[1])
     assert (yf - r[0][:, :3]).abs().max().item() <= 5e-5
+
+
+@pytest.mark.gpu
+def test_sens_grid_kernels_match_plain_versions_on_card(cuda):
+    """solve_fused_sens(layout="grid") on CUDA tensors (one launch of B4, or
+    of B7 in block_base mode) against the same call on the plain versions
+    on the card: status equal, y_f and S_p within the grid kernels' card
+    gates (test_torch_fused_erk_grid.py, test_torch_fused_esdirk_grid.py);
+    a bare callable raises TypeError, as the grid wrappers do."""
+    from extensisq_tpu_torch.ops import (fused_erk_grid_reference,
+                                         fused_esdirk_grid_reference,
+                                         solve_fused_esdirk_grid)
+    from extensisq_tpu_torch.ops.fused_sens import _aug_grid_rhs
+    cases = [(TG.FISHER_P, TG.fisher_p_inputs(), (0.0, 0.25), {},
+              solve_fused_erk_grid, fused_erk_grid_reference,
+              TG.CARD_GATES["fisher_h0"]),
+             (TEG.RD_P, TEG.rd_p_inputs(), (0.0, 0.04),
+              dict(method=TRBDF2, block_base=TEG.N_P),
+              solve_fused_esdirk_grid, fused_esdirk_grid_reference,
+              TEG.CARD_GATES["rd_trbdf2"])]
+    for fun, (y0, p), span, extra, wrapper, plain, gate in cases:
+        y0, p = (torch.tensor(x, device=cuda) for x in (y0, p))
+        n, k = y0.shape[1], p.shape[1]
+        kw = dict(rtol=1e-5, atol=1e-8)
+        before = wrapper.launches
+        yf, Sp, Sy0, st, ns, nf = solve_fused_sens(
+            fun, span, y0, params=p, layout="grid",
+            method=extra.get("method"), **kw)
+        assert wrapper.launches == before + 1 and Sy0 is None
+        Y0 = torch.cat([y0, torch.zeros(len(y0), n * k, device=cuda)], 1)
+        r = plain(_aug_grid_rhs(fun, n, k), span, Y0, params=p, **extra,
+                  **kw)
+        assert torch.equal(st, r[1]) and bool((st == 1).all())
+        ref_S = r[0][:, n:].reshape(-1, k, n).transpose(1, 2)
+        assert (yf - r[0][:, :n]).abs().max().item() <= gate
+        assert (Sp - ref_S).abs().max().item() <= gate
+        with pytest.raises(TypeError, match="FusedGridRHS"):
+            solve_fused_sens(fun.torch_fn, span, y0, params=p,
+                             layout="grid", method=extra.get("method"), **kw)

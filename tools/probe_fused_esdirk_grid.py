@@ -9,8 +9,9 @@ reaction-diffusion, y0 = 0.5 + 0.4 amps sin(2 pi x) with amps in [0.3,
 of --sizes.  The kernel of --old-src (a directory holding an earlier
 fused_esdirk_grid.cu with the headers it includes; its launch signature
 is read from the source: ``..., threads, stream`` for one block a member,
-or ``..., threads, warp_members, stream``) at each block size of
---old-threads (and its warp at each P of --old-warp, where it has the
+or ``..., threads, warp_members, stream``, and whether it takes a
+``params`` pointer, which the probe's lines leave null) at each block size
+of --old-threads (and its warp at each P of --old-warp, where it has the
 warp body) and the current kernel at each shape of --shapes are timed in
 turns (old, each shape, the same in reverse, old) with CUDA events around
 the launch alone.  A shape is ``b<T>``, one block of T threads a member,
@@ -101,12 +102,14 @@ BUILDS = {"rdiff Kv3I": ("rdiff", Kv3I), "rdiff TRBDF2": ("rdiff", TRBDF2),
 
 def build_b7(src_dir, header, tag, flags=()):
     b = build(src_dir, "fused_esdirk_grid", header, f"b7_{tag}", flags)
-    b["warp"] = "warp_members" in launch_signature(src_dir,
-                                                   "fused_esdirk_grid")
+    sig = launch_signature(src_dir, "fused_esdirk_grid")
+    b["warp"] = "warp_members" in sig
+    b["params"] = "params" in sig
     V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib = b["lib"]
     lib.fused_esdirk_grid_launch.argtypes = (
-        [V] * 7 + [I, F, F, F, F, F, I, I, F, I, F, I, I]
+        [V] * (8 if b["params"] else 7)
+        + [I, F, F, F, F, F, I, I, F, I, F, I, I]
         + ([I] if b["warp"] else []) + [V])
     lib.fused_esdirk_grid_launch.restype = I
     if flags:
@@ -138,7 +141,8 @@ def launch(b, span, y0, shape, M=None, yp0=None, rtol=1e-4, atol=1e-6,
     h0 = (np.float32(first_step) if first_step is not None
           else np.float32(0.01) * abs(tf - t0))
     args = [y0.data_ptr(), None if yp0 is None else yp0.data_ptr(),
-            None if mass is None else mass.data_ptr(), y.data_ptr(),
+            None if mass is None else mass.data_ptr(),
+            *([None] if b["params"] else []), y.data_ptr(),
             *[x.data_ptr() for x in ints], nb, float(t0), float(tf),
             float(rtol), float(atol), float(h0),
             int(first_step is None and M is None), int(yp0 is not None),

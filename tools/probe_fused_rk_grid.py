@@ -20,7 +20,8 @@ each at every member count of --sizes.  The kernel of --old-src (a
 directory holding an earlier fused_rk_grid.cu with the headers it
 includes; its launch signature is read from the source: ``..., threads,
 stream`` for one block a member, or ``..., threads, warp_members,
-stream``) at each shape of --old-threads (block sizes, or ``w<P>`` where
+stream``, and whether it takes a ``params`` pointer, which the probe's
+lines leave null) at each shape of --old-threads (block sizes, or ``w<P>`` where
 the old build runs the family's warp) and the current kernel at each shape
 of --shapes (``b<T>``: one block of T threads a member; ``w<P>``: one
 warp a member, P members a block) are timed in turns (old, each shape, the
@@ -63,7 +64,8 @@ import numpy as np
 import torch
 
 import chip_smoke as CS
-from _probe import build, card, launch_signature, ptxas_lines, turns, write_out
+from _probe import (build, card, launch_signature, ptxas_lines, sass_ops,
+                    turns, write_out)
 from extensisq_tpu_torch import BS5, Fi5N
 from extensisq_tpu_torch.ops import FusedGridRHS, _build
 from extensisq_tpu_torch.ops import fused_erk as FK
@@ -109,17 +111,31 @@ def y0_of(family, members, n):
 
 def build_rk(src_dir, hdr, tag, flags=()):
     b = build(src_dir, "fused_rk_grid", hdr, f"rk_{tag}", flags)
-    b["warp"] = "warp_members" in launch_signature(src_dir, "fused_rk_grid")
+    sig = launch_signature(src_dir, "fused_rk_grid")
+    b["warp"] = "warp_members" in sig
+    b["params"] = "params" in sig
     V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib = b["lib"]
     lib.fused_rk_grid_launch.argtypes = (
-        [V] * 5 + [I] + [F] * 6 + [I, F, I, I, I]
+        [V] * (6 if b["params"] else 5) + [I] + [F] * 6 + [I, F, I, I, I]
         + ([I] if b["warp"] else []) + [V])
     lib.fused_rk_grid_launch.restype = I
     if "-DFUSED_RK_GRID_SECTIONS" in flags:
         lib.fused_rk_grid_sections.argtypes = [V]
         lib.fused_rk_grid_sections.restype = I
     return b
+
+
+def sass_same(old, new):
+    """Whether two builds' kernels have the same SASS opcodes, kernel by
+    kernel (their mangled names differ where the launch's parameters do),
+    and each build's total instruction count."""
+    counts = [sass_ops(b["so"]) for b in (old, new)]
+    if any(isinstance(c, str) for c in counts):
+        return counts[0], None
+    keys = [sorted(sorted(c.items()) for c in cs.values()) for cs in counts]
+    return keys[0] == keys[1], [sum(sum(c.values()) for c in cs.values())
+                                for cs in counts]
 
 
 def parse_shape(text):
@@ -141,7 +157,8 @@ def launch(b, span, y0, shape, rtol, atol, first_step=None,
             for _ in range(3)]
     t0, tf, rt, at, h0, use_h, mstep, msteps, comp = FK.launch_args(
         span, rtol, atol, first_step, max_steps, compensated, None)
-    args = [y0.data_ptr(), y.data_ptr(), *[x.data_ptr() for x in ints], nb,
+    args = [y0.data_ptr(), *([None] if b["params"] else []), y.data_ptr(),
+            *[x.data_ptr() for x in ints], nb,
             t0, tf, float(np.sign(np.float32(tf) - np.float32(t0))), rt, at,
             h0, use_h, mstep, msteps, comp, threads]
     if b["warp"]:
@@ -352,6 +369,11 @@ def main():
         for ln in ptxas_lines(b["log"], entries=True):
             print(f"ptxas[{k}] {ln}")
         OUT[f"build_{k}"] = {"seconds": b["seconds"], "log": b["log"]}
+    for f in swept + others:
+        same, sizes = sass_same(builds[f"old {f}"], builds[f"new {f}"])
+        print(f"SASS [{f}]: old and new opcodes kernel by kernel identical "
+              f"{same}; instructions old / new {sizes}")
+        OUT[f"sass_same_{f}"] = same
     old_threads = [x if x[0] in "bw" else f"b{x}"
                    for x in args.old_threads.split(",")]
     shapes = ([s for s in args.shapes.split(",") if s] if args.shapes
