@@ -499,7 +499,9 @@ def adams_builds(rhs):
 
 def build_all(jobs):
     """Build every (kernel, label, rhs, options) variant with one nvcc
-    each, all started together; print seconds, registers and spills."""
+    each, all started together; print seconds, registers and spills.  A
+    kernel name ending in ``_rec`` (B1, B4) is the build with the dense
+    record."""
     from extensisq_tpu_torch import BS5
     from extensisq_tpu_torch.ops import _build
     from extensisq_tpu_torch.ops.fused_adams import _adams_consts
@@ -514,9 +516,10 @@ def build_all(jobs):
         if kernel == "fused_rkn":
             return _build.load_fused_rkn(rkn_consts(opt), rhs.m,
                                          rhs.cuda_src)
-        if kernel == "fused_erk_grid":
-            return _build.load_fused_rk_grid(_fused_consts(opt), False,
-                                             rhs.shape, rhs.cuda_src, rhs.k)
+        if kernel in ("fused_erk_grid", "fused_erk_grid_rec"):
+            return _build.load_fused_rk_grid(
+                _fused_consts(opt), False, rhs.shape, rhs.cuda_src, rhs.k,
+                kernel.endswith("_rec"))
         if kernel == "fused_rkn_grid":
             return _build.load_fused_rk_grid(rkn_consts(opt), True,
                                              (rhs.n,), rhs.cuda_src)
@@ -525,9 +528,10 @@ def build_all(jobs):
         if kernel == "fused_ckdisc_grid":
             return _build.load_fused_rk_grid(ck_consts(), False, rhs.shape,
                                              rhs.cuda_src)
-        if kernel == "fused_erk":
+        if kernel in ("fused_erk", "fused_erk_rec"):
             return _build.load_fused_erk(_fused_consts(BS5), rhs.n,
-                                         rhs.cuda_src, rhs.k)
+                                         rhs.cuda_src, rhs.k,
+                                         kernel.endswith("_rec"))
         if kernel == "fused_adams":
             return _build.load_fused_adams(_adams_consts(opt, rhs.n),
                                            rhs.cuda_src)
@@ -4092,6 +4096,474 @@ def sens_grid_path():
              "bound_by_sens_grid": bound_r["bound_by"]})
 
 
+# -- the continuous adjoint through the fused kernels (configs 7d and 7b) -----
+# Config 7d (validation/benchmarks.py:910-953): the grid layout's continuous
+# adjoint of sum(mean(y_f)) over 8 members of the diffusive Fisher MoL at n
+# = 128, D = 0.02 n^2, r in [0.8, 1.6], BS5 at rtol 1e-5 / atol 1e-8 on t in
+# [0, 0.25], dense=400 (tests/test_fused_adjoint.py:84-139); and config 7b's
+# 1,024-member Van der Pol sweep (validation/benchmarks.py:838-871) through
+# the adjoint (tests/test_fused_adjoint.py:32-66 at 7b's width)
+ADJ_N, ADJ_M, ADJ_SPAN = 128, 8, (0.0, 0.25)
+ADJ_D = 0.02 * ADJ_N * ADJ_N
+ADJ_TOL = dict(rtol=1e-5, atol=1e-8)
+ADJ_DENSE = 400
+ADJ_VDP_DENSE = 512
+# JAX's gates: dL/dr within 5e-3 of central differences of B4 with params
+# (eps 2e-3, rtol 1e-7 / atol 1e-10), member 0's dL/dy0 within 2e-3 of the
+# f64 solve_final gradient, 7b's gradients within 2e-3 of
+# solve_fused_final's, each over its largest entry
+ADJ_FD_EPS = 2e-3
+ADJ_FD_TOL = dict(rtol=1e-7, atol=1e-10)
+ADJ_FD_GATE = 5e-3
+ADJ_F64_TOL = dict(rtol=1e-9, atol=1e-12)
+ADJ_F64_GATE = 2e-3
+ADJ_FINAL_GATE = 2e-3
+# the overflow: dense=8 on 7b's first 64 members
+ADJ_OVERFLOW = (8, 64)
+# the kernels with their records against the plain versions with theirs on
+# the card: (max |dy|, relative difference of mean nsteps, max |dnsteps|)
+# of hold_against_plain (the 7b line's are SENS_KERNEL_GATES' "vdp
+# params": the record leaves the outputs as they are).  Measured on an
+# H100 (tools/probe_sens.py --adjoint): vdp params 2.2e-4, 3.8e-4, 1; vdp
+# compensated 6.0e-6, 1.5e-4, 1; fisher 7d 2.4e-5, 2.5e-2, 8 (the
+# stability-bound steps of the diffusive MoL bifurcate: 6 of 8 members
+# take other counts).  Gates 3-5x
+ADJ_KERNEL_GATES = {"vdp params": SENS_KERNEL_GATES["vdp params"],
+                    "vdp compensated": (3e-5, 2e-3, 2),
+                    "fisher 7d": (1e-4, 0.1, 32)}
+# then the records: (the two dense outputs at 97 common times, the
+# kernel's nodes (ts, y_anchor) against the plain version's dense output at
+# the same times).  From the second attempt the card's powf and torch.pow
+# part the last bits of h, so the nodes themselves part (by up to 0.4 on
+# Van der Pol, with equal counts) and the gates are those of the dense
+# outputs' interpolation error.  Measured (the same probe): vdp params
+# 9.1e-3 and 8.5e-3; vdp compensated 1.8e-3 and 1.9e-3; fisher 7d 3.7e-4
+# and 2.5e-4.  Gates about 4x
+ADJ_DENSE_GATES = {"vdp params": (4e-2, 4e-2),
+                   "vdp compensated": (8e-3, 8e-3),
+                   "fisher 7d": (1.5e-3, 1e-3)}
+# float32 operations per element of 7d's right-hand side: the stencil
+# (4) and the logistic term (4)
+ADJ_FISHER_OPS = 8
+
+
+def fisher_diff(n):
+    d = 0.02 * n * n
+    return lambda t, y, p: ((torch.roll(y, 1, 0) - 2.0 * y
+                             + torch.roll(y, -1, 0)) * d
+                            + p[0] * y * (1.0 - y))
+
+
+def _fisher_diff_cuda(n):
+    return ("template <class T, class V>\n"
+            "__device__ T rhs(T t, V y, int i, const T* p) {\n"
+            "  return (tab::G::rolled<0>(y, i, 1) - 2.0f * y[i]\n"
+            f"          + tab::G::rolled<0>(y, i, -1)) * {_lit(0.02 * n * n)}"
+            "\n         + p[0] * y[i] * (1.0f - y[i]);\n}")
+
+
+def adjoint_rhs():
+    """The adjoint phase's right-hand sides: 7b's Van der Pol with mu a
+    member (as the sensitivity phase's) and 7d's Fisher MoL with r a
+    member."""
+    from extensisq_tpu_torch.ops import FusedGridRHS, FusedRHS
+    return {"vdp": FusedRHS(vdp_p, VDP_P_CUDA, 2, 1),
+            "fisher": FusedGridRHS(fisher_diff(ADJ_N),
+                                   _fisher_diff_cuda(ADJ_N), (ADJ_N,), 1)}
+
+
+def adjoint_builds(rhs):
+    """(kernel, label, rhs, options) of the phase's variants: B1 and B4
+    with the dense record, and B4 without it on 7d's line (7b's B1 without
+    it is the sensitivity phase's)."""
+    from extensisq_tpu_torch import BS5
+    return [("fused_erk_rec", "vdp params dense", rhs["vdp"], None),
+            ("fused_erk_grid_rec", "fisher 7d dense", rhs["fisher"], BS5),
+            ("fused_erk_grid", "fisher 7d", rhs["fisher"], BS5)]
+
+
+def adjoint_inputs():
+    """7d's members (y0 = 0.5 + 0.3 sin(2 pi x), r in [0.8, 1.6]) on the
+    card: ``(fy0, rates)``."""
+    x = np.linspace(0, 1, ADJ_N, endpoint=False)
+    fy0 = torch.tensor(np.tile(0.5 + 0.3 * np.sin(2 * np.pi * x),
+                               (ADJ_M, 1)), dtype=torch.float32,
+                       device="cuda")
+    rates = torch.tensor(np.linspace(0.8, 1.6, ADJ_M), dtype=torch.float32,
+                         device="cuda")[:, None]
+    return fy0, rates
+
+
+def _scaled(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def hold_record(label, k, r, span):
+    """A kernel run ``k`` and its plain version's ``r``, each with its
+    dense output fifth: equal valid; each member's last node its final
+    state at tf, bit for bit; the dense outputs at 97 common times and the
+    kernel's nodes against the plain version's dense output at their times
+    within ``ADJ_DENSE_GATES[label]``."""
+    from extensisq_tpu_torch.ops.fused_dense import _evaluate
+    sol_gate, node_gate = ADJ_DENSE_GATES[label]
+    sol, ref = k[4], r[4]
+    check(torch.equal(sol.valid, ref.valid), f"{label}: valid differs")
+    # node nsteps (the first of the inert tail) repeats the last step's end
+    b = torch.arange(k[0].shape[0], device="cuda")
+    last = k[2].long()
+    inner = last < sol.h.shape[1]
+    ends = (torch.equal(sol.ts[b, last], torch.full_like(
+        sol.ts[:, 0], float(np.float32(span[1]))))
+        and torch.equal(sol.y_anchor[b[inner], last[inner]], k[0][inner]))
+    tq = torch.linspace(*span, 97, device="cuda")
+    d_sol = (sol(tq) - ref(tq)).abs().max().item()
+    sgn = 1.0 if span[1] >= span[0] else -1.0
+    nodes = torch.arange(sol.h.shape[1], device="cuda")[None] < last[:, None]
+    at = _evaluate(ref, sol.t_anchor, sgn)
+    d_node = (sol.y_anchor - at).abs().amax(-1)[nodes].max().item()
+    print(f"adjoint record [{label}, {k[0].shape[0]}]: valid equal "
+          f"(all {bool(sol.valid.all())}), the last nodes the final states "
+          f"at tf {ends}, dense outputs at 97 times max |d| {d_sol:.3e} "
+          f"(gate {sol_gate:.0e}), the nodes against the plain version's "
+          f"dense output max |d| {d_node:.3e} (gate {node_gate:.0e})")
+    check(ends, f"{label}: the last nodes are not the final states")
+    check(d_sol <= sol_gate, f"{label}: dense outputs differ by {d_sol}")
+    check(d_node <= node_gate, f"{label}: nodes differ by {d_node}")
+
+
+def _same_record(a, b):
+    return (all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+            and all(torch.equal(getattr(a[4], f), getattr(b[4], f))
+                    for f in a[4]._fields))
+
+
+def adjoint_kernel_checks(R, y0b, mus, fy0, rates):
+    """B1 (7b's members, plain and compensated) and B4 (7d's) with their
+    records against their plain versions on the card; every shape B1
+    takes (one thread, 4 and 8 lanes) and B4's warp against its block of
+    32, records included, bit for bit; the record leaves y, status,
+    nsteps and nfev as they are without it.  Returns the largest |dy|
+    and the plain versions' seconds of B1 and of B4."""
+    from extensisq_tpu_torch import BS5
+    from extensisq_tpu_torch import ops
+    from extensisq_tpu_torch.ops import fused_erk as FK
+    from extensisq_tpu_torch.ops import fused_erk_grid as FKG
+    errs, plain_s = {}, {}
+    for label, tol in (("vdp params", SENS_VDP_TOL),
+                       ("vdp compensated", dict(ADJ_TOL, rtol=1e-6,
+                                                atol=1e-9,
+                                                compensated=True))):
+        kw = dict(method=BS5, params=mus, **tol)
+        k, r, dy, r_s = hold_against_plain(
+            "adjoint", label,
+            lambda: ops.solve_fused_erk(R["vdp"], SENS_VDP_SPAN, y0b,
+                                        dense=ADJ_VDP_DENSE, **kw),
+            lambda: ops.fused_erk_reference(R["vdp"], SENS_VDP_SPAN, y0b,
+                                            dense=ADJ_VDP_DENSE, **kw),
+            *ADJ_KERNEL_GATES[label])
+        hold_record(label, k, r, SENS_VDP_SPAN)
+        off = ops.solve_fused_erk(R["vdp"], SENS_VDP_SPAN, y0b, **kw)
+        same_off = all(torch.equal(a, b) for a, b in zip(k[:4], off))
+        shapes = {}
+        for lanes in (1, 4, 8):
+            shapes[lanes] = _same_record(k, FK._launch(
+                R["vdp"], SENS_VDP_SPAN, y0b, BS5, tol["rtol"], tol["atol"],
+                None, 100_000, tol.get("compensated", False), None, lanes,
+                None, mus, ADJ_VDP_DENSE)[0])
+        print(f"fused_erk [{label} dense, {y0b.shape[0]}]: the rule takes "
+              f"{shape_text(ops.solve_fused_erk, y0b.shape[0])}; outputs and "
+              f"records at "
+              f"1 / 4 / 8 lanes bit-identical to the rule's {shapes}; "
+              f"outputs bit-identical to dense=None {same_off}")
+        check(all(shapes.values()), f"{label}: a lane shape differs")
+        check(same_off, f"{label}: the record changed the outputs")
+        errs["fused_erk"] = max(errs.get("fused_erk", 0.0), dy)
+        plain_s[label] = r_s
+    kw = dict(method=BS5, params=rates, **ADJ_TOL)
+    k, r, dy, r_s = hold_against_plain(
+        "adjoint", "fisher 7d",
+        lambda: ops.solve_fused_erk_grid(R["fisher"], ADJ_SPAN, fy0,
+                                         dense=ADJ_DENSE, **kw),
+        lambda: ops.fused_erk_grid_reference(R["fisher"], ADJ_SPAN, fy0,
+                                             dense=ADJ_DENSE, **kw),
+        *ADJ_KERNEL_GATES["fisher 7d"])
+    shape = ops.solve_fused_erk_grid.last_shape
+    hold_record("fisher 7d", k, r, ADJ_SPAN)
+    off = ops.solve_fused_erk_grid(R["fisher"], ADJ_SPAN, fy0, **kw)
+    same_off = all(torch.equal(a, b) for a, b in zip(k[:4], off))
+    built = FKG._kernel(BS5, R["fisher"], True)
+    kw.pop("method")
+    warp, b32 = (FKG._launch(built, ADJ_SPAN, fy0, ADJ_N, shape=s,
+                             dense=ADJ_DENSE, **kw)[0]
+                 for s in ((32, FKG.WARP_MEMBERS), (32, 0)))
+    warp_same = _same_record(warp, b32)
+    print(f"fused_erk_grid [fisher 7d dense, {ADJ_M}]: the rule takes "
+          f"{grid_shape_text(shape, ADJ_M)}; one warp per member bit-"
+          f"identical to one block of 32 threads, records included, "
+          f"{warp_same}; outputs bit-identical to dense=None {same_off}")
+    check(warp_same, "fisher 7d: the warp and the block of 32 differ")
+    check(same_off, "fisher 7d: the record changed the outputs")
+    errs["fused_erk_grid"] = dy
+    plain_s["fisher 7d"] = r_s
+    return errs, plain_s
+
+
+def _launch_args(kind, built, y0, out, params, span, tol, shape, rec):
+    """The C arguments of one launch of B1 (``kind`` fused_erk) or B4 at
+    ``shape`` into the preallocated ``out`` (and ``rec``, a DenseRecord,
+    where it has rows), as the wrappers pass them."""
+    from extensisq_tpu_torch.ops.fused_erk import launch_args
+    scal = launch_args(span, tol["rtol"], tol["atol"], None, 100_000,
+                       tol.get("compensated", False), None)
+    head = (y0.data_ptr(), params.data_ptr(),
+            *[x.data_ptr() for x in out], y0.shape[0])
+    if kind == "fused_erk":
+        args = head + scal + tuple(shape)
+    else:
+        t0, tf = scal[:2]
+        args = (head + (t0, tf, float(np.sign(np.float32(tf)
+                                              - np.float32(t0))))
+                + scal[2:] + tuple(shape))
+    return args + (rec.args() if rec.rows else ())
+
+
+def launch_ms(kind, built, y0, params, span, tol, shape, rows, reps=10):
+    """Device ms of one launch of B1 or B4 with the record of ``rows`` a
+    member (0: the build without it), the outputs allocated before: CUDA
+    events around ``reps`` launches back to back, per launch (a single
+    launch between events measures the host's enqueue as much as the
+    kernel), median of REPS."""
+    from extensisq_tpu_torch.ops.fused_erk import DenseRecord
+    out = (torch.empty_like(y0),
+           *[torch.empty(y0.shape[0], dtype=torch.int32, device="cuda")
+             for _ in range(3)])
+    rec = DenseRecord(y0, rows)
+    args = _launch_args(kind, built, y0, out, params, span, tol, shape, rec)
+    fn = getattr(built.lib, f"{kind.replace('_erk_grid', '_rk_grid')}"
+                 f"{'_record' if rows else ''}_launch")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        for _ in range(reps):
+            check(fn(*args, stream) == 0, f"{kind}: launch failed")
+    return event_ms(run) / reps, rec
+
+
+def adjoint_path():
+    """The continuous adjoint through B1 and B4 on the card: the kernels
+    with their records against their plain versions; config 7d through
+    ``solve_fused_adjoint(layout="grid")`` (one launch of B4 with the
+    record, the f64 backward) against central differences of B4 with
+    params and member 0 against the f64 ``sensitivity.solve_final``;
+    config 7b through ``solve_fused_adjoint`` (one launch of B1) against
+    ``solve_fused_final``; the overflow's NaN gradients; the walls, the
+    forward launches' device ms with and without the record, their bounds
+    and the backward's attempts and host syncs.  Returns the ``_adjoint``
+    keys of B1 and B4."""
+    from extensisq_tpu_torch import BS5, sensitivity
+    from extensisq_tpu_torch import ops
+    from extensisq_tpu_torch.ops import fused_erk as FK
+    from extensisq_tpu_torch.ops import fused_erk_grid as FKG
+    from extensisq_tpu_torch.ops.fused_erk import _fused_consts
+    start = time.perf_counter()
+    R = adjoint_rhs()
+    _, _, _, y0b, mus, _ = sens_inputs()
+    fy0, rates = adjoint_inputs()
+    errs, plain_s = adjoint_kernel_checks(R, y0b, mus, fy0, rates)
+    erk, grid = ops.solve_fused_erk, ops.solve_fused_erk_grid
+    every = [getattr(ops, k) for k in dir(ops) if k.startswith("solve_fused_")
+             and hasattr(getattr(ops, k), "launches")]
+
+    def counted(fn, wrapper):
+        """``fn()`` with every kernel's count set to 0 just before it and
+        read just after: (its result, ``wrapper``'s launches); fails where
+        another kernel launched."""
+        for w in every:
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        others = {w.__name__: w.launches for w in every
+                  if w is not wrapper and w.launches}
+        check(not others, f"adjoint: other kernels launched {others}")
+        return out, wrapper.launches
+
+    # 7d: the grid layout's adjoint, one launch of B4 with the record
+    def grad_7d(dense=ADJ_DENSE):
+        Y = fy0.clone().requires_grad_(True)
+        P = rates.clone().requires_grad_(True)
+        yf = ops.solve_fused_adjoint(R["fisher"], ADJ_SPAN, Y, P, None,
+                                     dense=dense, layout="grid", **ADJ_TOL)
+        val = yf.mean(1).sum()
+        gy0, gp = torch.autograd.grad(val, (Y, P))
+        return val.detach(), gy0, gp
+
+    (val_d, gy0, gp), ld = counted(grad_7d, grid)
+    check(ld == 1, f"7d: B4 launched {ld} times, expected 1")
+    check(bool(torch.isfinite(gy0).all() and torch.isfinite(gp).all()),
+          "7d: a gradient is not finite")
+    bw_d = ops.solve_fused_adjoint.last_backward
+    fd_kw = dict(method=BS5, **ADJ_FD_TOL)
+    yp = grid(R["fisher"], ADJ_SPAN, fy0, params=rates + ADJ_FD_EPS, **fd_kw)
+    ym = grid(R["fisher"], ADJ_SPAN, fy0, params=rates - ADJ_FD_EPS, **fd_kw)
+    check(bool((yp[1] == 1).all() and (ym[1] == 1).all()),
+          "7d: a central-difference run did not finish")
+    fd = (yp[0].mean(1) - ym[0].mean(1)) / (2 * ADJ_FD_EPS)
+    d_fd = _scaled(gp[:, 0], fd)
+    t0 = time.perf_counter()
+    v0 = fy0[0].double().requires_grad_(True)
+    fun = R["fisher"].torch_fn
+    yf64 = sensitivity.solve_final(
+        lambda t, y, p: fun(t, y, (p,)), ADJ_SPAN, v0,
+        torch.tensor(float(rates[0, 0]), dtype=torch.float64,
+                     device="cuda"), None, max_steps=100_000, **ADJ_F64_TOL)
+    gref, = torch.autograd.grad(yf64.mean(), v0)
+    f64_s = time.perf_counter() - t0
+    d_f64 = _scaled(gy0[0].double(), gref)
+    print(f"7d Fisher x{ADJ_M} (n {ADJ_N}, D {ADJ_D:g}, BS5, dense "
+          f"{ADJ_DENSE}, grid): launches of B4 {ld}, loss {float(val_d):.6f}"
+          f", backward attempts {int((bw_d.nsteps + bw_d.nfailed).max())};"
+          f" dL/dr vs central differences of B4 with params (eps "
+          f"{ADJ_FD_EPS:.0e}, rtol 1e-7): max |d| / max |FD| {d_fd:.3e} "
+          f"(gate {ADJ_FD_GATE:.0e}); member 0's dL/dy0 vs the f64 "
+          f"solve_final (rtol 1e-9, the card, {f64_s:.1f} s): {d_f64:.3e} "
+          f"(gate {ADJ_F64_GATE:.0e})")
+    check(d_fd <= ADJ_FD_GATE, "7d: dL/dr off central differences")
+    check(d_f64 <= ADJ_F64_GATE, "7d: dL/dy0 off the f64 solve_final")
+
+    # 7b through the adjoint, one launch of B1 with the record, against
+    # solve_fused_final
+    def grad_7b(solver, *extra, members=None):
+        sl = slice(None, members)
+        t0_, tf_ = (torch.tensor(x, device="cuda", requires_grad=True)
+                    for x in SENS_VDP_SPAN)
+        Y = y0b[sl].clone().requires_grad_(True)
+        P = mus[sl].clone().requires_grad_(True)
+        yf = solver(R["vdp"], (t0_, tf_), Y, P, BS5, SENS_VDP_TOL["rtol"],
+                    SENS_VDP_TOL["atol"], 100_000, None, *extra)
+        val = yf[:, 0].sum()
+        return (val.detach(),) + torch.autograd.grad(val, (t0_, tf_, Y, P))
+
+    adj, lb = counted(lambda: grad_7b(ops.solve_fused_adjoint,
+                                      ADJ_VDP_DENSE), erk)
+    check(lb == 1, f"7b adjoint: B1 launched {lb} times, expected 1")
+    bw_b = ops.solve_fused_adjoint.last_backward
+    fin = grad_7b(ops.solve_fused_final)
+    d_y0 = _scaled(adj[3], fin[3])
+    d_p = _scaled(adj[4], fin[4])
+    d_t = max(abs(float(a) - float(b)) / abs(float(b))
+              for a, b in zip(adj[1:3], fin[1:3]))
+    print(f"7b adjoint VdP x{SENS_VDP_N} (BS5, dense {ADJ_VDP_DENSE}): "
+          f"launches of B1 {lb}, loss equal to solve_fused_final's "
+          f"{float(adj[0]) == float(fin[0])}; vs solve_fused_final: dL/dy0 "
+          f"{d_y0:.3e}, dL/dmu {d_p:.3e}, dL/dt0 and dL/dtf {d_t:.3e} (gate "
+          f"{ADJ_FINAL_GATE:.0e}); backward attempts "
+          f"{int((bw_b.nsteps + bw_b.nfailed).max())}")
+    check(float(adj[0]) == float(fin[0]), "7b adjoint: the value differs")
+    check(max(d_y0, d_p, d_t) <= ADJ_FINAL_GATE,
+          "7b adjoint: gradients off solve_fused_final's")
+    dense_o, members_o = ADJ_OVERFLOW
+    ovf = grad_7b(ops.solve_fused_adjoint, dense_o, members=members_o)
+    nan_all = all(bool(torch.isnan(g).all()) for g in ovf[3:])
+    print(f"adjoint overflow (dense {dense_o}, {members_o} members): every "
+          f"dL/dy0 and dL/dmu NaN {nan_all}")
+    check(nan_all, "adjoint overflow: finite gradients")
+
+    # readings: walls of value and gradient, the backward's syncs, the
+    # forward launches' device ms with and without the record
+    b_ms = wall_ms(lambda: grad_7b(ops.solve_fused_adjoint, ADJ_VDP_DENSE),
+                   reps=3)
+    b_fin_ms = wall_ms(lambda: grad_7b(ops.solve_fused_final), reps=3)
+    d_ms = wall_ms(grad_7d, reps=3)
+    syncs = {}
+    for name, fwd in (("7b", lambda: ops.solve_fused_adjoint(
+            R["vdp"], SENS_VDP_SPAN, y0b.clone().requires_grad_(True), mus,
+            BS5, dense=ADJ_VDP_DENSE, **SENS_VDP_TOL)),
+            ("7d", lambda: ops.solve_fused_adjoint(
+                R["fisher"], ADJ_SPAN, fy0.clone().requires_grad_(True),
+                rates, dense=ADJ_DENSE, layout="grid", **ADJ_TOL))):
+        yf = fwd()
+        _, n_sync, sec, _ = count_syncs(lambda: yf.sum().backward())
+        bw = ops.solve_fused_adjoint.last_backward
+        att = int((bw.nsteps + bw.nfailed).max())
+        syncs[name] = (sec, att, n_sync)
+        print(f"adjoint backward [{name}]: {sec * 1e3:.1f} ms wall, "
+              f"{att} attempts of the f64 driver over {bw.y.shape[0]} "
+              f"members of {bw.y.shape[1]} rows, {n_sync} host syncs "
+              f"({n_sync / att:.2f} an attempt)")
+    tol_b = dict(SENS_VDP_TOL)
+    b1_rec = FK._kernel(BS5, R["vdp"], True)
+    b1_off = FK._kernel(BS5, R["vdp"], False)
+    lanes = FK._lanes_per_member(SENS_VDP_N, FK.device_sm_count(y0b.device),
+                                 False)
+    shape_b = (lanes, max(1, 128 // lanes))
+    b_rec_ms, rec_b = launch_ms("fused_erk", b1_rec, y0b, mus,
+                                SENS_VDP_SPAN, tol_b, shape_b, ADJ_VDP_DENSE)
+    b_off_ms, _ = launch_ms("fused_erk", b1_off, y0b, mus, SENS_VDP_SPAN,
+                            tol_b, shape_b, 0)
+    grid(R["fisher"], ADJ_SPAN, fy0, params=rates, method=BS5, **ADJ_TOL)
+    shape_d = grid.last_shape
+    b4_rec = FKG._kernel(BS5, R["fisher"], True)
+    b4_off = FKG._kernel(BS5, R["fisher"], False)
+    d_rec_ms, rec_d = launch_ms("fused_erk_grid", b4_rec, fy0, rates,
+                                ADJ_SPAN, ADJ_TOL, shape_d, ADJ_DENSE)
+    d_off_ms, _ = launch_ms("fused_erk_grid", b4_off, fy0, rates, ADJ_SPAN,
+                            ADJ_TOL, shape_d, 0)
+    # bounds: the states in and out once, the params once, the counters,
+    # and the record's rows as written (2n + 1 floats a row), f0 and the
+    # counts; operations from this run's evaluations
+    k_bs5 = _fused_consts(BS5)
+    fwd_b = erk(R["vdp"], SENS_VDP_SPAN, y0b, params=mus, method=BS5,
+                **tol_b)
+    fwd_d = grid(R["fisher"], ADJ_SPAN, fy0, params=rates, method=BS5,
+                 **ADJ_TOL)
+
+    def bound(n, members, nrec, nfev_sum, rhs_ops, start_evals):
+        rows = int(nrec.sum())
+        by = members * 4 * (2 * n + 1 + 3) + 4 * (
+            rows * (2 * n + 1) + members * (n + 1))
+        return bound_entry(by, rk_ops(k_bs5, False, n, rhs_ops, nfev_sum,
+                                      members, start_evals))
+
+    bound_b = bound(2, SENS_VDP_N, rec_b.n, int(fwd_b[3].sum()),
+                    RHS_OPS["vdp"], 2 + min(2 + 1, 3))
+    bound_d = bound(ADJ_N, ADJ_M, rec_d.n, int(fwd_d[3].sum()),
+                    ADJ_FISHER_OPS, 5)
+    print(f"time [7b adjoint, B1 with the record] {SENS_VDP_N} members: "
+          f"{b_ms:.3f} ms wall (value and gradient, median of 3) against "
+          f"{b_fin_ms:.3f} ms through solve_fused_final (forward "
+          f"sensitivities); the forward launch {b_rec_ms:.4f} ms device "
+          f"with the record, {b_off_ms:.4f} ms without it (CUDA events, "
+          f"ten launches back to back); bound {bound_b['bound_ms']:.4f} ms "
+          f"({bound_b['bound_by']}, {int(rec_b.n.sum())} rows); plain "
+          f"version {plain_s['vdp params'] * 1e3:.1f} ms wall")
+    print(f"time [7d adjoint, B4 with the record] {ADJ_M} members: "
+          f"{d_ms:.3f} ms wall (value and gradient, median of 3); the "
+          f"forward launch {d_rec_ms:.4f} ms device with the record, "
+          f"{d_off_ms:.4f} ms without it; bound {bound_d['bound_ms']:.4f} ms"
+          f" ({bound_d['bound_by']}, {int(rec_d.n.sum())} rows); plain "
+          f"version {plain_s['fisher 7d'] * 1e3:.1f} ms wall")
+    print(f"adjoint phase: {time.perf_counter() - start:.1f} s")
+    return ({"launches_adjoint": lb,
+             "max_abs_err_adjoint": errs["fused_erk"],
+             "ms_adjoint": b_ms, "ms_final_7b": b_fin_ms,
+             "device_ms_adjoint": b_rec_ms,
+             "device_ms_adjoint_no_record": b_off_ms,
+             "plain_ms_adjoint": plain_s["vdp params"] * 1e3,
+             "bound_ms_adjoint": bound_b["bound_ms"],
+             "bound_by_adjoint": bound_b["bound_by"],
+             "backward_attempts_adjoint": syncs["7b"][1],
+             "backward_syncs_adjoint": syncs["7b"][2]},
+            {"launches_adjoint": ld,
+             "max_abs_err_adjoint": errs["fused_erk_grid"],
+             "ms_adjoint": d_ms, "device_ms_adjoint": d_rec_ms,
+             "device_ms_adjoint_no_record": d_off_ms,
+             "plain_ms_adjoint": plain_s["fisher 7d"] * 1e3,
+             "bound_ms_adjoint": bound_d["bound_ms"],
+             "bound_by_adjoint": bound_d["bound_by"],
+             "backward_attempts_adjoint": syncs["7d"][1],
+             "backward_syncs_adjoint": syncs["7d"][2]})
+
+
 HOST_GATE = 1e-9
 HOST_GATES = {"pleiades-cfmr7osc": 1e-6, "kepler-fi5n": 1e-8,
               "swdec-ckdisc": 1e-8}
@@ -4441,7 +4913,8 @@ def main():
               + adams_builds(adams_rhs()) + rkc_builds(rkc_rhs())
               + rkn_grid_builds(rkn_grid_rhs())
               + ckdisc_builds(ckdisc_rhs()) + mid_builds(mid_rhs())
-              + sens_builds(sens_rhs()) + sens_grid_builds(sens_grid_rhs()))
+              + sens_builds(sens_rhs()) + sens_grid_builds(sens_grid_rhs())
+              + adjoint_builds(adjoint_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
@@ -4637,8 +5110,12 @@ def main():
     # 11b. the grid layout's sensitivities: params on B4 and B7, B7's
     # simultaneous corrector, the Fisher and reaction-diffusion sweeps
     grid_erk, grid_esdirk = sens_grid_path()
+
+    # 11c. the continuous adjoint: the dense record on B1 and B4, configs
+    # 7d and 7b through solve_fused_adjoint
+    adj_erk, adj_grid = adjoint_path()
     for entry in rkn + mid:
-        entry.update({"fused_erk_grid": grid_erk,
+        entry.update({"fused_erk_grid": dict(grid_erk, **adj_grid),
                       "fused_esdirk_grid": grid_esdirk}.get(entry["name"],
                                                             {}))
 
@@ -4649,7 +5126,7 @@ def main():
     # the card again, so that the end of the output names it beside the
     # kernels' times
     print(smi.splitlines()[0])
-    kernels = [dict({
+    kernels = ([dict({
         "name": "fused_erk",
         "route": "cuda",
         "source": "extensisq_tpu_torch/csrc/fused_erk.cu",
@@ -4665,7 +5142,8 @@ def main():
         "block_members_compensated": comp_shape[1],
     }, **bound_entry(N_MEMBERS * (2 * 4 * 2 + 4 * 3),
                      int(plain[3].sum()) * OPS_PER_EVAL["fused_erk"]),
-        **sens_erk), dict(esdirk, **sens_esdirk), adams] + rkc + rkn + ck + mid
+        **sens_erk, **adj_erk), dict(esdirk, **sens_esdirk), adams]
+        + rkc + rkn + ck + mid)
     for k in kernels:
         # the launches of the front door phase beside those of the path
         k["launches_solve_fused"] = door[k["name"]]

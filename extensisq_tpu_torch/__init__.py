@@ -7,8 +7,9 @@ SSV2stab (Runge-Kutta-Chebyshev) for semi-discretized PDEs:
 
 * :func:`solve_ivp` — the scipy-semantics host driver (``t_eval``,
   events located by Brent's method on the host, dense output, the host
-  stiffness check, an :class:`OdeResult`), and the stepwise protocol
-  ``BS5(fun, t0, y0, t_bound).step()``; :func:`sens_forward`,
+  stiffness check, an :class:`OdeResult` whose dense output is an
+  :class:`OdeSolution`), and the stepwise protocol ``BS5(fun, t0, y0,
+  t_bound).step()`` (a :class:`Stepper`); :func:`sens_forward`,
   :func:`sens_adjoint_end` and :func:`sens_adjoint_int` — sensitivities on
   top of it; :func:`solve_final` — ``y(t_f)`` of a device solve under
   ``torch.autograd`` (the continuous adjoint);
@@ -67,7 +68,8 @@ from .ops import (FusedAcc, FusedGridAcc, FusedGridRHS,  # noqa: F401
                   solve_fused_esdirk_grid, solve_fused_rkc,
                   solve_fused_rkc_ensemble, solve_fused_rkn,
                   solve_fused_rkn_grid)
-from .ivp import OdeResult, solve_ivp  # noqa: F401
+from .ivp import OdeResult, Stepper, solve_ivp  # noqa: F401
+from .core.interpolate import OdeSolution  # noqa: F401
 from .sensitivity import (sens_adjoint_end,  # noqa: F401
                           sens_adjoint_int, sens_forward, solve_final)
 from .solve import (solve, solve_ensemble, solve_windowed,  # noqa: F401
@@ -78,8 +80,8 @@ from .types import (ERKTableau, ESDIRKTableau, Method,  # noqa: F401
 __version__ = "0.1.0"
 
 __all__ = [
-    "solve_ivp", "OdeResult", "sens_forward", "sens_adjoint_end",
-    "sens_adjoint_int", "solve_final",
+    "solve_ivp", "Stepper", "OdeResult", "OdeSolution", "sens_forward",
+    "sens_adjoint_end", "sens_adjoint_int", "solve_final",
     "solve", "solve_ensemble", "solve_windowed", "Solution", "ops",
     "parallel", "problems", "FusedRHS",
     "FusedGridRHS", "FusedRho", "FusedAcc", "FusedGridAcc",

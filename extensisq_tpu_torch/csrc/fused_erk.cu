@@ -32,9 +32,19 @@
 // thread each.  No shared memory and no padding: the last block masks
 // member < B.
 //
+// Dense output (dense=R, ops/fused_erk.py): a build whose header sets
+// tab::REC writes each accepted step's end (t, y, f) to its member's rows
+// in device memory, rank 0 of a group as it writes the results
+// (dense_record.cuh); f0 = f(t0, y0) once at the start.  The writes sit
+// beside the arithmetic, which they leave as it is: y, status, nsteps and
+// nfev are those of the build without them.  Without tab::REC the record
+// parameter is never read and the kernels are those of the build before
+// dense output.
+//
 // The tableau (float32, rounded as the JAX kernel rounds it) and the user's
 // right-hand side come from the generated header fused_erk_config.cuh:
-//   namespace tab { N, NPAR, S, FSAL, A, B, C, E, controller constants, ... }
+//   namespace tab { N, NPAR, REC, S, FSAL, A, B, C, E, controller constants,
+//                   ... }
 //   __device__ void rhs(float t, const float* y, float* dy);
 // (or the template form rhs<T> of the implicit kernels, instantiated as
 // rhs<float>); with NPAR = K > 0 per-member parameters, rhs takes a fourth
@@ -67,6 +77,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dense_record.cuh"
 #include "dual.cuh"
 #include "fused_erk_config.cuh"
 #include "hstart.cuh"
@@ -133,19 +144,22 @@ __device__ __forceinline__ void stages(const Rhs& fn, float t, float h,
 using rk::Launch;
 using rk::OneLane;
 using rk::Out;
+using rk::Rec;
 
 // The whole integration of one member by the group grp of G lanes (rank(),
 // shfl(v, src); OneLane at G = 1) from its initial state y0 with its
 // parameters par (tab::NPAR floats; unread when there are none); lane 0
-// writes the results.  At G = 1 the norm and the controller run as one thread
-// runs them; at G > 1 their divisions and powers are split over the lanes
-// (rk_lanes.cuh), with the same bits.
+// writes the results, and with tab::REC the member's record rec.  At G = 1
+// the norm and the controller run as one thread runs them; at G > 1 their
+// divisions and powers are split over the lanes (rk_lanes.cuh), with the
+// same bits.
 template <int G, bool COMP, class Group>
 __device__ __forceinline__ void integrate(Group& grp,
                                           const float* __restrict__ y0,
                                           const float* __restrict__ par,
                                           const Launch& L, int member,
-                                          const Out& out) {
+                                          const Out& out,
+                                          const Rec& rec = Rec{}) {
   const Rhs fn(par);
   const float tf = L.tf;
   const float rtol = L.rtol;
@@ -163,6 +177,14 @@ __device__ __forceinline__ void integrate(Group& grp,
   float t = L.t0;
   float t_lo = 0.0f;
   fn(t, y, f);
+  if constexpr (tab::REC) {
+    if (grp.rank() == 0) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        rec.f0[static_cast<size_t>(member) * N + k] = f[k];
+      }
+    }
+  }
   rk::StepControl ctl{L.h0};
   int nfev = 1;
   if (L.use_hstart) {
@@ -176,6 +198,7 @@ __device__ __forceinline__ void integrate(Group& grp,
   int status = kRunning;
   int nstep = 0;
   int it = 0;
+  int nrec = 0;  // rows of the record written (tab::REC)
   rk::Clock clk;
 
   while (status == kRunning) {
@@ -295,6 +318,21 @@ __device__ __forceinline__ void integrate(Group& grp,
       }
       t = t_new;
       t_lo = t_lo_new;
+      // the step's end at row nstep, while the attempts are below rows
+      if constexpr (tab::REC) {
+        if (it < rec.rows) {
+          if (grp.rank() == 0) {
+            const size_t row = rec.row(member, nstep);
+            rec.t[row] = t;
+#pragma unroll
+            for (int k = 0; k < N; ++k) {
+              rec.y[row * N + k] = y[k];
+              rec.f[row * N + k] = f[k];
+            }
+          }
+          nrec += 1;
+        }
+      }
       nstep += 1;
     }
 
@@ -313,6 +351,7 @@ __device__ __forceinline__ void integrate(Group& grp,
   out.status[member] = status;
   out.nstep[member] = nstep;
   out.nfev[member] = nfev;
+  if constexpr (tab::REC) rec.n[member] = nrec;
   clk.write(member, it);
 }
 
@@ -322,9 +361,9 @@ template <bool COMP>
 __device__ void integrate_thread(const float* __restrict__ y0,
                                  const float* __restrict__ par,
                                  const Launch& L, int member,
-                                 const Out& out) {
+                                 const Out& out, const Rec& rec = Rec{}) {
   OneLane one;
-  integrate<1, COMP>(one, y0, par, L, member, out);
+  integrate<1, COMP>(one, y0, par, L, member, out, rec);
 }
 
 }  // namespace
@@ -337,32 +376,33 @@ namespace {
 template <int G, bool COMP>
 __global__ void fused_erk_kernel(const float* __restrict__ y0,
                                  const float* __restrict__ par, Out out,
-                                 int B, int block_members, Launch L) {
+                                 int B, int block_members, Launch L,
+                                 Rec rec) {
   const int member =
       blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
   if (member >= B) return;  // ragged last block: no member padding
   const float* y0m = y0 + static_cast<size_t>(member) * N;
   const float* parm = par + static_cast<size_t>(member) * tab::NPAR;
   if constexpr (G == 1) {
-    integrate_thread<COMP>(y0m, parm, L, member, out);
+    integrate_thread<COMP>(y0m, parm, L, member, out, rec);
   } else {
     LaneGroup<G> grp;
-    integrate<G, COMP>(grp, y0m, parm, L, member, out);
+    integrate<G, COMP>(grp, y0m, parm, L, member, out, rec);
   }
 }
 
 template <int G>
 int launch(const float* y0, const float* par, const Out& out, int B,
            const Launch& L, int compensated, int block_members,
-           cudaStream_t s) {
+           const Rec& rec, cudaStream_t s) {
   const int blocks = (B + block_members - 1) / block_members;
   const int threads = block_members * G;
   if (compensated) {
     fused_erk_kernel<G, true><<<blocks, threads, 0, s>>>(
-        y0, par, out, B, block_members, L);
+        y0, par, out, B, block_members, L, rec);
   } else {
     fused_erk_kernel<G, false><<<blocks, threads, 0, s>>>(
-        y0, par, out, B, block_members, L);
+        y0, par, out, B, block_members, L, rec);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -384,6 +424,35 @@ extern "C" int fused_erk_sections(void* sections) {
 // cudaGetLastError() (cudaErrorInvalidValue for another lane count); the
 // wrapper raises on anything but 0.  params is (B, tab::NPAR) float32,
 // row-major (null when NPAR is 0).
+static int launch_lanes(const void* y0, const void* params, void* y_out,
+                        void* status, void* nstep, void* nfev, int B,
+                        const Launch& L, int compensated, int lanes,
+                        int block_members, const Rec& rec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* y0f = static_cast<const float*>(y0);
+  const float* par = static_cast<const float*>(params);
+  const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
+                static_cast<int*>(nstep), static_cast<int*>(nfev)};
+  switch (lanes) {
+    case 1:
+      return launch<1>(y0f, par, out, B, L, compensated, block_members, rec,
+                       s);
+    case 2:
+      return launch<2>(y0f, par, out, B, L, compensated, block_members, rec,
+                       s);
+    case 4:
+      return launch<4>(y0f, par, out, B, L, compensated, block_members, rec,
+                       s);
+    case 8:
+      return launch<8>(y0f, par, out, B, L, compensated, block_members, rec,
+                       s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The launch of a build without dense output (cudaErrorInvalidValue for a
+// build with it: that one takes fused_erk_record_launch).
 extern "C" int fused_erk_launch(const void* y0, const void* params,
                                 void* y_out, void* status,
                                 void* nstep, void* nfev, int B, float t0,
@@ -391,26 +460,27 @@ extern "C" int fused_erk_launch(const void* y0, const void* params,
                                 int use_hstart, float max_step, int max_steps,
                                 int compensated, int lanes, int block_members,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* y0f = static_cast<const float*>(y0);
-  const float* par = static_cast<const float*>(params);
-  const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
-                static_cast<int*>(nstep), static_cast<int*>(nfev)};
+  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
-  switch (lanes) {
-    case 1:
-      return launch<1>(y0f, par, out, B, L, compensated,
-                         block_members, s);
-    case 2:
-      return launch<2>(y0f, par, out, B, L, compensated,
-                         block_members, s);
-    case 4:
-      return launch<4>(y0f, par, out, B, L, compensated,
-                         block_members, s);
-    case 8:
-      return launch<8>(y0f, par, out, B, L, compensated,
-                         block_members, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L,
+                      compensated, lanes, block_members, Rec{}, stream);
+}
+
+// The launch of a build with dense output (tab::REC): as fused_erk_launch,
+// and each member writes its record (dense_record.cuh) to rec_t (B, rows),
+// rec_y and rec_f (B, rows, N), rec_f0 (B, N) and rec_n (B,) int32.
+// cudaErrorInvalidValue for a build without it or rows < 1.
+extern "C" int fused_erk_record_launch(
+    const void* y0, const void* params, void* y_out, void* status,
+    void* nstep, void* nfev, int B, float t0, float tf, float rtol,
+    float atol, float h0, int use_hstart, float max_step, int max_steps,
+    int compensated, int lanes, int block_members, void* rec_t, void* rec_y,
+    void* rec_f, void* rec_f0, void* rec_n, int rows, void* stream) {
+  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L,
+                      compensated, lanes, block_members, rec, stream);
 }

@@ -48,6 +48,14 @@
 // No lane padding: norms divide by the true NF and any N that fits in
 // shared memory is taken (the wrapper raises before launch otherwise).
 //
+// Dense output (B4's dense=R, ops/fused_erk_grid.py): an ERK build whose
+// header sets tab::REC writes each accepted step's end to its member's
+// rows in device memory (dense_record.cuh): every thread the elements of
+// y and f it commits, as it commits them, rank 0 the step's t; f0 is K[0]
+// after the start, each thread its own elements.  Without tab::REC (B6,
+// B12 and B4 without dense output) the record parameter is never read and
+// the kernels are those of the build before dense output.
+//
 // The CKdisc cascade (ck_control.cuh) has up to five norms per attempt: E1,
 // E2, E4 and the two fallbacks' error tests.  Every thread holds the same
 // reductions, so the whole group takes the same branch, and stages that E1
@@ -70,7 +78,8 @@
 // lane's elements on one of the SM's four schedulers.
 //
 // The generated header fused_rk_grid_config.cuh provides
-//   namespace tab { G = grid::Grid<...>, N, NPAR, RKN, CK, S, FSAL, MORDER,
+//   namespace tab { G = grid::Grid<...>, N, NPAR, REC, RKN, CK, S, FSAL,
+//                   MORDER,
 //                   the weight accessors A, AP, B, BP, C, E, EP and the
 //                   cascade's BAS, EAS, BFB, EFB, CFB (zeros for ERK and
 //                   RKN), controller and start constants }
@@ -91,6 +100,7 @@
 
 #include "grid_common.cuh"
 #include "fused_rk_grid_config.cuh"
+#include "dense_record.cuh"
 #include "rk_common.cuh"
 #include "rk_control.cuh"
 #include "rk_rows.cuh"
@@ -106,6 +116,10 @@ constexpr bool RKN = tab::RKN;
 constexpr int NF = RKN ? 2 * N : N;          // the first-order state
 constexpr int MM = S + (tab::FSAL ? 1 : 0);  // rows of the error estimate
 constexpr int kMaxThreads = 256;
+
+static_assert(!tab::REC || (!RKN && !tab::CK),
+              "dense output is built for the ERK family only");
+using rk::Rec;
 
 constexpr int kRunning = 0;
 constexpr int kFinished = 1;
@@ -424,11 +438,13 @@ __device__ float start(Group& g, float* Y, float* K,
 // The whole integration of one member by the group g (rank(), size(),
 // sync(), sum(x) and min(x): reductions whose result every thread holds).
 // sm is the member's shared memory (kFloats), y0 its initial state, params
-// every member's NPAR parameters (null without any).
+// every member's NPAR parameters (null without any), rec the record with
+// tab::REC.
 template <bool COMP, class Group>
 __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
                           const float* __restrict__ params, const Launch& L,
-                          int member, const Out& out) {
+                          int member, const Out& out,
+                          const Rec& rec = Rec{}) {
   float* Y = sm + kY;
   float* K = sm + kK;
   float* Ylo = sm + kYlo;
@@ -440,11 +456,18 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   rk::StepControl ctl{start(g, Y, K, y0, L, P, nfev)};
   float t = L.t0;
   rk::for_elements<NF>(g, [&](int j) { Ylo[j] = 0.0f; });
+  if constexpr (tab::REC) {
+    // K[0] = f(t0, y0): each thread's own elements, written by it
+    rk::for_elements<N>(g, [&](int i) {
+      rec.f0[static_cast<size_t>(member) * N + i] = K[i];
+    });
+  }
 
   float t_lo = 0.0f;
   int status = kRunning;
   int nstep = 0;
   int it = 0;
+  int nrec = 0;  // rows of the record written (tab::REC)
   Clock clk;
 
   while (status == kRunning) {
@@ -530,6 +553,10 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
 
     nfev += tab::FSAL ? S : S - 1;
     if (accepted) {
+      // the step's end at row nstep of the record, while the attempts are
+      // below its rows
+      const bool rec_row = tab::REC && it < rec.rows;
+      const size_t row = tab::REC ? rec.row(member, nstep) : 0;
       // each thread commits the elements it computed; a non-FSAL pair
       // evaluates the endpoint of accepted steps only
       rk::for_elements_put<N>(
@@ -552,10 +579,22 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
               if constexpr (RKN) Ylo[N + i] = c.lo.v;
             }
             K[i] = c.k;
+            if constexpr (tab::REC) {
+              if (rec_row) {
+                rec.y[row * N + i] = c.y.u;
+                rec.f[row * N + i] = c.k;
+              }
+            }
           });
       if constexpr (!tab::FSAL) nfev += 1;
       t = t_new;
       t_lo = t_lo_new;
+      if constexpr (tab::REC) {
+        if (rec_row) {
+          if (g.rank() == 0) rec.t[row] = t;
+          nrec += 1;
+        }
+      }
       nstep += 1;
     }
 
@@ -575,6 +614,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
     out.status[member] = status;
     out.nsteps[member] = nstep;
     out.nfev[member] = nfev;
+    if constexpr (tab::REC) rec.n[member] = nrec;
   }
 }
 
@@ -789,12 +829,12 @@ __device__ __forceinline__ void member_body(Group& g, float* sm,
                                             const float* __restrict__ y0,
                                             const float* __restrict__ params,
                                             const Launch& L, int member,
-                                            const Out& out) {
+                                            const Out& out, const Rec& rec) {
   const float* y = y0 + static_cast<size_t>(member) * NF;
   if constexpr (tab::CK) {
     integrate_ck(g, sm, y, L, member, out);
   } else {
-    integrate<COMP>(g, sm, y, params, L, member, out);
+    integrate<COMP>(g, sm, y, params, L, member, out, rec);
   }
 }
 
@@ -802,12 +842,12 @@ template <bool COMP>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_rk_grid_kernel(const float* __restrict__ y0,
                          const float* __restrict__ params, Launch L,
-                         Out out) {
+                         Out out, Rec rec) {
   extern __shared__ float sm[];
   __shared__ float red[64];
   auto g = group(BlockGroup{red});
   const int member = static_cast<int>(blockIdx.x);
-  member_body<COMP>(g, sm, y0, params, L, member, out);
+  member_body<COMP>(g, sm, y0, params, L, member, out, rec);
   write_phases(g, member);
 }
 
@@ -824,7 +864,7 @@ template <bool COMP>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_rk_grid_warp_kernel(const float* __restrict__ y0,
                               const float* __restrict__ params, Launch L,
-                              Out out, int members) {
+                              Out out, int members, Rec rec) {
   if constexpr (!tab::CK) {
     extern __shared__ float sm[];
     const int warp = static_cast<int>(threadIdx.x >> 5);
@@ -832,7 +872,8 @@ __global__ void __launch_bounds__(kMaxThreads)
         static_cast<int>(blockIdx.x * (blockDim.x >> 5)) + warp;
     if (member >= members) return;
     auto g = group(WarpGroup{});
-    member_body<COMP>(g, sm + warp * kFloats, y0, params, L, member, out);
+    member_body<COMP>(g, sm + warp * kFloats, y0, params, L, member, out,
+                      rec);
     write_phases(g, member);
   }
 }
@@ -875,17 +916,11 @@ extern "C" int fused_rk_grid_smem(int* need, int* limit) {
 // 32; another shape is cudaErrorInvalidValue).  The members' rows are
 // dynamic shared memory (above 48 KB after cudaFuncSetAttribute).  params
 // holds NPAR floats a member (null where NPAR is 0).
-extern "C" int fused_rk_grid_launch(const void* y0, const void* params,
-                                    void* y_out, void* status,
-                                    void* nstep, void* nfev, int members,
-                                    float t0, float tf, float dir, float rtol,
-                                    float atol, float h0, int use_hstart,
-                                    float max_step, int max_steps,
-                                    int compensated, int threads,
-                                    int warp_members, void* stream) {
+static int launch_members(const void* y0, const void* params, void* y_out,
+                          void* status, void* nstep, void* nfev, int members,
+                          const Launch& L, int compensated, int threads,
+                          int warp_members, const Rec& rec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Launch L{t0, tf, dir, rtol, atol, h0, use_hstart, max_step,
-                 max_steps};
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
   const float* y0f = static_cast<const float*>(y0);
@@ -896,20 +931,59 @@ extern "C" int fused_rk_grid_launch(const void* y0, const void* params,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const int bytes = warp_members * member_bytes;
-    void (*kernel)(const float*, const float*, Launch, Out, int) =
+    void (*kernel)(const float*, const float*, Launch, Out, int, Rec) =
         compensated ? fused_rk_grid_warp_kernel<true>
                     : fused_rk_grid_warp_kernel<false>;
     const cudaError_t e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int blocks = (members + warp_members - 1) / warp_members;
     kernel<<<blocks, 32 * warp_members, bytes, st>>>(y0f, pf, L, out,
-                                                     members);
+                                                     members, rec);
     return static_cast<int>(cudaGetLastError());
   }
-  void (*kernel)(const float*, const float*, Launch, Out) =
+  void (*kernel)(const float*, const float*, Launch, Out, Rec) =
       compensated ? fused_rk_grid_kernel<true> : fused_rk_grid_kernel<false>;
   const cudaError_t e = allow_smem(kernel, member_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<members, threads, member_bytes, st>>>(y0f, pf, L, out);
+  kernel<<<members, threads, member_bytes, st>>>(y0f, pf, L, out, rec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of a build without dense output (cudaErrorInvalidValue for a
+// build with it: that one takes fused_rk_grid_record_launch).
+extern "C" int fused_rk_grid_launch(const void* y0, const void* params,
+                                    void* y_out, void* status,
+                                    void* nstep, void* nfev, int members,
+                                    float t0, float tf, float dir, float rtol,
+                                    float atol, float h0, int use_hstart,
+                                    float max_step, int max_steps,
+                                    int compensated, int threads,
+                                    int warp_members, void* stream) {
+  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{t0, tf, dir, rtol, atol, h0, use_hstart, max_step,
+                 max_steps};
+  return launch_members(y0, params, y_out, status, nstep, nfev, members, L,
+                        compensated, threads, warp_members, Rec{}, stream);
+}
+
+// The launch of an ERK build with dense output (tab::REC): as
+// fused_rk_grid_launch, and each member writes its record
+// (dense_record.cuh) to rec_t (B, rows), rec_y and rec_f (B, rows, N),
+// rec_f0 (B, N) and rec_n (B,) int32.  cudaErrorInvalidValue for a build
+// without it or rows < 1.
+extern "C" int fused_rk_grid_record_launch(
+    const void* y0, const void* params, void* y_out, void* status,
+    void* nstep, void* nfev, int members, float t0, float tf, float dir,
+    float rtol, float atol, float h0, int use_hstart, float max_step,
+    int max_steps, int compensated, int threads, int warp_members,
+    void* rec_t, void* rec_y, void* rec_f, void* rec_f0, void* rec_n,
+    int rows, void* stream) {
+  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{t0, tf, dir, rtol, atol, h0, use_hstart, max_step,
+                 max_steps};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  return launch_members(y0, params, y_out, status, nstep, nfev, members, L,
+                        compensated, threads, warp_members, rec, stream);
 }

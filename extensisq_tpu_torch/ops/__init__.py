@@ -33,7 +33,13 @@ kernel launch, each with its plain PyTorch version beside it.
   B2 with its simultaneous corrector (with ``layout="grid"``, of B4, or
   of B7 with its simultaneous corrector), and ``y(t_f)`` differentiable
   through ``torch.autograd`` by one more such launch
-  (``ops/fused_sens.py``)
+  (``ops/fused_sens.py``); :func:`solve_fused_adjoint` — the same through
+  the continuous adjoint (the ERK routes, B1 or B4), whose backward pass
+  is one f64 solve of the adjoint against the forward's dense output
+* :class:`FusedDenseSolution` — evaluable continuous dense output from a
+  fused solve (``dense=R`` on B1 and B4): the kernel records each
+  member's accepted steps, :func:`build_fused_dense` makes them cubic
+  Hermite segments (``ops/fused_dense.py``)
 * :func:`solve_fused` — the front door: routes by method family to the
   flat or the grid kernel, reading the layout from the RHS object
   (``ops/dispatch.py``)
@@ -53,6 +59,7 @@ from .fused_adams_grid import (fused_adams_grid_reference,
 from .fused_ckdisc import fused_ckdisc_reference, solve_fused_ckdisc
 from .fused_ckdisc_grid import (fused_ckdisc_grid_reference,
                                 solve_fused_ckdisc_grid)
+from .fused_dense import FusedDenseSolution, build_fused_dense
 from .fused_erk import FusedRHS, fused_erk_reference, solve_fused_erk
 from .fused_erk_grid import fused_erk_grid_reference, solve_fused_erk_grid
 from .fused_esdirk import fused_esdirk_reference, solve_fused_esdirk
@@ -80,4 +87,5 @@ __all__ = ["solve_fused", "FusedRHS", "fused_erk_reference",
            "solve_fused_rkn_grid", "fused_ckdisc_reference",
            "solve_fused_ckdisc", "fused_ckdisc_grid_reference",
            "solve_fused_ckdisc_grid", "solve_fused_sens",
-           "solve_fused_final", "solve_fused_adjoint"]
+           "solve_fused_final", "solve_fused_adjoint",
+           "FusedDenseSolution", "build_fused_dense"]

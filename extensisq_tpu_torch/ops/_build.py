@@ -62,10 +62,11 @@ def _array(values):
     return "{" + ", ".join(_f32(v) for v in values) + "}"
 
 
-def fused_erk_header(k, n, rhs_src, npar=0):
+def fused_erk_header(k, n, rhs_src, npar=0, record=False):
     """Text of ``fused_erk_config.cuh`` for the constants ``k`` of
     ``ops.fused_erk._fused_consts``, state size ``n``, the CUDA RHS
-    source and its number of per-member parameters ``npar``."""
+    source, its number of per-member parameters ``npar`` and whether the
+    build writes the dense record (``record``, ``tab::REC``)."""
     s = k["s"]
     A = k["A"]
     cc = k["cc"]
@@ -78,6 +79,7 @@ def fused_erk_header(k, n, rhs_src, npar=0):
 namespace tab {{
 constexpr int N = {n};
 constexpr int NPAR = {int(npar)};
+constexpr bool REC = {_flag(record)};
 constexpr int S = {s};
 constexpr bool FSAL = {'true' if k['fsal'] else 'false'};
 constexpr int MORDER = {k['morder']};
@@ -198,14 +200,16 @@ GRID_ACC_STUB = ("__device__ float acc(float t, const float* u, "
                  "const float* v, int i, const float* p) { return 0.0f; }")
 
 
-def fused_rk_grid_header(k, rkn, shape, src, npar=0):
+def fused_rk_grid_header(k, rkn, shape, src, npar=0, record=False):
     """Text of ``fused_rk_grid_config.cuh`` for the constants ``k`` of an
     ERK (``rkn`` False) or RKN method, or of CKdisc's cascade
     (``ops.fused_ckdisc.ck_consts``), a member grid of extents ``shape``
     (one stage row: the states of an ERK system, the positions of an RKN
     one), the CUDA source of the right-hand side ``rhs`` or the
-    acceleration ``acc`` (the other of the two is a stub never called) and
-    its number of per-member parameters ``npar`` (B4's ``params``)."""
+    acceleration ``acc`` (the other of the two is a stub never called),
+    its number of per-member parameters ``npar`` (B4's ``params``) and
+    whether the build writes the dense record (``record``, ``tab::REC``;
+    B4 only)."""
     dims = ", ".join(str(int(d)) for d in shape)
     ck = "B_as" in k
     family = "RKN" if rkn else ("CKdisc" if ck else "ERK")
@@ -218,6 +222,7 @@ namespace tab {{
 using G = grid::Grid<{dims}>;
 constexpr int N = {int(np.prod(shape))};
 constexpr int NPAR = {int(npar)};
+constexpr bool REC = {_flag(record)};
 constexpr bool RKN = {_flag(rkn)};
 constexpr bool CK = {_flag(ck)};
 constexpr int S = {k['s']};
@@ -539,14 +544,30 @@ def cached(kind, objects, build, extra=()):
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def load_fused_erk(consts, n, rhs_src, npar=0):
+# the record arguments of the dense-output launches, before the stream:
+# rec_t, rec_y, rec_f, rec_f0, rec_n and the rows a member
+_REC_ARGS = [_VP, _VP, _VP, _VP, _VP, _CI]
+
+
+def _bind_record(built, name, argtypes):
+    """Bind ``lib.<name>_record_launch``: ``argtypes`` of the launch with
+    the record arguments before the stream."""
+    fn = getattr(built.lib, f"{name}_record_launch")
+    fn.argtypes = argtypes[:-1] + _REC_ARGS + argtypes[-1:]
+    fn.restype = ctypes.c_int
+    return built
+
+
+def load_fused_erk(consts, n, rhs_src, npar=0, record=False):
     """Build (at first use) and load the fused ERK kernel for one tableau,
-    RHS and parameter count; returns :class:`Built` with
-    ``lib.fused_erk_launch`` bound."""
-    return load_kernel(
-        "fused_erk", fused_erk_header(consts, n, rhs_src, npar),
-        [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI,
-         _CF, _CI, _CI, _CI, _CI, _VP])
+    RHS, parameter count and dense-record switch; returns :class:`Built`
+    with ``lib.fused_erk_launch`` and ``lib.fused_erk_record_launch``
+    bound (each refuses a build of the other kind)."""
+    argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF,
+                _CI, _CF, _CI, _CI, _CI, _CI, _VP]
+    return _bind_record(load_kernel(
+        "fused_erk", fused_erk_header(consts, n, rhs_src, npar, record),
+        argtypes), "fused_erk", argtypes)
 
 
 def load_fused_rkn(consts, m, acc_src):
@@ -559,16 +580,19 @@ def load_fused_rkn(consts, m, acc_src):
          _CI, _CI, _CI, _CI, _VP])
 
 
-def load_fused_rk_grid(consts, rkn, shape, src, npar=0):
+def load_fused_rk_grid(consts, rkn, shape, src, npar=0, record=False):
     """Build (at first use) and load the block-per-member kernel (B4 for
     an ERK tableau, B6 for an RKN one, B12 for CKdisc's cascade) for one
-    member grid, right-hand side and parameter count; returns
-    :class:`Built` with ``lib.fused_rk_grid_launch`` and
-    ``lib.fused_rk_grid_smem`` bound."""
-    built = load_kernel(
-        "fused_rk_grid", fused_rk_grid_header(consts, rkn, shape, src, npar),
-        [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CF,
-         _CI, _CF, _CI, _CI, _CI, _CI, _VP])
+    member grid, right-hand side, parameter count and dense-record switch
+    (B4 only); returns :class:`Built` with ``lib.fused_rk_grid_launch``,
+    ``lib.fused_rk_grid_record_launch`` and ``lib.fused_rk_grid_smem``
+    bound."""
+    argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF,
+                _CF, _CI, _CF, _CI, _CI, _CI, _CI, _VP]
+    built = _bind_record(load_kernel(
+        "fused_rk_grid",
+        fused_rk_grid_header(consts, rkn, shape, src, npar, record),
+        argtypes), "fused_rk_grid", argtypes)
     smem = built.lib.fused_rk_grid_smem
     smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     smem.restype = ctypes.c_int

@@ -12,6 +12,8 @@ runs the same loop on rows-first ``(n, B)`` float32 tensors; the wrapper
 solution and error sums and a double-single ``(hi, lo)`` carry for y and
 t, which lets float32 run rtol ~1e-6 / atol ~1e-9.  ``params`` (B, k)
 gives every member its own k parameters (a parameter-sweep ensemble).
+``dense=R`` records each member's accepted steps for a continuous dense
+output (``ops/fused_dense.py``).
 """
 import dataclasses
 import functools
@@ -26,6 +28,7 @@ from ..core.controller import resolve_controller
 from ..core.numerics import norm
 from ..steppers.erk import weighted_sum
 from . import _hstart_tile
+from .fused_dense import record_solution
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,7 +208,8 @@ def controller(k, err_norm, err_old, h, h_prev, std_b, rejected, max_fac):
 
 def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                         atol=1e-6, first_step=None, max_steps=100_000,
-                        compensated=False, max_step=None, params=None):
+                        compensated=False, max_step=None, params=None,
+                        dense=None):
     """The plain PyTorch version of the fused kernel, on the device of
     ``y0_batch``.
 
@@ -214,7 +218,9 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
     once no member is RUNNING.  ``fun`` is a :class:`FusedRHS` or a
     rows-first torch function, called as ``fun(t, y, p)`` where
     ``params`` (B, k) is given.  Returns ``(y (B, n), status (B,),
-    nsteps (B,), nfev (B,))`` like :func:`solve_fused_erk`.
+    nsteps (B,), nfev (B,))`` like :func:`solve_fused_erk`, and with
+    ``dense=R`` the members' :class:`~.fused_dense.FusedDenseSolution` as
+    a fifth output, from the rows the kernel writes.
     """
     k = _fused_consts(method)
     A, B_w, C, E = k["A"], k["B"], k["C"], k["E"]
@@ -258,6 +264,8 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
     min_step = torch.zeros_like(t)
     nstep = torch.zeros(nb, **i32)
     nfev = torch.full((nb,), nfev0, **i32)
+    rows = dense_rows(dense)
+    rec = _Record(y, f, rows) if rows else None
     it = 0
     while True:
         running = status == RUNNING
@@ -328,6 +336,8 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
         dfev = torch.where(running, s if fsal else s - 1, 0)
         if not fsal:
             dfev = dfev + upd.to(torch.int32)
+        if rec is not None and it < rec.rows:
+            rec.write(upd, nstep, t_new, y_new, f_new)
         # step cap: loop iterations, accepted plus rejected
         it += 1
         status = torch.where((status == RUNNING) & (it >= max_steps),
@@ -348,7 +358,39 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
         nstep = nstep + upd.to(torch.int32)
         nfev = nfev + dfev.to(torch.int32)
 
-    return y.T.contiguous(), status, nstep, nfev
+    out = (y.T.contiguous(), status, nstep, nfev)
+    if rec is None:
+        return out
+    return out + (rec.solution(t_span, nstep),)
+
+
+class _Record:
+    """The plain versions' dense record, written as the kernels write it
+    (``csrc/dense_record.cuh``): an accepted step's end at the member's row
+    ``nstep``, the others to a spare row past the end."""
+
+    def __init__(self, y, f, rows):
+        n, nb = y.shape
+        self.rows = rows
+        self.y0 = y.T.clone()
+        self.f0 = f.T.clone()
+        self.t = y.new_zeros(nb, rows + 1)
+        self.y = y.new_zeros(nb, rows + 1, n)
+        self.f = y.new_zeros(nb, rows + 1, n)
+        self.n = torch.zeros(nb, dtype=torch.int32, device=y.device)
+        self.b = torch.arange(nb, device=y.device)
+
+    def write(self, accepted, nstep, t, y, f):
+        i = (self.b, torch.where(accepted, nstep, self.rows).long())
+        self.t[i] = t
+        self.y[i] = y.T
+        self.f[i] = f.T
+        self.n = self.n + accepted.to(torch.int32)
+
+    def solution(self, t_span, nsteps):
+        R = self.rows
+        return record_solution(t_span, self.y0, self.f0, self.t[:, :R],
+                               self.y[:, :R], self.f[:, :R], self.n, nsteps)
 
 
 def check_options(name, item, **options):
@@ -394,15 +436,16 @@ def _launch_shape(B, lanes, block_members=None):
     return block_members, threads, -(-int(B) // block_members)
 
 
-def _kernel(method, fun):
-    """The kernel built for one method and FusedRHS."""
+def _kernel(method, fun, record=False):
+    """The kernel built for one method and FusedRHS, with the dense record
+    where ``record`` (a build of its own)."""
     if method is None:
         from ..methods import BS5 as method
     from . import _build
     return _build.cached("fused_erk", (method, fun),
                          lambda: _build.load_fused_erk(
                              _fused_consts(method), fun.n, fun.cuda_src,
-                             fun.k))
+                             fun.k, record), extra=bool(record))
 
 
 # threads per SM up to which the wrappers spread members over lane groups
@@ -464,7 +507,13 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
     ``y0_batch``: (B, n) float32.  Returns ``(y_final (B, n), status (B,),
     nsteps (B,), nfev (B,))`` with status 1 = finished, 2 = step size
     underflow, 3 = overflow or step cap (``max_steps`` counts loop
-    iterations, accepted plus rejected).
+    iterations, accepted plus rejected).  ``dense=R`` (R >= 1; None or 0:
+    off) adds a fifth output, the members' continuous dense output
+    (:class:`~.fused_dense.FusedDenseSolution`), from the end ``(t, y,
+    f)`` of each accepted step that the kernel records while a member's
+    attempts are below R (``valid[b]`` False where more were needed); the
+    record leaves the other four outputs bit for bit as they are without
+    it.
 
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.
@@ -481,21 +530,21 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
 
     ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
     them as its third argument (see :class:`FusedRHS`, whose ``k`` must
-    agree).  ``t_eval``, ``events`` and ``dense`` are not ported yet.
+    agree).  ``t_eval`` and ``events`` are not ported yet.
     """
-    check_options("solve_fused_erk", "B1", t_eval=t_eval, events=events,
-                  dense=dense)
+    check_options("solve_fused_erk", "B1", t_eval=t_eval, events=events)
     y0 = as_input(y0_batch, torch.float32)
     params = member_params(params, y0, fun)
     if y0.device.type != "cuda":
         return fused_erk_reference(
             fun, t_span, y0, method=method, rtol=rtol, atol=atol,
             first_step=first_step, max_steps=max_steps,
-            compensated=compensated, max_step=max_step, params=params)
+            compensated=compensated, max_step=max_step, params=params,
+            dense=dense)
 
     out, shape = _launch(fun, t_span, y0, method, rtol, atol, first_step,
                          max_steps, compensated, max_step, None,
-                         block_members, params)
+                         block_members, params, dense)
     solve_fused_erk.last_shape = shape
     if y0.shape[0]:
         solve_fused_erk.launches += 1
@@ -503,11 +552,14 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
 
 
 def _launch(fun, t_span, y0, method, rtol, atol, first_step, max_steps,
-            compensated, max_step, lanes, block_members=None, params=None):
+            compensated, max_step, lanes, block_members=None, params=None,
+            dense=None):
     """B1 on the card for the CUDA tensor ``y0`` (and the members'
     ``params``, checked by :func:`member_params`): ``lanes`` lanes per
     member (None: :func:`_lanes_per_member`'s) and ``block_members``
-    members per block (None: 128 / lanes).  Returns the four outputs and
+    members per block (None: 128 / lanes), with the dense record of
+    ``dense`` rows a member (the build with it) where given.  Returns the
+    outputs (with the :class:`~.fused_dense.FusedDenseSolution` fifth) and
     the ``(lanes, block_members)`` taken; an empty batch launches
     nothing."""
     if not isinstance(fun, FusedRHS):
@@ -529,27 +581,71 @@ def _launch(fun, t_span, y0, method, rtol, atol, first_step, max_steps,
         lanes = _lanes_per_member(nb, device_sm_count(y0.device),
                                   compensated)
     block_members, _, _ = _launch_shape(nb, lanes, block_members)
+    rows = dense_rows(dense)
 
-    built = _kernel(method, fun)
+    built = _kernel(method, fun, rows > 0)
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     shape = (lanes, block_members)
+    rec = DenseRecord(y0, rows)
+    out = (y_out, status, nsteps, nfev)
     if nb == 0:
-        return (y_out, status, nsteps, nfev), shape
+        return rec.outputs(out, t_span, y0), shape
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
-        rc = built.lib.fused_erk_launch(
-            y0.data_ptr(), None if params is None else params.data_ptr(),
-            y_out.data_ptr(), status.data_ptr(),
-            nsteps.data_ptr(), nfev.data_ptr(), nb,
-            *launch_args(t_span, rtol, atol, first_step, max_steps,
-                         compensated, max_step), int(lanes), block_members,
-            stream)
+        args = (y0.data_ptr(), None if params is None else params.data_ptr(),
+                y_out.data_ptr(), status.data_ptr(), nsteps.data_ptr(),
+                nfev.data_ptr(), nb,
+                *launch_args(t_span, rtol, atol, first_step, max_steps,
+                             compensated, max_step), int(lanes),
+                block_members)
+        if rows:
+            rc = built.lib.fused_erk_record_launch(*args, *rec.args(),
+                                                   stream)
+        else:
+            rc = built.lib.fused_erk_launch(*args, stream)
     if rc != 0:
         raise RuntimeError(f"fused_erk kernel launch failed: CUDA error {rc}")
-    return (y_out, status, nsteps, nfev), shape
+    return rec.outputs(out, t_span, y0), shape
+
+
+def dense_rows(dense):
+    """The record's rows a member of ``dense`` (None or 0: none)."""
+    rows = 0 if dense is None else int(dense)
+    if rows < 0:
+        raise ValueError(f"dense must be None or at least 0, got {dense}")
+    return rows
+
+
+class DenseRecord:
+    """The arrays a dense-output launch of B1 or B4 writes
+    (``csrc/dense_record.cuh``) for the CUDA tensor ``y0`` ``(B, n)`` at
+    ``rows`` a member (none for 0)."""
+
+    def __init__(self, y0, rows):
+        self.rows = rows
+        if rows:
+            nb, n = y0.shape
+            self.t = y0.new_empty(nb, rows)
+            self.y = y0.new_empty(nb, rows, n)
+            self.f = y0.new_empty(nb, rows, n)
+            self.f0 = torch.empty_like(y0)
+            self.n = torch.empty(nb, dtype=torch.int32, device=y0.device)
+
+    def args(self):
+        """The launch's record arguments."""
+        return (self.t.data_ptr(), self.y.data_ptr(), self.f.data_ptr(),
+                self.f0.data_ptr(), self.n.data_ptr(), self.rows)
+
+    def outputs(self, out, t_span, y0):
+        """The launch's outputs ``out``, with the dense output after them
+        where there is a record."""
+        if not self.rows:
+            return out
+        return out + (record_solution(t_span, y0, self.f0, self.t, self.y,
+                                      self.f, self.n, out[2]),)
 
 
 # kernel launches since the count was last set to 0 (the plain version on

@@ -22,14 +22,17 @@ y, i, p)`` of one element.  With ``params`` (B, k) the FusedGridRHS takes
 ``k`` parameters: ``torch_fn(t, y, p)`` gets them as ``p`` of shape ``(k,
 B)`` (``p[j]`` one parameter across the members; JAX's grid functions get
 a k-tuple of ``(bm, 1)`` columns), the CUDA ``rhs`` the member's k floats,
-which the kernel loads once into the member's shared memory.
+which the kernel loads once into the member's shared memory.  ``dense=R``
+records each member's accepted steps for a continuous dense output
+(``ops/fused_dense.py``), as on B1.
 """
 import numpy as np
 import torch
 
 from .._device import as_input
-from .fused_erk import (_fused_consts, check_options, fused_erk_reference,
-                        launch_args, member_params)
+from .fused_erk import (DenseRecord, _fused_consts, check_options,
+                        dense_rows, fused_erk_reference, launch_args,
+                        member_params)
 from .fused_rkc import FusedGridRHS
 
 # the most threads of a block; a member of n states gets ceil(n / 32) warps
@@ -88,13 +91,14 @@ def bind_grid_params(fun, params):
 
 def fused_erk_grid_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                              atol=1e-6, first_step=None, max_steps=100_000,
-                             compensated=False, max_step=None, params=None):
+                             compensated=False, max_step=None, params=None,
+                             dense=None):
     """The plain PyTorch version of the mid-size ERK kernel, on the device
     of ``y0_batch`` ``(B, n)``: B1's loop (``fused_erk_reference``).
     ``fun`` is a :class:`FusedGridRHS` or a rows-first torch function,
     called as ``fun(t, y, p)`` with ``p`` ``(k, B)`` where ``params`` (B, k)
     is given.  Returns ``(y (B, n), status (B,), nsteps (B,), nfev
-    (B,))``."""
+    (B,))``, and with ``dense=R`` the dense output fifth."""
     if isinstance(fun, FusedGridRHS):
         _state_size(fun)
     y0 = torch.as_tensor(y0_batch)
@@ -102,7 +106,7 @@ def fused_erk_grid_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
     return fused_erk_reference(fun, t_span, y0, method=method, rtol=rtol,
                                atol=atol, first_step=first_step,
                                max_steps=max_steps, compensated=compensated,
-                               max_step=max_step)
+                               max_step=max_step, dense=dense)
 
 
 def check_grid_input(name, y0, n_state, rhs_type, fun, params=None):
@@ -164,7 +168,7 @@ def launch_by_rule(wrapper, rule, built, y0, n_row, t_span, shape, count,
     ``y0`` at ``shape`` (None: ``rule(B, n_row, SMs)``'s, its warp members
     capped by the card's shared memory; a given shape is taken as it is,
     for comparisons), counted where ``count``.  ``kw`` are
-    :func:`launch_grid`'s options.  Returns the four outputs and the shape
+    :func:`launch_grid`'s options.  Returns the outputs and the shape
     taken."""
     if shape is None:
         with torch.cuda.device(y0.device):
@@ -177,7 +181,8 @@ def launch_by_rule(wrapper, rule, built, y0, n_row, t_span, shape, count,
 
 
 def launch_grid(wrapper, built, y0, n_row, t_span, shape, count, rtol, atol,
-                first_step, max_steps, compensated, max_step, params=None):
+                first_step, max_steps, compensated, max_step, params=None,
+                dense=None):
     """Launch ``csrc/fused_rk_grid.cu`` (stage rows of ``n_row``) on the
     current stream for ``wrapper``, whose launch count it raises (where
     ``count``; not for comparison launches), at ``shape``: ``(threads,
@@ -185,7 +190,9 @@ def launch_grid(wrapper, built, y0, n_row, t_span, shape, count, rtol, atol,
     per member and P members a block; raise before launch when the
     members' rows do not fit in the card's shared memory.  ``params``:
     the members' (B, k) parameters of a build with k of them, or None.
-    Returns ``(y, status, nsteps, nfev)``."""
+    ``dense``: the dense record's rows a member, for a B4 build with it
+    (None: none).  Returns ``(y, status, nsteps, nfev)``, and the
+    :class:`~.fused_dense.FusedDenseSolution` fifth with ``dense``."""
     name = wrapper.__name__
     threads, warp_members = shape
     nb = y0.shape[0]
@@ -193,25 +200,31 @@ def launch_grid(wrapper, built, y0, n_row, t_span, shape, count, rtol, atol,
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
+    rec = DenseRecord(y0, dense_rows(dense))
+    out = (y_out, status, nsteps, nfev)
     with torch.cuda.device(y0.device):
         check_shared_memory(name, built.lib.fused_rk_grid_smem,
                             "take a smaller system or solve_fused_* of the "
                             "flat layout", max(1, warp_members))
         if nb == 0:
-            return y_out, status, nsteps, nfev
+            return rec.outputs(out, t_span, y0)
         t0, tf, rt, at, h0, use_h, mstep, msteps, comp = launch_args(
             t_span, rtol, atol, first_step, max_steps, compensated, max_step)
         stream = torch.cuda.current_stream(y0.device).cuda_stream
-        rc = built.lib.fused_rk_grid_launch(
-            y0.data_ptr(), None if params is None else params.data_ptr(),
-            y_out.data_ptr(), status.data_ptr(),
-            nsteps.data_ptr(), nfev.data_ptr(), nb, t0, tf,
-            float(np.sign(np.float32(tf) - np.float32(t0))), rt, at, h0,
-            use_h, mstep, msteps, comp, threads, warp_members, stream)
+        args = (y0.data_ptr(), None if params is None else params.data_ptr(),
+                y_out.data_ptr(), status.data_ptr(), nsteps.data_ptr(),
+                nfev.data_ptr(), nb, t0, tf,
+                float(np.sign(np.float32(tf) - np.float32(t0))), rt, at, h0,
+                use_h, mstep, msteps, comp, threads, warp_members)
+        if rec.rows:
+            rc = built.lib.fused_rk_grid_record_launch(*args, *rec.args(),
+                                                       stream)
+        else:
+            rc = built.lib.fused_rk_grid_launch(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     wrapper.launches += int(count)
-    return y_out, status, nsteps, nfev
+    return rec.outputs(out, t_span, y0)
 
 
 # B4's constants of :func:`grid_launch_shape`: one block of
@@ -252,15 +265,17 @@ def _launch_shape(B, n, sm_count):
                              WARP_MEMBERS, WARP_MAX_N)
 
 
-def _kernel(method, fun):
-    """The kernel built for one ERK method and FusedGridRHS."""
+def _kernel(method, fun, record=False):
+    """The kernel built for one ERK method and FusedGridRHS, with the dense
+    record where ``record`` (a build of its own)."""
     if method is None:
         from ..methods import BS5 as method
     from . import _build
     return _build.cached("fused_erk_grid", (method, fun),
                          lambda: _build.load_fused_rk_grid(
                              _fused_consts(method), False, fun.shape,
-                             fun.cuda_src, fun.k))
+                             fun.cuda_src, fun.k, record),
+                         extra=bool(record))
 
 
 def solve_fused_erk_grid(fun, t_span, y0_batch, method=None, rtol=1e-4,
@@ -289,40 +304,43 @@ def solve_fused_erk_grid(fun, t_span, y0_batch, method=None, rtol=1e-4,
 
     ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
     them as its third argument (see the module docstring; a
-    :class:`FusedGridRHS`'s ``k`` must agree).  ``t_eval``, ``events`` and
-    ``dense`` are not ported yet.
+    :class:`FusedGridRHS`'s ``k`` must agree).  ``dense=R`` adds the dense
+    output as a fifth output, as on :func:`~.fused_erk.solve_fused_erk`
+    (every thread records the elements it commits).  ``t_eval`` and
+    ``events`` are not ported yet.
     """
     check_options("solve_fused_erk_grid", "B4", t_eval=t_eval,
-                  events=events, dense=dense)
+                  events=events)
     y0 = as_input(y0_batch, torch.float32)
     params = member_params(params, y0, fun)
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, compensated=compensated,
-              max_step=max_step, params=params)
+              max_step=max_step, params=params, dense=dense)
     if y0.device.type != "cuda":
         return fused_erk_grid_reference(fun, t_span, y0, method=method, **kw)
     n = _state_size(fun) if isinstance(fun, FusedGridRHS) else -1
     check_grid_input("solve_fused_erk_grid", y0, n, FusedGridRHS, fun,
                      params)
-    out, shape = _launch(_kernel(method, fun), t_span, y0, n, count=True,
-                         **kw)
+    out, shape = _launch(_kernel(method, fun, dense_rows(dense) > 0),
+                         t_span, y0, n, count=True, **kw)
     solve_fused_erk_grid.last_shape = shape
     return out
 
 
 def _launch(built, t_span, y0, n, shape=None, count=False, rtol=1e-4,
             atol=1e-6, first_step=None, max_steps=100_000, compensated=False,
-            max_step=None, params=None):
+            max_step=None, params=None, dense=None):
     """Launch B4 for the CUDA tensor ``y0`` (and the members' ``params``,
-    as the build takes them) at ``shape`` (None: :func:`_launch_shape`'s,
-    its P capped by the card's shared memory; a given shape is taken as it
-    is, for comparisons), counted where ``count``.  Returns the four
-    outputs and the shape taken."""
+    as the build takes them, and ``dense`` rows of record a member on a
+    build with it) at ``shape`` (None: :func:`_launch_shape`'s, its P
+    capped by the card's shared memory; a given shape is taken as it is,
+    for comparisons), counted where ``count``.  Returns the outputs and
+    the shape taken."""
     return launch_by_rule(solve_fused_erk_grid, _launch_shape, built, y0, n,
                           t_span, shape, count, rtol=rtol, atol=atol,
                           first_step=first_step, max_steps=max_steps,
                           compensated=compensated, max_step=max_step,
-                          params=params)
+                          params=params, dense=dense)
 
 
 # kernel launches since the count was last set to 0 (the plain version on

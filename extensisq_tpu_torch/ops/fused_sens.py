@@ -20,6 +20,12 @@ Counterpart of ``extensisq_tpu/ops/fused_sens.py``:
   forward pass is one fused solve, the backward pass one fused augmented
   solve contracted with the cotangent, so a gradient of a per-member loss
   over the whole ensemble costs two launches.
+* :func:`solve_fused_adjoint` is the same function through the continuous
+  adjoint, whose cost does not grow with the parameter count: the forward
+  pass is one launch of B1 (or, with ``layout="grid"``, of B4) that
+  records each member's accepted steps (``dense=R``,
+  ``ops/fused_dense.py``), the backward pass one f64 ``solve_ensemble``
+  of every member's (n + k)-row adjoint against that dense output.
 
 The user's right-hand side of the flat layout is a
 :class:`~extensisq_tpu_torch.ops.FusedRHS` whose ``torch_fn(t, y, p)`` is
@@ -46,8 +52,10 @@ import numpy as np
 import torch
 
 from .._device import as_input
-from .fused_erk import FusedRHS, bind_params, member_params, solve_fused_erk
-from .fused_erk_grid import solve_fused_erk_grid
+from .fused_dense import evaluate_members
+from .fused_erk import (FusedRHS, bind_params, dense_rows, member_params,
+                        solve_fused_erk)
+from .fused_erk_grid import bind_grid_params, solve_fused_erk_grid
 from .fused_esdirk import solve_fused_esdirk
 from .fused_esdirk_grid import solve_fused_esdirk_grid
 from .fused_rkc import FusedGridRHS
@@ -380,14 +388,167 @@ def solve_fused_final(fun, t_span, y0_batch, params, method=None,
     return _FusedFinal.apply(cfg, t0, tf, y0, params)
 
 
+def _adjoint_family(method):
+    """The family of the forward solve: JAX's four, of which the port has
+    the ERK routes so far."""
+    if method is None:
+        return "erk"
+    fam = getattr(method, "family", None)
+    if fam not in ("erk", "esdirk", "rkn", "adams"):
+        raise ValueError(
+            f"solve_fused_adjoint supports erk/esdirk/rkn/adams methods, not "
+            f"family {fam!r}; use sensitivity.sens_adjoint_end for the "
+            "others")
+    if fam != "erk":
+        kernels, step = {"esdirk": ("B2 and B7", 2), "rkn": ("B5 and B6", 3),
+                         "adams": ("B3 and B8", 3)}[fam]
+        raise NotImplementedError(
+            f"solve_fused_adjoint's {fam} route is not ported yet: it needs "
+            f"dense=R on {kernels} (ROADMAP queue B, step {step}; A16)")
+    return fam
+
+
+def _torch_fn(fun):
+    """The rows-first torch function of a FusedRHS or FusedGridRHS (a torch
+    function as it is)."""
+    return fun.torch_fn if isinstance(fun, (FusedRHS, FusedGridRHS)) else fun
+
+
+def _eval(fun, t, Y, params, grid):
+    """``fun`` at the scalar ``t`` on ``(B, n)`` states of either layout,
+    as ``(B, n)``."""
+    if not grid:
+        return _rows_eval(fun, t, Y, params)
+    tt = torch.full((Y.shape[0],), float(t), dtype=Y.dtype, device=Y.device)
+    return bind_grid_params(fun, params)(tt, Y.T).T
+
+
+class _FusedAdjoint(torch.autograd.Function):
+    """Forward: one fused solve, recording the members' steps where a
+    gradient is wanted; backward: the continuous adjoint of every member
+    at once on the f64 driver, against that record (JAX's
+    ``_fused_adjoint_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, cfg, t0, tf, y0, params):
+        span = (float(t0), float(tf))
+        grid = cfg["layout"] == "grid"
+        solver = solve_fused_erk_grid if grid else solve_fused_erk
+        out = solver(cfg["fun"], span, y0, method=cfg["method"],
+                     params=params, dense=cfg["dense"], **cfg["kw"])
+        ctx.cfg = cfg
+        ctx.sol = out[4] if cfg["dense"] else None
+        ctx.save_for_backward(t0, tf, y0, params, out[0])
+        return out[0]
+
+    @staticmethod
+    def backward(ctx, ct):
+        from ..solve import solve_ensemble
+        t0, tf, y0, params, y_f = ctx.saved_tensors
+        cfg, sol = ctx.cfg, ctx.sol
+        span = (float(t0), float(tf))
+        direction = 1.0 if span[1] >= span[0] else -1.0
+        grid = cfg["layout"] == "grid"
+        fn = _torch_fn(cfg["fun"])
+        B, n = y0.shape
+        k = 0 if params is None else params.shape[1]
+        f64 = torch.float64
+        p_rows = (() if params is None
+                  else tuple(params.to(f64)[:, j] for j in range(k)))
+
+        def f_of(t, yy, *pp):
+            if not k:
+                return fn(t, yy)
+            return fn(t, yy, torch.stack(pp) if grid else pp)
+
+        def fun_bw(t, z):
+            # [-J^T mu; (df/dp)^T mu] at y = sol(t), each member at its own
+            # t, read in float32 as the forward recorded it
+            y = evaluate_members(sol, t.to(torch.float32), direction)
+            _, pull = torch.func.vjp(lambda yy, *pp: f_of(t, yy, *pp),
+                                     y.T.to(z.dtype), *p_rows)
+            JTmu, *DTmu = pull(z[:n])
+            return torch.cat([-JTmu] + [d[None] for d in DTmu])
+
+        ct64 = ct.to(f64)
+        zf = torch.cat([ct64, ct64.new_zeros(B, k)], 1)
+        bw = solve_ensemble(fun_bw, (span[1], span[0]), zf,
+                            method=cfg["bw_method"], rtol=cfg["bw_rtol"],
+                            atol=cfg["bw_atol"],
+                            max_steps=cfg["kw"]["max_steps"])
+        solve_fused_adjoint.last_backward = bw
+        # a member that overflowed the record, or whose backward solve did
+        # not finish, gets NaN gradients
+        ok = sol.valid & (bw.status == 1)
+        guard = torch.where(ok, 1.0, torch.nan).to(f64)[:, None]
+        mu0 = bw.y[:, :n] * guard
+        dp = -bw.y[:, n:] * guard
+        # t_span: dL/dtf = sum_b ct_b . f(tf, yf_b); dL/dt0 = -sum_b mu0_b .
+        # f(t0, y0_b)
+        f_tf = _eval(cfg["fun"], tf, y_f, params, grid).to(f64)
+        f_t0 = _eval(cfg["fun"], t0, y0, params, grid).to(f64)
+        dtf = (ct64 * f_tf).sum()
+        dt0 = -(mu0 * f_t0).sum()
+        return (None, dt0.reshape(t0.shape).to(t0.dtype),
+                dtf.reshape(tf.shape).to(tf.dtype), mu0.to(y0.dtype),
+                None if params is None else dp.to(params.dtype))
+
+
 def solve_fused_adjoint(fun, t_span, y0_batch, params, method=None,
                         rtol=1e-4, atol=1e-6, max_steps=100_000,
                         block_members=None, dense=512, bw_method=None,
                         bw_rtol=None, bw_atol=None, layout="flat", k_max=12):
-    """The continuous adjoint through a fused forward solve (JAX's
-    signature); not ported yet: its backward pass interpolates the
-    forward's recorded steps, which waits for ``dense=R`` on the fused
-    kernels (ROADMAP queue B, option 4)."""
-    raise NotImplementedError(
-        "solve_fused_adjoint is not ported yet: it needs dense=R on the "
-        "fused kernels (ROADMAP queue B, remaining option 4, dense)")
+    """``y(t_f)`` of a fused ensemble, ``(B, n)``, differentiable through
+    ``torch.autograd`` by the continuous adjoint: the gradient's cost does
+    not grow with the parameter count (JAX's signature without
+    ``interpret``).
+
+    The forward pass is one launch of B1 (``layout="flat"``, ``fun`` a
+    :class:`FusedRHS` or a rows-first torch function) or of B4
+    (``"grid"``, a ``FusedGridRHS``; see :func:`solve_fused_sens`) with
+    ``params`` (B, k) or None; where an input requires a gradient it
+    records each member's accepted steps (``dense`` rows, at least 1), and
+    ``y(t_f)`` is bit for bit the forward's without the record.  The
+    backward pass integrates ``mu' = -J^T mu``, ``xi' = (df/dp)^T mu`` of
+    every member from t_f to t_0 in one f64 ``solve_ensemble`` on the
+    forward's device (``bw_method``, default BS5, at ``bw_rtol`` /
+    ``bw_atol``, default the forward's, with its ``max_steps``), the
+    products from one ``torch.func.vjp`` of the rows-first function at
+    ``y(t)`` from the record's cubic Hermite dense output, read in float32
+    at each member's own t.  A member whose forward needed more than
+    ``dense`` attempts, or whose backward solve did not finish, gets NaN
+    gradients.  Gradients reach ``t_span``'s tensor ends, ``y0_batch`` and
+    ``params``, accurate to the tolerances.
+
+    The ERK family (``method`` None: BS5) is ported; the ESDIRK, RKN and
+    SWAG routes raise ``NotImplementedError`` (ROADMAP queue B), other
+    families ``ValueError``.  ``k_max`` (SWAG) is accepted and unused.
+    The last backward pass's ``Solution`` (its counters) is left in
+    ``solve_fused_adjoint.last_backward``.
+    """
+    _adjoint_family(method)
+    if layout not in ("flat", "grid"):
+        raise ValueError(f"layout must be 'flat' or 'grid', got {layout!r}")
+    if dense_rows(dense) < 1:
+        raise ValueError(f"dense must be at least 1, got {dense}")
+    y0 = as_input(y0_batch, torch.float32)
+    if params is not None and not isinstance(params, torch.Tensor):
+        params = torch.as_tensor(np.asarray(params, np.float32),
+                                 device=y0.device)
+    t0, tf = (x if isinstance(x, torch.Tensor) else
+              torch.tensor(float(x), dtype=torch.float32, device=y0.device)
+              for x in t_span)
+    wanted = torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in (t0, tf, y0, params))
+    cfg = dict(fun=fun, method=method, layout=layout,
+               dense=dense_rows(dense) if wanted else None,
+               bw_method=bw_method,
+               bw_rtol=rtol if bw_rtol is None else bw_rtol,
+               bw_atol=atol if bw_atol is None else bw_atol,
+               kw=dict(rtol=rtol, atol=atol, max_steps=max_steps,
+                       block_members=block_members))
+    return _FusedAdjoint.apply(cfg, t0, tf, y0, params)
+
+
+# the f64 Solution of the last backward pass (its counters, for readings)
+solve_fused_adjoint.last_backward = None

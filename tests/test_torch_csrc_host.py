@@ -189,15 +189,16 @@ struct HostSmallMember {
   int comp;
 };
 static HostSmallMember g_small;
+REC_GLOBAL
 
 template <int G>
 static void small_lane(int rank) {
   HostLanes lane{rank};
   const HostSmallMember& a = g_small;
   if (a.comp) {
-    integrate<G, true>(lane, a.y0, PAR_ARG a.L, a.m, a.out);
+    integrate<G, true>(lane, a.y0, PAR_ARG a.L, a.m, a.out REC_ARG);
   } else {
-    integrate<G, false>(lane, a.y0, PAR_ARG a.L, a.m, a.out);
+    integrate<G, false>(lane, a.y0, PAR_ARG a.L, a.m, a.out REC_ARG);
   }
 }
 
@@ -206,8 +207,9 @@ extern "C" int KERNEL_launch(
     void* nfev,
     int B, float t0, float tf, float rtol, float atol, float h0,
     int use_hstart, float max_step, int max_steps, int compensated,
-    int lanes, int block_members, void* stream) {
+    int lanes, int block_members, REC_DECL void* stream) {
   const Out out{(float*)y_out, (int*)status, (int*)nstep, (int*)nfev};
+  REC_SET
   const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
   void (*body)(int) = lanes == 2 ? small_lane<2>
                       : lanes == 4 ? small_lane<4>
@@ -221,9 +223,9 @@ extern "C" int KERNEL_launch(
     const float* parm = PAR_ROW;
     if (lanes == 1) {
       if (compensated) {
-        integrate_thread<true>(y0m, PAR_M L, m, out);
+        integrate_thread<true>(y0m, PAR_M L, m, out REC_ARG);
       } else {
-        integrate_thread<false>(y0m, PAR_M L, m, out);
+        integrate_thread<false>(y0m, PAR_M L, m, out REC_ARG);
       }
     } else {
       g_small = HostSmallMember{y0m, parm, L, m, out, compensated};
@@ -235,14 +237,34 @@ extern "C" int KERNEL_launch(
 }
 """
 # B1 reads the members' parameters ((B, tab::NPAR), row-major); B5 takes
-# none
+# none.  A B1 build with the dense record (tab::REC) takes its arrays and
+# rows after block_members, as fused_erk_record_launch does
 ERK_LAUNCH = (SMALL_LAUNCH.replace("KERNEL", "fused_erk")
               .replace("PAR_DECL", "const void* params,")
               .replace("PAR_ROW", "(const float*)params + m * tab::NPAR")
               .replace("PAR_ARG", "a.par,").replace("PAR_M", "parm,"))
-RKN_LAUNCH = (SMALL_LAUNCH.replace("KERNEL", "fused_rkn")
-              .replace("PAR_DECL", "").replace("PAR_ROW", "nullptr")
-              .replace("PAR_ARG", "").replace("PAR_M", ""))
+REC_DECL = ("void* rec_t, void* rec_y, void* rec_f, void* rec_f0, "
+            "void* rec_n, int rows,")
+REC_SET = ("g_rec = Rec{(float*)rec_t, (float*)rec_y, (float*)rec_f, "
+           "(float*)rec_f0, (int*)rec_n, rows};")
+
+
+def _with_record(launch, record):
+    """``launch`` with its record placeholders filled (``record``) or
+    empty."""
+    parts = {"REC_GLOBAL": "static Rec g_rec;", "REC_ARG": ", g_rec",
+             "REC_DECL": REC_DECL, "REC_SET": REC_SET}
+    for key, text in parts.items():
+        launch = launch.replace(key, text if record else "")
+    return launch
+
+
+ERK_RECORD_LAUNCH = _with_record(ERK_LAUNCH, True)
+ERK_LAUNCH = _with_record(ERK_LAUNCH, False)
+RKN_LAUNCH = _with_record(
+    SMALL_LAUNCH.replace("KERNEL", "fused_rkn").replace("PAR_DECL", "")
+    .replace("PAR_ROW", "nullptr").replace("PAR_ARG", "")
+    .replace("PAR_M", ""), False)
 
 # The SWAG bodies of B3 run one member after another: at one lane the
 # thread-per-member body integrate_thread<COMP>, at G lanes the group body
@@ -625,15 +647,16 @@ struct HostWarp {
 GRID_LAUNCH = HOST_GROUP + HOST_WARP + r"""
 // one member by the body of the header's family (a template, so that the
 // other family's body is never instantiated)
+REC_GLOBAL
 template <bool CK, class Group>
 void host_member(Group& g, float* sm, const float* y0, const float* params,
                  const Launch& L, int m, const Out& out, int compensated) {
   if constexpr (CK) {
     integrate_ck(g, sm, y0, L, m, out);
   } else if (compensated) {
-    integrate<true>(g, sm, y0, params, L, m, out);
+    integrate<true>(g, sm, y0, params, L, m, out REC_ARG);
   } else {
-    integrate<false>(g, sm, y0, params, L, m, out);
+    integrate<false>(g, sm, y0, params, L, m, out REC_ARG);
   }
 }
 
@@ -661,8 +684,9 @@ extern "C" int fused_rk_grid_host(
     int* nsteps, int* nfev,
     int members, float t0, float tf, float dir, float rtol, float atol,
     float h0, int use_hstart, float max_step, int max_steps,
-    int compensated, int lanes, int block_order) {
+    int compensated, int lanes, REC_DECL int block_order) {
   if (lanes != 1 && lanes != 32) return 1;
+  REC_SET
   const Launch L{t0, tf, dir, rtol, atol, h0, use_hstart, max_step,
                  max_steps};
   const Out out{y_out, status, nsteps, nfev};
@@ -685,6 +709,9 @@ extern "C" int fused_rk_grid_host(
   return 0;
 }
 """
+# B4 with the dense record takes its arrays and rows before block_order
+GRID_RECORD_LAUNCH = _with_record(GRID_LAUNCH, True)
+GRID_LAUNCH = _with_record(GRID_LAUNCH, False)
 
 # The mid-size SWAG body (B8) integrate<W> run one member after another on
 # a host buffer in place of shared memory: at lanes = 1 by a one-thread
@@ -1042,6 +1069,14 @@ def libs(tmp_path_factory):
                 rhs.cuda_src, rhs.k, nb)
             launch = ESDIRK_GRID_LAUNCH
         jobs[label] = (kernel, header, launch, RKC_MARKER)
+    vdp_p, fis_p = TK.PROBLEMS["vdp_p"], TG.FISHER_P
+    jobs["vdp_params_rec"] = ("fused_erk", _build.fused_erk_header(
+        FK._fused_consts(TK.BS5), vdp_p.n, vdp_p.cuda_src, vdp_p.k, True),
+        ERK_RECORD_LAUNCH, RKC_MARKER)
+    jobs["grid_fisher_params_rec"] = (
+        "fused_rk_grid", _build.fused_rk_grid_header(
+            FK._fused_consts(TK.BS5), False, fis_p.shape, fis_p.cuda_src,
+            fis_p.k, True), GRID_RECORD_LAUNCH, RKC_MARKER)
     for label, (prob, km) in ADAMS_GRID_VARIANTS.items():
         rhs = TAG.RHS[prob]
         jobs[label] = ("fused_adams_grid", _build.fused_adams_header(
@@ -1165,10 +1200,11 @@ def test_esdirk_lane_body_bit_identical_to_thread_body(libs, case, lanes):
         np.testing.assert_array_equal(a, b)
 
 
-def _small_host(lib, name, span, y0, lanes=1, params=None, **kw):
+def _small_host(lib, name, span, y0, lanes=1, params=None, rows=0, **kw):
     """The host-built B1 (``name`` fused_erk, with the members' ``params``
     or none) or B5 (fused_rkn) on ``y0`` by one thread per member (lanes =
-    1) or ``lanes`` coroutine lanes."""
+    1) or ``lanes`` coroutine lanes; a B1 build with the dense record
+    takes ``rows`` and returns the record's arrays after the outputs."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host lane group switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
@@ -1182,17 +1218,45 @@ def _small_host(lib, name, span, y0, lanes=1, params=None, **kw):
         if params is not None:
             params = np.ascontiguousarray(params, np.float32)
         first.append(None if params is None else params.ctypes.data)
-    fn.argtypes = [vp] * (4 + len(first)) + [ci, cf, cf, cf, cf, cf, ci, cf,
-                                             ci, ci, ci, ci, vp]
+    rec = _HostRecord(y0, rows)
+    fn.argtypes = ([vp] * (4 + len(first)) + [ci, cf, cf, cf, cf, cf, ci, cf,
+                                              ci, ci, ci, ci]
+                   + rec.argtypes + [vp])
     rc = fn(*first, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
             nf.ctypes.data, nb,
             *FK.launch_args(span, kw["rtol"], kw["atol"],
                             kw.get("first_step"),
                             kw.get("max_steps", 100_000),
                             kw.get("compensated", False), None),
-            lanes, max(1, 128 // lanes), None)
+            lanes, max(1, 128 // lanes), *rec.args(), None)
     assert rc == 0
-    return out, st, ns, nf
+    return (out, st, ns, nf) + rec.arrays()
+
+
+class _HostRecord:
+    """The dense record's arrays of a host launch at ``rows`` a member
+    (none at 0), filled with NaN so that a row the kernel leaves shows."""
+
+    def __init__(self, y0, rows):
+        nb, n = y0.shape
+        self.rows = rows
+        self.t = np.full((nb, rows), np.nan, np.float32)
+        self.y = np.full((nb, rows, n), np.nan, np.float32)
+        self.f = np.full((nb, rows, n), np.nan, np.float32)
+        self.f0 = np.full((nb, n), np.nan, np.float32)
+        self.n = np.full(nb, -1, np.int32)
+        self.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                         if rows else [])
+
+    def args(self):
+        if not self.rows:
+            return ()
+        return (self.t.ctypes.data, self.y.ctypes.data, self.f.ctypes.data,
+                self.f0.ctypes.data, self.n.ctypes.data, self.rows)
+
+    def arrays(self):
+        return ((self.t, self.y, self.f, self.f0, self.n) if self.rows
+                else ())
 
 
 def _erk_host(lib, span, y0, **kw):
@@ -1517,11 +1581,12 @@ def _rkn_host(lib, span, y0, **kw):
 
 
 def _grid_host(lib, span, y0, lanes=1, block_order=False, params=None,
-               **kw):
+               rows=0, **kw):
     """The host-built grid body on ``y0`` (and the members' ``params``) by
     a one-thread group (lanes = 1) or a warp of 32 coroutine lanes, whose
     reductions take their own lane's butterfly result or, with
-    ``block_order``, lane 0's."""
+    ``block_order``, lane 0's; a B4 build with the dense record takes
+    ``rows`` and returns the record's arrays after the outputs."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host warp switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
@@ -1532,16 +1597,19 @@ def _grid_host(lib, span, y0, lanes=1, block_order=False, params=None,
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
     fn = lib.fused_rk_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 6 + [ci] + [cf] * 6 + [ci, cf, ci, ci, ci, ci]
+    rec = _HostRecord(y0, rows)
+    fn.argtypes = ([vp] * 6 + [ci] + [cf] * 6 + [ci, cf, ci, ci, ci]
+                   + rec.argtypes + [ci])
     t0, tf, rt, at, h0, use_h, mstep, msteps, comp = FK.launch_args(
         span, kw["rtol"], kw["atol"], kw.get("first_step"),
         kw.get("max_steps", 100_000), kw.get("compensated", False), None)
     rc = fn(y0.ctypes.data, None if par is None else par.ctypes.data,
             out.ctypes.data, st.ctypes.data, ns.ctypes.data,
             nf.ctypes.data, nb, t0, tf, float(np.sign(tf - t0)), rt, at, h0,
-            use_h, mstep, msteps, comp, lanes, int(block_order))
+            use_h, mstep, msteps, comp, lanes, *rec.args(),
+            int(block_order))
     assert rc == 0
-    return out, st, ns, nf
+    return (out, st, ns, nf) + rec.arrays()
 
 
 
@@ -2209,3 +2277,142 @@ def test_grid_params_first_attempts_bit_identical(grid_param_libs, case,
     for a, b in zip(host, ref):
         np.testing.assert_array_equal(a, b)
 
+
+
+# -- the dense record (dense=R) of B1 and B4 ----------------------------------
+
+def _record_case(kind, lanes=1, rows=400, compensated=False, **over):
+    """(host outputs with the record's arrays, plain version's outputs with
+    its FusedDenseSolution) of B1 on the mu sweep of Van der Pol (t in [0,
+    3], rtol 1e-5 / atol 1e-8) or B4 on the Fisher MoL with r a member (t
+    in [0, 0.25]); ``compensated`` runs B1's other mode at rtol 1e-6 /
+    atol 1e-9."""
+    from extensisq_tpu_torch.ops.fused_erk_grid import \
+        fused_erk_grid_reference
+    kw = (dict(rtol=1e-6, atol=1e-9, compensated=True) if compensated
+          else dict(rtol=1e-5, atol=1e-8))
+    kw.update(over)
+    if kind == "erk":
+        y0, par, span = TK.VDPP0, TK.MUS, (0.0, 3.0)
+        host = _erk_host(LIBS_OF["vdp_params_rec"], span, y0, lanes=lanes,
+                         params=par, rows=rows, **kw)
+        ref = FK.fused_erk_reference(TK.PROBLEMS["vdp_p"], span,
+                                     torch.tensor(y0), method=TK.BS5,
+                                     params=torch.tensor(par), dense=rows,
+                                     **kw)
+    else:
+        (y0, par), span = TG.fisher_p_inputs(), (0.0, 0.25)
+        host = _grid_host(LIBS_OF["grid_fisher_params_rec"], span, y0,
+                          lanes=lanes, params=par, rows=rows, **kw)
+        ref = fused_erk_grid_reference(TG.FISHER_P, span, torch.tensor(y0),
+                                       method=TK.BS5,
+                                       params=torch.tensor(par), dense=rows,
+                                       **kw)
+    return host, ref, span, y0
+
+
+def _host_solution(host, span, y0):
+    from extensisq_tpu_torch.ops.fused_dense import record_solution
+    rt, ry, rf, f0, nrec = (torch.tensor(a) for a in host[4:])
+    return record_solution(span, torch.tensor(y0), f0, rt, ry, rf, nrec,
+                           torch.tensor(host[2]))
+
+
+# (kind, lanes, compensated, rows, gate on the two dense outputs at 97
+# common times, gate on |dnfev|).  From the second attempt powf and
+# torch.pow part the last bits of h, so the nodes part (by up to 5e-4 in t
+# on erk, 1e-2 compensated, 3e-3 on grid) with equal step counts, and the
+# dense outputs differ by their interpolation error between the nodes.
+# Measured: erk 1.0e-5; erk at 8 lanes compensated 1.3e-4 (a member 7
+# evaluations apart); grid 2.2e-4, at 32 lanes 1.8e-4.  Gates about 3x.
+# Van der Pol takes 14-21 attempts, Fisher 7: rows 12 and 4 overflow every
+# member
+RECORD_CASES = [
+    ("erk", 1, False, 400, 3e-5, 0), ("erk", 8, False, 400, 3e-5, 0),
+    ("erk", 1, True, 400, 4e-4, 14), ("erk", 8, True, 400, 4e-4, 14),
+    ("erk", 4, False, 12, 3e-5, 0),
+    ("grid", 1, False, 400, 6e-4, 0), ("grid", 32, False, 400, 6e-4, 0),
+    ("grid", 1, False, 4, 6e-4, 0)]
+
+
+@pytest.mark.parametrize("kind,lanes,comp,rows,gate,dnfev", RECORD_CASES)
+def test_dense_record_matches_plain_version(grid_param_libs, kind, lanes,
+                                            comp, rows, gate, dnfev):
+    """B1 (one thread, 4 and 8 coroutine lanes) and B4 (one thread, a warp
+    of 32 coroutine lanes) with the dense record against their plain
+    versions: equal status, nsteps and valid, nfev within the gate, the
+    dense outputs within the gate; every row written and no other, the
+    last node the final state at tf and each row's f the right-hand side
+    at its (t, y)."""
+    host, ref, span, y0 = _record_case(kind, lanes, rows, comp)
+    np.testing.assert_array_equal(host[1], ref[1].numpy())
+    np.testing.assert_array_equal(host[2], ref[2].numpy())
+    assert np.max(np.abs(host[3] - ref[3].numpy())) <= dnfev
+    rt, ry, rf, f0, nrec = host[4:]
+    assert np.all(nrec == np.minimum(host[2], nrec))
+    written = np.arange(rows)[None] < nrec[:, None]
+    assert np.all(np.isfinite(rt[written])) and np.all(np.isnan(rt[~written]))
+    sol, rsol = _host_solution(host, span, y0), ref[4]
+    np.testing.assert_array_equal(sol.valid.numpy(), rsol.valid.numpy())
+    assert bool(sol.valid.all()) == (rows >= 100)
+    if rows < 100:
+        return
+    b = np.arange(len(y0))
+    np.testing.assert_array_equal(rt[b, nrec - 1], np.float32(span[1]))
+    np.testing.assert_array_equal(ry[b, nrec - 1], host[0])
+    fun = (TK.PROBLEMS["vdp_p"].torch_fn if kind == "erk"
+           else TG.FISHER_P.torch_fn)
+    par = torch.tensor(TK.MUS if kind == "erk" else TG.fisher_p_inputs()[1])
+    p = tuple(par.T) if kind == "erk" else par.T
+    for j in range(0, int(nrec.min()), 3):
+        f = fun(torch.tensor(rt[:, j]), torch.tensor(ry[:, j]).T, p).T
+        assert np.max(np.abs(f.numpy() - rf[:, j])) <= 1e-5 * max(
+            1.0, np.abs(rf[:, j]).max())
+    tq = torch.linspace(span[0], span[1], 97)
+    assert (sol(tq) - rsol(tq)).abs().max().item() <= gate
+
+
+@pytest.mark.parametrize("kind,lanes,comp", [
+    ("erk", 2, False), ("erk", 4, False), ("erk", 8, False), ("erk", 4, True),
+    ("erk", 8, True)])
+def test_dense_record_lane_body_bit_identical_to_thread_body(
+        grid_param_libs, kind, lanes, comp):
+    """B1's group body on 2, 4 and 8 coroutine lanes writes the thread
+    body's record bit for bit, with its outputs."""
+    a, _, _, _ = _record_case(kind, lanes, 400, comp)
+    b, _, _, _ = _record_case(kind, 1, 400, comp)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("kind,lanes,comp", [
+    ("erk", 1, False), ("erk", 8, True), ("grid", 1, False),
+    ("grid", 32, False)])
+def test_dense_record_leaves_the_outputs_as_they_are(grid_param_libs, kind,
+                                                     lanes, comp):
+    """The record's build gives the outputs of the build without it (the
+    params builds of the other tests) bit for bit."""
+    rec, _, span, y0 = _record_case(kind, lanes, 400, comp)
+    kw = (dict(rtol=1e-6, atol=1e-9, compensated=True) if comp
+          else dict(rtol=1e-5, atol=1e-8))
+    if kind == "erk":
+        off = _erk_host(LIBS_OF["vdp_params"], span, y0, lanes=lanes,
+                        params=TK.MUS, **kw)
+    else:
+        off = _grid_host(LIBS_OF["grid_fisher_params"], span, y0,
+                         lanes=lanes, params=TG.fisher_p_inputs()[1], **kw)
+    for x, y in zip(rec[:4], off):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_dense_record_first_attempts_bit_identical(grid_param_libs):
+    """With ``first_step`` given, B1's and B4's records of their first
+    attempt (f0 and the first row) repeat the plain versions' bit for bit
+    (from the second, powf and torch.pow part the last bits of h)."""
+    for kind in ("erk", "grid"):
+        host, ref, span, y0 = _record_case(kind, 1, 400, first_step=1e-3,
+                                           max_steps=1)
+        assert np.all(host[8] == 1)
+        sol, rsol = _host_solution(host, span, y0), ref[4]
+        for name in ("ts", "y_anchor", "Q", "valid"):
+            assert torch.equal(getattr(sol, name), getattr(rsol, name))

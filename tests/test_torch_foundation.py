@@ -224,3 +224,24 @@ def test_package_imports_no_jax():
             "assert not any(m.startswith('jax') for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=300)
+
+
+# ops names of the JAX package still queued for the port (ROADMAP A17)
+OPS_QUEUED = {"solve_fused_erk_complex", "cmul", "conj_mul"}
+
+
+def test_top_level_and_ops_names_of_jax_exist():
+    """Every name of the JAX package's top-level ``__all__`` is exported at
+    the port's top level and listed in its ``__all__`` (Stepper and
+    OdeSolution among them); every name of JAX's ``ops.__all__`` is in the
+    port's, but those queued (A17)."""
+    import extensisq_tpu.ops as jops
+    for name in X.__all__:
+        assert hasattr(P, name), name
+        assert name in P.__all__, name
+    assert P.Stepper is P.ivp.Stepper
+    assert P.OdeSolution is P.core.interpolate.OdeSolution
+    missing = set(jops.__all__) - set(P.ops.__all__)
+    assert missing == OPS_QUEUED
+    for name in P.ops.__all__:
+        assert hasattr(P.ops, name), name

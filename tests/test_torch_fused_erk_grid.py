@@ -364,7 +364,7 @@ def test_params_k_read_from_the_two_rhs_classes_only(fun):
     assert member_params(p, torch.zeros(B, 4), obj) is p
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events", "dense"])
+@pytest.mark.parametrize("option", ["t_eval", "events"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_fused_erk_grid(RHS["fisher"], (0.0, 1.0), torch.tensor(FIS0),

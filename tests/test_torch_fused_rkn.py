@@ -622,10 +622,11 @@ def test_build_keys_hash_the_included_headers(monkeypatch, tmp_path):
     expect = {"fused_rkn": ["rk_common.cuh", "hstart.cuh",
                             "rk_control.cuh", "rk_lanes.cuh", "rk_rows.cuh",
                             "lane_group.cuh"],
-              "fused_rk_grid": ["grid_common.cuh", "rk_common.cuh",
-                                "rk_control.cuh", "rk_rows.cuh",
-                                "block_rows.cuh", "ck_control.cuh",
-                                "block_hstart.cuh", "block_group.cuh"]}
+              "fused_rk_grid": ["grid_common.cuh", "dense_record.cuh",
+                                "rk_common.cuh", "rk_control.cuh",
+                                "rk_rows.cuh", "block_rows.cuh",
+                                "ck_control.cuh", "block_hstart.cuh",
+                                "block_group.cuh"]}
     for name, headers in expect.items():
         assert [p.name for p in _build.shared_headers(name)] == headers
         before = _build.build_key(name, "header")

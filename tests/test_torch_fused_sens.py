@@ -26,8 +26,7 @@ import scipy.linalg as sl
 import torch
 
 from extensisq_tpu_torch import BS5, SSV2stab, TRBDF2
-from extensisq_tpu_torch.ops import (FusedGridRHS, FusedRHS,
-                                     solve_fused_adjoint, solve_fused_erk,
+from extensisq_tpu_torch.ops import (FusedGridRHS, FusedRHS, solve_fused_erk,
                                      solve_fused_erk_grid, solve_fused_esdirk,
                                      solve_fused_final, solve_fused_sens)
 
@@ -382,11 +381,6 @@ def test_fused_sens_argument_checks(kw, match):
     Y0, _ = _vdp_setup()
     with pytest.raises(ValueError, match=match):
         solve_fused_sens(VDP_P, SPAN, Y0, **kw)
-
-
-def test_fused_adjoint_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="dense"):
-        solve_fused_adjoint(VDP_P, SPAN, *_vdp_setup())
 
 
 # -- on the card -------------------------------------------------------------

@@ -124,6 +124,18 @@ def sass_ops(so):
     return counts
 
 
+def sass_same(old, new):
+    """Whether two builds' kernels have the same SASS opcodes, kernel by
+    kernel (their mangled names differ where the launch's parameters do),
+    and each build's total instruction count."""
+    counts = [sass_ops(b["so"]) for b in (old, new)]
+    if any(isinstance(c, str) for c in counts):
+        return counts[0], None
+    keys = [sorted(sorted(c.items()) for c in cs.values()) for cs in counts]
+    return keys[0] == keys[1], [sum(sum(c.values()) for c in cs.values())
+                                for cs in counts]
+
+
 def write_out(tag, out):
     """Write ``out`` to chiprun_out/<tag>.json."""
     Path("chiprun_out").mkdir(exist_ok=True)

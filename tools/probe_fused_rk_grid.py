@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 import chip_smoke as CS
-from _probe import (build, card, launch_signature, ptxas_lines, sass_ops,
+from _probe import (build, card, launch_signature, ptxas_lines, sass_same,
                     turns, write_out)
 from extensisq_tpu_torch import BS5, Fi5N
 from extensisq_tpu_torch.ops import FusedGridRHS, _build
@@ -124,18 +124,6 @@ def build_rk(src_dir, hdr, tag, flags=()):
         lib.fused_rk_grid_sections.argtypes = [V]
         lib.fused_rk_grid_sections.restype = I
     return b
-
-
-def sass_same(old, new):
-    """Whether two builds' kernels have the same SASS opcodes, kernel by
-    kernel (their mangled names differ where the launch's parameters do),
-    and each build's total instruction count."""
-    counts = [sass_ops(b["so"]) for b in (old, new)]
-    if any(isinstance(c, str) for c in counts):
-        return counts[0], None
-    keys = [sorted(sorted(c.items()) for c in cs.values()) for cs in counts]
-    return keys[0] == keys[1], [sum(sum(c.values()) for c in cs.values())
-                                for cs in counts]
 
 
 def parse_shape(text):

@@ -53,7 +53,9 @@ of the slowest member of its warp and the attempts in which its warp's
 members took other cascade paths (a ballot of go2, go4, accept4 and
 fb3_ok), printed as the warp's wait and divergence.  The instrumented
 launches are not timed against
-the others.  Prints the shape each wrapper's rule takes (where it has
+the others.  Prints whether each family's old and new builds have the
+same SASS opcodes, kernel by kernel, the shape each wrapper's rule takes
+(where it has
 one), registers, spills and the float32 SASS mix of every build; writes
 chiprun_out/<--tag>.json.
 
@@ -75,7 +77,7 @@ import torch
 
 import chip_smoke as CS
 from _probe import (build, card, launch_signature, ptxas_lines, sass_ops,
-                    turns, write_out)
+                    sass_same, turns, write_out)
 from extensisq_tpu_torch import BS5, Fi5N
 from extensisq_tpu_torch.ops import _build
 from extensisq_tpu_torch.ops import fused_ckdisc as FC
@@ -467,6 +469,11 @@ def main():
             print(f"sass[{k}] {fn}: {mix}")
         OUT[f"build_{k}"] = {"seconds": b["seconds"], "log": b["log"],
                              "convention": b["conv"], "sass": sass}
+    for f in families:
+        same, sizes = sass_same(builds[f"old {f}"], builds[f"new {f}"])
+        print(f"SASS [{f}]: old and new opcodes kernel by kernel identical "
+              f"{same}; instructions old / new {sizes}")
+        OUT[f"sass_same_{f}"] = same
     shapes = [s for s in args.shapes.split(",") if s]
     sizes = [int(x) for x in args.sizes.split(",")]
     fixed = [int(x) for x in args.fixed.split(",") if x]

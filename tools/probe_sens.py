@@ -12,7 +12,10 @@ flat variant against its plain version on the card, config 7a through
 ``chip_smoke.sens_grid_path`` (each grid variant against its plain
 version, the 64-member Fisher sweep at n = 256 and the 32-member
 reaction-diffusion sweep at n = 128 through ``solve_fused_sens(layout=
-"grid")``), with their times.  ``--grid`` runs the grid phase only.
+"grid")``), with their times.  ``--grid`` runs the grid phase only;
+``--adjoint`` runs ``chip_smoke.adjoint_path`` alone (B1 and B4 with the
+dense record against their plain versions, configs 7d and 7b through
+``solve_fused_adjoint``; three builds).
 
 ``--inline`` then also builds the two variational grid systems with their
 augmented ``rhs`` inlined (``__forceinline__`` for the generated
@@ -22,7 +25,7 @@ events, the shipped out-of-line build against the inlined one in turns
 the medians, their ratio and how far the inlined outputs lie from the
 shipped ones.  Run from the repository root:
 
-    PYTHONPATH=. python tools/probe_sens.py [--grid] [--inline]
+    PYTHONPATH=. python tools/probe_sens.py [--grid | --adjoint] [--inline]
 """
 import statistics
 import subprocess
@@ -89,6 +92,14 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
+    if "--adjoint" in sys.argv[1:]:
+        C.build_all(C.sens_builds(C.sens_rhs())[:1]
+                    + C.adjoint_builds(C.adjoint_rhs()))
+        erk, grid = C.adjoint_path()
+        print(f"fused_erk: {erk}")
+        print(f"fused_erk_grid: {grid}")
+        print(smi.splitlines()[0])
+        return 0
     C.build_all(([] if grid_only else C.sens_builds(C.sens_rhs()))
                 + C.sens_grid_builds(C.sens_grid_rhs()))
     if not grid_only:
