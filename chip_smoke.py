@@ -367,13 +367,14 @@ def event_ms(fn):
 
 
 def hold_against_plain(tag, label, kernel, plain, y_gate, step_gate,
-                       dstep_gate=None):
+                       dstep_gate=None, scaled=False):
     """Run ``kernel()`` and ``plain()`` (each returning ``(y, status,
     nsteps, nfev)`` for the same members), print how far apart they are and
     fail past the gates: identical status, max |dy| over the members the
-    plain version finished, relative difference of mean nsteps and, where
-    given, max |dnsteps|.  Returns (kernel result, plain result, max |dy|,
-    plain version's seconds)."""
+    plain version finished (with ``scaled``, each component's |dy| over
+    that component's largest |y| among them), relative difference of mean
+    nsteps and, where given, max |dnsteps|.  Returns (kernel result, plain
+    result, max |dy|, plain version's seconds)."""
     t0 = time.perf_counter()
     k = kernel()
     torch.cuda.synchronize()
@@ -383,14 +384,20 @@ def hold_against_plain(tag, label, kernel, plain, y_gate, step_gate,
     torch.cuda.synchronize()
     r_s = time.perf_counter() - t0
     ok = r[1] == 1
-    ydiff = (k[0][ok] - r[0][ok]).abs().max().item() if ok.any() else 0.0
+    ydiff = 0.0
+    if ok.any():
+        dy = (k[0][ok] - r[0][ok]).abs()
+        if scaled:
+            dy = dy / r[0][ok].abs().amax(0)
+        ydiff = dy.max().item()
+    what = " over each component's largest" if scaled else ""
     step_rel = abs(k[2].double().mean().item()
                    / r[2].double().mean().item() - 1.0)
     print(f"{tag} kernel vs plain [{label}, {k[0].shape[0]}]: status equal "
-          f"{torch.equal(k[1], r[1])}, max |dy| {ydiff:.3e} (gate "
-          f"{y_gate:.0e}), mean nsteps {k[2].double().mean():.4f} vs "
+          f"{torch.equal(k[1], r[1])}, max |dy|{what} {ydiff:.3e} (gate "
+          f"{y_gate:.1e}), mean nsteps {k[2].double().mean():.4f} vs "
           f"{r[2].double().mean():.4f} (rel {step_rel:.2e}, gate "
-          f"{step_gate:.0e}), max |dnsteps| "
+          f"{step_gate:.1e}), max |dnsteps| "
           f"{(k[2] - r[2]).abs().max().item()}, mean nfev "
           f"{k[3].double().mean():.3f} vs {r[3].double().mean():.3f}, "
           f"members with other counts "
@@ -500,8 +507,8 @@ def adams_builds(rhs):
 def build_all(jobs):
     """Build every (kernel, label, rhs, options) variant with one nvcc
     each, all started together; print seconds, registers and spills.  A
-    kernel name ending in ``_rec`` (B1, B4) is the build with the dense
-    record."""
+    kernel name ending in ``_rec`` (B1, B2, B4-B7) is the build with the
+    dense record."""
     from extensisq_tpu_torch import BS5
     from extensisq_tpu_torch.ops import _build
     from extensisq_tpu_torch.ops.fused_adams import _adams_consts
@@ -513,25 +520,27 @@ def build_all(jobs):
 
     def build(job):
         kernel, _, rhs, opt = job
+        rec = kernel.endswith("_rec")
+        kernel = kernel.removesuffix("_rec")
         if kernel == "fused_rkn":
             return _build.load_fused_rkn(rkn_consts(opt), rhs.m,
-                                         rhs.cuda_src)
-        if kernel in ("fused_erk_grid", "fused_erk_grid_rec"):
+                                         rhs.cuda_src, rhs.k, rec)
+        if kernel == "fused_erk_grid":
             return _build.load_fused_rk_grid(
                 _fused_consts(opt), False, rhs.shape, rhs.cuda_src, rhs.k,
-                kernel.endswith("_rec"))
+                rec)
         if kernel == "fused_rkn_grid":
             return _build.load_fused_rk_grid(rkn_consts(opt), True,
-                                             (rhs.n,), rhs.cuda_src)
+                                             (rhs.n,), rhs.cuda_src, rhs.k,
+                                             rec)
         if kernel == "fused_ckdisc":
             return _build.load_fused_ckdisc(ck_consts(), rhs.n, rhs.cuda_src)
         if kernel == "fused_ckdisc_grid":
             return _build.load_fused_rk_grid(ck_consts(), False, rhs.shape,
                                              rhs.cuda_src)
-        if kernel in ("fused_erk", "fused_erk_rec"):
+        if kernel == "fused_erk":
             return _build.load_fused_erk(_fused_consts(BS5), rhs.n,
-                                         rhs.cuda_src, rhs.k,
-                                         kernel.endswith("_rec"))
+                                         rhs.cuda_src, rhs.k, rec)
         if kernel == "fused_adams":
             return _build.load_fused_adams(_adams_consts(opt, rhs.n),
                                            rhs.cuda_src)
@@ -541,7 +550,8 @@ def build_all(jobs):
         if kernel == "fused_esdirk_grid":
             method, nb = opt if isinstance(opt, tuple) else (opt, None)
             return _build.load_fused_esdirk_grid(
-                _esdirk_consts(method), rhs.shape, rhs.cuda_src, rhs.k, nb)
+                _esdirk_consts(method), rhs.shape, rhs.cuda_src, rhs.k, nb,
+                rec)
         if kernel == "fused_rkc":
             n_par, rho = opt
             return _build.load_fused_rkc(rhs.shape, n_par, rhs.cuda_src,
@@ -550,7 +560,8 @@ def build_all(jobs):
         method, M, *nb = opt
         return _build.load_fused_esdirk(_esdirk_consts(method),
                                         *_mass_setup(M, rhs.n), rhs.n,
-                                        rhs.cuda_src, rhs.k, *nb)
+                                        rhs.cuda_src, rhs.k,
+                                        nb[0] if nb else None, rec)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -1022,7 +1033,7 @@ def small_launch(kind, rhs, span, y0, kw, lanes):
                           kw.pop("max_steps", 100_000),
                           kw.pop("max_step", None), lanes)[0]
     mod = FK if kind == "fused_erk" else FN
-    extra = (None, kw.pop("params", None)) if kind == "fused_erk" else ()
+    extra = (None, kw.pop("params", None))
     return mod._launch(rhs, span, y0, kw.pop("method", None), kw.pop("rtol"),
                        kw.pop("atol"), kw.pop("first_step", None),
                        kw.pop("max_steps", 100_000),
@@ -2563,7 +2574,11 @@ MID_KERNEL_GATES = {"heat32": (1e-4, 2e-2, 4), "skew_back": (2e-6, 1e-2, 1),
 # RHS_OPS of the mid-size lines, per element: the heat stencil (two adds, a
 # product, a difference and the scale) and the reaction-diffusion's (the
 # same and y^2 (1 - y), its sum with the stencil)
-RHS_OPS.update({"heat": 5, "rdiff": 9})
+RHS_OPS.update({"heat": 5, "rdiff": 9,
+                # the tangent of a row of config 4d's reaction-diffusion
+                # (its band passes): the stencil (4), y y (3), the product
+                # with 1 - y (3) and the sum (1)
+                "rdiff_band": 11})
 
 
 def heat_mol(n, diff):
@@ -2742,22 +2757,21 @@ def adams_grid_ops(n, km, rhs_ops, nfev_sum, nsteps_sum, init_sum):
             + nsteps_sum * n * ((km + 3) + 6 + rhs_ops))
 
 
-def esdirk_grid_ops(n, k, rhs_ops, newton_evals, nsteps_sum, nb=None,
-                    band_ops=None):
+def esdirk_grid_ops(n, k, rhs_ops, newton_evals, nsteps_sum, band_ops,
+                    nb=None):
     """float32 operations of a B7 run whose members made ``newton_evals``
     Newton RHS evaluations and took ``nsteps_sum`` steps (rejected attempts
     not counted, so this is a lower bound), counted from
     csrc/fused_esdirk_grid.cu with L = ceil(log2 nb) reduction rounds: per
     element of the base block (nb rows, n without block_base) the band
-    passes of each attempt (``band_ops``; by default four dual RHS passes
-    of 3 rhs_ops and 3 band sums each), W (3) and the reduction's
-    multipliers (12 L + 3);
+    passes of each attempt (``band_ops``: the tangent of the row in the 3
+    of the 4 striped passes whose seeds touch it, as the work the row
+    needs), W (3) and the reduction's multipliers (12 L + 3);
     per element of the state the stage sums (4 per weight of A and Az), the
     solution, error and its norm (2 S + 8) and the filter's replay (4 L +
     2), and each Newton iteration's point (2), RHS, right-hand side (3),
     replay (4 L + 1), norm (6) and update (1)."""
     nb = n if nb is None else nb
-    band_ops = 4 * (3 * rhs_ops + 3) if band_ops is None else band_ops
     L = (nb - 1).bit_length()
     s = k["s"]
     stage = sum(_wsum_ops(k["A"][i, :i]) + _wsum_ops(k["Az"][i, :i]) + 4
@@ -3052,7 +3066,8 @@ def mid_path():
                            esdirk_grid_ops(RD_N, _esdirk_consts(Kv3I),
                                            RHS_OPS["rdiff"],
                                            int(rd[3].sum()) - RD_M,
-                                           int(rd[2].sum()))))]
+                                           int(rd[2].sum()),
+                                           3 * RHS_OPS["rdiff_band"])))]
 
 
 # the trajectory phase: the f64 driver's dense output, events and windows
@@ -3487,17 +3502,22 @@ SENS_KERNEL_GATES = {"vdp params": (1e-3, 2e-3, 2),
                      "stiff params": (1e-5, 2e-3, 1),
                      "robertson variational": (5e-5, 2e-3, 1)}
 SENS_SCALED_GATE = 2e-3
-# float32 operations per evaluation of the variational Robertson system
-# (n = 3, k = 3: 12 rows) in B2, counted from the source as OPS_PER_EVAL:
-# the rhs (8) and three dual evaluations (~20 each), the blockwise replay
-# of the 3 x 3 factor over four blocks (~72), the Newton update's scaled
-# norm over 12 rows (~96); the per-attempt Jacobian (three duals of the
-# base rhs) and factor are spread over the attempt's evaluations
-SENS_ESDIRK_OPS = 250
+# float32 operations per Newton evaluation of the variational Robertson
+# system (n = 3, k = 3: 12 rows) in B2, counted from the source as the
+# work each row needs (SG_RHS_OPS' rule: an addition, subtraction or
+# multiplication one, a negation and a product with a seed of 1 or 0
+# none): the base rows (8) and the three tangent blocks, each the tangent
+# of the rates and of the rows at the block's seed (12: 36), the
+# blockwise replay of the 3 x 3 factor over four blocks (15 each: 60),
+# and per row the point psi + d z (2), the update's right-hand side h f -
+# z (2), its scaled norm (6) and the update (1) (132).  The attempt's
+# base Jacobian and factor are left out, so the count is a lower bound
+SENS_ESDIRK_OPS = 236
 # the variational Van der Pol system of 7b (k = 1 and the 2 initial
-# condition blocks: 8 rows): the rhs (5) and three dual evaluations (~13
-# each) per 8 elements of a stage row
-SENS_VDP_AUG_RHS_OPS = 44 / 8
+# condition blocks: 8 rows), per element of a stage row: the base rows (5)
+# and three tangent blocks (8 each, and the seeded mu's 1), as the work
+# each row needs
+SENS_VDP_AUG_RHS_OPS = 30 / 8
 
 VDP_P_CUDA = """
 template <class T>
@@ -4075,8 +4095,8 @@ def sens_grid_path():
         n_r, _esdirk_consts(TRBDF2),
         (SG_RHS_OPS["rd"] + SG_RHS_OPS["rd_tangent_k"]
          + SG_RHS_OPS["rd_tangent_d"]) / 3,
-        int(rnf.sum()) - SG_RD_M, int(rns.sum()), nb=SG_RD_N,
-        band_ops=3 * SG_RHS_OPS["rd_band"])
+        int(rnf.sum()) - SG_RD_M, int(rns.sum()),
+        3 * SG_RHS_OPS["rd_band"], nb=SG_RD_N)
     bound_r = bound_entry(SG_RD_M * 4 * (2 * n_r + 2 + 3), ops_r)
     print(f"bound [sens grid Fisher]: {bound_f['bound_ms']:.4f} ms "
           f"({bound_f['bound_by']}); [sens grid reaction-diffusion]: "
@@ -4198,14 +4218,16 @@ def _scaled(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def hold_record(label, k, r, span):
+def hold_record(label, k, r, span, gates=None, scaled=False):
     """A kernel run ``k`` and its plain version's ``r``, each with its
     dense output fifth: equal valid; each member's last node its final
     state at tf, bit for bit; the dense outputs at 97 common times and the
     kernel's nodes against the plain version's dense output at their times
-    within ``ADJ_DENSE_GATES[label]``."""
+    within ``gates`` (by default ``ADJ_DENSE_GATES[label]``); with
+    ``scaled``, each component's difference over that component's largest
+    |y| in the plain version's dense outputs or nodes."""
     from extensisq_tpu_torch.ops.fused_dense import _evaluate
-    sol_gate, node_gate = ADJ_DENSE_GATES[label]
+    sol_gate, node_gate = gates or ADJ_DENSE_GATES[label]
     sol, ref = k[4], r[4]
     check(torch.equal(sol.valid, ref.valid), f"{label}: valid differs")
     # node nsteps (the first of the inert tail) repeats the last step's end
@@ -4216,16 +4238,23 @@ def hold_record(label, k, r, span):
         sol.ts[:, 0], float(np.float32(span[1]))))
         and torch.equal(sol.y_anchor[b[inner], last[inner]], k[0][inner]))
     tq = torch.linspace(*span, 97, device="cuda")
-    d_sol = (sol(tq) - ref(tq)).abs().max().item()
+    # sol(tq) is (B, n, 97), the nodes (B, R, n)
+    ref_q = ref(tq)
+    d_sol = (sol(tq) - ref_q).abs()
     sgn = 1.0 if span[1] >= span[0] else -1.0
     nodes = torch.arange(sol.h.shape[1], device="cuda")[None] < last[:, None]
     at = _evaluate(ref, sol.t_anchor, sgn)
-    d_node = (sol.y_anchor - at).abs().amax(-1)[nodes].max().item()
+    d_node = (sol.y_anchor - at).abs()[nodes]
+    if scaled:
+        d_sol = d_sol / ref_q.abs().amax((0, 2))[:, None]
+        d_node = d_node / at[nodes].abs().amax(0)
+    d_sol, d_node = d_sol.max().item(), d_node.max().item()
+    what = " over each component's largest" if scaled else ""
     print(f"adjoint record [{label}, {k[0].shape[0]}]: valid equal "
           f"(all {bool(sol.valid.all())}), the last nodes the final states "
-          f"at tf {ends}, dense outputs at 97 times max |d| {d_sol:.3e} "
-          f"(gate {sol_gate:.0e}), the nodes against the plain version's "
-          f"dense output max |d| {d_node:.3e} (gate {node_gate:.0e})")
+          f"at tf {ends}, dense outputs at 97 times max |d|{what} {d_sol:.3e} "
+          f"(gate {sol_gate:.1e}), the nodes against the plain version's "
+          f"dense output max |d|{what} {d_node:.3e} (gate {node_gate:.1e})")
     check(ends, f"{label}: the last nodes are not the final states")
     check(d_sol <= sol_gate, f"{label}: dense outputs differ by {d_sol}")
     check(d_node <= node_gate, f"{label}: nodes differ by {d_node}")
@@ -4308,38 +4337,60 @@ def adjoint_kernel_checks(R, y0b, mus, fy0, rates):
     return errs, plain_s
 
 
-def _launch_args(kind, built, y0, out, params, span, tol, shape, rec):
-    """The C arguments of one launch of B1 (``kind`` fused_erk) or B4 at
-    ``shape`` into the preallocated ``out`` (and ``rec``, a DenseRecord,
-    where it has rows), as the wrappers pass them."""
+# the C library of each wrapper module's kernel
+KERNEL_LIB = {"fused_erk": "fused_erk", "fused_erk_grid": "fused_rk_grid",
+              "fused_rkn": "fused_rkn", "fused_rkn_grid": "fused_rk_grid",
+              "fused_esdirk": "fused_esdirk",
+              "fused_esdirk_grid": "fused_esdirk_grid"}
+
+
+def _launch_args(kind, y0, out, params, span, tol, shape, rec):
+    """The C arguments before the stream of one launch of B1, B2, B4, B5,
+    B6 or B7 (``kind``, its wrapper's module) at ``shape`` into the
+    preallocated ``out`` (and ``rec``, a DenseRecord, where it has rows),
+    as the wrappers pass them; B2 and B7 as plain ODEs from Watts' start."""
     from extensisq_tpu_torch.ops.fused_erk import launch_args
-    scal = launch_args(span, tol["rtol"], tol["atol"], None, 100_000,
-                       tol.get("compensated", False), None)
-    head = (y0.data_ptr(), params.data_ptr(),
-            *[x.data_ptr() for x in out], y0.shape[0])
-    if kind == "fused_erk":
-        args = head + scal + tuple(shape)
+    from extensisq_tpu_torch.ops.fused_esdirk import _tiny_err
+    nb, n = y0.shape
+    outs = tuple(x.data_ptr() for x in out)
+    if kind in ("fused_esdirk", "fused_esdirk_grid"):
+        t0, tf = np.float32(span[0]), np.float32(span[1])
+        head = (y0.data_ptr(), None) + ((None,) if kind.endswith("_grid")
+                                        else ())
+        args = (head + (params.data_ptr(),) + outs
+                + (nb, float(t0), float(tf), float(tol["rtol"]),
+                   float(tol["atol"]), float(np.float32(0.01) * abs(tf - t0)),
+                   1, 0, np.inf, 100_000, _tiny_err(n, tol["rtol"]),
+                   int(tol.get("compensated", False)))
+                + tuple(shape))
     else:
-        t0, tf = scal[:2]
-        args = (head + (t0, tf, float(np.sign(np.float32(tf)
-                                              - np.float32(t0))))
-                + scal[2:] + tuple(shape))
+        scal = launch_args(span, tol["rtol"], tol["atol"], None, 100_000,
+                           tol.get("compensated", False), None)
+        head = (y0.data_ptr(), params.data_ptr()) + outs + (nb,)
+        if kind in ("fused_erk", "fused_rkn"):
+            args = head + scal + tuple(shape)
+        else:
+            t0, tf = scal[:2]
+            args = (head + (t0, tf, float(np.sign(np.float32(tf)
+                                                  - np.float32(t0))))
+                    + scal[2:] + tuple(shape))
     return args + (rec.args() if rec.rows else ())
 
 
 def launch_ms(kind, built, y0, params, span, tol, shape, rows, reps=10):
-    """Device ms of one launch of B1 or B4 with the record of ``rows`` a
-    member (0: the build without it), the outputs allocated before: CUDA
-    events around ``reps`` launches back to back, per launch (a single
-    launch between events measures the host's enqueue as much as the
-    kernel), median of REPS."""
+    """Device ms of one launch of B1, B2, B4, B5, B6 or B7 (``kind``, its
+    wrapper's module) with the record of ``rows`` a member (0: the build
+    without it), the outputs allocated before: CUDA events around ``reps``
+    launches back to back, per launch (a single launch between events
+    measures the host's enqueue as much as the kernel), median of REPS;
+    and the DenseRecord written."""
     from extensisq_tpu_torch.ops.fused_erk import DenseRecord
     out = (torch.empty_like(y0),
            *[torch.empty(y0.shape[0], dtype=torch.int32, device="cuda")
              for _ in range(3)])
     rec = DenseRecord(y0, rows)
-    args = _launch_args(kind, built, y0, out, params, span, tol, shape, rec)
-    fn = getattr(built.lib, f"{kind.replace('_erk_grid', '_rk_grid')}"
+    args = _launch_args(kind, y0, out, params, span, tol, shape, rec)
+    fn = getattr(built.lib, f"{KERNEL_LIB[kind]}"
                  f"{'_record' if rows else ''}_launch")
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -4562,6 +4613,499 @@ def adjoint_path():
              "bound_by_adjoint": bound_d["bound_by"],
              "backward_attempts_adjoint": syncs["7d"][1],
              "backward_syncs_adjoint": syncs["7d"][2]})
+
+
+# -- the ESDIRK and RKN routes of the continuous adjoint ----------------------
+# solve_fused_adjoint through B2 and B7 (ESDIRK, flat and grid) and B5 and
+# B6 (RKN, flat and grid), each forward one launch with the dense record:
+# * ESDIRK flat at config 7a's width: 512 Robertson members with the three
+#   rate constants a member (k1 in [0.04, 0.05]), TRBDF2 on t in [0, 0.4]
+#   at rtol 1e-4 / atol 1e-8; dL/dp of sum(y_f[:, 0]) against the same
+#   phase's solve_fused_sens S_p[:, 0, :], each column over its largest
+#   entry at 7a's CVODES gate (2e-2); member 0's dL/dy0 against the f64
+#   sensitivity.solve_final (KC4I, rtol 1e-9);
+# * ESDIRK grid: the reaction-diffusion of the grid sensitivity phase (n =
+#   128, 32 members, (k, D) a member, TRBDF2 on t in [0, 0.04] at rtol
+#   1e-5 / atol 1e-8); dL/dp of sum(mean(y_f)) against
+#   solve_fused_sens(layout="grid") at JAX's 5e-3 of scale;
+# * RKN flat at B5's width: u'' = -w^2 u, 2,048 members, w in [1, 2], u0 =
+#   1, tf = 2, Fi5N at rtol 1e-6 / atol 1e-9; against the closed forms
+#   dL/dw = -tf sin(w tf), dL/du0 = cos(w tf) at JAX's 5e-3
+#   (tests/test_fused_adjoint.py:228-267);
+# * RKN grid: the wave line's system (n = 256, 64 members) with c2 a member
+#   in [300, 500] around WAVE_C2, Fi5N on t in [0, 1] at rtol 1e-6 / atol
+#   1e-9; dL/dc2 of sum(u_f at x = 1/4) against central differences of B6
+#   with params (eps 1% of c2, compensated at rtol 1e-8 / atol 1e-11) at
+#   5e-3 of scale.
+AR_ROB_DENSE = 512
+AR_RD_DENSE = 256
+AR_OSC_N, AR_OSC_SPAN = 2048, (0.0, 2.0)
+AR_OSC_TOL = dict(rtol=1e-6, atol=1e-9)
+AR_OSC_DENSE = 512
+AR_WAVE_SPAN = (0.0, 1.0)
+AR_WAVE_TOL = dict(rtol=1e-6, atol=1e-9)
+AR_WAVE_DENSE = 1024
+AR_WAVE_FD_REL = 1e-2
+AR_WAVE_FD_TOL = dict(rtol=1e-8, atol=1e-11, compensated=True)
+AR_F64_TOL = dict(rtol=1e-9, atol=1e-14)
+AR_SENS_GATE = SENS_CVODES_SCALED
+AR_GRID_GATE = 5e-3
+AR_CLOSED_GATE = 5e-3
+AR_FD_GATE = 5e-3
+# member 0's dL/dy0 of the ESDIRK route against the f64 solve_final, over
+# its largest entry (the JAX test's 1e-4 is absolute at rtol 1e-5 on a
+# 2-state system; here 7a's tolerances on Robertson)
+AR_F64_GATE = 2e-2
+# the kernels with their records against the plain versions on the card:
+# (max |dy|, relative difference of mean nsteps, max |dnsteps|) and (the
+# dense outputs at 97 common times, the kernel's nodes against the plain
+# version's dense output); Robertson's each component's difference over its
+# largest value (y2 lives at ~3e-5), the others absolute.  Measured on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W; tools/probe_sens.py --routes and
+# this phase): rob 7a 9.1e-7, 0, 0 and 1.2e-6, 1.5e-6; rd 3.6e-7, 0, 0 and
+# 3.6e-7, 3.6e-7; osc 1.7e-6, 3.5e-2, 5 and 9.3e-5, 7.8e-5; wave 6.6e-5,
+# 1.0e-3, 8 and 8.6e-5, 8.7e-5.  Gates 3-5x the readings; where a count
+# reading is 0, one step of one member.  The oscillator's Fi5N error
+# estimate is round-off at rtol 1e-6 (its stage accelerations cancel), so
+# nvcc's contraction moves h: 14.48 against 13.998 mean steps, 5 at most,
+# 1,047 of 2,048 members with other counts on the card; the same source
+# built for the host with -ffp-contract=fast -mfma parts from the plain
+# version alike (14.48 against 14.01, 5, 1,031), without contraction not
+# at all
+AR_KERNEL_GATES = {"rob 7a": (4e-6, 1e-4, 1), "rd": (1.5e-6, 3e-3, 1),
+                   "osc": (6e-6, 0.1, 15), "wave": (3e-4, 5e-3, 24)}
+AR_DENSE_GATES = {"rob 7a": (5e-6, 6e-6), "rd": (1.5e-6, 1.5e-6),
+                  "osc": (4e-4, 3e-4), "wave": (3e-4, 3e-4)}
+# float32 operations counted from the sources as the work each row needs
+# (an addition, subtraction or multiplication one; a negation and a
+# product with a seed of 1 or 0 none): B2 per Newton evaluation of
+# Robertson (n = 3): the right-hand side (8), the point psi + d z (6), the
+# right-hand side of the update h f - z (6), the replay of the 3 x 3
+# factor (15), the update's scaled norm (18) and the update (3); the
+# attempt's Jacobian and factor are left out, so the count is a lower
+# bound.  B5's acceleration -(w w) u (2) and B6's wave with c2 a member
+# (5) per position
+AR_ROB_OPS = 56
+AR_ACC_OPS = {"osc": 2, "wave": 5}
+
+
+def osc_p(t, u, v, p):
+    return -(p[0] * p[0]) * u
+
+
+OSC_P_CUDA = """
+template <class T>
+__device__ void acc(T t, const T* u, const T* v, T* a, const T* p) {
+  a[0] = -(p[0] * p[0]) * u[0];
+}
+"""
+
+
+def wave_p(t, u, v, p):
+    return p[0] * (torch.roll(u, 1, 0) + torch.roll(u, -1, 0) - 2.0 * u)
+
+
+def _wave_p_cuda():
+    return ("__device__ float acc(float t, const float* u, const float* v, "
+            "int i, const float* p) {\n  using G = tab::G;\n"
+            "  return p[0] * (G::rolled<0>(u, i, 1) + "
+            "G::rolled<0>(u, i, -1) - 2.0f * u[i]);\n}")
+
+
+def adjoint_routes_rhs():
+    """The routes' right-hand sides: 7a's Robertson and the grid phase's
+    reaction-diffusion (their sensitivity phases'), the oscillator and the
+    wave with a parameter a member."""
+    from extensisq_tpu_torch.ops import FusedAcc, FusedGridAcc
+    return {"rob": sens_rhs()["rob"], "rd": sens_grid_rhs()["rd"],
+            "osc": FusedAcc(osc_p, OSC_P_CUDA, 1, 1),
+            "wave": FusedGridAcc(wave_p, _wave_p_cuda(), WAVE_N, 1)}
+
+
+def adjoint_routes_builds(rhs):
+    """(kernel, label, rhs, options) of the phase's variants: B2, B7, B5
+    and B6 with the dense record, and B2, B5 and B6 with params without it
+    (B7's is the grid sensitivity phase's)."""
+    from extensisq_tpu_torch import Fi5N, TRBDF2
+    return [("fused_esdirk_rec", "rob params TRBDF2 dense", rhs["rob"],
+             (TRBDF2, None)),
+            ("fused_esdirk", "rob params TRBDF2", rhs["rob"], (TRBDF2, None)),
+            ("fused_esdirk_grid_rec", "rd params TRBDF2 dense", rhs["rd"],
+             (TRBDF2, None)),
+            ("fused_rkn_rec", "osc params Fi5N dense", rhs["osc"], Fi5N),
+            ("fused_rkn", "osc params Fi5N", rhs["osc"], Fi5N),
+            ("fused_rkn_grid_rec", "wave params Fi5N dense", rhs["wave"],
+             Fi5N),
+            ("fused_rkn_grid", "wave params Fi5N", rhs["wave"], Fi5N)]
+
+
+def adjoint_routes_inputs():
+    """The routes' members on the card: 7a's Robertson (y0, p), the
+    reaction-diffusion's (y0, (k, D)), the oscillators' ([1, 0], w) and
+    the waves' (wave_y0, c2)."""
+    y0a, pa, _, _, _, _ = sens_inputs()
+    _, _, _, ry0, kd, _ = sens_grid_inputs()
+    oy0 = torch.zeros(AR_OSC_N, 2, device="cuda")
+    oy0[:, 0] = 1.0
+    ws = torch.linspace(1.0, 2.0, AR_OSC_N, device="cuda")[:, None]
+    wy0 = wave_y0(WAVE_M, WAVE_N)
+    c2 = torch.linspace(300.0, 500.0, WAVE_M, device="cuda")[:, None]
+    return {"rob": (y0a, pa), "rd": (ry0, kd), "osc": (oy0, ws),
+            "wave": (wy0, c2)}
+
+
+def _route_kw(name):
+    """The wrapper options of each route's forward."""
+    from extensisq_tpu_torch import Fi5N, TRBDF2
+    return {"rob": dict(method=TRBDF2, **SENS_ROB_TOL),
+            "rd": dict(method=TRBDF2, **SG_RD_TOL),
+            "osc": dict(method=Fi5N, **AR_OSC_TOL),
+            "wave": dict(method=Fi5N, **AR_WAVE_TOL)}[name]
+
+
+AR_DENSE = {"rob": AR_ROB_DENSE, "rd": AR_RD_DENSE, "osc": AR_OSC_DENSE,
+            "wave": AR_WAVE_DENSE}
+AR_SPAN = {"rob": SENS_ROB_SPAN, "rd": SG_RD_SPAN, "osc": AR_OSC_SPAN,
+           "wave": AR_WAVE_SPAN}
+AR_LABEL = {"rob": "rob 7a", "rd": "rd", "osc": "osc", "wave": "wave"}
+# the wrapper module of each route's kernel
+AR_KIND = {"rob": "fused_esdirk", "rd": "fused_esdirk_grid",
+           "osc": "fused_rkn", "wave": "fused_rkn_grid"}
+
+
+def adjoint_routes_kernel_checks(R, inp):
+    """B2, B7, B5 and B6 with their records (B5 and B6 with params) against
+    their plain versions on the card at the routes' widths; B2's lane
+    groups (1, 4, 8, 16 and 32 lanes) and B5's (1, 2, 4 and 8) against
+    the rule's shape, B7's and B6's warps against their blocks of 32 and
+    their rules' blocks, records included, bit for bit; the record leaves
+    y, status, nsteps and nfev as they are without it; B5 and B6 with
+    params and no record against their plain versions and their other
+    shapes.  Returns the largest |dy| and the plain versions' seconds of
+    each kernel."""
+    from extensisq_tpu_torch import ops
+    from extensisq_tpu_torch.ops import fused_esdirk as FE
+    from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
+    from extensisq_tpu_torch.ops import fused_rkn as FN
+    from extensisq_tpu_torch.ops import fused_rkn_grid as FNG
+    wrappers = {name: (getattr(ops, "solve_" + kind),
+                       getattr(ops, kind + "_reference"))
+                for name, kind in AR_KIND.items()}
+    errs, plain_s = {}, {}
+    for name, (wrapper, plain) in wrappers.items():
+        y0, p = inp[name]
+        span, rows, label = AR_SPAN[name], AR_DENSE[name], AR_LABEL[name]
+        kw = dict(_route_kw(name), params=p)
+        k, r, dy, r_s = hold_against_plain(
+            "adjoint routes", f"{label} dense",
+            lambda: wrapper(R[name], span, y0, dense=rows, **kw),
+            lambda: plain(R[name], span, y0, dense=rows, **kw),
+            *AR_KERNEL_GATES[label], scaled=name == "rob")
+        shape = wrapper.last_shape
+        hold_record(label, k, r, span, AR_DENSE_GATES[label],
+                    scaled=name == "rob")
+        off = wrapper(R[name], span, y0, **kw)
+        same_off = all(torch.equal(a, b) for a, b in zip(k[:4], off))
+        check(same_off, f"{label}: the record changed the outputs")
+        # the kernels line's error is absolute, Robertson's too
+        errs[name] = (k[0] - r[0]).abs().max().item() if name == "rob" else dy
+        plain_s[name] = r_s
+        tol = {x: kw[x] for x in ("rtol", "atol")}
+        if name == "rob":
+            same = {lanes: _same_record(k, FE._launch(
+                R[name], span, y0, kw["method"], None, None, tol["rtol"],
+                tol["atol"], None, 100_000, False, None, lanes, None, p, None,
+                rows)[0]) for lanes in (1, 4, 8, 16, 32)}
+            text = f"1 / 4 / 8 / 16 / 32 lanes {same}"
+        elif name == "osc":
+            same = {lanes: _same_record(k, FN._launch(
+                R[name], span, y0, kw["method"], tol["rtol"], tol["atol"],
+                None, 100_000, False, None, lanes, None, p, rows)[0])
+                for lanes in (1, 2, 4, 8)}
+            text = f"1 / 2 / 4 / 8 lanes {same}"
+            # the params build without the record: the plain version and
+            # the other body
+            # (dense leaves the plain version's outputs as they are)
+            kp, _, dyp, _ = hold_against_plain(
+                "adjoint routes", "osc params", lambda: off, lambda: r[:4],
+                *AR_KERNEL_GATES[label])
+            hold_small_lanes("fused_rkn", "osc params", R[name], span, y0,
+                             kw, kp, shape)
+            errs[name] = max(dy, dyp)
+        else:
+            mod = FEG if name == "rd" else FNG
+            built = mod._kernel(kw["method"], R[name], *(
+                (None, True) if name == "rd" else (True,)))
+            n_arg = () if name == "rd" else (WAVE_N,)
+            gkw = dict(tol, params=p, dense=rows)
+            if name == "rd":
+                gkw["method"] = kw["method"]
+            threads = ops.fused_erk_grid.grid_threads(y0.shape[1]
+                                                      // (1 if name == "rd"
+                                                          else 2))
+            runs = {s: mod._launch(built, span, y0, *n_arg, shape=s,
+                                   **gkw)[0]
+                    for s in ((32, mod.WARP_MEMBERS), (32, 0),
+                              (threads, 0))}
+            same = {s: _same_record(k, runs[s]) for s in runs
+                    if s == tuple(shape)}
+            same["warp = block of 32"] = _same_record(
+                runs[(32, mod.WARP_MEMBERS)], runs[(32, 0)])
+            for s, o in runs.items():
+                if s != tuple(shape):
+                    hold_against_plain(
+                        "adjoint routes",
+                        f"{label} dense, {grid_shape_text(s, y0.shape[0])}",
+                        lambda o=o: o, lambda: r, *AR_KERNEL_GATES[label])
+            text = (f"the rule's shape "
+                    f"{grid_shape_text(shape, y0.shape[0])}; {same}")
+            if name == "wave":
+                kp, _, dyp, _ = hold_against_plain(
+                    "adjoint routes", "wave params", lambda: off,
+                    lambda: r[:4], *AR_KERNEL_GATES[label])
+                hold_grid_shapes("fused_rkn_grid", "wave params", R[name],
+                                 span, y0, kw, kp, shape, r[:4],
+                                 AR_KERNEL_GATES[label])
+                errs[name] = max(dy, dyp)
+        print(f"{wrapper.__name__} [{label} dense, {y0.shape[0]}]: outputs "
+              f"and records bit-identical across shapes: {text}; outputs "
+              f"bit-identical to dense=None {same_off}")
+        check(all(same.values()), f"{label}: a launch shape differs")
+    return errs, plain_s
+
+
+def adjoint_routes_path():
+    """The ESDIRK and RKN routes of solve_fused_adjoint on the card: the
+    four kernels with their records (and B5's and B6's params) against
+    their plain versions at every launch shape; each route's value and
+    gradient, its forward one launch of its kernel, against its reference
+    (module comment above); the record overflow's NaN gradients per route;
+    the backward's attempts, ms an attempt and host syncs; the forward
+    launches' device ms with and without the record, the record's bytes,
+    the bounds.  Returns each kernel's ``_adjoint_routes`` keys by its
+    ``kernels`` name."""
+    from extensisq_tpu_torch import KC4I, sensitivity
+    from extensisq_tpu_torch import ops
+    from extensisq_tpu_torch.ops import fused_esdirk as FE
+    from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
+    from extensisq_tpu_torch.ops import fused_rkn as FN
+    from extensisq_tpu_torch.ops import fused_rkn_grid as FNG
+    from extensisq_tpu_torch.ops.fused_esdirk import _esdirk_consts
+    from extensisq_tpu_torch.ops.fused_rkn import rkn_consts
+    start = time.perf_counter()
+    R = adjoint_routes_rhs()
+    inp = adjoint_routes_inputs()
+    errs, plain_s = adjoint_routes_kernel_checks(R, inp)
+    wrappers = {name: getattr(ops, "solve_" + kind)
+                for name, kind in AR_KIND.items()}
+    every = [getattr(ops, k) for k in dir(ops) if k.startswith("solve_fused_")
+             and hasattr(getattr(ops, k), "launches")]
+
+    def counted(fn, wrapper):
+        for w in every:
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        others = {w.__name__: w.launches for w in every
+                  if w is not wrapper and w.launches}
+        check(not others, f"adjoint routes: other kernels launched {others}")
+        return out, wrapper.launches
+
+    def loss_of(name, yf):
+        if name == "rob":
+            return yf[:, 0].sum()
+        if name == "rd":
+            return yf.mean(1).sum()
+        if name == "osc":
+            return yf[:, 0].sum()
+        return yf[:, WAVE_N // 4].sum()
+
+    def grad(name, dense=None, members=None):
+        """(value, dL/dt0, dL/dtf, dL/dy0, dL/dp) of the route's loss."""
+        y0, p = inp[name]
+        sl = slice(None, members)
+        kw = _route_kw(name)
+        t0_, tf_ = (torch.tensor(x, device="cuda", requires_grad=True)
+                    for x in AR_SPAN[name])
+        Y = y0[sl].clone().requires_grad_(True)
+        P = p[sl].clone().requires_grad_(True)
+        yf = ops.solve_fused_adjoint(
+            R[name], (t0_, tf_), Y, P, kw["method"], kw["rtol"], kw["atol"],
+            100_000, None, AR_DENSE[name] if dense is None else dense,
+            layout="grid" if name in ("rd", "wave") else "flat")
+        val = loss_of(name, yf)
+        return (val.detach(),) + torch.autograd.grad(val, (t0_, tf_, Y, P))
+
+    res, launches, bw = {}, {}, {}
+    for name in ("rob", "rd", "osc", "wave"):
+        res[name], launches[name] = counted(lambda: grad(name),
+                                            wrappers[name])
+        check(launches[name] == 1, f"{name}: {wrappers[name].__name__} "
+              f"launched {launches[name]} times, expected 1")
+        bw[name] = ops.solve_fused_adjoint.last_backward
+        check(all(bool(torch.isfinite(g).all()) for g in res[name][1:]),
+              f"{name}: a gradient is not finite")
+
+    # ESDIRK flat: against 7a's forward sensitivities and the f64 driver
+    y0, p = inp["rob"]
+    _, Sp, _, st, _, _ = ops.solve_fused_sens(
+        R["rob"], SENS_ROB_SPAN, y0, params=p, **_route_kw("rob"))
+    check(bool((st == 1).all()), "rob: a sensitivity run did not finish")
+    gp, ref = res["rob"][4], Sp[:, 0, :]
+    d_rob = ((gp - ref).abs().amax(0) / ref.abs().amax(0)).max().item()
+    t0 = time.perf_counter()
+    v0 = y0[0].double().requires_grad_(True)
+    yf64 = sensitivity.solve_final(
+        lambda t, y, q: robertson_p(t, y, (q[0], q[1], q[2])), SENS_ROB_SPAN,
+        v0, p[0].double(), KC4I, max_steps=100_000, **AR_F64_TOL)
+    gref, = torch.autograd.grad(yf64[0], v0)
+    f64_s = time.perf_counter() - t0
+    d_rob_y0 = _scaled(res["rob"][3][0].double(), gref)
+    print(f"adjoint ESDIRK flat, Robertson x{SENS_ROB_N} (TRBDF2, k 3, dense "
+          f"{AR_ROB_DENSE}): launches of B2 {launches['rob']}, loss "
+          f"{float(res['rob'][0]):.6f}; dL/dp vs solve_fused_sens S_p[:, 0,"
+          f" :], each column over its largest entry: {d_rob:.3e} (gate "
+          f"{AR_SENS_GATE:.0e}); member 0's dL/dy0 vs the f64 solve_final "
+          f"(KC4I, rtol 1e-9, {f64_s:.1f} s): {d_rob_y0:.3e} (gate "
+          f"{AR_F64_GATE:.0e})")
+    check(d_rob <= AR_SENS_GATE, "rob: dL/dp off solve_fused_sens")
+    check(d_rob_y0 <= AR_F64_GATE, "rob: dL/dy0 off the f64 solve_final")
+
+    # ESDIRK grid: against solve_fused_sens(layout="grid")
+    y0, kd = inp["rd"]
+    _, Sg, _, st, _, _ = ops.solve_fused_sens(
+        R["rd"], SG_RD_SPAN, y0, params=kd, layout="grid",
+        **_route_kw("rd"))
+    check(bool((st == 1).all()), "rd: a sensitivity run did not finish")
+    # over the largest entry: D leaves the mean of the Neumann line as it
+    # is, so its column is round-off in both
+    ref = Sg.mean(1)
+    d_rd = _scaled(res["rd"][4], ref)
+    print(f"adjoint ESDIRK grid, reaction-diffusion x{SG_RD_M} (n {SG_RD_N},"
+          f" TRBDF2, k 2, dense {AR_RD_DENSE}): launches of B7 "
+          f"{launches['rd']}, loss {float(res['rd'][0]):.6f}; dL/dp vs "
+          f"solve_fused_sens(layout='grid'), over the largest entry: "
+          f"{d_rd:.3e} (gate {AR_GRID_GATE:.0e})")
+    check(d_rd <= AR_GRID_GATE, "rd: dL/dp off solve_fused_sens")
+
+    # RKN flat: the closed forms
+    _, ws = inp["osc"]
+    w, tf = ws[:, 0].double(), AR_OSC_SPAN[1]
+    d_w = (res["osc"][4][:, 0].double() + tf * torch.sin(w * tf)).abs().max()
+    d_u = (res["osc"][3][:, 0].double() - torch.cos(w * tf)).abs().max()
+    print(f"adjoint RKN flat, oscillators x{AR_OSC_N} (Fi5N, dense "
+          f"{AR_OSC_DENSE}): launches of B5 {launches['osc']}; dL/dw vs "
+          f"-tf sin(w tf) max |d| {float(d_w):.3e}, dL/du0 vs cos(w tf) "
+          f"{float(d_u):.3e} (gate {AR_CLOSED_GATE:.0e})")
+    check(max(float(d_w), float(d_u)) <= AR_CLOSED_GATE,
+          "osc: gradients off the closed forms")
+
+    # RKN grid: central differences of B6 with params
+    y0, c2 = inp["wave"]
+    eps = AR_WAVE_FD_REL * c2
+    kw = dict(method=_route_kw("wave")["method"], **AR_WAVE_FD_TOL)
+    yp = ops.solve_fused_rkn_grid(R["wave"], AR_WAVE_SPAN, y0, params=c2 + eps,
+                                  **kw)
+    ym = ops.solve_fused_rkn_grid(R["wave"], AR_WAVE_SPAN, y0, params=c2 - eps,
+                                  **kw)
+    check(bool((yp[1] == 1).all() and (ym[1] == 1).all()),
+          "wave: a central-difference run did not finish")
+    i4 = WAVE_N // 4
+    fd = (yp[0][:, i4] - ym[0][:, i4]) / (2 * eps[:, 0])
+    d_wave = _scaled(res["wave"][4][:, 0], fd)
+    print(f"adjoint RKN grid, wave x{WAVE_M} (n {WAVE_N}, Fi5N, dense "
+          f"{AR_WAVE_DENSE}): launches of B6 {launches['wave']}; dL/dc2 vs "
+          f"central differences of B6 with params (eps 1% of c2, "
+          f"compensated, rtol 1e-8): max |d| / max |FD| {d_wave:.3e} (gate "
+          f"{AR_FD_GATE:.0e})")
+    check(d_wave <= AR_FD_GATE, "wave: dL/dc2 off central differences")
+
+    # the overflow: 3 rows a member, NaN gradients on every route
+    for name in ("rob", "rd", "osc", "wave"):
+        ovf = grad(name, dense=3, members=8)
+        nan_all = all(bool(torch.isnan(g).all()) for g in ovf[3:])
+        print(f"adjoint routes overflow [{name}] (dense 3, 8 members): "
+              f"every dL/dy0 and dL/dp NaN {nan_all}")
+        check(nan_all, f"{name} overflow: finite gradients")
+
+    # readings: the backward (attempts, ms an attempt, host syncs), the
+    # walls, the forward launches with and without the record, the bounds
+    out = {}
+    for name in ("rob", "rd", "osc", "wave"):
+        y0, p = inp[name]
+        kw = _route_kw(name)
+        g_ms = wall_ms(lambda: grad(name), reps=3)
+        yf = ops.solve_fused_adjoint(
+            R[name], AR_SPAN[name], y0.clone().requires_grad_(True), p,
+            kw["method"], kw["rtol"], kw["atol"], dense=AR_DENSE[name],
+            layout="grid" if name in ("rd", "wave") else "flat")
+        _, n_sync, sec, _ = count_syncs(
+            lambda: loss_of(name, yf).backward())
+        b = ops.solve_fused_adjoint.last_backward
+        att = int((b.nsteps + b.nfailed).max())
+        print(f"adjoint routes backward [{name}]: {sec * 1e3:.1f} ms wall, "
+              f"{att} attempts of the f64 driver ({b.y.shape[0]} members of "
+              f"{b.y.shape[1]} rows, {bw[name].status.eq(1).all().item()} "
+              f"all finished), {sec * 1e3 / att:.3f} ms an attempt, "
+              f"{n_sync} host syncs ({n_sync / att:.2f} an attempt)")
+        wrapper = wrappers[name]
+        fwd = wrapper(R[name], AR_SPAN[name], y0, params=p, **kw)
+        shape = wrapper.last_shape
+        mod = {"rob": FE, "rd": FEG, "osc": FN, "wave": FNG}[name]
+        if name == "rob":
+            builds = [mod._kernel(kw["method"], R[name], None, None, None,
+                                  3, 3, rec) for rec in (True, False)]
+        elif name == "rd":
+            builds = [mod._kernel(kw["method"], R[name], None, rec)
+                      for rec in (True, False)]
+        else:
+            builds = [mod._kernel(kw["method"], R[name], rec)
+                      for rec in (True, False)]
+        tol = {x: kw[x] for x in ("rtol", "atol")}
+        on_ms, rec = launch_ms(AR_KIND[name], builds[0], y0, p,
+                               AR_SPAN[name], tol, shape, AR_DENSE[name])
+        off_ms, _ = launch_ms(AR_KIND[name], builds[1], y0, p,
+                              AR_SPAN[name], tol, shape, 0)
+        nb, n = y0.shape
+        rows = int(rec.n.sum())
+        rec_bytes = 4 * (rows * (2 * n + 1) + nb * (n + 1))
+        by = 4 * nb * (2 * n + p.shape[1] + 3) + rec_bytes
+        nfev = int(fwd[3].sum())
+        if name == "rob":
+            ops_ = nfev * AR_ROB_OPS
+        elif name == "rd":
+            ops_ = esdirk_grid_ops(SG_RD_N, _esdirk_consts(kw["method"]),
+                                   SG_RHS_OPS["rd"], nfev - nb,
+                                   int(fwd[2].sum()),
+                                   3 * SG_RHS_OPS["rd_band"])
+        else:
+            m = n // 2
+            ops_ = rk_ops(rkn_consts(kw["method"]), True, m,
+                          AR_ACC_OPS[name], nfev, nb, 2 + min(n + 1, 3))
+        bound = bound_entry(by, ops_)
+        print(f"time [adjoint route {name}, {wrapper.__name__}] {nb} "
+              f"members: {g_ms:.3f} ms wall (value and gradient, median of "
+              f"3); the forward launch {on_ms:.4f} ms device with the "
+              f"record, {off_ms:.4f} ms without it (CUDA events, ten "
+              f"launches back to back); the record {rows} rows, "
+              f"{rec_bytes} bytes; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}); plain version "
+              f"{plain_s[name] * 1e3:.1f} ms wall")
+        out[AR_KIND[name]] = {
+            "launches_adjoint_routes": launches[name],
+            "max_abs_err_adjoint_routes": errs[name],
+            "ms_adjoint_routes": g_ms,
+            "device_ms_adjoint_routes": on_ms,
+            "device_ms_adjoint_routes_no_record": off_ms,
+            "record_bytes_adjoint_routes": rec_bytes,
+            "plain_ms_adjoint_routes": plain_s[name] * 1e3,
+            "bound_ms_adjoint_routes": bound["bound_ms"],
+            "bound_by_adjoint_routes": bound["bound_by"],
+            "backward_attempts_adjoint_routes": att,
+            "backward_ms_per_attempt_adjoint_routes": sec * 1e3 / att,
+            "backward_syncs_adjoint_routes": n_sync}
+    print(f"adjoint routes phase: {time.perf_counter() - start:.1f} s")
+    return out
 
 
 HOST_GATE = 1e-9
@@ -4914,7 +5458,8 @@ def main():
               + rkn_grid_builds(rkn_grid_rhs())
               + ckdisc_builds(ckdisc_rhs()) + mid_builds(mid_rhs())
               + sens_builds(sens_rhs()) + sens_grid_builds(sens_grid_rhs())
-              + adjoint_builds(adjoint_rhs()))
+              + adjoint_builds(adjoint_rhs())
+              + adjoint_routes_builds(adjoint_routes_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
@@ -5114,10 +5659,16 @@ def main():
     # 11c. the continuous adjoint: the dense record on B1 and B4, configs
     # 7d and 7b through solve_fused_adjoint
     adj_erk, adj_grid = adjoint_path()
+
+    # 11d. the ESDIRK and RKN routes of the continuous adjoint: the dense
+    # record on B2, B7, B5 and B6 and params on B5 and B6
+    routes = adjoint_routes_path()
     for entry in rkn + mid:
         entry.update({"fused_erk_grid": dict(grid_erk, **adj_grid),
                       "fused_esdirk_grid": grid_esdirk}.get(entry["name"],
                                                             {}))
+        entry.update(routes.get(entry["name"], {}))
+    esdirk.update(routes["fused_esdirk"])
 
     # 12. the host driver (solve_ivp, the Stepper), the sensitivities and
     # the front door ops.solve_fused over every kernel

@@ -50,7 +50,7 @@
 //
 // The method, the mass-matrix setup and the user's right-hand side come
 // from the generated header fused_esdirk_config.cuh:
-//   namespace tab { N, NB, NPAR, S, D, KAPPA, controller constants,
+//   namespace tab { N, NB, NPAR, REC, S, D, KAPPA, controller constants,
 //                   A(i,j), AZ(i,j), C(i), E(j), MASS(i), ALG(i), V(i,j), ... }
 //   template <class T> __device__ void rhs(T t, const T* y, T* dy);
 // with NPAR = K > 0 per-member parameters rhs takes a fourth argument, the
@@ -69,6 +69,18 @@
 // ODEs only (no mass matrix).  The lanes of a group split the NB columns of
 // the base block (lanes past NB idle there) and the N divisions of every
 // norm.
+//
+// Dense output (dense=R, ops/fused_esdirk.py): a build whose header sets
+// tab::REC writes each accepted step's end (t, y, y') to its member's rows
+// in device memory, rank 0 of a group (dense_record.cuh), y' the stiffly
+// accurate last stage the loop carries; f0 is the start's y'.  The rows
+// hold user coordinates: with a dense or hidden mass matrix rank 0 maps y
+// and y' back by V, as it maps the result.  The writes sit beside the
+// arithmetic, which they leave as it is; without tab::REC the body is
+// called with no record and the kernels are those of the build before
+// dense output (the record build launches a kernel of its own,
+// fused_esdirk_record_kernel).
+//
 // The accessors are constexpr functions returning float32 literals, so
 // after unrolling every coefficient is a constant and zero weights drop out
 // of the sums as they do at the JAX trace.
@@ -90,6 +102,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dense_record.cuh"
 #include "dual.cuh"
 #include "fused_esdirk_config.cuh"
 #include "esdirk_control.cuh"
@@ -527,15 +540,39 @@ struct Out {
   int* nfev;
 };
 
+using rk::Rec;
+
+// The record of a body called with one (a build with tab::REC); a build
+// without it calls the body with none, so that its kernels take, construct
+// and pass nothing for it (an unused Rec argument moved nvcc's choice of
+// integer instructions in the G = 4, 8 and 16 bodies).
+__device__ __forceinline__ const Rec& the_record(const Rec& rec) {
+  return rec;
+}
+
+// Rank 0 writes the user-coordinate rows of the w-space state x to the
+// record at dst (N floats).
+template <class Group>
+__device__ __forceinline__ void record_rows(const Group& grp,
+                                            const float (&x)[N], float* dst) {
+  if (grp.rank() != 0) return;
+  float u[N];
+  to_user(x, u);
+#pragma unroll
+  for (int k = 0; k < N; ++k) dst[k] = u[k];
+}
+
 // The whole integration of one member by the group grp of G lanes
 // (rank(), shfl(v, src); OneLane at G = 1).  y0 (and yp0) are the member's
 // initial state (and derivative), par its tab::NPAR parameters (unread when
-// there are none); lane 0 writes the results.
-template <int G, bool COMP, class Group>
+// there are none); lane 0 writes the results, and with tab::REC the
+// member's record (the one Rec of `record`).
+template <int G, bool COMP, class Group, class... Record>
 __device__ void integrate(Group& grp, const float* __restrict__ y0,
                           const float* __restrict__ yp0,
                           const float* __restrict__ par, const Launch& L,
-                          int member, const Out& out) {
+                          int member, const Out& out,
+                          const Record&... record) {
   const Rhs fn(par);
   const Params p{L.rtol, L.atol, L.tiny_err};
   const float tf = L.tf;
@@ -573,6 +610,10 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
       for (int k = 0; k < N; ++k) yp[k] = yp[k] * tab::INV_MASS(k);
     }
   }
+  if constexpr (tab::REC) {
+    record_rows(grp, yp,
+                the_record(record...).f0 + static_cast<size_t>(member) * N);
+  }
   float h_abs = L.h0;
   if (L.use_hstart) {
     // plain ODEs only; max_step is +inf when the caller gave none
@@ -585,6 +626,7 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
   int nstep = 0;
   int nfev = L.have_yp0 ? 0 : 1;
   int it = 0;
+  int nrec = 0;  // rows of the record written (tab::REC)
   esdirk::Control ctl{h_abs};
 
   while (status == kRunning) {
@@ -705,6 +747,18 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
       }
       t = is_last ? tf : t_adv;
       t_lo = is_last ? 0.0f : t_lo_adv;
+      // the step's end at row nstep of the record, while the attempts
+      // before this one are below its rows
+      if constexpr (tab::REC) {
+        const Rec& rec = the_record(record...);
+        if (it <= rec.rows) {
+          const size_t row = rec.row(member, nstep);
+          if (grp.rank() == 0) rec.t[row] = t;
+          record_rows(grp, y, rec.y + row * N);
+          record_rows(grp, yp, rec.f + row * N);
+          nrec += 1;
+        }
+      }
       nstep += 1;
     }
     nfev += st.nfev;
@@ -720,19 +774,20 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
   out.status[member] = status;
   out.nstep[member] = nstep;
   out.nfev[member] = nfev;
+  if constexpr (tab::REC) the_record(record...).n[member] = nrec;
   clk.write(member);
 }
 
 // One thread per member: the group body on one lane, for ensembles that
 // fill the card.
-template <bool COMP>
+template <bool COMP, class... Record>
 __device__ void integrate_thread(const float* __restrict__ y0,
                                  const float* __restrict__ yp0,
                                  const float* __restrict__ par,
                                  const Launch& L, int member,
-                                 const Out& out) {
+                                 const Out& out, const Record&... record) {
   OneLane one;
-  integrate<1, COMP>(one, y0, yp0, par, L, member, out);
+  integrate<1, COMP>(one, y0, yp0, par, L, member, out, record...);
 }
 
 }  // namespace
@@ -742,11 +797,16 @@ __device__ void integrate_thread(const float* __restrict__ y0,
 
 namespace {
 
-template <int G, bool COMP>
-__global__ void fused_esdirk_kernel(const float* __restrict__ y0,
-                                    const float* __restrict__ yp0,
-                                    const float* __restrict__ par, Out out,
-                                    int B, int block_members, Launch L) {
+// The member of this thread's group from the kernel's arguments, with the
+// record where a build has one.
+template <int G, bool COMP, class... Record>
+__device__ __forceinline__ void member_body(const float* __restrict__ y0,
+                                            const float* __restrict__ yp0,
+                                            const float* __restrict__ par,
+                                            const Out& out, int B,
+                                            int block_members,
+                                            const Launch& L,
+                                            const Record&... record) {
   const int member =
       blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
   if (member >= B) return;  // ragged last block: no member padding
@@ -755,20 +815,49 @@ __global__ void fused_esdirk_kernel(const float* __restrict__ y0,
                                  : nullptr;
   const float* parm = par + static_cast<size_t>(member) * tab::NPAR;
   if constexpr (G == 1) {
-    integrate_thread<COMP>(y0m, yp0m, parm, L, member, out);
+    integrate_thread<COMP>(y0m, yp0m, parm, L, member, out, record...);
   } else {
     LaneGroup<G> grp;
-    integrate<G, COMP>(grp, y0m, yp0m, parm, L, member, out);
+    integrate<G, COMP>(grp, y0m, yp0m, parm, L, member, out, record...);
   }
+}
+
+template <int G, bool COMP>
+__global__ void fused_esdirk_kernel(const float* __restrict__ y0,
+                                    const float* __restrict__ yp0,
+                                    const float* __restrict__ par, Out out,
+                                    int B, int block_members, Launch L) {
+  member_body<G, COMP>(y0, yp0, par, out, B, block_members, L);
+}
+
+// The kernel of a build with the dense record (tab::REC), which takes the
+// record; a build without it instantiates only fused_esdirk_kernel, whose
+// parameters are those it had before dense output.
+template <int G, bool COMP>
+__global__ void fused_esdirk_record_kernel(const float* __restrict__ y0,
+                                           const float* __restrict__ yp0,
+                                           const float* __restrict__ par,
+                                           Out out, int B,
+                                           int block_members, Launch L,
+                                           Rec rec) {
+  member_body<G, COMP>(y0, yp0, par, out, B, block_members, L, rec);
 }
 
 template <int G>
 int launch(const float* y0, const float* yp0, const float* par,
            const Out& out, int B, const Launch& L, int compensated,
-           int block_members, cudaStream_t s) {
+           int block_members, const Rec& rec, cudaStream_t s) {
   const int blocks = (B + block_members - 1) / block_members;
   const int threads = block_members * G;
-  if (compensated) {
+  if constexpr (tab::REC) {
+    if (compensated) {
+      fused_esdirk_record_kernel<G, true><<<blocks, threads, 0, s>>>(
+          y0, yp0, par, out, B, block_members, L, rec);
+    } else {
+      fused_esdirk_record_kernel<G, false><<<blocks, threads, 0, s>>>(
+          y0, yp0, par, out, B, block_members, L, rec);
+    }
+  } else if (compensated) {
     fused_esdirk_kernel<G, true><<<blocks, threads, 0, s>>>(
         y0, yp0, par, out, B, block_members, L);
   } else {
@@ -795,6 +884,39 @@ extern "C" int fused_esdirk_sections(void* sections) {
 // cudaGetLastError() (cudaErrorInvalidValue for another lane count); the
 // wrapper raises on anything but 0.  yp0 may be null when have_yp0 is 0;
 // params is (B, tab::NPAR) float32, row-major (null when NPAR is 0).
+static int launch_lanes(const void* y0, const void* yp0, const void* params,
+                        void* y_out, void* status, void* nstep, void* nfev,
+                        int B, const Launch& L, int compensated, int lanes,
+                        int block_members, const Rec& rec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* y0f = static_cast<const float*>(y0);
+  const float* yp0f = static_cast<const float*>(yp0);
+  const float* par = static_cast<const float*>(params);
+  const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
+                static_cast<int*>(nstep), static_cast<int*>(nfev)};
+  switch (lanes) {
+    case 1:
+      return launch<1>(y0f, yp0f, par, out, B, L, compensated,
+                       block_members, rec, s);
+    case 4:
+      return launch<4>(y0f, yp0f, par, out, B, L, compensated,
+                       block_members, rec, s);
+    case 8:
+      return launch<8>(y0f, yp0f, par, out, B, L, compensated,
+                       block_members, rec, s);
+    case 16:
+      return launch<16>(y0f, yp0f, par, out, B, L, compensated,
+                        block_members, rec, s);
+    case 32:
+      return launch<32>(y0f, yp0f, par, out, B, L, compensated,
+                        block_members, rec, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The launch of a build without dense output (cudaErrorInvalidValue for a
+// build with it: that one takes fused_esdirk_record_launch).
 extern "C" int fused_esdirk_launch(const void* y0, const void* yp0,
                                    const void* params, void* y_out,
                                    void* status, void* nstep,
@@ -805,31 +927,31 @@ extern "C" int fused_esdirk_launch(const void* y0, const void* yp0,
                                    float tiny_err, int compensated,
                                    int lanes, int block_members,
                                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* y0f = static_cast<const float*>(y0);
-  const float* yp0f = static_cast<const float*>(yp0);
-  const float* par = static_cast<const float*>(params);
-  const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
-                static_cast<int*>(nstep), static_cast<int*>(nfev)};
+  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{t0,       tf,       rtol,       atol,     h0,
                  max_step, tiny_err, use_hstart, have_yp0, max_steps};
-  switch (lanes) {
-    case 1:
-      return launch<1>(y0f, yp0f, par, out, B, L, compensated,
-                       block_members, s);
-    case 4:
-      return launch<4>(y0f, yp0f, par, out, B, L, compensated,
-                       block_members, s);
-    case 8:
-      return launch<8>(y0f, yp0f, par, out, B, L, compensated,
-                       block_members, s);
-    case 16:
-      return launch<16>(y0f, yp0f, par, out, B, L, compensated,
-                        block_members, s);
-    case 32:
-      return launch<32>(y0f, yp0f, par, out, B, L, compensated,
-                        block_members, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_lanes(y0, yp0, params, y_out, status, nstep, nfev, B, L,
+                      compensated, lanes, block_members, Rec{}, stream);
+}
+
+// The launch of a build with dense output (tab::REC): as
+// fused_esdirk_launch, and each member writes its record
+// (dense_record.cuh) to rec_t (B, rows), rec_y and rec_f (B, rows, N),
+// rec_f0 (B, N) and rec_n (B,) int32, in user coordinates.
+// cudaErrorInvalidValue for a build without it or rows < 1.
+extern "C" int fused_esdirk_record_launch(
+    const void* y0, const void* yp0, const void* params, void* y_out,
+    void* status, void* nstep, void* nfev, int B, float t0, float tf,
+    float rtol, float atol, float h0, int use_hstart, int have_yp0,
+    float max_step, int max_steps, float tiny_err, int compensated,
+    int lanes, int block_members, void* rec_t, void* rec_y, void* rec_f,
+    void* rec_f0, void* rec_n, int rows, void* stream) {
+  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{t0,       tf,       rtol,       atol,     h0,
+                 max_step, tiny_err, use_hstart, have_yp0, max_steps};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  return launch_lanes(y0, yp0, params, y_out, status, nstep, nfev, B, L,
+                      compensated, lanes, block_members, rec, stream);
 }

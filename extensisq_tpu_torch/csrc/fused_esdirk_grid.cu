@@ -73,8 +73,17 @@
 // (ops/fused_esdirk_grid.py:_launch_shape) takes the faster of the two by
 // the ensemble's size, from a measured sweep.
 
+// Dense output (dense=R, ops/fused_esdirk_grid.py): a build whose header
+// sets tab::REC writes each accepted step's end (t, y, y') to its member's
+// rows in device memory (dense_record.cuh), y' the stiffly accurate last
+// stage the loop carries: every thread the elements of y and y' it
+// commits, as it commits them, rank 0 the step's t; f0 is the start's y',
+// each thread its own elements.  The writes sit beside the arithmetic,
+// which they leave as it is; without tab::REC the record parameter is
+// never read and the kernels are those of the build before dense output.
+//
 // The generated header fused_esdirk_grid_config.cuh provides
-//   namespace tab { G = grid::Grid<N>, N, NB, L, NPAR, S, MORDER,
+//   namespace tab { G = grid::Grid<N>, N, NB, L, NPAR, REC, S, MORDER,
 //                   NEWTON_MAXITER, FILTER_ERROR, D, INV_D, KAPPA,
 //                   controller and start constants, the accessors A(i, j),
 //                   AZ(i, j), C(i), E(j) }
@@ -99,6 +108,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dense_record.cuh"
 #include "dual.cuh"
 #include "grid_common.cuh"
 #include "fused_esdirk_grid_config.cuh"
@@ -114,6 +124,7 @@ using tab::N;
 using tab::NB;
 using tab::S;
 constexpr bool kBlock = NB < N;  // the simultaneous corrector
+using rk::Rec;
 using esdirk::RowA;
 using esdirk::RowAz;
 using esdirk::RowE;
@@ -608,24 +619,33 @@ __device__ float start(Group& g, const Rows& m, const float* __restrict__ y0,
 // The whole integration of one member by the group g (rank(), size(),
 // sync() and sum(x), a reduction whose result every thread holds, and
 // min(x) for the start).  sm is the member's shared memory (kFloats),
-// params every member's NPAR parameters (null without any).
+// params every member's NPAR parameters (null without any), rec the record
+// with tab::REC.
 template <bool COMP, class Group>
 __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
                           const float* __restrict__ yp0,
                           const float* __restrict__ mass,
                           const float* __restrict__ params, const Launch& Lc,
-                          int member, const Out& out) {
+                          int member, const Out& out,
+                          const Rec& rec = Rec{}) {
   const Rows m = rows(sm);
   load_params(g, sm, params, member);
   const float span = Lc.tf - Lc.t0;
   const float dir = span > 0.0f ? 1.0f : (span < 0.0f ? -1.0f : 0.0f);
   esdirk::Control ctl{start(g, m, y0, yp0, mass, dir, Lc)};
+  if constexpr (tab::REC) {
+    // the start's y': each thread's own elements, written by it
+    rk::for_elements<N>(g, [&](int i) {
+      rec.f0[static_cast<size_t>(member) * N + i] = m.yp[i];
+    });
+  }
   float t = Lc.t0;
   float t_lo = 0.0f;
   int status = kRunning;
   int nstep = 0;
   int nfev = Lc.have_yp0 ? 0 : 1;
   int it = 0;
+  int nrec = 0;  // rows of the record written (tab::REC)
   Clock clk;
 
   while (status == kRunning) {
@@ -707,6 +727,10 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
     const float rem = (Lc.tf - t_adv) - t_lo_adv;
     const bool is_last = accepted && fabsf(rem) <= tab::LAND_TOL * ha;
     if (status == kRunning && is_last) status = kFinished;
+    // the step's end at row nstep of the record, while the attempts are
+    // below its rows
+    const bool rec_row = tab::REC && it < rec.rows;
+    const size_t row = tab::REC ? rec.row(member, nstep) : 0;
     // step cap: loop iterations, accepted plus rejected
     it += 1;
     if (status == kRunning && it >= Lc.max_steps) status = kOverflow;
@@ -717,9 +741,21 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
         m.y[i] = m.ynew[i];
         m.ylo[i] = m.ylonew[i];
         m.yp[i] = finite_or_one(m.K[(S - 1) * N + i], unused);
+        if constexpr (tab::REC) {
+          if (rec_row) {
+            rec.y[row * N + i] = m.y[i];
+            rec.f[row * N + i] = m.yp[i];
+          }
+        }
       });
       t = is_last ? Lc.tf : t_adv;
       t_lo = is_last ? 0.0f : t_lo_adv;
+      if constexpr (tab::REC) {
+        if (rec_row) {
+          if (g.rank() == 0) rec.t[row] = t;
+          nrec += 1;
+        }
+      }
       nstep += 1;
     }
     nfev += st.nfev;
@@ -734,6 +770,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
     out.status[member] = status;
     out.nsteps[member] = nstep;
     out.nfev[member] = nfev;
+    if constexpr (tab::REC) rec.n[member] = nrec;
     clk.write(member, it);
   }
 }
@@ -794,14 +831,14 @@ __global__ void __launch_bounds__(kMaxThreads)
                              const float* __restrict__ yp0,
                              const float* __restrict__ mass,
                              const float* __restrict__ params, Launch Lc,
-                             Out out) {
+                             Out out, Rec rec) {
   extern __shared__ float sm[];
   __shared__ float red[2 * 2 * 32];
   auto g = group(BlockGroupOf<2>{red});
   const int member = blockIdx.x;
   const size_t off = static_cast<size_t>(member) * N;
   integrate<COMP>(g, sm, y0 + off, yp0 ? yp0 + off : nullptr, mass, params,
-                  Lc, member, out);
+                  Lc, member, out, rec);
   write_phases(g, member);
 }
 
@@ -814,7 +851,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                                   const float* __restrict__ yp0,
                                   const float* __restrict__ mass,
                                   const float* __restrict__ params, Launch Lc,
-                                  Out out, int members) {
+                                  Out out, int members, Rec rec) {
   extern __shared__ float sm[];
   const int warp = static_cast<int>(threadIdx.x >> 5);
   const int member = static_cast<int>(blockIdx.x * (blockDim.x >> 5)) + warp;
@@ -822,14 +859,15 @@ __global__ void __launch_bounds__(kMaxThreads)
   auto g = group(WarpGroup{});
   const size_t off = static_cast<size_t>(member) * N;
   integrate<COMP>(g, sm + warp * kFloats, y0 + off,
-                  yp0 ? yp0 + off : nullptr, mass, params, Lc, member, out);
+                  yp0 ? yp0 + off : nullptr, mass, params, Lc, member, out,
+                  rec);
   write_phases(g, member);
 }
 
 using Kernel = void (*)(const float*, const float*, const float*,
-                        const float*, Launch, Out);
+                        const float*, Launch, Out, Rec);
 using WarpKernel = void (*)(const float*, const float*, const float*,
-                            const float*, Launch, Out, int);
+                            const float*, Launch, Out, int, Rec);
 
 // Allows `bytes` of dynamic shared memory where it is above 48 KB.
 template <class K>
@@ -870,16 +908,12 @@ extern "C" int fused_esdirk_grid_smem(int* need, int* limit) {
 // (above 48 KB after cudaFuncSetAttribute).  yp0 may be null when have_yp0
 // is 0, mass null for ODEs, params (NPAR floats a member) null where NPAR
 // is 0.
-extern "C" int fused_esdirk_grid_launch(
-    const void* y0, const void* yp0, const void* mass, const void* params,
-    void* y_out,
-    void* status, void* nstep, void* nfev, int members, float t0, float tf,
-    float rtol, float atol, float h0, int use_hstart, int have_yp0,
-    float max_step, int max_steps, float tiny_err, int compensated,
-    int threads, int warp_members, void* stream) {
+static int launch_members(const void* y0, const void* yp0, const void* mass,
+                          const void* params, void* y_out, void* status,
+                          void* nstep, void* nfev, int members,
+                          const Launch& Lc, int compensated, int threads,
+                          int warp_members, const Rec& rec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Launch Lc{t0,         tf,        rtol,     atol,      h0,
-                  use_hstart, have_yp0,  max_step, max_steps, tiny_err};
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
   const float* y0f = static_cast<const float*>(y0);
@@ -898,7 +932,7 @@ extern "C" int fused_esdirk_grid_launch(
     if (e != cudaSuccess) return static_cast<int>(e);
     const int blocks = (members + warp_members - 1) / warp_members;
     kernel<<<blocks, 32 * warp_members, bytes, st>>>(y0f, yp0f, massf, pf,
-                                                     Lc, out, members);
+                                                     Lc, out, members, rec);
     return static_cast<int>(cudaGetLastError());
   }
   Kernel kernel = compensated ? fused_esdirk_grid_kernel<true>
@@ -906,6 +940,47 @@ extern "C" int fused_esdirk_grid_launch(
   const cudaError_t e = allow_smem(kernel, member_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<members, threads, member_bytes, st>>>(y0f, yp0f, massf, pf, Lc,
-                                                 out);
+                                                 out, rec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of a build without dense output (cudaErrorInvalidValue for a
+// build with it: that one takes fused_esdirk_grid_record_launch).
+extern "C" int fused_esdirk_grid_launch(
+    const void* y0, const void* yp0, const void* mass, const void* params,
+    void* y_out,
+    void* status, void* nstep, void* nfev, int members, float t0, float tf,
+    float rtol, float atol, float h0, int use_hstart, int have_yp0,
+    float max_step, int max_steps, float tiny_err, int compensated,
+    int threads, int warp_members, void* stream) {
+  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch Lc{t0,         tf,        rtol,     atol,      h0,
+                  use_hstart, have_yp0,  max_step, max_steps, tiny_err};
+  return launch_members(y0, yp0, mass, params, y_out, status, nstep, nfev,
+                        members, Lc, compensated, threads, warp_members,
+                        Rec{}, stream);
+}
+
+// The launch of a build with dense output (tab::REC): as
+// fused_esdirk_grid_launch, and each member writes its record
+// (dense_record.cuh) to rec_t (B, rows), rec_y and rec_f (B, rows, N),
+// rec_f0 (B, N) and rec_n (B,) int32.  cudaErrorInvalidValue for a build
+// without it or rows < 1.
+extern "C" int fused_esdirk_grid_record_launch(
+    const void* y0, const void* yp0, const void* mass, const void* params,
+    void* y_out, void* status, void* nstep, void* nfev, int members,
+    float t0, float tf, float rtol, float atol, float h0, int use_hstart,
+    int have_yp0, float max_step, int max_steps, float tiny_err,
+    int compensated, int threads, int warp_members, void* rec_t,
+    void* rec_y, void* rec_f, void* rec_f0, void* rec_n, int rows,
+    void* stream) {
+  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch Lc{t0,         tf,        rtol,     atol,      h0,
+                  use_hstart, have_yp0,  max_step, max_steps, tiny_err};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  return launch_members(y0, yp0, mass, params, y_out, status, nstep, nfev,
+                        members, Lc, compensated, threads, warp_members, rec,
+                        stream);
 }

@@ -48,13 +48,15 @@
 // No lane padding: norms divide by the true NF and any N that fits in
 // shared memory is taken (the wrapper raises before launch otherwise).
 //
-// Dense output (B4's dense=R, ops/fused_erk_grid.py): an ERK build whose
-// header sets tab::REC writes each accepted step's end to its member's
-// rows in device memory (dense_record.cuh): every thread the elements of
-// y and f it commits, as it commits them, rank 0 the step's t; f0 is K[0]
-// after the start, each thread its own elements.  Without tab::REC (B6,
-// B12 and B4 without dense output) the record parameter is never read and
-// the kernels are those of the build before dense output.
+// Dense output (dense=R of B4, ops/fused_erk_grid.py, and of B6,
+// ops/fused_rkn_grid.py): a build whose header sets tab::REC writes each
+// accepted step's end to its member's rows in device memory
+// (dense_record.cuh, rows of NF): every thread the elements of y and f it
+// commits, as it commits them, rank 0 the step's t; f0 is the derivative
+// after the start, each thread its own elements.  An RKN row is the full
+// first-order state: y = [u, v] and f = [v, a].  Without tab::REC (B12,
+// and B4 and B6 without dense output) the record parameter is never read
+// and the kernels are those of the build before dense output.
 //
 // The CKdisc cascade (ck_control.cuh) has up to five norms per attempt: E1,
 // E2, E4 and the two fallbacks' error tests.  Every thread holds the same
@@ -87,9 +89,9 @@
 //   __device__ float acc(float t, const float* u, const float* v, int i,
 //                        const float* p);
 // (one of the two a stub); neighbours come from tab::G::rolled.  p is the
-// member's NPAR parameters (B4's params), which it loads once into its
-// shared memory before anything reads them; with NPAR = 0 (B6, B12 and B4
-// without params) p is a null pointer, as it always was.
+// member's NPAR parameters (params of B4 and B6), which it loads once into
+// its shared memory before anything reads them; with NPAR = 0 (B12, and B4
+// and B6 without params) p is a null pointer, as it always was.
 //
 // Numerics as in fused_erk.cu and fused_rkn.cu: the compensated helpers
 // round every operation on its own (__f*_rn), elsewhere nvcc may contract;
@@ -117,8 +119,8 @@ constexpr int NF = RKN ? 2 * N : N;          // the first-order state
 constexpr int MM = S + (tab::FSAL ? 1 : 0);  // rows of the error estimate
 constexpr int kMaxThreads = 256;
 
-static_assert(!tab::REC || (!RKN && !tab::CK),
-              "dense output is built for the ERK family only");
+static_assert(!tab::REC || !tab::CK,
+              "dense output is built for the ERK and RKN families only");
 using rk::Rec;
 
 constexpr int kRunning = 0;
@@ -457,9 +459,16 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   float t = L.t0;
   rk::for_elements<NF>(g, [&](int j) { Ylo[j] = 0.0f; });
   if constexpr (tab::REC) {
-    // K[0] = f(t0, y0): each thread's own elements, written by it
+    // K[0] = f(t0, y0) ([v0, K[0]] for RKN): each thread's own elements,
+    // written by it
     rk::for_elements<N>(g, [&](int i) {
-      rec.f0[static_cast<size_t>(member) * N + i] = K[i];
+      float* f0 = rec.f0 + static_cast<size_t>(member) * NF;
+      if constexpr (RKN) {
+        f0[i] = Y[N + i];
+        f0[N + i] = K[i];
+      } else {
+        f0[i] = K[i];
+      }
     });
   }
 
@@ -581,8 +590,16 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
             K[i] = c.k;
             if constexpr (tab::REC) {
               if (rec_row) {
-                rec.y[row * N + i] = c.y.u;
-                rec.f[row * N + i] = c.k;
+                float* ry = rec.y + row * NF;
+                float* rf = rec.f + row * NF;
+                ry[i] = c.y.u;
+                if constexpr (RKN) {
+                  ry[N + i] = c.y.v;
+                  rf[i] = c.y.v;
+                  rf[N + i] = c.k;
+                } else {
+                  rf[i] = c.k;
+                }
               }
             }
           });
@@ -966,10 +983,10 @@ extern "C" int fused_rk_grid_launch(const void* y0, const void* params,
                         compensated, threads, warp_members, Rec{}, stream);
 }
 
-// The launch of an ERK build with dense output (tab::REC): as
+// The launch of an ERK or RKN build with dense output (tab::REC): as
 // fused_rk_grid_launch, and each member writes its record
-// (dense_record.cuh) to rec_t (B, rows), rec_y and rec_f (B, rows, N),
-// rec_f0 (B, N) and rec_n (B,) int32.  cudaErrorInvalidValue for a build
+// (dense_record.cuh) to rec_t (B, rows), rec_y and rec_f (B, rows, NF),
+// rec_f0 (B, NF) and rec_n (B,) int32.  cudaErrorInvalidValue for a build
 // without it or rows < 1.
 extern "C" int fused_rk_grid_record_launch(
     const void* y0, const void* params, void* y_out, void* status,

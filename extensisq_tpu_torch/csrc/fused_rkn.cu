@@ -31,13 +31,29 @@
 // accelerations); the build prints -Xptxas -v, and chip_smoke.py reports
 // it for M = 2 and M = 14.
 //
+// Per-member parameters (params, ops/fused_rkn.py): with tab::NPAR = K > 0
+// a member loads its K parameters into registers once, before its loop,
+// and the acceleration takes them as a fifth argument (MemberAcc below, the
+// form of member_rhs.cuh); with K = 0 the params pointer is never read.
+//
+// Dense output (dense=R): a build whose header sets tab::REC writes each
+// accepted step's end (t, [u, v], [v, a]) to its member's rows in device
+// memory, rank 0 of a group as it writes the results (dense_record.cuh,
+// rows of 2M); f0 = [v0, a(t0)] once at the start.  The writes sit beside
+// the arithmetic, which they leave as it is; without tab::REC the record
+// parameter is never read and the kernels are those of the build before
+// dense output.
+//
 // The tableau (float32, rounded as the JAX kernel rounds it; E and Ep as the
 // tableau has them, without the stepper's Mu5Nmb damping) and the user's
 // acceleration come from the generated header fused_rkn_config.cuh:
-//   namespace tab { M, S, FSAL, MORDER, A(i, j), AP(i, j), B(j), BP(j),
-//                   C(i), E(j), EP(j), controller and start constants }
+//   namespace tab { M, NPAR, REC, S, FSAL, MORDER, A(i, j), AP(i, j),
+//                   B(j), BP(j), C(i), E(j), EP(j), controller and start
+//                   constants }
 //   template <class T> __device__ void acc(T t, const T* u, const T* v,
 //                                          T* a);
+// (with NPAR = K > 0: acc(T t, const T* u, const T* v, T* a, const T* p),
+// p the member's K parameters).
 // Weights are compile-time constants, so zero weights drop out of the
 // unrolled sums (rk_common.cuh); the step control is rk_control.cuh's.
 //
@@ -49,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dense_record.cuh"
 #include "fused_rkn_config.cuh"
 #include "rk_common.cuh"
 
@@ -64,12 +81,39 @@ constexpr int kFinished = 1;
 constexpr int kTooSmall = 2;
 constexpr int kOverflow = 3;
 
-// The first-order form [v, acc(t, u, v)], the starting step's RHS.
-__device__ __forceinline__ void rhs(float t, const float* y, float* dy) {
+// The user's acceleration bound to one member's K parameters, loaded into
+// registers once.
+template <int K>
+struct MemberAcc {
+  float p[K > 0 ? K : 1];
+
+  __device__ explicit MemberAcc(const float* __restrict__ par) {
 #pragma unroll
-  for (int k = 0; k < M; ++k) dy[k] = y[M + k];
-  acc(t, y, y + M, dy + M);
-}
+    for (int j = 0; j < K; ++j) p[j] = par[j];
+  }
+
+  template <class T>
+  __device__ __forceinline__ void operator()(T t, const T* u, const T* v,
+                                             T* a) const {
+    if constexpr (K == 0) {
+      acc(t, u, v, a);
+    } else {
+      acc(t, u, v, a, static_cast<const T*>(p));
+    }
+  }
+};
+using Acc = MemberAcc<tab::NPAR>;
+
+// The first-order form [v, acc(t, u, v)], the starting step's RHS.
+struct FirstOrder {
+  const Acc& fn;
+  __device__ __forceinline__ void operator()(float t, const float* y,
+                                             float* dy) const {
+#pragma unroll
+    for (int k = 0; k < M; ++k) dy[k] = y[M + k];
+    fn(t, y, y + M, dy + M);
+  }
+};
 
 }  // namespace
 
@@ -83,6 +127,7 @@ namespace {
 using rk::Launch;
 using rk::OneLane;
 using rk::Out;
+using rk::Rec;
 using rk::RowA;
 using rk::RowAp;
 using rk::RowB;
@@ -93,7 +138,8 @@ using Stages = float[S + 1][M];
 
 // Stages I..S-1 of one attempt; K[0] holds acc(t, u, v).
 template <bool COMP, int I>
-__device__ __forceinline__ void stages(float t, float h, float hh,
+__device__ __forceinline__ void stages(const Acc& fn, float t, float h,
+                                       float hh,
                                        const float (&u)[M],
                                        const float (&u_lo)[M],
                                        const float (&v)[M],
@@ -117,22 +163,27 @@ __device__ __forceinline__ void stages(float t, float h, float hh,
       av[k] = v[k] + dv;
     }
     clk.mark(rk::kStageSums);
-    acc(t + ch, au, av, K[I]);
+    fn(t + ch, au, av, K[I]);
     clk.mark(rk::kRhs);
-    stages<COMP, I + 1>(t, h, hh, u, u_lo, v, v_lo, K, clk);
+    stages<COMP, I + 1>(fn, t, h, hh, u, u_lo, v, v_lo, K, clk);
   }
 }
 
 // The whole integration of one member by the group grp of G lanes (rank(),
-// shfl(v, src); OneLane at G = 1) from its initial state y0 = [u, v]; lane
-// 0 writes the results.  At G = 1 the norm and the controller run as one
-// thread runs them; at G > 1 their divisions and powers are split over the
-// lanes (rk_lanes.cuh), with the same bits.
+// shfl(v, src); OneLane at G = 1) from its initial state y0 = [u, v] with
+// its parameters par (tab::NPAR floats; unread when there are none); lane
+// 0 writes the results, and with tab::REC the member's record rec.  At G =
+// 1 the norm and the controller run as one thread runs them; at G > 1
+// their divisions and powers are split over the lanes (rk_lanes.cuh), with
+// the same bits.
 template <int G, bool COMP, class Group>
 __device__ __forceinline__ void integrate(Group& grp,
                                           const float* __restrict__ y0,
+                                          const float* __restrict__ par,
                                           const Launch& L, int member,
-                                          const Out& out) {
+                                          const Out& out,
+                                          const Rec& rec = Rec{}) {
+  const Acc fn(par);
   const float tf = L.tf;
   const float rtol = L.rtol;
   const float atol = L.atol;
@@ -150,7 +201,16 @@ __device__ __forceinline__ void integrate(Group& grp,
   const float dir = span > 0.0f ? 1.0f : (span < 0.0f ? -1.0f : 0.0f);
   float t = L.t0;
   float t_lo = 0.0f;
-  acc(t, u, v, f);
+  fn(t, u, v, f);
+  if constexpr (tab::REC) {
+    if (grp.rank() == 0) {
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        rec.f0[static_cast<size_t>(member) * N + k] = v[k];
+        rec.f0[static_cast<size_t>(member) * N + M + k] = f[k];
+      }
+    }
+  }
   rk::StepControl ctl{L.h0};
   int nfev = 1;
   if (L.use_hstart) {
@@ -164,13 +224,15 @@ __device__ __forceinline__ void integrate(Group& grp,
     }
     // max_step is +inf when the caller gave none
     const float bq = t + dir * fminf(fabsf(tf - t), max_step);
-    ctl.h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, yp, rtol, atol));
+    ctl.h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, yp, rtol, atol,
+                                                 FirstOrder{fn}));
     nfev = 2 + (N + 1 < 3 ? N + 1 : 3);
   }
 
   int status = kRunning;
   int nstep = 0;
   int it = 0;
+  int nrec = 0;  // rows of the record written (tab::REC)
   rk::Clock clk;
 
   while (status == kRunning) {
@@ -184,7 +246,7 @@ __device__ __forceinline__ void integrate(Group& grp,
 #pragma unroll
     for (int k = 0; k < M; ++k) K[0][k] = f[k];
     clk.mark(rk::kLoop);
-    stages<COMP, 1>(t, h, hh, u, u_lo, v, v_lo, K, clk);
+    stages<COMP, 1>(fn, t, h, hh, u, u_lo, v, v_lo, K, clk);
     float u_new[M], v_new[M], u_lo_new[M], v_lo_new[M];
     float err_u[M], err_v[M];
     if constexpr (COMP) {
@@ -215,7 +277,7 @@ __device__ __forceinline__ void integrate(Group& grp,
       }
     }
     clk.mark(rk::kSolution);
-    if constexpr (tab::FSAL) acc(t + h, u_new, v_new, K[S]);
+    if constexpr (tab::FSAL) fn(t + h, u_new, v_new, K[S]);
     clk.mark(rk::kRhs);
     if constexpr (COMP) {
       float es[M], ec[M], eps[M], epc[M];
@@ -318,7 +380,7 @@ __device__ __forceinline__ void integrate(Group& grp,
         for (int k = 0; k < M; ++k) f[k] = K[S][k];
       } else {
         // a non-FSAL pair evaluates the endpoint of accepted steps only
-        acc(t_new, u_new, v_new, f);
+        fn(t_new, u_new, v_new, f);
         nfev += 1;
       }
 #pragma unroll
@@ -330,6 +392,23 @@ __device__ __forceinline__ void integrate(Group& grp,
       }
       t = t_new;
       t_lo = t_lo_new;
+      // the step's end at row nstep, while the attempts are below rows
+      if constexpr (tab::REC) {
+        if (it < rec.rows) {
+          if (grp.rank() == 0) {
+            const size_t row = rec.row(member, nstep);
+            rec.t[row] = t;
+#pragma unroll
+            for (int k = 0; k < M; ++k) {
+              rec.y[row * N + k] = u[k];
+              rec.y[row * N + M + k] = v[k];
+              rec.f[row * N + k] = v[k];
+              rec.f[row * N + M + k] = f[k];
+            }
+          }
+          nrec += 1;
+        }
+      }
       nstep += 1;
     }
 
@@ -349,6 +428,7 @@ __device__ __forceinline__ void integrate(Group& grp,
   out.status[member] = status;
   out.nstep[member] = nstep;
   out.nfev[member] = nfev;
+  if constexpr (tab::REC) rec.n[member] = nrec;
   clk.write(member, it);
 }
 
@@ -356,10 +436,11 @@ __device__ __forceinline__ void integrate(Group& grp,
 // fill the card.
 template <bool COMP>
 __device__ void integrate_thread(const float* __restrict__ y0,
+                                 const float* __restrict__ par,
                                  const Launch& L, int member,
-                                 const Out& out) {
+                                 const Out& out, const Rec& rec = Rec{}) {
   OneLane one;
-  integrate<1, COMP>(one, y0, L, member, out);
+  integrate<1, COMP>(one, y0, par, L, member, out, rec);
 }
 
 }  // namespace
@@ -370,31 +451,35 @@ __device__ void integrate_thread(const float* __restrict__ y0,
 namespace {
 
 template <int G, bool COMP>
-__global__ void fused_rkn_kernel(const float* __restrict__ y0, Out out,
-                                 int B, int block_members, Launch L) {
+__global__ void fused_rkn_kernel(const float* __restrict__ y0,
+                                 const float* __restrict__ par, Out out,
+                                 int B, int block_members, Launch L,
+                                 Rec rec) {
   const int member =
       blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
   if (member >= B) return;  // ragged last block: no member padding
   const float* y0m = y0 + static_cast<size_t>(member) * N;
+  const float* parm = par + static_cast<size_t>(member) * tab::NPAR;
   if constexpr (G == 1) {
-    integrate_thread<COMP>(y0m, L, member, out);
+    integrate_thread<COMP>(y0m, parm, L, member, out, rec);
   } else {
     LaneGroup<G> grp;
-    integrate<G, COMP>(grp, y0m, L, member, out);
+    integrate<G, COMP>(grp, y0m, parm, L, member, out, rec);
   }
 }
 
 template <int G>
-int launch(const float* y0, const Out& out, int B, const Launch& L,
-           int compensated, int block_members, cudaStream_t s) {
+int launch(const float* y0, const float* par, const Out& out, int B,
+           const Launch& L, int compensated, int block_members,
+           const Rec& rec, cudaStream_t s) {
   const int blocks = (B + block_members - 1) / block_members;
   const int threads = block_members * G;
   if (compensated) {
-    fused_rkn_kernel<G, true><<<blocks, threads, 0, s>>>(y0, out, B,
-                                                         block_members, L);
+    fused_rkn_kernel<G, true><<<blocks, threads, 0, s>>>(
+        y0, par, out, B, block_members, L, rec);
   } else {
-    fused_rkn_kernel<G, false><<<blocks, threads, 0, s>>>(y0, out, B,
-                                                          block_members, L);
+    fused_rkn_kernel<G, false><<<blocks, threads, 0, s>>>(
+        y0, par, out, B, block_members, L, rec);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -414,28 +499,65 @@ extern "C" int fused_rkn_sections(void* sections) {
 // Launches block_members members per block, `lanes` (1, 2, 4 or 8)
 // threads per member, on the caller's stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for another lane count); the
-// wrapper raises on anything but 0.
-extern "C" int fused_rkn_launch(const void* y0, void* y_out, void* status,
-                                void* nstep, void* nfev, int B, float t0,
-                                float tf, float rtol, float atol, float h0,
-                                int use_hstart, float max_step, int max_steps,
-                                int compensated, int lanes, int block_members,
-                                void* stream) {
+// wrapper raises on anything but 0.  params is (B, tab::NPAR) float32,
+// row-major (null when NPAR is 0).
+static int launch_lanes(const void* y0, const void* params, void* y_out,
+                        void* status, void* nstep, void* nfev, int B,
+                        const Launch& L, int compensated, int lanes,
+                        int block_members, const Rec& rec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* y0f = static_cast<const float*>(y0);
+  const float* par = static_cast<const float*>(params);
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
-  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
   switch (lanes) {
     case 1:
-      return launch<1>(y0f, out, B, L, compensated, block_members, s);
+      return launch<1>(y0f, par, out, B, L, compensated, block_members, rec,
+                       s);
     case 2:
-      return launch<2>(y0f, out, B, L, compensated, block_members, s);
+      return launch<2>(y0f, par, out, B, L, compensated, block_members, rec,
+                       s);
     case 4:
-      return launch<4>(y0f, out, B, L, compensated, block_members, s);
+      return launch<4>(y0f, par, out, B, L, compensated, block_members, rec,
+                       s);
     case 8:
-      return launch<8>(y0f, out, B, L, compensated, block_members, s);
+      return launch<8>(y0f, par, out, B, L, compensated, block_members, rec,
+                       s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The launch of a build without dense output (cudaErrorInvalidValue for a
+// build with it: that one takes fused_rkn_record_launch).
+extern "C" int fused_rkn_launch(const void* y0, const void* params,
+                                void* y_out, void* status, void* nstep,
+                                void* nfev, int B, float t0, float tf,
+                                float rtol, float atol, float h0,
+                                int use_hstart, float max_step, int max_steps,
+                                int compensated, int lanes, int block_members,
+                                void* stream) {
+  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L,
+                      compensated, lanes, block_members, Rec{}, stream);
+}
+
+// The launch of a build with dense output (tab::REC): as fused_rkn_launch,
+// and each member writes its record (dense_record.cuh) to rec_t (B, rows),
+// rec_y and rec_f (B, rows, 2M), rec_f0 (B, 2M) and rec_n (B,) int32.
+// cudaErrorInvalidValue for a build without it or rows < 1.
+extern "C" int fused_rkn_record_launch(
+    const void* y0, const void* params, void* y_out, void* status,
+    void* nstep, void* nfev, int B, float t0, float tf, float rtol,
+    float atol, float h0, int use_hstart, float max_step, int max_steps,
+    int compensated, int lanes, int block_members, void* rec_t, void* rec_y,
+    void* rec_f, void* rec_f0, void* rec_n, int rows, void* stream) {
+  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L,
+                      compensated, lanes, block_members, rec, stream);
 }

@@ -60,10 +60,14 @@ def member_params(params, y0, fun):
     stays None; a non-tensor goes to ``y0``'s device as float32), checked
     as the JAX kernels check it: ``(B, k)`` or ``ValueError``; a tensor
     must be float32 on ``y0``'s device (``TypeError``); a
-    :class:`FusedRHS` (or a ``FusedGridRHS``) must take the same ``k``
-    (``ValueError``)."""
-    from .fused_rkc import FusedGridRHS  # fused_rkc imports this module
-    k_fun = fun.k if isinstance(fun, (FusedRHS, FusedGridRHS)) else None
+    :class:`FusedRHS`, ``FusedGridRHS``, ``FusedAcc`` or ``FusedGridAcc``
+    must take the same ``k`` (``ValueError``)."""
+    # these modules import this one
+    from .fused_rkc import FusedGridRHS
+    from .fused_rkn import FusedAcc
+    from .fused_rkn_grid import FusedGridAcc
+    k_fun = (fun.k if isinstance(fun, (FusedRHS, FusedGridRHS, FusedAcc,
+                                        FusedGridAcc)) else None)
     kind = type(fun).__name__
     if params is None:
         if k_fun:

@@ -37,7 +37,9 @@ carried in double-single in both modes.
 taken at fixed parameters.  ``block_base`` is the simultaneous corrector
 of the variational systems of ``ops/fused_sens.py``: W is built and
 factored on the first ``block_base`` rows and columns only and solves
-every block of ``block_base`` rows.
+every block of ``block_base`` rows.  ``dense=R`` records each member's
+accepted steps ``(t, y, y')``, y' the stiffly accurate last stage, in user
+coordinates, for a continuous dense output (``ops/fused_dense.py``).
 """
 import numpy as np
 import torch
@@ -52,9 +54,9 @@ from ..core.numerics import norm
 from ..steppers.erk import weighted_sum
 from ..steppers.esdirk import jacfwd
 from . import _hstart_tile
-from .fused_erk import (FusedRHS, _comp_wsum, _df_add, _launch_shape,
-                        _two_sum, bind_params, lanes_within_budget,
-                        member_params)
+from .fused_erk import (DenseRecord, FusedRHS, _Record, _comp_wsum, _df_add,
+                        _launch_shape, _two_sum, bind_params, dense_rows,
+                        lanes_within_budget, member_params)
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -222,7 +224,7 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
                            yp0_batch=None, rtol=1e-4, atol=1e-6,
                            first_step=None, max_steps=100_000,
                            compensated=False, max_step=None, params=None,
-                           block_base=None):
+                           block_base=None, dense=None):
     """The plain PyTorch version of the fused ESDIRK kernel, on the device
     of ``y0_batch``.
 
@@ -233,11 +235,14 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
     ``params`` (B, k) is given.  With ``block_base`` the Newton matrix is
     the first ``block_base`` rows and columns of the Jacobian and solves
     each block of as many rows.  Returns ``(y (B, n), status (B,), nsteps
-    (B,), nfev (B,))`` like :func:`solve_fused_esdirk`.
+    (B,), nfev (B,))`` like :func:`solve_fused_esdirk`, and with
+    ``dense=R`` the members' :class:`~.fused_dense.FusedDenseSolution`
+    fifth, from the rows the kernel writes.
     """
     k = _esdirk_consts(method)
     f32 = torch.float32
     y = torch.as_tensor(y0_batch).to(f32).T.contiguous()
+    y_user = y
     n, nb = y.shape
     dev = y.device
     nbase = _block_checks(block_base, M, n)
@@ -303,14 +308,21 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
         return torch.stack([x for i in range(0, n, nbase)
                             for x in _gauss_replay(fact, b[i:i + nbase])])
 
+    rows = dense_rows(dense)
+    rec = (_Record(y_user, yp if to_user is None else to_user(yp), rows)
+           if rows else None)
     y, status, nstep, nfev = run_esdirk_loop(
         fun, k, t0, tf, y, yp, h_abs, 0 if yp0_batch is not None else 1,
         rtol, atol, max_steps, compensated, max_step,
         torch.tensor(mass, dtype=f32, device=dev)[:, None],
-        torch.tensor(is_alg, device=dev)[:, None], factor, solve, to_user)
+        torch.tensor(is_alg, device=dev)[:, None], factor, solve, to_user,
+        rec)
     if rot is not None:
         y = mat(rot[0].T, y)
-    return y.T.contiguous(), status, nstep, nfev
+    out = (y.T.contiguous(), status, nstep, nfev)
+    if rec is None:
+        return out
+    return out + (rec.solution(t_span, nstep),)
 
 
 def _start_step(fun, k, t0, tf, y, yp, rtol, atol, first_step, max_step,
@@ -334,7 +346,7 @@ def _start_step(fun, k, t0, tf, y, yp, rtol, atol, first_step, max_step,
 
 def run_esdirk_loop(fun, k, t, tf, y, yp, h_abs, nfev0, rtol, atol,
                     max_steps, compensated, max_step, mass, alg, factor,
-                    solve, to_user=None):
+                    solve, to_user=None, record=None):
     """The fused ESDIRK loop, shared by the plain versions of B2 and B7.
 
     ``fun`` is the rows-first torch function of the integrated system, ``k``
@@ -346,8 +358,11 @@ def run_esdirk_loop(fun, k, t, tf, y, yp, h_abs, nfev0, rtol, atol,
     the Newton matrix ``W = M - hd J(tc, y)`` (the algebraic rows ``-J``)
     once per attempt, ``solve(fact, b)`` solves ``W x = b`` for (n, B) rows
     ``b``.  ``to_user`` maps rows to the user's coordinates, where every
-    norm is taken (identity when None).  Returns ``(y (n, B), status,
-    nsteps, nfev)``."""
+    norm is taken (identity when None).  ``record``, a
+    ``fused_erk._Record`` or None, takes each accepted step's end ``(t,
+    y, y')`` in user coordinates while the attempts are below its rows, as
+    the kernels write it.  Returns ``(y (n, B), status, nsteps,
+    nfev)``."""
     A, C, E, Az = k["A"], k["C"], k["E"], k["Az"]
     s, dd, kappa, cc = k["s"], k["d"], k["kappa"], k["cc"]
     h_min_a, h_min_b = k["h_min_a"], k["h_min_b"]
@@ -539,11 +554,15 @@ def run_esdirk_loop(fun, k, t, tf, y, yp, h_abs, nfev0, rtol, atol,
         t_lo_new = torch.where(is_last, 0.0, t_lo_adv)
         status = torch.where((status == RUNNING) & is_last, FINISHED,
                              status)
+        rec_row = record is not None and it < record.rows
         # step cap: loop iterations, accepted plus rejected
         it += 1
         status = torch.where((status == RUNNING) & (it >= max_steps),
                              OVERFLOW, status).to(torch.int32)
         yp_new, _ = _finite(K[s - 1])
+        if rec_row:
+            record.write(accepted, nstep, t_new, to_user(y_new),
+                         to_user(yp_new))
 
         upd = accepted
         y = torch.where(upd, y_new, y)
@@ -586,9 +605,10 @@ def _lanes_per_member(B, sm_count, n):
     return lanes_within_budget(B, sm_count, _LANES)
 
 
-def _kernel(method, fun, M, m_diag, rot, n, nbase):
+def _kernel(method, fun, M, m_diag, rot, n, nbase, record=False):
     """The kernel built for one method, FusedRHS, mass-matrix setup and
-    base block."""
+    base block, with the dense record where ``record`` (a build of its
+    own)."""
     if method is None:
         from ..methods import Kv3I as method
     from . import _build
@@ -596,9 +616,9 @@ def _kernel(method, fun, M, m_diag, rot, n, nbase):
         "fused_esdirk", (method, fun),
         lambda: _build.load_fused_esdirk(
             _esdirk_consts(method), m_diag, rot, n, fun.cuda_src, fun.k,
-            None if nbase == n else nbase),
+            None if nbase == n else nbase, record),
         (None if M is None else np.asarray(M, np.float64).tobytes(),
-         nbase))
+         nbase, bool(record)))
 
 
 def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
@@ -651,10 +671,17 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
     ``rhs`` (``ops/fused_sens.py`` generates it), from which the kernel
     takes the base block's Jacobian.
 
-    ``t_eval``, ``events`` and ``dense`` are not ported yet.
+    ``dense=R`` (R >= 1; None or 0: off) adds a fifth output, the members'
+    continuous dense output (:class:`~.fused_dense.FusedDenseSolution`),
+    from the end ``(t, y, y')`` of each accepted step that the kernel
+    records while a member's attempts are below R (``valid[b]`` False
+    where more were needed), y' the stiffly accurate last stage; the rows
+    are in user coordinates (a dense or hidden ``M`` maps them back as it
+    maps ``y_final``), of the whole augmented state with ``block_base``;
+    the record leaves the other four outputs bit for bit as they are
+    without it.  ``t_eval`` and ``events`` are not ported yet.
     """
-    for name, value in (("t_eval", t_eval), ("events", events),
-                        ("dense", dense)):
+    for name, value in (("t_eval", t_eval), ("events", events)):
         if value is not None:
             raise NotImplementedError(
                 f"solve_fused_esdirk({name}=...) is not ported yet: ROADMAP "
@@ -669,11 +696,11 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
             fun, t_span, y0, method=method, M=M, yp0_batch=yp0_batch,
             rtol=rtol, atol=atol, first_step=first_step,
             max_steps=max_steps, compensated=compensated, max_step=max_step,
-            params=params, block_base=block_base)
+            params=params, block_base=block_base, dense=dense)
 
     out, shape = _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol,
                          first_step, max_steps, compensated, max_step, None,
-                         block_members, params, block_base)
+                         block_members, params, block_base, dense)
     solve_fused_esdirk.launches += 1
     solve_fused_esdirk.last_shape = shape
     return out
@@ -681,12 +708,14 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
 
 def _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
             max_steps, compensated, max_step, lanes, block_members=None,
-            params=None, block_base=None):
+            params=None, block_base=None, dense=None):
     """B2 on the card for the CUDA tensor ``y0`` (with the members'
     ``params`` and the base block ``block_base``, checked as the wrapper
     checks them): ``lanes`` lanes per member (None:
     :func:`_lanes_per_member`'s) and ``block_members`` members per block
-    (None: 128 / lanes).  Returns the four outputs and the ``(lanes,
+    (None: 128 / lanes), with the dense record of ``dense`` rows a member
+    (the build with it) where given.  Returns the outputs (with the
+    :class:`~.fused_dense.FusedDenseSolution` fifth) and the ``(lanes,
     block_members)`` taken."""
     if not isinstance(fun, FusedRHS):
         raise TypeError("solve_fused_esdirk on a CUDA tensor needs a "
@@ -720,14 +749,17 @@ def _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
         raise ValueError("DAE: pass consistent yp0_batch (e.g. from the "
                          "f64 stepper's init)")
 
-    built = _kernel(method, fun, M, m_diag, rot, n, nbase)
+    rows = dense_rows(dense)
+    built = _kernel(method, fun, M, m_diag, rot, n, nbase, rows > 0)
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     shape = (lanes, block_members)
+    rec = DenseRecord(y0, rows)
+    out = (y_out, status, nsteps, nfev)
     if nb == 0:
-        return (y_out, status, nsteps, nfev), shape
+        return rec.outputs(out, t_span, y0), shape
     t0, tf = np.float32(t_span[0]), np.float32(t_span[1])
     use_hstart = first_step is None and M is None
     if first_step is not None:
@@ -736,19 +768,24 @@ def _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
         h0 = np.float32(0.01) * abs(tf - t0)
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
-        rc = built.lib.fused_esdirk_launch(
-            y0.data_ptr(), None if yp0 is None else yp0.data_ptr(),
-            None if params is None else params.data_ptr(), y_out.data_ptr(),
-            status.data_ptr(), nsteps.data_ptr(), nfev.data_ptr(), nb,
-            float(t0), float(tf), float(rtol), float(atol), float(h0),
-            int(use_hstart), int(yp0 is not None),
-            np.inf if max_step is None else float(max_step),
-            int(max_steps), _tiny_err(n, rtol), int(bool(compensated)),
-            int(lanes), block_members, stream)
+        args = (y0.data_ptr(), None if yp0 is None else yp0.data_ptr(),
+                None if params is None else params.data_ptr(),
+                y_out.data_ptr(), status.data_ptr(), nsteps.data_ptr(),
+                nfev.data_ptr(), nb, float(t0), float(tf), float(rtol),
+                float(atol), float(h0), int(use_hstart),
+                int(yp0 is not None),
+                np.inf if max_step is None else float(max_step),
+                int(max_steps), _tiny_err(n, rtol), int(bool(compensated)),
+                int(lanes), block_members)
+        if rows:
+            rc = built.lib.fused_esdirk_record_launch(*args, *rec.args(),
+                                                      stream)
+        else:
+            rc = built.lib.fused_esdirk_launch(*args, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_esdirk kernel launch failed: CUDA error {rc}")
-    return (y_out, status, nsteps, nfev), shape
+    return rec.outputs(out, t_span, y0), shape
 
 
 # kernel launches since the count was last set to 0 (the plain version on

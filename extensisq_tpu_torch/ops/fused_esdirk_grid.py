@@ -55,12 +55,17 @@ of the JVPs) and one reduction of ``ceil(log2 block_base)`` rounds is
 replayed on every block, block-diag(W, ..., W).  The Newton residuals are
 the whole system's, so converged results are exact; the neglected coupling
 below the diagonal only slows the Newton rate (JAX's contract).
+
+``dense=R`` records each member's accepted steps ``(t, y, y')``, y' the
+stiffly accurate last stage, for a continuous dense output
+(``ops/fused_dense.py``), as on B2.
 """
 import numpy as np
 import torch
 
 from .._device import as_input
-from .fused_erk import check_options, member_params
+from .fused_erk import (DenseRecord, _Record, check_options, dense_rows,
+                        member_params)
 from .fused_erk_grid import (_state_size, bind_grid_params, check_grid_input,
                              check_shared_memory, fit_shape, grid_threads)
 from .fused_esdirk import (_esdirk_consts, _f32, _start_step, _tiny_err,
@@ -173,14 +178,15 @@ def fused_esdirk_grid_reference(fun, t_span, y0_batch, method=None, M=None,
                                 yp0_batch=None, rtol=1e-4, atol=1e-6,
                                 first_step=None, max_steps=100_000,
                                 compensated=False, max_step=None,
-                                params=None, block_base=None):
+                                params=None, block_base=None, dense=None):
     """The plain PyTorch version of the mid-size ESDIRK kernel, on the
     device of ``y0_batch`` ``(B, n)``: B2's loop with the tridiagonal
     bands and cyclic reduction.  ``fun`` is a :class:`FusedGridRHS` or a
     rows-first torch function, called as ``fun(t, y, p)`` with ``p`` (k,
     B) where ``params`` (B, k) is given; ``block_base`` the simultaneous
     corrector's base block (see the module docstring).  Returns ``(y (B,
-    n), status (B,), nsteps (B,), nfev (B,))``."""
+    n), status (B,), nsteps (B,), nfev (B,))``, and with ``dense=R`` the
+    dense output fifth."""
     if isinstance(fun, FusedGridRHS):
         _state_size(fun)
     k = _esdirk_consts(method)
@@ -217,11 +223,16 @@ def fused_esdirk_grid_reference(fun, t_span, y0_batch, method=None, M=None,
                           torch.where(a, -jd, m - hd * jd),
                           torch.where(a, -ju, -hd * ju))
 
+    rows = dense_rows(dense)
+    rec = _Record(y, yp, rows) if rows else None
     y, status, nstep, nfev = run_esdirk_loop(
         fun, k, t0, tf, y, yp, h_abs, 0 if yp0_batch is not None else 1,
         rtol, atol, max_steps, compensated, max_step, mass, alg, factor,
-        pcr_solve)
-    return y.T.contiguous(), status, nstep, nfev
+        pcr_solve, record=rec)
+    out = (y.T.contiguous(), status, nstep, nfev)
+    if rec is None:
+        return out
+    return out + (rec.solution(t_span, nstep),)
 
 
 # the shapes of :func:`_launch_shape` for large ensembles: the members an SM
@@ -265,16 +276,17 @@ def _launch_shape(B, n, sm_count):
     return grid_threads(-(-n // 2)), 0
 
 
-def _kernel(method, fun, nb=None):
+def _kernel(method, fun, nb=None, record=False):
     """The kernel built for one method, FusedGridRHS (with its parameter
-    count) and base block (None: no simultaneous corrector)."""
+    count) and base block (None: no simultaneous corrector), with the
+    dense record where ``record`` (a build of its own)."""
     if method is None:
         from ..methods import Kv3I as method
     from . import _build
     return _build.cached("fused_esdirk_grid", (method, fun),
                          lambda: _build.load_fused_esdirk_grid(
                              _esdirk_consts(method), fun.shape, fun.cuda_src,
-                             fun.k, nb), extra=(nb,))
+                             fun.k, nb, record), extra=(nb, bool(record)))
 
 
 def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
@@ -318,17 +330,20 @@ def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
     simultaneous corrector of the sensitivities (module docstring); it
     must divide n and takes no ``M`` (``ValueError``, as in JAX), and its
     FusedGridRHS must also define ``base_rhs``, the base block's template
-    (``ops/fused_sens.py`` builds it).  ``t_eval``, ``events`` and
-    ``dense`` are not ported yet.
+    (``ops/fused_sens.py`` builds it).  ``dense=R`` adds the dense output
+    as a fifth output, as on :func:`~.fused_esdirk.solve_fused_esdirk`
+    (every thread records the elements it commits).  ``t_eval`` and
+    ``events`` are not ported yet.
     """
     check_options("solve_fused_esdirk_grid", "B7", t_eval=t_eval,
-                  events=events, dense=dense)
+                  events=events)
     nbase = _base_block(block_base, M, np.shape(y0_batch)[1])
     y0 = as_input(y0_batch, torch.float32)
     params = member_params(params, y0, fun)
     kw = dict(method=method, M=M, yp0_batch=yp0_batch, rtol=rtol, atol=atol,
               first_step=first_step, max_steps=max_steps,
-              compensated=compensated, max_step=max_step, params=params)
+              compensated=compensated, max_step=max_step, params=params,
+              dense=dense)
     if y0.device.type != "cuda":
         return fused_esdirk_grid_reference(fun, t_span, y0,
                                            block_base=block_base, **kw)
@@ -336,8 +351,8 @@ def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
     check_grid_input("solve_fused_esdirk_grid", y0, n, FusedGridRHS, fun,
                      params)
     nb = None if nbase == n else nbase
-    out, shape = _launch(_kernel(method, fun, nb), t_span, y0, count=True,
-                         **kw)
+    out, shape = _launch(_kernel(method, fun, nb, dense_rows(dense) > 0),
+                         t_span, y0, count=True, **kw)
     solve_fused_esdirk_grid.last_shape = shape
     return out
 
@@ -345,14 +360,16 @@ def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
 def _launch(built, t_span, y0, method=None, M=None, yp0_batch=None,
             rtol=1e-4, atol=1e-6, first_step=None, max_steps=100_000,
             compensated=False, max_step=None, shape=None, count=False,
-            params=None):
+            params=None, dense=None):
     """Launch ``csrc/fused_esdirk_grid.cu`` on the current stream (with the
-    members' ``params`` as the build takes them) at ``shape`` (None:
+    members' ``params`` as the build takes them, and ``dense`` rows of
+    record a member on a build with it) at ``shape`` (None:
     :func:`_launch_shape`'s on the whole state, its P capped by the card's
     shared memory; a given shape is taken as it is, for comparisons),
     counted where ``count``; raise before launch when the members' rows do
-    not fit in the card's shared memory.  Returns the four outputs and the
-    shape taken."""
+    not fit in the card's shared memory.  Returns the outputs (with the
+    :class:`~.fused_dense.FusedDenseSolution` fifth with ``dense``) and
+    the shape taken."""
     nb, n = y0.shape
     m_diag = _mass_diag(M, n)
     if m_diag is not None and yp0_batch is None and np.any(m_diag == 0.0):
@@ -371,6 +388,8 @@ def _launch(built, t_span, y0, method=None, M=None, yp0_batch=None,
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
+    rec = DenseRecord(y0, dense_rows(dense))
+    out = (y_out, status, nsteps, nfev)
     name = "solve_fused_esdirk_grid"
     with torch.cuda.device(y0.device):
         smem = built.lib.fused_esdirk_grid_smem
@@ -381,26 +400,31 @@ def _launch(built, t_span, y0, method=None, M=None, yp0_batch=None,
         check_shared_memory(name, smem, "take a smaller system",
                             max(1, shape[1]))
         if nb == 0:
-            return (y_out, status, nsteps, nfev), shape
+            return rec.outputs(out, t_span, y0), shape
         t0, tf = np.float32(t_span[0]), np.float32(t_span[1])
         h0 = (np.float32(first_step) if first_step is not None
               else np.float32(0.01) * abs(tf - t0))
         stream = torch.cuda.current_stream(y0.device).cuda_stream
-        rc = built.lib.fused_esdirk_grid_launch(
-            y0.data_ptr(), None if yp0 is None else yp0.data_ptr(),
-            None if mass is None else mass.data_ptr(),
-            None if params is None else params.data_ptr(), y_out.data_ptr(),
-            status.data_ptr(), nsteps.data_ptr(), nfev.data_ptr(), nb,
-            float(t0), float(tf), float(rtol), float(atol), float(h0),
-            int(first_step is None and M is None), int(yp0 is not None),
-            np.inf if max_step is None else float(max_step), int(max_steps),
-            _tiny_err(n, rtol), int(bool(compensated)), shape[0], shape[1],
-            stream)
+        args = (y0.data_ptr(), None if yp0 is None else yp0.data_ptr(),
+                None if mass is None else mass.data_ptr(),
+                None if params is None else params.data_ptr(),
+                y_out.data_ptr(), status.data_ptr(), nsteps.data_ptr(),
+                nfev.data_ptr(), nb, float(t0), float(tf), float(rtol),
+                float(atol), float(h0),
+                int(first_step is None and M is None), int(yp0 is not None),
+                np.inf if max_step is None else float(max_step),
+                int(max_steps), _tiny_err(n, rtol), int(bool(compensated)),
+                shape[0], shape[1])
+        if rec.rows:
+            rc = built.lib.fused_esdirk_grid_record_launch(
+                *args, *rec.args(), stream)
+        else:
+            rc = built.lib.fused_esdirk_grid_launch(*args, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_esdirk_grid kernel launch failed: CUDA error {rc}")
     solve_fused_esdirk_grid.launches += int(count)
-    return (y_out, status, nsteps, nfev), shape
+    return rec.outputs(out, t_span, y0), shape
 
 
 # kernel launches since the count was last set to 0 (the plain version on

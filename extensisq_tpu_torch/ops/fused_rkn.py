@@ -15,6 +15,11 @@ wrapper :func:`solve_fused_rkn` takes it only for tensors on the CPU.
 Neumaier-compensated sums and double-single ``(hi, lo)`` carries of u, v
 and t.
 
+``params`` (B, k) gives every member its own k parameters, and ``dense=R``
+records each member's accepted steps ``(t, [u, v], [v, a])`` for a
+continuous dense output (``ops/fused_dense.py``): cubic Hermite on the
+full first-order state, as in JAX.
+
 The error norm is the RMS of ``[err_u, err_v]`` over all 2m states, each
 scaled by ``atol + rtol * max(|[u, v]|, |[u_new, v_new]|)``.  The fused
 kernels use the tableau's ``E``/``Ep`` as they are: unlike the stepper,
@@ -33,9 +38,10 @@ from ..core.controller import resolve_controller
 from ..core.numerics import norm
 from ..steppers.erk import weighted_sum
 from . import _hstart_tile
-from .fused_erk import (_comp_wsum, _df_add, _launch_shape, _two_sum,
-                        check_options, controller, device_sm_count,
-                        fresh_step, lanes_within_budget, launch_args)
+from .fused_erk import (DenseRecord, _Record, _comp_wsum, _df_add,
+                        _launch_shape, _two_sum, check_options, controller,
+                        dense_rows, device_sm_count, fresh_step,
+                        lanes_within_budget, launch_args, member_params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,11 +56,20 @@ class FusedAcc:
         __device__ void acc(T t, const T* u, const T* v, T* a);
 
     (a plain ``float`` function of the same name works too).  ``m`` is
-    the number of positions; the state is ``[u, v]`` of size 2m.
+    the number of positions; the state is ``[u, v]`` of size 2m.  With
+    ``k > 0`` per-member parameters (``params``), ``torch_fn(t, u, v, p)``
+    gets ``p``, a k-tuple of ``(B,)`` tensors, and the CUDA function takes
+    the member's k parameters last::
+
+        template <class T>
+        __device__ void acc(T t, const T* u, const T* v, T* a, const T* p);
+
+    which the kernel loads once into registers.
     """
     torch_fn: Callable
     cuda_src: str
     m: int
+    k: int = 0
 
 
 def rkn_consts(method):
@@ -93,12 +108,14 @@ def rkn_consts(method):
 
 
 def run_rkn_loop(acc, k, t_span, y, rtol, atol, first_step, max_steps,
-                 compensated, max_step):
+                 compensated, max_step, dense=None):
     """The fused RKN loop (the JAX kernels' ``_run_rkn_loop``) on the
     rows-first float32 state ``y`` ``(2m, B)``: each iteration is one
     attempt of every running member, and the loop ends once no member is
     RUNNING.  ``acc(t, u, v)`` works on ``(m, B)`` rows.  Returns ``(y
-    (B, 2m), status, nsteps, nfev)``."""
+    (B, 2m), status, nsteps, nfev)``, and with ``dense=R`` the dense
+    output of the rows ``(t, [u, v], [v, a])`` the kernels write
+    fifth."""
     A, Ap, B_w, Bp, C = k["A"], k["Ap"], k["B"], k["Bp"], k["C"]
     E, Ep, s, fsal = k["E"], k["Ep"], k["s"], k["fsal"]
     f32 = torch.float32
@@ -137,6 +154,9 @@ def run_rkn_loop(acc, k, t_span, y, rtol, atol, first_step, max_steps,
         nfev0 = 1
 
     i32 = dict(dtype=torch.int32, device=dev)
+    rows_r = dense_rows(dense)
+    rec = (_Record(torch.cat([u, v]), torch.cat([v, f]), rows_r) if rows_r
+           else None)
     t_lo = torch.zeros_like(t)
     u_lo, v_lo = torch.zeros_like(u), torch.zeros_like(v)
     status = torch.full((nb,), RUNNING, **i32)
@@ -227,6 +247,9 @@ def run_rkn_loop(acc, k, t_span, y, rtol, atol, first_step, max_steps,
         if not fsal:
             # a non-FSAL pair evaluates the endpoint of accepted steps only
             dfev = dfev + upd.to(torch.int32)
+        if rec is not None and it < rec.rows:
+            rec.write(upd, nstep, t_new, torch.cat([u_new, v_new]),
+                      torch.cat([v_new, f_new]))
         # step cap: loop iterations, accepted plus rejected
         it += 1
         status = torch.where((status == RUNNING) & (it >= max_steps),
@@ -249,7 +272,23 @@ def run_rkn_loop(acc, k, t_span, y, rtol, atol, first_step, max_steps,
         nstep = nstep + upd.to(torch.int32)
         nfev = nfev + dfev.to(torch.int32)
 
-    return torch.cat([u, v]).T.contiguous(), status, nstep, nfev
+    out = (torch.cat([u, v]).T.contiguous(), status, nstep, nfev)
+    if rec is None:
+        return out
+    return out + (rec.solution(t_span, nstep),)
+
+
+def bind_acc(fun, params, p=None):
+    """The rows-first ``acc(t, u, v)`` of the plain versions: ``fun`` (a
+    :class:`FusedAcc`, a ``FusedGridAcc`` or a torch function) with every
+    member's parameters bound as ``p``, by default the k-tuple of the
+    ``(B,)`` columns of ``params`` (None: no parameters)."""
+    fn = getattr(fun, "torch_fn", fun)
+    if params is None:
+        return fn
+    if p is None:
+        p = tuple(params[:, j] for j in range(params.shape[1]))
+    return lambda t, u, v: fn(t, u, v, p)
 
 
 def _state(y0_batch):
@@ -263,26 +302,32 @@ def _state(y0_batch):
 
 def fused_rkn_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                         atol=1e-6, first_step=None, max_steps=100_000,
-                        compensated=False, max_step=None):
+                        compensated=False, max_step=None, params=None,
+                        dense=None):
     """The plain PyTorch version of the fused RKN kernel, on the device of
     ``y0_batch`` ``(B, 2m)``.  ``fun`` is a :class:`FusedAcc` or a
-    rows-first torch function ``acc(t, u, v)``.  Returns ``(y (B, 2m),
-    status (B,), nsteps (B,), nfev (B,))`` like :func:`solve_fused_rkn`.
-    """
-    acc = fun.torch_fn if isinstance(fun, FusedAcc) else fun
-    return run_rkn_loop(acc, rkn_consts(method), t_span, _state(y0_batch),
-                        rtol, atol, first_step, max_steps, compensated,
-                        max_step)
+    rows-first torch function ``acc(t, u, v)``, called as ``acc(t, u, v,
+    p)`` where ``params`` (B, k) is given.  Returns ``(y (B, 2m), status
+    (B,), nsteps (B,), nfev (B,))`` like :func:`solve_fused_rkn`, and with
+    ``dense=R`` the members' :class:`~.fused_dense.FusedDenseSolution`
+    fifth, from the rows the kernel writes."""
+    y = _state(y0_batch)
+    params = member_params(params, y.T, fun)
+    return run_rkn_loop(bind_acc(fun, params), rkn_consts(method), t_span,
+                        y, rtol, atol, first_step, max_steps, compensated,
+                        max_step, dense)
 
 
-def _kernel(method, fun):
-    """The kernel built for one RKN method and FusedAcc."""
+def _kernel(method, fun, record=False):
+    """The kernel built for one RKN method and FusedAcc, with the dense
+    record where ``record`` (a build of its own)."""
     if method is None:
         from ..methods import Fi5N as method
     from . import _build
     return _build.cached("fused_rkn", (method, fun),
                          lambda: _build.load_fused_rkn(
-                             rkn_consts(method), fun.m, fun.cuda_src))
+                             rkn_consts(method), fun.m, fun.cuda_src, fun.k,
+                             record), extra=bool(record))
 
 
 # the lane counts the wrapper takes besides 1, most first
@@ -332,7 +377,13 @@ def solve_fused_rkn(acc, t_span, y0_batch, method=None, rtol=1e-4,
     default).  Returns ``(y_final (B, 2m), status (B,), nsteps (B,), nfev
     (B,))`` with status 1 = finished, 2 = step size underflow, 3 = overflow
     or step cap (``max_steps`` counts loop iterations, accepted plus
-    rejected).
+    rejected).  ``dense=R`` (R >= 1; None or 0: off) adds a fifth output,
+    the members' continuous dense output
+    (:class:`~.fused_dense.FusedDenseSolution`), from the end ``(t, [u,
+    v], [v, a])`` of each accepted step that the kernel records while a
+    member's attempts are below R (``valid[b]`` False where more were
+    needed): cubic Hermite on the full state, as in JAX; the record leaves
+    the other four outputs bit for bit as they are without it.
 
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.  On a CUDA
@@ -346,20 +397,22 @@ def solve_fused_rkn(acc, t_span, y0_batch, method=None, rtol=1e-4,
     shape taken is left in ``solve_fused_rkn.last_shape``.  On a CPU
     tensor it runs :func:`fused_rkn_reference`.
 
-    ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet.
+    ``params``: (B, k) float32 per-member parameters; ``acc`` then takes
+    them as its last argument (see :class:`FusedAcc`, whose ``k`` must
+    agree).  ``t_eval`` and ``events`` are not ported yet.
     """
-    check_options("solve_fused_rkn", "B5", t_eval=t_eval, events=events,
-                  params=params, dense=dense)
+    check_options("solve_fused_rkn", "B5", t_eval=t_eval, events=events)
     y0 = as_input(y0_batch, torch.float32)
     if y0.device.type != "cuda":
         return fused_rkn_reference(
             acc, t_span, y0, method=method, rtol=rtol, atol=atol,
             first_step=first_step, max_steps=max_steps,
-            compensated=compensated, max_step=max_step)
+            compensated=compensated, max_step=max_step, params=params,
+            dense=dense)
 
     out, shape = _launch(acc, t_span, y0, method, rtol, atol, first_step,
                          max_steps, compensated, max_step, None,
-                         block_members)
+                         block_members, params, dense)
     solve_fused_rkn.last_shape = shape
     if y0.shape[0]:
         solve_fused_rkn.launches += 1
@@ -367,11 +420,16 @@ def solve_fused_rkn(acc, t_span, y0_batch, method=None, rtol=1e-4,
 
 
 def _launch(acc, t_span, y0, method, rtol, atol, first_step, max_steps,
-            compensated, max_step, lanes, block_members=None):
-    """B5 on the card for the CUDA tensor ``y0``: ``lanes`` lanes per member
-    (None: :func:`_lanes_per_member`'s) and ``block_members`` members per
-    block (None: 128 / lanes).  Returns the four outputs and the ``(lanes,
-    block_members)`` taken; an empty batch launches nothing."""
+            compensated, max_step, lanes, block_members=None, params=None,
+            dense=None):
+    """B5 on the card for the CUDA tensor ``y0`` (and the members'
+    ``params``, checked by :func:`member_params`): ``lanes`` lanes per
+    member (None: :func:`_lanes_per_member`'s) and ``block_members``
+    members per block (None: 128 / lanes), with the dense record of
+    ``dense`` rows a member (the build with it) where given.  Returns the
+    outputs (with the :class:`~.fused_dense.FusedDenseSolution` fifth) and
+    the ``(lanes, block_members)`` taken; an empty batch launches
+    nothing."""
     if not isinstance(acc, FusedAcc):
         raise TypeError("solve_fused_rkn on a CUDA tensor needs a FusedAcc "
                         "(a CUDA source of the acceleration); got "
@@ -383,30 +441,41 @@ def _launch(acc, t_span, y0, method, rtol, atol, first_step, max_steps,
                          f"{tuple(y0.shape)}")
     if not y0.is_contiguous():
         raise ValueError("y0_batch must be contiguous")
+    params = member_params(params, y0, acc)
+    if params is not None:
+        params = params.contiguous()
     nb = y0.shape[0]
     if lanes is None:
         lanes = _lanes_per_member(nb, device_sm_count(y0.device), acc.m)
     block_members, _, _ = _launch_shape(nb, lanes, block_members)
+    rows = dense_rows(dense)
 
-    built = _kernel(method, acc)
+    built = _kernel(method, acc, rows > 0)
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     shape = (lanes, block_members)
+    rec = DenseRecord(y0, rows)
+    out = (y_out, status, nsteps, nfev)
     if nb == 0:
-        return (y_out, status, nsteps, nfev), shape
+        return rec.outputs(out, t_span, y0), shape
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
-        rc = built.lib.fused_rkn_launch(
-            y0.data_ptr(), y_out.data_ptr(), status.data_ptr(),
-            nsteps.data_ptr(), nfev.data_ptr(), nb,
-            *launch_args(t_span, rtol, atol, first_step, max_steps,
-                         compensated, max_step), int(lanes), block_members,
-            stream)
+        args = (y0.data_ptr(), None if params is None else params.data_ptr(),
+                y_out.data_ptr(), status.data_ptr(), nsteps.data_ptr(),
+                nfev.data_ptr(), nb,
+                *launch_args(t_span, rtol, atol, first_step, max_steps,
+                             compensated, max_step), int(lanes),
+                block_members)
+        if rows:
+            rc = built.lib.fused_rkn_record_launch(*args, *rec.args(),
+                                                   stream)
+        else:
+            rc = built.lib.fused_rkn_launch(*args, stream)
     if rc != 0:
         raise RuntimeError(f"fused_rkn kernel launch failed: CUDA error {rc}")
-    return (y_out, status, nsteps, nfev), shape
+    return rec.outputs(out, t_span, y0), shape
 
 
 # kernel launches since the count was last set to 0 (the plain version on

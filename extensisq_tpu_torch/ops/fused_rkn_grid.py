@@ -11,6 +11,10 @@ taken without padding.  The
 plain version, :func:`fused_rkn_grid_reference`, runs B5's loop
 (``ops.fused_rkn.run_rkn_loop``) on the rows-first ``(2n, B)`` state; the
 wrapper :func:`solve_fused_rkn_grid` takes it only for tensors on the CPU.
+``params`` (B, k) gives every member its own k parameters, which the
+kernel loads once into the member's shared memory, and ``dense=R``
+records each member's accepted steps ``(t, [u, v], [v, a])`` for a
+continuous dense output (``ops/fused_dense.py``), as on B5.
 """
 import dataclasses
 from typing import Callable
@@ -18,10 +22,10 @@ from typing import Callable
 import torch
 
 from .._device import as_input
-from .fused_erk import check_options
+from .fused_erk import check_options, dense_rows, member_params
 from .fused_erk_grid import (check_grid_input, grid_launch_shape,
                              launch_by_rule)
-from .fused_rkn import _state, rkn_consts, run_rkn_loop
+from .fused_rkn import _state, bind_acc, rkn_consts, run_rkn_loop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,26 +41,35 @@ class FusedGridAcc:
                              const float* p);
 
     with neighbours from ``tab::G::rolled<0>(u, i, shift)``, the value at
-    ``i`` of ``torch.roll(u, shift, 0)`` (``csrc/grid_common.cuh``); ``p`` is
-    unused until per-member parameters are ported.  ``n`` is the number of
-    positions; the state is ``[u, v]`` of size 2n.
+    ``i`` of ``torch.roll(u, shift, 0)`` (``csrc/grid_common.cuh``).  ``n``
+    is the number of positions; the state is ``[u, v]`` of size 2n.  With
+    ``k > 0`` per-member parameters (``params``), ``torch_fn(t, u, v, p)``
+    gets ``p`` of shape ``(k, B)`` (``p[j]`` one parameter across the
+    members; JAX's grid functions get a k-tuple of ``(bm, 1)`` columns),
+    and the CUDA ``p`` points at the member's k floats in its shared
+    memory; with k = 0 it is a null pointer.
     """
     torch_fn: Callable
     cuda_src: str
     n: int
+    k: int = 0
 
 
 def fused_rkn_grid_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                              atol=1e-6, first_step=None, max_steps=100_000,
-                             compensated=False, max_step=None):
+                             compensated=False, max_step=None, params=None,
+                             dense=None):
     """The plain PyTorch version of the mid-size RKN kernel, on the device
     of ``y0_batch`` ``(B, 2n)``: B5's loop.  ``fun`` is a
-    :class:`FusedGridAcc` or a rows-first torch function ``acc(t, u, v)``.
-    Returns ``(y (B, 2n), status (B,), nsteps (B,), nfev (B,))``."""
-    acc = fun.torch_fn if isinstance(fun, FusedGridAcc) else fun
-    return run_rkn_loop(acc, rkn_consts(method), t_span, _state(y0_batch),
-                        rtol, atol, first_step, max_steps, compensated,
-                        max_step)
+    :class:`FusedGridAcc` or a rows-first torch function ``acc(t, u, v)``,
+    called as ``acc(t, u, v, p)`` with ``p`` ``(k, B)`` where ``params``
+    (B, k) is given.  Returns ``(y (B, 2n), status (B,), nsteps (B,), nfev
+    (B,))``, and with ``dense=R`` the dense output fifth."""
+    y = _state(y0_batch)
+    params = member_params(params, y.T, fun)
+    acc = bind_acc(fun, params, None if params is None else params.T)
+    return run_rkn_loop(acc, rkn_consts(method), t_span, y, rtol, atol,
+                        first_step, max_steps, compensated, max_step, dense)
 
 
 # the shapes of :func:`_launch_shape` for large ensembles: the members an SM
@@ -98,15 +111,17 @@ def _launch_shape(B, n, sm_count):
                              WARP_MEMBERS, WARP_MAX_N)
 
 
-def _kernel(method, fun):
-    """The kernel built for one RKN method and FusedGridAcc."""
+def _kernel(method, fun, record=False):
+    """The kernel built for one RKN method and FusedGridAcc, with the dense
+    record where ``record`` (a build of its own)."""
     if method is None:
         from ..methods import Fi5N as method
     from . import _build
     return _build.cached("fused_rkn_grid", (method, fun),
                          lambda: _build.load_fused_rk_grid(
                              rkn_consts(method), True, (fun.n,),
-                             fun.cuda_src))
+                             fun.cuda_src, fun.k, record),
+                         extra=bool(record))
 
 
 def solve_fused_rkn_grid(acc, t_span, y0_batch, method=None, rtol=1e-4,
@@ -134,35 +149,44 @@ def solve_fused_rkn_grid(acc, t_span, y0_batch, method=None, rtol=1e-4,
     the members a block come from the measured rule
     (:func:`_launch_shape`), not from the caller.
 
-    ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet.
+    ``params``: (B, k) float32 per-member parameters; ``acc`` then takes
+    them as its last argument (see :class:`FusedGridAcc`, whose ``k`` must
+    agree).  ``dense=R`` adds the dense output as a fifth output, as on
+    :func:`~.fused_rkn.solve_fused_rkn` (every thread records the elements
+    it commits).  ``t_eval`` and ``events`` are not ported yet.
     """
     check_options("solve_fused_rkn_grid", "B6", t_eval=t_eval,
-                  events=events, params=params, dense=dense)
+                  events=events)
     y0 = as_input(y0_batch, torch.float32)
+    params = member_params(params, y0, acc)
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, compensated=compensated,
-              max_step=max_step)
+              max_step=max_step, params=params, dense=dense)
     if y0.device.type != "cuda":
         return fused_rkn_grid_reference(acc, t_span, y0, method=method, **kw)
     n = acc.n if isinstance(acc, FusedGridAcc) else -1
-    check_grid_input("solve_fused_rkn_grid", y0, 2 * n, FusedGridAcc, acc)
-    out, shape = _launch(_kernel(method, acc), t_span, y0, n, count=True,
-                         **kw)
+    check_grid_input("solve_fused_rkn_grid", y0, 2 * n, FusedGridAcc, acc,
+                     params)
+    out, shape = _launch(_kernel(method, acc, dense_rows(dense) > 0),
+                         t_span, y0, n, count=True, **kw)
     solve_fused_rkn_grid.last_shape = shape
     return out
 
 
 def _launch(built, t_span, y0, n, shape=None, count=False, rtol=1e-4,
             atol=1e-6, first_step=None, max_steps=100_000, compensated=False,
-            max_step=None):
-    """Launch B6 for the CUDA tensor ``y0`` at ``shape`` (None:
-    :func:`_launch_shape`'s, its P capped by the card's shared memory; a
-    given shape is taken as it is, for comparisons), counted where
-    ``count``.  Returns the four outputs and the shape taken."""
+            max_step=None, params=None, dense=None):
+    """Launch B6 for the CUDA tensor ``y0`` (and the members' ``params``,
+    as the build takes them, and ``dense`` rows of record a member on a
+    build with it) at ``shape`` (None: :func:`_launch_shape`'s, its P
+    capped by the card's shared memory; a given shape is taken as it is,
+    for comparisons), counted where ``count``.  Returns the outputs and
+    the shape taken."""
     return launch_by_rule(solve_fused_rkn_grid, _launch_shape, built, y0, n,
                           t_span, shape, count, rtol=rtol, atol=atol,
                           first_step=first_step, max_steps=max_steps,
-                          compensated=compensated, max_step=max_step)
+                          compensated=compensated, max_step=max_step,
+                          params=params, dense=dense)
 
 
 # kernel launches since the count was last set to 0 (the plain version on

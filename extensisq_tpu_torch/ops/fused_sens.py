@@ -22,10 +22,11 @@ Counterpart of ``extensisq_tpu/ops/fused_sens.py``:
   over the whole ensemble costs two launches.
 * :func:`solve_fused_adjoint` is the same function through the continuous
   adjoint, whose cost does not grow with the parameter count: the forward
-  pass is one launch of B1 (or, with ``layout="grid"``, of B4) that
-  records each member's accepted steps (``dense=R``,
-  ``ops/fused_dense.py``), the backward pass one f64 ``solve_ensemble``
-  of every member's (n + k)-row adjoint against that dense output.
+  pass is one launch of B1, B2 or B5 (or, with ``layout="grid"``, of B4,
+  B7 or B6), by the method's family, that records each member's accepted
+  steps (``dense=R``, ``ops/fused_dense.py``), the backward pass one f64
+  ``solve_ensemble`` of every member's (n + k)-row adjoint against that
+  dense output.
 
 The user's right-hand side of the flat layout is a
 :class:`~extensisq_tpu_torch.ops.FusedRHS` whose ``torch_fn(t, y, p)`` is
@@ -55,10 +56,12 @@ from .._device import as_input
 from .fused_dense import evaluate_members
 from .fused_erk import (FusedRHS, bind_params, dense_rows, member_params,
                         solve_fused_erk)
-from .fused_erk_grid import bind_grid_params, solve_fused_erk_grid
+from .fused_erk_grid import solve_fused_erk_grid
 from .fused_esdirk import solve_fused_esdirk
 from .fused_esdirk_grid import solve_fused_esdirk_grid
 from .fused_rkc import FusedGridRHS
+from .fused_rkn import FusedAcc, solve_fused_rkn
+from .fused_rkn_grid import FusedGridAcc, solve_fused_rkn_grid
 
 
 def _family(method):
@@ -390,7 +393,7 @@ def solve_fused_final(fun, t_span, y0_batch, params, method=None,
 
 def _adjoint_family(method):
     """The family of the forward solve: JAX's four, of which the port has
-    the ERK routes so far."""
+    the ERK, ESDIRK and RKN routes so far."""
     if method is None:
         return "erk"
     fam = getattr(method, "family", None)
@@ -399,28 +402,51 @@ def _adjoint_family(method):
             f"solve_fused_adjoint supports erk/esdirk/rkn/adams methods, not "
             f"family {fam!r}; use sensitivity.sens_adjoint_end for the "
             "others")
-    if fam != "erk":
-        kernels, step = {"esdirk": ("B2 and B7", 2), "rkn": ("B5 and B6", 3),
-                         "adams": ("B3 and B8", 3)}[fam]
+    if fam == "adams":
         raise NotImplementedError(
-            f"solve_fused_adjoint's {fam} route is not ported yet: it needs "
-            f"dense=R on {kernels} (ROADMAP queue B, step {step}; A16)")
+            "solve_fused_adjoint's adams route is not ported yet: it needs "
+            "params and dense=R on B3 and B8 and a static t_span (ROADMAP "
+            "queue B, step 3; A16)")
     return fam
 
 
-def _torch_fn(fun):
-    """The rows-first torch function of a FusedRHS or FusedGridRHS (a torch
-    function as it is)."""
-    return fun.torch_fn if isinstance(fun, (FusedRHS, FusedGridRHS)) else fun
+def _adjoint_solver(family, grid):
+    """The forward solver of a family and layout (JAX's
+    ``_adjoint_solver``)."""
+    return {("erk", False): solve_fused_erk,
+            ("erk", True): solve_fused_erk_grid,
+            ("esdirk", False): solve_fused_esdirk,
+            ("esdirk", True): solve_fused_esdirk_grid,
+            ("rkn", False): solve_fused_rkn,
+            ("rkn", True): solve_fused_rkn_grid}[family, grid]
 
 
-def _eval(fun, t, Y, params, grid):
-    """``fun`` at the scalar ``t`` on ``(B, n)`` states of either layout,
-    as ``(B, n)``."""
-    if not grid:
-        return _rows_eval(fun, t, Y, params)
+def _torch_fn(fun, rkn=False):
+    """The rows-first torch function of a FusedRHS, FusedGridRHS, FusedAcc
+    or FusedGridAcc (a torch function as it is); for the RKN family
+    (``rkn``) the full-state derivative ``[v, acc(t, u, v, ...)]`` of the
+    acceleration, which the backward differentiates (JAX
+    ``ops/fused_sens.py:500-515``)."""
+    fn = (fun.torch_fn if isinstance(
+        fun, (FusedRHS, FusedGridRHS, FusedAcc, FusedGridAcc)) else fun)
+    if not rkn:
+        return fn
+
+    def full(t, y, *p):
+        m = y.shape[0] // 2
+        return torch.cat([y[m:], fn(t, y[:m], y[m:], *p)])
+    return full
+
+
+def _eval(fn, t, Y, params, grid):
+    """The rows-first torch function ``fn`` at the scalar ``t`` on ``(B,
+    n)`` states of either layout, as ``(B, n)``."""
     tt = torch.full((Y.shape[0],), float(t), dtype=Y.dtype, device=Y.device)
-    return bind_grid_params(fun, params)(tt, Y.T).T
+    if params is None:
+        return fn(tt, Y.T).T
+    p = (params.T if grid
+         else tuple(params[:, j] for j in range(params.shape[1])))
+    return fn(tt, Y.T, p).T
 
 
 class _FusedAdjoint(torch.autograd.Function):
@@ -432,8 +458,7 @@ class _FusedAdjoint(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, t0, tf, y0, params):
         span = (float(t0), float(tf))
-        grid = cfg["layout"] == "grid"
-        solver = solve_fused_erk_grid if grid else solve_fused_erk
+        solver = _adjoint_solver(cfg["family"], cfg["layout"] == "grid")
         out = solver(cfg["fun"], span, y0, method=cfg["method"],
                      params=params, dense=cfg["dense"], **cfg["kw"])
         ctx.cfg = cfg
@@ -449,7 +474,7 @@ class _FusedAdjoint(torch.autograd.Function):
         span = (float(t0), float(tf))
         direction = 1.0 if span[1] >= span[0] else -1.0
         grid = cfg["layout"] == "grid"
-        fn = _torch_fn(cfg["fun"])
+        fn = _torch_fn(cfg["fun"], cfg["family"] == "rkn")
         B, n = y0.shape
         k = 0 if params is None else params.shape[1]
         f64 = torch.float64
@@ -485,8 +510,8 @@ class _FusedAdjoint(torch.autograd.Function):
         dp = -bw.y[:, n:] * guard
         # t_span: dL/dtf = sum_b ct_b . f(tf, yf_b); dL/dt0 = -sum_b mu0_b .
         # f(t0, y0_b)
-        f_tf = _eval(cfg["fun"], tf, y_f, params, grid).to(f64)
-        f_t0 = _eval(cfg["fun"], t0, y0, params, grid).to(f64)
+        f_tf = _eval(fn, tf, y_f, params, grid).to(f64)
+        f_t0 = _eval(fn, t0, y0, params, grid).to(f64)
         dtf = (ct64 * f_tf).sum()
         dt0 = -(mu0 * f_t0).sum()
         return (None, dt0.reshape(t0.shape).to(t0.dtype),
@@ -503,12 +528,17 @@ def solve_fused_adjoint(fun, t_span, y0_batch, params, method=None,
     not grow with the parameter count (JAX's signature without
     ``interpret``).
 
-    The forward pass is one launch of B1 (``layout="flat"``, ``fun`` a
-    :class:`FusedRHS` or a rows-first torch function) or of B4
-    (``"grid"``, a ``FusedGridRHS``; see :func:`solve_fused_sens`) with
-    ``params`` (B, k) or None; where an input requires a gradient it
-    records each member's accepted steps (``dense`` rows, at least 1), and
-    ``y(t_f)`` is bit for bit the forward's without the record.  The
+    The forward pass is one launch, by the family of ``method``, of B1,
+    B2 or B5 (``layout="flat"``, ``fun`` a :class:`FusedRHS`, or for an
+    RKN method a :class:`FusedAcc`, or a rows-first torch function) or of
+    B4, B7 or B6 (``"grid"``, a ``FusedGridRHS`` or ``FusedGridAcc``; see
+    :func:`solve_fused_sens`) with ``params`` (B, k) or None; where an
+    input requires a gradient it records each member's accepted steps
+    (``dense`` rows, at least 1), and ``y(t_f)`` is bit for bit the
+    forward's without the record.  For an RKN method ``fun`` is the
+    acceleration ``acc(t, u, v[, p])`` and ``y0_batch`` is ``[u, v]``; the
+    backward differentiates the full-state form ``[v, a]``.  No mass
+    matrix is taken (as in JAX).  The
     backward pass integrates ``mu' = -J^T mu``, ``xi' = (df/dp)^T mu`` of
     every member from t_f to t_0 in one f64 ``solve_ensemble`` on the
     forward's device (``bw_method``, default BS5, at ``bw_rtol`` /
@@ -520,13 +550,13 @@ def solve_fused_adjoint(fun, t_span, y0_batch, params, method=None,
     gradients.  Gradients reach ``t_span``'s tensor ends, ``y0_batch`` and
     ``params``, accurate to the tolerances.
 
-    The ERK family (``method`` None: BS5) is ported; the ESDIRK, RKN and
-    SWAG routes raise ``NotImplementedError`` (ROADMAP queue B), other
+    The ERK (``method`` None: BS5), ESDIRK and RKN families are ported;
+    the SWAG route raises ``NotImplementedError`` (ROADMAP queue B), other
     families ``ValueError``.  ``k_max`` (SWAG) is accepted and unused.
     The last backward pass's ``Solution`` (its counters) is left in
     ``solve_fused_adjoint.last_backward``.
     """
-    _adjoint_family(method)
+    family = _adjoint_family(method)
     if layout not in ("flat", "grid"):
         raise ValueError(f"layout must be 'flat' or 'grid', got {layout!r}")
     if dense_rows(dense) < 1:
@@ -540,7 +570,7 @@ def solve_fused_adjoint(fun, t_span, y0_batch, params, method=None,
               for x in t_span)
     wanted = torch.is_grad_enabled() and any(
         x is not None and x.requires_grad for x in (t0, tf, y0, params))
-    cfg = dict(fun=fun, method=method, layout=layout,
+    cfg = dict(fun=fun, method=method, family=family, layout=layout,
                dense=dense_rows(dense) if wanted else None,
                bw_method=bw_method,
                bw_rtol=rtol if bw_rtol is None else bw_rtol,

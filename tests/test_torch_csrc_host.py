@@ -35,6 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import test_torch_fused_adams as TA  # noqa: E402
 import test_torch_fused_adams_grid as TAG  # noqa: E402
 import test_torch_fused_ckdisc as TC  # noqa: E402
+import test_torch_fused_dense_routes as TDR  # noqa: E402
 import test_torch_fused_esdirk as T  # noqa: E402
 import test_torch_fused_esdirk_grid as TEG  # noqa: E402
 import test_torch_fused_erk as TK  # noqa: E402
@@ -236,13 +237,17 @@ extern "C" int KERNEL_launch(
   return 0;
 }
 """
-# B1 reads the members' parameters ((B, tab::NPAR), row-major); B5 takes
-# none.  A B1 build with the dense record (tab::REC) takes its arrays and
-# rows after block_members, as fused_erk_record_launch does
-ERK_LAUNCH = (SMALL_LAUNCH.replace("KERNEL", "fused_erk")
-              .replace("PAR_DECL", "const void* params,")
-              .replace("PAR_ROW", "(const float*)params + m * tab::NPAR")
-              .replace("PAR_ARG", "a.par,").replace("PAR_M", "parm,"))
+# B1 and B5 read the members' parameters ((B, tab::NPAR), row-major).  A
+# build with the dense record (tab::REC) takes its arrays and rows after
+# block_members, as fused_erk_record_launch and fused_rkn_record_launch do
+def _small_launch(kernel):
+    return (SMALL_LAUNCH.replace("KERNEL", kernel)
+            .replace("PAR_DECL", "const void* params,")
+            .replace("PAR_ROW", "(const float*)params + m * tab::NPAR")
+            .replace("PAR_ARG", "a.par,").replace("PAR_M", "parm,"))
+
+
+ERK_LAUNCH = _small_launch("fused_erk")
 REC_DECL = ("void* rec_t, void* rec_y, void* rec_f, void* rec_f0, "
             "void* rec_n, int rows,")
 REC_SET = ("g_rec = Rec{(float*)rec_t, (float*)rec_y, (float*)rec_f, "
@@ -261,10 +266,8 @@ def _with_record(launch, record):
 
 ERK_RECORD_LAUNCH = _with_record(ERK_LAUNCH, True)
 ERK_LAUNCH = _with_record(ERK_LAUNCH, False)
-RKN_LAUNCH = _with_record(
-    SMALL_LAUNCH.replace("KERNEL", "fused_rkn").replace("PAR_DECL", "")
-    .replace("PAR_ROW", "nullptr").replace("PAR_ARG", "")
-    .replace("PAR_M", ""), False)
+RKN_RECORD_LAUNCH = _with_record(_small_launch("fused_rkn"), True)
+RKN_LAUNCH = _with_record(_small_launch("fused_rkn"), False)
 
 # The SWAG bodies of B3 run one member after another: at one lane the
 # thread-per-member body integrate_thread<COMP>, at G lanes the group body
@@ -344,15 +347,16 @@ struct HostEsdirkMember {
   int comp;
 };
 static HostEsdirkMember g_esdirk;
+REC_GLOBAL
 
 template <int G>
 static void esdirk_lane(int rank) {
   HostLanes lane{rank};
   const HostEsdirkMember& a = g_esdirk;
   if (a.comp) {
-    integrate<G, true>(lane, a.y0, a.yp0, a.par, a.L, a.m, a.out);
+    integrate<G, true>(lane, a.y0, a.yp0, a.par, a.L, a.m, a.out REC_ARG);
   } else {
-    integrate<G, false>(lane, a.y0, a.yp0, a.par, a.L, a.m, a.out);
+    integrate<G, false>(lane, a.y0, a.yp0, a.par, a.L, a.m, a.out REC_ARG);
   }
 }
 
@@ -361,8 +365,9 @@ extern "C" int fused_esdirk_launch(
     void* status, void* nstep, void* nfev, int B, float t0, float tf,
     float rtol, float atol, float h0, int use_hstart, int have_yp0,
     float max_step, int max_steps, float tiny_err, int compensated,
-    int lanes, int block_members, void* stream) {
+    int lanes, int block_members, REC_DECL void* stream) {
   const Out out{(float*)y_out, (int*)status, (int*)nstep, (int*)nfev};
+  REC_SET
   const Launch L{t0, tf, rtol, atol, h0, max_step, tiny_err, use_hstart,
                  have_yp0, max_steps};
   void (*body)(int) = lanes == 4 ? esdirk_lane<4>
@@ -378,9 +383,9 @@ extern "C" int fused_esdirk_launch(
     const float* parm = (const float*)params + m * tab::NPAR;
     if (lanes == 1) {
       if (compensated) {
-        integrate_thread<true>(y0m, yp0m, parm, L, m, out);
+        integrate_thread<true>(y0m, yp0m, parm, L, m, out REC_ARG);
       } else {
-        integrate_thread<false>(y0m, yp0m, parm, L, m, out);
+        integrate_thread<false>(y0m, yp0m, parm, L, m, out REC_ARG);
       }
     } else {
       g_esdirk = HostEsdirkMember{y0m, yp0m, parm, L, m, out, compensated};
@@ -391,6 +396,9 @@ extern "C" int fused_esdirk_launch(
   return 0;
 }
 """
+# B2 with the dense record takes its arrays and rows after block_members
+ESDIRK_RECORD_LAUNCH = _with_record(ESDIRK_LAUNCH, True)
+ESDIRK_LAUNCH = _with_record(ESDIRK_LAUNCH, False)
 
 # The RKC body integrate<RHO, Group> run one member after another, at
 # cluster = 1 by a one-thread group whose sync() does nothing (the arrays in
@@ -819,15 +827,16 @@ struct HostEsdirkMember {
   int compensated;
 };
 static HostEsdirkMember g_member;
+REC_GLOBAL
 
 template <class Group>
 void host_member(Group& g, const HostEsdirkMember& a) {
   if (a.compensated) {
     integrate<true>(g, a.sm, a.y0, a.yp0, a.mass, a.params, a.Lc, a.m,
-                    a.out);
+                    a.out REC_ARG);
   } else {
     integrate<false>(g, a.sm, a.y0, a.yp0, a.mass, a.params, a.Lc, a.m,
-                     a.out);
+                     a.out REC_ARG);
   }
 }
 
@@ -843,8 +852,9 @@ extern "C" int fused_esdirk_grid_host(
     int* status, int* nsteps, int* nfev, int members, float t0, float tf,
     float rtol, float atol, float h0, int use_hstart, int have_yp0,
     float max_step, int max_steps, float tiny_err, int compensated,
-    int lanes, int block_order) {
+    int lanes, REC_DECL int block_order) {
   if (lanes != 1 && lanes != 32) return 1;
+  REC_SET
   const Launch Lc{t0, tf, rtol, atol, h0, use_hstart, have_yp0, max_step,
                   max_steps, tiny_err};
   const Out out{y_out, status, nsteps, nfev};
@@ -866,6 +876,9 @@ extern "C" int fused_esdirk_grid_host(
   return 0;
 }
 """
+# B7 with the dense record takes its arrays and rows before block_order
+ESDIRK_GRID_RECORD_LAUNCH = _with_record(ESDIRK_GRID_LAUNCH, True)
+ESDIRK_GRID_LAUNCH = _with_record(ESDIRK_GRID_LAUNCH, False)
 
 # B11's body runs one member after another: at one lane the
 # thread-per-member body integrate_thread, at G lanes the group body
@@ -969,6 +982,28 @@ GRID_PARAM_RHS = {
     "eg_rd_params": ("fused_esdirk_grid", TEG.RD_P, "Kv3I", None),
     "eg_rd_block": ("fused_esdirk_grid", _aug_grid_rhs(TEG.RD_P, TEG.N_P, 2),
                     "TRBDF2", TEG.N_P)}
+# the builds of the dense record of B2, B7, B5 and B6 and of the params of
+# B5 and B6: label -> (kernel, right-hand side, method (B2: with the
+# problem whose mass matrix it takes), base block, record)
+ROUTE_BUILDS = {
+    "rob_trbdf2_rec": ("fused_esdirk", T.PROBLEMS["rob"], ("TRBDF2", "rob"),
+                       None, True),
+    "pend_rec": ("fused_esdirk", T.PROBLEMS["pend"], ("Kv3I", "pend"), None,
+                 True),
+    "kaps_hidden_rec": ("fused_esdirk", T.PROBLEMS["kaps_hidden"],
+                        ("TRBDF2", "kaps_hidden"), None, True),
+    "rob_block_rec": ("fused_esdirk", T.PROBLEMS["rob_aug"],
+                      ("TRBDF2", "rob_aug"), 3, True),
+    "eg_dae_rec": ("fused_esdirk_grid", TEG.RHS["dae"], "Kv3I", None, True),
+    "eg_rd_params_rec": ("fused_esdirk_grid", TEG.RD_P, "Kv3I", None, True),
+    "eg_rd_block_rec": ("fused_esdirk_grid",
+                        _aug_grid_rhs(TEG.RD_P, TEG.N_P, 2), "TRBDF2",
+                        TEG.N_P, True),
+    "rkn_osc_p": ("fused_rkn", TDR.OSC_P, None, None, False),
+    "rkn_osc_p_rec": ("fused_rkn", TDR.OSC_P, None, None, True),
+    "grid_wave_p": ("fused_rk_grid", TDR.WAVE_P, None, None, False),
+    "grid_wave_p_rec": ("fused_rk_grid", TDR.WAVE_P, None, None, True),
+}
 VDP_TEMPLATE = FK.FusedRHS(
     TK.PROBLEMS["vdp"].torch_fn,
     "template <class T>\n__device__ void rhs(T t, const T* y, T* dy) {\n"
@@ -1077,6 +1112,29 @@ def libs(tmp_path_factory):
         "fused_rk_grid", _build.fused_rk_grid_header(
             FK._fused_consts(TK.BS5), False, fis_p.shape, fis_p.cuda_src,
             fis_p.k, True), GRID_RECORD_LAUNCH, RKC_MARKER)
+    for label, (kernel, rhs, meth, nb, rec) in ROUTE_BUILDS.items():
+        if kernel == "fused_esdirk":
+            M = dict(pend=T.M_PEND, kaps_hidden=T.M_HIDDEN).get(meth[1])
+            header = _build.fused_esdirk_header(
+                FE._esdirk_consts(T.METHODS[meth[0]]),
+                *FE._mass_setup(M, rhs.n), rhs.n, rhs.cuda_src, rhs.k, nb,
+                rec)
+            launch = ESDIRK_RECORD_LAUNCH
+        elif kernel == "fused_esdirk_grid":
+            header = _build.fused_esdirk_grid_header(
+                FE._esdirk_consts(TEG.METHODS[meth]), rhs.shape,
+                rhs.cuda_src, rhs.k, nb, rec)
+            launch = ESDIRK_GRID_RECORD_LAUNCH
+        elif kernel == "fused_rkn":
+            header = _build.fused_rkn_header(FN.rkn_consts(TN.Fi5N), rhs.m,
+                                             rhs.cuda_src, rhs.k, rec)
+            launch = RKN_RECORD_LAUNCH if rec else RKN_LAUNCH
+        else:
+            header = _build.fused_rk_grid_header(
+                FN.rkn_consts(TN.Fi5N), True, (rhs.n,), rhs.cuda_src, rhs.k,
+                rec)
+            launch = GRID_RECORD_LAUNCH if rec else GRID_LAUNCH
+        jobs[label] = (kernel, header, launch, RKC_MARKER)
     for label, (prob, km) in ADAMS_GRID_VARIANTS.items():
         rhs = TAG.RHS[prob]
         jobs[label] = ("fused_adams_grid", _build.fused_adams_header(
@@ -1096,12 +1154,14 @@ def _esdirk_host(lib, case, lanes=1, **over):
     prob, meth, span, y0, yp0, M, kw = {**T.CASES, **T.PARAM_CASES}[case]
     kw = dict(kw, **over)
     kw.pop("block_base", None)          # the build's
+    rows = kw.pop("rows", 0)
     par = T.PARAMS.get(case)
     if par is not None:
         par = np.ascontiguousarray(par, np.float32)
     rtol, atol = kw.pop("rtol"), kw.pop("atol")
     comp = kw.pop("compensated", False)
     max_steps = kw.pop("max_steps", 100_000)
+    first_step = kw.pop("first_step", None)
     assert not kw
     y0 = np.ascontiguousarray(y0, np.float32)
     nb, n = y0.shape
@@ -1111,17 +1171,20 @@ def _esdirk_host(lib, case, lanes=1, **over):
     yp = None if yp0 is None else np.ascontiguousarray(yp0, np.float32)
     fn = lib.fused_esdirk_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 7 + [ci, cf, cf, cf, cf, cf, ci, ci, cf, ci, cf,
-                              ci, ci, ci, vp]
+    rec = _HostRecord(y0, rows)
+    fn.argtypes = ([vp] * 7 + [ci, cf, cf, cf, cf, cf, ci, ci, cf, ci, cf,
+                               ci, ci, ci] + rec.argtypes + [vp])
     rc = fn(y0.ctypes.data, None if yp is None else yp.ctypes.data,
             None if par is None else par.ctypes.data, out.ctypes.data,
             st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb, float(t0),
             float(tf), rtol, atol,
-            float(np.float32(0.01) * abs(tf - t0)), int(M is None),
-            int(yp is not None), np.inf, max_steps, FE._tiny_err(n, rtol),
-            int(comp), lanes, 128 // lanes, None)
+            float(np.float32(0.01) * abs(tf - t0) if first_step is None
+                  else np.float32(first_step)),
+            int(M is None and first_step is None), int(yp is not None),
+            np.inf, max_steps, FE._tiny_err(n, rtol), int(comp), lanes,
+            128 // lanes, *rec.args(), None)
     assert rc == 0
-    return out, st, ns, nf
+    return (out, st, ns, nf) + rec.arrays()
 
 
 # (case, max |dy|, max |dnsteps|, members with other counts), measured:
@@ -1201,10 +1264,10 @@ def test_esdirk_lane_body_bit_identical_to_thread_body(libs, case, lanes):
 
 
 def _small_host(lib, name, span, y0, lanes=1, params=None, rows=0, **kw):
-    """The host-built B1 (``name`` fused_erk, with the members' ``params``
-    or none) or B5 (fused_rkn) on ``y0`` by one thread per member (lanes =
-    1) or ``lanes`` coroutine lanes; a B1 build with the dense record
-    takes ``rows`` and returns the record's arrays after the outputs."""
+    """The host-built B1 (``name`` fused_erk) or B5 (fused_rkn) on ``y0``
+    (with the members' ``params`` or none) by one thread per member (lanes
+    = 1) or ``lanes`` coroutine lanes; a build with the dense record takes
+    ``rows`` and returns the record's arrays after the outputs."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host lane group switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
@@ -1214,10 +1277,9 @@ def _small_host(lib, name, span, y0, lanes=1, params=None, rows=0, **kw):
     fn = getattr(lib, f"{name}_launch")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     first = [y0.ctypes.data]
-    if name == "fused_erk":
-        if params is not None:
-            params = np.ascontiguousarray(params, np.float32)
-        first.append(None if params is None else params.ctypes.data)
+    if params is not None:
+        params = np.ascontiguousarray(params, np.float32)
+    first.append(None if params is None else params.ctypes.data)
     rec = _HostRecord(y0, rows)
     fn.argtypes = ([vp] * (4 + len(first)) + [ci, cf, cf, cf, cf, cf, ci, cf,
                                               ci, ci, ci, ci]
@@ -1991,11 +2053,14 @@ def test_adams_grid_warp_lanes_equal_one_lane(libs, case):
 def _esdirk_grid_host(lib, span, y0, yp0=None, M=None, rtol=1e-4, atol=1e-6,
                       first_step=None, max_steps=100_000, compensated=False,
                       max_step=None, method=None, lanes=1,
-                      block_order=False, params=None, block_base=None):
+                      block_order=False, params=None, block_base=None,
+                      rows=0):
     """The host-built mid-size ESDIRK body on ``y0`` (and the members'
     ``params``; ``block_base`` is the build's), launched as the wrapper
     launches the kernel, by a one-thread group (lanes = 1) or a warp of 32
-    coroutine lanes (reductions as in ``_grid_host``)."""
+    coroutine lanes (reductions as in ``_grid_host``); a build with the
+    dense record takes ``rows`` and returns the record's arrays after the
+    outputs."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host warp switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
@@ -2011,8 +2076,9 @@ def _esdirk_grid_host(lib, span, y0, yp0=None, M=None, rtol=1e-4, atol=1e-6,
           else np.float32(0.01) * abs(tf - t0))
     fn = lib.fused_esdirk_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    rec = _HostRecord(y0, rows)
     fn.argtypes = ([vp] * 8 + [ci] + [cf] * 5
-                   + [ci, ci, cf, ci, cf, ci, ci, ci])
+                   + [ci, ci, cf, ci, cf, ci, ci] + rec.argtypes + [ci])
     rc = fn(y0.ctypes.data, None if yp is None else yp.ctypes.data,
             None if mass is None else mass.ctypes.data,
             None if par is None else par.ctypes.data, out.ctypes.data,
@@ -2020,9 +2086,10 @@ def _esdirk_grid_host(lib, span, y0, yp0=None, M=None, rtol=1e-4, atol=1e-6,
             float(tf), rtol, atol, float(h0),
             int(first_step is None and M is None), int(yp is not None),
             np.inf if max_step is None else float(max_step), max_steps,
-            FE._tiny_err(n, rtol), int(compensated), lanes, int(block_order))
+            FE._tiny_err(n, rtol), int(compensated), lanes, *rec.args(),
+            int(block_order))
     assert rc == 0
-    return out, st, ns, nf
+    return (out, st, ns, nf) + rec.arrays()
 
 
 # name -> (library, case of test_torch_fused_esdirk_grid.py or its
@@ -2416,3 +2483,227 @@ def test_dense_record_first_attempts_bit_identical(grid_param_libs):
         sol, rsol = _host_solution(host, span, y0), ref[4]
         for name in ("ts", "y_anchor", "Q", "valid"):
             assert torch.equal(getattr(sol, name), getattr(rsol, name))
+
+
+# -- the dense record of B2, B7, B5 and B6, and the params of B5 and B6 -------
+
+# kind -> (kernel family, the case, the record build, the build without it).
+# B2: Robertson (TRBDF2), the pendulum DAE (a diagonal M, yp0 given), the
+# Kaps DAE behind a hidden M (rows mapped back by V) and the simultaneous
+# corrector on Robertson's variational system with params (the record of
+# the augmented state); B7: the DAE (a diagonal M), the reaction-diffusion
+# with params and its simultaneous corrector; B5 and B6: the oscillator and
+# the wave with a parameter a member (the fixture's inputs)
+ROUTE_KINDS = {
+    "b2_rob": ("esdirk", "rob_trbdf2", "rob_trbdf2_rec", "rob_trbdf2"),
+    "b2_pend": ("esdirk", "pend_dae", "pend_rec", "pend"),
+    "b2_kaps": ("esdirk", "kaps_hidden", "kaps_hidden_rec", "kaps_hidden"),
+    "b2_block": ("esdirk", "rob_block", "rob_block_rec", "rob_block"),
+    "b7_dae": ("esdirk_grid", "dae", "eg_dae_rec", "eg_dae"),
+    "b7_params": ("esdirk_grid", "eg_rd_params", "eg_rd_params_rec",
+                  "eg_rd_params"),
+    "b7_block": ("esdirk_grid", "eg_rd_block", "eg_rd_block_rec",
+                 "eg_rd_block"),
+    "b5_params": ("rkn", "osc_params", "rkn_osc_p_rec", "rkn_osc_p"),
+    "b6_params": ("rkn_grid", "wave_params", "grid_wave_p_rec",
+                  "grid_wave_p"),
+}
+
+
+def _route_case(kind, lanes=1, rows=256, record=True, block_order=False,
+                plain=True, **over):
+    """(host outputs with the record's arrays where ``record``, plain
+    version's outputs with its FusedDenseSolution (None unless
+    ``plain``), span, y0) of ``kind`` at ``lanes`` (a warp of 32 for B7
+    and B6, reductions in ``block_order`` where asked) with ``rows`` a
+    member."""
+    family, case, rec_lib, lib = ROUTE_KINDS[kind]
+    lib = LIBS_OF[rec_lib if record else lib]
+    hrows = rows if record else 0
+    if family == "esdirk":
+        host = _esdirk_host(lib, case, lanes, rows=hrows, **over)
+        prob, meth, span, y0, yp0, M, kw = {**T.CASES, **T.PARAM_CASES}[case]
+        par = T.PARAMS.get(case)
+        ref = None if not plain else FE.fused_esdirk_reference(
+            T.PROBLEMS[prob], span, torch.tensor(y0), method=T.METHODS[meth],
+            M=M, yp0_batch=None if yp0 is None else torch.tensor(yp0),
+            params=None if par is None else torch.tensor(par), dense=rows,
+            **dict(kw, **over))
+        return host, ref, span, y0
+    if family == "esdirk_grid" and case == "dae":
+        prob, meth, span, y0, kw = TEG.CASES[case]
+        kw = dict(TEG._options(kw), **over)
+        y0 = TEG.Y0[y0]
+        host_kw = dict(kw, yp0=kw["yp0_batch"].numpy())
+        del host_kw["yp0_batch"]
+        host = _esdirk_grid_host(lib, span, y0, lanes=lanes,
+                                 block_order=block_order, rows=hrows,
+                                 **host_kw)
+        ref = None if not plain else FEG.fused_esdirk_grid_reference(
+            TEG.RHS[prob], span, torch.tensor(y0), method=TEG.METHODS[meth],
+            dense=rows, **kw)
+        return host, ref, span, y0
+    if family == "esdirk_grid":
+        _, rhs, meth, nb = GRID_PARAM_RHS[case]
+        y0, par = TEG.rd_p_inputs()
+        if rhs.shape[0] > y0.shape[1]:
+            y0 = np.concatenate([y0, np.zeros(
+                (len(y0), rhs.shape[0] - y0.shape[1]), np.float32)], 1)
+        span = (0.0, 0.04)
+        kw = dict(dict(rtol=1e-5, atol=1e-8), **over)
+        host = _esdirk_grid_host(lib, span, y0, lanes=lanes,
+                                 block_order=block_order, params=par,
+                                 rows=hrows, **kw)
+        ref = None if not plain else FEG.fused_esdirk_grid_reference(
+            rhs, span, torch.tensor(y0), method=TEG.METHODS[meth],
+            params=torch.tensor(par), block_base=nb, dense=rows, **kw)
+        return host, ref, span, y0
+    plain_fn, fun, span, kw = TDR.CASES[case]
+    y0, _, par = (None if x is None else x.numpy()
+                  for x in TDR._inputs(case))
+    kw = dict(kw, **over)
+    kw.pop("dense")
+    if family == "rkn":
+        host = _rkn_host(lib, span, y0, lanes=lanes, params=par, rows=hrows,
+                         **kw)
+    else:
+        host = _grid_host(lib, span, y0, lanes=lanes, block_order=block_order,
+                          params=par, rows=hrows, **kw)
+    ref = None if not plain else plain_fn(
+        fun, span, torch.tensor(y0), params=torch.tensor(par), dense=rows,
+        **kw)
+    return host, ref, span, y0
+
+
+# (kind, lanes, gate on |dnsteps|, gate on the two dense outputs at 97
+# common times).  From the second attempt powf and torch.pow part the
+# last bits of h, so the nodes part with the counts, and the dense
+# outputs by their interpolation error between them.  Measured (max
+# |dnsteps|, dense outputs): b2_rob 1, 2.1e-6 (1 and 8 lanes); b2_pend 1,
+# 7.6e-6 (1 and 4); b2_kaps 0, 1.4e-6; b2_block 0, 1.2e-7; b7_dae 0,
+# 3.6e-7 (1 and 32); b7_params 0, 4.8e-7; b7_block 0, 4.8e-7 (1 and 32);
+# b5_params 0, 2.6e-5 (1 and 8); b6_params 1, 3.9e-4 (1), 0, 6.4e-4 (32).
+# Gates about 3x, at least 1 on the steps
+ROUTE_RECORD_CASES = [
+    ("b2_rob", 1, 2, 6e-6), ("b2_rob", 8, 2, 6e-6), ("b2_pend", 1, 2, 2.3e-5),
+    ("b2_pend", 4, 2, 2.3e-5), ("b2_kaps", 1, 1, 4.5e-6),
+    ("b2_block", 1, 1, 4e-7), ("b7_dae", 1, 1, 1.1e-6),
+    ("b7_dae", 32, 1, 1.1e-6), ("b7_params", 1, 1, 1.5e-6),
+    ("b7_block", 1, 1, 1.5e-6), ("b7_block", 32, 1, 1.5e-6),
+    ("b5_params", 1, 1, 8e-5), ("b5_params", 8, 1, 8e-5),
+    ("b6_params", 1, 2, 2e-3), ("b6_params", 32, 2, 2e-3)]
+
+
+@pytest.mark.parametrize("kind,lanes,dsteps,gate", ROUTE_RECORD_CASES)
+def test_route_record_matches_plain_version(grid_param_libs, kind, lanes,
+                                            dsteps, gate):
+    """B2 (one thread, 4 and 8 coroutine lanes), B7 and B6 (one thread, a
+    warp of 32 coroutine lanes) and B5 (one thread, 8 lanes) with the
+    dense record against their plain versions: equal status and valid,
+    nsteps within the gate; every row written and no other, the last node
+    the final state at tf; the dense outputs within the gate."""
+    host, ref, span, y0 = _route_case(kind, lanes)
+    np.testing.assert_array_equal(host[1], ref[1].numpy())
+    assert np.all(host[1] == 1)
+    assert np.max(np.abs(host[2] - ref[2].numpy())) <= dsteps
+    rt, ry, rf, f0, nrec = host[4:]
+    rows = rt.shape[1]
+    np.testing.assert_array_equal(nrec, host[2])
+    written = np.arange(rows)[None] < nrec[:, None]
+    assert np.all(np.isfinite(rt[written])) and np.all(np.isnan(rt[~written]))
+    assert np.all(np.isfinite(f0))
+    b = np.arange(len(y0))
+    np.testing.assert_array_equal(rt[b, nrec - 1], np.float32(span[1]))
+    np.testing.assert_array_equal(ry[b, nrec - 1], host[0])
+    sol, rsol = _host_solution(host, span, y0), ref[4]
+    assert bool(sol.valid.all()) and bool(rsol.valid.all())
+    tq = torch.linspace(span[0], span[1], 97)
+    assert (sol(tq) - rsol(tq)).abs().max().item() <= gate
+
+
+@pytest.mark.parametrize("kind,lanes", [
+    ("b2_rob", 4), ("b2_rob", 8), ("b2_kaps", 8), ("b2_block", 4),
+    ("b5_params", 2), ("b5_params", 4), ("b5_params", 8)])
+def test_route_record_lane_body_bit_identical_to_thread_body(
+        grid_param_libs, kind, lanes):
+    """B2's and B5's group bodies on coroutine lanes write the thread
+    body's records bit for bit, with its outputs."""
+    a = _route_case(kind, lanes, plain=False)[0]
+    b = _route_case(kind, 1, plain=False)[0]
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["b7_dae", "b7_block", "b6_params"])
+def test_route_record_warp_equals_block_order(grid_param_libs, kind):
+    """The warp bodies of B7 and B6 write the same records with each lane
+    taking its own butterfly result as with every lane taking lane 0's
+    (a block of one warp), bit for bit."""
+    a, b = (_route_case(kind, 32, block_order=block, plain=False)[0]
+            for block in (False, True))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("kind,lanes", [
+    (k, 1) for k in ROUTE_KINDS] + [("b2_rob", 8), ("b7_dae", 32),
+                                    ("b5_params", 8), ("b6_params", 32)])
+def test_route_record_leaves_the_outputs_as_they_are(grid_param_libs, kind,
+                                                     lanes):
+    """Each record build gives the outputs of the build without it bit for
+    bit."""
+    on = _route_case(kind, lanes, plain=False)[0]
+    off = _route_case(kind, lanes, record=False, plain=False)[0]
+    assert len(off) == 4
+    for x, y in zip(on[:4], off):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("kind", sorted(ROUTE_KINDS))
+def test_route_record_first_attempts_bit_identical(grid_param_libs, kind):
+    """With ``first_step`` given, each record of the first attempt (f0 and
+    the first row) repeats the plain version's bit for bit: the stages, the
+    Newton iterations, y' the last stage and, with a hidden M, the rows
+    mapped back by V (at 1e-5 every member accepts it, but 28 of the 128
+    behind the hidden M)."""
+    host, ref, span, y0 = _route_case(kind, 1, first_step=1e-5,
+                                      max_steps=1)
+    assert np.sum(host[8]) >= 0.75 * len(y0)
+    sol, rsol = _host_solution(host, span, y0), ref[4]
+    for name in ("ts", "y_anchor", "Q", "valid"):
+        assert torch.equal(getattr(sol, name), getattr(rsol, name)), name
+
+
+@pytest.mark.parametrize("kind", ["b2_rob", "b7_dae", "b5_params",
+                                  "b6_params"])
+def test_route_record_overflow(grid_param_libs, kind):
+    """A record of 3 rows: the members write the steps they accepted in
+    their first 3 attempts, are not valid, and the outputs are those of
+    the build without it."""
+    host, ref, span, y0 = _route_case(kind, 1, rows=3)
+    assert np.all((host[8] >= 1) & (host[8] <= 3))
+    sol = _host_solution(host, span, y0)
+    assert not bool(sol.valid.any()) and not bool(ref[4].valid.any())
+    off = _route_case(kind, 1, record=False, plain=False)[0]
+    for x, y in zip(host[:4], off):
+        np.testing.assert_array_equal(x, y)
+
+
+# (kind, lanes, max |dy|, max |dnsteps|), the params builds of B5 and B6
+# without the record against their plain versions.  Measured: b5_params
+# 4.8e-7, 0 (1 and 8 lanes); b6_params 1.4e-5, 1 (1 lane), 1.7e-5, 0 (a
+# warp of 32).  Gates about 3x, at least 1 on the steps
+PARAMS_CASES = [("b5_params", 1, 1.5e-6, 1), ("b5_params", 8, 1.5e-6, 1),
+                ("b6_params", 1, 5.2e-5, 2), ("b6_params", 32, 5.2e-5, 2)]
+
+
+@pytest.mark.parametrize("kind,lanes,y_gate,dsteps", PARAMS_CASES)
+def test_rkn_params_kernels_match_plain_versions(grid_param_libs, kind,
+                                                 lanes, y_gate, dsteps):
+    """B5 and B6 with a parameter a member (loaded once into registers or
+    the member's shared memory) against their plain versions: status
+    equal, steps and endpoints within the gates."""
+    host, ref, _, _ = _route_case(kind, lanes, record=False)
+    np.testing.assert_array_equal(host[1], ref[1].numpy())
+    assert np.max(np.abs(host[2] - ref[2].numpy())) <= dsteps
+    assert np.max(np.abs(host[0] - ref[0].numpy())) <= y_gate

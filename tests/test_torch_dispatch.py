@@ -9,7 +9,8 @@ tensor asks).  The cases are ``tests/test_fused_pallas.py:1739``'s routes
 grid and on a member stack) and one route per family and layout, with the
 RHS object's type deciding the layout, the RKN half-width, the flat caps,
 a contradicting ``layout=`` (``TypeError``), a method without a family
-(``ValueError``) and per-member ``params``, passed through to B1 and B2.
+(``ValueError``), per-member ``params``, passed through to B1, B2, B5 and
+B6, and ``dense``, passed through to B5 and B7.
 """
 import numpy as np
 import pytest
@@ -51,6 +52,10 @@ def heat(t, y):
 
 def osc_acc(t, u, v):
     return -u
+
+
+def osc_acc_p(t, u, v, p):
+    return -p[0] * u
 
 
 def bru(t, uv):
@@ -144,6 +149,17 @@ CASES = {
                    dict(params=P4), "solve_fused_erk"),
     "esdirk_params": (FusedRHS(decay_p, "", 2, 1), "Kv3I", members(2), None,
                       None, dict(params=P4), "solve_fused_esdirk"),
+    # and to B5 and B6, and dense to B5 and B7
+    "rkn_params": (FusedAcc(osc_acc_p, "", 1, 1), "Fi5N", members(2), None,
+                   None, dict(params=P4), "solve_fused_rkn"),
+    "rkn_grid_params": (FusedGridAcc(osc_acc_p, "", 4, 1), "Fi5N",
+                        members(8), None, None, dict(params=P4),
+                        "solve_fused_rkn_grid"),
+    "rkn_dense": (FusedAcc(osc_acc, "", 1), "Fi5N", members(2), None, None,
+                  dict(dense=64), "solve_fused_rkn"),
+    "esdirk_grid_dense": (FusedGridRHS(heat, "", (8,)), "Kv3I", members(8),
+                          None, None, dict(dense=64),
+                          "solve_fused_esdirk_grid"),
 }
 SPAN = (0.0, 0.5)
 

@@ -20,8 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from extensisq_tpu_torch import (BS5, CKdisc, Fi5N, SSV2stab, SWAG, TRBDF2,
-                                 sensitivity)
+from extensisq_tpu_torch import BS5, CKdisc, SSV2stab, SWAG, sensitivity
 from extensisq_tpu_torch.ops import (FusedGridRHS, FusedRHS,
                                      fused_erk_grid_reference,
                                      fused_erk_reference, solve_fused_adjoint,
@@ -222,14 +221,13 @@ def test_adjoint_backward_span():
 
 
 @pytest.mark.parametrize("method,exc,match", [
-    (TRBDF2, NotImplementedError, "B2 and B7"),
-    (Fi5N, NotImplementedError, "B5 and B6"),
     (SWAG, NotImplementedError, "B3 and B8"),
     (SSV2stab, ValueError, "family"),
     (CKdisc, ValueError, "family")])
 def test_adjoint_routes_not_ported_raise(method, exc, match):
-    """The ESDIRK, RKN and SWAG routes wait for dense=R on their kernels
-    (ROADMAP queue B); other families raise JAX's ValueError."""
+    """The SWAG route waits for params and dense=R on B3 and B8 (ROADMAP
+    queue B); other families raise JAX's ValueError.  The ESDIRK and RKN
+    routes run (tests/test_torch_fused_adjoint_routes.py)."""
     y0, mus = _vdp_inputs()
     with pytest.raises(exc, match=match):
         solve_fused_adjoint(VDP_P, SPAN, y0, mus, method)

@@ -352,16 +352,22 @@ def test_params_checked_against_the_rhs(kw, match):
 
 @pytest.mark.parametrize("fun", ["acc", "class"])
 def test_params_k_read_from_the_two_rhs_classes_only(fun):
-    """Only a FusedRHS or a FusedGridRHS says how many parameters it takes:
-    another of the port's right-hand-side objects, or the FusedGridRHS
-    class itself, is not read for k, so that the wrapper's own type check
-    (TypeError on the card) speaks, not an AttributeError."""
+    """Only the right-hand-side objects (FusedRHS and FusedGridRHS, and
+    the accelerations FusedAcc and FusedGridAcc) say how many parameters
+    they take: an acceleration's k is read (params of another width
+    raise), the FusedGridRHS class itself is not read for k, so that the
+    wrapper's own type check (TypeError on the card) speaks, not an
+    AttributeError."""
     from extensisq_tpu_torch.ops.fused_erk import member_params
     from extensisq_tpu_torch.ops.fused_rkn_grid import FusedGridAcc
-    obj = (FusedGridAcc(lambda t, u, v: u, "", 4) if fun == "acc"
+    obj = (FusedGridAcc(lambda t, u, v, p: u, "", 4, 3) if fun == "acc"
            else FusedGridRHS)
     p = torch.ones(B, 3)
     assert member_params(p, torch.zeros(B, 4), obj) is p
+    if fun == "acc":
+        with pytest.raises(ValueError, match="k = 2"):
+            member_params(p, torch.zeros(B, 4),
+                          FusedGridAcc(lambda t, u, v, p: u, "", 4, 2))
 
 
 @pytest.mark.parametrize("option", ["t_eval", "events"])

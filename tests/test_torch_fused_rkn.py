@@ -344,7 +344,7 @@ def test_cpu_wrappers_run_plain_versions():
         assert solve_fn.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events", "params", "dense"])
+@pytest.mark.parametrize("option", ["t_eval", "events"])
 @pytest.mark.parametrize("solve_fn", [solve_fused_rkn, solve_fused_rkn_grid])
 def test_unported_options_raise(solve_fn, option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -619,9 +619,9 @@ def test_build_keys_hash_the_included_headers(monkeypatch, tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    expect = {"fused_rkn": ["rk_common.cuh", "hstart.cuh",
-                            "rk_control.cuh", "rk_lanes.cuh", "rk_rows.cuh",
-                            "lane_group.cuh"],
+    expect = {"fused_rkn": ["dense_record.cuh", "rk_common.cuh",
+                            "hstart.cuh", "rk_control.cuh", "rk_lanes.cuh",
+                            "rk_rows.cuh", "lane_group.cuh"],
               "fused_rk_grid": ["grid_common.cuh", "dense_record.cuh",
                                 "rk_common.cuh", "rk_control.cuh",
                                 "rk_rows.cuh", "block_rows.cuh",

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from _probe import (build, card, launch_signature, ptxas_lines, sass_ops,
-                    turns, write_out)
+                    sass_same, turns, write_out)
 from extensisq_tpu_torch import Kv3I
 from extensisq_tpu_torch.ops import _build
 from extensisq_tpu_torch.ops import fused_esdirk as FE
@@ -276,6 +276,10 @@ def main():
             print(f"sass[{k}] {fn}: {mix}")
         OUT[f"build_{k}"] = {"seconds": b["seconds"], "log": b["log"],
                              "sass": sass}
+    same, sizes = sass_same(builds["old"], builds["new"])
+    print(f"SASS [b2]: old and new opcodes kernel by kernel identical "
+          f"{same}; instructions old / new {sizes}")
+    OUT["sass_same"] = same
     lanes = [int(x) for x in args.lanes.split(",")]
     if not builds["new"]["lanes"]:
         lanes = [1]

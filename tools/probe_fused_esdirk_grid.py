@@ -54,7 +54,7 @@ import torch
 
 import chip_smoke as CS
 from _probe import (build, card, launch_signature, ptxas_lines, sass_ops,
-                    turns, write_out)
+                    sass_same, turns, write_out)
 from extensisq_tpu_torch import Kv3I, TRBDF2
 from extensisq_tpu_torch.ops import _build
 from extensisq_tpu_torch.ops import fused_esdirk as FE
@@ -358,6 +358,10 @@ def main():
             print(f"sass[{k}] {fn}: {mix}")
         OUT[f"build_{k}"] = {"seconds": builds[k]["seconds"],
                              "log": builds[k]["log"], "sass": sass}
+    same, sizes = sass_same(builds["old"], builds["new"])
+    print(f"SASS [b7]: old and new opcodes kernel by kernel identical "
+          f"{same}; instructions old / new {sizes}")
+    OUT["sass_same"] = same
     old_threads = [int(x) for x in args.old_threads.split(",")]
     shapes = ([s for s in args.shapes.split(",") if s] if args.shapes
               else [f"b{t}" for t in old_threads])

@@ -15,7 +15,11 @@ reaction-diffusion sweep at n = 128 through ``solve_fused_sens(layout=
 "grid")``), with their times.  ``--grid`` runs the grid phase only;
 ``--adjoint`` runs ``chip_smoke.adjoint_path`` alone (B1 and B4 with the
 dense record against their plain versions, configs 7d and 7b through
-``solve_fused_adjoint``; three builds).
+``solve_fused_adjoint``; three builds); ``--routes`` runs
+``chip_smoke.adjoint_routes_path`` alone (B2, B7, B5 and B6 with the
+dense record, B5 and B6 with params, against their plain versions; the
+ESDIRK and RKN routes of ``solve_fused_adjoint``, flat and grid; with the
+sensitivity builds their references launch, fifteen builds).
 
 ``--inline`` then also builds the two variational grid systems with their
 augmented ``rhs`` inlined (``__forceinline__`` for the generated
@@ -25,7 +29,8 @@ events, the shipped out-of-line build against the inlined one in turns
 the medians, their ratio and how far the inlined outputs lie from the
 shipped ones.  Run from the repository root:
 
-    PYTHONPATH=. python tools/probe_sens.py [--grid | --adjoint] [--inline]
+    PYTHONPATH=. python tools/probe_sens.py [--grid | --adjoint | --routes]
+        [--inline]
 """
 import statistics
 import subprocess
@@ -92,6 +97,14 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
+    if "--routes" in sys.argv[1:]:
+        C.build_all(C.sens_builds(C.sens_rhs())
+                    + C.sens_grid_builds(C.sens_grid_rhs())
+                    + C.adjoint_routes_builds(C.adjoint_routes_rhs()))
+        for name, keys in C.adjoint_routes_path().items():
+            print(f"{name}: {keys}")
+        print(smi.splitlines()[0])
+        return 0
     if "--adjoint" in sys.argv[1:]:
         C.build_all(C.sens_builds(C.sens_rhs())[:1]
                     + C.adjoint_builds(C.adjoint_rhs()))
