@@ -507,8 +507,8 @@ def adams_builds(rhs):
 def build_all(jobs):
     """Build every (kernel, label, rhs, options) variant with one nvcc
     each, all started together; print seconds, registers and spills.  A
-    kernel name ending in ``_rec`` (B1, B2, B4-B7) is the build with the
-    dense record."""
+    kernel name ending in ``_rec`` (B1-B8) is the build with the dense
+    record."""
     from extensisq_tpu_torch import BS5
     from extensisq_tpu_torch.ops import _build
     from extensisq_tpu_torch.ops.fused_adams import _adams_consts
@@ -543,10 +543,11 @@ def build_all(jobs):
                                          rhs.cuda_src, rhs.k, rec)
         if kernel == "fused_adams":
             return _build.load_fused_adams(_adams_consts(opt, rhs.n),
-                                           rhs.cuda_src)
+                                           rhs.cuda_src, rhs.k, rec)
         if kernel == "fused_adams_grid":
             return _build.load_fused_adams_grid(
-                _adams_consts(opt, rhs.shape[0]), rhs.shape, rhs.cuda_src)
+                _adams_consts(opt, rhs.shape[0]), rhs.shape, rhs.cuda_src,
+                rhs.k, rec)
         if kernel == "fused_esdirk_grid":
             method, nb = opt if isinstance(opt, tuple) else (opt, None)
             return _build.load_fused_esdirk_grid(
@@ -5108,6 +5109,381 @@ def adjoint_routes_path():
     return out
 
 
+# -- the SWAG routes of the continuous adjoint --------------------------------
+# solve_fused_adjoint(method=SWAG) through B3 (flat) and B8 (grid), each
+# forward one launch with params and the dense record, a static t_span:
+# * vdp1024-grad-swag-adjoint: config 7b's ensemble (validation/
+#   benchmarks.py:838-871; 1,024 Van der Pol members, y0 = (2, 0), mu in
+#   [1, 2] a member, t in [0, 3]) at the settings of JAX's SWAG adjoint
+#   test (tests/test_fused_adjoint.py:270-301: rtol 1e-5 / atol 1e-8,
+#   k_max 6); dL/dmu of sum(y_f[:, 0]) against central differences (eps
+#   1e-2) of B3 with params at the same settings, two launches (every
+#   member's mu up, then down), within JAX's 2e-2 of max(max |FD|, 1);
+# * heat256x32-swag-adjoint-grid: config 2d's line (`:221-259`; the
+#   periodic heat MoL, n = 256, dx = 1/256, 32 members, y0 = a_b sin(2 pi
+#   x) + 0.3 cos(4 pi x), a_b in [0.5, 1.5], k_max 6 at rtol 1e-4 / atol
+#   1e-6, t in [0, 0.25]) with the diffusivity D_b in [0.005, 0.015] a
+#   member; L = sum_b sum_i y_f[b, i] sin(2 pi x_i), whose gradients the
+#   semi-discrete solution gives: with lam_1 = (2 / dx sin(pi / n))^2,
+#   dL/dD_b = -lam_1 T a_b (n / 2) exp(-D_b lam_1 T) and dL/dy0[b, i] =
+#   exp(-D_b lam_1 T) sin(2 pi x_i), each over its largest entry.
+# The records take about 1.3x the slowest member's attempts (69 and 684 of
+# the plain versions on the CPU)
+AD_VDP_TOL = dict(rtol=1e-5, atol=1e-8, k_max=6)
+AD_VDP_DENSE = 96
+AD_FD_EPS = 1e-2
+AD_FD_GATE = 2e-2
+AD_HEAT_N, AD_HEAT_M = 256, 32
+AD_HEAT_SPAN = (0.0, 0.25)
+AD_HEAT_TOL = dict(rtol=1e-4, atol=1e-6, k_max=6)
+AD_HEAT_DENSE = 896
+# the gradients of the grid route against the closed form, over their
+# largest entries: dL/dD and dL/dy0, measured 1.037e-6 and 2.777e-4 on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W; tools/probe_sens.py --adams); gates
+# about 4x, within JAX's 2e-2
+AD_CLOSED_GATES = (4e-6, 1.1e-3)
+# the kernels with params and their records against the plain versions on
+# the card, as AR_KERNEL_GATES and AR_DENSE_GATES: (max |dy|, relative
+# difference of mean nsteps, max |dnsteps|) and (the dense outputs at 97
+# common times, the kernel's nodes against the plain version's dense
+# output).  Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W;
+# tools/probe_sens.py --adams): vdp 1.035e-4, 2.37e-4, 7 and 1.080e-4,
+# 1.009e-4 (186 of 1,024 members with other counts); heat 3.406e-4,
+# 8.54e-4, 43 and 1.621e-3, 1.480e-3 (every member: the heat's SWAG steps
+# sit at its stability limit, where the card's contraction and powf move
+# them, as on config 2d's line, MID_KERNEL_GATES' heat2d).  Gates 3-5x the
+# readings
+AD_KERNEL_GATES = {"vdp": (4e-4, 1e-3, 21), "heat": (1.4e-3, 3.4e-3, 130)}
+AD_DENSE_GATES = {"vdp": (4e-4, 4e-4), "heat": (6.5e-3, 6e-3)}
+# the heat line's right-hand side per element: (roll - 2 y + roll), times
+# D and the constant: 5 operations
+AD_HEAT_OPS = 5
+
+
+def heat_p(n):
+    """The periodic heat MoL with the diffusivity a member's parameter."""
+    c = float(n * n)
+
+    def fun(t, y, p):
+        return p[0] * (torch.roll(y, 1, 0) - 2 * y + torch.roll(y, -1, 0)) \
+            * c
+    return fun
+
+
+def _heat_p_cuda(n):
+    return ("__device__ float rhs(float t, const float* y, int i, "
+            "const float* p) {\n  using G = tab::G;\n"
+            "  return p[0] * (G::rolled<0>(y, i, 1) - 2.0f * y[i] + "
+            f"G::rolled<0>(y, i, -1)) * {_lit(n * n)};\n}}")
+
+
+def adams_routes_rhs():
+    """The SWAG routes' right-hand sides: 7b's Van der Pol with mu a member
+    (the sensitivity phase's) and the heat MoL with D a member."""
+    from extensisq_tpu_torch.ops import FusedGridRHS
+    return {"vdp": sens_rhs()["vdp"],
+            "heat": FusedGridRHS(heat_p(AD_HEAT_N), _heat_p_cuda(AD_HEAT_N),
+                                 (AD_HEAT_N,), 1)}
+
+
+def adams_routes_builds(rhs):
+    """(kernel, label, rhs, k_max) of the phase's variants: B3 and B8 with
+    params, with and without the dense record."""
+    return [("fused_adams_rec", "vdp params dense", rhs["vdp"], 6),
+            ("fused_adams", "vdp params", rhs["vdp"], 6),
+            ("fused_adams_grid_rec", "heat params dense", rhs["heat"], 6),
+            ("fused_adams_grid", "heat params", rhs["heat"], 6)]
+
+
+def adams_routes_inputs():
+    """The routes' members on the card: 7b's (y0, mu) and the heat line's
+    (y0, D)."""
+    y0b, mus = sens_inputs()[3:5]
+    D = torch.linspace(0.005, 0.015, AD_HEAT_M, device="cuda")[:, None]
+    return {"vdp": (y0b, mus), "heat": (heat_y0(AD_HEAT_M, AD_HEAT_N), D)}
+
+
+AD_SPAN = {"vdp": SENS_VDP_SPAN, "heat": AD_HEAT_SPAN}
+AD_TOL = {"vdp": AD_VDP_TOL, "heat": AD_HEAT_TOL}
+AD_DENSE = {"vdp": AD_VDP_DENSE, "heat": AD_HEAT_DENSE}
+AD_KIND = {"vdp": "fused_adams", "heat": "fused_adams_grid"}
+
+
+def adams_routes_kernel_checks(R, inp):
+    """B3 and B8 with params and their records against their plain
+    versions on the card at the routes' widths; B3 at 1, 8, 16 and 32
+    lanes against the rule's shape, records included, bit for bit; the
+    record leaves y, status, nsteps and nfev as they are without it, and
+    the params builds without it against the plain versions.  Returns the
+    largest |dy| and the plain versions' seconds of each kernel."""
+    from extensisq_tpu_torch import ops
+    from extensisq_tpu_torch.ops import fused_adams as FA
+    errs, plain_s = {}, {}
+    for name, kind in AD_KIND.items():
+        wrapper = getattr(ops, "solve_" + kind)
+        plain = getattr(ops, kind + "_reference")
+        y0, p = inp[name]
+        span, rows = AD_SPAN[name], AD_DENSE[name]
+        kw = dict(AD_TOL[name], params=p, max_steps=100_000)
+        k, r, dy, r_s = hold_against_plain(
+            "adams routes", f"{name} params dense",
+            lambda: wrapper(R[name], span, y0, dense=rows, **kw),
+            lambda: plain(R[name], span, y0, dense=rows, **kw),
+            *AD_KERNEL_GATES[name])
+        hold_record(name, k, r, span, AD_DENSE_GATES[name])
+        off = wrapper(R[name], span, y0, **kw)
+        same_off = all(torch.equal(a, b) for a, b in zip(k[:4], off))
+        check(same_off, f"{name}: the record changed the outputs")
+        _, _, dyp, _ = hold_against_plain(
+            "adams routes", f"{name} params", lambda: off, lambda: r[:4],
+            *AD_KERNEL_GATES[name])
+        errs[kind], plain_s[kind] = max(dy, dyp), r_s
+        text = "one block a member"
+        if name == "vdp":
+            shape = ops.solve_fused_adams.last_shape
+            same = {lanes: _same_record(k, FA._launch(
+                R[name], span, y0, kw["rtol"], kw["atol"], None,
+                kw["k_max"], kw["max_steps"], False, None, lanes, None, p,
+                rows)[0]) for lanes in (1, 8, 16, 32) if lanes != shape[0]}
+            text = (f"the rule's {shape_text(ops.solve_fused_adams, len(y0))}"
+                    f"; 1 / 8 / 16 / 32 lanes {same}")
+            check(all(same.values()), f"{name}: a lane shape differs")
+        print(f"{wrapper.__name__} [{name} params dense, {y0.shape[0]}]: "
+              f"outputs and records bit-identical across shapes: {text}; "
+              f"outputs bit-identical to dense=None {same_off}")
+    return errs, plain_s
+
+
+def adams_start(kind, fun, y0, params, span, tol):
+    """The members' start of a B3 or B8 (``kind``) launch, from the float32
+    stepper's init on ``fun`` with ``params`` bound, as the wrappers run
+    it: (f(t0, y0), h0, nfev0, direction)."""
+    from extensisq_tpu_torch.ops import fused_adams as FA
+    from extensisq_tpu_torch.ops import fused_adams_grid as FAG
+    from extensisq_tpu_torch.ops.fused_erk import bind_params
+    if kind == "fused_adams_grid":
+        return FAG._start(fun, span, y0, tol["rtol"], tol["atol"], None,
+                          tol["k_max"], None, params)
+    _, s0, direction = FA._host_init(bind_params(fun, params), span, y0.T,
+                                     tol["rtol"], tol["atol"], None,
+                                     tol["k_max"], None)
+    return (s0.yp.T.contiguous(), s0.h.contiguous(), s0.nfev.contiguous(),
+            direction)
+
+
+def adams_launch_ms(kind, built, fun, y0, params, span, tol, shape, rows,
+                    reps=10):
+    """Device ms of one launch of B3 or B8 (``kind``, its wrapper's module)
+    with the record of ``rows`` a member (0: the build without it), the
+    float32 init run and the outputs allocated before: CUDA events around
+    ``reps`` launches back to back, per launch, median of REPS; and the
+    DenseRecord written."""
+    from extensisq_tpu_torch.ops.fused_erk import DenseRecord
+    from extensisq_tpu_torch.ops.fused_erk_grid import grid_threads
+    nb, n = y0.shape
+    yp0, h0, nfev0, direction = adams_start(kind, fun, y0, params, span,
+                                            tol)
+    out = (torch.empty_like(y0),
+           *[torch.empty(nb, dtype=torch.int32, device="cuda")
+             for _ in range(3)])
+    rec = DenseRecord(y0, rows)
+    scal = (nb, float(np.float32(span[0])), float(np.float32(span[1])),
+            direction, float(np.float32(tol["rtol"])),
+            float(np.float32(tol["atol"])), np.inf, 100_000)
+    ptrs = [x.data_ptr() for x in out]
+    if kind == "fused_adams":
+        work = torch.empty(nb, 5, dtype=torch.int32, device="cuda")
+        args = ((y0.data_ptr(), params.data_ptr(), yp0.data_ptr(),
+                 h0.data_ptr(), nfev0.data_ptr(), *ptrs, work.data_ptr())
+                + scal + (0,) + tuple(shape))
+    else:
+        args = ((y0.data_ptr(), yp0.data_ptr(), h0.data_ptr(),
+                 nfev0.data_ptr(), params.data_ptr(), *ptrs) + scal
+                + (grid_threads(n),))
+    fn = getattr(built.lib, f"{kind}{'_record' if rows else ''}_launch")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = args + (rec.args() if rows else ())
+
+    def run():
+        for _ in range(reps):
+            check(fn(*args, stream) == 0, f"{kind}: launch failed")
+    return event_ms(run) / reps, rec
+
+
+def adams_routes_path():
+    """The SWAG routes of solve_fused_adjoint on the card: B3 and B8 with
+    params and their records against their plain versions (B3 at every lane
+    shape); each route's value and gradient, its forward one launch of its
+    kernel, against its reference (module comment above); the record
+    overflow's NaN gradients; the backward's attempts, ms an attempt and
+    host syncs; the forward launches' device ms with and without the
+    record, the record's bytes, the bounds.  Returns each kernel's
+    ``_adams_routes`` keys by its ``kernels`` name."""
+    from extensisq_tpu_torch import SWAG
+    from extensisq_tpu_torch import ops
+    from extensisq_tpu_torch.ops import fused_adams as FA
+    from extensisq_tpu_torch.ops import fused_adams_grid as FAG
+    start = time.perf_counter()
+    R = adams_routes_rhs()
+    inp = adams_routes_inputs()
+    errs, plain_s = adams_routes_kernel_checks(R, inp)
+    every = [getattr(ops, k) for k in dir(ops) if k.startswith("solve_fused_")
+             and hasattr(getattr(ops, k), "launches")]
+    x = torch.arange(AD_HEAT_N, device="cuda") / AD_HEAT_N
+    w_heat = torch.sin(2 * np.pi * x)
+
+    def loss_of(name, yf):
+        return yf[:, 0].sum() if name == "vdp" else (yf * w_heat).sum()
+
+    def grad(name, dense=None, members=None):
+        """(value, dL/dy0, dL/dp) of the route's loss."""
+        y0, p = inp[name]
+        sl = slice(None, members)
+        tol = AD_TOL[name]
+        Y = y0[sl].clone().requires_grad_(True)
+        P = p[sl].clone().requires_grad_(True)
+        yf = ops.solve_fused_adjoint(
+            R[name], AD_SPAN[name], Y, P, SWAG, tol["rtol"], tol["atol"],
+            100_000, None, AD_DENSE[name] if dense is None else dense,
+            layout="grid" if name == "heat" else "flat", k_max=tol["k_max"])
+        val = loss_of(name, yf)
+        return (val.detach(),) + torch.autograd.grad(val, (Y, P))
+
+    res, launches, walls = {}, {}, {}
+    for name, kind in AD_KIND.items():
+        wrapper = getattr(ops, "solve_" + kind)
+        for w in every:
+            w.launches = 0
+        t0 = time.perf_counter()
+        res[name] = grad(name)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        others = {w.__name__: w.launches for w in every
+                  if w is not wrapper and w.launches}
+        launches[name] = wrapper.launches
+        check(not others, f"adams routes: other kernels launched {others}")
+        check(launches[name] == 1, f"{name}: {wrapper.__name__} launched "
+              f"{launches[name]} times, expected 1")
+        check(all(bool(torch.isfinite(g).all()) for g in res[name][1:]),
+              f"{name}: a gradient is not finite")
+
+    # flat: central differences of B3 with params, two launches
+    y0, mus = inp["vdp"]
+    kw = dict(AD_VDP_TOL, max_steps=100_000)
+    yp, ym = (ops.solve_fused_adams(R["vdp"], SENS_VDP_SPAN, y0,
+                                    params=mus + s, **kw)
+              for s in (AD_FD_EPS, -AD_FD_EPS))
+    check(bool((yp[1] == 1).all() and (ym[1] == 1).all()),
+          "vdp: a central-difference run did not finish")
+    fd = (yp[0][:, 0] - ym[0][:, 0]) / (2 * AD_FD_EPS)
+    scale = max(fd.abs().max().item(), 1.0)
+    d_fd = (res["vdp"][2][:, 0] - fd).abs().max().item() / scale
+    print(f"adjoint SWAG flat, Van der Pol x{SENS_VDP_N} (k_max 6, dense "
+          f"{AD_VDP_DENSE}): launches of B3 {launches['vdp']}, loss "
+          f"{float(res['vdp'][0]):.6f}; dL/dmu vs central differences of B3 "
+          f"with params (eps {AD_FD_EPS:g}): max |d| / max(max |FD|, 1) "
+          f"{d_fd:.3e} (gate {AD_FD_GATE:.0e})")
+    check(d_fd <= AD_FD_GATE, "vdp: dL/dmu off central differences")
+
+    # grid: the closed form
+    _, D = inp["heat"]
+    T = AD_HEAT_SPAN[1]
+    lam = (2.0 * AD_HEAT_N * np.sin(np.pi / AD_HEAT_N)) ** 2
+    amps = torch.linspace(0.5, 1.5, AD_HEAT_M, device="cuda").double()
+    decay = torch.exp(-D[:, 0].double() * lam * T)
+    d_D = _scaled(res["heat"][2][:, 0].double(),
+                  -lam * T * amps * (AD_HEAT_N / 2) * decay)
+    d_y0 = _scaled(res["heat"][1].double(),
+                   decay[:, None] * w_heat.double()[None, :])
+    print(f"adjoint SWAG grid, heat x{AD_HEAT_M} (n {AD_HEAT_N}, k_max 6, "
+          f"dense {AD_HEAT_DENSE}): launches of B8 {launches['heat']}; "
+          f"against the semi-discrete closed form, over the largest entry: "
+          f"dL/dD {d_D:.3e}, dL/dy0 {d_y0:.3e} (gates "
+          f"{AD_CLOSED_GATES[0]:.0e}, {AD_CLOSED_GATES[1]:.1e})")
+    check(d_D <= AD_CLOSED_GATES[0] and d_y0 <= AD_CLOSED_GATES[1],
+          "heat: gradients off the closed form")
+
+    # the overflow: 3 rows a member, NaN gradients on both routes
+    for name in AD_KIND:
+        ovf = grad(name, dense=3, members=8)
+        nan_all = all(bool(torch.isnan(g).all()) for g in ovf[1:])
+        print(f"adams routes overflow [{name}] (dense 3, 8 members): every "
+              f"dL/dy0 and dL/dp NaN {nan_all}")
+        check(nan_all, f"{name} overflow: finite gradients")
+
+    # readings: the warm wall, the backward (attempts, ms an attempt, host
+    # syncs), the forward launches with and without the record, the bounds
+    out = {}
+    for name, kind in AD_KIND.items():
+        wrapper = getattr(ops, "solve_" + kind)
+        mod = FA if name == "vdp" else FAG
+        y0, p = inp[name]
+        tol = AD_TOL[name]
+        g_ms = wall_ms(lambda: grad(name), reps=3)
+        yf = ops.solve_fused_adjoint(
+            R[name], AD_SPAN[name], y0.clone().requires_grad_(True), p, SWAG,
+            tol["rtol"], tol["atol"], 100_000, None, AD_DENSE[name],
+            layout="grid" if name == "heat" else "flat", k_max=tol["k_max"])
+        _, n_sync, sec, _ = count_syncs(lambda: loss_of(name, yf).backward())
+        b = ops.solve_fused_adjoint.last_backward
+        att = int((b.nsteps + b.nfailed).max())
+        print(f"adams routes backward [{name}]: {sec * 1e3:.1f} ms wall, "
+              f"{att} attempts of the f64 driver ({b.y.shape[0]} members of "
+              f"{b.y.shape[1]} rows, {b.status.eq(1).all().item()} all "
+              f"finished), {sec * 1e3 / att:.3f} ms an attempt, {n_sync} "
+              f"host syncs ({n_sync / att:.2f} an attempt)")
+        fwd = wrapper(R[name], AD_SPAN[name], y0, params=p,
+                      max_steps=100_000, **tol)
+        shape = (ops.solve_fused_adams.last_shape if name == "vdp"
+                 else None)
+        builds = [mod._kernel(R[name], tol["k_max"], rec)
+                  for rec in (True, False)]
+        on_ms, rec = adams_launch_ms(kind, builds[0], R[name], y0, p,
+                                     AD_SPAN[name], tol, shape,
+                                     AD_DENSE[name])
+        off_ms, _ = adams_launch_ms(kind, builds[1], R[name], y0, p,
+                                    AD_SPAN[name], tol, shape, 0)
+        nb, n = y0.shape
+        rows = int(rec.n.sum())
+        rec_bytes = 4 * (rows * (2 * n + 1) + nb * (n + 1))
+        start_fev = int(adams_start(kind, R[name], y0, p, AD_SPAN[name],
+                                    tol)[2].sum())
+        if name == "vdp":
+            work = ops.solve_fused_adams.last_work.long().sum(0).tolist()
+            ops_ = adams_ops(n, RHS_OPS["vdp"], False, work,
+                             int(fwd[3].sum()) - start_fev)
+            by = 4 * nb * (3 * n + p.shape[1] + 10) + rec_bytes
+        else:
+            ops_ = adams_grid_ops(n, tol["k_max"], AD_HEAT_OPS,
+                                  int(fwd[3].sum()), int(fwd[2].sum()),
+                                  start_fev)
+            by = 4 * nb * (3 * n + p.shape[1] + 5) + rec_bytes
+        bound = bound_entry(by, ops_)
+        print(f"time [adams route {name}, {wrapper.__name__}] {nb} members: "
+              f"{g_ms:.3f} ms wall (value and gradient, median of 3; the "
+              f"first run {walls[name]:.3f} ms); the forward launch "
+              f"{on_ms:.4f} ms device with the record, {off_ms:.4f} ms "
+              f"without it (CUDA events, ten launches back to back); the "
+              f"record {rows} rows, {rec_bytes} bytes; bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); plain "
+              f"version {plain_s[kind] * 1e3:.1f} ms wall")
+        out[kind] = {
+            "launches_adams_routes": launches[name],
+            "max_abs_err_adams_routes": errs[kind],
+            "ms_adams_routes": g_ms,
+            "device_ms_adams_routes": on_ms,
+            "device_ms_adams_routes_no_record": off_ms,
+            "record_bytes_adams_routes": rec_bytes,
+            "plain_ms_adams_routes": plain_s[kind] * 1e3,
+            "bound_ms_adams_routes": bound["bound_ms"],
+            "bound_by_adams_routes": bound["bound_by"],
+            "backward_attempts_adams_routes": att,
+            "backward_ms_per_attempt_adams_routes": sec * 1e3 / att,
+            "backward_syncs_adams_routes": n_sync}
+    print(f"adams routes phase: {time.perf_counter() - start:.1f} s")
+    return out
+
+
 HOST_GATE = 1e-9
 HOST_GATES = {"pleiades-cfmr7osc": 1e-6, "kepler-fi5n": 1e-8,
               "swdec-ckdisc": 1e-8}
@@ -5459,7 +5835,8 @@ def main():
               + ckdisc_builds(ckdisc_rhs()) + mid_builds(mid_rhs())
               + sens_builds(sens_rhs()) + sens_grid_builds(sens_grid_rhs())
               + adjoint_builds(adjoint_rhs())
-              + adjoint_routes_builds(adjoint_routes_rhs()))
+              + adjoint_routes_builds(adjoint_routes_rhs())
+              + adams_routes_builds(adams_routes_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
@@ -5663,12 +6040,18 @@ def main():
     # 11d. the ESDIRK and RKN routes of the continuous adjoint: the dense
     # record on B2, B7, B5 and B6 and params on B5 and B6
     routes = adjoint_routes_path()
+
+    # 11e. the SWAG routes of the continuous adjoint: params and the dense
+    # record on B3 and B8
+    swag_routes = adams_routes_path()
     for entry in rkn + mid:
         entry.update({"fused_erk_grid": dict(grid_erk, **adj_grid),
                       "fused_esdirk_grid": grid_esdirk}.get(entry["name"],
                                                             {}))
         entry.update(routes.get(entry["name"], {}))
+        entry.update(swag_routes.get(entry["name"], {}))
     esdirk.update(routes["fused_esdirk"])
+    adams.update(swag_routes["fused_adams"])
 
     # 12. the host driver (solve_ivp, the Stepper), the sensitivities and
     # the front door ops.solve_fused over every kernel

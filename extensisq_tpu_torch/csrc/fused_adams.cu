@@ -40,6 +40,23 @@
 // (G = 32) over the SMs instead of 8 lockstep warps on 2 SMs, and 32,768
 // members one thread each.
 //
+// Per-member parameters (params, ops/fused_adams.py): with tab::NPAR = K >
+// 0 a member loads its K parameters into registers once, before its loop,
+// and the right-hand side takes them as a fourth argument
+// (member_rhs.cuh); with K = 0 the params pointer is never read.
+//
+// Dense output (dense=R): a build whose header sets tab::REC writes the end
+// (t, y, f) of each accepted step, and of the near-end extrapolation, to
+// its member's rows in device memory, rank 0 of a group as it writes the
+// results (dense_record.cuh).  As in the JAX kernel, the extrapolation is
+// a node at tf with the extrapolated y and the f of the step before it;
+// y is the high word in compensated mode; f0 is the starting state's
+// f(t0, y0) from the float32 stepper's init.  The writes sit beside the
+// arithmetic, which they leave as it is; without tab::REC the bodies are
+// called with no record and the kernels are those of the build before
+// dense output (the record build launches a kernel of its own,
+// fused_adams_record_kernel).
+//
 // Work counters: lane 0 writes five per member (Out::work): the attempts,
 // and over the attempts the sums of the order k (the predictor's rows),
 // of k where the step was accepted (the phi update's rows), of the
@@ -62,10 +79,12 @@
 //
 // The order, the state size, the Adams constants and the user's right-hand
 // side come from the generated header fused_adams_config.cuh:
-//   namespace tab { KM, N, INV_N, FOURU_T, LAND_TOL, GSTR(i), IQQ(i),
-//                   TWO(i) }
+//   namespace tab { KM, N, NPAR, REC, INV_N, FOURU_T, LAND_TOL, GSTR(i),
+//                   IQQ(i), TWO(i) }
 //   __device__ void rhs(float t, const float* y, float* dy);  (or the
-//   template rhs<T>, instantiated here as rhs<float>)
+//   template rhs<T>, instantiated here as rhs<float>; with NPAR = K > 0
+//   rhs(float t, const float* y, float* dy, const float* p), p the
+//   member's K parameters)
 //
 // Numerics (by line of the Pallas body, extensisq_tpu/ops/fused_adams.py):
 //  * time in double-single in both modes (:410, :622), the 4 2^-30 |t|
@@ -89,8 +108,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dense_record.cuh"
 #include "fused_adams_config.cuh"
 #include "adams_common.cuh"
+#include "member_rhs.cuh"
 #include "rk_common.cuh"
 
 namespace {
@@ -99,6 +120,8 @@ using tab::KM;
 using tab::N;
 using adams::clip;
 using adams::slots;
+using rk::Rec;
+using Rhs = MemberRhs<tab::NPAR>;
 
 constexpr int kRunning = 0;
 constexpr int kFinished = 1;
@@ -202,6 +225,36 @@ __device__ __forceinline__ void write_member(const Out& out, int member,
   o[4] = w.steps;
 }
 
+// The record of a body called with one (a build with tab::REC); a build
+// without it calls the bodies with none, so that its kernels take,
+// construct and pass nothing for it.
+__device__ __forceinline__ const Rec& the_record(const Rec& rec) {
+  return rec;
+}
+
+// Row `step` of the member's record: the step's end t, y and f.
+__device__ __forceinline__ void record_row(const Rec& rec, int member,
+                                           int step, float t,
+                                           const float (&y)[N],
+                                           const float (&yp)[N]) {
+  const size_t row = rec.row(member, step);
+  rec.t[row] = t;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    rec.y[row * N + j] = y[j];
+    rec.f[row * N + j] = yp[j];
+  }
+}
+
+// The member's f0 (its starting f) to the record.
+__device__ __forceinline__ void record_f0(const Rec& rec, int member,
+                                          const float (&yp)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    rec.f0[static_cast<size_t>(member) * N + j] = yp[j];
+  }
+}
+
 // ---- one lane: a thread per member ----
 
 // phi[i][j] for a run-time row i.
@@ -223,11 +276,13 @@ __device__ __forceinline__ void row_put(float (&phi)[R][N], int i, int j,
 // registers: the order k and the count ns are run-time indices, and every
 // take/put at one walks the static bound with a select (adams_common.cuh).
 // Arguments as for integrate below.
-template <bool COMP>
+template <bool COMP, class... Record>
 __device__ void integrate_thread(const float* __restrict__ y0,
-                                 const float* __restrict__ yp0, float h0,
+                                 const float* __restrict__ yp0,
+                                 const float* __restrict__ par, float h0,
                                  int nfev0, const Launch& L, int member,
-                                 const Out& out) {
+                                 const Out& out, const Record&... record) {
+  const Rhs fn(par);
   // the starting state (steppers/adams.py:init)
   float y[N], y_lo[N], yp[N];
   float phi[R][N];
@@ -275,7 +330,11 @@ __device__ void integrate_thread(const float* __restrict__ y0,
   int status = (all_finite(y) && all_finite(yp) && isfinite(h)) ? kRunning
                                                                   : kOverflow;
   int it = 0;
+  int nrec = 0;  // rows of the record written (tab::REC)
   Work work;
+  if constexpr (tab::REC) {
+    record_f0(the_record(record...), member, yp);
+  }
 
   while (status == kRunning && it < L.max_steps) {
     const float tc = t + t_lo;  // double-single time carry
@@ -295,6 +354,14 @@ __device__ void integrate_thread(const float* __restrict__ y0,
       }
       t = L.tf;
       t_lo = 0.0f;
+      // a node at tf with the f of the step before, while the attempts
+      // before this one are below the record's rows
+      if constexpr (tab::REC) {
+        if (it <= the_record(record...).rows) {
+          record_row(the_record(record...), member, nsteps, t, y, yp);
+          nrec += 1;
+        }
+      }
       nsteps += 1;
       status = kFinished;
       break;
@@ -362,7 +429,7 @@ __device__ void integrate_thread(const float* __restrict__ y0,
 
     const float x = tc + h_in;
     float yp_pred[N];
-    rhs(x, p, yp_pred);
+    fn(x, p, yp_pred);
     nfev += 1;
 
     float wtn[N], temp4[N], e0[N], e1[N], e2[N];
@@ -413,7 +480,7 @@ __device__ void integrate_thread(const float* __restrict__ y0,
           yc_lo[j] = y_lo[j];
         }
       }
-      rhs(x, yc, ypn);
+      fn(x, yc, ypn);
       nfev += 1;
       if (!all_finite(yc) || !all_finite(ypn)) {
         status = kOverflow;
@@ -494,6 +561,14 @@ __device__ void integrate_thread(const float* __restrict__ y0,
       phase1 = ph1;
       fresh = true;
       ifail = 0;
+      // the step's end at row nsteps of the record, while the attempts
+      // before this one are below its rows
+      if constexpr (tab::REC) {
+        if (it <= the_record(record...).rows) {
+          record_row(the_record(record...), member, nsteps, t, y, yp);
+          nrec += 1;
+        }
+      }
       nsteps += 1;
       if (is_last) status = kFinished;
     } else {
@@ -532,6 +607,7 @@ __device__ void integrate_thread(const float* __restrict__ y0,
   }
 
   write_member(out, member, y, status, nsteps, nfev, work);
+  if constexpr (tab::REC) the_record(record...).n[member] = nrec;
 }
 
 // ---- a group of G lanes per member ----
@@ -568,13 +644,17 @@ __device__ __forceinline__ void row_put(Group& grp, float (&phi)[RS][N],
 
 // The whole integration of one member by the group grp of G lanes
 // (rank(), shfl(v, src)).  y0, yp0 are the member's initial state and
-// f(t0, y0), h0 and nfev0 its starting step and evaluation count from the
-// float32 stepper's init, as in the JAX package.  Lane 0 writes the
-// results.
-template <int G, bool COMP, class Group>
+// f(t0, y0), par its tab::NPAR parameters (unread when there are none),
+// h0 and nfev0 its starting step and evaluation count from the float32
+// stepper's init, as in the JAX package.  Lane 0 writes the results, and
+// with tab::REC the member's record (the one Rec of `record`).
+template <int G, bool COMP, class Group, class... Record>
 __device__ void integrate(Group& grp, const float* __restrict__ y0,
-                          const float* __restrict__ yp0, float h0, int nfev0,
-                          const Launch& L, int member, const Out& out) {
+                          const float* __restrict__ yp0,
+                          const float* __restrict__ par, float h0, int nfev0,
+                          const Launch& L, int member, const Out& out,
+                          const Record&... record) {
+  const Rhs fn(par);
   using Coef = adams::LaneCoef<KM, G>;
   constexpr int S = Coef::S;
   constexpr int S1 = Coef::S1;
@@ -634,7 +714,11 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
   int status = (all_finite(y) && all_finite(yp) && isfinite(h)) ? kRunning
                                                                   : kOverflow;
   int it = 0;
+  int nrec = 0;  // rows of the record written (tab::REC)
   Work work;
+  if constexpr (tab::REC) {
+    if (rank == 0) record_f0(the_record(record...), member, yp);
+  }
 
   while (status == kRunning && it < L.max_steps) {
     const float tc = t + t_lo;  // double-single time carry
@@ -654,6 +738,16 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
       }
       t = L.tf;
       t_lo = 0.0f;
+      // a node at tf with the f of the step before, while the attempts
+      // before this one are below the record's rows
+      if constexpr (tab::REC) {
+        if (it <= the_record(record...).rows) {
+          if (rank == 0) {
+            record_row(the_record(record...), member, nsteps, t, y, yp);
+          }
+          nrec += 1;
+        }
+      }
       nsteps += 1;
       status = kFinished;
       break;
@@ -740,7 +834,7 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
 
     const float x = tc + h_in;
     float yp_pred[N];
-    rhs(x, p, yp_pred);
+    fn(x, p, yp_pred);
     nfev += 1;
 
     float wtn[N], temp4[N], e0[N], e1[N], e2[N];
@@ -794,7 +888,7 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
           yc_lo[j] = y_lo[j];
         }
       }
-      rhs(x, yc, ypn);
+      fn(x, yc, ypn);
       nfev += 1;
       if (!all_finite(yc) || !all_finite(ypn)) {
         status = kOverflow;
@@ -878,6 +972,16 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
       phase1 = ph1;
       fresh = true;
       ifail = 0;
+      // the step's end at row nsteps of the record, while the attempts
+      // before this one are below its rows
+      if constexpr (tab::REC) {
+        if (it <= the_record(record...).rows) {
+          if (rank == 0) {
+            record_row(the_record(record...), member, nsteps, t, y, yp);
+          }
+          nrec += 1;
+        }
+      }
       nsteps += 1;
       if (is_last) status = kFinished;
     } else {
@@ -923,6 +1027,7 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
 
   if (rank == 0) {
     write_member(out, member, y, status, nsteps, nfev, work);
+    if constexpr (tab::REC) the_record(record...).n[member] = nrec;
   }
 }
 
@@ -933,39 +1038,79 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
 
 namespace {
 
-template <int G, bool COMP>
-__global__ void fused_adams_kernel(const float* __restrict__ y0,
-                                   const float* __restrict__ yp0,
-                                   const float* __restrict__ h0,
-                                   const int* __restrict__ nfev0, Out out,
-                                   int B, int block_members, Launch L) {
+// The member of this thread's group from the kernel's arguments, with the
+// record where a build has one.
+template <int G, bool COMP, class... Record>
+__device__ __forceinline__ void member_body(const float* __restrict__ y0,
+                                            const float* __restrict__ par,
+                                            const float* __restrict__ yp0,
+                                            const float* __restrict__ h0,
+                                            const int* __restrict__ nfev0,
+                                            const Out& out, int B,
+                                            int block_members,
+                                            const Launch& L,
+                                            const Record&... record) {
   const int member =
       blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
   if (member >= B) return;  // ragged last block: no member padding
   const float* y0m = y0 + static_cast<size_t>(member) * N;
   const float* yp0m = yp0 + static_cast<size_t>(member) * N;
+  const float* parm = par + static_cast<size_t>(member) * tab::NPAR;
   if constexpr (G == 1) {
-    integrate_thread<COMP>(y0m, yp0m, h0[member], nfev0[member], L, member,
-                           out);
+    integrate_thread<COMP>(y0m, yp0m, parm, h0[member], nfev0[member], L,
+                           member, out, record...);
   } else {
     LaneGroup<G> grp;
-    integrate<G, COMP>(grp, y0m, yp0m, h0[member], nfev0[member], L, member,
-                       out);
+    integrate<G, COMP>(grp, y0m, yp0m, parm, h0[member], nfev0[member], L,
+                       member, out, record...);
   }
 }
 
+template <int G, bool COMP>
+__global__ void fused_adams_kernel(const float* __restrict__ y0,
+                                   const float* __restrict__ par,
+                                   const float* __restrict__ yp0,
+                                   const float* __restrict__ h0,
+                                   const int* __restrict__ nfev0, Out out,
+                                   int B, int block_members, Launch L) {
+  member_body<G, COMP>(y0, par, yp0, h0, nfev0, out, B, block_members, L);
+}
+
+// The kernel of a build with the dense record (tab::REC), which takes the
+// record; a build without it instantiates only fused_adams_kernel.
+template <int G, bool COMP>
+__global__ void fused_adams_record_kernel(const float* __restrict__ y0,
+                                          const float* __restrict__ par,
+                                          const float* __restrict__ yp0,
+                                          const float* __restrict__ h0,
+                                          const int* __restrict__ nfev0,
+                                          Out out, int B, int block_members,
+                                          Launch L, Rec rec) {
+  member_body<G, COMP>(y0, par, yp0, h0, nfev0, out, B, block_members, L,
+                       rec);
+}
+
 template <int G>
-int launch(const float* y0, const float* yp0, const float* h0,
-           const int* nfev0, const Out& out, int B, const Launch& L,
-           int compensated, int block_members, cudaStream_t s) {
+int launch(const float* y0, const float* par, const float* yp0,
+           const float* h0, const int* nfev0, const Out& out, int B,
+           const Launch& L, int compensated, int block_members,
+           const Rec& rec, cudaStream_t s) {
   const int blocks = (B + block_members - 1) / block_members;
   const int threads = block_members * G;
-  if (compensated) {
+  if constexpr (tab::REC) {
+    if (compensated) {
+      fused_adams_record_kernel<G, true><<<blocks, threads, 0, s>>>(
+          y0, par, yp0, h0, nfev0, out, B, block_members, L, rec);
+    } else {
+      fused_adams_record_kernel<G, false><<<blocks, threads, 0, s>>>(
+          y0, par, yp0, h0, nfev0, out, B, block_members, L, rec);
+    }
+  } else if (compensated) {
     fused_adams_kernel<G, true><<<blocks, threads, 0, s>>>(
-        y0, yp0, h0, nfev0, out, B, block_members, L);
+        y0, par, yp0, h0, nfev0, out, B, block_members, L);
   } else {
     fused_adams_kernel<G, false><<<blocks, threads, 0, s>>>(
-        y0, yp0, h0, nfev0, out, B, block_members, L);
+        y0, par, yp0, h0, nfev0, out, B, block_members, L);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -975,40 +1120,78 @@ int launch(const float* y0, const float* yp0, const float* h0,
 // Launches block_members members per block, `lanes` (1, 8, 16 or 32: the
 // counts the wrapper takes) threads per member, on the caller's stream and
 // returns cudaGetLastError() (cudaErrorInvalidValue for another lane
-// count); the wrapper raises on anything but 0.  yp0, h0 and nfev0 are each
+// count); the wrapper raises on anything but 0.  params is (B, tab::NPAR)
+// float32, row-major (null when NPAR is 0); yp0, h0 and nfev0 are each
 // member's f(t0, y0), starting step and evaluation count from the float32
 // stepper's init; work receives the five work counters of each member.
-extern "C" int fused_adams_launch(const void* y0, const void* yp0,
-                                  const void* h0, const void* nfev0,
-                                  void* y_out, void* status, void* nstep,
-                                  void* nfev, void* work, int B, float t0,
-                                  float tf, float dir, float rtol,
-                                  float atol, float max_step, int max_steps,
-                                  int compensated, int lanes,
-                                  int block_members, void* stream) {
+static int launch_lanes(const void* y0, const void* params, const void* yp0,
+                        const void* h0, const void* nfev0, void* y_out,
+                        void* status, void* nstep, void* nfev, void* work,
+                        int B, const Launch& L, int compensated, int lanes,
+                        int block_members, const Rec& rec, void* stream) {
   const float* y0f = static_cast<const float*>(y0);
+  const float* par = static_cast<const float*>(params);
   const float* yp0f = static_cast<const float*>(yp0);
   const float* h0f = static_cast<const float*>(h0);
   const int* nf0 = static_cast<const int*>(nfev0);
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev),
                 static_cast<int*>(work)};
-  const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (lanes) {
     case 1:
-      return launch<1>(y0f, yp0f, h0f, nf0, out, B, L, compensated,
-                       block_members, s);
+      return launch<1>(y0f, par, yp0f, h0f, nf0, out, B, L, compensated,
+                       block_members, rec, s);
     case 8:
-      return launch<8>(y0f, yp0f, h0f, nf0, out, B, L, compensated,
-                       block_members, s);
+      return launch<8>(y0f, par, yp0f, h0f, nf0, out, B, L, compensated,
+                       block_members, rec, s);
     case 16:
-      return launch<16>(y0f, yp0f, h0f, nf0, out, B, L, compensated,
-                        block_members, s);
+      return launch<16>(y0f, par, yp0f, h0f, nf0, out, B, L, compensated,
+                        block_members, rec, s);
     case 32:
-      return launch<32>(y0f, yp0f, h0f, nf0, out, B, L, compensated,
-                        block_members, s);
+      return launch<32>(y0f, par, yp0f, h0f, nf0, out, B, L, compensated,
+                        block_members, rec, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The launch of a build without dense output (cudaErrorInvalidValue for a
+// build with it: that one takes fused_adams_record_launch).
+extern "C" int fused_adams_launch(const void* y0, const void* params,
+                                  const void* yp0, const void* h0,
+                                  const void* nfev0, void* y_out,
+                                  void* status, void* nstep, void* nfev,
+                                  void* work, int B, float t0, float tf,
+                                  float dir, float rtol, float atol,
+                                  float max_step, int max_steps,
+                                  int compensated, int lanes,
+                                  int block_members, void* stream) {
+  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
+  return launch_lanes(y0, params, yp0, h0, nfev0, y_out, status, nstep, nfev,
+                      work, B, L, compensated, lanes, block_members, Rec{},
+                      stream);
+}
+
+// The launch of a build with dense output (tab::REC): as
+// fused_adams_launch, and each member writes its record (dense_record.cuh)
+// to rec_t (B, rows), rec_y and rec_f (B, rows, N), rec_f0 (B, N) and
+// rec_n (B,) int32.  cudaErrorInvalidValue for a build without it or
+// rows < 1.
+extern "C" int fused_adams_record_launch(
+    const void* y0, const void* params, const void* yp0, const void* h0,
+    const void* nfev0, void* y_out, void* status, void* nstep, void* nfev,
+    void* work, int B, float t0, float tf, float dir, float rtol, float atol,
+    float max_step, int max_steps, int compensated, int lanes,
+    int block_members, void* rec_t, void* rec_y, void* rec_f, void* rec_f0,
+    void* rec_n, int rows, void* stream) {
+  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  return launch_lanes(y0, params, yp0, h0, nfev0, y_out, status, nstep, nfev,
+                      work, B, L, compensated, lanes, block_members, rec,
+                      stream);
 }

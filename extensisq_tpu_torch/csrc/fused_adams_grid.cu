@@ -42,9 +42,26 @@
 // barriers, reductions and the scalar chain, not the card's flop or byte
 // rate; members run in parallel on the SMs (32 members use 32 of 132).
 //
+// Per-member parameters (params, ops/fused_adams_grid.py): with tab::NPAR
+// = K > 0 a member's K parameters are loaded once into its shared memory
+// (kPar, after its rows) before anything reads them, and the element
+// rhs(t, y, i, p) gets them as p; with K = 0 p is a null pointer, as
+// before, and the params pointer is never read.
+//
+// Dense output (dense=R): a build whose header sets tab::REC writes the end
+// (t, y, f) of each accepted step, and of the near-end extrapolation (a
+// node at tf with the extrapolated y and the f of the step before it, as
+// in the JAX kernel), to its member's rows in device memory
+// (dense_record.cuh): every thread the elements it commits, rank 0 the
+// time and the count of rows; f0 is the starting state's f(t0, y0) from
+// the float32 stepper's init.  The writes sit beside the arithmetic,
+// which they leave as it is; without tab::REC the body is called with no
+// record and the kernel is that of the build before dense output (the
+// record build launches a kernel of its own, fused_adams_grid_record_kernel).
+//
 // The generated header fused_adams_grid_config.cuh provides
-//   namespace tab { G = grid::Grid<N>, KM, N, INV_N, FOURU_T, LAND_TOL,
-//                   GSTR(i), IQQ(i), TWO(i) }
+//   namespace tab { G = grid::Grid<N>, KM, N, NPAR, REC, INV_N, FOURU_T,
+//                   LAND_TOL, GSTR(i), IQQ(i), TWO(i) }
 //   __device__ float rhs(float t, const float* y, int i, const float* p);
 // (or the template rhs<T>, called here on floats); neighbours come from
 // tab::G::rolled.
@@ -62,6 +79,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dense_record.cuh"
 #include "grid_common.cuh"
 #include "fused_adams_grid_config.cuh"
 #include "adams_common.cuh"
@@ -72,6 +90,7 @@ namespace {
 using tab::KM;
 using tab::N;
 using adams::clip;
+using rk::Rec;
 
 constexpr int kRunning = 0;
 constexpr int kFinished = 1;
@@ -89,7 +108,8 @@ constexpr int kFc = kYc + N;   // f at the corrected state
 constexpr int kT4 = kFc + N;   // temp4 = f(p) - phi[0]
 constexpr int kWt = kT4 + N;   // error weights
 constexpr int kPhi = kWt + N;  // phi rows, N each
-constexpr int kFloats = kPhi + R * N;
+constexpr int kPar = kPhi + R * N;  // the member's parameters, NPAR
+constexpr int kFloats = kPar + tab::NPAR;
 
 struct Launch {  // the launch's scalars, the same for every member
   float t0, tf, dir, rtol, atol, max_step;
@@ -137,19 +157,43 @@ __device__ __forceinline__ float member_norm(float sum) {
   return sqrtf(sum * tab::INV_N);
 }
 
+// The record of a body called with one (a build with tab::REC); a build
+// without it calls the body with none, so that its kernel takes,
+// constructs and passes nothing for it.
+__device__ __forceinline__ const Rec& the_record(const Rec& rec) {
+  return rec;
+}
+
+// Row `step` of the member's record and whether the member writes it: while
+// its attempts before this one (it - 1) are below the record's rows; none
+// without a record.
+struct RowAt {
+  bool write;
+  size_t row;
+};
+__device__ __forceinline__ RowAt row_at(int, int, int) { return {false, 0}; }
+__device__ __forceinline__ RowAt row_at(int member, int step, int it,
+                                        const Rec& rec) {
+  return {it <= rec.rows, rec.row(member, step)};
+}
+
 // The whole integration of one member by the group g (rank(), size(),
 // sync() and sums(v), the group's sums of the K values of v, every value
 // reduced in its own fixed order and the results held by every thread),
 // with the coefficient vectors spread over the W lanes of `lanes` (rank(),
 // shfl(v, src); W = 32 on the card, the lanes of a warp).  sm is the
 // member's shared memory (kFloats); y0, yp0 its initial state and f(t0,
-// y0), h0 and nfev0 its starting step and evaluation count from the
-// float32 stepper's init, as in the JAX package.
-template <int W, class Group, class Lanes>
+// y0), params every member's tab::NPAR parameters (unread when there are
+// none), h0 and nfev0 its starting step and evaluation count from the
+// float32 stepper's init, as in the JAX package; with tab::REC the
+// member's record is the one Rec of `record`.
+template <int W, class Group, class Lanes, class... Record>
 __device__ void integrate(Group& g, Lanes& lanes, float* sm,
                           const float* __restrict__ y0,
-                          const float* __restrict__ yp0, float h0, int nfev0,
-                          const Launch& L, int member, const Out& out) {
+                          const float* __restrict__ yp0,
+                          const float* __restrict__ params, float h0,
+                          int nfev0, const Launch& L, int member,
+                          const Out& out, const Record&... record) {
   using Coef = adams::LaneCoef<KM, W>;
   constexpr int S = Coef::S;
   constexpr int S1 = Coef::S1;
@@ -164,9 +208,16 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
   float* T4 = sm + kT4;
   float* Wt = sm + kWt;
   float* phi = sm + kPhi;
+  const float* par = tab::NPAR > 0 ? sm + kPar : nullptr;
 
-  // the starting state (steppers/adams.py:init); one reduction counts the
-  // elements that are not finite
+  // the starting state (steppers/adams.py:init) and the parameters; one
+  // reduction counts the elements that are not finite, and its barrier
+  // publishes the parameters
+  if constexpr (tab::NPAR > 0) {
+    for (int q = r0; q < tab::NPAR; q += nt) {
+      sm[kPar + q] = params[static_cast<size_t>(member) * tab::NPAR + q];
+    }
+  }
   float bad[1] = {0.0f};
   for (int i = r0; i < N; i += nt) {
     Y[i] = y0[i];
@@ -175,6 +226,9 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
 #pragma unroll
     for (int r = 1; r < R; ++r) phi[r * N + i] = 0.0f;
     bad[0] += (isfinite(Y[i]) && isfinite(Yp[i])) ? 0.0f : 1.0f;
+    if constexpr (tab::REC) {
+      the_record(record...).f0[static_cast<size_t>(member) * N + i] = Yp[i];
+    }
   }
   g.sums(bad);
   const bool start_ok = bad[0] == 0.0f && isfinite(h0);
@@ -212,6 +266,7 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
   int nfev = nfev0;
   int status = start_ok ? kRunning : kOverflow;
   int it = 0;
+  int nrec = 0;  // rows of the record written (tab::REC)
 
   while (status == kRunning && it < L.max_steps) {
     const float tc = t + t_lo;  // double-single time carry
@@ -219,10 +274,26 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
     const float d = (L.tf - t) - t_lo;  // remaining interval in DS
     it += 1;
     if (fabsf(d) <= min_step) {
-      // near-end linear extrapolation; counts as a step, evaluates nothing
-      for (int i = r0; i < N; i += nt) Y[i] = Y[i] + d * Yp[i];
+      // near-end linear extrapolation; counts as a step, evaluates nothing;
+      // a node of the record at tf with the f of the step before
+      const RowAt at = row_at(member, nsteps, it, record...);
+      for (int i = r0; i < N; i += nt) {
+        Y[i] = Y[i] + d * Yp[i];
+        if constexpr (tab::REC) {
+          if (at.write) {
+            the_record(record...).y[at.row * N + i] = Y[i];
+            the_record(record...).f[at.row * N + i] = Yp[i];
+          }
+        }
+      }
       t = L.tf;
       t_lo = 0.0f;
+      if constexpr (tab::REC) {
+        if (at.write) {
+          if (r0 == 0) the_record(record...).t[at.row] = t;
+          nrec += 1;
+        }
+      }
       nsteps += 1;
       status = kFinished;
       break;
@@ -286,7 +357,7 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
     const int r2 = clip(km2, 0, R - 1);
     float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
     for (int i = r0; i < N; i += nt) {
-      const float fp = rhs(x, P, i, nullptr);
+      const float fp = rhs(x, P, i, par);
       const float wt = L.atol + L.rtol * 0.5f * (fabsf(P[i]) + fabsf(Y[i]));
       const float inv_wt = 1.0f / wt;
       const float t4 = fp - phi[i];
@@ -331,7 +402,7 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
       g.sync();
       float acc2[2] = {0.0f, 0.0f};  // non-finite count, sum of squares
       for (int i = r0; i < N; i += nt) {
-        const float fc = rhs(x, Yc, i, nullptr);
+        const float fc = rhs(x, Yc, i, par);
         Fc[i] = fc;
         acc2[0] += (isfinite(Yc[i]) && isfinite(fc)) ? 0.0f : 1.0f;
         const float pkn = fc - phi[i];
@@ -394,9 +465,23 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
       const bool is_last = fabsf(rem) <= tab::LAND_TOL * fabsf(h_in);
       t = is_last ? L.tf : t_adv;
       t_lo = is_last ? 0.0f : t_lo_adv;
+      // the step's end at row nsteps of the record
+      const RowAt at = row_at(member, nsteps, it, record...);
       for (int i = r0; i < N; i += nt) {
         Y[i] = Yc[i];
         Yp[i] = Fc[i];
+        if constexpr (tab::REC) {
+          if (at.write) {
+            the_record(record...).y[at.row * N + i] = Y[i];
+            the_record(record...).f[at.row * N + i] = Yp[i];
+          }
+        }
+      }
+      if constexpr (tab::REC) {
+        if (at.write) {
+          if (r0 == 0) the_record(record...).t[at.row] = t;
+          nrec += 1;
+        }
       }
       h = isfinite(h_next) ? h_next : 1.0f;
       hold = h_in;
@@ -453,6 +538,7 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
     out.status[member] = status;
     out.nsteps[member] = nsteps;
     out.nfev[member] = nfev;
+    if constexpr (tab::REC) the_record(record...).n[member] = nrec;
   }
 }
 
@@ -467,20 +553,82 @@ namespace {
 // sums of up to kMaxSums values in one barrier
 constexpr int kMaxSums = 3;
 
-__global__ void __launch_bounds__(kMaxThreads)
-    fused_adams_grid_kernel(const float* __restrict__ y0,
-                            const float* __restrict__ yp0,
-                            const float* __restrict__ h0,
-                            const int* __restrict__ nfev0, Launch L,
-                            Out out) {
+// The member of this block from the kernel's arguments, with the record
+// where a build has one.
+template <class... Record>
+__device__ __forceinline__ void member_body(const float* __restrict__ y0,
+                                            const float* __restrict__ yp0,
+                                            const float* __restrict__ h0,
+                                            const int* __restrict__ nfev0,
+                                            const float* __restrict__ par,
+                                            const Launch& L, const Out& out,
+                                            const Record&... record) {
   extern __shared__ float sm[];
   __shared__ float red[2 * kMaxSums * 32];
   BlockGroupOf<kMaxSums> g{red};
   LaneGroup<32> lanes;
   const int m = blockIdx.x;
   const size_t off = static_cast<size_t>(m) * N;
-  integrate<32>(g, lanes, sm, y0 + off, yp0 + off, h0[m], nfev0[m], L, m,
-                out);
+  integrate<32>(g, lanes, sm, y0 + off, yp0 + off, par, h0[m], nfev0[m], L,
+                m, out, record...);
+}
+
+// The kernel of a build without the dense record; a build with it
+// instantiates only fused_adams_grid_record_kernel.
+template <int = 0>
+__global__ void __launch_bounds__(kMaxThreads)
+    fused_adams_grid_kernel(const float* __restrict__ y0,
+                            const float* __restrict__ yp0,
+                            const float* __restrict__ h0,
+                            const int* __restrict__ nfev0,
+                            const float* __restrict__ par, Launch L,
+                            Out out) {
+  member_body(y0, yp0, h0, nfev0, par, L, out);
+}
+
+// The kernel of a build with the dense record (tab::REC), which takes the
+// record; a build without it instantiates only fused_adams_grid_kernel.
+template <int = 0>
+__global__ void __launch_bounds__(kMaxThreads)
+    fused_adams_grid_record_kernel(const float* __restrict__ y0,
+                                   const float* __restrict__ yp0,
+                                   const float* __restrict__ h0,
+                                   const int* __restrict__ nfev0,
+                                   const float* __restrict__ par, Launch L,
+                                   Out out, Rec rec) {
+  member_body(y0, yp0, h0, nfev0, par, L, out, rec);
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only
+// after cudaFuncSetAttribute).
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// One block of `threads` per member on `st`, with the member's rows as
+// dynamic shared memory; the record kernel where RECORD (tab::REC: a
+// build instantiates one of the two).
+template <bool RECORD>
+int launch(int members, int threads, cudaStream_t st, const float* y0,
+           const float* yp0, const float* h0, const int* nfev0,
+           const float* par, const Launch& L, const Out& out,
+           const Rec& rec) {
+  const int bytes = static_cast<int>(kFloats * sizeof(float));
+  if constexpr (RECORD) {
+    const cudaError_t e = allow_smem(fused_adams_grid_record_kernel<>, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fused_adams_grid_record_kernel<><<<members, threads, bytes, st>>>(
+        y0, yp0, h0, nfev0, par, L, out, rec);
+  } else {
+    const cudaError_t e = allow_smem(fused_adams_grid_kernel<>, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fused_adams_grid_kernel<><<<members, threads, bytes, st>>>(
+        y0, yp0, h0, nfev0, par, L, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -497,31 +645,54 @@ extern "C" int fused_adams_grid_smem(int* need, int* limit) {
 
 // Launches one block of `threads` (a multiple of 32, at most kMaxThreads)
 // per member on the caller's stream, with the member's rows as dynamic
-// shared memory (above 48 KB after cudaFuncSetAttribute), and returns the
-// CUDA error code; the wrapper raises on anything but 0.  yp0, h0 and nfev0
-// are each member's f(t0, y0), starting step and evaluation count from the
-// float32 stepper's init.
+// shared memory, and returns the CUDA error code; the wrapper raises on
+// anything but 0.  yp0, h0 and nfev0 are each member's f(t0, y0), starting
+// step and evaluation count from the float32 stepper's init; params is (B,
+// tab::NPAR) float32, row-major (null when NPAR is 0).  A build with dense
+// output refuses (cudaErrorInvalidValue): it takes
+// fused_adams_grid_record_launch.
 extern "C" int fused_adams_grid_launch(const void* y0, const void* yp0,
                                        const void* h0, const void* nfev0,
-                                       void* y_out, void* status, void* nstep,
-                                       void* nfev, int members, float t0,
-                                       float tf, float dir, float rtol,
-                                       float atol, float max_step,
-                                       int max_steps, int threads,
-                                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                       const void* params, void* y_out,
+                                       void* status, void* nstep, void* nfev,
+                                       int members, float t0, float tf,
+                                       float dir, float rtol, float atol,
+                                       float max_step, int max_steps,
+                                       int threads, void* stream) {
+  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
-  const int bytes = static_cast<int>(kFloats * sizeof(float));
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_adams_grid_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  fused_adams_grid_kernel<<<members, threads, bytes, st>>>(
-      static_cast<const float*>(y0), static_cast<const float*>(yp0),
-      static_cast<const float*>(h0), static_cast<const int*>(nfev0), L, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<tab::REC>(members, threads, static_cast<cudaStream_t>(stream),
+                          static_cast<const float*>(y0),
+                          static_cast<const float*>(yp0),
+                          static_cast<const float*>(h0),
+                          static_cast<const int*>(nfev0),
+                          static_cast<const float*>(params), L, out, Rec{});
+}
+
+// The launch of a build with dense output (tab::REC): as
+// fused_adams_grid_launch, and each member writes its record
+// (dense_record.cuh) to rec_t (B, rows), rec_y and rec_f (B, rows, N),
+// rec_f0 (B, N) and rec_n (B,) int32.  cudaErrorInvalidValue for a build
+// without it or rows < 1.
+extern "C" int fused_adams_grid_record_launch(
+    const void* y0, const void* yp0, const void* h0, const void* nfev0,
+    const void* params, void* y_out, void* status, void* nstep, void* nfev,
+    int members, float t0, float tf, float dir, float rtol, float atol,
+    float max_step, int max_steps, int threads, void* rec_t, void* rec_y,
+    void* rec_f, void* rec_f0, void* rec_n, int rows, void* stream) {
+  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
+  const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
+                static_cast<int*>(nstep), static_cast<int*>(nfev)};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  return launch<tab::REC>(members, threads, static_cast<cudaStream_t>(stream),
+                          static_cast<const float*>(y0),
+                          static_cast<const float*>(yp0),
+                          static_cast<const float*>(h0),
+                          static_cast<const int*>(nfev0),
+                          static_cast<const float*>(params), L, out, rec);
 }

@@ -1,5 +1,6 @@
 // The user's right-hand side bound to one member's parameters, for the
-// register kernels B1 (fused_erk.cu) and B2 (fused_esdirk.cu).
+// register kernels B1 (fused_erk.cu), B2 (fused_esdirk.cu) and B3
+// (fused_adams.cu).
 //
 // The generated config header gives tab::NPAR, the number K of per-member
 // parameters, and the user's source.  With K = 0 the source defines

@@ -374,14 +374,16 @@ constexpr bool REC = {_flag(record)};
 """
 
 
-def fused_adams_header(k, rhs_src, shape=None):
+def fused_adams_header(k, rhs_src, shape=None, npar=0, record=False):
     """Text of ``fused_adams_config.cuh`` (or, for a member grid of extents
     ``shape``, of the mid-size kernel's ``fused_adams_grid_config.cuh``)
     for the constants ``k`` of ``ops.fused_adams._adams_consts`` (order
     bound ``KM``, state size ``N``, the Adams error constants ``gstr``,
     ``iqq`` and the ``2^(q+1)`` doubling table, rounded to float32 as the
-    JAX kernel rounds them) and the CUDA RHS source (``rhs(float t, ...)``
-    or the template ``rhs<T>``)."""
+    JAX kernel rounds them), the CUDA RHS source (``rhs(float t, ...)``
+    or the template ``rhs<T>``), its number of per-member parameters
+    ``npar`` and whether the build writes the dense record (``record``,
+    ``tab::REC``)."""
     accessors = "\n".join([_accessor("GSTR", k["gstr"]),
                            _accessor("IQQ", k["iqq"]),
                            _accessor("TWO", k["two"])])
@@ -395,6 +397,8 @@ def fused_adams_header(k, rhs_src, shape=None):
 namespace tab {{
 {grid}constexpr int KM = {k['km']};
 constexpr int N = {k['n']};
+constexpr int NPAR = {int(npar)};
+constexpr bool REC = {_flag(record)};
 constexpr float INV_N = {_f32(k['inv_n'])};
 constexpr float FOURU_T = {_f32(k['fouru_t'])};
 constexpr float LAND_TOL = {_f32(k['land_tol'])};
@@ -657,26 +661,32 @@ def load_fused_esdirk_grid(consts, shape, rhs_src, npar=0, nb=None,
     return built
 
 
-def load_fused_adams(consts, rhs_src):
+def load_fused_adams(consts, rhs_src, npar=0, record=False):
     """Build (at first use) and load the fused SWAG kernel for one
-    ``k_max``, state size and RHS, with each lane count per member the
-    wrapper takes; returns :class:`Built` with ``lib.fused_adams_launch``
-    bound."""
-    return load_kernel(
-        "fused_adams", fused_adams_header(consts, rhs_src),
-        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF,
-         _CF, _CF, _CF, _CI, _CI, _CI, _CI, _VP])
+    ``k_max``, state size, RHS, parameter count and dense-record switch,
+    with each lane count per member the wrapper takes; returns
+    :class:`Built` with ``lib.fused_adams_launch`` and
+    ``lib.fused_adams_record_launch`` bound (each refuses a build of the
+    other kind)."""
+    argtypes = [_VP] * 10 + [_CI, _CF, _CF, _CF, _CF, _CF, _CF, _CI, _CI,
+                             _CI, _CI, _VP]
+    return _bind_record(load_kernel(
+        "fused_adams",
+        fused_adams_header(consts, rhs_src, None, npar, record), argtypes),
+        "fused_adams", argtypes)
 
 
-def load_fused_adams_grid(consts, shape, rhs_src):
+def load_fused_adams_grid(consts, shape, rhs_src, npar=0, record=False):
     """Build (at first use) and load the mid-size SWAG kernel (B8) for one
-    ``k_max``, member grid and RHS; returns :class:`Built` with
-    ``lib.fused_adams_grid_launch`` and ``lib.fused_adams_grid_smem``
-    bound."""
-    built = load_kernel(
-        "fused_adams_grid", fused_adams_header(consts, rhs_src, shape),
-        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF,
-         _CF, _CF, _CI, _CI, _VP])
+    ``k_max``, member grid, RHS, parameter count and dense-record switch;
+    returns :class:`Built` with ``lib.fused_adams_grid_launch``,
+    ``lib.fused_adams_grid_record_launch`` and
+    ``lib.fused_adams_grid_smem`` bound."""
+    argtypes = [_VP] * 9 + [_CI, _CF, _CF, _CF, _CF, _CF, _CF, _CI, _CI, _VP]
+    built = _bind_record(load_kernel(
+        "fused_adams_grid",
+        fused_adams_header(consts, rhs_src, shape, npar, record), argtypes),
+        "fused_adams_grid", argtypes)
     smem = built.lib.fused_adams_grid_smem
     smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     smem.restype = ctypes.c_int

@@ -17,7 +17,15 @@ wrapper :func:`solve_fused_adams` takes it only for tensors on the CPU.
 As in the JAX package, each member's starting state (its starting step,
 ``f(t0, y0)`` and ``nfev``) comes from the float32 stepper's ``init``
 run outside the kernel, here as torch operations on the device of
-``y0``.
+``y0``; with per-member ``params`` the init runs on the function with
+every member's parameters bound, on the whole batch at once.
+
+``dense=R`` records each member's accepted steps for a continuous dense
+output (``ops/fused_dense.py``), as JAX's SWAG kernels record them: the
+end ``(t, y, f)`` of each accepted step, and the near-end extrapolation as
+a node at ``tf`` with the extrapolated ``y`` and the ``f`` of the step
+before it; ``f0`` is the starting state's ``f(t0, y0)``; in compensated
+mode the rows hold the high word of ``y``.
 
 What both compute per attempt (the JAX kernel's semantics): the ns reset
 on ``h != hold``, the coefficient update, the predictor (with a
@@ -45,7 +53,9 @@ from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW
 from .._device import as_input
 from ..steppers.adams import AdamsStepper, _GSTR, _put, _rows, _take
 from ..types import IVPParams
-from .fused_erk import FusedRHS, _df_add, _launch_shape, _two_sum
+from .fused_erk import (DenseRecord, FusedRHS, _Record, _df_add,
+                        _launch_shape, _two_sum, bind_params, check_options,
+                        dense_rows, member_params)
 
 _EPS32 = float(np.finfo(np.float32).eps)
 # the double-single t carry resolves ~2^-46, so the minimum step is
@@ -106,7 +116,8 @@ def _member_norm(x):
 
 def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
                           first_step=None, k_max=12, max_steps=200_000,
-                          compensated=False, max_step=None, work=None):
+                          compensated=False, max_step=None, params=None,
+                          dense=None, work=None):
     """The plain PyTorch version of the fused SWAG kernel, on the device of
     ``y0_batch``.
 
@@ -114,8 +125,11 @@ def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     iteration is one attempt (or the near-end extrapolation) of every
     running member, and the loop ends once no member is RUNNING or after
     ``max_steps`` iterations.  ``fun`` is a :class:`FusedRHS` or a
-    rows-first torch function.  Returns ``(y (B, n), status (B,), nsteps
-    (B,), nfev (B,))`` like :func:`solve_fused_adams`.
+    rows-first torch function, called as ``fun(t, y, p)`` where
+    ``params`` (B, k) is given.  Returns ``(y (B, n), status (B,), nsteps
+    (B,), nfev (B,))`` like :func:`solve_fused_adams`, and with
+    ``dense=R`` the members' :class:`~.fused_dense.FusedDenseSolution` as
+    a fifth output, from the rows the kernel writes.
 
     ``work``, a (B, 5) integer tensor, receives the kernel's work counters
     of each member: its attempts, and over them the sums of the order k,
@@ -123,20 +137,22 @@ def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     (k - ns where k >= ns) and of the element steps of the v update and
     the g loop (k - ns + 1 where ns > 1, plus (k - ns) (k - ns + 1) / 2).
     """
-    if isinstance(fun, FusedRHS):
-        fun = fun.torch_fn
-    return run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step,
+    y0 = torch.as_tensor(y0_batch)
+    fun = bind_params(fun, member_params(params, y0, fun))
+    return run_adams_loop(fun, t_span, y0, rtol, atol, first_step,
                           k_max, max_steps, compensated, max_step,
-                          _member_norm, work)
+                          _member_norm, work, dense)
 
 
 def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
-                   max_steps, compensated, max_step, member_norm, work=None):
-    """The fused SWAG loop on the rows-first torch function ``fun``, shared
-    by the plain versions of B3 and B8; ``member_norm`` maps ``(n, B)`` to
-    the members' RMS norms in the order of the kernel's sums, and ``work``
-    (None or (B, 5)) receives the work counters of
-    :func:`fused_adams_reference`."""
+                   max_steps, compensated, max_step, member_norm, work=None,
+                   dense=None):
+    """The fused SWAG loop on the rows-first torch function ``fun`` (the
+    members' parameters bound), shared by the plain versions of B3 and B8;
+    ``member_norm`` maps ``(n, B)`` to the members' RMS norms in the order
+    of the kernel's sums, ``work`` (None or (B, 5)) receives the work
+    counters of :func:`fused_adams_reference`, and ``dense=R`` adds the
+    dense output of the rows the kernels record as a fifth output."""
     km = int(k_max)
     y = torch.as_tensor(y0_batch).to(torch.float32).T.contiguous()
     n, nb = y.shape
@@ -174,6 +190,8 @@ def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
 
     if work is not None:
         counts = torch.zeros(_WORK, nb, dtype=torch.int64, device=dev)
+    rows = dense_rows(dense)
+    rec = _Record(y, yp, rows) if rows else None
     it = 0
     while it < max_steps:
         running = status == RUNNING
@@ -347,6 +365,12 @@ def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
         status3 = torch.where((status2 == RUNNING) & (is_last | extrap),
                               FINISHED, status2)
         status3 = torch.where(bad_y, OVERFLOW, status3)
+        if rec is not None and it < rec.rows:
+            # the step's end, or the extrapolation's node at tf with the
+            # f of the step before it
+            rec.write(ok_any, nsteps, torch.where(extrap, tf, t_new),
+                      torch.where(extrap, y_ext, y_corr),
+                      torch.where(ok, yp_new, yp))
         it += 1
         status3 = i32(torch.where((status3 == RUNNING) & (it >= max_steps),
                                   OVERFLOW, status3))
@@ -394,7 +418,10 @@ def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
     if work is not None:
         work.copy_(counts.T)
 
-    return y.T.contiguous(), status, nsteps, nfev
+    out = (y.T.contiguous(), status, nsteps, nfev)
+    if rec is None:
+        return out
+    return out + (rec.solution(t_span, nsteps),)
 
 
 # threads per SM at which the member sweep ran fastest at every ensemble
@@ -435,12 +462,14 @@ def _lanes_per_member(B, sm_count, k_max):
     return 8 if int(k_max) >= 8 and 8 * int(B) <= 2 * budget else 1
 
 
-def _kernel(fun, km):
-    """The kernel built for one FusedRHS and k_max."""
+def _kernel(fun, km, record=False):
+    """The kernel built for one FusedRHS and k_max, with the dense record
+    where ``record`` (a build of its own)."""
     from . import _build
     return _build.cached("fused_adams", (fun,),
                          lambda: _build.load_fused_adams(
-                             _adams_consts(km, fun.n), fun.cuda_src), km)
+                             _adams_consts(km, fun.n), fun.cuda_src, fun.k,
+                             record), (km, bool(record)))
 
 
 def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
@@ -454,7 +483,14 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     status (B,), nsteps (B,), nfev (B,))`` with status 1 = finished, 2 =
     step size underflow, 3 = overflow or step cap (``max_steps`` counts
     loop iterations, accepted plus rejected).  ``k_max`` (1 to 12) caps
-    the order; ``max_step`` caps |h|.  Backward spans work.
+    the order; ``max_step`` caps |h|.  Backward spans work.  ``dense=R``
+    (R >= 1; None or 0: off) adds a fifth output, the members' continuous
+    dense output (:class:`~.fused_dense.FusedDenseSolution`), from the end
+    ``(t, y, f)`` of each accepted step and the near-end extrapolation's
+    node that the kernel records while a member's attempts are below R
+    (``valid[b]`` False where more were needed; see the module
+    docstring); the record leaves the other four outputs bit for bit as
+    they are without it.
 
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.
@@ -469,14 +505,12 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     tensor it runs :func:`fused_adams_reference`, with a
     :class:`FusedRHS` or a plain rows-first torch function.
 
-    ``t_eval``, ``events``, ``params`` and ``dense`` are not ported yet.
+    ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
+    them as its third argument (see :class:`FusedRHS`, whose ``k`` must
+    agree), the members' starting state included.  ``t_eval`` and
+    ``events`` are not ported yet.
     """
-    for name, value in (("t_eval", t_eval), ("events", events),
-                        ("params", params), ("dense", dense)):
-        if value is not None:
-            raise NotImplementedError(
-                f"solve_fused_adams({name}=...) is not ported yet: ROADMAP "
-                "queue B, item B3 (remaining options)")
+    check_options("solve_fused_adams", "B3", t_eval=t_eval, events=events)
     y0 = as_input(y0_batch, torch.float32)
     if y0.ndim != 2 or y0.shape[1] > 8:
         raise ValueError("fused SWAG takes y0_batch of shape (B, n) with "
@@ -484,12 +518,34 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     km = int(k_max)
     if not 0 < km < 13:
         raise ValueError("`k_max` should be an integer between 1 and 12.")
+    params = member_params(params, y0, fun)
     if y0.device.type != "cuda":
         return fused_adams_reference(
             fun, t_span, y0, rtol=rtol, atol=atol, first_step=first_step,
             k_max=km, max_steps=max_steps, compensated=compensated,
-            max_step=max_step)
+            max_step=max_step, params=params, dense=dense)
 
+    out, shape, work = _launch(fun, t_span, y0, rtol, atol, first_step, km,
+                               max_steps, compensated, max_step, None,
+                               block_members, params, dense)
+    if y0.shape[0]:
+        solve_fused_adams.launches += 1
+    solve_fused_adams.last_shape = shape
+    solve_fused_adams.last_work = work
+    return out
+
+
+def _launch(fun, t_span, y0, rtol, atol, first_step, k_max, max_steps,
+            compensated, max_step, lanes, block_members=None, params=None,
+            dense=None):
+    """B3 on the card for the CUDA tensor ``y0`` (and the members'
+    ``params``, checked by ``member_params``): ``lanes`` lanes per member
+    (None: :func:`_lanes_per_member`'s) and ``block_members`` members per
+    block (None: 128 / lanes), with the dense record of ``dense`` rows a
+    member (the build with it) where given.  Returns the outputs (with the
+    :class:`~.fused_dense.FusedDenseSolution` fifth), the ``(lanes,
+    block_members)`` taken and the (B, 5) work counters; an empty batch
+    launches nothing."""
     if not isinstance(fun, FusedRHS):
         raise TypeError("solve_fused_adams on a CUDA tensor needs a "
                         "FusedRHS (a CUDA source of the right-hand side); "
@@ -500,42 +556,52 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
                          f"{tuple(y0.shape)}")
     if y0.dtype != torch.float32:
         raise TypeError(f"y0_batch must be float32, got {y0.dtype}")
-    lanes = _lanes_per_member(nb, torch.cuda.get_device_properties(
-        y0.device).multi_processor_count, km)
+    params = member_params(params, y0, fun)
+    if params is not None and not params.is_contiguous():
+        raise ValueError("params must be contiguous")
+    if lanes is None:
+        lanes = _lanes_per_member(nb, torch.cuda.get_device_properties(
+            y0.device).multi_processor_count, k_max)
     block_members, _, _ = _launch_shape(nb, lanes, block_members)
     y0 = y0.contiguous()
+    rows = dense_rows(dense)
 
-    built = _kernel(fun, km)
+    built = _kernel(fun, k_max, rows > 0)
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     work = torch.empty(nb, _WORK, dtype=torch.int32, device=y0.device)
+    shape = (lanes, block_members)
+    rec = DenseRecord(y0, rows)
+    out = (y_out, status, nsteps, nfev)
     if nb == 0:
-        return y_out, status, nsteps, nfev
+        return rec.outputs(out, t_span, y0), shape, work
     # the starting state, outside the kernel as in the JAX package
-    _, s0, direction = _host_init(fun.torch_fn, t_span, y0.T, rtol, atol,
-                                  first_step, km, max_step)
+    _, s0, direction = _host_init(bind_params(fun, params), t_span, y0.T,
+                                  rtol, atol, first_step, k_max, max_step)
     yp0 = s0.yp.T.contiguous()
     h0 = s0.h.contiguous()
     nfev0 = s0.nfev.contiguous()
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
-        rc = built.lib.fused_adams_launch(
-            y0.data_ptr(), yp0.data_ptr(), h0.data_ptr(),
-            nfev0.data_ptr(), y_out.data_ptr(), status.data_ptr(),
-            nsteps.data_ptr(), nfev.data_ptr(), work.data_ptr(), nb,
-            _f32(t_span[0]),
-            _f32(t_span[1]), direction, _f32(rtol), _f32(atol),
-            np.inf if max_step is None else _f32(max_step), int(max_steps),
-            int(bool(compensated)), lanes, block_members, stream)
+        args = (y0.data_ptr(), None if params is None else params.data_ptr(),
+                yp0.data_ptr(), h0.data_ptr(), nfev0.data_ptr(),
+                y_out.data_ptr(), status.data_ptr(), nsteps.data_ptr(),
+                nfev.data_ptr(), work.data_ptr(), nb, _f32(t_span[0]),
+                _f32(t_span[1]), direction, _f32(rtol), _f32(atol),
+                np.inf if max_step is None else _f32(max_step),
+                int(max_steps), int(bool(compensated)), lanes,
+                block_members)
+        if rows:
+            rc = built.lib.fused_adams_record_launch(*args, *rec.args(),
+                                                     stream)
+        else:
+            rc = built.lib.fused_adams_launch(*args, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_adams kernel launch failed: CUDA error {rc}")
-    solve_fused_adams.launches += 1
-    solve_fused_adams.last_shape = (lanes, block_members)
-    solve_fused_adams.last_work = work
-    return y_out, status, nsteps, nfev
+    return rec.outputs(out, t_span, y0), shape, work
 
 
 # kernel launches since the count was last set to 0 (the plain version on

@@ -1,20 +1,23 @@
 """Continuous dense output from the fused kernels.
 
 Counterpart of ``extensisq_tpu/ops/fused_dense.py``.  With ``dense=R`` the
-explicit kernels B1 (``ops/fused_erk.py``) and B4
-(``ops/fused_erk_grid.py``) record the end ``(t, y, f)`` of each accepted
-step of a member, and ``f0 = f(t0, y0)``
-(``csrc/dense_record.cuh``).  JAX's kernels write one row per iteration of
-a tile's lockstep loop, a sentinel time marking the members that did not
-accept, and :func:`build_fused_dense` compacts them member by member.  A
-member attempts once in every iteration while it runs, so that iteration
-is its own attempt count: the port's kernels and plain versions write an
-accepted step at the row of the member's count of accepted steps before
-it while its attempt count is below R, so the rows arrive compacted, with
-the count of rows written (:func:`record_solution` flags them for
-:func:`build_fused_dense`).  A member whose loop needed more than R
-attempts for its accepted steps gets ``valid[b] = False``; its recorded
-prefix is still exact.  Size R at ~1.3x the expected attempts.
+fused kernels B1-B8 (``ops/fused_erk.py`` and the other ``ops/fused_*``
+wrappers) record the end ``(t, y, f)`` of each accepted step of a member,
+and ``f0 = f(t0, y0)`` (``csrc/dense_record.cuh``).  JAX's kernels write
+one row per iteration of a tile's lockstep loop, a sentinel time marking
+the members that did not accept, and :func:`build_fused_dense` compacts
+them member by member.  A member attempts once in every iteration while
+it runs, so that iteration is its own attempt count: the port's kernels
+and plain versions write an accepted step at the row of the member's
+count of accepted steps before it while its attempt count is below R, so
+the rows arrive compacted, with the count of rows written
+(:func:`record_solution` flags them for :func:`build_fused_dense`).  The
+SWAG kernels (B3, B8) also record their near-end extrapolation, as a node
+at ``tf`` with the ``f`` of the step before it, and take ``f0`` from the
+starting state of the float32 stepper's init, as JAX's do.  A member
+whose loop needed more than R attempts for its accepted steps gets
+``valid[b] = False``; its recorded prefix is still exact.  Size R at ~1.3x
+the expected attempts.
 
 The segments are cubic Hermite in the unified anchor form of
 ``core.interpolate.OdeSolution``; past the last node the inert tail (the

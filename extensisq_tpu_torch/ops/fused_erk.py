@@ -624,7 +624,7 @@ def dense_rows(dense):
 
 
 class DenseRecord:
-    """The arrays a dense-output launch of B1 or B4 writes
+    """The arrays a dense-output launch of B1-B8 writes
     (``csrc/dense_record.cuh``) for the CUDA tensor ``y0`` ``(B, n)`` at
     ``rows`` a member (none for 0)."""
 

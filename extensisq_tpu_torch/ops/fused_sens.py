@@ -22,11 +22,11 @@ Counterpart of ``extensisq_tpu/ops/fused_sens.py``:
   over the whole ensemble costs two launches.
 * :func:`solve_fused_adjoint` is the same function through the continuous
   adjoint, whose cost does not grow with the parameter count: the forward
-  pass is one launch of B1, B2 or B5 (or, with ``layout="grid"``, of B4,
-  B7 or B6), by the method's family, that records each member's accepted
-  steps (``dense=R``, ``ops/fused_dense.py``), the backward pass one f64
-  ``solve_ensemble`` of every member's (n + k)-row adjoint against that
-  dense output.
+  pass is one launch of B1, B2, B5 or B3 (or, with ``layout="grid"``, of
+  B4, B7, B6 or B8), by the method's family, that records each member's
+  accepted steps (``dense=R``, ``ops/fused_dense.py``), the backward pass
+  one f64 ``solve_ensemble`` of every member's (n + k)-row adjoint against
+  that dense output.
 
 The user's right-hand side of the flat layout is a
 :class:`~extensisq_tpu_torch.ops.FusedRHS` whose ``torch_fn(t, y, p)`` is
@@ -53,6 +53,8 @@ import numpy as np
 import torch
 
 from .._device import as_input
+from .fused_adams import solve_fused_adams
+from .fused_adams_grid import solve_fused_adams_grid
 from .fused_dense import evaluate_members
 from .fused_erk import (FusedRHS, bind_params, dense_rows, member_params,
                         solve_fused_erk)
@@ -392,8 +394,8 @@ def solve_fused_final(fun, t_span, y0_batch, params, method=None,
 
 
 def _adjoint_family(method):
-    """The family of the forward solve: JAX's four, of which the port has
-    the ERK, ESDIRK and RKN routes so far."""
+    """The family of the forward solve: JAX's four, ERK, ESDIRK, RKN and
+    Adams (SWAG)."""
     if method is None:
         return "erk"
     fam = getattr(method, "family", None)
@@ -402,23 +404,27 @@ def _adjoint_family(method):
             f"solve_fused_adjoint supports erk/esdirk/rkn/adams methods, not "
             f"family {fam!r}; use sensitivity.sens_adjoint_end for the "
             "others")
-    if fam == "adams":
-        raise NotImplementedError(
-            "solve_fused_adjoint's adams route is not ported yet: it needs "
-            "params and dense=R on B3 and B8 and a static t_span (ROADMAP "
-            "queue B, step 3; A16)")
     return fam
 
 
-def _adjoint_solver(family, grid):
+def _adjoint_solver(family, grid, k_max=12):
     """The forward solver of a family and layout (JAX's
-    ``_adjoint_solver``)."""
+    ``_adjoint_solver``): the SWAG kernels take no ``method`` and take
+    ``k_max``."""
+    if family == "adams":
+        base = solve_fused_adams_grid if grid else solve_fused_adams
+        return functools.partial(_adams_forward, base, k_max)
     return {("erk", False): solve_fused_erk,
             ("erk", True): solve_fused_erk_grid,
             ("esdirk", False): solve_fused_esdirk,
             ("esdirk", True): solve_fused_esdirk_grid,
             ("rkn", False): solve_fused_rkn,
             ("rkn", True): solve_fused_rkn_grid}[family, grid]
+
+
+def _adams_forward(base, k_max, *args, method=None, **kw):
+    """``base`` (B3's or B8's wrapper) at ``k_max``, without ``method``."""
+    return base(*args, k_max=k_max, **kw)
 
 
 def _torch_fn(fun, rkn=False):
@@ -458,7 +464,8 @@ class _FusedAdjoint(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, t0, tf, y0, params):
         span = (float(t0), float(tf))
-        solver = _adjoint_solver(cfg["family"], cfg["layout"] == "grid")
+        solver = _adjoint_solver(cfg["family"], cfg["layout"] == "grid",
+                                 cfg["k_max"])
         out = solver(cfg["fun"], span, y0, method=cfg["method"],
                      params=params, dense=cfg["dense"], **cfg["kw"])
         ctx.cfg = cfg
@@ -508,6 +515,11 @@ class _FusedAdjoint(torch.autograd.Function):
         guard = torch.where(ok, 1.0, torch.nan).to(f64)[:, None]
         mu0 = bw.y[:, :n] * guard
         dp = -bw.y[:, n:] * guard
+        p_bar = None if params is None else dp.to(params.dtype)
+        if cfg["family"] == "adams":
+            # a static t_span: no gradient of its ends (JAX's
+            # _fused_adjoint_static_t)
+            return None, None, None, mu0.to(y0.dtype), p_bar
         # t_span: dL/dtf = sum_b ct_b . f(tf, yf_b); dL/dt0 = -sum_b mu0_b .
         # f(t0, y0_b)
         f_tf = _eval(fn, tf, y_f, params, grid).to(f64)
@@ -515,8 +527,7 @@ class _FusedAdjoint(torch.autograd.Function):
         dtf = (ct64 * f_tf).sum()
         dt0 = -(mu0 * f_t0).sum()
         return (None, dt0.reshape(t0.shape).to(t0.dtype),
-                dtf.reshape(tf.shape).to(tf.dtype), mu0.to(y0.dtype),
-                None if params is None else dp.to(params.dtype))
+                dtf.reshape(tf.shape).to(tf.dtype), mu0.to(y0.dtype), p_bar)
 
 
 def solve_fused_adjoint(fun, t_span, y0_batch, params, method=None,
@@ -529,10 +540,11 @@ def solve_fused_adjoint(fun, t_span, y0_batch, params, method=None,
     ``interpret``).
 
     The forward pass is one launch, by the family of ``method``, of B1,
-    B2 or B5 (``layout="flat"``, ``fun`` a :class:`FusedRHS`, or for an
-    RKN method a :class:`FusedAcc`, or a rows-first torch function) or of
-    B4, B7 or B6 (``"grid"``, a ``FusedGridRHS`` or ``FusedGridAcc``; see
-    :func:`solve_fused_sens`) with ``params`` (B, k) or None; where an
+    B2, B5 or B3 (``layout="flat"``, ``fun`` a :class:`FusedRHS`, or for
+    an RKN method a :class:`FusedAcc`, or a rows-first torch function) or
+    of B4, B7, B6 or B8 (``"grid"``, a ``FusedGridRHS`` or
+    ``FusedGridAcc``; see :func:`solve_fused_sens`) with ``params`` (B, k)
+    or None; where an
     input requires a gradient it records each member's accepted steps
     (``dense`` rows, at least 1), and ``y(t_f)`` is bit for bit the
     forward's without the record.  For an RKN method ``fun`` is the
@@ -550,9 +562,13 @@ def solve_fused_adjoint(fun, t_span, y0_batch, params, method=None,
     gradients.  Gradients reach ``t_span``'s tensor ends, ``y0_batch`` and
     ``params``, accurate to the tolerances.
 
-    The ERK (``method`` None: BS5), ESDIRK and RKN families are ported;
-    the SWAG route raises ``NotImplementedError`` (ROADMAP queue B), other
-    families ``ValueError``.  ``k_max`` (SWAG) is accepted and unused.
+    The families are JAX's: ERK (``method`` None: BS5), ESDIRK, RKN and
+    SWAG (``method=SWAG``: B3 or B8 at ``k_max``, 1 to 12, which bounds
+    the order); others raise ``ValueError``.  The SWAG route takes a
+    static ``t_span``, as in JAX (its kernels' starting state is computed
+    for the horizon outside them): floats or tensors that need no
+    gradient, read with ``float()``; an end that requires a gradient
+    raises ``ValueError``, and the route gives no gradient of the ends.
     The last backward pass's ``Solution`` (its counters) is left in
     ``solve_fused_adjoint.last_backward``.
     """
@@ -565,13 +581,21 @@ def solve_fused_adjoint(fun, t_span, y0_batch, params, method=None,
     if params is not None and not isinstance(params, torch.Tensor):
         params = torch.as_tensor(np.asarray(params, np.float32),
                                  device=y0.device)
+    if family == "adams":
+        if any(isinstance(x, torch.Tensor) and x.requires_grad
+               for x in t_span):
+            raise ValueError(
+                "the Adams/SWAG fused adjoint needs a static t_span (floats, "
+                "or tensors that need no gradient): the multistep start "
+                "bakes the horizon in")
+        t_span = tuple(float(x) for x in t_span)
     t0, tf = (x if isinstance(x, torch.Tensor) else
               torch.tensor(float(x), dtype=torch.float32, device=y0.device)
               for x in t_span)
     wanted = torch.is_grad_enabled() and any(
         x is not None and x.requires_grad for x in (t0, tf, y0, params))
     cfg = dict(fun=fun, method=method, family=family, layout=layout,
-               dense=dense_rows(dense) if wanted else None,
+               k_max=k_max, dense=dense_rows(dense) if wanted else None,
                bw_method=bw_method,
                bw_rtol=rtol if bw_rtol is None else bw_rtol,
                bw_atol=atol if bw_atol is None else bw_atol,

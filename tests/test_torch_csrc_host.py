@@ -34,6 +34,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import test_torch_fused_adams as TA  # noqa: E402
 import test_torch_fused_adams_grid as TAG  # noqa: E402
+import test_torch_fused_adams_routes as TAR  # noqa: E402
 import test_torch_fused_ckdisc as TC  # noqa: E402
 import test_torch_fused_dense_routes as TDR  # noqa: E402
 import test_torch_fused_esdirk as T  # noqa: E402
@@ -275,10 +276,12 @@ RKN_LAUNCH = _with_record(_small_launch("fused_rkn"), False)
 # runs until its next shfl and hands over to the next lane (an x86-64 stack
 # switch), so every lane sees the others' values at each shuffle and a
 # wrong split of rows or coefficients over the lanes shows on the host.
-# The CUDA group and kernel after the marker are left out.
+# The CUDA group and kernel after the marker are left out.  The members'
+# parameters are (B, tab::NPAR), row-major; a build with the dense record
+# takes its arrays and rows before the lane count.
 ADAMS_LAUNCH = COROUTINES + r"""
 struct HostMember {
-  const float *y0, *yp0;
+  const float *y0, *yp0, *par;
   float h0;
   int nfev0;
   Launch L;
@@ -287,25 +290,30 @@ struct HostMember {
   int comp;
 };
 static HostMember g_member;
+REC_GLOBAL
 
 template <int G>
 static void lane_body(int rank) {
   HostLanes lane{rank};
   const HostMember& a = g_member;
   if (a.comp) {
-    integrate<G, true>(lane, a.y0, a.yp0, a.h0, a.nfev0, a.L, a.m, a.out);
+    integrate<G, true>(lane, a.y0, a.yp0, a.par, a.h0, a.nfev0, a.L, a.m,
+                       a.out REC_ARG);
   } else {
-    integrate<G, false>(lane, a.y0, a.yp0, a.h0, a.nfev0, a.L, a.m, a.out);
+    integrate<G, false>(lane, a.y0, a.yp0, a.par, a.h0, a.nfev0, a.L, a.m,
+                        a.out REC_ARG);
   }
 }
 
 extern "C" int fused_adams_host(
-    const float* y0, const float* yp0, const float* h0, const int* nfev0,
-    float* y_out, int* status, int* nsteps, int* nfev, int* work,
-    int members, float t0, float tf, float dir, float rtol, float atol,
-    float max_step, int max_steps, int compensated, int lanes) {
+    const float* y0, const float* params, const float* yp0, const float* h0,
+    const int* nfev0, float* y_out, int* status, int* nsteps, int* nfev,
+    int* work, int members, float t0, float tf, float dir, float rtol,
+    float atol, float max_step, int max_steps, int compensated, REC_DECL
+    int lanes) {
   const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
   const Out out{y_out, status, nsteps, nfev, work};
+  REC_SET
   void (*body)(int) = lanes == 4 ? lane_body<4>
                       : lanes == 8 ? lane_body<8>
                       : lanes == 16 ? lane_body<16>
@@ -314,17 +322,18 @@ extern "C" int fused_adams_host(
   char* stacks = lanes > 1 ? static_cast<char*>(
       std::malloc(static_cast<size_t>(lanes) * kLaneStack)) : nullptr;
   for (int m = 0; m < members; ++m) {
+    const float* parm = params + m * tab::NPAR;
     if (lanes == 1) {
       if (compensated) {
-        integrate_thread<true>(y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L,
-                               m, out);
+        integrate_thread<true>(y0 + m * N, yp0 + m * N, parm, h0[m],
+                               nfev0[m], L, m, out REC_ARG);
       } else {
-        integrate_thread<false>(y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L,
-                                m, out);
+        integrate_thread<false>(y0 + m * N, yp0 + m * N, parm, h0[m],
+                                nfev0[m], L, m, out REC_ARG);
       }
     } else {
-      g_member = HostMember{y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L, m,
-                            out, compensated};
+      g_member = HostMember{y0 + m * N, yp0 + m * N, parm, h0[m], nfev0[m],
+                            L, m, out, compensated};
       run_lanes(lanes, body, stacks);
     }
   }
@@ -332,6 +341,8 @@ extern "C" int fused_adams_host(
   return 0;
 }
 """
+ADAMS_RECORD_LAUNCH = _with_record(ADAMS_LAUNCH, True)
+ADAMS_LAUNCH = _with_record(ADAMS_LAUNCH, False)
 
 # The ESDIRK bodies of B2 run one member after another: at one lane the
 # thread-per-member body integrate_thread<COMP>, at G lanes the group body
@@ -768,7 +779,7 @@ struct HostWarpBlock {
 };
 
 struct HostGridMember {
-  const float *y0, *yp0;
+  const float *y0, *yp0, *par;
   float h0;
   int nfev0;
   Launch L;
@@ -777,33 +788,36 @@ struct HostGridMember {
   float* sm;
 };
 static HostGridMember g_grid;
+REC_GLOBAL
 
 static void warp_thread(int r) {
   HostWarpBlock g{r};
   HostLanes lanes{r};
   const HostGridMember& a = g_grid;
-  integrate<32>(g, lanes, a.sm, a.y0, a.yp0, a.h0, a.nfev0, a.L, a.m, a.out);
+  integrate<32>(g, lanes, a.sm, a.y0, a.yp0, a.par, a.h0, a.nfev0, a.L, a.m,
+                a.out REC_ARG);
 }
 
 extern "C" int fused_adams_grid_host(
-    const float* y0, const float* yp0, const float* h0, const int* nfev0,
-    float* y_out, int* status, int* nsteps, int* nfev, int members,
-    float t0, float tf, float dir, float rtol, float atol, float max_step,
-    int max_steps, int lanes) {
+    const float* y0, const float* params, const float* yp0, const float* h0,
+    const int* nfev0, float* y_out, int* status, int* nsteps, int* nfev,
+    int members, float t0, float tf, float dir, float rtol, float atol,
+    float max_step, int max_steps, REC_DECL int lanes) {
   if (lanes != 1 && lanes != 32) return 1;
   const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
   const Out out{y_out, status, nsteps, nfev};
+  REC_SET
   float* sm = new float[kFloats];
   char* stacks = static_cast<char*>(std::malloc(32 * kLaneStack));
   for (int m = 0; m < members; ++m) {
     if (lanes == 1) {
       HostBlock g;
       HostOneLane one;
-      integrate<1>(g, one, sm, y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L,
-                   m, out);
+      integrate<1>(g, one, sm, y0 + m * N, yp0 + m * N, params, h0[m],
+                   nfev0[m], L, m, out REC_ARG);
     } else {
-      g_grid = HostGridMember{y0 + m * N, yp0 + m * N, h0[m], nfev0[m], L,
-                              m, out, sm};
+      g_grid = HostGridMember{y0 + m * N, yp0 + m * N, params, h0[m],
+                              nfev0[m], L, m, out, sm};
       run_lanes(32, warp_thread, stacks);
     }
   }
@@ -812,6 +826,8 @@ extern "C" int fused_adams_grid_host(
   return 0;
 }
 """
+ADAMS_GRID_RECORD_LAUNCH = _with_record(ADAMS_GRID_LAUNCH, True)
+ADAMS_GRID_LAUNCH = _with_record(ADAMS_GRID_LAUNCH, False)
 
 # The mid-size ESDIRK body (B7) run on a host buffer in place of shared
 # memory, one member after another: at lanes = 1 by a one-thread group, at
@@ -1004,6 +1020,12 @@ ROUTE_BUILDS = {
     "grid_wave_p": ("fused_rk_grid", TDR.WAVE_P, None, None, False),
     "grid_wave_p_rec": ("fused_rk_grid", TDR.WAVE_P, None, None, True),
 }
+# B3 and B8 with a parameter a member, with and without the dense record
+# (k_max = 6): label -> (right-hand side, record)
+SWAG_BUILDS = {"swag_vdp_p": (TAR.VDP_P, False),
+               "swag_vdp_p_rec": (TAR.VDP_P, True),
+               "ag_heat_p": (TAR.HEAT_P, False),
+               "ag_heat_p_rec": (TAR.HEAT_P, True)}
 VDP_TEMPLATE = FK.FusedRHS(
     TK.PROBLEMS["vdp"].torch_fn,
     "template <class T>\n__device__ void rhs(T t, const T* y, T* dy) {\n"
@@ -1140,6 +1162,17 @@ def libs(tmp_path_factory):
         jobs[label] = ("fused_adams_grid", _build.fused_adams_header(
             FA._adams_consts(km, rhs.shape[0]), rhs.cuda_src, rhs.shape),
             ADAMS_GRID_LAUNCH, RKC_MARKER)
+    for label, (rhs, rec) in SWAG_BUILDS.items():
+        if isinstance(rhs, FK.FusedRHS):
+            jobs[label] = ("fused_adams", _build.fused_adams_header(
+                FA._adams_consts(6, rhs.n), rhs.cuda_src, None, rhs.k, rec),
+                ADAMS_RECORD_LAUNCH if rec else ADAMS_LAUNCH, RKC_MARKER)
+        else:
+            jobs[label] = ("fused_adams_grid", _build.fused_adams_header(
+                FA._adams_consts(6, rhs.shape[0]), rhs.cuda_src, rhs.shape,
+                rhs.k, rec),
+                ADAMS_GRID_RECORD_LAUNCH if rec else ADAMS_GRID_LAUNCH,
+                RKC_MARKER)
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(_compile, *v[:3], d / k, *v[3:])
                    for k, v in jobs.items()}
@@ -1408,34 +1441,46 @@ def test_erk_params_lane_body_bit_identical_to_thread_body(libs, label,
 def _adams_host(lib, case, lanes=1, **over):
     """The host-built SWAG kernel on ``case`` at ``lanes`` lanes per member,
     started from the float32 stepper's init as the wrapper starts it."""
+    prob, span, y0, kw = ADAMS_CASES[case]
+    return _swag_host(lib, TA.PROBLEMS[prob], span, y0, lanes,
+                      **dict(kw, **over))
+
+
+def _swag_host(lib, rhs, span, y0, lanes=1, params=None, rows=0, **kw):
+    """The host-built B3 on ``y0`` (with the members' ``params`` or none)
+    at ``lanes`` lanes per member, started from the float32 stepper's init
+    on the bound function as the wrapper starts it: (y, status, nsteps,
+    nfev, work), and with ``rows`` the record's arrays after them."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host lane group switches x86-64 stacks")
-    prob, span, y0, kw = ADAMS_CASES[case]
-    kw = dict(kw, **over)
-    rhs = TA.PROBLEMS[prob]
     y0 = np.ascontiguousarray(y0, np.float32)
     nb = y0.shape[0]
+    if params is not None:
+        params = np.ascontiguousarray(params, np.float32)
     _, s0, direction = FA._host_init(
-        rhs.torch_fn, span, torch.tensor(y0).T, kw["rtol"], kw["atol"],
-        kw.get("first_step"), kw["k_max"], None)
+        FK.bind_params(rhs, None if params is None
+                       else torch.tensor(params)), span, torch.tensor(y0).T,
+        kw["rtol"], kw["atol"], kw.get("first_step"), kw["k_max"], None)
     yp0 = np.ascontiguousarray(s0.yp.T.numpy())
     h0 = np.ascontiguousarray(s0.h.numpy())
     nfev0 = np.ascontiguousarray(s0.nfev.numpy())
     out = np.empty_like(y0)
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
     work = np.empty((nb, FA._WORK), np.int32)
+    rec = _HostRecord(y0, rows)
     fn = lib.fused_adams_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 9 + [ci, cf, cf, cf, cf, cf, cf, ci, ci, ci]
-    rc = fn(y0.ctypes.data, yp0.ctypes.data, h0.ctypes.data,
-            nfev0.ctypes.data, out.ctypes.data, st.ctypes.data,
-            ns.ctypes.data, nf.ctypes.data, work.ctypes.data, nb,
-            FA._f32(span[0]),
-            FA._f32(span[1]), direction, FA._f32(kw["rtol"]),
-            FA._f32(kw["atol"]), np.inf, kw.get("max_steps", 200_000),
-            int(kw.get("compensated", False)), lanes)
+    fn.argtypes = ([vp] * 10 + [ci, cf, cf, cf, cf, cf, cf, ci, ci]
+                   + rec.argtypes + [ci])
+    rc = fn(y0.ctypes.data, None if params is None else params.ctypes.data,
+            yp0.ctypes.data, h0.ctypes.data, nfev0.ctypes.data,
+            out.ctypes.data, st.ctypes.data, ns.ctypes.data, nf.ctypes.data,
+            work.ctypes.data, nb, FA._f32(span[0]), FA._f32(span[1]),
+            direction, FA._f32(kw["rtol"]), FA._f32(kw["atol"]), np.inf,
+            kw.get("max_steps", 200_000), int(kw.get("compensated", False)),
+            *rec.args(), lanes)
     assert rc == 0
-    return out, st, ns, nf, work
+    return (out, st, ns, nf, work) + rec.arrays()
 
 
 @functools.lru_cache(maxsize=None)
@@ -1939,34 +1984,41 @@ def test_ckdisc_lane_body_isolates_an_overflowing_member(libs):
         np.testing.assert_array_equal(a, b)
 
 
-def _adams_grid_host(lib, fun, span, y0, lanes=1, **kw):
-    """The host-built mid-size SWAG body on ``y0`` with its coefficients on
-    ``lanes`` lanes, started from the float32 stepper's init as the wrapper
-    starts it."""
+def _adams_grid_host(lib, fun, span, y0, lanes=1, params=None, rows=0,
+                     **kw):
+    """The host-built mid-size SWAG body on ``y0`` (with the members'
+    ``params`` or none) with its coefficients on ``lanes`` lanes, started
+    from the float32 stepper's init as the wrapper starts it: (y, status,
+    nsteps, nfev), and with ``rows`` the record's arrays after them."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host warp switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
     nb = y0.shape[0]
-    _, s0, direction = FA._host_init(
-        fun.torch_fn, span, torch.tensor(y0).T, kw["rtol"], kw["atol"],
-        kw.get("first_step"), kw["k_max"], kw.get("max_step"))
-    yp0 = np.ascontiguousarray(s0.yp.T.numpy())
-    h0 = np.ascontiguousarray(s0.h.numpy())
-    nfev0 = np.ascontiguousarray(s0.nfev.numpy())
+    if params is not None:
+        params = np.ascontiguousarray(params, np.float32)
+    yp0, h0, nfev0, direction = (
+        np.ascontiguousarray(x.numpy()) if isinstance(x, torch.Tensor) else x
+        for x in FAG._start(fun, span, torch.tensor(y0), kw["rtol"],
+                            kw["atol"], kw.get("first_step"), kw["k_max"],
+                            kw.get("max_step"),
+                            None if params is None
+                            else torch.tensor(params)))
     out = np.empty_like(y0)
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
+    rec = _HostRecord(y0, rows)
     fn = lib.fused_adams_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 8 + [ci] + [cf] * 6 + [ci, ci]
+    fn.argtypes = [vp] * 9 + [ci] + [cf] * 6 + [ci] + rec.argtypes + [ci]
     mstep = kw.get("max_step")
-    rc = fn(y0.ctypes.data, yp0.ctypes.data, h0.ctypes.data,
-            nfev0.ctypes.data, out.ctypes.data, st.ctypes.data,
-            ns.ctypes.data, nf.ctypes.data, nb, FA._f32(span[0]),
-            FA._f32(span[1]), direction, FA._f32(kw["rtol"]),
-            FA._f32(kw["atol"]), np.inf if mstep is None else FA._f32(mstep),
-            kw.get("max_steps", 200_000), lanes)
+    rc = fn(y0.ctypes.data, None if params is None else params.ctypes.data,
+            yp0.ctypes.data, h0.ctypes.data, nfev0.ctypes.data,
+            out.ctypes.data, st.ctypes.data, ns.ctypes.data, nf.ctypes.data,
+            nb, FA._f32(span[0]), FA._f32(span[1]), direction,
+            FA._f32(kw["rtol"]), FA._f32(kw["atol"]),
+            np.inf if mstep is None else FA._f32(mstep),
+            kw.get("max_steps", 200_000), *rec.args(), lanes)
     assert rc == 0
-    return out, st, ns, nf
+    return (out, st, ns, nf) + rec.arrays()
 
 
 # name -> (library, problem, span, y0, options): the cases of
@@ -2704,6 +2756,168 @@ def test_rkn_params_kernels_match_plain_versions(grid_param_libs, kind,
     the member's shared memory) against their plain versions: status
     equal, steps and endpoints within the gates."""
     host, ref, _, _ = _route_case(kind, lanes, record=False)
+    np.testing.assert_array_equal(host[1], ref[1].numpy())
+    assert np.max(np.abs(host[2] - ref[2].numpy())) <= dsteps
+    assert np.max(np.abs(host[0] - ref[0].numpy())) <= y_gate
+
+
+# -- per-member params and the dense record of B3 and B8 ----------------------
+
+# kind -> (right-hand side, the record build, the build without it, the
+# fixture case of the inputs, span, options): Van der Pol with mu a member
+# (the flat SWAG adjoint's members, plain and compensated) and the heat MoL
+# with the diffusivity a member (the grid one's)
+SWAG_KINDS = {
+    "b3_vdp": (TAR.VDP_P, "swag_vdp_p_rec", "swag_vdp_p", "adj_vdp",
+               (0.0, 3.0), dict(rtol=1e-5, atol=1e-8, k_max=6)),
+    "b3_vdp_comp": (TAR.VDP_P, "swag_vdp_p_rec", "swag_vdp_p", "adj_vdp",
+                    (0.0, 3.0), dict(rtol=1e-6, atol=1e-9, k_max=6,
+                                     compensated=True)),
+    "b8_heat": (TAR.HEAT_P, "ag_heat_p_rec", "ag_heat_p", "adj_heat",
+                (0.0, 0.3), dict(rtol=1e-4, atol=1e-7, k_max=6)),
+}
+
+
+def _swag_case(kind, lanes=1, rows=512, record=True, plain=True, **over):
+    """(host outputs with the record's arrays where ``record``, the plain
+    version's outputs with its FusedDenseSolution (None unless ``plain``),
+    span, y0) of ``kind`` at ``lanes`` with ``rows`` a member."""
+    rhs, rec_lib, lib, case, span, kw = SWAG_KINDS[kind]
+    kw = dict(kw, **over)
+    y0, par = (TAR.FIXTURE[f"{case}/in_{k}"] for k in ("y0", "params"))
+    lib = LIBS_OF[rec_lib if record else lib]
+    hrows = rows if record else 0
+    if kind.startswith("b3"):
+        host = _swag_host(lib, rhs, span, y0, lanes, par, hrows, **kw)
+        host = host[:4] + host[5:]
+        plain_fn = FA.fused_adams_reference
+    else:
+        host = _adams_grid_host(lib, rhs, span, y0, lanes, par, hrows, **kw)
+        plain_fn = FAG.fused_adams_grid_reference
+    ref = None if not plain else plain_fn(
+        rhs, span, torch.tensor(y0), params=torch.tensor(par), dense=rows,
+        **kw)
+    return host, ref, span, y0
+
+
+# (kind, lanes, gate on |dnsteps|, gate on the two dense outputs at 97
+# common times).  Measured (max |dnsteps|, dense outputs): B3 0, 0 at
+# every lane count, plain and compensated (powf and torch.pow agree on
+# these members' step ratios); B8 1, 2.8e-4 at 1 and 32 lanes (its norms
+# are block sums in element order, the plain version's torch.sum, and the
+# init's starting step rounds by the layout of its rows: the nodes part
+# with the counts, the dense outputs by their interpolation error between
+# them).  Gates about 3x, at least 1e-7 and 1 on the steps
+SWAG_RECORD_CASES = [
+    ("b3_vdp", 1, 1, 1e-7), ("b3_vdp", 4, 1, 1e-7), ("b3_vdp", 32, 1, 1e-7),
+    ("b3_vdp_comp", 1, 1, 1e-7), ("b3_vdp_comp", 16, 1, 1e-7),
+    ("b8_heat", 1, 3, 9e-4), ("b8_heat", 32, 3, 9e-4)]
+
+
+@pytest.mark.parametrize("kind,lanes,dsteps,gate", SWAG_RECORD_CASES)
+def test_swag_record_matches_plain_version(grid_param_libs, kind, lanes,
+                                           dsteps, gate):
+    """B3 (one thread, 4, 16 and 32 coroutine lanes) and B8 (one thread, a
+    warp of 32 coroutine lanes) with params and the dense record against
+    their plain versions: equal status and valid, nsteps within the gate;
+    every row written and no other, the last node the final state at tf;
+    the dense outputs within the gate."""
+    host, ref, span, y0 = _swag_case(kind, lanes)
+    np.testing.assert_array_equal(host[1], ref[1].numpy())
+    assert np.all(host[1] == 1)
+    assert np.max(np.abs(host[2] - ref[2].numpy())) <= dsteps
+    rt, ry, rf, f0, nrec = host[4:]
+    rows = rt.shape[1]
+    np.testing.assert_array_equal(nrec, host[2])
+    written = np.arange(rows)[None] < nrec[:, None]
+    assert np.all(np.isfinite(rt[written])) and np.all(np.isnan(rt[~written]))
+    assert np.all(np.isfinite(f0))
+    b = np.arange(len(y0))
+    np.testing.assert_array_equal(rt[b, nrec - 1], np.float32(span[1]))
+    np.testing.assert_array_equal(ry[b, nrec - 1], host[0])
+    sol, rsol = _host_solution(host, span, y0), ref[4]
+    assert bool(sol.valid.all()) and bool(rsol.valid.all())
+    tq = torch.linspace(span[0], span[1], 97)
+    assert (sol(tq) - rsol(tq)).abs().max().item() <= gate
+
+
+@pytest.mark.parametrize("kind,lanes", [
+    ("b3_vdp", 4), ("b3_vdp", 32), ("b3_vdp_comp", 16), ("b8_heat", 32)])
+def test_swag_record_lanes_bit_identical_to_one_lane(grid_param_libs, kind,
+                                                     lanes):
+    """B3's group body on 4, 16 and 32 coroutine lanes and B8's
+    coefficients over a warp of 32 write the one-lane body's records bit
+    for bit, with its outputs."""
+    a = _swag_case(kind, lanes, plain=False)[0]
+    b = _swag_case(kind, 1, plain=False)[0]
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("kind,lanes", [
+    ("b3_vdp", 1), ("b3_vdp", 32), ("b3_vdp_comp", 8), ("b8_heat", 1),
+    ("b8_heat", 32)])
+def test_swag_record_leaves_the_outputs_as_they_are(grid_param_libs, kind,
+                                                    lanes):
+    """Each record build gives the outputs of the build without it bit for
+    bit."""
+    on = _swag_case(kind, lanes, plain=False)[0]
+    off = _swag_case(kind, lanes, record=False, plain=False)[0]
+    assert len(off) == 4
+    for x, y in zip(on[:4], off):
+        np.testing.assert_array_equal(x, y)
+
+
+# (kind, attempts, options): VdP's first two attempts are rejected; the
+# heat's starting step and its cap are given, since the block sums its
+# norms in another order than torch.sum (and the init's starting step
+# rounds by the layout of its rows)
+@pytest.mark.parametrize("kind,attempts,over", [
+    ("b3_vdp", 7, {}), ("b3_vdp_comp", 7, {}),
+    ("b8_heat", 30, dict(first_step=1e-3, max_step=0.005))])
+def test_swag_record_first_attempts_bit_identical(grid_param_libs, kind,
+                                                  attempts, over):
+    """The records of the first attempts (f0 from the float32 stepper's
+    init on the bound function, the accepted steps' rows) repeat the plain
+    versions' bit for bit."""
+    host, ref, span, y0 = _swag_case(kind, 1, max_steps=attempts, **over)
+    assert np.all(host[8] >= 1)
+    sol, rsol = _host_solution(host, span, y0), ref[4]
+    for name in ("ts", "y_anchor", "Q", "valid"):
+        assert torch.equal(getattr(sol, name), getattr(rsol, name)), name
+
+
+@pytest.mark.parametrize("kind", sorted(SWAG_KINDS))
+def test_swag_record_overflow(grid_param_libs, kind):
+    """A record of 3 rows: the members write the steps they accepted in
+    their first 3 attempts, are not valid, and the outputs are those of
+    the build without it."""
+    host, ref, span, y0 = _swag_case(kind, 1, rows=3)
+    assert np.all((host[8] >= 1) & (host[8] <= 3))
+    sol = _host_solution(host, span, y0)
+    assert not bool(sol.valid.any()) and not bool(ref[4].valid.any())
+    off = _swag_case(kind, 1, record=False, plain=False)[0]
+    for x, y in zip(host[:4], off):
+        np.testing.assert_array_equal(x, y)
+
+
+# (kind, lanes, max |dy|, max |dnsteps|), the params builds without the
+# record against the plain versions.  Measured: B3 0, 0 (1 and 32 lanes,
+# plain and compensated); B8 2.8e-4, 1 (1 and 32).  Gates about 3x, at
+# least 1e-7 and 1 on the steps
+SWAG_PARAMS_CASES = [("b3_vdp", 1, 1e-7, 1), ("b3_vdp", 32, 1e-7, 1),
+                     ("b3_vdp_comp", 1, 1e-7, 1), ("b8_heat", 1, 9e-4, 3),
+                     ("b8_heat", 32, 9e-4, 3)]
+
+
+@pytest.mark.parametrize("kind,lanes,y_gate,dsteps", SWAG_PARAMS_CASES)
+def test_swag_params_kernels_match_plain_versions(grid_param_libs, kind,
+                                                  lanes, y_gate, dsteps):
+    """B3 and B8 with a parameter a member (loaded once into registers or
+    the member's shared memory, the starting state from the bound
+    function) against their plain versions: status equal, steps and
+    endpoints within the gates."""
+    host, ref, _, _ = _swag_case(kind, lanes, record=False, rows=0)
     np.testing.assert_array_equal(host[1], ref[1].numpy())
     assert np.max(np.abs(host[2] - ref[2].numpy())) <= dsteps
     assert np.max(np.abs(host[0] - ref[0].numpy())) <= y_gate

@@ -312,7 +312,7 @@ def test_cpu_wrapper_runs_plain_version():
     assert solve_fused_adams.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events", "params", "dense"])
+@pytest.mark.parametrize("option", ["t_eval", "events"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="B3"):
         solve_fused_adams(PROBLEMS["vdp5"], (0.0, 1.0), torch.tensor(X0),
@@ -372,15 +372,17 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_build_key_hashes_adams_headers(monkeypatch, tmp_path):
-    """The kernel's build key covers adams_common.cuh, rk_common.cuh and
-    lane_group.cuh, which it includes, and no other shared header."""
+    """The kernel's build key covers dense_record.cuh, adams_common.cuh,
+    member_rhs.cuh, rk_common.cuh and lane_group.cuh, which it includes,
+    and no other shared header."""
     import shutil
     from extensisq_tpu_torch.ops import _build
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.shared_headers("fused_adams")] == [
-        "adams_common.cuh", "rk_common.cuh", "lane_group.cuh"]
+        "dense_record.cuh", "adams_common.cuh", "member_rhs.cuh",
+        "rk_common.cuh", "lane_group.cuh"]
     before = _build.build_key("fused_adams", "header")
     common = csrc / "adams_common.cuh"
     common.write_text(common.read_text() + "\n// edited\n")

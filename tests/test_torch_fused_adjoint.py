@@ -221,16 +221,19 @@ def test_adjoint_backward_span():
 
 
 @pytest.mark.parametrize("method,exc,match", [
-    (SWAG, NotImplementedError, "B3 and B8"),
+    (SWAG, ValueError, "static t_span"),
     (SSV2stab, ValueError, "family"),
     (CKdisc, ValueError, "family")])
 def test_adjoint_routes_not_ported_raise(method, exc, match):
-    """The SWAG route waits for params and dense=R on B3 and B8 (ROADMAP
-    queue B); other families raise JAX's ValueError.  The ESDIRK and RKN
-    routes run (tests/test_torch_fused_adjoint_routes.py)."""
+    """The SWAG route takes a static t_span, as in JAX: an end that requires
+    a gradient raises ValueError; other families raise JAX's ValueError.
+    The ESDIRK, RKN and SWAG routes run
+    (tests/test_torch_fused_adjoint_routes.py,
+    tests/test_torch_fused_adams_routes.py)."""
     y0, mus = _vdp_inputs()
+    t0 = torch.tensor(float(SPAN[0]), requires_grad=True)
     with pytest.raises(exc, match=match):
-        solve_fused_adjoint(VDP_P, SPAN, y0, mus, method)
+        solve_fused_adjoint(VDP_P, (t0, SPAN[1]), y0, mus, method)
 
 
 @pytest.mark.parametrize("kw,match", [(dict(layout="rows"), "layout"),

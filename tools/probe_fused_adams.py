@@ -12,9 +12,12 @@ fused_adams.cu with the headers it includes; its launch signature is read
 from the source: the thread-per-member kernel (``..., compensated,
 threads, stream``, launched at 128 members per block) or a lane-group
 kernel (``..., compensated, lanes, block_members, stream``, with or
-without the work counters, launched at the wrapper's lane count).  Also
-prints registers and spills of every instantiation, the SASS instruction
-count of each kernel function where cuobjdump is found, and with
+without the work counters and the members' parameters, launched at the
+wrapper's lane count).  Also prints registers and spills of every
+instantiation, the SASS instruction count of each kernel function and
+whether the two builds' SASS opcodes are the same kernel by kernel where
+cuobjdump is found, whether the outputs at the old kernel's lane count
+are bit for bit the old ones, and with
 --witness the plain-f32 line at 256 members and a lockstep witness (256
 members started from one y0, so that every warp of a thread-per-member
 kernel takes one branch).  Writes chiprun_out/<--tag>.json.
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from _probe import (build, card, launch_signature, ptxas_lines, sass_ops,
-                    timed, turns, write_out)
+                    sass_same, timed, turns, write_out)
 from extensisq_tpu_torch.ops import _build
 from extensisq_tpu_torch.ops import fused_adams as FA
 
@@ -68,20 +71,21 @@ def vdp_rows(t, y):
 
 
 def old_convention(src_dir):
-    """(lanes, work) of the launch signature of src_dir/fused_adams.cu."""
+    """(lanes, work, params) of the launch signature of
+    src_dir/fused_adams.cu."""
     args = launch_signature(src_dir, "fused_adams")
-    return "int lanes" in args, "void* work" in args
+    return "int lanes" in args, "void* work" in args, "params" in args
 
 
 def build_old(header, old_src, tag):
     """nvcc the earlier kernel of ``old_src`` with ``header``; returns
     (library, .so path, seconds, compiler output)."""
     b = build(old_src, "fused_adams", header, f"b3_old_{tag}")
-    lanes, work = old_convention(old_src)
+    lanes, work, params = old_convention(old_src)
     lib = b["lib"]
     V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_adams_launch.argtypes = (
-        [V] * (9 if work else 8) + [I, F, F, F, F, F, F, I, I]
+        [V] * (8 + work + params) + [I, F, F, F, F, F, F, I, I]
         + ([I, I] if lanes else [I]) + [V])
     lib.fused_adams_launch.restype = I
     return lib, b["so"], b["seconds"], b["log"]
@@ -120,7 +124,7 @@ class Probe:
     def __init__(self, n, km, old, new, old_conv, sms):
         self.n, self.km, self.sms = n, km, sms
         self.old_lib, self.new = old, new
-        self.old_lanes, self.old_work = old_conv
+        self.old_lanes, self.old_work, self.old_params = old_conv
         self.stream = torch.cuda.current_stream().cuda_stream
         self.dev = torch.device("cuda")
 
@@ -153,7 +157,8 @@ class Probe:
         outs = [y.data_ptr(), st.data_ptr(), ns.data_ptr(), nf.data_ptr()]
         if kind == "new" or self.old_work:
             outs.append(work.data_ptr())
-        args = [y0.data_ptr(), yp0.data_ptr(), h0.data_ptr(),
+        par = [None] if kind == "new" or self.old_params else []
+        args = [y0.data_ptr(), *par, yp0.data_ptr(), h0.data_ptr(),
                 nf0.data_ptr(), *outs, B, float(np.float32(SPAN[0])),
                 float(np.float32(tf)), direction, float(np.float32(RTOL)),
                 float(np.float32(ATOL)), np.inf, MAX_STEPS, int(comp)]
@@ -194,8 +199,12 @@ class Probe:
             ref = outs[old]
             done = all(bool((o[1] == 1).all()) for o in outs.values())
             rule = FA._lanes_per_member(B, self.sms, self.km)
+            twin = ("new",) + old[1:]
+            same = (all(torch.equal(a, b) for a, b in zip(outs[twin], ref))
+                    if twin in outs else None)
             print(f"{tag} B={B}: all finished {done}; the wrapper takes G = "
-                  f"{rule}; old max nsteps {int(ref[2].max())}")
+                  f"{rule}; old max nsteps {int(ref[2].max())}; new at the "
+                  f"old G = {old[1]} bit-identical to old {same}")
             for cfg in [old] + cfgs:
                 o, t = outs[cfg], times[cfg]
                 dy = (o[0] - ref[0]).abs().max().item()
@@ -210,6 +219,8 @@ class Probe:
                       f"{med / att:.5f}")
                 results[f"{B}/{cfg[0]}/{cfg[1]}/{cfg[2]}"] = {
                     "ms": t, "dy_vs_old": dy, "nsteps_differ": dn,
+                    "bit_identical_to_old": (same if cfg == twin
+                                             else None),
                     "max_nsteps": int(o[2].max()), "max_attempts": att,
                     "finished": bool((o[1] == 1).all())}
         return results
@@ -245,7 +256,11 @@ def print_builds(tag, old_log, new, old_so):
         for ln in ptxas_lines(log, entries=True):
             print(f"ptxas[{tag} {kind}] {ln}")
     new_so = _build.BUILD_DIR / f"fused_adams_{new.key}" / "lib.so"
-    sass = {}
+    same, totals = sass_same({"so": old_so}, {"so": new_so})
+    print(f"SASS [{tag}]: old and new opcodes kernel by kernel "
+          f"{'identical' if same is True else same}; instructions "
+          f"{totals}")
+    sass = {"same_opcodes": same}
     for kind, so in (("old", old_so), ("new", new_so)):
         c = sass_counts(so)
         sass[kind] = c

@@ -10,9 +10,12 @@ before any timing, and its outputs feed both kernels; each launch is timed
 alone with CUDA events, in turns (old, new, new, old, three times).  The
 kernel of --old-src (a directory holding an earlier fused_adams_grid.cu
 with the headers it includes) and the current one are built from the same
-generated header.  Prints each time, the outputs' bit identity against the
-old kernel, ms per attempt of the slowest member, registers and spills of
-both builds, and, for the current kernel, the event window around the
+generated header; the launch signature of each (with or without the
+members' parameters) is read from its source.  Prints each time, the
+outputs' bit identity against the old kernel, ms per attempt of the
+slowest member, registers and spills of both builds, whether their SASS
+opcodes are the same kernel by kernel (where cuobjdump is found), and,
+for the current kernel, the event window around the
 wrapper call (init and launch) that chip_smoke.py timed before.  Writes
 chiprun_out/<--tag>.json.
 
@@ -30,7 +33,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from _probe import build, card, ptxas_lines, timed, turns, write_out
+from _probe import (build, card, launch_signature, ptxas_lines, sass_same,
+                    timed, turns, write_out)
 from extensisq_tpu_torch.ops import FusedGridRHS, _build
 from extensisq_tpu_torch.ops import fused_adams as FA
 from extensisq_tpu_torch.ops import fused_adams_grid as FAG
@@ -73,9 +77,10 @@ def build_b8(src_dir, header, tag):
     """``src_dir``/fused_adams_grid.cu built with ``header``, its launch
     bound."""
     b = build(src_dir, "fused_adams_grid", header, f"b8_{tag}")
+    b["params"] = "params" in launch_signature(src_dir, "fused_adams_grid")
     V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     b["lib"].fused_adams_grid_launch.argtypes = (
-        [V] * 8 + [I, F, F, F, F, F, F, I, I, V])
+        [V] * (8 + b["params"]) + [I, F, F, F, F, F, F, I, I, V])
     b["lib"].fused_adams_grid_launch.restype = I
     return b
 
@@ -85,14 +90,15 @@ def start(fun, y0):
     return (y0, *FAG._start(fun, SPAN, y0, RTOL, ATOL, None, KM, None))
 
 
-def launch(lib, inp):
+def launch(b, inp):
     y0, yp0, h0, nfev0, direction = inp
     B = y0.shape[0]
     y = torch.empty_like(y0)
     st = torch.empty(B, dtype=torch.int32, device=y0.device)
     ns, nf = torch.empty_like(st), torch.empty_like(st)
-    rc = lib.fused_adams_grid_launch(
-        y0.data_ptr(), yp0.data_ptr(), h0.data_ptr(), nfev0.data_ptr(),
+    par = (None,) if b["params"] else ()
+    rc = b["lib"].fused_adams_grid_launch(
+        y0.data_ptr(), yp0.data_ptr(), h0.data_ptr(), nfev0.data_ptr(), *par,
         y.data_ptr(), st.data_ptr(), ns.data_ptr(), nf.data_ptr(), B,
         float(np.float32(SPAN[0])), float(np.float32(SPAN[1])), direction,
         float(np.float32(RTOL)), float(np.float32(ATOL)), np.inf, MAX_STEPS,
@@ -129,11 +135,15 @@ def main():
         OUT["ptxas"][kind] = ptxas_lines(b["log"])
         for ln in OUT["ptxas"][kind]:
             print(f"ptxas[{kind}] {ln}")
+    same, totals = sass_same(builds["old"], builds["new"])
+    OUT["sass_same_opcodes"] = same
+    print(f"SASS [b8]: old and new opcodes kernel by kernel "
+          f"{'identical' if same is True else same}; instructions {totals}")
 
-    libs = {kind: b["lib"] for kind, b in builds.items()}
     for B in (int(x) for x in args.sizes.split(",")):
         inp = start(fun, heat_y0(B))
-        times, outs = turns([(kind, lambda kind=kind: launch(libs[kind], inp))
+        times, outs = turns([(kind, lambda kind=kind: launch(builds[kind],
+                                                             inp))
                              for kind in ("old", "new")], TURNS)
         same = all(torch.equal(a, b) for a, b in zip(outs["old"],
                                                        outs["new"]))

@@ -19,7 +19,10 @@ dense record against their plain versions, configs 7d and 7b through
 ``chip_smoke.adjoint_routes_path`` alone (B2, B7, B5 and B6 with the
 dense record, B5 and B6 with params, against their plain versions; the
 ESDIRK and RKN routes of ``solve_fused_adjoint``, flat and grid; with the
-sensitivity builds their references launch, fifteen builds).
+sensitivity builds their references launch, fifteen builds); ``--adams``
+runs ``chip_smoke.adams_routes_path`` alone (B3 and B8 with params, with
+and without the dense record, against their plain versions; the SWAG
+routes of ``solve_fused_adjoint``, flat and grid; four builds).
 
 ``--inline`` then also builds the two variational grid systems with their
 augmented ``rhs`` inlined (``__forceinline__`` for the generated
@@ -29,8 +32,8 @@ events, the shipped out-of-line build against the inlined one in turns
 the medians, their ratio and how far the inlined outputs lie from the
 shipped ones.  Run from the repository root:
 
-    PYTHONPATH=. python tools/probe_sens.py [--grid | --adjoint | --routes]
-        [--inline]
+    PYTHONPATH=. python tools/probe_sens.py [--grid | --adjoint | --routes
+        | --adams] [--inline]
 """
 import statistics
 import subprocess
@@ -97,6 +100,12 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
+    if "--adams" in sys.argv[1:]:
+        C.build_all(C.adams_routes_builds(C.adams_routes_rhs()))
+        for name, keys in C.adams_routes_path().items():
+            print(f"{name}: {keys}")
+        print(smi.splitlines()[0])
+        return 0
     if "--routes" in sys.argv[1:]:
         C.build_all(C.sens_builds(C.sens_rhs())
                     + C.sens_grid_builds(C.sens_grid_rhs())
