@@ -78,6 +78,17 @@ Drives each of the port's paths once:
   0.04]) through it, one B7 launch with block_base 128 on 384 rows,
   members 0 and 31 against the f64 ``sensitivity.sens_forward`` on the
   CPU;
+* the in-kernel t_eval snapshots (after the adjoint phases): the main
+  path's 4,096 Van der Pol members through B1 with 101 points (plain and
+  compensated), config 1b's 64 Fisher members at n = 256 through B4,
+  config 1c's 1,024 decay members through B11 with the switching
+  frequency a member's parameter and the CKdisc MoL's 64 members through
+  B12 with the forcing amplitude a member's parameter, 11 points each;
+  each against its plain version and, bit for bit, the launch without
+  t_eval at every shape its rule takes, the members at the k = 0 literal
+  bit for bit the k = 0 run, B1 against the f64 ``solve_ensemble(...,
+  t_eval=...)`` and a ``dense=R`` launch's ``sol(t_eval)`` against its
+  ``y_eval``; each launch alone timed with and without the points;
 * the host driver, the sensitivities and the front door (last):
   ``solve_ivp`` on the card against the same call on CPU tensors (VdP
   with BS5, ``t_eval``, dense output and two events; the CKdisc decay;
@@ -87,7 +98,8 @@ Drives each of the port's paths once:
   and host syncs a step; a ``Stepper`` stepped by hand; the sensitivity
   functions on Robertson at the CVODES gates and ``solve_final``'s
   gradient against ``sens_forward``; ``ops.solve_fused`` once for each of
-  the twelve kernels, each to JAX's route and bit for bit the direct call.
+  the twelve kernels, and once more on B11 and B12 with params and
+  t_eval, each to JAX's route and bit for bit the direct call.
 
 Before that, it builds every kernel from the sources in this checkout
 (one nvcc per variant, all started together) and holds each against its
@@ -104,7 +116,8 @@ before it lists each kernel with its launch count on its path (and
 through the front door, ``launches_solve_fused``; B1's and B2's entries
 also hold the sensitivity lines' launches, times and bounds, the keys
 ending in ``_7b`` and ``_7a``, B4's and B7's those of the grid layout's,
-ending in ``_sens_grid``), its
+ending in ``_sens_grid``, B1's, B4's, B11's and B12's those of the t_eval
+phase, ending in ``_teval``), its
 largest difference from the plain version, its time, the plain version's
 and its bound in ms (the least time the card could take: the larger of
 its bytes over the memory rate and its operations over the float32 peak).
@@ -508,7 +521,8 @@ def build_all(jobs):
     """Build every (kernel, label, rhs, options) variant with one nvcc
     each, all started together; print seconds, registers and spills.  A
     kernel name ending in ``_rec`` (B1-B8) is the build with the dense
-    record."""
+    record, in ``_snap`` (B1, B4, B11, B12) the build with the t_eval
+    snapshots, in ``_rec_snap`` (B1, B4) with both."""
     from extensisq_tpu_torch import BS5
     from extensisq_tpu_torch.ops import _build
     from extensisq_tpu_torch.ops.fused_adams import _adams_consts
@@ -520,6 +534,8 @@ def build_all(jobs):
 
     def build(job):
         kernel, _, rhs, opt = job
+        snap = kernel.endswith("_snap")
+        kernel = kernel.removesuffix("_snap")
         rec = kernel.endswith("_rec")
         kernel = kernel.removesuffix("_rec")
         if kernel == "fused_rkn":
@@ -528,19 +544,21 @@ def build_all(jobs):
         if kernel == "fused_erk_grid":
             return _build.load_fused_rk_grid(
                 _fused_consts(opt), False, rhs.shape, rhs.cuda_src, rhs.k,
-                rec)
+                rec, snap)
         if kernel == "fused_rkn_grid":
             return _build.load_fused_rk_grid(rkn_consts(opt), True,
                                              (rhs.n,), rhs.cuda_src, rhs.k,
                                              rec)
         if kernel == "fused_ckdisc":
-            return _build.load_fused_ckdisc(ck_consts(), rhs.n, rhs.cuda_src)
+            return _build.load_fused_ckdisc(ck_consts(), rhs.n, rhs.cuda_src,
+                                            rhs.k, snap)
         if kernel == "fused_ckdisc_grid":
             return _build.load_fused_rk_grid(ck_consts(), False, rhs.shape,
-                                             rhs.cuda_src)
+                                             rhs.cuda_src, rhs.k, False,
+                                             snap)
         if kernel == "fused_erk":
             return _build.load_fused_erk(_fused_consts(BS5), rhs.n,
-                                         rhs.cuda_src, rhs.k, rec)
+                                         rhs.cuda_src, rhs.k, rec, snap)
         if kernel == "fused_adams":
             return _build.load_fused_adams(_adams_consts(opt, rhs.n),
                                            rhs.cuda_src, rhs.k, rec)
@@ -4342,14 +4360,17 @@ def adjoint_kernel_checks(R, y0b, mus, fy0, rates):
 KERNEL_LIB = {"fused_erk": "fused_erk", "fused_erk_grid": "fused_rk_grid",
               "fused_rkn": "fused_rkn", "fused_rkn_grid": "fused_rk_grid",
               "fused_esdirk": "fused_esdirk",
-              "fused_esdirk_grid": "fused_esdirk_grid"}
+              "fused_esdirk_grid": "fused_esdirk_grid",
+              "fused_ckdisc": "fused_ckdisc",
+              "fused_ckdisc_grid": "fused_rk_grid"}
 
 
 def _launch_args(kind, y0, out, params, span, tol, shape, rec):
-    """The C arguments before the stream of one launch of B1, B2, B4, B5,
-    B6 or B7 (``kind``, its wrapper's module) at ``shape`` into the
-    preallocated ``out`` (and ``rec``, a DenseRecord, where it has rows),
-    as the wrappers pass them; B2 and B7 as plain ODEs from Watts' start."""
+    """The C arguments before the stream of one launch of B1, B2, B4-B7,
+    B11 or B12 (``kind``, its wrapper's module) at ``shape`` into the
+    preallocated ``out`` with the members' ``params`` (None: none), and
+    ``rec``, a DenseRecord, where it has rows, as the wrappers pass them;
+    B2 and B7 as plain ODEs from Watts' start."""
     from extensisq_tpu_torch.ops.fused_erk import launch_args
     from extensisq_tpu_torch.ops.fused_esdirk import _tiny_err
     nb, n = y0.shape
@@ -4367,9 +4388,13 @@ def _launch_args(kind, y0, out, params, span, tol, shape, rec):
     else:
         scal = launch_args(span, tol["rtol"], tol["atol"], None, 100_000,
                            tol.get("compensated", False), None)
-        head = (y0.data_ptr(), params.data_ptr()) + outs + (nb,)
+        head = ((y0.data_ptr(),
+                 None if params is None else params.data_ptr())
+                + outs + (nb,))
         if kind in ("fused_erk", "fused_rkn"):
             args = head + scal + tuple(shape)
+        elif kind == "fused_ckdisc":
+            args = head + scal[:-1] + tuple(shape)
         else:
             t0, tf = scal[:2]
             args = (head + (t0, tf, float(np.sign(np.float32(tf)
@@ -4378,21 +4403,30 @@ def _launch_args(kind, y0, out, params, span, tol, shape, rec):
     return args + (rec.args() if rec.rows else ())
 
 
-def launch_ms(kind, built, y0, params, span, tol, shape, rows, reps=10):
-    """Device ms of one launch of B1, B2, B4, B5, B6 or B7 (``kind``, its
+def launch_ms(kind, built, y0, params, span, tol, shape, rows, reps=10,
+              tq=None):
+    """Device ms of one launch of B1, B2, B4-B7, B11 or B12 (``kind``, its
     wrapper's module) with the record of ``rows`` a member (0: the build
-    without it), the outputs allocated before: CUDA events around ``reps``
-    launches back to back, per launch (a single launch between events
-    measures the host's enqueue as much as the kernel), median of REPS;
-    and the DenseRecord written."""
-    from extensisq_tpu_torch.ops.fused_erk import DenseRecord
+    without it) and, on a snapshot build (B1, B4, B11, B12), the t_eval
+    points ``tq``, the outputs allocated before: CUDA events around
+    ``reps`` launches back to back, per launch (a single launch between
+    events measures the host's enqueue as much as the kernel), median of
+    REPS; and the DenseRecord written."""
+    from extensisq_tpu_torch.ops.fused_erk import DenseRecord, SnapPoints
     out = (torch.empty_like(y0),
            *[torch.empty(y0.shape[0], dtype=torch.int32, device="cuda")
              for _ in range(3)])
     rec = DenseRecord(y0, rows)
     args = _launch_args(kind, y0, out, params, span, tol, shape, rec)
-    fn = getattr(built.lib, f"{KERNEL_LIB[kind]}"
-                 f"{'_record' if rows else ''}_launch")
+    suffix = "_record" if rows else ""
+    if tq is not None:
+        # a snapshot launch takes the record's arguments (null without
+        # rows; B11 has none) before the points'
+        if not rows and kind != "fused_ckdisc":
+            args = args + rec.args()
+        args = args + SnapPoints(tq, span, y0).args()
+        suffix = "_snap"
+    fn = getattr(built.lib, f"{KERNEL_LIB[kind]}{suffix}_launch")
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
@@ -5484,6 +5518,419 @@ def adams_routes_path():
     return out
 
 
+# -- the t_eval snapshots (B1, B4, B11, B12) and B11's and B12's params -------
+# Four lines, each an earlier path's problem at its full size with points
+# in its span: vdp4096-bs5-teval (B1: the main path's 4,096 Van der Pol
+# members, mu = 3, t in [0, 10], with t_eval = linspace(0, 10, 101), plain
+# at rtol 1e-4 and compensated at the official tolerances),
+# fisher64x256-teval (B4: config 1b's 64 Fisher members at n = 256 with 11
+# points), swdec1024-params-teval (B11: config 1c's 1,024 decay members
+# with the switching frequency 3 a member's parameter, swept over [2.5,
+# 3.5] with every 64th member at 3, 11 points) and
+# ckmol64x256-params-teval (B12: the CKdisc MoL's 64 members at n = 256
+# with the forcing amplitude 0.3 a member's parameter, swept over [0.2,
+# 0.4] with every 16th member at 0.3, 11 points).
+TE_N_EVAL = 101
+TE_POINTS = 11
+TE_DENSE = 256           # rows a member of the dense=R launch beside them
+# each kernel's snapshot build against its plain version on the card: max
+# |dy_eval| over the members whose counts equal the plain version's, and
+# over every finished member (y itself keeps the gates of the line's
+# earlier check).  nvcc's contraction moves h by last bits, and a member
+# may take other steps; where a front of the relaxation oscillation
+# passes a point, a last-bit shift of the trajectory in time moves the
+# row by |y'| times it, and the cubic Hermite's own error, which the
+# tolerance does not control, differs between step sequences.  Readings
+# on an H100 (NVIDIA H100 80GB HBM3, 700 W; run DU), same counts /
+# all: vdp plain 8.071e-2 / 1.775e-1 (the endpoints 1.269e-2), vdp
+# compensated 3.464e-3 / 3.510e-3, fisher 1.571e-4 / 5.729e-4, swdec
+# params 2.750e-3 / 1.190e-2, ckmol params 2.909e-4 / 6.861e-4.  The gates
+# keep about 3x
+TE_YEVAL_GATES = {"vdp plain": (2.5e-1, 5e-1),
+                  "vdp compensated": (1e-2, 1e-2),
+                  "fisher": (5e-4, 1.5e-3), "swdec params": (8e-3, 3.5e-2),
+                  "ckmol params": (9e-4, 2e-3)}
+# y_eval against the f64 solve_ensemble(..., t_eval=...) on the same
+# members: plain against f64 at the same tolerances, compensated against
+# f64 at rtol 1e-6 (the endpoints' gates 5e-2 and 1e-3, from the JAX
+# package's fused tests, hold at tf; at the fronts inside the span the
+# rows part more, as above).  Readings (run DU): plain 2.389e-1,
+# compensated 3.520e-3; gates about 2x
+TE_F64_GATES = {"plain": 5e-1, "compensated": 8e-3}
+# sol(t_eval) of the dense=R launch against its own y_eval: both the cubic
+# Hermite of the step crossing each point, summed in other orders (and
+# ops/fused_dense.py's rounded in float32 torch ops); reading 9.537e-6
+# (run DU), gate 4x
+TE_DENSE_GATE = 4e-5
+# members whose parameter is the k = 0 literal against the k = 0 run,
+# bit for bit (readings 0 on B11 and B12, run DU)
+TE_LITERAL_GATE = 0.0
+
+
+def swdec_p(t, y, p):
+    """Config 1c's decay with its switching frequency a member's
+    parameter, rows-first."""
+    sw = torch.where(torch.sin(p[0] * t) >= 0.0, 1.0, -1.0)
+    return torch.stack([(-sw - 0.5) * y[0], (sw - 0.5) * y[1]])
+
+
+def ck_mol_p(n):
+    def fun(t, y, p):
+        sw = torch.where(torch.sin(4.0 * t) >= 0.0, 1.0, -1.0)
+        return -(y - torch.roll(y, 1, 0)) * float(n) + y * (1 - y) + p[0] * sw
+    return fun
+
+
+def _ck_mol_p_cuda(n):
+    return ("__device__ float rhs(float t, const float* y, int i, "
+            "const float* p) {\n  " + _sw_cuda(4.0) + "\n"
+            f"  return -(y[i] - tab::G::rolled<0>(y, i, 1)) * {_lit(n)}\n"
+            "         + y[i] * (1.0f - y[i]) + p[0] * sw;\n}")
+
+
+def teval_rhs():
+    """The phase's right-hand sides: the main path's Van der Pol, config
+    1b's Fisher MoL, and the decay and the CKdisc MoL with a parameter."""
+    from extensisq_tpu_torch.ops import FusedGridRHS, FusedRHS
+    return {
+        "vdp": FusedRHS(vdp, VDP_CUDA, 2),
+        "fisher": rkn_grid_rhs()["fisher"],
+        "swdec": FusedRHS(
+            swdec_p, "__device__ void rhs(float t, const float* y, "
+            "float* dy, const float* p) {\n"
+            "  const float sw = sinf(p[0] * t) >= 0.0f ? 1.0f : -1.0f;\n"
+            "  dy[0] = (-sw - 0.5f) * y[0];\n"
+            "  dy[1] = (sw - 0.5f) * y[1];\n}", 2, 1),
+        "ckmol": FusedGridRHS(ck_mol_p(CKMOL_N), _ck_mol_p_cuda(CKMOL_N),
+                              (CKMOL_N,), 1)}
+
+
+def teval_builds(rhs):
+    """(kernel, label, rhs, method) of the phase's variants: the snapshot
+    builds of B1 (with and beside the dense record), B4, B11 and B12 with
+    params, and B11's and B12's params builds without them."""
+    from extensisq_tpu_torch import BS5
+    return [("fused_erk_snap", "vdp t_eval", rhs["vdp"], None),
+            ("fused_erk_rec_snap", "vdp dense t_eval", rhs["vdp"], None),
+            ("fused_erk_grid_snap", "fisher t_eval", rhs["fisher"], BS5),
+            ("fused_ckdisc", "swdec params", rhs["swdec"], None),
+            ("fused_ckdisc_snap", "swdec params t_eval", rhs["swdec"], None),
+            ("fused_ckdisc_grid", "ckmol params", rhs["ckmol"], None),
+            ("fused_ckdisc_grid_snap", "ckmol params t_eval", rhs["ckmol"],
+             None)]
+
+
+def teval_inputs():
+    """Each line's (y0, params or None, span, tolerances, t_eval)."""
+    f = np.float32
+    fr = np.linspace(2.5, 3.5, CK_N)
+    fr[::64] = 3.0
+    amp = np.linspace(0.2, 0.4, CKMOL_M)
+    amp[::16] = 0.3
+    return {
+        "vdp": (vdp_y0(N_MEMBERS, torch.float32), None, T_SPAN,
+                np.linspace(*T_SPAN, TE_N_EVAL).astype(f)),
+        "fisher": (fisher_y0(FISHER_M, FISHER_N), None, FISHER_SPAN,
+                   np.linspace(*FISHER_SPAN, TE_POINTS).astype(f)),
+        "swdec": (swdec_y0(torch.float32),
+                  torch.tensor(fr[:, None], dtype=torch.float32,
+                               device="cuda"), CK_SPAN,
+                  np.linspace(*CK_SPAN, TE_POINTS).astype(f)),
+        "ckmol": (fisher_y0(CKMOL_M, CKMOL_N),
+                  torch.tensor(amp[:, None], dtype=torch.float32,
+                               device="cuda"), CKMOL_SPAN,
+                  np.linspace(*CKMOL_SPAN, TE_POINTS).astype(f))}
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _eval_err(k, r, same_counts=False):
+    """max |dy_eval| between two runs over the members both finished (with
+    ``same_counts``, and took the same nsteps and nfev)."""
+    ok = (k[1] == 1) & (r[1] == 1)
+    if same_counts:
+        ok = ok & (k[2] == r[2]) & (k[3] == r[3])
+    return (k[4][:, ok] - r[4][:, ok]).abs().max().item() if ok.any() else 0.0
+
+
+def teval_kernel_checks(R, inp, runs):
+    """Each line's snapshot launch ``runs[name]`` (and B1's compensated one)
+    held against its plain version on the card (status, y and the counts
+    at the line's earlier gates, y_eval at TE_YEVAL_GATES) and, bit for
+    bit, against the launch without t_eval at every shape the rule can
+    take: B1 at the rule's shape and compensated at 8 and 4 lanes, B4 at
+    its blocks and the warp, B11 at 32, 16, 8 and 1 lanes, B12 at its
+    three blocks, each shape's y_eval against the plain version's too; the
+    members of B11 and B12 whose parameter is the k = 0 literal against the
+    k = 0 run.  Returns each kernel's largest |dy| and |dy_eval|, and the
+    plain versions' ms."""
+    from extensisq_tpu_torch import BS5, ops
+    from extensisq_tpu_torch.ops import fused_ckdisc as FC
+    from extensisq_tpu_torch.ops import fused_ckdisc_grid as FCG
+    from extensisq_tpu_torch.ops import fused_erk as FK
+    from extensisq_tpu_torch.ops import fused_erk_grid as FKG
+    threads = FKG.grid_threads
+    errs, plain_ms, plains = {}, {}, {}
+    for name, label, tol, gates in (
+            ("vdp", "vdp plain", PLAIN_TOL, (PLAIN_GATE, STEP_GATE)),
+            ("vdp", "vdp compensated", COMP_TOL, (COMP_GATE, STEP_GATE)),
+            ("fisher", "fisher", FISHER_TOL, RKN_KERNEL_GATES["fisher"]),
+            ("swdec", "swdec params", CK_TOL, CK_KERNEL_GATES["swdec"]),
+            ("ckmol", "ckmol params", CKMOL_TOL, CK_KERNEL_GATES["ckmol"])):
+        y0, p, span, tq = inp[name]
+        k = runs[label]
+        kind = {"vdp": "fused_erk", "fisher": "fused_erk_grid",
+                "swdec": "fused_ckdisc", "ckmol": "fused_ckdisc_grid"}[name]
+        plain = getattr(ops, kind + "_reference")
+        kw = dict(tol, params=p, t_eval=tq)
+        if kind.startswith("fused_erk"):
+            kw["method"] = BS5
+        _, r, dy, r_s = hold_against_plain(
+            "t_eval", f"{label} t_eval", lambda: k,
+            lambda: plain(R[name], span, y0, **kw), *gates)
+        plains[label] = r
+        dq, dq_same = _eval_err(k, r), _eval_err(k, r, True)
+        g_same, g_all = TE_YEVAL_GATES[label]
+        print(f"t_eval kernel vs plain [{label}, {y0.shape[0]}, "
+              f"{len(tq)} points]: max |dy_eval| over the members with the "
+              f"plain version's counts {dq_same:.3e} (gate {g_same:.1e}), "
+              f"over all {dq:.3e} (gate {g_all:.1e})")
+        check(dq_same <= g_same and dq <= g_all, f"{label}: y_eval off the "
+             "plain version")
+        # the launch without t_eval at each shape, and the snapshot launch
+        off_kw = dict(kw, t_eval=None)
+        if kind == "fused_erk":
+            shape = runs[label + " shape"]
+            forced = [shape] + [(g, None) for g in (8, 4) if g != shape[0]
+                                and tol.get("compensated")]
+
+            def launch(s, kw_):
+                return FK._launch(
+                    R[name], span, y0, BS5, kw_["rtol"], kw_["atol"], None,
+                    100_000, kw_.get("compensated", False), None, s[0], s[1],
+                    None, None, kw_["t_eval"])[0]
+        elif kind == "fused_ckdisc":
+            forced = [(g, None) for g in (32, 16, 8, 1)]
+
+            def launch(s, kw_):
+                return FC._launch(R[name], span, y0, kw_["rtol"],
+                                  kw_["atol"], None, 100_000, None, s[0],
+                                  s[1], kw_["params"], kw_["t_eval"])[0]
+        else:
+            mod = FKG if kind == "fused_erk_grid" else FCG
+            n = y0.shape[1]
+            if kind == "fused_erk_grid":
+                forced = [(threads(n), 0), (32, FKG.WARP_MEMBERS),
+                          (threads(-(-n // 2)), 0)]
+            else:
+                forced = [(threads(n), 0), (threads(-(-n // 2)), 0),
+                          (min(FCG.SMALL_THREADS, threads(n)), 0)]
+            built = {True: (mod._kernel(BS5, R[name], False, True)
+                            if mod is FKG else mod._kernel(R[name], True)),
+                     False: (mod._kernel(BS5, R[name]) if mod is FKG
+                             else mod._kernel(R[name]))}
+
+            def launch(s, kw_):
+                kw2 = {a: b for a, b in kw_.items() if a != "method"}
+                return mod._launch(built[kw2["t_eval"] is not None], span,
+                                   y0, y0.shape[1], shape=s, **kw2)[0]
+        same, worst = {}, dq
+        for s in forced:
+            on, off = launch(s, kw), launch(s, off_kw)
+            same[s] = _same(on[:4], off)
+            worst = max(worst, _eval_err(on, r))
+            check(torch.equal(on[1], r[1]), f"{label} at {s}: status")
+        print(f"t_eval [{label}]: the four outputs bit for bit those without "
+              f"t_eval at {same}; max |dy_eval| over the shapes {worst:.3e}")
+        check(all(same.values()), f"{label}: t_eval changed the outputs")
+        check(worst <= g_all, f"{label}: y_eval off at a "
+             "shape")
+        key = kind if label != "vdp compensated" else kind + "_comp"
+        errs[key] = (max(dy, errs.get(key, (0.0, 0.0))[0]), worst)
+        plain_ms[key] = r_s * 1e3
+        if p is not None:
+            # the members at the k = 0 literal against the k = 0 run
+            lit = {"swdec": 3.0, "ckmol": 0.3}[name]
+            at = (p[:, 0] == float(np.float32(lit))).nonzero()[:, 0]
+            R0 = ckdisc_rhs()["swdec" if name == "swdec" else "ckmol"]
+            wrapper = getattr(ops, "solve_" + kind)
+            k0 = wrapper(R0, span, y0, **tol)
+            d0 = max((k[0][at] - k0[0][at]).abs().max().item(),
+                     float((k[2][at] != k0[2][at]).sum()))
+            print(f"{label}: the {len(at)} members at the literal {lit} "
+                  f"against the k = 0 run: max |dy| and differing nsteps "
+                  f"{d0:.3e} (gate {TE_LITERAL_GATE:.0e})")
+            check(d0 <= TE_LITERAL_GATE, f"{label}: the literal's members")
+    return errs, plain_ms, plains
+
+
+def teval_path():
+    """The t_eval snapshots on the card: the four lines through the
+    wrappers, each wrapper's count set to 0 just before and read just
+    after (one launch a line, two for B1); each against its plain version
+    and the launch without t_eval at every shape (teval_kernel_checks); B1
+    against the f64 solve_ensemble(..., t_eval=...) and a dense=R launch's
+    sol(t_eval) against its y_eval; each line's launch alone with and
+    without t_eval (ten back to back, CUDA events) and its bound.  Returns
+    each kernel's ``_teval`` keys by its ``kernels`` name."""
+    from extensisq_tpu_torch import BS5, ops, solve_ensemble
+    from extensisq_tpu_torch.ops import fused_ckdisc as FC
+    from extensisq_tpu_torch.ops import fused_ckdisc_grid as FCG
+    from extensisq_tpu_torch.ops import fused_erk as FK
+    from extensisq_tpu_torch.ops import fused_erk_grid as FKG
+    start = time.perf_counter()
+    R = teval_rhs()
+    inp = teval_inputs()
+    every = [getattr(ops, k) for k in dir(ops) if k.startswith("solve_fused_")
+             and hasattr(getattr(ops, k), "launches")]
+
+    def line(name, tol):
+        y0, p, span, tq = inp[name]
+        kind = {"vdp": "erk", "fisher": "erk_grid", "swdec": "ckdisc",
+                "ckmol": "ckdisc_grid"}[name]
+        kw = dict(tol, t_eval=tq)
+        if p is not None:
+            kw["params"] = p
+        if kind.startswith("erk"):
+            kw["method"] = BS5
+        return getattr(ops, "solve_fused_" + kind)(R[name], span, y0, **kw)
+
+    # the main path of the phase: the four lines through the wrappers
+    for w in every:
+        w.launches = 0
+    t0 = time.perf_counter()
+    runs = {"vdp plain": line("vdp", PLAIN_TOL)}
+    runs["vdp plain shape"] = ops.solve_fused_erk.last_shape
+    runs["vdp compensated"] = line("vdp", COMP_TOL)
+    runs["vdp compensated shape"] = ops.solve_fused_erk.last_shape
+    runs["fisher"] = line("fisher", FISHER_TOL)
+    runs["swdec params"] = line("swdec", CK_TOL)
+    runs["ckmol params"] = line("ckmol", CKMOL_TOL)
+    torch.cuda.synchronize()
+    path_ms = (time.perf_counter() - t0) * 1e3
+    launches = {w.__name__: w.launches for w in every if w.launches}
+    expect = {"solve_fused_erk": 2, "solve_fused_erk_grid": 1,
+              "solve_fused_ckdisc": 1, "solve_fused_ckdisc_grid": 1}
+    print(f"t_eval path: {path_ms:.1f} ms for the four lines (first calls), "
+          f"launches {launches}")
+    check(launches == expect, f"t_eval path launched {launches}, expected "
+         f"{expect}")
+    for label in ("vdp plain", "vdp compensated", "fisher", "swdec params",
+                  "ckmol params"):
+        out = runs[label]
+        check(len(out) == 5 and bool((out[1] == 1).all()),
+             f"{label}: not every member finished")
+        check(out[4].shape == (len(inp[label.split()[0]][3]),
+                               *out[0].shape), f"{label}: y_eval's shape")
+        check(bool(torch.isfinite(out[4]).all()), f"{label}: y_eval finite")
+    errs, plain_ms, plains = teval_kernel_checks(R, inp, runs)
+
+    # B1 against the f64 driver's t_eval output on the same members, and a
+    # dense=R launch's sol(t_eval) against its own y_eval
+    y0, _, span, tq = inp["vdp"]
+    te = torch.tensor(tq, dtype=torch.float64, device="cuda")
+    for mode, tol64 in (("plain", dict(rtol=1e-4, atol=1e-6)),
+                        ("compensated", dict(rtol=1e-6, atol=1e-9))):
+        out = runs["vdp " + mode]
+        ref = solve_ensemble(vdp, span, y0.double(), method=BS5, t_eval=te,
+                             **tol64)
+        check(bool((ref.status == 1).all()), "f64 t_eval: not finished")
+        rows64 = ref.y_eval.permute(1, 0, 2)
+        d64 = (out[4].double() - rows64).abs().max()
+        d_plain = (plains["vdp " + mode][4].double() - rows64).abs().max()
+        print(f"t_eval vdp {mode} vs f64 solve_ensemble(t_eval) at rtol "
+              f"{tol64['rtol']:g}: max |dy_eval| {d64.item():.3e} (gate "
+              f"{TE_F64_GATES[mode]:.0e}); the plain version's "
+              f"{d_plain.item():.3e}")
+        check(d64.item() <= TE_F64_GATES[mode], f"vdp {mode}: y_eval off f64")
+    dense = ops.solve_fused_erk(R["vdp"], span, y0, method=BS5, t_eval=tq,
+                                dense=TE_DENSE, **PLAIN_TOL)
+    check(_same(dense[:5], runs["vdp plain"]),
+         "vdp: the record changed the outputs or y_eval")
+    sol = dense[5]
+    check(bool(sol.valid.all()), f"vdp dense: {TE_DENSE} rows too few")
+    at = sol(torch.tensor(tq, device="cuda")).permute(2, 0, 1)
+    d_sol = (at - dense[4]).abs().max().item()
+    print(f"t_eval vdp plain with dense={TE_DENSE}: outputs and y_eval bit "
+          f"for bit the launch without the record; sol(t_eval) vs y_eval "
+          f"max |d| {d_sol:.3e} (gate {TE_DENSE_GATE:.0e})")
+    check(d_sol <= TE_DENSE_GATE, "vdp: sol(t_eval) off y_eval")
+
+    # readings: each line's wall through the wrapper, its launch alone with
+    # and without t_eval, the rows' bytes, the bound
+    builds = {
+        "vdp plain": ("fused_erk", FK._kernel(BS5, R["vdp"], False, True),
+                      FK._kernel(BS5, R["vdp"]), runs["vdp plain shape"]),
+        "vdp compensated": ("fused_erk",
+                            FK._kernel(BS5, R["vdp"], False, True),
+                            FK._kernel(BS5, R["vdp"]),
+                            runs["vdp compensated shape"]),
+        "fisher": ("fused_erk_grid",
+                   FKG._kernel(BS5, R["fisher"], False, True),
+                   FKG._kernel(BS5, R["fisher"]),
+                   ops.solve_fused_erk_grid.last_shape),
+        "swdec params": ("fused_ckdisc", FC._kernel(R["swdec"], True),
+                         FC._kernel(R["swdec"]),
+                         ops.solve_fused_ckdisc.last_shape),
+        "ckmol params": ("fused_ckdisc_grid", FCG._kernel(R["ckmol"], True),
+                         FCG._kernel(R["ckmol"]),
+                         ops.solve_fused_ckdisc_grid.last_shape)}
+    tols = {"vdp plain": PLAIN_TOL, "vdp compensated": COMP_TOL,
+            "fisher": FISHER_TOL, "swdec params": CK_TOL,
+            "ckmol params": CKMOL_TOL}
+    out_keys = {}
+    for label, (kind, on_b, off_b, shape) in builds.items():
+        name = label.split()[0]
+        y0, p, span, tq = inp[name]
+        tol = tols[label]
+        ms = wall_ms(lambda: line(name, tol))
+        on_ms = launch_ms(kind, on_b, y0, p, span, tol, shape, 0, tq=tq)[0]
+        off_ms = launch_ms(kind, off_b, y0, p, span, tol, shape, 0)[0]
+        out = runs[label]
+        nb, n = y0.shape
+        snap_bytes = len(tq) * nb * n * 4
+        nfev = int(out[3].sum())
+        if kind == "fused_erk":
+            by = N_MEMBERS * (2 * 4 * 2 + 4 * 3)
+            ops_ = nfev * OPS_PER_EVAL["fused_erk"]
+        elif kind == "fused_erk_grid":
+            by = FISHER_M * (FISHER_N * 4 * 2 + 4 * 3)
+            ops_ = rk_ops(FK._fused_consts(BS5), False, FISHER_N,
+                          RHS_OPS["fisher"], nfev, FISHER_M, 5)
+        elif kind == "fused_ckdisc":
+            by = CK_N * (2 * 4 * 2 + 4 * 4)
+            ops_ = ck_ops(2, RHS_OPS["swdec"], nfev, CK_N, 5)
+        else:
+            by = CKMOL_M * (CKMOL_N * 4 * 2 + 4 * 4)
+            ops_ = ck_ops(CKMOL_N, RHS_OPS["ckmol"], nfev, CKMOL_M, 5)
+        bound = bound_entry(by + snap_bytes, ops_)
+        key = kind if label != "vdp compensated" else kind + "_comp"
+        print(f"time [t_eval {label}, {nb} members, {len(tq)} points]: "
+              f"{ms:.3f} ms wall through the wrapper; the launch alone "
+              f"{on_ms:.4f} ms device with t_eval, {off_ms:.4f} ms without "
+              f"(CUDA events, ten launches back to back, the same shape); "
+              f"rows {snap_bytes} bytes; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}); plain version {plain_ms[key]:.1f} "
+              f"ms wall")
+        suffix = "_teval" if label != "vdp compensated" else "_teval_comp"
+        entry = out_keys.setdefault(kind, {})
+        entry.update({
+            "max_abs_err" + suffix: errs[key][0],
+            "max_abs_err_y_eval" + suffix: errs[key][1],
+            "ms" + suffix: ms, "device_ms" + suffix: on_ms,
+            "device_ms_no_teval" + suffix: off_ms,
+            "plain_ms" + suffix: plain_ms[key],
+            "bound_ms" + suffix: bound["bound_ms"],
+            "bound_by" + suffix: bound["bound_by"],
+            "library_ms" + suffix: None})
+    for kind in out_keys:
+        out_keys[kind]["launches_teval"] = launches.get("solve_" + kind, 0)
+    print(f"t_eval phase: {time.perf_counter() - start:.1f} s")
+    return out_keys
+
+
 HOST_GATE = 1e-9
 HOST_GATES = {"pleiades-cfmr7osc": 1e-6, "kepler-fi5n": 1e-8,
               "swdec-ckdisc": 1e-8}
@@ -5719,9 +6166,11 @@ def host_sensitivities():
 
 def host_front_door(vdp_rhs):
     """ops.solve_fused, one call per family and layout at the earlier
-    phases' problems (few members, short spans), each the route of JAX's
-    table and bit for bit the direct wrapper call.  Every wrapper's count
-    is set to 0 just before and read just after; returns the launches."""
+    phases' problems (few members, short spans), and one more on B11 and
+    B12 with params and t_eval (the t_eval phase's), each the route of
+    JAX's table, one launch and bit for bit the direct wrapper call.  Every
+    wrapper's count is set to 0 just before and read just after; returns
+    the launches."""
     from extensisq_tpu_torch import (BS5, CKdisc, Fi5N, Kv3I, SSV2stab,
                                      SWAG, ops)
     R = dict(rkn_grid_rhs(), **{f"ck_{k}": v for k, v in
@@ -5734,6 +6183,7 @@ def host_front_door(vdp_rhs):
     p10 = torch.tensor(np.linspace(2.8, 3.5, 4), dtype=torch.float32,
                        device="cuda")[:, None]
     vdp0 = vdp_y0(64, torch.float32)
+    TE, te = teval_rhs(), teval_inputs()
     calls = [
         ("fused_erk", vdp_rhs, T_SPAN, vdp0, BS5, dict(PLAIN_TOL)),
         ("fused_erk_grid", R["fisher"], FISHER_SPAN,
@@ -5757,37 +6207,44 @@ def host_front_door(vdp_rhs):
         ("fused_rkc", RK["b9"], (0.0, 0.2), y9, SSV2stab,
          dict(rho=BRUS_RHO, **RKC_TOL)),
         ("fused_rkc_ensemble", RK["b10"], (0.0, 0.5), y10, SSV2stab,
-         dict(rho=ENS_RHO, params=p10, **RKC_TOL))]
+         dict(rho=ENS_RHO, params=p10, **RKC_TOL)),
+        ("fused_ckdisc", TE["swdec"], CK_SPAN, te["swdec"][0][:64], CKdisc,
+         dict(CK_TOL, params=te["swdec"][1][:64], t_eval=te["swdec"][3])),
+        ("fused_ckdisc_grid", TE["ckmol"], CKMOL_SPAN, te["ckmol"][0][:8],
+         CKdisc, dict(CKMOL_TOL, params=te["ckmol"][1][:8],
+                      t_eval=te["ckmol"][3]))]
     wrappers = {name: getattr(ops, "solve_" + name) for name, *_ in calls}
     takes_method = ("fused_erk", "fused_erk_grid", "fused_rkn",
                     "fused_rkn_grid", "fused_esdirk", "fused_esdirk_grid")
-    outs = {}
+    outs = []
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
     for name, rhs, span, y0, method, kw in calls:
         before = {k: f.launches for k, f in wrappers.items()}
-        outs[name] = ops.solve_fused(rhs, span, y0, method=method, **kw)
-        moved = [k for k, f in wrappers.items() if f.launches != before[k]]
-        check(moved == [name], f"solve_fused routed {method.name} on "
-              f"{type(rhs).__name__} {tuple(y0.shape)} to {moved}, not "
-              f"{name}")
+        outs.append(ops.solve_fused(rhs, span, y0, method=method, **kw))
+        moved = {k: f.launches - before[k] for k, f in wrappers.items()
+                 if f.launches != before[k]}
+        check(moved == {name: 1}, f"solve_fused routed {method.name} on "
+              f"{type(rhs).__name__} {tuple(y0.shape)} to {moved}, not one "
+              f"launch of {name}")
     torch.cuda.synchronize()
     door_s = time.perf_counter() - t0
     launches = {k: f.launches for k, f in wrappers.items()}
-    check(all(v == 1 for v in launches.values()),
-          f"solve_fused launches {launches}")
-    for name, rhs, span, y0, method, kw in calls:
+    expect = {k: sum(c[0] == k for c in calls) for k in wrappers}
+    check(launches == expect, f"solve_fused launches {launches}")
+    for (name, rhs, span, y0, method, kw), out in zip(calls, outs):
         direct = wrappers[name](rhs, span, y0, **(
             dict(kw, method=method) if name in takes_method else kw))
-        same = all(a is b or torch.equal(a, b)
-                   for a, b in zip(outs[name], direct))
+        same = len(out) == len(direct) and all(
+            a is b or torch.equal(a, b) for a, b in zip(out, direct))
         check(same, f"solve_fused {name}: not bit for bit the direct call")
-        check(bool((outs[name][1] == 1).all()), f"solve_fused {name}: "
+        check(bool((out[1] == 1).all()), f"solve_fused {name}: "
               "not every member finished")
-    print(f"front door: 12 solve_fused calls in {door_s * 1e3:.1f} ms, each "
-          f"to the kernel of JAX's table (one launch each), each bit for bit "
-          f"the direct wrapper call")
+    print(f"front door: {len(calls)} solve_fused calls in "
+          f"{door_s * 1e3:.1f} ms, each to the kernel of JAX's table (one "
+          f"launch each; B11 and B12 also with params and t_eval, y_eval "
+          f"fifth), each bit for bit the direct wrapper call")
     return launches
 
 
@@ -5836,7 +6293,8 @@ def main():
               + sens_builds(sens_rhs()) + sens_grid_builds(sens_grid_rhs())
               + adjoint_builds(adjoint_rhs())
               + adjoint_routes_builds(adjoint_routes_rhs())
-              + adams_routes_builds(adams_routes_rhs()))
+              + adams_routes_builds(adams_routes_rhs())
+              + teval_builds(teval_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
@@ -6053,6 +6511,12 @@ def main():
     esdirk.update(routes["fused_esdirk"])
     adams.update(swag_routes["fused_adams"])
 
+    # 11f. the t_eval snapshots on B1, B4, B11 and B12, with params on B11
+    # and B12
+    teval = teval_path()
+    for entry in rkn + ck:
+        entry.update(teval.get(entry["name"], {}))
+
     # 12. the host driver (solve_ivp, the Stepper), the sensitivities and
     # the front door ops.solve_fused over every kernel
     door = host_path(smi, VDP)
@@ -6076,7 +6540,8 @@ def main():
         "block_members_compensated": comp_shape[1],
     }, **bound_entry(N_MEMBERS * (2 * 4 * 2 + 4 * 3),
                      int(plain[3].sum()) * OPS_PER_EVAL["fused_erk"]),
-        **sens_erk, **adj_erk), dict(esdirk, **sens_esdirk), adams]
+        **sens_erk, **adj_erk, **teval["fused_erk"]),
+        dict(esdirk, **sens_esdirk), adams]
         + rkc + rkn + ck + mid)
     for k in kernels:
         # the launches of the front door phase beside those of the path

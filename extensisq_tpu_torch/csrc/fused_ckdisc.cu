@@ -43,10 +43,22 @@
 // The tableau, the cascade's weight rows (float32, rounded as the JAX kernel
 // rounds them) and the user's right-hand side come from the generated header
 // fused_ckdisc_config.cuh:
-//   namespace tab { N, S, MORDER, A(i, j), B(j), C(i), E(j), BAS(r, j),
-//                   EAS(r, j), BFB(r, j), EFB(r, j), CFB(r), step and start
-//                   constants }
+//   namespace tab { N, NPAR, SNAP, S, MORDER, A(i, j), B(j), C(i), E(j),
+//                   BAS(r, j), EAS(r, j), BFB(r, j), EFB(r, j), CFB(r), step
+//                   and start constants }
 //   __device__ void rhs(float t, const float* y, float* dy);
+// with NPAR = K > 0 per-member parameters, rhs takes a fourth argument, the
+// member's K parameters (member_rhs.cuh), which a member loads into
+// registers once, before its loop, as B1 does; every evaluation takes them,
+// the starting step's too.
+//
+// t_eval snapshots (ops/fused_ckdisc.py): a build whose header sets
+// tab::SNAP writes each point's row (snapshot.cuh) as the member's accepted
+// sub-step [t, t + h_used] crosses it, h_used being the step as a fallback
+// shortened it, from the end pairs (y, f) and (y_new, f_new) before they are
+// overwritten, a step's crossed points split over the group's lanes (rank 0
+// writing those at the start and the end); the four outputs are those of
+// the build without it.
 //
 // Numerics: nvcc may contract a*b + c into fma (the plain version rounds
 // each operation, so single members part in the last bits and, at a switch
@@ -64,6 +76,8 @@
 #include "rk_rows.cuh"
 #include "ck_control.cuh"
 #include "rk_lanes.cuh"
+#include "member_rhs.cuh"
+#include "snapshot.cuh"
 
 namespace {
 
@@ -77,6 +91,7 @@ constexpr int kTooSmall = 2;
 constexpr int kOverflow = 3;
 
 using Stages = float[S][N];
+using Rhs = MemberRhs<tab::NPAR>;
 
 // The probe build's sections of an attempt (rk::Clock's slots).
 enum Section {
@@ -125,17 +140,18 @@ struct WarpReading {
 
 // Stages I..END-1 of one attempt; K[0] holds f(t, y).
 template <int I, int END>
-__device__ __forceinline__ void stages(float t, float h, const float (&y)[N],
-                                       Stages& K, rk::Clock& clk) {
+__device__ __forceinline__ void stages(const Rhs& fn, float t, float h,
+                                       const float (&y)[N], Stages& K,
+                                       rk::Clock& clk) {
   if constexpr (I < END) {
     float acc[N], arg[N];
     rk::wsum<rk::RowA<I>, I>(acc, K);
 #pragma unroll
     for (int k = 0; k < N; ++k) arg[k] = y[k] + h * acc[k];
     clk.mark(kStageSums);
-    rhs(t + tab::C(I) * h, arg, K[I]);
+    fn(t + tab::C(I) * h, arg, K[I]);
     clk.mark(kRhs);
-    stages<I + 1, END>(t, h, y, K, clk);
+    stages<I + 1, END>(fn, t, h, y, K, clk);
   }
 }
 
@@ -234,17 +250,23 @@ __device__ __forceinline__ void lane_quotients(Group& grp,
 using rk::Launch;
 using rk::OneLane;
 using rk::Out;
+using rk::Snap;
 
 // The whole integration of one member by the group grp of G lanes (rank(),
-// shfl(v, src); OneLane at G = 1) from its initial state y0; lane 0 writes
-// the results.  At G = 1 the step control runs as one thread runs it; at
-// G > 1 the assessments' and the step control's divisions are split over
-// the lanes, with the same bits.
+// shfl(v, src); OneLane at G = 1) from its initial state y0 with its
+// parameters par (tab::NPAR floats; unread when there are none); lane 0
+// writes the results, and with tab::SNAP the member's t_eval rows snap.
+// At G = 1 the step control runs as one thread runs it; at G > 1 the
+// assessments' and the step control's divisions are split over the lanes,
+// with the same bits.
 template <int G, class Group>
 __device__ __forceinline__ void integrate(Group& grp,
                                           const float* __restrict__ y0,
+                                          const float* __restrict__ par,
                                           const Launch& L, int member,
-                                          const Out& out) {
+                                          const Out& out,
+                                          const Snap& snap = Snap{}) {
+  const Rhs fn(par);
   const float tf = L.tf;
   const float rtol = L.rtol;
   const float atol = L.atol;
@@ -256,14 +278,21 @@ __device__ __forceinline__ void integrate(Group& grp,
   const float span = tf - L.t0;
   const float dir = span > 0.0f ? 1.0f : (span < 0.0f ? -1.0f : 0.0f);
   float t = L.t0;
-  rhs(t, y, f);
+  fn(t, y, f);
   ck::Control ctl{{L.h0}};
   int nfev = 1;
   if (L.use_hstart) {
     // max_step is +inf when the caller gave none
     const float bq = t + dir * fminf(fabsf(tf - t), max_step);
-    ctl.h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, f, rtol, atol));
+    ctl.h_abs =
+        fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, f, rtol, atol, fn));
     nfev = 2 + (N + 1 < 3 ? N + 1 : 3);
+  }
+  // the next sorted t_eval point (tab::SNAP): those at or before t0 take y0
+  rk::Cursor cur;
+  if constexpr (tab::SNAP) {
+    cur = rk::cursor_at(snap, snap.past(0, dir, t));
+    if (grp.rank() == 0) rk::snap_fill(snap, 0, cur.q, member, y);
   }
 
   int status = kRunning;
@@ -285,7 +314,7 @@ __device__ __forceinline__ void integrate(Group& grp,
 
     // E1 after two stages; E2 after four where E1 lets the attempt go on;
     // E4 after six where E2 does (kBig where skipped)
-    stages<1, 2>(t, h, y, K, clk);
+    stages<1, 2>(fn, t, h, y, K, clk);
     const float E1 = sqrtf(ck::clean(
         assessment<ck::RowBas<0>, ck::RowEas<0>, 2, G>(grp, y, h, K, rtol,
                                                        atol, y_new)));
@@ -294,7 +323,7 @@ __device__ __forceinline__ void integrate(Group& grp,
     float E2 = ck::kBig;
     clk.mark(kControl);
     if (go2) {
-      stages<2, 4>(t, h, y, K, clk);
+      stages<2, 4>(fn, t, h, y, K, clk);
       const float nm =
           ck::clean(assessment<ck::RowBas<1>, ck::RowEas<1>, 4, G>(
               grp, y, h, K, rtol, atol, y_new));
@@ -307,7 +336,7 @@ __device__ __forceinline__ void integrate(Group& grp,
     bool bad4 = false;
     clk.mark(kControl);
     if (go4) {
-      stages<4, 6>(t, h, y, K, clk);
+      stages<4, 6>(fn, t, h, y, K, clk);
       const float nm = assessment<rk::RowB, rk::RowE, 6, G>(grp, y, h, K,
                                                             rtol, atol, y_new);
       bad4 = !isfinite(nm);
@@ -362,7 +391,7 @@ __device__ __forceinline__ void integrate(Group& grp,
     clk.mark(kLoop);
     if (accepted) {
       float f_new[N];
-      rhs(t_new, y_new, f_new);
+      fn(t_new, y_new, f_new);
       clk.mark(kRhs);
       nfev += 1;
       bool finite = true;
@@ -371,6 +400,11 @@ __device__ __forceinline__ void integrate(Group& grp,
         finite = finite && isfinite(y_new[k]) && isfinite(f_new[k]);
       }
       if (finite) {
+        if constexpr (tab::SNAP) {
+          // the points the accepted sub-step crosses, from its end pairs
+          cur = rk::snap_step<N, G>(snap, cur, member, grp.rank(), dir, t,
+                                    t_new, h_used, y, f, y_new, f_new);
+        }
 #pragma unroll
         for (int k = 0; k < N; ++k) {
           y[k] = y_new[k];
@@ -398,6 +432,8 @@ __device__ __forceinline__ void integrate(Group& grp,
   out.status[member] = status;
   out.nstep[member] = nstep;
   out.nfev[member] = nfev;
+  // the points the member never reached take its final y
+  if constexpr (tab::SNAP) rk::snap_fill(snap, cur.q, snap.nq, member, y);
   clk.write(member, it);
   warp.write(member, it);
 }
@@ -405,10 +441,11 @@ __device__ __forceinline__ void integrate(Group& grp,
 // One thread per member: the group body on one lane, the parent's
 // thread-per-member kernel.
 __device__ void integrate_thread(const float* __restrict__ y0,
-                                 const Launch& L, int member,
-                                 const Out& out) {
+                                 const float* __restrict__ par,
+                                 const Launch& L, int member, const Out& out,
+                                 const Snap& snap = Snap{}) {
   OneLane one;
-  integrate<1>(one, y0, L, member, out);
+  integrate<1>(one, y0, par, L, member, out, snap);
 }
 
 }  // namespace
@@ -419,26 +456,30 @@ __device__ void integrate_thread(const float* __restrict__ y0,
 namespace {
 
 template <int G>
-__global__ void fused_ckdisc_kernel(const float* __restrict__ y0, Out out,
-                                    int B, int block_members, Launch L) {
+__global__ void fused_ckdisc_kernel(const float* __restrict__ y0,
+                                    const float* __restrict__ par, Out out,
+                                    int B, int block_members, Launch L,
+                                    Snap snap) {
   const int member =
       blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
   if (member >= B) return;  // ragged last block: no member padding
   const float* y0m = y0 + static_cast<size_t>(member) * N;
+  const float* parm = par + static_cast<size_t>(member) * tab::NPAR;
   if constexpr (G == 1) {
-    integrate_thread(y0m, L, member, out);
+    integrate_thread(y0m, parm, L, member, out, snap);
   } else {
     LaneGroup<G> grp;
-    integrate<G>(grp, y0m, L, member, out);
+    integrate<G>(grp, y0m, parm, L, member, out, snap);
   }
 }
 
 template <int G>
-int launch(const float* y0, const Out& out, int B, const Launch& L,
-           int block_members, cudaStream_t s) {
+int launch(const float* y0, const float* par, const Out& out, int B,
+           const Launch& L, int block_members, const Snap& snap,
+           cudaStream_t s) {
   const int blocks = (B + block_members - 1) / block_members;
   fused_ckdisc_kernel<G><<<blocks, block_members * G, 0, s>>>(
-      y0, out, B, block_members, L);
+      y0, par, out, B, block_members, L, snap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,32 +502,65 @@ extern "C" int fused_ckdisc_sections(void* sections, void* warp) {
 // Launches block_members members per block, `lanes` (1, 2, 4, 8, 16 or 32)
 // threads per member, on the caller's stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for another lane count); the
-// wrapper raises on anything but 0.
-extern "C" int fused_ckdisc_launch(const void* y0, void* y_out, void* status,
-                                   void* nstep, void* nfev, int B, float t0,
-                                   float tf, float rtol, float atol, float h0,
-                                   int use_hstart, float max_step,
-                                   int max_steps, int lanes,
-                                   int block_members, void* stream) {
+// wrapper raises on anything but 0.  params is (B, tab::NPAR) float32,
+// row-major (null when NPAR is 0).
+static int launch_lanes(const void* y0, const void* params, void* y_out,
+                        void* status, void* nstep, void* nfev, int B,
+                        const Launch& L, int lanes, int block_members,
+                        const Snap& snap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* y0f = static_cast<const float*>(y0);
+  const float* par = static_cast<const float*>(params);
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
-  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
   switch (lanes) {
     case 1:
-      return launch<1>(y0f, out, B, L, block_members, s);
+      return launch<1>(y0f, par, out, B, L, block_members, snap, s);
     case 2:
-      return launch<2>(y0f, out, B, L, block_members, s);
+      return launch<2>(y0f, par, out, B, L, block_members, snap, s);
     case 4:
-      return launch<4>(y0f, out, B, L, block_members, s);
+      return launch<4>(y0f, par, out, B, L, block_members, snap, s);
     case 8:
-      return launch<8>(y0f, out, B, L, block_members, s);
+      return launch<8>(y0f, par, out, B, L, block_members, snap, s);
     case 16:
-      return launch<16>(y0f, out, B, L, block_members, s);
+      return launch<16>(y0f, par, out, B, L, block_members, snap, s);
     case 32:
-      return launch<32>(y0f, out, B, L, block_members, s);
+      return launch<32>(y0f, par, out, B, L, block_members, snap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The launch of a build without snapshots (cudaErrorInvalidValue for a
+// build with them: that one takes fused_ckdisc_snap_launch).
+extern "C" int fused_ckdisc_launch(const void* y0, const void* params,
+                                   void* y_out, void* status, void* nstep,
+                                   void* nfev, int B, float t0, float tf,
+                                   float rtol, float atol, float h0,
+                                   int use_hstart, float max_step,
+                                   int max_steps, int lanes,
+                                   int block_members, void* stream) {
+  if (tab::SNAP) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L, lanes,
+                      block_members, Snap{}, stream);
+}
+
+// The launch of a build with snapshots (tab::SNAP): as fused_ckdisc_launch,
+// and each member writes the rows (snapshot.cuh) of the nq points tq
+// (float32, sorted in the direction of integration) at their indices idx
+// (int32) in t_eval to y_eval (nq, B, N).  cudaErrorInvalidValue for a
+// build without it or nq < 1.
+extern "C" int fused_ckdisc_snap_launch(
+    const void* y0, const void* params, void* y_out, void* status,
+    void* nstep, void* nfev, int B, float t0, float tf, float rtol,
+    float atol, float h0, int use_hstart, float max_step, int max_steps,
+    int lanes, int block_members, const void* tq, const void* idx,
+    void* y_eval, int nq, void* stream) {
+  if (!tab::SNAP || nq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  const Snap snap{static_cast<const float*>(tq), static_cast<const int*>(idx),
+                  static_cast<float*>(y_eval), nq, B};
+  return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L, lanes,
+                      block_members, snap, stream);
 }

@@ -41,10 +41,21 @@
 // parameter is never read and the kernels are those of the build before
 // dense output.
 //
+// t_eval snapshots (ops/fused_erk.py): a build whose header sets tab::SNAP
+// writes each point's row (snapshot.cuh) as the member's accepted step
+// crosses it, the cubic Hermite of the step's end pairs read before y and
+// f are overwritten (the high words in the compensated mode, as JAX's
+// split_rows reads them), a step's crossed points split over the group's
+// lanes (snapshot.cuh: snap_step); points at or before t0 take y0, the
+// points left at the end the final y (rank 0 writing those).  Like the
+// record the rows sit beside the arithmetic: the four outputs are those of
+// the build without them.  A build with both switches serves t_eval with
+// dense=R.
+//
 // The tableau (float32, rounded as the JAX kernel rounds it) and the user's
 // right-hand side come from the generated header fused_erk_config.cuh:
-//   namespace tab { N, NPAR, REC, S, FSAL, A, B, C, E, controller constants,
-//                   ... }
+//   namespace tab { N, NPAR, REC, SNAP, S, FSAL, A, B, C, E, controller
+//                   constants, ... }
 //   __device__ void rhs(float t, const float* y, float* dy);
 // (or the template form rhs<T> of the implicit kernels, instantiated as
 // rhs<float>); with NPAR = K > 0 per-member parameters, rhs takes a fourth
@@ -85,6 +96,7 @@
 #include "rk_common.cuh"
 #include "rk_control.cuh"
 #include "rk_lanes.cuh"
+#include "snapshot.cuh"
 
 namespace {
 
@@ -145,11 +157,13 @@ using rk::Launch;
 using rk::OneLane;
 using rk::Out;
 using rk::Rec;
+using rk::Snap;
 
 // The whole integration of one member by the group grp of G lanes (rank(),
 // shfl(v, src); OneLane at G = 1) from its initial state y0 with its
 // parameters par (tab::NPAR floats; unread when there are none); lane 0
-// writes the results, and with tab::REC the member's record rec.  At G = 1
+// writes the results, with tab::REC the member's record rec and with
+// tab::SNAP its t_eval rows snap.  At G = 1
 // the norm and the controller run as one thread runs them; at G > 1 their
 // divisions and powers are split over the lanes (rk_lanes.cuh), with the
 // same bits.
@@ -159,7 +173,8 @@ __device__ __forceinline__ void integrate(Group& grp,
                                           const float* __restrict__ par,
                                           const Launch& L, int member,
                                           const Out& out,
-                                          const Rec& rec = Rec{}) {
+                                          const Rec& rec = Rec{},
+                                          const Snap& snap = Snap{}) {
   const Rhs fn(par);
   const float tf = L.tf;
   const float rtol = L.rtol;
@@ -194,6 +209,12 @@ __device__ __forceinline__ void integrate(Group& grp,
         fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, f, rtol, atol, fn));
     nfev = 2 + (N + 1 < 3 ? N + 1 : 3);
   }
+  // the next sorted t_eval point (tab::SNAP): those at or before t0 take y0
+  rk::Cursor cur;
+  if constexpr (tab::SNAP) {
+    cur = rk::cursor_at(snap, snap.past(0, dir, t));
+    if (grp.rank() == 0) rk::snap_fill(snap, 0, cur.q, member, y);
+  }
 
   int status = kRunning;
   int nstep = 0;
@@ -206,6 +227,10 @@ __device__ __forceinline__ void integrate(Group& grp,
     bool too_small;
     ctl.prepare(t, tf, max_step, d, too_small);
     const float h = ctl.h_abs * dir;
+    // the cursor's Hermite weights over this attempt (tab::SNAP), formed
+    // here to overlap the stages
+    rk::HermiteWeights w{};
+    if constexpr (tab::SNAP) w = rk::cursor_weights(cur, t, h);
 
     // stages, solution and error estimate
 #pragma unroll
@@ -304,7 +329,21 @@ __device__ __forceinline__ void integrate(Group& grp,
 
     nfev += tab::FSAL ? S : S - 1;
     if (accepted) {
-      if constexpr (tab::FSAL) {
+      if constexpr (tab::SNAP) {
+        // the points this step crosses, from its end pairs
+        float f_new[N];
+        if constexpr (tab::FSAL) {
+#pragma unroll
+          for (int k = 0; k < N; ++k) f_new[k] = K[S][k];
+        } else {
+          fn(t_new, y_new, f_new);
+          nfev += 1;
+        }
+        cur = rk::snap_step<N, G>(snap, cur, w, member, grp.rank(), dir, t,
+                                  t_new, h, y, f, y_new, f_new);
+#pragma unroll
+        for (int k = 0; k < N; ++k) f[k] = f_new[k];
+      } else if constexpr (tab::FSAL) {
 #pragma unroll
         for (int k = 0; k < N; ++k) f[k] = K[S][k];
       } else {
@@ -352,6 +391,8 @@ __device__ __forceinline__ void integrate(Group& grp,
   out.nstep[member] = nstep;
   out.nfev[member] = nfev;
   if constexpr (tab::REC) rec.n[member] = nrec;
+  // the points the member never reached take its final y
+  if constexpr (tab::SNAP) rk::snap_fill(snap, cur.q, snap.nq, member, y);
   clk.write(member, it);
 }
 
@@ -361,9 +402,10 @@ template <bool COMP>
 __device__ void integrate_thread(const float* __restrict__ y0,
                                  const float* __restrict__ par,
                                  const Launch& L, int member,
-                                 const Out& out, const Rec& rec = Rec{}) {
+                                 const Out& out, const Rec& rec = Rec{},
+                                 const Snap& snap = Snap{}) {
   OneLane one;
-  integrate<1, COMP>(one, y0, par, L, member, out, rec);
+  integrate<1, COMP>(one, y0, par, L, member, out, rec, snap);
 }
 
 }  // namespace
@@ -377,32 +419,32 @@ template <int G, bool COMP>
 __global__ void fused_erk_kernel(const float* __restrict__ y0,
                                  const float* __restrict__ par, Out out,
                                  int B, int block_members, Launch L,
-                                 Rec rec) {
+                                 Rec rec, Snap snap) {
   const int member =
       blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
   if (member >= B) return;  // ragged last block: no member padding
   const float* y0m = y0 + static_cast<size_t>(member) * N;
   const float* parm = par + static_cast<size_t>(member) * tab::NPAR;
   if constexpr (G == 1) {
-    integrate_thread<COMP>(y0m, parm, L, member, out, rec);
+    integrate_thread<COMP>(y0m, parm, L, member, out, rec, snap);
   } else {
     LaneGroup<G> grp;
-    integrate<G, COMP>(grp, y0m, parm, L, member, out, rec);
+    integrate<G, COMP>(grp, y0m, parm, L, member, out, rec, snap);
   }
 }
 
 template <int G>
 int launch(const float* y0, const float* par, const Out& out, int B,
            const Launch& L, int compensated, int block_members,
-           const Rec& rec, cudaStream_t s) {
+           const Rec& rec, const Snap& snap, cudaStream_t s) {
   const int blocks = (B + block_members - 1) / block_members;
   const int threads = block_members * G;
   if (compensated) {
     fused_erk_kernel<G, true><<<blocks, threads, 0, s>>>(
-        y0, par, out, B, block_members, L, rec);
+        y0, par, out, B, block_members, L, rec, snap);
   } else {
     fused_erk_kernel<G, false><<<blocks, threads, 0, s>>>(
-        y0, par, out, B, block_members, L, rec);
+        y0, par, out, B, block_members, L, rec, snap);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -427,7 +469,8 @@ extern "C" int fused_erk_sections(void* sections) {
 static int launch_lanes(const void* y0, const void* params, void* y_out,
                         void* status, void* nstep, void* nfev, int B,
                         const Launch& L, int compensated, int lanes,
-                        int block_members, const Rec& rec, void* stream) {
+                        int block_members, const Rec& rec,
+                        const Snap& snap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* y0f = static_cast<const float*>(y0);
   const float* par = static_cast<const float*>(params);
@@ -436,23 +479,24 @@ static int launch_lanes(const void* y0, const void* params, void* y_out,
   switch (lanes) {
     case 1:
       return launch<1>(y0f, par, out, B, L, compensated, block_members, rec,
-                       s);
+                       snap, s);
     case 2:
       return launch<2>(y0f, par, out, B, L, compensated, block_members, rec,
-                       s);
+                       snap, s);
     case 4:
       return launch<4>(y0f, par, out, B, L, compensated, block_members, rec,
-                       s);
+                       snap, s);
     case 8:
       return launch<8>(y0f, par, out, B, L, compensated, block_members, rec,
-                       s);
+                       snap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The launch of a build without dense output (cudaErrorInvalidValue for a
-// build with it: that one takes fused_erk_record_launch).
+// The launch of a build without dense output or snapshots
+// (cudaErrorInvalidValue for a build with either: those take
+// fused_erk_record_launch and fused_erk_snap_launch).
 extern "C" int fused_erk_launch(const void* y0, const void* params,
                                 void* y_out, void* status,
                                 void* nstep, void* nfev, int B, float t0,
@@ -460,27 +504,58 @@ extern "C" int fused_erk_launch(const void* y0, const void* params,
                                 int use_hstart, float max_step, int max_steps,
                                 int compensated, int lanes, int block_members,
                                 void* stream) {
-  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
+  if (tab::REC || tab::SNAP) return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
   return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L,
-                      compensated, lanes, block_members, Rec{}, stream);
+                      compensated, lanes, block_members, Rec{}, Snap{},
+                      stream);
 }
 
 // The launch of a build with dense output (tab::REC): as fused_erk_launch,
 // and each member writes its record (dense_record.cuh) to rec_t (B, rows),
 // rec_y and rec_f (B, rows, N), rec_f0 (B, N) and rec_n (B,) int32.
-// cudaErrorInvalidValue for a build without it or rows < 1.
+// cudaErrorInvalidValue for a build without it, one with snapshots or rows
+// < 1.
 extern "C" int fused_erk_record_launch(
     const void* y0, const void* params, void* y_out, void* status,
     void* nstep, void* nfev, int B, float t0, float tf, float rtol,
     float atol, float h0, int use_hstart, float max_step, int max_steps,
     int compensated, int lanes, int block_members, void* rec_t, void* rec_y,
     void* rec_f, void* rec_f0, void* rec_n, int rows, void* stream) {
-  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tab::REC || tab::SNAP || rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
   const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
                 static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
                 static_cast<int*>(rec_n), rows};
   return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L,
-                      compensated, lanes, block_members, rec, stream);
+                      compensated, lanes, block_members, rec, Snap{}, stream);
+}
+
+// The launch of a build with snapshots (tab::SNAP): as
+// fused_erk_record_launch, the record's arguments null with rows 0 for a
+// build without it, and each member writes the rows (snapshot.cuh) of the
+// nq points tq (float32, sorted in the direction of integration) at their
+// indices idx (int32) in t_eval to y_eval (nq, B, N).
+// cudaErrorInvalidValue for a build without tab::SNAP, nq < 1, or rows
+// that disagree with tab::REC.
+extern "C" int fused_erk_snap_launch(
+    const void* y0, const void* params, void* y_out, void* status,
+    void* nstep, void* nfev, int B, float t0, float tf, float rtol,
+    float atol, float h0, int use_hstart, float max_step, int max_steps,
+    int compensated, int lanes, int block_members, void* rec_t, void* rec_y,
+    void* rec_f, void* rec_f0, void* rec_n, int rows, const void* tq,
+    const void* idx, void* y_eval, int nq, void* stream) {
+  if (!tab::SNAP || nq < 1 || (rows > 0) != tab::REC || rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  const Snap snap{static_cast<const float*>(tq), static_cast<const int*>(idx),
+                  static_cast<float*>(y_eval), nq, B};
+  return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L,
+                      compensated, lanes, block_members, rec, snap, stream);
 }

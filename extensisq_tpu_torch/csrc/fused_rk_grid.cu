@@ -58,6 +58,18 @@
 // and B4 and B6 without dense output) the record parameter is never read
 // and the kernels are those of the build before dense output.
 //
+// t_eval snapshots (B4, ops/fused_erk_grid.py, and B12,
+// ops/fused_ckdisc_grid.py): a build whose header sets tab::SNAP writes
+// each point's row (snapshot.cuh) as the member's accepted step crosses
+// it, the cubic Hermite of the step's end pairs, every thread the elements
+// it owns: B4 in the commit, from the elements of y and f before it
+// overwrites them (their high words in the compensated mode), B12 in its
+// commit from a copy of f's elements that the endpoint's evaluation would
+// overwrite (kept in the stage row K[1], free by then), over the accepted
+// sub-step [t, t + h_used].  Every thread holds the member's cursor into
+// the sorted points.  The four outputs are those of the build without it;
+// B6's builds refuse the switch.
+//
 // The CKdisc cascade (ck_control.cuh) has up to five norms per attempt: E1,
 // E2, E4 and the two fallbacks' error tests.  Every thread holds the same
 // reductions, so the whole group takes the same branch, and stages that E1
@@ -80,7 +92,8 @@
 // lane's elements on one of the SM's four schedulers.
 //
 // The generated header fused_rk_grid_config.cuh provides
-//   namespace tab { G = grid::Grid<...>, N, NPAR, REC, RKN, CK, S, FSAL,
+//   namespace tab { G = grid::Grid<...>, N, NPAR, REC, SNAP, RKN, CK, S,
+//                   FSAL,
 //                   MORDER,
 //                   the weight accessors A, AP, B, BP, C, E, EP and the
 //                   cascade's BAS, EAS, BFB, EFB, CFB (zeros for ERK and
@@ -89,9 +102,9 @@
 //   __device__ float acc(float t, const float* u, const float* v, int i,
 //                        const float* p);
 // (one of the two a stub); neighbours come from tab::G::rolled.  p is the
-// member's NPAR parameters (params of B4 and B6), which it loads once into
-// its shared memory before anything reads them; with NPAR = 0 (B12, and B4
-// and B6 without params) p is a null pointer, as it always was.
+// member's NPAR parameters (params of B4, B6 and B12), which it loads once
+// into its shared memory before anything reads them; with NPAR = 0 (B4, B6
+// and B12 without params) p is a null pointer, as it always was.
 //
 // Numerics as in fused_erk.cu and fused_rkn.cu: the compensated helpers
 // round every operation on its own (__f*_rn), elsewhere nvcc may contract;
@@ -109,6 +122,7 @@
 #include "block_rows.cuh"
 #include "ck_control.cuh"
 #include "block_hstart.cuh"
+#include "snapshot.cuh"
 
 namespace {
 
@@ -121,7 +135,10 @@ constexpr int kMaxThreads = 256;
 
 static_assert(!tab::REC || !tab::CK,
               "dense output is built for the ERK and RKN families only");
+static_assert(!tab::SNAP || !RKN,
+              "t_eval snapshots are built for the ERK and CKdisc families");
 using rk::Rec;
+using rk::Snap;
 
 constexpr int kRunning = 0;
 constexpr int kFinished = 1;
@@ -437,16 +454,55 @@ __device__ float start(Group& g, float* Y, float* K,
                                                  w, L.rtol, L.atol));
 }
 
+// The member's start for its t_eval rows (tab::SNAP): the rows of the
+// sorted points at or before t0 get the thread's elements of the state Y;
+// returns the member's cursor past them.
+template <class Group>
+__device__ __forceinline__ int snap_start(const Group& g, const Snap& snap,
+                                          int member, const Launch& L,
+                                          const float* Y) {
+  const int q = snap.past(0, L.dir, L.t0);
+  rk::for_elements<N>(g, [&](int i) {
+    for (int p = 0; p < q; ++p) snap.row(p, member, N)[i] = Y[i];
+  });
+  return q;
+}
+
+// The member's end for its t_eval rows: the points from the cursor q on,
+// which it never reached, get the thread's elements of its final state Y.
+template <class Group>
+__device__ __forceinline__ void snap_flush(const Group& g, const Snap& snap,
+                                           int q, int member,
+                                           const float* Y) {
+  rk::for_elements<N>(g, [&](int i) {
+    for (int p = q; p < snap.nq; ++p) snap.row(p, member, N)[i] = Y[i];
+  });
+}
+
+// Element i of the rows of the sorted points [q, end), which the accepted
+// step from t of signed size h crosses, from its end pairs (y, f) and
+// (y1, f1).
+__device__ __forceinline__ void snap_element(const Snap& snap, int q,
+                                             int end, int member, int i,
+                                             float t, float h, float y,
+                                             float f, float y1, float f1) {
+  for (int p = q; p < end; ++p) {
+    snap.row(p, member, N)[i] =
+        rk::hermite(snap.theta(p, t, h), h, y, f, y1, f1);
+  }
+}
+
 // The whole integration of one member by the group g (rank(), size(),
 // sync(), sum(x) and min(x): reductions whose result every thread holds).
 // sm is the member's shared memory (kFloats), y0 its initial state, params
 // every member's NPAR parameters (null without any), rec the record with
-// tab::REC.
+// tab::REC, snap the t_eval rows with tab::SNAP.
 template <bool COMP, class Group>
 __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
                           const float* __restrict__ params, const Launch& L,
                           int member, const Out& out,
-                          const Rec& rec = Rec{}) {
+                          const Rec& rec = Rec{},
+                          const Snap& snap = Snap{}) {
   float* Y = sm + kY;
   float* K = sm + kK;
   float* Ylo = sm + kYlo;
@@ -477,6 +533,8 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   int nstep = 0;
   int it = 0;
   int nrec = 0;  // rows of the record written (tab::REC)
+  int q = 0;     // the next sorted t_eval point (tab::SNAP)
+  if constexpr (tab::SNAP) q = snap_start(g, snap, member, L, Y);
   Clock clk;
 
   while (status == kRunning) {
@@ -566,6 +624,8 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
       // below its rows
       const bool rec_row = tab::REC && it < rec.rows;
       const size_t row = tab::REC ? rec.row(member, nstep) : 0;
+      // the t_eval points the step crosses
+      const int q_end = tab::SNAP ? snap.past(q, L.dir, t_new) : 0;
       // each thread commits the elements it computed; a non-FSAL pair
       // evaluates the endpoint of accepted steps only
       rk::for_elements_put<N>(
@@ -581,6 +641,10 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
             return c;
           },
           [&](int i, const Commit& c) {
+            if constexpr (tab::SNAP) {
+              snap_element(snap, q, q_end, member, i, t, h, Y[i], K[i],
+                           c.y.u, c.k);
+            }
             Y[i] = c.y.u;
             if constexpr (RKN) Y[N + i] = c.y.v;
             if constexpr (COMP) {
@@ -604,6 +668,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
             }
           });
       if constexpr (!tab::FSAL) nfev += 1;
+      if constexpr (tab::SNAP) q = q_end;
       t = t_new;
       t_lo = t_lo_new;
       if constexpr (tab::REC) {
@@ -627,6 +692,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   rk::for_elements<NF>(g, [&](int j) {
     out.y[static_cast<size_t>(member) * NF + j] = Y[j];
   });
+  if constexpr (tab::SNAP) snap_flush(g, snap, q, member, Y);
   if (g.rank() == 0) {
     out.status[member] = status;
     out.nsteps[member] = nstep;
@@ -657,7 +723,8 @@ __device__ float assess(Group& g, const float* Y, const float* K, float h,
 }
 
 // The whole integration of one member with CKdisc's cascade (B12), by the
-// group g as integrate; ck_control.cuh has the cascade, fused_ckdisc.cu the
+// group g as integrate, with its parameters from params and with tab::SNAP
+// its t_eval rows snap; ck_control.cuh has the cascade, fused_ckdisc.cu the
 // same loop on one thread.  A full attempt takes ten barrier phases (the
 // loop top, five stages, E1, E2, E4 and the endpoint's count of
 // non-finite elements).  Its norms stay one reduction each, where the
@@ -667,12 +734,14 @@ __device__ float assess(Group& g, const float* Y, const float* K, float h,
 // cascade mostly does not read.
 template <class Group>
 __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
-                             const Launch& L, int member, const Out& out) {
+                             const float* __restrict__ params,
+                             const Launch& L, int member, const Out& out,
+                             const Snap& snap = Snap{}) {
   float* Y = sm + kY;
   float* K = sm + kK;
   float* const arg[2] = {sm + kArg, sm + kArg + NF};
   float* Ysol = K + S * N;  // the attempt's candidate solution
-  const float* P = nullptr;  // B12 takes no parameters
+  const float* P = load_params(g, sm, params, member);
 
   int nfev;
   ck::Control ctl{{start(g, Y, K, y0, L, P, nfev)}};
@@ -680,6 +749,8 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
   int status = kRunning;
   int nstep = 0;
   int it = 0;
+  int q = 0;  // the next sorted t_eval point (tab::SNAP)
+  if constexpr (tab::SNAP) q = snap_start(g, snap, member, L, Y);
   Clock clk;
 
   while (status == kRunning) {
@@ -756,6 +827,7 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
       // elements of the member that are not finite
       float bad = 0.0f;
       rk::for_elements<N>(g, [&](int i) {
+        if constexpr (tab::SNAP) K[N + i] = K[i];  // f at t, for the rows
         K[i] = stage_f(t_new, Ysol, i, P);
         bad += (isfinite(Ysol[i]) && isfinite(K[i])) ? 0.0f : 1.0f;
       });
@@ -764,6 +836,15 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
       const float n_bad = g.sum(bad);
       clk.mark(kWait);
       if (n_bad == 0.0f) {
+        if constexpr (tab::SNAP) {
+          // the t_eval points the accepted sub-step crosses
+          const int q_end = snap.past(q, L.dir, t_new);
+          rk::for_elements<N>(g, [&](int i) {
+            snap_element(snap, q, q_end, member, i, t, h_used, Y[i],
+                         K[N + i], Ysol[i], K[i]);
+          });
+          q = q_end;
+        }
         rk::for_elements<N>(g, [&](int i) { Y[i] = Ysol[i]; });
         t = t_new;
         nstep += 1;
@@ -784,6 +865,7 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
   rk::for_elements<N>(g, [&](int j) {
     out.y[static_cast<size_t>(member) * N + j] = Y[j];
   });
+  if constexpr (tab::SNAP) snap_flush(g, snap, q, member, Y);
   if (g.rank() == 0) {
     out.status[member] = status;
     out.nsteps[member] = nstep;
@@ -846,12 +928,13 @@ __device__ __forceinline__ void member_body(Group& g, float* sm,
                                             const float* __restrict__ y0,
                                             const float* __restrict__ params,
                                             const Launch& L, int member,
-                                            const Out& out, const Rec& rec) {
+                                            const Out& out, const Rec& rec,
+                                            const Snap& snap) {
   const float* y = y0 + static_cast<size_t>(member) * NF;
   if constexpr (tab::CK) {
-    integrate_ck(g, sm, y, L, member, out);
+    integrate_ck(g, sm, y, params, L, member, out, snap);
   } else {
-    integrate<COMP>(g, sm, y, params, L, member, out, rec);
+    integrate<COMP>(g, sm, y, params, L, member, out, rec, snap);
   }
 }
 
@@ -859,12 +942,12 @@ template <bool COMP>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_rk_grid_kernel(const float* __restrict__ y0,
                          const float* __restrict__ params, Launch L,
-                         Out out, Rec rec) {
+                         Out out, Rec rec, Snap snap) {
   extern __shared__ float sm[];
   __shared__ float red[64];
   auto g = group(BlockGroup{red});
   const int member = static_cast<int>(blockIdx.x);
-  member_body<COMP>(g, sm, y0, params, L, member, out, rec);
+  member_body<COMP>(g, sm, y0, params, L, member, out, rec, snap);
   write_phases(g, member);
 }
 
@@ -881,7 +964,7 @@ template <bool COMP>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_rk_grid_warp_kernel(const float* __restrict__ y0,
                               const float* __restrict__ params, Launch L,
-                              Out out, int members, Rec rec) {
+                              Out out, int members, Rec rec, Snap snap) {
   if constexpr (!tab::CK) {
     extern __shared__ float sm[];
     const int warp = static_cast<int>(threadIdx.x >> 5);
@@ -890,7 +973,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (member >= members) return;
     auto g = group(WarpGroup{});
     member_body<COMP>(g, sm + warp * kFloats, y0, params, L, member, out,
-                      rec);
+                      rec, snap);
     write_phases(g, member);
   }
 }
@@ -936,7 +1019,8 @@ extern "C" int fused_rk_grid_smem(int* need, int* limit) {
 static int launch_members(const void* y0, const void* params, void* y_out,
                           void* status, void* nstep, void* nfev, int members,
                           const Launch& L, int compensated, int threads,
-                          int warp_members, const Rec& rec, void* stream) {
+                          int warp_members, const Rec& rec,
+                          const Snap& snap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
@@ -948,26 +1032,29 @@ static int launch_members(const void* y0, const void* params, void* y_out,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const int bytes = warp_members * member_bytes;
-    void (*kernel)(const float*, const float*, Launch, Out, int, Rec) =
+    void (*kernel)(const float*, const float*, Launch, Out, int, Rec,
+                   Snap) =
         compensated ? fused_rk_grid_warp_kernel<true>
                     : fused_rk_grid_warp_kernel<false>;
     const cudaError_t e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int blocks = (members + warp_members - 1) / warp_members;
     kernel<<<blocks, 32 * warp_members, bytes, st>>>(y0f, pf, L, out,
-                                                     members, rec);
+                                                     members, rec, snap);
     return static_cast<int>(cudaGetLastError());
   }
-  void (*kernel)(const float*, const float*, Launch, Out, Rec) =
+  void (*kernel)(const float*, const float*, Launch, Out, Rec, Snap) =
       compensated ? fused_rk_grid_kernel<true> : fused_rk_grid_kernel<false>;
   const cudaError_t e = allow_smem(kernel, member_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<members, threads, member_bytes, st>>>(y0f, pf, L, out, rec);
+  kernel<<<members, threads, member_bytes, st>>>(y0f, pf, L, out, rec,
+                                                 snap);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch of a build without dense output (cudaErrorInvalidValue for a
-// build with it: that one takes fused_rk_grid_record_launch).
+// The launch of a build without dense output or snapshots
+// (cudaErrorInvalidValue for a build with either: those take
+// fused_rk_grid_record_launch and fused_rk_grid_snap_launch).
 extern "C" int fused_rk_grid_launch(const void* y0, const void* params,
                                     void* y_out, void* status,
                                     void* nstep, void* nfev, int members,
@@ -976,18 +1063,19 @@ extern "C" int fused_rk_grid_launch(const void* y0, const void* params,
                                     float max_step, int max_steps,
                                     int compensated, int threads,
                                     int warp_members, void* stream) {
-  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
+  if (tab::REC || tab::SNAP) return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{t0, tf, dir, rtol, atol, h0, use_hstart, max_step,
                  max_steps};
   return launch_members(y0, params, y_out, status, nstep, nfev, members, L,
-                        compensated, threads, warp_members, Rec{}, stream);
+                        compensated, threads, warp_members, Rec{}, Snap{},
+                        stream);
 }
 
 // The launch of an ERK or RKN build with dense output (tab::REC): as
 // fused_rk_grid_launch, and each member writes its record
 // (dense_record.cuh) to rec_t (B, rows), rec_y and rec_f (B, rows, NF),
 // rec_f0 (B, NF) and rec_n (B,) int32.  cudaErrorInvalidValue for a build
-// without it or rows < 1.
+// without it, one with snapshots or rows < 1.
 extern "C" int fused_rk_grid_record_launch(
     const void* y0, const void* params, void* y_out, void* status,
     void* nstep, void* nfev, int members, float t0, float tf, float dir,
@@ -995,12 +1083,45 @@ extern "C" int fused_rk_grid_record_launch(
     int max_steps, int compensated, int threads, int warp_members,
     void* rec_t, void* rec_y, void* rec_f, void* rec_f0, void* rec_n,
     int rows, void* stream) {
-  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tab::REC || tab::SNAP || rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Launch L{t0, tf, dir, rtol, atol, h0, use_hstart, max_step,
                  max_steps};
   const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
                 static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
                 static_cast<int*>(rec_n), rows};
   return launch_members(y0, params, y_out, status, nstep, nfev, members, L,
-                        compensated, threads, warp_members, rec, stream);
+                        compensated, threads, warp_members, rec, Snap{},
+                        stream);
+}
+
+// The launch of an ERK or CKdisc build with snapshots (tab::SNAP): as
+// fused_rk_grid_record_launch, the record's arguments null with rows 0 for a
+// build without it (B12 always), and each member writes the rows
+// (snapshot.cuh) of the nq points tq (float32, sorted in the direction of
+// integration) at their indices idx (int32) in t_eval to y_eval (nq, B,
+// N).  cudaErrorInvalidValue for a build without tab::SNAP, nq < 1, or rows
+// that disagree with tab::REC.
+extern "C" int fused_rk_grid_snap_launch(
+    const void* y0, const void* params, void* y_out, void* status,
+    void* nstep, void* nfev, int members, float t0, float tf, float dir,
+    float rtol, float atol, float h0, int use_hstart, float max_step,
+    int max_steps, int compensated, int threads, int warp_members,
+    void* rec_t, void* rec_y, void* rec_f, void* rec_f0, void* rec_n,
+    int rows, const void* tq, const void* idx, void* y_eval, int nq,
+    void* stream) {
+  if (!tab::SNAP || nq < 1 || (rows > 0) != tab::REC || rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Launch L{t0, tf, dir, rtol, atol, h0, use_hstart, max_step,
+                 max_steps};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  const Snap snap{static_cast<const float*>(tq), static_cast<const int*>(idx),
+                  static_cast<float*>(y_eval), nq, members};
+  return launch_members(y0, params, y_out, status, nstep, nfev, members, L,
+                        compensated, threads, warp_members, rec, snap,
+                        stream);
 }

@@ -62,11 +62,12 @@ def _array(values):
     return "{" + ", ".join(_f32(v) for v in values) + "}"
 
 
-def fused_erk_header(k, n, rhs_src, npar=0, record=False):
+def fused_erk_header(k, n, rhs_src, npar=0, record=False, snap=False):
     """Text of ``fused_erk_config.cuh`` for the constants ``k`` of
     ``ops.fused_erk._fused_consts``, state size ``n``, the CUDA RHS
     source, its number of per-member parameters ``npar`` and whether the
-    build writes the dense record (``record``, ``tab::REC``)."""
+    build writes the dense record (``record``, ``tab::REC``) and the
+    t_eval snapshots (``snap``, ``tab::SNAP``)."""
     s = k["s"]
     A = k["A"]
     cc = k["cc"]
@@ -80,6 +81,7 @@ namespace tab {{
 constexpr int N = {n};
 constexpr int NPAR = {int(npar)};
 constexpr bool REC = {_flag(record)};
+constexpr bool SNAP = {_flag(snap)};
 constexpr int S = {s};
 constexpr bool FSAL = {'true' if k['fsal'] else 'false'};
 constexpr int MORDER = {k['morder']};
@@ -204,16 +206,18 @@ GRID_ACC_STUB = ("__device__ float acc(float t, const float* u, "
                  "const float* v, int i, const float* p) { return 0.0f; }")
 
 
-def fused_rk_grid_header(k, rkn, shape, src, npar=0, record=False):
+def fused_rk_grid_header(k, rkn, shape, src, npar=0, record=False,
+                         snap=False):
     """Text of ``fused_rk_grid_config.cuh`` for the constants ``k`` of an
     ERK (``rkn`` False) or RKN method, or of CKdisc's cascade
     (``ops.fused_ckdisc.ck_consts``), a member grid of extents ``shape``
     (one stage row: the states of an ERK system, the positions of an RKN
     one), the CUDA source of the right-hand side ``rhs`` or the
     acceleration ``acc`` (the other of the two is a stub never called),
-    its number of per-member parameters ``npar`` (``params`` of B4 and
-    B6) and whether the build writes the dense record (``record``,
-    ``tab::REC``; B4 and B6)."""
+    its number of per-member parameters ``npar`` (``params`` of B4, B6
+    and B12) and whether the build writes the dense record (``record``,
+    ``tab::REC``; B4 and B6) and the t_eval snapshots (``snap``,
+    ``tab::SNAP``; B4 and B12)."""
     dims = ", ".join(str(int(d)) for d in shape)
     ck = "B_as" in k
     family = "RKN" if rkn else ("CKdisc" if ck else "ERK")
@@ -227,6 +231,7 @@ using G = grid::Grid<{dims}>;
 constexpr int N = {int(np.prod(shape))};
 constexpr int NPAR = {int(npar)};
 constexpr bool REC = {_flag(record)};
+constexpr bool SNAP = {_flag(snap)};
 constexpr bool RKN = {_flag(rkn)};
 constexpr bool CK = {_flag(ck)};
 constexpr int S = {k['s']};
@@ -243,10 +248,11 @@ constexpr int MORDER = {k['morder']};
 """
 
 
-def fused_ckdisc_header(k, n, rhs_src):
+def fused_ckdisc_header(k, n, rhs_src, npar=0, snap=False):
     """Text of ``fused_ckdisc_config.cuh`` for the constants ``k`` of
-    ``ops.fused_ckdisc.ck_consts``, state size ``n`` and the CUDA RHS
-    source."""
+    ``ops.fused_ckdisc.ck_consts``, state size ``n``, the CUDA RHS source,
+    its number of per-member parameters ``npar`` and whether the build
+    writes the t_eval snapshots (``snap``, ``tab::SNAP``)."""
     return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
 // CKdisc's tableau and cascade weights rounded to float32, and the user's
 // right-hand side.
@@ -254,6 +260,8 @@ def fused_ckdisc_header(k, n, rhs_src):
 
 namespace tab {{
 constexpr int N = {int(n)};
+constexpr int NPAR = {int(npar)};
+constexpr bool SNAP = {_flag(snap)};
 constexpr int S = {k['s']};
 constexpr int MORDER = {k['morder']};
 {_rk_accessors(k)}
@@ -572,16 +580,35 @@ def _bind_record(built, name, argtypes):
     return built
 
 
-def load_fused_erk(consts, n, rhs_src, npar=0, record=False):
+# the snapshot arguments of the t_eval launches, before the stream: the
+# sorted points, their indices in t_eval, y_eval and the number of points
+_SNAP_ARGS = [_VP, _VP, _VP, _CI]
+
+
+def _bind_snap(built, name, argtypes, record=True):
+    """Bind ``lib.<name>_snap_launch``: ``argtypes`` of the launch with the
+    record arguments (where the kernel takes them, ``record``) and the
+    snapshot arguments before the stream."""
+    fn = getattr(built.lib, f"{name}_snap_launch")
+    fn.argtypes = (argtypes[:-1] + (_REC_ARGS if record else [])
+                   + _SNAP_ARGS + argtypes[-1:])
+    fn.restype = ctypes.c_int
+    return built
+
+
+def load_fused_erk(consts, n, rhs_src, npar=0, record=False, snap=False):
     """Build (at first use) and load the fused ERK kernel for one tableau,
-    RHS, parameter count and dense-record switch; returns :class:`Built`
-    with ``lib.fused_erk_launch`` and ``lib.fused_erk_record_launch``
-    bound (each refuses a build of the other kind)."""
+    RHS, parameter count, dense-record switch and snapshot switch; returns
+    :class:`Built` with ``lib.fused_erk_launch``,
+    ``lib.fused_erk_record_launch`` and ``lib.fused_erk_snap_launch``
+    bound (each refuses a build of another kind)."""
     argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF,
                 _CI, _CF, _CI, _CI, _CI, _CI, _VP]
-    return _bind_record(load_kernel(
-        "fused_erk", fused_erk_header(consts, n, rhs_src, npar, record),
-        argtypes), "fused_erk", argtypes)
+    built = _bind_record(load_kernel(
+        "fused_erk",
+        fused_erk_header(consts, n, rhs_src, npar, record, snap), argtypes),
+        "fused_erk", argtypes)
+    return _bind_snap(built, "fused_erk", argtypes)
 
 
 def load_fused_rkn(consts, m, acc_src, npar=0, record=False):
@@ -597,32 +624,37 @@ def load_fused_rkn(consts, m, acc_src, npar=0, record=False):
         argtypes), "fused_rkn", argtypes)
 
 
-def load_fused_rk_grid(consts, rkn, shape, src, npar=0, record=False):
+def load_fused_rk_grid(consts, rkn, shape, src, npar=0, record=False,
+                       snap=False):
     """Build (at first use) and load the block-per-member kernel (B4 for
     an ERK tableau, B6 for an RKN one, B12 for CKdisc's cascade) for one
-    member grid, right-hand side, parameter count and dense-record switch
-    (B4 and B6); returns :class:`Built` with ``lib.fused_rk_grid_launch``,
-    ``lib.fused_rk_grid_record_launch`` and ``lib.fused_rk_grid_smem``
+    member grid, right-hand side, parameter count, dense-record switch (B4
+    and B6) and snapshot switch (B4 and B12); returns :class:`Built` with
+    ``lib.fused_rk_grid_launch``, ``lib.fused_rk_grid_record_launch``,
+    ``lib.fused_rk_grid_snap_launch`` and ``lib.fused_rk_grid_smem``
     bound."""
     argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF,
                 _CF, _CI, _CF, _CI, _CI, _CI, _CI, _VP]
-    built = _bind_record(load_kernel(
+    built = _bind_snap(_bind_record(load_kernel(
         "fused_rk_grid",
-        fused_rk_grid_header(consts, rkn, shape, src, npar, record),
-        argtypes), "fused_rk_grid", argtypes)
+        fused_rk_grid_header(consts, rkn, shape, src, npar, record, snap),
+        argtypes), "fused_rk_grid", argtypes), "fused_rk_grid", argtypes)
     smem = built.lib.fused_rk_grid_smem
     smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     smem.restype = ctypes.c_int
     return built
 
 
-def load_fused_ckdisc(consts, n, rhs_src):
+def load_fused_ckdisc(consts, n, rhs_src, npar=0, snap=False):
     """Build (at first use) and load the fused CKdisc kernel (B11) for one
-    RHS; returns :class:`Built` with ``lib.fused_ckdisc_launch`` bound."""
-    return load_kernel(
-        "fused_ckdisc", fused_ckdisc_header(consts, n, rhs_src),
-        [_VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF, _CI, _CF,
-         _CI, _CI, _CI, _VP])
+    RHS, parameter count and snapshot switch; returns :class:`Built` with
+    ``lib.fused_ckdisc_launch`` and ``lib.fused_ckdisc_snap_launch`` bound
+    (each refuses a build of the other kind)."""
+    argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF,
+                _CI, _CF, _CI, _CI, _CI, _VP]
+    return _bind_snap(load_kernel(
+        "fused_ckdisc", fused_ckdisc_header(consts, n, rhs_src, npar, snap),
+        argtypes), "fused_ckdisc", argtypes, record=False)
 
 
 def load_fused_esdirk(consts, m_diag, rot, n, rhs_src, npar=0, nb=None,

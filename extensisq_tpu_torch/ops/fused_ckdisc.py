@@ -29,6 +29,11 @@ norm counts as 1e30 before any comparison or floor, so it rejects, and a
 member whose accepted state or endpoint derivative is not finite ends with
 status 3 (the JAX kernel scrubs such values to 1.0 and runs on).  float32
 only, as the JAX kernels.
+
+``params`` (B, k) gives every member its own k parameters, as on B1
+(``FusedRHS(torch_fn, cuda_src, n, k)``); ``t_eval`` returns each member's
+state at the given times, the cubic Hermite over the accepted sub-step
+``[t, t + h_used]`` that crosses each (``csrc/snapshot.cuh``).
 """
 import numpy as np
 import torch
@@ -39,9 +44,10 @@ from ..core.controller import resolve_controller
 from ..core.numerics import norm, over
 from ..steppers.erk import weighted_sum
 from . import _hstart_tile
-from .fused_erk import (FusedRHS, _launch_shape, check_options,
-                        device_sm_count, fresh_step, lanes_within_budget,
-                        launch_args)
+from .fused_erk import (FusedRHS, SnapPoints, Snapshots, _launch_shape,
+                        bind_params, check_options, device_sm_count,
+                        eval_points, fresh_step, lanes_within_budget,
+                        launch_args, member_params, snap_outputs)
 
 SAFETY = 0.9
 MAX_FACTOR_CK = 5.0
@@ -89,11 +95,13 @@ def _root(x, e):
 
 
 def run_ck_loop(fun, k, t_span, y, rtol, atol, first_step, max_steps,
-                max_step):
+                max_step, t_eval=None):
     """The fused CKdisc loop (the JAX kernels' ``_run_ck_loop``) on the
     rows-first float32 state ``y`` ``(n, B)``: each iteration is one
     cascade attempt of every running member, and the loop ends once no
-    member is RUNNING.  Returns ``(y (B, n), status, nsteps, nfev)``."""
+    member is RUNNING.  Returns ``(y (B, n), status, nsteps, nfev)``, and
+    with ``t_eval`` ``y_eval`` (len(t_eval), B, n) after them
+    (:class:`~.fused_erk.Snapshots` over each accepted sub-step)."""
     A, B_w, C, E = k["A"], k["B"], k["C"], k["E"]
     B_as, E_as, B_fb, E_fb = k["B_as"], k["E_as"], k["B_fb"], k["E_fb"]
     c2, c3 = float(k["C_fb"][0]), float(k["C_fb"][1])
@@ -128,6 +136,8 @@ def run_ck_loop(fun, k, t_span, y, rtol, atol, first_step, max_steps,
     min_step = torch.zeros_like(t)
     nstep = torch.zeros(nb, **i32)
     nfev = torch.full((nb,), nfev0, **i32)
+    tq = eval_points(t_eval)
+    snaps = None if tq is None else Snapshots(tq, y, direction)
     it = 0
     while True:
         running = status == RUNNING
@@ -213,6 +223,8 @@ def run_ck_loop(fun, k, t_span, y, rtol, atol, first_step, max_steps,
         ovf = accepted & ~(torch.isfinite(y_new).all(0)
                            & torch.isfinite(f_new).all(0))
         upd = accepted & ~ovf
+        if snaps is not None:
+            snaps.step(upd, t, t_new, h_used, y, f, y_new, f_new)
 
         status = torch.where(running & too_small, TOO_SMALL_STEP,
                              torch.where(running & bad4, OVERFLOW, status))
@@ -238,28 +250,33 @@ def run_ck_loop(fun, k, t_span, y, rtol, atol, first_step, max_steps,
         nstep = nstep + upd.to(torch.int32)
         nfev = nfev + dfev.to(torch.int32)
 
-    return y.T.contiguous(), status, nstep, nfev
+    out = (y.T.contiguous(), status, nstep, nfev)
+    return out if snaps is None else out + (snaps.rows(t, y),)
 
 
 def fused_ckdisc_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
-                           first_step=None, max_steps=100_000, max_step=None):
+                           first_step=None, max_steps=100_000, max_step=None,
+                           params=None, t_eval=None):
     """The plain PyTorch version of the fused CKdisc kernel, on the device
     of ``y0_batch`` ``(B, n)``.  ``fun`` is a :class:`FusedRHS` or a
-    rows-first torch function.  Returns ``(y (B, n), status (B,), nsteps
-    (B,), nfev (B,))`` like :func:`solve_fused_ckdisc`."""
-    if isinstance(fun, FusedRHS):
-        fun = fun.torch_fn
-    y = torch.as_tensor(y0_batch).to(torch.float32).T.contiguous()
-    return run_ck_loop(fun, ck_consts(), t_span, y, rtol, atol, first_step,
-                       max_steps, max_step)
+    rows-first torch function, called as ``fun(t, y, p)`` where ``params``
+    (B, k) is given (the float32 start too).  Returns ``(y (B, n), status
+    (B,), nsteps (B,), nfev (B,))`` like :func:`solve_fused_ckdisc`, with
+    ``t_eval`` ``y_eval`` after them."""
+    y0 = torch.as_tensor(y0_batch).to(torch.float32)
+    fun = bind_params(fun, member_params(params, y0, fun))
+    return run_ck_loop(fun, ck_consts(), t_span, y0.T.contiguous(), rtol,
+                       atol, first_step, max_steps, max_step, t_eval)
 
 
-def _kernel(fun):
-    """The kernel built for one FusedRHS."""
+def _kernel(fun, snap=False):
+    """The kernel built for one FusedRHS, with the t_eval snapshots where
+    ``snap`` (a build of its own)."""
     from . import _build
     return _build.cached("fused_ckdisc", (fun,),
                          lambda: _build.load_fused_ckdisc(
-                             ck_consts(), fun.n, fun.cuda_src))
+                             ck_consts(), fun.n, fun.cuda_src, fun.k, snap),
+                         extra=bool(snap))
 
 
 # the lane counts B11 takes besides 1, most first, and the threads per SM
@@ -315,18 +332,24 @@ def solve_fused_ckdisc(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     shape taken is left in ``solve_fused_ckdisc.last_shape``.  On a CPU
     tensor it runs :func:`fused_ckdisc_reference`.
 
-    ``t_eval``, ``events`` and ``params`` are not ported yet.
+    ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
+    them as its third argument (see :class:`~.fused_erk.FusedRHS`, whose
+    ``k`` must agree).  ``t_eval``: times at which to return each member's
+    state, ``y_eval`` (len(t_eval), B, n) after ``nfev``, as on
+    :func:`~.fused_erk.solve_fused_erk`, over each accepted sub-step as a
+    fallback shortened it.  ``events`` is not ported yet.
     """
-    check_options("solve_fused_ckdisc", "B11", t_eval=t_eval, events=events,
-                  params=params)
+    check_options("solve_fused_ckdisc", "B11", events=events)
     y0 = as_input(y0_batch, torch.float32)
+    params = member_params(params, y0, fun)
     if y0.device.type != "cuda":
         return fused_ckdisc_reference(fun, t_span, y0, rtol=rtol, atol=atol,
                                       first_step=first_step,
-                                      max_steps=max_steps, max_step=max_step)
+                                      max_steps=max_steps, max_step=max_step,
+                                      params=params, t_eval=t_eval)
 
     out, shape = _launch(fun, t_span, y0, rtol, atol, first_step, max_steps,
-                         max_step, None, block_members)
+                         max_step, None, block_members, params, t_eval)
     solve_fused_ckdisc.last_shape = shape
     if y0.shape[0]:
         solve_fused_ckdisc.launches += 1
@@ -334,11 +357,14 @@ def solve_fused_ckdisc(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
 
 
 def _launch(fun, t_span, y0, rtol, atol, first_step, max_steps, max_step,
-            lanes, block_members=None):
-    """B11 on the card for the CUDA tensor ``y0``: ``lanes`` lanes per member
-    (None: :func:`_lanes_per_member`'s) and ``block_members`` members per
-    block (None: 128 / lanes).  Returns the four outputs and the ``(lanes,
-    block_members)`` taken; an empty batch launches nothing."""
+            lanes, block_members=None, params=None, t_eval=None):
+    """B11 on the card for the CUDA tensor ``y0`` (and the members'
+    ``params``): ``lanes`` lanes per member (None:
+    :func:`_lanes_per_member`'s) and ``block_members`` members per block
+    (None: 128 / lanes), with the rows of ``t_eval`` (the build with the
+    snapshots) where given.  Returns the outputs (``y_eval`` after the
+    four) and the ``(lanes, block_members)`` taken; an empty batch
+    launches nothing."""
     if not isinstance(fun, FusedRHS):
         raise TypeError("solve_fused_ckdisc on a CUDA tensor needs a FusedRHS "
                         "(a CUDA source of the right-hand side); got "
@@ -350,31 +376,42 @@ def _launch(fun, t_span, y0, rtol, atol, first_step, max_steps, max_step,
                          f"{tuple(y0.shape)}")
     if not y0.is_contiguous():
         raise ValueError("y0_batch must be contiguous")
+    params = member_params(params, y0, fun)
+    if params is not None and not params.is_contiguous():
+        raise ValueError("params must be contiguous")
     nb = y0.shape[0]
     if lanes is None:
         lanes = _lanes_per_member(nb, device_sm_count(y0.device))
     block_members, _, _ = _launch_shape(nb, lanes, block_members)
+    tq = eval_points(t_eval)
 
-    built = _kernel(fun)
+    built = _kernel(fun, tq is not None)
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     shape = (lanes, block_members)
+    snap = None if tq is None else SnapPoints(tq, t_span, y0)
+    out = snap_outputs((y_out, status, nsteps, nfev), snap)
     if nb == 0:
-        return (y_out, status, nsteps, nfev), shape
+        return out, shape
     t0, tf, rt, at, h0, use_h, mstep, msteps, _ = launch_args(
         t_span, rtol, atol, first_step, max_steps, False, max_step)
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
-        rc = built.lib.fused_ckdisc_launch(
-            y0.data_ptr(), y_out.data_ptr(), status.data_ptr(),
-            nsteps.data_ptr(), nfev.data_ptr(), nb, t0, tf, rt, at, h0,
-            use_h, mstep, msteps, int(lanes), block_members, stream)
+        args = (y0.data_ptr(), None if params is None else params.data_ptr(),
+                y_out.data_ptr(), status.data_ptr(), nsteps.data_ptr(),
+                nfev.data_ptr(), nb, t0, tf, rt, at, h0, use_h, mstep,
+                msteps, int(lanes), block_members)
+        if snap is None:
+            rc = built.lib.fused_ckdisc_launch(*args, stream)
+        else:
+            rc = built.lib.fused_ckdisc_snap_launch(*args, *snap.args(),
+                                                    stream)
     if rc != 0:
         raise RuntimeError(f"fused_ckdisc kernel launch failed: CUDA error "
                            f"{rc}")
-    return (y_out, status, nsteps, nfev), shape
+    return out, shape
 
 
 # kernel launches since the count was last set to 0 (the plain version on

@@ -17,31 +17,37 @@ CPU.
 Right-hand sides are :class:`~.fused_rkc.FusedGridRHS` with
 ``shape=(n,)``: ``torch_fn(t, y)`` on ``(n, B)``, shifts as
 ``torch.roll(y, s, 0)`` with ``jnp.roll``'s sign, and the CUDA ``rhs(t,
-y, i, p)`` of one element.
+y, i, p)`` of one element.  With ``params`` (B, k) the FusedGridRHS takes
+``k`` parameters, as on B4: ``torch_fn(t, y, p)`` gets them as ``p`` of
+shape ``(k, B)``, the CUDA ``rhs`` the member's k floats from its shared
+memory.  ``t_eval`` returns each member's state at the given times, over
+each accepted sub-step as on B11 (``csrc/snapshot.cuh``).
 """
 import torch
 
 from .._device import as_input
 from .fused_ckdisc import ck_consts, run_ck_loop
-from .fused_erk import check_options
-from .fused_erk_grid import (_state_size, check_grid_input, grid_threads,
-                             launch_by_rule)
+from .fused_erk import check_options, eval_points, member_params
+from .fused_erk_grid import (_state_size, bind_grid_params, check_grid_input,
+                             grid_threads, launch_by_rule)
 from .fused_rkc import FusedGridRHS
 
 
 def fused_ckdisc_grid_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
                                 first_step=None, max_steps=100_000,
-                                max_step=None):
+                                max_step=None, params=None, t_eval=None):
     """The plain PyTorch version of the mid-size CKdisc kernel, on the
     device of ``y0_batch`` ``(B, n)``: the loop of ``fused_ckdisc``.
-    ``fun`` is a :class:`FusedGridRHS` or a rows-first torch function.
-    Returns ``(y (B, n), status (B,), nsteps (B,), nfev (B,))``."""
+    ``fun`` is a :class:`FusedGridRHS` or a rows-first torch function,
+    called as ``fun(t, y, p)`` with ``p`` ``(k, B)`` where ``params`` (B,
+    k) is given.  Returns ``(y (B, n), status (B,), nsteps (B,), nfev
+    (B,))``, with ``t_eval`` ``y_eval`` after them."""
     if isinstance(fun, FusedGridRHS):
         _state_size(fun)
-        fun = fun.torch_fn
-    y = torch.as_tensor(y0_batch).to(torch.float32).T.contiguous()
-    return run_ck_loop(fun, ck_consts(), t_span, y, rtol, atol, first_step,
-                       max_steps, max_step)
+    y0 = torch.as_tensor(y0_batch).to(torch.float32)
+    fun = bind_grid_params(fun, member_params(params, y0, fun))
+    return run_ck_loop(fun, ck_consts(), t_span, y0.T.contiguous(), rtol,
+                       atol, first_step, max_steps, max_step, t_eval)
 
 
 # B12's launch shapes (see :func:`_launch_shape`): blocks of
@@ -78,12 +84,14 @@ def _launch_shape(B, n, sm_count):
     return min(SMALL_THREADS, grid_threads(n)), 0
 
 
-def _kernel(fun):
-    """The kernel built for one FusedGridRHS."""
+def _kernel(fun, snap=False):
+    """The kernel built for one FusedGridRHS, with the t_eval snapshots
+    where ``snap`` (a build of its own)."""
     from . import _build
     return _build.cached("fused_ckdisc_grid", (fun,),
                          lambda: _build.load_fused_rk_grid(
-                             ck_consts(), False, fun.shape, fun.cuda_src))
+                             ck_consts(), False, fun.shape, fun.cuda_src,
+                             fun.k, False, snap), extra=bool(snap))
 
 
 def solve_fused_ckdisc_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
@@ -107,32 +115,44 @@ def solve_fused_ckdisc_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     ``block_members`` is accepted for the JAX signature and has no effect:
     a member is one block, its size from :func:`_launch_shape`.
 
-    ``t_eval``, ``events`` and ``params`` are not ported yet.
+    ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
+    them as its third argument (see the module docstring; a
+    :class:`FusedGridRHS`'s ``k`` must agree).  ``t_eval``: times at which
+    to return each member's state, ``y_eval`` (len(t_eval), B, n) after
+    ``nfev``, as on :func:`~.fused_ckdisc.solve_fused_ckdisc` (every
+    thread snapshots the elements it commits).  ``events`` is not ported
+    yet.
     """
-    check_options("solve_fused_ckdisc_grid", "B12", t_eval=t_eval,
-                  events=events, params=params)
+    check_options("solve_fused_ckdisc_grid", "B12", events=events)
     y0 = as_input(y0_batch, torch.float32)
+    params = member_params(params, y0, fun)
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
-              max_steps=max_steps, max_step=max_step)
+              max_steps=max_steps, max_step=max_step, params=params,
+              t_eval=t_eval)
     if y0.device.type != "cuda":
         return fused_ckdisc_grid_reference(fun, t_span, y0, **kw)
     n = _state_size(fun) if isinstance(fun, FusedGridRHS) else -1
-    check_grid_input("solve_fused_ckdisc_grid", y0, n, FusedGridRHS, fun)
-    out, shape = _launch(_kernel(fun), t_span, y0, n, count=True, **kw)
+    check_grid_input("solve_fused_ckdisc_grid", y0, n, FusedGridRHS, fun,
+                     params)
+    out, shape = _launch(_kernel(fun, eval_points(t_eval) is not None),
+                         t_span, y0, n, count=True, **kw)
     solve_fused_ckdisc_grid.last_shape = shape
     return out
 
 
 def _launch(built, t_span, y0, n, shape=None, count=False, rtol=1e-4,
-            atol=1e-6, first_step=None, max_steps=100_000, max_step=None):
-    """Launch B12 for the CUDA tensor ``y0`` at ``shape`` (None:
-    :func:`_launch_shape`'s; a given shape is taken as it is, for
-    comparisons), counted where ``count``.  Returns the four outputs and
-    the shape taken."""
+            atol=1e-6, first_step=None, max_steps=100_000, max_step=None,
+            params=None, t_eval=None):
+    """Launch B12 for the CUDA tensor ``y0`` (and the members' ``params``,
+    as the build takes them, and the points of ``t_eval`` on a build with
+    the snapshots) at ``shape`` (None: :func:`_launch_shape`'s; a given
+    shape is taken as it is, for comparisons), counted where ``count``.
+    Returns the outputs and the shape taken."""
     return launch_by_rule(solve_fused_ckdisc_grid, _launch_shape, built, y0,
                           n, t_span, shape, count, rtol=rtol, atol=atol,
                           first_step=first_step, max_steps=max_steps,
-                          compensated=False, max_step=max_step)
+                          compensated=False, max_step=max_step,
+                          params=params, t_eval=t_eval)
 
 
 # kernel launches since the count was last set to 0 (the plain version on

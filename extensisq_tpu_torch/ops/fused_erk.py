@@ -13,7 +13,9 @@ solution and error sums and a double-single ``(hi, lo)`` carry for y and
 t, which lets float32 run rtol ~1e-6 / atol ~1e-9.  ``params`` (B, k)
 gives every member its own k parameters (a parameter-sweep ensemble).
 ``dense=R`` records each member's accepted steps for a continuous dense
-output (``ops/fused_dense.py``).
+output (``ops/fused_dense.py``).  ``t_eval`` returns each member's state at
+the given times, the cubic Hermite of the accepted step that crosses each,
+written inside the kernel (``csrc/snapshot.cuh``).
 """
 import dataclasses
 import functools
@@ -213,7 +215,7 @@ def controller(k, err_norm, err_old, h, h_prev, std_b, rejected, max_fac):
 def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                         atol=1e-6, first_step=None, max_steps=100_000,
                         compensated=False, max_step=None, params=None,
-                        dense=None):
+                        dense=None, t_eval=None):
     """The plain PyTorch version of the fused kernel, on the device of
     ``y0_batch``.
 
@@ -222,9 +224,11 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
     once no member is RUNNING.  ``fun`` is a :class:`FusedRHS` or a
     rows-first torch function, called as ``fun(t, y, p)`` where
     ``params`` (B, k) is given.  Returns ``(y (B, n), status (B,),
-    nsteps (B,), nfev (B,))`` like :func:`solve_fused_erk`, and with
-    ``dense=R`` the members' :class:`~.fused_dense.FusedDenseSolution` as
-    a fifth output, from the rows the kernel writes.
+    nsteps (B,), nfev (B,))`` like :func:`solve_fused_erk`; with
+    ``t_eval`` the rows ``y_eval`` (len(t_eval), B, n) after them (see
+    :class:`Snapshots`), and with ``dense=R`` the members'
+    :class:`~.fused_dense.FusedDenseSolution` last, from the rows the
+    kernel writes.
     """
     k = _fused_consts(method)
     A, B_w, C, E = k["A"], k["B"], k["C"], k["E"]
@@ -270,6 +274,8 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
     nfev = torch.full((nb,), nfev0, **i32)
     rows = dense_rows(dense)
     rec = _Record(y, f, rows) if rows else None
+    tq = eval_points(t_eval)
+    snaps = None if tq is None else Snapshots(tq, y, direction)
     it = 0
     while True:
         running = status == RUNNING
@@ -342,6 +348,8 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
             dfev = dfev + upd.to(torch.int32)
         if rec is not None and it < rec.rows:
             rec.write(upd, nstep, t_new, y_new, f_new)
+        if snaps is not None:
+            snaps.step(upd, t, t_new, h, y, f, y_new, f_new)
         # step cap: loop iterations, accepted plus rejected
         it += 1
         status = torch.where((status == RUNNING) & (it >= max_steps),
@@ -363,6 +371,8 @@ def fused_erk_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
         nfev = nfev + dfev.to(torch.int32)
 
     out = (y.T.contiguous(), status, nstep, nfev)
+    if snaps is not None:
+        out = out + (snaps.rows(t, y),)
     if rec is None:
         return out
     return out + (rec.solution(t_span, nstep),)
@@ -395,6 +405,83 @@ class _Record:
         R = self.rows
         return record_solution(t_span, self.y0, self.f0, self.t[:, :R],
                                self.y[:, :R], self.f[:, :R], self.n, nsteps)
+
+
+def eval_points(t_eval):
+    """``t_eval`` as a 1-D float32 numpy array, as the JAX kernels round
+    its points; None for None or no points (the four outputs alone, as
+    JAX's ``nq = 0``)."""
+    if t_eval is None:
+        return None
+    if isinstance(t_eval, torch.Tensor):
+        t_eval = t_eval.detach().cpu().numpy()
+    tq = np.asarray(t_eval, np.float32).reshape(-1)
+    return tq if tq.size else None
+
+
+class Snapshots:
+    """The plain versions' t_eval rows, JAX's rule point by point
+    (``_run_erk_loop``, ``_run_ck_loop``): at each accepted step every
+    point q with ``dir (tq - t) > 0`` and ``dir tq <= dir t_new`` takes the
+    cubic Hermite of the step's end pairs ``(y, f)``, ``(y_new, f_new)``
+    at ``theta = (tq - t) / h`` clamped to [0, 1] (``h`` 1 where it is 0),
+    its terms summed in ``_hermite_tiles``' order; points at or before t0
+    keep y0, and those a member never reaches take its final y.  Every
+    point is tested at every step (the kernels keep a cursor into the
+    sorted points instead, ``csrc/snapshot.cuh``), over the rows-first
+    ``(n, B)`` state of the plain loops, ``torch.where`` over the
+    members."""
+
+    def __init__(self, tq, y, direction):
+        n, nb = y.shape
+        self.tq = torch.as_tensor(tq, device=y.device)[:, None]
+        self.direction = direction
+        self.y = y.expand(len(tq), n, nb).clone()
+
+    def step(self, upd, t, t_new, h, y, f, y_new, f_new):
+        """The accepted step of each member in ``upd`` from ``(t, y, f)``
+        to ``(t_new, y_new, f_new)`` of signed size ``h`` (rows-first)."""
+        d, tq = self.direction, self.tq
+        crossed = upd & (d * (tq - t) > 0.0) & (d * tq <= d * t_new)
+        theta = torch.clamp((tq - t) / torch.where(h == 0.0, 1.0, h), 0.0,
+                            1.0)
+        t2 = theta * theta
+        t3 = t2 * theta
+        c00 = (2.0 * t3 - 3.0 * t2 + 1.0)[:, None]
+        c10 = (h * (t3 - 2.0 * t2 + theta))[:, None]
+        c01 = (3.0 * t2 - 2.0 * t3)[:, None]
+        c11 = (h * (t3 - t2))[:, None]
+        val = c00 * y + c10 * f + c01 * y_new + c11 * f_new
+        self.y = torch.where(crossed[:, None], val, self.y)
+
+    def rows(self, t, y):
+        """``y_eval`` (nq, B, n) at the members' final ``t`` and ``y``."""
+        d = self.direction
+        unreached = (d * self.tq > d * t)[:, None]
+        return torch.where(unreached, y, self.y).permute(0, 2, 1).contiguous()
+
+
+class SnapPoints:
+    """The t_eval arrays of a snapshot launch for the CUDA tensor ``y0``
+    ``(B, n)``: the float32 points ``tq`` sorted in the direction of
+    ``t_span`` (a stable sort, NaN first), their indices in t_eval and
+    ``y_eval`` (nq, B, n), which the kernel fills (``csrc/snapshot.cuh``)."""
+
+    def __init__(self, tq, t_span, y0):
+        d = np.sign(np.float32(t_span[1]) - np.float32(t_span[0]))
+        with np.errstate(invalid="ignore"):
+            key = d * tq
+        key[np.isnan(key)] = -np.inf
+        order = np.argsort(key, kind="stable")
+        self.nq = len(tq)
+        self.tq = torch.from_numpy(tq[order]).to(y0.device)
+        self.idx = torch.from_numpy(order.astype(np.int32)).to(y0.device)
+        self.y = y0.new_empty(self.nq, *y0.shape)
+
+    def args(self):
+        """The launch's snapshot arguments."""
+        return (self.tq.data_ptr(), self.idx.data_ptr(), self.y.data_ptr(),
+                self.nq)
 
 
 def check_options(name, item, **options):
@@ -440,16 +527,18 @@ def _launch_shape(B, lanes, block_members=None):
     return block_members, threads, -(-int(B) // block_members)
 
 
-def _kernel(method, fun, record=False):
+def _kernel(method, fun, record=False, snap=False):
     """The kernel built for one method and FusedRHS, with the dense record
-    where ``record`` (a build of its own)."""
+    where ``record`` and the t_eval snapshots where ``snap`` (each switch
+    a build of its own)."""
     if method is None:
         from ..methods import BS5 as method
     from . import _build
     return _build.cached("fused_erk", (method, fun),
                          lambda: _build.load_fused_erk(
                              _fused_consts(method), fun.n, fun.cuda_src,
-                             fun.k, record), extra=bool(record))
+                             fun.k, record, snap),
+                         extra=(bool(record), bool(snap)))
 
 
 # threads per SM up to which the wrappers spread members over lane groups
@@ -534,9 +623,20 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
 
     ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
     them as its third argument (see :class:`FusedRHS`, whose ``k`` must
-    agree).  ``t_eval`` and ``events`` are not ported yet.
+    agree).
+
+    ``t_eval``: times (taken as float32, in any order, repeats and points
+    outside the span allowed) at which to return each member's state,
+    ``y_eval`` (len(t_eval), B, n) after ``nfev`` (before the dense
+    output): the cubic Hermite of the accepted step that crosses each
+    point, written inside the kernel (a build of its own,
+    ``csrc/snapshot.cuh``); points at or before t0 take y0, points a
+    member never reaches its final y (a member that ended with status 2 or
+    3 included).  It leaves the four outputs bit for bit as they are
+    without it.  No points: the four outputs alone.  ``events`` is not
+    ported yet.
     """
-    check_options("solve_fused_erk", "B1", t_eval=t_eval, events=events)
+    check_options("solve_fused_erk", "B1", events=events)
     y0 = as_input(y0_batch, torch.float32)
     params = member_params(params, y0, fun)
     if y0.device.type != "cuda":
@@ -544,11 +644,11 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
             fun, t_span, y0, method=method, rtol=rtol, atol=atol,
             first_step=first_step, max_steps=max_steps,
             compensated=compensated, max_step=max_step, params=params,
-            dense=dense)
+            dense=dense, t_eval=t_eval)
 
     out, shape = _launch(fun, t_span, y0, method, rtol, atol, first_step,
                          max_steps, compensated, max_step, None,
-                         block_members, params, dense)
+                         block_members, params, dense, t_eval)
     solve_fused_erk.last_shape = shape
     if y0.shape[0]:
         solve_fused_erk.launches += 1
@@ -557,15 +657,15 @@ def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
 
 def _launch(fun, t_span, y0, method, rtol, atol, first_step, max_steps,
             compensated, max_step, lanes, block_members=None, params=None,
-            dense=None):
+            dense=None, t_eval=None):
     """B1 on the card for the CUDA tensor ``y0`` (and the members'
     ``params``, checked by :func:`member_params`): ``lanes`` lanes per
     member (None: :func:`_lanes_per_member`'s) and ``block_members``
     members per block (None: 128 / lanes), with the dense record of
-    ``dense`` rows a member (the build with it) where given.  Returns the
-    outputs (with the :class:`~.fused_dense.FusedDenseSolution` fifth) and
-    the ``(lanes, block_members)`` taken; an empty batch launches
-    nothing."""
+    ``dense`` rows a member and the rows of ``t_eval`` (each switch the
+    build with it) where given.  Returns the outputs (``y_eval`` and the
+    :class:`~.fused_dense.FusedDenseSolution` after the four) and the
+    ``(lanes, block_members)`` taken; an empty batch launches nothing."""
     if not isinstance(fun, FusedRHS):
         raise TypeError("solve_fused_erk on a CUDA tensor needs a FusedRHS "
                         "(a CUDA source of the right-hand side); got "
@@ -586,17 +686,19 @@ def _launch(fun, t_span, y0, method, rtol, atol, first_step, max_steps,
                                   compensated)
     block_members, _, _ = _launch_shape(nb, lanes, block_members)
     rows = dense_rows(dense)
+    tq = eval_points(t_eval)
 
-    built = _kernel(method, fun, rows > 0)
+    built = _kernel(method, fun, rows > 0, tq is not None)
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     shape = (lanes, block_members)
     rec = DenseRecord(y0, rows)
+    snap = None if tq is None else SnapPoints(tq, t_span, y0)
     out = (y_out, status, nsteps, nfev)
     if nb == 0:
-        return rec.outputs(out, t_span, y0), shape
+        return rec.outputs(snap_outputs(out, snap), t_span, y0), shape
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
         args = (y0.data_ptr(), None if params is None else params.data_ptr(),
@@ -605,14 +707,23 @@ def _launch(fun, t_span, y0, method, rtol, atol, first_step, max_steps,
                 *launch_args(t_span, rtol, atol, first_step, max_steps,
                              compensated, max_step), int(lanes),
                 block_members)
-        if rows:
+        if snap is not None:
+            rc = built.lib.fused_erk_snap_launch(*args, *rec.args(),
+                                                 *snap.args(), stream)
+        elif rows:
             rc = built.lib.fused_erk_record_launch(*args, *rec.args(),
                                                    stream)
         else:
             rc = built.lib.fused_erk_launch(*args, stream)
     if rc != 0:
         raise RuntimeError(f"fused_erk kernel launch failed: CUDA error {rc}")
-    return rec.outputs(out, t_span, y0), shape
+    return rec.outputs(snap_outputs(out, snap), t_span, y0), shape
+
+
+def snap_outputs(out, snap):
+    """The launch's outputs ``out``, with ``y_eval`` after them where there
+    are t_eval points (``snap``, a :class:`SnapPoints`)."""
+    return out if snap is None else out + (snap.y,)
 
 
 def dense_rows(dense):
@@ -639,7 +750,11 @@ class DenseRecord:
             self.n = torch.empty(nb, dtype=torch.int32, device=y0.device)
 
     def args(self):
-        """The launch's record arguments."""
+        """The launch's record arguments (null pointers and 0 rows without
+        a record, as a snapshot launch of a build without it takes
+        them)."""
+        if not self.rows:
+            return (None,) * 5 + (0,)
         return (self.t.data_ptr(), self.y.data_ptr(), self.f.data_ptr(),
                 self.f0.data_ptr(), self.n.data_ptr(), self.rows)
 

@@ -24,15 +24,17 @@ B)`` (``p[j]`` one parameter across the members; JAX's grid functions get
 a k-tuple of ``(bm, 1)`` columns), the CUDA ``rhs`` the member's k floats,
 which the kernel loads once into the member's shared memory.  ``dense=R``
 records each member's accepted steps for a continuous dense output
-(``ops/fused_dense.py``), as on B1.
+(``ops/fused_dense.py``), and ``t_eval`` returns each member's state at
+the given times (``csrc/snapshot.cuh``), as on B1.
 """
 import numpy as np
 import torch
 
 from .._device import as_input
-from .fused_erk import (DenseRecord, _fused_consts, check_options,
-                        dense_rows, fused_erk_reference, launch_args,
-                        member_params)
+from .fused_erk import (DenseRecord, SnapPoints, _fused_consts,
+                        check_options, dense_rows, eval_points,
+                        fused_erk_reference, launch_args, member_params,
+                        snap_outputs)
 from .fused_rkc import FusedGridRHS
 
 # the most threads of a block; a member of n states gets ceil(n / 32) warps
@@ -92,13 +94,14 @@ def bind_grid_params(fun, params):
 def fused_erk_grid_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                              atol=1e-6, first_step=None, max_steps=100_000,
                              compensated=False, max_step=None, params=None,
-                             dense=None):
+                             dense=None, t_eval=None):
     """The plain PyTorch version of the mid-size ERK kernel, on the device
     of ``y0_batch`` ``(B, n)``: B1's loop (``fused_erk_reference``).
     ``fun`` is a :class:`FusedGridRHS` or a rows-first torch function,
     called as ``fun(t, y, p)`` with ``p`` ``(k, B)`` where ``params`` (B, k)
     is given.  Returns ``(y (B, n), status (B,), nsteps (B,), nfev
-    (B,))``, and with ``dense=R`` the dense output fifth."""
+    (B,))``, with ``t_eval`` ``y_eval`` after them and with ``dense=R``
+    the dense output last."""
     if isinstance(fun, FusedGridRHS):
         _state_size(fun)
     y0 = torch.as_tensor(y0_batch)
@@ -106,7 +109,7 @@ def fused_erk_grid_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
     return fused_erk_reference(fun, t_span, y0, method=method, rtol=rtol,
                                atol=atol, first_step=first_step,
                                max_steps=max_steps, compensated=compensated,
-                               max_step=max_step, dense=dense)
+                               max_step=max_step, dense=dense, t_eval=t_eval)
 
 
 def check_grid_input(name, y0, n_state, rhs_type, fun, params=None):
@@ -182,7 +185,7 @@ def launch_by_rule(wrapper, rule, built, y0, n_row, t_span, shape, count,
 
 def launch_grid(wrapper, built, y0, n_row, t_span, shape, count, rtol, atol,
                 first_step, max_steps, compensated, max_step, params=None,
-                dense=None):
+                dense=None, t_eval=None):
     """Launch ``csrc/fused_rk_grid.cu`` (stage rows of ``n_row``) on the
     current stream for ``wrapper``, whose launch count it raises (where
     ``count``; not for comparison launches), at ``shape``: ``(threads,
@@ -191,8 +194,10 @@ def launch_grid(wrapper, built, y0, n_row, t_span, shape, count, rtol, atol,
     members' rows do not fit in the card's shared memory.  ``params``:
     the members' (B, k) parameters of a build with k of them, or None.
     ``dense``: the dense record's rows a member, for a B4 build with it
-    (None: none).  Returns ``(y, status, nsteps, nfev)``, and the
-    :class:`~.fused_dense.FusedDenseSolution` fifth with ``dense``."""
+    (None: none).  ``t_eval``: the points of a B4 or B12 build with
+    snapshots (None: none).  Returns ``(y, status, nsteps, nfev)``, with
+    ``t_eval`` ``y_eval`` after them and with ``dense`` the
+    :class:`~.fused_dense.FusedDenseSolution` last."""
     name = wrapper.__name__
     threads, warp_members = shape
     nb = y0.shape[0]
@@ -201,7 +206,9 @@ def launch_grid(wrapper, built, y0, n_row, t_span, shape, count, rtol, atol,
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     rec = DenseRecord(y0, dense_rows(dense))
-    out = (y_out, status, nsteps, nfev)
+    tq = eval_points(t_eval)
+    snap = None if tq is None else SnapPoints(tq, t_span, y0)
+    out = snap_outputs((y_out, status, nsteps, nfev), snap)
     with torch.cuda.device(y0.device):
         check_shared_memory(name, built.lib.fused_rk_grid_smem,
                             "take a smaller system or solve_fused_* of the "
@@ -216,7 +223,10 @@ def launch_grid(wrapper, built, y0, n_row, t_span, shape, count, rtol, atol,
                 nfev.data_ptr(), nb, t0, tf,
                 float(np.sign(np.float32(tf) - np.float32(t0))), rt, at, h0,
                 use_h, mstep, msteps, comp, threads, warp_members)
-        if rec.rows:
+        if snap is not None:
+            rc = built.lib.fused_rk_grid_snap_launch(*args, *rec.args(),
+                                                     *snap.args(), stream)
+        elif rec.rows:
             rc = built.lib.fused_rk_grid_record_launch(*args, *rec.args(),
                                                        stream)
         else:
@@ -265,17 +275,18 @@ def _launch_shape(B, n, sm_count):
                              WARP_MEMBERS, WARP_MAX_N)
 
 
-def _kernel(method, fun, record=False):
+def _kernel(method, fun, record=False, snap=False):
     """The kernel built for one ERK method and FusedGridRHS, with the dense
-    record where ``record`` (a build of its own)."""
+    record where ``record`` and the t_eval snapshots where ``snap`` (each
+    switch a build of its own)."""
     if method is None:
         from ..methods import BS5 as method
     from . import _build
     return _build.cached("fused_erk_grid", (method, fun),
                          lambda: _build.load_fused_rk_grid(
                              _fused_consts(method), False, fun.shape,
-                             fun.cuda_src, fun.k, record),
-                         extra=bool(record))
+                             fun.cuda_src, fun.k, record, snap),
+                         extra=(bool(record), bool(snap)))
 
 
 def solve_fused_erk_grid(fun, t_span, y0_batch, method=None, rtol=1e-4,
@@ -305,23 +316,23 @@ def solve_fused_erk_grid(fun, t_span, y0_batch, method=None, rtol=1e-4,
     ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
     them as its third argument (see the module docstring; a
     :class:`FusedGridRHS`'s ``k`` must agree).  ``dense=R`` adds the dense
-    output as a fifth output, as on :func:`~.fused_erk.solve_fused_erk`
-    (every thread records the elements it commits).  ``t_eval`` and
-    ``events`` are not ported yet.
+    output last and ``t_eval`` the rows ``y_eval`` after the four, as on
+    :func:`~.fused_erk.solve_fused_erk` (every thread records and
+    snapshots the elements it commits).  ``events`` is not ported yet.
     """
-    check_options("solve_fused_erk_grid", "B4", t_eval=t_eval,
-                  events=events)
+    check_options("solve_fused_erk_grid", "B4", events=events)
     y0 = as_input(y0_batch, torch.float32)
     params = member_params(params, y0, fun)
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, compensated=compensated,
-              max_step=max_step, params=params, dense=dense)
+              max_step=max_step, params=params, dense=dense, t_eval=t_eval)
     if y0.device.type != "cuda":
         return fused_erk_grid_reference(fun, t_span, y0, method=method, **kw)
     n = _state_size(fun) if isinstance(fun, FusedGridRHS) else -1
     check_grid_input("solve_fused_erk_grid", y0, n, FusedGridRHS, fun,
                      params)
-    out, shape = _launch(_kernel(method, fun, dense_rows(dense) > 0),
+    out, shape = _launch(_kernel(method, fun, dense_rows(dense) > 0,
+                                 eval_points(t_eval) is not None),
                          t_span, y0, n, count=True, **kw)
     solve_fused_erk_grid.last_shape = shape
     return out
@@ -329,18 +340,18 @@ def solve_fused_erk_grid(fun, t_span, y0_batch, method=None, rtol=1e-4,
 
 def _launch(built, t_span, y0, n, shape=None, count=False, rtol=1e-4,
             atol=1e-6, first_step=None, max_steps=100_000, compensated=False,
-            max_step=None, params=None, dense=None):
+            max_step=None, params=None, dense=None, t_eval=None):
     """Launch B4 for the CUDA tensor ``y0`` (and the members' ``params``,
-    as the build takes them, and ``dense`` rows of record a member on a
-    build with it) at ``shape`` (None: :func:`_launch_shape`'s, its P
-    capped by the card's shared memory; a given shape is taken as it is,
-    for comparisons), counted where ``count``.  Returns the outputs and
-    the shape taken."""
+    as the build takes them, ``dense`` rows of record a member and the
+    points of ``t_eval`` on a build with each) at ``shape`` (None:
+    :func:`_launch_shape`'s, its P capped by the card's shared memory; a
+    given shape is taken as it is, for comparisons), counted where
+    ``count``.  Returns the outputs and the shape taken."""
     return launch_by_rule(solve_fused_erk_grid, _launch_shape, built, y0, n,
                           t_span, shape, count, rtol=rtol, atol=atol,
                           first_step=first_step, max_steps=max_steps,
                           compensated=compensated, max_step=max_step,
-                          params=params, dense=dense)
+                          params=params, dense=dense, t_eval=t_eval)
 
 
 # kernel launches since the count was last set to 0 (the plain version on

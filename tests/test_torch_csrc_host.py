@@ -43,6 +43,7 @@ import test_torch_fused_erk as TK  # noqa: E402
 import test_torch_fused_erk_grid as TG  # noqa: E402
 import test_torch_fused_rkc as TR  # noqa: E402
 import test_torch_fused_rkn as TN  # noqa: E402
+import test_torch_fused_teval as TT  # noqa: E402
 
 from extensisq_tpu_torch.ops import _build  # noqa: E402
 from extensisq_tpu_torch.ops import fused_adams as FA  # noqa: E402
@@ -192,15 +193,16 @@ struct HostSmallMember {
 };
 static HostSmallMember g_small;
 REC_GLOBAL
+SNAP_GLOBAL
 
 template <int G>
 static void small_lane(int rank) {
   HostLanes lane{rank};
   const HostSmallMember& a = g_small;
   if (a.comp) {
-    integrate<G, true>(lane, a.y0, PAR_ARG a.L, a.m, a.out REC_ARG);
+    integrate<G, true>(lane, a.y0, PAR_ARG a.L, a.m, a.out REC_ARG SNAP_ARG);
   } else {
-    integrate<G, false>(lane, a.y0, PAR_ARG a.L, a.m, a.out REC_ARG);
+    integrate<G, false>(lane, a.y0, PAR_ARG a.L, a.m, a.out REC_ARG SNAP_ARG);
   }
 }
 
@@ -209,9 +211,10 @@ extern "C" int KERNEL_launch(
     void* nfev,
     int B, float t0, float tf, float rtol, float atol, float h0,
     int use_hstart, float max_step, int max_steps, int compensated,
-    int lanes, int block_members, REC_DECL void* stream) {
+    int lanes, int block_members, REC_DECL SNAP_DECL void* stream) {
   const Out out{(float*)y_out, (int*)status, (int*)nstep, (int*)nfev};
   REC_SET
+  SNAP_SET
   const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
   void (*body)(int) = lanes == 2 ? small_lane<2>
                       : lanes == 4 ? small_lane<4>
@@ -225,9 +228,9 @@ extern "C" int KERNEL_launch(
     const float* parm = PAR_ROW;
     if (lanes == 1) {
       if (compensated) {
-        integrate_thread<true>(y0m, PAR_M L, m, out REC_ARG);
+        integrate_thread<true>(y0m, PAR_M L, m, out REC_ARG SNAP_ARG);
       } else {
-        integrate_thread<false>(y0m, PAR_M L, m, out REC_ARG);
+        integrate_thread<false>(y0m, PAR_M L, m, out REC_ARG SNAP_ARG);
       }
     } else {
       g_small = HostSmallMember{y0m, parm, L, m, out, compensated};
@@ -265,10 +268,29 @@ def _with_record(launch, record):
     return launch
 
 
-ERK_RECORD_LAUNCH = _with_record(ERK_LAUNCH, True)
-ERK_LAUNCH = _with_record(ERK_LAUNCH, False)
-RKN_RECORD_LAUNCH = _with_record(_small_launch("fused_rkn"), True)
-RKN_LAUNCH = _with_record(_small_launch("fused_rkn"), False)
+def _with_snap(launch, snap, members="B"):
+    """``launch`` with its t_eval snapshot placeholders filled (``snap``:
+    the points, their indices, y_eval and their count after the record's
+    arguments, as the ``<name>_snap_launch`` entries take them; the
+    member count is ``members``) or empty.  A snapshot launch also takes
+    the record's arguments, null with rows 0 for a build without it."""
+    parts = {"SNAP_GLOBAL": "static Snap g_snap;", "SNAP_ARG": ", g_snap",
+             "SNAP_DECL": ("const void* tq, const void* idx, void* y_eval, "
+                           "int nq,"),
+             "SNAP_SET": ("g_snap = Snap{(const float*)tq, (const int*)idx, "
+                          f"(float*)y_eval, nq, {members}}};")}
+    for key, text in parts.items():
+        launch = launch.replace(key, text if snap else "")
+    return launch
+
+
+ERK_SNAP_LAUNCH = _with_snap(_with_record(ERK_LAUNCH, True), True)
+ERK_RECORD_LAUNCH = _with_snap(_with_record(ERK_LAUNCH, True), False)
+ERK_LAUNCH = _with_snap(_with_record(ERK_LAUNCH, False), False)
+RKN_RECORD_LAUNCH = _with_snap(
+    _with_record(_small_launch("fused_rkn"), True), False)
+RKN_LAUNCH = _with_snap(_with_record(_small_launch("fused_rkn"), False),
+                        False)
 
 # The SWAG bodies of B3 run one member after another: at one lane the
 # thread-per-member body integrate_thread<COMP>, at G lanes the group body
@@ -667,15 +689,16 @@ GRID_LAUNCH = HOST_GROUP + HOST_WARP + r"""
 // one member by the body of the header's family (a template, so that the
 // other family's body is never instantiated)
 REC_GLOBAL
+SNAP_GLOBAL
 template <bool CK, class Group>
 void host_member(Group& g, float* sm, const float* y0, const float* params,
                  const Launch& L, int m, const Out& out, int compensated) {
   if constexpr (CK) {
-    integrate_ck(g, sm, y0, L, m, out);
+    integrate_ck(g, sm, y0, params, L, m, out SNAP_ARG);
   } else if (compensated) {
-    integrate<true>(g, sm, y0, params, L, m, out REC_ARG);
+    integrate<true>(g, sm, y0, params, L, m, out REC_ARG SNAP_ARG);
   } else {
-    integrate<false>(g, sm, y0, params, L, m, out REC_ARG);
+    integrate<false>(g, sm, y0, params, L, m, out REC_ARG SNAP_ARG);
   }
 }
 
@@ -703,9 +726,10 @@ extern "C" int fused_rk_grid_host(
     int* nsteps, int* nfev,
     int members, float t0, float tf, float dir, float rtol, float atol,
     float h0, int use_hstart, float max_step, int max_steps,
-    int compensated, int lanes, REC_DECL int block_order) {
+    int compensated, int lanes, REC_DECL SNAP_DECL int block_order) {
   if (lanes != 1 && lanes != 32) return 1;
   REC_SET
+  SNAP_SET
   const Launch L{t0, tf, dir, rtol, atol, h0, use_hstart, max_step,
                  max_steps};
   const Out out{y_out, status, nsteps, nfev};
@@ -728,9 +752,13 @@ extern "C" int fused_rk_grid_host(
   return 0;
 }
 """
-# B4 with the dense record takes its arrays and rows before block_order
-GRID_RECORD_LAUNCH = _with_record(GRID_LAUNCH, True)
-GRID_LAUNCH = _with_record(GRID_LAUNCH, False)
+# B4 with the dense record takes its arrays and rows before block_order,
+# and B4 and B12 with snapshots theirs after them (with the record's, null
+# without it)
+GRID_SNAP_LAUNCH = _with_snap(_with_record(GRID_LAUNCH, True), True,
+                              "members")
+GRID_RECORD_LAUNCH = _with_snap(_with_record(GRID_LAUNCH, True), False)
+GRID_LAUNCH = _with_snap(_with_record(GRID_LAUNCH, False), False)
 
 # The mid-size SWAG body (B8) integrate<W> run one member after another on
 # a host buffer in place of shared memory: at lanes = 1 by a one-thread
@@ -904,25 +932,28 @@ ESDIRK_GRID_LAUNCH = _with_record(ESDIRK_GRID_LAUNCH, False)
 CK_LAUNCH = COROUTINES + r"""
 struct HostCkMember {
   const float* y0;
+  const float* par;
   Launch L;
   int m;
   Out out;
 };
 static HostCkMember g_ck;
+SNAP_GLOBAL
 
 template <int G>
 static void ck_lane(int rank) {
   HostLanes lane{rank};
-  integrate<G>(lane, g_ck.y0, g_ck.L, g_ck.m, g_ck.out);
+  integrate<G>(lane, g_ck.y0, g_ck.par, g_ck.L, g_ck.m, g_ck.out SNAP_ARG);
 }
 
 extern "C" int fused_ckdisc_launch(
-    const void* y0, void* y_out, void* status, void* nstep, void* nfev,
-    int B, float t0, float tf, float rtol, float atol, float h0,
-    int use_hstart, float max_step, int max_steps, int lanes,
-    int block_members, void* stream) {
+    const void* y0, const void* params, void* y_out, void* status,
+    void* nstep, void* nfev, int B, float t0, float tf, float rtol,
+    float atol, float h0, int use_hstart, float max_step, int max_steps,
+    int lanes, int block_members, SNAP_DECL void* stream) {
   const Out out{(float*)y_out, (int*)status, (int*)nstep, (int*)nfev};
   const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  SNAP_SET
   void (*body)(int) = lanes == 2 ? ck_lane<2>
                       : lanes == 4 ? ck_lane<4>
                       : lanes == 8 ? ck_lane<8>
@@ -934,10 +965,11 @@ extern "C" int fused_ckdisc_launch(
   const float* y0f = (const float*)y0;
   for (int m = 0; m < B; ++m) {
     const float* y0m = y0f + static_cast<size_t>(m) * N;
+    const float* parm = (const float*)params + m * tab::NPAR;
     if (lanes == 1) {
-      integrate_thread(y0m, L, m, out);
+      integrate_thread(y0m, parm, L, m, out SNAP_ARG);
     } else {
-      g_ck = HostCkMember{y0m, L, m, out};
+      g_ck = HostCkMember{y0m, parm, L, m, out};
       run_lanes(lanes, body, stacks);
     }
   }
@@ -945,6 +977,10 @@ extern "C" int fused_ckdisc_launch(
   return 0;
 }
 """
+# B11 with snapshots takes their arrays after block_members, as
+# fused_ckdisc_snap_launch does
+CK_SNAP_LAUNCH = _with_snap(CK_LAUNCH, True)
+CK_LAUNCH = _with_snap(CK_LAUNCH, False)
 
 # label -> (problem, k_max) of each SWAG build; the cases of
 # test_torch_fused_adams.py, and the bench line's k_max = 12
@@ -1026,6 +1062,20 @@ SWAG_BUILDS = {"swag_vdp_p": (TAR.VDP_P, False),
                "swag_vdp_p_rec": (TAR.VDP_P, True),
                "ag_heat_p": (TAR.HEAT_P, False),
                "ag_heat_p_rec": (TAR.HEAT_P, True)}
+# the builds of the t_eval snapshots (B1, B4, B11, B12) and of B11's and
+# B12's params, each beside the build without the snapshots: label ->
+# (kernel, right-hand side, record, snapshots)
+TEVAL_BUILDS = {
+    "erk_vdp5": ("fused_erk", TT.RHS["vdp5"], False, False),
+    "erk_vdp5_snap": ("fused_erk", TT.RHS["vdp5"], False, True),
+    "erk_vdp_p_rec_snap": ("fused_erk", TT.RHS["vdp_p"], True, True),
+    "grid_adv": ("fused_rk_grid", TT.RHS["adv"], False, False),
+    "grid_adv_snap": ("fused_rk_grid", TT.RHS["adv"], False, True),
+    "ck_decay_p": ("fused_ckdisc", TT.RHS["decay_p"], False, False),
+    "ck_decay_p_snap": ("fused_ckdisc", TT.RHS["decay_p"], False, True),
+    "ck_sink_p": ("ck_grid", TT.RHS["sink_p"], False, False),
+    "ck_sink_p_snap": ("ck_grid", TT.RHS["sink_p"], False, True),
+}
 VDP_TEMPLATE = FK.FusedRHS(
     TK.PROBLEMS["vdp"].torch_fn,
     "template <class T>\n__device__ void rhs(T t, const T* y, T* dy) {\n"
@@ -1173,6 +1223,25 @@ def libs(tmp_path_factory):
                 rhs.k, rec),
                 ADAMS_GRID_RECORD_LAUNCH if rec else ADAMS_GRID_LAUNCH,
                 RKC_MARKER)
+    for label, (kernel, rhs, rec, snap) in TEVAL_BUILDS.items():
+        if kernel == "fused_erk":
+            header = _build.fused_erk_header(FK._fused_consts(TK.BS5), rhs.n,
+                                             rhs.cuda_src, rhs.k, rec, snap)
+            launch = (ERK_SNAP_LAUNCH if snap else
+                      ERK_RECORD_LAUNCH if rec else ERK_LAUNCH)
+        elif kernel == "fused_ckdisc":
+            header = _build.fused_ckdisc_header(FC.ck_consts(), rhs.n,
+                                                rhs.cuda_src, rhs.k, snap)
+            launch = CK_SNAP_LAUNCH if snap else CK_LAUNCH
+        else:
+            consts = (FC.ck_consts() if kernel == "ck_grid"
+                      else FK._fused_consts(TK.BS5))
+            kernel = "fused_rk_grid"
+            header = _build.fused_rk_grid_header(consts, False, rhs.shape,
+                                                 rhs.cuda_src, rhs.k, rec,
+                                                 snap)
+            launch = GRID_SNAP_LAUNCH if snap else GRID_LAUNCH
+        jobs[label] = (kernel, header, launch, RKC_MARKER)
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(_compile, *v[:3], d / k, *v[3:])
                    for k, v in jobs.items()}
@@ -1296,11 +1365,13 @@ def test_esdirk_lane_body_bit_identical_to_thread_body(libs, case, lanes):
         np.testing.assert_array_equal(a, b)
 
 
-def _small_host(lib, name, span, y0, lanes=1, params=None, rows=0, **kw):
+def _small_host(lib, name, span, y0, lanes=1, params=None, rows=0,
+                t_eval=None, **kw):
     """The host-built B1 (``name`` fused_erk) or B5 (fused_rkn) on ``y0``
     (with the members' ``params`` or none) by one thread per member (lanes
     = 1) or ``lanes`` coroutine lanes; a build with the dense record takes
-    ``rows`` and returns the record's arrays after the outputs."""
+    ``rows`` and returns the record's arrays after the outputs, and a build
+    with snapshots takes ``t_eval`` and returns ``y_eval`` last."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host lane group switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
@@ -1313,26 +1384,29 @@ def _small_host(lib, name, span, y0, lanes=1, params=None, rows=0, **kw):
     if params is not None:
         params = np.ascontiguousarray(params, np.float32)
     first.append(None if params is None else params.ctypes.data)
-    rec = _HostRecord(y0, rows)
+    snap = _HostSnap(t_eval, span, y0)
+    rec = _HostRecord(y0, rows, snap.points is not None)
     fn.argtypes = ([vp] * (4 + len(first)) + [ci, cf, cf, cf, cf, cf, ci, cf,
                                               ci, ci, ci, ci]
-                   + rec.argtypes + [vp])
+                   + rec.argtypes + snap.argtypes + [vp])
     rc = fn(*first, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
             nf.ctypes.data, nb,
             *FK.launch_args(span, kw["rtol"], kw["atol"],
                             kw.get("first_step"),
                             kw.get("max_steps", 100_000),
                             kw.get("compensated", False), None),
-            lanes, max(1, 128 // lanes), *rec.args(), None)
+            lanes, max(1, 128 // lanes), *rec.args(), *snap.args(), None)
     assert rc == 0
-    return (out, st, ns, nf) + rec.arrays()
+    return (out, st, ns, nf) + rec.arrays() + snap.arrays()
 
 
 class _HostRecord:
     """The dense record's arrays of a host launch at ``rows`` a member
-    (none at 0), filled with NaN so that a row the kernel leaves shows."""
+    (none at 0), filled with NaN so that a row the kernel leaves shows; a
+    snapshot launch (``declared``) takes the record's arguments also
+    without rows, null with rows 0."""
 
-    def __init__(self, y0, rows):
+    def __init__(self, y0, rows, declared=False):
         nb, n = y0.shape
         self.rows = rows
         self.t = np.full((nb, rows), np.nan, np.float32)
@@ -1340,18 +1414,41 @@ class _HostRecord:
         self.f = np.full((nb, rows, n), np.nan, np.float32)
         self.f0 = np.full((nb, n), np.nan, np.float32)
         self.n = np.full(nb, -1, np.int32)
+        self.declared = bool(rows) or declared
         self.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                         if rows else [])
+                         if self.declared else [])
 
     def args(self):
         if not self.rows:
-            return ()
+            return (None,) * 5 + (0,) if self.declared else ()
         return (self.t.ctypes.data, self.y.ctypes.data, self.f.ctypes.data,
                 self.f0.ctypes.data, self.n.ctypes.data, self.rows)
 
     def arrays(self):
         return ((self.t, self.y, self.f, self.f0, self.n) if self.rows
                 else ())
+
+
+class _HostSnap:
+    """The t_eval arrays of a host snapshot launch (none for ``t_eval``
+    None): the points sorted as the wrappers sort them
+    (``ops.fused_erk.SnapPoints``), y_eval filled with NaN so that a row
+    the kernel leaves shows."""
+
+    def __init__(self, t_eval, span, y0):
+        tq = FK.eval_points(t_eval)
+        self.points = (None if tq is None else
+                       FK.SnapPoints(tq, span, torch.from_numpy(y0)))
+        self.argtypes = []
+        if self.points is not None:
+            self.points.y.fill_(float("nan"))
+            self.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+
+    def args(self):
+        return () if self.points is None else self.points.args()
+
+    def arrays(self):
+        return () if self.points is None else (self.points.y.numpy(),)
 
 
 def _erk_host(lib, span, y0, **kw):
@@ -1688,12 +1785,14 @@ def _rkn_host(lib, span, y0, **kw):
 
 
 def _grid_host(lib, span, y0, lanes=1, block_order=False, params=None,
-               rows=0, **kw):
+               rows=0, t_eval=None, **kw):
     """The host-built grid body on ``y0`` (and the members' ``params``) by
     a one-thread group (lanes = 1) or a warp of 32 coroutine lanes, whose
     reductions take their own lane's butterfly result or, with
     ``block_order``, lane 0's; a B4 build with the dense record takes
-    ``rows`` and returns the record's arrays after the outputs."""
+    ``rows`` and returns the record's arrays after the outputs, and a B4
+    or B12 build with snapshots takes ``t_eval`` and returns ``y_eval``
+    last."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host warp switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
@@ -1704,19 +1803,20 @@ def _grid_host(lib, span, y0, lanes=1, block_order=False, params=None,
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
     fn = lib.fused_rk_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    rec = _HostRecord(y0, rows)
+    snap = _HostSnap(t_eval, span, y0)
+    rec = _HostRecord(y0, rows, snap.points is not None)
     fn.argtypes = ([vp] * 6 + [ci] + [cf] * 6 + [ci, cf, ci, ci, ci]
-                   + rec.argtypes + [ci])
+                   + rec.argtypes + snap.argtypes + [ci])
     t0, tf, rt, at, h0, use_h, mstep, msteps, comp = FK.launch_args(
         span, kw["rtol"], kw["atol"], kw.get("first_step"),
         kw.get("max_steps", 100_000), kw.get("compensated", False), None)
     rc = fn(y0.ctypes.data, None if par is None else par.ctypes.data,
             out.ctypes.data, st.ctypes.data, ns.ctypes.data,
             nf.ctypes.data, nb, t0, tf, float(np.sign(tf - t0)), rt, at, h0,
-            use_h, mstep, msteps, comp, lanes, *rec.args(),
+            use_h, mstep, msteps, comp, lanes, *rec.args(), *snap.args(),
             int(block_order))
     assert rc == 0
-    return (out, st, ns, nf) + rec.arrays()
+    return (out, st, ns, nf) + rec.arrays() + snap.arrays()
 
 
 
@@ -1874,12 +1974,15 @@ def test_rkn_kernels_isolate_an_overflowing_member(libs, tmp_path, case):
     assert np.max(np.abs(out[2][ok] - ref[2][ok])) <= 1
 
 
-def _ck_host(lib, span, y0, lanes=1, **kw):
-    """The host-built B11 on ``y0`` by one thread per member (lanes = 1) or
-    ``lanes`` coroutine lanes."""
+def _ck_host(lib, span, y0, lanes=1, params=None, t_eval=None, **kw):
+    """The host-built B11 on ``y0`` (and the members' ``params``) by one
+    thread per member (lanes = 1) or ``lanes`` coroutine lanes; a build
+    with snapshots takes ``t_eval`` and returns ``y_eval`` last."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host lane group switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
+    par = None if params is None else np.ascontiguousarray(params,
+                                                           np.float32)
     nb = y0.shape[0]
     out = np.empty_like(y0)
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
@@ -1888,13 +1991,15 @@ def _ck_host(lib, span, y0, lanes=1, **kw):
         kw.get("max_steps", 100_000), False, kw.get("max_step"))
     fn = lib.fused_ckdisc_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 5 + [ci, cf, cf, cf, cf, cf, ci, cf, ci, ci, ci,
-                              vp]
-    rc = fn(y0.ctypes.data, out.ctypes.data, st.ctypes.data, ns.ctypes.data,
-            nf.ctypes.data, nb, t0, tf, rt, at, h0, use_h, mstep, msteps,
-            lanes, max(1, 128 // lanes), None)
+    snap = _HostSnap(t_eval, span, y0)
+    fn.argtypes = ([vp] * 6 + [ci, cf, cf, cf, cf, cf, ci, cf, ci, ci, ci]
+                   + snap.argtypes + [vp])
+    rc = fn(y0.ctypes.data, None if par is None else par.ctypes.data,
+            out.ctypes.data, st.ctypes.data, ns.ctypes.data, nf.ctypes.data,
+            nb, t0, tf, rt, at, h0, use_h, mstep, msteps, lanes,
+            max(1, 128 // lanes), *snap.args(), None)
     assert rc == 0
-    return out, st, ns, nf
+    return (out, st, ns, nf) + snap.arrays()
 
 
 def _ck_case(libs, name, **over):
@@ -2921,3 +3026,138 @@ def test_swag_params_kernels_match_plain_versions(grid_param_libs, kind,
     np.testing.assert_array_equal(host[1], ref[1].numpy())
     assert np.max(np.abs(host[2] - ref[2].numpy())) <= dsteps
     assert np.max(np.abs(host[0] - ref[0].numpy())) <= y_gate
+
+
+# -- the t_eval snapshots (B1, B4, B11, B12) and B11's and B12's params ----
+
+# a case of tests/test_torch_fused_teval.py -> (its build without the
+# snapshots, its build with them); b1_params's builds carry the dense
+# record too (its rows beside the snapshots)
+TEVAL_HOST = {"b1_plain": ("erk_vdp5", "erk_vdp5_snap"),
+              "b1_comp": ("erk_vdp5", "erk_vdp5_snap"),
+              "b1_params": ("vdp_params_rec", "erk_vdp_p_rec_snap"),
+              "b4_adv": ("grid_adv", "grid_adv_snap"),
+              "b11_both": ("ck_decay_p", "ck_decay_p_snap"),
+              "b12_params_teval": ("ck_sink_p", "ck_sink_p_snap")}
+TEVAL_ROWS = {"b1_params": 256}
+
+
+def _teval_host(libs, name, snap=True, lanes=1, **over):
+    """A case of tests/test_torch_fused_teval.py on its host-built kernel
+    (with the snapshots where ``snap``, else without ``t_eval``), at
+    ``lanes`` lanes (B1 and B11 coroutine lanes, B4 a warp of 32)."""
+    kind, _, span, _ = TT.CASES[name]
+    base = TT.FIRST.get(name, name)
+    y0, kw = TT._inputs(name)
+    kw = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+          for k, v in dict(kw, **over).items()}
+    if not snap:
+        kw.pop("t_eval", None)
+    kw.pop("dense", None)
+    lib = libs[TEVAL_HOST[base][int(snap)]]
+    host = {"erk": _erk_host, "ckdisc": _ck_host}.get(kind, _grid_host)
+    return host(lib, span, y0.numpy(), lanes=lanes,
+                **dict(kw, rows=TEVAL_ROWS[base]) if base in TEVAL_ROWS
+                else kw)
+
+
+# lanes of each kind's group bodies besides one thread: B1's and B11's
+# coroutine lanes, B4's warp of 32 (B12's warp the card does not build)
+TEVAL_LANES = {"b1_plain": (2, 4, 8), "b1_comp": (2, 4, 8),
+               "b1_params": (4,), "b4_adv": (32,),
+               "b11_both": (2, 8, 32), "b12_params_teval": ()}
+
+
+@pytest.mark.parametrize("name,lanes", [
+    (name, lanes) for name in TEVAL_HOST for lanes in (1,) + (
+        TEVAL_LANES[name][-1:])])
+def test_snapshot_builds_leave_the_outputs_bit_for_bit(libs, name, lanes):
+    """The snapshot build (tab::SNAP) of each kernel gives the build
+    without it bit for bit: the four outputs, and B1's dense record beside
+    the snapshots; on one thread and on the kind's group body."""
+    out = _teval_host(libs, name, lanes=lanes)
+    off = _teval_host(libs, name, snap=False, lanes=lanes)
+    assert len(out) == len(off) + 1
+    for a, b in zip(out, off):
+        np.testing.assert_array_equal(a, b)
+    assert not np.isnan(out[-1]).any()
+
+
+# (case, max |dy|, max |dy_eval|, max |dnsteps|, members with other
+# counts) of the host-built kernels against the plain versions, measured
+# (the libraries' powf parts last bits of h, from the second attempt):
+# b1_plain 4.6e-7, 1.9e-6, 0, 0; b1_comp 2.1e-7, 1.7e-5, 2, 5 of 128;
+# b1_params 2.7e-6, 4.3e-6, 0, 0; b4_adv 8.1e-6, 4.8e-5, 0, 1; b11_both
+# 7.9e-5, 1.7e-4, 5, 2 of 32; b12_params_teval 2.4e-6, 2.4e-6, 0, 1.
+# Gates about 2x.
+TEVAL_HOST_GATES = [("b1_plain", 1e-6, 4e-6, 1, 2),
+                    ("b1_comp", 5e-7, 4e-5, 4, 10),
+                    ("b1_params", 6e-6, 1e-5, 1, 2),
+                    ("b4_adv", 2e-5, 1e-4, 1, 2),
+                    ("b11_both", 2e-4, 4e-4, 10, 4),
+                    ("b12_params_teval", 5e-6, 5e-6, 1, 2)]
+
+
+@pytest.mark.parametrize("name,y_gate,yq_gate,dsteps,nmembers",
+                         TEVAL_HOST_GATES)
+def test_snapshot_kernels_match_plain_versions(libs, name, y_gate, yq_gate,
+                                               dsteps, nmembers):
+    """The kernels' rows (their cursor into the sorted points) against the
+    plain versions' (every point tested at every step), with params on B1,
+    B11 and B12: status identical, y, y_eval and the counts within the
+    gates."""
+    out = _teval_host(libs, name)
+    ref = [r.numpy() for r in TT._port(name)[:5]]
+    np.testing.assert_array_equal(out[1], ref[1])
+    assert np.all(out[1] == 1)
+    assert np.max(np.abs(out[0] - ref[0])) <= y_gate
+    assert np.max(np.abs(out[-1] - ref[4])) <= yq_gate
+    assert np.max(np.abs(out[2] - ref[2])) <= dsteps
+    assert np.sum((out[2] != ref[2]) | (out[3] != ref[3])) <= nmembers
+
+
+@pytest.mark.parametrize("name", list(TT.FIRST))
+def test_snapshot_first_attempt_bit_identical(libs, name):
+    """One attempt of every member from ``first_step``, with points inside
+    the step, before t0 and past it: the kernels' rows (the Hermite's
+    __f*_rn operations in _hermite_tiles' order, y0, the final y) and
+    outputs are the plain version's bit for bit."""
+    out = _teval_host(libs, name)
+    ref = TT._port(name)
+    assert np.all(out[1] == 3)
+    for a, b in zip(out[:4] + out[-1:], ref[:5]):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+@pytest.mark.parametrize("name,lanes", [
+    (name, lanes) for name in ("b1_plain", "b1_comp", "b11_both")
+    for lanes in TEVAL_LANES[name]])
+def test_snapshot_lane_bodies_bit_identical_to_thread_body(libs, name,
+                                                           lanes):
+    """B1's and B11's group bodies with snapshots (a step's crossed points
+    split over the lanes) give the thread body's outputs and rows bit for
+    bit, B11 with a parameter a member."""
+    for a, b in zip(_teval_host(libs, name, lanes=lanes),
+                    _teval_host(libs, name)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["b11_params", "b12_params"])
+def test_ckdisc_params_kernels_match_plain_versions(libs, name):
+    """B11 and B12 with a parameter a member (k = 1, loaded once: B11's
+    into registers, B12's into its shared memory) against their plain
+    versions at the gates of the k = 0 cases (CK_GATES' swdec and mol):
+    status identical, y and the counts within them."""
+    kind, _, span, _ = TT.CASES[name]
+    y0, kw = TT._inputs(name)
+    lib = "ck_decay_p" if kind == "ckdisc" else "ck_sink_p"
+    host = _ck_host if kind == "ckdisc" else _grid_host
+    out = host(libs[lib], span, y0.numpy(), params=kw.pop("params").numpy(),
+               **kw)
+    ref = [r.numpy() for r in TT._port(name)]
+    np.testing.assert_array_equal(out[1], ref[1])
+    y_gate, dsteps, nmembers = {"ckdisc": (2.5e-3, 10, 80),
+                                "ckdisc_grid": (7e-4, 14, 8)}[kind]
+    assert np.max(np.abs(out[0] - ref[0])) <= y_gate
+    assert np.max(np.abs(out[2] - ref[2])) <= dsteps
+    assert np.sum((out[2] != ref[2]) | (out[3] != ref[3])) <= nmembers

@@ -2,11 +2,13 @@
 Pallas kernels.
 
 ``fused_ckdisc_reference`` and ``fused_ckdisc_grid_reference`` (the CUDA
-kernels' plain PyTorch versions) run on the CPU; the JAX side runs
+kernels' plain PyTorch versions) run on the CPU; the JAX side,
 ``solve_fused_ckdisc``/``solve_fused_ckdisc_grid(..., interpret=True)`` as
-the JAX package's own tests run them, on the same seeded inputs, in one
-subprocess with ``XLA_FLAGS=--xla_cpu_max_isa=SSE4_2`` (no FMA, so both
-sides round alike; see ``test_torch_fused_erk.py``).  The first attempt of
+the JAX package's own tests run them, on the same seeded inputs, with
+``XLA_FLAGS=--xla_cpu_max_isa=SSE4_2`` (no FMA, so both sides round alike;
+see ``test_torch_fused_erk.py``), is read from
+``tests/jax_fused_ckdisc.npz``, which ``tests/jax_fused_ckdisc.py`` writes
+from this module's cases.  The first attempt of
 each member is then bit for bit the same.  From the second on, the roots of
 E2 and E4 part the last bits of h: the port takes ``pow`` where the JAX
 kernel takes ``exp(log(x) / 3)`` and ``exp(0.2 log(x))`` (a Mosaic
@@ -23,11 +25,6 @@ the f64 host driver's, and so do the port's.
 The tests marked ``gpu`` hold the CUDA kernels against their plain
 versions on the card; they skip where there is none.
 """
-import json
-import os
-import subprocess
-import sys
-import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -189,49 +186,6 @@ CASES = {
 FIRST = {"swdec_1": ("swdec_h0", 1), "decay_1": ("decay", 1),
          "rational_3": ("rational_h0", 3), "mol_1": ("mol_h0", 1)}
 
-_JAX_SCRIPT = textwrap.dedent(f"""
-    import json, sys
-    import numpy as np
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    import jax.numpy as jnp
-    from extensisq_tpu.ops import solve_fused_ckdisc, solve_fused_ckdisc_grid
-
-    def sw(t, freq):
-        return jnp.where(jnp.sin(freq * t) >= 0.0, 1.0, -1.0)
-
-    def diffusion(t, y):
-        left = jnp.concatenate([jnp.zeros_like(y[:, :1]), y[:, :-1]], axis=1)
-        right = jnp.concatenate([y[:, 1:], jnp.zeros_like(y[:, :1])], axis=1)
-        return 20.0 * (left - 2.0 * y + right) + jnp.abs(y - 0.4)
-
-    problems = {{
-        "decay": lambda t, y: jnp.stack([(-sw(t, 3.0) - 0.5) * y[0]]),
-        "swdec": lambda t, y: jnp.stack([(-sw(t, 3.0) - 0.5) * y[0],
-                                         (sw(t, 3.0) - 0.5) * y[1]]),
-        "rational": lambda t, y: jnp.stack(
-            [y[1] / t, y[1] * (y[0] + 2 * y[1] - 1) / (t * (y[0] - 1))]),
-        "linear": lambda t, y: jnp.stack([-y[0], -0.5 * y[1] + y[0]]),
-        "cubic": lambda t, y: jnp.stack([y[1], y[0] ** 3]),
-        "mol": lambda t, y: (-(y - jnp.roll(y, 1, -1)) * {float(N_MOL)!r}
-                             + y * (1.0 - y) + 0.3 * sw(t, 4.0)),
-        "diffusion": diffusion,
-    }}
-    inputs = np.load(sys.argv[1])
-    out = {{}}
-    for name, (kind, prob, span, y0, kw) in json.loads(sys.argv[2]).items():
-        if kind == "flat":
-            res = solve_fused_ckdisc(problems[prob], tuple(span), inputs[y0],
-                                     block_members=128, interpret=True, **kw)
-        else:
-            res = solve_fused_ckdisc_grid(problems[prob], tuple(span),
-                                          inputs[y0], block_members=8,
-                                          interpret=True, **kw)
-        for i, r in enumerate(res):
-            out[f"{{name}}/{{i}}"] = np.asarray(r)
-    np.savez(sys.argv[3], **out)
-""")
-
 
 def _spec():
     spec = {k: list(v) for k, v in CASES.items()}
@@ -242,16 +196,10 @@ def _spec():
 
 
 @pytest.fixture(scope="module")
-def jax_results(tmp_path_factory):
-    """The JAX kernels' outputs for every case, from one subprocess."""
-    d = tmp_path_factory.mktemp("jax_fused_ckdisc")
-    np.savez(d / "in.npz", **Y0)
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_cpu_max_isa=SSE4_2", PYTHONPATH=str(REPO))
-    subprocess.run([sys.executable, "-c", _JAX_SCRIPT, str(d / "in.npz"),
-                    json.dumps(_spec()), str(d / "out.npz")],
-                   cwd=REPO, env=env, check=True, timeout=600)
-    out = np.load(d / "out.npz")
+def jax_results():
+    """The JAX kernels' outputs for every case, from
+    ``tests/jax_fused_ckdisc.npz``."""
+    out = np.load(REPO / "tests" / "jax_fused_ckdisc.npz")
     return {k: tuple(out[f"{k}/{i}"] for i in range(4)) for k in _spec()}
 
 
@@ -404,7 +352,7 @@ def test_cpu_wrappers_run_plain_versions():
         assert solve_fn.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events", "params"])
+@pytest.mark.parametrize("option", ["events"])
 @pytest.mark.parametrize("solve_fn", [solve_fused_ckdisc,
                                       solve_fused_ckdisc_grid])
 def test_unported_options_raise(solve_fn, option):
@@ -472,7 +420,8 @@ def test_build_keys_hash_the_included_headers():
     from extensisq_tpu_torch.ops import _build
     assert [p.name for p in _build.shared_headers("fused_ckdisc")] == [
         "hstart.cuh", "rk_common.cuh", "rk_rows.cuh", "ck_control.cuh",
-        "rk_lanes.cuh", "lane_group.cuh", "rk_control.cuh"]
+        "rk_lanes.cuh", "member_rhs.cuh", "snapshot.cuh", "lane_group.cuh",
+        "rk_control.cuh"]
     assert "ck_control.cuh" in [p.name for p in
                                 _build.shared_headers("fused_rk_grid")]
 

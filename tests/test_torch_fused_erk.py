@@ -217,7 +217,7 @@ def test_cpu_wrapper_runs_plain_version():
     assert solve_fused_erk.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events"])
+@pytest.mark.parametrize("option", ["events"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_fused_erk(PROBLEMS["vdp"], (0.0, 1.0), torch.tensor(VDP0),

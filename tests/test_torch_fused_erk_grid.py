@@ -370,7 +370,7 @@ def test_params_k_read_from_the_two_rhs_classes_only(fun):
                           FusedGridAcc(lambda t, u, v, p: u, "", 4, 2))
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events"])
+@pytest.mark.parametrize("option", ["events"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_fused_erk_grid(RHS["fisher"], (0.0, 1.0), torch.tensor(FIS0),

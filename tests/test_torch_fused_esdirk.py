@@ -522,7 +522,8 @@ def test_build_key_hashes_shared_headers(monkeypatch, tmp_path):
         "member_rhs.cuh", "rk_common.cuh", "lane_group.cuh"]
     assert [p.name for p in _build.shared_headers("fused_erk")] == [
         "dense_record.cuh", "dual.cuh", "hstart.cuh", "member_rhs.cuh",
-        "rk_common.cuh", "rk_control.cuh", "rk_lanes.cuh", "lane_group.cuh"]
+        "rk_common.cuh", "rk_control.cuh", "rk_lanes.cuh", "snapshot.cuh",
+        "lane_group.cuh"]
     before = {k: _build.build_key(k, "header") for k in ("fused_erk",
                                                          "fused_esdirk")}
     common = csrc / "rk_common.cuh"

@@ -626,7 +626,7 @@ def test_build_keys_hash_the_included_headers(monkeypatch, tmp_path):
                                 "rk_common.cuh", "rk_control.cuh",
                                 "rk_rows.cuh", "block_rows.cuh",
                                 "ck_control.cuh", "block_hstart.cuh",
-                                "block_group.cuh"]}
+                                "snapshot.cuh", "block_group.cuh"]}
     for name, headers in expect.items():
         assert [p.name for p in _build.shared_headers(name)] == headers
         before = _build.build_key(name, "header")

@@ -22,7 +22,18 @@ ESDIRK and RKN routes of ``solve_fused_adjoint``, flat and grid; with the
 sensitivity builds their references launch, fifteen builds); ``--adams``
 runs ``chip_smoke.adams_routes_path`` alone (B3 and B8 with params, with
 and without the dense record, against their plain versions; the SWAG
-routes of ``solve_fused_adjoint``, flat and grid; four builds).
+routes of ``solve_fused_adjoint``, flat and grid; four builds);
+``--teval`` runs ``chip_smoke.teval_path`` alone (the t_eval snapshots on
+B1, B4, B11 and B12, with params on B11 and B12, each against its plain
+version and bit for bit the launch without t_eval at every shape; eleven
+builds), and then times B1's launch alone on the main path's vdp4096
+line with 0 (the build without the snapshots), 11, 101 and 1,001 points
+spread over the span, plain at one thread and at 8 lanes a member,
+compensated at 4 and 8 lanes, in turns; with ``--snap-src <dir>`` (an
+earlier ``extensisq_tpu_torch/csrc``; the option may repeat) it then
+builds B1's snapshot kernel from there too and times the two builds in
+turns at each of those shapes and point counts, their outputs and rows
+compared bit for bit.
 
 ``--inline`` then also builds the two variational grid systems with their
 augmented ``rhs`` inlined (``__forceinline__`` for the generated
@@ -33,11 +44,13 @@ the medians, their ratio and how far the inlined outputs lie from the
 shipped ones.  Run from the repository root:
 
     PYTHONPATH=. python tools/probe_sens.py [--grid | --adjoint | --routes
-        | --adams] [--inline]
+        | --adams | --teval [--snap-src <dir>]] [--inline]
 """
+import re
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -90,6 +103,104 @@ def inline_ab(R, rounds=3):
               f"{b[3].double().mean():.3f}")
 
 
+def teval_sweep(rounds=2):
+    """B1's launch alone on vdp4096 by the number of t_eval points; see the
+    module docstring."""
+    import numpy as np
+    from extensisq_tpu_torch import BS5
+    from extensisq_tpu_torch.ops import fused_erk as FK
+    R = C.teval_rhs()["vdp"]
+    y0 = C.vdp_y0(C.N_MEMBERS, torch.float32)
+    builds = {False: FK._kernel(BS5, R), True: FK._kernel(BS5, R, False,
+                                                          True)}
+    counts = (0, 11, 101, 1001)
+    for label, tol, shapes in (("plain", C.PLAIN_TOL, [(1, 128), (8, 16)]),
+                               ("compensated", C.COMP_TOL,
+                                [(4, 32), (8, 16)])):
+        for shape in shapes:
+            ms = {nq: [] for nq in counts}
+            for _ in range(rounds):
+                for nq in counts + counts[::-1]:
+                    tq = (None if nq == 0 else np.linspace(
+                        *C.T_SPAN, nq).astype(np.float32))
+                    ms[nq].append(C.launch_ms("fused_erk", builds[nq > 0],
+                                              y0, None, C.T_SPAN, tol, shape,
+                                              0, tq=tq)[0])
+            med = {nq: statistics.median(v) for nq, v in ms.items()}
+            print(f"t_eval sweep [vdp4096 {label}, {shape[0]} lanes, "
+                  f"{shape[1]} members a block]: launch alone (ms, medians "
+                  f"of {2 * rounds} in turns) by points: "
+                  + ", ".join(f"{nq}: {v:.4f}" for nq, v in med.items())
+                  + f"; per point past 0: "
+                  + ", ".join(f"{nq}: {(med[nq] - med[0]) / nq * 1e3:.3f} us"
+                              for nq in counts[1:]))
+
+
+def snap_launch(built, y0, tol, shape, tq):
+    """One launch of a B1 snapshot build on the vdp4096 line at ``shape``
+    with the points ``tq``: (y, status, nsteps, nfev, y_eval)."""
+    from extensisq_tpu_torch.ops.fused_erk import DenseRecord, SnapPoints
+    out = (torch.empty_like(y0),
+           *[torch.empty(y0.shape[0], dtype=torch.int32, device="cuda")
+             for _ in range(3)])
+    rec = DenseRecord(y0, 0)
+    pts = SnapPoints(tq, C.T_SPAN, y0)
+    args = (C._launch_args("fused_erk", y0, out, None, C.T_SPAN, tol, shape,
+                           rec) + rec.args() + pts.args())
+    rc = built.lib.fused_erk_snap_launch(
+        *args, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    torch.cuda.synchronize()
+    return out + (pts.y,)
+
+
+def snap_ab(src, rounds=2):
+    """B1's snapshot build from ``src`` against this checkout's on the
+    vdp4096 line: bit for bit, and the launch alone in turns."""
+    import numpy as np
+    from extensisq_tpu_torch import BS5
+    from extensisq_tpu_torch.ops import _build
+    from extensisq_tpu_torch.ops import fused_erk as FK
+    R = C.teval_rhs()["vdp"]
+    y0 = C.vdp_y0(C.N_MEMBERS, torch.float32)
+    new = FK._kernel(BS5, R, False, True)
+    here = _build.CSRC
+    _build.CSRC = Path(src).resolve()
+    try:
+        old = _build.load_fused_erk(FK._fused_consts(BS5), R.n, R.cuda_src,
+                                    R.k, False, True)
+    finally:
+        _build.CSRC = here
+    regs = {name: sorted({int(r) for r in re.findall(
+        r"Used (\d+) registers", b.log)}) for name, b in (("old", old),
+                                                         ("new", new))}
+    print(f"snap A/B: builds {old.key} (old, {src}) and {new.key} (new)"
+          f"; registers by entry {regs}")
+    for label, tol, shapes in (("plain", C.PLAIN_TOL, [(1, 128), (8, 16)]),
+                               ("compensated", C.COMP_TOL,
+                                [(4, 32), (8, 16)])):
+        for shape in shapes:
+            for nq in (11, 101, 1001):
+                tq = np.linspace(*C.T_SPAN, nq).astype(np.float32)
+                a = snap_launch(old, y0, tol, shape, tq)
+                b = snap_launch(new, y0, tol, shape, tq)
+                same = all(torch.equal(u, v) for u, v in zip(a, b))
+                ms = {"old": [], "new": []}
+                for _ in range(rounds):
+                    for tag in ("old", "new", "new", "old"):
+                        ms[tag].append(C.launch_ms(
+                            "fused_erk", old if tag == "old" else new, y0,
+                            None, C.T_SPAN, tol, shape, 0, tq=tq)[0])
+                mo, mn = (statistics.median(ms[k]) for k in ("old", "new"))
+                print(f"snap A/B [vdp4096 {label}, {shape[0]} lanes, "
+                      f"{nq} points]: launch alone old {mo:.4f} ms, new "
+                      f"{mn:.4f} ms ({(mn / mo - 1) * 100:+.1f}%), medians "
+                      f"of {2 * rounds} in turns; outputs and rows "
+                      f"bit-identical {same}")
+                if not same:
+                    raise SystemExit("snap A/B: the builds differ")
+
+
 def main():
     if not torch.cuda.is_available():
         print("probe_sens: no CUDA device", file=sys.stderr)
@@ -100,6 +211,23 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
+    if "--teval" in sys.argv[1:]:
+        C.build_all(
+            C.teval_builds(C.teval_rhs())
+            + [("fused_erk", "vdp", C.teval_rhs()["vdp"], None)]
+            + [b for b in C.rkn_grid_builds(C.rkn_grid_rhs())
+               if b[1] == "fisher BS5"]
+            + [b for b in C.ckdisc_builds(C.ckdisc_rhs())
+               if b[1] in ("swdec", "ckmol")])
+        for name, keys in C.teval_path().items():
+            print(f"{name}: {keys}")
+        teval_sweep()
+        argv = sys.argv[1:]
+        for i, arg in enumerate(argv):
+            if arg == "--snap-src":
+                snap_ab(argv[i + 1])
+        print(smi.splitlines()[0])
+        return 0
     if "--adams" in sys.argv[1:]:
         C.build_all(C.adams_routes_builds(C.adams_routes_rhs()))
         for name, keys in C.adams_routes_path().items():
