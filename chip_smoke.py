@@ -89,6 +89,18 @@ Drives each of the port's paths once:
   bit for bit the k = 0 run, B1 against the f64 ``solve_ensemble(...,
   t_eval=...)`` and a ``dense=R`` launch's ``sol(t_eval)`` against its
   ``y_eval``; each launch alone timed with and without the points;
+* the in-kernel t_eval snapshots of the second-order and implicit kernels
+  (after those): config 3's 2,048 Kepler orbits through B5 with 101
+  points (plain and compensated), the wave line's 64 members at n = 256
+  through B6, the bench's 4,096 pendulum members through B2 with 101
+  points (its plain version's and f64 driver's runs those of the implicit
+  path, which take the points), the hidden-M Kaps members through B2 and
+  config 4d's 32 reaction-diffusion members through B7, 11 points each;
+  each against its plain version and, bit for bit, the launch without
+  t_eval at every shape its rule takes; B5 and B2 against the f64 driver's
+  t_eval rows, a ``dense=R`` launch of B5's ``sol(t_eval)`` against its
+  ``y_eval``, the hidden-M rows against the exact solution; each launch
+  alone timed with and without the points;
 * the host driver, the sensitivities and the front door (last):
   ``solve_ivp`` on the card against the same call on CPU tensors (VdP
   with BS5, ``t_eval``, dense output and two events; the CKdisc decay;
@@ -99,7 +111,8 @@ Drives each of the port's paths once:
   functions on Robertson at the CVODES gates and ``solve_final``'s
   gradient against ``sens_forward``; ``ops.solve_fused`` once for each of
   the twelve kernels, and once more on B11 and B12 with params and
-  t_eval, each to JAX's route and bit for bit the direct call.
+  t_eval and on B5, B6, B2 and B7 with t_eval, each to JAX's route and
+  bit for bit the direct call.
 
 Before that, it builds every kernel from the sources in this checkout
 (one nvcc per variant, all started together) and holds each against its
@@ -116,8 +129,8 @@ before it lists each kernel with its launch count on its path (and
 through the front door, ``launches_solve_fused``; B1's and B2's entries
 also hold the sensitivity lines' launches, times and bounds, the keys
 ending in ``_7b`` and ``_7a``, B4's and B7's those of the grid layout's,
-ending in ``_sens_grid``, B1's, B4's, B11's and B12's those of the t_eval
-phase, ending in ``_teval``), its
+ending in ``_sens_grid``, B1's, B2's, B4-B7's, B11's and B12's those of
+the t_eval phases, ending in ``_teval``), its
 largest difference from the plain version, its time, the plain version's
 and its bound in ms (the least time the card could take: the larger of
 its bytes over the memory rate and its operations over the float32 peak).
@@ -521,8 +534,8 @@ def build_all(jobs):
     """Build every (kernel, label, rhs, options) variant with one nvcc
     each, all started together; print seconds, registers and spills.  A
     kernel name ending in ``_rec`` (B1-B8) is the build with the dense
-    record, in ``_snap`` (B1, B4, B11, B12) the build with the t_eval
-    snapshots, in ``_rec_snap`` (B1, B4) with both."""
+    record, in ``_snap`` (B1, B2, B4-B7, B11, B12) the build with the
+    t_eval snapshots, in ``_rec_snap`` (B1, B4, B5) with both."""
     from extensisq_tpu_torch import BS5
     from extensisq_tpu_torch.ops import _build
     from extensisq_tpu_torch.ops.fused_adams import _adams_consts
@@ -540,7 +553,7 @@ def build_all(jobs):
         kernel = kernel.removesuffix("_rec")
         if kernel == "fused_rkn":
             return _build.load_fused_rkn(rkn_consts(opt), rhs.m,
-                                         rhs.cuda_src, rhs.k, rec)
+                                         rhs.cuda_src, rhs.k, rec, snap)
         if kernel == "fused_erk_grid":
             return _build.load_fused_rk_grid(
                 _fused_consts(opt), False, rhs.shape, rhs.cuda_src, rhs.k,
@@ -548,7 +561,7 @@ def build_all(jobs):
         if kernel == "fused_rkn_grid":
             return _build.load_fused_rk_grid(rkn_consts(opt), True,
                                              (rhs.n,), rhs.cuda_src, rhs.k,
-                                             rec)
+                                             rec, snap)
         if kernel == "fused_ckdisc":
             return _build.load_fused_ckdisc(ck_consts(), rhs.n, rhs.cuda_src,
                                             rhs.k, snap)
@@ -570,7 +583,7 @@ def build_all(jobs):
             method, nb = opt if isinstance(opt, tuple) else (opt, None)
             return _build.load_fused_esdirk_grid(
                 _esdirk_consts(method), rhs.shape, rhs.cuda_src, rhs.k, nb,
-                rec)
+                rec, snap)
         if kernel == "fused_rkc":
             n_par, rho = opt
             return _build.load_fused_rkc(rhs.shape, n_par, rhs.cuda_src,
@@ -580,7 +593,7 @@ def build_all(jobs):
         return _build.load_fused_esdirk(_esdirk_consts(method),
                                         *_mass_setup(M, rhs.n), rhs.n,
                                         rhs.cuda_src, rhs.k,
-                                        nb[0] if nb else None, rec)
+                                        nb[0] if nb else None, rec, snap)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -626,9 +639,18 @@ def pend_start(n, device, t_bound=PEND_SPAN[1]):
     return y0, st.y.T.contiguous(), st.yp.T.contiguous()
 
 
+# the bench line's plain version and f64 driver runs, with the t_eval
+# points of the pend4096-kv3i-teval line, for teval_routes_path
+PEND_RUNS = {}
+
+
 def esdirk_path():
     """Hold the implicit kernel against its plain version on the card,
-    drive the bench line, time it; returns its ``kernels`` entry."""
+    drive the bench line, time it; returns its ``kernels`` entry.  The
+    bench line's plain version and f64 driver run once each, with the
+    pend4096-kv3i-teval line's points (which leave their other outputs as
+    they are), and their times are those runs' (``PEND_RUNS`` keeps them
+    for teval_routes_path)."""
     from extensisq_tpu_torch import Kv3I, TRBDF2, solve_ensemble
     from extensisq_tpu_torch.ops import (FusedRHS, fused_esdirk_reference,
                                          solve_fused_erk, solve_fused_esdirk)
@@ -636,15 +658,17 @@ def esdirk_path():
     PEND = FusedRHS(pendulum, PEND_CUDA, 5)
     KAPS = FusedRHS(kaps_hidden, KAPS_HIDDEN_CUDA, 2)
 
-    def compare(label, rhs, span, y0, **kw):
+    def compare(label, rhs, span, y0, plain_kw=None, **kw):
         """The kernel at the rule's launch shape (a lane group per member
-        at these sizes) against the plain version at the label's gates,
-        and the thread body against it bit for bit; returns (kernel
-        result, plain result, max |dy|)."""
+        at these sizes) against the plain version (with the options
+        ``plain_kw`` besides ``kw``) at the label's gates, and the thread
+        body against it bit for bit; returns (kernel result, plain result,
+        max |dy|, the plain version's seconds)."""
         nb = y0.shape[0]
-        k, r, dy, _ = hold_against_plain(
+        k, r, dy, r_s = hold_against_plain(
             "esdirk", label, lambda: solve_fused_esdirk(rhs, span, y0, **kw),
-            lambda: fused_esdirk_reference(rhs, span, y0, **kw),
+            lambda: fused_esdirk_reference(rhs, span, y0, **kw,
+                                           **(plain_kw or {})),
             *ESDIRK_GATES[label])
         lanes = solve_fused_esdirk.last_shape[0]
         check(lanes > 1, f"esdirk {label}: the rule took one thread per "
@@ -655,7 +679,7 @@ def esdirk_path():
               f"one thread per member bit-identical {same}")
         check(same, f"esdirk {label}: the lane body and the thread body "
               "differ")
-        return k, r, dy
+        return k, r, dy, r_s
 
     # (a) every variant against its plain version, 1024 members
     rob0 = torch.zeros(1024, 3, device="cuda")
@@ -664,8 +688,8 @@ def esdirk_path():
     compare("rob_trbdf2", ROB, (0.0, 10.0), rob0, method=TRBDF2, **ROB_TOL)
     compare("rob_comp", ROB, (0.0, 1e5), rob0, method=Kv3I, **ROB_COMP_TOL)
     _, p0, pp0 = pend_start(1024, "cuda", t_bound=1.0)
-    k, _, _ = compare("pend", PEND, (0.0, 1.0), p0.float(), method=Kv3I,
-                      M=M_PEND, yp0_batch=pp0.float(), **PEND_TOL)
+    k = compare("pend", PEND, (0.0, 1.0), p0.float(), method=Kv3I,
+                M=M_PEND, yp0_batch=pp0.float(), **PEND_TOL)[0]
     drift = (k[0][:, 0] ** 2 + k[0][:, 1] ** 2 - 1.0).abs().max().item()
     print(f"pendulum t = 1: constraint drift {drift:.3e} (gate 1e-3)")
     check(drift < 1e-3, "pendulum: constraint drift")
@@ -674,8 +698,8 @@ def esdirk_path():
                        device="cuda")
     kzp0 = torch.tensor((HID_B @ np.stack([-2 * a * a, -a])).T,
                         dtype=torch.float32, device="cuda")
-    k, _, _ = compare("kaps_hidden", KAPS, (0.0, 1.0), kz0, method=TRBDF2,
-                      M=M_HIDDEN, yp0_batch=kzp0, rtol=1e-4, atol=1e-6)
+    k = compare("kaps_hidden", KAPS, (0.0, 1.0), kz0, method=TRBDF2,
+                M=M_HIDDEN, yp0_batch=kzp0, rtol=1e-4, atol=1e-6)[0]
     yk = k[0].double().cpu().numpy() @ HID_BINV.T
     exact = np.stack([a * a * np.exp(-2.0), a * np.exp(-1.0)], 1)
     err = np.abs(yk - exact).max()
@@ -683,7 +707,9 @@ def esdirk_path():
     check(err < 3e-4, "kaps hidden M: error vs exact")
 
     # (b) the bench line: 4096 pendulum members, f64 projection, fused f32
-    # and the f64 driver at the same tolerances
+    # and the f64 driver at the same tolerances (the f64 run with the
+    # t_eval points of pend4096-kv3i-teval, timed on its own)
+    tq_pend = np.linspace(*PEND_SPAN, TE_N_EVAL).astype(np.float32)
     solve_fused_erk.launches = 0
     solve_fused_esdirk.launches = 0
     t0 = time.perf_counter()
@@ -692,9 +718,14 @@ def esdirk_path():
     fused = solve_fused_esdirk(PEND, PEND_SPAN, Y0, method=Kv3I, M=M_PEND,
                                yp0_batch=YP0, **PEND_TOL)
     shape = solve_fused_esdirk.last_shape
-    ens = solve_ensemble(pendulum, PEND_SPAN, y64, method=Kv3I,
-                         M=np.diag(M_PEND), **PEND_TOL)
     torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ens = solve_ensemble(pendulum, PEND_SPAN, y64, method=Kv3I,
+                         M=np.diag(M_PEND), t_eval=torch.tensor(
+                             tq_pend, dtype=torch.float64, device="cuda"),
+                         **PEND_TOL)
+    torch.cuda.synchronize()
+    f64_ms = (time.perf_counter() - t1) * 1e3
     path_s = time.perf_counter() - t0
     launches = solve_fused_esdirk.launches
     print(f"implicit path: {path_s:.3f} s, fused_esdirk launches "
@@ -736,8 +767,12 @@ def esdirk_path():
     print(f"f64 pendulum: card vs CPU on 64 members: counts equal, max |dy| "
           f"{dcpu:.3e}, relative to max(1, |y|) {drel:.3e} (gate 1e-12)")
     check(drel <= 1e-12, "f64 pendulum: card and CPU disagree")
-    _, ref, err_k = compare("bench", PEND, PEND_SPAN, Y0, method=Kv3I,
-                            M=M_PEND, yp0_batch=YP0, **PEND_TOL)
+    _, ref, err_k, plain_s = compare(
+        "bench", PEND, PEND_SPAN, Y0, plain_kw=dict(t_eval=tq_pend),
+        method=Kv3I, M=M_PEND, yp0_batch=YP0, **PEND_TOL)
+    plain_ms = plain_s * 1e3
+    PEND_RUNS.update(y0=Y0, yp0=YP0, tq=tq_pend, plain=ref, f64=ens,
+                     plain_ms=plain_ms, f64_ms=f64_ms)
     # the bench line's launch against the other body, bit for bit
     other = 1 if shape[0] > 1 else 4
     same = all(torch.equal(a, b) for a, b in zip(fused, _launch_esdirk(
@@ -747,33 +782,27 @@ def esdirk_path():
           f"{other} bit-identical {same}")
     check(same, "bench line: the lane body and the thread body differ")
 
-    # (c) times: warm, synchronized medians
+    # (c) times: the kernel's warm, synchronized medians; the host-bound
+    # references, ~15-40 s a run, from their runs above (one each: the
+    # plain version's the bench check's, after its 1,024-member checks,
+    # the f64 driver's the path's first)
     def run_kernel():
         return solve_fused_esdirk(PEND, PEND_SPAN, Y0, method=Kv3I,
                                   M=M_PEND, yp0_batch=YP0, **PEND_TOL)
 
-    def run_plain():
-        return fused_esdirk_reference(PEND, PEND_SPAN, Y0, method=Kv3I,
-                                      M=M_PEND, yp0_batch=YP0, **PEND_TOL)
-
-    def run_f64():
-        return solve_ensemble(pendulum, PEND_SPAN, y64, method=Kv3I,
-                              M=np.diag(M_PEND), **PEND_TOL)
-
     k_ms = wall_ms(run_kernel)
     k_dev = event_ms(run_kernel)
-    # the host-bound references, ~15-40 s a run: one warm run each
-    plain_ms = wall_ms(run_plain, reps=1)
-    f64_ms = wall_ms(run_f64, reps=1)
     max_steps = int(fused[2].max())
     steps = int(fused[2].sum())
     print(f"time [fused_esdirk kernel] {PEND_N} members: {k_ms:.3f} ms wall, "
           f"{k_dev:.4f} ms device (CUDA events), {k_ms / max_steps:.5f} ms "
           f"per step (wall / max nsteps {max_steps}), "
           f"{steps / k_ms * 1e3:.4g} accepted steps/s")
-    print(f"time [plain version] {PEND_N} members: {plain_ms:.3f} ms wall, "
+    print(f"time [plain version] {PEND_N} members: {plain_ms:.3f} ms wall "
+          f"(the bench check's run, with {TE_N_EVAL} t_eval points), "
           f"{int(ref[2].sum()) / plain_ms * 1e3:.4g} accepted steps/s")
-    print(f"time [f64 solve_ensemble] {PEND_N} members: {f64_ms:.3f} ms wall, "
+    print(f"time [f64 solve_ensemble] {PEND_N} members: {f64_ms:.3f} ms wall "
+          f"(the path's run, with {TE_N_EVAL} t_eval points), "
           f"{int(ens.nsteps.sum()) / f64_ms * 1e3:.4g} accepted steps/s")
     # the kernel on a full card: 262,144 members, the rule's launch shape
     _, yl, ypl = pend_start(N_LARGE, "cuda")
@@ -4365,28 +4394,39 @@ KERNEL_LIB = {"fused_erk": "fused_erk", "fused_erk_grid": "fused_rk_grid",
               "fused_ckdisc_grid": "fused_rk_grid"}
 
 
-def _launch_args(kind, y0, out, params, span, tol, shape, rec):
+def _launch_args(kind, y0, out, params, span, tol, shape, rec, yp0=None,
+                 M=None):
     """The C arguments before the stream of one launch of B1, B2, B4-B7,
     B11 or B12 (``kind``, its wrapper's module) at ``shape`` into the
     preallocated ``out`` with the members' ``params`` (None: none), and
-    ``rec``, a DenseRecord, where it has rows, as the wrappers pass them;
-    B2 and B7 as plain ODEs from Watts' start."""
+    ``rec``, a DenseRecord, where it has rows, as the wrappers pass them:
+    from ``tol``'s first_step where it has one, else from Watts' estimate
+    (B2 and B7 as plain ODEs; with a mass matrix ``M``, B2's any value as
+    its build holds it, B7's the mass diagonal as a CUDA tensor, and the
+    derivatives ``yp0`` from 1% of the span)."""
     from extensisq_tpu_torch.ops.fused_erk import launch_args
     from extensisq_tpu_torch.ops.fused_esdirk import _tiny_err
     nb, n = y0.shape
     outs = tuple(x.data_ptr() for x in out)
     if kind in ("fused_esdirk", "fused_esdirk_grid"):
         t0, tf = np.float32(span[0]), np.float32(span[1])
-        head = (y0.data_ptr(), None) + ((None,) if kind.endswith("_grid")
-                                        else ())
-        args = (head + (params.data_ptr(),) + outs
+        head = (y0.data_ptr(), None if yp0 is None else yp0.data_ptr())
+        if kind.endswith("_grid"):
+            head += (None if M is None else M.data_ptr(),)
+        first = tol.get("first_step")
+        h0 = (np.float32(0.01) * abs(tf - t0) if first is None
+              else np.float32(first))
+        args = (head + (None if params is None else params.data_ptr(),)
+                + outs
                 + (nb, float(t0), float(tf), float(tol["rtol"]),
-                   float(tol["atol"]), float(np.float32(0.01) * abs(tf - t0)),
-                   1, 0, np.inf, 100_000, _tiny_err(n, tol["rtol"]),
+                   float(tol["atol"]), float(h0),
+                   int(M is None and first is None), int(yp0 is not None),
+                   np.inf, 100_000, _tiny_err(n, tol["rtol"]),
                    int(tol.get("compensated", False)))
                 + tuple(shape))
     else:
-        scal = launch_args(span, tol["rtol"], tol["atol"], None, 100_000,
+        scal = launch_args(span, tol["rtol"], tol["atol"],
+                           tol.get("first_step"), 100_000,
                            tol.get("compensated", False), None)
         head = ((y0.data_ptr(),
                  None if params is None else params.data_ptr())
@@ -4404,20 +4444,22 @@ def _launch_args(kind, y0, out, params, span, tol, shape, rec):
 
 
 def launch_ms(kind, built, y0, params, span, tol, shape, rows, reps=10,
-              tq=None):
+              tq=None, yp0=None, M=None):
     """Device ms of one launch of B1, B2, B4-B7, B11 or B12 (``kind``, its
     wrapper's module) with the record of ``rows`` a member (0: the build
-    without it) and, on a snapshot build (B1, B4, B11, B12), the t_eval
-    points ``tq``, the outputs allocated before: CUDA events around
-    ``reps`` launches back to back, per launch (a single launch between
-    events measures the host's enqueue as much as the kernel), median of
-    REPS; and the DenseRecord written."""
+    without it) and, on a snapshot build, the t_eval points ``tq`` (B2 and
+    B7 with the mass matrix ``M`` and the derivatives ``yp0`` of
+    :func:`_launch_args`), the outputs allocated before: CUDA events
+    around ``reps`` launches back to back, per launch (a single launch
+    between events measures the host's enqueue as much as the kernel),
+    median of REPS; and the DenseRecord written."""
     from extensisq_tpu_torch.ops.fused_erk import DenseRecord, SnapPoints
     out = (torch.empty_like(y0),
            *[torch.empty(y0.shape[0], dtype=torch.int32, device="cuda")
              for _ in range(3)])
     rec = DenseRecord(y0, rows)
-    args = _launch_args(kind, y0, out, params, span, tol, shape, rec)
+    args = _launch_args(kind, y0, out, params, span, tol, shape, rec, yp0,
+                        M)
     suffix = "_record" if rows else ""
     if tq is not None:
         # a snapshot launch takes the record's arguments (null without
@@ -5931,6 +5973,413 @@ def teval_path():
     return out_keys
 
 
+# -- the t_eval snapshots of B5, B6, B2 and B7 --------------------------
+# Five lines, each an earlier path's problem at its full size with points in
+# its span, none cut: kepler2048-fi5n-teval (B5: config 3's 2,048 Kepler
+# orbits, t in [0, 2 pi], plain at rtol 1e-5 and compensated at 1e-7, with
+# t_eval = linspace(0, 2 pi, 101)), wave64x256-teval (B6: the wave line's
+# 64 members at n = 256, t in [0, 4], plain and compensated, 11 points),
+# pend4096-kv3i-teval (B2: the bench's 4,096 pendulum DAE members, t in
+# [0, 10], 101 points; its plain version's and f64 driver's runs are
+# esdirk_path's), beside it the Kaps DAE behind the hidden M (1,024
+# members, TRBDF2, t in [0, 1], 11 points) and rdiff32x128-teval (B7:
+# config 4d's 32 members at n = 128, t in [0, 1], plain and compensated,
+# 11 points).
+TR_KEP_DENSE = 256       # rows a member of B5's dense=R launch beside them
+KAPS_N = 1024
+KAPS_SPAN = (0.0, 1.0)
+KAPS_TOL = dict(rtol=1e-4, atol=1e-6)
+# each kernel's snapshot build against its plain version on the card: max
+# |dy_eval| over the members whose counts equal the plain version's, and
+# over every finished member and every shape (y keeps the gates of the
+# line's earlier check).  nvcc's contraction moves h by last bits, and a
+# member may take other steps, its rows then from other cubic Hermites.
+# Readings on an H100 (NVIDIA H100 80GB HBM3, 700 W; run ED), same counts
+# / all: kepler plain 7.392e-4 / 8.268e-4, compensated 3.511e-5 /
+# 5.180e-5, wave plain 1.217e-3 / 1.908e-3, compensated 5.925e-5 /
+# 8.094e-5 (at two elements a thread), pend 1.833e-3 / 3.101e-3, kaps
+# 4.053e-6 / 3.290e-5, rdiff plain - / 8.637e-5 (at 64 threads) and
+# compensated - / 7.492e-5 (every rdiff member takes other counts than the
+# plain version: 4d's float32 steady-state tail, PERF.md §5, so the first
+# gate there is the second).  The gates keep about 3x
+TR_YEVAL_GATES = {"kepler plain": (2.2e-3, 2.5e-3),
+                  "kepler compensated": (1.1e-4, 1.6e-4),
+                  "wave plain": (3.6e-3, 6e-3),
+                  "wave compensated": (1.8e-4, 2.5e-4),
+                  "pend": (5.5e-3, 1e-2), "kaps hidden M": (1.2e-5, 1e-4),
+                  "rdiff plain": (2.6e-4, 2.6e-4),
+                  "rdiff compensated": (2.3e-4, 2.3e-4)}
+# y itself against the plain version where no earlier check of the line
+# has a gate: (max |dy|, relative mean nsteps, max |dnsteps|); rdiff
+# compensated read 7.117e-5, 1.36e-2, 27 (ED), held at rd4d's gates
+TR_KERNEL_GATES = {"rdiff compensated": MID_KERNEL_GATES["rd4d"]}
+# y_eval against the f64 driver's t_eval rows on the same members: B5 plain
+# and compensated against solve_ensemble(kepler, ...) at rtol 1e-9
+# (readings 7.635e-4 and 5.131e-5, the plain versions' 7.293e-4 and
+# 5.060e-5; ED), B2 on the pendulum's differential rows against the bench
+# line's f64 run at the same tolerances (7.665e-2, the plain version's
+# 7.667e-2: float32 at rtol 1e-4 over 700 steps of a swinging pendulum,
+# its velocities' phase); gates about 3x
+TR_F64_GATES = {"kepler plain": 2.3e-3, "kepler compensated": 1.5e-4,
+                "pend": 0.25}
+# sol(t_eval) of B5's dense=R launch against its own y_eval: both the cubic
+# Hermite of the step crossing each point, summed in other orders (reading
+# 2.086e-6, ED), gate 4x
+TR_DENSE_GATE = 8e-6
+# the hidden-M rows mapped to the Kaps problem's y against its exact
+# solution (y0 = a^2 e^-2t, y1 = a e^-t): reading 2.635e-4 (ED; the
+# endpoint's in esdirk_path 2.1e-4), gate 3x
+TR_KAPS_EXACT_GATE = 8e-4
+
+
+def teval_routes_rhs():
+    """The phase's functions: the Kepler and wave accelerations, the
+    pendulum and the hidden-M Kaps DAE, config 4d's reaction-diffusion."""
+    R, E = rkn_grid_rhs(), esdirk_builds()
+    return {"kepler": R["kepler"], "wave": R["wave"], "pend": E[2][2],
+            "kaps": E[3][2], "rdiff": mid_rhs()["rdiff"]}
+
+
+def teval_routes_builds(rhs):
+    """(kernel, label, rhs, option) of the phase's snapshot builds: B5 (and
+    beside the dense record), B6, B2 with the diagonal and with the hidden
+    M, and B7."""
+    from extensisq_tpu_torch import Fi5N, Kv3I, TRBDF2
+    return [("fused_rkn_snap", "kepler t_eval", rhs["kepler"], Fi5N),
+            ("fused_rkn_rec_snap", "kepler dense t_eval", rhs["kepler"],
+             Fi5N),
+            ("fused_rkn_grid_snap", "wave t_eval", rhs["wave"], Fi5N),
+            ("fused_esdirk_snap", "pendulum t_eval", rhs["pend"],
+             (Kv3I, M_PEND)),
+            ("fused_esdirk_snap", "kaps hidden M t_eval", rhs["kaps"],
+             (TRBDF2, M_HIDDEN)),
+            ("fused_esdirk_grid_snap", "rdiff t_eval", rhs["rdiff"], Kv3I)]
+
+
+def kaps_y0(n):
+    """The hidden-M Kaps members of esdirk_path: z = B y with y0 = (a^2,
+    a), a in [0.8, 1.2], and their consistent derivatives."""
+    a = np.linspace(0.8, 1.2, n)
+    z0 = torch.tensor((HID_B @ np.stack([a * a, a])).T, dtype=torch.float32,
+                      device="cuda")
+    zp0 = torch.tensor((HID_B @ np.stack([-2 * a * a, -a])).T,
+                       dtype=torch.float32, device="cuda")
+    return a, z0, zp0
+
+
+def teval_routes_lines():
+    """Each line's (label, kernel, wrapper options, y0, span, t_eval)."""
+    from extensisq_tpu_torch import Fi5N, Kv3I, TRBDF2
+    f = np.float32
+    kep = np.linspace(*KEP_SPAN, TE_N_EVAL).astype(f)
+    wav = np.linspace(*WAVE_SPAN, TE_POINTS).astype(f)
+    _, kz0, kzp0 = kaps_y0(KAPS_N)
+    rd = np.linspace(*RD_SPAN, TE_POINTS).astype(f)
+    ky, wy, ry = kepler_y0(KEP_N), wave_y0(WAVE_M, WAVE_N), rdiff_y0(RD_M,
+                                                                     RD_N)
+    return [
+        ("kepler plain", "fused_rkn", dict(KEP_PLAIN_TOL, method=Fi5N), ky,
+         KEP_SPAN, kep),
+        ("kepler compensated", "fused_rkn", dict(KEP_COMP_TOL, method=Fi5N),
+         ky, KEP_SPAN, kep),
+        ("wave plain", "fused_rkn_grid", dict(WAVE_TOL, method=Fi5N), wy,
+         WAVE_SPAN, wav),
+        ("wave compensated", "fused_rkn_grid",
+         dict(WAVE_COMP_TOL, method=Fi5N), wy, WAVE_SPAN, wav),
+        ("pend", "fused_esdirk",
+         dict(PEND_TOL, method=Kv3I, M=M_PEND,
+              yp0_batch=PEND_RUNS["yp0"]), PEND_RUNS["y0"], PEND_SPAN,
+         PEND_RUNS["tq"]),
+        ("kaps hidden M", "fused_esdirk",
+         dict(KAPS_TOL, method=TRBDF2, M=M_HIDDEN, yp0_batch=kzp0), kz0,
+         KAPS_SPAN, np.linspace(*KAPS_SPAN, TE_POINTS).astype(f)),
+        ("rdiff plain", "fused_esdirk_grid", dict(RD_TOL, method=Kv3I), ry,
+         RD_SPAN, rd),
+        ("rdiff compensated", "fused_esdirk_grid",
+         dict(RD_TOL, method=Kv3I, compensated=True), ry, RD_SPAN, rd)]
+
+
+def teval_routes_shapes(kind, label, y0, shape, kw):
+    """The shapes at which the line's snapshot launch is held bit for bit
+    to the launch without t_eval: B5 the rule's, 4 lanes and one thread;
+    B6 and B7 their blocks and the warp; B2 the rule's G, 32 lanes and one
+    thread."""
+    from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
+    from extensisq_tpu_torch.ops import fused_rkn_grid as FNG
+    from extensisq_tpu_torch.ops.fused_erk_grid import grid_threads
+    n = y0.shape[1]
+    if kind == "fused_rkn":
+        return list(dict.fromkeys([shape, (4, None), (1, None)]))
+    if kind == "fused_esdirk":
+        return list(dict.fromkeys([shape, (32, None), (1, None)]))
+    if kind == "fused_rkn_grid":
+        n = n // 2
+        return list(dict.fromkeys([(grid_threads(n), 0),
+                                   (grid_threads(-(-n // 2)), 0),
+                                   (32, FNG.WARP_MEMBERS)]))
+    return list(dict.fromkeys([(grid_threads(n), 0),
+                               (grid_threads(-(-n // 2)), 0),
+                               (32, FEG.WARP_MEMBERS)]))
+
+
+def teval_routes_launch(kind, R, label, y0, span, kw, tq, s):
+    """The line's kernel at shape ``s`` (a comparison launch, not
+    counted), with the points ``tq`` (None: the build without them)."""
+    from extensisq_tpu_torch.ops import fused_esdirk as FE
+    from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
+    from extensisq_tpu_torch.ops import fused_rkn as FN
+    from extensisq_tpu_torch.ops import fused_rkn_grid as FNG
+    fun = R[label.split()[0]]
+    kw = dict(kw)
+    meth = kw.pop("method")
+    comp = kw.pop("compensated", False)
+    rtol, atol = kw.pop("rtol"), kw.pop("atol")
+    first = kw.pop("first_step", None)
+    if kind == "fused_rkn":
+        return FN._launch(fun, span, y0, meth, rtol, atol, first, 100_000,
+                          comp, None, s[0], s[1], None, None, tq)[0]
+    if kind == "fused_esdirk":
+        return FE._launch(fun, span, y0, meth, kw["M"], kw["yp0_batch"],
+                          rtol, atol, first, 100_000, comp, None, s[0],
+                          s[1], None, None, None, tq)[0]
+    opts = dict(rtol=rtol, atol=atol, first_step=first, compensated=comp,
+                t_eval=tq)
+    if kind == "fused_rkn_grid":
+        return FNG._launch(FNG._kernel(meth, fun, False, tq is not None),
+                           span, y0, y0.shape[1] // 2, shape=s, **opts)[0]
+    return FEG._launch(FEG._kernel(meth, fun, None, False, tq is not None),
+                       span, y0, method=meth, shape=s, **opts)[0]
+
+
+def teval_routes_path():
+    """The t_eval snapshots of B5, B6, B2 and B7 on the card: the five
+    lines through the wrappers, each wrapper's count set to 0 just before
+    and read just after (two launches of each kernel); each against its
+    plain version (pend4096's from esdirk_path) and, bit for bit, the
+    launch without t_eval at every shape its rule takes; B5 and B2 against
+    the f64 driver's t_eval rows, a dense=R launch of B5's sol(t_eval)
+    against its y_eval, the hidden-M rows in the user's coordinates against
+    the Kaps problem's exact solution; each line's launch alone with and
+    without t_eval (ten back to back, CUDA events) and its bound.  Returns
+    each kernel's ``_teval`` keys by its ``kernels`` name."""
+    from extensisq_tpu_torch import Fi5N, ops, solve_ensemble
+    from extensisq_tpu_torch.ops import fused_esdirk as FE
+    from extensisq_tpu_torch.ops import fused_esdirk_grid as FEG
+    from extensisq_tpu_torch.ops import fused_rkn as FN
+    from extensisq_tpu_torch.ops import fused_rkn_grid as FNG
+    from extensisq_tpu_torch.ops.fused_esdirk import (_esdirk_consts,
+                                                      _mass_setup)
+    from extensisq_tpu_torch.ops.fused_rkn import rkn_consts
+    start = time.perf_counter()
+    R = teval_routes_rhs()
+    lines = teval_routes_lines()
+    wrappers = {k: getattr(ops, "solve_" + k)
+                for k in ("fused_rkn", "fused_rkn_grid", "fused_esdirk",
+                          "fused_esdirk_grid")}
+    every = [getattr(ops, k) for k in dir(ops) if k.startswith("solve_fused_")
+             and hasattr(getattr(ops, k), "launches")]
+
+    def line(label, kind, kw, y0, span, tq):
+        return wrappers[kind](R[label.split()[0]], span, y0, t_eval=tq, **kw)
+
+    # the main path of the phase: the lines through the wrappers
+    for w in every:
+        w.launches = 0
+    t0 = time.perf_counter()
+    runs, shapes = {}, {}
+    for spec in lines:
+        runs[spec[0]] = line(*spec)
+        shapes[spec[0]] = wrappers[spec[1]].last_shape
+    torch.cuda.synchronize()
+    path_ms = (time.perf_counter() - t0) * 1e3
+    launches = {w.__name__: w.launches for w in every if w.launches}
+    expect = {"solve_" + k: 2 for k in wrappers}
+    print(f"t_eval routes path: {path_ms:.1f} ms for the lines (first "
+          f"calls), launches {launches}")
+    check(launches == expect, f"t_eval routes path launched {launches}, "
+          f"expected {expect}")
+    for label, _, _, y0, _, tq in lines:
+        out = runs[label]
+        check(len(out) == 5 and bool((out[1] == 1).all()),
+              f"{label}: not every member finished")
+        check(out[4].shape == (len(tq), *out[0].shape),
+              f"{label}: y_eval's shape")
+        check(bool(torch.isfinite(out[4]).all()), f"{label}: y_eval finite")
+
+    # each line against its plain version and, bit for bit, the launch
+    # without t_eval at each shape its rule takes
+    gates = {"kepler plain": RKN_KERNEL_GATES["kepler"],
+             "kepler compensated": RKN_KERNEL_GATES["kepler_comp"],
+             "wave plain": RKN_KERNEL_GATES["wave"],
+             "wave compensated": RKN_KERNEL_GATES["wave_comp"],
+             "pend": ESDIRK_GATES["bench"],
+             "kaps hidden M": ESDIRK_GATES["kaps_hidden"],
+             "rdiff plain": MID_KERNEL_GATES["rd4d"],
+             "rdiff compensated": TR_KERNEL_GATES["rdiff compensated"]}
+    errs, plain_ms, plains = {}, {}, {}
+    for label, kind, kw, y0, span, tq in lines:
+        k = runs[label]
+        plain = getattr(ops, kind + "_reference")
+        if label == "pend":
+            r = PEND_RUNS["plain"]
+            _, r, dy, _ = hold_against_plain("t_eval", label + " t_eval",
+                                             lambda: k, lambda: r,
+                                             *gates[label])
+            plain_ms[label] = PEND_RUNS["plain_ms"]
+        else:
+            _, r, dy, r_s = hold_against_plain(
+                "t_eval", label + " t_eval", lambda: k,
+                lambda: plain(R[label.split()[0]], span, y0, t_eval=tq, **kw),
+                *gates[label])
+            plain_ms[label] = r_s * 1e3
+        plains[label] = r
+        dq, dq_same = _eval_err(k, r), _eval_err(k, r, True)
+        g_same, g_all = TR_YEVAL_GATES[label]
+        print(f"t_eval kernel vs plain [{label}, {y0.shape[0]}, "
+              f"{len(tq)} points]: max |dy_eval| over the members with the "
+              f"plain version's counts {dq_same:.3e} (gate {g_same:.1e}), "
+              f"over all {dq:.3e} (gate {g_all:.1e})")
+        check(dq_same <= g_same and dq <= g_all,
+              f"{label}: y_eval off the plain version")
+        same, worst = {}, dq
+        for s in teval_routes_shapes(kind, label, y0, shapes[label], kw):
+            on = teval_routes_launch(kind, R, label, y0, span, kw, tq, s)
+            off = teval_routes_launch(kind, R, label, y0, span, kw, None, s)
+            same[s] = _same(on[:4], off)
+            worst = max(worst, _eval_err(on, r))
+            check(torch.equal(on[1], r[1]), f"{label} at {s}: status")
+        print(f"t_eval [{label}]: the four outputs bit for bit those without "
+              f"t_eval at {same}; max |dy_eval| over the shapes {worst:.3e}")
+        check(all(same.values()), f"{label}: t_eval changed the outputs")
+        check(worst <= g_all, f"{label}: y_eval off at a shape")
+        errs[label] = (dy, worst)
+
+    # B5 against the f64 driver's t_eval rows on the same members, and a
+    # dense=R launch's sol(t_eval) against its own y_eval
+    _, _, _, y0, span, tq = lines[0]
+    te = torch.tensor(tq, dtype=torch.float64, device="cuda")
+    ref = solve_ensemble(kepler, span, y0.double(), method=Fi5N, t_eval=te,
+                         **KEP_F64_TOL)
+    check(bool((ref.status == 1).all()), "f64 kepler t_eval: not finished")
+    rows64 = ref.y_eval.permute(1, 0, 2)
+    for label in ("kepler plain", "kepler compensated"):
+        d64 = (runs[label][4].double() - rows64).abs().max().item()
+        d_pl = (plains[label][4].double() - rows64).abs().max().item()
+        print(f"t_eval {label} vs f64 solve_ensemble(t_eval) at rtol 1e-9: "
+              f"max |dy_eval| {d64:.3e} (gate {TR_F64_GATES[label]:.1e}); "
+              f"the plain version's {d_pl:.3e}")
+        check(d64 <= TR_F64_GATES[label], f"{label}: y_eval off f64")
+    dense = ops.solve_fused_rkn(R["kepler"], span, y0, t_eval=tq,
+                                dense=TR_KEP_DENSE, method=Fi5N,
+                                **KEP_PLAIN_TOL)
+    check(_same(dense[:5], runs["kepler plain"]),
+          "kepler: the record changed the outputs or y_eval")
+    sol = dense[5]
+    check(bool(sol.valid.all()), f"kepler dense: {TR_KEP_DENSE} rows too few")
+    at = sol(torch.tensor(tq, device="cuda")).permute(2, 0, 1)
+    d_sol = (at - dense[4]).abs().max().item()
+    print(f"t_eval kepler plain with dense={TR_KEP_DENSE}: outputs and y_eval "
+          f"bit for bit the launch without the record; sol(t_eval) vs y_eval "
+          f"max |d| {d_sol:.3e} (gate {TR_DENSE_GATE:.1e})")
+    check(d_sol <= TR_DENSE_GATE, "kepler: sol(t_eval) off y_eval")
+
+    # B2 against the bench line's f64 rows on the differential rows, and
+    # the hidden-M rows in the user's coordinates against the exact Kaps
+    # solution
+    rows64 = PEND_RUNS["f64"].y_eval.permute(1, 0, 2)[..., :4]
+    d64 = (runs["pend"][4][..., :4].double() - rows64).abs().max().item()
+    d_pl = (plains["pend"][4][..., :4].double() - rows64).abs().max().item()
+    print(f"t_eval pend vs the f64 driver's t_eval rows (rows 0-3): max "
+          f"|dy_eval| {d64:.3e} (gate {TR_F64_GATES['pend']:.1e}); the plain "
+          f"version's {d_pl:.3e}")
+    check(d64 <= TR_F64_GATES["pend"], "pend: y_eval off f64")
+    a, _, _ = kaps_y0(KAPS_N)
+    tk = lines[5][5].astype(np.float64)
+    exact = np.stack([np.exp(-2 * tk)[:, None] * (a * a)[None, :],
+                      np.exp(-tk)[:, None] * a[None, :]], -1)
+    yk = runs["kaps hidden M"][4].double().cpu().numpy() @ HID_BINV.T
+    d_ex = np.abs(yk - exact).max()
+    print(f"t_eval kaps hidden M: the rows mapped to y = B^-1 z against the "
+          f"exact solution max |d| {d_ex:.3e} (gate {TR_KAPS_EXACT_GATE:.1e})")
+    check(d_ex <= TR_KAPS_EXACT_GATE, "kaps: rows off the exact solution")
+
+    # readings: each line's wall through the wrapper, its launch alone with
+    # and without t_eval, the rows' bytes, the bound
+    fi5n, kv3i = rkn_consts(Fi5N), _esdirk_consts(lines[4][2]["method"])
+    out_keys = {}
+    for label, kind, kw, y0, span, tq in lines:
+        fun = R[label.split()[0]]
+        meth = kw["method"]
+        if kind == "fused_rkn":
+            on_b, off_b = (FN._kernel(meth, fun, False, True),
+                           FN._kernel(meth, fun))
+        elif kind == "fused_rkn_grid":
+            on_b, off_b = (FNG._kernel(meth, fun, False, True),
+                           FNG._kernel(meth, fun))
+        elif kind == "fused_esdirk":
+            n = y0.shape[1]
+            setup = _mass_setup(kw["M"], n)
+            on_b, off_b = (FE._kernel(meth, fun, kw["M"], *setup, n, n,
+                                      False, True),
+                           FE._kernel(meth, fun, kw["M"], *setup, n, n))
+        else:
+            on_b, off_b = (FEG._kernel(meth, fun, None, False, True),
+                           FEG._kernel(meth, fun))
+        tol = {x: kw[x] for x in ("rtol", "atol", "compensated",
+                                  "first_step") if x in kw}
+        extra = ({} if kind != "fused_esdirk"
+                 else dict(yp0=kw["yp0_batch"], M=kw["M"]))
+        ms = wall_ms(lambda: line(label, kind, kw, y0, span, tq))
+        on_ms = launch_ms(kind, on_b, y0, None, span, tol, shapes[label], 0,
+                          tq=tq, **extra)[0]
+        off_ms = launch_ms(kind, off_b, y0, None, span, tol, shapes[label],
+                           0, **extra)[0]
+        out = runs[label]
+        nb, width = y0.shape
+        snap_bytes = len(tq) * nb * width * 4
+        nfev = int(out[3].sum())
+        if kind == "fused_rkn":
+            by = KEP_N * (4 * 4 * 2 + 4 * 3)
+            ops_ = rk_ops(fi5n, True, 2, RHS_OPS["kepler"], nfev, KEP_N, 5)
+        elif kind == "fused_rkn_grid":
+            by = WAVE_M * (2 * WAVE_N * 4 * 2 + 4 * 3)
+            ops_ = rk_ops(fi5n, True, WAVE_N, RHS_OPS["wave"], nfev, WAVE_M,
+                          1)
+        elif kind == "fused_esdirk":
+            by = nb * width * 4 * 3 + nb * 4 * 3
+            ops_ = nfev * OPS_PER_EVAL["fused_esdirk"]
+        else:
+            by = RD_M * (RD_N * 4 * 2 + 4 * 3)
+            ops_ = esdirk_grid_ops(RD_N, kv3i, RHS_OPS["rdiff"], nfev - RD_M,
+                                   int(out[2].sum()),
+                                   3 * RHS_OPS["rdiff_band"])
+        bound = bound_entry(by + snap_bytes, ops_)
+        print(f"time [t_eval {label}, {nb} members, {len(tq)} points]: "
+              f"{ms:.3f} ms wall through the wrapper; the launch alone "
+              f"{on_ms:.4f} ms device with t_eval, {off_ms:.4f} ms without "
+              f"(CUDA events, ten launches back to back, the same shape); "
+              f"rows {snap_bytes} bytes; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}); plain version {plain_ms[label]:.1f} "
+              f"ms wall")
+        suffix = {"compensated": "_teval_comp", "M": "_teval_kaps"}.get(
+            label.split()[-1], "_teval")
+        entry = out_keys.setdefault(kind, {})
+        entry.update({
+            "max_abs_err" + suffix: errs[label][0],
+            "max_abs_err_y_eval" + suffix: errs[label][1],
+            "ms" + suffix: ms, "device_ms" + suffix: on_ms,
+            "device_ms_no_teval" + suffix: off_ms,
+            "plain_ms" + suffix: plain_ms[label],
+            "bound_ms" + suffix: bound["bound_ms"],
+            "bound_by" + suffix: bound["bound_by"],
+            "library_ms" + suffix: None})
+    for kind in out_keys:
+        out_keys[kind]["launches_teval"] = launches.get("solve_" + kind, 0)
+    out_keys["fused_esdirk"]["f64_ms_teval"] = PEND_RUNS["f64_ms"]
+    print(f"t_eval routes phase: {time.perf_counter() - start:.1f} s")
+    return out_keys
+
+
 HOST_GATE = 1e-9
 HOST_GATES = {"pleiades-cfmr7osc": 1e-6, "kepler-fi5n": 1e-8,
               "swdec-ckdisc": 1e-8}
@@ -6167,7 +6616,8 @@ def host_sensitivities():
 def host_front_door(vdp_rhs):
     """ops.solve_fused, one call per family and layout at the earlier
     phases' problems (few members, short spans), and one more on B11 and
-    B12 with params and t_eval (the t_eval phase's), each the route of
+    B12 with params and t_eval (the t_eval phase's) and on B5, B6, B2 and
+    B7 with t_eval (the t_eval routes phase's builds), each the route of
     JAX's table, one launch and bit for bit the direct wrapper call.  Every
     wrapper's count is set to 0 just before and read just after; returns
     the launches."""
@@ -6184,6 +6634,8 @@ def host_front_door(vdp_rhs):
                        device="cuda")[:, None]
     vdp0 = vdp_y0(64, torch.float32)
     TE, te = teval_rhs(), teval_inputs()
+    TR = teval_routes_rhs()
+    f = np.float32
     calls = [
         ("fused_erk", vdp_rhs, T_SPAN, vdp0, BS5, dict(PLAIN_TOL)),
         ("fused_erk_grid", R["fisher"], FISHER_SPAN,
@@ -6212,7 +6664,17 @@ def host_front_door(vdp_rhs):
          dict(CK_TOL, params=te["swdec"][1][:64], t_eval=te["swdec"][3])),
         ("fused_ckdisc_grid", TE["ckmol"], CKMOL_SPAN, te["ckmol"][0][:8],
          CKdisc, dict(CKMOL_TOL, params=te["ckmol"][1][:8],
-                      t_eval=te["ckmol"][3]))]
+                      t_eval=te["ckmol"][3])),
+        ("fused_rkn", TR["kepler"], KEP_SPAN, kepler_y0(64), Fi5N,
+         dict(KEP_PLAIN_TOL, t_eval=np.linspace(*KEP_SPAN, 11).astype(f))),
+        ("fused_rkn_grid", TR["wave"], WAVE_SPAN, wave_y0(8, WAVE_N), Fi5N,
+         dict(WAVE_TOL, t_eval=np.linspace(*WAVE_SPAN, 11).astype(f))),
+        ("fused_esdirk", TR["pend"], (0.0, 1.0), yc.float(), Kv3I,
+         dict(M=M_PEND, yp0_batch=ypc.float(),
+              t_eval=np.linspace(0.0, 1.0, 11).astype(f), **PEND_TOL)),
+        ("fused_esdirk_grid", TR["rdiff"], RD_STEP_SPAN, rdiff_y0(8, RD_N),
+         Kv3I, dict(RD_TOL, t_eval=np.linspace(*RD_STEP_SPAN,
+                                               11).astype(f)))]
     wrappers = {name: getattr(ops, "solve_" + name) for name, *_ in calls}
     takes_method = ("fused_erk", "fused_erk_grid", "fused_rkn",
                     "fused_rkn_grid", "fused_esdirk", "fused_esdirk_grid")
@@ -6243,8 +6705,9 @@ def host_front_door(vdp_rhs):
               "not every member finished")
     print(f"front door: {len(calls)} solve_fused calls in "
           f"{door_s * 1e3:.1f} ms, each to the kernel of JAX's table (one "
-          f"launch each; B11 and B12 also with params and t_eval, y_eval "
-          f"fifth), each bit for bit the direct wrapper call")
+          f"launch each; B11 and B12 also with params and t_eval, B5, B6, B2 "
+          f"and B7 with t_eval, y_eval fifth), each bit for bit the direct "
+          f"wrapper call")
     return launches
 
 
@@ -6265,6 +6728,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    script_start = time.perf_counter()
     from extensisq_tpu_torch import BS5, solve_ensemble
     from extensisq_tpu_torch.ops import (FusedRHS, fused_erk_reference,
                                          solve_fused_erk, solve_fused_esdirk)
@@ -6294,7 +6758,8 @@ def main():
               + adjoint_builds(adjoint_rhs())
               + adjoint_routes_builds(adjoint_routes_rhs())
               + adams_routes_builds(adams_routes_rhs())
-              + teval_builds(teval_rhs()))
+              + teval_builds(teval_rhs())
+              + teval_routes_builds(teval_routes_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
@@ -6517,10 +6982,18 @@ def main():
     for entry in rkn + ck:
         entry.update(teval.get(entry["name"], {}))
 
+    # 11g. the t_eval snapshots on B5, B6, B2 and B7
+    teval_routes = teval_routes_path()
+    for entry in rkn + mid:
+        entry.update(teval_routes.get(entry["name"], {}))
+    esdirk.update(teval_routes["fused_esdirk"])
+
     # 12. the host driver (solve_ivp, the Stepper), the sensitivities and
     # the front door ops.solve_fused over every kernel
     door = host_path(smi, VDP)
 
+    print(f"chip_smoke: {time.perf_counter() - script_start:.1f} s from the "
+          "first build to the last phase")
     # the card again, so that the end of the output names it beside the
     # kernels' times
     print(smi.splitlines()[0])

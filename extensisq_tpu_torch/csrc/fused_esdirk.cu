@@ -50,7 +50,8 @@
 //
 // The method, the mass-matrix setup and the user's right-hand side come
 // from the generated header fused_esdirk_config.cuh:
-//   namespace tab { N, NB, NPAR, REC, S, D, KAPPA, controller constants,
+//   namespace tab { N, NB, NPAR, REC, SNAP, S, D, KAPPA, controller
+//                   constants,
 //                   A(i,j), AZ(i,j), C(i), E(j), MASS(i), ALG(i), V(i,j), ... }
 //   template <class T> __device__ void rhs(T t, const T* y, T* dy);
 // with NPAR = K > 0 per-member parameters rhs takes a fourth argument, the
@@ -81,6 +82,21 @@
 // dense output (the record build launches a kernel of its own,
 // fused_esdirk_record_kernel).
 //
+// t_eval snapshots (ops/fused_esdirk.py): a build whose header sets
+// tab::SNAP writes each point's row (snapshot.cuh) as the member's accepted
+// step crosses it, the cubic Hermite of the step's end pairs (y, y') and
+// (y_new, y'_new), y' the carried stiffly accurate last stage and y'_new
+// this step's, scrubbed as the loop carries it, read before y and y' are
+// overwritten (the high words of y and t in the compensated mode); a
+// step's crossed points are split over the group's lanes, and each row is
+// formed in the kernel's coordinates and mapped back to the user's by V,
+// as y is (snapshot.cuh: snap_step_rows).  Points at or before t0 take y0
+// (V V^T y0 under a rotation), the points left at the end the final y,
+// rank 0 writing those.  The four outputs are those of the build without
+// it (its Watts start out of line, as B5's); the snapshot build launches a
+// kernel of its own too (fused_esdirk_snap_kernel, with the record where
+// the build has both).
+//
 // The accessors are constexpr functions returning float32 literals, so
 // after unrolling every coefficient is a constant and zero weights drop out
 // of the sums as they do at the JAX trace.
@@ -109,6 +125,7 @@
 #include "hstart.cuh"
 #include "member_rhs.cuh"
 #include "rk_common.cuh"
+#include "snapshot.cuh"
 
 namespace {
 
@@ -541,13 +558,23 @@ struct Out {
 };
 
 using rk::Rec;
+using rk::Snap;
 
-// The record of a body called with one (a build with tab::REC); a build
-// without it calls the body with none, so that its kernels take, construct
-// and pass nothing for it (an unused Rec argument moved nvcc's choice of
-// integer instructions in the G = 4, 8 and 16 bodies).
-__device__ __forceinline__ const Rec& the_record(const Rec& rec) {
+// The record of a body called with one (a build with tab::REC, or with
+// tab::SNAP: the record and the snapshots); a build without either calls
+// the body with none, so that its kernels take, construct and pass nothing
+// for them (an unused Rec argument moved nvcc's choice of integer
+// instructions in the G = 4, 8 and 16 bodies).
+template <class... More>
+__device__ __forceinline__ const Rec& the_record(const Rec& rec,
+                                                 const More&...) {
   return rec;
+}
+
+// The t_eval rows of a body called with them (a build with tab::SNAP).
+__device__ __forceinline__ const Snap& the_snap(const Rec&,
+                                                const Snap& snap) {
+  return snap;
 }
 
 // Rank 0 writes the user-coordinate rows of the w-space state x to the
@@ -565,8 +592,9 @@ __device__ __forceinline__ void record_rows(const Group& grp,
 // The whole integration of one member by the group grp of G lanes
 // (rank(), shfl(v, src); OneLane at G = 1).  y0 (and yp0) are the member's
 // initial state (and derivative), par its tab::NPAR parameters (unread when
-// there are none); lane 0 writes the results, and with tab::REC the
-// member's record (the one Rec of `record`).
+// there are none); lane 0 writes the results, with tab::REC the member's
+// record (the Rec of `record`) and with tab::SNAP its t_eval rows (the
+// Snap after it).
 template <int G, bool COMP, class Group, class... Record>
 __device__ void integrate(Group& grp, const float* __restrict__ y0,
                           const float* __restrict__ yp0,
@@ -618,8 +646,24 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
   if (L.use_hstart) {
     // plain ODEs only; max_step is +inf when the caller gave none
     const float bq = t + dir * fminf(fabsf(tf - t), L.max_step);
-    h_abs = fabsf(
-        rk::hstart<N, tab::MORDER>(t, bq, y, yp, L.rtol, L.atol, fn));
+    if constexpr (tab::SNAP) {
+      h_abs = fabsf(rk::hstart_out_of_line<N, tab::MORDER>(
+          t, bq, y, yp, L.rtol, L.atol, fn));
+    } else {
+      h_abs = fabsf(
+          rk::hstart<N, tab::MORDER>(t, bq, y, yp, L.rtol, L.atol, fn));
+    }
+  }
+  // the next sorted t_eval point (tab::SNAP): those at or before t0 take y0
+  rk::Cursor cur;
+  if constexpr (tab::SNAP) {
+    const Snap& snap = the_snap(record...);
+    cur = rk::cursor_at(snap, snap.past(0, dir, t));
+    if (grp.rank() == 0) {
+      float yu[N];
+      to_user(y, yu);
+      rk::snap_fill(snap, 0, cur.q, member, yu);
+    }
   }
 
   int status = kRunning;
@@ -739,6 +783,24 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
 
     if (accepted) {
       bool unused = false;
+      if constexpr (tab::SNAP) {
+        // the points this step crosses, from its end pairs, each row
+        // mapped to the user's coordinates
+        float yp_new[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          yp_new[i] = finite_or_one(st.K[S - 1][i], unused);
+        }
+        cur = rk::snap_step_rows<N, G>(
+            the_snap(record...), cur, member, grp.rank(), dir, t,
+            is_last ? tf : t_adv, h, y, yp, y_new, yp_new,
+            [](float* dst, const float (&row)[N]) {
+              float u[N];
+              to_user(row, u);
+#pragma unroll
+              for (int k = 0; k < N; ++k) dst[k] = u[k];
+            });
+      }
 #pragma unroll
       for (int i = 0; i < N; ++i) {
         y[i] = y_new[i];
@@ -775,6 +837,11 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
   out.nstep[member] = nstep;
   out.nfev[member] = nfev;
   if constexpr (tab::REC) the_record(record...).n[member] = nrec;
+  // the points the member never reached take its final y
+  if constexpr (tab::SNAP) {
+    const Snap& snap = the_snap(record...);
+    rk::snap_fill(snap, cur.q, snap.nq, member, res);
+  }
   clk.write(member);
 }
 
@@ -798,7 +865,7 @@ __device__ void integrate_thread(const float* __restrict__ y0,
 namespace {
 
 // The member of this thread's group from the kernel's arguments, with the
-// record where a build has one.
+// record and the snapshots where a build has them.
 template <int G, bool COMP, class... Record>
 __device__ __forceinline__ void member_body(const float* __restrict__ y0,
                                             const float* __restrict__ yp0,
@@ -843,13 +910,33 @@ __global__ void fused_esdirk_record_kernel(const float* __restrict__ y0,
   member_body<G, COMP>(y0, yp0, par, out, B, block_members, L, rec);
 }
 
+// The kernel of a build with the t_eval snapshots (tab::SNAP), which takes
+// the record (null with rows 0 where the build has none) and the rows.
+template <int G, bool COMP>
+__global__ void fused_esdirk_snap_kernel(const float* __restrict__ y0,
+                                         const float* __restrict__ yp0,
+                                         const float* __restrict__ par,
+                                         Out out, int B, int block_members,
+                                         Launch L, Rec rec, Snap snap) {
+  member_body<G, COMP>(y0, yp0, par, out, B, block_members, L, rec, snap);
+}
+
 template <int G>
 int launch(const float* y0, const float* yp0, const float* par,
            const Out& out, int B, const Launch& L, int compensated,
-           int block_members, const Rec& rec, cudaStream_t s) {
+           int block_members, const Rec& rec, const Snap& snap,
+           cudaStream_t s) {
   const int blocks = (B + block_members - 1) / block_members;
   const int threads = block_members * G;
-  if constexpr (tab::REC) {
+  if constexpr (tab::SNAP) {
+    if (compensated) {
+      fused_esdirk_snap_kernel<G, true><<<blocks, threads, 0, s>>>(
+          y0, yp0, par, out, B, block_members, L, rec, snap);
+    } else {
+      fused_esdirk_snap_kernel<G, false><<<blocks, threads, 0, s>>>(
+          y0, yp0, par, out, B, block_members, L, rec, snap);
+    }
+  } else if constexpr (tab::REC) {
     if (compensated) {
       fused_esdirk_record_kernel<G, true><<<blocks, threads, 0, s>>>(
           y0, yp0, par, out, B, block_members, L, rec);
@@ -887,7 +974,8 @@ extern "C" int fused_esdirk_sections(void* sections) {
 static int launch_lanes(const void* y0, const void* yp0, const void* params,
                         void* y_out, void* status, void* nstep, void* nfev,
                         int B, const Launch& L, int compensated, int lanes,
-                        int block_members, const Rec& rec, void* stream) {
+                        int block_members, const Rec& rec, const Snap& snap,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* y0f = static_cast<const float*>(y0);
   const float* yp0f = static_cast<const float*>(yp0);
@@ -897,26 +985,27 @@ static int launch_lanes(const void* y0, const void* yp0, const void* params,
   switch (lanes) {
     case 1:
       return launch<1>(y0f, yp0f, par, out, B, L, compensated,
-                       block_members, rec, s);
+                       block_members, rec, snap, s);
     case 4:
       return launch<4>(y0f, yp0f, par, out, B, L, compensated,
-                       block_members, rec, s);
+                       block_members, rec, snap, s);
     case 8:
       return launch<8>(y0f, yp0f, par, out, B, L, compensated,
-                       block_members, rec, s);
+                       block_members, rec, snap, s);
     case 16:
       return launch<16>(y0f, yp0f, par, out, B, L, compensated,
-                        block_members, rec, s);
+                        block_members, rec, snap, s);
     case 32:
       return launch<32>(y0f, yp0f, par, out, B, L, compensated,
-                        block_members, rec, s);
+                        block_members, rec, snap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The launch of a build without dense output (cudaErrorInvalidValue for a
-// build with it: that one takes fused_esdirk_record_launch).
+// The launch of a build without dense output or snapshots
+// (cudaErrorInvalidValue for a build with either: those take
+// fused_esdirk_record_launch and fused_esdirk_snap_launch).
 extern "C" int fused_esdirk_launch(const void* y0, const void* yp0,
                                    const void* params, void* y_out,
                                    void* status, void* nstep,
@@ -927,18 +1016,20 @@ extern "C" int fused_esdirk_launch(const void* y0, const void* yp0,
                                    float tiny_err, int compensated,
                                    int lanes, int block_members,
                                    void* stream) {
-  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
+  if (tab::REC || tab::SNAP) return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{t0,       tf,       rtol,       atol,     h0,
                  max_step, tiny_err, use_hstart, have_yp0, max_steps};
   return launch_lanes(y0, yp0, params, y_out, status, nstep, nfev, B, L,
-                      compensated, lanes, block_members, Rec{}, stream);
+                      compensated, lanes, block_members, Rec{}, Snap{},
+                      stream);
 }
 
 // The launch of a build with dense output (tab::REC): as
 // fused_esdirk_launch, and each member writes its record
 // (dense_record.cuh) to rec_t (B, rows), rec_y and rec_f (B, rows, N),
 // rec_f0 (B, N) and rec_n (B,) int32, in user coordinates.
-// cudaErrorInvalidValue for a build without it or rows < 1.
+// cudaErrorInvalidValue for a build without it, one with snapshots or rows
+// < 1.
 extern "C" int fused_esdirk_record_launch(
     const void* y0, const void* yp0, const void* params, void* y_out,
     void* status, void* nstep, void* nfev, int B, float t0, float tf,
@@ -946,12 +1037,43 @@ extern "C" int fused_esdirk_record_launch(
     float max_step, int max_steps, float tiny_err, int compensated,
     int lanes, int block_members, void* rec_t, void* rec_y, void* rec_f,
     void* rec_f0, void* rec_n, int rows, void* stream) {
-  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tab::REC || tab::SNAP || rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Launch L{t0,       tf,       rtol,       atol,     h0,
                  max_step, tiny_err, use_hstart, have_yp0, max_steps};
   const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
                 static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
                 static_cast<int*>(rec_n), rows};
   return launch_lanes(y0, yp0, params, y_out, status, nstep, nfev, B, L,
-                      compensated, lanes, block_members, rec, stream);
+                      compensated, lanes, block_members, rec, Snap{}, stream);
+}
+
+// The launch of a build with snapshots (tab::SNAP): as
+// fused_esdirk_record_launch, the record's arguments null with rows 0 for a
+// build without it, and each member writes the rows (snapshot.cuh) of the
+// nq points tq (float32, sorted in the direction of integration) at their
+// indices idx (int32) in t_eval to y_eval (nq, B, N), in user coordinates.
+// cudaErrorInvalidValue for a build without tab::SNAP, nq < 1, or rows
+// that disagree with tab::REC.
+extern "C" int fused_esdirk_snap_launch(
+    const void* y0, const void* yp0, const void* params, void* y_out,
+    void* status, void* nstep, void* nfev, int B, float t0, float tf,
+    float rtol, float atol, float h0, int use_hstart, int have_yp0,
+    float max_step, int max_steps, float tiny_err, int compensated,
+    int lanes, int block_members, void* rec_t, void* rec_y, void* rec_f,
+    void* rec_f0, void* rec_n, int rows, const void* tq, const void* idx,
+    void* y_eval, int nq, void* stream) {
+  if (!tab::SNAP || nq < 1 || (rows > 0) != tab::REC || rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Launch L{t0,       tf,       rtol,       atol,     h0,
+                 max_step, tiny_err, use_hstart, have_yp0, max_steps};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  const Snap snap{static_cast<const float*>(tq), static_cast<const int*>(idx),
+                  static_cast<float*>(y_eval), nq, B};
+  return launch_lanes(y0, yp0, params, y_out, status, nstep, nfev, B, L,
+                      compensated, lanes, block_members, rec, snap, stream);
 }

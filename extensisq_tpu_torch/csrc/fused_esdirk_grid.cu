@@ -82,8 +82,21 @@
 // which they leave as it is; without tab::REC the record parameter is
 // never read and the kernels are those of the build before dense output.
 //
+// t_eval snapshots (ops/fused_esdirk_grid.py): a build whose header sets
+// tab::SNAP writes each point's row (snapshot.cuh) as the member's accepted
+// step crosses it, the cubic Hermite of the step's end pairs (y, y') and
+// (y_new, y'_new), y' the carried stiffly accurate last stage and y'_new
+// this step's, scrubbed as the commit carries it: every thread the
+// elements it commits, before it overwrites them (the high words of y and
+// t in the compensated mode), each thread holding the member's cursor into
+// the sorted points; points at or before t0 take y0 and the points left at
+// the end the final y, each thread its own elements.  The four outputs are
+// those of the build without it; without tab::SNAP the snapshot parameter
+// is never read.
+//
 // The generated header fused_esdirk_grid_config.cuh provides
-//   namespace tab { G = grid::Grid<N>, N, NB, L, NPAR, REC, S, MORDER,
+//   namespace tab { G = grid::Grid<N>, N, NB, L, NPAR, REC, SNAP, S,
+//                   MORDER,
 //                   NEWTON_MAXITER, FILTER_ERROR, D, INV_D, KAPPA,
 //                   controller and start constants, the accessors A(i, j),
 //                   AZ(i, j), C(i), E(j) }
@@ -116,6 +129,7 @@
 #include "block_hstart.cuh"
 #include "block_rows.cuh"
 #include "rk_common.cuh"
+#include "snapshot.cuh"
 
 namespace {
 
@@ -125,6 +139,7 @@ using tab::NB;
 using tab::S;
 constexpr bool kBlock = NB < N;  // the simultaneous corrector
 using rk::Rec;
+using rk::Snap;
 using esdirk::RowA;
 using esdirk::RowAz;
 using esdirk::RowE;
@@ -620,14 +635,15 @@ __device__ float start(Group& g, const Rows& m, const float* __restrict__ y0,
 // sync() and sum(x), a reduction whose result every thread holds, and
 // min(x) for the start).  sm is the member's shared memory (kFloats),
 // params every member's NPAR parameters (null without any), rec the record
-// with tab::REC.
+// with tab::REC, snap the t_eval rows with tab::SNAP.
 template <bool COMP, class Group>
 __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
                           const float* __restrict__ yp0,
                           const float* __restrict__ mass,
                           const float* __restrict__ params, const Launch& Lc,
                           int member, const Out& out,
-                          const Rec& rec = Rec{}) {
+                          const Rec& rec = Rec{},
+                          const Snap& snap = Snap{}) {
   const Rows m = rows(sm);
   load_params(g, sm, params, member);
   const float span = Lc.tf - Lc.t0;
@@ -646,6 +662,15 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   int nfev = Lc.have_yp0 ? 0 : 1;
   int it = 0;
   int nrec = 0;  // rows of the record written (tab::REC)
+  // the next sorted t_eval point (tab::SNAP): the rows of those at or
+  // before t0 get the thread's elements of y0
+  int q = 0;
+  if constexpr (tab::SNAP) {
+    q = snap.past(0, dir, t);
+    rk::for_elements<N>(g, [&](int i) {
+      for (int p = 0; p < q; ++p) snap.row(p, member, N)[i] = m.y[i];
+    });
+  }
   Clock clk;
 
   while (status == kRunning) {
@@ -737,7 +762,17 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
 
     if (accepted) {
       float unused = 0.0f;
+      // the t_eval points the step crosses
+      const int q_end =
+          tab::SNAP ? snap.past(q, dir, is_last ? Lc.tf : t_adv) : 0;
       rk::for_elements<N>(g, [&](int i) {
+        if constexpr (tab::SNAP) {
+          const float ypn = finite_or_one(m.K[(S - 1) * N + i], unused);
+          for (int p = q; p < q_end; ++p) {
+            snap.row(p, member, N)[i] = rk::hermite(
+                snap.theta(p, t, h), h, m.y[i], m.yp[i], m.ynew[i], ypn);
+          }
+        }
         m.y[i] = m.ynew[i];
         m.ylo[i] = m.ylonew[i];
         m.yp[i] = finite_or_one(m.K[(S - 1) * N + i], unused);
@@ -756,6 +791,7 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
           nrec += 1;
         }
       }
+      if constexpr (tab::SNAP) q = q_end;
       nstep += 1;
     }
     nfev += st.nfev;
@@ -765,6 +801,10 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
   g.sync();
   rk::for_elements<N>(g, [&](int i) {
     out.y[static_cast<size_t>(member) * N + i] = m.y[i];
+    // the points the member never reached take its final y
+    if constexpr (tab::SNAP) {
+      for (int p = q; p < snap.nq; ++p) snap.row(p, member, N)[i] = m.y[i];
+    }
   });
   if (g.rank() == 0) {
     out.status[member] = status;
@@ -831,14 +871,14 @@ __global__ void __launch_bounds__(kMaxThreads)
                              const float* __restrict__ yp0,
                              const float* __restrict__ mass,
                              const float* __restrict__ params, Launch Lc,
-                             Out out, Rec rec) {
+                             Out out, Rec rec, Snap snap) {
   extern __shared__ float sm[];
   __shared__ float red[2 * 2 * 32];
   auto g = group(BlockGroupOf<2>{red});
   const int member = blockIdx.x;
   const size_t off = static_cast<size_t>(member) * N;
   integrate<COMP>(g, sm, y0 + off, yp0 ? yp0 + off : nullptr, mass, params,
-                  Lc, member, out, rec);
+                  Lc, member, out, rec, snap);
   write_phases(g, member);
 }
 
@@ -851,7 +891,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                                   const float* __restrict__ yp0,
                                   const float* __restrict__ mass,
                                   const float* __restrict__ params, Launch Lc,
-                                  Out out, int members, Rec rec) {
+                                  Out out, int members, Rec rec, Snap snap) {
   extern __shared__ float sm[];
   const int warp = static_cast<int>(threadIdx.x >> 5);
   const int member = static_cast<int>(blockIdx.x * (blockDim.x >> 5)) + warp;
@@ -860,14 +900,14 @@ __global__ void __launch_bounds__(kMaxThreads)
   const size_t off = static_cast<size_t>(member) * N;
   integrate<COMP>(g, sm + warp * kFloats, y0 + off,
                   yp0 ? yp0 + off : nullptr, mass, params, Lc, member, out,
-                  rec);
+                  rec, snap);
   write_phases(g, member);
 }
 
 using Kernel = void (*)(const float*, const float*, const float*,
-                        const float*, Launch, Out, Rec);
+                        const float*, Launch, Out, Rec, Snap);
 using WarpKernel = void (*)(const float*, const float*, const float*,
-                            const float*, Launch, Out, int, Rec);
+                            const float*, Launch, Out, int, Rec, Snap);
 
 // Allows `bytes` of dynamic shared memory where it is above 48 KB.
 template <class K>
@@ -912,7 +952,8 @@ static int launch_members(const void* y0, const void* yp0, const void* mass,
                           const void* params, void* y_out, void* status,
                           void* nstep, void* nfev, int members,
                           const Launch& Lc, int compensated, int threads,
-                          int warp_members, const Rec& rec, void* stream) {
+                          int warp_members, const Rec& rec, const Snap& snap,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
@@ -931,8 +972,8 @@ static int launch_members(const void* y0, const void* yp0, const void* mass,
     const cudaError_t e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int blocks = (members + warp_members - 1) / warp_members;
-    kernel<<<blocks, 32 * warp_members, bytes, st>>>(y0f, yp0f, massf, pf,
-                                                     Lc, out, members, rec);
+    kernel<<<blocks, 32 * warp_members, bytes, st>>>(
+        y0f, yp0f, massf, pf, Lc, out, members, rec, snap);
     return static_cast<int>(cudaGetLastError());
   }
   Kernel kernel = compensated ? fused_esdirk_grid_kernel<true>
@@ -940,12 +981,13 @@ static int launch_members(const void* y0, const void* yp0, const void* mass,
   const cudaError_t e = allow_smem(kernel, member_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<members, threads, member_bytes, st>>>(y0f, yp0f, massf, pf, Lc,
-                                                 out, rec);
+                                                 out, rec, snap);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch of a build without dense output (cudaErrorInvalidValue for a
-// build with it: that one takes fused_esdirk_grid_record_launch).
+// The launch of a build without dense output or snapshots
+// (cudaErrorInvalidValue for a build with either: those take
+// fused_esdirk_grid_record_launch and fused_esdirk_grid_snap_launch).
 extern "C" int fused_esdirk_grid_launch(
     const void* y0, const void* yp0, const void* mass, const void* params,
     void* y_out,
@@ -953,19 +995,19 @@ extern "C" int fused_esdirk_grid_launch(
     float rtol, float atol, float h0, int use_hstart, int have_yp0,
     float max_step, int max_steps, float tiny_err, int compensated,
     int threads, int warp_members, void* stream) {
-  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
+  if (tab::REC || tab::SNAP) return static_cast<int>(cudaErrorInvalidValue);
   const Launch Lc{t0,         tf,        rtol,     atol,      h0,
                   use_hstart, have_yp0,  max_step, max_steps, tiny_err};
   return launch_members(y0, yp0, mass, params, y_out, status, nstep, nfev,
                         members, Lc, compensated, threads, warp_members,
-                        Rec{}, stream);
+                        Rec{}, Snap{}, stream);
 }
 
 // The launch of a build with dense output (tab::REC): as
 // fused_esdirk_grid_launch, and each member writes its record
 // (dense_record.cuh) to rec_t (B, rows), rec_y and rec_f (B, rows, N),
 // rec_f0 (B, N) and rec_n (B,) int32.  cudaErrorInvalidValue for a build
-// without it or rows < 1.
+// without it, one with snapshots or rows < 1.
 extern "C" int fused_esdirk_grid_record_launch(
     const void* y0, const void* yp0, const void* mass, const void* params,
     void* y_out, void* status, void* nstep, void* nfev, int members,
@@ -974,7 +1016,9 @@ extern "C" int fused_esdirk_grid_record_launch(
     int compensated, int threads, int warp_members, void* rec_t,
     void* rec_y, void* rec_f, void* rec_f0, void* rec_n, int rows,
     void* stream) {
-  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tab::REC || tab::SNAP || rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Launch Lc{t0,         tf,        rtol,     atol,      h0,
                   use_hstart, have_yp0,  max_step, max_steps, tiny_err};
   const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
@@ -982,5 +1026,35 @@ extern "C" int fused_esdirk_grid_record_launch(
                 static_cast<int*>(rec_n), rows};
   return launch_members(y0, yp0, mass, params, y_out, status, nstep, nfev,
                         members, Lc, compensated, threads, warp_members, rec,
-                        stream);
+                        Snap{}, stream);
+}
+
+// The launch of a build with snapshots (tab::SNAP): as
+// fused_esdirk_grid_record_launch, the record's arguments null with rows 0
+// for a build without it, and each member writes the rows (snapshot.cuh) of
+// the nq points tq (float32, sorted in the direction of integration) at
+// their indices idx (int32) in t_eval to y_eval (nq, B, N).
+// cudaErrorInvalidValue for a build without tab::SNAP, nq < 1, or rows
+// that disagree with tab::REC.
+extern "C" int fused_esdirk_grid_snap_launch(
+    const void* y0, const void* yp0, const void* mass, const void* params,
+    void* y_out, void* status, void* nstep, void* nfev, int members,
+    float t0, float tf, float rtol, float atol, float h0, int use_hstart,
+    int have_yp0, float max_step, int max_steps, float tiny_err,
+    int compensated, int threads, int warp_members, void* rec_t,
+    void* rec_y, void* rec_f, void* rec_f0, void* rec_n, int rows,
+    const void* tq, const void* idx, void* y_eval, int nq, void* stream) {
+  if (!tab::SNAP || nq < 1 || (rows > 0) != tab::REC || rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Launch Lc{t0,         tf,        rtol,     atol,      h0,
+                  use_hstart, have_yp0,  max_step, max_steps, tiny_err};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  const Snap snap{static_cast<const float*>(tq), static_cast<const int*>(idx),
+                  static_cast<float*>(y_eval), nq, members};
+  return launch_members(y0, yp0, mass, params, y_out, status, nstep, nfev,
+                        members, Lc, compensated, threads, warp_members, rec,
+                        snap, stream);
 }

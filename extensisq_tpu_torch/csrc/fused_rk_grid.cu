@@ -58,17 +58,20 @@
 // and B4 and B6 without dense output) the record parameter is never read
 // and the kernels are those of the build before dense output.
 //
-// t_eval snapshots (B4, ops/fused_erk_grid.py, and B12,
-// ops/fused_ckdisc_grid.py): a build whose header sets tab::SNAP writes
-// each point's row (snapshot.cuh) as the member's accepted step crosses
-// it, the cubic Hermite of the step's end pairs, every thread the elements
-// it owns: B4 in the commit, from the elements of y and f before it
-// overwrites them (their high words in the compensated mode), B12 in its
-// commit from a copy of f's elements that the endpoint's evaluation would
-// overwrite (kept in the stage row K[1], free by then), over the accepted
-// sub-step [t, t + h_used].  Every thread holds the member's cursor into
-// the sorted points.  The four outputs are those of the build without it;
-// B6's builds refuse the switch.
+// t_eval snapshots (B4, ops/fused_erk_grid.py, B6, ops/fused_rkn_grid.py,
+// and B12, ops/fused_ckdisc_grid.py): a build whose header sets tab::SNAP
+// writes each point's row (snapshot.cuh) as the member's accepted step
+// crosses it, the cubic Hermite of the step's end pairs, every thread the
+// elements it owns: B4 and B6 in the commit, from the elements of y and f
+// before it overwrites them (their high words in the compensated mode),
+// B12 in its commit from a copy of f's elements that the endpoint's
+// evaluation would overwrite (kept in the stage row K[1], free by then),
+// over the accepted sub-step [t, t + h_used].  An RKN row is [u, v] (NF
+// floats): position i's thread writes its u entry from (u, v) and its v
+// entry from (v, a), JAX's partitioned Hermite, which is the Hermite of
+// [u, v] with derivative [v, a].  Every thread holds the member's cursor
+// into the sorted points.  The four outputs are those of the build without
+// it.
 //
 // The CKdisc cascade (ck_control.cuh) has up to five norms per attempt: E1,
 // E2, E4 and the two fallbacks' error tests.  Every thread holds the same
@@ -135,8 +138,6 @@ constexpr int kMaxThreads = 256;
 
 static_assert(!tab::REC || !tab::CK,
               "dense output is built for the ERK and RKN families only");
-static_assert(!tab::SNAP || !RKN,
-              "t_eval snapshots are built for the ERK and CKdisc families");
 using rk::Rec;
 using rk::Snap;
 
@@ -455,15 +456,15 @@ __device__ float start(Group& g, float* Y, float* K,
 }
 
 // The member's start for its t_eval rows (tab::SNAP): the rows of the
-// sorted points at or before t0 get the thread's elements of the state Y;
-// returns the member's cursor past them.
+// sorted points at or before t0 get the thread's elements of the state Y
+// (NF floats a row); returns the member's cursor past them.
 template <class Group>
 __device__ __forceinline__ int snap_start(const Group& g, const Snap& snap,
                                           int member, const Launch& L,
                                           const float* Y) {
   const int q = snap.past(0, L.dir, L.t0);
-  rk::for_elements<N>(g, [&](int i) {
-    for (int p = 0; p < q; ++p) snap.row(p, member, N)[i] = Y[i];
+  rk::for_elements<NF>(g, [&](int j) {
+    for (int p = 0; p < q; ++p) snap.row(p, member, NF)[j] = Y[j];
   });
   return q;
 }
@@ -474,21 +475,32 @@ template <class Group>
 __device__ __forceinline__ void snap_flush(const Group& g, const Snap& snap,
                                            int q, int member,
                                            const float* Y) {
-  rk::for_elements<N>(g, [&](int i) {
-    for (int p = q; p < snap.nq; ++p) snap.row(p, member, N)[i] = Y[i];
+  rk::for_elements<NF>(g, [&](int j) {
+    for (int p = q; p < snap.nq; ++p) snap.row(p, member, NF)[j] = Y[j];
   });
 }
 
 // Element i of the rows of the sorted points [q, end), which the accepted
 // step from t of signed size h crosses, from its end pairs (y, f) and
-// (y1, f1).
+// (y1, f1): y.u (and for RKN y.v) the element's entries of the state, f
+// its entry of the stage row K[0] (the acceleration for RKN).  An RKN row
+// takes position i's u entry from (u, v) and its v entry from (v, a), with
+// the weights of one theta.
 __device__ __forceinline__ void snap_element(const Snap& snap, int q,
                                              int end, int member, int i,
-                                             float t, float h, float y,
-                                             float f, float y1, float f1) {
+                                             float t, float h, const Pair& y,
+                                             float f, const Pair& y1,
+                                             float f1) {
   for (int p = q; p < end; ++p) {
-    snap.row(p, member, N)[i] =
-        rk::hermite(snap.theta(p, t, h), h, y, f, y1, f1);
+    float* row = snap.row(p, member, NF);
+    if constexpr (RKN) {
+      const rk::HermiteWeights w =
+          rk::hermite_weights(snap.theta(p, t, h), h);
+      row[i] = rk::hermite_sum(w, y.u, y.v, y1.u, y1.v);
+      row[N + i] = rk::hermite_sum(w, y.v, f, y1.v, f1);
+    } else {
+      row[i] = rk::hermite(snap.theta(p, t, h), h, y.u, f, y1.u, f1);
+    }
   }
 }
 
@@ -642,8 +654,9 @@ __device__ void integrate(Group& g, float* sm, const float* __restrict__ y0,
           },
           [&](int i, const Commit& c) {
             if constexpr (tab::SNAP) {
-              snap_element(snap, q, q_end, member, i, t, h, Y[i], K[i],
-                           c.y.u, c.k);
+              snap_element(snap, q, q_end, member, i, t, h,
+                           Pair{Y[i], RKN ? Y[N + i] : 0.0f}, K[i], c.y,
+                           c.k);
             }
             Y[i] = c.y.u;
             if constexpr (RKN) Y[N + i] = c.y.v;
@@ -840,8 +853,9 @@ __device__ void integrate_ck(Group& g, float* sm, const float* __restrict__ y0,
           // the t_eval points the accepted sub-step crosses
           const int q_end = snap.past(q, L.dir, t_new);
           rk::for_elements<N>(g, [&](int i) {
-            snap_element(snap, q, q_end, member, i, t, h_used, Y[i],
-                         K[N + i], Ysol[i], K[i]);
+            snap_element(snap, q, q_end, member, i, t, h_used,
+                         Pair{Y[i], 0.0f}, K[N + i], Pair{Ysol[i], 0.0f},
+                         K[i]);
           });
           q = q_end;
         }
@@ -1096,12 +1110,12 @@ extern "C" int fused_rk_grid_record_launch(
                         stream);
 }
 
-// The launch of an ERK or CKdisc build with snapshots (tab::SNAP): as
+// The launch of a build with snapshots (tab::SNAP): as
 // fused_rk_grid_record_launch, the record's arguments null with rows 0 for a
 // build without it (B12 always), and each member writes the rows
 // (snapshot.cuh) of the nq points tq (float32, sorted in the direction of
 // integration) at their indices idx (int32) in t_eval to y_eval (nq, B,
-// N).  cudaErrorInvalidValue for a build without tab::SNAP, nq < 1, or rows
+// NF).  cudaErrorInvalidValue for a build without tab::SNAP, nq < 1, or rows
 // that disagree with tab::REC.
 extern "C" int fused_rk_grid_snap_launch(
     const void* y0, const void* params, void* y_out, void* status,

@@ -44,10 +44,25 @@
 // parameter is never read and the kernels are those of the build before
 // dense output.
 //
+// t_eval snapshots (ops/fused_rkn.py): a build whose header sets tab::SNAP
+// writes each point's row (snapshot.cuh) as the member's accepted step
+// crosses it: the cubic Hermite of the step's end pairs ([u, v], [v, a])
+// and ([u_new, v_new], [v_new, a_new]), which is JAX's partitioned form
+// (the u rows with derivative v, the v rows with the carried
+// acceleration), read before u, v and a are overwritten (their high words
+// in the compensated mode); the new acceleration goes into a temporary
+// first, so that the v rows still see the old one.  A step's crossed
+// points are split over the group's lanes (snapshot.cuh: snap_step);
+// points at or before t0 take y0, the points left at the end the final
+// [u, v] (rank 0 writing those).  The four outputs are those of the build
+// without it (its Watts start out of line, hstart.cuh: inlined beside the
+// rows' code it parted in the compensated body), and a build with both
+// switches serves t_eval with dense=R.
+//
 // The tableau (float32, rounded as the JAX kernel rounds it; E and Ep as the
 // tableau has them, without the stepper's Mu5Nmb damping) and the user's
 // acceleration come from the generated header fused_rkn_config.cuh:
-//   namespace tab { M, NPAR, REC, S, FSAL, MORDER, A(i, j), AP(i, j),
+//   namespace tab { M, NPAR, REC, SNAP, S, FSAL, MORDER, A(i, j), AP(i, j),
 //                   B(j), BP(j), C(i), E(j), EP(j), controller and start
 //                   constants }
 //   template <class T> __device__ void acc(T t, const T* u, const T* v,
@@ -68,6 +83,7 @@
 #include "dense_record.cuh"
 #include "fused_rkn_config.cuh"
 #include "rk_common.cuh"
+#include "snapshot.cuh"
 
 namespace {
 
@@ -128,6 +144,7 @@ using rk::Launch;
 using rk::OneLane;
 using rk::Out;
 using rk::Rec;
+using rk::Snap;
 using rk::RowA;
 using rk::RowAp;
 using rk::RowB;
@@ -172,17 +189,18 @@ __device__ __forceinline__ void stages(const Acc& fn, float t, float h,
 // The whole integration of one member by the group grp of G lanes (rank(),
 // shfl(v, src); OneLane at G = 1) from its initial state y0 = [u, v] with
 // its parameters par (tab::NPAR floats; unread when there are none); lane
-// 0 writes the results, and with tab::REC the member's record rec.  At G =
-// 1 the norm and the controller run as one thread runs them; at G > 1
-// their divisions and powers are split over the lanes (rk_lanes.cuh), with
-// the same bits.
+// 0 writes the results, with tab::REC the member's record rec and with
+// tab::SNAP its t_eval rows snap.  At G = 1 the norm and the controller run
+// as one thread runs them; at G > 1 their divisions and powers are split
+// over the lanes (rk_lanes.cuh), with the same bits.
 template <int G, bool COMP, class Group>
 __device__ __forceinline__ void integrate(Group& grp,
                                           const float* __restrict__ y0,
                                           const float* __restrict__ par,
                                           const Launch& L, int member,
                                           const Out& out,
-                                          const Rec& rec = Rec{}) {
+                                          const Rec& rec = Rec{},
+                                          const Snap& snap = Snap{}) {
   const Acc fn(par);
   const float tf = L.tf;
   const float rtol = L.rtol;
@@ -224,9 +242,28 @@ __device__ __forceinline__ void integrate(Group& grp,
     }
     // max_step is +inf when the caller gave none
     const float bq = t + dir * fminf(fabsf(tf - t), max_step);
-    ctl.h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, yp, rtol, atol,
-                                                 FirstOrder{fn}));
+    if constexpr (tab::SNAP) {
+      ctl.h_abs = fabsf(rk::hstart_out_of_line<N, tab::MORDER>(
+          t, bq, y, yp, rtol, atol, FirstOrder{fn}));
+    } else {
+      ctl.h_abs = fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, yp, rtol, atol,
+                                                   FirstOrder{fn}));
+    }
     nfev = 2 + (N + 1 < 3 ? N + 1 : 3);
+  }
+  // the next sorted t_eval point (tab::SNAP): those at or before t0 take y0
+  rk::Cursor cur;
+  if constexpr (tab::SNAP) {
+    cur = rk::cursor_at(snap, snap.past(0, dir, t));
+    if (grp.rank() == 0) {
+      float y[N];
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        y[k] = u[k];
+        y[M + k] = v[k];
+      }
+      rk::snap_fill(snap, 0, cur.q, member, y);
+    }
   }
 
   int status = kRunning;
@@ -375,7 +412,33 @@ __device__ __forceinline__ void integrate(Group& grp,
 
     nfev += tab::FSAL ? S : S - 1;
     if (accepted) {
-      if constexpr (tab::FSAL) {
+      if constexpr (tab::SNAP) {
+        // the points this step crosses, from its end pairs [u, v], [v, a]
+        float f_new[M];
+        if constexpr (tab::FSAL) {
+#pragma unroll
+          for (int k = 0; k < M; ++k) f_new[k] = K[S][k];
+        } else {
+          fn(t_new, u_new, v_new, f_new);
+          nfev += 1;
+        }
+        float y[N], yp[N], y1[N], yp1[N];
+#pragma unroll
+        for (int k = 0; k < M; ++k) {
+          y[k] = u[k];
+          y[M + k] = v[k];
+          yp[k] = v[k];
+          yp[M + k] = f[k];
+          y1[k] = u_new[k];
+          y1[M + k] = v_new[k];
+          yp1[k] = v_new[k];
+          yp1[M + k] = f_new[k];
+        }
+        cur = rk::snap_step<N, G>(snap, cur, member, grp.rank(), dir, t,
+                                  t_new, h, y, yp, y1, yp1);
+#pragma unroll
+        for (int k = 0; k < M; ++k) f[k] = f_new[k];
+      } else if constexpr (tab::FSAL) {
 #pragma unroll
         for (int k = 0; k < M; ++k) f[k] = K[S][k];
       } else {
@@ -429,6 +492,16 @@ __device__ __forceinline__ void integrate(Group& grp,
   out.nstep[member] = nstep;
   out.nfev[member] = nfev;
   if constexpr (tab::REC) rec.n[member] = nrec;
+  // the points the member never reached take its final [u, v]
+  if constexpr (tab::SNAP) {
+    float y[N];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      y[k] = u[k];
+      y[M + k] = v[k];
+    }
+    rk::snap_fill(snap, cur.q, snap.nq, member, y);
+  }
   clk.write(member, it);
 }
 
@@ -438,9 +511,10 @@ template <bool COMP>
 __device__ void integrate_thread(const float* __restrict__ y0,
                                  const float* __restrict__ par,
                                  const Launch& L, int member,
-                                 const Out& out, const Rec& rec = Rec{}) {
+                                 const Out& out, const Rec& rec = Rec{},
+                                 const Snap& snap = Snap{}) {
   OneLane one;
-  integrate<1, COMP>(one, y0, par, L, member, out, rec);
+  integrate<1, COMP>(one, y0, par, L, member, out, rec, snap);
 }
 
 }  // namespace
@@ -454,32 +528,32 @@ template <int G, bool COMP>
 __global__ void fused_rkn_kernel(const float* __restrict__ y0,
                                  const float* __restrict__ par, Out out,
                                  int B, int block_members, Launch L,
-                                 Rec rec) {
+                                 Rec rec, Snap snap) {
   const int member =
       blockIdx.x * block_members + static_cast<int>(threadIdx.x) / G;
   if (member >= B) return;  // ragged last block: no member padding
   const float* y0m = y0 + static_cast<size_t>(member) * N;
   const float* parm = par + static_cast<size_t>(member) * tab::NPAR;
   if constexpr (G == 1) {
-    integrate_thread<COMP>(y0m, parm, L, member, out, rec);
+    integrate_thread<COMP>(y0m, parm, L, member, out, rec, snap);
   } else {
     LaneGroup<G> grp;
-    integrate<G, COMP>(grp, y0m, parm, L, member, out, rec);
+    integrate<G, COMP>(grp, y0m, parm, L, member, out, rec, snap);
   }
 }
 
 template <int G>
 int launch(const float* y0, const float* par, const Out& out, int B,
            const Launch& L, int compensated, int block_members,
-           const Rec& rec, cudaStream_t s) {
+           const Rec& rec, const Snap& snap, cudaStream_t s) {
   const int blocks = (B + block_members - 1) / block_members;
   const int threads = block_members * G;
   if (compensated) {
     fused_rkn_kernel<G, true><<<blocks, threads, 0, s>>>(
-        y0, par, out, B, block_members, L, rec);
+        y0, par, out, B, block_members, L, rec, snap);
   } else {
     fused_rkn_kernel<G, false><<<blocks, threads, 0, s>>>(
-        y0, par, out, B, block_members, L, rec);
+        y0, par, out, B, block_members, L, rec, snap);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -504,7 +578,8 @@ extern "C" int fused_rkn_sections(void* sections) {
 static int launch_lanes(const void* y0, const void* params, void* y_out,
                         void* status, void* nstep, void* nfev, int B,
                         const Launch& L, int compensated, int lanes,
-                        int block_members, const Rec& rec, void* stream) {
+                        int block_members, const Rec& rec,
+                        const Snap& snap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* y0f = static_cast<const float*>(y0);
   const float* par = static_cast<const float*>(params);
@@ -513,23 +588,24 @@ static int launch_lanes(const void* y0, const void* params, void* y_out,
   switch (lanes) {
     case 1:
       return launch<1>(y0f, par, out, B, L, compensated, block_members, rec,
-                       s);
+                       snap, s);
     case 2:
       return launch<2>(y0f, par, out, B, L, compensated, block_members, rec,
-                       s);
+                       snap, s);
     case 4:
       return launch<4>(y0f, par, out, B, L, compensated, block_members, rec,
-                       s);
+                       snap, s);
     case 8:
       return launch<8>(y0f, par, out, B, L, compensated, block_members, rec,
-                       s);
+                       snap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The launch of a build without dense output (cudaErrorInvalidValue for a
-// build with it: that one takes fused_rkn_record_launch).
+// The launch of a build without dense output or snapshots
+// (cudaErrorInvalidValue for a build with either: those take
+// fused_rkn_record_launch and fused_rkn_snap_launch).
 extern "C" int fused_rkn_launch(const void* y0, const void* params,
                                 void* y_out, void* status, void* nstep,
                                 void* nfev, int B, float t0, float tf,
@@ -537,27 +613,58 @@ extern "C" int fused_rkn_launch(const void* y0, const void* params,
                                 int use_hstart, float max_step, int max_steps,
                                 int compensated, int lanes, int block_members,
                                 void* stream) {
-  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
+  if (tab::REC || tab::SNAP) return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
   return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L,
-                      compensated, lanes, block_members, Rec{}, stream);
+                      compensated, lanes, block_members, Rec{}, Snap{},
+                      stream);
 }
 
 // The launch of a build with dense output (tab::REC): as fused_rkn_launch,
 // and each member writes its record (dense_record.cuh) to rec_t (B, rows),
 // rec_y and rec_f (B, rows, 2M), rec_f0 (B, 2M) and rec_n (B,) int32.
-// cudaErrorInvalidValue for a build without it or rows < 1.
+// cudaErrorInvalidValue for a build without it, one with snapshots or rows
+// < 1.
 extern "C" int fused_rkn_record_launch(
     const void* y0, const void* params, void* y_out, void* status,
     void* nstep, void* nfev, int B, float t0, float tf, float rtol,
     float atol, float h0, int use_hstart, float max_step, int max_steps,
     int compensated, int lanes, int block_members, void* rec_t, void* rec_y,
     void* rec_f, void* rec_f0, void* rec_n, int rows, void* stream) {
-  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tab::REC || tab::SNAP || rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
   const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
                 static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
                 static_cast<int*>(rec_n), rows};
   return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L,
-                      compensated, lanes, block_members, rec, stream);
+                      compensated, lanes, block_members, rec, Snap{}, stream);
+}
+
+// The launch of a build with snapshots (tab::SNAP): as
+// fused_rkn_record_launch, the record's arguments null with rows 0 for a
+// build without it, and each member writes the rows (snapshot.cuh) of the
+// nq points tq (float32, sorted in the direction of integration) at their
+// indices idx (int32) in t_eval to y_eval (nq, B, 2M).
+// cudaErrorInvalidValue for a build without tab::SNAP, nq < 1, or rows
+// that disagree with tab::REC.
+extern "C" int fused_rkn_snap_launch(
+    const void* y0, const void* params, void* y_out, void* status,
+    void* nstep, void* nfev, int B, float t0, float tf, float rtol,
+    float atol, float h0, int use_hstart, float max_step, int max_steps,
+    int compensated, int lanes, int block_members, void* rec_t, void* rec_y,
+    void* rec_f, void* rec_f0, void* rec_n, int rows, const void* tq,
+    const void* idx, void* y_eval, int nq, void* stream) {
+  if (!tab::SNAP || nq < 1 || (rows > 0) != tab::REC || rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Launch L{t0, tf, rtol, atol, h0, max_step, use_hstart, max_steps};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  const Snap snap{static_cast<const float*>(tq), static_cast<const int*>(idx),
+                  static_cast<float*>(y_eval), nq, B};
+  return launch_lanes(y0, params, y_out, status, nstep, nfev, B, L,
+                      compensated, lanes, block_members, rec, snap, stream);
 }

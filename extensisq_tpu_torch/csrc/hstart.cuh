@@ -130,4 +130,18 @@ __device__ float hstart(float a, float b, const float (&y)[N],
   return h;
 }
 
+// hstart compiled out of line, for the t_eval snapshot builds of B5 and B2:
+// inlined beside the snapshots' code, nvcc compiled it otherwise in B5's
+// compensated body than in the build without them (config 3's Kepler line
+// from Watts' start: 143 of 2,048 members apart), while out of line it
+// gives that build's bits (PERF.md §6 and §7).
+template <int N, int MORDER, class F>
+__device__ __noinline__ float hstart_out_of_line(float a, float b,
+                                                 const float (&y)[N],
+                                                 const float (&f)[N],
+                                                 float rtol, float atol,
+                                                 const F& fn) {
+  return hstart<N, MORDER>(a, b, y, f, rtol, atol, fn);
+}
+
 }  // namespace rk

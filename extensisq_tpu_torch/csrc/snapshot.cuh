@@ -1,8 +1,10 @@
-// The in-kernel t_eval snapshots of the explicit kernels: B1 (fused_erk.cu),
-// B11 (fused_ckdisc.cu), B4 and B12 (fused_rk_grid.cu).
+// The in-kernel t_eval snapshots: B1 (fused_erk.cu), B5 (fused_rkn.cu),
+// B11 (fused_ckdisc.cu), B2 (fused_esdirk.cu), B4, B6 and B12
+// (fused_rk_grid.cu) and B7 (fused_esdirk_grid.cu).
 //
-// The JAX kernels (extensisq_tpu/ops/fused_erk.py:_run_erk_loop and
-// fused_ckdisc.py:_run_ck_loop) test every point q at every accepted step
+// The JAX kernels (extensisq_tpu/ops/fused_erk.py:_run_erk_loop,
+// fused_ckdisc.py:_run_ck_loop, fused_rkn.py:_run_rkn_loop and the ESDIRK
+// kernels' loops) test every point q at every accepted step
 // of a member: q is crossed when dir (tq - t) > 0 and dir tq <= dir t_new,
 // and its row is then the cubic Hermite (_hermite_tiles) of the step's end
 // pairs (y, f) and (y_new, f_new) at theta = (tq - t) / h, clamped to
@@ -23,12 +25,16 @@
 // memory; a kernel writes them only where its generated header sets
 // tab::SNAP, and without it compiles to the kernels it had before.
 //
-// The register kernels (B1, B11) keep the cursor's point, its time and its
-// index in t_eval, in registers (Cursor), so that a step which crosses no
-// point costs a compare and no load; B1 forms the Hermite's weights of that
-// point at the start of each attempt, before the stages, so that a step
-// crossing it only sums them with its end pairs; and the points a step
-// crosses are split over the member's lanes (snap_step).  What the rows
+// The register kernels (B1, B5, B11, B2) keep the cursor's point, its time
+// and its index in t_eval, in registers (Cursor), so that a step which
+// crosses no point costs a compare and no load; B1 forms the Hermite's
+// weights of that point at the start of each attempt, before the stages,
+// so that a step crossing it only sums them with its end pairs; and the
+// points a step crosses are split over the member's lanes (snap_step, and
+// snap_step_rows where a row is mapped before it is stored).  B5's rows
+// are the first-order state [u, v] with derivative [v, a].  The block
+// kernels (B4, B6, B12, B7) hold the cursor in every thread, and each
+// thread writes its own elements of a row.  What the rows
 // cost is the chain each crossed point runs after acceptance (the scan's
 // load, the division, the weights, the stores), and a warp waits for its
 // lane that crosses most.
@@ -140,6 +146,31 @@ __device__ __forceinline__ void snap_fill(const Snap& s, int q, int end,
 #pragma unroll
     for (int k = 0; k < N; ++k) r[k] = y[k];
   }
+}
+
+// The register kernels' accepted step from (t, y, f) to (t_new, y1, f1) of
+// signed size h with each crossed point's row formed whole in registers and
+// handed to store(dst, row), dst its N floats in y_eval (B2, whose rows of
+// a rotated system go back to the user's coordinates first): the j-th
+// crossed point to lane j mod G, as snap_step splits them, the weights of
+// each formed here.  Returns the cursor past them.
+template <int N, int G, class Store>
+__device__ __forceinline__ Cursor snap_step_rows(
+    const Snap& s, const Cursor& c, int member, int rank, float dir, float t,
+    float t_new, float h, const float (&y)[N], const float (&f)[N],
+    const float (&y1)[N], const float (&f1)[N], const Store& store) {
+  if (c.q >= s.nq || dir * c.tq > dir * t_new) return c;
+  const int end = s.past(c.q + 1, dir, t_new);
+  for (int p = c.q + rank; p < end; p += G) {
+    const HermiteWeights w = hermite_weights(s.theta(p, t, h), h);
+    float r[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      r[k] = hermite_sum(w, y[k], f[k], y1[k], f1[k]);
+    }
+    store(s.row(p, member, N), r);
+  }
+  return cursor_at(s, end);
 }
 
 // The register kernels' accepted step from (t, y, f) to (t_new, y1, f1) of

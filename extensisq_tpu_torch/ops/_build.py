@@ -175,12 +175,12 @@ def _flag(b):
     return "true" if b else "false"
 
 
-def fused_rkn_header(k, m, acc_src, npar=0, record=False):
+def fused_rkn_header(k, m, acc_src, npar=0, record=False, snap=False):
     """Text of ``fused_rkn_config.cuh`` for the constants ``k`` of
     ``ops.fused_rkn.rkn_consts``, ``m`` positions, the CUDA source of the
     acceleration ``acc``, its number of per-member parameters ``npar`` and
-    whether the build writes the dense record (``record``,
-    ``tab::REC``)."""
+    whether the build writes the dense record (``record``, ``tab::REC``)
+    and the t_eval snapshots (``snap``, ``tab::SNAP``)."""
     return f"""// Generated by extensisq_tpu_torch/ops/_build.py; do not edit.
 // RKN tableau {k['name']} rounded to float32, and the user's acceleration.
 #pragma once
@@ -189,6 +189,7 @@ namespace tab {{
 constexpr int M = {int(m)};
 constexpr int NPAR = {int(npar)};
 constexpr bool REC = {_flag(record)};
+constexpr bool SNAP = {_flag(snap)};
 constexpr int S = {k['s']};
 constexpr bool FSAL = {_flag(k['fsal'])};
 constexpr int MORDER = {k['morder']};
@@ -217,7 +218,7 @@ def fused_rk_grid_header(k, rkn, shape, src, npar=0, record=False,
     its number of per-member parameters ``npar`` (``params`` of B4, B6
     and B12) and whether the build writes the dense record (``record``,
     ``tab::REC``; B4 and B6) and the t_eval snapshots (``snap``,
-    ``tab::SNAP``; B4 and B12)."""
+    ``tab::SNAP``; B4, B6 and B12)."""
     dims = ", ".join(str(int(d)) for d in shape)
     ck = "B_as" in k
     family = "RKN" if rkn else ("CKdisc" if ck else "ERK")
@@ -311,14 +312,15 @@ constexpr float HS_T_FLOOR = {_f32(hs['t_floor'])};
 
 
 def fused_esdirk_header(k, m_diag, rot, n, rhs_src, npar=0, nb=None,
-                        record=False):
+                        record=False, snap=False):
     """Text of ``fused_esdirk_config.cuh`` for the constants ``k`` of
     ``ops.fused_esdirk._esdirk_consts``, the mass-matrix setup ``(m_diag,
     rot)`` of ``ops.fused_esdirk._mass_setup``, state size ``n``, the
     CUDA RHS source (the template form ``rhs<T>``), its number of
     per-member parameters ``npar``, the simultaneous corrector's base
     block ``nb`` (None: the whole state) and whether the build writes the
-    dense record (``record``, ``tab::REC``)."""
+    dense record (``record``, ``tab::REC``) and the t_eval snapshots
+    (``snap``, ``tab::SNAP``)."""
     mass = np.ones(n) if m_diag is None else np.asarray(m_diag, float)
     inv_mass = np.array([1.0 / m if m else 0.0 for m in mass])
     if rot is None:
@@ -340,6 +342,7 @@ constexpr int N = {n};
 constexpr int NB = {n if nb is None else int(nb)};
 constexpr int NPAR = {int(npar)};
 constexpr bool REC = {_flag(record)};
+constexpr bool SNAP = {_flag(snap)};
 constexpr bool HAS_M = {_flag(m_diag is not None)};
 constexpr bool ROT = {_flag(rot is not None)};
 {_esdirk_constants(k)}
@@ -351,15 +354,16 @@ constexpr bool ROT = {_flag(rot is not None)};
 
 
 def fused_esdirk_grid_header(k, shape, rhs_src, npar=0, nb=None,
-                             record=False):
+                             record=False, snap=False):
     """Text of ``fused_esdirk_grid_config.cuh`` for the constants ``k`` of
     ``ops.fused_esdirk._esdirk_consts``, a member grid of extents ``shape``,
     the CUDA source of the template right-hand side ``rhs<T>(T t, const T*
     y, int i, const T* p)``, its number of per-member parameters ``npar``,
     the simultaneous corrector's base block ``nb`` (None: the whole state)
     and whether the build writes the dense record (``record``,
-    ``tab::REC``); ``L`` is the number of cyclic reduction rounds,
-    ceil(log2 nb) over the base block's rows."""
+    ``tab::REC``) and the t_eval snapshots (``snap``, ``tab::SNAP``);
+    ``L`` is the number of cyclic reduction rounds, ceil(log2 nb) over the
+    base block's rows."""
     n = int(np.prod(shape))
     nb = n if nb is None else int(nb)
     dims = ", ".join(str(int(d)) for d in shape)
@@ -375,6 +379,7 @@ constexpr int NB = {nb};
 constexpr int L = {(nb - 1).bit_length()};
 constexpr int NPAR = {int(npar)};
 constexpr bool REC = {_flag(record)};
+constexpr bool SNAP = {_flag(snap)};
 {_esdirk_constants(k)}
 }}  // namespace tab
 
@@ -611,17 +616,17 @@ def load_fused_erk(consts, n, rhs_src, npar=0, record=False, snap=False):
     return _bind_snap(built, "fused_erk", argtypes)
 
 
-def load_fused_rkn(consts, m, acc_src, npar=0, record=False):
+def load_fused_rkn(consts, m, acc_src, npar=0, record=False, snap=False):
     """Build (at first use) and load the fused RKN kernel (B5) for one
-    tableau, acceleration, parameter count and dense-record switch;
-    returns :class:`Built` with ``lib.fused_rkn_launch`` and
-    ``lib.fused_rkn_record_launch`` bound (each refuses a build of the
-    other kind)."""
+    tableau, acceleration, parameter count, dense-record switch and
+    snapshot switch; returns :class:`Built` with ``lib.fused_rkn_launch``,
+    ``lib.fused_rkn_record_launch`` and ``lib.fused_rkn_snap_launch``
+    bound (each refuses a build of another kind)."""
     argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF, _CF,
                 _CI, _CF, _CI, _CI, _CI, _CI, _VP]
-    return _bind_record(load_kernel(
-        "fused_rkn", fused_rkn_header(consts, m, acc_src, npar, record),
-        argtypes), "fused_rkn", argtypes)
+    return _bind_snap(_bind_record(load_kernel(
+        "fused_rkn", fused_rkn_header(consts, m, acc_src, npar, record, snap),
+        argtypes), "fused_rkn", argtypes), "fused_rkn", argtypes)
 
 
 def load_fused_rk_grid(consts, rkn, shape, src, npar=0, record=False,
@@ -629,7 +634,7 @@ def load_fused_rk_grid(consts, rkn, shape, src, npar=0, record=False,
     """Build (at first use) and load the block-per-member kernel (B4 for
     an ERK tableau, B6 for an RKN one, B12 for CKdisc's cascade) for one
     member grid, right-hand side, parameter count, dense-record switch (B4
-    and B6) and snapshot switch (B4 and B12); returns :class:`Built` with
+    and B6) and snapshot switch; returns :class:`Built` with
     ``lib.fused_rk_grid_launch``, ``lib.fused_rk_grid_record_launch``,
     ``lib.fused_rk_grid_snap_launch`` and ``lib.fused_rk_grid_smem``
     bound."""
@@ -658,35 +663,40 @@ def load_fused_ckdisc(consts, n, rhs_src, npar=0, snap=False):
 
 
 def load_fused_esdirk(consts, m_diag, rot, n, rhs_src, npar=0, nb=None,
-                      record=False):
+                      record=False, snap=False):
     """Build (at first use) and load the fused ESDIRK kernel for one
     method, mass-matrix setup, RHS, parameter count, base block (None: no
-    simultaneous corrector) and dense-record switch, with each lane count
-    per member the launch takes; returns :class:`Built` with
-    ``lib.fused_esdirk_launch`` and ``lib.fused_esdirk_record_launch``
-    bound (each refuses a build of the other kind)."""
+    simultaneous corrector), dense-record switch and snapshot switch, with
+    each lane count per member the launch takes; returns :class:`Built`
+    with ``lib.fused_esdirk_launch``, ``lib.fused_esdirk_record_launch``
+    and ``lib.fused_esdirk_snap_launch`` bound (each refuses a build of
+    another kind)."""
     argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF, _CF,
                 _CF, _CI, _CI, _CF, _CI, _CF, _CI, _CI, _CI, _VP]
-    return _bind_record(load_kernel(
+    return _bind_snap(_bind_record(load_kernel(
         "fused_esdirk",
         fused_esdirk_header(consts, m_diag, rot, n, rhs_src, npar, nb,
-                            record), argtypes), "fused_esdirk", argtypes)
+                            record, snap), argtypes), "fused_esdirk",
+        argtypes), "fused_esdirk", argtypes)
 
 
 def load_fused_esdirk_grid(consts, shape, rhs_src, npar=0, nb=None,
-                           record=False):
+                           record=False, snap=False):
     """Build (at first use) and load the mid-size ESDIRK kernel (B7) for
     one method, member grid, RHS, parameter count, base block (None: no
-    simultaneous corrector) and dense-record switch; returns
-    :class:`Built` with ``lib.fused_esdirk_grid_launch``,
-    ``lib.fused_esdirk_grid_record_launch`` and
+    simultaneous corrector), dense-record switch and snapshot switch;
+    returns :class:`Built` with ``lib.fused_esdirk_grid_launch``,
+    ``lib.fused_esdirk_grid_record_launch``,
+    ``lib.fused_esdirk_grid_snap_launch`` and
     ``lib.fused_esdirk_grid_smem`` bound."""
     argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF, _CF, _CF,
                 _CF, _CF, _CI, _CI, _CF, _CI, _CF, _CI, _CI, _CI, _VP]
-    built = _bind_record(load_kernel(
+    built = _bind_snap(_bind_record(load_kernel(
         "fused_esdirk_grid",
-        fused_esdirk_grid_header(consts, shape, rhs_src, npar, nb, record),
-        argtypes), "fused_esdirk_grid", argtypes)
+        fused_esdirk_grid_header(consts, shape, rhs_src, npar, nb, record,
+                                 snap),
+        argtypes), "fused_esdirk_grid", argtypes), "fused_esdirk_grid",
+        argtypes)
     smem = built.lib.fused_esdirk_grid_smem
     smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     smem.restype = ctypes.c_int

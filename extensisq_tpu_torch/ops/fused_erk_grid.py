@@ -193,10 +193,10 @@ def launch_grid(wrapper, built, y0, n_row, t_span, shape, count, rtol, atol,
     per member and P members a block; raise before launch when the
     members' rows do not fit in the card's shared memory.  ``params``:
     the members' (B, k) parameters of a build with k of them, or None.
-    ``dense``: the dense record's rows a member, for a B4 build with it
-    (None: none).  ``t_eval``: the points of a B4 or B12 build with
-    snapshots (None: none).  Returns ``(y, status, nsteps, nfev)``, with
-    ``t_eval`` ``y_eval`` after them and with ``dense`` the
+    ``dense``: the dense record's rows a member, for a B4 or B6 build
+    with it (None: none).  ``t_eval``: the points of a B4, B6 or B12
+    build with snapshots (None: none).  Returns ``(y, status, nsteps,
+    nfev)``, with ``t_eval`` ``y_eval`` after them and with ``dense`` the
     :class:`~.fused_dense.FusedDenseSolution` last."""
     name = wrapper.__name__
     threads, warp_members = shape

@@ -39,7 +39,10 @@ of the variational systems of ``ops/fused_sens.py``: W is built and
 factored on the first ``block_base`` rows and columns only and solves
 every block of ``block_base`` rows.  ``dense=R`` records each member's
 accepted steps ``(t, y, y')``, y' the stiffly accurate last stage, in user
-coordinates, for a continuous dense output (``ops/fused_dense.py``).
+coordinates, for a continuous dense output (``ops/fused_dense.py``), and
+``t_eval`` returns each member's state at the given times, the cubic
+Hermite of the accepted step that crosses each with the same y', written
+inside the kernel (``csrc/snapshot.cuh``), in user coordinates too.
 """
 import numpy as np
 import torch
@@ -54,9 +57,11 @@ from ..core.numerics import norm
 from ..steppers.erk import weighted_sum
 from ..steppers.esdirk import jacfwd
 from . import _hstart_tile
-from .fused_erk import (DenseRecord, FusedRHS, _Record, _comp_wsum, _df_add,
-                        _launch_shape, _two_sum, bind_params, dense_rows,
-                        lanes_within_budget, member_params)
+from .fused_erk import (DenseRecord, FusedRHS, SnapPoints, Snapshots,
+                        _Record, _comp_wsum, _df_add, _launch_shape,
+                        _two_sum, bind_params, check_options, dense_rows,
+                        eval_points, lanes_within_budget, member_params,
+                        snap_outputs)
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -224,7 +229,7 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
                            yp0_batch=None, rtol=1e-4, atol=1e-6,
                            first_step=None, max_steps=100_000,
                            compensated=False, max_step=None, params=None,
-                           block_base=None, dense=None):
+                           block_base=None, dense=None, t_eval=None):
     """The plain PyTorch version of the fused ESDIRK kernel, on the device
     of ``y0_batch``.
 
@@ -235,9 +240,12 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
     ``params`` (B, k) is given.  With ``block_base`` the Newton matrix is
     the first ``block_base`` rows and columns of the Jacobian and solves
     each block of as many rows.  Returns ``(y (B, n), status (B,), nsteps
-    (B,), nfev (B,))`` like :func:`solve_fused_esdirk`, and with
-    ``dense=R`` the members' :class:`~.fused_dense.FusedDenseSolution`
-    fifth, from the rows the kernel writes.
+    (B,), nfev (B,))`` like :func:`solve_fused_esdirk`; with ``t_eval``
+    the rows ``y_eval`` (len(t_eval), B, n) after them (formed in the
+    rotated coordinates of a dense or hidden ``M`` and mapped back as y
+    is), and with ``dense=R`` the members'
+    :class:`~.fused_dense.FusedDenseSolution` last, from the rows the
+    kernel writes.
     """
     k = _esdirk_consts(method)
     f32 = torch.float32
@@ -311,15 +319,20 @@ def fused_esdirk_reference(fun, t_span, y0_batch, method=None, M=None,
     rows = dense_rows(dense)
     rec = (_Record(y_user, yp if to_user is None else to_user(yp), rows)
            if rows else None)
-    y, status, nstep, nfev = run_esdirk_loop(
+    tq = eval_points(t_eval)
+    snaps = None if tq is None else Snapshots(tq, y, torch.sign(tf - t0))
+    y, status, nstep, nfev, *y_eval = run_esdirk_loop(
         fun, k, t0, tf, y, yp, h_abs, 0 if yp0_batch is not None else 1,
         rtol, atol, max_steps, compensated, max_step,
         torch.tensor(mass, dtype=f32, device=dev)[:, None],
         torch.tensor(is_alg, device=dev)[:, None], factor, solve, to_user,
-        rec)
+        rec, snaps)
     if rot is not None:
+        # back to the user's y = V w, the rows as y
         y = mat(rot[0].T, y)
-    out = (y.T.contiguous(), status, nstep, nfev)
+        y_eval = [torch.stack([mat(rot[0].T, r.T).T for r in y_eval[0]])
+                  ] if y_eval else []
+    out = (y.T.contiguous(), status, nstep, nfev, *y_eval)
     if rec is None:
         return out
     return out + (rec.solution(t_span, nstep),)
@@ -346,7 +359,7 @@ def _start_step(fun, k, t0, tf, y, yp, rtol, atol, first_step, max_step,
 
 def run_esdirk_loop(fun, k, t, tf, y, yp, h_abs, nfev0, rtol, atol,
                     max_steps, compensated, max_step, mass, alg, factor,
-                    solve, to_user=None, record=None):
+                    solve, to_user=None, record=None, snaps=None):
     """The fused ESDIRK loop, shared by the plain versions of B2 and B7.
 
     ``fun`` is the rows-first torch function of the integrated system, ``k``
@@ -361,8 +374,12 @@ def run_esdirk_loop(fun, k, t, tf, y, yp, h_abs, nfev0, rtol, atol,
     norm is taken (identity when None).  ``record``, a
     ``fused_erk._Record`` or None, takes each accepted step's end ``(t,
     y, y')`` in user coordinates while the attempts are below its rows, as
-    the kernels write it.  Returns ``(y (n, B), status, nsteps,
-    nfev)``."""
+    the kernels write it.  ``snaps``, a ``fused_erk.Snapshots`` or None,
+    takes each accepted step's end pairs ``(y, y')`` (the high words of y
+    and t in the compensated mode, y' the sanitized last stage and the one
+    carried in), as JAX's loop does, in the integrated coordinates.
+    Returns ``(y (n, B), status, nsteps, nfev)``, and with ``snaps`` the
+    rows ``y_eval`` (nq, B, n) fifth."""
     A, C, E, Az = k["A"], k["C"], k["E"], k["Az"]
     s, dd, kappa, cc = k["s"], k["d"], k["kappa"], k["cc"]
     h_min_a, h_min_b = k["h_min_a"], k["h_min_b"]
@@ -563,6 +580,8 @@ def run_esdirk_loop(fun, k, t, tf, y, yp, h_abs, nfev0, rtol, atol,
         if rec_row:
             record.write(accepted, nstep, t_new, to_user(y_new),
                          to_user(yp_new))
+        if snaps is not None:
+            snaps.step(accepted, t, t_new, h, y, yp, y_new, yp_new)
 
         upd = accepted
         y = torch.where(upd, y_new, y)
@@ -578,6 +597,8 @@ def run_esdirk_loop(fun, k, t, tf, y, yp, h_abs, nfev0, rtol, atol,
         rejected = ~upd & (rejected | (running & ~too_small & ~accepted))
         nstep = nstep + upd.to(torch.int32)
         nfev = nfev + torch.where(running, nfev_d, 0).to(torch.int32)
+    if snaps is not None:
+        return y, status, nstep, nfev, snaps.rows(t, y)
     return y, status, nstep, nfev
 
 
@@ -605,10 +626,11 @@ def _lanes_per_member(B, sm_count, n):
     return lanes_within_budget(B, sm_count, _LANES)
 
 
-def _kernel(method, fun, M, m_diag, rot, n, nbase, record=False):
+def _kernel(method, fun, M, m_diag, rot, n, nbase, record=False,
+            snap=False):
     """The kernel built for one method, FusedRHS, mass-matrix setup and
-    base block, with the dense record where ``record`` (a build of its
-    own)."""
+    base block, with the dense record where ``record`` and the t_eval
+    snapshots where ``snap`` (each switch a build of its own)."""
     if method is None:
         from ..methods import Kv3I as method
     from . import _build
@@ -616,9 +638,9 @@ def _kernel(method, fun, M, m_diag, rot, n, nbase, record=False):
         "fused_esdirk", (method, fun),
         lambda: _build.load_fused_esdirk(
             _esdirk_consts(method), m_diag, rot, n, fun.cuda_src, fun.k,
-            None if nbase == n else nbase, record),
+            None if nbase == n else nbase, record, snap),
         (None if M is None else np.asarray(M, np.float64).tobytes(),
-         nbase, bool(record)))
+         nbase, bool(record), bool(snap)))
 
 
 def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
@@ -679,13 +701,22 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
     are in user coordinates (a dense or hidden ``M`` maps them back as it
     maps ``y_final``), of the whole augmented state with ``block_base``;
     the record leaves the other four outputs bit for bit as they are
-    without it.  ``t_eval`` and ``events`` are not ported yet.
+    without it.
+
+    ``t_eval``: times (taken as float32, in any order, repeats and points
+    outside the span allowed) at which to return each member's state,
+    ``y_eval`` (len(t_eval), B, n) after ``nfev`` (before the dense
+    output): the cubic Hermite of the accepted step that crosses each
+    point, from its end pairs ``(y, y')`` with y' the stiffly accurate
+    last stage, written inside the kernel (a build of its own,
+    ``csrc/snapshot.cuh``) in user coordinates (a dense or hidden ``M``
+    maps each row back as it maps ``y_final``); points at or before t0
+    take y0, points a member never reaches its final y (a member that
+    ended with status 2 or 3 included).  It leaves the four outputs bit
+    for bit as they are without it.  No points: the four outputs alone.
+    ``events`` is not ported yet.
     """
-    for name, value in (("t_eval", t_eval), ("events", events)):
-        if value is not None:
-            raise NotImplementedError(
-                f"solve_fused_esdirk({name}=...) is not ported yet: ROADMAP "
-                "queue B, item B2 (remaining options)")
+    check_options("solve_fused_esdirk", "B2", events=events)
     y0 = as_input(y0_batch, torch.float32)
     if y0.ndim != 2:
         raise ValueError("fused ESDIRK takes y0_batch of shape (B, n)")
@@ -696,11 +727,12 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
             fun, t_span, y0, method=method, M=M, yp0_batch=yp0_batch,
             rtol=rtol, atol=atol, first_step=first_step,
             max_steps=max_steps, compensated=compensated, max_step=max_step,
-            params=params, block_base=block_base, dense=dense)
+            params=params, block_base=block_base, dense=dense,
+            t_eval=t_eval)
 
     out, shape = _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol,
                          first_step, max_steps, compensated, max_step, None,
-                         block_members, params, block_base, dense)
+                         block_members, params, block_base, dense, t_eval)
     solve_fused_esdirk.launches += 1
     solve_fused_esdirk.last_shape = shape
     return out
@@ -708,15 +740,16 @@ def solve_fused_esdirk(fun, t_span, y0_batch, method=None, M=None,
 
 def _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
             max_steps, compensated, max_step, lanes, block_members=None,
-            params=None, block_base=None, dense=None):
+            params=None, block_base=None, dense=None, t_eval=None):
     """B2 on the card for the CUDA tensor ``y0`` (with the members'
     ``params`` and the base block ``block_base``, checked as the wrapper
     checks them): ``lanes`` lanes per member (None:
     :func:`_lanes_per_member`'s) and ``block_members`` members per block
     (None: 128 / lanes), with the dense record of ``dense`` rows a member
-    (the build with it) where given.  Returns the outputs (with the
-    :class:`~.fused_dense.FusedDenseSolution` fifth) and the ``(lanes,
-    block_members)`` taken."""
+    and the rows of ``t_eval`` (each switch the build with it) where
+    given.  Returns the outputs (``y_eval`` and the
+    :class:`~.fused_dense.FusedDenseSolution` after the four) and the
+    ``(lanes, block_members)`` taken."""
     if not isinstance(fun, FusedRHS):
         raise TypeError("solve_fused_esdirk on a CUDA tensor needs a "
                         "FusedRHS (a CUDA source of the right-hand side); "
@@ -750,14 +783,17 @@ def _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
                          "f64 stepper's init)")
 
     rows = dense_rows(dense)
-    built = _kernel(method, fun, M, m_diag, rot, n, nbase, rows > 0)
+    tq = eval_points(t_eval)
+    built = _kernel(method, fun, M, m_diag, rot, n, nbase, rows > 0,
+                    tq is not None)
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     shape = (lanes, block_members)
     rec = DenseRecord(y0, rows)
-    out = (y_out, status, nsteps, nfev)
+    snap = None if tq is None else SnapPoints(tq, t_span, y0)
+    out = snap_outputs((y_out, status, nsteps, nfev), snap)
     if nb == 0:
         return rec.outputs(out, t_span, y0), shape
     t0, tf = np.float32(t_span[0]), np.float32(t_span[1])
@@ -777,7 +813,10 @@ def _launch(fun, t_span, y0, method, M, yp0_batch, rtol, atol, first_step,
                 np.inf if max_step is None else float(max_step),
                 int(max_steps), _tiny_err(n, rtol), int(bool(compensated)),
                 int(lanes), block_members)
-        if rows:
+        if snap is not None:
+            rc = built.lib.fused_esdirk_snap_launch(*args, *rec.args(),
+                                                    *snap.args(), stream)
+        elif rows:
             rc = built.lib.fused_esdirk_record_launch(*args, *rec.args(),
                                                       stream)
         else:

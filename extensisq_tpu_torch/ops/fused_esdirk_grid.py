@@ -58,14 +58,16 @@ below the diagonal only slows the Newton rate (JAX's contract).
 
 ``dense=R`` records each member's accepted steps ``(t, y, y')``, y' the
 stiffly accurate last stage, for a continuous dense output
-(``ops/fused_dense.py``), as on B2.
+(``ops/fused_dense.py``), and ``t_eval`` returns each member's state at
+the given times (``csrc/snapshot.cuh``), as on B2.
 """
 import numpy as np
 import torch
 
 from .._device import as_input
-from .fused_erk import (DenseRecord, _Record, check_options, dense_rows,
-                        member_params)
+from .fused_erk import (DenseRecord, SnapPoints, Snapshots, _Record,
+                        check_options, dense_rows, eval_points,
+                        member_params, snap_outputs)
 from .fused_erk_grid import (_state_size, bind_grid_params, check_grid_input,
                              check_shared_memory, fit_shape, grid_threads)
 from .fused_esdirk import (_esdirk_consts, _f32, _start_step, _tiny_err,
@@ -178,15 +180,16 @@ def fused_esdirk_grid_reference(fun, t_span, y0_batch, method=None, M=None,
                                 yp0_batch=None, rtol=1e-4, atol=1e-6,
                                 first_step=None, max_steps=100_000,
                                 compensated=False, max_step=None,
-                                params=None, block_base=None, dense=None):
+                                params=None, block_base=None, dense=None,
+                                t_eval=None):
     """The plain PyTorch version of the mid-size ESDIRK kernel, on the
     device of ``y0_batch`` ``(B, n)``: B2's loop with the tridiagonal
     bands and cyclic reduction.  ``fun`` is a :class:`FusedGridRHS` or a
     rows-first torch function, called as ``fun(t, y, p)`` with ``p`` (k,
     B) where ``params`` (B, k) is given; ``block_base`` the simultaneous
     corrector's base block (see the module docstring).  Returns ``(y (B,
-    n), status (B,), nsteps (B,), nfev (B,))``, and with ``dense=R`` the
-    dense output fifth."""
+    n), status (B,), nsteps (B,), nfev (B,))``, with ``t_eval`` ``y_eval``
+    after them and with ``dense=R`` the dense output last."""
     if isinstance(fun, FusedGridRHS):
         _state_size(fun)
     k = _esdirk_consts(method)
@@ -225,11 +228,13 @@ def fused_esdirk_grid_reference(fun, t_span, y0_batch, method=None, M=None,
 
     rows = dense_rows(dense)
     rec = _Record(y, yp, rows) if rows else None
-    y, status, nstep, nfev = run_esdirk_loop(
+    tq = eval_points(t_eval)
+    snaps = None if tq is None else Snapshots(tq, y, torch.sign(tf - t0))
+    y, status, nstep, nfev, *y_eval = run_esdirk_loop(
         fun, k, t0, tf, y, yp, h_abs, 0 if yp0_batch is not None else 1,
         rtol, atol, max_steps, compensated, max_step, mass, alg, factor,
-        pcr_solve, record=rec)
-    out = (y.T.contiguous(), status, nstep, nfev)
+        pcr_solve, record=rec, snaps=snaps)
+    out = (y.T.contiguous(), status, nstep, nfev, *y_eval)
     if rec is None:
         return out
     return out + (rec.solution(t_span, nstep),)
@@ -276,17 +281,19 @@ def _launch_shape(B, n, sm_count):
     return grid_threads(-(-n // 2)), 0
 
 
-def _kernel(method, fun, nb=None, record=False):
+def _kernel(method, fun, nb=None, record=False, snap=False):
     """The kernel built for one method, FusedGridRHS (with its parameter
     count) and base block (None: no simultaneous corrector), with the
-    dense record where ``record`` (a build of its own)."""
+    dense record where ``record`` and the t_eval snapshots where ``snap``
+    (each switch a build of its own)."""
     if method is None:
         from ..methods import Kv3I as method
     from . import _build
     return _build.cached("fused_esdirk_grid", (method, fun),
                          lambda: _build.load_fused_esdirk_grid(
                              _esdirk_consts(method), fun.shape, fun.cuda_src,
-                             fun.k, nb, record), extra=(nb, bool(record)))
+                             fun.k, nb, record, snap),
+                         extra=(nb, bool(record), bool(snap)))
 
 
 def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
@@ -331,19 +338,19 @@ def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
     must divide n and takes no ``M`` (``ValueError``, as in JAX), and its
     FusedGridRHS must also define ``base_rhs``, the base block's template
     (``ops/fused_sens.py`` builds it).  ``dense=R`` adds the dense output
-    as a fifth output, as on :func:`~.fused_esdirk.solve_fused_esdirk`
-    (every thread records the elements it commits).  ``t_eval`` and
-    ``events`` are not ported yet.
+    last and ``t_eval`` the rows ``y_eval`` (len(t_eval), B, n) after the
+    four, as on :func:`~.fused_esdirk.solve_fused_esdirk` (every thread
+    records and snapshots the elements it commits).  ``events`` is not
+    ported yet.
     """
-    check_options("solve_fused_esdirk_grid", "B7", t_eval=t_eval,
-                  events=events)
+    check_options("solve_fused_esdirk_grid", "B7", events=events)
     nbase = _base_block(block_base, M, np.shape(y0_batch)[1])
     y0 = as_input(y0_batch, torch.float32)
     params = member_params(params, y0, fun)
     kw = dict(method=method, M=M, yp0_batch=yp0_batch, rtol=rtol, atol=atol,
               first_step=first_step, max_steps=max_steps,
               compensated=compensated, max_step=max_step, params=params,
-              dense=dense)
+              dense=dense, t_eval=t_eval)
     if y0.device.type != "cuda":
         return fused_esdirk_grid_reference(fun, t_span, y0,
                                            block_base=block_base, **kw)
@@ -351,7 +358,8 @@ def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
     check_grid_input("solve_fused_esdirk_grid", y0, n, FusedGridRHS, fun,
                      params)
     nb = None if nbase == n else nbase
-    out, shape = _launch(_kernel(method, fun, nb, dense_rows(dense) > 0),
+    out, shape = _launch(_kernel(method, fun, nb, dense_rows(dense) > 0,
+                                 eval_points(t_eval) is not None),
                          t_span, y0, count=True, **kw)
     solve_fused_esdirk_grid.last_shape = shape
     return out
@@ -360,16 +368,17 @@ def solve_fused_esdirk_grid(fun, t_span, y0_batch, method=None, M=None,
 def _launch(built, t_span, y0, method=None, M=None, yp0_batch=None,
             rtol=1e-4, atol=1e-6, first_step=None, max_steps=100_000,
             compensated=False, max_step=None, shape=None, count=False,
-            params=None, dense=None):
+            params=None, dense=None, t_eval=None):
     """Launch ``csrc/fused_esdirk_grid.cu`` on the current stream (with the
-    members' ``params`` as the build takes them, and ``dense`` rows of
-    record a member on a build with it) at ``shape`` (None:
+    members' ``params`` as the build takes them, ``dense`` rows of record
+    a member and the points of ``t_eval`` on a build with each) at
+    ``shape`` (None:
     :func:`_launch_shape`'s on the whole state, its P capped by the card's
     shared memory; a given shape is taken as it is, for comparisons),
     counted where ``count``; raise before launch when the members' rows do
-    not fit in the card's shared memory.  Returns the outputs (with the
-    :class:`~.fused_dense.FusedDenseSolution` fifth with ``dense``) and
-    the shape taken."""
+    not fit in the card's shared memory.  Returns the outputs (``y_eval``
+    with ``t_eval`` and the :class:`~.fused_dense.FusedDenseSolution` with
+    ``dense`` after the four) and the shape taken."""
     nb, n = y0.shape
     m_diag = _mass_diag(M, n)
     if m_diag is not None and yp0_batch is None and np.any(m_diag == 0.0):
@@ -389,7 +398,9 @@ def _launch(built, t_span, y0, method=None, M=None, yp0_batch=None,
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     rec = DenseRecord(y0, dense_rows(dense))
-    out = (y_out, status, nsteps, nfev)
+    tq = eval_points(t_eval)
+    snap = None if tq is None else SnapPoints(tq, t_span, y0)
+    out = snap_outputs((y_out, status, nsteps, nfev), snap)
     name = "solve_fused_esdirk_grid"
     with torch.cuda.device(y0.device):
         smem = built.lib.fused_esdirk_grid_smem
@@ -415,7 +426,10 @@ def _launch(built, t_span, y0, method=None, M=None, yp0_batch=None,
                 np.inf if max_step is None else float(max_step),
                 int(max_steps), _tiny_err(n, rtol), int(bool(compensated)),
                 shape[0], shape[1])
-        if rec.rows:
+        if snap is not None:
+            rc = built.lib.fused_esdirk_grid_snap_launch(
+                *args, *rec.args(), *snap.args(), stream)
+        elif rec.rows:
             rc = built.lib.fused_esdirk_grid_record_launch(
                 *args, *rec.args(), stream)
         else:

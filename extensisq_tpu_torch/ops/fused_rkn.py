@@ -18,7 +18,10 @@ and t.
 ``params`` (B, k) gives every member its own k parameters, and ``dense=R``
 records each member's accepted steps ``(t, [u, v], [v, a])`` for a
 continuous dense output (``ops/fused_dense.py``): cubic Hermite on the
-full first-order state, as in JAX.
+full first-order state, as in JAX.  ``t_eval`` returns each member's
+``[u, v]`` at the given times, the same cubic Hermite of the accepted step
+that crosses each (the u rows with derivative v, the v rows with the
+carried acceleration), written inside the kernel (``csrc/snapshot.cuh``).
 
 The error norm is the RMS of ``[err_u, err_v]`` over all 2m states, each
 scaled by ``atol + rtol * max(|[u, v]|, |[u_new, v_new]|)``.  The fused
@@ -38,10 +41,12 @@ from ..core.controller import resolve_controller
 from ..core.numerics import norm
 from ..steppers.erk import weighted_sum
 from . import _hstart_tile
-from .fused_erk import (DenseRecord, _Record, _comp_wsum, _df_add,
-                        _launch_shape, _two_sum, check_options, controller,
-                        dense_rows, device_sm_count, fresh_step,
-                        lanes_within_budget, launch_args, member_params)
+from .fused_erk import (DenseRecord, SnapPoints, Snapshots, _Record,
+                        _comp_wsum, _df_add, _launch_shape, _two_sum,
+                        check_options, controller, dense_rows,
+                        device_sm_count, eval_points, fresh_step,
+                        lanes_within_budget, launch_args, member_params,
+                        snap_outputs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,14 +113,17 @@ def rkn_consts(method):
 
 
 def run_rkn_loop(acc, k, t_span, y, rtol, atol, first_step, max_steps,
-                 compensated, max_step, dense=None):
+                 compensated, max_step, dense=None, t_eval=None):
     """The fused RKN loop (the JAX kernels' ``_run_rkn_loop``) on the
     rows-first float32 state ``y`` ``(2m, B)``: each iteration is one
     attempt of every running member, and the loop ends once no member is
     RUNNING.  ``acc(t, u, v)`` works on ``(m, B)`` rows.  Returns ``(y
-    (B, 2m), status, nsteps, nfev)``, and with ``dense=R`` the dense
-    output of the rows ``(t, [u, v], [v, a])`` the kernels write
-    fifth."""
+    (B, 2m), status, nsteps, nfev)``; with ``t_eval`` the rows ``y_eval``
+    (len(t_eval), B, 2m) after them, the cubic Hermite of ``[u, v]`` with
+    derivative ``[v, a]`` (``fused_erk.Snapshots``: JAX's partitioned
+    Hermite, the u rows from ``(u, v)``, the v rows from ``(v, a)``), and
+    with ``dense=R`` the dense output of the rows ``(t, [u, v], [v, a])``
+    the kernels write last."""
     A, Ap, B_w, Bp, C = k["A"], k["Ap"], k["B"], k["Bp"], k["C"]
     E, Ep, s, fsal = k["E"], k["Ep"], k["s"], k["fsal"]
     f32 = torch.float32
@@ -157,6 +165,9 @@ def run_rkn_loop(acc, k, t_span, y, rtol, atol, first_step, max_steps,
     rows_r = dense_rows(dense)
     rec = (_Record(torch.cat([u, v]), torch.cat([v, f]), rows_r) if rows_r
            else None)
+    tq = eval_points(t_eval)
+    snaps = (None if tq is None
+             else Snapshots(tq, torch.cat([u, v]), direction))
     t_lo = torch.zeros_like(t)
     u_lo, v_lo = torch.zeros_like(u), torch.zeros_like(v)
     status = torch.full((nb,), RUNNING, **i32)
@@ -250,6 +261,11 @@ def run_rkn_loop(acc, k, t_span, y, rtol, atol, first_step, max_steps,
         if rec is not None and it < rec.rows:
             rec.write(upd, nstep, t_new, torch.cat([u_new, v_new]),
                       torch.cat([v_new, f_new]))
+        if snaps is not None:
+            # the high words of t, u and v in the compensated mode
+            snaps.step(upd, t, t_new, h, torch.cat([u, v]),
+                       torch.cat([v, f]), torch.cat([u_new, v_new]),
+                       torch.cat([v_new, f_new]))
         # step cap: loop iterations, accepted plus rejected
         it += 1
         status = torch.where((status == RUNNING) & (it >= max_steps),
@@ -273,6 +289,8 @@ def run_rkn_loop(acc, k, t_span, y, rtol, atol, first_step, max_steps,
         nfev = nfev + dfev.to(torch.int32)
 
     out = (torch.cat([u, v]).T.contiguous(), status, nstep, nfev)
+    if snaps is not None:
+        out = out + (snaps.rows(t, torch.cat([u, v])),)
     if rec is None:
         return out
     return out + (rec.solution(t_span, nstep),)
@@ -303,31 +321,34 @@ def _state(y0_batch):
 def fused_rkn_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                         atol=1e-6, first_step=None, max_steps=100_000,
                         compensated=False, max_step=None, params=None,
-                        dense=None):
+                        dense=None, t_eval=None):
     """The plain PyTorch version of the fused RKN kernel, on the device of
     ``y0_batch`` ``(B, 2m)``.  ``fun`` is a :class:`FusedAcc` or a
     rows-first torch function ``acc(t, u, v)``, called as ``acc(t, u, v,
     p)`` where ``params`` (B, k) is given.  Returns ``(y (B, 2m), status
-    (B,), nsteps (B,), nfev (B,))`` like :func:`solve_fused_rkn`, and with
-    ``dense=R`` the members' :class:`~.fused_dense.FusedDenseSolution`
-    fifth, from the rows the kernel writes."""
+    (B,), nsteps (B,), nfev (B,))`` like :func:`solve_fused_rkn`; with
+    ``t_eval`` the rows ``y_eval`` (len(t_eval), B, 2m) after them, and
+    with ``dense=R`` the members' :class:`~.fused_dense.FusedDenseSolution`
+    last, from the rows the kernel writes."""
     y = _state(y0_batch)
     params = member_params(params, y.T, fun)
     return run_rkn_loop(bind_acc(fun, params), rkn_consts(method), t_span,
                         y, rtol, atol, first_step, max_steps, compensated,
-                        max_step, dense)
+                        max_step, dense, t_eval)
 
 
-def _kernel(method, fun, record=False):
+def _kernel(method, fun, record=False, snap=False):
     """The kernel built for one RKN method and FusedAcc, with the dense
-    record where ``record`` (a build of its own)."""
+    record where ``record`` and the t_eval snapshots where ``snap`` (each
+    switch a build of its own)."""
     if method is None:
         from ..methods import Fi5N as method
     from . import _build
     return _build.cached("fused_rkn", (method, fun),
                          lambda: _build.load_fused_rkn(
                              rkn_consts(method), fun.m, fun.cuda_src, fun.k,
-                             record), extra=bool(record))
+                             record, snap),
+                         extra=(bool(record), bool(snap)))
 
 
 # the lane counts the wrapper takes besides 1, most first
@@ -385,6 +406,17 @@ def solve_fused_rkn(acc, t_span, y0_batch, method=None, rtol=1e-4,
     needed): cubic Hermite on the full state, as in JAX; the record leaves
     the other four outputs bit for bit as they are without it.
 
+    ``t_eval``: times (taken as float32, in any order, repeats and points
+    outside the span allowed) at which to return each member's ``[u, v]``,
+    ``y_eval`` (len(t_eval), B, 2m) after ``nfev`` (before the dense
+    output): the cubic Hermite of the accepted step that crosses each
+    point, the u rows with derivative v and the v rows with the carried
+    acceleration (JAX's partitioned form), written inside the kernel (a
+    build of its own, ``csrc/snapshot.cuh``); points at or before t0 take
+    y0, points a member never reaches its final state (a member that ended
+    with status 2 or 3 included).  It leaves the four outputs bit for bit
+    as they are without it.  No points: the four outputs alone.
+
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.  On a CUDA
     tensor ``acc`` must be a :class:`FusedAcc`, and the call launches
@@ -399,20 +431,20 @@ def solve_fused_rkn(acc, t_span, y0_batch, method=None, rtol=1e-4,
 
     ``params``: (B, k) float32 per-member parameters; ``acc`` then takes
     them as its last argument (see :class:`FusedAcc`, whose ``k`` must
-    agree).  ``t_eval`` and ``events`` are not ported yet.
+    agree).  ``events`` is not ported yet.
     """
-    check_options("solve_fused_rkn", "B5", t_eval=t_eval, events=events)
+    check_options("solve_fused_rkn", "B5", events=events)
     y0 = as_input(y0_batch, torch.float32)
     if y0.device.type != "cuda":
         return fused_rkn_reference(
             acc, t_span, y0, method=method, rtol=rtol, atol=atol,
             first_step=first_step, max_steps=max_steps,
             compensated=compensated, max_step=max_step, params=params,
-            dense=dense)
+            dense=dense, t_eval=t_eval)
 
     out, shape = _launch(acc, t_span, y0, method, rtol, atol, first_step,
                          max_steps, compensated, max_step, None,
-                         block_members, params, dense)
+                         block_members, params, dense, t_eval)
     solve_fused_rkn.last_shape = shape
     if y0.shape[0]:
         solve_fused_rkn.launches += 1
@@ -421,15 +453,15 @@ def solve_fused_rkn(acc, t_span, y0_batch, method=None, rtol=1e-4,
 
 def _launch(acc, t_span, y0, method, rtol, atol, first_step, max_steps,
             compensated, max_step, lanes, block_members=None, params=None,
-            dense=None):
+            dense=None, t_eval=None):
     """B5 on the card for the CUDA tensor ``y0`` (and the members'
     ``params``, checked by :func:`member_params`): ``lanes`` lanes per
     member (None: :func:`_lanes_per_member`'s) and ``block_members``
     members per block (None: 128 / lanes), with the dense record of
-    ``dense`` rows a member (the build with it) where given.  Returns the
-    outputs (with the :class:`~.fused_dense.FusedDenseSolution` fifth) and
-    the ``(lanes, block_members)`` taken; an empty batch launches
-    nothing."""
+    ``dense`` rows a member and the rows of ``t_eval`` (each switch the
+    build with it) where given.  Returns the outputs (``y_eval`` and the
+    :class:`~.fused_dense.FusedDenseSolution` after the four) and the
+    ``(lanes, block_members)`` taken; an empty batch launches nothing."""
     if not isinstance(acc, FusedAcc):
         raise TypeError("solve_fused_rkn on a CUDA tensor needs a FusedAcc "
                         "(a CUDA source of the acceleration); got "
@@ -449,15 +481,17 @@ def _launch(acc, t_span, y0, method, rtol, atol, first_step, max_steps,
         lanes = _lanes_per_member(nb, device_sm_count(y0.device), acc.m)
     block_members, _, _ = _launch_shape(nb, lanes, block_members)
     rows = dense_rows(dense)
+    tq = eval_points(t_eval)
 
-    built = _kernel(method, acc, rows > 0)
+    built = _kernel(method, acc, rows > 0, tq is not None)
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
     nfev = torch.empty_like(status)
     shape = (lanes, block_members)
     rec = DenseRecord(y0, rows)
-    out = (y_out, status, nsteps, nfev)
+    snap = None if tq is None else SnapPoints(tq, t_span, y0)
+    out = snap_outputs((y_out, status, nsteps, nfev), snap)
     if nb == 0:
         return rec.outputs(out, t_span, y0), shape
     with torch.cuda.device(y0.device):
@@ -468,7 +502,10 @@ def _launch(acc, t_span, y0, method, rtol, atol, first_step, max_steps,
                 *launch_args(t_span, rtol, atol, first_step, max_steps,
                              compensated, max_step), int(lanes),
                 block_members)
-        if rows:
+        if snap is not None:
+            rc = built.lib.fused_rkn_snap_launch(*args, *rec.args(),
+                                                 *snap.args(), stream)
+        elif rows:
             rc = built.lib.fused_rkn_record_launch(*args, *rec.args(),
                                                    stream)
         else:

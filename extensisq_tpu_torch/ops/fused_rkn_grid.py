@@ -14,7 +14,9 @@ wrapper :func:`solve_fused_rkn_grid` takes it only for tensors on the CPU.
 ``params`` (B, k) gives every member its own k parameters, which the
 kernel loads once into the member's shared memory, and ``dense=R``
 records each member's accepted steps ``(t, [u, v], [v, a])`` for a
-continuous dense output (``ops/fused_dense.py``), as on B5.
+continuous dense output (``ops/fused_dense.py``), and ``t_eval`` returns
+each member's ``[u, v]`` at the given times (``csrc/snapshot.cuh``), as on
+B5.
 """
 import dataclasses
 from typing import Callable
@@ -22,7 +24,7 @@ from typing import Callable
 import torch
 
 from .._device import as_input
-from .fused_erk import check_options, dense_rows, member_params
+from .fused_erk import check_options, dense_rows, eval_points, member_params
 from .fused_erk_grid import (check_grid_input, grid_launch_shape,
                              launch_by_rule)
 from .fused_rkn import _state, bind_acc, rkn_consts, run_rkn_loop
@@ -58,18 +60,20 @@ class FusedGridAcc:
 def fused_rkn_grid_reference(fun, t_span, y0_batch, method=None, rtol=1e-4,
                              atol=1e-6, first_step=None, max_steps=100_000,
                              compensated=False, max_step=None, params=None,
-                             dense=None):
+                             dense=None, t_eval=None):
     """The plain PyTorch version of the mid-size RKN kernel, on the device
     of ``y0_batch`` ``(B, 2n)``: B5's loop.  ``fun`` is a
     :class:`FusedGridAcc` or a rows-first torch function ``acc(t, u, v)``,
     called as ``acc(t, u, v, p)`` with ``p`` ``(k, B)`` where ``params``
     (B, k) is given.  Returns ``(y (B, 2n), status (B,), nsteps (B,), nfev
-    (B,))``, and with ``dense=R`` the dense output fifth."""
+    (B,))``, with ``t_eval`` ``y_eval`` after them and with ``dense=R``
+    the dense output last."""
     y = _state(y0_batch)
     params = member_params(params, y.T, fun)
     acc = bind_acc(fun, params, None if params is None else params.T)
     return run_rkn_loop(acc, rkn_consts(method), t_span, y, rtol, atol,
-                        first_step, max_steps, compensated, max_step, dense)
+                        first_step, max_steps, compensated, max_step, dense,
+                        t_eval)
 
 
 # the shapes of :func:`_launch_shape` for large ensembles: the members an SM
@@ -111,17 +115,18 @@ def _launch_shape(B, n, sm_count):
                              WARP_MEMBERS, WARP_MAX_N)
 
 
-def _kernel(method, fun, record=False):
+def _kernel(method, fun, record=False, snap=False):
     """The kernel built for one RKN method and FusedGridAcc, with the dense
-    record where ``record`` (a build of its own)."""
+    record where ``record`` and the t_eval snapshots where ``snap`` (each
+    switch a build of its own)."""
     if method is None:
         from ..methods import Fi5N as method
     from . import _build
     return _build.cached("fused_rkn_grid", (method, fun),
                          lambda: _build.load_fused_rk_grid(
                              rkn_consts(method), True, (fun.n,),
-                             fun.cuda_src, fun.k, record),
-                         extra=bool(record))
+                             fun.cuda_src, fun.k, record, snap),
+                         extra=(bool(record), bool(snap)))
 
 
 def solve_fused_rkn_grid(acc, t_span, y0_batch, method=None, rtol=1e-4,
@@ -151,23 +156,25 @@ def solve_fused_rkn_grid(acc, t_span, y0_batch, method=None, rtol=1e-4,
 
     ``params``: (B, k) float32 per-member parameters; ``acc`` then takes
     them as its last argument (see :class:`FusedGridAcc`, whose ``k`` must
-    agree).  ``dense=R`` adds the dense output as a fifth output, as on
-    :func:`~.fused_rkn.solve_fused_rkn` (every thread records the elements
-    it commits).  ``t_eval`` and ``events`` are not ported yet.
+    agree).  ``dense=R`` adds the dense output last and ``t_eval`` the rows
+    ``y_eval`` (len(t_eval), B, 2n) after the four, as on
+    :func:`~.fused_rkn.solve_fused_rkn` (every thread records and
+    snapshots the elements it commits: position i's u and v rows).
+    ``events`` is not ported yet.
     """
-    check_options("solve_fused_rkn_grid", "B6", t_eval=t_eval,
-                  events=events)
+    check_options("solve_fused_rkn_grid", "B6", events=events)
     y0 = as_input(y0_batch, torch.float32)
     params = member_params(params, y0, acc)
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, compensated=compensated,
-              max_step=max_step, params=params, dense=dense)
+              max_step=max_step, params=params, dense=dense, t_eval=t_eval)
     if y0.device.type != "cuda":
         return fused_rkn_grid_reference(acc, t_span, y0, method=method, **kw)
     n = acc.n if isinstance(acc, FusedGridAcc) else -1
     check_grid_input("solve_fused_rkn_grid", y0, 2 * n, FusedGridAcc, acc,
                      params)
-    out, shape = _launch(_kernel(method, acc, dense_rows(dense) > 0),
+    out, shape = _launch(_kernel(method, acc, dense_rows(dense) > 0,
+                                 eval_points(t_eval) is not None),
                          t_span, y0, n, count=True, **kw)
     solve_fused_rkn_grid.last_shape = shape
     return out
@@ -175,18 +182,18 @@ def solve_fused_rkn_grid(acc, t_span, y0_batch, method=None, rtol=1e-4,
 
 def _launch(built, t_span, y0, n, shape=None, count=False, rtol=1e-4,
             atol=1e-6, first_step=None, max_steps=100_000, compensated=False,
-            max_step=None, params=None, dense=None):
+            max_step=None, params=None, dense=None, t_eval=None):
     """Launch B6 for the CUDA tensor ``y0`` (and the members' ``params``,
-    as the build takes them, and ``dense`` rows of record a member on a
-    build with it) at ``shape`` (None: :func:`_launch_shape`'s, its P
-    capped by the card's shared memory; a given shape is taken as it is,
-    for comparisons), counted where ``count``.  Returns the outputs and
-    the shape taken."""
+    as the build takes them, ``dense`` rows of record a member and the
+    points of ``t_eval`` on a build with each) at ``shape`` (None:
+    :func:`_launch_shape`'s, its P capped by the card's shared memory; a
+    given shape is taken as it is, for comparisons), counted where
+    ``count``.  Returns the outputs and the shape taken."""
     return launch_by_rule(solve_fused_rkn_grid, _launch_shape, built, y0, n,
                           t_span, shape, count, rtol=rtol, atol=atol,
                           first_step=first_step, max_steps=max_steps,
                           compensated=compensated, max_step=max_step,
-                          params=params, dense=dense)
+                          params=params, dense=dense, t_eval=t_eval)
 
 
 # kernel launches since the count was last set to 0 (the plain version on

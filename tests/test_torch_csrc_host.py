@@ -287,6 +287,8 @@ def _with_snap(launch, snap, members="B"):
 ERK_SNAP_LAUNCH = _with_snap(_with_record(ERK_LAUNCH, True), True)
 ERK_RECORD_LAUNCH = _with_snap(_with_record(ERK_LAUNCH, True), False)
 ERK_LAUNCH = _with_snap(_with_record(ERK_LAUNCH, False), False)
+RKN_SNAP_LAUNCH = _with_snap(
+    _with_record(_small_launch("fused_rkn"), True), True)
 RKN_RECORD_LAUNCH = _with_snap(
     _with_record(_small_launch("fused_rkn"), True), False)
 RKN_LAUNCH = _with_snap(_with_record(_small_launch("fused_rkn"), False),
@@ -381,15 +383,18 @@ struct HostEsdirkMember {
 };
 static HostEsdirkMember g_esdirk;
 REC_GLOBAL
+SNAP_GLOBAL
 
 template <int G>
 static void esdirk_lane(int rank) {
   HostLanes lane{rank};
   const HostEsdirkMember& a = g_esdirk;
   if (a.comp) {
-    integrate<G, true>(lane, a.y0, a.yp0, a.par, a.L, a.m, a.out REC_ARG);
+    integrate<G, true>(lane, a.y0, a.yp0, a.par, a.L, a.m,
+                       a.out REC_ARG SNAP_ARG);
   } else {
-    integrate<G, false>(lane, a.y0, a.yp0, a.par, a.L, a.m, a.out REC_ARG);
+    integrate<G, false>(lane, a.y0, a.yp0, a.par, a.L, a.m,
+                        a.out REC_ARG SNAP_ARG);
   }
 }
 
@@ -398,9 +403,10 @@ extern "C" int fused_esdirk_launch(
     void* status, void* nstep, void* nfev, int B, float t0, float tf,
     float rtol, float atol, float h0, int use_hstart, int have_yp0,
     float max_step, int max_steps, float tiny_err, int compensated,
-    int lanes, int block_members, REC_DECL void* stream) {
+    int lanes, int block_members, REC_DECL SNAP_DECL void* stream) {
   const Out out{(float*)y_out, (int*)status, (int*)nstep, (int*)nfev};
   REC_SET
+  SNAP_SET
   const Launch L{t0, tf, rtol, atol, h0, max_step, tiny_err, use_hstart,
                  have_yp0, max_steps};
   void (*body)(int) = lanes == 4 ? esdirk_lane<4>
@@ -416,9 +422,10 @@ extern "C" int fused_esdirk_launch(
     const float* parm = (const float*)params + m * tab::NPAR;
     if (lanes == 1) {
       if (compensated) {
-        integrate_thread<true>(y0m, yp0m, parm, L, m, out REC_ARG);
+        integrate_thread<true>(y0m, yp0m, parm, L, m, out REC_ARG SNAP_ARG);
       } else {
-        integrate_thread<false>(y0m, yp0m, parm, L, m, out REC_ARG);
+        integrate_thread<false>(y0m, yp0m, parm, L, m,
+                                out REC_ARG SNAP_ARG);
       }
     } else {
       g_esdirk = HostEsdirkMember{y0m, yp0m, parm, L, m, out, compensated};
@@ -429,9 +436,11 @@ extern "C" int fused_esdirk_launch(
   return 0;
 }
 """
-# B2 with the dense record takes its arrays and rows after block_members
-ESDIRK_RECORD_LAUNCH = _with_record(ESDIRK_LAUNCH, True)
-ESDIRK_LAUNCH = _with_record(ESDIRK_LAUNCH, False)
+# B2 with the dense record takes its arrays and rows after block_members,
+# and with snapshots theirs after them (with the record's, null without it)
+ESDIRK_SNAP_LAUNCH = _with_snap(_with_record(ESDIRK_LAUNCH, True), True)
+ESDIRK_RECORD_LAUNCH = _with_snap(_with_record(ESDIRK_LAUNCH, True), False)
+ESDIRK_LAUNCH = _with_snap(_with_record(ESDIRK_LAUNCH, False), False)
 
 # The RKC body integrate<RHO, Group> run one member after another, at
 # cluster = 1 by a one-thread group whose sync() does nothing (the arrays in
@@ -872,15 +881,16 @@ struct HostEsdirkMember {
 };
 static HostEsdirkMember g_member;
 REC_GLOBAL
+SNAP_GLOBAL
 
 template <class Group>
 void host_member(Group& g, const HostEsdirkMember& a) {
   if (a.compensated) {
     integrate<true>(g, a.sm, a.y0, a.yp0, a.mass, a.params, a.Lc, a.m,
-                    a.out REC_ARG);
+                    a.out REC_ARG SNAP_ARG);
   } else {
     integrate<false>(g, a.sm, a.y0, a.yp0, a.mass, a.params, a.Lc, a.m,
-                     a.out REC_ARG);
+                     a.out REC_ARG SNAP_ARG);
   }
 }
 
@@ -896,9 +906,10 @@ extern "C" int fused_esdirk_grid_host(
     int* status, int* nsteps, int* nfev, int members, float t0, float tf,
     float rtol, float atol, float h0, int use_hstart, int have_yp0,
     float max_step, int max_steps, float tiny_err, int compensated,
-    int lanes, REC_DECL int block_order) {
+    int lanes, REC_DECL SNAP_DECL int block_order) {
   if (lanes != 1 && lanes != 32) return 1;
   REC_SET
+  SNAP_SET
   const Launch Lc{t0, tf, rtol, atol, h0, use_hstart, have_yp0, max_step,
                   max_steps, tiny_err};
   const Out out{y_out, status, nsteps, nfev};
@@ -920,9 +931,14 @@ extern "C" int fused_esdirk_grid_host(
   return 0;
 }
 """
-# B7 with the dense record takes its arrays and rows before block_order
-ESDIRK_GRID_RECORD_LAUNCH = _with_record(ESDIRK_GRID_LAUNCH, True)
-ESDIRK_GRID_LAUNCH = _with_record(ESDIRK_GRID_LAUNCH, False)
+# B7 with the dense record takes its arrays and rows before block_order,
+# and with snapshots theirs after them (with the record's, null without it)
+ESDIRK_GRID_SNAP_LAUNCH = _with_snap(_with_record(ESDIRK_GRID_LAUNCH, True),
+                                     True, "members")
+ESDIRK_GRID_RECORD_LAUNCH = _with_snap(
+    _with_record(ESDIRK_GRID_LAUNCH, True), False)
+ESDIRK_GRID_LAUNCH = _with_snap(_with_record(ESDIRK_GRID_LAUNCH, False),
+                                False)
 
 # B11's body runs one member after another: at one lane the
 # thread-per-member body integrate_thread, at G lanes the group body
@@ -1076,6 +1092,15 @@ TEVAL_BUILDS = {
     "ck_sink_p": ("ck_grid", TT.RHS["sink_p"], False, False),
     "ck_sink_p_snap": ("ck_grid", TT.RHS["sink_p"], False, True),
 }
+# the snapshot builds of B5, B6, B2 (behind the hidden M, so that its rows
+# go back to the user's coordinates) and B7, each beside an earlier build
+# without the switch on the same source: label -> (kernel, build without
+# the snapshots)
+TEVAL_ROUTE_BUILDS = {"rkn_cubic_snap": ("fused_rkn", "rkn_cubic"),
+                      "grid_wave_snap": ("fused_rk_grid", "grid_wave"),
+                      "kaps_hidden_snap": ("fused_esdirk", "kaps_hidden"),
+                      "eg_rd_kv3i_snap": ("fused_esdirk_grid",
+                                          "eg_rd_kv3i")}
 VDP_TEMPLATE = FK.FusedRHS(
     TK.PROBLEMS["vdp"].torch_fn,
     "template <class T>\n__device__ void rhs(T t, const T* y, T* dy) {\n"
@@ -1242,6 +1267,16 @@ def libs(tmp_path_factory):
                                                  snap)
             launch = GRID_SNAP_LAUNCH if snap else GRID_LAUNCH
         jobs[label] = (kernel, header, launch, RKC_MARKER)
+    snap_launch = {"fused_rkn": RKN_SNAP_LAUNCH,
+                   "fused_rk_grid": GRID_SNAP_LAUNCH,
+                   "fused_esdirk": ESDIRK_SNAP_LAUNCH,
+                   "fused_esdirk_grid": ESDIRK_GRID_SNAP_LAUNCH}
+    for label, (kernel, off) in TEVAL_ROUTE_BUILDS.items():
+        # the header of the build without the switch, with it set
+        header = jobs[off][1].replace("constexpr bool SNAP = false;",
+                                      "constexpr bool SNAP = true;")
+        assert header != jobs[off][1]
+        jobs[label] = (kernel, header, snap_launch[kernel], RKC_MARKER)
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(_compile, *v[:3], d / k, *v[3:])
                    for k, v in jobs.items()}
@@ -1257,6 +1292,7 @@ def _esdirk_host(lib, case, lanes=1, **over):
     kw = dict(kw, **over)
     kw.pop("block_base", None)          # the build's
     rows = kw.pop("rows", 0)
+    t_eval = kw.pop("t_eval", None)
     par = T.PARAMS.get(case)
     if par is not None:
         par = np.ascontiguousarray(par, np.float32)
@@ -1273,9 +1309,11 @@ def _esdirk_host(lib, case, lanes=1, **over):
     yp = None if yp0 is None else np.ascontiguousarray(yp0, np.float32)
     fn = lib.fused_esdirk_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    rec = _HostRecord(y0, rows)
+    snap = _HostSnap(t_eval, span, y0)
+    rec = _HostRecord(y0, rows, snap.points is not None)
     fn.argtypes = ([vp] * 7 + [ci, cf, cf, cf, cf, cf, ci, ci, cf, ci, cf,
-                               ci, ci, ci] + rec.argtypes + [vp])
+                               ci, ci, ci] + rec.argtypes + snap.argtypes
+                   + [vp])
     rc = fn(y0.ctypes.data, None if yp is None else yp.ctypes.data,
             None if par is None else par.ctypes.data, out.ctypes.data,
             st.ctypes.data, ns.ctypes.data, nf.ctypes.data, nb, float(t0),
@@ -1284,9 +1322,9 @@ def _esdirk_host(lib, case, lanes=1, **over):
                   else np.float32(first_step)),
             int(M is None and first_step is None), int(yp is not None),
             np.inf, max_steps, FE._tiny_err(n, rtol), int(comp), lanes,
-            128 // lanes, *rec.args(), None)
+            128 // lanes, *rec.args(), *snap.args(), None)
     assert rc == 0
-    return (out, st, ns, nf) + rec.arrays()
+    return (out, st, ns, nf) + rec.arrays() + snap.arrays()
 
 
 # (case, max |dy|, max |dnsteps|, members with other counts), measured:
@@ -2211,13 +2249,14 @@ def _esdirk_grid_host(lib, span, y0, yp0=None, M=None, rtol=1e-4, atol=1e-6,
                       first_step=None, max_steps=100_000, compensated=False,
                       max_step=None, method=None, lanes=1,
                       block_order=False, params=None, block_base=None,
-                      rows=0):
+                      rows=0, t_eval=None):
     """The host-built mid-size ESDIRK body on ``y0`` (and the members'
     ``params``; ``block_base`` is the build's), launched as the wrapper
     launches the kernel, by a one-thread group (lanes = 1) or a warp of 32
     coroutine lanes (reductions as in ``_grid_host``); a build with the
     dense record takes ``rows`` and returns the record's arrays after the
-    outputs."""
+    outputs, and a build with snapshots takes ``t_eval`` and returns
+    ``y_eval`` last."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host warp switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
@@ -2233,9 +2272,11 @@ def _esdirk_grid_host(lib, span, y0, yp0=None, M=None, rtol=1e-4, atol=1e-6,
           else np.float32(0.01) * abs(tf - t0))
     fn = lib.fused_esdirk_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    rec = _HostRecord(y0, rows)
+    snap = _HostSnap(t_eval, span, y0)
+    rec = _HostRecord(y0, rows, snap.points is not None)
     fn.argtypes = ([vp] * 8 + [ci] + [cf] * 5
-                   + [ci, ci, cf, ci, cf, ci, ci] + rec.argtypes + [ci])
+                   + [ci, ci, cf, ci, cf, ci, ci] + rec.argtypes
+                   + snap.argtypes + [ci])
     rc = fn(y0.ctypes.data, None if yp is None else yp.ctypes.data,
             None if mass is None else mass.ctypes.data,
             None if par is None else par.ctypes.data, out.ctypes.data,
@@ -2244,9 +2285,9 @@ def _esdirk_grid_host(lib, span, y0, yp0=None, M=None, rtol=1e-4, atol=1e-6,
             int(first_step is None and M is None), int(yp is not None),
             np.inf if max_step is None else float(max_step), max_steps,
             FE._tiny_err(n, rtol), int(compensated), lanes, *rec.args(),
-            int(block_order))
+            *snap.args(), int(block_order))
     assert rc == 0
-    return (out, st, ns, nf) + rec.arrays()
+    return (out, st, ns, nf) + rec.arrays() + snap.arrays()
 
 
 # name -> (library, case of test_torch_fused_esdirk_grid.py or its
@@ -3161,3 +3202,178 @@ def test_ckdisc_params_kernels_match_plain_versions(libs, name):
     assert np.max(np.abs(out[0] - ref[0])) <= y_gate
     assert np.max(np.abs(out[2] - ref[2])) <= dsteps
     assert np.sum((out[2] != ref[2]) | (out[3] != ref[3])) <= nmembers
+
+
+# -- the t_eval snapshots of B5, B6, B2 and B7 ----------------------------
+
+# a case of the RKN (TN), ESDIRK (T) or mid-size ESDIRK (TEG) tests -> (its
+# kernel, its build without the snapshots, the case, options over the
+# case's); the snapshot build is the one of TEVAL_ROUTE_BUILDS beside it.
+# B5 runs u'' = u^3 (a polynomial, so one attempt is the plain version's
+# bit for bit; Kepler's division parts a last bit at a few members), its
+# member 7 overflowing, plain and compensated
+ROUTE_TEVAL = {"b5_overflow": ("rkn", "rkn_cubic", "overflow", {}),
+               "b5_overflow_comp": ("rkn", "rkn_cubic", "overflow",
+                                    dict(rtol=1e-6, atol=1e-9,
+                                         compensated=True)),
+               "b6_wave": ("rkn_grid", "grid_wave", "wave_h0", {}),
+               "b6_wave_comp": ("rkn_grid", "grid_wave", "wave_comp", {}),
+               "b2_kaps": ("esdirk", "kaps_hidden", "kaps_hidden", {}),
+               "b2_kaps_comp": ("esdirk", "kaps_hidden", "kaps_hidden",
+                                dict(compensated=True)),
+               "b7_rd": ("esdirk_grid", "eg_rd_kv3i", "rd_kv3i", {}),
+               "b7_rd_h0": ("esdirk_grid", "eg_rd_kv3i", "rd_h0", {})}
+SNAP_OF = {off: snap for snap, (_, off) in TEVAL_ROUTE_BUILDS.items()}
+# the group bodies of each kernel besides one thread: B5's and B2's
+# coroutine lanes, B6's and B7's warp of 32
+ROUTE_TEVAL_LANES = {"rkn": (2, 4, 8), "rkn_grid": (32,),
+                     "esdirk": (4, 8), "esdirk_grid": (32,)}
+
+
+def _route_spec(name):
+    """(kernel, build without the snapshots, case, span) of a case."""
+    kernel, off, case, _ = ROUTE_TEVAL[name]
+    cases = {"rkn": TN.CASES, "rkn_grid": TN.CASES, "esdirk": T.CASES,
+             "esdirk_grid": TEG.CASES}[kernel]
+    span = cases[case][3] if kernel.startswith("rkn") else cases[case][2]
+    return kernel, off, case, span
+
+
+def _route_points(span, first):
+    """The case's points, unsorted, repeated, before t0 and past tf; with
+    ``first`` (one attempt of the size ``first``) four of them inside that
+    attempt's step."""
+    t0, tf = span
+    w = tf - t0
+    at = [0.5, 0.0, 1.0, 0.25, 0.25, -0.1, 1.2]
+    tq = [t0 + w * a for a in at]
+    if first:
+        tq = [t0 + first * np.sign(w) * a for a in (0.5, 0.0, 1.0, 0.25)]
+        tq += [t0 + 0.5 * w, t0 - 0.1 * w]
+    return np.asarray(tq, np.float32)
+
+
+def _route_teval(libs, name, snap=True, lanes=1, first=False, plain=True):
+    """The host-built kernel on a case with its points (the snapshot build;
+    without ``snap`` the build without it and no points) at ``lanes``, and
+    where ``plain`` the plain version with the points; with ``first`` one
+    attempt of 1% of the span, the points inside it."""
+    kernel, off, case, span = _route_spec(name)
+    lib = libs[SNAP_OF[off] if snap else off]
+    over = dict(ROUTE_TEVAL[name][3])
+    if first:
+        h0 = 0.01 * abs(span[1] - span[0])
+        over.update(first_step=h0, max_steps=1)
+    tq = _route_points(span, over.get("first_step", 0.0))
+    host_tq = tq if snap else None
+    ref = None
+    if kernel.startswith("rkn"):
+        _, _, _, _, y0, kw = TN.CASES[case]
+        kw = dict(kw, **over)
+        run = _rkn_host if kernel == "rkn" else _grid_host
+        host = run(lib, span, y0, lanes=lanes, t_eval=host_tq, **kw)
+        if plain:
+            ref = TN._port(case, t_eval=tq, **over)
+    elif kernel == "esdirk":
+        host = _esdirk_host(lib, case, lanes, t_eval=host_tq, **over)
+        if plain:
+            prob, meth, _, y0, yp0, M, kw = T.CASES[case]
+            ref = FE.fused_esdirk_reference(
+                T.PROBLEMS[prob], span, torch.tensor(y0),
+                method=T.METHODS[meth], M=M,
+                yp0_batch=None if yp0 is None else torch.tensor(yp0),
+                t_eval=tq, **dict(kw, **over))
+            ref = tuple(r.numpy() for r in ref)
+    else:
+        prob, meth, _, y0, kw = TEG.CASES[case]
+        kw = dict(TEG._options(kw), **over)
+        y0 = TEG.Y0[y0]
+        host = _esdirk_grid_host(lib, span, y0, lanes=lanes, t_eval=host_tq,
+                                 **kw)
+        if plain:
+            ref = FEG.fused_esdirk_grid_reference(
+                TEG.RHS[prob], span, torch.tensor(y0),
+                method=TEG.METHODS[meth], t_eval=tq, **kw)
+            ref = tuple(r.numpy() for r in ref)
+    return host, ref
+
+
+@pytest.mark.parametrize("name,lanes", [
+    (name, lanes) for name in ROUTE_TEVAL for lanes in (1,) + (
+        ROUTE_TEVAL_LANES[ROUTE_TEVAL[name][0]][-1:])])
+def test_route_snapshot_builds_leave_the_outputs_bit_for_bit(libs, name,
+                                                             lanes):
+    """The snapshot build (tab::SNAP) of B5, B6, B2 and B7 gives the build
+    without it bit for bit, on one thread and on the kernel's group body;
+    every row is written."""
+    out, _ = _route_teval(libs, name, lanes=lanes, plain=False)
+    off, _ = _route_teval(libs, name, snap=False, lanes=lanes, plain=False)
+    assert len(out) == len(off) + 1
+    for a, b in zip(out, off):
+        np.testing.assert_array_equal(a, b)
+    assert not np.isnan(out[-1]).any()
+
+
+# (case, max |dy|, max |dy_eval|, max |dnsteps|, members with other
+# counts) of the host-built kernels against the plain versions over the
+# finished members, measured (the libraries' powf parts last bits of h
+# from the second attempt): b5_overflow and b5_overflow_comp 0, 0, 0, 0
+# (u'' = u^3 from 0.1 takes no step whose h parts; member 7 with status 3
+# on both); b6_wave 1.1e-4, 1.1e-4, 0, 0; b6_wave_comp 1.3e-5, 1.3e-5, 1,
+# 1; b2_kaps 6.7e-7, 7.5e-7, 0, 4; b2_kaps_comp 1.1e-6, 1.1e-6, 0, 0;
+# b7_rd 9.7e-6, 9.7e-6, 1, 6; b7_rd_h0 1.0e-5, 1.0e-5, 0, 2.  Gates about
+# 2x.
+ROUTE_TEVAL_GATES = [("b5_overflow", 0.0, 0.0, 0, 0),
+                     ("b5_overflow_comp", 0.0, 0.0, 0, 0),
+                     ("b6_wave", 2.5e-4, 2.5e-4, 1, 2),
+                     ("b6_wave_comp", 3e-5, 3e-5, 2, 2),
+                     ("b2_kaps", 1.5e-6, 1.5e-6, 1, 8),
+                     ("b2_kaps_comp", 2.5e-6, 2.5e-6, 1, 2),
+                     ("b7_rd", 2e-5, 2e-5, 2, 12),
+                     ("b7_rd_h0", 2e-5, 2e-5, 1, 4)]
+
+
+@pytest.mark.parametrize("name,y_gate,yq_gate,dsteps,nmembers",
+                         ROUTE_TEVAL_GATES)
+def test_route_snapshot_kernels_match_plain_versions(libs, name, y_gate,
+                                                     yq_gate, dsteps,
+                                                     nmembers):
+    """The kernels' rows (their cursor into the sorted points) against the
+    plain versions' (every point tested at every step): status identical,
+    y, y_eval and the counts within the gates; B2's rows behind the hidden
+    M mapped to the user's coordinates in both."""
+    out, ref = _route_teval(libs, name)
+    np.testing.assert_array_equal(out[1], ref[1])
+    ok = ref[1] == 1
+    assert np.max(np.abs(out[0][ok] - ref[0][ok])) <= y_gate
+    assert np.max(np.abs(out[-1][:, ok] - ref[4][:, ok])) <= yq_gate
+    assert np.max(np.abs(out[2] - ref[2])) <= dsteps
+    assert np.sum((out[2] != ref[2]) | (out[3] != ref[3])) <= nmembers
+
+
+@pytest.mark.parametrize("name", ["b5_overflow", "b5_overflow_comp",
+                                  "b6_wave", "b6_wave_comp", "b2_kaps",
+                                  "b2_kaps_comp", "b7_rd"])
+def test_route_snapshot_first_attempt_bit_identical(libs, name):
+    """One attempt of every member, with points inside the step, before t0
+    and past it: the kernels' rows (the Hermite's __f*_rn operations in
+    _hermite_tiles' order, B5's and B6's on [u, v] with derivative [v, a],
+    B2's mapped back by V behind the hidden M; y0; the final state) and
+    outputs are the plain version's bit for bit."""
+    out, ref = _route_teval(libs, name, first=True)
+    assert np.all(out[1] == 3)
+    for a, b in zip(out[:4] + out[-1:], ref[:5]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name,lanes", [
+    (name, lanes) for name in ("b5_overflow_comp", "b2_kaps", "b2_kaps_comp")
+    for lanes in ROUTE_TEVAL_LANES[ROUTE_TEVAL[name][0]]])
+def test_route_snapshot_lane_bodies_bit_identical_to_thread_body(libs, name,
+                                                                 lanes):
+    """B5's and B2's group bodies with snapshots (a step's crossed points
+    split over the lanes) give the thread body's outputs and rows bit for
+    bit."""
+    for a, b in zip(_route_teval(libs, name, lanes=lanes, plain=False)[0],
+                    _route_teval(libs, name, plain=False)[0]):
+        np.testing.assert_array_equal(a, b)

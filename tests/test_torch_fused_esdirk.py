@@ -390,7 +390,7 @@ def test_cpu_wrapper_runs_plain_version():
     assert solve_fused_esdirk.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events"])
+@pytest.mark.parametrize("option", ["events"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_fused_esdirk(PROBLEMS["rob"], (0.0, 1.0), torch.tensor(ROB0),
@@ -519,7 +519,7 @@ def test_build_key_hashes_shared_headers(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.shared_headers("fused_esdirk")] == [
         "dense_record.cuh", "dual.cuh", "esdirk_control.cuh", "hstart.cuh",
-        "member_rhs.cuh", "rk_common.cuh", "lane_group.cuh"]
+        "member_rhs.cuh", "rk_common.cuh", "snapshot.cuh", "lane_group.cuh"]
     assert [p.name for p in _build.shared_headers("fused_erk")] == [
         "dense_record.cuh", "dual.cuh", "hstart.cuh", "member_rhs.cuh",
         "rk_common.cuh", "rk_control.cuh", "rk_lanes.cuh", "snapshot.cuh",

@@ -393,7 +393,7 @@ def test_cpu_wrapper_runs_plain_version():
     assert solve_fused_esdirk_grid.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events"])
+@pytest.mark.parametrize("option", ["events"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
         solve_fused_esdirk_grid(RHS["rdiff"], (0.0, 1.0),
@@ -528,7 +528,7 @@ def test_generated_header_carries_the_grid_and_rounds():
     assert [p.name for p in _build.shared_headers("fused_esdirk_grid")] == [
         "dense_record.cuh", "dual.cuh", "grid_common.cuh",
         "esdirk_control.cuh", "block_hstart.cuh", "block_rows.cuh",
-        "rk_common.cuh", "block_group.cuh"]
+        "rk_common.cuh", "snapshot.cuh", "block_group.cuh"]
 
 
 @pytest.fixture

@@ -4,9 +4,10 @@ kernels.
 ``fused_rkn_reference`` and ``fused_rkn_grid_reference`` (the CUDA
 kernels' plain PyTorch versions) run on the CPU; the JAX side runs
 ``solve_fused_rkn``/``solve_fused_rkn_grid(..., interpret=True)`` as the
-JAX package's own tests run them, on the same seeded inputs, in one
-subprocess with ``XLA_FLAGS=--xla_cpu_max_isa=SSE4_2`` (no FMA, so both
-sides round alike; see ``test_torch_fused_erk.py``).  The first attempt of
+JAX package's own tests run them, on the same seeded inputs, with
+``XLA_FLAGS=--xla_cpu_max_isa=SSE4_2`` (no FMA, so both sides round
+alike; see ``test_torch_fused_erk.py``), its outputs written to
+``tests/jax_fused_rkn.npz`` by ``tests/jax_fused_rkn.py``.  The first attempt of
 each member is then bit for bit the same; from the second on, XLA's and
 PyTorch's float32 ``pow`` in the controller (and, without ``first_step``,
 ``log10``/``pow`` against ``log``/``exp`` in the starting step, and the
@@ -19,11 +20,6 @@ JAX kernel pads to 128 lanes and the port takes as they are.
 The tests marked ``gpu`` hold the CUDA kernels against their plain
 versions on the card; they skip where there is none.
 """
-import json
-import os
-import subprocess
-import sys
-import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -144,67 +140,12 @@ CASES = {
                       dict(rtol=1e-4, atol=1e-6, max_steps=2000)),
 }
 
-_JAX_SCRIPT = textwrap.dedent("""
-    import json, sys
-    import numpy as np
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    import jax.numpy as jnp
-    import extensisq_tpu as X
-    from extensisq_tpu.ops import solve_fused_rkn, solve_fused_rkn_grid
-
-    def kepler(t, u, v):
-        r2 = u[0] ** 2 + u[1] ** 2
-        a = -1.0 / (r2 * jnp.sqrt(r2))
-        return jnp.stack([a * u[0], a * u[1]])
-
-    def wave(t, u, v):
-        return 400.0 * (jnp.roll(u, 1, -1) + jnp.roll(u, -1, -1) - 2.0 * u)
-
-    problems = {"kepler": kepler, "cubic": lambda t, u, v: u ** 3,
-                "wave": wave,
-                "duffing": lambda t, u, v: -u - 0.5 * u ** 3 - 0.1 * v,
-                "wave_cubic": lambda t, u, v: wave(t, u, v) + u ** 3}
-    inputs = np.load(sys.argv[1])
-    out = {}
-    for name, (kind, prob, meth, span, kw) in json.loads(
-            sys.argv[2]).items():
-        if kind == "flat":
-            res = solve_fused_rkn(problems[prob], tuple(span), inputs[name],
-                                  method=getattr(X, meth), block_members=128,
-                                  interpret=True, **kw)
-        else:
-            res = solve_fused_rkn_grid(problems[prob], tuple(span),
-                                       inputs[name], method=getattr(X, meth),
-                                       block_members=8, interpret=True, **kw)
-        for i, r in enumerate(res):
-            out[f"{name}/{i}"] = np.asarray(r)
-    np.savez(sys.argv[3], **out)
-""")
-
-
 @pytest.fixture(scope="module")
-def jax_results(tmp_path_factory):
-    """The JAX kernels' outputs for every case, from one subprocess."""
-    d = tmp_path_factory.mktemp("jax_fused_rkn")
-    np.savez(d / "in.npz", **{k: v[4] for k, v in CASES.items()})
-    spec = {k: [v[0], v[1], v[2], v[3], v[5]] for k, v in CASES.items()}
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_cpu_max_isa=SSE4_2", PYTHONPATH=str(REPO))
-    subprocess.run([sys.executable, "-c", _JAX_SCRIPT, str(d / "in.npz"),
-                    json.dumps(spec), str(d / "out.npz")],
-                   cwd=REPO, env=env, check=True, timeout=600)
-    out = np.load(d / "out.npz")
+def jax_results():
+    """The JAX kernels' outputs for every case, from
+    ``tests/jax_fused_rkn.npz`` (``tests/jax_fused_rkn.py`` writes it)."""
+    out = np.load(REPO / "tests" / "jax_fused_rkn.npz")
     return {k: tuple(out[f"{k}/{i}"] for i in range(4)) for k in CASES}
-
-
-def _port(name, **over):
-    kind, prob, meth, span, y0, kw = CASES[name]
-    ref = fused_rkn_reference if kind == "flat" else fused_rkn_grid_reference
-    res = ref(PROBLEMS[prob], span, torch.tensor(y0), method=METHODS[meth],
-              **dict(kw, **over))
-    return tuple(r.numpy() for r in res)
-
 
 
 def _port(name, **over):
@@ -344,7 +285,7 @@ def test_cpu_wrappers_run_plain_versions():
         assert solve_fn.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events"])
+@pytest.mark.parametrize("option", ["events"])
 @pytest.mark.parametrize("solve_fn", [solve_fused_rkn, solve_fused_rkn_grid])
 def test_unported_options_raise(solve_fn, option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -620,8 +561,8 @@ def test_build_keys_hash_the_included_headers(monkeypatch, tmp_path):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     expect = {"fused_rkn": ["dense_record.cuh", "rk_common.cuh",
-                            "hstart.cuh", "rk_control.cuh", "rk_lanes.cuh",
-                            "rk_rows.cuh", "lane_group.cuh"],
+                            "snapshot.cuh", "hstart.cuh", "rk_control.cuh",
+                            "rk_lanes.cuh", "rk_rows.cuh", "lane_group.cuh"],
               "fused_rk_grid": ["grid_common.cuh", "dense_record.cuh",
                                 "rk_common.cuh", "rk_control.cuh",
                                 "rk_rows.cuh", "block_rows.cuh",

@@ -33,7 +33,12 @@ compensated at 4 and 8 lanes, in turns; with ``--snap-src <dir>`` (an
 earlier ``extensisq_tpu_torch/csrc``; the option may repeat) it then
 builds B1's snapshot kernel from there too and times the two builds in
 turns at each of those shapes and point counts, their outputs and rows
-compared bit for bit.
+compared bit for bit.  ``--teval-routes`` runs ``chip_smoke.esdirk_path``
+(whose bench line's plain version and f64 driver take the pend4096 line's
+points) and then ``chip_smoke.teval_routes_path`` (the t_eval snapshots on
+B5, B6, B2 and B7, each against its plain version and bit for bit the
+launch without t_eval at every shape; the implicit builds, the Kepler,
+wave and reaction-diffusion builds and the six snapshot builds).
 
 ``--inline`` then also builds the two variational grid systems with their
 augmented ``rhs`` inlined (``__forceinline__`` for the generated
@@ -44,7 +49,7 @@ the medians, their ratio and how far the inlined outputs lie from the
 shipped ones.  Run from the repository root:
 
     PYTHONPATH=. python tools/probe_sens.py [--grid | --adjoint | --routes
-        | --adams | --teval [--snap-src <dir>]] [--inline]
+        | --adams | --teval [--snap-src <dir>] | --teval-routes] [--inline]
 """
 import re
 import statistics
@@ -211,6 +216,19 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
+    if "--teval-routes" in sys.argv[1:]:
+        C.build_all(
+            C.esdirk_builds()
+            + [b for b in C.rkn_grid_builds(C.rkn_grid_rhs())
+               if b[1] in ("kepler Fi5N", "wave Fi5N")]
+            + [b for b in C.mid_builds(C.mid_rhs())
+               if b[1] == "rdiff Kv3I"]
+            + C.teval_routes_builds(C.teval_routes_rhs()))
+        C.esdirk_path()
+        for name, keys in C.teval_routes_path().items():
+            print(f"{name}: {keys}")
+        print(smi.splitlines()[0])
+        return 0
     if "--teval" in sys.argv[1:]:
         C.build_all(
             C.teval_builds(C.teval_rhs())
