@@ -101,6 +101,19 @@ Drives each of the port's paths once:
   t_eval rows, a ``dense=R`` launch of B5's ``sol(t_eval)`` against its
   ``y_eval``, the hidden-M rows against the exact solution; each launch
   alone timed with and without the points;
+* the in-kernel t_eval snapshots of the SWAG and RKC kernels (after
+  those): the SWAG bench line's 256 members through B3 with 101 points,
+  config 2d's heat line through B8, config 5c's grid through B9 and config
+  5d's and 5e's 64 members through B10 (with the bound and with the power
+  iteration), 11 points each; each bit for bit the launch without t_eval
+  at every shape its rule takes, and against its plain version and the f64
+  driver's rows from the earlier paths' runs, which take the points (B3's
+  on its cut span, where its kernel launch takes them too, beside a
+  ``dense=R`` launch's ``sol(t_eval)``); a small B10 check of JAX's
+  pending index (points out of order and a NaN point); B1's and B11's
+  snapshot builds from Watts' start on Kepler with ``powf`` bit for bit
+  their builds without the points; each launch alone timed with and
+  without the points;
 * the host driver, the sensitivities and the front door (last):
   ``solve_ivp`` on the card against the same call on CPU tensors (VdP
   with BS5, ``t_eval``, dense output and two events; the CKdisc decay;
@@ -129,8 +142,8 @@ before it lists each kernel with its launch count on its path (and
 through the front door, ``launches_solve_fused``; B1's and B2's entries
 also hold the sensitivity lines' launches, times and bounds, the keys
 ending in ``_7b`` and ``_7a``, B4's and B7's those of the grid layout's,
-ending in ``_sens_grid``, B1's, B2's, B4-B7's, B11's and B12's those of
-the t_eval phases, ending in ``_teval``), its
+ending in ``_sens_grid``, every kernel's those of the t_eval phases,
+ending in ``_teval``, B10's power-iteration line's in ``_teval_power``), its
 largest difference from the plain version, its time, the plain version's
 and its bound in ms (the least time the card could take: the larger of
 its bytes over the memory rate and its operations over the float32 peak).
@@ -487,6 +500,11 @@ SWAG_F64_GATE = 1e-6
 # 8.5e-9 and 1.4e-3, with 18 members taking other step counts
 SWAG_CPU_GATE = 1e-7
 SWAG_CPU_STEP_GATE = 1e-2
+# the t_eval points of the cut spans, B8's, B9's and B10's lines
+TA_POINTS = 11
+# the cut span's kernel, plain version and f64 driver runs with TA_POINTS
+# points on it, for teval_adams_rkc_path
+SWAG_RUNS = {}
 
 
 def _vdp_cuda(mu):
@@ -534,8 +552,8 @@ def build_all(jobs):
     """Build every (kernel, label, rhs, options) variant with one nvcc
     each, all started together; print seconds, registers and spills.  A
     kernel name ending in ``_rec`` (B1-B8) is the build with the dense
-    record, in ``_snap`` (B1, B2, B4-B7, B11, B12) the build with the
-    t_eval snapshots, in ``_rec_snap`` (B1, B4, B5) with both."""
+    record, in ``_snap`` (every kernel) the build with the t_eval
+    snapshots, in ``_rec_snap`` (B1, B3, B4, B5) with both."""
     from extensisq_tpu_torch import BS5
     from extensisq_tpu_torch.ops import _build
     from extensisq_tpu_torch.ops.fused_adams import _adams_consts
@@ -574,11 +592,11 @@ def build_all(jobs):
                                          rhs.cuda_src, rhs.k, rec, snap)
         if kernel == "fused_adams":
             return _build.load_fused_adams(_adams_consts(opt, rhs.n),
-                                           rhs.cuda_src, rhs.k, rec)
+                                           rhs.cuda_src, rhs.k, rec, snap)
         if kernel == "fused_adams_grid":
             return _build.load_fused_adams_grid(
                 _adams_consts(opt, rhs.shape[0]), rhs.shape, rhs.cuda_src,
-                rhs.k, rec)
+                rhs.k, rec, snap)
         if kernel == "fused_esdirk_grid":
             method, nb = opt if isinstance(opt, tuple) else (opt, None)
             return _build.load_fused_esdirk_grid(
@@ -588,7 +606,7 @@ def build_all(jobs):
             n_par, rho = opt
             return _build.load_fused_rkc(rhs.shape, n_par, rhs.cuda_src,
                                          None if rho is None
-                                         else rho.cuda_src)
+                                         else rho.cuda_src, snap)
         method, M, *nb = opt
         return _build.load_fused_esdirk(_esdirk_consts(method),
                                         *_mass_setup(M, rhs.n), rhs.n,
@@ -952,17 +970,25 @@ def adams_path():
     check(err_comp <= SWAG_RADAU_GATE, "SWAG bench line: error vs Radau")
 
     # (c) on the cut span: the kernel against its plain version and the
-    # f64 driver; 64 members of the f64 run again on the CPU
+    # f64 driver, each with the vdp256-swag-mu1e3-teval line's points on it
+    # (teval_adams_rkc_path holds their rows); 64 members of the f64 run
+    # again on the CPU
     cut = (SWAG_SPAN[0], SWAG_T_CUT)
-    k, _, err_k, plain_s = compare("bench_cut", "bench", cut, y0,
-                                   compensated=True, **SWAG_TOL)
+    tq_cut = np.linspace(*cut, TA_POINTS).astype(np.float32)
+    k, r_cut, err_k, plain_s = compare("bench_cut", "bench", cut, y0,
+                                       compensated=True, t_eval=tq_cut,
+                                       **SWAG_TOL)
     y64 = y0.double()
     t0 = time.perf_counter()
     ens = solve_ensemble(vdp_mu(SWAG_MU), cut, y64, method=SWAG,
                          rtol=SWAG_TOL["rtol"], atol=SWAG_TOL["atol"],
-                         k_max=SWAG_TOL["k_max"], max_steps=100_000)
+                         k_max=SWAG_TOL["k_max"], max_steps=100_000,
+                         t_eval=torch.tensor(tq_cut, dtype=torch.float64,
+                                             device="cuda"))
     torch.cuda.synchronize()
     f64_s = time.perf_counter() - t0
+    SWAG_RUNS.update(y0=y0, tq=tq_cut, kernel=k, plain=r_cut, f64=ens,
+                     plain_ms=plain_s * 1e3, f64_ms=f64_s * 1e3)
     check(bool((ens.status == 1).all()), "f64 SWAG: not all finished")
     d64 = (k[0].double() - ens.y).abs().max().item()
     print(f"cut span t in [0, {SWAG_T_CUT}]: kernel {int(k[2].max())} steps "
@@ -1400,6 +1426,11 @@ def repeats_bit_for_bit(first, run):
     return all(torch.equal(a, b) for o in outs for a, b in zip(o, first))
 
 
+# B9's f64 run and the plain versions of B9 and B10 with TA_POINTS points,
+# for teval_adams_rkc_path
+RKC_RUNS = {}
+
+
 def rkc_path():
     """The SSV2stab path at BASELINE config 5's sizes: the f64 driver on
     one 131,072-state grid (5a), B9 on the same grid (5c), B10 on the
@@ -1430,13 +1461,19 @@ def rkc_path():
         return R["b10"].torch_fn(t, y.reshape(2, ENS_NY, ENS_NX, -1),
                                  b[None]).reshape(2 * ENS_NY * ENS_NX, -1)
 
+    # the brus131k-ssv2stab-teval line's points on the f64 run (and, in
+    # (f), the plain versions'), for teval_adams_rkc_path
+    tq9 = np.linspace(0.0, 1.0, TA_POINTS).astype(np.float32)
+    tq10 = np.linspace(0.0, ENS_TF, TA_POINTS).astype(np.float32)
     for fn in (solve_fused_erk, solve_fused_esdirk, solve_fused_adams,
                solve_fused_rkc, solve_fused_rkc_ensemble):
         fn.launches = 0
     t0 = time.perf_counter()
     f64 = solve(flat, (0.0, 1.0), torch.tensor(y131.reshape(-1),
                                                device="cuda"),
-                method=SSV2stab, rho_jac=rho_bound, **RKC_TOL)
+                method=SSV2stab, rho_jac=rho_bound,
+                t_eval=torch.tensor(tq9, dtype=torch.float64, device="cuda"),
+                **RKC_TOL)
     torch.cuda.synchronize()
     f64_s = time.perf_counter() - t0
     b9 = solve_fused_rkc(R["b9"], (0.0, 1.0), Y9, BRUS_RHO, **RKC_TOL)
@@ -1541,16 +1578,23 @@ def rkc_path():
     # (f) the path's kernel runs against their plain versions, same inputs
     t0 = time.perf_counter()
     r9 = fused_rkc_reference(R["b9"], (0.0, 1.0), Y9[None], BRUS_RHO,
-                             **RKC_TOL)
+                             t_eval=tq9, **RKC_TOL)
     torch.cuda.synchronize()
     plain9_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     r10 = fused_rkc_reference(R["b10"], (0.0, ENS_TF), Y10, ENS_RHO,
-                              params=P10, **RKC_TOL)
+                              params=P10, t_eval=tq10, **RKC_TOL)
     torch.cuda.synchronize()
     plain10_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
     r10p = fused_rkc_reference(R["b10"], (0.0, ENS_TF), Y10, None,
-                               params=P10, **RKC_TOL)
+                               params=P10, t_eval=tq10, **RKC_TOL)
+    torch.cuda.synchronize()
+    plain10p_ms = (time.perf_counter() - t0) * 1e3
+    RKC_RUNS.update(y9=Y9, y10=Y10, p10=P10, tq9=tq9, tq10=tq10, f64=f64,
+                    plain9=r9, plain10=r10, plain10p=r10p,
+                    plain9_ms=plain9_ms, plain10_ms=plain10_ms,
+                    plain10p_ms=plain10p_ms, f64_ms=f64_s * 1e3)
     err9 = max(hold_rkc("b9", "the path, 2x256x256",
                         tuple(x[None] for x in b9), r9, "b9"),
                hold_rkc("b9", "the path, 2x256x256, global placement",
@@ -2831,6 +2875,11 @@ def esdirk_grid_ops(n, k, rhs_ops, newton_evals, nsteps_sum, band_ops,
     return nsteps_sum * per_attempt + newton_evals * per_newton
 
 
+# the heat line's plain version and f64 driver runs with TA_POINTS points,
+# for teval_adams_rkc_path
+HEAT_RUNS = {}
+
+
 def mid_path():
     """The mid-size SWAG and ESDIRK paths: B8 and B7 against their plain
     versions (small checks with an overflowing member, and the paths'
@@ -2930,10 +2979,15 @@ def mid_path():
               f"{label} path: launches {counts}, expected one of its own")
     heat, rd = outs["fused_adams_grid"], outs["fused_esdirk_grid"]
 
-    # (c) the gates against the f64 drivers
+    # (c) the gates against the f64 drivers; the heat line's f64 run with
+    # the heat256x32-swag-teval line's points (teval_adams_rkc_path holds
+    # its rows)
+    tq_heat = np.linspace(*HEAT_SPAN, TA_POINTS).astype(np.float32)
     t0 = time.perf_counter()
     heat64 = solve_ensemble(R["heat"].torch_fn, HEAT_SPAN, H32.double(),
-                            method=SWAG, **HEAT_TOL)
+                            method=SWAG, t_eval=torch.tensor(
+                                tq_heat, dtype=torch.float64, device="cuda"),
+                            **HEAT_TOL)
     torch.cuda.synchronize()
     heat64_s = time.perf_counter() - t0
     check(bool((heat[1] == 1).all()) and bool((heat64.status == 1).all()),
@@ -2997,17 +3051,21 @@ def mid_path():
     check(bool((comp[1] == 1).all()) and dcomp < RD_COMP_GATE,
           "B7 compensated: off the f64 driver")
 
-    # (d) each kernel against its plain version at the paths' shapes
+    # (d) each kernel against its plain version at the paths' shapes; the
+    # heat line's plain version with the points of (c)
     errs, plain_ms = {}, {}
     for kind, label, rhs, span, y0, tol, out in (
             ("fused_adams_grid", "heat2d", R["heat"], HEAT_SPAN, H32,
-             HEAT_TOL, heat),
+             dict(HEAT_TOL, t_eval=tq_heat), heat),
             ("fused_esdirk_grid", "rd4d", R["rdiff"], RD_SPAN, RD32, RD_TOL,
              rd)):
         _, r, errs[kind], r_s = hold_against_plain(
             kind, f"{label}, the path", lambda o=out: o,
             lambda: kinds[kind][1](rhs, span, y0, **tol),
             *MID_KERNEL_GATES[label])
+        if kind == "fused_adams_grid":
+            HEAT_RUNS.update(y0=H32, tq=tq_heat, plain=r, f64=heat64,
+                             plain_ms=r_s * 1e3, f64_ms=heat64_s * 1e3)
         if kind == "fused_esdirk_grid":
             hold_grid_shapes(kind, f"{label}, the path", rhs, span, y0, tol,
                              out, shapes[kind], r, MID_KERNEL_GATES[label])
@@ -5348,13 +5406,15 @@ def adams_start(kind, fun, y0, params, span, tol):
 
 
 def adams_launch_ms(kind, built, fun, y0, params, span, tol, shape, rows,
-                    reps=10):
+                    reps=10, tq=None):
     """Device ms of one launch of B3 or B8 (``kind``, its wrapper's module)
-    with the record of ``rows`` a member (0: the build without it), the
-    float32 init run and the outputs allocated before: CUDA events around
-    ``reps`` launches back to back, per launch, median of REPS; and the
-    DenseRecord written."""
-    from extensisq_tpu_torch.ops.fused_erk import DenseRecord
+    with the record of ``rows`` a member (0: the build without it) and, on
+    a snapshot build, the t_eval points ``tq``, the float32 init run and
+    the outputs allocated before: CUDA events around ``reps`` launches back
+    to back, per launch, median of REPS; and the DenseRecord written.
+    ``tol`` gives rtol, atol, k_max and, where it has them, compensated
+    (B3) and max_steps (else 100,000)."""
+    from extensisq_tpu_torch.ops.fused_erk import DenseRecord, SnapPoints
     from extensisq_tpu_torch.ops.fused_erk_grid import grid_threads
     nb, n = y0.shape
     yp0, h0, nfev0, direction = adams_start(kind, fun, y0, params, span,
@@ -5365,20 +5425,30 @@ def adams_launch_ms(kind, built, fun, y0, params, span, tol, shape, rows,
     rec = DenseRecord(y0, rows)
     scal = (nb, float(np.float32(span[0])), float(np.float32(span[1])),
             direction, float(np.float32(tol["rtol"])),
-            float(np.float32(tol["atol"])), np.inf, 100_000)
+            float(np.float32(tol["atol"])), np.inf,
+            tol.get("max_steps", 100_000))
     ptrs = [x.data_ptr() for x in out]
+    par = None if params is None else params.data_ptr()
     if kind == "fused_adams":
         work = torch.empty(nb, 5, dtype=torch.int32, device="cuda")
-        args = ((y0.data_ptr(), params.data_ptr(), yp0.data_ptr(),
-                 h0.data_ptr(), nfev0.data_ptr(), *ptrs, work.data_ptr())
-                + scal + (0,) + tuple(shape))
+        args = ((y0.data_ptr(), par, yp0.data_ptr(), h0.data_ptr(),
+                 nfev0.data_ptr(), *ptrs, work.data_ptr())
+                + scal + (int(tol.get("compensated", False)),)
+                + tuple(shape))
     else:
         args = ((y0.data_ptr(), yp0.data_ptr(), h0.data_ptr(),
-                 nfev0.data_ptr(), params.data_ptr(), *ptrs) + scal
+                 nfev0.data_ptr(), par, *ptrs) + scal
                 + (grid_threads(n),))
-    fn = getattr(built.lib, f"{kind}{'_record' if rows else ''}_launch")
+    suffix = "_record" if rows else ""
+    if tq is not None:
+        # a snapshot launch takes the record's arguments (null without
+        # rows) before the points'
+        args, suffix = args + rec.args() + SnapPoints(tq, span,
+                                                      y0).args(), "_snap"
+    elif rows:
+        args = args + rec.args()
+    fn = getattr(built.lib, f"{kind}{suffix}_launch")
     stream = torch.cuda.current_stream().cuda_stream
-    args = args + (rec.args() if rows else ())
 
     def run():
         for _ in range(reps):
@@ -6380,6 +6450,517 @@ def teval_routes_path():
     return out_keys
 
 
+# -- the t_eval snapshots of B3, B8, B9 and B10 -------------------------
+# Four lines, each an earlier path's problem at its full size with points
+# in its span: vdp256-swag-mu1e3-teval (B3: the SWAG bench line, 256 Van
+# der Pol members at mu = 1000, t in [0, 20], compensated at rtol 1e-6 /
+# atol 1e-9, k_max 12, 32 lanes a member, 101 points), heat256x32-swag-teval
+# (B8: config 2d's 32 heat members at n = 256, t in [0, 0.25], k_max 6, 11
+# points), brus131k-ssv2stab-teval (B9: config 5c's 2x256x256 grid, t in
+# [0, 1], 11 points in order) and brus64x2x64x128-ens-teval (B10: config
+# 5d's and 5e's 64 members with the bound and with the power iteration, t
+# in [0, 4], 11 points).  The plain versions and the f64 drivers do not run
+# again: their rows are those of the earlier paths' runs, which take the
+# points (SWAG_RUNS: adams_path's cut span [0, 0.5] with 11 points, where
+# the kernel's cut-span launch takes them too; HEAT_RUNS: mid_path's heat
+# plain version and f64 driver; RKC_RUNS: rkc_path's B9 f64 solve and the
+# plain versions of B9 and B10).
+TA_SWAG_EVAL = 101
+# each kernel's rows against its plain version on the card, on the runs
+# both took the points in: max |dy_eval| over the finished members (those
+# whose counts equal the plain version's, and all).  B3 on the cut span
+# (most members take other steps there: the stiff line's fma against
+# separate roundings, ADAMS_GATES' bench_cut); B8 on config 2d, whose
+# float32 step sequences bifurcate (MID_KERNEL_GATES' heat2d); B9 and B10
+# on the path's lines (B9's one member takes other counts).  Readings on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W; runs EK, EL), same counts / all: B3
+# 0 / 4.768e-7, B8 0 / 9.047e-4, B9 - / 1.752e-4, B10 bound 1.862e-4 /
+# 2.899e-4, power 2.494e-4 / 4.439e-4.  Gates about 3x, at least 1e-7
+TA_YEVAL_GATES = {"vdp256 cut span": (1e-7, 1.5e-6),
+                  "heat256x32": (1e-7, 2.7e-3),
+                  "brus131k": (1e-7, 5.3e-4),
+                  "brus64 bound": (5.6e-4, 8.7e-4),
+                  "brus64 power": (7.5e-4, 1.3e-3)}
+# the rows against the f64 driver's t_eval rows on the same members:
+# readings (EK, EL) B3 on the cut span 3.492e-7 (the plain version's
+# 3.675e-7), B8 on config 2d 1.118e-3 (the plain version's too), B9 on
+# config 5a's run 7.312e-4 (the plain version's 7.118e-4); gates B3 and B9
+# about 3x, B8 the JAX test's 2e-3 (tests/test_fused_pallas.py:631)
+TA_F64_GATES = {"vdp256 cut span": 1.05e-6, "heat256x32": 2e-3,
+                "brus131k": 2.2e-3}
+# sol(t_eval) of B3's dense=R launch on the cut span against its own
+# y_eval: both the cubic Hermite of the step that crosses each point,
+# summed in other orders (reading 2.384e-7, EK, EL), gate about 3x
+TA_DENSE_GATE = 8e-7
+# the small B10 check with points out of order and a NaN point (8 members
+# of 2x32x128, one of which overflows): its rows against the plain
+# version's, in order and behind a later point.  The members' steps are
+# 0.07-0.09 long there, and the one that reaches 0.75 starts between 0.67
+# and 0.74, so 0.65 lies behind it at theta -0.3 to -1 for every member;
+# a point further behind (0.5, theta ~-3) took the two runs' cubics,
+# from steps that nvcc's contraction moves, 2.9e-2 apart (EK).  Readings
+# (EL), in order / behind: clusters 6.020e-5 / 1.575e-3, one block a
+# member 6.568e-5 / 1.877e-3; gates about 3x
+TA_PENDING_GATES = (2e-4, 6e-3)
+TA_PENDING_POINTS = [0.0, 0.25, 0.75, 0.65, float("nan"), 0.9]
+# the Watts-start probe of B1's and B11's snapshot builds: config 3's Kepler
+# orbits in first-order form with powf, from Watts' start (no first_step)
+WATTS_N = 2048
+WATTS_TOL = {"fused_erk": dict(rtol=1e-7, atol=1e-9, compensated=True),
+             "fused_ckdisc": dict(rtol=1e-6, atol=1e-9)}
+WATTS_LANES = {"fused_erk": (8, 4, 1), "fused_ckdisc": (32, 16, 8, 1)}
+KEPLER_POWF_CUDA = """
+__device__ void rhs(float t, const float* y, float* dy) {
+  const float r2 = y[0] * y[0] + y[1] * y[1];
+  const float s = -1.0f / powf(r2, 1.5f);
+  dy[0] = y[2];
+  dy[1] = y[3];
+  dy[2] = s * y[0];
+  dy[3] = s * y[1];
+}
+"""
+
+
+def kepler_powf(t, y):
+    r2 = y[0] ** 2 + y[1] ** 2
+    s = -1.0 / r2 ** 1.5
+    return torch.stack([y[2], y[3], s * y[0], s * y[1]])
+
+
+def teval_adams_rkc_rhs():
+    """The phase's functions: the SWAG bench line's Van der Pol, config 2d's
+    heat MoL, config 5's Brusselators (B9's grid, B10's members with B a
+    parameter and the small B10 check's) and Kepler with powf for the
+    Watts-start probe."""
+    from extensisq_tpu_torch.ops import FusedRHS
+    K = rkc_rhs()
+    return {"bench": adams_rhs()["bench"], "heat": mid_rhs()["heat"],
+            "b9": K["b9"], "b10": K["b10"], "b10_small": K["b10_small"],
+            "kepler": FusedRHS(kepler_powf, KEPLER_POWF_CUDA, 4)}
+
+
+def teval_adams_rkc_builds(rhs):
+    """(kernel, label, rhs, option) of the phase's builds: the snapshot
+    builds of B3 (and beside the dense record), B8, B9 and B10 (the small
+    check's too), and the Watts-start probe's B1 and B11 with and without
+    the snapshots."""
+    return [("fused_adams_snap", "bench k_max=12 t_eval", rhs["bench"], 12),
+            ("fused_adams_rec_snap", "bench k_max=12 dense t_eval",
+             rhs["bench"], 12),
+            ("fused_adams_grid_snap", "heat k_max=6 t_eval", rhs["heat"], 6),
+            ("fused_rkc_snap", "brusselator 2x256x256 t_eval", rhs["b9"],
+             (0, None)),
+            ("fused_rkc_snap", "brusselator 2x64x128, B per member, t_eval",
+             rhs["b10"], (1, None)),
+            ("fused_rkc_snap", "brusselator 2x32x128, B per member, t_eval",
+             rhs["b10_small"], (1, None)),
+            ("fused_erk", "kepler powf", rhs["kepler"], None),
+            ("fused_erk_snap", "kepler powf t_eval", rhs["kepler"], None),
+            ("fused_ckdisc", "kepler powf", rhs["kepler"], None),
+            ("fused_ckdisc_snap", "kepler powf t_eval", rhs["kepler"], None)]
+
+
+def _rows_err(k, r, at, axis, same_counts=False):
+    """max |dy_eval| between two runs' rows (``at`` their index in the
+    outputs, ``axis`` the member axis of the rows; B9's one member has
+    none) over the members both finished (with ``same_counts``, and took
+    the same nsteps and nfev)."""
+    ok = (k[1] == 1).reshape(-1) & (r[1] == 1).reshape(-1)
+    if same_counts:
+        ok = ok & (k[2] == r[2]).reshape(-1) & (k[3] == r[3]).reshape(-1)
+    if not bool(ok.any()):
+        return 0.0
+    a, b = k[at], r[at]
+    if k[1].dim() == 0:
+        return (a - b).abs().max().item()
+    idx = ok.nonzero()[:, 0]
+    return (a.index_select(axis, idx) - b.index_select(axis, idx)).abs() \
+        .max().item()
+
+
+def teval_adams_rkc_shapes(kind):
+    """The shapes at which a line's snapshot launch is held bit for bit to
+    the launch without t_eval: B3 at every lane count of its rule, B8 at
+    its one block, B9 in both placements, B10 at one block a member and
+    each cluster size the card holds."""
+    from extensisq_tpu_torch.ops import fused_rkc as FR
+    return {"fused_adams": [32, 16, 8, 1], "fused_adams_grid": [None],
+            "fused_rkc": [FR.SHARED, FR.GLOBAL],
+            "fused_rkc_ensemble": [1, *FR.CLUSTER_SIZES]}[kind]
+
+
+def teval_adams_rkc_launch(kind, fun, y0, span, kw, tq, s):
+    """The line's kernel at shape ``s`` (a comparison launch, not counted)
+    with the points ``tq`` (None: the build without them); None for a
+    cluster size the card does not hold."""
+    from extensisq_tpu_torch.ops import fused_adams as FA
+    from extensisq_tpu_torch.ops import fused_adams_grid as FAG
+    from extensisq_tpu_torch.ops import fused_rkc as FR
+    kw = dict(kw)
+    if kind == "fused_adams":
+        return FA._launch(fun, span, y0, kw["rtol"], kw["atol"], None,
+                          kw["k_max"], kw["max_steps"],
+                          kw.get("compensated", False), None, s, None,
+                          None, None, tq)[0]
+    if kind == "fused_adams_grid":
+        built = FAG._kernel(fun, kw["k_max"], False, tq is not None)
+        return FAG._launch(built, fun, span, y0, first_step=None,
+                           max_steps=200_000, max_step=None, t_eval=tq,
+                           **kw)
+    rho = kw.pop("rho")
+    if kind == "fused_rkc":
+        return FR._launch_grid(fun, span, y0, rho, s, t_eval=tq, **kw)[0]
+    params = kw.pop("params")
+    if s > 1:
+        built = FR._kernel(fun, rho, params.shape[1], tq is not None)
+        if not FR._max_clusters(built, rho, y0.device).get(s, 0):
+            return None
+    return FR._launch_ensemble(fun, span, y0, rho, params, s, t_eval=tq,
+                               **kw)[0]
+
+
+def watts_start_probe(R):
+    """B1 (compensated) and B11 from Watts' start on Kepler with powf, with
+    and without t_eval at every lane count of the probe: the snapshot
+    build's four outputs must be the build's without it bit for bit.
+    Returns {kernel: {lanes: bit for bit}}."""
+    from extensisq_tpu_torch import BS5
+    from extensisq_tpu_torch.ops import fused_ckdisc as FC
+    from extensisq_tpu_torch.ops import fused_erk as FK
+    y0 = kepler_y0(WATTS_N)
+    tq = np.linspace(*KEP_SPAN, TA_SWAG_EVAL).astype(np.float32)
+    out = {}
+    for kind, lanes in WATTS_LANES.items():
+        tol = WATTS_TOL[kind]
+        same = {}
+        for g in lanes:
+            def run(pts, g=g):
+                if kind == "fused_erk":
+                    return FK._launch(R["kepler"], KEP_SPAN, y0, BS5,
+                                      tol["rtol"], tol["atol"], None,
+                                      100_000, tol["compensated"], None, g,
+                                      None, None, None, pts)[0]
+                return FC._launch(R["kepler"], KEP_SPAN, y0, tol["rtol"],
+                                  tol["atol"], None, 100_000, None, g, None,
+                                  None, pts)[0]
+            on, off = run(tq), run(None)
+            check(bool((off[1] == 1).all()), f"{kind} kepler powf at {g} "
+                  "lanes: not every member finished")
+            same[g] = _same(on[:4], off)
+            if not same[g]:
+                apart = int(((on[0] != off[0]).any(1) | (on[2] != off[2])
+                             | (on[3] != off[3])).sum())
+                print(f"watts start [{kind}, {g} lanes]: {apart} of "
+                      f"{WATTS_N} members apart")
+        print(f"watts start [{kind}, Kepler with powf, {WATTS_N} members, "
+              f"no first_step]: the four outputs with t_eval bit for bit "
+              f"those without at {same}")
+        out[kind] = same
+    for kind, same in out.items():
+        check(all(same.values()), f"{kind}: the snapshot build parts from "
+              "the build without it from Watts' start")
+    return out
+
+
+def teval_adams_rkc_path():
+    """The t_eval snapshots of B3, B8, B9 and B10 on the card: the four
+    lines (B10 twice) through the wrappers, each wrapper's count set to 0
+    just before and read just after; each line's snapshot launch bit for
+    bit the launch without t_eval at every shape its rule takes; the rows
+    against the plain versions' and the f64 drivers' (the earlier paths'
+    runs with the points: B3's cut span, B8's heat line, B9's and B10's
+    path lines), B3's cut-span dense=R launch's sol(t_eval) against its
+    y_eval, a small B10 check with points out of order and a NaN point
+    against its plain version, and B1's and B11's snapshot builds from
+    Watts' start with powf; each line's launch alone with and without
+    t_eval and its bound.  Returns each kernel's ``_teval`` keys by its
+    ``kernels`` name, and B1's and B11's probe keys."""
+    from extensisq_tpu_torch import ops
+    from extensisq_tpu_torch.ops import fused_adams as FA
+    from extensisq_tpu_torch.ops import fused_adams_grid as FAG
+    from extensisq_tpu_torch.ops import fused_rkc as FR
+    from extensisq_tpu_torch.ops.fused_adams import _host_init
+    start = time.perf_counter()
+    R = teval_adams_rkc_rhs()
+    f = np.float32
+    lines = [
+        ("vdp256", "fused_adams", R["bench"],
+         dict(SWAG_TOL, compensated=True, block_members=SWAG_BLOCK_MEMBERS),
+         SWAG_RUNS["y0"], SWAG_SPAN,
+         np.linspace(*SWAG_SPAN, TA_SWAG_EVAL).astype(f)),
+        ("heat256x32", "fused_adams_grid", R["heat"], dict(HEAT_TOL),
+         HEAT_RUNS["y0"], HEAT_SPAN, HEAT_RUNS["tq"]),
+        ("brus131k", "fused_rkc", R["b9"], dict(RKC_TOL, rho=BRUS_RHO),
+         RKC_RUNS["y9"], (0.0, 1.0), RKC_RUNS["tq9"]),
+        ("brus64 bound", "fused_rkc_ensemble", R["b10"],
+         dict(RKC_TOL, rho=ENS_RHO, params=RKC_RUNS["p10"]),
+         RKC_RUNS["y10"], (0.0, ENS_TF), RKC_RUNS["tq10"]),
+        ("brus64 power", "fused_rkc_ensemble", R["b10"],
+         dict(RKC_TOL, rho=None, params=RKC_RUNS["p10"]),
+         RKC_RUNS["y10"], (0.0, ENS_TF), RKC_RUNS["tq10"])]
+    every = [getattr(ops, k) for k in dir(ops) if k.startswith("solve_fused_")
+             and hasattr(getattr(ops, k), "launches")]
+
+    def line(kind, fun, kw, y0, span, tq):
+        kw = dict(kw)
+        if kind.startswith("fused_rkc"):
+            rho = kw.pop("rho")
+            return getattr(ops, "solve_" + kind)(fun, span, y0, rho,
+                                                 t_eval=tq, **kw)
+        return getattr(ops, "solve_" + kind)(fun, span, y0, t_eval=tq, **kw)
+
+    # the main path of the phase: the lines through the wrappers
+    for w in every:
+        w.launches = 0
+    t0 = time.perf_counter()
+    runs = {}
+    for label, kind, fun, kw, y0, span, tq in lines:
+        runs[label] = line(kind, fun, kw, y0, span, tq)
+        if kind == "fused_adams":
+            swag_shape = ops.solve_fused_adams.last_shape
+            swag_work = ops.solve_fused_adams.last_work.long().sum(0).tolist()
+    torch.cuda.synchronize()
+    path_ms = (time.perf_counter() - t0) * 1e3
+    launches = {w.__name__: w.launches for w in every if w.launches}
+    expect = {"solve_fused_adams": 1, "solve_fused_adams_grid": 1,
+              "solve_fused_rkc": 1, "solve_fused_rkc_ensemble": 2}
+    print(f"t_eval SWAG and RKC path: {path_ms:.1f} ms for the lines (first "
+          f"calls), launches {launches}; B3 at {swag_shape[0]} lanes a "
+          f"member")
+    check(launches == expect, f"t_eval SWAG and RKC path launched "
+          f"{launches}, expected {expect}")
+    check(swag_shape[0] == 32, "vdp256: the rule took no 32-lane group")
+    ats = {}
+    for label, kind, _, kw, y0, span, tq in lines:
+        out = runs[label]
+        at = 5 if kind.startswith("fused_rkc") and kw["rho"] is None else 4
+        ats[label] = at
+        rows = ((len(tq), *y0.shape) if kind != "fused_rkc_ensemble"
+                else (y0.shape[0], len(tq), *y0.shape[1:]))
+        check(len(out) == at + 1 and bool((out[1] == 1).all()),
+              f"{label}: not every member finished")
+        check(tuple(out[at].shape) == rows, f"{label}: y_eval's shape")
+        check(bool(torch.isfinite(out[at]).all()), f"{label}: y_eval finite")
+    # SWAG's last point is tf, which the landing step crosses at theta = 1:
+    # the final y, bit for bit
+    check(torch.equal(runs["vdp256"][4][-1], runs["vdp256"][0]),
+          "vdp256: the row at tf is not the final y")
+
+    # each line's snapshot launch bit for bit the launch without t_eval at
+    # every shape its rule takes
+    same_all = {}
+    for label, kind, fun, kw, y0, span, tq in lines:
+        kw = {k: v for k, v in kw.items() if k != "block_members"}
+        same = {}
+        for s in teval_adams_rkc_shapes(kind):
+            on = teval_adams_rkc_launch(kind, fun, y0, span, kw, tq, s)
+            if on is None:
+                continue
+            off = teval_adams_rkc_launch(kind, fun, y0, span, kw, None, s)
+            same[s] = len(on) == len(off) + 1 and _same(on[:-1], off)
+        print(f"t_eval [{label}]: the other outputs bit for bit those "
+              f"without t_eval at {same}")
+        check(all(same.values()) and len(same) >= (
+            1 if kind == "fused_adams_grid" else 2),
+              f"{label}: t_eval changed the outputs")
+        same_all[label] = same
+
+    # the rows against the plain versions' on the runs both took the
+    # points in, and against the f64 drivers'
+    pairs = {
+        "vdp256 cut span": (SWAG_RUNS["kernel"], SWAG_RUNS["plain"], 4, 1),
+        "heat256x32": (runs["heat256x32"], HEAT_RUNS["plain"], 4, 1),
+        "brus131k": (runs["brus131k"],
+                     tuple(x[0] for x in RKC_RUNS["plain9"]), 4, 1),
+        "brus64 bound": (runs["brus64 bound"], RKC_RUNS["plain10"], 4, 0),
+        "brus64 power": (runs["brus64 power"], RKC_RUNS["plain10p"], 5, 0)}
+    errs = {}
+    for label, (k, r, at, axis) in pairs.items():
+        dq = _rows_err(k, r, at, axis)
+        dq_same = _rows_err(k, r, at, axis, True)
+        g_same, g_all = TA_YEVAL_GATES[label]
+        dy = (k[0] - r[0]).abs().max().item()
+        nq = k[at].shape[1 - axis]
+        print(f"t_eval kernel vs plain [{label}, {nq} points]: max |dy| "
+              f"{dy:.3e}; max |dy_eval| over the members "
+              f"with the plain version's counts {dq_same:.3e} (gate "
+              f"{g_same:.1e}), over all {dq:.3e} (gate {g_all:.1e})")
+        check(torch.equal(k[1], r[1]), f"{label}: status differs")
+        check(dq_same <= g_same and dq <= g_all,
+              f"{label}: y_eval off the plain version")
+        errs[label] = (dy, dq)
+    f64_rows = {
+        "vdp256 cut span": (SWAG_RUNS["kernel"][4], SWAG_RUNS["plain"][4],
+                            SWAG_RUNS["f64"].y_eval.permute(1, 0, 2)),
+        "heat256x32": (runs["heat256x32"][4], HEAT_RUNS["plain"][4],
+                       HEAT_RUNS["f64"].y_eval.permute(1, 0, 2)),
+        "brus131k": (runs["brus131k"][4].reshape(len(RKC_RUNS["tq9"]), -1),
+                     RKC_RUNS["plain9"][4][0].reshape(
+                         len(RKC_RUNS["tq9"]), -1),
+                     RKC_RUNS["f64"].y_eval)}
+    for label, (kr, pr, rows64) in f64_rows.items():
+        d64 = (kr.double() - rows64).abs().max().item()
+        d_pl = (pr.double() - rows64).abs().max().item()
+        print(f"t_eval [{label}] vs the f64 driver's t_eval rows: max "
+              f"|dy_eval| {d64:.3e} (gate {TA_F64_GATES[label]:.1e}); the "
+              f"plain version's {d_pl:.3e}")
+        check(d64 <= TA_F64_GATES[label], f"{label}: y_eval off f64")
+
+    # B3's dense=R launch on the cut span beside the points: the outputs and
+    # rows bit for bit the cut-span launch's, sol(t_eval) against y_eval
+    cut = (SWAG_SPAN[0], SWAG_T_CUT)
+    kc = SWAG_RUNS["kernel"]
+    # the record's rows count attempts, each at least one evaluation
+    rows_r = int(kc[3].max()) + 8
+    dense = ops.solve_fused_adams(R["bench"], cut, SWAG_RUNS["y0"],
+                                  t_eval=SWAG_RUNS["tq"], dense=rows_r,
+                                  compensated=True, **SWAG_TOL)
+    check(_same(dense[:5], kc), "vdp256 cut span: the record changed the "
+          "outputs or y_eval")
+    sol = dense[5]
+    check(bool(sol.valid.all()), f"vdp256 dense: {rows_r} rows too few")
+    at = sol(torch.tensor(SWAG_RUNS["tq"], device="cuda")).permute(2, 0, 1)
+    d_sol = (at - dense[4]).abs().max().item()
+    print(f"t_eval vdp256 cut span with dense={rows_r}: outputs and y_eval "
+          f"bit for bit the launch without the record; sol(t_eval) vs "
+          f"y_eval max |d| {d_sol:.3e} (gate {TA_DENSE_GATE:.1e})")
+    check(d_sol <= TA_DENSE_GATE, "vdp256: sol(t_eval) off y_eval")
+
+    # the pending index on a small B10 check: points out of order and a
+    # NaN point, one overflowing member, at the wrapper's cluster size and
+    # in the one-block body, against the plain version
+    y10 = torch.tensor(ens_y0(8, 32, 128), device="cuda")
+    y10[:, 0] += torch.linspace(0.0, 0.2, 8, device="cuda")[:, None, None]
+    y10[5] *= 1e30                      # this member overflows
+    p10 = torch.linspace(2.8, 3.5, 8, device="cuda")[:, None]
+    rho10 = 8.0 * 0.02 * 128**2 + 5.5
+    tq_p = np.array(TA_PENDING_POINTS, np.float32)
+    kp = FR._launch_ensemble(R["b10_small"], (0.0, 1.0), y10, rho10, p10,
+                             None, t_eval=tq_p, **RKC_TOL)[0]
+    kb = FR._launch_ensemble(R["b10_small"], (0.0, 1.0), y10, rho10, p10, 1,
+                             t_eval=tq_p, **RKC_TOL)[0]
+    rp = ops.fused_rkc_reference(R["b10_small"], (0.0, 1.0), y10, rho10,
+                                 params=p10, t_eval=tq_p, **RKC_TOL)
+    nan_at = int(np.flatnonzero(np.isnan(tq_p))[0])
+    ok = rp[1] == 1
+    for what, k in (("clusters", kp), ("one block a member", kb)):
+        check(torch.equal(k[1], rp[1]) and int(k[1][5]) == 3
+              and int(ok.sum()) == 7, f"pending check ({what}): status")
+        d_in = (k[5][ok][:, :3] - rp[4][ok][:, :3]).abs().max().item()
+        d_behind = (k[5][ok][:, 3] - rp[4][ok][:, 3]).abs().max().item()
+        after = all(torch.equal(k[5][:, q], k[0]) for q in
+                    range(nan_at, len(tq_p)))
+        first = torch.equal(k[5][:, 0], y10)
+        print(f"t_eval pending index [B10, 8 x 2x32x128, {what}]: points "
+              f"{TA_PENDING_POINTS}; in order max |dy_eval| {d_in:.3e} "
+              f"(gate {TA_PENDING_GATES[0]:.0e}), the point behind "
+              f"{d_behind:.3e} (gate {TA_PENDING_GATES[1]:.0e}); t0's rows "
+              f"y0 {first}, from the NaN point on the final y {after}; the "
+              f"overflowing member's rows the plain version's "
+              f"{torch.equal(k[5][5], rp[4][5])}")
+        check(d_in <= TA_PENDING_GATES[0] and d_behind <= TA_PENDING_GATES[1]
+              and first and after and torch.equal(k[5][5], rp[4][5]),
+              f"pending check ({what}): rows")
+
+    # B1's and B11's snapshot builds from Watts' start
+    watts = watts_start_probe(R)
+
+    # readings: each line's wall through the wrapper, its launch alone with
+    # and without t_eval, the rows' bytes, the bound
+    out_keys = {}
+    per_eval = OPS_PER_ELEMENT_EVAL["fused_rkc"]
+    _, s0, _ = _host_init(R["bench"].torch_fn, SWAG_SPAN, SWAG_RUNS["y0"].T,
+                          SWAG_TOL["rtol"], SWAG_TOL["atol"], None,
+                          SWAG_TOL["k_max"], None)
+    _, hs0, _ = _host_init(R["heat"].torch_fn, HEAT_SPAN,
+                           HEAT_RUNS["y0"].T, HEAT_TOL["rtol"],
+                           HEAT_TOL["atol"], None, HEAT_TOL["k_max"], None)
+    plain_ms = {"vdp256": SWAG_RUNS["plain_ms"],
+                "heat256x32": HEAT_RUNS["plain_ms"],
+                "brus131k": RKC_RUNS["plain9_ms"],
+                "brus64 bound": RKC_RUNS["plain10_ms"],
+                "brus64 power": RKC_RUNS["plain10p_ms"]}
+    err_keys = {"vdp256": "vdp256 cut span"}
+    for label, kind, fun, kw, y0, span, tq in lines:
+        out = runs[label]
+        ms = wall_ms(lambda: line(kind, fun, kw, y0, span, tq))
+        kw_l = {k: v for k, v in kw.items() if k != "block_members"}
+        if kind.startswith("fused_adams"):
+            if kind == "fused_adams":
+                on_b, off_b = (FA._kernel(fun, kw["k_max"], False, True),
+                               FA._kernel(fun, kw["k_max"]))
+                shape = swag_shape
+            else:
+                on_b, off_b = (FAG._kernel(fun, kw["k_max"], False, True),
+                               FAG._kernel(fun, kw["k_max"]))
+                shape = None
+            # B3's launch takes ~0.1 s, which no enqueue cost blurs: one
+            # launch an event window
+            reps = 1 if kind == "fused_adams" else 10
+            on_ms = adams_launch_ms(kind, on_b, fun, y0, None, span, kw_l,
+                                    shape, 0, reps, tq)[0]
+            off_ms = adams_launch_ms(kind, off_b, fun, y0, None, span, kw_l,
+                                     shape, 0, reps)[0]
+        else:
+            s = (ops.solve_fused_rkc.last_shape[1] if kind == "fused_rkc"
+                 else ops.solve_fused_rkc_ensemble.cluster)
+            on_ms = event_ms(lambda: teval_adams_rkc_launch(
+                kind, fun, y0, span, kw_l, tq, s))
+            off_ms = event_ms(lambda: teval_adams_rkc_launch(
+                kind, fun, y0, span, kw_l, None, s))
+        nb = 1 if kind == "fused_rkc" else y0.shape[0]
+        width = y0[0].numel() if kind != "fused_rkc" else y0.numel()
+        snap_bytes = len(tq) * nb * width * 4
+        nfev = int(out[3].sum())
+        if kind == "fused_adams":
+            by = SWAG_N * (2 * 4 * 3 + 4 * 5)
+            ops_ = adams_ops(2, RHS_OPS["vdp"], True, swag_work,
+                             nfev - int(s0.nfev.sum()))
+        elif kind == "fused_adams_grid":
+            by = HEAT_M * (HEAT_N * 4 * 3 + 4 * 5)
+            ops_ = adams_grid_ops(HEAT_N, 6, RHS_OPS["heat"], nfev,
+                                  int(out[2].sum()), int(hs0.nfev.sum()))
+        elif kind == "fused_rkc":
+            by = 2 * 4 * width
+            ops_ = per_eval * width * nfev
+        else:
+            by = 2 * 4 * width * nb + 4 * 4 * nb
+            evals = nfev + (int(out[4].sum()) if kw["rho"] is None else 0)
+            ops_ = per_eval * width * evals
+        bound = bound_entry(by + snap_bytes, ops_)
+        print(f"time [t_eval {label}, {nb} members, {len(tq)} points]: "
+              f"{ms:.3f} ms wall through the wrapper; the launch alone "
+              f"{on_ms:.4f} ms device with t_eval, {off_ms:.4f} ms without "
+              f"(CUDA events, the same shape); rows {snap_bytes} bytes; "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+              f"plain version {plain_ms[label]:.1f} ms wall")
+        suffix = "_teval_power" if label.endswith("power") else "_teval"
+        entry = out_keys.setdefault(kind, {})
+        entry.update({
+            "max_abs_err" + suffix: errs[err_keys.get(label, label)][0],
+            "max_abs_err_y_eval" + suffix: errs[err_keys.get(label,
+                                                              label)][1],
+            "ms" + suffix: ms, "device_ms" + suffix: on_ms,
+            "device_ms_no_teval" + suffix: off_ms,
+            "plain_ms" + suffix: plain_ms[label],
+            "bound_ms" + suffix: bound["bound_ms"],
+            "bound_by" + suffix: bound["bound_by"],
+            "library_ms" + suffix: None,
+            "bit_for_bit_shapes" + suffix: [str(s) for s in
+                                            same_all[label]]})
+    for kind in out_keys:
+        out_keys[kind]["launches_teval"] = launches.get("solve_" + kind, 0)
+    out_keys["fused_adams"]["f64_ms_teval"] = SWAG_RUNS["f64_ms"]
+    out_keys["fused_adams_grid"]["f64_ms_teval"] = HEAT_RUNS["f64_ms"]
+    out_keys["fused_rkc"]["f64_ms_teval"] = RKC_RUNS["f64_ms"]
+    out_keys["fused_adams"]["max_abs_err_sol_teval"] = d_sol
+    for kind, same in watts.items():
+        out_keys[kind] = {"watts_powf_bit_for_bit_teval":
+                          {str(g): v for g, v in same.items()}}
+    print(f"t_eval SWAG and RKC phase: {time.perf_counter() - start:.1f} s")
+    return out_keys
+
+
 HOST_GATE = 1e-9
 HOST_GATES = {"pleiades-cfmr7osc": 1e-6, "kepler-fi5n": 1e-8,
               "swdec-ckdisc": 1e-8}
@@ -6759,7 +7340,8 @@ def main():
               + adjoint_routes_builds(adjoint_routes_rhs())
               + adams_routes_builds(adams_routes_rhs())
               + teval_builds(teval_rhs())
-              + teval_routes_builds(teval_routes_rhs()))
+              + teval_routes_builds(teval_routes_rhs())
+              + teval_adams_rkc_builds(teval_adams_rkc_rhs()))
 
     # 3. the kernel against its plain version, on the card
     def compare(label, rhs, span, y0, y_gate, **kw):
@@ -6988,6 +7570,13 @@ def main():
         entry.update(teval_routes.get(entry["name"], {}))
     esdirk.update(teval_routes["fused_esdirk"])
 
+    # 11h. the t_eval snapshots on B3, B8, B9 and B10, and the Watts-start
+    # probe of B1's and B11's snapshot builds
+    teval_ar = teval_adams_rkc_path()
+    for entry in rkc + mid + ck:
+        entry.update(teval_ar.get(entry["name"], {}))
+    adams.update(teval_ar["fused_adams"])
+
     # 12. the host driver (solve_ivp, the Stepper), the sensitivities and
     # the front door ops.solve_fused over every kernel
     door = host_path(smi, VDP)
@@ -7013,7 +7602,8 @@ def main():
         "block_members_compensated": comp_shape[1],
     }, **bound_entry(N_MEMBERS * (2 * 4 * 2 + 4 * 3),
                      int(plain[3].sum()) * OPS_PER_EVAL["fused_erk"]),
-        **sens_erk, **adj_erk, **teval["fused_erk"]),
+        **sens_erk, **adj_erk, **teval["fused_erk"],
+        **teval_ar["fused_erk"]),
         dict(esdirk, **sens_esdirk), adams]
         + rkc + rkn + ck + mid)
     for k in kernels:

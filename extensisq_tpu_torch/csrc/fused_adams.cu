@@ -57,6 +57,20 @@
 // dense output (the record build launches a kernel of its own,
 // fused_adams_record_kernel).
 //
+// t_eval snapshots (ops/fused_adams.py): a build whose header sets
+// tab::SNAP writes each point's row (snapshot.cuh) as the member crosses
+// it, as the JAX kernel does (fused_adams.py:655-681): at an accepted step
+// the cubic Hermite of the step's end pairs (y, y') and (y_c, f(y_c)), and
+// at the near-end extrapolation JAX's straight line y + (tq - t) y' for
+// the points up to tf; t and y are the high words in compensated mode, and
+// both are read before they are overwritten.  The member's cursor into
+// the sorted points sits in registers, and a step's crossed points are
+// split over the group's lanes (snapshot.cuh: snap_step, snap_line);
+// points at or before t0 take y0, the points left at the end the final y,
+// rank 0 writing those.  The four outputs are those of the build without
+// it; the snapshot build launches a kernel of its own
+// (fused_adams_snap_kernel, with the record where the build has both).
+//
 // Work counters: lane 0 writes five per member (Out::work): the attempts,
 // and over the attempts the sums of the order k (the predictor's rows),
 // of k where the step was accepted (the phi update's rows), of the
@@ -79,8 +93,8 @@
 //
 // The order, the state size, the Adams constants and the user's right-hand
 // side come from the generated header fused_adams_config.cuh:
-//   namespace tab { KM, N, NPAR, REC, INV_N, FOURU_T, LAND_TOL, GSTR(i),
-//                   IQQ(i), TWO(i) }
+//   namespace tab { KM, N, NPAR, REC, SNAP, INV_N, FOURU_T, LAND_TOL,
+//                   GSTR(i), IQQ(i), TWO(i) }
 //   __device__ void rhs(float t, const float* y, float* dy);  (or the
 //   template rhs<T>, instantiated here as rhs<float>; with NPAR = K > 0
 //   rhs(float t, const float* y, float* dy, const float* p), p the
@@ -113,6 +127,7 @@
 #include "adams_common.cuh"
 #include "member_rhs.cuh"
 #include "rk_common.cuh"
+#include "snapshot.cuh"
 
 namespace {
 
@@ -121,6 +136,7 @@ using tab::N;
 using adams::clip;
 using adams::slots;
 using rk::Rec;
+using rk::Snap;
 using Rhs = MemberRhs<tab::NPAR>;
 
 constexpr int kRunning = 0;
@@ -225,11 +241,20 @@ __device__ __forceinline__ void write_member(const Out& out, int member,
   o[4] = w.steps;
 }
 
-// The record of a body called with one (a build with tab::REC); a build
-// without it calls the bodies with none, so that its kernels take,
-// construct and pass nothing for it.
-__device__ __forceinline__ const Rec& the_record(const Rec& rec) {
+// The record of a body called with one (a build with tab::REC, or with
+// tab::SNAP: the record and the snapshots); a build without either calls
+// the bodies with none, so that its kernels take, construct and pass
+// nothing for them.
+template <class... More>
+__device__ __forceinline__ const Rec& the_record(const Rec& rec,
+                                                 const More&...) {
   return rec;
+}
+
+// The t_eval rows of a body called with them (a build with tab::SNAP).
+__device__ __forceinline__ const Snap& the_snap(const Rec&,
+                                                const Snap& snap) {
+  return snap;
 }
 
 // Row `step` of the member's record: the step's end t, y and f.
@@ -335,6 +360,13 @@ __device__ void integrate_thread(const float* __restrict__ y0,
   if constexpr (tab::REC) {
     record_f0(the_record(record...), member, yp);
   }
+  // the next sorted t_eval point (tab::SNAP): those at or before t0 take y0
+  rk::Cursor cur;
+  if constexpr (tab::SNAP) {
+    const Snap& snap = the_snap(record...);
+    cur = rk::cursor_at(snap, snap.past(0, L.dir, t));
+    rk::snap_fill(snap, 0, cur.q, member, y);
+  }
 
   while (status == kRunning && it < L.max_steps) {
     const float tc = t + t_lo;  // double-single time carry
@@ -343,7 +375,11 @@ __device__ void integrate_thread(const float* __restrict__ y0,
     it += 1;
     if (fabsf(d) <= min_step) {
       // near-end linear extrapolation (shampine.py:209-217); counts as a
-      // step, evaluates nothing
+      // step, evaluates nothing; the points up to tf take its straight line
+      if constexpr (tab::SNAP) {
+        cur = rk::snap_line<N, 1>(the_snap(record...), cur, member, 0, L.dir,
+                                  t, L.tf, y, yp);
+      }
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         if constexpr (COMP) {
@@ -544,6 +580,12 @@ __device__ void integrate_thread(const float* __restrict__ y0,
       rk::df_add(t, t_lo, h_in, t_adv, t_lo_adv);
       const float rem = (L.tf - t_adv) - t_lo_adv;
       const bool is_last = fabsf(rem) <= tab::LAND_TOL * fabsf(h_in);
+      // the points this step crosses, from its end pairs
+      if constexpr (tab::SNAP) {
+        cur = rk::snap_step<N, 1>(the_snap(record...), cur, member, 0, L.dir,
+                                  t, is_last ? L.tf : t_adv, h_in, y, yp,
+                                  yc, ypn);
+      }
       t = is_last ? L.tf : t_adv;
       t_lo = is_last ? 0.0f : t_lo_adv;
 #pragma unroll
@@ -608,6 +650,11 @@ __device__ void integrate_thread(const float* __restrict__ y0,
 
   write_member(out, member, y, status, nsteps, nfev, work);
   if constexpr (tab::REC) the_record(record...).n[member] = nrec;
+  // the points the member never reached take its final y
+  if constexpr (tab::SNAP) {
+    const Snap& snap = the_snap(record...);
+    rk::snap_fill(snap, cur.q, snap.nq, member, y);
+  }
 }
 
 // ---- a group of G lanes per member ----
@@ -646,8 +693,9 @@ __device__ __forceinline__ void row_put(Group& grp, float (&phi)[RS][N],
 // (rank(), shfl(v, src)).  y0, yp0 are the member's initial state and
 // f(t0, y0), par its tab::NPAR parameters (unread when there are none),
 // h0 and nfev0 its starting step and evaluation count from the float32
-// stepper's init, as in the JAX package.  Lane 0 writes the results, and
-// with tab::REC the member's record (the one Rec of `record`).
+// stepper's init, as in the JAX package.  Lane 0 writes the results, with
+// tab::REC the member's record (the Rec of `record`) and with tab::SNAP
+// its t_eval rows (the Snap after it).
 template <int G, bool COMP, class Group, class... Record>
 __device__ void integrate(Group& grp, const float* __restrict__ y0,
                           const float* __restrict__ yp0,
@@ -719,6 +767,13 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
   if constexpr (tab::REC) {
     if (rank == 0) record_f0(the_record(record...), member, yp);
   }
+  // the next sorted t_eval point (tab::SNAP): those at or before t0 take y0
+  rk::Cursor cur;
+  if constexpr (tab::SNAP) {
+    const Snap& snap = the_snap(record...);
+    cur = rk::cursor_at(snap, snap.past(0, L.dir, t));
+    if (rank == 0) rk::snap_fill(snap, 0, cur.q, member, y);
+  }
 
   while (status == kRunning && it < L.max_steps) {
     const float tc = t + t_lo;  // double-single time carry
@@ -727,7 +782,11 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
     it += 1;
     if (fabsf(d) <= min_step) {
       // near-end linear extrapolation (shampine.py:209-217); counts as a
-      // step, evaluates nothing
+      // step, evaluates nothing; the points up to tf take its straight line
+      if constexpr (tab::SNAP) {
+        cur = rk::snap_line<N, G>(the_snap(record...), cur, member, rank,
+                                  L.dir, t, L.tf, y, yp);
+      }
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         if constexpr (COMP) {
@@ -955,6 +1014,12 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
       rk::df_add(t, t_lo, h_in, t_adv, t_lo_adv);
       const float rem = (L.tf - t_adv) - t_lo_adv;
       const bool is_last = fabsf(rem) <= tab::LAND_TOL * fabsf(h_in);
+      // the points this step crosses, from its end pairs
+      if constexpr (tab::SNAP) {
+        cur = rk::snap_step<N, G>(the_snap(record...), cur, member, rank,
+                                  L.dir, t, is_last ? L.tf : t_adv, h_in, y,
+                                  yp, yc, ypn);
+      }
       t = is_last ? L.tf : t_adv;
       t_lo = is_last ? 0.0f : t_lo_adv;
 #pragma unroll
@@ -1028,6 +1093,11 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
   if (rank == 0) {
     write_member(out, member, y, status, nsteps, nfev, work);
     if constexpr (tab::REC) the_record(record...).n[member] = nrec;
+    // the points the member never reached take its final y
+    if constexpr (tab::SNAP) {
+      const Snap& snap = the_snap(record...);
+      rk::snap_fill(snap, cur.q, snap.nq, member, y);
+    }
   }
 }
 
@@ -1039,7 +1109,7 @@ __device__ void integrate(Group& grp, const float* __restrict__ y0,
 namespace {
 
 // The member of this thread's group from the kernel's arguments, with the
-// record where a build has one.
+// record and the snapshots where a build has them.
 template <int G, bool COMP, class... Record>
 __device__ __forceinline__ void member_body(const float* __restrict__ y0,
                                             const float* __restrict__ par,
@@ -1090,14 +1160,36 @@ __global__ void fused_adams_record_kernel(const float* __restrict__ y0,
                        rec);
 }
 
+// The kernel of a build with the t_eval snapshots (tab::SNAP), which takes
+// the record (null with rows 0 where the build has none) and the rows.
+template <int G, bool COMP>
+__global__ void fused_adams_snap_kernel(const float* __restrict__ y0,
+                                        const float* __restrict__ par,
+                                        const float* __restrict__ yp0,
+                                        const float* __restrict__ h0,
+                                        const int* __restrict__ nfev0,
+                                        Out out, int B, int block_members,
+                                        Launch L, Rec rec, Snap snap) {
+  member_body<G, COMP>(y0, par, yp0, h0, nfev0, out, B, block_members, L,
+                       rec, snap);
+}
+
 template <int G>
 int launch(const float* y0, const float* par, const float* yp0,
            const float* h0, const int* nfev0, const Out& out, int B,
            const Launch& L, int compensated, int block_members,
-           const Rec& rec, cudaStream_t s) {
+           const Rec& rec, const Snap& snap, cudaStream_t s) {
   const int blocks = (B + block_members - 1) / block_members;
   const int threads = block_members * G;
-  if constexpr (tab::REC) {
+  if constexpr (tab::SNAP) {
+    if (compensated) {
+      fused_adams_snap_kernel<G, true><<<blocks, threads, 0, s>>>(
+          y0, par, yp0, h0, nfev0, out, B, block_members, L, rec, snap);
+    } else {
+      fused_adams_snap_kernel<G, false><<<blocks, threads, 0, s>>>(
+          y0, par, yp0, h0, nfev0, out, B, block_members, L, rec, snap);
+    }
+  } else if constexpr (tab::REC) {
     if (compensated) {
       fused_adams_record_kernel<G, true><<<blocks, threads, 0, s>>>(
           y0, par, yp0, h0, nfev0, out, B, block_members, L, rec);
@@ -1128,7 +1220,8 @@ static int launch_lanes(const void* y0, const void* params, const void* yp0,
                         const void* h0, const void* nfev0, void* y_out,
                         void* status, void* nstep, void* nfev, void* work,
                         int B, const Launch& L, int compensated, int lanes,
-                        int block_members, const Rec& rec, void* stream) {
+                        int block_members, const Rec& rec, const Snap& snap,
+                        void* stream) {
   const float* y0f = static_cast<const float*>(y0);
   const float* par = static_cast<const float*>(params);
   const float* yp0f = static_cast<const float*>(yp0);
@@ -1141,23 +1234,24 @@ static int launch_lanes(const void* y0, const void* params, const void* yp0,
   switch (lanes) {
     case 1:
       return launch<1>(y0f, par, yp0f, h0f, nf0, out, B, L, compensated,
-                       block_members, rec, s);
+                       block_members, rec, snap, s);
     case 8:
       return launch<8>(y0f, par, yp0f, h0f, nf0, out, B, L, compensated,
-                       block_members, rec, s);
+                       block_members, rec, snap, s);
     case 16:
       return launch<16>(y0f, par, yp0f, h0f, nf0, out, B, L, compensated,
-                        block_members, rec, s);
+                        block_members, rec, snap, s);
     case 32:
       return launch<32>(y0f, par, yp0f, h0f, nf0, out, B, L, compensated,
-                        block_members, rec, s);
+                        block_members, rec, snap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The launch of a build without dense output (cudaErrorInvalidValue for a
-// build with it: that one takes fused_adams_record_launch).
+// The launch of a build without dense output or snapshots
+// (cudaErrorInvalidValue for a build with either: those take
+// fused_adams_record_launch and fused_adams_snap_launch).
 extern "C" int fused_adams_launch(const void* y0, const void* params,
                                   const void* yp0, const void* h0,
                                   const void* nfev0, void* y_out,
@@ -1167,18 +1261,18 @@ extern "C" int fused_adams_launch(const void* y0, const void* params,
                                   float max_step, int max_steps,
                                   int compensated, int lanes,
                                   int block_members, void* stream) {
-  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
+  if (tab::REC || tab::SNAP) return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
   return launch_lanes(y0, params, yp0, h0, nfev0, y_out, status, nstep, nfev,
                       work, B, L, compensated, lanes, block_members, Rec{},
-                      stream);
+                      Snap{}, stream);
 }
 
 // The launch of a build with dense output (tab::REC): as
 // fused_adams_launch, and each member writes its record (dense_record.cuh)
 // to rec_t (B, rows), rec_y and rec_f (B, rows, N), rec_f0 (B, N) and
-// rec_n (B,) int32.  cudaErrorInvalidValue for a build without it or
-// rows < 1.
+// rec_n (B,) int32.  cudaErrorInvalidValue for a build without it, one
+// with snapshots or rows < 1.
 extern "C" int fused_adams_record_launch(
     const void* y0, const void* params, const void* yp0, const void* h0,
     const void* nfev0, void* y_out, void* status, void* nstep, void* nfev,
@@ -1186,12 +1280,43 @@ extern "C" int fused_adams_record_launch(
     float max_step, int max_steps, int compensated, int lanes,
     int block_members, void* rec_t, void* rec_y, void* rec_f, void* rec_f0,
     void* rec_n, int rows, void* stream) {
-  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tab::REC || tab::SNAP || rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
   const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
                 static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
                 static_cast<int*>(rec_n), rows};
   return launch_lanes(y0, params, yp0, h0, nfev0, y_out, status, nstep, nfev,
                       work, B, L, compensated, lanes, block_members, rec,
-                      stream);
+                      Snap{}, stream);
+}
+
+// The launch of a build with snapshots (tab::SNAP): as
+// fused_adams_record_launch, the record's arguments null with rows 0 for a
+// build without it, and each member writes the rows (snapshot.cuh) of the
+// nq points tq (float32, sorted in the direction of integration) at their
+// indices idx (int32) in t_eval to y_eval (nq, B, N).
+// cudaErrorInvalidValue for a build without tab::SNAP, nq < 1, or rows
+// that disagree with tab::REC.
+extern "C" int fused_adams_snap_launch(
+    const void* y0, const void* params, const void* yp0, const void* h0,
+    const void* nfev0, void* y_out, void* status, void* nstep, void* nfev,
+    void* work, int B, float t0, float tf, float dir, float rtol, float atol,
+    float max_step, int max_steps, int compensated, int lanes,
+    int block_members, void* rec_t, void* rec_y, void* rec_f, void* rec_f0,
+    void* rec_n, int rows, const void* tq, const void* idx, void* y_eval,
+    int nq, void* stream) {
+  if (!tab::SNAP || nq < 1 || (rows > 0) != tab::REC || rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  const Snap snap{static_cast<const float*>(tq), static_cast<const int*>(idx),
+                  static_cast<float*>(y_eval), nq, B};
+  return launch_lanes(y0, params, yp0, h0, nfev0, y_out, status, nstep, nfev,
+                      work, B, L, compensated, lanes, block_members, rec,
+                      snap, stream);
 }

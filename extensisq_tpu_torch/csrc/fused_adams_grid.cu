@@ -59,9 +59,22 @@
 // record and the kernel is that of the build before dense output (the
 // record build launches a kernel of its own, fused_adams_grid_record_kernel).
 //
+// t_eval snapshots (ops/fused_adams_grid.py): a build whose header sets
+// tab::SNAP writes each point's row (snapshot.cuh) as the member crosses
+// it, as the JAX kernel does (fused_adams_grid.py:601-621): at an accepted
+// step the cubic Hermite of the step's end pairs (y, y') and (y_c, f(y_c)),
+// at the near-end extrapolation JAX's straight line y + (tq - t) y' for the
+// points up to tf, each read before y and y' are overwritten.  Every
+// thread holds the member's cursor into the sorted points and writes its
+// own elements of each row; points at or before t0 take y0, the points
+// left at the end the final y.  The four outputs are those of the build
+// without it; the snapshot build launches a kernel of its own
+// (fused_adams_grid_snap_kernel, with the record where the build has
+// both).
+//
 // The generated header fused_adams_grid_config.cuh provides
-//   namespace tab { G = grid::Grid<N>, KM, N, NPAR, REC, INV_N, FOURU_T,
-//                   LAND_TOL, GSTR(i), IQQ(i), TWO(i) }
+//   namespace tab { G = grid::Grid<N>, KM, N, NPAR, REC, SNAP, INV_N,
+//                   FOURU_T, LAND_TOL, GSTR(i), IQQ(i), TWO(i) }
 //   __device__ float rhs(float t, const float* y, int i, const float* p);
 // (or the template rhs<T>, called here on floats); neighbours come from
 // tab::G::rolled.
@@ -84,6 +97,7 @@
 #include "fused_adams_grid_config.cuh"
 #include "adams_common.cuh"
 #include "rk_common.cuh"
+#include "snapshot.cuh"
 
 namespace {
 
@@ -91,6 +105,7 @@ using tab::KM;
 using tab::N;
 using adams::clip;
 using rk::Rec;
+using rk::Snap;
 
 constexpr int kRunning = 0;
 constexpr int kFinished = 1;
@@ -157,11 +172,20 @@ __device__ __forceinline__ float member_norm(float sum) {
   return sqrtf(sum * tab::INV_N);
 }
 
-// The record of a body called with one (a build with tab::REC); a build
-// without it calls the body with none, so that its kernel takes,
-// constructs and passes nothing for it.
-__device__ __forceinline__ const Rec& the_record(const Rec& rec) {
+// The record of a body called with one (a build with tab::REC, or with
+// tab::SNAP: the record and the snapshots); a build without either calls
+// the body with none, so that its kernel takes, constructs and passes
+// nothing for them.
+template <class... More>
+__device__ __forceinline__ const Rec& the_record(const Rec& rec,
+                                                 const More&...) {
   return rec;
+}
+
+// The t_eval rows of a body called with them (a build with tab::SNAP).
+__device__ __forceinline__ const Snap& the_snap(const Rec&,
+                                                const Snap& snap) {
+  return snap;
 }
 
 // Row `step` of the member's record and whether the member writes it: while
@@ -172,8 +196,9 @@ struct RowAt {
   size_t row;
 };
 __device__ __forceinline__ RowAt row_at(int, int, int) { return {false, 0}; }
+template <class... More>
 __device__ __forceinline__ RowAt row_at(int member, int step, int it,
-                                        const Rec& rec) {
+                                        const Rec& rec, const More&...) {
   return {it <= rec.rows, rec.row(member, step)};
 }
 
@@ -186,7 +211,8 @@ __device__ __forceinline__ RowAt row_at(int member, int step, int it,
 // y0), params every member's tab::NPAR parameters (unread when there are
 // none), h0 and nfev0 its starting step and evaluation count from the
 // float32 stepper's init, as in the JAX package; with tab::REC the
-// member's record is the one Rec of `record`.
+// member's record is the Rec of `record`, and with tab::SNAP its t_eval
+// rows the Snap after it.
 template <int W, class Group, class Lanes, class... Record>
 __device__ void integrate(Group& g, Lanes& lanes, float* sm,
                           const float* __restrict__ y0,
@@ -218,8 +244,16 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
       sm[kPar + q] = params[static_cast<size_t>(member) * tab::NPAR + q];
     }
   }
+  // the next sorted t_eval point (tab::SNAP): the rows of those at or
+  // before t0 get the thread's elements of y0
+  int q = 0;
+  if constexpr (tab::SNAP) q = the_snap(record...).past(0, L.dir, L.t0);
   float bad[1] = {0.0f};
   for (int i = r0; i < N; i += nt) {
+    if constexpr (tab::SNAP) {
+      const Snap& snap = the_snap(record...);
+      for (int p = 0; p < q; ++p) snap.row(p, member, N)[i] = y0[i];
+    }
     Y[i] = y0[i];
     Yp[i] = yp0[i];
     phi[i] = Yp[i];
@@ -277,7 +311,19 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
       // near-end linear extrapolation; counts as a step, evaluates nothing;
       // a node of the record at tf with the f of the step before
       const RowAt at = row_at(member, nsteps, it, record...);
+      // the points up to tf take the extrapolation's straight line
+      int q_end = 0;
+      if constexpr (tab::SNAP) {
+        q_end = the_snap(record...).past(q, L.dir, L.tf);
+      }
       for (int i = r0; i < N; i += nt) {
+        if constexpr (tab::SNAP) {
+          const Snap& snap = the_snap(record...);
+          for (int p = q; p < q_end; ++p) {
+            snap.row(p, member, N)[i] =
+                rk::line_row(snap.tq[p], t, Y[i], Yp[i]);
+          }
+        }
         Y[i] = Y[i] + d * Yp[i];
         if constexpr (tab::REC) {
           if (at.write) {
@@ -294,6 +340,7 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
           nrec += 1;
         }
       }
+      if constexpr (tab::SNAP) q = q_end;
       nsteps += 1;
       status = kFinished;
       break;
@@ -463,11 +510,25 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
       rk::df_add(t, t_lo, h_in, t_adv, t_lo_adv);
       const float rem = (L.tf - t_adv) - t_lo_adv;
       const bool is_last = fabsf(rem) <= tab::LAND_TOL * fabsf(h_in);
+      // the t_eval points the step crosses, from the step's start
+      const float t_step = t;
+      int q_end = 0;
+      if constexpr (tab::SNAP) {
+        q_end = the_snap(record...).past(q, L.dir, is_last ? L.tf : t_adv);
+      }
       t = is_last ? L.tf : t_adv;
       t_lo = is_last ? 0.0f : t_lo_adv;
       // the step's end at row nsteps of the record
       const RowAt at = row_at(member, nsteps, it, record...);
       for (int i = r0; i < N; i += nt) {
+        if constexpr (tab::SNAP) {
+          const Snap& snap = the_snap(record...);
+          for (int p = q; p < q_end; ++p) {
+            snap.row(p, member, N)[i] =
+                rk::hermite(snap.theta(p, t_step, h_in), h_in, Y[i], Yp[i],
+                            Yc[i], Fc[i]);
+          }
+        }
         Y[i] = Yc[i];
         Yp[i] = Fc[i];
         if constexpr (tab::REC) {
@@ -492,6 +553,7 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
       phase1 = ph1;
       fresh = true;
       ifail = 0;
+      if constexpr (tab::SNAP) q = q_end;
       nsteps += 1;
       if (is_last) status = kFinished;
     } else {
@@ -533,6 +595,11 @@ __device__ void integrate(Group& g, Lanes& lanes, float* sm,
   g.sync();
   for (int i = r0; i < N; i += nt) {
     out.y[static_cast<size_t>(member) * N + i] = Y[i];
+    // the points the member never reached take its final y
+    if constexpr (tab::SNAP) {
+      const Snap& snap = the_snap(record...);
+      for (int p = q; p < snap.nq; ++p) snap.row(p, member, N)[i] = Y[i];
+    }
   }
   if (r0 == 0) {
     out.status[member] = status;
@@ -554,7 +621,7 @@ namespace {
 constexpr int kMaxSums = 3;
 
 // The member of this block from the kernel's arguments, with the record
-// where a build has one.
+// and the snapshots where a build has them.
 template <class... Record>
 __device__ __forceinline__ void member_body(const float* __restrict__ y0,
                                             const float* __restrict__ yp0,
@@ -573,8 +640,9 @@ __device__ __forceinline__ void member_body(const float* __restrict__ y0,
                 m, out, record...);
 }
 
-// The kernel of a build without the dense record; a build with it
-// instantiates only fused_adams_grid_record_kernel.
+// The kernel of a build without the dense record or the snapshots; a build
+// with either instantiates only fused_adams_grid_record_kernel or
+// fused_adams_grid_snap_kernel.
 template <int = 0>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_adams_grid_kernel(const float* __restrict__ y0,
@@ -586,8 +654,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   member_body(y0, yp0, h0, nfev0, par, L, out);
 }
 
-// The kernel of a build with the dense record (tab::REC), which takes the
-// record; a build without it instantiates only fused_adams_grid_kernel.
+// The kernel of a build with the dense record (tab::REC) and without the
+// snapshots, which takes the record.
 template <int = 0>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_adams_grid_record_kernel(const float* __restrict__ y0,
@@ -597,6 +665,19 @@ __global__ void __launch_bounds__(kMaxThreads)
                                    const float* __restrict__ par, Launch L,
                                    Out out, Rec rec) {
   member_body(y0, yp0, h0, nfev0, par, L, out, rec);
+}
+
+// The kernel of a build with the t_eval snapshots (tab::SNAP), which takes
+// the record (null with rows 0 where the build has none) and the rows.
+template <int = 0>
+__global__ void __launch_bounds__(kMaxThreads)
+    fused_adams_grid_snap_kernel(const float* __restrict__ y0,
+                                 const float* __restrict__ yp0,
+                                 const float* __restrict__ h0,
+                                 const int* __restrict__ nfev0,
+                                 const float* __restrict__ par, Launch L,
+                                 Out out, Rec rec, Snap snap) {
+  member_body(y0, yp0, h0, nfev0, par, L, out, rec, snap);
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only
@@ -609,15 +690,21 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }
 
 // One block of `threads` per member on `st`, with the member's rows as
-// dynamic shared memory; the record kernel where RECORD (tab::REC: a
-// build instantiates one of the two).
-template <bool RECORD>
+// dynamic shared memory; the snapshot kernel where SNAP (tab::SNAP), else
+// the record kernel where RECORD (tab::REC): a build instantiates one of
+// the three.
+template <bool SNAP, bool RECORD>
 int launch(int members, int threads, cudaStream_t st, const float* y0,
            const float* yp0, const float* h0, const int* nfev0,
            const float* par, const Launch& L, const Out& out,
-           const Rec& rec) {
+           const Rec& rec, const Snap& snap) {
   const int bytes = static_cast<int>(kFloats * sizeof(float));
-  if constexpr (RECORD) {
+  if constexpr (SNAP) {
+    const cudaError_t e = allow_smem(fused_adams_grid_snap_kernel<>, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fused_adams_grid_snap_kernel<><<<members, threads, bytes, st>>>(
+        y0, yp0, h0, nfev0, par, L, out, rec, snap);
+  } else if constexpr (RECORD) {
     const cudaError_t e = allow_smem(fused_adams_grid_record_kernel<>, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     fused_adams_grid_record_kernel<><<<members, threads, bytes, st>>>(
@@ -649,8 +736,8 @@ extern "C" int fused_adams_grid_smem(int* need, int* limit) {
 // anything but 0.  yp0, h0 and nfev0 are each member's f(t0, y0), starting
 // step and evaluation count from the float32 stepper's init; params is (B,
 // tab::NPAR) float32, row-major (null when NPAR is 0).  A build with dense
-// output refuses (cudaErrorInvalidValue): it takes
-// fused_adams_grid_record_launch.
+// output or snapshots refuses (cudaErrorInvalidValue): it takes
+// fused_adams_grid_record_launch or fused_adams_grid_snap_launch.
 extern "C" int fused_adams_grid_launch(const void* y0, const void* yp0,
                                        const void* h0, const void* nfev0,
                                        const void* params, void* y_out,
@@ -659,40 +746,72 @@ extern "C" int fused_adams_grid_launch(const void* y0, const void* yp0,
                                        float dir, float rtol, float atol,
                                        float max_step, int max_steps,
                                        int threads, void* stream) {
-  if (tab::REC) return static_cast<int>(cudaErrorInvalidValue);
+  if (tab::REC || tab::SNAP) return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
-  return launch<tab::REC>(members, threads, static_cast<cudaStream_t>(stream),
-                          static_cast<const float*>(y0),
-                          static_cast<const float*>(yp0),
-                          static_cast<const float*>(h0),
-                          static_cast<const int*>(nfev0),
-                          static_cast<const float*>(params), L, out, Rec{});
+  return launch<tab::SNAP, tab::REC>(
+      members, threads, static_cast<cudaStream_t>(stream),
+      static_cast<const float*>(y0), static_cast<const float*>(yp0),
+      static_cast<const float*>(h0), static_cast<const int*>(nfev0),
+      static_cast<const float*>(params), L, out, Rec{}, Snap{});
 }
 
 // The launch of a build with dense output (tab::REC): as
 // fused_adams_grid_launch, and each member writes its record
 // (dense_record.cuh) to rec_t (B, rows), rec_y and rec_f (B, rows, N),
 // rec_f0 (B, N) and rec_n (B,) int32.  cudaErrorInvalidValue for a build
-// without it or rows < 1.
+// without it, one with snapshots or rows < 1.
 extern "C" int fused_adams_grid_record_launch(
     const void* y0, const void* yp0, const void* h0, const void* nfev0,
     const void* params, void* y_out, void* status, void* nstep, void* nfev,
     int members, float t0, float tf, float dir, float rtol, float atol,
     float max_step, int max_steps, int threads, void* rec_t, void* rec_y,
     void* rec_f, void* rec_f0, void* rec_n, int rows, void* stream) {
-  if (!tab::REC || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tab::REC || tab::SNAP || rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
   const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
                 static_cast<int*>(nstep), static_cast<int*>(nfev)};
   const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
                 static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
                 static_cast<int*>(rec_n), rows};
-  return launch<tab::REC>(members, threads, static_cast<cudaStream_t>(stream),
-                          static_cast<const float*>(y0),
-                          static_cast<const float*>(yp0),
-                          static_cast<const float*>(h0),
-                          static_cast<const int*>(nfev0),
-                          static_cast<const float*>(params), L, out, rec);
+  return launch<tab::SNAP, tab::REC>(
+      members, threads, static_cast<cudaStream_t>(stream),
+      static_cast<const float*>(y0), static_cast<const float*>(yp0),
+      static_cast<const float*>(h0), static_cast<const int*>(nfev0),
+      static_cast<const float*>(params), L, out, rec, Snap{});
+}
+
+// The launch of a build with snapshots (tab::SNAP): as
+// fused_adams_grid_record_launch, the record's arguments null with rows 0
+// for a build without it, and each member writes the rows (snapshot.cuh)
+// of the nq points tq (float32, sorted in the direction of integration) at
+// their indices idx (int32) in t_eval to y_eval (nq, B, N).
+// cudaErrorInvalidValue for a build without tab::SNAP, nq < 1, or rows
+// that disagree with tab::REC.
+extern "C" int fused_adams_grid_snap_launch(
+    const void* y0, const void* yp0, const void* h0, const void* nfev0,
+    const void* params, void* y_out, void* status, void* nstep, void* nfev,
+    int members, float t0, float tf, float dir, float rtol, float atol,
+    float max_step, int max_steps, int threads, void* rec_t, void* rec_y,
+    void* rec_f, void* rec_f0, void* rec_n, int rows, const void* tq,
+    const void* idx, void* y_eval, int nq, void* stream) {
+  if (!tab::SNAP || nq < 1 || (rows > 0) != tab::REC || rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
+  const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
+                static_cast<int*>(nstep), static_cast<int*>(nfev)};
+  const Rec rec{static_cast<float*>(rec_t), static_cast<float*>(rec_y),
+                static_cast<float*>(rec_f), static_cast<float*>(rec_f0),
+                static_cast<int*>(rec_n), rows};
+  const Snap snap{static_cast<const float*>(tq), static_cast<const int*>(idx),
+                  static_cast<float*>(y_eval), nq, members};
+  return launch<tab::SNAP, tab::REC>(
+      members, threads, static_cast<cudaStream_t>(stream),
+      static_cast<const float*>(y0), static_cast<const float*>(yp0),
+      static_cast<const float*>(h0), static_cast<const int*>(nfev0),
+      static_cast<const float*>(params), L, out, rec, snap);
 }

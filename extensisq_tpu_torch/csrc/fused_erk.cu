@@ -49,8 +49,9 @@
 // lanes (snapshot.cuh: snap_step); points at or before t0 take y0, the
 // points left at the end the final y (rank 0 writing those).  Like the
 // record the rows sit beside the arithmetic: the four outputs are those of
-// the build without them.  A build with both switches serves t_eval with
-// dense=R.
+// the build without them, its Watts start out of line (hstart.cuh: inlined
+// beside the rows' code it parted the compensated lane bodies on Kepler
+// with powf).  A build with both switches serves t_eval with dense=R.
 //
 // The tableau (float32, rounded as the JAX kernel rounds it) and the user's
 // right-hand side come from the generated header fused_erk_config.cuh:
@@ -205,8 +206,13 @@ __device__ __forceinline__ void integrate(Group& grp,
   if (L.use_hstart) {
     // max_step is +inf when the caller gave none
     const float bq = t + dir * fminf(fabsf(tf - t), max_step);
-    ctl.h_abs =
-        fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, f, rtol, atol, fn));
+    if constexpr (tab::SNAP) {
+      ctl.h_abs = fabsf(rk::hstart_out_of_line<N, tab::MORDER>(
+          t, bq, y, f, rtol, atol, fn));
+    } else {
+      ctl.h_abs =
+          fabsf(rk::hstart<N, tab::MORDER>(t, bq, y, f, rtol, atol, fn));
+    }
     nfev = 2 + (N + 1 < 3 ? N + 1 : 3);
   }
   // the next sorted t_eval point (tab::SNAP): those at or before t0 take y0

@@ -67,9 +67,24 @@
 // the SM's L1, so no stale line of a survives a barrier; the card check
 // runs the cluster launch three times and requires bit-identical outputs.
 //
+// t_eval snapshots (ops/fused_rkc.py): a build whose header sets
+// tab::SNAP writes each point's row as the JAX kernel does, by its pending
+// index (snapshot.cuh: Pending; fused_rkc.py:494-513, :570-584, :605-616):
+// the points in the order given, the index iq beside t in every thread
+// (a member's decision is uniform over its group, which holds one t);
+// the points at or before t0 take y0, an accepted step writes point iq
+// while dir tq <= dir t_new and moves on, with the unclamped cubic
+// Hermite of its end pairs (y, f) and (y_k, f_new) at theta = ((tq - t) -
+// t_lo) / h, and every point from iq on takes the final y.  Each thread
+// writes its own elements of a row (B9: every block of the grid; B10:
+// each CTA its chunk), read before y and f are overwritten.  The
+// snapshot build's kernels take the points as one more argument
+// (Pts...); without tab::SNAP they take none and are those of the build
+// before it.
+//
 // The grid shape, the parameter count, the float32 constants and the user's
 // right-hand side come from the generated header fused_rkc_config.cuh:
-//   namespace tab { G = grid::Grid<...>, NTOT, NPAR, SQRTMIN, SQRTU,
+//   namespace tab { G = grid::Grid<...>, NTOT, NPAR, SNAP, SQRTMIN, SQRTU,
 //                   ONE_P_SQRTU, RHO_UROUND, HMIN_C }
 //   __device__ float rhs(float t, const float* y, int i, const float* p);
 //   __device__ float rho(float t, const float* y, const float* p);
@@ -95,6 +110,7 @@
 #include "ds.cuh"
 #include "grid_common.cuh"
 #include "fused_rkc_config.cuh"
+#include "snapshot.cuh"
 
 namespace {
 
@@ -205,6 +221,14 @@ __device__ __forceinline__ float cube_root(float x) {
   return powf(x, 1.0f / 3.0f);
 }
 
+// The t_eval points of a body called with them (a build with tab::SNAP),
+// the thread's copy whose pending index the body moves; a build without
+// them calls the body with none, so that its kernels take, construct and
+// pass nothing for them.
+__device__ __forceinline__ rk::Pending& the_points(rk::Pending& pts) {
+  return pts;
+}
+
 // The whole integration of one member by the group g: rank(), size(),
 // sync() (or its two halves, arrive() and wait(), with work on registers
 // between them), sum(x) (the group's sum of x, identical in every
@@ -214,11 +238,13 @@ __device__ __forceinline__ float cube_root(float x) {
 // element of a thread at local_rank() + k local_size() (its block's slots:
 // a CTA's chunk in a cluster, a block's share of the grid).  y0 and p are
 // the member's initial grid and parameters; w its kArrays * NTOT floats of
-// workspace.
-template <int RHO, class Group>
+// workspace; with tab::SNAP `pts` is the t_eval points, their rows and
+// the member's pending index.
+template <int RHO, class Group, class... Pts>
 __device__ void integrate(Group& g, const float* __restrict__ y0,
                           const float* __restrict__ p, float* w, float* sm,
-                          const Solve& s, int member, const Out& out) {
+                          const Solve& s, int member, const Out& out,
+                          Pts&... pts) {
   constexpr bool LOCAL = Group::kLocal;
   const int rank = g.rank();
   const int nthr = g.size();
@@ -252,6 +278,16 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
     y_hi[l] = y0[i];
     y_lo[l] = 0.0f;
     if constexpr (kGlobY) y_glob[i] = y0[i];
+  }
+  // the t_eval points at or before t0 take y0 (tab::SNAP): the pending
+  // index moves past them
+  if constexpr (tab::SNAP) {
+    rk::Pending& pq = the_points(pts...);
+    pq.iq = pq.reached(0, s.dir, s.t0);
+    for (int q = 0; q < pq.iq; ++q) {
+      float* r = pq.row(q, member, NTOT);
+      for (int i = lo + rank; i < hi; i += nthr) r[i] = y0[i];
+    }
   }
   g.sync();
   for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
@@ -492,6 +528,21 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
 
     if (accepted) {
       const ds::DS tn = ds::add_f(ds::DS{t, t_lo}, h);
+      // the t_eval points the step reaches, from the pending one on: the
+      // unclamped cubic Hermite of its end pairs (y, f) and (y_k, f_new)
+      if constexpr (tab::SNAP) {
+        rk::Pending& pq = the_points(pts...);
+        const int q_end = pq.reached(pq.iq, s.dir, is_last ? s.tf : tn.hi);
+        for (int q = pq.iq; q < q_end; ++q) {
+          const rk::HermiteWeights hw =
+              rk::hermite_weights_at(pq.theta(q, t, t_lo, h), h);
+          float* r = pq.row(q, member, NTOT);
+          for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
+            r[i] = rk::hermite_sum(hw, y_hi[l], f[l], yk[i], f_new[l]);
+          }
+        }
+        pq.iq = q_end;
+      }
       t = is_last ? s.tf : tn.hi;
       t_lo = is_last ? 0.0f : tn.lo;
       // the double-single y carry advances by the step's deviation
@@ -516,6 +567,16 @@ __device__ void integrate(Group& g, const float* __restrict__ y0,
   g.sync();
   for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
     out.y[static_cast<size_t>(member) * NTOT + i] = y_hi[l];
+  }
+  // the points from the pending one on take the final y
+  if constexpr (tab::SNAP) {
+    const rk::Pending& pq = the_points(pts...);
+    for (int q = pq.iq; q < pq.nq; ++q) {
+      float* r = pq.row(q, member, NTOT);
+      for (int i = lo + rank, l = l0; i < hi; i += nthr, l += lstep) {
+        r[i] = y_hi[l];
+      }
+    }
   }
   if (lo == 0 && rank == 0) {
     out.status[member] = status;
@@ -669,25 +730,28 @@ __host__ __device__ constexpr size_t cluster_smem(int c) {
   return static_cast<size_t>(kLocalArrays) * cluster_chunk(c) * sizeof(float);
 }
 
-template <int RHO>
+// The kernels take the t_eval points last (Pts: rk::Pending, each thread's
+// copy carrying its member's pending index) in a build with tab::SNAP, and
+// nothing more without it.
+template <int RHO, class... Pts>
 __global__ void __launch_bounds__(1024)
     fused_rkc_block_kernel(const float* __restrict__ y0,
                            const float* __restrict__ params, float* work,
-                           Solve s, Out out) {
+                           Solve s, Out out, Pts... pts) {
   __shared__ float red[64];
   MemberBlock g{{red}};
   const int member = blockIdx.x;
   integrate<RHO>(g, y0 + static_cast<size_t>(member) * NTOT,
                  tab::NPAR ? params + member * tab::NPAR : nullptr,
                  work + static_cast<size_t>(member) * kArrays * NTOT,
-                 nullptr, s, member, out);
+                 nullptr, s, member, out, pts...);
 }
 
-template <int RHO>
+template <int RHO, class... Pts>
 __global__ void __launch_bounds__(kClusterThreads)
     fused_rkc_cluster_kernel(const float* __restrict__ y0,
                              const float* __restrict__ params, float* work,
-                             Solve s, Out out) {
+                             Solve s, Out out, Pts... pts) {
   extern __shared__ float sm[];
   __shared__ float red[64];
   __shared__ float parts[2 * kMaxCluster];
@@ -701,38 +765,47 @@ __global__ void __launch_bounds__(kClusterThreads)
   integrate<RHO>(g, y0 + static_cast<size_t>(member) * NTOT,
                  tab::NPAR ? params + member * tab::NPAR : nullptr,
                  work + static_cast<size_t>(member) * kArrays * NTOT, sm, s,
-                 member, out);
+                 member, out, pts...);
 }
 
-template <int RHO, bool LOCAL>
+template <int RHO, bool LOCAL, class... Pts>
 __global__ void __launch_bounds__(kGridThreads)
     fused_rkc_grid_kernel(const float* __restrict__ y0,
                           const float* __restrict__ params, float* work,
-                          float* partials, Solve s, Out out) {
+                          float* partials, Solve s, Out out, Pts... pts) {
   extern __shared__ float sm[];
   __shared__ float red[64];
   GridGroup<LOCAL> g{red, partials,
                      reinterpret_cast<unsigned*>(partials + 2 * gridDim.x)};
   integrate<RHO>(g, y0, tab::NPAR ? params : nullptr, work,
-                 LOCAL ? sm : nullptr, s, 0, out);
+                 LOCAL ? sm : nullptr, s, 0, out, pts...);
 }
 
-template <bool LOCAL>
+template <bool LOCAL, class... Pts>
 const void* grid_kernel_of(int rho_mode) {
   if (rho_mode == kRhoConst) {
     return reinterpret_cast<const void*>(
-        &fused_rkc_grid_kernel<kRhoConst, LOCAL>);
+        &fused_rkc_grid_kernel<kRhoConst, LOCAL, Pts...>);
   }
   if (rho_mode == kRhoFn) {
-    return reinterpret_cast<const void*>(&fused_rkc_grid_kernel<kRhoFn, LOCAL>);
+    return reinterpret_cast<const void*>(
+        &fused_rkc_grid_kernel<kRhoFn, LOCAL, Pts...>);
   }
   return reinterpret_cast<const void*>(
-      &fused_rkc_grid_kernel<kRhoPower, LOCAL>);
+      &fused_rkc_grid_kernel<kRhoPower, LOCAL, Pts...>);
 }
 
+// B9's kernel of this build (with the t_eval points where SNAP, tab::SNAP:
+// a build instantiates the kernels of one kind).
+template <bool SNAP = tab::SNAP>
 const void* grid_kernel(int rho_mode, bool local) {
-  return local ? grid_kernel_of<true>(rho_mode)
-               : grid_kernel_of<false>(rho_mode);
+  if constexpr (SNAP) {
+    return local ? grid_kernel_of<true, rk::Pending>(rho_mode)
+                 : grid_kernel_of<false, rk::Pending>(rho_mode);
+  } else {
+    return local ? grid_kernel_of<true>(rho_mode)
+                 : grid_kernel_of<false>(rho_mode);
+  }
 }
 
 // B9's dynamic shared memory in the shared placement on `blocks` blocks of
@@ -742,17 +815,23 @@ size_t grid_smem(int blocks, int threads) {
   return static_cast<size_t>(kLocalArrays) * per * threads * sizeof(float);
 }
 
-using ClusterKernel = void (*)(const float*, const float*, float*, Solve, Out);
+template <class... Pts>
+using ClusterKernel = void (*)(const float*, const float*, float*, Solve, Out,
+                               Pts...);
 
-ClusterKernel cluster_kernel(int rho_mode) {
-  if (rho_mode == kRhoConst) return &fused_rkc_cluster_kernel<kRhoConst>;
-  if (rho_mode == kRhoFn) return &fused_rkc_cluster_kernel<kRhoFn>;
-  return &fused_rkc_cluster_kernel<kRhoPower>;
+template <class... Pts>
+ClusterKernel<Pts...> cluster_kernel(int rho_mode) {
+  if (rho_mode == kRhoConst) {
+    return &fused_rkc_cluster_kernel<kRhoConst, Pts...>;
+  }
+  if (rho_mode == kRhoFn) return &fused_rkc_cluster_kernel<kRhoFn, Pts...>;
+  return &fused_rkc_cluster_kernel<kRhoPower, Pts...>;
 }
 
 // The launch configuration of B10 at cluster size c, after raising the
 // kernel's dynamic shared memory limit to what it needs.
-cudaError_t cluster_config(ClusterKernel k, int members, int c, int threads,
+template <class Kernel>
+cudaError_t cluster_config(Kernel k, int members, int c, int threads,
                            cudaStream_t st, cudaLaunchConfig_t& cfg,
                            cudaLaunchAttribute& attr) {
   const size_t bytes = cluster_smem(c);
@@ -771,6 +850,119 @@ cudaError_t cluster_config(ClusterKernel k, int members, int c, int threads,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return cudaSuccess;
+}
+
+// fused_rkc_cluster_capacity (below) for the cluster kernel k.
+template <class Kernel>
+int cluster_capacity(Kernel k, int threads, int c, int* clusters,
+                     int* bytes) {
+  int dev = 0;
+  int optin = 0;
+  cudaFuncAttributes fa;
+  *clusters = 0;
+  *bytes = static_cast<int>(cluster_smem(c));
+  if (c < 2 || c > kMaxCluster || threads > kClusterThreads) return 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  cudaError_t e = cudaFuncGetAttributes(&fa, k);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (*bytes + static_cast<int>(fa.sharedSizeBytes) > optin) return 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  e = cluster_config(k, c, c, threads, nullptr, cfg, attr);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveClusters(clusters, k, &cfg);
+  return static_cast<int>(e);
+}
+
+// fused_rkc_cluster_capacity for the cluster kernel of this build (with the
+// t_eval points where SNAP, tab::SNAP).
+template <bool SNAP = tab::SNAP>
+int build_cluster_capacity(int rho_mode, int threads, int c, int* clusters,
+                           int* bytes) {
+  if constexpr (SNAP) {
+    return cluster_capacity(cluster_kernel<rk::Pending>(rho_mode), threads,
+                            c, clusters, bytes);
+  } else {
+    return cluster_capacity(cluster_kernel<>(rho_mode), threads, c, clusters,
+                            bytes);
+  }
+}
+
+// The launch of B9 or B10 (as fused_rkc_launch describes) with the
+// kernels' last arguments `pts` (the t_eval points in a build with
+// tab::SNAP, none without).
+template <class... Pts>
+int launch_rkc(int grid, int rho_mode, const float* y0f, const float* pf,
+               float* wf, float* part, int members, Solve s, Out out,
+               int threads, int blocks, int cluster, cudaStream_t st,
+               Pts... pts) {
+  if (grid) {
+    const bool local = grid == 2;
+    const void* k = grid_kernel(rho_mode, local);
+    const size_t bytes = local ? grid_smem(blocks, threads) : 0;
+    cudaError_t e = cudaMemsetAsync(part + 2 * blocks, 0, sizeof(unsigned),
+                                    st);
+    if (e == cudaSuccess && local) {
+      e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    void* args[] = {&y0f, &pf, &wf, &part, &s, &out, &pts...};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        k, dim3(blocks), dim3(threads), args, bytes, st));
+  }
+  if (cluster > 1) {
+    if (cluster > kMaxCluster || threads > kClusterThreads) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    const ClusterKernel<Pts...> k = cluster_kernel<Pts...>(rho_mode);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    const cudaError_t e =
+        cluster_config(k, members, cluster, threads, st, cfg, attr);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(
+        cudaLaunchKernelEx(&cfg, k, y0f, pf, wf, s, out, pts...));
+  }
+  if (rho_mode == kRhoConst) {
+    fused_rkc_block_kernel<kRhoConst, Pts...><<<members, threads, 0, st>>>(
+        y0f, pf, wf, s, out, pts...);
+  } else if (rho_mode == kRhoFn) {
+    fused_rkc_block_kernel<kRhoFn, Pts...><<<members, threads, 0, st>>>(
+        y0f, pf, wf, s, out, pts...);
+  } else {
+    fused_rkc_block_kernel<kRhoPower, Pts...><<<members, threads, 0, st>>>(
+        y0f, pf, wf, s, out, pts...);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fused_rkc_launch's arguments to launch_rkc, with the t_eval points *pts
+// in a build with them (SNAP, tab::SNAP: a build instantiates the kernels
+// of one kind).
+template <bool SNAP = tab::SNAP>
+int launch_build(int grid, int rho_mode, const void* y0, const void* params,
+                 void* y_out, void* status, void* nsteps, void* nfev,
+                 void* nfesig, void* work, void* partials, int members,
+                 const Solve& s, int threads, int blocks, int cluster,
+                 void* stream, const rk::Pending* pts) {
+  const Out out{static_cast<float*>(y_out), static_cast<int*>(status),
+                static_cast<int*>(nsteps), static_cast<int*>(nfev),
+                static_cast<int*>(nfesig)};
+  const float* y0f = static_cast<const float*>(y0);
+  const float* pf = static_cast<const float*>(params);
+  float* wf = static_cast<float*>(work);
+  float* part = static_cast<float*>(partials);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (SNAP) {
+    return launch_rkc(grid, rho_mode, y0f, pf, wf, part, members, s, out,
+                      threads, blocks, cluster, st, *pts);
+  } else {
+    return launch_rkc(grid, rho_mode, y0f, pf, wf, part, members, s, out,
+                      threads, blocks, cluster, st);
+  }
 }
 
 }  // namespace
@@ -828,25 +1020,7 @@ extern "C" int fused_rkc_grid_smem(int rho_mode, int threads, int blocks,
 // not fit the card's opt-in shared memory); returns the CUDA error code.
 extern "C" int fused_rkc_cluster_capacity(int rho_mode, int threads, int c,
                                           int* clusters, int* bytes) {
-  int dev = 0;
-  int optin = 0;
-  cudaFuncAttributes fa;
-  const ClusterKernel k = cluster_kernel(rho_mode);
-  *clusters = 0;
-  *bytes = static_cast<int>(cluster_smem(c));
-  if (c < 2 || c > kMaxCluster || threads > kClusterThreads) return 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  cudaError_t e = cudaFuncGetAttributes(&fa, k);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (*bytes + static_cast<int>(fa.sharedSizeBytes) > optin) return 0;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  e = cluster_config(k, c, c, threads, nullptr, cfg, attr);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveClusters(clusters, k, &cfg);
-  return static_cast<int>(e);
+  return build_cluster_capacity(rho_mode, threads, c, clusters, bytes);
 }
 
 // Launches B9 (one member on a cooperative grid of `blocks` blocks, its
@@ -857,7 +1031,8 @@ extern "C" int fused_rkc_cluster_capacity(int rho_mode, int threads, int c,
 // anything but 0, and a refused cooperative or cluster launch is such an
 // error.  `work` holds kArrays * NTOT floats per member, `partials`
 // 2 * blocks + 1 floats (B9 only: the blocks' sums and the barrier's
-// counter, which the launch sets to 0 first).
+// counter, which the launch sets to 0 first).  A build with the snapshots
+// refuses (cudaErrorInvalidValue): it takes fused_rkc_snap_launch.
 extern "C" int fused_rkc_launch(int grid, int rho_mode, const void* y0,
                                 const void* params, void* y_out, void* status,
                                 void* nsteps, void* nfev, void* nfesig,
@@ -867,52 +1042,32 @@ extern "C" int fused_rkc_launch(int grid, int rho_mode, const void* y0,
                                 float max_step, int mmax, int max_steps,
                                 int const_jac, int threads, int blocks,
                                 int cluster, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Solve s{t0, tf, dir, rtol, atol, h0, rho_const, max_step,
-          mmax, max_steps, const_jac};
-  Out out{static_cast<float*>(y_out), static_cast<int*>(status),
-          static_cast<int*>(nsteps), static_cast<int*>(nfev),
-          static_cast<int*>(nfesig)};
-  const float* y0f = static_cast<const float*>(y0);
-  const float* pf = static_cast<const float*>(params);
-  float* wf = static_cast<float*>(work);
-  if (grid) {
-    float* part = static_cast<float*>(partials);
-    const bool local = grid == 2;
-    const void* k = grid_kernel(rho_mode, local);
-    const size_t bytes = local ? grid_smem(blocks, threads) : 0;
-    cudaError_t e = cudaMemsetAsync(part + 2 * blocks, 0, sizeof(unsigned),
-                                    st);
-    if (e == cudaSuccess && local) {
-      e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    }
-    if (e != cudaSuccess) return static_cast<int>(e);
-    void* args[] = {&y0f, &pf, &wf, &part, &s, &out};
-    return static_cast<int>(cudaLaunchCooperativeKernel(
-        k, dim3(blocks), dim3(threads), args, bytes, st));
-  }
-  if (cluster > 1) {
-    if (cluster > kMaxCluster || threads > kClusterThreads) {
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-    }
-    const ClusterKernel k = cluster_kernel(rho_mode);
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    const cudaError_t e =
-        cluster_config(k, members, cluster, threads, st, cfg, attr);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaLaunchKernelEx(&cfg, k, y0f, pf, wf, s, out));
-  }
-  if (rho_mode == kRhoConst) {
-    fused_rkc_block_kernel<kRhoConst><<<members, threads, 0, st>>>(
-        y0f, pf, wf, s, out);
-  } else if (rho_mode == kRhoFn) {
-    fused_rkc_block_kernel<kRhoFn><<<members, threads, 0, st>>>(y0f, pf, wf,
-                                                                s, out);
-  } else {
-    fused_rkc_block_kernel<kRhoPower><<<members, threads, 0, st>>>(
-        y0f, pf, wf, s, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (tab::SNAP) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_build(grid, rho_mode, y0, params, y_out, status, nsteps, nfev,
+                      nfesig, work, partials, members,
+                      Solve{t0, tf, dir, rtol, atol, h0, rho_const, max_step,
+                            mmax, max_steps, const_jac},
+                      threads, blocks, cluster, stream, nullptr);
+}
+
+// The launch of a build with the t_eval snapshots (tab::SNAP): as
+// fused_rkc_launch, and each member writes the rows of the nq points tq
+// (float32, in t_eval's order) to y_eval (members, nq, NTOT) by JAX's
+// pending index (snapshot.cuh: Pending).  cudaErrorInvalidValue for a
+// build without tab::SNAP or nq < 1.
+extern "C" int fused_rkc_snap_launch(
+    int grid, int rho_mode, const void* y0, const void* params, void* y_out,
+    void* status, void* nsteps, void* nfev, void* nfesig, void* work,
+    void* partials, int members, float t0, float tf, float dir, float rtol,
+    float atol, float h0, float rho_const, float max_step, int mmax,
+    int max_steps, int const_jac, int threads, int blocks, int cluster,
+    const void* tq, void* y_eval, int nq, void* stream) {
+  if (!tab::SNAP || nq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const rk::Pending pts{static_cast<const float*>(tq),
+                        static_cast<float*>(y_eval), nq};
+  return launch_build(grid, rho_mode, y0, params, y_out, status, nsteps, nfev,
+                      nfesig, work, partials, members,
+                      Solve{t0, tf, dir, rtol, atol, h0, rho_const, max_step,
+                            mmax, max_steps, const_jac},
+                      threads, blocks, cluster, stream, &pts);
 }

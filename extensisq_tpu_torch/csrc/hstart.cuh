@@ -130,11 +130,13 @@ __device__ float hstart(float a, float b, const float (&y)[N],
   return h;
 }
 
-// hstart compiled out of line, for the t_eval snapshot builds of B5 and B2:
-// inlined beside the snapshots' code, nvcc compiled it otherwise in B5's
-// compensated body than in the build without them (config 3's Kepler line
-// from Watts' start: 143 of 2,048 members apart), while out of line it
-// gives that build's bits (PERF.md §6 and §7).
+// hstart compiled out of line, for the t_eval snapshot builds of B1, B5 and
+// B2: inlined beside the snapshots' code, nvcc compiled it otherwise than
+// in the build without them in B5's compensated body (config 3's Kepler
+// line from Watts' start: 143 of 2,048 members apart) and in B1's
+// compensated lane bodies (the same orbits in first-order form with powf:
+// 2,013 of 2,048 apart at 8 and 4 lanes), while out of line it gives that
+// build's bits (PERF.md §6).
 template <int N, int MORDER, class F>
 __device__ __noinline__ float hstart_out_of_line(float a, float b,
                                                  const float (&y)[N],

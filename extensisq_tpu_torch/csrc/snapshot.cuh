@@ -1,6 +1,8 @@
 // The in-kernel t_eval snapshots: B1 (fused_erk.cu), B5 (fused_rkn.cu),
-// B11 (fused_ckdisc.cu), B2 (fused_esdirk.cu), B4, B6 and B12
-// (fused_rk_grid.cu) and B7 (fused_esdirk_grid.cu).
+// B11 (fused_ckdisc.cu), B2 (fused_esdirk.cu), B3 (fused_adams.cu), B4, B6
+// and B12 (fused_rk_grid.cu), B7 (fused_esdirk_grid.cu) and B8
+// (fused_adams_grid.cu); and the RKC kernels' pending index (B9 and B10,
+// fused_rkc.cu: Pending, at the end).
 //
 // The JAX kernels (extensisq_tpu/ops/fused_erk.py:_run_erk_loop,
 // fused_ckdisc.py:_run_ck_loop, fused_rkn.py:_run_rkn_loop and the ESDIRK
@@ -38,6 +40,10 @@
 // cost is the chain each crossed point runs after acceptance (the scan's
 // load, the division, the weights, the stores), and a warp waits for its
 // lane that crosses most.
+//
+// The SWAG kernels (B3, B8) also write the rows of the points their
+// near-end extrapolation crosses (dir (tq - t) > 0 and dir tq <= dir tf):
+// JAX's straight line y + (tq - t) y', no Hermite (snap_line, line_row).
 #pragma once
 
 #include <stddef.h>
@@ -74,15 +80,16 @@ struct Snap {
   }
 };
 
-// The cubic Hermite's weights at theta (clamped to [0, 1]) over the signed
-// step h, as _hermite_tiles forms them.
+// The cubic Hermite's weights over the signed step h, as _hermite_tiles
+// forms them.
 struct HermiteWeights {
   float c00, c10, c01, c11;
 };
 
-__device__ __forceinline__ HermiteWeights hermite_weights(float theta,
-                                                          float h) {
-  const float s = fminf(fmaxf(theta, 0.0f), 1.0f);
+// The cubic Hermite's weights at s as given, not clamped (the RKC kernels'
+// _hermite, fused_rkc.py:98, whose theta may lie outside [0, 1]).
+__device__ __forceinline__ HermiteWeights hermite_weights_at(float s,
+                                                             float h) {
   const float s2 = __fmul_rn(s, s);
   const float s3 = __fmul_rn(s2, s);
   return HermiteWeights{
@@ -90,6 +97,12 @@ __device__ __forceinline__ HermiteWeights hermite_weights(float theta,
       __fmul_rn(h, __fadd_rn(__fsub_rn(s3, __fmul_rn(2.0f, s2)), s)),
       __fsub_rn(__fmul_rn(3.0f, s2), __fmul_rn(2.0f, s3)),
       __fmul_rn(h, __fsub_rn(s3, s2))};
+}
+
+// The weights at theta clamped to [0, 1] (_hermite_tiles).
+__device__ __forceinline__ HermiteWeights hermite_weights(float theta,
+                                                          float h) {
+  return hermite_weights_at(fminf(fmaxf(theta, 0.0f), 1.0f), h);
 }
 
 // One element of the cubic Hermite from (y0, f0) to (y1, f1) with the
@@ -223,5 +236,68 @@ __device__ __forceinline__ Cursor snap_step(const Snap& s, const Cursor& c,
   return snap_step<N, G>(s, c, cursor_weights(c, t, h), member, rank, dir,
                          t, t_new, h, y, f, y1, f1);
 }
+
+// One element of the SWAG extrapolation's straight line at tq from (t, y)
+// with slope yp, as JAX's kernels form it: y + (tq - t) yp, each
+// operation rounded on its own.
+__device__ __forceinline__ float line_row(float tq, float t, float y,
+                                          float yp) {
+  return __fadd_rn(y, __fmul_rn(__fsub_rn(tq, t), yp));
+}
+
+// The register kernels' near-end extrapolation of the SWAG kernel (B3)
+// from (t, y) with slope yp to tf: the rows of the points it crosses, the
+// straight line at each, split over the member's G lanes as snap_step
+// splits them.  Returns the cursor past them.
+template <int N, int G>
+__device__ __forceinline__ Cursor snap_line(const Snap& s, const Cursor& c,
+                                            int member, int rank, float dir,
+                                            float t, float tf,
+                                            const float (&y)[N],
+                                            const float (&yp)[N]) {
+  if (c.q >= s.nq || dir * c.tq > dir * tf) return c;
+  const int end = s.past(c.q + 1, dir, tf);
+  for (int p = c.q + rank; p < end; p += G) {
+    const float tq = s.tq[p];
+    float* r = s.row(p, member, N);
+#pragma unroll
+    for (int k = 0; k < N; ++k) r[k] = line_row(tq, t, y[k], yp[k]);
+  }
+  return cursor_at(s, end);
+}
+
+// The RKC kernels' t_eval points (B9, B10), JAX's pending index
+// (fused_rkc.py:_integrate): the points in the order given, not sorted; a
+// member's index iq moves on while point iq lies at or before the time
+// reached (dir tq <= dir t: at t0 the rows take y0, at an accepted step
+// the unclamped cubic Hermite of its end pairs), so a NaN point or one
+// out of order stops it, and every point from iq on takes the final y.
+// The rows of a member are nq grids of NTOT floats, (members, nq, NTOT);
+// B9 is member 0.  Each thread's copy of the launch's Pending carries its
+// member's index iq.
+struct Pending {
+  const float* tq = nullptr;  // [nq]: the points, in t_eval's order
+  float* y = nullptr;         // [members][nq][NTOT]: y_eval
+  int nq = 0;
+  int iq = 0;                 // the member's pending index
+
+  // The row of point q of `member`, ntot floats.
+  __host__ __device__ float* row(int q, int member, int ntot) const {
+    return y + (static_cast<size_t>(member) * nq + q) * ntot;
+  }
+
+  // The pending index from q past every point at or before t in the
+  // direction dir (dir tq <= dir t).
+  __device__ int reached(int q, float dir, float t) const {
+    while (q < nq && dir * tq[q] <= dir * t) ++q;
+    return q;
+  }
+
+  // theta of point q over the step from the double-single (t, t_lo) of
+  // signed size h: ((tq - t) - t_lo) / h.
+  __device__ float theta(int q, float t, float t_lo, float h) const {
+    return __fdiv_rn(__fsub_rn(__fsub_rn(tq[q], t), t_lo), h);
+  }
+};
 
 }  // namespace rk

@@ -387,7 +387,8 @@ constexpr bool SNAP = {_flag(snap)};
 """
 
 
-def fused_adams_header(k, rhs_src, shape=None, npar=0, record=False):
+def fused_adams_header(k, rhs_src, shape=None, npar=0, record=False,
+                       snap=False):
     """Text of ``fused_adams_config.cuh`` (or, for a member grid of extents
     ``shape``, of the mid-size kernel's ``fused_adams_grid_config.cuh``)
     for the constants ``k`` of ``ops.fused_adams._adams_consts`` (order
@@ -396,7 +397,7 @@ def fused_adams_header(k, rhs_src, shape=None, npar=0, record=False):
     JAX kernel rounds them), the CUDA RHS source (``rhs(float t, ...)``
     or the template ``rhs<T>``), its number of per-member parameters
     ``npar`` and whether the build writes the dense record (``record``,
-    ``tab::REC``)."""
+    ``tab::REC``) and the t_eval snapshots (``snap``, ``tab::SNAP``)."""
     accessors = "\n".join([_accessor("GSTR", k["gstr"]),
                            _accessor("IQQ", k["iqq"]),
                            _accessor("TWO", k["two"])])
@@ -412,6 +413,7 @@ namespace tab {{
 constexpr int N = {k['n']};
 constexpr int NPAR = {int(npar)};
 constexpr bool REC = {_flag(record)};
+constexpr bool SNAP = {_flag(snap)};
 constexpr float INV_N = {_f32(k['inv_n'])};
 constexpr float FOURU_T = {_f32(k['fouru_t'])};
 constexpr float LAND_TOL = {_f32(k['land_tol'])};
@@ -422,12 +424,13 @@ constexpr float LAND_TOL = {_f32(k['land_tol'])};
 """
 
 
-def fused_rkc_header(shape, n_par, rhs_src, rho_src=None):
+def fused_rkc_header(shape, n_par, rhs_src, rho_src=None, snap=False):
     """Text of ``fused_rkc_config.cuh`` for a member grid of extents
     ``shape``, ``n_par`` per-member parameters, the CUDA right-hand side
-    ``rhs(float t, const float* y, int i, const float* p)`` and, where
-    given, the spectral-radius callback ``rho(float t, const float* y,
-    const float* p)`` (a stub that is never called otherwise)."""
+    ``rhs(float t, const float* y, int i, const float* p)``, where given
+    the spectral-radius callback ``rho(float t, const float* y, const
+    float* p)`` (a stub that is never called otherwise) and whether the
+    build writes the t_eval snapshots (``snap``, ``tab::SNAP``)."""
     from .fused_rkc import _rkc_consts
     k = _rkc_consts()
     ntot = int(np.prod(shape))
@@ -443,6 +446,7 @@ namespace tab {{
 using G = grid::Grid<{dims}>;
 constexpr int NTOT = {ntot};
 constexpr int NPAR = {int(n_par)};
+constexpr bool SNAP = {_flag(snap)};
 constexpr float SQRTMIN = {_f32(k['sqrtmin'])};
 constexpr float SQRTU = {_f32(k['sqrtu'])};
 constexpr float ONE_P_SQRTU = {_f32(k['one_p_sqrtu'])};
@@ -703,49 +707,59 @@ def load_fused_esdirk_grid(consts, shape, rhs_src, npar=0, nb=None,
     return built
 
 
-def load_fused_adams(consts, rhs_src, npar=0, record=False):
+def load_fused_adams(consts, rhs_src, npar=0, record=False, snap=False):
     """Build (at first use) and load the fused SWAG kernel for one
-    ``k_max``, state size, RHS, parameter count and dense-record switch,
-    with each lane count per member the wrapper takes; returns
-    :class:`Built` with ``lib.fused_adams_launch`` and
-    ``lib.fused_adams_record_launch`` bound (each refuses a build of the
-    other kind)."""
+    ``k_max``, state size, RHS, parameter count, dense-record switch and
+    snapshot switch, with each lane count per member the wrapper takes;
+    returns :class:`Built` with ``lib.fused_adams_launch``,
+    ``lib.fused_adams_record_launch`` and ``lib.fused_adams_snap_launch``
+    bound (each refuses a build of another kind)."""
     argtypes = [_VP] * 10 + [_CI, _CF, _CF, _CF, _CF, _CF, _CF, _CI, _CI,
                              _CI, _CI, _VP]
-    return _bind_record(load_kernel(
+    return _bind_snap(_bind_record(load_kernel(
         "fused_adams",
-        fused_adams_header(consts, rhs_src, None, npar, record), argtypes),
-        "fused_adams", argtypes)
+        fused_adams_header(consts, rhs_src, None, npar, record, snap),
+        argtypes), "fused_adams", argtypes), "fused_adams", argtypes)
 
 
-def load_fused_adams_grid(consts, shape, rhs_src, npar=0, record=False):
+def load_fused_adams_grid(consts, shape, rhs_src, npar=0, record=False,
+                          snap=False):
     """Build (at first use) and load the mid-size SWAG kernel (B8) for one
-    ``k_max``, member grid, RHS, parameter count and dense-record switch;
-    returns :class:`Built` with ``lib.fused_adams_grid_launch``,
-    ``lib.fused_adams_grid_record_launch`` and
-    ``lib.fused_adams_grid_smem`` bound."""
+    ``k_max``, member grid, RHS, parameter count, dense-record switch and
+    snapshot switch; returns :class:`Built` with
+    ``lib.fused_adams_grid_launch``, ``lib.fused_adams_grid_record_launch``,
+    ``lib.fused_adams_grid_snap_launch`` and ``lib.fused_adams_grid_smem``
+    bound."""
     argtypes = [_VP] * 9 + [_CI, _CF, _CF, _CF, _CF, _CF, _CF, _CI, _CI, _VP]
-    built = _bind_record(load_kernel(
+    built = _bind_snap(_bind_record(load_kernel(
         "fused_adams_grid",
-        fused_adams_header(consts, rhs_src, shape, npar, record), argtypes),
-        "fused_adams_grid", argtypes)
+        fused_adams_header(consts, rhs_src, shape, npar, record, snap),
+        argtypes), "fused_adams_grid", argtypes), "fused_adams_grid",
+        argtypes)
     smem = built.lib.fused_adams_grid_smem
     smem.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     smem.restype = ctypes.c_int
     return built
 
 
-def load_fused_rkc(shape, n_par, rhs_src, rho_src=None):
+def load_fused_rkc(shape, n_par, rhs_src, rho_src=None, snap=False):
     """Build (at first use) and load the fused RKC kernels (B9 and B10) for
-    one grid shape, parameter count and right-hand side; returns
-    :class:`Built` with ``lib.fused_rkc_launch``,
+    one grid shape, parameter count, right-hand side and snapshot switch;
+    returns :class:`Built` with ``lib.fused_rkc_launch``,
+    ``lib.fused_rkc_snap_launch`` (each refuses a build of the other kind),
     ``lib.fused_rkc_grid_capacity``, ``lib.fused_rkc_grid_smem`` and
     ``lib.fused_rkc_cluster_capacity`` bound."""
+    argtypes = [_CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI,
+                _CF, _CF, _CF, _CF, _CF, _CF, _CF, _CF, _CI, _CI, _CI, _CI,
+                _CI, _CI, _VP]
     built = load_kernel(
-        "fused_rkc", fused_rkc_header(shape, n_par, rhs_src, rho_src),
-        [_CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CF,
-         _CF, _CF, _CF, _CF, _CF, _CF, _CF, _CI, _CI, _CI, _CI, _CI, _CI,
-         _VP])
+        "fused_rkc", fused_rkc_header(shape, n_par, rhs_src, rho_src, snap),
+        argtypes)
+    # the snapshot launch takes the points in t_eval's order, y_eval and
+    # their count before the stream
+    snap_launch = built.lib.fused_rkc_snap_launch
+    snap_launch.argtypes = argtypes[:-1] + [_VP, _VP, _CI, _VP]
+    snap_launch.restype = ctypes.c_int
     cap = built.lib.fused_rkc_grid_capacity
     cap.argtypes = [_CI, _CI, ctypes.POINTER(ctypes.c_int)]
     cap.restype = ctypes.c_int

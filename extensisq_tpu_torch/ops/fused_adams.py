@@ -27,6 +27,13 @@ a node at ``tf`` with the extrapolated ``y`` and the ``f`` of the step
 before it; ``f0`` is the starting state's ``f(t0, y0)``; in compensated
 mode the rows hold the high word of ``y``.
 
+``t_eval`` returns each member's y at the given times, written inside the
+kernel as the member crosses each (``csrc/snapshot.cuh``), as JAX's SWAG
+kernels write them: at an accepted step the cubic Hermite of the step's
+end pairs ``(y, f)``, and at the near-end extrapolation JAX's straight
+line ``y + (tq - t) f`` for the points up to ``tf``; ``t`` and ``y`` the
+high words in compensated mode.
+
 What both compute per attempt (the JAX kernel's semantics): the ns reset
 on ``h != hold``, the coefficient update, the predictor (with a
 Neumaier-compensated ``g . phi`` sum in compensated mode), the error
@@ -53,9 +60,10 @@ from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW
 from .._device import as_input
 from ..steppers.adams import AdamsStepper, _GSTR, _put, _rows, _take
 from ..types import IVPParams
-from .fused_erk import (DenseRecord, FusedRHS, _Record, _df_add,
-                        _launch_shape, _two_sum, bind_params, check_options,
-                        dense_rows, member_params)
+from .fused_erk import (DenseRecord, FusedRHS, SnapPoints, Snapshots,
+                        _Record, _df_add, _launch_shape, _two_sum,
+                        bind_params, check_options, dense_rows, eval_points,
+                        member_params, snap_outputs)
 
 _EPS32 = float(np.finfo(np.float32).eps)
 # the double-single t carry resolves ~2^-46, so the minimum step is
@@ -117,7 +125,7 @@ def _member_norm(x):
 def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
                           first_step=None, k_max=12, max_steps=200_000,
                           compensated=False, max_step=None, params=None,
-                          dense=None, work=None):
+                          dense=None, work=None, t_eval=None):
     """The plain PyTorch version of the fused SWAG kernel, on the device of
     ``y0_batch``.
 
@@ -127,9 +135,10 @@ def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     ``max_steps`` iterations.  ``fun`` is a :class:`FusedRHS` or a
     rows-first torch function, called as ``fun(t, y, p)`` where
     ``params`` (B, k) is given.  Returns ``(y (B, n), status (B,), nsteps
-    (B,), nfev (B,))`` like :func:`solve_fused_adams`, and with
-    ``dense=R`` the members' :class:`~.fused_dense.FusedDenseSolution` as
-    a fifth output, from the rows the kernel writes.
+    (B,), nfev (B,))`` like :func:`solve_fused_adams`; with ``t_eval`` the
+    rows ``y_eval`` (len(t_eval), B, n) after them, and with ``dense=R``
+    the members' :class:`~.fused_dense.FusedDenseSolution` last, from the
+    rows the kernel writes.
 
     ``work``, a (B, 5) integer tensor, receives the kernel's work counters
     of each member: its attempts, and over them the sums of the order k,
@@ -141,18 +150,21 @@ def fused_adams_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     fun = bind_params(fun, member_params(params, y0, fun))
     return run_adams_loop(fun, t_span, y0, rtol, atol, first_step,
                           k_max, max_steps, compensated, max_step,
-                          _member_norm, work, dense)
+                          _member_norm, work, dense, t_eval)
 
 
 def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
                    max_steps, compensated, max_step, member_norm, work=None,
-                   dense=None):
+                   dense=None, t_eval=None):
     """The fused SWAG loop on the rows-first torch function ``fun`` (the
     members' parameters bound), shared by the plain versions of B3 and B8;
     ``member_norm`` maps ``(n, B)`` to the members' RMS norms in the order
     of the kernel's sums, ``work`` (None or (B, 5)) receives the work
-    counters of :func:`fused_adams_reference`, and ``dense=R`` adds the
-    dense output of the rows the kernels record as a fifth output."""
+    counters of :func:`fused_adams_reference`, ``t_eval`` adds the rows
+    ``y_eval`` (len(t_eval), B, n) after the four outputs (JAX's rule,
+    ``fused_erk.Snapshots``: the Hermite at an accepted step, the straight
+    line at the near-end extrapolation) and ``dense=R`` the dense output
+    of the rows the kernels record last."""
     km = int(k_max)
     y = torch.as_tensor(y0_batch).to(torch.float32).T.contiguous()
     n, nb = y.shape
@@ -192,6 +204,8 @@ def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
         counts = torch.zeros(_WORK, nb, dtype=torch.int64, device=dev)
     rows = dense_rows(dense)
     rec = _Record(y, yp, rows) if rows else None
+    tq = eval_points(t_eval)
+    snaps = None if tq is None else Snapshots(tq, y, dirs)
     it = 0
     while it < max_steps:
         running = status == RUNNING
@@ -371,6 +385,10 @@ def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
             rec.write(ok_any, nsteps, torch.where(extrap, tf, t_new),
                       torch.where(extrap, y_ext, y_corr),
                       torch.where(ok, yp_new, yp))
+        if snaps is not None:
+            # the high words of t and y in the compensated mode
+            snaps.step(ok, t, t_new, h_in, y, yp, y_corr, yp_new)
+            snaps.line(extrap, t, tf, y, yp)
         it += 1
         status3 = i32(torch.where((status3 == RUNNING) & (it >= max_steps),
                                   OVERFLOW, status3))
@@ -419,6 +437,8 @@ def run_adams_loop(fun, t_span, y0_batch, rtol, atol, first_step, k_max,
         work.copy_(counts.T)
 
     out = (y.T.contiguous(), status, nsteps, nfev)
+    if snaps is not None:
+        out = out + (snaps.rows(t, y),)
     if rec is None:
         return out
     return out + (rec.solution(t_span, nsteps),)
@@ -462,14 +482,15 @@ def _lanes_per_member(B, sm_count, k_max):
     return 8 if int(k_max) >= 8 and 8 * int(B) <= 2 * budget else 1
 
 
-def _kernel(fun, km, record=False):
+def _kernel(fun, km, record=False, snap=False):
     """The kernel built for one FusedRHS and k_max, with the dense record
-    where ``record`` (a build of its own)."""
+    where ``record`` and the t_eval snapshots where ``snap`` (each switch a
+    build of its own)."""
     from . import _build
     return _build.cached("fused_adams", (fun,),
                          lambda: _build.load_fused_adams(
                              _adams_consts(km, fun.n), fun.cuda_src, fun.k,
-                             record), (km, bool(record)))
+                             record, snap), (km, bool(record), bool(snap)))
 
 
 def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
@@ -492,6 +513,16 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     docstring); the record leaves the other four outputs bit for bit as
     they are without it.
 
+    ``t_eval``: times (taken as float32, in any order, repeats and points
+    outside the span allowed) at which to return each member's y,
+    ``y_eval`` (len(t_eval), B, n) after ``nfev`` (before the dense
+    output): the cubic Hermite of the accepted step that crosses each
+    point, or the straight line of the near-end extrapolation, as in JAX,
+    written inside the kernel (a build of its own, ``csrc/snapshot.cuh``);
+    points at or before t0 take y0, points a member never reaches its
+    final state.  It leaves the four outputs bit for bit as they are
+    without it.  No points: the four outputs alone.
+
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.
     On a CUDA tensor ``fun`` must be a :class:`FusedRHS` (its ``cuda_src``
@@ -507,10 +538,10 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
 
     ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
     them as its third argument (see :class:`FusedRHS`, whose ``k`` must
-    agree), the members' starting state included.  ``t_eval`` and
-    ``events`` are not ported yet.
+    agree), the members' starting state included.  ``events`` is not
+    ported yet.
     """
-    check_options("solve_fused_adams", "B3", t_eval=t_eval, events=events)
+    check_options("solve_fused_adams", "B3", events=events)
     y0 = as_input(y0_batch, torch.float32)
     if y0.ndim != 2 or y0.shape[1] > 8:
         raise ValueError("fused SWAG takes y0_batch of shape (B, n) with "
@@ -523,11 +554,11 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
         return fused_adams_reference(
             fun, t_span, y0, rtol=rtol, atol=atol, first_step=first_step,
             k_max=km, max_steps=max_steps, compensated=compensated,
-            max_step=max_step, params=params, dense=dense)
+            max_step=max_step, params=params, dense=dense, t_eval=t_eval)
 
     out, shape, work = _launch(fun, t_span, y0, rtol, atol, first_step, km,
                                max_steps, compensated, max_step, None,
-                               block_members, params, dense)
+                               block_members, params, dense, t_eval)
     if y0.shape[0]:
         solve_fused_adams.launches += 1
     solve_fused_adams.last_shape = shape
@@ -537,15 +568,16 @@ def solve_fused_adams(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
 
 def _launch(fun, t_span, y0, rtol, atol, first_step, k_max, max_steps,
             compensated, max_step, lanes, block_members=None, params=None,
-            dense=None):
+            dense=None, t_eval=None):
     """B3 on the card for the CUDA tensor ``y0`` (and the members'
     ``params``, checked by ``member_params``): ``lanes`` lanes per member
     (None: :func:`_lanes_per_member`'s) and ``block_members`` members per
     block (None: 128 / lanes), with the dense record of ``dense`` rows a
-    member (the build with it) where given.  Returns the outputs (with the
-    :class:`~.fused_dense.FusedDenseSolution` fifth), the ``(lanes,
-    block_members)`` taken and the (B, 5) work counters; an empty batch
-    launches nothing."""
+    member and the rows of ``t_eval`` (each switch the build with it) where
+    given.  Returns the outputs (``y_eval`` and the
+    :class:`~.fused_dense.FusedDenseSolution` after the four), the
+    ``(lanes, block_members)`` taken and the (B, 5) work counters; an
+    empty batch launches nothing."""
     if not isinstance(fun, FusedRHS):
         raise TypeError("solve_fused_adams on a CUDA tensor needs a "
                         "FusedRHS (a CUDA source of the right-hand side); "
@@ -565,8 +597,9 @@ def _launch(fun, t_span, y0, rtol, atol, first_step, k_max, max_steps,
     block_members, _, _ = _launch_shape(nb, lanes, block_members)
     y0 = y0.contiguous()
     rows = dense_rows(dense)
+    tq = eval_points(t_eval)
 
-    built = _kernel(fun, k_max, rows > 0)
+    built = _kernel(fun, k_max, rows > 0, tq is not None)
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
     nsteps = torch.empty_like(status)
@@ -574,7 +607,8 @@ def _launch(fun, t_span, y0, rtol, atol, first_step, k_max, max_steps,
     work = torch.empty(nb, _WORK, dtype=torch.int32, device=y0.device)
     shape = (lanes, block_members)
     rec = DenseRecord(y0, rows)
-    out = (y_out, status, nsteps, nfev)
+    snap = None if tq is None else SnapPoints(tq, t_span, y0)
+    out = snap_outputs((y_out, status, nsteps, nfev), snap)
     if nb == 0:
         return rec.outputs(out, t_span, y0), shape, work
     # the starting state, outside the kernel as in the JAX package
@@ -593,7 +627,10 @@ def _launch(fun, t_span, y0, rtol, atol, first_step, k_max, max_steps,
                 np.inf if max_step is None else _f32(max_step),
                 int(max_steps), int(bool(compensated)), lanes,
                 block_members)
-        if rows:
+        if snap is not None:
+            rc = built.lib.fused_adams_snap_launch(*args, *rec.args(),
+                                                   *snap.args(), stream)
+        elif rows:
             rc = built.lib.fused_adams_record_launch(*args, *rec.args(),
                                                      stream)
         else:

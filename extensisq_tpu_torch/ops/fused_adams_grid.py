@@ -20,15 +20,17 @@ Right-hand sides are :class:`~.fused_rkc.FusedGridRHS` with ``shape=(n,)``:
 ``jnp.roll``'s sign, and the CUDA ``rhs(t, y, i, p)`` of one element; with
 ``k`` > 0 per-member parameters ``torch_fn(t, y, p)`` takes ``p`` of shape
 ``(k, B)`` and the CUDA ``p`` the member's k floats.  ``dense=R`` records
-the steps as B3 records them (``ops/fused_adams.py``).
+the steps as B3 records them, and ``t_eval`` writes the rows B3 writes
+(``ops/fused_adams.py``), every thread of a member's block its own
+elements of each row.
 """
 import numpy as np
 import torch
 
 from .._device import as_input
 from .fused_adams import _adams_consts, _f32, _host_init, run_adams_loop
-from .fused_erk import (DenseRecord, check_options, dense_rows,
-                        member_params)
+from .fused_erk import (DenseRecord, SnapPoints, check_options, dense_rows,
+                        eval_points, member_params, snap_outputs)
 from .fused_erk_grid import (_state_size, bind_grid_params, check_grid_input,
                              check_shared_memory, grid_threads)
 from .fused_rkc import FusedGridRHS
@@ -41,32 +43,35 @@ def _grid_norm(x):
 
 def fused_adams_grid_reference(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
                                first_step=None, k_max=12, max_steps=200_000,
-                               max_step=None, params=None, dense=None):
+                               max_step=None, params=None, dense=None,
+                               t_eval=None):
     """The plain PyTorch version of the mid-size SWAG kernel, on the device
     of ``y0_batch`` ``(B, n)``: B3's loop.  ``fun`` is a
     :class:`FusedGridRHS` or a rows-first torch function, called as
     ``fun(t, y, p)`` with ``p`` ``(k, B)`` where ``params`` (B, k) is given.
-    Returns ``(y (B, n), status (B,), nsteps (B,), nfev (B,))``, and with
-    ``dense=R`` the dense output fifth."""
+    Returns ``(y (B, n), status (B,), nsteps (B,), nfev (B,))``; with
+    ``t_eval`` the rows ``y_eval`` (len(t_eval), B, n) after them, and with
+    ``dense=R`` the dense output last."""
     if isinstance(fun, FusedGridRHS):
         _state_size(fun)
     y0 = torch.as_tensor(y0_batch)
     fun = bind_grid_params(fun, member_params(params, y0, fun))
     return run_adams_loop(fun, t_span, y0, rtol, atol, first_step,
                           k_max, max_steps, False, max_step, _grid_norm,
-                          dense=dense)
+                          dense=dense, t_eval=t_eval)
 
 
-def _kernel(fun, km, record=False):
+def _kernel(fun, km, record=False, snap=False):
     """The kernel built for one FusedGridRHS and k_max, with the dense
-    record where ``record`` (a build of its own)."""
+    record where ``record`` and the t_eval snapshots where ``snap`` (each
+    switch a build of its own)."""
     from . import _build
     return _build.cached(
         "fused_adams_grid", (fun,),
         lambda: _build.load_fused_adams_grid(
             _adams_consts(km, _state_size(fun)), fun.shape, fun.cuda_src,
-            fun.k, record),
-        (km, bool(record)))
+            fun.k, record, snap),
+        (km, bool(record), bool(snap)))
 
 
 def solve_fused_adams_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
@@ -86,7 +91,10 @@ def solve_fused_adams_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     None or 0: off) adds a fifth output, the members' continuous dense
     output (:class:`~.fused_dense.FusedDenseSolution`), recorded as
     ``solve_fused_adams`` records it; the record leaves the other four
-    outputs bit for bit as they are without it.
+    outputs bit for bit as they are without it.  ``t_eval``: times at
+    which to return each member's y, ``y_eval`` (len(t_eval), B, n) after
+    ``nfev`` (before the dense output), as ``solve_fused_adams`` returns
+    them, leaving the four outputs bit for bit as they are without it.
 
     A ``y0_batch`` that is not a tensor goes to the card as float32 (and
     raises where there is none); a tensor keeps its device.  On a CUDA
@@ -100,10 +108,9 @@ def solve_fused_adams_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     ``params``: (B, k) float32 per-member parameters; ``fun`` then takes
     them as its third argument, ``p`` of shape ``(k, B)`` (a
     :class:`FusedGridRHS` whose ``k`` must agree), the members' starting
-    state included.  ``t_eval`` and ``events`` are not ported yet.
+    state included.  ``events`` is not ported yet.
     """
-    check_options("solve_fused_adams_grid", "B8", t_eval=t_eval,
-                  events=events)
+    check_options("solve_fused_adams_grid", "B8", events=events)
     y0 = as_input(y0_batch, torch.float32)
     km = int(k_max)
     if not 0 < km < 13:
@@ -111,14 +118,15 @@ def solve_fused_adams_grid(fun, t_span, y0_batch, rtol=1e-4, atol=1e-6,
     params = member_params(params, y0, fun)
     kw = dict(rtol=rtol, atol=atol, first_step=first_step, k_max=km,
               max_steps=max_steps, max_step=max_step, params=params,
-              dense=dense)
+              dense=dense, t_eval=t_eval)
     if y0.device.type != "cuda":
         return fused_adams_grid_reference(fun, t_span, y0, **kw)
     n = _state_size(fun) if isinstance(fun, FusedGridRHS) else -1
     check_grid_input("solve_fused_adams_grid", y0, n, FusedGridRHS, fun,
                      params)
-    return _launch(_kernel(fun, km, dense_rows(dense) > 0), fun, t_span, y0,
-                   **kw)
+    built = _kernel(fun, km, dense_rows(dense) > 0,
+                    eval_points(t_eval) is not None)
+    return _launch(built, fun, t_span, y0, **kw)
 
 
 def _start(fun, t_span, y0, rtol, atol, first_step, k_max, max_step,
@@ -135,14 +143,16 @@ def _start(fun, t_span, y0, rtol, atol, first_step, k_max, max_step,
 
 
 def _launch(built, fun, t_span, y0, rtol, atol, first_step, k_max,
-            max_steps, max_step, start=None, params=None, dense=None):
+            max_steps, max_step, start=None, params=None, dense=None,
+            t_eval=None):
     """Launch ``csrc/fused_adams_grid.cu`` (``built``, the build with the
-    dense record where ``dense`` has rows) on the current stream from the
-    members' ``start`` (:func:`_start`'s, computed here when None) with
-    their ``params``; raise before launch when a member's rows do not fit
-    in the card's shared memory.  Returns the outputs, with the
-    :class:`~.fused_dense.FusedDenseSolution` fifth where there is a
-    record."""
+    dense record where ``dense`` has rows and with the snapshots where
+    ``t_eval`` has points) on the current stream from the members'
+    ``start`` (:func:`_start`'s, computed here when None) with their
+    ``params``; raise before launch when a member's rows do not fit in the
+    card's shared memory.  Returns the outputs, with ``y_eval`` and the
+    :class:`~.fused_dense.FusedDenseSolution` after the four where there
+    are points and a record."""
     nb, n = y0.shape
     y_out = torch.empty_like(y0)
     status = torch.empty(nb, dtype=torch.int32, device=y0.device)
@@ -150,7 +160,9 @@ def _launch(built, fun, t_span, y0, rtol, atol, first_step, k_max,
     nfev = torch.empty_like(status)
     rows = dense_rows(dense)
     rec = DenseRecord(y0, rows)
-    out = (y_out, status, nsteps, nfev)
+    tq = eval_points(t_eval)
+    snap = None if tq is None else SnapPoints(tq, t_span, y0)
+    out = snap_outputs((y_out, status, nsteps, nfev), snap)
     with torch.cuda.device(y0.device):
         check_shared_memory("solve_fused_adams_grid",
                             built.lib.fused_adams_grid_smem,
@@ -170,7 +182,10 @@ def _launch(built, fun, t_span, y0, rtol, atol, first_step, k_max,
                 direction, _f32(rtol), _f32(atol),
                 np.inf if max_step is None else _f32(max_step),
                 int(max_steps), grid_threads(n))
-        if rows:
+        if snap is not None:
+            rc = built.lib.fused_adams_grid_snap_launch(
+                *args, *rec.args(), *snap.args(), stream)
+        elif rows:
             rc = built.lib.fused_adams_grid_record_launch(*args, *rec.args(),
                                                           stream)
         else:

@@ -454,6 +454,16 @@ class Snapshots:
         val = c00 * y + c10 * f + c01 * y_new + c11 * f_new
         self.y = torch.where(crossed[:, None], val, self.y)
 
+    def line(self, upd, t, tf, y, yp):
+        """The SWAG loops' near-end extrapolation of each member in ``upd``
+        from ``(t, y)`` with slope ``yp`` to ``tf`` (rows-first): every point
+        with ``dir (tq - t) > 0`` and ``dir tq <= dir tf`` takes JAX's
+        straight line ``y + (tq - t) yp`` (``fused_adams.py:655-681``)."""
+        d, tq = self.direction, self.tq
+        crossed = upd & (d * (tq - t) > 0.0) & (d * tq <= d * tf)
+        val = y + (tq - t)[:, None] * yp
+        self.y = torch.where(crossed[:, None], val, self.y)
+
     def rows(self, t, y):
         """``y_eval`` (nq, B, n) at the members' final ``t`` and ``y``."""
         d = self.direction

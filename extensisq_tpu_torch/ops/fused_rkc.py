@@ -22,6 +22,15 @@ policy and its ``nfesig`` counter.  Their plain PyTorch version,
 :func:`fused_rkc_reference`, runs the same loop on a batch of members; the
 wrappers take it only for tensors on the CPU.
 
+``t_eval`` returns each member's grid at the given times as the JAX
+kernels do, by a pending index into the points in the order given (not
+sorted): the points at or before t0 take y0, an accepted step writes the
+pending point while it lies at or before the step's end, the unclamped
+cubic Hermite of the step's end pairs ``(y, f)``, ``(y_k, f_new)`` at
+``theta = ((tq - t) - t_lo) / h``, and moves on; every point from the
+pending one on takes the final y.  A NaN point, or one out of order,
+stops the index there.
+
 Right-hand sides for these kernels are :class:`FusedGridRHS` objects; a
 spectral-radius callback that must run on the card is a :class:`FusedRho`.
 """
@@ -34,7 +43,7 @@ import torch
 from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW, RHO_FAIL
 from .._device import as_input
 from . import ds as D
-from .fused_erk import _df_add, check_options
+from .fused_erk import _df_add, check_options, eval_points
 
 _EPS32 = float(np.finfo(np.float32).eps)
 ITMAX = 50               # power-iteration bound
@@ -196,7 +205,8 @@ def _rho_mode(rho):
 
 def fused_rkc_reference(fun, t_span, y0, rho=None, params=None, rtol=1e-4,
                         atol=1e-6, first_step=None, max_steps=100_000,
-                        m_max=None, const_jac=False, max_step=None):
+                        m_max=None, const_jac=False, max_step=None,
+                        t_eval=None):
     """The plain PyTorch version of the fused RKC kernels, on the device of
     ``y0``.
 
@@ -212,7 +222,9 @@ def fused_rkc_reference(fun, t_span, y0, rho=None, params=None, rtol=1e-4,
     iteration; ``params`` ``(B, k)``.
 
     Returns ``(y (B, *shape), status (B,), nsteps (B,), nfev (B,))``, with
-    ``nfesig (B,)`` appended when ``rho is None``.
+    ``nfesig (B,)`` appended when ``rho is None``, and then, where
+    ``t_eval`` is given, ``y_eval`` (B, len(t_eval), *shape) by each
+    member's pending index (:class:`_Pending`).
     """
     f = fun.torch_fn if isinstance(fun, FusedGridRHS) else fun
     f32 = torch.float32
@@ -264,6 +276,8 @@ def fused_rkc_reference(fun, t_span, y0, rho=None, params=None, rtol=1e-4,
     newspc = torch.ones(nb, dtype=torch.bool, device=dev)
     jacatt = torch.zeros_like(newspc)
     nstsig = torch.zeros(nb, **i32)
+    pend = None if t_eval is None else _Pending(_points(t_eval), y, dir_s,
+                                                 t0s)
     it = 0
     while True:
         running = status == RUNNING
@@ -355,6 +369,9 @@ def fused_rkc_reference(fun, t_span, y0, rho=None, params=None, rtol=1e-4,
         is_last = accepted & (absh >= d)
         t_adv, t_lo_adv = _df_add(t, t_lo, h)
         y_hi_new, y_lo_new = D.ds_add_f((y, y_lo), e_m)
+        if pend is not None:
+            pend.step(accepted, torch.where(is_last, tfs, t_adv), t, t_lo,
+                      h, y, fcur, yk, f_new)
 
         st = torch.where(bad, OVERFLOW,
                          torch.where(too_small, TOO_SMALL_STEP,
@@ -387,7 +404,70 @@ def fused_rkc_reference(fun, t_span, y0, rho=None, params=None, rtol=1e-4,
         nstep = nstep + accepted.to(torch.int32)
 
     out = (y.movedim(-1, 0).contiguous(), status, nstep, nfev)
-    return out + (nfesig,) if power else out
+    if power:
+        out = out + (nfesig,)
+    return out if pend is None else out + (pend.rows(y),)
+
+
+class _Pending:
+    """The plain version's t_eval rows by JAX's pending index
+    (``fused_rkc.py:_integrate``, :494-513, :570-584, :605-616): each
+    member's index ``iq`` into the points in t_eval's order moves past
+    every point at or before the time it reached (``dir tq <= dir t``),
+    writing its row as it goes: y0 at t0, the unclamped cubic Hermite of an
+    accepted step's end pairs (``fused_rkc.py:_hermite``, its terms summed
+    in that order) at ``theta = ((tq - t) - t_lo) / h``; every point from
+    ``iq`` on takes the final y.  Over the plain loop's ``(*shape, B)``
+    grids, the members' rows scattered at their own indices."""
+
+    def __init__(self, tq, y0, direction, t0):
+        self.nq = len(tq)
+        self.tq = torch.from_numpy(tq).to(y0.device)
+        self.d = direction
+        nb = y0.shape[-1]
+        self.flat = y0.numel() // nb
+        self.y = y0.new_zeros(self.nq, self.flat, nb)
+        self.iq = torch.zeros(nb, dtype=torch.long, device=y0.device)
+        self.step(torch.ones(nb, dtype=torch.bool, device=y0.device), t0,
+                  None, None, None, y0, None, None, None)
+
+    def step(self, upd, t_end, t, t_lo, h, y, f, yk, f_new):
+        """Move the index of each member in ``upd`` past the points at or
+        before ``t_end``, writing each one's row: y where ``h`` is None (the
+        start), else the Hermite of the step from ``(t, t_lo)`` of signed
+        size ``h`` with end pairs ``(y, f)``, ``(yk, f_new)``."""
+        nb = self.iq.shape[0]
+        cols = torch.arange(nb, device=self.iq.device)
+        while self.nq:
+            i = self.iq.clamp(max=self.nq - 1)
+            tqi = self.tq[i]
+            cross = upd & (self.iq < self.nq) & (self.d * tqi
+                                                 <= self.d * t_end)
+            if not bool(cross.any()):
+                return
+            if h is None:
+                val = y
+            else:
+                th = ((tqi - t) - t_lo) / h
+                t2 = th * th
+                t3 = t2 * th
+                val = (y * (2.0 * t3 - 3.0 * t2 + 1.0)
+                       + (h * (t3 - 2.0 * t2 + th)) * f
+                       + yk * (3.0 * t2 - 2.0 * t3)
+                       + (h * (t3 - t2)) * f_new)
+            b = cols[cross]
+            self.y[self.iq[b], :, b] = val.reshape(self.flat, nb)[:, b].T
+            self.iq = self.iq + cross.long()
+
+    def rows(self, y):
+        """``y_eval`` (B, nq, *shape): the points from each member's index
+        on take its final ``y`` (``(*shape, B)``)."""
+        nb = y.shape[-1]
+        left = (torch.arange(self.nq, device=y.device)[:, None]
+                >= self.iq[None, :])[:, None, :]
+        rows = torch.where(left, y.reshape(1, self.flat, nb), self.y)
+        return rows.permute(2, 0, 1).reshape(nb, self.nq,
+                                             *y.shape[:-1]).contiguous()
 
 
 def _rho_power(fn, t, yn, fn0, V, active, small, sqrtu, k, gsum, ntot):
@@ -518,16 +598,36 @@ def _max_clusters(built, rho, device):
     return hit
 
 
-def _kernel(fun, rho, n_par):
+def _kernel(fun, rho, n_par, snap=False):
     """The kernel built for one FusedGridRHS, rho callback and parameter
-    count.  A float rho or None is a launch argument, not a build."""
+    count, with the t_eval snapshots where ``snap`` (a build of its own).
+    A float rho or None is a launch argument, not a build."""
     cb = rho if isinstance(rho, FusedRho) else None
     from . import _build
     return _build.cached(
         "fused_rkc", (fun, cb),
         lambda: _build.load_fused_rkc(fun.shape, n_par, fun.cuda_src,
-                                      None if cb is None else cb.cuda_src),
-        n_par)
+                                      None if cb is None else cb.cuda_src,
+                                      snap),
+        (n_par, bool(snap)))
+
+
+def _points(t_eval):
+    """``t_eval`` as ``fused_erk.eval_points`` takes it (float32, in its
+    own order, which the JAX kernels keep), but an empty one as no points
+    rather than None: JAX's RKC kernels return an empty ``y_eval`` for
+    it."""
+    if t_eval is None:
+        return None
+    tq = eval_points(t_eval)
+    return np.zeros(0, np.float32) if tq is None else tq
+
+
+def _outputs(out, rho):
+    """The launch's (y, status, nsteps, nfev, nfesig[, y_eval]) in JAX's
+    order: ``nfesig`` only for the power iteration (``rho`` None), then
+    ``y_eval`` where there are t_eval points."""
+    return out[:4] + ((out[4],) if rho is None else ()) + tuple(out[5:])
 
 
 def _check_card_inputs(name, fun, rho, y0, lead):
@@ -549,12 +649,15 @@ def _check_card_inputs(name, fun, rho, y0, lead):
 
 def _launch(built, grid, rho, y0, params, n_members, t_span, rtol, atol,
             first_step, max_steps, m_max, const_jac, max_step, threads,
-            blocks, cluster=1):
+            blocks, cluster=1, tq=None):
     """Allocate the outputs and the workspace and launch B9 (``grid`` 1:
     the elementwise arrays in global memory, 2: in the blocks' shared
     memory) or B10 (``grid`` 0: a cluster of ``cluster`` CTAs per member,
-    or one block at 1) on the current stream; returns (y, status, nsteps,
-    nfev, nfesig) with the member axis first."""
+    or one block at 1) on the current stream, with the rows of the t_eval
+    points ``tq`` (:func:`_points`; ``built`` the snapshot build where
+    there are any); returns (y, status, nsteps, nfev, nfesig), with
+    ``y_eval`` (members, nq, *shape) after them where ``tq`` is given, the
+    member axis first."""
     dev = y0.device
     ntot = int(np.prod(y0.shape[1:]))
     mode = _rho_mode(rho)
@@ -568,24 +671,34 @@ def _launch(built, grid, rho, y0, params, n_members, t_span, rtol, atol,
     # B9: the blocks' sums and the grid barrier's counter
     partials = torch.empty(2 * max(blocks, 1) + 1, dtype=torch.float32,
                            device=dev)
+    out = (y_out, *ints)
+    nq = 0 if tq is None else len(tq)
+    if tq is not None:
+        y_eval = y0.new_empty(n_members, nq, *y0.shape[1:])
+        out = out + (y_eval,)
     if n_members == 0:
-        return (y_out, *ints)
+        return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = built.lib.fused_rkc_launch(
-            int(grid), mode, y0.data_ptr(),
-            None if params is None else params.data_ptr(), y_out.data_ptr(),
-            *[x.data_ptr() for x in ints], work.data_ptr(),
-            partials.data_ptr(), n_members, t0, tf,
-            float(np.sign(tf - t0)), _f32(rtol), _f32(atol),
-            -1.0 if first_step is None else _f32(first_step),
-            _f32(rho) if mode == 0 else 0.0,
-            np.inf if max_step is None else _f32(max_step), mmax,
-            int(max_steps), int(bool(const_jac)), int(threads), int(blocks),
-            int(cluster), stream)
+        args = (int(grid), mode, y0.data_ptr(),
+                None if params is None else params.data_ptr(),
+                y_out.data_ptr(), *[x.data_ptr() for x in ints],
+                work.data_ptr(), partials.data_ptr(), n_members, t0, tf,
+                float(np.sign(tf - t0)), _f32(rtol), _f32(atol),
+                -1.0 if first_step is None else _f32(first_step),
+                _f32(rho) if mode == 0 else 0.0,
+                np.inf if max_step is None else _f32(max_step), mmax,
+                int(max_steps), int(bool(const_jac)), int(threads),
+                int(blocks), int(cluster))
+        if nq:
+            points = torch.from_numpy(tq).to(dev)
+            rc = built.lib.fused_rkc_snap_launch(
+                *args, points.data_ptr(), y_eval.data_ptr(), nq, stream)
+        else:
+            rc = built.lib.fused_rkc_launch(*args, stream)
     if rc != 0:
         raise RuntimeError(f"fused_rkc kernel launch failed: CUDA error {rc}")
-    return (y_out, *ints)
+    return out
 
 
 # B9's placements of the six elementwise arrays (the launch's ``grid``)
@@ -630,21 +743,24 @@ def _grid_shape(built, fun, rho, device):
 
 def _launch_grid(fun, t_span, y0, rho, placement=None, rtol=1e-4,
                  atol=1e-6, first_step=None, max_steps=100_000, m_max=None,
-                 const_jac=False, max_step=None):
+                 const_jac=False, max_step=None, t_eval=None):
     """B9 on the card in ``placement`` (:data:`SHARED` or :data:`GLOBAL`;
-    None: :func:`_grid_shape`'s).  Returns the five outputs of the one
-    member and the shape ``(blocks, placement, bytes)`` taken."""
+    None: :func:`_grid_shape`'s), with the rows of ``t_eval`` (the build
+    with the snapshots where it has points).  Returns the five outputs of
+    the one member (and ``y_eval`` (nq, *shape) sixth where ``t_eval`` is
+    given) and the shape ``(blocks, placement, bytes)`` taken."""
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, m_max=m_max, const_jac=const_jac,
               max_step=max_step)
-    built = _kernel(fun, rho, 0)
+    tq = _points(t_eval)
+    built = _kernel(fun, rho, 0, tq is not None and len(tq) > 0)
     blocks, rule, nbytes = _grid_shape(built, fun, rho, y0.device)
     placement = placement or rule
     if placement == SHARED and rule != SHARED:
         raise ValueError("fused_rkc: a block's share of the arrays does not "
                          "fit its shared memory on this grid")
     out = _launch(built, placement, rho, y0.contiguous()[None], None, 1,
-                  t_span, threads=GRID_THREADS, blocks=blocks, **kw)
+                  t_span, threads=GRID_THREADS, blocks=blocks, tq=tq, **kw)
     return (tuple(x[0] for x in out),
             (blocks, placement, nbytes if placement == SHARED else 0))
 
@@ -667,6 +783,14 @@ def solve_fused_rkc(fun, t_span, y0, rho=None, rtol=1e-4, atol=1e-6,
     finished, 2 = step size underflow, 3 = overflow or step cap, 6 = the
     power iteration did not converge.
 
+    ``t_eval``: times (taken as float32, in the order given) at which to
+    return the grid, ``y_eval`` (len(t_eval), *shape) last, as JAX's kernel
+    writes it (the module docstring): points at or before t0 take y0,
+    those the integration reaches the cubic Hermite of the accepted step
+    that reaches each, from the first point out of order (or NaN) on the
+    final y.  It leaves the other outputs bit for bit as they are without
+    it.
+
     A ``y0`` that is not a tensor goes to the card as float32 (and raises
     where there is none).  On a CUDA tensor ``fun`` must be a
     :class:`FusedGridRHS`, and the call launches ``csrc/fused_rkc.cu``'s
@@ -677,13 +801,13 @@ def solve_fused_rkc(fun, t_span, y0, rho=None, rtol=1e-4, atol=1e-6,
     cooperative launch raises too.  On a CPU tensor it runs
     :func:`fused_rkc_reference`.
 
-    ``t_eval`` and ``events`` are not ported yet.
+    ``events`` is not ported yet.
     """
-    check_options("solve_fused_rkc", "B9", t_eval=t_eval, events=events)
+    check_options("solve_fused_rkc", "B9", events=events)
     y0 = as_input(y0, torch.float32)
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, m_max=m_max, const_jac=const_jac,
-              max_step=max_step)
+              max_step=max_step, t_eval=t_eval)
     if y0.device.type != "cuda":
         out = fused_rkc_reference(fun, t_span, y0[None], rho=rho, **kw)
         return tuple(x[0] for x in out)
@@ -691,7 +815,7 @@ def solve_fused_rkc(fun, t_span, y0, rho=None, rtol=1e-4, atol=1e-6,
     out, shape = _launch_grid(fun, t_span, y0, rho, **kw)
     solve_fused_rkc.launches += 1
     solve_fused_rkc.last_shape = shape
-    return out if rho is None else out[:4]
+    return _outputs(out, rho)
 
 
 def solve_fused_rkc_ensemble(fun, t_span, y0, rho=None, params=None,
@@ -714,15 +838,17 @@ def solve_fused_rkc_ensemble(fun, t_span, y0, rho=None, params=None,
     elementwise arrays in its shared memory), or one block of 1024 threads
     per member where no C > 1 qualifies; it raises where the launch is
     refused.  The C taken is left in ``solve_fused_rkc_ensemble.cluster``.
-    On a CPU tensor it runs :func:`fused_rkc_reference`.  ``t_eval`` and
-    ``events`` are not ported yet.
+    On a CPU tensor it runs :func:`fused_rkc_reference`.
+
+    ``t_eval``: as in :func:`solve_fused_rkc`, each member by its own
+    pending index; ``y_eval`` (n_members, len(t_eval), *fun.shape) last,
+    the member axis first as in JAX.  ``events`` is not ported yet.
     """
-    check_options("solve_fused_rkc_ensemble", "B10", t_eval=t_eval,
-                  events=events)
+    check_options("solve_fused_rkc_ensemble", "B10", events=events)
     y0 = as_input(y0, torch.float32)
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, m_max=m_max, const_jac=const_jac,
-              max_step=max_step)
+              max_step=max_step, t_eval=t_eval)
     if params is not None:
         params = torch.as_tensor(params, device=y0.device).to(torch.float32)
         if params.ndim != 2 or params.shape[0] != y0.shape[0]:
@@ -735,26 +861,30 @@ def solve_fused_rkc_ensemble(fun, t_span, y0, rho=None, params=None,
     out, c = _launch_ensemble(fun, t_span, y0, rho, params, None, **kw)
     solve_fused_rkc_ensemble.launches += 1
     solve_fused_rkc_ensemble.cluster = c
-    return out if rho is None else out[:4]
+    return _outputs(out, rho)
 
 
 def _launch_ensemble(fun, t_span, y0, rho, params, cluster, rtol=1e-4,
                      atol=1e-6, first_step=None, max_steps=100_000,
-                     m_max=None, const_jac=False, max_step=None):
+                     m_max=None, const_jac=False, max_step=None,
+                     t_eval=None):
     """B10 on the card: a cluster of ``cluster`` CTAs per member (None: the
-    C of :func:`_cluster_size`; 1: one block per member).  Returns the five
-    outputs and the C taken."""
+    C of :func:`_cluster_size`; 1: one block per member), with the rows of
+    ``t_eval`` (the build with the snapshots where it has points).  Returns
+    the five outputs (and ``y_eval`` sixth where ``t_eval`` is given) and
+    the C taken."""
     kw = dict(rtol=rtol, atol=atol, first_step=first_step,
               max_steps=max_steps, m_max=m_max, const_jac=const_jac,
               max_step=max_step)
     n_par = 0 if params is None else params.shape[1]
-    built = _kernel(fun, rho, n_par)
+    tq = _points(t_eval)
+    built = _kernel(fun, rho, n_par, tq is not None and len(tq) > 0)
     c = cluster or _cluster_size(y0.shape[0],
                                  _max_clusters(built, rho, y0.device))
     out = _launch(built, 0, rho, y0.contiguous(),
                   None if params is None else params.contiguous(),
                   y0.shape[0], t_span, threads=BLOCK_THREADS, blocks=0,
-                  cluster=c, **kw)
+                  cluster=c, tq=tq, **kw)
     return out, c
 
 

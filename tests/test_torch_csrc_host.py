@@ -302,7 +302,8 @@ RKN_LAUNCH = _with_snap(_with_record(_small_launch("fused_rkn"), False),
 # wrong split of rows or coefficients over the lanes shows on the host.
 # The CUDA group and kernel after the marker are left out.  The members'
 # parameters are (B, tab::NPAR), row-major; a build with the dense record
-# takes its arrays and rows before the lane count.
+# takes its arrays and rows before the lane count, and a build with the
+# snapshots the record's (null without it) and the points' after them.
 ADAMS_LAUNCH = COROUTINES + r"""
 struct HostMember {
   const float *y0, *yp0, *par;
@@ -315,6 +316,7 @@ struct HostMember {
 };
 static HostMember g_member;
 REC_GLOBAL
+SNAP_GLOBAL
 
 template <int G>
 static void lane_body(int rank) {
@@ -322,10 +324,10 @@ static void lane_body(int rank) {
   const HostMember& a = g_member;
   if (a.comp) {
     integrate<G, true>(lane, a.y0, a.yp0, a.par, a.h0, a.nfev0, a.L, a.m,
-                       a.out REC_ARG);
+                       a.out REC_ARG SNAP_ARG);
   } else {
     integrate<G, false>(lane, a.y0, a.yp0, a.par, a.h0, a.nfev0, a.L, a.m,
-                        a.out REC_ARG);
+                        a.out REC_ARG SNAP_ARG);
   }
 }
 
@@ -334,10 +336,11 @@ extern "C" int fused_adams_host(
     const int* nfev0, float* y_out, int* status, int* nsteps, int* nfev,
     int* work, int members, float t0, float tf, float dir, float rtol,
     float atol, float max_step, int max_steps, int compensated, REC_DECL
-    int lanes) {
+    SNAP_DECL int lanes) {
   const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
   const Out out{y_out, status, nsteps, nfev, work};
   REC_SET
+  SNAP_SET
   void (*body)(int) = lanes == 4 ? lane_body<4>
                       : lanes == 8 ? lane_body<8>
                       : lanes == 16 ? lane_body<16>
@@ -350,10 +353,10 @@ extern "C" int fused_adams_host(
     if (lanes == 1) {
       if (compensated) {
         integrate_thread<true>(y0 + m * N, yp0 + m * N, parm, h0[m],
-                               nfev0[m], L, m, out REC_ARG);
+                               nfev0[m], L, m, out REC_ARG SNAP_ARG);
       } else {
         integrate_thread<false>(y0 + m * N, yp0 + m * N, parm, h0[m],
-                                nfev0[m], L, m, out REC_ARG);
+                                nfev0[m], L, m, out REC_ARG SNAP_ARG);
       }
     } else {
       g_member = HostMember{y0 + m * N, yp0 + m * N, parm, h0[m], nfev0[m],
@@ -365,8 +368,10 @@ extern "C" int fused_adams_host(
   return 0;
 }
 """
-ADAMS_RECORD_LAUNCH = _with_record(ADAMS_LAUNCH, True)
-ADAMS_LAUNCH = _with_record(ADAMS_LAUNCH, False)
+ADAMS_SNAP_LAUNCH = _with_snap(_with_record(ADAMS_LAUNCH, True), True,
+                               "members")
+ADAMS_RECORD_LAUNCH = _with_snap(_with_record(ADAMS_LAUNCH, True), False)
+ADAMS_LAUNCH = _with_snap(_with_record(ADAMS_LAUNCH, False), False)
 
 # The ESDIRK bodies of B2 run one member after another: at one lane the
 # thread-per-member body integrate_thread<COMP>, at G lanes the group body
@@ -502,12 +507,14 @@ struct HostRkcMember {
   Out out;
 };
 static HostRkcMember g_rkc;
+PTS_GLOBAL
 
 template <class Group>
 static void rkc_member(Group& g, const HostRkcMember& a, float* sm) {
-  if (a.rho_mode == kRhoConst) integrate<kRhoConst>(g, a.y, a.p, a.w, sm, a.s, a.m, a.out);
-  if (a.rho_mode == kRhoFn) integrate<kRhoFn>(g, a.y, a.p, a.w, sm, a.s, a.m, a.out);
-  if (a.rho_mode == kRhoPower) integrate<kRhoPower>(g, a.y, a.p, a.w, sm, a.s, a.m, a.out);
+  PTS_LOCAL
+  if (a.rho_mode == kRhoConst) integrate<kRhoConst>(g, a.y, a.p, a.w, sm, a.s, a.m, a.out PTS_ARG);
+  if (a.rho_mode == kRhoFn) integrate<kRhoFn>(g, a.y, a.p, a.w, sm, a.s, a.m, a.out PTS_ARG);
+  if (a.rho_mode == kRhoPower) integrate<kRhoPower>(g, a.y, a.p, a.w, sm, a.s, a.m, a.out PTS_ARG);
 }
 
 static void rkc_cta(int r) {
@@ -571,8 +578,9 @@ extern "C" int fused_rkc_grid_host(
     int* status, int* nsteps, int* nfev, int* nfesig, float* work,
     float t0, float tf, float dir, float rtol, float atol, float h0,
     float rho_const, float max_step, int mmax, int max_steps,
-    int const_jac, int blocks, int local) {
+    int const_jac, PTS_DECL int blocks, int local) {
   if (blocks < 1 || blocks > 8) return 1;
+  PTS_SET
   Solve s{t0, tf, dir, rtol, atol, h0, rho_const, max_step,
           mmax, max_steps, const_jac};
   Out out{y_out, status, nsteps, nfev, nfesig};
@@ -594,8 +602,9 @@ extern "C" int fused_rkc_host(
     int* status, int* nsteps, int* nfev, int* nfesig, float* work,
     int members, float t0, float tf, float dir, float rtol, float atol,
     float h0, float rho_const, float max_step, int mmax, int max_steps,
-    int const_jac, int cluster) {
+    int const_jac, PTS_DECL int cluster) {
   if (cluster < 1 || cluster > 8) return 1;
+  PTS_SET
   Solve s{t0, tf, dir, rtol, atol, h0, rho_const, max_step,
           mmax, max_steps, const_jac};
   Out out{y_out, status, nsteps, nfev, nfesig};
@@ -621,6 +630,26 @@ extern "C" int fused_rkc_host(
   return 0;
 }
 """
+
+
+def _with_points(launch, points):
+    """``launch`` with its t_eval placeholders filled (``points``: the
+    points in t_eval's order, y_eval and their count before the launch
+    shape, as fused_rkc_snap_launch takes them after its own; each group
+    integrates with its own copy, whose pending index it moves, as each
+    thread on the card does) or empty."""
+    parts = {"PTS_GLOBAL": "static rk::Pending g_pts;",
+             "PTS_LOCAL": "rk::Pending p = g_pts;",
+             "PTS_ARG": ", p",
+             "PTS_DECL": "const float* tq, float* y_eval, int nq,",
+             "PTS_SET": "g_pts = rk::Pending{tq, y_eval, nq};"}
+    for key, text in parts.items():
+        launch = launch.replace(key, text if points else "")
+    return launch
+
+
+RKC_SNAP_LAUNCH = _with_points(RKC_LAUNCH, True)
+RKC_LAUNCH = _with_points(RKC_LAUNCH, False)
 RKC_SHAPE = (8, 8)
 
 HOST_GROUP = """
@@ -826,24 +855,26 @@ struct HostGridMember {
 };
 static HostGridMember g_grid;
 REC_GLOBAL
+SNAP_GLOBAL
 
 static void warp_thread(int r) {
   HostWarpBlock g{r};
   HostLanes lanes{r};
   const HostGridMember& a = g_grid;
   integrate<32>(g, lanes, a.sm, a.y0, a.yp0, a.par, a.h0, a.nfev0, a.L, a.m,
-                a.out REC_ARG);
+                a.out REC_ARG SNAP_ARG);
 }
 
 extern "C" int fused_adams_grid_host(
     const float* y0, const float* params, const float* yp0, const float* h0,
     const int* nfev0, float* y_out, int* status, int* nsteps, int* nfev,
     int members, float t0, float tf, float dir, float rtol, float atol,
-    float max_step, int max_steps, REC_DECL int lanes) {
+    float max_step, int max_steps, REC_DECL SNAP_DECL int lanes) {
   if (lanes != 1 && lanes != 32) return 1;
   const Launch L{t0, tf, dir, rtol, atol, max_step, max_steps};
   const Out out{y_out, status, nsteps, nfev};
   REC_SET
+  SNAP_SET
   float* sm = new float[kFloats];
   char* stacks = static_cast<char*>(std::malloc(32 * kLaneStack));
   for (int m = 0; m < members; ++m) {
@@ -851,7 +882,7 @@ extern "C" int fused_adams_grid_host(
       HostBlock g;
       HostOneLane one;
       integrate<1>(g, one, sm, y0 + m * N, yp0 + m * N, params, h0[m],
-                   nfev0[m], L, m, out REC_ARG);
+                   nfev0[m], L, m, out REC_ARG SNAP_ARG);
     } else {
       g_grid = HostGridMember{y0 + m * N, yp0 + m * N, params, h0[m],
                               nfev0[m], L, m, out, sm};
@@ -863,8 +894,11 @@ extern "C" int fused_adams_grid_host(
   return 0;
 }
 """
-ADAMS_GRID_RECORD_LAUNCH = _with_record(ADAMS_GRID_LAUNCH, True)
-ADAMS_GRID_LAUNCH = _with_record(ADAMS_GRID_LAUNCH, False)
+ADAMS_GRID_SNAP_LAUNCH = _with_snap(_with_record(ADAMS_GRID_LAUNCH, True),
+                                    True, "members")
+ADAMS_GRID_RECORD_LAUNCH = _with_snap(
+    _with_record(ADAMS_GRID_LAUNCH, True), False)
+ADAMS_GRID_LAUNCH = _with_snap(_with_record(ADAMS_GRID_LAUNCH, False), False)
 
 # The mid-size ESDIRK body (B7) run on a host buffer in place of shared
 # memory, one member after another: at lanes = 1 by a one-thread group, at
@@ -1101,6 +1135,16 @@ TEVAL_ROUTE_BUILDS = {"rkn_cubic_snap": ("fused_rkn", "rkn_cubic"),
                       "kaps_hidden_snap": ("fused_esdirk", "kaps_hidden"),
                       "eg_rd_kv3i_snap": ("fused_esdirk_grid",
                                           "eg_rd_kv3i")}
+# the snapshot builds of B3 (vdp plain, the compensated oscillator), B8
+# (the heat MoL whose whole run repeats the plain version's arithmetic)
+# and of the RKC body (B9 and B10: the params Brusselator with the rho
+# callback), each the header of its build without the snapshots with the
+# switch set: label -> (kernel, label of that build)
+TEVAL_ADAMS_RKC_BUILDS = {
+    "adams_vdp_snap": ("fused_adams", "adams_vdp"),
+    "adams_osc_comp_snap": ("fused_adams", "adams_osc_comp"),
+    "ag_heat3_snap": ("fused_adams_grid", "ag_heat3"),
+    "rkc_snap": ("fused_rkc", "rkc")}
 VDP_TEMPLATE = FK.FusedRHS(
     TK.PROBLEMS["vdp"].torch_fn,
     "template <class T>\n__device__ void rhs(T t, const T* y, T* dy) {\n"
@@ -1270,8 +1314,12 @@ def libs(tmp_path_factory):
     snap_launch = {"fused_rkn": RKN_SNAP_LAUNCH,
                    "fused_rk_grid": GRID_SNAP_LAUNCH,
                    "fused_esdirk": ESDIRK_SNAP_LAUNCH,
-                   "fused_esdirk_grid": ESDIRK_GRID_SNAP_LAUNCH}
-    for label, (kernel, off) in TEVAL_ROUTE_BUILDS.items():
+                   "fused_esdirk_grid": ESDIRK_GRID_SNAP_LAUNCH,
+                   "fused_adams": ADAMS_SNAP_LAUNCH,
+                   "fused_adams_grid": ADAMS_GRID_SNAP_LAUNCH,
+                   "fused_rkc": RKC_SNAP_LAUNCH}
+    for label, (kernel, off) in {**TEVAL_ROUTE_BUILDS,
+                                 **TEVAL_ADAMS_RKC_BUILDS}.items():
         # the header of the build without the switch, with it set
         header = jobs[off][1].replace("constexpr bool SNAP = false;",
                                       "constexpr bool SNAP = true;")
@@ -1581,11 +1629,13 @@ def _adams_host(lib, case, lanes=1, **over):
                       **dict(kw, **over))
 
 
-def _swag_host(lib, rhs, span, y0, lanes=1, params=None, rows=0, **kw):
+def _swag_host(lib, rhs, span, y0, lanes=1, params=None, rows=0,
+               t_eval=None, **kw):
     """The host-built B3 on ``y0`` (with the members' ``params`` or none)
     at ``lanes`` lanes per member, started from the float32 stepper's init
     on the bound function as the wrapper starts it: (y, status, nsteps,
-    nfev, work), and with ``rows`` the record's arrays after them."""
+    nfev, work), with ``rows`` the record's arrays after them, and a build
+    with snapshots takes ``t_eval`` and returns ``y_eval`` last."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host lane group switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
@@ -1602,20 +1652,21 @@ def _swag_host(lib, rhs, span, y0, lanes=1, params=None, rows=0, **kw):
     out = np.empty_like(y0)
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
     work = np.empty((nb, FA._WORK), np.int32)
-    rec = _HostRecord(y0, rows)
+    snap = _HostSnap(t_eval, span, y0)
+    rec = _HostRecord(y0, rows, snap.points is not None)
     fn = lib.fused_adams_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = ([vp] * 10 + [ci, cf, cf, cf, cf, cf, cf, ci, ci]
-                   + rec.argtypes + [ci])
+                   + rec.argtypes + snap.argtypes + [ci])
     rc = fn(y0.ctypes.data, None if params is None else params.ctypes.data,
             yp0.ctypes.data, h0.ctypes.data, nfev0.ctypes.data,
             out.ctypes.data, st.ctypes.data, ns.ctypes.data, nf.ctypes.data,
             work.ctypes.data, nb, FA._f32(span[0]), FA._f32(span[1]),
             direction, FA._f32(kw["rtol"]), FA._f32(kw["atol"]), np.inf,
             kw.get("max_steps", 200_000), int(kw.get("compensated", False)),
-            *rec.args(), lanes)
+            *rec.args(), *snap.args(), lanes)
     assert rc == 0
-    return (out, st, ns, nf, work) + rec.arrays()
+    return (out, st, ns, nf, work) + rec.arrays() + snap.arrays()
 
 
 @functools.lru_cache(maxsize=None)
@@ -1684,7 +1735,29 @@ def _rkc_inputs():
     return y0, np.array([[2.9], [3.2], [3.4]], np.float32)
 
 
-def _rkc_host(lib, rho_mode, rho, cluster=1, **kw):
+class _HostPoints:
+    """The t_eval arrays of a host RKC launch with snapshots (none for
+    ``t_eval`` None): the points in t_eval's order and y_eval (members, nq,
+    *shape) filled with NaN so that a row the kernel leaves shows."""
+
+    def __init__(self, t_eval, y0):
+        self.tq = (None if t_eval is None
+                   else np.asarray(t_eval, np.float32).reshape(-1))
+        self.argtypes = []
+        if self.tq is not None:
+            self.y = np.full((y0.shape[0], len(self.tq)) + y0.shape[1:],
+                             np.nan, np.float32)
+            self.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+
+    def args(self):
+        return (() if self.tq is None
+                else (self.tq.ctypes.data, self.y.ctypes.data, len(self.tq)))
+
+    def arrays(self):
+        return () if self.tq is None else (self.y,)
+
+
+def _rkc_host(lib, rho_mode, rho, cluster=1, t_eval=None, **kw):
     if cluster > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host cluster switches x86-64 stacks")
     y0, params = _rkc_inputs()
@@ -1693,17 +1766,19 @@ def _rkc_host(lib, rho_mode, rho, cluster=1, **kw):
     out = np.empty_like(y0)
     ints = [np.empty(nb, np.int32) for _ in range(4)]
     work = np.empty(nb * FR.N_ARRAYS * ntot, np.float32)
+    pts = _HostPoints(t_eval, y0)
     fn = lib.fused_rkc_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ci] + [vp] * 8 + [ci] + [cf] * 8 + [ci] * 4
+    fn.argtypes = [ci] + [vp] * 8 + [ci] + [cf] * 8 + [ci] * 3 \
+        + pts.argtypes + [ci]
     rc = fn(rho_mode, y0.ctypes.data, params.ctypes.data, out.ctypes.data,
             *[a.ctypes.data for a in ints], work.ctypes.data, nb, 0.0, 1.0,
             1.0, 1e-4, 1e-7, FR._f32(kw.get("first_step", -1.0)),
             FR._f32(rho) if rho_mode == 0 else 0.0, np.inf,
             FR._mmax_for(1e-4, kw.get("m_max"))[0], 100_000,
-            int(kw.get("const_jac", False)), cluster)
+            int(kw.get("const_jac", False)), *pts.args(), cluster)
     assert rc == 0
-    return (out, *ints)
+    return (out, *ints) + pts.arrays()
 
 
 RHO_8 = 8 * 0.02 * RKC_SHAPE[1] ** 2 + 5.5
@@ -1763,9 +1838,10 @@ def test_rkc_cluster_body_matches_plain_version(libs, case, cluster):
     assert _rkc_against_plain(libs, case, cluster) <= 5e-6
 
 
-def _rkc_grid_host(lib, rho_mode, blocks, local, **kw):
+def _rkc_grid_host(lib, rho_mode, blocks, local, t_eval=None, **kw):
     """B9's body on ``blocks`` host blocks, its arrays in their buffers
-    (``local``) or in the workspace, on member 0 of the RKC inputs."""
+    (``local``) or in the workspace, on member 0 of the RKC inputs; a build
+    with snapshots takes ``t_eval`` and returns ``y_eval`` last."""
     if platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host grid switches x86-64 stacks")
     y0, params = (np.ascontiguousarray(x[:1]) for x in _rkc_inputs())
@@ -1773,17 +1849,19 @@ def _rkc_grid_host(lib, rho_mode, blocks, local, **kw):
     out = np.empty_like(y0)
     ints = [np.empty(1, np.int32) for _ in range(4)]
     work = np.empty(FR.N_ARRAYS * ntot, np.float32)
+    pts = _HostPoints(t_eval, y0)
     fn = lib.fused_rkc_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ci] + [vp] * 8 + [cf] * 8 + [ci] * 5
+    fn.argtypes = [ci] + [vp] * 8 + [cf] * 8 + [ci] * 3 + pts.argtypes \
+        + [ci] * 2
     rc = fn(rho_mode, y0.ctypes.data, params.ctypes.data, out.ctypes.data,
             *[a.ctypes.data for a in ints], work.ctypes.data, 0.0, 1.0, 1.0,
             1e-4, 1e-7, FR._f32(kw.get("first_step", -1.0)),
             FR._f32(RHO_8) if rho_mode == 0 else 0.0, np.inf,
             FR._mmax_for(1e-4, kw.get("m_max"))[0], 100_000,
-            int(kw.get("const_jac", False)), blocks, int(local))
+            int(kw.get("const_jac", False)), *pts.args(), blocks, int(local))
     assert rc == 0
-    return (out, *ints)
+    return (out, *ints) + pts.arrays()
 
 
 @pytest.mark.parametrize("blocks", [3, 4])
@@ -2128,11 +2206,12 @@ def test_ckdisc_lane_body_isolates_an_overflowing_member(libs):
 
 
 def _adams_grid_host(lib, fun, span, y0, lanes=1, params=None, rows=0,
-                     **kw):
+                     t_eval=None, **kw):
     """The host-built mid-size SWAG body on ``y0`` (with the members'
     ``params`` or none) with its coefficients on ``lanes`` lanes, started
     from the float32 stepper's init as the wrapper starts it: (y, status,
-    nsteps, nfev), and with ``rows`` the record's arrays after them."""
+    nsteps, nfev), with ``rows`` the record's arrays after them, and a
+    build with snapshots takes ``t_eval`` and returns ``y_eval`` last."""
     if lanes > 1 and platform.machine() not in ("x86_64", "AMD64"):
         pytest.skip("the host warp switches x86-64 stacks")
     y0 = np.ascontiguousarray(y0, np.float32)
@@ -2148,10 +2227,12 @@ def _adams_grid_host(lib, fun, span, y0, lanes=1, params=None, rows=0,
                             else torch.tensor(params)))
     out = np.empty_like(y0)
     st, ns, nf = (np.empty(nb, np.int32) for _ in range(3))
-    rec = _HostRecord(y0, rows)
+    snap = _HostSnap(t_eval, span, y0)
+    rec = _HostRecord(y0, rows, snap.points is not None)
     fn = lib.fused_adams_grid_host
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 9 + [ci] + [cf] * 6 + [ci] + rec.argtypes + [ci]
+    fn.argtypes = ([vp] * 9 + [ci] + [cf] * 6 + [ci] + rec.argtypes
+                   + snap.argtypes + [ci])
     mstep = kw.get("max_step")
     rc = fn(y0.ctypes.data, None if params is None else params.ctypes.data,
             yp0.ctypes.data, h0.ctypes.data, nfev0.ctypes.data,
@@ -2159,9 +2240,9 @@ def _adams_grid_host(lib, fun, span, y0, lanes=1, params=None, rows=0,
             nb, FA._f32(span[0]), FA._f32(span[1]), direction,
             FA._f32(kw["rtol"]), FA._f32(kw["atol"]),
             np.inf if mstep is None else FA._f32(mstep),
-            kw.get("max_steps", 200_000), *rec.args(), lanes)
+            kw.get("max_steps", 200_000), *rec.args(), *snap.args(), lanes)
     assert rc == 0
-    return (out, st, ns, nf) + rec.arrays()
+    return (out, st, ns, nf) + rec.arrays() + snap.arrays()
 
 
 # name -> (library, problem, span, y0, options): the cases of
@@ -3377,3 +3458,149 @@ def test_route_snapshot_lane_bodies_bit_identical_to_thread_body(libs, name,
     for a, b in zip(_route_teval(libs, name, lanes=lanes, plain=False)[0],
                     _route_teval(libs, name, plain=False)[0]):
         np.testing.assert_array_equal(a, b)
+
+
+# -- t_eval snapshots of B3, B8, B9 and B10 ----------------------------------
+
+# points unsorted, repeated, at and before t0 and past tf
+TQ_OSC = [1.0, 0.0, 0.5, 2.0, 1.5, 1.5, -0.5, 2.5, 0.004]
+TQ_HEAT = [0.1, 0.0, 0.25, 0.05, 0.05, -0.1, 0.3, 7e-4]
+# RKC's pending index: before t0, at t0, in order, out of order, NaN
+TQ_RKC = [-0.1, 0.0, 0.25, 0.75, 0.5, 0.6, np.nan, 0.9, 0.3]
+
+
+def _adams_teval_plain(case, tq):
+    prob, span, y0, kw = ADAMS_CASES[case]
+    return [r.numpy() for r in FA.fused_adams_reference(
+        TA.PROBLEMS[prob], span, torch.tensor(y0), t_eval=tq, **kw)]
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 32])
+def test_adams_snapshot_build_bit_for_bit(libs, lanes):
+    """B3's snapshot build on the compensated oscillator (k_max 4, a whole
+    run that repeats the plain version's arithmetic): its five outputs are
+    the build's without the snapshots bit for bit, and its rows the plain
+    version's bit for bit (the Hermite from the high words of t and y, y0
+    before t0, the final y past tf), on one thread and with a step's
+    crossed points split over 4 and 32 lanes."""
+    on = _adams_host(libs["adams_osc_comp_snap"], "osc_comp", lanes,
+                     t_eval=TQ_OSC)
+    off = _adams_host(libs["adams_osc_comp"], "osc_comp", lanes)
+    assert len(on) == len(off) + 1
+    for a, b in zip(on, off):
+        np.testing.assert_array_equal(a, b)
+    ref = _adams_teval_plain("osc_comp", TQ_OSC)
+    np.testing.assert_array_equal(on[-1], ref[4])
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_adams_snapshot_build_plain_mode(libs, lanes):
+    """B3's snapshot build on Van der Pol (plain mode, k_max 6): the five
+    outputs are the build's without the snapshots bit for bit; the rows
+    of the members whose counts match the plain version's lie within the
+    kernel's gate on y (GATES_ADAMS, 3e-5: powf against torch.pow parts
+    the last bits of h from the second attempt)."""
+    tq = [1.1, 0.0, 0.5, 2.0, 1.7, 1.7, -0.5, 2.5]
+    on = _adams_host(libs["adams_vdp_snap"], "vdp", lanes, t_eval=tq)
+    off = _adams_host(libs["adams_vdp"], "vdp", lanes)
+    for a, b in zip(on, off):
+        np.testing.assert_array_equal(a, b)
+    ref = _adams_teval_plain("vdp", tq)
+    same = (on[2] == ref[2]) & (on[3] == ref[3])
+    assert same.sum() >= len(same) - 4
+    assert np.max(np.abs(on[-1][:, same] - ref[4][:, same])) <= 3e-5
+    np.testing.assert_array_equal(on[-1][1], ADAMS_CASES["vdp"][2])
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_adams_grid_snapshot_build_bit_for_bit(libs, lanes):
+    """B8's snapshot build on the heat MoL with max_step (a whole run that
+    repeats the plain version's arithmetic): its four outputs are the
+    build's without the snapshots bit for bit and its rows, every thread
+    its own elements, the plain version's bit for bit, with the
+    coefficients on one lane and on a warp of 32."""
+    lib, prob, span, y0, kw = ADAMS_GRID_CASES["heat_max_step"]
+    fun, y0 = TAG.RHS[prob], TAG.Y0[y0]
+    on = _adams_grid_host(libs["ag_heat3_snap"], fun, span, y0, lanes,
+                          t_eval=TQ_HEAT, **kw)
+    off = _adams_grid_host(libs[lib], fun, span, y0, lanes, **kw)
+    assert len(on) == len(off) + 1
+    for a, b in zip(on, off):
+        np.testing.assert_array_equal(a, b)
+    ref = FAG.fused_adams_grid_reference(fun, span, torch.tensor(y0),
+                                         t_eval=TQ_HEAT, **kw)
+    np.testing.assert_array_equal(on[-1], ref[4].numpy())
+
+
+def _rkc_teval_plain(mode, tq, **kw):
+    y0, params = _rkc_inputs()
+    rho = {0: RHO_8, 1: TR.RHO_FN, 2: None}[mode]
+    return [r.numpy() for r in FR.fused_rkc_reference(
+        pde.brusselator_2d_grid(RKC_SHAPE, B=None), (0.0, 1.0),
+        torch.tensor(y0), rho, params=torch.tensor(params), rtol=1e-4,
+        atol=1e-7, t_eval=tq, **kw)]
+
+
+def _check_rkc_rows(rows, ref_rows, y_final, members):
+    """RKC rows against the plain version's, on ``members``: the points at
+    or before t0 (first) are y0 bit for bit, from the NaN point on the
+    final y bit for bit, those in order within the body's 5e-6, and the
+    two out of order (0.5 and 0.6 after 0.75, written at the step that
+    reaches 0.75, the cubic at theta down to ~-3) within 1e-4: measured
+    4.1e-5 at most, the step's end pairs' 1.4e-6 amplified by the weights
+    there."""
+    y0 = _rkc_inputs()[0]
+    nan_at = int(np.flatnonzero(np.isnan(TQ_RKC))[0])
+    behind = [4, 5]
+    for m in members:
+        for q in (0, 1):
+            np.testing.assert_array_equal(rows[m, q], y0[m])
+        for q in range(nan_at, len(TQ_RKC)):
+            np.testing.assert_array_equal(rows[m, q], y_final[m])
+        d = np.abs(rows[m] - ref_rows[m]).reshape(len(TQ_RKC), -1).max(1)
+        assert np.max(np.delete(d, behind)) <= 5e-6
+        assert np.max(d[behind]) <= 1e-4
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("case", ["float", "power"])
+def test_rkc_snapshot_build_matches_plain_version(libs, case, cluster):
+    """The RKC body's snapshot build (B9 and B10 share it) on the host, one
+    member a one-thread group or a cluster of 2 and 4 coroutine CTAs each
+    writing its chunk of a row: its five outputs are the build's without
+    the snapshots bit for bit, and its rows by the pending index (points
+    before and at t0, in order, out of order, NaN, and after it) hold
+    fused_rkc_reference's, the overflowing member's y0 and final y bit for
+    bit."""
+    mode, kw = RKC_CASES[case]
+    on = _rkc_host(libs["rkc_snap"], mode, RHO_8, cluster, t_eval=TQ_RKC,
+                   **kw)
+    off = _rkc_host(libs["rkc"], mode, RHO_8, cluster, **kw)
+    assert len(on) == len(off) + 1
+    for a, b in zip(on, off):
+        np.testing.assert_array_equal(a, b)
+    ref = _rkc_teval_plain(mode, TQ_RKC, **kw)
+    rows = on[-1]
+    assert rows.shape == ref[-1].shape == (3, len(TQ_RKC)) + (2,) + RKC_SHAPE
+    _check_rkc_rows(rows, ref[-1], on[0], [0, 1])
+    np.testing.assert_array_equal(rows[2], ref[-1][2])
+
+
+@pytest.mark.parametrize("case", ["float", "power"])
+def test_rkc_grid_snapshot_build_matches_plain_version(libs, case):
+    """B9's grid body with snapshots on 3 host blocks, each writing its
+    own elements of a row: the shared and global placements give the same
+    outputs and rows, the outputs are the build's without the snapshots
+    bit for bit, and the rows hold fused_rkc_reference's."""
+    mode, kw = RKC_CASES[case]
+    local = _rkc_grid_host(libs["rkc_snap"], mode, 3, True, t_eval=TQ_RKC,
+                           **kw)
+    glob = _rkc_grid_host(libs["rkc_snap"], mode, 3, False, t_eval=TQ_RKC,
+                          **kw)
+    off = _rkc_grid_host(libs["rkc"], mode, 3, True, **kw)
+    for a, b in zip(local, glob):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(local, off):
+        np.testing.assert_array_equal(a, b)
+    ref = _rkc_teval_plain(mode, TQ_RKC, **kw)
+    _check_rkc_rows(local[-1], ref[-1][:1], local[0], [0])

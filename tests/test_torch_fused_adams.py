@@ -2,9 +2,11 @@
 
 ``fused_adams_reference`` (the CUDA kernel's plain PyTorch version) runs on
 the CPU; the JAX side runs ``solve_fused_adams(..., interpret=True)`` as the
-JAX package's own tests run it, on the same inputs, in one subprocess with
+JAX package's own tests run it, on the same inputs, with
 ``XLA_FLAGS=--xla_cpu_max_isa=SSE4_2`` so that XLA, like PyTorch's CPU
-operations, rounds every product on its own (no FMA).  What remains
+operations, rounds every product on its own (no FMA), its outputs written
+to ``tests/jax_fused_adams.npz`` by ``tests/jax_fused_adams.py``.  What
+remains
 between the two is the round-off of ``pow`` (``exp(log x / (k + 1))`` in
 the JAX kernel) and of the float32 starting step's ``log10``/``pow``; a
 case given ``first_step`` skips the latter.
@@ -23,11 +25,6 @@ select each lane count per member the wrapper takes; they skip where
 there is none.  JAX is imported only inside the tests that call it, so that the
 file also runs where only torch is installed (``-m gpu --noconftest``).
 """
-import json
-import os
-import subprocess
-import sys
-import textwrap
 import types
 from pathlib import Path
 
@@ -87,46 +84,12 @@ CASES = {
                    first_step=1e-5, max_steps=400_000)),
 }
 
-_JAX_SCRIPT = textwrap.dedent("""
-    import json, sys
-    import numpy as np
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    import jax.numpy as jnp
-    from extensisq_tpu.ops.fused_adams import solve_fused_adams
-
-    problems = {
-        "vdp5": lambda t, y: jnp.stack([y[1], 5.0 * (1 - y[0] ** 2) * y[1]
-                                        - y[0]]),
-        "vdp1e3": lambda t, y: jnp.stack([y[1], 1000.0 * (1 - y[0] ** 2)
-                                          * y[1] - y[0]]),
-        "osc": lambda t, y: jnp.stack([y[1], -y[0]]),
-        "decay": lambda t, y: jnp.stack([-y[0]]),
-    }
-    inputs = np.load(sys.argv[1])
-    out = {}
-    for name, (prob, span, kw) in json.loads(sys.argv[2]).items():
-        res = solve_fused_adams(problems[prob], tuple(span),
-                                inputs[name + "/y0"], block_members=128,
-                                interpret=True, **kw)
-        for i, r in enumerate(res):
-            out[f"{name}/{i}"] = np.asarray(r)
-    np.savez(sys.argv[3], **out)
-""")
-
-
 @pytest.fixture(scope="module")
-def jax_results(tmp_path_factory):
-    """The JAX kernel's outputs for every case, from one subprocess."""
-    d = tmp_path_factory.mktemp("jax_fused_adams")
-    np.savez(d / "in.npz", **{n + "/y0": c[2] for n, c in CASES.items()})
-    spec = {n: [c[0], c[1], c[3]] for n, c in CASES.items()}
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_cpu_max_isa=SSE4_2", PYTHONPATH=str(REPO))
-    subprocess.run([sys.executable, "-c", _JAX_SCRIPT, str(d / "in.npz"),
-                    json.dumps(spec), str(d / "out.npz")],
-                   cwd=REPO, env=env, check=True, timeout=900)
-    out = np.load(d / "out.npz")
+def jax_results():
+    """The JAX kernel's outputs for every case, from
+    ``tests/jax_fused_adams.npz`` (``tests/jax_fused_adams.py`` writes
+    it)."""
+    out = np.load(REPO / "tests" / "jax_fused_adams.npz")
     return {k: tuple(out[f"{k}/{i}"] for i in range(4)) for k in CASES}
 
 
@@ -312,7 +275,7 @@ def test_cpu_wrapper_runs_plain_version():
     assert solve_fused_adams.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events"])
+@pytest.mark.parametrize("option", ["events"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="B3"):
         solve_fused_adams(PROBLEMS["vdp5"], (0.0, 1.0), torch.tensor(X0),
@@ -373,8 +336,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_key_hashes_adams_headers(monkeypatch, tmp_path):
     """The kernel's build key covers dense_record.cuh, adams_common.cuh,
-    member_rhs.cuh, rk_common.cuh and lane_group.cuh, which it includes,
-    and no other shared header."""
+    member_rhs.cuh, rk_common.cuh, snapshot.cuh and lane_group.cuh, which
+    it includes, and no other shared header."""
     import shutil
     from extensisq_tpu_torch.ops import _build
     csrc = tmp_path / "csrc"
@@ -382,7 +345,7 @@ def test_build_key_hashes_adams_headers(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.shared_headers("fused_adams")] == [
         "dense_record.cuh", "adams_common.cuh", "member_rhs.cuh",
-        "rk_common.cuh", "lane_group.cuh"]
+        "rk_common.cuh", "snapshot.cuh", "lane_group.cuh"]
     before = _build.build_key("fused_adams", "header")
     common = csrc / "adams_common.cuh"
     common.write_text(common.read_text() + "\n// edited\n")

@@ -269,7 +269,7 @@ def test_cpu_wrapper_runs_plain_version():
     assert solve_fused_adams_grid.launches == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events"])
+@pytest.mark.parametrize("option", ["events"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
         solve_fused_adams_grid(RHS["heat"], (0.0, 1.0),
@@ -291,7 +291,7 @@ def test_generated_header_carries_the_grid():
     assert "constexpr int KM = 6;" in text and RHS["heat"].cuda_src in text
     assert [p.name for p in _build.shared_headers("fused_adams_grid")] == [
         "dense_record.cuh", "grid_common.cuh", "adams_common.cuh",
-        "rk_common.cuh", "block_group.cuh", "lane_group.cuh"]
+        "rk_common.cuh", "snapshot.cuh", "block_group.cuh", "lane_group.cuh"]
 
 
 @pytest.fixture

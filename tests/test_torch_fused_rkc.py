@@ -283,7 +283,7 @@ def test_cpu_wrappers_run_plain_version():
             solve_fused_rkc_ensemble.launches) == before
 
 
-@pytest.mark.parametrize("option", ["t_eval", "events"])
+@pytest.mark.parametrize("option", ["events"])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="B9"):
         solve_fused_rkc(BRUS, (0.0, 1.0), torch.tensor(Y0), RHO,
@@ -326,19 +326,21 @@ def test_generated_header():
 
 def test_build_key_hashes_rkc_headers(monkeypatch, tmp_path):
     """The kernel's build key covers ds.cuh, grid_common.cuh,
-    block_group.cuh (B10's thread-block group, shared with the mid-size
-    kernels) and rk_common.cuh (whose NaN-keeping minimum block_group.cuh
-    takes), which it includes, and no other shared header."""
+    snapshot.cuh (the t_eval rows' pending index), block_group.cuh (B10's
+    thread-block group, shared with the mid-size kernels) and rk_common.cuh
+    (whose NaN-keeping minimum block_group.cuh takes), which it includes,
+    and no other shared header."""
     import shutil
     from extensisq_tpu_torch.ops import _build
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.shared_headers("fused_rkc")] == [
-        "ds.cuh", "grid_common.cuh", "block_group.cuh", "rk_common.cuh"]
+        "ds.cuh", "grid_common.cuh", "snapshot.cuh", "block_group.cuh",
+        "rk_common.cuh"]
     before = _build.build_key("fused_rkc", "header")
-    for name in ("ds.cuh", "grid_common.cuh", "block_group.cuh",
-                 "rk_common.cuh"):
+    for name in ("ds.cuh", "grid_common.cuh", "snapshot.cuh",
+                 "block_group.cuh", "rk_common.cuh"):
         f = csrc / name
         f.write_text(f.read_text() + "\n// edited\n")
         after = _build.build_key("fused_rkc", "header")

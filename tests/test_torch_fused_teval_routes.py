@@ -551,18 +551,26 @@ def test_events_still_raise(solve_fn):
 
 
 def test_t_eval_still_raises_on_the_other_kernels():
-    """B3, B8, B9 and B10 still refuse ``t_eval``, naming ROADMAP queue
-    B."""
+    """The other kernels, B3, B8, B9 and B10, take ``t_eval`` too now (their
+    rows are held in ``test_torch_fused_teval_adams_rkc.py``): each returns
+    ``y_eval`` in JAX's shape and place, and ``events`` still raises on
+    them, naming ROADMAP queue B."""
     from extensisq_tpu_torch.ops import (solve_fused_adams,
                                          solve_fused_adams_grid,
                                          solve_fused_rkc,
                                          solve_fused_rkc_ensemble)
     y = torch.ones(4, 2)
-    for fn, y0 in ((solve_fused_adams, y), (solve_fused_adams_grid, y),
-                   (solve_fused_rkc, torch.ones(8, 8)),
-                   (solve_fused_rkc_ensemble, torch.ones(2, 8, 8))):
+    for fn, y0, kw, at, shape in (
+            (solve_fused_adams, y, {}, 4, (1, 4, 2)),
+            (solve_fused_adams_grid, y, {}, 4, (1, 4, 2)),
+            (solve_fused_rkc, torch.ones(8, 8), dict(rho=1.0), 4, (1, 8, 8)),
+            (solve_fused_rkc_ensemble, torch.ones(2, 8, 8), dict(rho=None),
+             5, (2, 1, 8, 8))):
+        out = fn(lambda t, y: -y, (0.0, 1.0), y0, t_eval=[0.5], **kw)
+        assert len(out) == at + 1 and tuple(out[at].shape) == shape
         with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
-            fn(lambda t, y: -y, (0.0, 1.0), y0, t_eval=[0.5])
+            fn(lambda t, y: -y, (0.0, 1.0), y0, events=lambda t, y: y,
+               **kw)
 
 
 def test_generated_headers_carry_the_switch():

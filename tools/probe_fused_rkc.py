@@ -28,7 +28,10 @@ each C, registers and spills of every build, the cluster barriers, fences
 and L1 invalidations in each kernel's SASS (cuobjdump), whether B9 and
 B10 at C = 1 are bit-identical to the old kernel and whether three
 launches of B10 at the rule's C and of B9 in each placement repeat bit
-for bit, and us per RHS
+for bit, whether B9 with the power iteration is bit-identical to the old
+kernel at each placement, whether each old build's SASS opcodes are the
+current one's kernel by kernel (cuobjdump; where not, each kernel apart
+with its opcode counts less the old build's), and us per RHS
 evaluation of the slowest member.  Writes chiprun_out/<--tag>.json.
 
     git archive <commit> extensisq_tpu_torch/csrc | tar -x -C <dir>
@@ -42,6 +45,7 @@ import shutil
 import statistics
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -49,6 +53,7 @@ import numpy as np
 import torch
 
 from _probe import (build, card, launch_signature, ptxas_lines, sass_ops,
+                    sass_same,
                     turns, write_out)
 from extensisq_tpu_torch import parallel
 from extensisq_tpu_torch.ops import _build
@@ -353,7 +358,34 @@ def b9(builds, labels, n_turns):
             res[label]["repeat_bit_identical"] = same
     print(f"b9: status {int(outs['new global'][1][0])}, nsteps "
           f"{int(outs['new global'][2][0])}")
+    # the power iteration's kernels, old against new at both placements
+    power = Line(b9_y0(), None, 1.0, None, True)
+    same = {}
+    for placement in (1, 2) if sh is not None and sh[1] else (1,):
+        o, n = (power.launch(builds[f"{k}_b9"], blocks=blocks[k],
+                             placement=placement) for k in ("old", "new"))
+        torch.cuda.synchronize()
+        same[placement] = equal(o, n)
+    print(f"b9 2x{BRUS_N}x{BRUS_N} power iteration: bit-identical to old at "
+          f"placements {same}")
+    res["power_bit_identical"] = same
     OUT["b9"] = res
+
+
+def sass_apart(old, new):
+    """The kernels whose SASS opcodes differ between two builds, each with
+    new's opcode counts less old's (kernels paired by their order in each
+    build's dump, which follows their names once sorted)."""
+    a, b = sass_ops(old["so"]), sass_ops(new["so"])
+    if not isinstance(a, dict) or not isinstance(b, dict):
+        return {}
+    out = {}
+    for (ka, ca), (kb, cb) in zip(sorted(a.items()), sorted(b.items())):
+        if ca != cb:
+            d = Counter(cb)
+            d.subtract(ca)
+            out[kb] = {op: n for op, n in d.items() if n}
+    return out
 
 
 def main():
@@ -430,6 +462,18 @@ def main():
             print(f"sass[{k}] {sass}")
         OUT[f"build_{k}"] = {"seconds": b["seconds"], "log": b["log"],
                              "sass": sass}
+    # each old build against the current one from the same header: their
+    # kernels' SASS opcodes, kernel by kernel
+    for k in [k for k in builds if k.startswith("old_")]:
+        new = "new_" + k[len("old_"):]
+        same, totals = sass_same(builds[k], builds[new])
+        print(f"SASS [{k[len('old_'):]}]: old and new opcodes kernel by "
+              f"kernel {'identical' if same is True else same}; "
+              f"instructions {totals}")
+        if same is False:
+            for fn, d in sass_apart(builds[k], builds[new]).items():
+                print(f"  SASS apart [{k[len('old_'):]}] {fn}: {d}")
+        OUT[f"sass_same_{k[len('old_'):]}"] = same
 
     vt = [(name, int(value) if const == "kClusterThreads"
            else FR.BLOCK_THREADS) for name, const, value in variants]

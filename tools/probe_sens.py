@@ -39,6 +39,14 @@ points) and then ``chip_smoke.teval_routes_path`` (the t_eval snapshots on
 B5, B6, B2 and B7, each against its plain version and bit for bit the
 launch without t_eval at every shape; the implicit builds, the Kepler,
 wave and reaction-diffusion builds and the six snapshot builds).
+``--teval-adams-rkc`` runs ``chip_smoke.adams_path``, ``rkc_path`` and
+``mid_path`` (whose cut-span SWAG runs, heat line and B9/B10 runs take the
+points of the next phase) and then ``chip_smoke.teval_adams_rkc_path``
+(the t_eval snapshots on B3, B8, B9 and B10, each bit for bit the launch
+without t_eval at every shape and against its plain version and the f64
+drivers' rows; the pending index on a small B10 check; the Watts-start
+probe of B1's and B11's snapshot builds; the SWAG, RKC and mid-size
+builds and the ten of the phase).
 
 ``--inline`` then also builds the two variational grid systems with their
 augmented ``rhs`` inlined (``__forceinline__`` for the generated
@@ -49,7 +57,8 @@ the medians, their ratio and how far the inlined outputs lie from the
 shipped ones.  Run from the repository root:
 
     PYTHONPATH=. python tools/probe_sens.py [--grid | --adjoint | --routes
-        | --adams | --teval [--snap-src <dir>] | --teval-routes] [--inline]
+        | --adams | --teval [--snap-src <dir>] | --teval-routes
+        | --teval-adams-rkc] [--inline]
 """
 import re
 import statistics
@@ -216,6 +225,17 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
+    if "--teval-adams-rkc" in sys.argv[1:]:
+        C.build_all(C.adams_builds(C.adams_rhs()) + C.rkc_builds(C.rkc_rhs())
+                    + C.mid_builds(C.mid_rhs())
+                    + C.teval_adams_rkc_builds(C.teval_adams_rkc_rhs()))
+        C.adams_path()
+        C.rkc_path()
+        C.mid_path()
+        for name, keys in C.teval_adams_rkc_path().items():
+            print(f"{name}: {keys}")
+        print(smi.splitlines()[0])
+        return 0
     if "--teval-routes" in sys.argv[1:]:
         C.build_all(
             C.esdirk_builds()
